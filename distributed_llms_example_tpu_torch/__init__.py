@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of ``distributed_llms_example_tpu`` for NVIDIA Hopper.
+
+The JAX package beside this one is the reference; this package mirrors its
+subpackage and module names so a reader can find each counterpart, and it
+imports nothing of it (nor JAX): what it needs from there it keeps as its
+own copy.  The TPU's Pallas kernels on the ported path are hand-written
+CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
+(``ops/cuda_build.py``).
+
+Ported so far: serving BART (``launch/cli.py serve``) with the flash-
+attention forward and flash-decode kernels.  ROADMAP.md lists what is
+still to come.
+"""

@@ -1,0 +1,265 @@
+// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces the TPU Pallas kernel distributed_llms_example_tpu/ops/
+// flash_attention.py `_fwd_kernel` (reached through `_fwd` and the public
+// `flash_attention`).  Same function, not a block-by-block copy:
+//
+//   o   = softmax(scale * q k^T + bias) v      (fp32 online softmax)
+//   lse = m + log(l), or MASK_VALUE where a row has no live key
+//
+// q, k, v: (B, H, S, D) contiguous, fp32 or bf16; o like q; lse (B, H, Sq)
+// fp32.  `bias` is an fp32 additive mask read through its own element
+// strides, so a size-1 dim (stride 0) is never broadcast in memory; it may
+// be null.  `causal` applies the top-left mask q_pos >= k_pos with -inf and
+// skips kv tiles wholly above the diagonal.  Rows whose every key is -inf
+// give o = 0 and lse = MASK_VALUE; rows masked only by the finite
+// NEG_INF = -1e9 padding bias average all values uniformly, exactly as
+// plain softmax attention does.  As on the TPU, p is rounded to v's dtype
+// before the value product, while the row sum l accumulates unrounded p.
+//
+// Any Lq and Lk: every tile load and score is bounds-checked.
+//
+// What bounds it on the H100: at the serve shape (8, 16, 1024, 64) bf16 the
+// work is 4*B*H*S*S*D = 34 GFLOP against ~67 MB of traffic (q, k, v and o
+// at 16.8 MB each), so it is bound by arithmetic (about 35 us at the bf16
+// tensor-core peak against about 20 us of HBM time).  This first version does the arithmetic in fp32
+// on the CUDA cores, not the tensor cores, so it is far from that bound:
+// the design keeps the (S, S) score matrix out of device memory (one
+// 64 x 64 tile in shared memory at a time), reads every q/k/v element once
+// per block, and register-tiles both products (each thread owns a 4 x 4
+// score tile and a 4 x D/16 output tile) so shared-memory loads are half
+// the FMAs.  Tensor-core (wgmma) tiles, TMA loads and warp specialisation
+// are later work.  The learned-bias and in-kernel dropout branches of the
+// TPU kernel are not on the serving path and join with the T5 and
+// training slices.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;   // query rows per block
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 256;  // threads: a 16 x 16 grid of register tiles
+constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+template <int D>
+constexpr size_t smem_floats() {
+  return BQ * D + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, long long bsb, long long bsh, long long bsq,
+    long long bsk, T* __restrict__ o, float* __restrict__ lse, int H, int Lq,
+    int Lk, float scale, int causal) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int CD = D / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* Qs = smem;                  // [BQ][D]
+  float* Ks = Qs + BQ * D;           // [BK][D + 1]
+  float* Vs = Ks + BK * (D + 1);     // [BK][D]
+  float* Ss = Vs + BK * D;           // [BQ][BK + 1]
+  float* m_s = Ss + BQ * (BK + 1);   // [BQ] running max
+  float* l_s = m_s + BQ;             // [BQ] running sum
+  float* a_s = l_s + BQ;             // [BQ] this tile's rescale factor
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ;
+  const T* qp = q + (size_t)bh * Lq * D;
+  const T* kp = k + (size_t)bh * Lk * D;
+  const T* vp = v + (size_t)bh * Lk * D;
+  const float* bp = bias ? bias + b * bsb + h * bsh : nullptr;
+
+  for (int i = tid; i < BQ * D; i += NT) {
+    const int r = i / D, c = i % D;
+    Qs[i] = (q0 + r < Lq) ? to_f(qp[(size_t)(q0 + r) * D + c]) : 0.f;
+  }
+  if (tid < BQ) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[4][CD];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CD; ++j) acc[i][j] = 0.f;
+
+  int nk = (Lk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);  // tiles touching the diagonal or below
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's readers are done with Ks/Vs/Ss
+    for (int i = tid; i < BK * D; i += NT) {
+      const int r = i / D, c = i % D;
+      const bool ok = k0 + r < Lk;
+      Ks[r * (D + 1) + c] = ok ? to_f(kp[(size_t)(k0 + r) * D + c]) : 0.f;
+      Vs[r * D + c] = ok ? to_f(vp[(size_t)(k0 + r) * D + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // scores: rows ty*4 + i, columns tx + 16*j (strided, so lanes hit
+    // distinct banks of the padded K rows)
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * D + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty * 4 + i, c = tx + 16 * j;
+        const int qi = q0 + r, ki = k0 + c;
+        float x = -INFINITY;
+        if (qi < Lq && ki < Lk && !(causal && ki > qi)) {
+          x = s[i][j] * scale;
+          if (bp) x += bp[(long long)qi * bsq + (long long)ki * bsk];
+        }
+        Ss[r * (BK + 1) + c] = x;
+      }
+    }
+    __syncthreads();
+
+    // online softmax, four consecutive lanes per row
+    {
+      const int r = tid / 4, part = tid % 4;
+      float* row = Ss + r * (BK + 1);
+      float mx = -INFINITY;
+      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, row[c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_prev = m_s[r];
+      const float m_next = fmaxf(m_prev, mx);
+      // a row can still be all -inf: a finite stand-in max keeps
+      // exp(-inf - m) = 0 instead of NaN, and l stays 0
+      const float safe_m = (m_next == -INFINITY) ? 0.f : m_next;
+      float sum = 0.f;
+      for (int c = part; c < BK; c += 4) {
+        const float p = expf(row[c] - safe_m);
+        sum += p;
+        row[c] = round_to<T>(p);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (part == 0) {
+        const float alpha = expf(m_prev - safe_m);
+        m_s[r] = m_next;
+        l_s[r] = alpha * l_s[r] + sum;
+        a_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p v
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float al = a_s[ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < CD; ++j) acc[i][j] *= al;
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[4], vv[CD];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty * 4 + i) * (BK + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < CD; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < CD; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+  __syncthreads();
+
+  T* op = o + (size_t)bh * Lq * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i, qi = q0 + r;
+    if (qi >= Lq) continue;
+    const float l = l_s[r];
+    const float l_safe = (l == 0.f) ? 1.f : l;  // fully-masked rows give zeros
+#pragma unroll
+    for (int j = 0; j < CD; ++j) op[(size_t)qi * D + tx + 16 * j] = from_f<T>(acc[i][j] / l_safe);
+  }
+  if (tid < BQ && q0 + tid < Lq) {
+    const float l = l_s[tid];
+    lse[(size_t)bh * Lq + q0 + tid] = (l == 0.f) ? MASK_VALUE : m_s[tid] + logf(l);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* bias, long long bsb,
+           long long bsh, long long bsq, long long bsk, void* o, void* lse, int B, int H,
+           int Lq, int Lk, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = smem_floats<D>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Lq + BQ - 1) / BQ, B * H);
+  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, bsb, bsh, bsq, bsk, (T*)o,
+      (float*)lse, H, Lq, Lk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_d(int D, const void* q, const void* k, const void* v, const void* bias,
+               long long bsb, long long bsh, long long bsq, long long bsk, void* o, void* lse,
+               int B, int H, int Lq, int Lk, float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch<T, 16>(q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale, causal, s);
+    case 32: return launch<T, 32>(q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale, causal, s);
+    case 64: return launch<T, 64>(q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale, causal, s);
+    case 128: return launch<T, 128>(q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* bias,
+                         long long bsb, long long bsh, long long bsq, long long bsk, void* o,
+                         void* lse, int B, int H, int Lq, int Lk, int D, float scale,
+                         int causal, int is_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk,
+                                     scale, causal, s);
+  return dispatch_d<float>(D, q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale,
+                           causal, s);
+}

@@ -1,0 +1,205 @@
+"""Command line for the PyTorch port (port of the JAX package's
+``launch/cli.py``; the ``serve`` subcommand).
+
+    python -m distributed_llms_example_tpu_torch.launch.cli serve \\
+        --model-ckpt bart-large-cnn --prompts-file prompts.json \\
+        --max-slots 8 --max-new-tokens 128 --max-source-length 1024
+
+It takes the JAX CLI's serve flags plus ``--device`` (default ``cuda``;
+without a GPU it stops unless ``--device cpu`` is given) and ``--seed``
+(the random-init seed: no weights ship with the repository).  The JAX
+CLI's startup lints read XLA cache specs and have no counterpart here yet:
+``--lint`` is parsed and one ``lint_skipped`` line says so.  ``--mesh``
+accepts one-device layouts only; multi-GPU serving, ``serve-router``,
+``serve-loadgen`` and training are later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dllm-torch serve",
+        description="continuous-batching inference over a prompts file "
+                    "(serving/engine.py): prefill/decode split, KV-cache slots, "
+                    "admit/evict per token step",
+    )
+    p.add_argument("--model-ckpt", type=str, default="t5-small")
+    p.add_argument("--tokenizer", type=str, default="")
+    p.add_argument("--prompts-file", type=str, required=True,
+                   help="JSON array / JSONL of records or plain strings")
+    p.add_argument("--source-column", type=str, default="")
+    p.add_argument("--output-file", type=str, default="",
+                   help="write {prompt, output, tokens} JSONL here (default: stdout)")
+    p.add_argument("--num-prompts", type=int, default=0, help="0 = all")
+    p.add_argument("--max-slots", type=int, default=8)
+    p.add_argument("--prefill-batch", type=int, default=0)
+    p.add_argument("--max-new-tokens", type=int, default=128)
+    p.add_argument("--max-source-length", type=int, default=1024)
+    p.add_argument("--log-every-steps", type=int, default=50)
+    p.add_argument("--ttft-slo-ms", type=float, default=0.0)
+    p.add_argument("--kv-cache-dtype", type=str, default="f32", choices=("f32", "int8"))
+    p.add_argument("--prefill-buckets", type=str, default="")
+    p.add_argument("--paged-kv", action="store_true")
+    p.add_argument("--pool-blocks", type=int, default=0)
+    p.add_argument("--kv-block-size", type=int, default=0)
+    p.add_argument("--prefix-cache", action="store_true")
+    p.add_argument("--prefix-cache-budget-gib", type=float, default=0.0)
+    p.add_argument("--spec-tokens", type=int, default=0)
+    p.add_argument("--spec-draft-model", type=str, default="")
+    p.add_argument("--hbm-budget-gib", type=float, default=80.0,
+                   help="device-memory ceiling in GiB for the serve summary's "
+                        "memory account (H100 = 80)")
+    p.add_argument("--postmortem-dir", type=str, default="")
+    p.add_argument("--mesh", type=str, default="data=-1",
+                   help="one-device layouts only (every axis 1 or -1)")
+    p.add_argument("--compute-dtype", type=str, default="bfloat16")
+    p.add_argument("--attention-impl", type=str, default="",
+                   choices=("", "auto", "flash", "ring", "xla"))
+    p.add_argument("--lint", type=str, default="warn", choices=("off", "warn", "strict"))
+    p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--seed", type=int, default=0, help="random-init seed for the weights")
+    return p
+
+
+def check_single_device_mesh(spec: str) -> None:
+    """Accept a ``--mesh`` layout only if it places everything on one device."""
+    sizes = []
+    for part in filter(None, (s.strip() for s in spec.split(","))):
+        name, _, val = part.partition("=")
+        if not val:
+            raise SystemExit(f"--mesh {spec!r}: expected axis=size pairs")
+        sizes.append(int(val))
+    if math.prod(1 if n == -1 else n for n in sizes) != 1:
+        raise SystemExit(
+            f"--mesh {spec!r}: the port serves on one GPU; multi-GPU serving is a "
+            "later slice (ROADMAP.md)"
+        )
+
+
+def _prompt_text(record, source_column: str) -> str:
+    if isinstance(record, str):
+        return record
+    if source_column:
+        return str(record[source_column])
+    for col in ("dialogue", "article", "prompt", "text", "source"):
+        if col in record:
+            return str(record[col])
+    raise SystemExit(
+        f"cannot resolve a prompt column in record keys {sorted(record)}; pass --source-column"
+    )
+
+
+def _serve_config_from_args(args):
+    from distributed_llms_example_tpu_torch.serving.engine import ServeConfig
+
+    return ServeConfig(
+        max_slots=args.max_slots,
+        prefill_batch=args.prefill_batch,
+        max_new_tokens=args.max_new_tokens,
+        max_source_length=args.max_source_length,
+        log_every_steps=args.log_every_steps,
+        ttft_slo_ms=args.ttft_slo_ms,
+        kv_cache_dtype=args.kv_cache_dtype,
+        prefill_buckets=tuple(int(b) for b in args.prefill_buckets.split(",") if b.strip()),
+        paged_kv=args.paged_kv,
+        pool_blocks=args.pool_blocks,
+        kv_block_size=args.kv_block_size,
+        prefix_cache=args.prefix_cache,
+        prefix_cache_budget_gib=args.prefix_cache_budget_gib,
+        spec_tokens=args.spec_tokens,
+        spec_draft_model=args.spec_draft_model,
+        hbm_budget_gib=args.hbm_budget_gib,
+        postmortem_dir=args.postmortem_dir,
+    )
+
+
+def _write_serve_output(args, lm, tok, prompts, outputs) -> None:
+    """Request outputs (the served product): JSONL on stdout or, with
+    ``--output-file``, one ``os.write`` per line and an fsync on close."""
+    from distributed_llms_example_tpu_torch.serving.engine import trim_eos
+    from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
+
+    eos, pad = lm.config.eos_token_id, lm.config.pad_token_id
+    lines = []
+    for prompt, ids in zip(prompts, outputs):
+        kept = [t for t in trim_eos(ids, eos, pad) if t != eos]
+        lines.append({"prompt": prompt, "output": tok.decode(kept), "tokens": len(kept)})
+    if not args.output_file:
+        for rec in lines:
+            sys.stdout.write(json.dumps(rec) + "\n")
+        return
+    parent = os.path.dirname(args.output_file)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    fd = os.open(args.output_file, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        for rec in lines:
+            data = (json.dumps(rec) + "\n").encode("utf-8")
+            while data:
+                data = data[os.write(fd, data):]
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    log_json({"event": "serve_output", "path": args.output_file, "records": len(lines)})
+
+
+def serve(argv: list[str] | None = None):
+    """The ``serve`` subcommand: load → continuous-batching decode → write
+    outputs.  Returns ``(engine, outputs)``: the engine's ``last_stats``
+    hold the run, ``outputs`` the generated ids per prompt."""
+    args = build_serve_parser().parse_args(argv)
+    from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resolve_device
+    from distributed_llms_example_tpu_torch.data.dataset import load_json_records
+    from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.serving.engine import ServingEngine
+    from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
+
+    device = resolve_device(args.device)
+    check_single_device_mesh(args.mesh)
+    serve_cfg = _serve_config_from_args(args)
+    records = load_json_records(args.prompts_file)
+    if args.num_prompts > 0:
+        records = records[: args.num_prompts]
+    prompts = [_prompt_text(r, args.source_column) for r in records]
+    lm = load_model(
+        args.model_ckpt, dtype=parse_dtype(args.compute_dtype), device=device,
+        attention_impl=args.attention_impl or None, seed=args.seed,
+    )
+    if args.lint != "off":
+        log_json({"event": "lint_skipped", "lint": args.lint,
+                  "reason": "the serving lints read XLA cache specs; the port has none yet"})
+    tok = get_tokenizer(args.tokenizer, args.model_ckpt)
+    requests = [tok.encode_source(t, args.max_source_length) for t in prompts]
+    engine = ServingEngine(lm.module, lm.config, serve_cfg, is_seq2seq=lm.is_seq2seq,
+                           device=device)
+    outputs = engine.generate(requests)
+    _write_serve_output(args, lm, tok, prompts, outputs)
+    return engine, outputs
+
+
+def serve_main(argv: list[str] | None = None) -> int:
+    serve(argv)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        return serve_main(argv[1:])
+    raise SystemExit(
+        "the PyTorch port has the 'serve' subcommand only; training, serve-router and "
+        "serve-loadgen are later slices (ROADMAP.md)"
+    )
+
+
+if __name__ == "__main__":
+    sys.exit(main())

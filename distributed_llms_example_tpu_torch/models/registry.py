@@ -1,0 +1,100 @@
+"""Model registry: named configs + random init (port of the JAX package's
+``models/registry.py`` for the BART family).
+
+A registry name resolves to a built-in config sized like the public
+checkpoint, built on the target device and initialized from a seeded
+``torch.Generator`` (no weights ship with the repository).  Loading a local
+HF checkpoint directory, and the T5 and LLaMA families, wait for later
+slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any
+
+import torch
+
+from distributed_llms_example_tpu_torch.core.precision import param_dtype, resolve_device
+from distributed_llms_example_tpu_torch.models.bart import BartConfig, BartForConditionalGeneration
+
+BART_CONFIGS: dict[str, BartConfig] = {
+    "bart-test": BartConfig(
+        vocab_size=256, d_model=64, encoder_layers=2, decoder_layers=2,
+        encoder_attention_heads=4, decoder_attention_heads=4,
+        encoder_ffn_dim=128, decoder_ffn_dim=128, max_position_embeddings=128,
+        forced_bos_token_id=0,
+    ),
+    "bart-base": BartConfig(
+        d_model=768, encoder_layers=6, decoder_layers=6,
+        encoder_attention_heads=12, decoder_attention_heads=12,
+        encoder_ffn_dim=3072, decoder_ffn_dim=3072,
+    ),
+    # the reference's default model
+    "bart-large-cnn": BartConfig(forced_bos_token_id=0),
+    "bart-large": BartConfig(),
+}
+
+_LATER = {
+    "t5": "T5 (relative-position bias through the flash kernel's learned-bias branch)",
+    "llama": "LLaMA serving (causal flash attention, RoPE, GQA, RMSNorm)",
+    "mixtral": "LLaMA serving (causal flash attention, RoPE, GQA, RMSNorm)",
+    "flan": "T5 (relative-position bias through the flash kernel's learned-bias branch)",
+}
+
+
+@dataclasses.dataclass
+class LoadedModel:
+    family: str
+    config: Any
+    module: BartForConditionalGeneration
+    is_seq2seq: bool = True
+
+    @property
+    def device(self) -> torch.device:
+        return self.module.final_logits_bias.device
+
+    def init_params(self, seed: int = 0) -> None:
+        """(Re-)initialize the weights from ``seed`` on the module's device."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        self.module.init_weights(gen)
+
+
+def load_model(
+    name_or_path: str,
+    *,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = None,
+    attention_impl: str | None = None,
+    seed: int = 0,
+) -> LoadedModel:
+    """Resolve a registry name into a LoadedModel on ``device`` (CUDA unless
+    ``"cpu"`` is asked for), with weights drawn from ``seed``."""
+    if attention_impl not in (None, "auto", "flash", "ring", "xla"):
+        raise ValueError(
+            f"attention_impl={attention_impl!r}: must be 'auto', 'flash', 'ring', or 'xla'"
+        )
+    if os.path.isdir(name_or_path):
+        raise NotImplementedError(
+            f"{name_or_path!r} is a local checkpoint directory: loading HF weights waits "
+            "until a checkpoint directory is in the repository (ROADMAP.md)"
+        )
+    short = name_or_path.rsplit("/", 1)[-1]
+    if short not in BART_CONFIGS:
+        for prefix, what in _LATER.items():
+            if short.startswith(prefix):
+                raise NotImplementedError(f"{short!r}: {what} is a later slice of the port (ROADMAP.md)")
+        raise ValueError(f"unknown model {name_or_path!r}: not one of {sorted(BART_CONFIGS)}")
+    cfg = BART_CONFIGS[short]
+    if attention_impl is not None:
+        cfg = dataclasses.replace(cfg, attention_impl=attention_impl)
+    dev = resolve_device(device)
+    module = BartForConditionalGeneration(
+        cfg, dtype=dtype, param_dtype=param_dtype(dtype, dev), device=dev
+    )
+    module.eval()
+    lm = LoadedModel("bart", cfg, module, is_seq2seq=True)
+    lm.init_params(seed)
+    return lm

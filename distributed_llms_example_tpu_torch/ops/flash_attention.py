@@ -1,0 +1,348 @@
+"""Flash attention (forward) and flash decode: CUDA kernels + plain versions.
+
+Port of the JAX package's ``ops/flash_attention.py``.  Each public
+function is a wrapper with three parts:
+
+- a **plain PyTorch version** of the function (``*_plain``), which the
+  wrapper runs for tensors on the CPU and which the chip check holds the
+  kernel against;
+- the **CUDA kernel** (``csrc/flash_fwd.cu``, ``csrc/flash_decode.cu``),
+  which the wrapper launches for tensors on a CUDA device — or raises:
+  there is no fallback from a CUDA tensor to the plain version;
+- a **launch counter** (``flash_attention.launches``,
+  ``flash_decode.launches``): a plain integer bumped where the kernel is
+  launched and nowhere else.
+
+Layouts follow the JAX package: q/k/v (B, H, S, d), an additive ``bias``
+whose every dim is 1 or full (e.g. a (B, 1, 1, K) padding mask), lse
+(B, H, Sq) fp32.  The CUDA kernels tile internally at 64 and bounds-check
+every tile, so they take any sequence length; their only shape limits are
+the instantiated head dims (``KERNEL_HEAD_DIMS``) and, for decode, Q <=
+``MAX_DECODE_Q_ROWS``.  ``auto_block``/``flash_supported`` keep the JAX
+package's tiling rule (and its TPU-chosen block caps) so that ``ops/mha``
+picks the same path as the JAX package for CPU tensors; they do not gate
+the CUDA kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from distributed_llms_example_tpu_torch.ops import cuda_build
+
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+# Tiling caps copied from the JAX package's ``_block_caps`` so both packages
+# give the same ``flash_supported`` answer; the numbers were chosen on a TPU
+# and say nothing about the CUDA kernels' own tiles.
+MAX_BLOCK = 512
+MAX_BLOCK_NONCAUSAL = 1024
+MAX_BLOCK_CAUSAL_WIDE = 1024
+
+# head dims the CUDA kernels are instantiated for (csrc/*.cu dispatch)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _block_caps(causal: bool, has_learned_bias: bool, head_dim: int = 64) -> tuple[int, int]:
+    if has_learned_bias:
+        return MAX_BLOCK, MAX_BLOCK_NONCAUSAL
+    if causal:
+        cap = MAX_BLOCK_CAUSAL_WIDE if head_dim >= 128 else MAX_BLOCK
+        return cap, cap
+    return MAX_BLOCK_NONCAUSAL, MAX_BLOCK_NONCAUSAL
+
+
+def auto_block(seq_len: int, cap: int = MAX_BLOCK) -> int:
+    """Largest 16-aligned block in [128, cap] dividing ``seq_len`` (0 = not
+    tileable); sequences shorter than 128 use one seq-sized tile when
+    16-aligned.  The JAX package's tiling rule, kept for CPU path parity."""
+    if seq_len < 128:
+        return seq_len if seq_len >= 16 and seq_len % 16 == 0 else 0
+    start = min(cap, seq_len) // 16 * 16
+    for b in range(start, 127, -16):
+        if seq_len % b == 0:
+            return b
+    return 0
+
+
+def flash_supported(q_len: int, kv_len: int, head_dim: int,
+                    block_q: int | None = None, block_k: int | None = None,
+                    *, causal: bool = False, has_learned_bias: bool = False) -> bool:
+    """True when shapes are flash-eligible by the JAX package's (TPU)
+    tiling rule; the CUDA kernel needs none of it."""
+    cap_q, cap_k = _block_caps(causal, has_learned_bias, head_dim)
+    bq = auto_block(q_len, cap_q) if block_q is None else min(block_q, q_len)
+    bk = auto_block(kv_len, cap_k) if block_k is None else min(block_k, kv_len)
+    return (
+        bq > 0 and bk > 0
+        and q_len % bq == 0 and kv_len % bk == 0
+        and bq % 8 == 0 and bk % 8 == 0
+        and head_dim % 8 == 0
+    )
+
+
+def _check_bias(bias: torch.Tensor | None, full: tuple[int, int, int, int]) -> None:
+    if bias is None:
+        return
+    if bias.dim() != 4:
+        raise ValueError(f"bias must be 4-d, got shape {tuple(bias.shape)}")
+    for i, (bd, f) in enumerate(zip(bias.shape, full)):
+        if bd not in (1, f):
+            raise ValueError(f"bias dim {i} is {bd}, must be 1 or {f}")
+
+
+def _bias_args(bias: torch.Tensor | None) -> tuple:
+    """(pointer, 4 element strides) for a kernel reading the bias in place:
+    a size-1 dim gets stride 0, so it is never broadcast in memory."""
+    if bias is None:
+        return (None, 0, 0, 0, 0)
+    strides = [0 if n == 1 else s for n, s in zip(bias.shape, bias.stride())]
+    return (bias.data_ptr(), *strides)
+
+
+def _check_cuda_inputs(what: str, tensors: dict[str, torch.Tensor]) -> torch.device:
+    dev = None
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}, expected a CUDA device")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, others on {dev}")
+        dev = t.device
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    return dev
+
+
+# ----------------------------------------------------------- forward kernel
+
+
+def flash_attention_plain(q, k, v, bias=None, *, causal=False, scale=None):
+    """Plain PyTorch version of the forward kernel: (o, lse) with o in q's
+    dtype and lse (B, H, Sq) fp32.  fp32 scores and softmax; p rounded to
+    v's dtype before the value product (as the TPU kernel does); rows with
+    no live key give o = 0 and lse = MASK_VALUE."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    if causal:
+        q_pos = torch.arange(q.shape[2], device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(q_pos >= k_pos, s, torch.full((), -torch.inf, device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    safe_m = torch.where(m == -torch.inf, torch.zeros((), device=q.device), m)
+    p = torch.exp(s - safe_m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.matmul(p.to(v.dtype).float(), v.float())
+    l_safe = torch.where(l == 0.0, torch.ones((), device=q.device), l)
+    o = (pv / l_safe).to(q.dtype)
+    lse = torch.where(l == 0.0, torch.full((), MASK_VALUE, device=q.device),
+                      m + torch.log(l_safe))
+    return o, lse[..., 0]
+
+
+_FWD_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+)
+
+
+def _flash_fwd_cuda(q, k, v, bias, *, causal, scale):
+    dev = _check_cuda_inputs("flash_attention", {"q": q, "k": k, "v": v})
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention kernel takes fp32 or bf16 q/k/v of one dtype, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel has no instance for head_dim {D} "
+                         f"(built for {KERNEL_HEAD_DIMS})")
+    if bias is not None:
+        if bias.device != dev:
+            raise ValueError(f"flash_attention: bias is on {bias.device}, q on {dev}")
+        bias = bias.float()
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=dev)
+    fn = cuda_build.load("flash_fwd", _FWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias),
+             o.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D, float(scale), int(causal),
+             int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "flash_fwd")
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention(q, k, v, bias=None, *, causal: bool = False, scale: float | None = None,
+                    dtype: torch.dtype | None = None, return_lse: bool = False):
+    """Blockwise-softmax attention; drop-in for ``dot_product_attention``.
+
+    ``causal`` applies the top-left mask and requires q_len == kv_len; the
+    bias is a constant additive mask (every dim 1 or full).  Any sequence
+    lengths.  Returns o (in ``dtype``, default q's), or (o, lse) with
+    ``return_lse``.  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel."""
+    if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} "
+                         "are not (B, H, S, d) of one batch, head count and head_dim")
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError(f"causal=True requires square self-attention, got q_len={q.shape[2]} "
+                         f"!= kv_len={k.shape[2]} (the mask is top-left aligned)")
+    _check_bias(bias, (q.shape[0], q.shape[1], q.shape[2], k.shape[2]))
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        o, lse = flash_attention_plain(q, k, v, bias, causal=causal, scale=scale)
+    else:
+        o, lse = _flash_fwd_cuda(q, k, v, bias, causal=causal, scale=scale)
+    if dtype is not None:
+        o = o.to(dtype)
+    return (o, lse) if return_lse else o
+
+
+flash_attention.launches = 0
+
+
+# ----------------------------------------------------------- int8 KV cache
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-position int8 quantization of a (..., len, head_dim)
+    K/V tensor: one fp32 scale per (..., position), round-half-to-even.
+    Returns ``(q int8 like x, scale fp32 with head_dim dropped)``."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    scale = torch.where(amax > 0.0, amax / 127.0, torch.ones_like(amax))
+    q = torch.round(x32 / scale[..., None])
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_kv`` — the one expression both the decode
+    kernel (per tile) and the plain version evaluate."""
+    return q.float() * scale[..., None]
+
+
+# ----------------------------------------------------------- decode kernel
+
+# The decode kernel's q-block ceiling (one decode row; a speculative
+# verify block of up to 8 rows in a later slice).
+MAX_DECODE_Q_ROWS = 8
+
+
+def flash_decode_supported(q_len: int, kv_len: int, head_dim: int,
+                           block_k: int | None = None) -> bool:
+    """True when a cached decode step is kernel-eligible by the JAX
+    package's (TPU) rule; the CUDA kernel needs only Q <= 8."""
+    bk = auto_block(kv_len) if block_k is None else min(block_k, kv_len)
+    return (
+        0 < q_len <= MAX_DECODE_Q_ROWS
+        and bk > 0 and kv_len % bk == 0 and bk % 8 == 0
+        and head_dim % 8 == 0
+    )
+
+
+def flash_decode_plain(q, k, v, bias=None, *, offsets, k_scale=None, v_scale=None, scale=None):
+    """Plain PyTorch version of the decode kernel: row r of batch b attends
+    cache slots <= offsets[b] + r; a row with sum 0 divides by 1."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if k_scale is not None:
+        k = dequantize_kv(k, k_scale)
+        v = dequantize_kv(v, v_scale)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    L, Q = k.shape[2], q.shape[2]
+    k_pos = torch.arange(L, device=q.device)[None, None, None, :]
+    q_pos = offsets.to(q.device, torch.int64)[:, None, None, None] + \
+        torch.arange(Q, device=q.device)[None, None, :, None]
+    s = torch.where(k_pos <= q_pos, s, torch.full((), -torch.inf, device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    safe_m = torch.where(m == -torch.inf, torch.zeros((), device=q.device), m)
+    p = torch.exp(s - safe_m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.matmul(p.to(v.dtype).float(), v.float())
+    l_safe = torch.where(l == 0.0, torch.ones((), device=q.device), l)
+    return (pv / l_safe).to(q.dtype)
+
+
+_DECODE_ARGTYPES = (
+    [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+)
+
+
+def _flash_decode_cuda(q, k, v, bias, *, offsets, k_scale, v_scale, scale):
+    tensors = {"q": q, "k": k, "v": v, "offsets": offsets}
+    if k_scale is not None:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
+    dev = _check_cuda_inputs("flash_decode", tensors)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_decode kernel takes fp32 or bf16 q, got {q.dtype}")
+    int8 = k_scale is not None
+    want_kv = torch.int8 if int8 else q.dtype
+    if k.dtype != want_kv or v.dtype != want_kv:
+        raise ValueError(f"flash_decode kernel: k/v must be {want_kv}, got {k.dtype}/{v.dtype}")
+    if int8 and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise ValueError("flash_decode kernel: k_scale/v_scale must be fp32")
+    if offsets.dtype != torch.int32:
+        raise ValueError(f"flash_decode kernel: offsets must be int32, got {offsets.dtype}")
+    B, H, Q, D = q.shape
+    L = k.shape[2]
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_decode kernel has no instance for head_dim {D} "
+                         f"(built for {KERNEL_HEAD_DIMS})")
+    if bias is not None:
+        if bias.device != dev:
+            raise ValueError(f"flash_decode: bias is on {bias.device}, q on {dev}")
+        bias = bias.float()
+    o = torch.empty_like(q)
+    fn = cuda_build.load("flash_decode", _DECODE_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None,
+             *_bias_args(bias), offsets.data_ptr(), o.data_ptr(), B, H, Q, L, D, float(scale),
+             int(q.dtype == torch.bfloat16), int(int8),
+             torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "flash_decode")
+    flash_decode.launches += 1
+    return o
+
+
+def flash_decode(q, k, v, bias=None, *, offsets, k_scale=None, v_scale=None,
+                 scale: float | None = None, dtype: torch.dtype | None = None):
+    """Decode-step attention: a short q block (B, H, Q <= 8, d) against a
+    cached (B, H, L, d) K/V buffer; row r of batch b attends cache slots
+    <= ``offsets[b] + r``, so not-yet-written slots never contribute.
+    ``k_scale``/``v_scale`` ((B, H, L) fp32, both or neither) mark an int8
+    cache.  Any cache length L.  A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel."""
+    B, H, Q, D = q.shape
+    L = k.shape[2]
+    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if not 0 < Q <= MAX_DECODE_Q_ROWS:
+        raise ValueError(f"decode q block of {Q} rows: the kernel takes 1..{MAX_DECODE_Q_ROWS}")
+    _check_bias(bias, (B, H, Q, L))
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if k_scale is not None:
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(s.shape) != (B, H, L):
+                raise ValueError(f"{name} shape {tuple(s.shape)} != {(B, H, L)}")
+    if tuple(offsets.shape) != (B,):
+        raise ValueError(f"offsets shape {tuple(offsets.shape)} != {(B,)}")
+    if scale is None:
+        scale = D ** -0.5
+    if q.device.type == "cpu":
+        out = flash_decode_plain(q, k, v, bias, offsets=offsets, k_scale=k_scale,
+                                 v_scale=v_scale, scale=scale)
+    else:
+        out = _flash_decode_cuda(q, k, v, bias, offsets=offsets, k_scale=k_scale,
+                                 v_scale=v_scale, scale=scale)
+    return out if dtype is None else out.to(dtype)
+
+
+flash_decode.launches = 0

@@ -1,0 +1,58 @@
+"""The port stands alone: importing every module of
+``distributed_llms_example_tpu_torch`` pulls in no JAX, flax, optax, orbax
+and no module of the JAX package; and its entry points refuse to run
+quietly on the CPU when no GPU is present and the CPU was not asked for."""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import distributed_llms_example_tpu_torch as port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distributed_llms_example_tpu")
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(port.__path__, prefix=port.__name__ + ".")
+    )
+
+
+def test_port_imports_nothing_of_jax():
+    mods = _port_modules()
+    assert "distributed_llms_example_tpu_torch.serving.engine" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without a GPU")
+    from distributed_llms_example_tpu_torch.launch.cli import serve_main
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.serving.engine import ServeConfig, ServingEngine
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model("bart-test")
+    lm = load_model("bart-test", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(lm.module, lm.config, ServeConfig())
+    prompts = tmp_path / "p.json"
+    prompts.write_text(json.dumps(["a prompt"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_main(["--model-ckpt", "bart-test", "--prompts-file", str(prompts)])

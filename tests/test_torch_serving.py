@@ -1,0 +1,100 @@
+"""The port's continuous-batching engine on the CPU against the JAX
+package's engine on the same ``bart-test`` weights: 10 requests through 4
+slots (slot reuse really happens), W = 32, L = 12, per-request budgets.
+Tokens must be identical, and the serve_request / serve_summary events
+must carry the same keys."""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from distributed_llms_example_tpu.models.registry import load_model as jax_load_model
+from distributed_llms_example_tpu.serving.engine import (
+    ServeConfig as JaxServeConfig,
+    ServingEngine as JaxServingEngine,
+)
+from distributed_llms_example_tpu_torch.models.from_jax import load_jax_params
+from distributed_llms_example_tpu_torch.models.registry import load_model
+from distributed_llms_example_tpu_torch.serving.engine import (
+    ServeConfig,
+    ServingEngine,
+    compute_goodput,
+    trim_eos,
+)
+
+L, W = 12, 32
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _events(text):
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+def test_engine_tokens_match_jax_engine(capsys, impl):
+    lm = jax_load_model("bart-test")
+    params = jax.device_get(lm.init_params(0))
+    rng = np.random.RandomState(7)
+    reqs = [list(rng.randint(4, 200, rng.randint(3, 20))) for _ in range(10)]
+    budgets = [int(b) for b in rng.randint(4, L + 1, len(reqs))]
+    kw = dict(max_slots=4, prefill_batch=4, max_new_tokens=L, max_source_length=W,
+              log_every_steps=5)
+    jeng = JaxServingEngine(lm.module, lm.config, None, JaxServeConfig(**kw), is_seq2seq=True)
+    capsys.readouterr()
+    want = jeng.generate(params, reqs, max_new=budgets)
+    jax_events = _events(capsys.readouterr().out)
+
+    tlm = load_model("bart-test", device="cpu", attention_impl=impl)
+    load_jax_params(tlm.module, params)
+    teng = ServingEngine(tlm.module, tlm.config, ServeConfig(**kw), device="cpu")
+    got = teng.generate(reqs, max_new=budgets)
+    events = _events(capsys.readouterr().out)
+
+    assert got == want
+    assert teng.last_stats.sequences > teng.S  # slot reuse
+    assert teng.last_stats.decode_steps == jeng.last_stats.decode_steps
+    eos, pad = lm.config.eos_token_id, lm.config.pad_token_id
+    for g, budget in zip(got, budgets):
+        assert len(trim_eos(g, eos, pad)) <= budget
+    for name in ("serve_request", "serve_summary", "serve_window"):
+        jk = [set(e) for e in jax_events if e.get("event") == name]
+        tk = [set(e) for e in events if e.get("event") == name]
+        assert jk and len(tk) == len(jk), name
+        assert tk[0] == jk[0], (name, tk[0] ^ jk[0])
+    summary = next(e for e in events if e.get("event") == "serve_summary")
+    assert summary["decode_tokens"] == sum(len(o) for o in got)
+    assert set(summary["memory_account"]) == set(
+        next(e for e in jax_events if e.get("event") == "serve_summary")["memory_account"]
+    )
+
+
+def test_goodput_matches_jax_arithmetic():
+    from distributed_llms_example_tpu.serving.engine import compute_goodput as jax_goodput
+
+    ttft = [0.1, None, 0.5, 0.02]
+    toks = [10, 3, 7, 4]
+    for slo in (0.0, 200.0):
+        assert compute_goodput(ttft, toks, wall_s=2.0, ttft_slo_ms=slo, n_chips=1) == \
+            jax_goodput(ttft, toks, wall_s=2.0, ttft_slo_ms=slo, n_chips=1)
+
+
+@pytest.mark.parametrize("field", [{"paged_kv": True}, {"prefix_cache": True},
+                                   {"spec_tokens": 2}, {"kv_cache_dtype": "int8"},
+                                   {"pool_blocks": 4}, {"postmortem_dir": "pm"}])
+def test_later_slices_raise(field):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeConfig(**field)
+
+
+def test_causal_engine_raises():
+    tlm = load_model("bart-test", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(tlm.module, tlm.config, ServeConfig(), is_seq2seq=False, device="cpu")
