@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: builds the CUDA kernels, holds each
 against its plain PyTorch version on the card, serves bart-large-cnn at
-full width through the port's ``serve`` entry, and checks that the serve
-run went through both kernels.
+full width through the port's ``serve`` entry, fine-tunes it at full width
+through the port's train entry, and checks that each run went through its
+kernels.
 
-    python3 chip_smoke.py        # from the repository root, on one NVIDIA GPU
+    python3 chip_smoke.py    # from the repository root, on one NVIDIA GPU
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
-  2. build: one nvcc per kernel source, all at once (ptxas report printed)
-  3. kernels vs plain versions at the serve shapes and at lengths no tile
-     divides (bf16 atol=rtol 2e-2, fp32 atol 1e-4, fully-masked rows
-     exactly zero), timed with CUDA events beside the plain version, SDPA
-     (the yardstick, never called by the port) and the bound
-     max(flops / 989 TFLOP/s, bytes / 3.35 TB/s)
+  2. build: one nvcc per kernel source, all five at once (ptxas report)
+  3. kernels vs plain versions at the main paths' shapes and at lengths no
+     tile divides, timed with CUDA events beside the plain version, the
+     library yardstick (never called by the port) and the bound
+     max(flops / 989 TFLOP/s, bytes / 3.35 TB/s):
+     - flash forward / decode (bf16 atol=rtol 2e-2, fp32 atol 1e-4,
+       fully-masked rows exactly zero);
+     - flash backward dq and dk/dv at the encoder, decoder-causal, cross
+       and ragged shapes (same limits; -inf rows give exactly zero dq);
+     - fused dropout: exactly equal in bf16 and fp32, kept fraction within
+       1e-3 of 1 - rate;
+     - fused AdamW: p', mu', nu' within AdamW_RTOL, health sums within
+       1e-5 relative, NaN counted once
   4. serve: the CLI's serve entry in-process, bart-large-cnn, bf16, seed 0,
      16 prompts of 200-1024 byte-tokens, 8 slots, 128 new tokens, source
      1024; launch counters zeroed before and read after; first-step logits
@@ -22,7 +30,19 @@ Phases (each fatal, non-zero exit, no result line):
      softmax attention and the greedy token match rate of a whole serve run
      on that path; then a shorter run at source 1000 and 64 new tokens,
      whose counters must show both kernels too
-  5. a {"kernels": [...]} line, then the last line
+  5. train: the CLI's train entry in-process, bart-large-cnn at full width,
+     bf16, batch 8, source 1024 / target 128, 48 synthetic records (6
+     steps); every count of kernels 1, 2, 3, 7 and 8 equals what the model
+     implies (attention modules, dropout sites, parameter tensors) times
+     the steps; finite losses; non-zero q/k/v projection gradients; then
+     three more steps timed for host enqueue vs finish on the card, and one
+     under torch.profiler (device busy, kernels by group and by launches)
+  6. gradient check: one fp32 forward+backward with dropout on, kernel
+     path vs plain path (same seeds, so the same masks): loss, global grad
+     norm and the largest per-tensor grad difference within limits that a
+     backward dropout seed off by one must break; in bf16 the kernel path's
+     gradient must stay within 1.5x the plain path's distance from fp32
+  7. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Imports nothing of JAX or of the JAX package.  Everything it writes goes
@@ -47,7 +67,20 @@ NUM_LAYERS = 12  # bart-large-cnn encoder layers = decoder layers
 # read 2.4e-6 on an H100 (PERF.md), so 1e-4 leaves ~40x of room while a
 # decode mask shifted by one moves them far more (the planted-fault check)
 FP32_LOGITS_ATOL = 1e-4
+# fp32 gradient check, kernel path vs plain path on one full-width batch
+# with dropout on, through all 24 layers: read 4.8e-7 (loss), 4.8e-7 (grad
+# norm), 1.2e-7 (largest per-tensor grad difference) and 2.4e-7 (relative
+# L2 of the whole gradient) on an H100 (PERF.md), so these leave 20-40x of
+# room, while a backward dropout seed off by one moves the grad norm by
+# 3.7e-3 and a tensor's grads by 4.5e-3 (the planted-fault check)
+GRAD_LIMITS = {"loss_diff": 1e-5, "grad_norm_diff": 1e-5, "max_tensor_grad_diff": 5e-6,
+               "grad_rel_l2": 1e-5}
+# fused AdamW, kernel vs plain: both do one IEEE op at a time (the kernel
+# with non-contracting intrinsics), so any difference is a fault; 2 fp32
+# ulps of headroom for a library sqrt or division that rounds differently
+ADAMW_RTOL = 2.4e-7
 WORK = os.path.join(HERE, "build", "chip_smoke")
+KERNELS = ["flash_fwd", "flash_decode", "flash_bwd", "fused_dropout", "fused_adamw"]
 
 
 def fail(msg: str) -> None:
@@ -80,9 +113,10 @@ def time_ms(fn, *, per_rep: int, reps: int = 7) -> float:
     return statistics.median(out)
 
 
-def profile_device(fn, n: int):
+def profile_device(fn, n: int, counts: dict | None = None):
     """(wall ms per call, {kernel name: device ms per call}) over ``n``
-    calls under torch.profiler; device times are the CUDA kernels' own."""
+    calls under torch.profiler; device times are the CUDA kernels' own.
+    ``counts``, when given, receives {kernel name: launches per call}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -102,6 +136,8 @@ def profile_device(fn, n: int):
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
         kernels[e.key] = kernels.get(e.key, 0.0) + t / n / 1e3
+        if counts is not None:
+            counts[e.key] = counts.get(e.key, 0.0) + e.count / n
     return wall / n * 1e3, kernels
 
 
@@ -266,6 +302,438 @@ def kernel_phase(torch, fa):
     return results
 
 
+def close_enough(got, want, *, atol, rtol=0.0):
+    """(ok, max abs err) with NaNs required in the same places."""
+    import torch
+
+    g, w = got.float(), want.float()
+    nan_g, nan_w = torch.isnan(g), torch.isnan(w)
+    if not bool((nan_g == nan_w).all()):
+        return False, float("nan")
+    live = ~nan_w
+    err = (g[live] - w[live]).abs()
+    if err.numel() == 0:
+        return True, 0.0
+    return bool((err <= atol + rtol * w[live].abs()).all()), float(err.max())
+
+
+def backward_kernel_phase(torch, fa):
+    """Kernels 2 and 3 against flash_attention_bwd_plain on the same inputs
+    (o and lse from kernel 1), then their times at the encoder shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, H, D = 8, 16, 64
+    bf = dict(atol=2e-2, rtol=2e-2)
+    f32 = dict(atol=1e-4)
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def pad_bias(K):
+        lens = torch.randint(K // 5, K + 1, (B,), generator=gen, device=dev)
+        b = torch.where(torch.arange(K, device=dev)[None, :] < lens[:, None], 0.0, -1e9)
+        return b[:, None, None, :].float().contiguous()
+
+    def run(name, Q, K, dtype, tol, *, causal=False, bias=None, dead=None):
+        q, do = rnd(B, H, Q, D, dtype=dtype), rnd(B, H, Q, D, dtype=dtype)
+        k, v = rnd(B, H, K, D, dtype=dtype), rnd(B, H, K, D, dtype=dtype)
+        o, lse = fa.flash_attention(q, k, v, bias, causal=causal, return_lse=True)
+        delta = fa.attention_delta(do, o)
+        scale = D ** -0.5
+        dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, causal=causal, scale=scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal=causal, scale=scale)
+        want = fa.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        errs = [check_close(f"flash_bwd {name} {n} {dtype}", g, w, **tol)
+                for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+        if dead is not None and not bool((dq[:, :, dead] == 0).all()):
+            fail(f"flash_bwd {name}: fully-masked rows have a non-zero dq")
+        return max(errs)
+
+    errs = []
+    for dtype, tol in ((torch.bfloat16, bf), (torch.float32, f32)):
+        errs.append(run("encoder S=1024 padding", 1024, 1024, dtype, tol, bias=pad_bias(1024)))
+        errs.append(run("decoder causal S=128", 128, 128, dtype, tol, causal=True))
+        errs.append(run("cross 128x1024 padding", 128, 1024, dtype, tol, bias=pad_bias(1024)))
+        errs.append(run("ragged S=1000 padding", 1000, 1000, dtype, tol, bias=pad_bias(1000)))
+    errs.append(run("ragged causal S=200", 200, 200, torch.float32, f32, causal=True))
+    S = 1024
+    dead = torch.tensor([0, 7, 500, S - 1], device=dev)
+    dead_bias = torch.zeros(B, 1, S, S, device=dev)
+    dead_bias[:, :, dead, :] = -float("inf")
+    errs.append(run("fully-masked -inf rows", S, S, torch.float32, f32, bias=dead_bias, dead=dead))
+    # planted fault: the dk/dv kernel run non-causal on the decoder's causal
+    # inputs must break the fp32 limit (the checks above read exactly 0 on
+    # an H100, where cuBLAS's fp32 GEMM sums in the kernels' order)
+    q, k, v, do = (rnd(B, H, 128, D, dtype=torch.float32) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = fa.attention_delta(do, o)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, None, do, lse, delta, causal=False, scale=D ** -0.5)
+    _, want_dk, want_dv = fa.flash_attention_bwd_plain(q, k, v, None, o, lse, do, causal=True)
+    fault = max(float((dk - want_dk).abs().max()), float((dv - want_dv).abs().max()))
+    say({"phase": "kernel_check", "case": "flash_bwd planted fault: dk/dv non-causal on the "
+         "decoder", "max_abs_err": fault, "atol": f32["atol"], "must_exceed": True})
+    if not fault > f32["atol"]:
+        fail(f"flash_bwd: dk/dv run non-causal stays within the fp32 limit ({fault})")
+
+    # times at the encoder shape, bf16, ragged padding bias
+    bias = pad_bias(S)
+    q, k, v, do = (rnd(B, H, S, D, dtype=torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, bias, return_lse=True)
+    delta = fa.attention_delta(do, o)
+    kw = dict(causal=False, scale=D ** -0.5)
+    # SDPA's backward (the yardstick) computes dq, dk and dv in one call
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
+                                                           attn_mask=bias.to(torch.bfloat16))
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True),
+                     per_rep=5)
+    nbytes_in = 4 * B * H * S * D * 2 + 2 * B * H * S * 4 + bias.numel() * 4
+    results = {}
+    for name, fn, plain, flops, out_bytes, dev_name in (
+        ("flash_attention_bwd_dq",
+         lambda: fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw),
+         lambda: fa._dq_plain(q, k, fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)[1]),
+         6.0 * B * H * S * S * D, B * H * S * D * 2, "flash_bwd_dq_kernel"),
+        ("flash_attention_bwd_dkv",
+         lambda: fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw),
+         lambda: fa._dkv_plain(q, k, v, do, *fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)),
+         8.0 * B * H * S * S * D, 2 * B * H * S * D * 2, "flash_bwd_dkv_kernel"),
+    ):
+        b_ms, b_by = bound(flops, nbytes_in + out_bytes)
+        results[name] = dict(max_abs_err=max(errs), ms=time_ms(fn, per_rep=5),
+                             plain_ms=time_ms(plain, per_rep=2), bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms)
+        say({"phase": "kernel_time", "kernel": name, **results[name],
+             "device_ms": device_ms_of(fn, 5, dev_name)})
+    return results
+
+
+def dropout_kernel_phase(torch, fd):
+    """Kernel 7 against dropout_plain: exactly equal, and the kept fraction."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rate = 0.1
+    errs = []
+    for shape, with_res in (((8, 1024, 1024), True), ((8, 1024, 4096), False),
+                            ((8, 128, 1000), True), ((8, 128, 4096), False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for seed in (12345, -987654321):
+                x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+                res = torch.randn(*shape, generator=gen, device=dev).to(dtype) if with_res else None
+                got = fd.fused_dropout(x, seed, rate, residual=res)
+                want = fd.dropout_plain(x, seed, rate, res)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(got, want))
+                kept = float(((got if res is None else got - res) != 0).float().mean())
+                say({"phase": "kernel_check", "case": f"fused_dropout {shape} residual={with_res} "
+                     f"{dtype} seed={seed}", "bitwise_equal": same, "kept_fraction": kept})
+                if not same:
+                    fail(f"fused_dropout {shape} {dtype}: kernel differs from its plain version "
+                         f"(max abs err {float((got.float() - want.float()).abs().max())})")
+                if res is None and abs(kept - (1 - rate)) > 1e-3:
+                    fail(f"fused_dropout {shape}: kept fraction {kept} vs {1 - rate}")
+                errs.append(0.0)
+    # the backward is the same kernel on g: one Function round trip
+    x = torch.randn(8, 128, 1024, generator=gen, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    g = torch.randn(8, 128, 1024, generator=gen, device=dev, dtype=torch.bfloat16)
+    (fd.fused_dropout(x, 7, rate) * g).sum().backward()
+    if not torch.equal(x.grad, fd.dropout_plain(g, 7, rate)):
+        fail("fused_dropout backward: the gradient is not the forward's mask on g")
+    results = {}
+    for shape, with_res, lib in (((8, 1024, 4096), False, True), ((8, 1024, 1024), True, False)):
+        x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+        res = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16) if with_res else None
+        n = x.numel()
+        b_ms, b_by = bound(0.0, n * 2 * (3 if with_res else 2))
+        r = dict(max_abs_err=max(errs),
+                 ms=time_ms(lambda: fd.fused_dropout(x, 5, rate, residual=res), per_rep=20),
+                 plain_ms=time_ms(lambda: fd.dropout_plain(x, 5, rate, res), per_rep=3),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=time_ms(lambda: torch.nn.functional.dropout(x, rate), per_rep=20)
+                 if lib else None)
+        say({"phase": "kernel_time", "kernel": "fused_dropout", "shape": list(shape),
+             "residual": with_res, **r,
+             "device_ms": device_ms_of(lambda: fd.fused_dropout(x, 5, rate, residual=res), 20,
+                                       "fused_dropout_kernel")})
+        results.setdefault("fused_dropout", r)
+    return results
+
+
+def adamw_kernel_phase(torch, fo):
+    """Kernel 8 against adamw_leaf_plain at bart-large-cnn's leaf sizes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, max_norm=1.0)
+    worst = 0.0
+    for n in (1024, 50265, 50265 * 1024):
+        for trigger in (0.0, 1.0):
+            for wd in (0.0, 0.01):
+                for nan in (False, True):
+                    if n > 50265 and (wd, nan) not in ((0.01, False), (0.0, True)):
+                        continue
+                    p, mu, g = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+                    nu = torch.rand(n, generator=gen, device=dev) * 1e-3
+                    if nan:
+                        g[n // 3] = float("nan")
+                    scal = torch.tensor([3.5, trigger, 0.271, 0.00299, -1e-4, 0, 0, 0],
+                                        device=dev)
+                    want = fo.adamw_leaf_plain(p, mu, nu, g, scal, wd=wd, **hyper)
+                    got_p, got_mu, got_nu = p.clone(), mu.clone(), nu.clone()
+                    stats = fo.fused_adamw_leaf(got_p, got_mu, got_nu, g, scal, wd=wd, **hyper)
+                    torch.cuda.synchronize()
+                    case = f"fused_adamw n={n} trigger={trigger} wd={wd} nan={nan}"
+                    for what, got, w in (("p", got_p, want[0]), ("mu", got_mu, want[1]),
+                                         ("nu", got_nu, want[2])):
+                        ok, err = close_enough(got, w, atol=0.0, rtol=ADAMW_RTOL)
+                        say({"phase": "kernel_check", "case": f"{case} {what}",
+                             "max_abs_err": err, "rtol": ADAMW_RTOL, "ok": ok})
+                        if not ok:
+                            fail(f"{case} {what}: kernel differs from its plain version ({err})")
+                        worst = max(worst, err if err == err else 0.0)
+                    ok, err = close_enough(stats.float(), want[3], atol=0.0, rtol=1e-5)
+                    if not ok or stats[fo.STAT_NONFINITE] != float(nan):
+                        fail(f"{case} stats: {stats.tolist()} vs {want[3].tolist()}")
+    n = 50265 * 1024  # the shared embedding, the largest leaf
+    p, mu, g = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    nu = torch.rand(n, generator=gen, device=dev) * 1e-3
+    scal = torch.tensor([0.5, 1.0, 0.271, 0.00299, -1e-4, 0, 0, 0], device=dev)
+    stats = torch.zeros(fo.STATS, dtype=torch.float64, device=dev)
+    run = lambda: fo.fused_adamw_leaf(p, mu, nu, g, scal, wd=0.01, stats=stats, **hyper)  # noqa: E731
+    ref = torch.nn.Parameter(p.clone())
+    ref.grad = g.clone()
+    lib = torch.optim.AdamW([ref], lr=1e-4, weight_decay=0.01, fused=True)
+    b_ms, b_by = bound(0.0, 28.0 * n)
+    r = dict(max_abs_err=worst, ms=time_ms(run, per_rep=5),
+             plain_ms=time_ms(lambda: fo.adamw_leaf_plain(p, mu, nu, g, scal, wd=0.01, **hyper),
+                              per_rep=2),
+             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib.step, per_rep=5))
+    say({"phase": "kernel_time", "kernel": "fused_adamw", "elements": n, **r,
+         "device_ms": device_ms_of(run, 5, "fused_adamw_kernel")})
+    return {"fused_adamw": r}
+
+
+def write_train_records(path: str, n: int = 48) -> None:
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
+    recs = [{"dialogue": "".join(rng.choice(alphabet, rng.randint(200, 1025))),
+             "summary": "".join(rng.choice(alphabet, rng.randint(20, 128)))} for _ in range(n)]
+    with open(path, "w") as f:
+        json.dump(recs, f)
+
+
+TRAIN_ARGS = [
+    "--model-ckpt", "bart-large-cnn", "--batch-size", "8", "--num-epochs", "1",
+    "--max-source-length", "1024", "--max-target-length", "128", "--compute-dtype", "bfloat16",
+    "--learning-rate", "1e-4", "--warmup-steps", "0", "--seed", "0", "--log-every-steps", "1",
+]
+
+
+def zero_counters(fa, fd, fo) -> None:
+    for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fd.fused_dropout,
+               fo.fused_adamw_leaf, fa.flash_decode):
+        fn.launches = 0
+
+
+def read_counters(fa, fd, fo) -> dict:
+    return {"flash_attention_fwd": fa.flash_attention.launches,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "fused_dropout": fd.fused_dropout.launches,
+            "fused_adamw": fo.fused_adamw_leaf.launches}
+
+
+def expected_train_launches(model, steps: int, accum: int = 1) -> dict:
+    """Per-run launch counts the model implies: one forward kernel and one
+    dq and one dk/dv kernel per attention module per microbatch, one
+    dropout kernel per dropout site in the forward and again in the
+    backward, one AdamW kernel per parameter tensor per step."""
+    from distributed_llms_example_tpu_torch.ops.fused_dropout import count_dropout_sites
+    from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
+
+    attn = sum(isinstance(m, MultiHeadAttention) for m in model.modules())
+    return {"flash_attention_fwd": attn * accum * steps,
+            "flash_attention_bwd_dq": attn * accum * steps,
+            "flash_attention_bwd_dkv": attn * accum * steps,
+            "fused_dropout": 2 * count_dropout_sites(model) * accum * steps,
+            "fused_adamw": len(list(model.parameters())) * steps}
+
+
+def train_phase(torch, fa, fd, fo, cli):
+    """The CLI's train entry at full width; counters, losses, gradients and
+    one profiled step."""
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "train.json")
+    write_train_records(path)
+    zero_counters(fa, fd, fo)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli.train([*TRAIN_ARGS, "--train-file", path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(fa, fd, fo)
+    steps = len(trainer.history)
+    want = expected_train_launches(trainer.model, steps, trainer.cfg.grad_accum_steps)
+    losses = [float(m["loss"]) for m in trainer.history]
+    step_s = [b - a for a, b in zip(trainer.step_ends, trainer.step_ends[1:])]
+    say({"phase": "train_launches", "steps": steps, "launches": launches, "expected": want,
+         "per_step": {k: v / max(steps, 1) for k, v in launches.items()}})
+    if steps != 6 or any(launches[k] == 0 or launches[k] != want[k] for k in want):
+        fail(f"train run: {steps} steps, launches {launches} vs {want}")
+    named = dict(trainer.model.named_parameters())
+    qkv = {n: float(named[n].grad.abs().max()) for n in named
+           if n.endswith(("q_proj.weight", "k_proj.weight", "v_proj.weight"))}
+    say({"phase": "train", "wall_s": wall, "losses": losses,
+         "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
+         "learning_rates": [m["learning_rate"] for m in trainer.history],
+         "step_s_after_first": step_s, "step_s_median": statistics.median(step_s),
+         "tokens_per_step": [float(m["target_tokens"]) for m in trainer.history],
+         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+         "qkv_weight_grads": len(qkv), "qkv_min_of_max_abs_grad": min(qkv.values())})
+    if not all(torch.isfinite(torch.tensor(losses))):
+        fail(f"train losses not finite: {losses}")
+    if len(qkv) != 3 * 36 or min(qkv.values()) <= 0.0:
+        fail("some q/k/v projection weight got no gradient on the kernel path")
+    profile_train_step(torch, trainer)
+    return launches, trainer
+
+
+def profile_train_step(torch, trainer) -> None:
+    """More steps of the same trainer on its first batch.  Unprofiled: the
+    host's time to enqueue a step against the step's time to finish on the
+    card (near equal when the host holds the card back).  Then one under
+    torch.profiler: wall vs device busy, the kernels by group, and the
+    heaviest kernels with their launches per step."""
+    from distributed_llms_example_tpu_torch.train.step import train_step
+    from distributed_llms_example_tpu_torch.train.trainer import put_batch
+
+    batch = put_batch(next(iter(trainer.batches.epoch(0))), trainer.device)
+
+    def step():
+        train_step(trainer.model, trainer.named_params, trainer.opt_state, trainer.spec,
+                   trainer.schedule, batch, generator=trainer.generator)
+
+    step()
+    enqueue, total = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        total.append((time.perf_counter() - t0) * 1e3)
+    counts: dict[str, float] = {}
+    wall, kernels = profile_device(step, 2, counts)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
+    groups: dict[str, list[float]] = {}
+    for k, v in kernels.items():
+        low = k.lower()
+        g = next((tag for tag in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_dropout",
+                                  "fused_adamw") if tag in low),
+                 "gemm" if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
+                 else "elementwise" if "elementwise" in low
+                 else "reduce" if "reduce" in low else "other")
+        ms, n = groups.get(g, [0.0, 0.0])
+        groups[g] = [ms + v, n + counts.get(k, 0.0)]
+    say({"phase": "where_the_time_goes", "call": "train_step", "batch_shape": {
+             k: list(v.shape) for k, v in batch.items()},
+         "enqueue_ms": enqueue, "step_ms": total, "wall_ms_profiled": wall,
+         "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / wall),
+         "kernel_launches": sum(counts.values()),
+         "by_group_ms_launches": groups,
+         "top_kernels": [[k[:90], v, counts.get(k, 0.0)] for k, v in top]})
+
+
+@contextlib.contextmanager
+def backward_dropout_seed_off_by_one(fd):
+    """Planted fault: the dropout backward redraws its mask from seed + 1,
+    so gradients flow through the wrong elements."""
+    saved = fd._FusedDropout.backward
+
+    def bad(ctx, g):
+        g = g.contiguous()
+        dx = fd._run(g, None, ctx.seed + 1, ctx.rate)
+        return dx, None if ctx.res_dtype is None else g.to(ctx.res_dtype), None, None
+
+    fd._FusedDropout.backward = staticmethod(bad)
+    try:
+        yield
+    finally:
+        fd._FusedDropout.backward = saved
+
+
+def loss_and_grads(torch, model, batch):
+    """One forward+backward with dropout seeds from a fresh generator:
+    (loss, normalized gradients) like the train step's."""
+    from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
+    from distributed_llms_example_tpu_torch.train.step import seq2seq_loss_sums
+
+    for p in model.parameters():
+        p.grad = None
+    with dropout_seeds(torch.Generator().manual_seed(11)):
+        lsum, tokens = seq2seq_loss_sums(model, batch)
+        lsum.backward()
+    grads = [(p.grad / tokens).detach().clone() for p in model.parameters()]
+    for p in model.parameters():
+        p.grad = None
+    return float((lsum / tokens).detach()), grads
+
+
+def grad_check_phase(torch, fa, fd, trainer):
+    """fp32: kernel path vs plain path on one batch, with a planted fault
+    that must break the limits; bf16: the kernel path's gradient distance
+    from fp32 against the plain path's."""
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.train.optim import global_norm
+    from distributed_llms_example_tpu_torch.train.trainer import put_batch
+
+    batch = put_batch(next(iter(trainer.batches.epoch(0))), trainer.device)
+    state = trainer.model.state_dict()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lm = load_model("bart-large-cnn", dtype=dtype, device="cuda", train=True)
+        lm.module.load_state_dict(state)
+        model = lm.module
+        out[dtype, "kernel"] = loss_and_grads(torch, model, batch)
+        with plain_kernels(fa, fd):
+            out[dtype, "plain"] = loss_and_grads(torch, model, batch)
+        if dtype == torch.float32:
+            with backward_dropout_seed_off_by_one(fd):
+                out[dtype, "fault"] = loss_and_grads(torch, model, batch)
+        del lm, model
+        torch.cuda.empty_cache()
+
+    def dist(a, b):
+        (la, ga), (lb, gb) = a, b
+        per = [float((x - y).abs().max()) for x, y in zip(ga, gb)]
+        diff = float(global_norm([x - y for x, y in zip(ga, gb)]))
+        return {"loss_diff": abs(la - lb), "grad_norm_diff": abs(float(global_norm(ga)) -
+                                                                  float(global_norm(gb))),
+                "max_tensor_grad_diff": max(per),
+                "grad_rel_l2": diff / float(global_norm(gb))}
+
+    f32 = torch.float32
+    ref = out[f32, "plain"]
+    k32, fault = dist(out[f32, "kernel"], ref), dist(out[f32, "fault"], ref)
+    k16, p16 = dist(out[torch.bfloat16, "kernel"], ref), dist(out[torch.bfloat16, "plain"], ref)
+    say({"phase": "grad_check", "fp32_kernel_vs_plain": k32, "fp32_planted_fault": fault,
+         "limits": GRAD_LIMITS, "bf16_kernel_vs_fp32_plain": k16,
+         "bf16_plain_vs_fp32_plain": p16, "loss_fp32": ref[0],
+         "grad_norm_fp32": float(global_norm(ref[1]))})
+    for key, lim in GRAD_LIMITS.items():
+        if not k32[key] <= lim:
+            fail(f"fp32 gradient check: kernel path vs plain path {key} {k32[key]} > {lim}")
+    if not any(fault[key] > lim for key, lim in GRAD_LIMITS.items()):
+        fail(f"fp32 gradient check: the planted fault stays within every limit: {fault}")
+    if not k16["grad_rel_l2"] <= 1.5 * p16["grad_rel_l2"]:
+        fail(f"bf16 gradient: kernel path {k16['grad_rel_l2']} from fp32 against the plain "
+             f"path's {p16['grad_rel_l2']}")
+
+
 def write_prompts(path: str, n: int = 16) -> None:
     import numpy as np
 
@@ -286,10 +754,12 @@ def set_impl(model, impl: str) -> None:
 
 
 @contextlib.contextmanager
-def plain_kernels(fa):
-    """Route the model's two kernel call sites to the kernels' plain
-    versions on the same CUDA tensors (the wrappers themselves never fall
-    back), so the kernel path and the plain path differ only in the kernels."""
+def plain_kernels(fa, fd=None):
+    """Route the model's kernel call sites to the kernels' plain versions
+    on the same CUDA tensors (the wrappers themselves never fall back), so
+    the kernel path and the plain path differ only in the kernels.
+    Attention goes through torch autograd of the plain forward; dropout
+    through its autograd Function with the plain version in both passes."""
     from distributed_llms_example_tpu_torch.ops import mha
 
     def fwd(q, k, v, bias=None, *, causal=False, dtype=None):
@@ -300,10 +770,15 @@ def plain_kernels(fa):
 
     saved = mha.flash_attention, mha.flash_decode
     mha.flash_attention, mha.flash_decode = fwd, dec
+    if fd is not None:
+        saved_run = fd._run
+        fd._run = lambda x, res, seed, rate: fd.dropout_plain(x, seed, rate, res)
     try:
         yield
     finally:
         mha.flash_attention, mha.flash_decode = saved
+        if fd is not None:
+            fd._run = saved_run
 
 
 @contextlib.contextmanager
@@ -431,8 +906,10 @@ def serve_phase(torch, fa, cli):
     # fp32 copy of the same weights: the reference both bf16 paths round away from
     from distributed_llms_example_tpu_torch.models.bart import BartForConditionalGeneration
 
+    # (eval mode: a module starts in training mode, whose dropout would
+    # draw different masks on each path)
     ref = BartForConditionalGeneration(model.config, dtype=torch.float32,
-                                       param_dtype=torch.float32, device="cuda")
+                                       param_dtype=torch.float32, device="cuda").eval()
     ref.load_state_dict(model.state_dict())
     logits_rk = first_step_logits(torch, ref, ids, mask)
     with plain_kernels(fa):
@@ -528,32 +1005,60 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build every kernel of the path, one nvcc each, in parallel
+    # phase 2: build every kernel, one nvcc each, in parallel
     from distributed_llms_example_tpu_torch.ops import cuda_build
     from distributed_llms_example_tpu_torch.ops import flash_attention as fa
+    from distributed_llms_example_tpu_torch.ops import fused_dropout as fd
+    from distributed_llms_example_tpu_torch.ops import fused_optim as fo
 
     t0 = time.perf_counter()
-    secs = cuda_build.build(["flash_fwd", "flash_decode"], verbose=True)
+    secs = cuda_build.build(KERNELS, verbose=True)
     say({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs})
 
     # phase 3: kernels against their plain versions
     measured = kernel_phase(torch, fa)
+    measured.update(backward_kernel_phase(torch, fa))
+    measured.update(dropout_kernel_phase(torch, fd))
+    measured.update(adamw_kernel_phase(torch, fo))
 
-    # phase 4: the main path
+    # phases 4-6: the main paths
     from distributed_llms_example_tpu_torch.launch import cli
 
     launches = serve_phase(torch, fa, cli)
+    torch.cuda.empty_cache()
+    train_launches, trainer = train_phase(torch, fa, fd, fo, cli)
+    trainer.opt_state = None
+    for p in trainer.model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    grad_check_phase(torch, fa, fd, trainer)
 
-    # phase 5: the kernel list, then the contract line
+    # phase 7: the kernel list, then the contract line.  Kernel 1 runs on
+    # both main paths: its launches are the serve run's plus the train run's.
+    src = "distributed_llms_example_tpu_torch/csrc/"
+    ref = "distributed_llms_example_tpu/ops/"
     rows = [
-        dict(name="flash_attention_fwd", route="cuda",
-             source="distributed_llms_example_tpu_torch/csrc/flash_fwd.cu",
-             replaces="distributed_llms_example_tpu/ops/flash_attention.py:119",
-             launches=launches["flash_attention_fwd"], **measured["flash_attention_fwd"]),
-        dict(name="flash_decode", route="cuda",
-             source="distributed_llms_example_tpu_torch/csrc/flash_decode.cu",
-             replaces="distributed_llms_example_tpu/ops/flash_attention.py:931",
+        dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd.cu",
+             replaces=ref + "flash_attention.py:119",
+             launches=launches["flash_attention_fwd"] + train_launches["flash_attention_fwd"],
+             **measured["flash_attention_fwd"]),
+        dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
+             replaces=ref + "flash_attention.py:931",
              launches=launches["flash_decode"], **measured["flash_decode"]),
+        dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
+             replaces=ref + "flash_attention.py:264",
+             launches=train_launches["flash_attention_bwd_dq"],
+             **measured["flash_attention_bwd_dq"]),
+        dict(name="flash_attention_bwd_dkv", route="cuda", source=src + "flash_bwd.cu",
+             replaces=ref + "flash_attention.py:328",
+             launches=train_launches["flash_attention_bwd_dkv"],
+             **measured["flash_attention_bwd_dkv"]),
+        dict(name="fused_dropout", route="cuda", source=src + "fused_dropout.cu",
+             replaces=ref + "fused_dropout.py:195",
+             launches=train_launches["fused_dropout"], **measured["fused_dropout"]),
+        dict(name="fused_adamw", route="cuda", source=src + "fused_adamw.cu",
+             replaces=ref + "fused_optim.py:162",
+             launches=train_launches["fused_adamw"], **measured["fused_adamw"]),
     ]
     say({"kernels": rows})
     say({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

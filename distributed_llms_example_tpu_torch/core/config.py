@@ -1,0 +1,77 @@
+"""Training configuration: the slice of the JAX package's ``TrainConfig``
+and ``add_reference_args`` that the port implements (flag names and
+defaults as there), plus ``--device`` and ``--seed``.  A flag the port does
+not implement is not accepted: argparse rejects it."""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model_ckpt: str = "bart-large-cnn"  # the one model the port trains
+    train_file: str = ""
+    tokenizer: str = ""
+    source_column: str = ""
+    target_column: str = ""
+    batch_size: int = 8  # global batch: one optimizer step
+    num_epochs: int = 1
+    warmup_steps: int = 500
+    learning_rate: float = 5e-5
+    weight_decay: float = 0.01
+    max_grad_norm: float = 1.0
+    label_smoothing: float = 0.0
+    grad_accum_steps: int = 1
+    shuffle_seed: int = 1234  # data order and the dropout seed stream
+    pad_to_multiple: int = 128
+    max_source_length: int = 1024
+    max_target_length: int = 128
+    compute_dtype: str = "bfloat16"
+    log_every_steps: int = 100
+    attention_impl: str = ""  # "" = model default (auto)
+    device: str = "cuda"
+    seed: int = 0  # random-init seed for the weights
+
+
+def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags that training and ``serve`` share: which model, how its
+    text is read, where it runs and how its weights are drawn."""
+    d = TrainConfig()
+    p.add_argument("--model-ckpt", type=str, default=d.model_ckpt)
+    p.add_argument("--tokenizer", type=str, default=d.tokenizer)
+    p.add_argument("--source-column", type=str, default=d.source_column)
+    p.add_argument("--max-source-length", type=int, default=d.max_source_length)
+    p.add_argument("--attention-impl", type=str, default=d.attention_impl,
+                   choices=("", "auto", "flash", "ring", "xla"))
+    p.add_argument("--device", type=str, default=d.device, choices=("cuda", "cpu"))
+    p.add_argument("--seed", type=int, default=d.seed, help="random-init seed for the weights")
+    return p
+
+
+def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    d = TrainConfig()
+    add_model_args(p)
+    p.add_argument("--train-file", type=str, required=True,
+                   help="path to train.json (JSON array, JSONL or {\"data\": [...]})")
+    p.add_argument("--target-column", type=str, default=d.target_column)
+    p.add_argument("--batch-size", type=int, default=d.batch_size)
+    p.add_argument("--num-epochs", type=int, default=d.num_epochs)
+    p.add_argument("--warmup-steps", type=int, default=d.warmup_steps)
+    p.add_argument("--learning-rate", type=float, default=d.learning_rate)
+    p.add_argument("--weight-decay", type=float, default=d.weight_decay)
+    p.add_argument("--max-grad-norm", type=float, default=d.max_grad_norm)
+    p.add_argument("--label-smoothing", type=float, default=d.label_smoothing)
+    p.add_argument("--grad-accum-steps", type=int, default=d.grad_accum_steps)
+    p.add_argument("--shuffle-seed", type=int, default=d.shuffle_seed)
+    p.add_argument("--pad-to-multiple", type=int, default=d.pad_to_multiple)
+    p.add_argument("--max-target-length", type=int, default=d.max_target_length)
+    p.add_argument("--compute-dtype", type=str, default=d.compute_dtype,
+                   choices=("float32", "bfloat16"))
+    p.add_argument("--log-every-steps", type=int, default=d.log_every_steps)
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> TrainConfig:
+    return TrainConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)})

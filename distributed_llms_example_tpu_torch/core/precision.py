@@ -2,11 +2,14 @@
 
 The policy mirrors the JAX package's ``core/precision.py``: matmuls and
 activations run in the compute dtype (bf16 by default), softmax and
-LayerNorm statistics in fp32.  Parameter storage differs by device: on
-the CPU parameters stay fp32 (the JAX package's master-weight dtype, and
-what the parity tests compare); on CUDA the matmul weights are stored in
-the compute dtype so no per-call cast moves them again.  LayerNorm
-parameters and ``final_logits_bias`` stay fp32 everywhere.
+LayerNorm statistics in fp32.  Parameter storage differs by use: a
+training build keeps fp32 master weights on every device (the JAX
+package's ``param_dtype``, and what the fused AdamW kernel updates), each
+``Dense`` casting its weight to the compute dtype per call; a serving
+build stores matmul weights on CUDA in the compute dtype so no per-call
+cast moves them again (on the CPU they stay fp32, what the parity tests
+compare).  LayerNorm parameters and ``final_logits_bias`` stay fp32
+everywhere.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-def param_dtype(compute_dtype: torch.dtype, device: torch.device) -> torch.dtype:
-    """Storage dtype of matmul weights and embeddings: fp32 on the CPU, the
-    compute dtype on CUDA."""
-    return torch.float32 if device.type == "cpu" else compute_dtype
+def param_dtype(compute_dtype: torch.dtype, device: torch.device, *,
+                train: bool = False) -> torch.dtype:
+    """Storage dtype of matmul weights and embeddings: fp32 master weights
+    for training and on the CPU, the compute dtype for serving on CUDA."""
+    return torch.float32 if train or device.type == "cpu" else compute_dtype

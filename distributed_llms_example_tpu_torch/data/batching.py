@@ -1,0 +1,70 @@
+"""Fixed-shape bucketed batching (the port's own copy of the JAX package's
+``data/batching.py``, one process).
+
+Each batch is padded to the smallest multiple of ``bucket_multiple`` that
+fits its longest example, capped at the configured maximum: the number of
+distinct shapes stays bounded (max_len / bucket_multiple) while a short
+dialogue does not pay for a 1024-wide row.  Labels pad with ``LABEL_PAD``
+(-100), which the loss masks out.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Sequence
+
+import numpy as np
+
+from distributed_llms_example_tpu_torch.data.dataset import SummarizationDataset, iter_global_batches
+
+LABEL_PAD = -100  # loss-mask value, parity with HF label padding
+
+
+def bucket_len(max_len_in_batch: int, multiple: int, cap: int) -> int:
+    b = ((max(1, max_len_in_batch) + multiple - 1) // multiple) * multiple
+    return min(b, cap)
+
+
+def pad_2d(seqs: Sequence[Sequence[int]], width: int, pad_value: int) -> np.ndarray:
+    out = np.full((len(seqs), width), pad_value, dtype=np.int32)
+    for i, s in enumerate(seqs):
+        s = list(s)[:width]
+        out[i, : len(s)] = s
+    return out
+
+
+class BatchIterator:
+    """Per-epoch iterator over padded batches: a deterministic function of
+    (seed, epoch), the same arrays the JAX package's training iterator
+    yields in a single process (shuffled, last partial batch dropped)."""
+
+    def __init__(self, ds: SummarizationDataset, *, global_batch: int, seed: int = 1234,
+                 bucket_multiple: int = 128, max_source_length: int = 1024,
+                 max_target_length: int = 128):
+        self.ds = ds
+        self.global_batch = global_batch
+        self.seed = seed
+        self.bucket_multiple = bucket_multiple
+        self.max_source_length = max_source_length
+        self.max_target_length = max_target_length
+
+    def steps_per_epoch(self) -> int:
+        return len(self.ds) // self.global_batch
+
+    def epoch(self, epoch: int) -> Iterator[dict[str, np.ndarray]]:
+        """The epoch's batches: input_ids, attention_mask (from lengths, so
+        a pad id inside a sequence stays attended) and labels, int32."""
+        pad_id = self.ds.tokenizer.pad_id
+        for idx in iter_global_batches(len(self.ds), self.global_batch, seed=self.seed,
+                                       epoch=epoch):
+            ex = [self.ds[int(i)] for i in idx]
+            src_w = bucket_len(max(len(e.input_ids) for e in ex), self.bucket_multiple,
+                               self.max_source_length)
+            tgt_w = bucket_len(max(len(e.labels) for e in ex),
+                               min(self.bucket_multiple, self.max_target_length),
+                               self.max_target_length)
+            input_ids = pad_2d([e.input_ids for e in ex], src_w, pad_id)
+            attention_mask = np.zeros_like(input_ids)
+            for i, e in enumerate(ex):
+                attention_mask[i, : min(len(e.input_ids), src_w)] = 1
+            labels = pad_2d([e.labels for e in ex], tgt_w, LABEL_PAD)
+            yield {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}

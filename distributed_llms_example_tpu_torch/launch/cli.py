@@ -1,17 +1,21 @@
 """Command line for the PyTorch port (port of the JAX package's
-``launch/cli.py``; the ``serve`` subcommand).
+``launch/cli.py``): training without a subcommand, and ``serve``.
 
+    python -m distributed_llms_example_tpu_torch.launch.cli \\
+        --model-ckpt bart-large-cnn --train-file train.json --batch-size 8 \\
+        --num-epochs 1 --max-source-length 1024 --max-target-length 128
     python -m distributed_llms_example_tpu_torch.launch.cli serve \\
         --model-ckpt bart-large-cnn --prompts-file prompts.json \\
         --max-slots 8 --max-new-tokens 128 --max-source-length 1024
 
-It takes the JAX CLI's serve flags plus ``--device`` (default ``cuda``;
-without a GPU it stops unless ``--device cpu`` is given) and ``--seed``
-(the random-init seed: no weights ship with the repository).  The JAX
+Both take ``--device`` (default ``cuda``; without a GPU they stop unless
+``--device cpu`` is given) and ``--seed`` (the random-init seed: no
+weights ship with the repository).  Training takes the JAX CLI's flags
+that this slice implements (``core/config.py``) and no others.  The JAX
 CLI's startup lints read XLA cache specs and have no counterpart here yet:
-``--lint`` is parsed and one ``lint_skipped`` line says so.  ``--mesh``
-accepts one-device layouts only; multi-GPU serving, ``serve-router``,
-``serve-loadgen`` and training are later slices (ROADMAP.md).
+serve's ``--lint`` is parsed and one ``lint_skipped`` line says so.
+``--mesh`` accepts one-device layouts only; multi-GPU, ``serve-router``
+and ``serve-loadgen`` are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,24 +28,22 @@ import sys
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
+    from distributed_llms_example_tpu_torch.core.config import add_model_args
+
+    p = add_model_args(argparse.ArgumentParser(
         prog="dllm-torch serve",
         description="continuous-batching inference over a prompts file "
                     "(serving/engine.py): prefill/decode split, KV-cache slots, "
                     "admit/evict per token step",
-    )
-    p.add_argument("--model-ckpt", type=str, default="t5-small")
-    p.add_argument("--tokenizer", type=str, default="")
+    ))
     p.add_argument("--prompts-file", type=str, required=True,
                    help="JSON array / JSONL of records or plain strings")
-    p.add_argument("--source-column", type=str, default="")
     p.add_argument("--output-file", type=str, default="",
                    help="write {prompt, output, tokens} JSONL here (default: stdout)")
     p.add_argument("--num-prompts", type=int, default=0, help="0 = all")
     p.add_argument("--max-slots", type=int, default=8)
     p.add_argument("--prefill-batch", type=int, default=0)
     p.add_argument("--max-new-tokens", type=int, default=128)
-    p.add_argument("--max-source-length", type=int, default=1024)
     p.add_argument("--log-every-steps", type=int, default=50)
     p.add_argument("--ttft-slo-ms", type=float, default=0.0)
     p.add_argument("--kv-cache-dtype", type=str, default="f32", choices=("f32", "int8"))
@@ -60,11 +62,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=str, default="data=-1",
                    help="one-device layouts only (every axis 1 or -1)")
     p.add_argument("--compute-dtype", type=str, default="bfloat16")
-    p.add_argument("--attention-impl", type=str, default="",
-                   choices=("", "auto", "flash", "ring", "xla"))
     p.add_argument("--lint", type=str, default="warn", choices=("off", "warn", "strict"))
-    p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
-    p.add_argument("--seed", type=int, default=0, help="random-init seed for the weights")
     return p
 
 
@@ -190,15 +188,39 @@ def serve_main(argv: list[str] | None = None) -> int:
     return 0
 
 
+def build_train_parser() -> argparse.ArgumentParser:
+    from distributed_llms_example_tpu_torch.core.config import add_train_args
+
+    return add_train_args(argparse.ArgumentParser(
+        prog="dllm-torch",
+        description="fine-tune a seq2seq model on a JSON summarization file "
+                    "(train/trainer.py); 'serve' runs inference",
+    ))
+
+
+def train(argv: list[str] | None = None):
+    """Training (``main`` without a subcommand): load the records, build
+    the Trainer, run every epoch.  Returns the trainer, whose ``history``
+    holds each step's metrics."""
+    from distributed_llms_example_tpu_torch.core.config import config_from_args
+    from distributed_llms_example_tpu_torch.data.dataset import load_json_records
+    from distributed_llms_example_tpu_torch.train.trainer import Trainer
+
+    cfg = config_from_args(build_train_parser().parse_args(argv))
+    trainer = Trainer(cfg, load_json_records(cfg.train_file))
+    trainer.train()
+    return trainer
+
+
 def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
-    raise SystemExit(
-        "the PyTorch port has the 'serve' subcommand only; training, serve-router and "
-        "serve-loadgen are later slices (ROADMAP.md)"
-    )
+    if argv and argv[0] in ("serve-router", "serve-loadgen"):
+        raise SystemExit(f"{argv[0]} is a later slice of the port (ROADMAP.md)")
+    train(argv)
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,13 +1,18 @@
-"""BART seq2seq in PyTorch (port of the JAX package's ``models/bart.py``),
-inference only.
+"""BART seq2seq in PyTorch (port of the JAX package's ``models/bart.py``).
 
 Post-layernorm residual blocks, learned positional embeddings with the +2
 offset, optional sqrt(d) embedding scale, exact-GELU FFN, biased
 projections, LM head tied to ``shared`` plus ``final_logits_bias``.  The
 compute dtype follows the JAX module: embeddings, projections and the
 logits run in ``dtype``; LayerNorm statistics and softmax in fp32.
-Dropout is the identity at inference, so it has no module here.  The
-pipelined training adapter waits for the training slice.
+
+Dropout sits where the JAX module puts it: after the embedding LayerNorm,
+after the FFN activation, and on every sublayer output with the residual
+add fused in (``ops/fused_dropout.Dropout(h, residual=r)`` == ``r +
+dropout(h)``).  Each call site owns its ``Dropout`` module, so counting the
+modules counts the calls.  In eval mode every one is ``residual + h``, the
+expression serving always computed.  The pipelined training adapter waits
+for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from torch import nn
 
 from distributed_llms_example_tpu_torch.ops.attention import mask_to_bias
 from distributed_llms_example_tpu_torch.ops.dense import Dense
+from distributed_llms_example_tpu_torch.ops.fused_dropout import Dropout
 from distributed_llms_example_tpu_torch.ops.mha import KVCache, MultiHeadAttention
 from distributed_llms_example_tpu_torch.ops.norms import LayerNorm
 
@@ -73,18 +79,20 @@ class _Embed(nn.Module):
 
 
 class BartMLP(nn.Module):
-    def __init__(self, ffn_dim: int, model_dim: int, **kw):
+    def __init__(self, ffn_dim: int, model_dim: int, dropout_rate: float, **kw):
         super().__init__()
         self.fc1 = Dense(model_dim, ffn_dim, **kw)
+        self.dropout = Dropout(dropout_rate)
         self.fc2 = Dense(ffn_dim, model_dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        return self.fc2(self.dropout(F.gelu(self.fc1(x), approximate="none")))
 
 
 def _attn(cfg: BartConfig, heads: int, causal: bool, **kw) -> MultiHeadAttention:
     return MultiHeadAttention(heads, cfg.d_model // heads, cfg.d_model, use_bias=True,
-                              causal=causal, attention_impl=cfg.attention_impl, **kw)
+                              causal=causal, attention_impl=cfg.attention_impl,
+                              probs_dropout_rate=cfg.attn_dropout_rate, **kw)
 
 
 class BartEncoderLayer(nn.Module):
@@ -92,13 +100,17 @@ class BartEncoderLayer(nn.Module):
         super().__init__()
         dtype, device = kw["dtype"], kw.get("device")
         self.self_attn = _attn(cfg, cfg.encoder_attention_heads, False, **kw)
+        self.self_attn_dropout = Dropout(cfg.dropout_rate)
         self.self_attn_layer_norm = LayerNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype, device)
-        self.mlp = BartMLP(cfg.encoder_ffn_dim, cfg.d_model, **kw)
+        self.mlp = BartMLP(cfg.encoder_ffn_dim, cfg.d_model, cfg.dropout_rate, **kw)
+        self.mlp_dropout = Dropout(cfg.dropout_rate)
         self.final_layer_norm = LayerNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype, device)
 
     def forward(self, hidden: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
-        hidden = self.self_attn_layer_norm(hidden + self.self_attn(hidden, bias=bias))
-        return self.final_layer_norm(hidden + self.mlp(hidden))
+        h = self.self_attn(hidden, bias=bias)
+        hidden = self.self_attn_layer_norm(self.self_attn_dropout(h, residual=hidden))
+        h = self.mlp(hidden)
+        return self.final_layer_norm(self.mlp_dropout(h, residual=hidden))
 
 
 class BartDecoderLayer(nn.Module):
@@ -106,19 +118,23 @@ class BartDecoderLayer(nn.Module):
         super().__init__()
         dtype, device = kw["dtype"], kw.get("device")
         self.self_attn = _attn(cfg, cfg.decoder_attention_heads, True, **kw)
+        self.self_attn_dropout = Dropout(cfg.dropout_rate)
         self.self_attn_layer_norm = LayerNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype, device)
         self.cross_attn = _attn(cfg, cfg.decoder_attention_heads, False, **kw)
+        self.cross_attn_dropout = Dropout(cfg.dropout_rate)
         self.cross_attn_layer_norm = LayerNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype, device)
-        self.mlp = BartMLP(cfg.decoder_ffn_dim, cfg.d_model, **kw)
+        self.mlp = BartMLP(cfg.decoder_ffn_dim, cfg.d_model, cfg.dropout_rate, **kw)
+        self.mlp_dropout = Dropout(cfg.dropout_rate)
         self.final_layer_norm = LayerNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype, device)
 
     def forward(self, hidden, self_bias, encoder_hidden, cross_bias, *,
                 cache: KVCache | None = None, cache_positions=None, cross_kv=None):
         h = self.self_attn(hidden, bias=self_bias, cache=cache, cache_positions=cache_positions)
-        hidden = self.self_attn_layer_norm(hidden + h)
+        hidden = self.self_attn_layer_norm(self.self_attn_dropout(h, residual=hidden))
         h = self.cross_attn(hidden, kv_hidden=encoder_hidden, bias=cross_bias, cross_kv=cross_kv)
-        hidden = self.cross_attn_layer_norm(hidden + h)
-        return self.final_layer_norm(hidden + self.mlp(hidden))
+        hidden = self.cross_attn_layer_norm(self.cross_attn_dropout(h, residual=hidden))
+        h = self.mlp(hidden)
+        return self.final_layer_norm(self.mlp_dropout(h, residual=hidden))
 
 
 class BartForConditionalGeneration(nn.Module):
@@ -138,6 +154,8 @@ class BartForConditionalGeneration(nn.Module):
         self.decoder_embed_positions = _Embed(n_pos, cfg.d_model, **kw)
         self.encoder_layernorm_embedding = LayerNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype, device)
         self.decoder_layernorm_embedding = LayerNorm(cfg.d_model, cfg.layer_norm_epsilon, dtype, device)
+        self.encoder_embed_dropout = Dropout(cfg.dropout_rate)
+        self.decoder_embed_dropout = Dropout(cfg.dropout_rate)
         self.encoder_blocks = nn.ModuleList(BartEncoderLayer(cfg, **kw) for _ in range(cfg.encoder_layers))
         self.decoder_blocks = nn.ModuleList(BartDecoderLayer(cfg, **kw) for _ in range(cfg.decoder_layers))
         self.final_logits_bias = nn.Parameter(
@@ -161,7 +179,7 @@ class BartForConditionalGeneration(nn.Module):
         cfg = self.config
         pos = torch.arange(input_ids.shape[1], device=input_ids.device) + cfg.POSITION_OFFSET
         hidden = self.shared(input_ids) * cfg.embed_scale + self.encoder_embed_positions(pos)[None]
-        hidden = self.encoder_layernorm_embedding(hidden)
+        hidden = self.encoder_embed_dropout(self.encoder_layernorm_embedding(hidden))
         bias = mask_to_bias(attention_mask) if attention_mask is not None else None
         for blk in self.encoder_blocks:
             hidden = blk(hidden, bias)
@@ -200,7 +218,7 @@ class BartForConditionalGeneration(nn.Module):
         if cache is not None:
             cache_positions = (off if off.dim() == 1 else off.expand(B)).to(torch.int32)
         hidden = self.shared(decoder_input_ids) * cfg.embed_scale + pos_embed
-        hidden = self.decoder_layernorm_embedding(hidden)
+        hidden = self.decoder_embed_dropout(self.decoder_layernorm_embedding(hidden))
         # cached steps mask validity/causality inside attention; uncached
         # passes get causality inside attention and only the padding mask here
         self_bias = None
@@ -222,3 +240,11 @@ class BartForConditionalGeneration(nn.Module):
         enc = self.encode(input_ids, attention_mask)
         return self.decode(decoder_input_ids, enc, encoder_mask=attention_mask,
                            decoder_attention_mask=decoder_attention_mask)
+
+
+def shift_right(labels: torch.Tensor, decoder_start_token_id: int, pad_token_id: int) -> torch.Tensor:
+    """Teacher-forcing decoder inputs from labels (HF shift_tokens_right:
+    -100 label positions become pad); the JAX package's ``shift_right``."""
+    shifted = torch.roll(labels, 1, dims=-1)
+    shifted[:, 0] = decoder_start_token_id
+    return torch.where(shifted == -100, torch.full_like(shifted, pad_token_id), shifted)

@@ -69,9 +69,12 @@ def load_model(
     device: str | torch.device | None = None,
     attention_impl: str | None = None,
     seed: int = 0,
+    train: bool = False,
 ) -> LoadedModel:
     """Resolve a registry name into a LoadedModel on ``device`` (CUDA unless
-    ``"cpu"`` is asked for), with weights drawn from ``seed``."""
+    ``"cpu"`` is asked for), with weights drawn from ``seed``.  ``train``
+    builds it for training: fp32 master weights on every device and the
+    module in training mode (dropout on); otherwise it is in eval mode."""
     if attention_impl not in (None, "auto", "flash", "ring", "xla"):
         raise ValueError(
             f"attention_impl={attention_impl!r}: must be 'auto', 'flash', 'ring', or 'xla'"
@@ -92,9 +95,9 @@ def load_model(
         cfg = dataclasses.replace(cfg, attention_impl=attention_impl)
     dev = resolve_device(device)
     module = BartForConditionalGeneration(
-        cfg, dtype=dtype, param_dtype=param_dtype(dtype, dev), device=dev
+        cfg, dtype=dtype, param_dtype=param_dtype(dtype, dev, train=train), device=dev
     )
-    module.eval()
+    module.train(train)
     lm = LoadedModel("bart", cfg, module, is_seq2seq=True)
     lm.init_params(seed)
     return lm

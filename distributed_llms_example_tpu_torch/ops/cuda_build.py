@@ -7,8 +7,9 @@ never loaded).  Nothing outside the repository's sources goes into a
 build: no PyTorch headers, no CUTLASS — a kernel builds in seconds.
 
 ``build(names)`` starts one ``nvcc`` per source, all at once, and waits
-for every one; ``load(name, argtypes)`` builds if needed and returns the C
-function with its ``argtypes`` set (``c_void_p`` for pointers and the
+for every one; ``load(name, argtypes[, symbol])`` builds if needed and
+returns the C function (a source may export several) with its
+``argtypes`` set (``c_void_p`` for pointers and the
 stream, so no pointer is cut to 32 bits) and ``restype`` int: the kernel's
 ``cudaGetLastError()`` after launch, which the caller turns into an error.
 Nothing here runs at import time.
@@ -82,15 +83,17 @@ def build(names: list[str] | tuple[str, ...], *, verbose: bool = False) -> dict[
     return seconds
 
 
-def load(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry ``name`` of ``csrc/<name>.cu``, built on first use."""
-    fn = _LOADED.get(name)
+def load(name: str, argtypes: list, symbol: str | None = None) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` (default ``name``) of ``csrc/<name>.cu``,
+    built on first use."""
+    symbol = symbol or name
+    fn = _LOADED.get(symbol)
     if fn is None:
         build([name])
-        fn = getattr(ctypes.CDLL(str(library_path(name))), name)
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LOADED[name] = fn
+        _LOADED[symbol] = fn
     return fn
 
 
@@ -98,3 +101,19 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_inputs(what: str, tensors: dict):
+    """The device of ``tensors`` (name → tensor), after checking that every
+    one is a contiguous tensor on one CUDA device; raises ValueError
+    naming ``what`` and the offending tensor otherwise."""
+    dev = None
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}, expected a CUDA device")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, others on {dev}")
+        dev = t.device
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    return dev

@@ -2,8 +2,10 @@
 
 Inputs, weight and bias are cast to the compute dtype and the product runs
 there — what the JAX package's ``nn.Dense(dtype=bf16)`` does with fp32
-parameters.  On CUDA the weights are already stored in the compute dtype
-(``core/precision.param_dtype``), so the casts are no-ops.  The weight layout is
+parameters.  A serving build on CUDA stores the weights in the compute
+dtype already (``core/precision.param_dtype``), so the casts are no-ops; a
+training build keeps fp32 master weights and casts them here, per call,
+with the cast's gradient flowing back to the fp32 copy.  The weight layout is
 PyTorch's (out, in); ``models/from_jax.py`` transposes flax kernels.
 """
 

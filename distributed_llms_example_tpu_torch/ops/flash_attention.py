@@ -1,17 +1,25 @@
-"""Flash attention (forward) and flash decode: CUDA kernels + plain versions.
+"""Flash attention (forward and backward) and flash decode: CUDA kernels
++ plain versions.
 
-Port of the JAX package's ``ops/flash_attention.py``.  Each public
-function is a wrapper with three parts:
+Port of the JAX package's ``ops/flash_attention.py``.  Each kernel has a
+wrapper with three parts:
 
 - a **plain PyTorch version** of the function (``*_plain``), which the
   wrapper runs for tensors on the CPU and which the chip check holds the
   kernel against;
-- the **CUDA kernel** (``csrc/flash_fwd.cu``, ``csrc/flash_decode.cu``),
-  which the wrapper launches for tensors on a CUDA device — or raises:
-  there is no fallback from a CUDA tensor to the plain version;
+- the **CUDA kernel** (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` with
+  its two entries dq and dk/dv, ``csrc/flash_decode.cu``), which the
+  wrapper launches for tensors on a CUDA device — or raises: there is no
+  fallback from a CUDA tensor to the plain version;
 - a **launch counter** (``flash_attention.launches``,
+  ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``,
   ``flash_decode.launches``): a plain integer bumped where the kernel is
   launched and nowhere else.
+
+``flash_attention`` is a ``torch.autograd.Function``: its forward saves
+(q, k, v, bias, o, lse), its backward computes delta = rowsum(dO * O) in
+PyTorch (as the JAX package does outside its kernels) and runs the dq and
+dk/dv kernels.  The bias is a constant mask and gets no gradient.
 
 Layouts follow the JAX package: q/k/v (B, H, S, d), an additive ``bias``
 whose every dim is 1 or full (e.g. a (B, 1, 1, K) padding mask), lse
@@ -102,19 +110,6 @@ def _bias_args(bias: torch.Tensor | None) -> tuple:
     return (bias.data_ptr(), *strides)
 
 
-def _check_cuda_inputs(what: str, tensors: dict[str, torch.Tensor]) -> torch.device:
-    dev = None
-    for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{what}: {name} is on {t.device}, expected a CUDA device")
-        if dev is not None and t.device != dev:
-            raise ValueError(f"{what}: {name} is on {t.device}, others on {dev}")
-        dev = t.device
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-    return dev
-
-
 # ----------------------------------------------------------- forward kernel
 
 
@@ -151,7 +146,7 @@ _FWD_ARGTYPES = (
 
 
 def _flash_fwd_cuda(q, k, v, bias, *, causal, scale):
-    dev = _check_cuda_inputs("flash_attention", {"q": q, "k": k, "v": v})
+    dev = cuda_build.check_inputs("flash_attention", {"q": q, "k": k, "v": v})
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel takes fp32 or bf16 q/k/v of one dtype, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -175,15 +170,41 @@ def _flash_fwd_cuda(q, k, v, bias, *, causal, scale):
     return o, lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 1 under autograd: the backward is kernels 2 and 3."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, scale):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, bias, causal=causal, scale=scale)
+        else:
+            o, lse = _flash_fwd_cuda(q, k, v, bias, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        delta = attention_delta(do, o)
+        kw = dict(causal=ctx.causal, scale=ctx.scale)
+        dq = flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, bias=None, *, causal: bool = False, scale: float | None = None,
                     dtype: torch.dtype | None = None, return_lse: bool = False):
-    """Blockwise-softmax attention; drop-in for ``dot_product_attention``.
+    """Blockwise-softmax attention; drop-in for ``dot_product_attention``,
+    differentiable in q, k and v.
 
     ``causal`` applies the top-left mask and requires q_len == kv_len; the
-    bias is a constant additive mask (every dim 1 or full).  Any sequence
-    lengths.  Returns o (in ``dtype``, default q's), or (o, lse) with
-    ``return_lse``.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel."""
+    bias is a constant additive mask (every dim 1 or full; no gradient).
+    Any sequence lengths.  Returns o (in ``dtype``, default q's), or (o,
+    lse) with ``return_lse``.  A CPU tensor runs the plain versions
+    (forward and backward); a CUDA tensor launches the kernels."""
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} "
                          "are not (B, H, S, d) of one batch, head count and head_dim")
@@ -193,16 +214,123 @@ def flash_attention(q, k, v, bias=None, *, causal: bool = False, scale: float | 
     _check_bias(bias, (q.shape[0], q.shape[1], q.shape[2], k.shape[2]))
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        o, lse = flash_attention_plain(q, k, v, bias, causal=causal, scale=scale)
-    else:
-        o, lse = _flash_fwd_cuda(q, k, v, bias, causal=causal, scale=scale)
+    if bias is not None:
+        bias = bias.float()
+    o, lse = _FlashAttention.apply(q, k, v, bias, bool(causal), float(scale))
     if dtype is not None:
         o = o.to(dtype)
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------- backward kernels
+
+
+def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (B, H, Sq): the one backward term
+    computed outside the kernels, as in the JAX package."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def _bwd_plain(q, k, v, bias, do, lse, delta, *, causal, scale):
+    """(p, ds) of the backward in fp32, rows with the lse sentinel zeroed."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    if causal:
+        q_pos = torch.arange(q.shape[2], device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(q_pos >= k_pos, s, torch.full((), -torch.inf, device=q.device))
+    lse = lse[..., None]
+    p = torch.where(lse <= MASK_VALUE / 2, torch.zeros((), device=q.device), torch.exp(s - lse))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds
+
+
+def _dq_plain(q, k, ds):
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def _dkv_plain(q, k, v, do, p, ds):
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()).to(k.dtype)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float()).to(v.dtype)
+    return dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, bias, o, lse, do, *, causal=False, scale=None):
+    """Plain PyTorch version of the backward kernels: (dq, dk, dv) from the
+    forward's inputs, its output and lse, and the output gradient.  fp32
+    arithmetic; ds rounded to k's dtype before the dq product and to q's
+    before the dk product, p to dO's dtype before the dv product, as the
+    TPU kernels round."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    p, ds = _bwd_plain(q, k, v, bias, do, lse, attention_delta(do, o), causal=causal, scale=scale)
+    return (_dq_plain(q, k, ds), *_dkv_plain(q, k, v, do, p, ds))
+
+
+_BWD_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
+)
+_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale):
+    dev = cuda_build.check_inputs(entry, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
+                                     "delta": delta})
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != q.dtype for t in (k, v, do)):
+        raise ValueError(f"{entry} kernel takes fp32 or bf16 q/k/v/do of one dtype, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError(f"{entry}: lse and delta must be fp32")
+    B, H, Lq, D = q.shape
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{entry} kernel has no instance for head_dim {D} "
+                         f"(built for {KERNEL_HEAD_DIMS})")
+    if bias is not None and bias.device != dev:
+        raise ValueError(f"{entry}: bias is on {bias.device}, q on {dev}")
+    argtypes = _BWD_ARGTYPES + [ctypes.c_void_p] * len(outs) + _BWD_TAIL
+    fn = cuda_build.load("flash_bwd", argtypes, entry)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), B, H, Lq,
+             k.shape[2], D, float(scale), int(causal), int(q.dtype == torch.bfloat16),
+             torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, entry)
+
+
+def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, causal: bool, scale: float):
+    """dq of flash attention (kernel 2) from the saved forward inputs, lse,
+    delta and dO.  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel."""
+    if q.device.type == "cpu":
+        _, ds = _bwd_plain(q, k, v, bias, do, lse, delta, causal=causal, scale=scale)
+        return _dq_plain(q, k, ds)
+    dq = torch.empty_like(q)
+    _bwd_cuda("flash_bwd_dq", q, k, v, bias, do, lse, delta, (dq,), causal=causal, scale=scale)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, bias, do, lse, delta, *, causal: bool, scale: float):
+    """(dk, dv) of flash attention (kernel 3); as ``flash_bwd_dq``."""
+    if q.device.type == "cpu":
+        p, ds = _bwd_plain(q, k, v, bias, do, lse, delta, causal=causal, scale=scale)
+        return _dkv_plain(q, k, v, do, p, ds)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_cuda("flash_bwd_dkv", q, k, v, bias, do, lse, delta, (dk, dv), causal=causal,
+              scale=scale)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
 
 
 # ----------------------------------------------------------- int8 KV cache
@@ -279,7 +407,7 @@ def _flash_decode_cuda(q, k, v, bias, *, offsets, k_scale, v_scale, scale):
     tensors = {"q": q, "k": k, "v": v, "offsets": offsets}
     if k_scale is not None:
         tensors.update(k_scale=k_scale, v_scale=v_scale)
-    dev = _check_cuda_inputs("flash_decode", tensors)
+    dev = cuda_build.check_inputs("flash_decode", tensors)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_decode kernel takes fp32 or bf16 q, got {q.dtype}")
     int8 = k_scale is not None

@@ -4,12 +4,14 @@ One module covers BART's self- and cross-attention: scaled dot-product
 attention with biased projections, causal masking, and a fixed-shape
 per-layer KV cache written per row for continuous-batching decode.  The
 dispatch mirrors the JAX module: a cached decode step goes to the flash
-decode kernel, an uncached pass to the flash-attention forward kernel,
+decode kernel, an uncached pass to the flash-attention kernels (forward,
+and under autograd the dq and dk/dv backward),
 each where ``select_*_impl`` picks it (on CUDA, for every shape the
 kernels have an instance for; for CPU tensors, by the JAX package's own
 rule), and to plain attention (the counterpart of the JAX package's XLA
 path, hence the name ``"xla"``) otherwise.  Ring attention, sharded
-execution, RoPE and GQA join with later slices.
+execution, RoPE, GQA and attention-probs dropout (which raises in
+training mode) join with later slices.
 """
 
 from __future__ import annotations
@@ -168,10 +170,11 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, num_heads: int, head_dim: int, model_dim: int, *,
                  use_bias: bool = True, causal: bool = False,
                  dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "auto", device=None):
+                 attention_impl: str = "auto", probs_dropout_rate: float = 0.0, device=None):
         super().__init__()
         _check_impl(attention_impl)
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.probs_dropout_rate = float(probs_dropout_rate)
         self.causal, self.dtype, self.attention_impl = causal, dtype, attention_impl
         inner = num_heads * head_dim
 
@@ -255,6 +258,14 @@ class MultiHeadAttention(nn.Module):
                 )
             return self._merge(out)
 
+        if self.training and self.probs_dropout_rate > 0.0:
+            # the flash kernels' in-kernel probs-dropout branch is not ported
+            # (bart-large-cnn trains with attention dropout 0): refuse rather
+            # than train without the configured dropout
+            raise NotImplementedError(
+                f"attention-probs dropout (rate {self.probs_dropout_rate}) is not ported yet "
+                "(ROADMAP)"
+            )
         causal_here = self.causal
         impl, reason = select_attention_impl(
             self.attention_impl, head_dim=self.head_dim, q_len=q.shape[2],

@@ -1,0 +1,144 @@
+"""Optimizer and LR schedule (port of the JAX package's ``train/optim.py``).
+
+- ``linear_schedule_with_warmup``: linear warmup then linear decay to 0,
+  with optax's ``join_schedules`` semantics and its fp32 arithmetic;
+- ``decay_mask``: weight decay on matrices and embeddings (rank >= 2),
+  never on biases or norm scales;
+- ``OptimizerSpec``: the clip + AdamW hyperparameters as data;
+- ``AdamWState`` and ``fused_optimizer_apply``: the optimizer state (step
+  count, fp32 mu and nu per parameter) and one clip + AdamW step through
+  the fused kernel (``ops/fused_optim.py``), one launch per parameter
+  tensor.  The global gradient norm is a plain PyTorch reduction outside
+  the kernel, as in the JAX package, and every step scalar stays on the
+  device: a step needs no ``.item()``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from distributed_llms_example_tpu_torch.ops.fused_optim import (
+    _S_BC1,
+    _S_BC2,
+    _S_GNORM,
+    _S_NEG_LR,
+    _S_TRIGGER,
+    SCALARS,
+    STATS,
+    adamw_tree_apply,
+)
+
+Schedule = Callable[[int], float]
+
+
+def _linear_schedule(init: float, end: float, steps: int) -> Schedule:
+    """optax ``linear_schedule``: ``(init - end) * (1 - t/steps) + end`` with
+    t clipped to [0, steps], evaluated in fp32 as optax does."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        c = min(max(int(count), 0), steps)
+        frac = f32(1) - f32(c) / f32(steps)
+        return float(f32(init - end) * frac + f32(end))
+
+    return schedule
+
+
+def linear_schedule_with_warmup(lr: float, warmup_steps: int, total_steps: int) -> Schedule:
+    """Warmup 0 → lr over ``warmup_steps``, then lr → 0 over the rest: the
+    JAX package's schedule, step by step."""
+    warmup_steps = max(0, int(warmup_steps))
+    decay_steps = max(1, int(total_steps) - warmup_steps)
+    warm = _linear_schedule(0.0, lr, max(1, warmup_steps))
+    decay = _linear_schedule(lr, 0.0, decay_steps)
+
+    def schedule(count: int) -> float:
+        return warm(count) if count < warmup_steps else decay(count - warmup_steps)
+
+    return schedule
+
+
+def decay_mask(name: str, p: torch.Tensor) -> bool:
+    """True (decay) for matrices and embeddings, False for biases and norm
+    scales (the leaf name is checked as well as the rank)."""
+    return p.dim() >= 2 and name.rsplit(".", 1)[-1] not in ("scale", "bias")
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerSpec:
+    learning_rate: float = 5e-5
+    weight_decay: float = 0.01
+    warmup_steps: int = 500
+    total_steps: int = 10_000
+    max_grad_norm: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+
+@dataclasses.dataclass
+class AdamWState:
+    """optax's ``ScaleByAdamState`` for a list of parameters: the step count
+    (a host int: the schedule and the bias corrections read it without a
+    device round trip) and fp32 first/second moments, one per parameter.
+    ``stats`` is the kernel's (N, STATS) float64 table of per-leaf health
+    sums, allocated once and refilled by every step; nothing reads it yet."""
+
+    count: int
+    mu: list[torch.Tensor]
+    nu: list[torch.Tensor]
+    stats: torch.Tensor
+
+    @classmethod
+    def zeros(cls, params: list[torch.Tensor]) -> "AdamWState":
+        return cls(0, [torch.zeros_like(p, dtype=torch.float32) for p in params],
+                   [torch.zeros_like(p, dtype=torch.float32) for p in params],
+                   torch.zeros(len(params), STATS, dtype=torch.float64,
+                               device=params[0].device))
+
+
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """optax ``global_norm``: sqrt of the sum of per-leaf sums of squares,
+    fp32, a 0-d device tensor."""
+    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+
+
+def step_scalars(spec: OptimizerSpec, schedule: Schedule, count: int,
+                 gnorm: torch.Tensor) -> torch.Tensor:
+    """The kernel's SCALARS vector on gnorm's device: clip trigger from the
+    norm, bias corrections in fp32 at the post-increment count, -lr at the
+    pre-increment count.  Host values enter through fills, not copies, so
+    building it never waits on the device."""
+    dev = gnorm.device
+    count_inc = torch.full((), count + 1, dtype=torch.float32, device=dev)
+    bc1 = 1 - torch.full((), spec.b1, dtype=torch.float32, device=dev) ** count_inc
+    bc2 = 1 - torch.full((), spec.b2, dtype=torch.float32, device=dev) ** count_inc
+    trigger = ((gnorm < spec.max_grad_norm).float() if spec.max_grad_norm > 0
+               else torch.ones((), device=dev))
+    scal = torch.zeros(SCALARS, dtype=torch.float32, device=dev)
+    for i, v in ((_S_GNORM, gnorm), (_S_TRIGGER, trigger), (_S_BC1, bc1), (_S_BC2, bc2)):
+        scal[i] = v
+    scal[_S_NEG_LR] = -1 * schedule(count)
+    return scal
+
+
+def fused_optimizer_apply(spec: OptimizerSpec, schedule: Schedule, named_params, state: AdamWState,
+                          grads: list[torch.Tensor]):
+    """One clip + AdamW step, in place on the parameters and ``state``.
+    ``named_params``: (name, fp32 parameter) pairs; ``grads``: their
+    token-normalized fp32 gradients.  Returns the global grad norm, a
+    device tensor."""
+    names, params = zip(*named_params)
+    gnorm = global_norm(grads)
+    scal = step_scalars(spec, schedule, state.count, gnorm)
+    adamw_tree_apply(
+        list(params), state.mu, state.nu, grads, scal, state.stats, b1=spec.b1, b2=spec.b2,
+        eps=spec.eps, max_norm=spec.max_grad_norm, weight_decay=spec.weight_decay,
+        decay=[decay_mask(n, p) for n, p in zip(names, params)],
+    )
+    state.count += 1
+    return gnorm

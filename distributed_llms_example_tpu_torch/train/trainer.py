@@ -1,0 +1,121 @@
+"""A minimal trainer (port of the JAX package's ``train/trainer.py``, one
+device): dataset → bucketed batches → the epoch loop of ``train_step`` →
+the JSON step lines of ``MetricLogger``.
+
+Weights are random-init from ``seed`` with fp32 master copies (the
+training build of ``models/registry.py``); activations run in the compute
+dtype.  Dropout seeds come from a CPU ``torch.Generator`` seeded with
+``shuffle_seed``, so a step draws nothing on the device.  Losses stay
+device tensors until a logging step converts them.  Evaluation,
+checkpoints, export, health/obs/recovery and multi-GPU wait for later
+slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from distributed_llms_example_tpu_torch.core.config import TrainConfig
+from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resolve_device
+from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD, BatchIterator
+from distributed_llms_example_tpu_torch.data.dataset import SummarizationDataset
+from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
+from distributed_llms_example_tpu_torch.models.registry import load_model
+from distributed_llms_example_tpu_torch.train.optim import (
+    AdamWState,
+    OptimizerSpec,
+    linear_schedule_with_warmup,
+)
+from distributed_llms_example_tpu_torch.train.step import train_step
+from distributed_llms_example_tpu_torch.utils.jsonlog import MetricLogger, log_json
+
+
+def put_batch(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
+    """Host int32 arrays → device int64 tensors (pinned, asynchronous copy
+    on CUDA)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t.long()
+    return out
+
+
+def batch_tokens(batch: dict[str, np.ndarray]) -> int:
+    """Non-pad tokens of one seq2seq batch: source plus target."""
+    return int(np.sum(batch["attention_mask"])) + int(np.sum(batch["labels"] != LABEL_PAD))
+
+
+class Trainer:
+    def __init__(self, cfg: TrainConfig, train_records: Sequence[dict]):
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.loaded = load_model(
+            cfg.model_ckpt, dtype=parse_dtype(cfg.compute_dtype), device=self.device,
+            attention_impl=cfg.attention_impl or None, seed=cfg.seed, train=True,
+        )
+        self.model = self.loaded.module
+        self.tokenizer = get_tokenizer(cfg.tokenizer, cfg.model_ckpt)
+        self.train_ds = SummarizationDataset(
+            train_records, self.tokenizer, max_source_length=cfg.max_source_length,
+            max_target_length=cfg.max_target_length, source_column=cfg.source_column,
+            target_column=cfg.target_column,
+        )
+        self.batches = BatchIterator(
+            self.train_ds, global_batch=cfg.batch_size, seed=cfg.shuffle_seed,
+            bucket_multiple=cfg.pad_to_multiple, max_source_length=cfg.max_source_length,
+            max_target_length=cfg.max_target_length,
+        )
+        steps_per_epoch = self.batches.steps_per_epoch()
+        if steps_per_epoch == 0:
+            raise ValueError(f"dataset of {len(self.train_ds)} examples is smaller than one "
+                             f"global batch ({cfg.batch_size})")
+        if cfg.batch_size % cfg.grad_accum_steps:
+            raise ValueError(f"global batch {cfg.batch_size} is not divisible by "
+                             f"grad_accum_steps={cfg.grad_accum_steps}")
+        self.total_steps = steps_per_epoch * cfg.num_epochs
+        self.spec = OptimizerSpec(
+            learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay,
+            warmup_steps=cfg.warmup_steps, total_steps=self.total_steps,
+            max_grad_norm=cfg.max_grad_norm,
+        )
+        self.schedule = linear_schedule_with_warmup(cfg.learning_rate, cfg.warmup_steps,
+                                                    self.total_steps)
+        self.named_params = list(self.model.named_parameters())
+        self.opt_state = AdamWState.zeros([p for _, p in self.named_params])
+        self.generator = torch.Generator().manual_seed(cfg.shuffle_seed)
+        self.history: list[dict[str, Any]] = []  # per-step metrics (device tensors)
+        self.step_ends: list[float] = []  # host clock after each step's logger call
+        log_json({"event": "train_start", "model": cfg.model_ckpt, "device": str(self.device),
+                  "params": sum(p.numel() for _, p in self.named_params),
+                  "param_tensors": len(self.named_params), "total_steps": self.total_steps,
+                  "compute_dtype": cfg.compute_dtype, "grad_accum_steps": cfg.grad_accum_steps})
+
+    def train(self) -> dict[str, Any]:
+        cfg = self.cfg
+        logger = MetricLogger(every=cfg.log_every_steps)
+        step = 0
+        t0 = time.perf_counter()
+        for epoch in range(cfg.num_epochs):
+            for batch in self.batches.epoch(epoch):
+                metrics = train_step(
+                    self.model, self.named_params, self.opt_state, self.spec, self.schedule,
+                    put_batch(batch, self.device), grad_accum_steps=cfg.grad_accum_steps,
+                    label_smoothing=cfg.label_smoothing, generator=self.generator,
+                )
+                step += 1
+                self.history.append(metrics)
+                logger.step(step, metrics["loss"], lr=metrics["learning_rate"],
+                            tokens=batch_tokens(batch), epoch=epoch)
+                self.step_ends.append(time.perf_counter())
+            logger.flush(step, epoch=epoch)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        log_json({"event": "done", "steps": step, "wall_seconds": wall})
+        return {"steps": step, "wall_seconds": wall}

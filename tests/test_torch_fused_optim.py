@@ -1,0 +1,134 @@
+"""The port's fused clip+AdamW (its plain PyTorch version, which the
+wrapper runs for CPU tensors) against the JAX package: per leaf against
+``adamw_leaf_reference`` and ``fused_adamw_leaf(interpret=True)`` within
+2 fp32 ulps (the port does one op at a time; XLA may contract a
+multiply-add of either JAX version into an FMA), with the clip trigger and
+weight decay on and off and a NaN counted once; the schedule step by step;
+and three tree-apply steps against the optax chain on ``bart-test``
+parameters, params within 1e-4 of the learning rate (Adam's g/sqrt(v)
+turns an fp32 rounding of a tiny gradient into at most that)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from distributed_llms_example_tpu.models.registry import load_model as jax_load_model
+from distributed_llms_example_tpu.ops import fused_optim as jfo
+from distributed_llms_example_tpu.train import optim as joptim
+from distributed_llms_example_tpu_torch.models.from_jax import bart_state_dict_from_jax, load_jax_params
+from distributed_llms_example_tpu_torch.models.registry import load_model
+from distributed_llms_example_tpu_torch.ops import fused_optim as tfo
+from distributed_llms_example_tpu_torch.train import optim as toptim
+
+HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, max_norm=1.0)
+ULP2 = 2.4e-7
+
+
+def _leaf(seed, n=4096, nan=False):
+    rng = np.random.RandomState(seed)
+    p, mu, g = (rng.randn(n).astype(np.float32) for _ in range(3))
+    nu = (rng.rand(n) * 1e-2).astype(np.float32)
+    if nan:
+        g[17] = np.nan
+    return p, mu, nu, g
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("trigger", [0.0, 1.0])
+def test_leaf_matches_jax_reference_and_interpret_kernel(trigger, wd, nan):
+    p, mu, nu, g = _leaf(int(trigger * 10 + wd * 100 + nan), nan=nan)
+    scal = np.array([3.5, trigger, 0.1, 0.001, -1e-3, 0, 0, 0], np.float32)
+    jargs = [jnp.asarray(a) for a in (p, mu, nu, g, scal)]
+    ref = [np.asarray(x) for x in jfo.adamw_leaf_reference(*jargs, wd=wd, **HYPER)]
+    ker = [np.asarray(x) for x in jfo.fused_adamw_leaf(*jargs, wd=wd, interpret=True, **HYPER)]
+    tp, tmu, tnu = (torch.from_numpy(a.copy()) for a in (p, mu, nu))
+    stats = tfo.fused_adamw_leaf(tp, tmu, tnu, torch.from_numpy(g), torch.from_numpy(scal),
+                                 wd=wd, **HYPER)
+    for name, got, r, k in zip(("p", "mu", "nu"), (tp, tmu, tnu), ref, ker):
+        np.testing.assert_allclose(got.numpy(), r, rtol=ULP2, atol=ULP2, err_msg=name)
+        np.testing.assert_allclose(got.numpy(), k, rtol=ULP2, atol=ULP2, err_msg=name)
+    st = stats.float().numpy()
+    np.testing.assert_allclose(st[:2], ref[3][:2], rtol=1e-5)
+    assert st[tfo.STAT_NONFINITE] == ref[3][jfo.STAT_NONFINITE] == float(nan)
+    assert np.isnan(tp.numpy()).sum() == int(nan)  # the NaN stays in its own element
+    # the plain version itself returns the same values out of place
+    p2, mu2, nu2, _ = tfo.adamw_leaf_plain(*(torch.from_numpy(a) for a in (p, mu, nu, g, scal)),
+                                           wd=wd, **HYPER)
+    np.testing.assert_array_equal(p2.numpy(), tp.numpy())
+
+
+def test_scalar_and_stats_layout_match_jax():
+    assert (tfo._S_GNORM, tfo._S_TRIGGER, tfo._S_BC1, tfo._S_BC2, tfo._S_NEG_LR) == (
+        jfo._S_GNORM, jfo._S_TRIGGER, jfo._S_BC1, jfo._S_BC2, jfo._S_NEG_LR)
+    assert (tfo.SCALARS, tfo.STATS) == (jfo.SCALARS, jfo.STATS)
+    assert (tfo.STAT_P_SUMSQ, tfo.STAT_U_SUMSQ, tfo.STAT_NONFINITE) == (
+        jfo.STAT_P_SUMSQ, jfo.STAT_U_SUMSQ, jfo.STAT_NONFINITE)
+
+
+@pytest.mark.parametrize("warmup,total", [(0, 20), (5, 20), (7, 7), (3, 1000)])
+def test_schedule_equals_jax_at_every_step(warmup, total):
+    js = joptim.linear_schedule_with_warmup(1e-4, warmup, total)
+    ts = toptim.linear_schedule_with_warmup(1e-4, warmup, total)
+    for step in range(total + 3):
+        assert np.float32(ts(step)) == np.asarray(js(jnp.int32(step)), np.float32), step
+
+
+def test_decay_mask_matches_jax_on_bart():
+    lm = jax_load_model("bart-test")
+    params = jax.device_get(lm.init_params(0))
+    jmask = bart_state_dict_from_jax(jax.tree.map(lambda m: np.float32(m),
+                                                  joptim.decay_mask(params)))
+    tlm = load_model("bart-test", device="cpu", train=True)
+    for name, p in tlm.module.named_parameters():
+        assert toptim.decay_mask(name, p) == bool(jmask[name].item()), name
+
+
+@pytest.fixture(scope="module")
+def bart_params():
+    lm = jax_load_model("bart-test")
+    return jax.device_get(lm.init_params(0))
+
+
+def test_three_tree_steps_match_the_optax_chain(bart_params):
+    params = bart_params
+    lr = 1e-3
+    tx, schedule, spec = joptim.make_optimizer_bundle(
+        learning_rate=lr, weight_decay=0.01, warmup_steps=1, total_steps=10, max_grad_norm=1.0)
+    opt_state = tx.init(params)
+    tlm = load_model("bart-test", device="cpu", train=True)
+    load_jax_params(tlm.module, params)
+    named = list(tlm.module.named_parameters())
+    tspec = toptim.OptimizerSpec(learning_rate=lr, weight_decay=0.01, warmup_steps=1,
+                                 total_steps=10, max_grad_norm=1.0)
+    tsched = toptim.linear_schedule_with_warmup(lr, 1, 10)
+    state = toptim.AdamWState.zeros([p for _, p in named])
+    rng = np.random.RandomState(0)
+    jparams = params
+    for step, scale in enumerate((0.01, 3.0, 0.05)):  # the middle step clips
+        grads = jax.tree.map(lambda x: (rng.randn(*x.shape) * scale).astype(np.float32), params)
+        updates, opt_state = tx.update(grads, opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        tgrads = bart_state_dict_from_jax(grads)
+        psq = torch.stack([torch.sum(p.detach().double() ** 2) for _, p in named])
+        gnorm = toptim.fused_optimizer_apply(tspec, tsched, named, state,
+                                             [tgrads[n].clone() for n, _ in named])
+        np.testing.assert_allclose(float(gnorm), float(optax.global_norm(grads)), rtol=1e-5)
+        # the state's health table is refilled each step, not accumulated
+        np.testing.assert_allclose(state.stats[:, tfo.STAT_P_SUMSQ].numpy(), psq.numpy(),
+                                   rtol=1e-5)
+        assert not state.stats[:, tfo.STAT_NONFINITE].any()
+        want = bart_state_dict_from_jax(jax.device_get(jparams))
+        for n, p in named:
+            np.testing.assert_allclose(p.detach().numpy(), want[n].numpy(), rtol=0,
+                                       atol=1e-4 * lr, err_msg=f"step {step} {n}")
+    assert state.count == 3
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    z = torch.zeros(8)
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        tfo._adamw_cuda(z, z, z, z, z, torch.zeros(4, dtype=torch.float64), wd=0.0, **HYPER)

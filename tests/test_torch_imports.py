@@ -27,6 +27,7 @@ def _port_modules():
 def test_port_imports_nothing_of_jax():
     mods = _port_modules()
     assert "distributed_llms_example_tpu_torch.serving.engine" in mods
+    assert "distributed_llms_example_tpu_torch.train.trainer" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -56,3 +57,11 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     prompts.write_text(json.dumps(["a prompt"]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_main(["--model-ckpt", "bart-test", "--prompts-file", str(prompts)])
+    from distributed_llms_example_tpu_torch.launch.cli import train
+
+    records = tmp_path / "train.json"
+    records.write_text(json.dumps([{"dialogue": "a b c", "summary": "a"}] * 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(["--model-ckpt", "bart-test", "--train-file", str(records), "--batch-size", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model("bart-test", train=True)
