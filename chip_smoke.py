@@ -2,14 +2,15 @@
 """Chip smoke for the PyTorch port: builds the CUDA kernels, holds each
 against its plain PyTorch version on the card, serves bart-large-cnn at
 full width through the port's ``serve`` entry, fine-tunes it at full width
-through the port's train entry, and checks that each run went through its
-kernels.
+through the port's train entry, serves llama-2-7b at full width through
+``serve --paged-kv`` and through the flat cache, and checks that each run
+went through its kernels.
 
     python3 chip_smoke.py    # from the repository root, on one NVIDIA GPU
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
-  2. build: one nvcc per kernel source, all five at once (ptxas report)
+  2. build: one nvcc per kernel source, all six at once (ptxas report)
   3. kernels vs plain versions at the main paths' shapes and at lengths no
      tile divides, timed with CUDA events beside the plain version, the
      library yardstick (never called by the port) and the bound
@@ -21,7 +22,15 @@ Phases (each fatal, non-zero exit, no result line):
      - fused dropout: exactly equal in bf16 and fp32, kept fraction within
        1e-3 of 1 - rate;
      - fused AdamW: p', mu', nu' within AdamW_RTOL, health sums within
-       1e-5 relative, NaN counted once
+       1e-5 relative, NaN counted once;
+     - paged flash decode at the llama-2-7b decode shape (72-block pool in
+       scrambled order, sentinel tiles in the prompt gap and past the
+       budget, padding bias; Q = 1 and 8, bf16 / fp32 / int8 / GQA 32:8,
+       the limits of flash decode); flash decode over the gathered view of
+       the same blocks against the same plain output (the flat LLaMA
+       path's d = 128 shape) and bit for bit against paged decode; and a
+       planted fault (a gap sentinel read as a poisoned block) that must
+       break the fp32 limit by orders of magnitude
   4. serve: the CLI's serve entry in-process, bart-large-cnn, bf16, seed 0,
      16 prompts of 200-1024 byte-tokens, 8 slots, 128 new tokens, source
      1024; launch counters zeroed before and read after; first-step logits
@@ -42,7 +51,19 @@ Phases (each fatal, non-zero exit, no result line):
      norm and the largest per-tensor grad difference within limits that a
      backward dropout seed off by one must break; in bf16 the kernel path's
      gradient must stay within 1.5x the plain path's distance from fp32
-  7. a {"kernels": [...]} line, then the last line
+  7. llama-2-7b serve: the CLI's serve entry, bf16, seed 0, 16 byte-token
+     prompts of 200-1024 tokens, 8 slots, 128 new tokens, source 1024,
+     once with --paged-kv and once flat (BART freed first); counters
+     zeroed before and read after each: paged decode = attention modules x
+     decode rounds and flash decode 0 on the paged run, the reverse on the
+     flat one, flash forward 0 on both (the prompt prefill is plain
+     attention, as in the JAX package); the pool drained; the greedy
+     tokens of the two runs all equal; one profiled paged decode round
+  8. fp32 logits at llama-2-7b widths, 2 layers: a prefill + 4 decode
+     steps, paged and flat, kernel path vs plain path within 1e-4; a
+     decode offset shifted by one must break it on each route
+  9. a {"kernels_unported": [...]} line (TPU kernels with no port yet), a
+     {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Imports nothing of JAX or of the JAX package.  Everything it writes goes
@@ -73,6 +94,10 @@ FP32_LOGITS_ATOL = 1e-4
 # L2 of the whole gradient) on an H100 (PERF.md), so these leave 20-40x of
 # room, while a backward dropout seed off by one moves the grad norm by
 # 3.7e-3 and a tensor's grads by 4.5e-3 (the planted-fault check)
+# fp32 logits of a paged prefill + 4 decode steps at llama-2-7b widths (2
+# layers), kernel 6 vs its plain version; a decode offset shifted by one
+# must break it
+LLAMA_FP32_ATOL = 1e-4
 GRAD_LIMITS = {"loss_diff": 1e-5, "grad_norm_diff": 1e-5, "max_tensor_grad_diff": 5e-6,
                "grad_rel_l2": 1e-5}
 # fused AdamW, kernel vs plain: both do one IEEE op at a time (the kernel
@@ -80,7 +105,8 @@ GRAD_LIMITS = {"loss_diff": 1e-5, "grad_norm_diff": 1e-5, "max_tensor_grad_diff"
 # ulps of headroom for a library sqrt or division that rounds differently
 ADAMW_RTOL = 2.4e-7
 WORK = os.path.join(HERE, "build", "chip_smoke")
-KERNELS = ["flash_fwd", "flash_decode", "flash_bwd", "fused_dropout", "fused_adamw"]
+KERNELS = ["flash_fwd", "flash_decode", "flash_bwd", "fused_dropout", "fused_adamw",
+           "flash_decode_paged"]
 
 
 def fail(msg: str) -> None:
@@ -514,6 +540,148 @@ def adamw_kernel_phase(torch, fo):
     return {"fused_adamw": r}
 
 
+def paged_case(torch, fa, *, dtype, Q, heads_kv=32, gen):
+    """Kernel 6's inputs at the llama-2-7b decode shape: q (8, 32, Q, 128);
+    a pool of 72 blocks of 128 slots in scrambled order; 9 tiles a row,
+    rows in a 1024-wide or a 512-wide bucket with 200-1024 prompt tokens,
+    so the block tables hold sentinels in the prompt gap (under the
+    padding bias) and, for the 512-wide rows, past the budget; staggered
+    offsets inside each row's decode tile."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    B, H, D, N, BS, NT = 8, 32, 128, 72, 128, 9
+    rng = np.random.RandomState(40 + Q)
+    buckets = [1024, 512, 1024, 512, 1024, 1024, 512, 1024]
+    lens = [int(rng.randint(200, b + 1)) for b in buckets]
+    lens[0] = 300  # tiles 3-7 of row 0 are the prompt gap
+    perm = [int(x) for x in rng.permutation(N)]
+    bt = np.full((B, NT), N, np.int32)
+    bias = np.zeros((B, 1, 1, NT * BS), np.float32)
+    for b in range(B):
+        n_prompt = -(-lens[b] // BS)
+        bt[b, :n_prompt] = [perm.pop() for _ in range(n_prompt)]
+        bt[b, buckets[b] // BS] = perm.pop()
+        bias[b, ..., lens[b]:buckets[b]] = -1e9
+    offsets = np.array([buckets[b] + int(e) for b, e in
+                        enumerate([0, 5, 17, 40, 64, 99, 111, 120 - Q + 1])], np.int32)
+    q = torch.randn(B, H, Q, D, generator=gen, device=dev).to(dtype)
+    k_pool = torch.randn(N, heads_kv, BS, D, generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn(N, heads_kv, BS, D, generator=gen, device=dev).to(dtype)
+    to = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return q, k_pool, v_pool, to(bt), to(offsets), to(bias), perm
+
+
+def paged_kernel_phase(torch, fa):
+    """Kernel 6 against its plain version (bf16, fp32, int8, GQA, Q = 1 and
+    8); kernel 5 over the gathered view of the same blocks against the same
+    plain output (the flat LLaMA path's shape, d = 128) and bit for bit
+    against kernel 6; a planted fault; kernel 6's times at the llama-2-7b
+    decode shape.  Returns ({"flash_decode_paged": numbers}, kernel 5's
+    largest error here)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf = dict(atol=2e-2, rtol=2e-2)
+    f32 = dict(atol=1e-4)
+    errs, errs5, vs_flat = [], [], {}
+    for dtype, Q, heads_kv, tol in ((torch.bfloat16, 1, 32, bf), (torch.bfloat16, 8, 32, bf),
+                                    (torch.float32, 1, 32, f32), (torch.float32, 8, 32, f32),
+                                    (torch.bfloat16, 1, 8, bf), (torch.float32, 8, 8, f32)):
+        q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=dtype, Q=Q, heads_kv=heads_kv,
+                                                 gen=gen)
+        o = fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt, offsets=off)
+        po = fa.flash_decode_paged_plain(q, kp, vp, bias, block_tables=bt, offsets=off)
+        rep = 32 // heads_kv
+        view = [fa.gather_blocks(x, bt).repeat_interleave(rep, dim=1) for x in (kp, vp)]
+        o5 = fa.flash_decode(q, *view, bias, offsets=off)
+        torch.cuda.synchronize()
+        case = f"flash_decode_paged Q={Q} H_kv={heads_kv} {dtype}"
+        errs.append(check_close(case, o, po, **tol))
+        errs5.append(check_close(f"flash_decode on the gathered view Q={Q} H_kv={heads_kv} "
+                                 f"{dtype}", o5, po, **tol))
+        vs_flat[case] = float((o.float() - o5.float()).abs().max())
+    q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=torch.bfloat16, Q=1, gen=gen)
+    kq, ks = fa.quantize_kv(kp)
+    vq, vsc = fa.quantize_kv(vp)
+    o = fa.flash_decode_paged(q, kq, vq, bias, block_tables=bt, offsets=off, k_scale_pool=ks,
+                              v_scale_pool=vsc)
+    po = fa.flash_decode_paged_plain(q, kq, vq, bias, block_tables=bt, offsets=off,
+                                     k_scale_pool=ks, v_scale_pool=vsc)
+    view = [fa.gather_blocks(x, bt) for x in (kq, vq, ks, vsc)]
+    o5 = fa.flash_decode(q, view[0], view[1], bias, offsets=off, k_scale=view[2],
+                         v_scale=view[3])
+    torch.cuda.synchronize()
+    errs.append(check_close("flash_decode_paged int8 pool Q=1 bf16", o, po, **bf))
+    errs5.append(check_close("flash_decode on the gathered view int8 Q=1 bf16", o5, po, **bf))
+    vs_flat["flash_decode_paged int8 pool Q=1 bf16"] = float((o.float() - o5.float()).abs().max())
+    bit_equal = all(v == 0.0 for v in vs_flat.values())
+    say({"phase": "kernel6_vs_kernel5_gathered", "max_abs_diff": vs_flat,
+         "bit_equal": bit_equal})
+    # the two kernels share their tile size and accumulation order, so any
+    # difference over the same blocks is a fault of one of them
+    if not bit_equal:
+        fail(f"flash_decode_paged differs from flash_decode over the gathered view: {vs_flat}")
+
+    # planted fault: the gap's sentinel entry of row 0 read as block N - 1
+    # (what a kernel that clamped instead of skipping would fetch), over a
+    # pool whose unallocated blocks hold 1e12: must break the fp32 limit by
+    # orders of magnitude
+    q, kp, vp, bt, off, bias, free = paged_case(torch, fa, dtype=torch.float32, Q=1, gen=gen)
+    for blk in free:
+        kp[blk] = 1e12
+        vp[blk] = 1e12
+    gap = int((bt[0] == 72).nonzero()[0])
+    bad = bt.clone()
+    bad[0, gap] = free[0]
+    o = fa.flash_decode_paged(q, kp, vp, bias, block_tables=bad, offsets=off)
+    po = fa.flash_decode_paged_plain(q, kp, vp, bias, block_tables=bt, offsets=off)
+    good = fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt, offsets=off)
+    torch.cuda.synchronize()
+    fault = float((o - po).abs().max())
+    errs.append(check_close("flash_decode_paged fp32 over a poisoned pool", good, po, **f32))
+    say({"phase": "kernel_check", "case": "flash_decode_paged planted fault: a gap sentinel read "
+         "as a poisoned block", "max_abs_err": fault, "atol": f32["atol"], "must_exceed": True})
+    if not fault > 1e3 * f32["atol"]:
+        fail(f"flash_decode_paged: reading a sentinel tile stays near the fp32 limit ({fault})")
+
+    # times at the llama-2-7b decode shape, bf16
+    q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=torch.bfloat16, Q=1, gen=gen)
+    run = lambda: fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt, offsets=off)  # noqa: E731
+    view_k, view_v = fa.gather_blocks(kp, bt), fa.gather_blocks(vp, bt)
+    k_pos = torch.arange(view_k.shape[2], device="cuda")[None, None, None, :]
+    sdpa_mask = (bias > -1) & (k_pos <= off[:, None, None, None])
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, view_k, view_v,
+                                                            attn_mask=sdpa_mask), per_rep=100)
+    gather_ms = time_ms(lambda: (fa.gather_blocks(kp, bt), fa.gather_blocks(vp, bt)), per_rep=20)
+    # bytes: the K/V of every slot the output depends on, read once — up to
+    # each row's offset, in an allocated tile and not under the padding
+    # bias (the tail of each row's last prompt tile is) — plus q, o, the
+    # bias, the tables and the offsets
+    k_pos = torch.arange(bt.shape[1] * 128, device="cuda")
+    needed = ((k_pos[None, :] <= off[:, None]) & (bt < 72).repeat_interleave(128, dim=1)
+              & (bias[:, 0, 0, :] > -1))
+    live = int(needed.sum())
+    H, D = 32, 128
+    flops = 4.0 * H * live * D
+    nbytes = 2 * H * live * D * 2 + 2 * q.numel() * 2 + bias.numel() * 4 + bt.numel() * 4 + 8 * 4
+    b_ms, b_by = bound(flops, nbytes)
+    r = dict(max_abs_err=max(errs), ms=time_ms(run, per_rep=200),
+             plain_ms=time_ms(lambda: fa.flash_decode_paged_plain(
+                 q, kp, vp, bias, block_tables=bt, offsets=off), per_rep=20),
+             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    # kernel 5 on the already gathered view of the same blocks: the flat
+    # path's call at this shape, beside kernel 6
+    flat = lambda: fa.flash_decode(q, view_k, view_v, bias, offsets=off)  # noqa: E731
+    say({"phase": "kernel_time", "kernel": "flash_decode_paged", **r, "live_slots": live,
+         "gather_ms_beside_library": gather_ms, "kernel6_bit_equal_kernel5": bit_equal,
+         "device_ms": device_ms_of(run, 50, "flash_decode_paged_kernel"),
+         "flash_decode_on_gathered_view_ms": time_ms(flat, per_rep=200),
+         "flash_decode_on_gathered_view_device_ms": device_ms_of(flat, 50,
+                                                                 "flash_decode_kernel")})
+    return {"flash_decode_paged": r}, max(errs5)
+
+
 def write_train_records(path: str, n: int = 48) -> None:
     import numpy as np
 
@@ -534,7 +702,7 @@ TRAIN_ARGS = [
 
 def zero_counters(fa, fd, fo) -> None:
     for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fd.fused_dropout,
-               fo.fused_adamw_leaf, fa.flash_decode):
+               fo.fused_adamw_leaf, fa.flash_decode, fa.flash_decode_paged):
         fn.launches = 0
 
 
@@ -986,6 +1154,234 @@ def ragged_serve(fa, cli, args) -> None:
         fail(f"ragged serve run: {len(outs)} records, launches {launches} vs {want}")
 
 
+LLAMA_ARGS = [
+    "--model-ckpt", "llama-2-7b", "--max-slots", "8", "--max-new-tokens", "128",
+    "--max-source-length", "1024", "--compute-dtype", "bfloat16", "--seed", "0",
+    "--log-every-steps", "64", "--lint", "off",
+]
+
+
+def write_llama_prompts(path: str, n: int = 16) -> None:
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
+    # byte tokenizer, causal prompts: n bytes = n tokens, no eos
+    texts = ["".join(rng.choice(alphabet, rng.randint(200, 1025))) for _ in range(n)]
+    with open(path, "w") as f:
+        json.dump(texts, f)
+
+
+def free_cuda() -> None:
+    """Return what the caller dropped to the card (after its ``del``)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llama_serve_phase(torch, fa, cli):
+    """llama-2-7b at full width through the CLI's serve entry, paged then
+    flat: launch counts derived from the model, the pool drained, the
+    greedy tokens of both runs equal (kernel 6 equals kernel 5 bit for bit
+    over the same blocks, which the kernel phase checks), and one profiled
+    paged decode round."""
+    from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
+
+    os.makedirs(WORK, exist_ok=True)
+    prompts = os.path.join(WORK, "llama_prompts.json")
+    write_llama_prompts(prompts)
+    runs = {}
+    for name, extra in (("paged", ["--paged-kv"]), ("flat", [])):
+        out = os.path.join(WORK, f"llama_{name}.jsonl")
+        fa.flash_attention.launches = fa.flash_decode.launches = 0
+        fa.flash_decode_paged.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine, outs = cli.serve([*LLAMA_ARGS, "--prompts-file", prompts, "--output-file", out,
+                                  *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention_fwd": fa.flash_attention.launches,
+                    "flash_decode": fa.flash_decode.launches,
+                    "flash_decode_paged": fa.flash_decode_paged.launches}
+        stats = engine.last_stats
+        layers = sum(isinstance(m, MultiHeadAttention) for m in engine.model.modules())
+        steps = layers * stats.decode_steps
+        want = {"flash_attention_fwd": 0, "flash_decode": 0 if name == "paged" else steps,
+                "flash_decode_paged": steps if name == "paged" else 0}
+        with open(out) as f:
+            records = sum(1 for _ in f)
+        p50, p95 = stats.ttft_percentiles()
+        numbers = {"phase": f"llama_serve_{name}", "wall_s": wall, "records": records,
+                   "attention_modules": layers, "decode_steps": stats.decode_steps,
+                   "prefill_calls": stats.prefill_calls, "launches": launches, "expected": want,
+                   "decode_tokens": stats.decode_tokens,
+                   "decode_tokens_per_sec": stats.tokens_per_sec(),
+                   "ttft_p50_ms": p50 * 1e3, "ttft_p95_ms": p95 * 1e3,
+                   "prefill_seconds": stats.prefill_seconds,
+                   "decode_seconds": stats.decode_seconds,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                   "cache_bytes_resident": stats.cache_bytes_resident,
+                   "bytes_per_live_token": stats.bytes_per_live_token}
+        if name == "paged":
+            numbers.update(pool_blocks=engine.pool.num_blocks, kv_block_size=engine.block_size,
+                           blocks_in_use_at_end=engine.pool.blocks_in_use,
+                           admit_deferrals=stats.admit_deferrals)
+        say(numbers)
+        if records != 16 or stats.decode_steps == 0 or launches != want:
+            fail(f"llama-2-7b {name} serve: {records} records, launches {launches} vs {want}")
+        if name == "paged":
+            if engine.pool.blocks_in_use != 0:
+                fail(f"llama-2-7b paged serve left {engine.pool.blocks_in_use} blocks in use")
+            where_the_time_goes(torch, engine)
+        runs[name] = (outs, launches)
+        del engine
+        free_cuda()
+    (outs_p, launches_p), (outs_f, launches_f) = runs["paged"], runs["flat"]
+    same = sum(x == y for ra, rb in zip(outs_p, outs_f) for x, y in zip(ra, rb))
+    total = sum(max(len(ra), len(rb)) for ra, rb in zip(outs_p, outs_f))
+    rate = same / max(total, 1)
+    say({"phase": "llama_paged_vs_flat_tokens", "greedy_token_match_rate": rate,
+         "positions": total})
+    if rate < 1.0 or [len(r) for r in outs_p] != [len(r) for r in outs_f]:
+        fail(f"paged and flat greedy tokens differ (match rate {rate})")
+    return launches_p, launches_f
+
+
+def decode_logits(torch, model, chunk, full_mask, lengths, first, *, paged: bool,
+                  steps: int = 4):
+    """A decode of ``steps`` greedy tokens from a prefilled chunk, with
+    per-row write and RoPE positions: paged (a fresh pool of 72 blocks of
+    128, the chunk's tiles admitted) or flat (a copy of the chunk's own
+    (P + L)-wide cache).  Returns the fp32 logits of every step."""
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.ops.mha import KVCache, PagedKVCache
+    from distributed_llms_example_tpu_torch.serving import cache_pool
+
+    B, width = full_mask.shape
+    bucket, L, bs = width - 128, 128, 128
+    if paged:
+        pool = cache_pool.CachePool(72, bs)
+        tree = cache_pool.pool_cache_tree([(c.k[:1], c.v[:1]) for c in chunk], 72, bs)
+        bt = np.stack([cache_pool.build_block_row(
+            width // bs, pool.alloc(cache_pool.blocks_needed(int(n), L, bs)), prompt_len=int(n),
+            bucket_width=bucket, budget=L, block_size=bs, sentinel=72) for n in lengths.tolist()])
+        cache_pool.scatter_admit(tree, [(c.k, c.v) for c in chunk], bt.reshape(-1), bs)
+    else:
+        flat = [KVCache(c.k.clone(), c.v.clone()) for c in chunk]
+    mask = full_mask.clone()
+    last = first.argmax(-1)
+    out = []
+    for t in range(steps):
+        pos = np.full(B, bucket + t, np.int32)
+        mask[:, bucket + t] = 1
+        if paged:
+            plan = cache_pool.step_write_plan(bt, pos, num_blocks=72, block_size=bs,
+                                              device="cuda")
+            cache = [PagedKVCache(k, v, torch.as_tensor(bt, device="cuda"), plan)
+                     for k, v in tree]
+        else:
+            cache = flat
+        logits = model(last[:, None], mask, positions=(lengths.long() + t)[:, None], cache=cache,
+                       cache_positions=torch.as_tensor(pos, device="cuda"))[:, -1].float()
+        out.append(logits)
+        last = logits.argmax(-1)
+    return torch.stack(out)
+
+
+@contextlib.contextmanager
+def decode_route(fa, how: str):
+    """The model's decode call sites (paged and flat) routed to their plain
+    versions (``plain``), or to the kernels with each row's offset shifted
+    back by one (``fault``: a row no longer sees its own new K/V)."""
+    from distributed_llms_example_tpu_torch.ops import mha
+
+    def plain_paged(q, kp, vp, bias=None, *, block_tables, offsets, dtype=None):
+        return fa.flash_decode_paged_plain(q, kp, vp, bias, block_tables=block_tables,
+                                           offsets=offsets).to(dtype or q.dtype)
+
+    def fault_paged(q, kp, vp, bias=None, *, block_tables, offsets, dtype=None):
+        return fa.flash_decode_paged(q, kp, vp, bias, block_tables=block_tables,
+                                     offsets=offsets - 1, dtype=dtype)
+
+    def plain_flat(q, k, v, bias=None, *, offsets, dtype=None):
+        return fa.flash_decode_plain(q, k, v, bias, offsets=offsets).to(dtype or q.dtype)
+
+    def fault_flat(q, k, v, bias=None, *, offsets, dtype=None):
+        return fa.flash_decode(q, k, v, bias, offsets=offsets - 1, dtype=dtype)
+
+    saved = mha.flash_decode_paged, mha.flash_decode
+    if how == "plain":
+        mha.flash_decode_paged, mha.flash_decode = plain_paged, plain_flat
+    else:
+        mha.flash_decode_paged, mha.flash_decode = fault_paged, fault_flat
+    try:
+        yield
+    finally:
+        mha.flash_decode_paged, mha.flash_decode = saved
+
+
+def llama_logits_phase(torch, fa) -> None:
+    """fp32, llama-2-7b widths at 2 layers: a prefill + 4 decode steps,
+    paged (kernel 6) and flat (kernel 5), kernel path vs plain path on the
+    same weights, within LLAMA_FP32_ATOL; a decode offset shifted by one
+    must break it on each route."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+    from distributed_llms_example_tpu_torch.evaluation.generation import causal_prefill
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.models.registry import LLAMA_CONFIGS
+
+    cfg = dataclasses.replace(LLAMA_CONFIGS["llama-2-7b"], num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, dtype=torch.float32, param_dtype=torch.float32,
+                             device="cuda").eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    with open(os.path.join(WORK, "llama_prompts.json")) as f:
+        texts = json.load(f)[:8]
+    tok = ByteTokenizer()
+    ids = np.zeros((8, 1024), np.int64)
+    mask = np.zeros((8, 1024), np.int32)
+    for r, t in enumerate(texts):
+        row = tok.encode_prompt(t, 1024)
+        ids[r, : len(row)] = row
+        mask[r, : len(row)] = 1
+    with torch.inference_mode():
+        chunk, full_mask, lengths, first = causal_prefill(
+            model, torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda"), 128)
+        for route, counter in (("paged", fa.flash_decode_paged), ("flat", fa.flash_decode)):
+            args = (torch, model, chunk, full_mask, lengths, first)
+            kw = dict(paged=route == "paged")
+            counter.launches = 0
+            kernel = decode_logits(*args, **kw)
+            launched = counter.launches
+            with decode_route(fa, "plain"):
+                plain = decode_logits(*args, **kw)
+            with decode_route(fa, "fault"):
+                fault = decode_logits(*args, **kw)
+            err = float((kernel - plain).abs().max())
+            fault_err = float((fault - plain).abs().max())
+            finite = bool(torch.isfinite(kernel).all())
+            say({"phase": f"llama_logits_kernel_vs_plain_{route}", "layers": 2, "steps": 4,
+                 "shape": list(kernel.shape), "finite": finite, "fp32_max_abs_err": err,
+                 "fp32_atol": LLAMA_FP32_ATOL, "fp32_planted_fault_err": fault_err,
+                 "kernel_launches": launched, "max_abs_logit": float(plain.abs().max())})
+            if not finite or list(kernel.shape) != [4, 8, cfg.vocab_size] or launched != 2 * 4:
+                fail(f"llama fp32 logits ({route}): finite={finite}, shape "
+                     f"{list(kernel.shape)}, {launched} kernel launches")
+            if err > LLAMA_FP32_ATOL:
+                fail(f"llama fp32 logits ({route}): kernel path vs plain path max abs err {err}")
+            if not fault_err > LLAMA_FP32_ATOL:
+                fail(f"llama fp32 logits ({route}): a decode offset shifted by one moves them "
+                     f"only {fault_err}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "distributed_llms_example_tpu_torch")):
         fail("the port's package is not beside chip_smoke.py: run it from a checkout")
@@ -1020,6 +1416,10 @@ def main() -> None:
     measured.update(backward_kernel_phase(torch, fa))
     measured.update(dropout_kernel_phase(torch, fd))
     measured.update(adamw_kernel_phase(torch, fo))
+    paged, kernel5_err_d128 = paged_kernel_phase(torch, fa)
+    measured.update(paged)
+    measured["flash_decode"]["max_abs_err"] = max(measured["flash_decode"]["max_abs_err"],
+                                                  kernel5_err_d128)
 
     # phases 4-6: the main paths
     from distributed_llms_example_tpu_torch.launch import cli
@@ -1032,9 +1432,22 @@ def main() -> None:
         p.grad = None
     torch.cuda.empty_cache()
     grad_check_phase(torch, fa, fd, trainer)
+    del trainer
+    free_cuda()
 
-    # phase 7: the kernel list, then the contract line.  Kernel 1 runs on
-    # both main paths: its launches are the serve run's plus the train run's.
+    # phases 7-8: llama-2-7b serving, paged and flat; fp32 logits
+    llama_paged, llama_flat = llama_serve_phase(torch, fa, cli)
+    llama_logits_phase(torch, fa)
+
+    # phase 9: the TPU kernel with no port yet, the kernel list, then the
+    # contract line.  A kernel that runs on several main paths reports the
+    # sum of their counts: kernel 1 the BART serve and train runs, kernel 5
+    # the BART serve and the flat LLaMA serve, kernel 6 the paged LLaMA
+    # serve.  Kernel 4 has no route, source or time, so it stands on a line
+    # of its own rather than among the ported kernels.
+    say({"kernels_unported": [dict(name="flash_attention_bwd_dlbias", route=None, source=None,
+                                   replaces="distributed_llms_example_tpu/ops/"
+                                            "flash_attention.py:399", launches=0)]})
     src = "distributed_llms_example_tpu_torch/csrc/"
     ref = "distributed_llms_example_tpu/ops/"
     rows = [
@@ -1044,7 +1457,11 @@ def main() -> None:
              **measured["flash_attention_fwd"]),
         dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
              replaces=ref + "flash_attention.py:931",
-             launches=launches["flash_decode"], **measured["flash_decode"]),
+             launches=launches["flash_decode"] + llama_flat["flash_decode"],
+             **measured["flash_decode"]),
+        dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
+             replaces=ref + "flash_attention.py:1155",
+             launches=llama_paged["flash_decode_paged"], **measured["flash_decode_paged"]),
         dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=ref + "flash_attention.py:264",
              launches=train_launches["flash_attention_bwd_dq"],

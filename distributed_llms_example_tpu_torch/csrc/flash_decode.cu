@@ -13,7 +13,7 @@
 // k_scale / v_scale (B, H, L) fp32, dequantised per tile as
 // float(x) * scale -- the same expression as `dequantize_kv`.  `bias`
 // (fp32, may be null) is read through element strides (0 for a size-1 dim).
-// Any cache length L (every tile is bounds-checked).
+// Any cache length L (every tile is bounds-checked); K/V 16-byte aligned.
 // One block per (b, h); the loop runs only over kv tiles whose first slot
 // is <= offsets[b] + Q - 1, so dead tiles past the longest live row are
 // never read.  As on the TPU, p is rounded to v's (dequantised) dtype
@@ -25,8 +25,10 @@
 // bytes, and at serve shapes (B*H = 128 blocks, L = 128) by launch latency
 // and the one-block-per-(b, h) grid filling 128 of 132 SMs.  The design
 // reads each live K/V element once, keeps scores and the accumulator in
-// shared memory, and moves int8 K/V at one byte per element.  Splitting
-// long caches over several blocks per (b, h) is later work.
+// shared memory, moves int8 K/V at one byte per element, and loads K/V
+// rows 16 bytes per thread (2-byte loads left a bf16 tile latency-bound:
+// 0.6 ms a call at the llama-2-7b shape).  Splitting long caches over
+// several blocks per (b, h) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,24 +100,39 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(
   // tiles past the longest live row (slot offsets[b] + Q - 1) contribute nothing
   const long long last = (long long)off + Q - 1;
   const int nk = (int)min((long long)(L + BK - 1) / BK, last / BK + 1);
+  constexpr int VEC = 16 / sizeof(KV);  // elements of one 16-byte load
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
+#pragma unroll
+    for (int i = tid; i < BK * D / VEC; i += NT) {
+      const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
       const int pos = k0 + r;
-      float kx = 0.f, vx = 0.f;
+      KV kx[VEC], vx[VEC];
+      float ksc = 0.f, vsc = 0.f;
       if (pos < L) {
-        kx = to_f(kp[(size_t)pos * D + c]);
-        vx = to_f(vp[(size_t)pos * D + c]);
+        *reinterpret_cast<uint4*>(kx) = *reinterpret_cast<const uint4*>(kp + (size_t)pos * D + c);
+        *reinterpret_cast<uint4*>(vx) = *reinterpret_cast<const uint4*>(vp + (size_t)pos * D + c);
         if (ksp) {
-          kx *= ksp[pos];
-          vx *= vsp[pos];
+          ksc = ksp[pos];
+          vsc = vsp[pos];
         }
       }
-      Ks[r * (D + 1) + c] = kx;
-      Vs[r * D + c] = vx;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        float kf = 0.f, vf = 0.f;
+        if (pos < L) {
+          kf = to_f(kx[j]);
+          vf = to_f(vx[j]);
+          if (ksp) {
+            kf *= ksc;
+            vf *= vsc;
+          }
+        }
+        Ks[r * (D + 1) + c + j] = kf;
+        Vs[r * D + c + j] = vf;
+      }
     }
     __syncthreads();
 

@@ -7,10 +7,15 @@
     python -m distributed_llms_example_tpu_torch.launch.cli serve \\
         --model-ckpt bart-large-cnn --prompts-file prompts.json \\
         --max-slots 8 --max-new-tokens 128 --max-source-length 1024
+    python -m distributed_llms_example_tpu_torch.launch.cli serve \\
+        --model-ckpt llama-2-7b --prompts-file prompts.json \\
+        --max-slots 8 --max-new-tokens 128 --max-source-length 1024 --paged-kv
 
 Both take ``--device`` (default ``cuda``; without a GPU they stop unless
 ``--device cpu`` is given) and ``--seed`` (the random-init seed: no
-weights ship with the repository).  Training takes the JAX CLI's flags
+weights ship with the repository).  ``serve`` encodes a seq2seq model's
+prompts as sources (ending in eos) and a causal model's as prompts (no
+eos), as the JAX CLI does.  Training takes the JAX CLI's flags
 that this slice implements (``core/config.py``) and no others.  The JAX
 CLI's startup lints read XLA cache specs and have no counterpart here yet:
 serve's ``--lint`` is parsed and one ``lint_skipped`` line says so.
@@ -175,7 +180,8 @@ def serve(argv: list[str] | None = None):
         log_json({"event": "lint_skipped", "lint": args.lint,
                   "reason": "the serving lints read XLA cache specs; the port has none yet"})
     tok = get_tokenizer(args.tokenizer, args.model_ckpt)
-    requests = [tok.encode_source(t, args.max_source_length) for t in prompts]
+    encode = tok.encode_source if lm.is_seq2seq else tok.encode_prompt
+    requests = [encode(t, args.max_source_length) for t in prompts]
     engine = ServingEngine(lm.module, lm.config, serve_cfg, is_seq2seq=lm.is_seq2seq,
                            device=device)
     outputs = engine.generate(requests)

@@ -1,12 +1,15 @@
-"""Weight bridge: the JAX package's BART param tree → this port's state_dict.
+"""Weight bridge: the JAX package's BART and LLaMA param trees → this
+port's state_dicts.
 
 The tree is given as nested dicts of numpy arrays (``jax.device_get`` of
 the flax params), so this module needs neither JAX nor the JAX package.
 Renames: ``encoder_block_{i}`` → ``encoder_blocks.{i}`` (likewise the
-decoder), embedding tables ``embedding`` → ``weight``, LayerNorm ``scale``
-→ ``weight``; a flax ``Dense`` kernel (in, out) becomes ``Linear.weight``
-(out, in).  ``final_logits_bias`` is carried across, and the LM head needs
-no entry: it is tied to ``shared`` in both packages.
+decoder) and LLaMA's ``block_{i}`` → ``blocks.{i}``, embedding tables
+``embedding`` → ``weight``, LayerNorm/RMSNorm ``scale`` → ``weight``; a
+flax ``Dense`` kernel (in, out) becomes ``Linear.weight`` (out, in).
+BART's ``final_logits_bias`` is carried across and its LM head needs no
+entry (tied to ``shared`` in both packages); LLaMA's untied ``lm_head`` is
+an ordinary Dense.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -28,14 +33,13 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndar
     return out
 
 
-def bart_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Port-named fp32 tensors for every leaf of a JAX BART param tree."""
+def _state_dict_from_jax(params: Mapping[str, Any], block: str) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params).items():
         parts = []
         for p in path:
-            m = re.fullmatch(r"(encoder|decoder)_block_(\d+)", p)
-            parts.append(f"{m.group(1)}_blocks.{m.group(2)}" if m else p)
+            m = re.fullmatch(block, p)
+            parts.append(f"{m.group(1)}blocks.{m.group(2)}" if m else p)
         leaf = parts[-1]
         if leaf == "kernel":
             arr = arr.T
@@ -45,11 +49,23 @@ def bart_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tenso
     return sd
 
 
+def bart_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Port-named fp32 tensors for every leaf of a JAX BART param tree."""
+    return _state_dict_from_jax(params, r"((?:encoder|decoder)_)block_(\d+)")
+
+
+def llama_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Port-named fp32 tensors for every leaf of a JAX LLaMA param tree."""
+    return _state_dict_from_jax(params, r"()block_(\d+)")
+
+
 def load_jax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> None:
-    """Copy a JAX BART param tree into ``module`` (strict: every port
-    parameter must be covered and every JAX leaf used), casting each leaf
-    to its parameter's dtype and device."""
-    sd = bart_state_dict_from_jax(params)
+    """Copy a JAX BART or LLaMA param tree (by ``module``'s family) into
+    ``module`` (strict: every port parameter must be covered and every JAX
+    leaf used), casting each leaf to its parameter's dtype and device."""
+    convert = (llama_state_dict_from_jax if isinstance(module, LlamaForCausalLM)
+               else bart_state_dict_from_jax)
+    sd = convert(params)
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))

@@ -1,11 +1,11 @@
 """Model registry: named configs + random init (port of the JAX package's
-``models/registry.py`` for the BART family).
+``models/registry.py`` for the BART and dense LLaMA families).
 
 A registry name resolves to a built-in config sized like the public
-checkpoint, built on the target device and initialized from a seeded
-``torch.Generator`` (no weights ship with the repository).  Loading a local
-HF checkpoint directory, and the T5 and LLaMA families, wait for later
-slices (ROADMAP.md).
+checkpoint, built on the target device and initialized there from a seeded
+``torch.Generator`` (no weights ship with the repository; a 7B model never
+passes through the CPU).  Loading a local HF checkpoint directory, the T5
+family and Mixtral wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from distributed_llms_example_tpu_torch.core.precision import param_dtype, resolve_device
 from distributed_llms_example_tpu_torch.models.bart import BartConfig, BartForConditionalGeneration
+from distributed_llms_example_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
 BART_CONFIGS: dict[str, BartConfig] = {
     "bart-test": BartConfig(
@@ -36,10 +37,26 @@ BART_CONFIGS: dict[str, BartConfig] = {
     "bart-large": BartConfig(),
 }
 
+LLAMA_CONFIGS: dict[str, LlamaConfig] = {
+    "llama-test": LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128,
+    ),
+    "llama-test-4l": LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128,
+    ),
+    "llama-2-7b": LlamaConfig(),
+    "llama-2-13b": LlamaConfig(
+        hidden_size=5120, intermediate_size=13824, num_hidden_layers=40, num_attention_heads=40
+    ),
+}
+
 _LATER = {
     "t5": "T5 (relative-position bias through the flash kernel's learned-bias branch)",
-    "llama": "LLaMA serving (causal flash attention, RoPE, GQA, RMSNorm)",
-    "mixtral": "LLaMA serving (causal flash attention, RoPE, GQA, RMSNorm)",
+    "mixtral": "Mixtral (routed MoE experts)",
     "flan": "T5 (relative-position bias through the flash kernel's learned-bias branch)",
 }
 
@@ -48,12 +65,12 @@ _LATER = {
 class LoadedModel:
     family: str
     config: Any
-    module: BartForConditionalGeneration
+    module: BartForConditionalGeneration | LlamaForCausalLM
     is_seq2seq: bool = True
 
     @property
     def device(self) -> torch.device:
-        return self.module.final_logits_bias.device
+        return next(self.module.parameters()).device
 
     def init_params(self, seed: int = 0) -> None:
         """(Re-)initialize the weights from ``seed`` on the module's device."""
@@ -74,7 +91,8 @@ def load_model(
     """Resolve a registry name into a LoadedModel on ``device`` (CUDA unless
     ``"cpu"`` is asked for), with weights drawn from ``seed``.  ``train``
     builds it for training: fp32 master weights on every device and the
-    module in training mode (dropout on); otherwise it is in eval mode."""
+    module in training mode (dropout on); otherwise it is in eval mode.
+    Only the seq2seq family trains in the port so far."""
     if attention_impl not in (None, "auto", "flash", "ring", "xla"):
         raise ValueError(
             f"attention_impl={attention_impl!r}: must be 'auto', 'flash', 'ring', or 'xla'"
@@ -85,19 +103,26 @@ def load_model(
             "until a checkpoint directory is in the repository (ROADMAP.md)"
         )
     short = name_or_path.rsplit("/", 1)[-1]
-    if short not in BART_CONFIGS:
+    if short in BART_CONFIGS:
+        family, cfg, cls = "bart", BART_CONFIGS[short], BartForConditionalGeneration
+    elif short in LLAMA_CONFIGS:
+        family, cfg, cls = "llama", LLAMA_CONFIGS[short], LlamaForCausalLM
+    else:
         for prefix, what in _LATER.items():
             if short.startswith(prefix):
                 raise NotImplementedError(f"{short!r}: {what} is a later slice of the port (ROADMAP.md)")
-        raise ValueError(f"unknown model {name_or_path!r}: not one of {sorted(BART_CONFIGS)}")
-    cfg = BART_CONFIGS[short]
+        raise ValueError(f"unknown model {name_or_path!r}: not one of "
+                         f"{sorted(BART_CONFIGS) + sorted(LLAMA_CONFIGS)}")
+    if train and family != "bart":
+        raise NotImplementedError(
+            f"{short!r}: training a causal ({family}) model is a later slice of the port "
+            "(ROADMAP.md)"
+        )
     if attention_impl is not None:
         cfg = dataclasses.replace(cfg, attention_impl=attention_impl)
     dev = resolve_device(device)
-    module = BartForConditionalGeneration(
-        cfg, dtype=dtype, param_dtype=param_dtype(dtype, dev, train=train), device=dev
-    )
+    module = cls(cfg, dtype=dtype, param_dtype=param_dtype(dtype, dev, train=train), device=dev)
     module.train(train)
-    lm = LoadedModel("bart", cfg, module, is_seq2seq=True)
+    lm = LoadedModel(family, cfg, module, is_seq2seq=family == "bart")
     lm.init_params(seed)
     return lm

@@ -8,13 +8,14 @@ wrapper with three parts:
   wrapper runs for tensors on the CPU and which the chip check holds the
   kernel against;
 - the **CUDA kernel** (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` with
-  its two entries dq and dk/dv, ``csrc/flash_decode.cu``), which the
-  wrapper launches for tensors on a CUDA device — or raises: there is no
-  fallback from a CUDA tensor to the plain version;
+  its two entries dq and dk/dv, ``csrc/flash_decode.cu``,
+  ``csrc/flash_decode_paged.cu``), which the wrapper launches for tensors
+  on a CUDA device — or raises: there is no fallback from a CUDA tensor to
+  the plain version;
 - a **launch counter** (``flash_attention.launches``,
   ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``,
-  ``flash_decode.launches``): a plain integer bumped where the kernel is
-  launched and nowhere else.
+  ``flash_decode.launches``, ``flash_decode_paged.launches``): a plain
+  integer bumped where the kernel is launched and nowhere else.
 
 ``flash_attention`` is a ``torch.autograd.Function``: its forward saves
 (q, k, v, bias, o, lse), its backward computes delta = rowsum(dO * O) in
@@ -423,6 +424,9 @@ def _flash_decode_cuda(q, k, v, bias, *, offsets, k_scale, v_scale, scale):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_decode kernel has no instance for head_dim {D} "
                          f"(built for {KERNEL_HEAD_DIMS})")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode kernel: k/v must be 16-byte aligned (it loads rows "
+                         "16 bytes at a time)")
     if bias is not None:
         if bias.device != dev:
             raise ValueError(f"flash_decode: bias is on {bias.device}, q on {dev}")
@@ -474,3 +478,143 @@ def flash_decode(q, k, v, bias=None, *, offsets, k_scale=None, v_scale=None,
 
 
 flash_decode.launches = 0
+
+
+# ----------------------------------------------------- paged decode kernel
+
+
+def gather_blocks(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """Slot view of a block pool: (N, H, bs[, d]) through (B, n_tiles)
+    block tables → (B, H, n_tiles·bs[, d]), zeros for sentinel entries
+    (>= N).  The plain path's gather (the JAX package's ``gather_cache``);
+    the paged kernel never builds it."""
+    N = pool.shape[0]
+    bt = block_tables.long()
+    g = pool[bt.clamp(0, N - 1)]  # (B, n_tiles, H, bs[, d])
+    keep = (bt < N).view(*bt.shape, *([1] * (pool.dim() - 1)))
+    g = torch.where(keep, g, torch.zeros((), dtype=pool.dtype, device=pool.device))
+    g = g.transpose(1, 2)  # (B, H, n_tiles, bs[, d])
+    return g.reshape(g.shape[0], g.shape[1], -1, *pool.shape[3:])
+
+
+def flash_decode_paged_plain(q, k_pool, v_pool, bias=None, *, block_tables, offsets,
+                             k_scale_pool=None, v_scale_pool=None, scale=None):
+    """Plain PyTorch version of the paged decode kernel: gather the slot
+    view (zeros for sentinel tiles), repeat each pool head over its group
+    of q heads (``repeat_interleave``, as ``jnp.repeat`` in the JAX
+    package's attention), then ``flash_decode_plain``.  Sentinel tiles
+    must lie where the mask hides them (the prompt gap under the padding
+    bias, or past the offset): there the kernel's skip and this zero fill
+    give the same result."""
+    rep = q.shape[1] // k_pool.shape[1]
+
+    def view(pool):
+        if pool is None:
+            return None
+        g = gather_blocks(pool, block_tables)
+        return g.repeat_interleave(rep, dim=1) if rep > 1 else g
+
+    return flash_decode_plain(q, view(k_pool), view(v_pool), bias, offsets=offsets,
+                              k_scale=view(k_scale_pool), v_scale=view(v_scale_pool),
+                              scale=scale)
+
+
+_PAGED_ARGTYPES = (
+    [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+)
+
+
+def _flash_decode_paged_cuda(q, k_pool, v_pool, bias, *, block_tables, offsets, k_scale_pool,
+                             v_scale_pool, scale):
+    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool, "block_tables": block_tables,
+               "offsets": offsets}
+    int8 = k_scale_pool is not None
+    if int8:
+        tensors.update(k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    dev = cuda_build.check_inputs("flash_decode_paged", tensors)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_decode_paged kernel takes fp32 or bf16 q, got {q.dtype}")
+    want_kv = torch.int8 if int8 else q.dtype
+    if k_pool.dtype != want_kv or v_pool.dtype != want_kv:
+        raise ValueError(f"flash_decode_paged kernel: pools must be {want_kv}, got "
+                         f"{k_pool.dtype}/{v_pool.dtype}")
+    if int8 and (k_scale_pool.dtype != torch.float32 or v_scale_pool.dtype != torch.float32):
+        raise ValueError("flash_decode_paged kernel: scale pools must be fp32")
+    if block_tables.dtype != torch.int32 or offsets.dtype != torch.int32:
+        raise ValueError("flash_decode_paged kernel: block_tables and offsets must be int32")
+    B, H, Q, D = q.shape
+    N, H_kv, bs, _ = k_pool.shape
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_decode_paged kernel has no instance for head_dim {D} "
+                         f"(built for {KERNEL_HEAD_DIMS})")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("flash_decode_paged kernel: pools must be 16-byte aligned (it loads "
+                         "K/V rows 16 bytes at a time)")
+    if bias is not None:
+        if bias.device != dev:
+            raise ValueError(f"flash_decode_paged: bias is on {bias.device}, q on {dev}")
+        bias = bias.float()
+    o = torch.empty_like(q)
+    fn = cuda_build.load("flash_decode_paged", _PAGED_ARGTYPES)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             k_scale_pool.data_ptr() if int8 else None,
+             v_scale_pool.data_ptr() if int8 else None, *_bias_args(bias),
+             block_tables.data_ptr(), offsets.data_ptr(), o.data_ptr(), B, H, H_kv, Q,
+             block_tables.shape[1], bs, N, D, float(scale), int(q.dtype == torch.bfloat16),
+             int(int8), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "flash_decode_paged")
+    flash_decode_paged.launches += 1
+    return o
+
+
+def flash_decode_paged(q, k_pool, v_pool, bias=None, *, block_tables, offsets,
+                       k_scale_pool=None, v_scale_pool=None, scale: float | None = None,
+                       dtype: torch.dtype | None = None):
+    """Decode-step attention straight off a shared block pool: q (B, H,
+    Q <= 8, d); ``k_pool``/``v_pool`` (num_blocks, H_kv, block_size, d)
+    with H_kv dividing H (q head h reads pool head h // (H / H_kv));
+    ``block_tables`` (B, n_tiles) int32 maps each row's logical tile to its
+    pool block, an entry >= num_blocks being an unallocated tile that
+    contributes nothing; ``offsets`` (B,) as in ``flash_decode``.  The
+    logical cache length is n_tiles·block_size, and ``bias`` (every dim 1
+    or full) is indexed in logical order.  ``k_scale_pool``/
+    ``v_scale_pool`` ((num_blocks, H_kv, block_size) fp32) mark an int8
+    pool.  A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel."""
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"q {tuple(q.shape)} / k_pool {tuple(k_pool.shape)} / v_pool "
+                         f"{tuple(v_pool.shape)}: expected (B, H, Q, d) and two equal "
+                         "(num_blocks, H_kv, block_size, d) pools")
+    B, H, Q, D = q.shape
+    N, H_kv, bs, pool_d = k_pool.shape
+    if pool_d != D or H % H_kv:
+        raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match q heads/dim "
+                         f"({H}, {D}): pool heads must divide q heads")
+    if bs % 8:
+        raise ValueError(f"block_size {bs} must be 8-aligned")
+    if not 0 < Q <= MAX_DECODE_Q_ROWS:
+        raise ValueError(f"decode q block of {Q} rows: the kernel takes 1..{MAX_DECODE_Q_ROWS}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"block_tables shape {tuple(block_tables.shape)} != ({B}, n_tiles)")
+    _check_bias(bias, (B, H, Q, block_tables.shape[1] * bs))
+    if (k_scale_pool is None) != (v_scale_pool is None):
+        raise ValueError("k_scale_pool and v_scale_pool must be passed together")
+    if k_scale_pool is not None:
+        for name, s in (("k_scale_pool", k_scale_pool), ("v_scale_pool", v_scale_pool)):
+            if tuple(s.shape) != (N, H_kv, bs):
+                raise ValueError(f"{name} shape {tuple(s.shape)} != {(N, H_kv, bs)}")
+    if tuple(offsets.shape) != (B,):
+        raise ValueError(f"offsets shape {tuple(offsets.shape)} != {(B,)}")
+    if scale is None:
+        scale = D ** -0.5
+    kw = dict(block_tables=block_tables, offsets=offsets, k_scale_pool=k_scale_pool,
+              v_scale_pool=v_scale_pool, scale=scale)
+    if q.device.type == "cpu":
+        out = flash_decode_paged_plain(q, k_pool, v_pool, bias, **kw)
+    else:
+        out = _flash_decode_paged_cuda(q, k_pool, v_pool, bias, **kw)
+    return out if dtype is None else out.to(dtype)
+
+
+flash_decode_paged.launches = 0

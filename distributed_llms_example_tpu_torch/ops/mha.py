@@ -1,17 +1,22 @@
 """Multi-head attention (port of the JAX package's ``ops/mha.py``).
 
-One module covers BART's self- and cross-attention: scaled dot-product
-attention with biased projections, causal masking, and a fixed-shape
-per-layer KV cache written per row for continuous-batching decode.  The
-dispatch mirrors the JAX module: a cached decode step goes to the flash
-decode kernel, an uncached pass to the flash-attention kernels (forward,
-and under autograd the dq and dk/dv backward),
-each where ``select_*_impl`` picks it (on CUDA, for every shape the
-kernels have an instance for; for CPU tensors, by the JAX package's own
-rule), and to plain attention (the counterpart of the JAX package's XLA
-path, hence the name ``"xla"``) otherwise.  Ring attention, sharded
-execution, RoPE, GQA and attention-probs dropout (which raises in
-training mode) join with later slices.
+One module covers BART's self- and cross-attention and LLaMA's causal
+self-attention: scaled dot-product attention with optional projection
+biases, causal masking, RoPE in the HF half-rotation layout, grouped-query
+attention (``num_kv_heads``; K/V repeated per group on the paths that need
+full heads), and two decode caches written per row for continuous-batching
+decode: a flat per-layer ``KVCache`` and a ``PagedKVCache`` over a shared
+block pool.  The dispatch mirrors the JAX module: a cached step goes to the
+flash decode kernel (the paged kernel for a paged cache), an uncached pass
+to the flash-attention kernels (forward, and under autograd the dq and
+dk/dv backward), each where ``select_*_impl`` picks it (on CUDA, for every
+shape the kernels have an instance for; for CPU tensors, by the JAX
+package's own rule), and to plain attention (the counterpart of the JAX
+package's XLA path, hence the name ``"xla"``) otherwise.  A cached pass of
+more than ``MAX_DECODE_Q_ROWS`` rows (the LLaMA prompt prefill) is plain
+attention, as in the JAX package.  Ring attention, sharded execution and
+attention-probs dropout (which raises in training mode) join with later
+slices.
 """
 
 from __future__ import annotations
@@ -32,9 +37,11 @@ from distributed_llms_example_tpu_torch.ops.flash_attention import (
     MAX_DECODE_Q_ROWS,
     flash_attention,
     flash_decode,
+    flash_decode_paged,
     flash_decode_supported,
     flash_supported,
 )
+from distributed_llms_example_tpu_torch.serving.cache_pool import gather_cache, scatter_step
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
 IMPLS = ("auto", "flash", "ring", "xla")
@@ -141,13 +148,63 @@ def decode_step_bias(offsets: torch.Tensor, q_len: int, kv_len: int) -> torch.Te
                        torch.full((), NEG_INF, device=dev))
 
 
+def rope_cos_sin(positions: torch.Tensor, head_dim: int,
+                 theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., head_dim) fp32 cos/sin tables for integer ``positions``, in the
+    HF half-rotation layout (frequencies repeated, not interleaved)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    inv_freq = 1.0 / (theta ** exps)
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (batch, heads, seq, head_dim); cos/sin broadcastable to it."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x * cos + rotated * sin).to(x.dtype)
+
+
 @dataclasses.dataclass
 class KVCache:
-    """One attention layer's decode cache: (B, H, L, d) K and V buffers in
-    the compute dtype, updated in place by ``write_cache_rows``."""
+    """One attention layer's flat decode cache: (B, H_kv, L, d) K and V
+    buffers in the compute dtype, updated in place.  A step with per-row
+    ``cache_positions`` writes row b at its own position
+    (``write_cache_rows``); a step without them writes every row at the
+    shared ``index`` and advances it (the JAX package's ``cache_index``:
+    the prompt prefill)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    index: int = 0
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """One attention layer's view of a shared block pool for one decode
+    step: the layer's (N, H_kv, bs, d) K and V pools, the step's (B,
+    n_tiles) int32 block tables on the device, and its write plan
+    ``(rows, blocks, slots)`` — which batch rows write their new K/V row
+    into which pool block at which in-block slot (parked rows and sentinel
+    tiles are absent from it, so their writes drop).  The engine builds the
+    plan once per step for every layer (``serving/cache_pool.py``)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    block_tables: torch.Tensor
+    write: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+    @property
+    def kv_len(self) -> int:
+        return self.block_tables.shape[1] * self.k.shape[2]
+
+    def write_rows(self, k: torch.Tensor, v: torch.Tensor) -> None:
+        """This step's one new row per batch row ((B, H_kv, 1, d)) into the
+        pool, in place, through ``cache_pool.scatter_step``."""
+        if k.shape[2] != 1:
+            raise ValueError(f"a paged step writes one row per slot, got {k.shape[2]}")
+        scatter_step((self.k, self.v), (k[:, :, 0], v[:, :, 0]), self.write)
 
 
 def write_cache_rows(buf: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> None:
@@ -168,40 +225,56 @@ def write_cache_rows(buf: torch.Tensor, new: torch.Tensor, positions: torch.Tens
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, num_heads: int, head_dim: int, model_dim: int, *,
-                 use_bias: bool = True, causal: bool = False,
+                 num_kv_heads: int | None = None, use_bias: bool = True, causal: bool = False,
+                 use_rope: bool = False, rope_theta: float = 10000.0,
                  dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
                  attention_impl: str = "auto", probs_dropout_rate: float = 0.0, device=None):
         super().__init__()
         _check_impl(attention_impl)
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.kv_heads = num_heads if num_kv_heads is None else num_kv_heads
+        if num_heads % self.kv_heads:
+            raise ValueError(f"{self.kv_heads} kv heads do not divide {num_heads} heads")
+        self.use_rope, self.rope_theta = use_rope, rope_theta
         self.probs_dropout_rate = float(probs_dropout_rate)
         self.causal, self.dtype, self.attention_impl = causal, dtype, attention_impl
-        inner = num_heads * head_dim
 
         def mk(i, o):
             return Dense(i, o, use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
                          device=device)
 
-        self.q_proj = mk(model_dim, inner)
-        self.k_proj = mk(model_dim, inner)
-        self.v_proj = mk(model_dim, inner)
-        self.o_proj = mk(inner, model_dim)
+        self.q_proj = mk(model_dim, num_heads * head_dim)
+        self.k_proj = mk(model_dim, self.kv_heads * head_dim)
+        self.v_proj = mk(model_dim, self.kv_heads * head_dim)
+        self.o_proj = mk(num_heads * head_dim, model_dim)
 
-    def _split(self, x: torch.Tensor) -> torch.Tensor:
+    def _split(self, x: torch.Tensor, heads: int | None = None) -> torch.Tensor:
         b, s, _ = x.shape
-        return x.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
+        return x.reshape(b, s, heads or self.num_heads, self.head_dim).transpose(1, 2)
 
     def _merge(self, out: torch.Tensor) -> torch.Tensor:
         b, h, s, d = out.shape
         return self.o_proj(out.transpose(1, 2).reshape(b, s, h * d))
 
+    def _repeat_kv(self, x: torch.Tensor) -> torch.Tensor:
+        """Each kv head repeated over its group of q heads (``jnp.repeat``
+        on the heads axis in the JAX package): q head h reads kv head
+        h // (H / H_kv)."""
+        rep = self.num_heads // self.kv_heads
+        return x if rep == 1 else x.repeat_interleave(rep, dim=1)
+
+    def _rope(self, q, k, positions):
+        cos, sin = rope_cos_sin(positions, self.head_dim, self.rope_theta)
+        cos, sin = cos[:, None], sin[:, None]  # add the heads axis
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
     def project_kv(self, kv_hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """K/V projections alone, (B, H, S, d) each, contiguous — computed
+        """K/V projections alone, (B, H_kv, S, d) each, contiguous — computed
         once per sequence for cross-attention and fed back via
         ``cross_kv`` on every decode step."""
         return (
-            self._split(self.k_proj(kv_hidden)).contiguous(),
-            self._split(self.v_proj(kv_hidden)).contiguous(),
+            self._split(self.k_proj(kv_hidden), self.kv_heads).contiguous(),
+            self._split(self.v_proj(kv_hidden), self.kv_heads).contiguous(),
         )
 
     def forward(
@@ -209,15 +282,18 @@ class MultiHeadAttention(nn.Module):
         hidden: torch.Tensor,
         kv_hidden: torch.Tensor | None = None,
         bias: torch.Tensor | None = None,
-        cache: KVCache | None = None,
+        cache: KVCache | PagedKVCache | None = None,
         cache_positions: torch.Tensor | None = None,
         cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+        positions: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """``cache`` + ``cache_positions`` ((B,) int32 per-row write offsets)
-        make this a cached decode step of a causal layer: this step's K/V
-        land in the cache in place, and row r of batch b attends slots <=
-        ``cache_positions[b] + r``.  ``cross_kv`` skips the k/v projections
-        (cross-attention decode)."""
+        """``cache`` makes this a cached pass of a causal layer: this pass's
+        K/V land in the cache in place, at the per-row ``cache_positions``
+        ((B,) int32) or, without them, at a flat cache's shared index; row
+        r of batch b attends slots <= its write position + r.
+        ``positions`` ((B, q_len) absolute positions) feed RoPE; they
+        default to the write positions (cached) or to 0.. (uncached).
+        ``cross_kv`` skips the k/v projections (cross-attention decode)."""
         q = self._split(self.q_proj(hidden))
         if cross_kv is not None:
             k, v = cross_kv
@@ -227,36 +303,16 @@ class MultiHeadAttention(nn.Module):
                 )
         else:
             kv_src = hidden if kv_hidden is None else kv_hidden
-            k = self._split(self.k_proj(kv_src))
-            v = self._split(self.v_proj(kv_src))
+            k = self._split(self.k_proj(kv_src), self.kv_heads)
+            v = self._split(self.v_proj(kv_src), self.kv_heads)
 
-        use_cache = cache is not None
-        if use_cache:
-            if not self.causal:
-                raise ValueError("a KV cache belongs to causal self-attention only")
-            if cache_positions is None:
-                raise ValueError("a cached step needs per-row cache_positions (B,)")
-            write_cache_rows(cache.k, k, cache_positions)
-            write_cache_rows(cache.v, v, cache_positions)
-            k, v = cache.k, cache.v
-            impl, reason = select_decode_impl(
-                self.attention_impl, head_dim=self.head_dim, q_len=q.shape[2],
-                kv_len=k.shape[2], backend=q.device.type,
-            )
-            _log_impl_once(impl, reason)
-            if impl == "flash_decode":
-                # bias is the caller's constant padding mask only: validity
-                # and causality ride the kernel's per-row length mask
-                out = flash_decode(
-                    q.contiguous(), k, v, bias,
-                    offsets=cache_positions.to(torch.int32), dtype=self.dtype,
-                )
-            else:
-                step = decode_step_bias(cache_positions, q.shape[2], k.shape[2])
-                out = dot_product_attention(
-                    q, k, v, step if bias is None else bias + step, dtype=self.dtype
-                )
-            return self._merge(out)
+        if cache is not None:
+            return self._cached(q, k, v, bias, cache, cache_positions, positions)
+        if self.use_rope:
+            if positions is None:
+                positions = torch.arange(q.shape[2], device=q.device)[None, :]
+            q, k = self._rope(q, k, positions)
+        k, v = self._repeat_kv(k), self._repeat_kv(v)
 
         if self.training and self.probs_dropout_rate > 0.0:
             # the flash kernels' in-kernel probs-dropout branch is not ported
@@ -282,4 +338,63 @@ class MultiHeadAttention(nn.Module):
                 step = make_causal_bias(q.shape[2], k.shape[2], device=q.device)
                 bias = step if bias is None else bias + step
             out = dot_product_attention(q, k, v, bias, dtype=self.dtype)
+        return self._merge(out)
+
+    def _cached(self, q, k, v, bias, cache, cache_positions, positions):
+        """A cached pass: write this pass's K/V, then attend over the cache
+        through the decode dispatch.  ``bias`` is the caller's constant
+        padding mask only; validity and causality ride the kernels' per-row
+        length mask or, on the plain path, ``decode_step_bias``."""
+        if not self.causal:
+            raise ValueError("a KV cache belongs to causal self-attention only")
+        paged = isinstance(cache, PagedKVCache)
+        B, _, T, _ = q.shape
+        if cache_positions is None:
+            if paged:
+                raise ValueError("a paged step needs per-row cache_positions (B,)")
+            offsets = torch.full((B,), cache.index, dtype=torch.int32, device=q.device)
+        else:
+            offsets = cache_positions.to(torch.int32)
+        if self.use_rope:
+            # RoPE sees absolute positions, so rotate before caching
+            if positions is None:
+                positions = offsets.long()[:, None] + torch.arange(T, device=q.device)[None, :]
+            q, k = self._rope(q, k, positions)
+        if paged:
+            cache.write_rows(k, v)
+            kv_len = cache.kv_len
+        elif cache_positions is None:
+            cache.k[:, :, cache.index:cache.index + T] = k.to(cache.k.dtype)
+            cache.v[:, :, cache.index:cache.index + T] = v.to(cache.v.dtype)
+            cache.index += T
+            kv_len = cache.k.shape[2]
+        else:
+            write_cache_rows(cache.k, k, cache_positions)
+            write_cache_rows(cache.v, v, cache_positions)
+            kv_len = cache.k.shape[2]
+        impl, reason = select_decode_impl(
+            self.attention_impl, head_dim=self.head_dim, q_len=T, kv_len=kv_len,
+            backend=q.device.type,
+        )
+        if paged and impl == "flash_decode":
+            impl = "flash_decode_paged"
+        _log_impl_once(impl, reason)
+        if impl == "flash_decode_paged":
+            # the kernel reads the pool through the block tables: the slot
+            # view is never built, and the kv-head groups are never repeated
+            out = flash_decode_paged(q.contiguous(), cache.k, cache.v, bias,
+                                     block_tables=cache.block_tables, offsets=offsets,
+                                     dtype=self.dtype)
+            return self._merge(out)
+        if paged:
+            k, v = gather_cache((cache.k, cache.v), cache.block_tables)
+        else:
+            k, v = cache.k, cache.v
+        k, v = self._repeat_kv(k), self._repeat_kv(v)
+        if impl == "flash_decode":
+            out = flash_decode(q.contiguous(), k, v, bias, offsets=offsets, dtype=self.dtype)
+        else:
+            step = decode_step_bias(offsets, T, kv_len)
+            out = dot_product_attention(q, k, v, step if bias is None else bias + step,
+                                        dtype=self.dtype)
         return self._merge(out)

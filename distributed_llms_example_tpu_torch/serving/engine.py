@@ -1,32 +1,43 @@
 """Continuous-batching serving engine (port of the JAX package's
-``serving/engine.py``, seq2seq adapter).
+``serving/engine.py``: the seq2seq adapter and the causal adapter, flat
+and paged).
 
 A fixed set of ``max_slots`` decode slots, each holding one in-flight
 sequence at its own offset; finished sequences are evicted and new ones
 admitted between per-token steps.  Per model, three steps:
 
-- **prefill** (once per admitted chunk): the encoder + the once-per-
-  sequence cross-attention K/V projection;
+- **prefill** (once per admitted chunk): seq2seq runs the encoder + the
+  once-per-sequence cross-attention K/V projection; a causal model runs the
+  right-padded prompts through once into a chunk cache (prompt bucket +
+  decode budget wide) and reads each row's first token off its last valid
+  position;
 - **admit**: chunk rows land in their slots; rows beyond the chunk park at
-  an out-of-range slot index and are dropped.  Slot caches are not zeroed
-  on reuse: every read is masked to ``k_pos <= offset``, so a previous
+  an out-of-range slot index and are dropped.  Under ``paged_kv`` each
+  row's blocks are funded and mapped before the prefill, and the chunk's
+  allocated tiles are copied into the shared pool; admission defers while
+  the free list is short.  Slot caches and freed blocks are not zeroed on
+  reuse: every read is masked to what the owner wrote, so a previous
   occupant's K/V is unreachable;
 - **decode step** (every token): one token per slot at per-slot offsets
-  (per-row cache writes), idle slots parked at offset L so their writes
-  drop.
+  (per-row cache writes, per-slot RoPE positions for causal models), idle
+  slots parked past the cache so their writes drop.  A paged step writes
+  each slot's new row into its pool block and attends through the block
+  tables (the paged decode kernel on CUDA; a gathered slot view on the
+  plain path).
 
 The slot state lives on the device and is updated in place (the JAX
 package donates it to the compiled step for the same effect).  Greedy
 only.  The ``serve_window`` / ``serve_request`` / ``serve_summary`` JSON
-events carry the JAX engine's keys.  Paged KV, prefix caching,
-speculative decode, the int8 KV cache and causal (LLaMA) models are later
-slices and raise ``NotImplementedError`` (ROADMAP.md).
+events carry the JAX engine's keys.  Prefix caching, speculative decode
+and the int8 KV cache are later slices and raise ``NotImplementedError``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 from typing import Any, Sequence
 
@@ -35,7 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from distributed_llms_example_tpu_torch.core.precision import resolve_device
-from distributed_llms_example_tpu_torch.evaluation.generation import init_cache
+from distributed_llms_example_tpu_torch.evaluation.generation import (
+    causal_prefill,
+    init_cache,
+    init_causal_cache,
+)
+from distributed_llms_example_tpu_torch.ops.flash_attention import auto_block
+from distributed_llms_example_tpu_torch.ops.mha import PagedKVCache
+from distributed_llms_example_tpu_torch.serving import cache_pool
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
 GIB = 1024**3
@@ -55,10 +73,12 @@ class ServeConfig:
     ``prefill_buckets``: ascending admission widths; each chunk pads to the
     smallest covering bucket (``max_source_length`` is the implicit last).
     ``hbm_budget_gib``: device-memory ceiling for the summary's account
-    (an H100 has 80).  The JAX engine's other knobs (paged KV and its pool
-    shape, prefix caching, speculative decode, int8 KV, the OOM postmortem)
-    are fields here so the CLI keeps its flags, and raise when set: they
-    are later slices."""
+    (an H100 has 80).  ``paged_kv``: causal K/V in a shared block pool of
+    ``pool_blocks`` blocks (0 = slots × tiles per slot) of
+    ``kv_block_size`` slots (0 = derived from the cache width and the
+    buckets).  The JAX engine's other knobs (prefix caching, speculative
+    decode, int8 KV, the OOM postmortem) are fields here so the CLI keeps
+    its flags, and raise when set: they are later slices."""
 
     max_slots: int = 8
     prefill_batch: int = 0
@@ -84,9 +104,6 @@ class ServeConfig:
             raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: must be 'f32' or 'int8'")
         later = {
             "kv_cache_dtype='int8'": self.kv_cache_dtype == "int8",
-            "paged_kv": self.paged_kv,
-            "pool_blocks": bool(self.pool_blocks),
-            "kv_block_size": bool(self.kv_block_size),
             "prefix_cache": self.prefix_cache,
             "prefix_cache_budget_gib": bool(self.prefix_cache_budget_gib),
             "spec_tokens": bool(self.spec_tokens),
@@ -111,6 +128,7 @@ class ServeStats:
     decode_seconds: float = 0.0
     prefill_seconds: float = 0.0
     prefill_calls: int = 0  # admission chunks prefilled
+    admit_deferrals: int = 0  # paged: admissions deferred on a short free list
     slot_occupancy: float = 0.0
     cache_bytes_resident: int = 0
     peak_cache_bytes_in_use: int = 0
@@ -192,41 +210,27 @@ def serving_account(*, params_bytes: int, kv_cache_bytes: int, hbm_budget_gib: f
     }
 
 
-def _tree_bytes(x) -> int:
-    if isinstance(x, torch.Tensor):
-        return x.numel() * x.element_size()
-    if isinstance(x, dict):
-        return sum(_tree_bytes(v) for v in x.values())
-    if isinstance(x, (list, tuple)):
-        return sum(_tree_bytes(v) for v in x)
-    if dataclasses.is_dataclass(x):
-        return sum(_tree_bytes(getattr(x, f.name)) for f in dataclasses.fields(x))
-    return 0
-
-
 class ServingEngine:
     """Greedy continuous-batching decode over a fixed slot set.
 
-    ``model`` is a seq2seq module (``models/bart.py``) already on
-    ``device``; ``device`` is CUDA unless ``"cpu"`` is asked for."""
+    ``model`` is a seq2seq module (``models/bart.py``, ``is_seq2seq``) or a
+    causal LM (``models/llama.py``) already on ``device``; ``device`` is
+    CUDA unless ``"cpu"`` is asked for."""
 
     def __init__(self, model: Any, config: Any, serve: ServeConfig | None = None, *,
                  is_seq2seq: bool = True, device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        if not is_seq2seq:
-            raise NotImplementedError(
-                "causal (LLaMA-family) serving is a later slice of the PyTorch port (ROADMAP.md)"
-            )
         model_dev = next(model.parameters()).device
         if model_dev.type != self.device.type:
             raise ValueError(f"model is on {model_dev}, engine device is {self.device}")
         self.model, self.config = model, config
         self.serve = serve or ServeConfig()
+        self.is_seq2seq = is_seq2seq
         self.eos = config.eos_token_id
         self.pad = config.pad_token_id
         self.start = config.decoder_start_token_id
-        self.forced_bos = config.forced_bos_token_id
-        self.forced_eos = config.forced_eos_token_id
+        self.forced_bos = getattr(config, "forced_bos_token_id", None)
+        self.forced_eos = getattr(config, "forced_eos_token_id", None)
         self.L = self.serve.max_new_tokens
         self.S = self.serve.max_slots
         self.W = self.serve.max_source_length
@@ -236,19 +240,64 @@ class ServingEngine:
         self.buckets = tuple(
             sorted({int(b) for b in self.serve.prefill_buckets if 0 < int(b) < self.W})
         ) + (self.W,)
+        self.paged = bool(self.serve.paged_kv)
+        self.pool: cache_pool.CachePool | None = None
+        if self.paged:
+            self._init_pool()
         self._warmed = False
         self.last_stats: ServeStats | None = None
+
+    def _init_pool(self) -> None:
+        """Block size, tiles per slot and the allocator, by the JAX engine's
+        rules."""
+        if self.is_seq2seq:
+            raise ValueError(
+                "paged_kv applies to the causal KV cache (prompt + decode tail in one "
+                "buffer); the seq2seq slot state is encoder output + cross-KV, which pages "
+                "nothing — run the flat cache for seq2seq families"
+            )
+        width = self.W + self.L
+        bs = self.serve.kv_block_size
+        if not bs:
+            # the block size must tile the cache width and every admission
+            # bucket (decode tiles start on tile boundaries): the largest
+            # kernel-preferred tile dividing their gcd, else the gcd itself
+            g = math.gcd(width, *self.buckets)
+            bs = auto_block(g) or (g if g >= 8 and g % 8 == 0 else 0)
+        if not bs or width % bs:
+            raise ValueError(
+                f"kv_block_size={self.serve.kv_block_size} does not tile the cache width "
+                f"{width} (prompt {self.W} + decode {self.L}); pass an explicit 8-aligned "
+                f"divisor of gcd(width, buckets) = {math.gcd(width, *self.buckets)}"
+            )
+        for b in self.buckets:
+            if b % bs:
+                raise ValueError(f"prefill bucket {b} is not a multiple of the kv block size "
+                                 f"{bs} — decode tiles must start on a tile boundary")
+        self.block_size = int(bs)
+        self.n_tiles = width // self.block_size
+        n_blocks = self.serve.pool_blocks or self.S * self.n_tiles
+        worst = cache_pool.blocks_needed(self.W, self.L, self.block_size)
+        if n_blocks < worst:
+            raise ValueError(
+                f"pool_blocks={n_blocks} cannot hold even one worst-case request ({worst} "
+                f"blocks at block size {self.block_size}) — admission would livelock"
+            )
+        self.pool = cache_pool.CachePool(n_blocks, self.block_size)
 
     # ------------------------------------------------------------- steps
     @torch.inference_mode()
     def _prefill(self, ids: torch.Tensor, mask: torch.Tensor):
-        enc = self.model.encode(ids, mask)
-        return enc, mask, self.model.cross_kv(enc)
+        if self.is_seq2seq:
+            enc = self.model.encode(ids, mask)
+            return enc, mask, self.model.cross_kv(enc)
+        cache, full_mask, lengths, first = causal_prefill(self.model, ids, mask, self.L)
+        return cache, full_mask, lengths, first.argmax(dim=-1).to(torch.int32)
 
-    def _pad_axis(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+    def _pad_axis(self, x: torch.Tensor, axis: int, width: int | None = None) -> torch.Tensor:
         """Right-pad one axis to the slot width with zeros: a bucket-width
-        chunk's padding stays mask-invisible (enc_mask is 0 there)."""
-        extra = self.W - x.shape[axis]
+        chunk's padding stays mask-invisible (its mask is 0 there)."""
+        extra = (width or self.W) - x.shape[axis]
         if extra == 0:
             return x
         pads = [0, 0] * (x.dim() - 1 - axis) + [0, extra]
@@ -271,6 +320,28 @@ class ServingEngine:
         state["last"][s] = self.start
 
     @torch.inference_mode()
+    def _admit_causal(self, state: dict, cache, full_mask, first, slot_idx: np.ndarray,
+                      admit_blocks: np.ndarray | None = None) -> None:
+        """Causal chunk rows into their slots: the chunk cache into the flat
+        slot cache (padded to the slot width) or, paged, its allocated
+        tiles into the pool; the mask and the first token per slot."""
+        width = self.W + self.L
+        if self.paged:
+            cache_pool.scatter_admit(state["pool"], [(c.k, c.v) for c in cache],
+                                     admit_blocks, self.block_size)
+        rows = np.nonzero(slot_idx < self.S)[0]
+        if rows.size == 0:
+            return
+        r = torch.as_tensor(rows, device=self.device)
+        s = torch.as_tensor(slot_idx[rows].astype(np.int64), device=self.device)
+        if not self.paged:
+            for dst, src in zip(state["cache"], cache):
+                dst.k[s] = self._pad_axis(src.k, 2, width)[r]
+                dst.v[s] = self._pad_axis(src.v, 2, width)[r]
+        state["mask"][s] = self._pad_axis(full_mask, 1, width)[r]
+        state["last"][s] = first[r]
+
+    @torch.inference_mode()
     def _step(self, state: dict, offsets: np.ndarray, active: np.ndarray) -> torch.Tensor:
         # idle slots park at L: their cache writes drop and their tokens are
         # masked to pad below
@@ -290,10 +361,53 @@ class ServingEngine:
         state["last"] = nxt[:, None].clone()
         return nxt
 
+    @torch.inference_mode()
+    def _step_causal(self, state: dict, write_pos: np.ndarray, rope_pos: np.ndarray,
+                     active: np.ndarray, block_tables: np.ndarray | None = None) -> torch.Tensor:
+        """One causal decode step: slot s feeds its last token at cache slot
+        ``write_pos[s]`` with RoPE position ``rope_pos[s]``; idle slots park
+        past the cache width, so their writes drop."""
+        S, dev = self.S, self.device
+        width = state["mask"].shape[1]
+        offs_h = np.where(active, write_pos, width).astype(np.int32)
+        live = np.nonzero(offs_h < width)[0]
+        state["mask"][torch.as_tensor(live, device=dev),
+                      torch.as_tensor(offs_h[live].astype(np.int64), device=dev)] = 1
+        offs = torch.as_tensor(offs_h, device=dev)
+        if self.paged:
+            bt = torch.as_tensor(block_tables, device=dev)
+            plan = cache_pool.step_write_plan(block_tables, offs_h, num_blocks=self.pool.num_blocks,
+                                              block_size=self.block_size, device=dev)
+            cache = [PagedKVCache(k, v, bt, plan) for k, v in state["pool"]]
+        else:
+            cache = state["cache"]
+        logits = self.model(
+            state["last"][:, None], state["mask"],
+            positions=torch.as_tensor(rope_pos.astype(np.int64), device=dev)[:, None],
+            cache=cache, cache_positions=offs,
+        )
+        nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        nxt = torch.where(torch.as_tensor(active, device=dev), nxt, self.pad).to(torch.int32)
+        state["last"] = nxt
+        return nxt
+
     # ------------------------------------------------------------- state
     def _init_state(self) -> dict:
         S, W, L = self.S, self.W, self.L
         cfg, dt, dev = self.config, self.model.dtype, self.device
+        if not self.is_seq2seq:
+            state = {
+                "mask": torch.zeros((S, W + L), dtype=torch.int32, device=dev),
+                "last": torch.full((S,), self.pad, dtype=torch.int32, device=dev),
+            }
+            if self.paged:
+                # one slot's worth of shapes is enough to size the pool
+                one = init_causal_cache(self.model, 1, 1, device=dev)
+                state["pool"] = cache_pool.pool_cache_tree(
+                    [(c.k, c.v) for c in one], self.pool.num_blocks, self.block_size)
+            else:
+                state["cache"] = init_causal_cache(self.model, S, W + L, device=dev)
+            return state
         heads = cfg.decoder_attention_heads
         hd = cfg.d_model // heads
         return {
@@ -308,9 +422,15 @@ class ServingEngine:
             "last": torch.full((S, 1), self.pad, dtype=torch.int32, device=dev),
         }
 
-    def _state_byte_account(self, state: dict) -> int:
-        """Resident bytes of the serving K/V state (cache + enc + cross-KV)."""
-        return sum(_tree_bytes(state[k]) for k in ("cache", "enc", "ckv"))
+    def _state_byte_account(self, state: dict) -> tuple[int, int]:
+        """(resident bytes, per-block bytes) of the serving K/V state
+        (cache or pool, + enc + cross-KV for seq2seq); per-block is 0 on the
+        flat paths."""
+        if self.paged:
+            return (cache_pool.tree_bytes(state["pool"]),
+                    cache_pool.block_bytes(state["pool"], self.pool.num_blocks))
+        keys = ("cache", "enc", "ckv") if self.is_seq2seq else ("cache",)
+        return sum(cache_pool.tree_bytes(state[k]) for k in keys), 0
 
     def warm(self) -> None:
         """Build the CUDA kernels before the first request, so no request
@@ -321,7 +441,8 @@ class ServingEngine:
         if self.device.type == "cuda":
             from distributed_llms_example_tpu_torch.ops import cuda_build
 
-            cuda_build.build(["flash_fwd", "flash_decode"])
+            cuda_build.build(["flash_fwd", "flash_decode"] if self.is_seq2seq
+                             else ["flash_decode_paged"] if self.paged else ["flash_decode"])
         self._warmed = True
 
     # -------------------------------------------------------------- loop
@@ -363,12 +484,18 @@ class ServeSession:
         self.stats = ServeStats()
         self.slot_req = np.full(S, -1, np.int64)
         self.emitted = np.zeros(S, np.int64)
-        self.lengths = np.zeros(S, np.int64)
+        self.lengths = np.zeros(S, np.int64)  # true prompt lengths
+        self.base = np.full(S, eng.W, np.int64)  # causal: decode tail start
         self.active = np.zeros(S, bool)
+        # paged: blocks each slot holds, and the block tables the step reads
+        # (sentinel = num_blocks: reads see nothing, writes drop)
+        self.slot_blocks: list[list[int]] = [[] for _ in range(S)]
+        self.slot_bt = (np.full((S, eng.n_tiles), eng.pool.num_blocks, np.int32)
+                        if eng.paged else None)
         eng.warm()
         self.state = eng._init_state()
         self.t_open = time.perf_counter()
-        self.stats.cache_bytes_resident = eng._state_byte_account(self.state)
+        self.stats.cache_bytes_resident, self._per_block = eng._state_byte_account(self.state)
         self.params_bytes = sum(p.numel() * p.element_size() for p in eng.model.parameters())
         self._bpt_samples: list[float] = []
         self._win_tokens, self._win_occ = 0, 0.0
@@ -401,6 +528,8 @@ class ServeSession:
         return bool(self.pending) or bool(self.active.any())
 
     def _bytes_in_use(self) -> int:
+        if self.eng.paged:
+            return self.eng.pool.blocks_in_use * self._per_block
         return self.stats.cache_bytes_resident
 
     def _live_tokens(self) -> int:
@@ -434,19 +563,48 @@ class ServeSession:
         log_json(record)
 
     def _evict_slot(self, slot: int) -> None:
+        """Free the slot now and, paged, return every block it held."""
         self.active[slot] = False
         self.slot_req[slot] = -1
         self._win_done += 1
+        if self.eng.paged and self.slot_blocks[slot]:
+            self.eng.pool.free(self.slot_blocks[slot])
+            self.slot_blocks[slot] = []
+            self.slot_bt[slot, :] = self.eng.pool.num_blocks
 
-    def _admit_now(self) -> None:
+    def _emit(self, slot: int, tok: int, now: float, finished: list) -> None:
+        """Append one generated token to the slot's request; evict on eos
+        or an exhausted budget."""
+        rid = int(self.slot_req[slot])
+        self.outputs[rid].append(tok)
+        if self.ttft[rid] is None:
+            self.ttft[rid] = now - self.submit_t[rid]
+        self.emitted[slot] += 1
+        if tok == self.eng.eos or self.emitted[slot] >= self.budgets[rid]:
+            self._evict_slot(slot)
+            self._finish_request(rid, slot, now)
+            finished.append(rid)
+
+    def _admit_now(self, finished: list) -> None:
         eng = self.eng
         S, W, C = eng.S, eng.W, eng.prefill_batch
         free = [i for i in range(S) if not self.active[i]]
         n = min(len(free), C, len(self.pending))
         if n == 0:
             return
-        reqs = [self.pending.popleft() for _ in range(n)]
         plen = lambda rid: min(len(self.requests[rid]), W)  # noqa: E731
+        if eng.paged:
+            # shrink the chunk until the free list funds it: admission
+            # defers on a short pool instead of over-committing
+            while n > 0 and not eng.pool.can_alloc(sum(
+                    cache_pool.blocks_needed(plen(self.pending[i]),
+                                             self.budgets[self.pending[i]], eng.block_size)
+                    for i in range(n))):
+                n -= 1
+            if n == 0:
+                self.stats.admit_deferrals += 1
+                return
+        reqs = [self.pending.popleft() for _ in range(n)]
         bucket = next(b for b in eng.buckets if b >= max(plen(rid) for rid in reqs))
         ids = np.full((C, bucket), eng.pad, np.int64)
         mask = np.zeros((C, bucket), np.int32)
@@ -456,25 +614,57 @@ class ServeSession:
             mask[r, : len(toks)] = 1
         slot_idx = np.full(C, S, np.int64)  # padding rows drop
         slot_idx[:n] = free[:n]
+        admit_rows = None
+        if eng.paged:
+            # fund and map each row's blocks before the prefill; the flat
+            # (chunk × chunk tiles) assignment carries sentinels for tiles
+            # that must not copy (padding rows, the prompt gap)
+            ntc = (bucket + eng.L) // eng.block_size
+            admit_rows = np.full((C, ntc), eng.pool.num_blocks, np.int32)
+            for r, rid in enumerate(reqs):
+                blocks = eng.pool.alloc(
+                    cache_pool.blocks_needed(plen(rid), self.budgets[rid], eng.block_size))
+                slot = free[r]
+                self.slot_blocks[slot] = blocks
+                row = cache_pool.build_block_row(
+                    eng.n_tiles, blocks, prompt_len=plen(rid), bucket_width=bucket,
+                    budget=self.budgets[rid], block_size=eng.block_size,
+                    sentinel=eng.pool.num_blocks)
+                self.slot_bt[slot, :] = row
+                admit_rows[r, :] = row[:ntc]
         t0 = time.perf_counter()
-        enc, pmask, ckv = eng._prefill(
+        pre = eng._prefill(
             torch.as_tensor(ids, device=eng.device), torch.as_tensor(mask, device=eng.device)
         )
-        eng._admit(self.state, enc, pmask, ckv, slot_idx)
-        if eng.device.type == "cuda":
-            torch.cuda.synchronize(eng.device)  # the prefill's time is its device time
+        if eng.is_seq2seq:
+            enc, pmask, ckv = pre
+            eng._admit(self.state, enc, pmask, ckv, slot_idx)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)  # the prefill's time is its device time
+        else:
+            cache, full_mask, plens, first = pre
+            eng._admit_causal(self.state, cache, full_mask, first, slot_idx,
+                              None if admit_rows is None else admit_rows.reshape(-1))
+            plens_h, first_h = plens.cpu().numpy(), first.cpu().numpy()
+            del cache, pre
         dt = time.perf_counter() - t0
         self.stats.prefill_seconds += dt
         self.stats.prefill_calls += 1
         self._win_prefill += dt
+        now = time.perf_counter()
         for r, rid in enumerate(reqs):
             slot = free[r]
             self.slot_req[slot] = rid
             self.emitted[slot] = 0
             self.lengths[slot] = plen(rid)
+            self.base[slot] = bucket
             self.active[slot] = True
             self.admit_t[rid] = t0
             self.prefill_dt[rid] = dt
+            if not eng.is_seq2seq:
+                # the causal prefill already produced token #1
+                self.lengths[slot] = int(plens_h[r])
+                self._emit(slot, int(first_h[r]), now, finished)
         self.stats.peak_cache_bytes_in_use = max(
             self.stats.peak_cache_bytes_in_use, self._bytes_in_use()
         )
@@ -487,16 +677,22 @@ class ServeSession:
 
     def step(self) -> list[int]:
         """One scheduler round: admit into free slots, then one decode step
-        if any slot is live.  Returns the rids that finished."""
+        if any slot is live.  Returns the rids that finished (at prefill
+        included)."""
         if self._finalized:
             raise RuntimeError("session already finalized")
         eng = self.eng
         finished: list[int] = []
-        self._admit_now()
+        self._admit_now(finished)
         if not self.active.any():
             return finished
         t0 = time.perf_counter()
-        tokens = eng._step(self.state, self.emitted.astype(np.int32), self.active.copy())
+        if eng.is_seq2seq:
+            tokens = eng._step(self.state, self.emitted.astype(np.int32), self.active.copy())
+        else:
+            tokens = eng._step_causal(self.state, self.base + self.emitted - 1,
+                                      self.lengths + self.emitted - 1, self.active.copy(),
+                                      self.slot_bt)
         toks = tokens.cpu().numpy()
         dt = time.perf_counter() - t0
         self.stats.decode_seconds += dt
@@ -508,16 +704,7 @@ class ServeSession:
         self._bpt_samples.append(self._bytes_in_use() / max(self._live_tokens(), 1))
         now = time.perf_counter()
         for slot in np.nonzero(self.active)[0]:
-            rid = int(self.slot_req[slot])
-            tok = int(toks[slot])
-            self.outputs[rid].append(tok)
-            if self.ttft[rid] is None:
-                self.ttft[rid] = now - self.submit_t[rid]
-            self.emitted[slot] += 1
-            if tok == eng.eos or self.emitted[slot] >= self.budgets[rid]:
-                self._evict_slot(slot)
-                self._finish_request(rid, slot, now)
-                finished.append(rid)
+            self._emit(slot, int(toks[slot]), now, finished)
         self.stats.decode_tokens += n_active
         self._win_tokens += n_active
         every = eng.serve.log_every_steps
@@ -544,6 +731,9 @@ class ServeSession:
                 self._bytes_in_use() / max(self._live_tokens(), 1), 1
             ),
         }
+        if self.eng.paged:
+            window["pool_blocks_in_use"] = self.eng.pool.blocks_in_use
+            window["pool_blocks_free"] = self.eng.pool.blocks_free
         log_json(window)
         self._win_tokens, self._win_t0, self._win_occ = 0, now, 0.0
         self._win_prefill, self._win_decode = 0.0, 0.0
@@ -595,12 +785,16 @@ class ServeSession:
             "slots": eng.S,
             "chips": self.n_chips,
             "kv_cache_dtype": eng.serve.kv_cache_dtype,
-            "paged_kv": False,
+            "paged_kv": eng.paged,
             "prefill_buckets": list(eng.buckets),
             "cache_bytes_resident": stats.cache_bytes_resident,
             "peak_cache_bytes_in_use": stats.peak_cache_bytes_in_use,
             "cache_bytes_per_token": round(stats.bytes_per_live_token, 1),
         }
+        if eng.paged:
+            summary["pool_blocks"] = eng.pool.num_blocks
+            summary["kv_block_size"] = eng.block_size
+            summary["admit_deferrals"] = stats.admit_deferrals
         acct = self._memory_account()
         summary["memory_account"] = acct
         summary["hbm_headroom_gib"] = acct["hbm_headroom_gib"]

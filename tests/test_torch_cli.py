@@ -1,12 +1,21 @@
 """``serve --device cpu`` end to end through the port's CLI on a temporary
 prompts file: one output record per prompt, the serve_summary event, and
-the one-device ``--mesh`` rule."""
+the one-device ``--mesh`` rule; and ``llama-test --paged-kv`` against the
+JAX CLI on the same file and weights: causal prompts carry no trailing
+eos, and the output records are equal."""
 
 import json
 
+import jax
 import pytest
 
+from distributed_llms_example_tpu.launch.cli import serve_main as jax_serve_main
+from distributed_llms_example_tpu.models.registry import load_model as jax_load_model
+from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
 from distributed_llms_example_tpu_torch.launch.cli import check_single_device_mesh, serve_main
+from distributed_llms_example_tpu_torch.models import registry
+from distributed_llms_example_tpu_torch.models.from_jax import load_jax_params
+from distributed_llms_example_tpu_torch.serving.engine import ServingEngine
 
 
 def _args(prompts, out, *extra):
@@ -38,9 +47,9 @@ def test_serve_rejects_later_slices(tmp_path):
     prompts = tmp_path / "p.json"
     prompts.write_text(json.dumps(["x"]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_main(_args(prompts, tmp_path / "o.jsonl", "--paged-kv"))
+        serve_main(_args(prompts, tmp_path / "o.jsonl", "--prefix-cache"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_main(_args(prompts, tmp_path / "o.jsonl", "--model-ckpt", "llama-test"))
+        serve_main(_args(prompts, tmp_path / "o.jsonl", "--model-ckpt", "mixtral-test"))
 
 
 def test_mesh_must_be_one_device():
@@ -48,3 +57,41 @@ def test_mesh_must_be_one_device():
     check_single_device_mesh("data=1,tensor=1")
     with pytest.raises(SystemExit, match="one GPU"):
         check_single_device_mesh("data=2")
+
+
+def test_serve_llama_paged_matches_jax_cli(tmp_path, monkeypatch):
+    """``serve --model-ckpt llama-test --paged-kv`` on the CPU with the JAX
+    CLI's weights (its ``init_params(0)``, carried by ``from_jax``): the
+    requests are ``encode_prompt`` ids (no trailing eos) and the output
+    records equal the JAX CLI's on the same prompts file."""
+    texts = ["a causal prompt", "another, somewhat longer causal prompt " * 2, "x",
+             "the fourth prompt", "five"]
+    prompts = tmp_path / "prompts.json"
+    prompts.write_text(json.dumps(texts))
+    common = ["--model-ckpt", "llama-test", "--prompts-file", str(prompts), "--lint", "off",
+              "--max-slots", "8", "--max-new-tokens", "8", "--max-source-length", "64",
+              "--compute-dtype", "float32", "--paged-kv", "--kv-block-size", "8"]
+    out_j, out_t = tmp_path / "jax.jsonl", tmp_path / "port.jsonl"
+    assert jax_serve_main([*common, "--output-file", str(out_j)]) == 0
+
+    params = jax.device_get(jax_load_model("llama-test").init_params(0))
+    real_load, real_generate = registry.load_model, ServingEngine.generate
+    seen = []
+
+    def load_with_jax_weights(*a, **k):
+        lm = real_load(*a, **k)
+        load_jax_params(lm.module, params)
+        return lm
+
+    def generate(self, requests, **k):
+        seen.extend(requests)
+        return real_generate(self, requests, **k)
+
+    monkeypatch.setattr(registry, "load_model", load_with_jax_weights)
+    monkeypatch.setattr(ServingEngine, "generate", generate)
+    assert serve_main([*common, "--device", "cpu", "--output-file", str(out_t)]) == 0
+    tok = ByteTokenizer()
+    assert seen == [tok.encode_prompt(t, 64) for t in texts]
+    assert all(r[-1] != tok.eos_id for r in seen)
+    read = lambda p: [json.loads(line) for line in p.read_text().splitlines()]  # noqa: E731
+    assert read(out_t) == read(out_j)

@@ -26,8 +26,9 @@ def _port_modules():
 
 def test_port_imports_nothing_of_jax():
     mods = _port_modules()
-    assert "distributed_llms_example_tpu_torch.serving.engine" in mods
-    assert "distributed_llms_example_tpu_torch.train.trainer" in mods
+    for name in ("serving.engine", "serving.cache_pool", "train.trainer", "models.llama",
+                 "evaluation.generation"):
+        assert f"distributed_llms_example_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

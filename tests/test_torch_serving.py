@@ -86,15 +86,19 @@ def test_goodput_matches_jax_arithmetic():
             jax_goodput(ttft, toks, wall_s=2.0, ttft_slo_ms=slo, n_chips=1)
 
 
-@pytest.mark.parametrize("field", [{"paged_kv": True}, {"prefix_cache": True},
+@pytest.mark.parametrize("field", [{"prefix_cache_budget_gib": 1.0}, {"prefix_cache": True},
                                    {"spec_tokens": 2}, {"kv_cache_dtype": "int8"},
-                                   {"pool_blocks": 4}, {"postmortem_dir": "pm"}])
+                                   {"spec_draft_model": "llama-test"}, {"postmortem_dir": "pm"}])
 def test_later_slices_raise(field):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeConfig(**field)
 
 
 def test_causal_engine_raises():
+    """Causal serving runs since the LLaMA slice; what still raises is the
+    paged pool on a seq2seq model (as in the JAX engine) and Mixtral."""
     tlm = load_model("bart-test", device="cpu")
+    with pytest.raises(ValueError, match="seq2seq"):
+        ServingEngine(tlm.module, tlm.config, ServeConfig(paged_kv=True), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tlm.module, tlm.config, ServeConfig(), is_seq2seq=False, device="cpu")
+        load_model("mixtral-8x7b", device="cpu")
