@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: builds the CUDA kernels, holds each
 against its plain PyTorch version on the card, serves bart-large-cnn at
-full width through the port's ``serve`` entry, fine-tunes it at full width
-through the port's train entry, serves llama-2-7b at full width through
-``serve --paged-kv`` and through the flat cache, and checks that each run
-went through its kernels.
+full width through the port's ``serve`` entry and fine-tunes it through the
+train entry, fine-tunes t5-large and serves flan-t5-xl at full width the
+same ways, serves llama-2-7b at full width through ``serve --paged-kv`` and
+through the flat cache, and checks that each run went through its kernels.
 
     python3 chip_smoke.py    # from the repository root, on one NVIDIA GPU
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
-  2. build: one nvcc per kernel source, all six at once (ptxas report)
+  2. build: one nvcc per kernel source, all seven at once (ptxas report)
   3. kernels vs plain versions at the main paths' shapes and at lengths no
      tile divides, timed with CUDA events beside the plain version, the
      library yardstick (never called by the port) and the bound
@@ -30,7 +30,15 @@ Phases (each fatal, non-zero exit, no result line):
        the same blocks against the same plain output (the flat LLaMA
        path's d = 128 shape) and bit for bit against paged decode; and a
        planted fault (a gap sentinel read as a poisoned block) that must
-       break the fp32 limit by orders of magnitude
+       break the fp32 limit by orders of magnitude;
+     - the learned-bias branch of kernels 1-3 and the learned-bias gradient
+       (kernel 4) at the t5-large shapes, scale 1: encoder (8, 16, 1024,
+       64) with a ragged padding mask, a 1000-token encoder, the causal
+       decoder (8, 16, 128, 64), -inf rows (the same limits; dlbias within
+       2e-2 bf16 / 1e-4 fp32 of its largest entry, exactly 0 on dead rows
+       and above the causal diagonal); kernel 4 summing B - 1 rows must
+       break the fp32 limit by orders of magnitude; SDPA forward + backward
+       with the bias as a grad-requiring mask as the yardstick
   4. serve: the CLI's serve entry in-process, bart-large-cnn, bf16, seed 0,
      16 prompts of 200-1024 byte-tokens, 8 slots, 128 new tokens, source
      1024; launch counters zeroed before and read after; first-step logits
@@ -51,19 +59,38 @@ Phases (each fatal, non-zero exit, no result line):
      norm and the largest per-tensor grad difference within limits that a
      backward dropout seed off by one must break; in bf16 the kernel path's
      gradient must stay within 1.5x the plain path's distance from fp32
-  7. llama-2-7b serve: the CLI's serve entry, bf16, seed 0, 16 byte-token
+  7. t5-large train: as phase 5 (same recipe and records), with kernel 4
+     once per self-attention layer per step (72 / 72 / 72 / 48 a step for
+     kernels 1 / 2 / 3 / 4) and non-zero gradients in both bucket tables
+  8. T5 gradient check: fp32, t5-large widths at 2 + 2 layers, the recipe's
+     batch, within phase 6's limits and each bucket table's gradient
+     within relative L2 1e-5: with t5-large's relu MLP, kernels 2, 3 and 4
+     vs their plain versions inside the model on one forward (δ of another
+     batch row fed to kernel 4 must break it); with the gated-gelu MLP, the
+     whole kernel path (kernels 1-4) vs the wholly plain path (the learned
+     bias read one key off must break it); reported beside: the relu
+     model's whole-path distance, each model's plain path nudged by one
+     fp32 ulp, and which gradients differ bit for bit run to run
+  9. flan-t5-xl serve: phase 4's prompts and settings; kernel 1 once per
+     encoder layer per prefill chunk, kernel 5 once per decoder layer per
+     decode round, kernels 2, 3, 4 and 6 never; one profiled round
+ 10. T5 fp32 logits at flan-t5-xl widths, 2 + 2 layers: prefill + 5 decode
+     steps at staggered per-row offsets, kernel path vs plain path within
+     1e-4; the per-row relative bias shifted by one must break it
+ 11. llama-2-7b serve: the CLI's serve entry, bf16, seed 0, 16 byte-token
      prompts of 200-1024 tokens, 8 slots, 128 new tokens, source 1024,
-     once with --paged-kv and once flat (BART freed first); counters
-     zeroed before and read after each: paged decode = attention modules x
-     decode rounds and flash decode 0 on the paged run, the reverse on the
-     flat one, flash forward 0 on both (the prompt prefill is plain
-     attention, as in the JAX package); the pool drained; the greedy
-     tokens of the two runs all equal; one profiled paged decode round
-  8. fp32 logits at llama-2-7b widths, 2 layers: a prefill + 4 decode
+     once with --paged-kv and once flat (the T5 model freed first);
+     counters zeroed before and read after each: paged decode = attention
+     modules x decode rounds and flash decode 0 on the paged run, the
+     reverse on the flat one, flash forward 0 on both (the prompt prefill
+     is plain attention, as in the JAX package); the pool drained; the
+     greedy tokens of the two runs all equal; one profiled paged decode
+     round
+ 12. fp32 logits at llama-2-7b widths, 2 layers: a prefill + 4 decode
      steps, paged and flat, kernel path vs plain path within 1e-4; a
      decode offset shifted by one must break it on each route
-  9. a {"kernels_unported": [...]} line (TPU kernels with no port yet), a
-     {"kernels": [...]} line, then the last line
+ 13. a {"kernels_unported": []} line (every TPU kernel has a port), a
+     {"kernels": [...]} line of all eight, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Imports nothing of JAX or of the JAX package.  Everything it writes goes
@@ -100,13 +127,28 @@ FP32_LOGITS_ATOL = 1e-4
 LLAMA_FP32_ATOL = 1e-4
 GRAD_LIMITS = {"loss_diff": 1e-5, "grad_norm_diff": 1e-5, "max_tensor_grad_diff": 5e-6,
                "grad_rel_l2": 1e-5}
+# T5: each relative-position bucket table's gradient, kernel path vs plain
+# path, relative L2 (fp32, 2+2 layers at t5-large widths); δ of another
+# batch row fed to kernel 4 must break it
+T5_TABLE_REL_L2 = 1e-5
+# T5 with the gated-gelu MLP, whole kernel path vs wholly plain path (fp32):
+# this random-init model's gradient has a rounding floor above those limits
+# (its unscaled attention logits give peaked softmax rows whose backward
+# cancels; PERF.md), so a gradient metric may also read up to this factor
+# times what a one-ulp nudge of every attention output moves it in the same
+# run; the loss limit stays
+T5_NUDGE_FACTOR = 8.0
+# fp32 logits of a T5 prefill + 5 decode steps at flan-t5-xl widths (2+2
+# layers), kernels 1 and 5 vs their plain versions; the per-row relative
+# bias shifted by one position must break it
+T5_FP32_ATOL = 1e-4
 # fused AdamW, kernel vs plain: both do one IEEE op at a time (the kernel
 # with non-contracting intrinsics), so any difference is a fault; 2 fp32
 # ulps of headroom for a library sqrt or division that rounds differently
 ADAMW_RTOL = 2.4e-7
 WORK = os.path.join(HERE, "build", "chip_smoke")
-KERNELS = ["flash_fwd", "flash_decode", "flash_bwd", "fused_dropout", "fused_adamw",
-           "flash_decode_paged"]
+KERNELS = ["flash_fwd", "flash_decode", "flash_bwd", "flash_bwd_dlbias", "fused_dropout",
+           "fused_adamw", "flash_decode_paged"]
 
 
 def fail(msg: str) -> None:
@@ -435,6 +477,191 @@ def backward_kernel_phase(torch, fa):
     return results
 
 
+def check_rel(name, got, want, *, limit):
+    """Max abs error over the largest |want|: the limit of a batch sum
+    (kernel 4's output), whose entries span orders of magnitude."""
+    import torch
+
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    rel = err / max(scale, 1e-30)
+    ok = bool(torch.isfinite(got.float()).all()) and rel <= limit
+    say({"phase": "kernel_check", "case": name, "max_abs_err": err, "max_abs_want": scale,
+         "rel_to_max": rel, "limit": limit, "ok": ok})
+    if not ok:
+        fail(f"{name}: kernel disagrees with its plain version (relative to max {rel})")
+    return err
+
+
+def lbias_kernel_phase(torch, fa):
+    """Kernels 1-3's learned-bias branch and kernel 4 against their plain
+    versions at the t5-large shapes, bf16 and fp32: the encoder's (8, 16,
+    1024, 64) with a ragged padding mask (rows of 1000 and 100 tokens among
+    them), a 1000-token encoder no 64-row tile divides, the decoder's
+    causal (8, 16, 128, 64), and -inf rows.  Scale 1, as T5 runs it (q
+    carries T5's 1/sqrt(d) init).  dlbias is exactly 0 on fully-masked rows
+    and above the causal diagonal; a planted fault (kernel 4 summing B - 1
+    batch rows) must break the fp32 limit by orders of magnitude.  Then the
+    four kernels' times at the encoder shape in bf16 beside the bound, the
+    plain versions and SDPA forward + backward with the learned bias as an
+    ``attn_mask`` that requires grad (never called by the port)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, H, D = 8, 16, 64
+    bf = dict(atol=2e-2, rtol=2e-2)
+    f32 = dict(atol=1e-4)
+    rel_limit = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+    def rnd(*shape, dtype, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
+
+    def pad_bias(K):
+        lens = torch.randint(K // 5, K + 1, (B,), generator=gen, device=dev)
+        lens[0], lens[1] = min(1000, K), 100
+        b = torch.where(torch.arange(K, device=dev)[None, :] < lens[:, None], 0.0, -1e9)
+        return b[:, None, None, :].float().contiguous()
+
+    def inputs(S, dtype):
+        q = rnd(B, H, S, D, dtype=dtype, s=D ** -0.5)
+        k, v, do = (rnd(B, H, S, D, dtype=dtype) for _ in range(3))
+        return q, k, v, do, rnd(1, H, S, S, dtype=dtype, s=0.5)
+
+    def run(name, S, dtype, tol, *, causal=False, bias=None, dead=None):
+        q, k, v, do, lb = inputs(S, dtype)
+        o, lse = fa.flash_attention(q, k, v, bias, learned_bias=lb, causal=causal, scale=1.0,
+                                    return_lse=True)
+        po, plse = fa.flash_attention_plain(q, k, v, bias, lbias=lb, causal=causal, scale=1.0)
+        delta = fa.attention_delta(do, o)
+        kw = dict(lbias=lb, causal=causal, scale=1.0)
+        dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw)
+        dlb = fa.flash_bwd_dlbias(q, k, v, bias, lb, do, lse, delta, causal=causal, scale=1.0)
+        want = fa.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, **kw)
+        want_dlb = fa._dlbias_plain(q, k, v, bias, lb, do, lse, delta, causal=causal, scale=1.0)
+        torch.cuda.synchronize()
+        errs = {"fwd": [check_close(f"flash_fwd lbias {name} {dtype}", o, po, **tol),
+                        check_close(f"flash_fwd lbias {name} lse {dtype}", lse, plse, **tol)]}
+        for n, g, w in zip(("dq", "dkv", "dkv"), (dq, dk, dv), want):
+            errs.setdefault(n, []).append(check_close(f"flash_bwd lbias {name} {n} {dtype}", g, w,
+                                                      **tol))
+        errs["dlbias"] = [check_rel(f"flash_bwd_dlbias {name} {dtype}", dlb, want_dlb,
+                                    limit=rel_limit[dtype])]
+        if dlb.dtype != lb.dtype or dlb.shape != lb.shape:
+            fail(f"flash_bwd_dlbias {name}: {dlb.dtype} {tuple(dlb.shape)} for a learned bias of "
+                 f"{lb.dtype} {tuple(lb.shape)}")
+        if causal and bool(torch.triu(dlb[0].float().abs(), diagonal=1).any()):
+            fail(f"flash_bwd_dlbias {name}: non-zero gradient above the causal diagonal")
+        if dead is not None and bool(dlb[:, :, dead].any()):
+            fail(f"flash_bwd_dlbias {name}: non-zero gradient on fully-masked rows")
+        again = fa.flash_bwd_dlbias(q, k, v, bias, lb, do, lse, delta, causal=causal, scale=1.0)
+        if not torch.equal(again, dlb):
+            fail(f"flash_bwd_dlbias {name}: two launches on the same inputs differ")
+        return errs
+
+    errs: dict[str, list] = {}
+    for dtype, tol in ((torch.bfloat16, bf), (torch.float32, f32)):
+        for e in (run("encoder S=1024 padding", 1024, dtype, tol, bias=pad_bias(1024)),
+                  run("decoder causal S=128", 128, dtype, tol, causal=True),
+                  run("encoder S=1000 padding", 1000, dtype, tol, bias=pad_bias(1000))):
+            for n, v in e.items():
+                errs.setdefault(n, []).extend(v)
+    S = 1024
+    dead = torch.tensor([0, 7, 500, S - 1], device=dev)
+    dead_bias = torch.zeros(B, 1, S, S, device=dev)
+    dead_bias[:, :, dead, :] = -float("inf")
+    for n, v in run("fully-masked -inf rows", S, torch.float32, f32, bias=dead_bias,
+                    dead=dead).items():
+        errs[n].extend(v)
+    say({"phase": "kernel_check", "case": "flash_bwd_dlbias launched twice on each case's "
+         "inputs", "bit_equal": True})
+
+    # planted fault: kernel 4 summing the first B - 1 batch rows only
+    q, k, v, do, lb = inputs(S, torch.float32)
+    bias = pad_bias(S)
+    o, lse = fa.flash_attention(q, k, v, bias, learned_bias=lb, scale=1.0, return_lse=True)
+    delta = fa.attention_delta(do, o)
+    kw = dict(causal=False, scale=1.0)
+    want = fa._dlbias_plain(q, k, v, bias, lb, do, lse, delta, **kw)
+    short = fa.flash_bwd_dlbias(q[:-1], k[:-1], v[:-1], bias[:-1], lb, do[:-1], lse[:-1],
+                                delta[:-1], **kw)
+    fault = float((short - want).abs().max()) / float(want.abs().max())
+    say({"phase": "kernel_check", "case": "flash_bwd_dlbias planted fault: B - 1 batch rows",
+         "rel_to_max": fault, "limit": rel_limit[torch.float32], "must_exceed": True})
+    if not fault > 100 * rel_limit[torch.float32]:
+        fail(f"flash_bwd_dlbias: dropping a batch row stays near the fp32 limit ({fault})")
+
+    # times at the t5-large encoder shape, bf16, ragged padding mask
+    q, k, v, do, lb = inputs(S, torch.bfloat16)
+    bias = pad_bias(S)
+    o, lse = fa.flash_attention(q, k, v, bias, learned_bias=lb, scale=1.0, return_lse=True)
+    delta = fa.attention_delta(do, o)
+    kw = dict(lbias=lb, causal=False, scale=1.0)
+    # bytes each function must move: a (B, H, S, D) bf16 tensor, an fp32
+    # (B, H, S) row vector (lse or delta), the two biases as the kernels read
+    # them (the padding mask fp32, the learned bias bf16)
+    act, rows = B * H * S * D * 2, B * H * S * 4
+    masks = bias.numel() * 4 + lb.numel() * lb.element_size()
+    bwd_in = 4 * act + 2 * rows + masks  # q, k, v, dO, lse, delta and the biases
+    results, lbias_times = {}, {}
+    for name, fn, plain, flops, nbytes, dev_name in (
+        ("flash_attention_fwd",
+         lambda: fa.flash_attention(q, k, v, bias, learned_bias=lb, scale=1.0),
+         lambda: fa.flash_attention_plain(q, k, v, bias, lbias=lb, scale=1.0),
+         4.0 * B * H * S * S * D, 3 * act + masks + act + rows, "flash_fwd_kernel"),
+        ("flash_attention_bwd_dq",
+         lambda: fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw),
+         lambda: fa._dq_plain(q, k, fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)[1]),
+         6.0 * B * H * S * S * D, bwd_in + act, "flash_bwd_dq_kernel"),
+        ("flash_attention_bwd_dkv",
+         lambda: fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw),
+         lambda: fa._dkv_plain(q, k, v, do, *fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)),
+         8.0 * B * H * S * S * D, bwd_in + 2 * act, "flash_bwd_dkv_kernel"),
+        ("flash_attention_bwd_dlbias",
+         lambda: fa.flash_bwd_dlbias(q, k, v, bias, lb, do, lse, delta, causal=False, scale=1.0),
+         lambda: fa._dlbias_plain(q, k, v, bias, lb, do, lse, delta, causal=False, scale=1.0),
+         4.0 * B * H * S * S * D, bwd_in + lb.numel() * lb.element_size(),
+         "flash_bwd_dlbias_kernel"),
+    ):
+        b_ms, b_by = bound(flops, nbytes)
+        r = dict(max_abs_err=max(errs[{"flash_attention_fwd": "fwd",
+                                       "flash_attention_bwd_dq": "dq",
+                                       "flash_attention_bwd_dkv": "dkv"}.get(name, "dlbias")]),
+                 ms=time_ms(fn, per_rep=5), plain_ms=time_ms(plain, per_rep=2), bound_ms=b_ms,
+                 bound_by=b_by)
+        r["device_ms"] = device_ms_of(fn, 5, dev_name)
+        lbias_times[name] = r
+        say({"phase": "kernel_time", "kernel": name, "branch": "learned bias", **r})
+    # the yardstick: SDPA forward + backward with the learned bias (plus the
+    # padding mask) as an attn_mask that requires grad, beside kernels 1-4
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lbs = lb.detach().clone().requires_grad_(True)
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias.to(lbs.dtype) + lbs,
+                                             scale=1.0)
+        return torch.autograd.grad(out, (qs, ks, vs, lbs), do)
+
+    library_ms, library_note = None, ""
+    try:
+        grads = sdpa()
+        torch.cuda.synchronize()
+        library_note = f"SDPA fwd+bwd, dlbias max |{float(grads[3].float().abs().max())}|"
+        library_ms = time_ms(sdpa, per_rep=3)
+    except RuntimeError as e:  # the yardstick only: the port never calls SDPA
+        library_note = f"no SDPA backend returned a bias gradient: {str(e)[:160]}"
+    kernels_ms = sum(lbias_times[n]["ms"] for n in lbias_times)
+    say({"phase": "kernel_time", "kernel": "flash attention fwd+bwd with learned bias",
+         "kernels_1_2_3_4_ms": kernels_ms,
+         "kernels_2_3_4_ms": kernels_ms - lbias_times["flash_attention_fwd"]["ms"],
+         "library_ms": library_ms, "library": library_note})
+    r = dict(lbias_times["flash_attention_bwd_dlbias"])
+    r.pop("device_ms")
+    results["flash_attention_bwd_dlbias"] = dict(r, library_ms=library_ms)
+    return results, {n: max(v) for n, v in errs.items()}
+
+
 def dropout_kernel_phase(torch, fd):
     """Kernel 7 against dropout_plain: exactly equal, and the kept fraction."""
     dev = torch.device("cuda")
@@ -701,8 +928,8 @@ TRAIN_ARGS = [
 
 
 def zero_counters(fa, fd, fo) -> None:
-    for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fd.fused_dropout,
-               fo.fused_adamw_leaf, fa.flash_decode, fa.flash_decode_paged):
+    for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias,
+               fd.fused_dropout, fo.fused_adamw_leaf, fa.flash_decode, fa.flash_decode_paged):
         fn.launches = 0
 
 
@@ -710,15 +937,28 @@ def read_counters(fa, fd, fo) -> dict:
     return {"flash_attention_fwd": fa.flash_attention.launches,
             "flash_attention_bwd_dq": fa.flash_bwd_dq.launches,
             "flash_attention_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "flash_attention_bwd_dlbias": fa.flash_bwd_dlbias.launches,
             "fused_dropout": fd.fused_dropout.launches,
             "fused_adamw": fo.fused_adamw_leaf.launches}
+
+
+def learned_bias_attention(model) -> int:
+    """Attention modules that take a learned bias in training: every
+    self-attention of a T5 stack (the relative-position bias); none in
+    BART."""
+    from distributed_llms_example_tpu_torch.models.t5 import T5Attention
+
+    return sum(isinstance(m, T5Attention) and name.endswith("self_attn")
+               for name, m in model.named_modules())
 
 
 def expected_train_launches(model, steps: int, accum: int = 1) -> dict:
     """Per-run launch counts the model implies: one forward kernel and one
     dq and one dk/dv kernel per attention module per microbatch, one
-    dropout kernel per dropout site in the forward and again in the
-    backward, one AdamW kernel per parameter tensor per step."""
+    learned-bias gradient kernel per attention module with a learned bias
+    per microbatch, one dropout kernel per dropout site in the forward and
+    again in the backward, one AdamW kernel per parameter tensor per
+    step."""
     from distributed_llms_example_tpu_torch.ops.fused_dropout import count_dropout_sites
     from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
 
@@ -726,20 +966,23 @@ def expected_train_launches(model, steps: int, accum: int = 1) -> dict:
     return {"flash_attention_fwd": attn * accum * steps,
             "flash_attention_bwd_dq": attn * accum * steps,
             "flash_attention_bwd_dkv": attn * accum * steps,
+            "flash_attention_bwd_dlbias": learned_bias_attention(model) * accum * steps,
             "fused_dropout": 2 * count_dropout_sites(model) * accum * steps,
             "fused_adamw": len(list(model.parameters())) * steps}
 
 
-def train_phase(torch, fa, fd, fo, cli):
-    """The CLI's train entry at full width; counters, losses, gradients and
-    one profiled step."""
+def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn"):
+    """The CLI's train entry at full width; counters, losses, gradients
+    (and, for T5, both bucket tables') and one profiled step."""
+    from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
+
     os.makedirs(WORK, exist_ok=True)
     path = os.path.join(WORK, "train.json")
     write_train_records(path)
     zero_counters(fa, fd, fo)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = cli.train([*TRAIN_ARGS, "--train-file", path])
+    trainer = cli.train([*TRAIN_ARGS, "--model-ckpt", model, "--train-file", path])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters(fa, fd, fo)
@@ -747,24 +990,33 @@ def train_phase(torch, fa, fd, fo, cli):
     want = expected_train_launches(trainer.model, steps, trainer.cfg.grad_accum_steps)
     losses = [float(m["loss"]) for m in trainer.history]
     step_s = [b - a for a, b in zip(trainer.step_ends, trainer.step_ends[1:])]
-    say({"phase": "train_launches", "steps": steps, "launches": launches, "expected": want,
-         "per_step": {k: v / max(steps, 1) for k, v in launches.items()}})
-    if steps != 6 or any(launches[k] == 0 or launches[k] != want[k] for k in want):
-        fail(f"train run: {steps} steps, launches {launches} vs {want}")
+    t5 = model.startswith("t5")
+    say({"phase": "train_launches", "model": model, "steps": steps, "launches": launches,
+         "expected": want, "per_step": {k: v / max(steps, 1) for k, v in launches.items()}})
+    # every kernel of the path launched, the learned-bias gradient on T5 only
+    required = [k for k in want if t5 or k != "flash_attention_bwd_dlbias"]
+    if steps != 6 or launches != want or any(want[k] == 0 for k in required):
+        fail(f"{model} train run: {steps} steps, launches {launches} vs {want}")
     named = dict(trainer.model.named_parameters())
     qkv = {n: float(named[n].grad.abs().max()) for n in named
            if n.endswith(("q_proj.weight", "k_proj.weight", "v_proj.weight"))}
-    say({"phase": "train", "wall_s": wall, "losses": losses,
+    attn = sum(isinstance(m, MultiHeadAttention) for m in trainer.model.modules())
+    tables = {n: float(named[n].grad.abs().max()) for n in named
+              if n.endswith("relative_attention_bias.weight")}
+    say({"phase": "train", "model": model, "wall_s": wall, "losses": losses,
          "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
          "learning_rates": [m["learning_rate"] for m in trainer.history],
          "step_s_after_first": step_s, "step_s_median": statistics.median(step_s),
          "tokens_per_step": [float(m["target_tokens"]) for m in trainer.history],
          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-         "qkv_weight_grads": len(qkv), "qkv_min_of_max_abs_grad": min(qkv.values())})
+         "qkv_weight_grads": len(qkv), "qkv_min_of_max_abs_grad": min(qkv.values()),
+         "bucket_table_max_abs_grad": tables})
     if not all(torch.isfinite(torch.tensor(losses))):
-        fail(f"train losses not finite: {losses}")
-    if len(qkv) != 3 * 36 or min(qkv.values()) <= 0.0:
-        fail("some q/k/v projection weight got no gradient on the kernel path")
+        fail(f"{model} train losses not finite: {losses}")
+    if len(qkv) != 3 * attn or min(qkv.values()) <= 0.0:
+        fail(f"{model}: some q/k/v projection weight got no gradient on the kernel path")
+    if t5 and (len(tables) != 2 or min(tables.values()) <= 0.0):
+        fail(f"{model}: a relative-position bucket table got no gradient: {tables}")
     profile_train_step(torch, trainer)
     return launches, trainer
 
@@ -800,14 +1052,16 @@ def profile_train_step(torch, trainer) -> None:
     groups: dict[str, list[float]] = {}
     for k, v in kernels.items():
         low = k.lower()
-        g = next((tag for tag in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_dropout",
-                                  "fused_adamw") if tag in low),
+        g = next((tag for tag in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                  "flash_bwd_dlbias", "fused_dropout", "fused_adamw")
+                  if tag in low),
                  "gemm" if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
                  else "elementwise" if "elementwise" in low
                  else "reduce" if "reduce" in low else "other")
         ms, n = groups.get(g, [0.0, 0.0])
         groups[g] = [ms + v, n + counts.get(k, 0.0)]
-    say({"phase": "where_the_time_goes", "call": "train_step", "batch_shape": {
+    say({"phase": "where_the_time_goes", "call": "train_step",
+         "model": trainer.cfg.model_ckpt, "batch_shape": {
              k: list(v.shape) for k, v in batch.items()},
          "enqueue_ms": enqueue, "step_ms": total, "wall_ms_profiled": wall,
          "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / wall),
@@ -902,6 +1156,383 @@ def grad_check_phase(torch, fa, fd, trainer):
              f"path's {p16['grad_rel_l2']}")
 
 
+@contextlib.contextmanager
+def dlbias_delta_of_another_row(fa):
+    """Planted fault: kernel 4 reads each batch row's δ from its
+    neighbour (δ rolled by one along the batch)."""
+    saved = fa.flash_bwd_dlbias
+
+    def bad(q, k, v, bias, lbias, do, lse, delta, **kw):
+        return saved(q, k, v, bias, lbias, do, lse, delta.roll(1, dims=0).contiguous(), **kw)
+
+    bad.launches = 0  # the kernel's own count, bumped through the module name, lands here
+    fa.flash_bwd_dlbias = bad
+    try:
+        yield
+    finally:
+        fa.flash_bwd_dlbias = saved
+
+
+@contextlib.contextmanager
+def plain_backward_kernels(fa):
+    """The flash Function's backward with kernels 2, 3 and 4 replaced by
+    their plain versions on the same CUDA tensors; the forward (kernel 1)
+    untouched, so both paths see bit-identical activations."""
+    saved = fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias
+
+    def dq(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale):
+        _, ds = fa._bwd_plain(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal,
+                              scale=scale)
+        return fa._dq_plain(q, k, ds)
+
+    def dkv(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale):
+        p, ds = fa._bwd_plain(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal,
+                              scale=scale)
+        return fa._dkv_plain(q, k, v, do, p, ds)
+
+    def dlbias(q, k, v, bias, lbias, do, lse, delta, *, causal, scale):
+        return fa._dlbias_plain(q, k, v, bias, lbias, do, lse, delta, causal=causal,
+                                scale=scale)
+
+    fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias = dq, dkv, dlbias
+    try:
+        yield
+    finally:
+        fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias = saved
+
+
+@contextlib.contextmanager
+def attention_nudged_by_one_ulp():
+    """Every attention output times 1 ± 2^-23 (a fixed random sign per
+    element): a change of the forward the size of one fp32 rounding, the
+    size by which two correct fp32 attention implementations differ."""
+    import torch
+
+    from distributed_llms_example_tpu_torch.ops import mha
+
+    saved = mha.flash_attention
+    gens: dict = {}
+
+    def nudged(*args, **kw):
+        o = saved(*args, **kw)
+        gen = gens.setdefault(o.device, torch.Generator(device=o.device).manual_seed(0))
+        sign = torch.randint(0, 2, o.shape, generator=gen, device=o.device).to(o.dtype) * 2 - 1
+        return o * (1 + sign * 2.0 ** -23)
+
+    mha.flash_attention = nudged
+    try:
+        yield
+    finally:
+        mha.flash_attention = saved
+
+
+@contextlib.contextmanager
+def learned_bias_one_key_off():
+    """Planted fault: kernel 1 (and after it kernels 2-4) reads the learned
+    bias one key position off (rolled by one along the key axis)."""
+    from distributed_llms_example_tpu_torch.ops import mha
+
+    saved = mha.flash_attention
+
+    def shifted(q, k, v, bias=None, *, learned_bias=None, **kw):
+        if learned_bias is not None:
+            learned_bias = learned_bias.roll(1, dims=-1)
+        return saved(q, k, v, bias, learned_bias=learned_bias, **kw)
+
+    mha.flash_attention = shifted
+    try:
+        yield
+    finally:
+        mha.flash_attention = saved
+
+
+def lookup_backward_bit_equal(torch, stack, q_len: int) -> bool:
+    """Whether the bucket lookup's backward (the embedding gather's, which
+    sums a million positions into 32 table rows) gives the same bits twice
+    on one upstream gradient."""
+    w = stack.relative_attention_bias.weight
+    g = torch.randn(1, w.shape[1], q_len, q_len, device=w.device,
+                    generator=torch.Generator(device=w.device).manual_seed(4))
+    got = [torch.autograd.grad(stack.position_bias(q_len, q_len), w, g)[0] for _ in range(2)]
+    return torch.equal(*got)
+
+
+def t5_grad_check_phase(torch, fa, fd, batch) -> None:
+    """fp32 T5 at t5-large widths, 2 encoder + 2 decoder layers, on the
+    recipe's batch (8 x 1024 source, 128 target), dropout on with the same
+    seeds on every path, with each of T5's two MLPs.
+
+    relu (t5-large's own): kernels 2, 3 and 4 against their plain versions
+    inside the model, on one forward (kernel 1), within GRAD_LIMITS and each
+    bucket table's gradient within relative L2 T5_TABLE_REL_L2; δ of
+    another batch row fed to kernel 4 must break the table limit.  The
+    whole kernel path against the wholly plain path (torch autograd through
+    the plain forward) is reported, not held: fp32 rounding in the forward
+    flips relu units whose input lies within it of 0.
+
+    gated-gelu (flan's MLP at the same widths; no kink): the whole kernel
+    path (kernels 1-4) against the wholly plain path, so kernel 1's
+    learned-bias branch is held inside a gradient: the loss within
+    GRAD_LIMITS, every gradient metric within GRAD_LIMITS or within
+    T5_NUDGE_FACTOR times the same metric of the plain path nudged by one
+    ulp (below); kernel 1 reading the learned bias one key off must break
+    them.
+
+    Reported beside them: each MLP's plain path against itself with every
+    attention output nudged by one fp32 ulp (how far a rounding-sized
+    change of the forward moves each model's gradient), the same for the
+    gated-gelu model with its attention logits shrunk 8x (q_proj x 1/8, as
+    if scaled by d^-1/2), which tensors differ when the relu kernel path
+    runs twice, and whether the bucket lookup's backward gives the same
+    bits twice."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.registry import T5_CONFIGS
+    from distributed_llms_example_tpu_torch.models.t5 import T5ForConditionalGeneration
+    from distributed_llms_example_tpu_torch.train.optim import global_norm
+
+    def build(mlp: str):
+        cfg = dataclasses.replace(T5_CONFIGS["t5-large"], num_layers=2, feed_forward_proj=mlp)
+        model = T5ForConditionalGeneration(cfg, dtype=torch.float32, param_dtype=torch.float32,
+                                           device="cuda").train()
+        model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        names = [n for n, _ in model.named_parameters()]
+        return model, names, [i for i, n in enumerate(names)
+                              if n.endswith("relative_attention_bias.weight")]
+
+    def dist(a, b, names, tables):
+        (la, ga), (lb, gb) = a, b
+        rel = lambda i: float((ga[i] - gb[i]).norm() / gb[i].norm())  # noqa: E731
+        return {"loss_diff": abs(la - lb),
+                "grad_norm_diff": abs(float(global_norm(ga)) - float(global_norm(gb))),
+                "max_tensor_grad_diff": max(float((x - y).abs().max()) for x, y in zip(ga, gb)),
+                "grad_rel_l2": float(global_norm([x - y for x, y in zip(ga, gb)]))
+                / float(global_norm(gb)),
+                "bucket_table_rel_l2": {names[i]: rel(i) for i in tables}}
+
+    def within(d, nudged=None):
+        """Every metric within its limit or, given the nudged distance,
+        within T5_NUDGE_FACTOR times that metric there (the loss excepted)."""
+        def limit(key, base, table=None):
+            if nudged is None or key == "loss_diff":
+                return base
+            at = nudged[key] if table is None else nudged[key][table]
+            return max(base, T5_NUDGE_FACTOR * at)
+
+        return (all(d[k] <= limit(k, lim) for k, lim in GRAD_LIMITS.items())
+                and all(v <= limit("bucket_table_rel_l2", T5_TABLE_REL_L2, t)
+                        for t, v in d["bucket_table_rel_l2"].items()))
+
+    model, names, tables = build("relu")
+    fa.flash_bwd_dlbias.launches = 0
+    kernel = loss_and_grads(torch, model, batch)
+    launched = fa.flash_bwd_dlbias.launches
+    rerun = loss_and_grads(torch, model, batch)
+    with plain_backward_kernels(fa):
+        plain_bwd = loss_and_grads(torch, model, batch)
+    with dlbias_delta_of_another_row(fa):
+        fault = loss_and_grads(torch, model, batch)
+    with plain_kernels(fa, fd):
+        plain = loss_and_grads(torch, model, batch)
+        with attention_nudged_by_one_ulp():
+            nudged = loss_and_grads(torch, model, batch)
+    lookup_equal = lookup_backward_bit_equal(torch, model.encoder, batch["input_ids"].shape[1])
+    del model
+    free_cuda()
+    relu = {"kernels_2_3_4_vs_plain": dist(kernel, plain_bwd, names, tables),
+            "planted_fault_dlbias_delta": dist(fault, plain_bwd, names, tables),
+            "kernel_path_vs_plain_path": dist(kernel, plain, names, tables),
+            "plain_path_nudged_one_ulp": dist(nudged, plain, names, tables),
+            "rerun_loss_equal": kernel[0] == rerun[0],
+            "rerun_tensors_not_bit_equal": [names[i] for i, (x, y) in
+                                            enumerate(zip(kernel[1], rerun[1]))
+                                            if not torch.equal(x, y)],
+            "lookup_backward_bit_equal": lookup_equal,
+            "loss_fp32": plain[0], "grad_norm_fp32": float(global_norm(plain[1])),
+            "bucket_table_grad_norms": {names[i]: float(plain[1][i].norm()) for i in tables}}
+
+    model, gnames, gtables = build("gated-gelu")
+    gkernel = loss_and_grads(torch, model, batch)
+    with learned_bias_one_key_off():
+        gfault = loss_and_grads(torch, model, batch)
+    with plain_kernels(fa, fd):
+        gplain = loss_and_grads(torch, model, batch)
+        with attention_nudged_by_one_ulp():
+            gnudged = loss_and_grads(torch, model, batch)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.endswith("q_proj.weight"):
+                    p.mul_(0.125)
+        gplain_q8 = loss_and_grads(torch, model, batch)
+        with attention_nudged_by_one_ulp():
+            gnudged_q8 = loss_and_grads(torch, model, batch)
+    del model
+    free_cuda()
+    gelu = {"kernel_path_vs_plain_path": dist(gkernel, gplain, gnames, gtables),
+            "planted_fault_learned_bias_one_key_off": dist(gfault, gplain, gnames, gtables),
+            "plain_path_nudged_one_ulp": dist(gnudged, gplain, gnames, gtables),
+            "logits_shrunk_8x_plain_path_nudged_one_ulp": dist(gnudged_q8, gplain_q8, gnames,
+                                                               gtables),
+            "loss_fp32": gplain[0], "grad_norm_fp32": float(global_norm(gplain[1]))}
+    say({"phase": "t5_grad_check", "layers": "2+2", "kernel4_launches": launched,
+         "fp32_relu": relu, "fp32_gated_gelu": gelu,
+         "limits": dict(GRAD_LIMITS, bucket_table_rel_l2=T5_TABLE_REL_L2,
+                        gated_gelu_nudge_factor=T5_NUDGE_FACTOR)})
+    if launched != 4 or len(tables) != 2 or len(gtables) != 2:
+        fail(f"t5 gradient check: {launched} kernel-4 launches for 4 self-attention layers")
+    if not within(relu["kernels_2_3_4_vs_plain"]):
+        fail(f"t5 fp32 gradient check (relu): kernels 2-4 vs plain "
+             f"{relu['kernels_2_3_4_vs_plain']}")
+    if not max(relu["planted_fault_dlbias_delta"]["bucket_table_rel_l2"].values()) \
+            > T5_TABLE_REL_L2:
+        fail(f"t5 gradient check: δ of another batch row keeps the bucket tables within "
+             f"the limit: {relu['planted_fault_dlbias_delta']['bucket_table_rel_l2']}")
+    if not within(gelu["kernel_path_vs_plain_path"], gelu["plain_path_nudged_one_ulp"]):
+        fail(f"t5 fp32 gradient check (gated-gelu): kernel path vs plain path "
+             f"{gelu['kernel_path_vs_plain_path']}")
+    if within(gelu["planted_fault_learned_bias_one_key_off"], gelu["plain_path_nudged_one_ulp"]):
+        fail("t5 gradient check: the learned bias one key off stays within every limit")
+
+
+T5_SERVE_ARGS = [
+    "--model-ckpt", "flan-t5-xl", "--max-slots", "8", "--max-new-tokens", "128",
+    "--max-source-length", "1024", "--compute-dtype", "bfloat16", "--seed", "0",
+    "--log-every-steps", "64", "--lint", "off",
+]
+
+
+def t5_serve_phase(torch, fa, fd, fo, cli) -> dict:
+    """flan-t5-xl at full width through the CLI's serve entry (the BART
+    phase's 16 prompts): kernel 1 once per encoder layer per prefill chunk
+    (its learned-bias branch), kernel 5 once per decoder layer per decode
+    round (the per-row relative bias as its bias), kernels 2, 3, 4 and 6
+    never; then one profiled prefill and decode round."""
+    prompts = os.path.join(WORK, "prompts.json")
+    out = os.path.join(WORK, "t5_serve.jsonl")
+    zero_counters(fa, fd, fo)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, outs = cli.serve([*T5_SERVE_ARGS, "--prompts-file", prompts, "--output-file", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.flash_attention.launches,
+                "flash_decode": fa.flash_decode.launches,
+                "flash_attention_bwd_dq": fa.flash_bwd_dq.launches,
+                "flash_attention_bwd_dkv": fa.flash_bwd_dkv.launches,
+                "flash_attention_bwd_dlbias": fa.flash_bwd_dlbias.launches,
+                "flash_decode_paged": fa.flash_decode_paged.launches}
+    stats = engine.last_stats
+    model = engine.model
+    want = {"flash_attention_fwd": len(model.encoder.blocks) * stats.prefill_calls,
+            "flash_decode": len(model.decoder_blocks) * stats.decode_steps,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dlbias": 0, "flash_decode_paged": 0}
+    with open(out) as f:
+        records = sum(1 for _ in f)
+    p50, p95 = stats.ttft_percentiles()
+    say({"phase": "t5_serve", "model": "flan-t5-xl", "wall_s": wall, "records": records,
+         "params": sum(p.numel() for p in model.parameters()), "launches": launches,
+         "expected": want, "prefill_calls": stats.prefill_calls,
+         "decode_steps": stats.decode_steps, "decode_tokens": stats.decode_tokens,
+         "decode_tokens_per_sec": stats.tokens_per_sec(), "ttft_p50_ms": p50 * 1e3,
+         "ttft_p95_ms": p95 * 1e3, "prefill_seconds": stats.prefill_seconds,
+         "decode_seconds": stats.decode_seconds,
+         "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    if (records != 16 or len(outs) != 16 or stats.decode_steps == 0 or launches != want
+            or want["flash_attention_fwd"] == 0):
+        fail(f"flan-t5-xl serve: {records} records, launches {launches} vs {want}")
+    where_the_time_goes(torch, engine)
+    del engine, model
+    free_cuda()
+    return launches
+
+
+@contextlib.contextmanager
+def position_bias_shifted_by_one():
+    """Planted fault: every per-row decode offset moved by one in the
+    relative-position bias alone (the cache writes and masks unchanged)."""
+    import torch
+
+    from distributed_llms_example_tpu_torch.models import t5
+
+    saved = t5.T5Stack.position_bias
+
+    def shifted(self, q_len, kv_len, offset=0):
+        per_row = isinstance(offset, torch.Tensor) and offset.dim() == 1
+        return saved(self, q_len, kv_len, offset + 1 if per_row else offset)
+
+    t5.T5Stack.position_bias = shifted
+    try:
+        yield
+    finally:
+        t5.T5Stack.position_bias = saved
+
+
+def t5_logits_phase(torch, fa) -> None:
+    """fp32, flan-t5-xl widths at 2 + 2 layers: the prefill (encoder through
+    kernel 1's learned-bias branch) and the first + 4 more decode steps at
+    staggered per-row offsets (kernel 5 with the per-row relative bias),
+    kernel path vs plain path within T5_FP32_ATOL; the relative bias of
+    every row shifted by one position must break it."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+    from distributed_llms_example_tpu_torch.evaluation.generation import init_cache
+    from distributed_llms_example_tpu_torch.models.registry import T5_CONFIGS
+    from distributed_llms_example_tpu_torch.models.t5 import T5ForConditionalGeneration
+
+    cfg = dataclasses.replace(T5_CONFIGS["flan-t5-xl"], num_layers=2)
+    model = T5ForConditionalGeneration(cfg, dtype=torch.float32, param_dtype=torch.float32,
+                                       device="cuda").eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    with open(os.path.join(WORK, "prompts.json")) as f:
+        texts = json.load(f)[:8]
+    tok = ByteTokenizer()
+    ids = np.zeros((8, 1024), np.int64)
+    mask = np.zeros((8, 1024), np.int32)
+    for r, t in enumerate(texts):
+        row = tok.encode_source(t, 1024)
+        ids[r, : len(row)] = row
+        mask[r, : len(row)] = 1
+    ids, mask = torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda")
+    steps = torch.as_tensor(np.random.RandomState(3).randint(2, 258, (5, 8, 1)), device="cuda")
+    base = torch.tensor([0, 5, 17, 40, 64, 99, 111, 120], dtype=torch.int32, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            enc = model.encode(ids, mask)
+            ckv = model.cross_kv(enc)
+            cache = init_cache(model, 8, 128, device="cuda")
+            return torch.stack([
+                model.decode(steps[t], None, mask, cache=cache, cache_offset=base + t,
+                             cross_kv=ckv)[:, -1].float() for t in range(5)])
+
+    fa.flash_attention.launches = fa.flash_decode.launches = 0
+    kernel = run()
+    launched = (fa.flash_attention.launches, fa.flash_decode.launches)
+    with plain_kernels(fa):
+        plain = run()
+    with position_bias_shifted_by_one():
+        fault = run()
+    del model
+    free_cuda()
+    err = float((kernel - plain).abs().max())
+    fault_err = float((fault - plain).abs().max())
+    finite = bool(torch.isfinite(kernel).all())
+    say({"phase": "t5_logits_kernel_vs_plain", "layers": "2+2", "steps": 5,
+         "shape": list(kernel.shape), "finite": finite, "fp32_max_abs_err": err,
+         "fp32_atol": T5_FP32_ATOL, "fp32_planted_fault_err": fault_err,
+         "kernel_launches": {"flash_attention_fwd": launched[0], "flash_decode": launched[1]},
+         "max_abs_logit": float(plain.abs().max())})
+    if not finite or list(kernel.shape) != [5, 8, cfg.vocab_size] or launched != (2, 2 * 5):
+        fail(f"t5 fp32 logits: finite={finite}, shape {list(kernel.shape)}, launches {launched}")
+    if err > T5_FP32_ATOL:
+        fail(f"t5 fp32 logits: kernel path vs plain path max abs err {err}")
+    if not fault_err > T5_FP32_ATOL:
+        fail(f"t5 fp32 logits: the relative bias shifted by one moves them only {fault_err}")
+
 def write_prompts(path: str, n: int = 16) -> None:
     import numpy as np
 
@@ -930,11 +1561,13 @@ def plain_kernels(fa, fd=None):
     through its autograd Function with the plain version in both passes."""
     from distributed_llms_example_tpu_torch.ops import mha
 
-    def fwd(q, k, v, bias=None, *, causal=False, dtype=None):
-        return fa.flash_attention_plain(q, k, v, bias, causal=causal)[0].to(dtype or q.dtype)
+    def fwd(q, k, v, bias=None, *, learned_bias=None, causal=False, scale=None, dtype=None):
+        return fa.flash_attention_plain(q, k, v, bias, lbias=learned_bias, causal=causal,
+                                        scale=scale)[0].to(dtype or q.dtype)
 
-    def dec(q, k, v, bias=None, *, offsets, dtype=None):
-        return fa.flash_decode_plain(q, k, v, bias, offsets=offsets).to(dtype or q.dtype)
+    def dec(q, k, v, bias=None, *, offsets, scale=None, dtype=None):
+        return fa.flash_decode_plain(q, k, v, bias, offsets=offsets,
+                                     scale=scale).to(dtype or q.dtype)
 
     saved = mha.flash_attention, mha.flash_decode
     mha.flash_attention, mha.flash_decode = fwd, dec
@@ -957,8 +1590,8 @@ def planted_fault(fa):
     the serve-path logits check must see."""
     from distributed_llms_example_tpu_torch.ops import mha
 
-    def dec(q, k, v, bias=None, *, offsets, dtype=None):
-        return fa.flash_decode(q, k, v, bias, offsets=offsets + 1, dtype=dtype)
+    def dec(q, k, v, bias=None, *, offsets, scale=None, dtype=None):
+        return fa.flash_decode(q, k, v, bias, offsets=offsets + 1, scale=scale, dtype=dtype)
 
     saved = mha.flash_decode
     mha.flash_decode = dec
@@ -1005,7 +1638,8 @@ def where_the_time_goes(torch, engine) -> None:
         wall, kernels = profile_device(fn, n)
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-        say({"phase": "where_the_time_goes", "call": what, "wall_ms": wall,
+        say({"phase": "where_the_time_goes", "call": what,
+             "model": type(engine.model).__name__, "wall_ms": wall,
              "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / wall),
              "top_kernels_ms": {k[:60]: v for k, v in top}})
 
@@ -1300,19 +1934,20 @@ def decode_route(fa, how: str):
     back by one (``fault``: a row no longer sees its own new K/V)."""
     from distributed_llms_example_tpu_torch.ops import mha
 
-    def plain_paged(q, kp, vp, bias=None, *, block_tables, offsets, dtype=None):
+    def plain_paged(q, kp, vp, bias=None, *, block_tables, offsets, scale=None, dtype=None):
         return fa.flash_decode_paged_plain(q, kp, vp, bias, block_tables=block_tables,
-                                           offsets=offsets).to(dtype or q.dtype)
+                                           offsets=offsets, scale=scale).to(dtype or q.dtype)
 
-    def fault_paged(q, kp, vp, bias=None, *, block_tables, offsets, dtype=None):
+    def fault_paged(q, kp, vp, bias=None, *, block_tables, offsets, scale=None, dtype=None):
         return fa.flash_decode_paged(q, kp, vp, bias, block_tables=block_tables,
-                                     offsets=offsets - 1, dtype=dtype)
+                                     offsets=offsets - 1, scale=scale, dtype=dtype)
 
-    def plain_flat(q, k, v, bias=None, *, offsets, dtype=None):
-        return fa.flash_decode_plain(q, k, v, bias, offsets=offsets).to(dtype or q.dtype)
+    def plain_flat(q, k, v, bias=None, *, offsets, scale=None, dtype=None):
+        return fa.flash_decode_plain(q, k, v, bias, offsets=offsets,
+                                     scale=scale).to(dtype or q.dtype)
 
-    def fault_flat(q, k, v, bias=None, *, offsets, dtype=None):
-        return fa.flash_decode(q, k, v, bias, offsets=offsets - 1, dtype=dtype)
+    def fault_flat(q, k, v, bias=None, *, offsets, scale=None, dtype=None):
+        return fa.flash_decode(q, k, v, bias, offsets=offsets - 1, scale=scale, dtype=dtype)
 
     saved = mha.flash_decode_paged, mha.flash_decode
     if how == "plain":
@@ -1420,6 +2055,11 @@ def main() -> None:
     measured.update(paged)
     measured["flash_decode"]["max_abs_err"] = max(measured["flash_decode"]["max_abs_err"],
                                                   kernel5_err_d128)
+    dlbias, lbias_errs = lbias_kernel_phase(torch, fa)
+    measured.update(dlbias)
+    for name, key in (("flash_attention_fwd", "fwd"), ("flash_attention_bwd_dq", "dq"),
+                      ("flash_attention_bwd_dkv", "dkv")):
+        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], lbias_errs[key])
 
     # phases 4-6: the main paths
     from distributed_llms_example_tpu_torch.launch import cli
@@ -1435,47 +2075,63 @@ def main() -> None:
     del trainer
     free_cuda()
 
-    # phases 7-8: llama-2-7b serving, paged and flat; fp32 logits
+    # phases 7-10: T5 — t5-large training and its gradient check, flan-t5-xl
+    # serving and its fp32 logits check
+    from distributed_llms_example_tpu_torch.train.trainer import put_batch
+
+    t5_train, trainer = train_phase(torch, fa, fd, fo, cli, "t5-large")
+    batch = put_batch(next(iter(trainer.batches.epoch(0))), trainer.device)
+    del trainer
+    free_cuda()
+    t5_grad_check_phase(torch, fa, fd, batch)
+    del batch
+    t5_serve = t5_serve_phase(torch, fa, fd, fo, cli)
+    t5_logits_phase(torch, fa)
+
+    # phases 11-12: llama-2-7b serving, paged and flat; fp32 logits
     llama_paged, llama_flat = llama_serve_phase(torch, fa, cli)
     llama_logits_phase(torch, fa)
 
-    # phase 9: the TPU kernel with no port yet, the kernel list, then the
-    # contract line.  A kernel that runs on several main paths reports the
-    # sum of their counts: kernel 1 the BART serve and train runs, kernel 5
-    # the BART serve and the flat LLaMA serve, kernel 6 the paged LLaMA
-    # serve.  Kernel 4 has no route, source or time, so it stands on a line
-    # of its own rather than among the ported kernels.
-    say({"kernels_unported": [dict(name="flash_attention_bwd_dlbias", route=None, source=None,
-                                   replaces="distributed_llms_example_tpu/ops/"
-                                            "flash_attention.py:399", launches=0)]})
+    # phase 13: the TPU kernels with no port yet (none), the kernel list,
+    # then the contract line.  A kernel that runs on several main paths
+    # reports the sum of their counts: kernel 1 the BART and T5 serve and
+    # train runs, kernels 2, 3, 7 and 8 the BART and T5 train runs, kernel 4
+    # the T5 train run, kernel 5 the BART and flan-T5 serve runs and the flat
+    # LLaMA serve, kernel 6 the paged LLaMA serve.
+    say({"kernels_unported": []})
     src = "distributed_llms_example_tpu_torch/csrc/"
     ref = "distributed_llms_example_tpu/ops/"
+    both = {k: train_launches[k] + t5_train[k] for k in t5_train}
     rows = [
         dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd.cu",
              replaces=ref + "flash_attention.py:119",
-             launches=launches["flash_attention_fwd"] + train_launches["flash_attention_fwd"],
+             launches=(launches["flash_attention_fwd"] + both["flash_attention_fwd"]
+                       + t5_serve["flash_attention_fwd"]),
              **measured["flash_attention_fwd"]),
         dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
              replaces=ref + "flash_attention.py:931",
-             launches=launches["flash_decode"] + llama_flat["flash_decode"],
+             launches=(launches["flash_decode"] + llama_flat["flash_decode"]
+                       + t5_serve["flash_decode"]),
              **measured["flash_decode"]),
         dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
              replaces=ref + "flash_attention.py:1155",
              launches=llama_paged["flash_decode_paged"], **measured["flash_decode_paged"]),
         dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=ref + "flash_attention.py:264",
-             launches=train_launches["flash_attention_bwd_dq"],
-             **measured["flash_attention_bwd_dq"]),
+             launches=both["flash_attention_bwd_dq"], **measured["flash_attention_bwd_dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda", source=src + "flash_bwd.cu",
              replaces=ref + "flash_attention.py:328",
-             launches=train_launches["flash_attention_bwd_dkv"],
-             **measured["flash_attention_bwd_dkv"]),
+             launches=both["flash_attention_bwd_dkv"], **measured["flash_attention_bwd_dkv"]),
+        dict(name="flash_attention_bwd_dlbias", route="cuda",
+             source=src + "flash_bwd_dlbias.cu", replaces=ref + "flash_attention.py:399",
+             launches=both["flash_attention_bwd_dlbias"],
+             **measured["flash_attention_bwd_dlbias"]),
         dict(name="fused_dropout", route="cuda", source=src + "fused_dropout.cu",
              replaces=ref + "fused_dropout.py:195",
-             launches=train_launches["fused_dropout"], **measured["fused_dropout"]),
+             launches=both["fused_dropout"], **measured["fused_dropout"]),
         dict(name="fused_adamw", route="cuda", source=src + "fused_adamw.cu",
              replaces=ref + "fused_optim.py:162",
-             launches=train_launches["fused_adamw"], **measured["fused_adamw"]),
+             launches=both["fused_adamw"], **measured["fused_adamw"]),
     ]
     say({"kernels": rows})
     say({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ own copy.  The TPU's Pallas kernels on the ported path are hand-written
 CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
 (``ops/cuda_build.py``).
 
-Ported so far: serving BART (``launch/cli.py serve``) with the flash-
-attention forward and flash-decode kernels.  ROADMAP.md lists what is
-still to come.
+Ported so far: serving and fine-tuning T5 and BART, serving LLaMA from a
+flat or a paged KV cache (``launch/cli.py``), with all eight TPU kernels
+as CUDA kernels: flash-attention forward, its dq, dk/dv and learned-bias
+gradient backward, flash decode flat and paged, fused residual dropout
+and fused AdamW.  ROADMAP.md lists what is still to come.
 """

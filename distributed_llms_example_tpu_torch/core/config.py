@@ -11,7 +11,7 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    model_ckpt: str = "bart-large-cnn"  # the one model the port trains
+    model_ckpt: str = "bart-large-cnn"  # the reference recipe's model; T5 names train too
     train_file: str = ""
     tokenizer: str = ""
     source_column: str = ""

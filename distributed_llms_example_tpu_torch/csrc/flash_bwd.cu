@@ -8,7 +8,7 @@
 // by the wrapper, as the JAX package computes it outside its kernels), each
 // tile recomputes
 //
-//   s  = scale * q k^T + bias   (-inf where causal-masked)
+//   s  = scale * q k^T + bias + lbias   (-inf where causal-masked)
 //   p  = exp(s - lse)            (0 on rows whose lse is the MASK_VALUE
 //                                 sentinel: rows with no live key)
 //   dp = dO v^T
@@ -22,13 +22,17 @@
 //
 // q, k, v, dO: (B, H, S, D) contiguous, fp32 or bf16 (one dtype); lse and
 // delta (B, H, Sq) fp32; the fp32 `bias` is read through its element
-// strides (stride 0 for a size-1 dim) and may be null.  `causal` is the
-// top-left mask q_pos >= k_pos; tiles wholly above the diagonal are
-// skipped, as `diag_ok` skips them on the TPU.  Any Sq and Sk: every load
-// and score is bounds-checked.  The bias is a constant mask: it gets no
-// gradient.  The probs-dropout and learned-bias branches of the TPU kernels
-// are not here (bart-large-cnn trains with attention dropout 0 and no
-// learned bias).
+// strides (stride 0 for a size-1 dim) and may be null, and so is the
+// learned (1, H, Sq, Sk) `lbias` (T5's relative-position bias), read in its
+// own dtype, fp32 or bf16 (`lb_bf16`; the element type LB is a template
+// parameter), widened to fp32 and added after the bias as the TPU kernels
+// add it.  `causal` is the top-left mask q_pos >= k_pos; tiles wholly
+// above the diagonal are skipped, as `diag_ok` skips them on the TPU.  Any
+// Sq and Sk: every load and score is bounds-checked.  The bias is a
+// constant mask: it gets no gradient; the learned bias's gradient is
+// kernel 4 (csrc/flash_bwd_dlbias.cu).  The probs-dropout branch of the
+// TPU kernels is not here (no model of the port trains with
+// attention-probs dropout).
 //
 // What bounds it on the H100: arithmetic.  At the encoder shape (8, 16,
 // 1024, 64) bf16 the dq pass does 6*B*H*S*S*D = 51.5 GFLOP and the dk/dv
@@ -65,11 +69,12 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
+template <typename B>
 struct Bias {
-  const float* p;  // already offset to (b, h); null = no bias
+  const B* p;  // already offset to (b, h); null = no bias
   long long sq, sk;
   __device__ __forceinline__ float at(int qi, int ki) const {
-    return p ? p[(long long)qi * sq + (long long)ki * sk] : 0.f;
+    return p ? to_f(p[(long long)qi * sq + (long long)ki * sk]) : 0.f;
   }
 };
 
@@ -86,11 +91,11 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int 
 // The shared score step of both kernels: for the thread's 4 x 4 tile of
 // (query row ty*4+i, key tx+16j) it returns p and ds, with p = 0 wherever
 // the pair is out of range, causal-masked or on a sentinel row.
-template <int D>
+template <int D, typename LB>
 __device__ __forceinline__ void score_tile(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs, const float* lse_s,
-    const float* dl_s, int q0, int k0, int Lq, int Lk, float scale, int causal, const Bias& bias,
-    float p[4][4], float ds[4][4]) {
+    const float* dl_s, int q0, int k0, int Lq, int Lk, float scale, int causal,
+    const Bias<float>& bias, const Bias<LB>& lbias, float p[4][4], float ds[4][4]) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float s[4][4], dp[4][4];
 #pragma unroll
@@ -127,7 +132,7 @@ __device__ __forceinline__ void score_tile(
       const int ki = k0 + tx + 16 * j;
       float pv = 0.f;
       if (qi < Lq && ki < Lk && !(causal && ki > qi) && !(l <= MASK_VALUE / 2)) {
-        pv = expf(s[i][j] * scale + bias.at(qi, ki) - l);
+        pv = expf(s[i][j] * scale + bias.at(qi, ki) + lbias.at(qi, ki) - l);
       }
       p[i][j] = pv;
       ds[i][j] = pv * (dp[i][j] - delta) * scale;
@@ -140,10 +145,11 @@ constexpr size_t dq_smem_floats() {
   return 2 * BQ * D + 2 * BK * (D + 1) + BQ * (BK + 1) + 2 * BQ;
 }
 
-template <typename T, int D>
+template <typename T, typename LB, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, long long bsb, long long bsh, long long bsq, long long bsk,
+    const LB* __restrict__ lbias, long long lsb, long long lsh, long long lsq, long long lsk,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, int H, int Lq, int Lk, float scale, int causal) {
   constexpr int CD = D / 16;
@@ -161,7 +167,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const int q0 = blockIdx.x * BQ;
   const T* kp = k + (size_t)bh * Lk * D;
   const T* vp = v + (size_t)bh * Lk * D;
-  const Bias bs{bias ? bias + b * bsb + h * bsh : nullptr, bsq, bsk};
+  const Bias<float> bs{bias ? bias + b * bsb + h * bsh : nullptr, bsq, bsk};
+  const Bias<LB> ls{lbias ? lbias + b * lsb + h * lsh : nullptr, lsq, lsk};
 
   load_tile<T, D>(Qs, D, q + (size_t)bh * Lq * D, q0, Lq);
   load_tile<T, D>(dOs, D, dout + (size_t)bh * Lq * D, q0, Lq);
@@ -186,7 +193,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     load_tile<T, D>(Vs, D + 1, vp, k0, Lk);
     __syncthreads();
     float p[4][4], ds[4][4];
-    score_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Lq, Lk, scale, causal, bs, p, ds);
+    score_tile<D, LB>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Lq, Lk, scale, causal, bs, ls, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -221,10 +228,11 @@ constexpr size_t dkv_smem_floats() {
   return 2 * BK * (D + 1) + 2 * BQ * D + 2 * BQ * (BK + 1) + 2 * BQ;
 }
 
-template <typename T, int D>
+template <typename T, typename LB, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, long long bsb, long long bsh, long long bsq, long long bsk,
+    const LB* __restrict__ lbias, long long lsb, long long lsh, long long lsq, long long lsk,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk, float scale, int causal) {
   constexpr int CD = D / 16;
@@ -243,7 +251,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   const int k0 = blockIdx.x * BK;
   const T* qp = q + (size_t)bh * Lq * D;
   const T* dop = dout + (size_t)bh * Lq * D;
-  const Bias bs{bias ? bias + b * bsb + h * bsh : nullptr, bsq, bsk};
+  const Bias<float> bs{bias ? bias + b * bsb + h * bsh : nullptr, bsq, bsk};
+  const Bias<LB> ls{lbias ? lbias + b * lsb + h * lsh : nullptr, lsq, lsk};
 
   load_tile<T, D>(Ks, D + 1, k + (size_t)bh * Lk * D, k0, Lk);
   load_tile<T, D>(Vs, D + 1, v + (size_t)bh * Lk * D, k0, Lk);
@@ -268,7 +277,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     }
     __syncthreads();
     float p[4][4], ds[4][4];
-    score_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Lq, Lk, scale, causal, bs, p, ds);
+    score_tile<D, LB>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Lq, Lk, scale, causal, bs, ls, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -319,6 +328,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 struct Args {
   const void *q, *k, *v, *bias;
   long long bsb, bsh, bsq, bsk;
+  const void* lbias;
+  long long lsb, lsh, lsq, lsk;
   const void *dout, *lse, *delta;
   void *d1, *d2;  // dq, or dk and dv
   int B, H, Lq, Lk;
@@ -326,72 +337,82 @@ struct Args {
   int causal;
 };
 
-template <typename T, int D>
+template <typename T, typename LB, int D>
 int launch_dq(const Args& a, cudaStream_t stream) {
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, LB, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_bwd_dq_kernel<T, LB, D><<<grid, NT, smem, stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.bias, a.bsb, a.bsh, a.bsq,
-      a.bsk, (const T*)a.dout, (const float*)a.lse, (const float*)a.delta, (T*)a.d1, a.H, a.Lq,
-      a.Lk, a.scale, a.causal);
+      a.bsk, (const LB*)a.lbias, a.lsb, a.lsh, a.lsq, a.lsk, (const T*)a.dout,
+      (const float*)a.lse, (const float*)a.delta, (T*)a.d1, a.H, a.Lq, a.Lk, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename LB, int D>
 int launch_dkv(const Args& a, cudaStream_t stream) {
   const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, LB, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Lk + BK - 1) / BK, a.B * a.H);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, LB, D><<<grid, NT, smem, stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.bias, a.bsb, a.bsh, a.bsq,
-      a.bsk, (const T*)a.dout, (const float*)a.lse, (const float*)a.delta, (T*)a.d1, (T*)a.d2,
-      a.H, a.Lq, a.Lk, a.scale, a.causal);
+      a.bsk, (const LB*)a.lbias, a.lsb, a.lsh, a.lsq, a.lsk, (const T*)a.dout,
+      (const float*)a.lse, (const float*)a.delta, (T*)a.d1, (T*)a.d2, a.H, a.Lq, a.Lk, a.scale,
+      a.causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename LB>
 int dispatch(int which, int D, const Args& a, cudaStream_t s) {
   switch (D) {
-    case 16: return which ? launch_dkv<T, 16>(a, s) : launch_dq<T, 16>(a, s);
-    case 32: return which ? launch_dkv<T, 32>(a, s) : launch_dq<T, 32>(a, s);
-    case 64: return which ? launch_dkv<T, 64>(a, s) : launch_dq<T, 64>(a, s);
-    case 128: return which ? launch_dkv<T, 128>(a, s) : launch_dq<T, 128>(a, s);
+    case 16: return which ? launch_dkv<T, LB, 16>(a, s) : launch_dq<T, LB, 16>(a, s);
+    case 32: return which ? launch_dkv<T, LB, 32>(a, s) : launch_dq<T, LB, 32>(a, s);
+    case 64: return which ? launch_dkv<T, LB, 64>(a, s) : launch_dq<T, LB, 64>(a, s);
+    case 128: return which ? launch_dkv<T, LB, 128>(a, s) : launch_dq<T, LB, 128>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+int dispatch_lb(int which, int D, int lb_bf16, const Args& a, cudaStream_t s) {
+  return lb_bf16 ? dispatch<T, __nv_bfloat16>(which, D, a, s) : dispatch<T, float>(which, D, a, s);
+}
+
 int run(int which, const void* q, const void* k, const void* v, const void* bias, long long bsb,
-        long long bsh, long long bsq, long long bsk, const void* dout, const void* lse,
+        long long bsh, long long bsq, long long bsk, const void* lbias, long long lsb,
+        long long lsh, long long lsq, long long lsk, const void* dout, const void* lse,
         const void* delta, void* d1, void* d2, int B, int H, int Lq, int Lk, int D, float scale,
-        int causal, int is_bf16, void* stream) {
+        int causal, int is_bf16, int lb_bf16, void* stream) {
   if (B == 0 || H == 0 || Lq == 0 || Lk == 0) return 0;
-  const Args a{q, k, v, bias, bsb, bsh, bsq, bsk, dout, lse, delta, d1, d2, B, H, Lq, Lk, scale,
-               causal};
+  const Args a{q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
+               d1, d2, B, H, Lq, Lk, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? dispatch<__nv_bfloat16>(which, D, a, s) : dispatch<float>(which, D, a, s);
+  return is_bf16 ? dispatch_lb<__nv_bfloat16>(which, D, lb_bf16, a, s)
+                 : dispatch_lb<float>(which, D, lb_bf16, a, s);
 }
 
 }  // namespace
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
                             long long bsb, long long bsh, long long bsq, long long bsk,
-                            const void* dout, const void* lse, const void* delta, void* dq, int B,
-                            int H, int Lq, int Lk, int D, float scale, int causal, int is_bf16,
-                            void* stream) {
-  return run(0, q, k, v, bias, bsb, bsh, bsq, bsk, dout, lse, delta, dq, nullptr, B, H, Lq, Lk, D,
-             scale, causal, is_bf16, stream);
+                            const void* lbias, long long lsb, long long lsh, long long lsq,
+                            long long lsk, const void* dout, const void* lse, const void* delta,
+                            void* dq, int B, int H, int Lq, int Lk, int D, float scale,
+                            int causal, int is_bf16, int lb_bf16, void* stream) {
+  return run(0, q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
+             dq, nullptr, B, H, Lq, Lk, D, scale, causal, is_bf16, lb_bf16, stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* bias,
                              long long bsb, long long bsh, long long bsq, long long bsk,
-                             const void* dout, const void* lse, const void* delta, void* dk,
-                             void* dv, int B, int H, int Lq, int Lk, int D, float scale,
-                             int causal, int is_bf16, void* stream) {
-  return run(1, q, k, v, bias, bsb, bsh, bsq, bsk, dout, lse, delta, dk, dv, B, H, Lq, Lk, D,
-             scale, causal, is_bf16, stream);
+                             const void* lbias, long long lsb, long long lsh, long long lsq,
+                             long long lsk, const void* dout, const void* lse, const void* delta,
+                             void* dk, void* dv, int B, int H, int Lq, int Lk, int D, float scale,
+                             int causal, int is_bf16, int lb_bf16, void* stream) {
+  return run(1, q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
+             dk, dv, B, H, Lq, Lk, D, scale, causal, is_bf16, lb_bf16, stream);
 }

@@ -4,18 +4,23 @@
 // flash_attention.py `_fwd_kernel` (reached through `_fwd` and the public
 // `flash_attention`).  Same function, not a block-by-block copy:
 //
-//   o   = softmax(scale * q k^T + bias) v      (fp32 online softmax)
+//   o   = softmax(scale * q k^T + bias + lbias) v      (fp32 online softmax)
 //   lse = m + log(l), or MASK_VALUE where a row has no live key
 //
 // q, k, v: (B, H, S, D) contiguous, fp32 or bf16; o like q; lse (B, H, Sq)
 // fp32.  `bias` is an fp32 additive mask read through its own element
 // strides, so a size-1 dim (stride 0) is never broadcast in memory; it may
-// be null.  `causal` applies the top-left mask q_pos >= k_pos with -inf and
-// skips kv tiles wholly above the diagonal.  Rows whose every key is -inf
-// give o = 0 and lse = MASK_VALUE; rows masked only by the finite
-// NEG_INF = -1e9 padding bias average all values uniformly, exactly as
-// plain softmax attention does.  As on the TPU, p is rounded to v's dtype
-// before the value product, while the row sum l accumulates unrounded p.
+// be null.  `lbias` is the learned (1, H, Sq, Sk) bias (T5's relative
+// position bias) in its own dtype, fp32 or bf16 (`lb_bf16`; the element
+// type LB is a template parameter, so each load is one typed read-only
+// load), read the same way, widened to fp32 and added after the mask, as
+// the TPU kernel adds it; it may be null.  `causal` applies the top-left
+// mask q_pos >= k_pos with -inf and skips kv tiles wholly above the
+// diagonal.  Rows whose every key is -inf give o = 0 and lse = MASK_VALUE;
+// rows masked only by the finite NEG_INF = -1e9 padding bias average all
+// values uniformly, exactly as plain softmax attention does.  As on the
+// TPU, p is rounded to v's dtype before the value product, while the row
+// sum l accumulates unrounded p.
 //
 // Any Lq and Lk: every tile load and score is bounds-checked.
 //
@@ -29,9 +34,8 @@
 // per block, and register-tiles both products (each thread owns a 4 x 4
 // score tile and a 4 x D/16 output tile) so shared-memory loads are half
 // the FMAs.  Tensor-core (wgmma) tiles, TMA loads and warp specialisation
-// are later work.  The learned-bias and in-kernel dropout branches of the
-// TPU kernel are not on the serving path and join with the T5 and
-// training slices.
+// are later work.  The in-kernel probs-dropout branch of the TPU kernel is
+// not here (no model of the port trains with attention-probs dropout).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,11 +67,12 @@ constexpr size_t smem_floats() {
   return BQ * D + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ;
 }
 
-template <typename T, int D>
+template <typename T, typename LB, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, long long bsb, long long bsh, long long bsq,
-    long long bsk, T* __restrict__ o, float* __restrict__ lse, int H, int Lq,
+    long long bsk, const LB* __restrict__ lbias, long long lsb, long long lsh,
+    long long lsq, long long lsk, T* __restrict__ o, float* __restrict__ lse, int H, int Lq,
     int Lk, float scale, int causal) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int CD = D / 16;  // output columns per thread
@@ -88,6 +93,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const T* kp = k + (size_t)bh * Lk * D;
   const T* vp = v + (size_t)bh * Lk * D;
   const float* bp = bias ? bias + b * bsb + h * bsh : nullptr;
+  const LB* lp = lbias ? lbias + b * lsb + h * lsh : nullptr;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
@@ -148,6 +154,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
         if (qi < Lq && ki < Lk && !(causal && ki > qi)) {
           x = s[i][j] * scale;
           if (bp) x += bp[(long long)qi * bsq + (long long)ki * bsk];
+          if (lp) x += to_f(lp[(long long)qi * lsq + (long long)ki * lsk]);
         }
         Ss[r * (BK + 1) + c] = x;
       }
@@ -222,44 +229,61 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* bias, long long bsb,
-           long long bsh, long long bsq, long long bsk, void* o, void* lse, int B, int H,
-           int Lq, int Lk, float scale, int causal, cudaStream_t stream) {
+// The two biases' pointers and element strides, passed as one argument.
+struct Biases {
+  const void* bias;
+  long long bsb, bsh, bsq, bsk;
+  const void* lbias;
+  long long lsb, lsh, lsq, lsk;
+};
+
+template <typename T, typename LB, int D>
+int launch(const void* q, const void* k, const void* v, const Biases& bs, void* o, void* lse,
+           int B, int H, int Lq, int Lk, float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, LB, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, bsb, bsh, bsq, bsk, (T*)o,
-      (float*)lse, H, Lq, Lk, scale, causal);
+  flash_fwd_kernel<T, LB, D><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bs.bias, bs.bsb, bs.bsh, bs.bsq,
+      bs.bsk, (const LB*)bs.lbias, bs.lsb, bs.lsh, bs.lsq, bs.lsk, (T*)o, (float*)lse, H, Lq,
+      Lk, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, const void* bias,
-               long long bsb, long long bsh, long long bsq, long long bsk, void* o, void* lse,
-               int B, int H, int Lq, int Lk, float scale, int causal, cudaStream_t s) {
+template <typename T, typename LB>
+int dispatch_d(int D, const void* q, const void* k, const void* v, const Biases& bs, void* o,
+               void* lse, int B, int H, int Lq, int Lk, float scale, int causal, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale, causal, s);
+    case 16: return launch<T, LB, 16>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
+    case 32: return launch<T, LB, 32>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
+    case 64: return launch<T, LB, 64>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
+    case 128: return launch<T, LB, 128>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+int dispatch_lb(int lb_bf16, int D, const void* q, const void* k, const void* v,
+                const Biases& bs, void* o, void* lse, int B, int H, int Lq, int Lk, float scale,
+                int causal, cudaStream_t s) {
+  if (lb_bf16)
+    return dispatch_d<T, __nv_bfloat16>(D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
+  return dispatch_d<T, float>(D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
 }
 
 }  // namespace
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* bias,
-                         long long bsb, long long bsh, long long bsq, long long bsk, void* o,
-                         void* lse, int B, int H, int Lq, int Lk, int D, float scale,
-                         int causal, int is_bf16, void* stream) {
+                         long long bsb, long long bsh, long long bsq, long long bsk,
+                         const void* lbias, long long lsb, long long lsh, long long lsq,
+                         long long lsk, void* o, void* lse, int B, int H, int Lq, int Lk, int D,
+                         float scale, int causal, int is_bf16, int lb_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const Biases bs{bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk};
   if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk,
-                                     scale, causal, s);
-  return dispatch_d<float>(D, q, k, v, bias, bsb, bsh, bsq, bsk, o, lse, B, H, Lq, Lk, scale,
-                           causal, s);
+    return dispatch_lb<__nv_bfloat16>(lb_bf16, D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale,
+                                      causal, s);
+  return dispatch_lb<float>(lb_bf16, D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
 }

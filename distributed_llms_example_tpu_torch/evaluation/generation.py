@@ -26,7 +26,10 @@ def _zero_caches(attns, batch: int, max_len: int, device) -> list[KVCache]:
 
 
 def init_cache(model, batch: int, max_len: int, *, device: torch.device | str) -> list[KVCache]:
-    """Zero decoder self-attention caches for a (batch, max_len) decode."""
+    """Zero decoder self-attention caches of a seq2seq model (BART or T5:
+    both name their decoder layers ``decoder_blocks``) for a (batch,
+    max_len) decode; the serving engine's max_len is the decode budget, as
+    in the JAX package."""
     return _zero_caches((blk.self_attn for blk in model.decoder_blocks), batch, max_len, device)
 
 

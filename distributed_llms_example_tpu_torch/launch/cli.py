@@ -4,8 +4,14 @@
     python -m distributed_llms_example_tpu_torch.launch.cli \\
         --model-ckpt bart-large-cnn --train-file train.json --batch-size 8 \\
         --num-epochs 1 --max-source-length 1024 --max-target-length 128
+    python -m distributed_llms_example_tpu_torch.launch.cli \\
+        --model-ckpt t5-large --train-file train.json --batch-size 8 \\
+        --num-epochs 1 --max-source-length 1024 --max-target-length 128
     python -m distributed_llms_example_tpu_torch.launch.cli serve \\
         --model-ckpt bart-large-cnn --prompts-file prompts.json \\
+        --max-slots 8 --max-new-tokens 128 --max-source-length 1024
+    python -m distributed_llms_example_tpu_torch.launch.cli serve \\
+        --model-ckpt flan-t5-xl --prompts-file prompts.json \\
         --max-slots 8 --max-new-tokens 128 --max-source-length 1024
     python -m distributed_llms_example_tpu_torch.launch.cli serve \\
         --model-ckpt llama-2-7b --prompts-file prompts.json \\
@@ -13,12 +19,14 @@
 
 Both take ``--device`` (default ``cuda``; without a GPU they stop unless
 ``--device cpu`` is given) and ``--seed`` (the random-init seed: no
-weights ship with the repository).  ``serve`` encodes a seq2seq model's
-prompts as sources (ending in eos) and a causal model's as prompts (no
-eos), as the JAX CLI does.  Training takes the JAX CLI's flags
-that this slice implements (``core/config.py``) and no others.  The JAX
-CLI's startup lints read XLA cache specs and have no counterpart here yet:
-serve's ``--lint`` is parsed and one ``lint_skipped`` line says so.
+weights ship with the repository).  Training takes a seq2seq model (T5 or
+BART) and the JAX CLI's flags that the port implements
+(``core/config.py``), no others.  ``serve`` takes every family of the
+registry but Mixtral, and encodes a seq2seq model's prompts as sources
+(ending in eos) and a causal model's as prompts (no eos), as the JAX CLI
+does.  The JAX CLI's startup lints read XLA cache specs and have no
+counterpart here yet: serve's ``--lint`` is parsed and one
+``lint_skipped`` line says so.
 ``--mesh`` accepts one-device layouts only; multi-GPU, ``serve-router``
 and ``serve-loadgen`` are later slices (ROADMAP.md).
 """
@@ -199,8 +207,8 @@ def build_train_parser() -> argparse.ArgumentParser:
 
     return add_train_args(argparse.ArgumentParser(
         prog="dllm-torch",
-        description="fine-tune a seq2seq model on a JSON summarization file "
-                    "(train/trainer.py); 'serve' runs inference",
+        description="fine-tune a seq2seq model (T5, BART) on a JSON summarization "
+                    "file (train/trainer.py); 'serve' runs inference",
     ))
 
 

@@ -241,10 +241,3 @@ class BartForConditionalGeneration(nn.Module):
         return self.decode(decoder_input_ids, enc, encoder_mask=attention_mask,
                            decoder_attention_mask=decoder_attention_mask)
 
-
-def shift_right(labels: torch.Tensor, decoder_start_token_id: int, pad_token_id: int) -> torch.Tensor:
-    """Teacher-forcing decoder inputs from labels (HF shift_tokens_right:
-    -100 label positions become pad); the JAX package's ``shift_right``."""
-    shifted = torch.roll(labels, 1, dims=-1)
-    shifted[:, 0] = decoder_start_token_id
-    return torch.where(shifted == -100, torch.full_like(shifted, pad_token_id), shifted)

@@ -1,11 +1,12 @@
 """Model registry: named configs + random init (port of the JAX package's
-``models/registry.py`` for the BART and dense LLaMA families).
+``models/registry.py`` for the T5, BART and dense LLaMA families).
 
 A registry name resolves to a built-in config sized like the public
 checkpoint, built on the target device and initialized there from a seeded
 ``torch.Generator`` (no weights ship with the repository; a 7B model never
-passes through the CPU).  Loading a local HF checkpoint directory, the T5
-family and Mixtral wait for later slices (ROADMAP.md).
+passes through the CPU).  The seq2seq families (T5, BART) serve and train;
+LLaMA serves.  Loading a local HF checkpoint directory and Mixtral wait for
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,6 +20,20 @@ import torch
 from distributed_llms_example_tpu_torch.core.precision import param_dtype, resolve_device
 from distributed_llms_example_tpu_torch.models.bart import BartConfig, BartForConditionalGeneration
 from distributed_llms_example_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from distributed_llms_example_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
+
+# Built-in configs sized like the public checkpoints (dims from the public
+# HF config.json files, as in the JAX package; no weights are bundled).
+T5_CONFIGS: dict[str, T5Config] = {
+    "t5-test": T5Config(vocab_size=256, d_model=64, d_kv=16, d_ff=128, num_layers=2, num_heads=4),
+    "t5-small": T5Config(d_model=512, d_kv=64, d_ff=2048, num_layers=6, num_heads=8),
+    "t5-base": T5Config(d_model=768, d_kv=64, d_ff=3072, num_layers=12, num_heads=12),
+    "t5-large": T5Config(d_model=1024, d_kv=64, d_ff=4096, num_layers=24, num_heads=16),
+    "flan-t5-xl": T5Config(
+        d_model=2048, d_kv=64, d_ff=5120, num_layers=24, num_heads=32,
+        feed_forward_proj="gated-gelu", tie_word_embeddings=False,
+    ),
+}
 
 BART_CONFIGS: dict[str, BartConfig] = {
     "bart-test": BartConfig(
@@ -55,17 +70,16 @@ LLAMA_CONFIGS: dict[str, LlamaConfig] = {
 }
 
 _LATER = {
-    "t5": "T5 (relative-position bias through the flash kernel's learned-bias branch)",
     "mixtral": "Mixtral (routed MoE experts)",
-    "flan": "T5 (relative-position bias through the flash kernel's learned-bias branch)",
 }
+SEQ2SEQ = ("t5", "bart")
 
 
 @dataclasses.dataclass
 class LoadedModel:
     family: str
     config: Any
-    module: BartForConditionalGeneration | LlamaForCausalLM
+    module: T5ForConditionalGeneration | BartForConditionalGeneration | LlamaForCausalLM
     is_seq2seq: bool = True
 
     @property
@@ -92,7 +106,7 @@ def load_model(
     ``"cpu"`` is asked for), with weights drawn from ``seed``.  ``train``
     builds it for training: fp32 master weights on every device and the
     module in training mode (dropout on); otherwise it is in eval mode.
-    Only the seq2seq family trains in the port so far."""
+    The seq2seq families (T5, BART) train; LLaMA serves only."""
     if attention_impl not in (None, "auto", "flash", "ring", "xla"):
         raise ValueError(
             f"attention_impl={attention_impl!r}: must be 'auto', 'flash', 'ring', or 'xla'"
@@ -103,7 +117,9 @@ def load_model(
             "until a checkpoint directory is in the repository (ROADMAP.md)"
         )
     short = name_or_path.rsplit("/", 1)[-1]
-    if short in BART_CONFIGS:
+    if short in T5_CONFIGS:
+        family, cfg, cls = "t5", T5_CONFIGS[short], T5ForConditionalGeneration
+    elif short in BART_CONFIGS:
         family, cfg, cls = "bart", BART_CONFIGS[short], BartForConditionalGeneration
     elif short in LLAMA_CONFIGS:
         family, cfg, cls = "llama", LLAMA_CONFIGS[short], LlamaForCausalLM
@@ -112,8 +128,8 @@ def load_model(
             if short.startswith(prefix):
                 raise NotImplementedError(f"{short!r}: {what} is a later slice of the port (ROADMAP.md)")
         raise ValueError(f"unknown model {name_or_path!r}: not one of "
-                         f"{sorted(BART_CONFIGS) + sorted(LLAMA_CONFIGS)}")
-    if train and family != "bart":
+                         f"{sorted(T5_CONFIGS) + sorted(BART_CONFIGS) + sorted(LLAMA_CONFIGS)}")
+    if train and family not in SEQ2SEQ:
         raise NotImplementedError(
             f"{short!r}: training a causal ({family}) model is a later slice of the port "
             "(ROADMAP.md)"
@@ -123,6 +139,6 @@ def load_model(
     dev = resolve_device(device)
     module = cls(cfg, dtype=dtype, param_dtype=param_dtype(dtype, dev, train=train), device=dev)
     module.train(train)
-    lm = LoadedModel(family, cfg, module, is_seq2seq=family == "bart")
+    lm = LoadedModel(family, cfg, module, is_seq2seq=family in SEQ2SEQ)
     lm.init_params(seed)
     return lm

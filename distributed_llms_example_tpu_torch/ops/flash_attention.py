@@ -8,29 +8,34 @@ wrapper with three parts:
   wrapper runs for tensors on the CPU and which the chip check holds the
   kernel against;
 - the **CUDA kernel** (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` with
-  its two entries dq and dk/dv, ``csrc/flash_decode.cu``,
-  ``csrc/flash_decode_paged.cu``), which the wrapper launches for tensors
-  on a CUDA device — or raises: there is no fallback from a CUDA tensor to
-  the plain version;
+  its two entries dq and dk/dv, ``csrc/flash_bwd_dlbias.cu``,
+  ``csrc/flash_decode.cu``, ``csrc/flash_decode_paged.cu``), which the
+  wrapper launches for tensors on a CUDA device — or raises: there is no
+  fallback from a CUDA tensor to the plain version;
 - a **launch counter** (``flash_attention.launches``,
   ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``,
-  ``flash_decode.launches``, ``flash_decode_paged.launches``): a plain
-  integer bumped where the kernel is launched and nowhere else.
+  ``flash_bwd_dlbias.launches``, ``flash_decode.launches``,
+  ``flash_decode_paged.launches``): a plain integer bumped where the
+  kernel is launched and nowhere else.
 
 ``flash_attention`` is a ``torch.autograd.Function``: its forward saves
-(q, k, v, bias, o, lse), its backward computes delta = rowsum(dO * O) in
-PyTorch (as the JAX package does outside its kernels) and runs the dq and
-dk/dv kernels.  The bias is a constant mask and gets no gradient.
+(q, k, v, bias, learned bias, o, lse), its backward computes delta =
+rowsum(dO * O) in PyTorch (as the JAX package does outside its kernels)
+and runs the dq and dk/dv kernels, and the learned-bias gradient kernel
+when the learned bias needs a gradient.  The bias is a constant mask and
+gets no gradient; the learned bias (T5's relative-position bias) does.
 
 Layouts follow the JAX package: q/k/v (B, H, S, d), an additive ``bias``
-whose every dim is 1 or full (e.g. a (B, 1, 1, K) padding mask), lse
-(B, H, Sq) fp32.  The CUDA kernels tile internally at 64 and bounds-check
-every tile, so they take any sequence length; their only shape limits are
-the instantiated head dims (``KERNEL_HEAD_DIMS``) and, for decode, Q <=
-``MAX_DECODE_Q_ROWS``.  ``auto_block``/``flash_supported`` keep the JAX
-package's tiling rule (and its TPU-chosen block caps) so that ``ops/mha``
-picks the same path as the JAX package for CPU tensors; they do not gate
-the CUDA kernels.
+whose every dim is 1 or full (e.g. a (B, 1, 1, K) padding mask), a
+``learned_bias`` of exactly (1, H, Sq, Sk), lse (B, H, Sq) fp32.  The
+kernels read the bias in fp32 (the wrappers cast it) and the learned bias
+in its own dtype, fp32 or bf16, widened to fp32 as they load it.  The CUDA
+kernels tile internally at 64 and bounds-check every tile, so they take
+any sequence length; their only shape limits are the instantiated head
+dims (``KERNEL_HEAD_DIMS``) and, for decode, Q <= ``MAX_DECODE_Q_ROWS``.
+``auto_block``/``flash_supported`` keep the JAX package's tiling rule (and
+its TPU-chosen block caps) so that ``ops/mha`` picks the same path as the
+JAX package for CPU tensors; they do not gate the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -114,20 +119,29 @@ def _bias_args(bias: torch.Tensor | None) -> tuple:
 # ----------------------------------------------------------- forward kernel
 
 
-def flash_attention_plain(q, k, v, bias=None, *, causal=False, scale=None):
+def _scores(q, k, bias, lbias, *, causal, scale):
+    """fp32 s = scale·qkᵀ + bias + lbias, -inf above the causal diagonal:
+    the terms in the TPU kernels' order."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    if lbias is not None:
+        s = s + lbias.float()
+    if causal:
+        q_pos = torch.arange(q.shape[2], device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(q_pos >= k_pos, s, torch.full((), -torch.inf, device=q.device))
+    return s
+
+
+def flash_attention_plain(q, k, v, bias=None, *, lbias=None, causal=False, scale=None):
     """Plain PyTorch version of the forward kernel: (o, lse) with o in q's
     dtype and lse (B, H, Sq) fp32.  fp32 scores and softmax; p rounded to
     v's dtype before the value product (as the TPU kernel does); rows with
     no live key give o = 0 and lse = MASK_VALUE."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if bias is not None:
-        s = s + bias.float()
-    if causal:
-        q_pos = torch.arange(q.shape[2], device=q.device)[:, None]
-        k_pos = torch.arange(k.shape[2], device=q.device)[None, :]
-        s = torch.where(q_pos >= k_pos, s, torch.full((), -torch.inf, device=q.device))
+    s = _scores(q, k, bias, lbias, causal=causal, scale=scale)
     m = s.amax(dim=-1, keepdim=True)
     safe_m = torch.where(m == -torch.inf, torch.zeros((), device=q.device), m)
     p = torch.exp(s - safe_m)
@@ -141,12 +155,28 @@ def flash_attention_plain(q, k, v, bias=None, *, causal=False, scale=None):
 
 
 _FWD_ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_longlong] * 4
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p]
 )
 
 
-def _flash_fwd_cuda(q, k, v, bias, *, causal, scale):
+def _kernel_biases(what: str, dev, bias, lbias) -> tuple:
+    """(fp32 bias, learned bias, its bf16 flag) for a kernel, after
+    checking that each lies on the kernel's device.  The learned bias is
+    passed in its own dtype (a per-stack tensor shared by every layer, so
+    no per-call copy); the kernels widen it to fp32 as they load it."""
+    for name, b in (("bias", bias), ("learned_bias", lbias)):
+        if b is not None and b.device != dev:
+            raise ValueError(f"{what}: {name} is on {b.device}, q on {dev}")
+    if lbias is not None and lbias.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: the kernels read an fp32 or bf16 learned bias, not "
+                         f"{lbias.dtype}")
+    lb_bf16 = lbias is not None and lbias.dtype == torch.bfloat16
+    return None if bias is None else bias.float(), lbias, int(lb_bf16)
+
+
+def _flash_fwd_cuda(q, k, v, bias, lbias, *, causal, scale):
     dev = cuda_build.check_inputs("flash_attention", {"q": q, "k": k, "v": v})
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel takes fp32 or bf16 q/k/v of one dtype, got "
@@ -156,56 +186,62 @@ def _flash_fwd_cuda(q, k, v, bias, *, causal, scale):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention kernel has no instance for head_dim {D} "
                          f"(built for {KERNEL_HEAD_DIMS})")
-    if bias is not None:
-        if bias.device != dev:
-            raise ValueError(f"flash_attention: bias is on {bias.device}, q on {dev}")
-        bias = bias.float()
+    bias, lbias, lb_bf16 = _kernel_biases("flash_attention", dev, bias, lbias)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=dev)
     fn = cuda_build.load("flash_fwd", _FWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias), *_bias_args(lbias),
              o.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D, float(scale), int(causal),
-             int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+             int(q.dtype == torch.bfloat16), lb_bf16, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "flash_fwd")
     flash_attention.launches += 1
     return o, lse
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel 1 under autograd: the backward is kernels 2 and 3."""
+    """Kernel 1 under autograd: the backward is kernels 2 and 3, and kernel
+    4 when the learned bias needs a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, scale):
+    def forward(ctx, q, k, v, bias, lbias, causal, scale):
         if q.device.type == "cpu":
-            o, lse = flash_attention_plain(q, k, v, bias, causal=causal, scale=scale)
+            o, lse = flash_attention_plain(q, k, v, bias, lbias=lbias, causal=causal, scale=scale)
         else:
-            o, lse = _flash_fwd_cuda(q, k, v, bias, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
+            o, lse = _flash_fwd_cuda(q, k, v, bias, lbias, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, bias, lbias, o, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, bias, o, lse = ctx.saved_tensors
+        q, k, v, bias, lbias, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         delta = attention_delta(do, o)
-        kw = dict(causal=ctx.causal, scale=ctx.scale)
+        kw = dict(lbias=lbias, causal=ctx.causal, scale=ctx.scale)
         dq = flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
         dk, dv = flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw)
-        return dq, dk, dv, None, None, None
+        dlbias = None
+        if ctx.needs_input_grad[4]:
+            dlbias = flash_bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, causal=ctx.causal,
+                                      scale=ctx.scale)
+        return dq, dk, dv, None, dlbias, None, None
 
 
-def flash_attention(q, k, v, bias=None, *, causal: bool = False, scale: float | None = None,
-                    dtype: torch.dtype | None = None, return_lse: bool = False):
+def flash_attention(q, k, v, bias=None, *, learned_bias=None, causal: bool = False,
+                    scale: float | None = None, dtype: torch.dtype | None = None,
+                    return_lse: bool = False):
     """Blockwise-softmax attention; drop-in for ``dot_product_attention``,
-    differentiable in q, k and v.
+    differentiable in q, k, v and ``learned_bias``.
 
     ``causal`` applies the top-left mask and requires q_len == kv_len; the
     bias is a constant additive mask (every dim 1 or full; no gradient).
-    Any sequence lengths.  Returns o (in ``dtype``, default q's), or (o,
-    lse) with ``return_lse``.  A CPU tensor runs the plain versions
-    (forward and backward); a CUDA tensor launches the kernels."""
+    ``learned_bias`` (T5's relative-position bias) must be exactly (1, H,
+    q_len, kv_len): it is added after the mask and its gradient, the batch
+    sum of p·(dp − δ), comes from kernel 4 in its own dtype.  Any sequence
+    lengths.  Returns o (in ``dtype``, default q's), or (o, lse) with
+    ``return_lse``.  A CPU tensor runs the plain versions (forward and
+    backward); a CUDA tensor launches the kernels."""
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} "
                          "are not (B, H, S, d) of one batch, head count and head_dim")
@@ -213,11 +249,17 @@ def flash_attention(q, k, v, bias=None, *, causal: bool = False, scale: float | 
         raise ValueError(f"causal=True requires square self-attention, got q_len={q.shape[2]} "
                          f"!= kv_len={k.shape[2]} (the mask is top-left aligned)")
     _check_bias(bias, (q.shape[0], q.shape[1], q.shape[2], k.shape[2]))
+    if learned_bias is not None:
+        want = (1, q.shape[1], q.shape[2], k.shape[2])
+        if tuple(learned_bias.shape) != want:
+            raise ValueError(f"learned_bias shape {tuple(learned_bias.shape)} must be exactly "
+                             f"{want} (batch dim 1 is what the dlbias kernel reduces over)")
+        learned_bias = learned_bias.contiguous()
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if bias is not None:
         bias = bias.float()
-    o, lse = _FlashAttention.apply(q, k, v, bias, bool(causal), float(scale))
+    o, lse = _FlashAttention.apply(q, k, v, bias, learned_bias, bool(causal), float(scale))
     if dtype is not None:
         o = o.to(dtype)
     return (o, lse) if return_lse else o
@@ -235,20 +277,20 @@ def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(dim=-1)
 
 
-def _bwd_plain(q, k, v, bias, do, lse, delta, *, causal, scale):
-    """(p, ds) of the backward in fp32, rows with the lse sentinel zeroed."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if bias is not None:
-        s = s + bias.float()
-    if causal:
-        q_pos = torch.arange(q.shape[2], device=q.device)[:, None]
-        k_pos = torch.arange(k.shape[2], device=q.device)[None, :]
-        s = torch.where(q_pos >= k_pos, s, torch.full((), -torch.inf, device=q.device))
+def _bwd_terms(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale):
+    """(p, p·(dp − δ)) of the backward in fp32, rows with the lse sentinel
+    zeroed: the learned bias's gradient terms, and ds before its scale."""
+    s = _scores(q, k, bias, lbias, causal=causal, scale=scale)
     lse = lse[..., None]
     p = torch.where(lse <= MASK_VALUE / 2, torch.zeros((), device=q.device), torch.exp(s - lse))
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    ds = p * (dp - delta[..., None]) * scale
-    return p, ds
+    return p, p * (dp - delta[..., None])
+
+
+def _bwd_plain(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale):
+    """(p, ds) of the backward in fp32, rows with the lse sentinel zeroed."""
+    p, dsu = _bwd_terms(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal, scale=scale)
+    return p, dsu * scale
 
 
 def _dq_plain(q, k, ds):
@@ -261,7 +303,7 @@ def _dkv_plain(q, k, v, do, p, ds):
     return dk, dv
 
 
-def flash_attention_bwd_plain(q, k, v, bias, o, lse, do, *, causal=False, scale=None):
+def flash_attention_bwd_plain(q, k, v, bias, o, lse, do, *, lbias=None, causal=False, scale=None):
     """Plain PyTorch version of the backward kernels: (dq, dk, dv) from the
     forward's inputs, its output and lse, and the output gradient.  fp32
     arithmetic; ds rounded to k's dtype before the dq product and to q's
@@ -269,19 +311,24 @@ def flash_attention_bwd_plain(q, k, v, bias, o, lse, do, *, causal=False, scale=
     TPU kernels round."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    p, ds = _bwd_plain(q, k, v, bias, do, lse, attention_delta(do, o), causal=causal, scale=scale)
+    p, ds = _bwd_plain(q, k, v, bias, do, lse, attention_delta(do, o), lbias=lbias,
+                       causal=causal, scale=scale)
     return (_dq_plain(q, k, ds), *_dkv_plain(q, k, v, do, p, ds))
 
 
 _BWD_ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
 )
-_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale):
+def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale, lbias=None,
+              lib="flash_bwd"):
+    """Launch a backward kernel: the dq or dk/dv entry of ``flash_bwd``, or
+    ``flash_bwd_dlbias`` (``lib``), after the shared input checks."""
     dev = cuda_build.check_inputs(entry, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                                     "delta": delta})
+                                          "delta": delta})
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != q.dtype for t in (k, v, do)):
         raise ValueError(f"{entry} kernel takes fp32 or bf16 q/k/v/do of one dtype, got "
@@ -292,26 +339,26 @@ def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{entry} kernel has no instance for head_dim {D} "
                          f"(built for {KERNEL_HEAD_DIMS})")
-    if bias is not None and bias.device != dev:
-        raise ValueError(f"{entry}: bias is on {bias.device}, q on {dev}")
-    argtypes = _BWD_ARGTYPES + [ctypes.c_void_p] * len(outs) + _BWD_TAIL
-    fn = cuda_build.load("flash_bwd", argtypes, entry)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), B, H, Lq,
-             k.shape[2], D, float(scale), int(causal), int(q.dtype == torch.bfloat16),
-             torch.cuda.current_stream(dev).cuda_stream)
+    bias, lbias, lb_bf16 = _kernel_biases(entry, dev, bias, lbias)
+    fn = cuda_build.load(lib, _BWD_ARGTYPES + [ctypes.c_void_p] * len(outs) + _BWD_TAIL, entry)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias), *_bias_args(lbias),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), B, H,
+             Lq, k.shape[2], D, float(scale), int(causal), int(q.dtype == torch.bfloat16),
+             lb_bf16, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, entry)
 
 
-def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, causal: bool, scale: float):
+def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, lbias=None, causal: bool, scale: float):
     """dq of flash attention (kernel 2) from the saved forward inputs, lse,
     delta and dO.  A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel."""
     if q.device.type == "cpu":
-        _, ds = _bwd_plain(q, k, v, bias, do, lse, delta, causal=causal, scale=scale)
+        _, ds = _bwd_plain(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal,
+                           scale=scale)
         return _dq_plain(q, k, ds)
     dq = torch.empty_like(q)
-    _bwd_cuda("flash_bwd_dq", q, k, v, bias, do, lse, delta, (dq,), causal=causal, scale=scale)
+    _bwd_cuda("flash_bwd_dq", q, k, v, bias, do, lse, delta, (dq,), causal=causal, scale=scale,
+              lbias=lbias)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -319,19 +366,50 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, causal: bool, scale: float):
 flash_bwd_dq.launches = 0
 
 
-def flash_bwd_dkv(q, k, v, bias, do, lse, delta, *, causal: bool, scale: float):
+def flash_bwd_dkv(q, k, v, bias, do, lse, delta, *, lbias=None, causal: bool, scale: float):
     """(dk, dv) of flash attention (kernel 3); as ``flash_bwd_dq``."""
     if q.device.type == "cpu":
-        p, ds = _bwd_plain(q, k, v, bias, do, lse, delta, causal=causal, scale=scale)
+        p, ds = _bwd_plain(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal,
+                           scale=scale)
         return _dkv_plain(q, k, v, do, p, ds)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_cuda("flash_bwd_dkv", q, k, v, bias, do, lse, delta, (dk, dv), causal=causal,
-              scale=scale)
+              scale=scale, lbias=lbias)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+
+
+def _dlbias_plain(q, k, v, bias, lbias, do, lse, delta, *, causal, scale):
+    """Plain PyTorch version of kernel 4: dlbias = Σ_batch p·(dp − δ) in
+    fp32 (no scale factor: the scale multiplies only q·k), (1, H, Sq, Sk)
+    in the learned bias's dtype.  Fully-masked rows and the causal upper
+    triangle are exactly 0, since p is 0 there."""
+    _, dsu = _bwd_terms(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal, scale=scale)
+    return dsu.sum(dim=0, keepdim=True).to(lbias.dtype)
+
+
+def flash_bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, *, causal: bool, scale: float):
+    """Gradient of the learned (1, H, Sq, Sk) bias (kernel 4) from the saved
+    forward inputs, lse, delta and dO, in the learned bias's dtype.  A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel, which
+    sums the batch inside each tile (no atomics) and writes every tile,
+    zeros included."""
+    if tuple(lbias.shape) != (1, q.shape[1], q.shape[2], k.shape[2]):
+        raise ValueError(f"learned bias shape {tuple(lbias.shape)} is not "
+                         f"{(1, q.shape[1], q.shape[2], k.shape[2])}")
+    if q.device.type == "cpu":
+        return _dlbias_plain(q, k, v, bias, lbias, do, lse, delta, causal=causal, scale=scale)
+    out = torch.empty(lbias.shape, dtype=lbias.dtype, device=q.device)
+    _bwd_cuda("flash_bwd_dlbias", q, k, v, bias, do, lse, delta, (out,), causal=causal,
+              scale=scale, lbias=lbias, lib="flash_bwd_dlbias")
+    flash_bwd_dlbias.launches += 1
+    return out
+
+
+flash_bwd_dlbias.launches = 0
 
 
 # ----------------------------------------------------------- int8 KV cache

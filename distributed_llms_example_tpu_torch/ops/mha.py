@@ -1,8 +1,10 @@
 """Multi-head attention (port of the JAX package's ``ops/mha.py``).
 
-One module covers BART's self- and cross-attention and LLaMA's causal
-self-attention: scaled dot-product attention with optional projection
-biases, causal masking, RoPE in the HF half-rotation layout, grouped-query
+One module covers BART's self- and cross-attention, LLaMA's causal
+self-attention and T5's unscaled attention (``models/t5.py`` sets
+``scale=1`` and passes its relative-position bias as ``learned_bias``):
+dot-product attention with optional projection biases, causal masking, a
+differentiable learned bias, RoPE in the HF half-rotation layout, grouped-query
 attention (``num_kv_heads``; K/V repeated per group on the paths that need
 full heads), and two decode caches written per row for continuous-batching
 decode: a flat per-layer ``KVCache`` and a ``PagedKVCache`` over a shared
@@ -72,7 +74,7 @@ def _ring_unported(backend: str) -> None:
 
 def select_attention_impl(
     attention_impl: str, *, head_dim: int, q_len: int, kv_len: int,
-    use_cache: bool, backend: str, causal: bool = False,
+    use_cache: bool, backend: str, causal: bool = False, has_learned_bias: bool = False,
 ) -> tuple[str, str]:
     """(impl, reason) for an uncached attention call — pure selection logic.
 
@@ -82,7 +84,8 @@ def select_attention_impl(
     against a longer K/V — the cross-attention of a decode step — stays
     plain attention, as in the JAX package (``flash`` sends it to the
     kernel too).  For CPU tensors the JAX package's rule holds, so both
-    packages run the same path: ``flash`` where the shape tiles, plain
+    packages run the same path: ``flash`` where the shape tiles (with the
+    learned-bias path's tile caps when ``has_learned_bias``), plain
     attention otherwise and for ``auto``.  ``ring`` has no port yet: it
     raises on CUDA and runs plain attention on the CPU, as the JAX package
     does without a mesh."""
@@ -102,7 +105,8 @@ def select_attention_impl(
         if attention_impl == "auto" and q_len == 1 < kv_len:
             return "xla", "auto: one-row cross-attention of a decode step"
         return "flash", f"{attention_impl}: CUDA"
-    if not flash_supported(q_len, kv_len, head_dim, causal=causal):
+    if not flash_supported(q_len, kv_len, head_dim, causal=causal,
+                           has_learned_bias=has_learned_bias):
         return "xla", f"shape not tileable (q={q_len}, kv={kv_len}, d={head_dim})"
     if attention_impl == "flash":
         return "flash", "forced"
@@ -228,10 +232,12 @@ class MultiHeadAttention(nn.Module):
                  num_kv_heads: int | None = None, use_bias: bool = True, causal: bool = False,
                  use_rope: bool = False, rope_theta: float = 10000.0,
                  dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "auto", probs_dropout_rate: float = 0.0, device=None):
+                 attention_impl: str = "auto", probs_dropout_rate: float = 0.0,
+                 scale: float | None = None, device=None):
         super().__init__()
         _check_impl(attention_impl)
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.scale = head_dim ** -0.5 if scale is None else float(scale)
         self.kv_heads = num_heads if num_kv_heads is None else num_kv_heads
         if num_heads % self.kv_heads:
             raise ValueError(f"{self.kv_heads} kv heads do not divide {num_heads} heads")
@@ -286,6 +292,7 @@ class MultiHeadAttention(nn.Module):
         cache_positions: torch.Tensor | None = None,
         cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
         positions: torch.Tensor | None = None,
+        learned_bias: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """``cache`` makes this a cached pass of a causal layer: this pass's
         K/V land in the cache in place, at the per-row ``cache_positions``
@@ -293,7 +300,10 @@ class MultiHeadAttention(nn.Module):
         r of batch b attends slots <= its write position + r.
         ``positions`` ((B, q_len) absolute positions) feed RoPE; they
         default to the write positions (cached) or to 0.. (uncached).
-        ``cross_kv`` skips the k/v projections (cross-attention decode)."""
+        ``cross_kv`` skips the k/v projections (cross-attention decode).
+        ``learned_bias`` ((1, H, q_len, kv_len), uncached passes only) is
+        added after ``bias`` and gets a gradient: the flash kernels' learned
+        bias branch, or a term of the plain path's bias."""
         q = self._split(self.q_proj(hidden))
         if cross_kv is not None:
             k, v = cross_kv
@@ -307,6 +317,8 @@ class MultiHeadAttention(nn.Module):
             v = self._split(self.v_proj(kv_src), self.kv_heads)
 
         if cache is not None:
+            if learned_bias is not None:
+                raise ValueError("a cached pass takes its position bias in `bias`")
             return self._cached(q, k, v, bias, cache, cache_positions, positions)
         if self.use_rope:
             if positions is None:
@@ -316,8 +328,8 @@ class MultiHeadAttention(nn.Module):
 
         if self.training and self.probs_dropout_rate > 0.0:
             # the flash kernels' in-kernel probs-dropout branch is not ported
-            # (bart-large-cnn trains with attention dropout 0): refuse rather
-            # than train without the configured dropout
+            # (no model of the port trains with it): refuse rather than train
+            # without the configured dropout
             raise NotImplementedError(
                 f"attention-probs dropout (rate {self.probs_dropout_rate}) is not ported yet "
                 "(ROADMAP)"
@@ -326,24 +338,28 @@ class MultiHeadAttention(nn.Module):
         impl, reason = select_attention_impl(
             self.attention_impl, head_dim=self.head_dim, q_len=q.shape[2],
             kv_len=k.shape[2], use_cache=False, backend=q.device.type, causal=causal_here,
+            has_learned_bias=learned_bias is not None,
         )
         _log_impl_once(impl, reason)
         if impl == "flash":
             out = flash_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), bias,
-                causal=causal_here, dtype=self.dtype,
+                q.contiguous(), k.contiguous(), v.contiguous(), bias, learned_bias=learned_bias,
+                causal=causal_here, scale=self.scale, dtype=self.dtype,
             )
         else:
             if causal_here:
                 step = make_causal_bias(q.shape[2], k.shape[2], device=q.device)
                 bias = step if bias is None else bias + step
-            out = dot_product_attention(q, k, v, bias, dtype=self.dtype)
+            if learned_bias is not None:
+                bias = learned_bias if bias is None else bias + learned_bias
+            out = dot_product_attention(q, k, v, bias, scale=self.scale, dtype=self.dtype)
         return self._merge(out)
 
     def _cached(self, q, k, v, bias, cache, cache_positions, positions):
         """A cached pass: write this pass's K/V, then attend over the cache
         through the decode dispatch.  ``bias`` is the caller's constant
-        padding mask only; validity and causality ride the kernels' per-row
+        padding mask or position bias (T5's per-row (B, H, q_len, L)
+        relative bias); validity and causality ride the kernels' per-row
         length mask or, on the plain path, ``decode_step_bias``."""
         if not self.causal:
             raise ValueError("a KV cache belongs to causal self-attention only")
@@ -384,7 +400,7 @@ class MultiHeadAttention(nn.Module):
             # view is never built, and the kv-head groups are never repeated
             out = flash_decode_paged(q.contiguous(), cache.k, cache.v, bias,
                                      block_tables=cache.block_tables, offsets=offsets,
-                                     dtype=self.dtype)
+                                     scale=self.scale, dtype=self.dtype)
             return self._merge(out)
         if paged:
             k, v = gather_cache((cache.k, cache.v), cache.block_tables)
@@ -392,9 +408,10 @@ class MultiHeadAttention(nn.Module):
             k, v = cache.k, cache.v
         k, v = self._repeat_kv(k), self._repeat_kv(v)
         if impl == "flash_decode":
-            out = flash_decode(q.contiguous(), k, v, bias, offsets=offsets, dtype=self.dtype)
+            out = flash_decode(q.contiguous(), k, v, bias, offsets=offsets, scale=self.scale,
+                               dtype=self.dtype)
         else:
             step = decode_step_bias(offsets, T, kv_len)
             out = dot_product_attention(q, k, v, step if bias is None else bias + step,
-                                        dtype=self.dtype)
+                                        scale=self.scale, dtype=self.dtype)
         return self._merge(out)

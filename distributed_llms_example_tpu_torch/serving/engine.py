@@ -213,9 +213,9 @@ def serving_account(*, params_bytes: int, kv_cache_bytes: int, hbm_budget_gib: f
 class ServingEngine:
     """Greedy continuous-batching decode over a fixed slot set.
 
-    ``model`` is a seq2seq module (``models/bart.py``, ``is_seq2seq``) or a
-    causal LM (``models/llama.py``) already on ``device``; ``device`` is
-    CUDA unless ``"cpu"`` is asked for."""
+    ``model`` is a seq2seq module (``models/t5.py``, ``models/bart.py``:
+    ``is_seq2seq``) or a causal LM (``models/llama.py``) already on
+    ``device``; ``device`` is CUDA unless ``"cpu"`` is asked for."""
 
     def __init__(self, model: Any, config: Any, serve: ServeConfig | None = None, *,
                  is_seq2seq: bool = True, device: str | torch.device | None = None):
@@ -408,17 +408,18 @@ class ServingEngine:
             else:
                 state["cache"] = init_causal_cache(self.model, S, W + L, device=dev)
             return state
-        heads = cfg.decoder_attention_heads
-        hd = cfg.d_model // heads
+        # the cross-K/V slots take each decoder layer's own cross-attention
+        # shape, so any seq2seq family (BART, T5) sizes its state alike
+        ckv = []
+        for blk in self.model.decoder_blocks:
+            shape = (S, blk.cross_attn.kv_heads, W, blk.cross_attn.head_dim)
+            ckv.append((torch.zeros(shape, dtype=dt, device=dev),
+                        torch.zeros(shape, dtype=dt, device=dev)))
         return {
             "cache": init_cache(self.model, S, L, device=dev),
             "enc": torch.zeros((S, W, cfg.d_model), dtype=dt, device=dev),
             "enc_mask": torch.zeros((S, W), dtype=torch.int32, device=dev),
-            "ckv": [
-                (torch.zeros((S, heads, W, hd), dtype=dt, device=dev),
-                 torch.zeros((S, heads, W, hd), dtype=dt, device=dev))
-                for _ in range(cfg.decoder_layers)
-            ],
+            "ckv": ckv,
             "last": torch.full((S, 1), self.pad, dtype=torch.int32, device=dev),
         }
 
@@ -435,7 +436,10 @@ class ServingEngine:
     def warm(self) -> None:
         """Build the CUDA kernels before the first request, so no request
         pays a kernel build (the JAX package AOT-compiles its programs
-        here).  Nothing to do on the CPU."""
+        here): a seq2seq prefill (BART, or T5 through the learned-bias
+        branch) runs the flash forward and its decode the flash decode
+        kernel; a causal decode runs the paged or the flat decode kernel.
+        Nothing to do on the CPU."""
         if self._warmed:
             return
         if self.device.type == "cuda":

@@ -2,7 +2,9 @@
 
 - ``cross_entropy_sums``: token-summed cross entropy (optional label
   smoothing) and the count of unmasked tokens, fp32;
-- ``seq2seq_loss_sums``: teacher-forced decoder on ``shift_right(labels)``;
+- ``seq2seq_loss_sums``: teacher-forced decoder on ``shift_right(labels)``
+  (BART and T5 alike; ``shift_right`` lives in ``models/t5.py``, as in the
+  JAX package);
 - ``train_step``: the batch's rows split into ``grad_accum_steps``
   microbatches (row r joins microbatch r mod N, as in the JAX package),
   loss and gradient SUMS accumulated over them, then ONE optimizer apply
@@ -21,7 +23,7 @@ import contextlib
 import torch
 
 from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD
-from distributed_llms_example_tpu_torch.models.bart import shift_right
+from distributed_llms_example_tpu_torch.models.t5 import shift_right
 from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
 from distributed_llms_example_tpu_torch.train.optim import (
     AdamWState,

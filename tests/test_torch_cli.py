@@ -1,8 +1,9 @@
 """``serve --device cpu`` end to end through the port's CLI on a temporary
-prompts file: one output record per prompt, the serve_summary event, and
-the one-device ``--mesh`` rule; and ``llama-test --paged-kv`` against the
-JAX CLI on the same file and weights: causal prompts carry no trailing
-eos, and the output records are equal."""
+prompts file (``bart-test`` and ``t5-test``): one output record per
+prompt, the serve_summary event, and the one-device ``--mesh`` rule; and
+``llama-test --paged-kv`` against the JAX CLI on the same file and
+weights: causal prompts carry no trailing eos, and the output records are
+equal."""
 
 import json
 
@@ -18,21 +19,22 @@ from distributed_llms_example_tpu_torch.models.from_jax import load_jax_params
 from distributed_llms_example_tpu_torch.serving.engine import ServingEngine
 
 
-def _args(prompts, out, *extra):
+def _args(prompts, out, *extra, model="bart-test"):
     return [
-        "--device", "cpu", "--model-ckpt", "bart-test", "--lint", "off",
+        "--device", "cpu", "--model-ckpt", model, "--lint", "off",
         "--prompts-file", str(prompts), "--output-file", str(out),
         "--max-slots", "2", "--max-new-tokens", "8", "--max-source-length", "64",
         *extra,
     ]
 
 
-def test_serve_cpu_end_to_end(tmp_path, capsys):
+@pytest.mark.parametrize("model", ["bart-test", "t5-test"])
+def test_serve_cpu_end_to_end(tmp_path, capsys, model):
     prompts = tmp_path / "prompts.jsonl"
     texts = ["first prompt", "a second, longer prompt " * 3, "third", "fourth one"]
     prompts.write_text("\n".join(json.dumps({"article": t}) for t in texts) + "\n")
     out = tmp_path / "out" / "serve.jsonl"
-    assert serve_main(_args(prompts, out, "--prefill-buckets", "16,32")) == 0
+    assert serve_main(_args(prompts, out, "--prefill-buckets", "16,32", model=model)) == 0
     recs = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["prompt"] for r in recs] == texts
     assert all(set(r) == {"prompt", "output", "tokens"} for r in recs)

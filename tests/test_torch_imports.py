@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of
-``distributed_llms_example_tpu_torch`` pulls in no JAX, flax, optax, orbax
-and no module of the JAX package; and its entry points refuse to run
-quietly on the CPU when no GPU is present and the CPU was not asked for."""
+``distributed_llms_example_tpu_torch``, or ``chip_smoke.py`` as a module,
+pulls in no JAX, flax, optax, orbax and no module of the JAX package (and
+importing the script runs none of it); and the port's entry points refuse
+to run quietly on the CPU when no GPU is present and the CPU was not asked
+for."""
 
 import json
 import os
@@ -27,7 +29,7 @@ def _port_modules():
 def test_port_imports_nothing_of_jax():
     mods = _port_modules()
     for name in ("serving.engine", "serving.cache_pool", "train.trainer", "models.llama",
-                 "evaluation.generation"):
+                 "models.t5", "evaluation.generation"):
         assert f"distributed_llms_example_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -38,6 +40,26 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_nothing_of_jax_and_runs_nothing():
+    code = (
+        "import importlib.util, json, sys\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "from distributed_llms_example_tpu_torch.ops import flash_attention\n"
+        "assert callable(mod.main) and mod.KERNELS\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 1, lines  # importing the script printed nothing of its own
+    loaded = json.loads(lines[0])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 

@@ -22,7 +22,7 @@ from distributed_llms_example_tpu.ops.norms import RMSNorm as JaxRMSNorm
 from distributed_llms_example_tpu_torch.evaluation.generation import causal_prefill
 from distributed_llms_example_tpu_torch.models.from_jax import (
     _state_dict_from_jax,
-    llama_state_dict_from_jax,
+    blocks_state_dict_from_jax,
     load_jax_params,
 )
 from distributed_llms_example_tpu_torch.models.llama import (
@@ -108,7 +108,7 @@ def test_one_block_matches_jax(jax_llama):
 
 def test_from_jax_covers_every_parameter(jax_llama):
     _, params = jax_llama
-    sd = llama_state_dict_from_jax(params)
+    sd = blocks_state_dict_from_jax(params)
     own = load_model("llama-test", device="cpu").module.state_dict()
     assert set(sd) == set(own)
     k = params["block_1"]["self_attn"]["k_proj"]["kernel"]

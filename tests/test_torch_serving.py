@@ -1,5 +1,6 @@
 """The port's continuous-batching engine on the CPU against the JAX
-package's engine on the same ``bart-test`` weights: 10 requests through 4
+package's engine on the same ``bart-test`` and ``t5-test`` weights (the
+seq2seq slot state sized from each model's own layers): 10 requests through 4
 slots (slot reuse really happens), W = 32, L = 12, per-request budgets.
 Tokens must be identical, and the serve_request / serve_summary events
 must carry the same keys."""
@@ -39,8 +40,9 @@ def _events(text):
 
 
 @pytest.mark.parametrize("impl", ["auto", "flash"])
-def test_engine_tokens_match_jax_engine(capsys, impl):
-    lm = jax_load_model("bart-test")
+@pytest.mark.parametrize("name", ["bart-test", "t5-test"])
+def test_engine_tokens_match_jax_engine(capsys, name, impl):
+    lm = jax_load_model(name)
     params = jax.device_get(lm.init_params(0))
     rng = np.random.RandomState(7)
     reqs = [list(rng.randint(4, 200, rng.randint(3, 20))) for _ in range(10)]
@@ -52,7 +54,7 @@ def test_engine_tokens_match_jax_engine(capsys, impl):
     want = jeng.generate(params, reqs, max_new=budgets)
     jax_events = _events(capsys.readouterr().out)
 
-    tlm = load_model("bart-test", device="cpu", attention_impl=impl)
+    tlm = load_model(name, device="cpu", attention_impl=impl)
     load_jax_params(tlm.module, params)
     teng = ServingEngine(tlm.module, tlm.config, ServeConfig(**kw), device="cpu")
     got = teng.generate(reqs, max_new=budgets)

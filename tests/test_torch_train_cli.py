@@ -1,7 +1,7 @@
 """The port's train entry end to end on the CPU (``--device cpu`` at
-``bart-test`` size, a temporary JSON file): the JAX CLI's step lines, the
-done event, the returned trainer's history; flags this slice does not
-implement are refused by argparse."""
+``bart-test`` and ``t5-test`` size, a temporary JSON file): the JAX CLI's
+step lines, the done event, the returned trainer's history; flags this
+slice does not implement are refused by argparse."""
 
 import json
 
@@ -27,8 +27,8 @@ def _write(tmp_path, n=12):
     return path
 
 
-def _args(path, *extra):
-    return ["--device", "cpu", "--model-ckpt", "bart-test", "--train-file", str(path),
+def _args(path, *extra, model="bart-test"):
+    return ["--device", "cpu", "--model-ckpt", model, "--train-file", str(path),
             "--batch-size", "4", "--max-source-length", "128", "--max-target-length", "32",
             "--learning-rate", "1e-3", "--warmup-steps", "0", *extra]
 
@@ -53,9 +53,13 @@ def test_train_cpu_end_to_end(tmp_path, capsys):
     assert lrs[0] == pytest.approx(1e-3) and all(a > b for a, b in zip(lrs, lrs[1:]))
 
 
-def test_main_without_subcommand_trains(tmp_path, capsys):
-    assert main(_args(_write(tmp_path, 4), "--log-every-steps", "1")) == 0
-    assert any('"event": "done"' in x for x in capsys.readouterr().out.splitlines())
+@pytest.mark.parametrize("model", ["bart-test", "t5-test"])
+def test_main_without_subcommand_trains(tmp_path, capsys, model):
+    assert main(_args(_write(tmp_path, 4), "--log-every-steps", "1", model=model)) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert next(x for x in lines if x.get("event") == "train_start")["model"] == model
+    assert any(x.get("event") == "done" for x in lines)
+    assert all(np.isfinite(x["loss"]) for x in lines if "loss" in x)
 
 
 def test_train_and_serve_share_the_model_flags(tmp_path):
