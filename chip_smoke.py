@@ -10,13 +10,23 @@ through the flat cache, and checks that each run went through its kernels.
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
-  2. build: one nvcc per kernel source, all seven at once (ptxas report)
+  2. build: one nvcc per kernel source, all eight at once (ptxas report);
+     the HGMMA instructions of every instance of the tensor-core forward
+     (cuobjdump -sass), none of which may have 0
   3. kernels vs plain versions at the main paths' shapes and at lengths no
      tile divides, timed with CUDA events beside the plain version, the
      library yardstick (never called by the port) and the bound
-     max(flops / 989 TFLOP/s, bytes / 3.35 TB/s):
+     max(flops / 989 TFLOP/s, bytes / 3.35 TB/s), kernel 1's over the live
+     keys of its padding mask, since it skips the tiles the mask zeroes:
      - flash forward / decode (bf16 atol=rtol 2e-2, fp32 atol 1e-4,
        fully-masked rows exactly zero);
+     - the tensor-core forward (bf16) at head dims 16, 32, 64 and 128 in
+       every case the main paths give it (padding, causal, learned bias
+       with padding and with causal, -inf rows, S = 1000 and 200, one query
+       row against 1024 keys, 128 x 768 cross): within 2e-2 of the plain
+       version and, against an fp32 reference on the same values, within
+       1.5x the plain bf16 path's own error; K rows permuted inside one
+       64-key tile must break that limit by 10x;
      - flash backward dq and dk/dv at the encoder, decoder-causal, cross
        and ragged shapes (same limits; -inf rows give exactly zero dq);
      - fused dropout: exactly equal in bf16 and fp32, kept fraction within
@@ -38,10 +48,12 @@ Phases (each fatal, non-zero exit, no result line):
        2e-2 bf16 / 1e-4 fp32 of its largest entry, exactly 0 on dead rows
        and above the causal diagonal); kernel 4 summing B - 1 rows must
        break the fp32 limit by orders of magnitude; SDPA forward + backward
-       with the bias as a grad-requiring mask as the yardstick
+       with the bias as a grad-requiring mask as the yardstick, and SDPA
+       forward with the summed masks beside kernel 1
   4. serve: the CLI's serve entry in-process, bart-large-cnn, bf16, seed 0,
      16 prompts of 200-1024 byte-tokens, 8 slots, 128 new tokens, source
-     1024; launch counters zeroed before and read after; first-step logits
+     1024; launch counters zeroed before and read after (on every bf16 main
+     path each kernel-1 launch must be a tensor-core one); first-step logits
      with the kernels vs with their plain versions (fp32 atol 1e-4, which a
      decode mask shifted by one must break), plus the difference from plain
      softmax attention and the greedy token match rate of a whole serve run
@@ -90,7 +102,8 @@ Phases (each fatal, non-zero exit, no result line):
      steps, paged and flat, kernel path vs plain path within 1e-4; a
      decode offset shifted by one must break it on each route
  13. a {"kernels_unported": []} line (every TPU kernel has a port), a
-     {"kernels": [...]} line of all eight, then the last line
+     {"kernels": [...]} line of all eight (kernel 1 names both its sources),
+     then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Imports nothing of JAX or of the JAX package.  Everything it writes goes
@@ -147,8 +160,14 @@ T5_FP32_ATOL = 1e-4
 # ulps of headroom for a library sqrt or division that rounds differently
 ADAMW_RTOL = 2.4e-7
 WORK = os.path.join(HERE, "build", "chip_smoke")
-KERNELS = ["flash_fwd", "flash_decode", "flash_bwd", "flash_bwd_dlbias", "fused_dropout",
-           "fused_adamw", "flash_decode_paged"]
+KERNELS = ["flash_fwd_tc", "flash_fwd", "flash_decode", "flash_bwd", "flash_bwd_dlbias",
+           "fused_dropout", "fused_adamw", "flash_decode_paged"]
+# kernel 1 in bf16 against an fp32 reference on the same bf16 values: its
+# error may be at most this factor times the plain bf16 path's own
+TC_REF_FACTOR = 1.5
+# a K tile whose rows are permuted (what a wrong swizzle does) must break
+# that limit by at least this factor
+TC_FAULT_FACTOR = 10.0
 
 
 def fail(msg: str) -> None:
@@ -240,6 +259,18 @@ def check_close(name, got, want, *, atol, rtol=0.0):
     return max_err
 
 
+def fwd_work(bias, B, H, S, D, extra_bytes=0):
+    """(flops, bytes) kernel 1 needs at (B, H, S, S, D) bf16 under a (B, 1,
+    1, S) padding mask: only each row's live keys (bias above -1e8) enter
+    the products, and only their K and V rows need reading; q and o whole,
+    the mask fp32, lse fp32, plus ``extra_bytes`` (a learned bias)."""
+    live = (bias.reshape(B, -1) > -1e8).sum(dim=1).double()
+    keys = float(live.sum())
+    flops = 4.0 * H * S * keys * D
+    nbytes = 2 * B * H * S * D * 2 + 2 * H * keys * D * 2 + bias.numel() * 4 + B * H * S * 4
+    return flops, nbytes + extra_bytes
+
+
 def kernel_phase(torch, fa):
     import torch.nn.functional as F
 
@@ -297,16 +328,14 @@ def kernel_phase(torch, fa):
     ms = time_ms(lambda: fa.flash_attention(q, k, v, pad_bias), per_rep=10)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, pad_bias), per_rep=3)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask), per_rep=10)
-    flops = 4.0 * B * H * S * S * D
-    nbytes = 4 * B * H * S * D * 2 + pad_bias.numel() * 4 + B * H * S * 4
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = bound(*fwd_work(pad_bias, B, H, S, D))
     results["flash_attention_fwd"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms,
     )
     say({"phase": "kernel_time", "kernel": "flash_attention_fwd", **results["flash_attention_fwd"],
          "device_ms": device_ms_of(lambda: fa.flash_attention(q, k, v, pad_bias), 10,
-                                   "flash_fwd_kernel")})
+                                   "flash_fwd_tc_kernel")})
 
     # ---- kernel 5: flash decode at the decoder's self-attention shape
     L = 128
@@ -368,6 +397,137 @@ def kernel_phase(torch, fa):
          "device_ms": device_ms_of(lambda: fa.flash_decode(qd, kd, vd, offsets=off), 50,
                                    "flash_decode_kernel")})
     return results
+
+
+def tc_kernel_phase(torch, fa):
+    """Kernel 1's tensor-core entry (bf16) at every head dim it is built
+    for, in every case the main paths give it: (8, 16, 1024, d) with a
+    ragged padding mask, the causal decoder (8, 16, 128, d), the learned
+    bias (scale 1) with the padding mask and with causal, -inf rows, a
+    1000-token source, a causal 200, one query row against 1024 keys
+    (decode cross-attention under --attention-impl flash) and 128 x 768
+    cross-attention.  Each case holds the kernel against its plain version
+    (atol = rtol = 2e-2, lse too) and against an fp32 reference on the same
+    bf16 values, where its error may be at most TC_REF_FACTOR times the
+    plain bf16 path's own; -inf rows give exactly o = 0 and lse =
+    MASK_VALUE.  A planted fault (K's rows permuted inside one 64-key tile,
+    V kept, as a wrong swizzle would read them) must break that limit by
+    TC_FAULT_FACTOR.  Returns the largest error against the plain version."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, H = 8, 16
+    tol = dict(atol=2e-2, rtol=2e-2)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(torch.bfloat16)
+
+    def pad_bias(K):
+        lens = torch.randint(K // 5, K + 1, (B,), generator=gen, device=dev)
+        b = torch.where(torch.arange(K, device=dev)[None, :] < lens[:, None], 0.0, -1e9)
+        return b[:, None, None, :].float().contiguous()
+
+    def run(name, q, k, v, *, bias=None, lb=None, causal=False, scale=None, k_ref=None):
+        """(max err vs plain, kernel's and plain's max err vs fp32 reference)."""
+        o, lse = fa.flash_attention(q, k, v, bias, learned_bias=lb, causal=causal, scale=scale,
+                                    return_lse=True)
+        po, plse = fa.flash_attention_plain(q, k, v, bias, lbias=lb, causal=causal, scale=scale)
+        kr = k if k_ref is None else k_ref
+        ref, _ = fa.flash_attention_plain(q.float(), kr.float(), v.float(), bias, lbias=lb,
+                                          causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        err = kernel_err = plain_err = 0.0
+        if k_ref is None:
+            err = max(check_close(f"flash_fwd_tc {name}", o, po, **tol),
+                      check_close(f"flash_fwd_tc {name} lse", lse, plse, **tol))
+        kernel_err = float((o.float() - ref).abs().max())
+        plain_err = float((po.float() - ref).abs().max())
+        return err, kernel_err, plain_err, o, lse
+
+    worst, fault = 0.0, None
+    S = 1024
+    dead = torch.tensor([0, 7, 500, S - 1], device=dev)
+    dead_bias = torch.zeros(B, 1, S, S, device=dev)
+    dead_bias[:, :, dead, :] = -float("inf")
+    for D in fa.KERNEL_HEAD_DIMS:
+        t5_q = D ** -0.5  # T5 carries 1/sqrt(d) in q and runs at scale 1
+        cases = [
+            ("padding S=1024", 1024, 1024, dict(bias=pad_bias(1024))),
+            ("causal S=128", 128, 128, dict(causal=True)),
+            ("learned bias + padding S=1024", 1024, 1024,
+             dict(bias=pad_bias(1024), lb=rnd(1, H, 1024, 1024, s=0.5), scale=1.0)),
+            ("learned bias causal S=128", 128, 128,
+             dict(lb=rnd(1, H, 128, 128, s=0.5), causal=True, scale=1.0)),
+            ("-inf rows S=1024", 1024, 1024, dict(bias=dead_bias)),
+            ("padding S=1000", 1000, 1000, dict(bias=pad_bias(1000))),
+            ("causal S=200", 200, 200, dict(causal=True)),
+            ("Lq=1 Lk=1024 padding", 1, 1024, dict(bias=pad_bias(1024))),
+            ("cross 128x768 padding", 128, 768, dict(bias=pad_bias(768))),
+        ]
+        for name, Q, K, kw in cases:
+            q = rnd(B, H, Q, D, s=t5_q if "lb" in kw else 1.0)
+            k, v = rnd(B, H, K, D), rnd(B, H, K, D)
+            err, kernel_err, plain_err, o, lse = run(f"{name} d={D}", q, k, v, **kw)
+            worst = max(worst, err)
+            limit = TC_REF_FACTOR * plain_err
+            ok = kernel_err <= limit
+            say({"phase": "kernel_check", "case": f"flash_fwd_tc {name} d={D} vs fp32 reference",
+                 "kernel_err": kernel_err, "plain_bf16_err": plain_err, "limit": limit,
+                 "ratio": kernel_err / max(plain_err, 1e-30), "ok": ok})
+            if not ok:
+                fail(f"flash_fwd_tc {name} d={D}: {kernel_err} from the fp32 reference, beyond "
+                     f"{TC_REF_FACTOR}x the plain bf16 path's {plain_err}")
+            if "-inf" in name and not (bool((o[:, :, dead] == 0).all())
+                                       and bool((lse[:, :, dead] == fa.MASK_VALUE).all())):
+                fail(f"flash_fwd_tc d={D}: fully-masked rows are not o = 0, lse = MASK_VALUE")
+            if D == 64 and name == "padding S=1024":
+                fault = (q, k, v, kw, limit)
+    # planted fault: keys 0-63 permuted within their tile (row r read as r ^ 7,
+    # an 8-row swizzle phase off), values kept
+    q, k, v, kw, limit = fault
+    perm = torch.arange(64, device=dev) ^ 7
+    k_bad = k.clone()
+    k_bad[:, :, :64] = k[:, :, perm]
+    _, fault_err, _, _, _ = run("planted fault", q, k_bad, v, k_ref=k, **kw)
+    say({"phase": "kernel_check", "case": "flash_fwd_tc planted fault: K rows permuted in one "
+         "64-key tile", "kernel_err": fault_err, "limit": limit,
+         "times_limit": fault_err / limit, "must_exceed": TC_FAULT_FACTOR})
+    if not fault_err >= TC_FAULT_FACTOR * limit:
+        fail(f"flash_fwd_tc: a permuted K tile reads {fault_err}, under {TC_FAULT_FACTOR}x the "
+             f"limit {limit}")
+    return worst
+
+
+def hgmma_counts(cuda_build) -> dict:
+    """{kernel instance: HGMMA instructions} in the built tensor-core
+    library, from ``cuobjdump -sass``."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(cuda_build.library_path("flash_fwd_tc"))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr.strip()[:300]}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            name = f"d={m.group(1)} rows={m.group(2)} lbias_bytes={m.group(3)}" if m else None
+            if name:
+                counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def tensor_core_route(fa, run: str, launches: int) -> None:
+    """Every kernel-1 launch of a bf16 main-path run went to the
+    tensor-core entry."""
+    tc = fa.flash_attention.tc_launches
+    say({"phase": "kernel1_route", "run": run, "flash_attention_fwd": launches,
+         "tensor_core_launches": tc})
+    if tc != launches:
+        fail(f"{run}: {tc} of {launches} kernel-1 launches went to the tensor-core entry")
 
 
 def close_enough(got, want, *, atol, rtol=0.0):
@@ -604,12 +764,14 @@ def lbias_kernel_phase(torch, fa):
     act, rows = B * H * S * D * 2, B * H * S * 4
     masks = bias.numel() * 4 + lb.numel() * lb.element_size()
     bwd_in = 4 * act + 2 * rows + masks  # q, k, v, dO, lse, delta and the biases
+    # kernel 1 skips what the padding mask zeroes: its bound counts live keys
+    fwd_flops, fwd_bytes = fwd_work(bias, B, H, S, D, lb.numel() * lb.element_size())
     results, lbias_times = {}, {}
     for name, fn, plain, flops, nbytes, dev_name in (
         ("flash_attention_fwd",
          lambda: fa.flash_attention(q, k, v, bias, learned_bias=lb, scale=1.0),
          lambda: fa.flash_attention_plain(q, k, v, bias, lbias=lb, scale=1.0),
-         4.0 * B * H * S * S * D, 3 * act + masks + act + rows, "flash_fwd_kernel"),
+         fwd_flops, fwd_bytes, "flash_fwd_tc_kernel"),
         ("flash_attention_bwd_dq",
          lambda: fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw),
          lambda: fa._dq_plain(q, k, fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)[1]),
@@ -631,6 +793,13 @@ def lbias_kernel_phase(torch, fa):
                  ms=time_ms(fn, per_rep=5), plain_ms=time_ms(plain, per_rep=2), bound_ms=b_ms,
                  bound_by=b_by)
         r["device_ms"] = device_ms_of(fn, 5, dev_name)
+        if name == "flash_attention_fwd":
+            # forward-only yardstick: SDPA with the padding mask and the
+            # learned bias summed into one attn_mask (never called by the port)
+            mask = bias.to(lb.dtype) + lb
+            r["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0),
+                per_rep=5)
         lbias_times[name] = r
         say({"phase": "kernel_time", "kernel": name, "branch": "learned bias", **r})
     # the yardstick: SDPA forward + backward with the learned bias (plus the
@@ -931,6 +1100,7 @@ def zero_counters(fa, fd, fo) -> None:
     for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias,
                fd.fused_dropout, fo.fused_adamw_leaf, fa.flash_decode, fa.flash_decode_paged):
         fn.launches = 0
+    fa.flash_attention.tc_launches = 0
 
 
 def read_counters(fa, fd, fo) -> dict:
@@ -986,6 +1156,7 @@ def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters(fa, fd, fo)
+    tensor_core_route(fa, f"{model} train", launches["flash_attention_fwd"])
     steps = len(trainer.history)
     want = expected_train_launches(trainer.model, steps, trainer.cfg.grad_accum_steps)
     losses = [float(m["loss"]) for m in trainer.history]
@@ -1421,6 +1592,7 @@ def t5_serve_phase(torch, fa, fd, fo, cli) -> dict:
                 "flash_attention_bwd_dkv": fa.flash_bwd_dkv.launches,
                 "flash_attention_bwd_dlbias": fa.flash_bwd_dlbias.launches,
                 "flash_decode_paged": fa.flash_decode_paged.launches}
+    tensor_core_route(fa, "flan-t5-xl serve", launches["flash_attention_fwd"])
     stats = engine.last_stats
     model = engine.model
     want = {"flash_attention_fwd": len(model.encoder.blocks) * stats.prefill_calls,
@@ -1655,7 +1827,7 @@ def serve_phase(torch, fa, cli):
         "--lint", "off",
     ]
     out_k = os.path.join(WORK, "serve_kernel.jsonl")
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
     fa.flash_decode.launches = 0
     t0 = time.perf_counter()
     engine, outs_k = cli.serve([*args, "--output-file", out_k])
@@ -1663,6 +1835,7 @@ def serve_phase(torch, fa, cli):
     wall = time.perf_counter() - t0
     launches = {"flash_attention_fwd": fa.flash_attention.launches,
                 "flash_decode": fa.flash_decode.launches}
+    tensor_core_route(fa, "bart-large-cnn serve", launches["flash_attention_fwd"])
     stats = engine.last_stats
     with open(out_k) as f:
         recs = [json.loads(line) for line in f]
@@ -1773,11 +1946,12 @@ def ragged_serve(fa, cli, args) -> None:
         fail(f"auto on CUDA picks {picked} for a 1000-token source / 64-slot cache")
     argv = [*args, "--max-new-tokens", "64", "--max-source-length", "1000",
             "--output-file", os.path.join(WORK, "serve_ragged.jsonl")]
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
     fa.flash_decode.launches = 0
     engine, outs = cli.serve(argv)
     launches = {"flash_attention_fwd": fa.flash_attention.launches,
                 "flash_decode": fa.flash_decode.launches}
+    tensor_core_route(fa, "bart-large-cnn serve, source 1000", launches["flash_attention_fwd"])
     stats = engine.last_stats
     want = {"flash_attention_fwd": NUM_LAYERS * stats.prefill_calls,
             "flash_decode": NUM_LAYERS * stats.decode_steps}
@@ -2045,9 +2219,17 @@ def main() -> None:
     t0 = time.perf_counter()
     secs = cuda_build.build(KERNELS, verbose=True)
     say({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs})
+    hgmma = hgmma_counts(cuda_build)
+    say({"phase": "sass", "library": "flash_fwd_tc", "hgmma_per_instance": hgmma,
+         "hgmma_total": sum(hgmma.values())})
+    if not hgmma or min(hgmma.values()) == 0:
+        fail(f"flash_fwd_tc: an instance has no HGMMA instruction: {hgmma}")
 
     # phase 3: kernels against their plain versions
     measured = kernel_phase(torch, fa)
+    tc_err = tc_kernel_phase(torch, fa)
+    measured["flash_attention_fwd"]["max_abs_err"] = max(
+        measured["flash_attention_fwd"]["max_abs_err"], tc_err)
     measured.update(backward_kernel_phase(torch, fa))
     measured.update(dropout_kernel_phase(torch, fd))
     measured.update(adamw_kernel_phase(torch, fo))
@@ -2103,7 +2285,8 @@ def main() -> None:
     ref = "distributed_llms_example_tpu/ops/"
     both = {k: train_launches[k] + t5_train[k] for k in t5_train}
     rows = [
-        dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd.cu",
+        dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd_tc.cu",
+             sources=[src + "flash_fwd_tc.cu", src + "flash_fwd.cu"],
              replaces=ref + "flash_attention.py:119",
              launches=(launches["flash_attention_fwd"] + both["flash_attention_fwd"]
                        + t5_serve["flash_attention_fwd"]),

@@ -1,41 +1,43 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward for fp32 on Hopper's CUDA cores (sm_90a), plain C
+// interface for ctypes.
 //
 // Replaces the TPU Pallas kernel distributed_llms_example_tpu/ops/
 // flash_attention.py `_fwd_kernel` (reached through `_fwd` and the public
-// `flash_attention`).  Same function, not a block-by-block copy:
+// `flash_attention`) for fp32 inputs; bf16 inputs go to the tensor-core
+// kernel of csrc/flash_fwd_tc.cu.  fp32 stays here because its products are
+// exact fp32 FMAs, which the port's fp32 checks hold at 1e-4; TF32 wgmma
+// keeps about three decimal digits and would not meet that.  Same function
+// as the TPU kernel, not a block-by-block copy:
 //
 //   o   = softmax(scale * q k^T + bias + lbias) v      (fp32 online softmax)
 //   lse = m + log(l), or MASK_VALUE where a row has no live key
 //
-// q, k, v: (B, H, S, D) contiguous, fp32 or bf16; o like q; lse (B, H, Sq)
-// fp32.  `bias` is an fp32 additive mask read through its own element
-// strides, so a size-1 dim (stride 0) is never broadcast in memory; it may
-// be null.  `lbias` is the learned (1, H, Sq, Sk) bias (T5's relative
-// position bias) in its own dtype, fp32 or bf16 (`lb_bf16`; the element
-// type LB is a template parameter, so each load is one typed read-only
-// load), read the same way, widened to fp32 and added after the mask, as
-// the TPU kernel adds it; it may be null.  `causal` applies the top-left
-// mask q_pos >= k_pos with -inf and skips kv tiles wholly above the
-// diagonal.  Rows whose every key is -inf give o = 0 and lse = MASK_VALUE;
-// rows masked only by the finite NEG_INF = -1e9 padding bias average all
-// values uniformly, exactly as plain softmax attention does.  As on the
-// TPU, p is rounded to v's dtype before the value product, while the row
-// sum l accumulates unrounded p.
+// q, k, v: (B, H, S, D) contiguous fp32 (the element type T stays a
+// template parameter); o like q; lse (B, H, Sq) fp32.  `bias` is an fp32
+// additive mask read through its own element strides, so a size-1 dim
+// (stride 0) is never broadcast in memory; it may be null.  `lbias` is the
+// learned (1, H, Sq, Sk) bias (T5's relative position bias) in its own
+// dtype, fp32 or bf16 (`lb_bf16`; the element type LB is a template
+// parameter, so each load is one typed read-only load), read the same way,
+// widened to fp32 and added after the mask, as the TPU kernel adds it; it
+// may be null.  `causal` applies the top-left mask q_pos >= k_pos with -inf
+// and skips kv tiles wholly above the diagonal.  Rows whose every key is
+// -inf give o = 0 and lse = MASK_VALUE; rows masked only by the finite
+// NEG_INF = -1e9 padding bias average all values uniformly, exactly as
+// plain softmax attention does.  As on the TPU, p is rounded to v's dtype
+// before the value product, while the row sum l accumulates unrounded p.
 //
 // Any Lq and Lk: every tile load and score is bounds-checked.
 //
-// What bounds it on the H100: at the serve shape (8, 16, 1024, 64) bf16 the
-// work is 4*B*H*S*S*D = 34 GFLOP against ~67 MB of traffic (q, k, v and o
-// at 16.8 MB each), so it is bound by arithmetic (about 35 us at the bf16
-// tensor-core peak against about 20 us of HBM time).  This first version does the arithmetic in fp32
-// on the CUDA cores, not the tensor cores, so it is far from that bound:
-// the design keeps the (S, S) score matrix out of device memory (one
-// 64 x 64 tile in shared memory at a time), reads every q/k/v element once
-// per block, and register-tiles both products (each thread owns a 4 x 4
-// score tile and a 4 x D/16 output tile) so shared-memory loads are half
-// the FMAs.  Tensor-core (wgmma) tiles, TMA loads and warp specialisation
-// are later work.  The in-kernel probs-dropout branch of the TPU kernel is
-// not here (no model of the port trains with attention-probs dropout).
+// What bounds it on the H100: at (8, 16, 1024, 64) the work is
+// 4*B*H*S*S*D = 34 GFLOP, which in fp32 outside the tensor cores (67
+// TFLOP/s) cannot take less than about 0.5 ms.  The design keeps the
+// (S, S) score matrix out of device memory (one 64 x 64 tile in shared
+// memory at a time), reads every q/k/v element once per block, and
+// register-tiles both products (each thread owns a 4 x 4 score tile and a
+// 4 x D/16 output tile) so shared-memory loads are half the FMAs.  The
+// in-kernel probs-dropout branch of the TPU kernel is not here (no model
+// of the port trains with attention-probs dropout).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,9 +56,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
@@ -275,15 +274,13 @@ int dispatch_lb(int lb_bf16, int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// fp32 q/k/v only: bf16 goes to the tensor-core kernel (csrc/flash_fwd_tc.cu)
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                          long long bsb, long long bsh, long long bsq, long long bsk,
                          const void* lbias, long long lsb, long long lsh, long long lsq,
                          long long lsk, void* o, void* lse, int B, int H, int Lq, int Lk, int D,
-                         float scale, int causal, int is_bf16, int lb_bf16, void* stream) {
+                         float scale, int causal, int lb_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Biases bs{bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk};
-  if (is_bf16)
-    return dispatch_lb<__nv_bfloat16>(lb_bf16, D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale,
-                                      causal, s);
   return dispatch_lb<float>(lb_bf16, D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
 }

@@ -7,12 +7,14 @@ wrapper with three parts:
 - a **plain PyTorch version** of the function (``*_plain``), which the
   wrapper runs for tensors on the CPU and which the chip check holds the
   kernel against;
-- the **CUDA kernel** (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu`` with
+- the **CUDA kernel** (``csrc/flash_fwd_tc.cu`` for bf16 and
+  ``csrc/flash_fwd.cu`` for fp32, ``csrc/flash_bwd.cu`` with
   its two entries dq and dk/dv, ``csrc/flash_bwd_dlbias.cu``,
   ``csrc/flash_decode.cu``, ``csrc/flash_decode_paged.cu``), which the
   wrapper launches for tensors on a CUDA device — or raises: there is no
   fallback from a CUDA tensor to the plain version;
-- a **launch counter** (``flash_attention.launches``,
+- a **launch counter** (``flash_attention.launches``, with
+  ``flash_attention.tc_launches`` counting its bf16 tensor-core launches,
   ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``,
   ``flash_bwd_dlbias.launches``, ``flash_decode.launches``,
   ``flash_decode_paged.launches``): a plain integer bumped where the
@@ -154,11 +156,55 @@ def flash_attention_plain(q, k, v, bias=None, *, lbias=None, causal=False, scale
     return o, lse[..., 0]
 
 
-_FWD_ARGTYPES = (
+_FWD_HEAD = (
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_longlong] * 4
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3
-    + [ctypes.c_void_p]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float]
 )
+_FWD_ARGTYPES = _FWD_HEAD + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_FWD_TC_ARGTYPES = _FWD_HEAD + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+# kernel 1's key tile, as both CUDA sources define it, and the tensor-core
+# kernel's ring of stages
+FWD_BLOCK_K = 64
+FWD_TC_STAGES = 2
+
+
+def _fwd_tc_smem(rows: int, head_dim: int, lb_bytes: int) -> int:
+    """Dynamic shared-memory bytes of ``csrc/flash_fwd_tc.cu``'s ``Smem``:
+    Q, then per stage K, V, a learned-bias tile (rows padded by 8
+    elements) and a key-bias tile, plus 1024 bytes to align the base for
+    the swizzle."""
+    bk = FWD_BLOCK_K
+    stage = 2 * bk * head_dim * 2 + rows * (bk + 8) * lb_bytes + bk * 4
+    return rows * head_dim * 2 + FWD_TC_STAGES * stage + 1024
+
+
+def fwd_plan(dtype: torch.dtype, head_dim: int, batch: int, heads: int, q_len: int,
+             lbias_dtype: torch.dtype | None = None) -> dict:
+    """How kernel 1 is launched for these shapes: the C entry, query rows
+    per CTA, keys per tile, shared-memory stages, dynamic shared-memory
+    bytes, threads and grid.  bf16 goes to the tensor-core kernel
+    (``csrc/flash_fwd_tc.cu``: 128 rows as two warpgroups, or 64 when
+    q_len <= 64; a two-stage K/V ring); fp32 stays on the CUDA-core kernel
+    (``csrc/flash_fwd.cu``), whose fp32 products the fp32 checks hold at
+    1e-4, which TF32 tensor cores would not meet.  The tensor-core launch
+    checks that the bytes are its ``Smem`` layout's."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel has no instance for head_dim {head_dim} "
+                         f"(built for {KERNEL_HEAD_DIMS})")
+    bk, d = FWD_BLOCK_K, head_dim
+    if dtype == torch.float32:
+        rows = 64
+        smem = (rows * d + bk * (d + 1) + bk * d + rows * (bk + 1) + 3 * rows) * 4
+        return dict(entry="flash_fwd", rows=rows, block_k=bk, stages=1, smem_bytes=smem,
+                    threads=256, grid=(-(-q_len // rows), batch * heads))
+    if dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention kernel takes fp32 or bf16, not {dtype}")
+    lb_bytes = 0 if lbias_dtype is None else torch.finfo(lbias_dtype).bits // 8
+    rows = 64 if q_len <= 64 else 128
+    return dict(entry="flash_fwd_tc", rows=rows, block_k=bk, stages=FWD_TC_STAGES,
+                smem_bytes=_fwd_tc_smem(rows, d, lb_bytes), threads=2 * rows,
+                grid=(-(-q_len // rows), batch * heads), lb_bytes=lb_bytes)
 
 
 def _kernel_biases(what: str, dev, bias, lbias) -> tuple:
@@ -183,19 +229,29 @@ def _flash_fwd_cuda(q, k, v, bias, lbias, *, causal, scale):
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel has no instance for head_dim {D} "
-                         f"(built for {KERNEL_HEAD_DIMS})")
     bias, lbias, lb_bf16 = _kernel_biases("flash_attention", dev, bias, lbias)
+    plan = fwd_plan(q.dtype, D, B, H, Lq, None if lbias is None else lbias.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=dev)
-    fn = cuda_build.load("flash_fwd", _FWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias), *_bias_args(lbias),
-             o.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D, float(scale), int(causal),
-             int(q.dtype == torch.bfloat16), lb_bf16, torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "flash_fwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias), *_bias_args(lbias),
+            o.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D, float(scale), int(causal))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan["entry"] == "flash_fwd_tc":
+        fn = cuda_build.load("flash_fwd_tc", _FWD_TC_ARGTYPES)
+        err = fn(*args, plan["lb_bytes"], plan["rows"], plan["smem_bytes"], stream)
+        cuda_build.check(err, "flash_fwd_tc")
+        flash_attention.tc_launches += 1
+    else:
+        fn = cuda_build.load("flash_fwd", _FWD_ARGTYPES)
+        cuda_build.check(fn(*args, lb_bf16, stream), "flash_fwd")
     flash_attention.launches += 1
     return o, lse
+
+
+def _flash_fwd(q, k, v, bias, lbias, causal, scale):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, bias, lbias=lbias, causal=causal, scale=scale)
+    return _flash_fwd_cuda(q, k, v, bias, lbias, causal=causal, scale=scale)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -204,10 +260,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, lbias, causal, scale):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_plain(q, k, v, bias, lbias=lbias, causal=causal, scale=scale)
-        else:
-            o, lse = _flash_fwd_cuda(q, k, v, bias, lbias, causal=causal, scale=scale)
+        o, lse = _flash_fwd(q, k, v, bias, lbias, causal, scale)
         ctx.save_for_backward(q, k, v, bias, lbias, o, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.mark_non_differentiable(lse)
@@ -259,13 +312,19 @@ def flash_attention(q, k, v, bias=None, *, learned_bias=None, causal: bool = Fal
         scale = q.shape[-1] ** -0.5
     if bias is not None:
         bias = bias.float()
-    o, lse = _FlashAttention.apply(q, k, v, bias, learned_bias, bool(causal), float(scale))
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, learned_bias)):
+        o, lse = _FlashAttention.apply(q, k, v, bias, learned_bias, bool(causal), float(scale))
+    else:  # nothing to differentiate (serving): skip the autograd node's cost
+        o, lse = _flash_fwd(q, k, v, bias, learned_bias, bool(causal), float(scale))
     if dtype is not None:
         o = o.to(dtype)
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+# the bf16 launches among them, which went to the tensor-core entry
+flash_attention.tc_launches = 0
 
 
 # ---------------------------------------------------------- backward kernels
