@@ -10,9 +10,10 @@ through the flat cache, and checks that each run went through its kernels.
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
-  2. build: one nvcc per kernel source, all eight at once (ptxas report);
+  2. build: one nvcc per kernel source, all nine at once (ptxas report);
      the HGMMA instructions of every instance of the tensor-core forward
-     (cuobjdump -sass), none of which may have 0
+     and of both tensor-core backward kernels (cuobjdump -sass), none of
+     which may have 0
   3. kernels vs plain versions at the main paths' shapes and at lengths no
      tile divides, timed with CUDA events beside the plain version, the
      library yardstick (never called by the port) and the bound
@@ -29,6 +30,16 @@ Phases (each fatal, non-zero exit, no result line):
        64-key tile must break that limit by 10x;
      - flash backward dq and dk/dv at the encoder, decoder-causal, cross
        and ragged shapes (same limits; -inf rows give exactly zero dq);
+     - the tensor-core backward (bf16) at head dims 16, 32, 64 and 128 in
+       every case the train paths give it (padding S = 1024, causal 128,
+       cross 128 x 1024, S = 1000, causal 200, -inf rows, learned bias
+       with padding and with causal): dq, dk and dv within 2e-2 of the
+       plain version and, against an fp32 reference, within 1.5x the plain
+       bf16 path's own error; K rows permuted inside one 64-key tile (read
+       by the dq kernel) and Q and dO rows permuted inside one query tile
+       (read by the dk/dv kernel) must break that limit by 10x; kernels 2
+       and 3 timed on both branches with their bounds over the live keys
+       (the tiles the mask zeroes are skipped) and over all keys;
      - fused dropout: exactly equal in bf16 and fp32, kept fraction within
        1e-3 of 1 - rate;
      - fused AdamW: p', mu', nu' within AdamW_RTOL, health sums within
@@ -53,7 +64,7 @@ Phases (each fatal, non-zero exit, no result line):
   4. serve: the CLI's serve entry in-process, bart-large-cnn, bf16, seed 0,
      16 prompts of 200-1024 byte-tokens, 8 slots, 128 new tokens, source
      1024; launch counters zeroed before and read after (on every bf16 main
-     path each kernel-1 launch must be a tensor-core one); first-step logits
+     path each launch of kernels 1-3 must be a tensor-core one); first-step logits
      with the kernels vs with their plain versions (fp32 atol 1e-4, which a
      decode mask shifted by one must break), plus the difference from plain
      softmax attention and the greedy token match rate of a whole serve run
@@ -82,7 +93,9 @@ Phases (each fatal, non-zero exit, no result line):
      whole kernel path (kernels 1-4) vs the wholly plain path (the learned
      bias read one key off must break it); reported beside: the relu
      model's whole-path distance, each model's plain path nudged by one
-     fp32 ulp, and which gradients differ bit for bit run to run
+     fp32 ulp; a rerun of the relu kernel path must give the same bits in
+     every gradient, both bucket tables included (their lookup's
+     backward is a fixed-order reduction)
   9. flan-t5-xl serve: phase 4's prompts and settings; kernel 1 once per
      encoder layer per prefill chunk, kernel 5 once per decoder layer per
      decode round, kernels 2, 3, 4 and 6 never; one profiled round
@@ -102,7 +115,7 @@ Phases (each fatal, non-zero exit, no result line):
      steps, paged and flat, kernel path vs plain path within 1e-4; a
      decode offset shifted by one must break it on each route
  13. a {"kernels_unported": []} line (every TPU kernel has a port), a
-     {"kernels": [...]} line of all eight (kernel 1 names both its sources),
+     {"kernels": [...]} line of all eight (kernels 1-3 name both sources),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -160,12 +173,12 @@ T5_FP32_ATOL = 1e-4
 # ulps of headroom for a library sqrt or division that rounds differently
 ADAMW_RTOL = 2.4e-7
 WORK = os.path.join(HERE, "build", "chip_smoke")
-KERNELS = ["flash_fwd_tc", "flash_fwd", "flash_decode", "flash_bwd", "flash_bwd_dlbias",
-           "fused_dropout", "fused_adamw", "flash_decode_paged"]
-# kernel 1 in bf16 against an fp32 reference on the same bf16 values: its
-# error may be at most this factor times the plain bf16 path's own
+KERNELS = ["flash_fwd_tc", "flash_bwd_tc", "flash_fwd", "flash_decode", "flash_bwd",
+           "flash_bwd_dlbias", "fused_dropout", "fused_adamw", "flash_decode_paged"]
+# kernels 1-3 in bf16 against an fp32 reference on the same bf16 values:
+# their error may be at most this factor times the plain bf16 path's own
 TC_REF_FACTOR = 1.5
-# a K tile whose rows are permuted (what a wrong swizzle does) must break
+# a tile whose rows are permuted (what a wrong swizzle does) must break
 # that limit by at least this factor
 TC_FAULT_FACTOR = 10.0
 
@@ -497,37 +510,190 @@ def tc_kernel_phase(torch, fa):
     return worst
 
 
-def hgmma_counts(cuda_build) -> dict:
-    """{kernel instance: HGMMA instructions} in the built tensor-core
-    library, from ``cuobjdump -sass``."""
+def tc_backward_phase(torch, fa):
+    """Kernels 2 and 3's tensor-core entries (bf16) at every head dim they
+    are built for, in every case the train paths give them: the encoder's
+    (8, 16, 1024, d) with a ragged padding mask, the causal decoder (8, 16,
+    128, d), 128 x 1024 cross-attention with padding, a 1000-token source,
+    a causal 200, -inf rows, and the learned bias (scale 1, q scaled by
+    d^-1/2 as T5's init does) with the padding mask and with causal.  o and
+    lse come from kernel 1.  Each case holds dq, dk and dv against the plain
+    version (atol = rtol = 2e-2) and against an fp32 reference (the exact
+    gradient on the same bf16 values), where each may be at most
+    TC_REF_FACTOR times the plain bf16 path's own error; -inf rows give
+    exactly dq = 0.  Two planted faults must break that limit by
+    TC_FAULT_FACTOR: K's rows permuted inside one 64-key tile, read by the
+    dq kernel; Q's and dO's rows permuted the same way inside one query
+    tile, read by the dk/dv kernel (lse and delta in order).  Returns the
+    largest error against the plain version, for dq and for dk/dv."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, H = 8, 16
+    tol = dict(atol=2e-2, rtol=2e-2)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(torch.bfloat16)
+
+    def pad_bias(K):
+        lens = torch.randint(K // 5, K + 1, (B,), generator=gen, device=dev)
+        b = torch.where(torch.arange(K, device=dev)[None, :] < lens[:, None], 0.0, -1e9)
+        return b[:, None, None, :].float().contiguous()
+
+    def reference(q, k, v, do, bias, lb, causal, scale):
+        """The exact gradient at these bf16 values, in fp32."""
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        lbf = None if lb is None else lb.float()
+        of, lsef = fa.flash_attention_plain(qf, kf, vf, bias, lbias=lbf, causal=causal,
+                                            scale=scale)
+        return fa.flash_attention_bwd_plain(qf, kf, vf, bias, of, lsef, dof, lbias=lbf,
+                                            causal=causal, scale=scale)
+
+    def kernels(q, k, v, do, bias, lb, causal, scale, *, k_dq=None, q_do_dkv=None):
+        """(dq, dk, dv, o, lse) from kernels 1-3; the dq kernel may read
+        ``k_dq`` for K, the dk/dv kernel ``q_do_dkv`` for (Q, dO)."""
+        o, lse = fa.flash_attention(q, k, v, bias, learned_bias=lb, causal=causal, scale=scale,
+                                    return_lse=True)
+        delta = fa.attention_delta(do, o)
+        kw = dict(lbias=lb, causal=causal, scale=scale)
+        dq = fa.flash_bwd_dq(q, k if k_dq is None else k_dq, v, bias, do, lse, delta, **kw)
+        qq, dd = (q, do) if q_do_dkv is None else q_do_dkv
+        dk, dv = fa.flash_bwd_dkv(qq, k, v, bias, dd, lse, delta, **kw)
+        return dq, dk, dv, o, lse
+
+    def max_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    worst = {"dq": 0.0, "dkv": 0.0}
+    fault = None
+    S = 1024
+    dead = torch.tensor([0, 7, 500, S - 1], device=dev)
+    dead_bias = torch.zeros(B, 1, S, S, device=dev)
+    dead_bias[:, :, dead, :] = -float("inf")
+    for D in fa.KERNEL_HEAD_DIMS:
+        cases = [
+            ("encoder padding S=1024", 1024, 1024, dict(bias=pad_bias(1024))),
+            ("causal S=128", 128, 128, dict(causal=True)),
+            ("cross 128x1024 padding", 128, 1024, dict(bias=pad_bias(1024))),
+            ("ragged padding S=1000", 1000, 1000, dict(bias=pad_bias(1000))),
+            ("ragged causal S=200", 200, 200, dict(causal=True)),
+            ("-inf rows S=1024", 1024, 1024, dict(bias=dead_bias)),
+            ("learned bias + padding S=1024", 1024, 1024,
+             dict(bias=pad_bias(1024), lb=rnd(1, H, 1024, 1024, s=0.5), scale=1.0)),
+            ("learned bias causal S=128", 128, 128,
+             dict(lb=rnd(1, H, 128, 128, s=0.5), causal=True, scale=1.0)),
+        ]
+        for name, Q, K, kw in cases:
+            bias, lb, causal = kw.get("bias"), kw.get("lb"), kw.get("causal", False)
+            scale = kw.get("scale", D ** -0.5)
+            q = rnd(B, H, Q, D, s=D ** -0.5 if lb is not None else 1.0)
+            k, v, do = rnd(B, H, K, D), rnd(B, H, K, D), rnd(B, H, Q, D)
+            dq, dk, dv, o, lse = kernels(q, k, v, do, bias, lb, causal, scale)
+            want = fa.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, lbias=lb,
+                                                causal=causal, scale=scale)
+            ref = reference(q, k, v, do, bias, lb, causal, scale)
+            torch.cuda.synchronize()
+            limits = {}
+            for n, g, w, r in zip(("dq", "dk", "dv"), (dq, dk, dv), want, ref):
+                err = check_close(f"flash_bwd_tc {name} d={D} {n}", g, w, **tol)
+                worst["dq" if n == "dq" else "dkv"] = max(worst["dq" if n == "dq" else "dkv"],
+                                                          err)
+                kernel_err, plain_err = max_err(g, r), max_err(w, r)
+                limits[n] = limit = TC_REF_FACTOR * plain_err
+                ok = kernel_err <= limit
+                say({"phase": "kernel_check",
+                     "case": f"flash_bwd_tc {name} d={D} {n} vs fp32 reference",
+                     "kernel_err": kernel_err, "plain_bf16_err": plain_err, "limit": limit,
+                     "ratio": kernel_err / max(plain_err, 1e-30), "ok": ok})
+                if not ok:
+                    fail(f"flash_bwd_tc {name} d={D} {n}: {kernel_err} from the fp32 "
+                         f"reference, beyond {TC_REF_FACTOR}x the plain bf16 path's {plain_err}")
+            if "-inf" in name and not bool((dq[:, :, dead] == 0).all()):
+                fail(f"flash_bwd_tc d={D}: fully-masked rows have a non-zero dq")
+            if D == 64 and name == "encoder padding S=1024":
+                fault = (q, k, v, do, bias, scale, ref, limits)
+            del dq, dk, dv, o, lse, want, ref
+    # planted faults: rows 0-63 read as r ^ 7 (an 8-row swizzle phase off)
+    q, k, v, do, bias, scale, ref, limits = fault
+    perm = torch.arange(64, device=dev) ^ 7
+
+    def permuted(x):
+        y = x.clone()
+        y[:, :, :64] = x[:, :, perm]
+        return y
+
+    dq, _, _, _, _ = kernels(q, k, v, do, bias, None, False, scale, k_dq=permuted(k))
+    _, dk, dv, _, _ = kernels(q, k, v, do, bias, None, False, scale,
+                              q_do_dkv=(permuted(q), permuted(do)))
+    torch.cuda.synchronize()
+    for what, times in (
+            ("K rows permuted in one 64-key tile, read by the dq kernel",
+             max_err(dq, ref[0]) / limits["dq"]),
+            ("Q and dO rows permuted in one query tile, read by the dk/dv kernel",
+             max(max_err(dk, ref[1]) / limits["dk"], max_err(dv, ref[2]) / limits["dv"]))):
+        say({"phase": "kernel_check", "case": f"flash_bwd_tc planted fault: {what}",
+             "times_limit": times, "must_exceed": TC_FAULT_FACTOR})
+        if not times >= TC_FAULT_FACTOR:
+            fail(f"flash_bwd_tc planted fault ({what}) reads {times}x the limit, under "
+                 f"{TC_FAULT_FACTOR}x")
+    return worst
+
+
+def bwd_work(bias, B, H, S, D, per_key):
+    """(flops over the live keys, flops over all keys) of kernel 2
+    (``per_key`` 6: S, dP, dQ) or 3 (8: S, dP, dV, dK) at (B, H, S, S, D)
+    under a (B, 1, 1, S) padding mask: the kernels skip the tiles the mask
+    zeroes, so only each row's live keys (bias above -1e8) need the
+    products."""
+    keys = float((bias.reshape(B, -1) > -1e8).sum())
+    return per_key * H * S * keys * D, per_key * B * H * S * S * D
+
+
+def hgmma_counts(cuda_build, lib: str, kernel: str, params: tuple) -> dict:
+    """{kernel instance: HGMMA instructions} of every instance of the
+    template ``kernel`` in the built library ``lib``, from ``cuobjdump
+    -sass``; an instance is named by its int template arguments
+    (``params``)."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "-sass", str(cuda_build.library_path("flash_fwd_tc"))],
+    out = subprocess.run([tool, "-sass", str(cuda_build.library_path(lib))],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump -sass failed: {out.stderr.strip()[:300]}")
     counts, name = {}, None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
-            name = f"d={m.group(1)} rows={m.group(2)} lbias_bytes={m.group(3)}" if m else None
-            if name:
+            m = re.search(kernel + r"I((?:Li\d+E)+)E", line)
+            name = None
+            if m:
+                args = re.findall(r"Li(\d+)E", m.group(1))
+                name = " ".join(f"{p}={a}" for p, a in zip(params, args))
                 counts[name] = 0
         elif name and "HGMMA" in line:
             counts[name] += 1
     return counts
 
 
-def tensor_core_route(fa, run: str, launches: int) -> None:
-    """Every kernel-1 launch of a bf16 main-path run went to the
-    tensor-core entry."""
-    tc = fa.flash_attention.tc_launches
-    say({"phase": "kernel1_route", "run": run, "flash_attention_fwd": launches,
-         "tensor_core_launches": tc})
-    if tc != launches:
-        fail(f"{run}: {tc} of {launches} kernel-1 launches went to the tensor-core entry")
+# each tensor-core kernel template: (library, kernel, template parameters)
+TC_KERNELS = [("flash_fwd_tc", "flash_fwd_tc_kernel", ("d", "rows", "lbias_bytes")),
+              ("flash_bwd_tc", "flash_bwd_dq_tc_kernel", ("d", "lbias_bytes")),
+              ("flash_bwd_tc", "flash_bwd_dkv_tc_kernel", ("d", "lbias_bytes"))]
+
+
+def tensor_core_route(fa, run: str, launches: dict) -> None:
+    """Every bf16 launch of kernels 1, 2 and 3 in a main-path run (all of
+    its launches: every main path runs bf16) went to the tensor-core
+    entry."""
+    pairs = {"flash_attention_fwd": fa.flash_attention.tc_launches,
+             "flash_attention_bwd_dq": fa.flash_bwd_dq.tc_launches,
+             "flash_attention_bwd_dkv": fa.flash_bwd_dkv.tc_launches}
+    say({"phase": "tensor_core_route", "run": run,
+         "launches": {k: launches.get(k, 0) for k in pairs}, "tensor_core_launches": pairs})
+    for k, tc in pairs.items():
+        if tc != launches.get(k, 0):
+            fail(f"{run}: {tc} of {launches.get(k, 0)} {k} launches went to the tensor-core "
+                 "entry")
 
 
 def close_enough(got, want, *, atol, rtol=0.0):
@@ -618,21 +784,25 @@ def backward_kernel_phase(torch, fa):
                      per_rep=5)
     nbytes_in = 4 * B * H * S * D * 2 + 2 * B * H * S * 4 + bias.numel() * 4
     results = {}
-    for name, fn, plain, flops, out_bytes, dev_name in (
+    for name, fn, plain, per_key, out_bytes, dev_name in (
         ("flash_attention_bwd_dq",
          lambda: fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw),
          lambda: fa._dq_plain(q, k, fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)[1]),
-         6.0 * B * H * S * S * D, B * H * S * D * 2, "flash_bwd_dq_kernel"),
+         6, B * H * S * D * 2, "flash_bwd_dq_tc_kernel"),
         ("flash_attention_bwd_dkv",
          lambda: fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw),
          lambda: fa._dkv_plain(q, k, v, do, *fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)),
-         8.0 * B * H * S * S * D, 2 * B * H * S * D * 2, "flash_bwd_dkv_kernel"),
+         8, 2 * B * H * S * D * 2, "flash_bwd_dkv_tc_kernel"),
     ):
-        b_ms, b_by = bound(flops, nbytes_in + out_bytes)
+        # the kernels skip what the padding mask zeroes: the bound counts
+        # the live keys' products; over all keys it is reported beside
+        live, every = bwd_work(bias, B, H, S, D, per_key)
+        b_ms, b_by = bound(live, nbytes_in + out_bytes)
         results[name] = dict(max_abs_err=max(errs), ms=time_ms(fn, per_rep=5),
                              plain_ms=time_ms(plain, per_rep=2), bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms)
-        say({"phase": "kernel_time", "kernel": name, **results[name],
+        say({"phase": "kernel_time", "kernel": name, "branch": "padding", **results[name],
+             "bound_all_keys_ms": bound(every, nbytes_in + out_bytes)[0],
              "device_ms": device_ms_of(fn, 5, dev_name)})
     return results
 
@@ -767,23 +937,27 @@ def lbias_kernel_phase(torch, fa):
     # kernel 1 skips what the padding mask zeroes: its bound counts live keys
     fwd_flops, fwd_bytes = fwd_work(bias, B, H, S, D, lb.numel() * lb.element_size())
     results, lbias_times = {}, {}
-    for name, fn, plain, flops, nbytes, dev_name in (
+    # kernels 2 and 3 skip the tiles the padding mask zeroes: their bound
+    # counts the live keys' products, beside it the bound over all keys
+    dq_flops, dq_all = bwd_work(bias, B, H, S, D, 6)
+    dkv_flops, dkv_all = bwd_work(bias, B, H, S, D, 8)
+    for name, fn, plain, flops, every, nbytes, dev_name in (
         ("flash_attention_fwd",
          lambda: fa.flash_attention(q, k, v, bias, learned_bias=lb, scale=1.0),
          lambda: fa.flash_attention_plain(q, k, v, bias, lbias=lb, scale=1.0),
-         fwd_flops, fwd_bytes, "flash_fwd_tc_kernel"),
+         fwd_flops, None, fwd_bytes, "flash_fwd_tc_kernel"),
         ("flash_attention_bwd_dq",
          lambda: fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw),
          lambda: fa._dq_plain(q, k, fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)[1]),
-         6.0 * B * H * S * S * D, bwd_in + act, "flash_bwd_dq_kernel"),
+         dq_flops, dq_all, bwd_in + act, "flash_bwd_dq_tc_kernel"),
         ("flash_attention_bwd_dkv",
          lambda: fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw),
          lambda: fa._dkv_plain(q, k, v, do, *fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)),
-         8.0 * B * H * S * S * D, bwd_in + 2 * act, "flash_bwd_dkv_kernel"),
+         dkv_flops, dkv_all, bwd_in + 2 * act, "flash_bwd_dkv_tc_kernel"),
         ("flash_attention_bwd_dlbias",
          lambda: fa.flash_bwd_dlbias(q, k, v, bias, lb, do, lse, delta, causal=False, scale=1.0),
          lambda: fa._dlbias_plain(q, k, v, bias, lb, do, lse, delta, causal=False, scale=1.0),
-         4.0 * B * H * S * S * D, bwd_in + lb.numel() * lb.element_size(),
+         4.0 * B * H * S * S * D, None, bwd_in + lb.numel() * lb.element_size(),
          "flash_bwd_dlbias_kernel"),
     ):
         b_ms, b_by = bound(flops, nbytes)
@@ -793,6 +967,16 @@ def lbias_kernel_phase(torch, fa):
                  ms=time_ms(fn, per_rep=5), plain_ms=time_ms(plain, per_rep=2), bound_ms=b_ms,
                  bound_by=b_by)
         r["device_ms"] = device_ms_of(fn, 5, dev_name)
+        if every is not None:
+            r["bound_all_keys_ms"] = bound(every, nbytes)[0]
+            # backward yardstick: SDPA's dq, dk and dv in one call, the
+            # padding mask and the learned bias summed into a constant mask
+            qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias.to(lb.dtype) + lb,
+                                                 scale=1.0)
+            r["library_ms"] = time_ms(
+                lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True), per_rep=5)
+            del qs, ks, vs, out
         if name == "flash_attention_fwd":
             # forward-only yardstick: SDPA with the padding mask and the
             # learned bias summed into one attn_mask (never called by the port)
@@ -1100,7 +1284,8 @@ def zero_counters(fa, fd, fo) -> None:
     for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias,
                fd.fused_dropout, fo.fused_adamw_leaf, fa.flash_decode, fa.flash_decode_paged):
         fn.launches = 0
-    fa.flash_attention.tc_launches = 0
+    for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        fn.tc_launches = 0
 
 
 def read_counters(fa, fd, fo) -> dict:
@@ -1156,7 +1341,7 @@ def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters(fa, fd, fo)
-    tensor_core_route(fa, f"{model} train", launches["flash_attention_fwd"])
+    tensor_core_route(fa, f"{model} train", launches)
     steps = len(trainer.history)
     want = expected_train_launches(trainer.model, steps, trainer.cfg.grad_accum_steps)
     losses = [float(m["loss"]) for m in trainer.history]
@@ -1563,6 +1748,14 @@ def t5_grad_check_phase(torch, fa, fd, batch) -> None:
              f"{gelu['kernel_path_vs_plain_path']}")
     if within(gelu["planted_fault_learned_bias_one_key_off"], gelu["plain_path_nudged_one_ulp"]):
         fail("t5 gradient check: the learned bias one key off stays within every limit")
+    # the train path's gradient, both bucket tables included, is the same
+    # bits on a rerun (no atomics anywhere in its backward)
+    if not (relu["rerun_loss_equal"] and relu["lookup_backward_bit_equal"]) \
+            or relu["rerun_tensors_not_bit_equal"]:
+        fail(f"t5 gradient check: a rerun is not bit-equal: loss equal "
+             f"{relu['rerun_loss_equal']}, lookup backward equal "
+             f"{relu['lookup_backward_bit_equal']}, tensors that differ "
+             f"{relu['rerun_tensors_not_bit_equal']}")
 
 
 T5_SERVE_ARGS = [
@@ -1592,7 +1785,7 @@ def t5_serve_phase(torch, fa, fd, fo, cli) -> dict:
                 "flash_attention_bwd_dkv": fa.flash_bwd_dkv.launches,
                 "flash_attention_bwd_dlbias": fa.flash_bwd_dlbias.launches,
                 "flash_decode_paged": fa.flash_decode_paged.launches}
-    tensor_core_route(fa, "flan-t5-xl serve", launches["flash_attention_fwd"])
+    tensor_core_route(fa, "flan-t5-xl serve", launches)
     stats = engine.last_stats
     model = engine.model
     want = {"flash_attention_fwd": len(model.encoder.blocks) * stats.prefill_calls,
@@ -1828,6 +2021,7 @@ def serve_phase(torch, fa, cli):
     ]
     out_k = os.path.join(WORK, "serve_kernel.jsonl")
     fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
+    fa.flash_bwd_dq.tc_launches = fa.flash_bwd_dkv.tc_launches = 0
     fa.flash_decode.launches = 0
     t0 = time.perf_counter()
     engine, outs_k = cli.serve([*args, "--output-file", out_k])
@@ -1835,7 +2029,7 @@ def serve_phase(torch, fa, cli):
     wall = time.perf_counter() - t0
     launches = {"flash_attention_fwd": fa.flash_attention.launches,
                 "flash_decode": fa.flash_decode.launches}
-    tensor_core_route(fa, "bart-large-cnn serve", launches["flash_attention_fwd"])
+    tensor_core_route(fa, "bart-large-cnn serve", launches)
     stats = engine.last_stats
     with open(out_k) as f:
         recs = [json.loads(line) for line in f]
@@ -1947,11 +2141,12 @@ def ragged_serve(fa, cli, args) -> None:
     argv = [*args, "--max-new-tokens", "64", "--max-source-length", "1000",
             "--output-file", os.path.join(WORK, "serve_ragged.jsonl")]
     fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
+    fa.flash_bwd_dq.tc_launches = fa.flash_bwd_dkv.tc_launches = 0
     fa.flash_decode.launches = 0
     engine, outs = cli.serve(argv)
     launches = {"flash_attention_fwd": fa.flash_attention.launches,
                 "flash_decode": fa.flash_decode.launches}
-    tensor_core_route(fa, "bart-large-cnn serve, source 1000", launches["flash_attention_fwd"])
+    tensor_core_route(fa, "bart-large-cnn serve, source 1000", launches)
     stats = engine.last_stats
     want = {"flash_attention_fwd": NUM_LAYERS * stats.prefill_calls,
             "flash_decode": NUM_LAYERS * stats.decode_steps}
@@ -2219,11 +2414,12 @@ def main() -> None:
     t0 = time.perf_counter()
     secs = cuda_build.build(KERNELS, verbose=True)
     say({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs})
-    hgmma = hgmma_counts(cuda_build)
-    say({"phase": "sass", "library": "flash_fwd_tc", "hgmma_per_instance": hgmma,
-         "hgmma_total": sum(hgmma.values())})
-    if not hgmma or min(hgmma.values()) == 0:
-        fail(f"flash_fwd_tc: an instance has no HGMMA instruction: {hgmma}")
+    for lib, kernel, params in TC_KERNELS:
+        hgmma = hgmma_counts(cuda_build, lib, kernel, params)
+        say({"phase": "sass", "library": lib, "kernel": kernel, "hgmma_per_instance": hgmma,
+             "hgmma_total": sum(hgmma.values())})
+        if not hgmma or min(hgmma.values()) == 0:
+            fail(f"{kernel}: an instance has no HGMMA instruction: {hgmma}")
 
     # phase 3: kernels against their plain versions
     measured = kernel_phase(torch, fa)
@@ -2231,6 +2427,9 @@ def main() -> None:
     measured["flash_attention_fwd"]["max_abs_err"] = max(
         measured["flash_attention_fwd"]["max_abs_err"], tc_err)
     measured.update(backward_kernel_phase(torch, fa))
+    for name, err in zip(("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+                         tc_backward_phase(torch, fa).values()):
+        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
     measured.update(dropout_kernel_phase(torch, fd))
     measured.update(adamw_kernel_phase(torch, fo))
     paged, kernel5_err_d128 = paged_kernel_phase(torch, fa)
@@ -2299,10 +2498,12 @@ def main() -> None:
         dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
              replaces=ref + "flash_attention.py:1155",
              launches=llama_paged["flash_decode_paged"], **measured["flash_decode_paged"]),
-        dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
+        dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd_tc.cu",
+             sources=[src + "flash_bwd_tc.cu", src + "flash_bwd.cu"],
              replaces=ref + "flash_attention.py:264",
              launches=both["flash_attention_bwd_dq"], **measured["flash_attention_bwd_dq"]),
-        dict(name="flash_attention_bwd_dkv", route="cuda", source=src + "flash_bwd.cu",
+        dict(name="flash_attention_bwd_dkv", route="cuda", source=src + "flash_bwd_tc.cu",
+             sources=[src + "flash_bwd_tc.cu", src + "flash_bwd.cu"],
              replaces=ref + "flash_attention.py:328",
              launches=both["flash_attention_bwd_dkv"], **measured["flash_attention_bwd_dkv"]),
         dict(name="flash_attention_bwd_dlbias", route="cuda",

@@ -1,9 +1,13 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, plain C
-// interface for ctypes.
+// Flash-attention backward for Hopper (sm_90a) in fp32 on the CUDA cores:
+// two kernels, plain C interface for ctypes.
 //
 // Replaces the TPU Pallas kernels distributed_llms_example_tpu/ops/
 // flash_attention.py `_bwd_dq_kernel` (entry `flash_bwd_dq`) and
-// `_bwd_dkv_kernel` (entry `flash_bwd_dkv`), both reached through `_bwd`.
+// `_bwd_dkv_kernel` (entry `flash_bwd_dkv`), both reached through `_bwd`,
+// for fp32 inputs.  bf16 inputs go to the tensor-core kernels of
+// csrc/flash_bwd_tc.cu; fp32 stays here because the fp32 gradient checks
+// hold these products exactly or at 5e-6, which TF32 wgmma (about three
+// decimal digits) would not meet.
 // Given the forward's inputs, its lse and delta = rowsum(dO * O) (computed
 // by the wrapper, as the JAX package computes it outside its kernels), each
 // tile recomputes
@@ -20,7 +24,8 @@
 // k's dtype before the dq product and to q's dtype before the dk product,
 // p to dO's dtype before the dv product; every product accumulates in fp32.
 //
-// q, k, v, dO: (B, H, S, D) contiguous, fp32 or bf16 (one dtype); lse and
+// q, k, v, dO: (B, H, S, D) contiguous fp32 (the kernels' element type T
+// is a template parameter, instantiated for float only); lse and
 // delta (B, H, Sq) fp32; the fp32 `bias` is read through its element
 // strides (stride 0 for a size-1 dim) and may be null, and so is the
 // learned (1, H, Sq, Sk) `lbias` (T5's relative-position bias), read in its
@@ -35,14 +40,12 @@
 // attention-probs dropout).
 //
 // What bounds it on the H100: arithmetic.  At the encoder shape (8, 16,
-// 1024, 64) bf16 the dq pass does 6*B*H*S*S*D = 51.5 GFLOP and the dk/dv
-// pass 8*B*H*S*S*D = 68.7 GFLOP against ~84 MB / ~101 MB of traffic, so
-// both sit far right of the H100's ~295 FLOP/byte ridge.  This first
-// version does the arithmetic in fp32 on the CUDA cores, not the tensor
-// cores, exactly as the forward kernel does: one 64 x 64 score tile per
-// block in shared memory, register tiles of 4 x 4 scores and 4 x D/16
-// outputs per thread, every q/k/v/dO element read once per block.
-// Tensor-core (wgmma) tiles and TMA loads are later work.
+// 1024, 64) the dq pass does 6*B*H*S*S*D = 51.5 GFLOP and the dk/dv pass
+// 8*B*H*S*S*D = 68.7 GFLOP, far right of the ~295 FLOP/byte ridge.  The
+// design does that arithmetic in fp32 on the CUDA cores, as
+// csrc/flash_fwd.cu does for the forward: one 64 x 64 score tile per block
+// in shared memory, register tiles of 4 x 4 scores and 4 x D/16 outputs
+// per thread, every q/k/v/dO element read once per block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,9 +64,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
@@ -377,22 +377,17 @@ int dispatch(int which, int D, const Args& a, cudaStream_t s) {
   }
 }
 
-template <typename T>
-int dispatch_lb(int which, int D, int lb_bf16, const Args& a, cudaStream_t s) {
-  return lb_bf16 ? dispatch<T, __nv_bfloat16>(which, D, a, s) : dispatch<T, float>(which, D, a, s);
-}
-
 int run(int which, const void* q, const void* k, const void* v, const void* bias, long long bsb,
         long long bsh, long long bsq, long long bsk, const void* lbias, long long lsb,
         long long lsh, long long lsq, long long lsk, const void* dout, const void* lse,
         const void* delta, void* d1, void* d2, int B, int H, int Lq, int Lk, int D, float scale,
-        int causal, int is_bf16, int lb_bf16, void* stream) {
+        int causal, int lb_bf16, void* stream) {
   if (B == 0 || H == 0 || Lq == 0 || Lk == 0) return 0;
   const Args a{q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
                d1, d2, B, H, Lq, Lk, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? dispatch_lb<__nv_bfloat16>(which, D, lb_bf16, a, s)
-                 : dispatch_lb<float>(which, D, lb_bf16, a, s);
+  return lb_bf16 ? dispatch<float, __nv_bfloat16>(which, D, a, s)
+                 : dispatch<float, float>(which, D, a, s);
 }
 
 }  // namespace
@@ -402,9 +397,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             const void* lbias, long long lsb, long long lsh, long long lsq,
                             long long lsk, const void* dout, const void* lse, const void* delta,
                             void* dq, int B, int H, int Lq, int Lk, int D, float scale,
-                            int causal, int is_bf16, int lb_bf16, void* stream) {
+                            int causal, int lb_bf16, void* stream) {
   return run(0, q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
-             dq, nullptr, B, H, Lq, Lk, D, scale, causal, is_bf16, lb_bf16, stream);
+             dq, nullptr, B, H, Lq, Lk, D, scale, causal, lb_bf16, stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* bias,
@@ -412,7 +407,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const void* lbias, long long lsb, long long lsh, long long lsq,
                              long long lsk, const void* dout, const void* lse, const void* delta,
                              void* dk, void* dv, int B, int H, int Lq, int Lk, int D, float scale,
-                             int causal, int is_bf16, int lb_bf16, void* stream) {
+                             int causal, int lb_bf16, void* stream) {
   return run(1, q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
-             dk, dv, B, H, Lq, Lk, D, scale, causal, is_bf16, lb_bf16, stream);
+             dk, dv, B, H, Lq, Lk, D, scale, causal, lb_bf16, stream);
 }

@@ -111,6 +111,35 @@ def relative_position_bucket(relative_position: torch.Tensor, *, bidirectional: 
     return ret + table[torch.clamp(rel, max=max_distance)]
 
 
+class _BucketLookup(torch.autograd.Function):
+    """A bucket table's (q, kv, H) fp32 lookup by relative position, with a
+    deterministic backward.  ``F.embedding``'s CUDA backward scatters the
+    q·kv positions into the table's rows by atomics, so the table's
+    gradient changes in its last bits from run to run.  Here the upstream
+    gradient is summed along each diagonal of the (q, kv) grid first (one
+    relative position, so one bucket), by a skewed view and a plain
+    reduction, and the q + kv − 1 diagonal sums then go through a one-hot
+    (diagonals × buckets) product: the same sums in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, weight, buckets, diag_buckets):
+        ctx.save_for_backward(diag_buckets)
+        ctx.num_buckets = weight.shape[0]
+        return F.embedding(buckets, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (diag_buckets,) = ctx.saved_tensors
+        q, kv, h = g.shape
+        # rows reversed and padded by q, then read with a row length one
+        # shorter: row i lands shifted right by q - 1 - i, so column c holds
+        # diagonal c (relative position c - (q - 1)) of every row
+        x = F.pad(g.flip(0), (0, 0, 0, q))
+        x = x.reshape(q * (kv + q), h)[: q * (kv + q - 1)].reshape(q, kv + q - 1, h)
+        onehot = F.one_hot(diag_buckets, ctx.num_buckets).to(g.dtype)
+        return onehot.t() @ x.sum(0), None, None
+
+
 class T5Attention(MultiHeadAttention):
     """T5 attention: bias-free projections and unscaled scores (scale 1 on
     the kernel, decode and plain paths alike)."""
@@ -203,19 +232,24 @@ class T5Stack(nn.Module):
         kv_len) form of a continuous-batching decode step, each slot's
         positions counted from its own offset."""
         cfg = self.config
-        dev = self.relative_attention_bias.weight.device
+        table = self.relative_attention_bias
+        dev = table.weight.device
         off = torch.as_tensor(offset, device=dev).long()
         ar_q = torch.arange(q_len, device=dev)
         ar_k = torch.arange(kv_len, device=dev)
+        bucket = functools.partial(
+            relative_position_bucket, bidirectional=not self.causal,
+            num_buckets=cfg.relative_attention_num_buckets,
+            max_distance=cfg.relative_attention_max_distance)
         if off.dim() == 1:
             rel = ar_k[None, None, :] - (off[:, None, None] + ar_q[None, :, None])  # (B, q, kv)
+            bias = table(bucket(rel)).permute(0, 3, 1, 2)  # (B, H, q, kv) fp32
         else:
             rel = ar_k[None, :] - (ar_q[:, None] + off)  # (q, kv)
-        buckets = relative_position_bucket(
-            rel, bidirectional=not self.causal, num_buckets=cfg.relative_attention_num_buckets,
-            max_distance=cfg.relative_attention_max_distance)
-        bias = self.relative_attention_bias(buckets)  # (..., q, kv, H) fp32
-        bias = bias.permute(0, 3, 1, 2) if off.dim() == 1 else bias.permute(2, 0, 1)[None]
+            # the relative position of diagonal c of the (q, kv) grid
+            diag = torch.arange(-(q_len - 1), kv_len, device=dev) - off
+            bias = _BucketLookup.apply(table.weight, bucket(rel), bucket(diag))
+            bias = bias.permute(2, 0, 1)[None]  # (1, H, q, kv) fp32
         return bias.to(self.dtype).contiguous()
 
     def forward(self, hidden, attention_mask=None, encoder_hidden=None, encoder_mask=None, *,

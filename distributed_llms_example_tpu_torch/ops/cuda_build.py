@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C function and is compiled on its
 own into ``build/kernels/lib<name>-<hash>.so`` at the repository root (the
-hash is of the source, so an edited kernel rebuilds and a stale library is
-never loaded).  Nothing outside the repository's sources goes into a
-build: no PyTorch headers, no CUTLASS — a kernel builds in seconds.
+hash is of the source and of every shared ``csrc/*.cuh`` header, so an
+edited kernel or header rebuilds and a stale library is never loaded).
+Nothing outside the repository's sources goes into a build: no PyTorch
+headers, no CUTLASS — a kernel builds in seconds.
 
 ``build(names)`` starts one ``nvcc`` per source, all at once, and waits
 for every one; ``load(name, argtypes[, symbol])`` builds if needed and
@@ -45,8 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source and
+    of every header under ``csrc/`` (any of which it may include)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | tuple[str, ...], *, verbose: bool = False) -> dict[str, float]:

@@ -8,14 +8,15 @@ wrapper with three parts:
   wrapper runs for tensors on the CPU and which the chip check holds the
   kernel against;
 - the **CUDA kernel** (``csrc/flash_fwd_tc.cu`` for bf16 and
-  ``csrc/flash_fwd.cu`` for fp32, ``csrc/flash_bwd.cu`` with
-  its two entries dq and dk/dv, ``csrc/flash_bwd_dlbias.cu``,
+  ``csrc/flash_fwd.cu`` for fp32; ``csrc/flash_bwd_tc.cu`` for bf16 and
+  ``csrc/flash_bwd.cu`` for fp32, each with two entries, dq and dk/dv;
+  ``csrc/flash_bwd_dlbias.cu``,
   ``csrc/flash_decode.cu``, ``csrc/flash_decode_paged.cu``), which the
   wrapper launches for tensors on a CUDA device — or raises: there is no
   fallback from a CUDA tensor to the plain version;
-- a **launch counter** (``flash_attention.launches``, with
-  ``flash_attention.tc_launches`` counting its bf16 tensor-core launches,
-  ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``,
+- a **launch counter** (``flash_attention.launches``,
+  ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``, each with a
+  ``tc_launches`` counting its bf16 tensor-core launches,
   ``flash_bwd_dlbias.launches``, ``flash_decode.launches``,
   ``flash_decode_paged.launches``): a plain integer bumped where the
   kernel is launched and nowhere else.
@@ -375,17 +376,69 @@ def flash_attention_bwd_plain(q, k, v, bias, o, lse, do, *, lbias=None, causal=F
     return (_dq_plain(q, k, ds), *_dkv_plain(q, k, v, do, p, ds))
 
 
+# kernels 2 and 3 in bf16 (csrc/flash_bwd_tc.cu): 128 query rows (dq) or
+# keys (dk/dv) a CTA as two warpgroups, a two-stage ring of 64-key tiles
+# (dq) or of query tiles (dk/dv: 64, or 32 at head dim 128, which keeps dK,
+# dV, Sᵀ and dPᵀ in registers); fp32 (csrc/flash_bwd.cu): 64 x 64 tiles
+BWD_TC_ROWS = 128
+BWD_BLOCK = 64
+BWD_TC_STAGES = 2
+
+def bwd_plan(dtype: torch.dtype, head_dim: int, batch: int, heads: int, q_len: int,
+             kv_len: int, lbias_dtype: torch.dtype | None = None) -> dict:
+    """How kernels 2 and 3 are launched for these shapes: ``{"dq": ...,
+    "dkv": ...}``, each with the library and C entry, ``rows`` (query rows
+    of a dq CTA, keys of a dk/dv CTA), ``block`` (the tile streamed past
+    them: keys for dq, queries for dk/dv), ring ``stages``, dynamic
+    shared-memory bytes, threads and grid.  bf16 goes to the tensor-core
+    kernels (``csrc/flash_bwd_tc.cu``), which check that the bytes are
+    their ``DqSmem``/``DkvSmem`` layouts'; fp32 stays on the CUDA-core
+    kernels (``csrc/flash_bwd.cu``), whose fp32 products the fp32 gradient
+    checks hold exactly or at 5e-6, which TF32 tensor cores would not
+    meet."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward kernels have no instance for head_dim "
+                         f"{head_dim} (built for {KERNEL_HEAD_DIMS})")
+    d, bh = head_dim, batch * heads
+    if dtype == torch.float32:
+        r = BWD_BLOCK  # csrc/flash_bwd.cu dq_smem_floats / dkv_smem_floats
+        dq_smem = (2 * r * d + 2 * r * (d + 1) + r * (r + 1) + 2 * r) * 4
+        dkv_smem = (2 * r * (d + 1) + 2 * r * d + 2 * r * (r + 1) + 2 * r) * 4
+        common = dict(lib="flash_bwd", rows=r, block=r, stages=1, threads=256)
+        return {"dq": dict(common, entry="flash_bwd_dq", smem_bytes=dq_smem,
+                           grid=(-(-q_len // r), bh)),
+                "dkv": dict(common, entry="flash_bwd_dkv", smem_bytes=dkv_smem,
+                            grid=(-(-kv_len // r), bh))}
+    if dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention backward kernels take fp32 or bf16, not {dtype}")
+    lb = 0 if lbias_dtype is None else torch.finfo(lbias_dtype).bits // 8
+    rows, bk, bq, st = BWD_TC_ROWS, BWD_BLOCK, 32 if d == 128 else 64, BWD_TC_STAGES
+    # Q and dO, then per stage K, V, the learned-bias tile (rows padded by 8
+    # elements) and the key-bias tile; 1024 bytes align the swizzle base
+    dq_smem = 2 * rows * d * 2 + st * (2 * bk * d * 2 + rows * (bk + 8) * lb + bk * 4) + 1024
+    # K and V, then per stage Q, dO, the learned-bias tile (bq rows of 128
+    # keys padded by 16 bytes), lse and delta
+    lb_stage = bq * (rows * lb + 16) if lb else 0
+    dkv_smem = 2 * rows * d * 2 + st * (2 * bq * d * 2 + lb_stage + 2 * bq * 4) + 1024
+    common = dict(lib="flash_bwd_tc", rows=rows, stages=st, threads=2 * rows, lb_bytes=lb)
+    return {"dq": dict(common, entry="flash_bwd_dq_tc", block=bk, smem_bytes=dq_smem,
+                       grid=(-(-q_len // rows), bh)),
+            "dkv": dict(common, entry="flash_bwd_dkv_tc", block=bq, smem_bytes=dkv_smem,
+                        grid=(-(-kv_len // rows), bh))}
+
+
 _BWD_ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
 )
-_BWD_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# (B, H, Lq, Lk, D, scale, causal), then each library's own ints and the stream
+_BWD_SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int]
 
 
-def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale, lbias=None,
-              lib="flash_bwd"):
-    """Launch a backward kernel: the dq or dk/dv entry of ``flash_bwd``, or
-    ``flash_bwd_dlbias`` (``lib``), after the shared input checks."""
+def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale, lbias=None) -> str:
+    """Launch a backward kernel after the shared input checks: kernel 2 or
+    3 (``entry`` flash_bwd_dq / flash_bwd_dkv) through ``bwd_plan``, or
+    kernel 4 (flash_bwd_dlbias).  Returns the library it launched."""
     dev = cuda_build.check_inputs(entry, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                                           "delta": delta})
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
@@ -399,30 +452,44 @@ def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale, lbia
         raise ValueError(f"{entry} kernel has no instance for head_dim {D} "
                          f"(built for {KERNEL_HEAD_DIMS})")
     bias, lbias, lb_bf16 = _kernel_biases(entry, dev, bias, lbias)
-    fn = cuda_build.load(lib, _BWD_ARGTYPES + [ctypes.c_void_p] * len(outs) + _BWD_TAIL, entry)
+    if entry == "flash_bwd_dlbias":
+        lib, tail = entry, (int(q.dtype == torch.bfloat16), lb_bf16)
+    else:
+        plan = bwd_plan(q.dtype, D, B, H, Lq, k.shape[2],
+                        None if lbias is None else lbias.dtype)[entry.removeprefix("flash_bwd_")]
+        lib, entry = plan["lib"], plan["entry"]
+        tail = (plan["lb_bytes"], plan["smem_bytes"]) if lib == "flash_bwd_tc" else (lb_bf16,)
+    argtypes = (_BWD_ARGTYPES + [ctypes.c_void_p] * len(outs) + _BWD_SHAPE
+                + [ctypes.c_int] * len(tail) + [ctypes.c_void_p])
+    fn = cuda_build.load(lib, argtypes, entry)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias), *_bias_args(lbias),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), B, H,
-             Lq, k.shape[2], D, float(scale), int(causal), int(q.dtype == torch.bfloat16),
-             lb_bf16, torch.cuda.current_stream(dev).cuda_stream)
+             Lq, k.shape[2], D, float(scale), int(causal), *tail,
+             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, entry)
+    return lib
 
 
 def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, lbias=None, causal: bool, scale: float):
     """dq of flash attention (kernel 2) from the saved forward inputs, lse,
     delta and dO.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel."""
+    launches the kernel: bf16 the tensor-core one, fp32 the CUDA-core one
+    (``bwd_plan``)."""
     if q.device.type == "cpu":
         _, ds = _bwd_plain(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal,
                            scale=scale)
         return _dq_plain(q, k, ds)
     dq = torch.empty_like(q)
-    _bwd_cuda("flash_bwd_dq", q, k, v, bias, do, lse, delta, (dq,), causal=causal, scale=scale,
-              lbias=lbias)
+    if _bwd_cuda("flash_bwd_dq", q, k, v, bias, do, lse, delta, (dq,), causal=causal,
+                 scale=scale, lbias=lbias) == "flash_bwd_tc":
+        flash_bwd_dq.tc_launches += 1
     flash_bwd_dq.launches += 1
     return dq
 
 
 flash_bwd_dq.launches = 0
+# the bf16 launches among them, which went to the tensor-core entry
+flash_bwd_dq.tc_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, bias, do, lse, delta, *, lbias=None, causal: bool, scale: float):
@@ -432,13 +499,15 @@ def flash_bwd_dkv(q, k, v, bias, do, lse, delta, *, lbias=None, causal: bool, sc
                            scale=scale)
         return _dkv_plain(q, k, v, do, p, ds)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_cuda("flash_bwd_dkv", q, k, v, bias, do, lse, delta, (dk, dv), causal=causal,
-              scale=scale, lbias=lbias)
+    if _bwd_cuda("flash_bwd_dkv", q, k, v, bias, do, lse, delta, (dk, dv), causal=causal,
+                 scale=scale, lbias=lbias) == "flash_bwd_tc":
+        flash_bwd_dkv.tc_launches += 1
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.tc_launches = 0
 
 
 def _dlbias_plain(q, k, v, bias, lbias, do, lse, delta, *, causal, scale):
@@ -463,7 +532,7 @@ def flash_bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, *, causal: bool, scal
         return _dlbias_plain(q, k, v, bias, lbias, do, lse, delta, causal=causal, scale=scale)
     out = torch.empty(lbias.shape, dtype=lbias.dtype, device=q.device)
     _bwd_cuda("flash_bwd_dlbias", q, k, v, bias, do, lse, delta, (out,), causal=causal,
-              scale=scale, lbias=lbias, lib="flash_bwd_dlbias")
+              scale=scale, lbias=lbias)
     flash_bwd_dlbias.launches += 1
     return out
 

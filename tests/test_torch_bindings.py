@@ -51,13 +51,13 @@ def _fwd(dtype, lb_dtype):
     fa._flash_fwd_cuda(q, k, v, _t(2, 1, 1, 80), lb, causal=False, scale=0.125)
 
 
-def _bwd(entry, lib, n_out, with_lb):
-    q, k, v, do = (_t(2, 2, 64, 32, dtype=torch.bfloat16) for _ in range(4))
+def _bwd(entry, n_out, dtype, lb_dtype, d=32):
+    q, k, v, do = (_t(2, 2, 64, d, dtype=dtype) for _ in range(4))
     lse, delta = _t(2, 2, 64), _t(2, 2, 64)
-    lb = _t(1, 2, 64, 64, dtype=torch.bfloat16) if with_lb else None
+    lb = None if lb_dtype is None else _t(1, 2, 64, 64, dtype=lb_dtype)
     outs = tuple(torch.empty_like(q) for _ in range(n_out))
-    fa._bwd_cuda(entry, q, k, v, None, do, lse, delta, outs, causal=True, scale=0.125,
-                 lbias=lb, lib=lib)
+    return fa._bwd_cuda(entry, q, k, v, None, do, lse, delta, outs, causal=True, scale=0.125,
+                        lbias=lb)
 
 
 def _decode():
@@ -90,9 +90,15 @@ WRAPPERS = {
     "flash_fwd fp32": lambda: _fwd(torch.float32, torch.float32),
     "flash_fwd_tc bf16": lambda: _fwd(torch.bfloat16, None),
     "flash_fwd_tc bf16 learned bias": lambda: _fwd(torch.bfloat16, torch.bfloat16),
-    "flash_bwd_dq": lambda: _bwd("flash_bwd_dq", "flash_bwd", 1, False),
-    "flash_bwd_dkv": lambda: _bwd("flash_bwd_dkv", "flash_bwd", 2, False),
-    "flash_bwd_dlbias": lambda: _bwd("flash_bwd_dlbias", "flash_bwd_dlbias", 1, True),
+    "flash_bwd_dq": lambda: _bwd("flash_bwd_dq", 1, torch.float32, torch.float32),
+    "flash_bwd_dkv": lambda: _bwd("flash_bwd_dkv", 2, torch.float32, None),
+    "flash_bwd_dq_tc bf16": lambda: _bwd("flash_bwd_dq", 1, torch.bfloat16, None),
+    "flash_bwd_dq_tc bf16 learned bias": lambda: _bwd("flash_bwd_dq", 1, torch.bfloat16,
+                                                      torch.bfloat16),
+    "flash_bwd_dkv_tc bf16": lambda: _bwd("flash_bwd_dkv", 2, torch.bfloat16, None),
+    "flash_bwd_dkv_tc bf16 learned bias": lambda: _bwd("flash_bwd_dkv", 2, torch.bfloat16,
+                                                       torch.float32),
+    "flash_bwd_dlbias": lambda: _bwd("flash_bwd_dlbias", 1, torch.bfloat16, torch.bfloat16),
     "flash_decode": _decode,
     "flash_decode_paged": _paged,
     "fused_dropout": _dropout,
@@ -119,9 +125,10 @@ def loads(monkeypatch):
                         lambda what, tensors: next(iter(tensors.values())).device)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
     for counter in (fa.flash_attention, fa.flash_decode, fa.flash_decode_paged,
-                    fd.fused_dropout, fo.fused_adamw_leaf):
+                    fd.fused_dropout, fo.fused_adamw_leaf, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         monkeypatch.setattr(counter, "launches", counter.launches)
-    monkeypatch.setattr(fa.flash_attention, "tc_launches", fa.flash_attention.tc_launches)
+    for counter in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        monkeypatch.setattr(counter, "tc_launches", counter.tc_launches)
     return seen
 
 
@@ -161,3 +168,22 @@ def test_fp32_forward_binds_the_cuda_core_entry(loads):
     _fwd(torch.float32, None)
     assert [lib for lib, _, _, _ in loads] == ["flash_fwd"]
     assert fa.flash_attention.tc_launches == tc_before
+
+
+def test_bf16_backward_binds_only_the_tensor_core_entries(loads):
+    """bf16 kernel-2 and kernel-3 launches reach flash_bwd_tc at every head
+    dim, with or without a learned bias; nothing routes bf16 to the
+    CUDA-core entries of flash_bwd."""
+    for d in fa.KERNEL_HEAD_DIMS:
+        for lb in (None, torch.bfloat16, torch.float32):
+            for entry, n_out in (("flash_bwd_dq", 1), ("flash_bwd_dkv", 2)):
+                assert _bwd(entry, n_out, torch.bfloat16, lb, d) == "flash_bwd_tc"
+    assert {lib for lib, _, _, _ in loads} == {"flash_bwd_tc"}
+    assert {sym for _, sym, _, _ in loads} == {"flash_bwd_dq_tc", "flash_bwd_dkv_tc"}
+    assert len(loads) == 2 * 3 * len(fa.KERNEL_HEAD_DIMS)
+
+
+def test_fp32_backward_binds_the_cuda_core_entries(loads):
+    for entry, n_out in (("flash_bwd_dq", 1), ("flash_bwd_dkv", 2)):
+        assert _bwd(entry, n_out, torch.float32, None) == "flash_bwd"
+    assert [sym for _, sym, _, _ in loads] == ["flash_bwd_dq", "flash_bwd_dkv"]

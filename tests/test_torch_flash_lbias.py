@@ -171,7 +171,7 @@ def test_learned_bias_shape_is_checked():
     lse = torch.zeros(2, 2, 32)
     with pytest.raises(ValueError, match="expected a CUDA device"):
         tfa._bwd_cuda("flash_bwd_dlbias", x, x, x, None, x, lse, lse, (x,), causal=False,
-                      scale=1.0, lbias=torch.zeros(1, 2, 32, 32), lib="flash_bwd_dlbias")
+                      scale=1.0, lbias=torch.zeros(1, 2, 32, 32))
 
 
 def test_kernel_biases_pass_the_learned_bias_uncopied():
