@@ -10,10 +10,14 @@ through the flat cache, and checks that each run went through its kernels.
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
-  2. build: one nvcc per kernel source, all nine at once (ptxas report);
-     the HGMMA instructions of every instance of the tensor-core forward
-     and of both tensor-core backward kernels (cuobjdump -sass), none of
-     which may have 0
+  2. build: one nvcc per kernel source, all ten at once (ptxas report);
+     the HGMMA instructions of every instance of the tensor-core forward,
+     of both tensor-core backward kernels and of the tensor-core
+     learned-bias gradient (cuobjdump -sass), none of which may have 0;
+     every instance of the last must have no stack frame and no local
+     memory, hence no spill (cuobjdump -res-usage, read from the built
+     library, so a cached build is checked too); each tensor-core
+     instance's registers, stack frame and local memory reported
   3. kernels vs plain versions at the main paths' shapes and at lengths no
      tile divides, timed with CUDA events beside the plain version, the
      library yardstick (never called by the port) and the bound
@@ -40,6 +44,13 @@ Phases (each fatal, non-zero exit, no result line):
        (read by the dk/dv kernel) must break that limit by 10x; kernels 2
        and 3 timed on both branches with their bounds over the live keys
        (the tiles the mask zeroes are skipped) and over all keys;
+     - the tensor-core learned-bias gradient (kernel 4, bf16) at head dims
+       16, 32, 64 and 128 (padding S = 1024 and 1000, causal 128 and 200,
+       -inf rows; a learned bias in bf16 and in fp32): within 2e-2 of the
+       plain version's largest entry and, against an fp32 reference,
+       within 1.5x the plain bf16 path's own error; exactly 0 on -inf rows
+       and above the diagonal; two launches bit-equal; Q and dO rows
+       permuted inside one query tile must break that limit by 10x;
      - fused dropout: exactly equal in bf16 and fp32, kept fraction within
        1e-3 of 1 - rate;
      - fused AdamW: p', mu', nu' within AdamW_RTOL, health sums within
@@ -47,6 +58,7 @@ Phases (each fatal, non-zero exit, no result line):
      - paged flash decode at the llama-2-7b decode shape (72-block pool in
        scrambled order, sentinel tiles in the prompt gap and past the
        budget, padding bias; Q = 1 and 8, bf16 / fp32 / int8 / GQA 32:8,
+       and a pool of 32-slot blocks, so that one 64-slot tile spans two;
        the limits of flash decode); flash decode over the gathered view of
        the same blocks against the same plain output (the flat LLaMA
        path's d = 128 shape) and bit for bit against paged decode; and a
@@ -58,13 +70,14 @@ Phases (each fatal, non-zero exit, no result line):
        decoder (8, 16, 128, 64), -inf rows (the same limits; dlbias within
        2e-2 bf16 / 1e-4 fp32 of its largest entry, exactly 0 on dead rows
        and above the causal diagonal); kernel 4 summing B - 1 rows must
-       break the fp32 limit by orders of magnitude; SDPA forward + backward
+       break the fp32 limit by orders of magnitude; kernel 4 timed with its
+       bound over the live keys and over all keys; SDPA forward + backward
        with the bias as a grad-requiring mask as the yardstick, and SDPA
        forward with the summed masks beside kernel 1
   4. serve: the CLI's serve entry in-process, bart-large-cnn, bf16, seed 0,
      16 prompts of 200-1024 byte-tokens, 8 slots, 128 new tokens, source
      1024; launch counters zeroed before and read after (on every bf16 main
-     path each launch of kernels 1-3 must be a tensor-core one); first-step logits
+     path each launch of kernels 1-4 must be a tensor-core one); first-step logits
      with the kernels vs with their plain versions (fp32 atol 1e-4, which a
      decode mask shifted by one must break), plus the difference from plain
      softmax attention and the greedy token match rate of a whole serve run
@@ -115,7 +128,7 @@ Phases (each fatal, non-zero exit, no result line):
      steps, paged and flat, kernel path vs plain path within 1e-4; a
      decode offset shifted by one must break it on each route
  13. a {"kernels_unported": []} line (every TPU kernel has a port), a
-     {"kernels": [...]} line of all eight (kernels 1-3 name both sources),
+     {"kernels": [...]} line of all eight (kernels 1-4 name both sources),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -173,9 +186,9 @@ T5_FP32_ATOL = 1e-4
 # ulps of headroom for a library sqrt or division that rounds differently
 ADAMW_RTOL = 2.4e-7
 WORK = os.path.join(HERE, "build", "chip_smoke")
-KERNELS = ["flash_fwd_tc", "flash_bwd_tc", "flash_fwd", "flash_decode", "flash_bwd",
-           "flash_bwd_dlbias", "fused_dropout", "fused_adamw", "flash_decode_paged"]
-# kernels 1-3 in bf16 against an fp32 reference on the same bf16 values:
+KERNELS = ["flash_fwd_tc", "flash_bwd_tc", "flash_bwd_dlbias_tc", "flash_fwd", "flash_decode",
+           "flash_bwd", "flash_bwd_dlbias", "fused_dropout", "fused_adamw", "flash_decode_paged"]
+# kernels 1-4 in bf16 against an fp32 reference on the same bf16 values:
 # their error may be at most this factor times the plain bf16 path's own
 TC_REF_FACTOR = 1.5
 # a tile whose rows are permuted (what a wrong swizzle does) must break
@@ -638,9 +651,122 @@ def tc_backward_phase(torch, fa):
     return worst
 
 
+def tc_dlbias_phase(torch, fa):
+    """Kernel 4's tensor-core entry (bf16) at every head dim it is built
+    for, in the cases the train paths give it: the encoder's (8, 16, 1024,
+    d) and a 1000-token source with a ragged padding mask, the causal
+    decoder at 128 and 200, and -inf rows; each with a learned bias in bf16
+    and in fp32 (scale 1, q scaled by d^-1/2 as T5's init does).  o and lse
+    come from kernel 1.  Each case holds dlbias against the plain version
+    (within 2e-2 of its largest entry) and against an fp32 reference (the
+    exact gradient on the same bf16 values), where it may be at most
+    TC_REF_FACTOR times the plain bf16 path's own error; exactly 0 on -inf
+    rows and above the causal diagonal; two launches bit-equal; every
+    launch on the tensor-core entry.  A planted fault, Q's and dO's rows
+    permuted inside one query tile (lse and delta in order), must break
+    that limit by TC_FAULT_FACTOR.  Returns the largest error against the
+    plain version."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    B, H = 8, 16
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(torch.bfloat16)
+
+    def pad_bias(K):
+        lens = torch.randint(K // 5, K + 1, (B,), generator=gen, device=dev)
+        b = torch.where(torch.arange(K, device=dev)[None, :] < lens[:, None], 0.0, -1e9)
+        return b[:, None, None, :].float().contiguous()
+
+    def reference(q, k, v, do, bias, lb, causal):
+        """The exact gradient at these bf16 values, in fp32."""
+        qf, kf, vf, dof, lbf = q.float(), k.float(), v.float(), do.float(), lb.float()
+        of, lsef = fa.flash_attention_plain(qf, kf, vf, bias, lbias=lbf, causal=causal, scale=1.0)
+        return fa._dlbias_plain(qf, kf, vf, bias, lbf, dof, lsef, fa.attention_delta(dof, of),
+                                causal=causal, scale=1.0)
+
+    def max_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    worst, fault = 0.0, None
+    S = 1024
+    dead = torch.tensor([0, 7, 500, S - 1], device=dev)
+    dead_bias = torch.zeros(B, 1, S, S, device=dev)
+    dead_bias[:, :, dead, :] = -float("inf")
+    for D in fa.KERNEL_HEAD_DIMS:
+        cases = [("encoder padding S=1024", 1024, dict(bias=pad_bias(1024))),
+                 ("ragged padding S=1000", 1000, dict(bias=pad_bias(1000))),
+                 ("causal S=128", 128, dict(causal=True)),
+                 ("ragged causal S=200", 200, dict(causal=True)),
+                 ("-inf rows S=1024", 1024, dict(bias=dead_bias))]
+        for name, L, kw in cases:
+            bias, causal = kw.get("bias"), kw.get("causal", False)
+            q = rnd(B, H, L, D, s=D ** -0.5)
+            k, v, do = rnd(B, H, L, D), rnd(B, H, L, D), rnd(B, H, L, D)
+            for lb_dtype in (torch.bfloat16, torch.float32):
+                lb = rnd(1, H, L, L, s=0.5).to(lb_dtype)
+                o, lse = fa.flash_attention(q, k, v, bias, learned_bias=lb, causal=causal,
+                                            scale=1.0, return_lse=True)
+                delta = fa.attention_delta(do, o)
+                kw4 = dict(causal=causal, scale=1.0)
+                tc_before = fa.flash_bwd_dlbias.tc_launches
+                dlb = fa.flash_bwd_dlbias(q, k, v, bias, lb, do, lse, delta, **kw4)
+                again = fa.flash_bwd_dlbias(q, k, v, bias, lb, do, lse, delta, **kw4)
+                want = fa._dlbias_plain(q, k, v, bias, lb, do, lse, delta, **kw4)
+                ref = reference(q, k, v, do, bias, lb, causal)
+                torch.cuda.synchronize()
+                case = f"flash_bwd_dlbias_tc {name} d={D} lbias {lb_dtype}"
+                if fa.flash_bwd_dlbias.tc_launches - tc_before != 2:
+                    fail(f"{case}: a bf16 launch missed the tensor-core entry")
+                if dlb.dtype != lb_dtype or dlb.shape != lb.shape:
+                    fail(f"{case}: {dlb.dtype} {tuple(dlb.shape)} for a learned bias of "
+                         f"{lb_dtype} {tuple(lb.shape)}")
+                worst = max(worst, check_rel(case, dlb, want, limit=2e-2))
+                kernel_err, plain_err = max_err(dlb, ref), max_err(want, ref)
+                limit = TC_REF_FACTOR * plain_err
+                ok = kernel_err <= limit
+                say({"phase": "kernel_check", "case": f"{case} vs fp32 reference",
+                     "kernel_err": kernel_err, "plain_bf16_err": plain_err, "limit": limit,
+                     "ratio": kernel_err / max(plain_err, 1e-30), "ok": ok})
+                if not ok:
+                    fail(f"{case}: {kernel_err} from the fp32 reference, beyond "
+                         f"{TC_REF_FACTOR}x the plain bf16 path's {plain_err}")
+                if not torch.equal(dlb, again):
+                    fail(f"{case}: two launches on the same inputs differ")
+                if causal and bool(torch.triu(dlb[0].float().abs(), diagonal=1).any()):
+                    fail(f"{case}: non-zero gradient above the causal diagonal")
+                if "-inf" in name and bool(dlb[:, :, dead].any()):
+                    fail(f"{case}: non-zero gradient on fully-masked rows")
+                if D == 64 and name.startswith("encoder") and lb_dtype == torch.bfloat16:
+                    fault = (q, k, v, do, bias, lb, lse, delta, ref, limit)
+                del o, lse, delta, dlb, again, want, ref
+    say({"phase": "kernel_check", "case": "flash_bwd_dlbias_tc launched twice on each case's "
+         "inputs", "bit_equal": True})
+    # planted fault: Q's and dO's rows 0-63 read as r ^ 7 (an 8-row swizzle
+    # phase off), lse and delta in order
+    q, k, v, do, bias, lb, lse, delta, ref, limit = fault
+    perm = torch.arange(64, device=dev) ^ 7
+
+    def permuted(x):
+        y = x.clone()
+        y[:, :, :64] = x[:, :, perm]
+        return y
+
+    bad = fa.flash_bwd_dlbias(permuted(q), k, v, bias, lb, permuted(do), lse, delta,
+                              causal=False, scale=1.0)
+    torch.cuda.synchronize()
+    times = max_err(bad, ref) / limit
+    say({"phase": "kernel_check", "case": "flash_bwd_dlbias_tc planted fault: Q and dO rows "
+         "permuted in one query tile", "times_limit": times, "must_exceed": TC_FAULT_FACTOR})
+    if not times >= TC_FAULT_FACTOR:
+        fail(f"flash_bwd_dlbias_tc planted fault reads {times}x the limit, under "
+             f"{TC_FAULT_FACTOR}x")
+    return worst
+
+
 def bwd_work(bias, B, H, S, D, per_key):
     """(flops over the live keys, flops over all keys) of kernel 2
-    (``per_key`` 6: S, dP, dQ) or 3 (8: S, dP, dV, dK) at (B, H, S, S, D)
+    (``per_key`` 6: S, dP, dQ), 3 (8: S, dP, dV, dK) or 4 (4: S, dP) at (B, H, S, S, D)
     under a (B, 1, 1, S) padding mask: the kernels skip the tiles the mask
     zeroes, so only each row's live keys (bias above -1e8) need the
     products."""
@@ -648,46 +774,94 @@ def bwd_work(bias, B, H, S, D, per_key):
     return per_key * H * S * keys * D, per_key * B * H * S * S * D
 
 
-def hgmma_counts(cuda_build, lib: str, kernel: str, params: tuple) -> dict:
-    """{kernel instance: HGMMA instructions} of every instance of the
-    template ``kernel`` in the built library ``lib``, from ``cuobjdump
-    -sass``; an instance is named by its int template arguments
+def cuobjdump_instances(cuda_build, lib: str, kernel: str, params: tuple, flag: str) -> dict:
+    """{kernel instance: the lines cuobjdump ``flag`` prints for it} of
+    every instance of the template ``kernel`` in the built library ``lib``
+    (read from the library itself, so a cached build is read as a fresh
+    one); an instance is named by its int template arguments
     (``params``)."""
     import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "-sass", str(cuda_build.library_path(lib))],
+    out = subprocess.run([tool, flag, str(cuda_build.library_path(lib))],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
-        fail(f"cuobjdump -sass failed: {out.stderr.strip()[:300]}")
-    counts, name = {}, None
+        fail(f"cuobjdump {flag} failed: {out.stderr.strip()[:300]}")
+    found, name = {}, None
     for line in out.stdout.splitlines():
-        if "Function :" in line:
+        if line.lstrip().startswith("Function"):
             m = re.search(kernel + r"I((?:Li\d+E)+)E", line)
             name = None
             if m:
                 args = re.findall(r"Li(\d+)E", m.group(1))
                 name = " ".join(f"{p}={a}" for p, a in zip(params, args))
-                counts[name] = 0
-        elif name and "HGMMA" in line:
-            counts[name] += 1
-    return counts
+                found[name] = []
+        elif name:
+            found[name].append(line)
+    return found
+
+
+def hgmma_counts(cuda_build, lib: str, kernel: str, params: tuple) -> dict:
+    """{kernel instance: HGMMA instructions in its SASS (cuobjdump -sass)}."""
+    return {name: sum("HGMMA" in line for line in lines) for name, lines in
+            cuobjdump_instances(cuda_build, lib, kernel, params, "-sass").items()}
+
+
+def resource_usage(cuda_build, lib: str, kernel: str, params: tuple) -> dict:
+    """{kernel instance: {"registers", "stack_bytes", "local_bytes"}} from
+    cuobjdump -res-usage.  A register spill goes to the thread's stack
+    frame, so a 0-byte stack frame means 0 bytes of spill."""
+    import re
+
+    out = {}
+    for name, lines in cuobjdump_instances(cuda_build, lib, kernel, params,
+                                           "-res-usage").items():
+        use = next((dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", line)) for line in lines
+                    if "REG:" in line), {})
+        if set(use) != {"REG", "STACK", "LOCAL"}:
+            fail(f"cuobjdump -res-usage gives no REG/STACK/LOCAL for {kernel} {name}: {lines}")
+        out[name] = {"registers": int(use["REG"]), "stack_bytes": int(use["STACK"]),
+                     "local_bytes": int(use["LOCAL"])}
+    return out
 
 
 # each tensor-core kernel template: (library, kernel, template parameters)
 TC_KERNELS = [("flash_fwd_tc", "flash_fwd_tc_kernel", ("d", "rows", "lbias_bytes")),
               ("flash_bwd_tc", "flash_bwd_dq_tc_kernel", ("d", "lbias_bytes")),
-              ("flash_bwd_tc", "flash_bwd_dkv_tc_kernel", ("d", "lbias_bytes"))]
+              ("flash_bwd_tc", "flash_bwd_dkv_tc_kernel", ("d", "lbias_bytes")),
+              ("flash_bwd_dlbias_tc", "flash_bwd_dlbias_tc_kernel", ("d", "lbias_bytes"))]
+# kernels whose every instance must have no stack frame and no local
+# memory, hence no spill
+NO_SPILL = ("flash_bwd_dlbias_tc_kernel",)
+
+
+def sass_phase(cuda_build, kernels=TC_KERNELS) -> None:
+    """Every instance of each tensor-core kernel in its built library has
+    HGMMA instructions, and every instance of a ``NO_SPILL`` kernel has no
+    stack frame and no local memory.  Both are read from the libraries,
+    whether this run built them or found them built."""
+    for lib, kernel, params in kernels:
+        hgmma = hgmma_counts(cuda_build, lib, kernel, params)
+        usage = resource_usage(cuda_build, lib, kernel, params)
+        say({"phase": "sass", "library": lib, "kernel": kernel, "hgmma_per_instance": hgmma,
+             "hgmma_total": sum(hgmma.values()), "resources_per_instance": usage})
+        if not hgmma or min(hgmma.values()) == 0:
+            fail(f"{kernel}: an instance has no HGMMA instruction: {hgmma}")
+        if kernel in NO_SPILL and (set(usage) != set(hgmma) or any(
+                v["stack_bytes"] or v["local_bytes"] for v in usage.values())):
+            fail(f"{kernel}: an instance spills (stack frame or local memory) or is missing "
+                 f"from cuobjdump -res-usage: {usage}")
 
 
 def tensor_core_route(fa, run: str, launches: dict) -> None:
-    """Every bf16 launch of kernels 1, 2 and 3 in a main-path run (all of
-    its launches: every main path runs bf16) went to the tensor-core
+    """Every bf16 launch of kernels 1, 2, 3 and 4 in a main-path run (all
+    of its launches: every main path runs bf16) went to the tensor-core
     entry."""
     pairs = {"flash_attention_fwd": fa.flash_attention.tc_launches,
              "flash_attention_bwd_dq": fa.flash_bwd_dq.tc_launches,
-             "flash_attention_bwd_dkv": fa.flash_bwd_dkv.tc_launches}
+             "flash_attention_bwd_dkv": fa.flash_bwd_dkv.tc_launches,
+             "flash_attention_bwd_dlbias": fa.flash_bwd_dlbias.tc_launches}
     say({"phase": "tensor_core_route", "run": run,
          "launches": {k: launches.get(k, 0) for k in pairs}, "tensor_core_launches": pairs})
     for k, tc in pairs.items():
@@ -941,6 +1115,9 @@ def lbias_kernel_phase(torch, fa):
     # counts the live keys' products, beside it the bound over all keys
     dq_flops, dq_all = bwd_work(bias, B, H, S, D, 6)
     dkv_flops, dkv_all = bwd_work(bias, B, H, S, D, 8)
+    # kernel 4 skips what the padding mask zeroes as well (per warpgroup
+    # tile and batch row): the same two bounds over its two products
+    dlb_flops, dlb_all = bwd_work(bias, B, H, S, D, 4)
     for name, fn, plain, flops, every, nbytes, dev_name in (
         ("flash_attention_fwd",
          lambda: fa.flash_attention(q, k, v, bias, learned_bias=lb, scale=1.0),
@@ -957,8 +1134,8 @@ def lbias_kernel_phase(torch, fa):
         ("flash_attention_bwd_dlbias",
          lambda: fa.flash_bwd_dlbias(q, k, v, bias, lb, do, lse, delta, causal=False, scale=1.0),
          lambda: fa._dlbias_plain(q, k, v, bias, lb, do, lse, delta, causal=False, scale=1.0),
-         4.0 * B * H * S * S * D, None, bwd_in + lb.numel() * lb.element_size(),
-         "flash_bwd_dlbias_kernel"),
+         dlb_flops, dlb_all, bwd_in + lb.numel() * lb.element_size(),
+         "flash_bwd_dlbias_tc_kernel"),
     ):
         b_ms, b_by = bound(flops, nbytes)
         r = dict(max_abs_err=max(errs[{"flash_attention_fwd": "fwd",
@@ -969,6 +1146,7 @@ def lbias_kernel_phase(torch, fa):
         r["device_ms"] = device_ms_of(fn, 5, dev_name)
         if every is not None:
             r["bound_all_keys_ms"] = bound(every, nbytes)[0]
+        if name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
             # backward yardstick: SDPA's dq, dk and dv in one call, the
             # padding mask and the learned bias summed into a constant mask
             qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
@@ -1120,17 +1298,19 @@ def adamw_kernel_phase(torch, fo):
     return {"fused_adamw": r}
 
 
-def paged_case(torch, fa, *, dtype, Q, heads_kv=32, gen):
+def paged_case(torch, fa, *, dtype, Q, heads_kv=32, gen, block_size=128):
     """Kernel 6's inputs at the llama-2-7b decode shape: q (8, 32, Q, 128);
-    a pool of 72 blocks of 128 slots in scrambled order; 9 tiles a row,
-    rows in a 1024-wide or a 512-wide bucket with 200-1024 prompt tokens,
-    so the block tables hold sentinels in the prompt gap (under the
+    a pool of 72 blocks of 128 slots in scrambled order (or as many blocks
+    of ``block_size`` slots as hold the same 9216); 1152 logical slots a
+    row, rows in a 1024-wide or a 512-wide bucket with 200-1024 prompt
+    tokens, so the block tables hold sentinels in the prompt gap (under the
     padding bias) and, for the 512-wide rows, past the budget; staggered
-    offsets inside each row's decode tile."""
+    offsets inside each row's 128-slot decode tail."""
     import numpy as np
 
     dev = torch.device("cuda")
-    B, H, D, N, BS, NT = 8, 32, 128, 72, 128, 9
+    B, H, D, BS = 8, 32, 128, block_size
+    N, NT = 72 * 128 // BS, 1152 // BS
     rng = np.random.RandomState(40 + Q)
     buckets = [1024, 512, 1024, 512, 1024, 1024, 512, 1024]
     lens = [int(rng.randint(200, b + 1)) for b in buckets]
@@ -1141,7 +1321,8 @@ def paged_case(torch, fa, *, dtype, Q, heads_kv=32, gen):
     for b in range(B):
         n_prompt = -(-lens[b] // BS)
         bt[b, :n_prompt] = [perm.pop() for _ in range(n_prompt)]
-        bt[b, buckets[b] // BS] = perm.pop()
+        for j in range(128 // BS):
+            bt[b, buckets[b] // BS + j] = perm.pop()
         bias[b, ..., lens[b]:buckets[b]] = -1e9
     offsets = np.array([buckets[b] + int(e) for b, e in
                         enumerate([0, 5, 17, 40, 64, 99, 111, 120 - Q + 1])], np.int32)
@@ -1157,8 +1338,8 @@ def paged_kernel_phase(torch, fa):
     8); kernel 5 over the gathered view of the same blocks against the same
     plain output (the flat LLaMA path's shape, d = 128) and bit for bit
     against kernel 6; a planted fault; kernel 6's times at the llama-2-7b
-    decode shape.  Returns ({"flash_decode_paged": numbers}, kernel 5's
-    largest error here)."""
+    decode shape, Q = 8 and then Q = 1 (the numbers returned).  Returns
+    ({"flash_decode_paged": numbers}, kernel 5's largest error here)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1195,6 +1376,21 @@ def paged_kernel_phase(torch, fa):
     errs.append(check_close("flash_decode_paged int8 pool Q=1 bf16", o, po, **bf))
     errs5.append(check_close("flash_decode on the gathered view int8 Q=1 bf16", o5, po, **bf))
     vs_flat["flash_decode_paged int8 pool Q=1 bf16"] = float((o.float() - o5.float()).abs().max())
+    # a pool block size --kv-block-size admits beside 128, so that one
+    # 64-slot tile spans two blocks
+    for dtype, Q, tol in ((torch.bfloat16, 1, bf), (torch.float32, 8, f32)):
+        q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=dtype, Q=Q, gen=gen,
+                                                 block_size=32)
+        o = fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt, offsets=off)
+        po = fa.flash_decode_paged_plain(q, kp, vp, bias, block_tables=bt, offsets=off)
+        o5 = fa.flash_decode(q, fa.gather_blocks(kp, bt), fa.gather_blocks(vp, bt), bias,
+                             offsets=off)
+        torch.cuda.synchronize()
+        case = f"flash_decode_paged block size 32 Q={Q} {dtype}"
+        errs.append(check_close(case, o, po, **tol))
+        errs5.append(check_close(f"flash_decode on the gathered view block size 32 Q={Q} "
+                                 f"{dtype}", o5, po, **tol))
+        vs_flat[case] = float((o.float() - o5.float()).abs().max())
     bit_equal = all(v == 0.0 for v in vs_flat.values())
     say({"phase": "kernel6_vs_kernel5_gathered", "max_abs_diff": vs_flat,
          "bit_equal": bit_equal})
@@ -1225,40 +1421,48 @@ def paged_kernel_phase(torch, fa):
     if not fault > 1e3 * f32["atol"]:
         fail(f"flash_decode_paged: reading a sentinel tile stays near the fp32 limit ({fault})")
 
-    # times at the llama-2-7b decode shape, bf16
-    q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=torch.bfloat16, Q=1, gen=gen)
-    run = lambda: fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt, offsets=off)  # noqa: E731
-    view_k, view_v = fa.gather_blocks(kp, bt), fa.gather_blocks(vp, bt)
-    k_pos = torch.arange(view_k.shape[2], device="cuda")[None, None, None, :]
-    sdpa_mask = (bias > -1) & (k_pos <= off[:, None, None, None])
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, view_k, view_v,
-                                                            attn_mask=sdpa_mask), per_rep=100)
-    gather_ms = time_ms(lambda: (fa.gather_blocks(kp, bt), fa.gather_blocks(vp, bt)), per_rep=20)
-    # bytes: the K/V of every slot the output depends on, read once — up to
-    # each row's offset, in an allocated tile and not under the padding
-    # bias (the tail of each row's last prompt tile is) — plus q, o, the
-    # bias, the tables and the offsets
-    k_pos = torch.arange(bt.shape[1] * 128, device="cuda")
-    needed = ((k_pos[None, :] <= off[:, None]) & (bt < 72).repeat_interleave(128, dim=1)
-              & (bias[:, 0, 0, :] > -1))
-    live = int(needed.sum())
-    H, D = 32, 128
-    flops = 4.0 * H * live * D
-    nbytes = 2 * H * live * D * 2 + 2 * q.numel() * 2 + bias.numel() * 4 + bt.numel() * 4 + 8 * 4
-    b_ms, b_by = bound(flops, nbytes)
-    r = dict(max_abs_err=max(errs), ms=time_ms(run, per_rep=200),
-             plain_ms=time_ms(lambda: fa.flash_decode_paged_plain(
-                 q, kp, vp, bias, block_tables=bt, offsets=off), per_rep=20),
-             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    # kernel 5 on the already gathered view of the same blocks: the flat
-    # path's call at this shape, beside kernel 6
-    flat = lambda: fa.flash_decode(q, view_k, view_v, bias, offsets=off)  # noqa: E731
-    say({"phase": "kernel_time", "kernel": "flash_decode_paged", **r, "live_slots": live,
-         "gather_ms_beside_library": gather_ms, "kernel6_bit_equal_kernel5": bit_equal,
-         "device_ms": device_ms_of(run, 50, "flash_decode_paged_kernel"),
-         "flash_decode_on_gathered_view_ms": time_ms(flat, per_rep=200),
-         "flash_decode_on_gathered_view_device_ms": device_ms_of(flat, 50,
-                                                                 "flash_decode_kernel")})
+    # times at the llama-2-7b decode shape, bf16: Q = 1 (the decode step)
+    # and Q = 8 (a block of eight rows, the kernel's other instance)
+    for Q in (8, 1):
+        q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=torch.bfloat16, Q=Q, gen=gen)
+        run = lambda: fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt, offsets=off)  # noqa: E731
+        view_k, view_v = fa.gather_blocks(kp, bt), fa.gather_blocks(vp, bt)
+        # query row i sits at offset + i and sees the slots up to there
+        row = torch.arange(Q, device="cuda")[None, None, :, None]
+        k_pos = torch.arange(view_k.shape[2], device="cuda")[None, None, None, :]
+        sdpa_mask = (bias > -1) & (k_pos <= off[:, None, None, None] + row)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, view_k, view_v,
+                                                                attn_mask=sdpa_mask),
+                         per_rep=100)
+        gather_ms = time_ms(lambda: (fa.gather_blocks(kp, bt), fa.gather_blocks(vp, bt)),
+                            per_rep=20)
+        # bytes: the K/V of every slot the output depends on, read once — up
+        # to the last row's offset, in an allocated tile and not under the
+        # padding bias (the tail of each row's last prompt tile is) — plus
+        # q, o, the bias, the tables and the offsets; flops: each row's own
+        # slots
+        alloc = (bt < 72).repeat_interleave(128, dim=1) & (bias[:, 0, 0, :] > -1)
+        seen = alloc[:, None, :] & (k_pos[0, 0] <= off[:, None, None] + row[0, 0])  # (B, Q, L)
+        live = int(seen[:, -1].sum())
+        H, D = 32, 128
+        flops = 4.0 * H * D * float(seen.sum())
+        nbytes = (2 * H * live * D * 2 + 2 * q.numel() * 2 + bias.numel() * 4 + bt.numel() * 4
+                  + 8 * 4)
+        b_ms, b_by = bound(flops, nbytes)
+        r = dict(max_abs_err=max(errs), ms=time_ms(run, per_rep=200),
+                 plain_ms=time_ms(lambda: fa.flash_decode_paged_plain(
+                     q, kp, vp, bias, block_tables=bt, offsets=off), per_rep=20),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        # kernel 5 on the already gathered view of the same blocks: the flat
+        # path's call at this shape, beside kernel 6
+        flat = lambda: fa.flash_decode(q, view_k, view_v, bias, offsets=off)  # noqa: E731
+        say({"phase": "kernel_time", "kernel": "flash_decode_paged", "Q": Q, **r,
+             "live_slots": live, "gather_ms_beside_library": gather_ms,
+             "kernel6_bit_equal_kernel5": bit_equal,
+             "device_ms": device_ms_of(run, 50, "flash_decode_paged_kernel"),
+             "flash_decode_on_gathered_view_ms": time_ms(flat, per_rep=200),
+             "flash_decode_on_gathered_view_device_ms": device_ms_of(flat, 50,
+                                                                     "flash_decode_kernel")})
     return {"flash_decode_paged": r}, max(errs5)
 
 
@@ -1284,7 +1488,7 @@ def zero_counters(fa, fd, fo) -> None:
     for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias,
                fd.fused_dropout, fo.fused_adamw_leaf, fa.flash_decode, fa.flash_decode_paged):
         fn.launches = 0
-    for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+    for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias):
         fn.tc_launches = 0
 
 
@@ -1521,7 +1725,8 @@ def dlbias_delta_of_another_row(fa):
     def bad(q, k, v, bias, lbias, do, lse, delta, **kw):
         return saved(q, k, v, bias, lbias, do, lse, delta.roll(1, dims=0).contiguous(), **kw)
 
-    bad.launches = 0  # the kernel's own count, bumped through the module name, lands here
+    # the kernel's own counts, bumped through the module name, land here
+    bad.launches = bad.tc_launches = 0
     fa.flash_bwd_dlbias = bad
     try:
         yield
@@ -2022,6 +2227,7 @@ def serve_phase(torch, fa, cli):
     out_k = os.path.join(WORK, "serve_kernel.jsonl")
     fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
     fa.flash_bwd_dq.tc_launches = fa.flash_bwd_dkv.tc_launches = 0
+    fa.flash_bwd_dlbias.tc_launches = 0
     fa.flash_decode.launches = 0
     t0 = time.perf_counter()
     engine, outs_k = cli.serve([*args, "--output-file", out_k])
@@ -2142,6 +2348,7 @@ def ragged_serve(fa, cli, args) -> None:
             "--output-file", os.path.join(WORK, "serve_ragged.jsonl")]
     fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
     fa.flash_bwd_dq.tc_launches = fa.flash_bwd_dkv.tc_launches = 0
+    fa.flash_bwd_dlbias.tc_launches = 0
     fa.flash_decode.launches = 0
     engine, outs = cli.serve(argv)
     launches = {"flash_attention_fwd": fa.flash_attention.launches,
@@ -2414,12 +2621,7 @@ def main() -> None:
     t0 = time.perf_counter()
     secs = cuda_build.build(KERNELS, verbose=True)
     say({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs})
-    for lib, kernel, params in TC_KERNELS:
-        hgmma = hgmma_counts(cuda_build, lib, kernel, params)
-        say({"phase": "sass", "library": lib, "kernel": kernel, "hgmma_per_instance": hgmma,
-             "hgmma_total": sum(hgmma.values())})
-        if not hgmma or min(hgmma.values()) == 0:
-            fail(f"{kernel}: an instance has no HGMMA instruction: {hgmma}")
+    sass_phase(cuda_build)
 
     # phase 3: kernels against their plain versions
     measured = kernel_phase(torch, fa)
@@ -2430,6 +2632,7 @@ def main() -> None:
     for name, err in zip(("flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
                          tc_backward_phase(torch, fa).values()):
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], err)
+    dlbias_tc_err = tc_dlbias_phase(torch, fa)
     measured.update(dropout_kernel_phase(torch, fd))
     measured.update(adamw_kernel_phase(torch, fo))
     paged, kernel5_err_d128 = paged_kernel_phase(torch, fa)
@@ -2438,6 +2641,8 @@ def main() -> None:
                                                   kernel5_err_d128)
     dlbias, lbias_errs = lbias_kernel_phase(torch, fa)
     measured.update(dlbias)
+    measured["flash_attention_bwd_dlbias"]["max_abs_err"] = max(
+        measured["flash_attention_bwd_dlbias"]["max_abs_err"], dlbias_tc_err)
     for name, key in (("flash_attention_fwd", "fwd"), ("flash_attention_bwd_dq", "dq"),
                       ("flash_attention_bwd_dkv", "dkv")):
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], lbias_errs[key])
@@ -2473,7 +2678,8 @@ def main() -> None:
     llama_paged, llama_flat = llama_serve_phase(torch, fa, cli)
     llama_logits_phase(torch, fa)
 
-    # phase 13: the TPU kernels with no port yet (none), the kernel list,
+    # phase 13: the TPU kernels with no port yet (none), the kernel list
+    # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
     # then the contract line.  A kernel that runs on several main paths
     # reports the sum of their counts: kernel 1 the BART and T5 serve and
     # train runs, kernels 2, 3, 7 and 8 the BART and T5 train runs, kernel 4
@@ -2507,7 +2713,9 @@ def main() -> None:
              replaces=ref + "flash_attention.py:328",
              launches=both["flash_attention_bwd_dkv"], **measured["flash_attention_bwd_dkv"]),
         dict(name="flash_attention_bwd_dlbias", route="cuda",
-             source=src + "flash_bwd_dlbias.cu", replaces=ref + "flash_attention.py:399",
+             source=src + "flash_bwd_dlbias_tc.cu",
+             sources=[src + "flash_bwd_dlbias_tc.cu", src + "flash_bwd_dlbias.cu"],
+             replaces=ref + "flash_attention.py:399",
              launches=both["flash_attention_bwd_dlbias"],
              **measured["flash_attention_bwd_dlbias"]),
         dict(name="fused_dropout", route="cuda", source=src + "fused_dropout.cu",

@@ -1,9 +1,13 @@
-// Learned-bias gradient of flash attention for Hopper (sm_90a), plain C
-// interface for ctypes.
+// Learned-bias gradient of flash attention for Hopper (sm_90a) in fp32 on
+// the CUDA cores, plain C interface for ctypes.
 //
 // Replaces the TPU Pallas kernel distributed_llms_example_tpu/ops/
 // flash_attention.py `_bwd_dlbias_kernel` (reached through `_bwd_dlbias`
-// from `_bwd`).  Same function, not a block-by-block copy:
+// from `_bwd`) for fp32 inputs.  bf16 inputs go to the tensor-core kernel
+// of csrc/flash_bwd_dlbias_tc.cu; fp32 stays here because the fp32 T5
+// gradient check holds these products at ~1e-10, which TF32 wgmma (about
+// three decimal digits) would not meet.  Same function, not a
+// block-by-block copy:
 //
 //   dlbias[0, h, i, j] = sum_b p[b, h, i, j] * (dp[b, h, i, j] - delta[b, h, i])
 //
@@ -13,13 +17,12 @@
 // and dk/dv kernels (csrc/flash_bwd.cu) recompute them.  No scale factor:
 // the scale multiplies only q k^T, so ds/dlbias = 1.
 //
-// q, k, v, dO: (B, H, S, D) contiguous, fp32 or bf16 (one dtype); lse and
-// delta (B, H, Sq) fp32; the fp32 `bias` (a constant mask, may be null) and
-// the learned (1, H, Sq, Sk) `lbias` (never null here; fp32 or bf16,
-// `lb_bf16`, widened to fp32 on load) are read through their element
-// strides.  The output is (1, H, Sq, Sk) contiguous in the learned bias's
-// dtype, rounded once from the fp32 sum.  Any Sq and Sk: every load and
-// score is bounds-checked.
+// q, k, v, dO: (B, H, S, D) contiguous fp32; lse and delta (B, H, Sq) fp32;
+// the fp32 `bias` (a constant mask, may be null) and the learned (1, H, Sq,
+// Sk) `lbias` (never null here; fp32 or bf16, `lb_bf16`, widened to fp32
+// on load) are read through their element strides.  The output is (1, H,
+// Sq, Sk) contiguous in the learned bias's dtype, rounded once from the
+// fp32 sum.  Any Sq and Sk: every load and score is bounds-checked.
 //
 // Design.  The TPU runs the batch as its innermost sequential grid axis and
 // carries the sum in one tile's scratch, so the (B, H, Sq, Sk) gradient
@@ -32,16 +35,9 @@
 // fully-masked row has p = 0, hence 0.  A tile left unwritten would be
 // allocator garbage flowing into the bias table's gradient.
 //
-// What bounds it on the H100: memory, narrowly.  At the t5-large encoder
-// shape (8, 16, 1024, 64) bf16 the function needs 4*B*H*S*S*D = 34.4 GFLOP
-// (s = q k^T and dp = dO v^T; about 35 us at the bf16 tensor-core peak) but
-// must read q, k, v and dO (67 MB), lse and delta (1 MB) and the learned
-// bias and write its gradient (2 x 33.5 MB in bf16): about 40 us at
-// 3.35 TB/s.  This first version re-reads each q/dO tile once per
-// key tile and each k/v tile once per query tile (L2 absorbs most of it)
-// and does the products in fp32 on the CUDA cores, like kernels 1-3, so
-// it is bound by those FMAs, far above the memory bound.  Tensor-core
-// (wgmma) tiles and TMA loads are later work.
+// What bounds it on the H100: the fp32 products on the CUDA cores (4 *
+// B * H * S * S * D flops at 67 TFLOP/s), far above the memory bound.  The
+// train paths run bf16, so this kernel carries the fp32 checks only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -237,16 +233,12 @@ extern "C" int flash_bwd_dlbias(const void* q, const void* k, const void* v, con
                                 const void* lbias, long long lsb, long long lsh, long long lsq,
                                 long long lsk, const void* dout, const void* lse,
                                 const void* delta, void* dlbias, int B, int H, int Lq, int Lk,
-                                int D, float scale, int causal, int is_bf16, int lb_bf16,
-                                void* stream) {
+                                int D, float scale, int causal, int lb_bf16, void* stream) {
   (void)lsb;
   if (lbias == nullptr) return (int)cudaErrorInvalidValue;
   if (H == 0 || Lq == 0 || Lk == 0) return 0;
   const Args a{q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsh, lsq, lsk, dout, lse, delta, dlbias,
                B, H, Lq, Lk, scale, causal};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return lb_bf16 ? dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, a, s)
-                   : dispatch_d<__nv_bfloat16, float>(D, a, s);
   return lb_bf16 ? dispatch_d<float, __nv_bfloat16>(D, a, s) : dispatch_d<float, float>(D, a, s);
 }

@@ -1,7 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash-attention
-// kernels (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu): cp.async copies,
-// wgmma products with their shared-memory descriptors, warpgroup barriers,
-// and the swizzled bf16 tile layout every wgmma operand is written in.
+// kernels (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu,
+// csrc/flash_bwd_dlbias_tc.cu) and the paged decode's copies: cp.async
+// copies, TMA tensor copies with their mbarriers, wgmma products with their
+// shared-memory descriptors, warpgroup barriers, and the swizzled bf16 tile
+// layout every wgmma operand is written in (which TMA's 128/64/32-byte
+// swizzle modes produce).
 // Inline PTX only.  Each source that includes it gets its own copy (an
 // anonymous namespace); ops/cuda_build.py hashes every csrc/*.cuh into
 // each library's name, so an edited header rebuilds every kernel.
@@ -64,6 +67,46 @@ __device__ __forceinline__ void wgmma_commit() {
 
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarrier in shared memory (8 bytes) expecting `count` arrivals
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// make the inits visible to the async proxy (the TMA unit) before use
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` of asynchronous copies this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// true once the phase of parity `parity` has completed
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// TMA: the box at coordinates (c0, c1, c2) of the 3-d tensor map `map` (a
+// __grid_constant__ CUtensorMap) into shared memory at `dst`, counted as
+// its bytes on the mbarrier `bar`; the map's swizzle lays the box out
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
 }
 
 // true on every thread of the warpgroup iff `p` holds on all 128 (a

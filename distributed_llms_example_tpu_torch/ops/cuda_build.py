@@ -58,7 +58,8 @@ def build(names: list[str] | tuple[str, ...], *, verbose: bool = False) -> dict[
     """Compile every named kernel that has no up-to-date library, one
     ``nvcc`` process per source, all running together.  Returns each
     built kernel's compile seconds; raises with the compiler's output if
-    any build fails."""
+    any build fails.  ``verbose`` adds ptxas's per-kernel report (registers,
+    spills) and prints it."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

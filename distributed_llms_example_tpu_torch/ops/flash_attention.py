@@ -10,14 +10,14 @@ wrapper with three parts:
 - the **CUDA kernel** (``csrc/flash_fwd_tc.cu`` for bf16 and
   ``csrc/flash_fwd.cu`` for fp32; ``csrc/flash_bwd_tc.cu`` for bf16 and
   ``csrc/flash_bwd.cu`` for fp32, each with two entries, dq and dk/dv;
-  ``csrc/flash_bwd_dlbias.cu``,
-  ``csrc/flash_decode.cu``, ``csrc/flash_decode_paged.cu``), which the
+  ``csrc/flash_bwd_dlbias_tc.cu`` for bf16 and ``csrc/flash_bwd_dlbias.cu``
+  for fp32; ``csrc/flash_decode.cu``, ``csrc/flash_decode_paged.cu``), which the
   wrapper launches for tensors on a CUDA device — or raises: there is no
   fallback from a CUDA tensor to the plain version;
 - a **launch counter** (``flash_attention.launches``,
-  ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``, each with a
-  ``tc_launches`` counting its bf16 tensor-core launches,
-  ``flash_bwd_dlbias.launches``, ``flash_decode.launches``,
+  ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``,
+  ``flash_bwd_dlbias.launches``, each with a ``tc_launches`` counting its
+  bf16 tensor-core launches, ``flash_decode.launches``,
   ``flash_decode_paged.launches``): a plain integer bumped where the
   kernel is launched and nowhere else.
 
@@ -427,6 +427,50 @@ def bwd_plan(dtype: torch.dtype, head_dim: int, batch: int, heads: int, q_len: i
                         grid=(-(-kv_len // rows), bh))}
 
 
+# kernel 4 in bf16 (csrc/flash_bwd_dlbias_tc.cu): one CTA per (head, 128
+# queries, 64 keys) as two warpgroups, a ring of batch rows fed by TMA,
+# three deep (two at head dim 128); fp32 (csrc/flash_bwd_dlbias.cu): 64 x
+# 64 tiles
+DLBIAS_TC_ROWS = 128
+DLBIAS_BLOCK_K = 64
+
+
+def dlbias_plan(dtype: torch.dtype, head_dim: int, batch: int, heads: int, q_len: int,
+                kv_len: int, lbias_dtype: torch.dtype) -> dict:
+    """How kernel 4 is launched for these shapes: the library, the C entry
+    and the learned bias's bytes per element.  bf16 goes to the
+    tensor-core kernel (``csrc/flash_bwd_dlbias_tc.cu``), whose plan adds
+    ``rows`` (query rows of a CTA), ``block_k`` (its keys), ring
+    ``stages`` over the batch rows, threads, grid (key tiles, query tiles,
+    heads: a head's CTAs run together) and the dynamic shared-memory
+    bytes the entry is passed and checks against its ``Smem`` layout;
+    fp32 stays on the CUDA-core kernel (``csrc/flash_bwd_dlbias.cu``),
+    whose fp32 products the fp32 T5 gradient check holds at ~1e-10, which
+    TF32 tensor cores would not meet."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_bwd_dlbias kernel has no instance for head_dim {head_dim} "
+                         f"(built for {KERNEL_HEAD_DIMS})")
+    if lbias_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_bwd_dlbias kernel takes an fp32 or bf16 learned bias, not "
+                         f"{lbias_dtype}")
+    d, bk = head_dim, DLBIAS_BLOCK_K
+    lb = torch.finfo(lbias_dtype).bits // 8
+    if dtype == torch.float32:
+        # the CUDA-core entry sizes its own tiles and grid
+        return dict(lib="flash_bwd_dlbias", entry="flash_bwd_dlbias", lb_bytes=lb)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"flash_bwd_dlbias kernel takes fp32 or bf16, not {dtype}")
+    rows, st = DLBIAS_TC_ROWS, 2 if d == 128 else 3
+    # per stage Q, dO, K, V, lse, delta, the key-bias tile and an 8-byte
+    # mbarrier; after the loop the same bytes stage the output tile (rows
+    # padded by 16 bytes); 1024 bytes align the swizzle base
+    ring = st * (2 * rows * d * 2 + 2 * bk * d * 2 + 2 * rows * 4 + bk * 4 + 8)
+    staged = rows * (bk * lb + 16)
+    return dict(lib="flash_bwd_dlbias_tc", entry="flash_bwd_dlbias_tc", rows=rows, block_k=bk,
+                stages=st, smem_bytes=max(ring, staged) + 1024, threads=2 * rows,
+                grid=(-(-kv_len // bk), -(-q_len // rows), heads), lb_bytes=lb)
+
+
 _BWD_ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
@@ -438,7 +482,8 @@ _BWD_SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int]
 def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale, lbias=None) -> str:
     """Launch a backward kernel after the shared input checks: kernel 2 or
     3 (``entry`` flash_bwd_dq / flash_bwd_dkv) through ``bwd_plan``, or
-    kernel 4 (flash_bwd_dlbias).  Returns the library it launched."""
+    kernel 4 (flash_bwd_dlbias) through ``dlbias_plan``.  Returns the
+    library it launched."""
     dev = cuda_build.check_inputs(entry, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                                           "delta": delta})
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
@@ -453,12 +498,12 @@ def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale, lbia
                          f"(built for {KERNEL_HEAD_DIMS})")
     bias, lbias, lb_bf16 = _kernel_biases(entry, dev, bias, lbias)
     if entry == "flash_bwd_dlbias":
-        lib, tail = entry, (int(q.dtype == torch.bfloat16), lb_bf16)
+        plan = dlbias_plan(q.dtype, D, B, H, Lq, k.shape[2], lbias.dtype)
     else:
         plan = bwd_plan(q.dtype, D, B, H, Lq, k.shape[2],
                         None if lbias is None else lbias.dtype)[entry.removeprefix("flash_bwd_")]
-        lib, entry = plan["lib"], plan["entry"]
-        tail = (plan["lb_bytes"], plan["smem_bytes"]) if lib == "flash_bwd_tc" else (lb_bf16,)
+    lib, entry = plan["lib"], plan["entry"]
+    tail = (plan["lb_bytes"], plan["smem_bytes"]) if lib.endswith("_tc") else (lb_bf16,)
     argtypes = (_BWD_ARGTYPES + [ctypes.c_void_p] * len(outs) + _BWD_SHAPE
                 + [ctypes.c_int] * len(tail) + [ctypes.c_void_p])
     fn = cuda_build.load(lib, argtypes, entry)
@@ -522,22 +567,26 @@ def _dlbias_plain(q, k, v, bias, lbias, do, lse, delta, *, causal, scale):
 def flash_bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, *, causal: bool, scale: float):
     """Gradient of the learned (1, H, Sq, Sk) bias (kernel 4) from the saved
     forward inputs, lse, delta and dO, in the learned bias's dtype.  A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel, which
-    sums the batch inside each tile (no atomics) and writes every tile,
-    zeros included."""
+    tensor runs the plain version; a CUDA tensor launches the kernel
+    (``dlbias_plan``: bf16 the tensor-core one, fp32 the CUDA-core one),
+    which sums the batch inside each tile (no atomics) and writes every
+    tile, zeros included."""
     if tuple(lbias.shape) != (1, q.shape[1], q.shape[2], k.shape[2]):
         raise ValueError(f"learned bias shape {tuple(lbias.shape)} is not "
                          f"{(1, q.shape[1], q.shape[2], k.shape[2])}")
     if q.device.type == "cpu":
         return _dlbias_plain(q, k, v, bias, lbias, do, lse, delta, causal=causal, scale=scale)
     out = torch.empty(lbias.shape, dtype=lbias.dtype, device=q.device)
-    _bwd_cuda("flash_bwd_dlbias", q, k, v, bias, do, lse, delta, (out,), causal=causal,
-              scale=scale, lbias=lbias)
+    if _bwd_cuda("flash_bwd_dlbias", q, k, v, bias, do, lse, delta, (out,), causal=causal,
+                 scale=scale, lbias=lbias) == "flash_bwd_dlbias_tc":
+        flash_bwd_dlbias.tc_launches += 1
     flash_bwd_dlbias.launches += 1
     return out
 
 
 flash_bwd_dlbias.launches = 0
+# the bf16 launches among them, which went to the tensor-core entry
+flash_bwd_dlbias.tc_launches = 0
 
 
 # ----------------------------------------------------------- int8 KV cache

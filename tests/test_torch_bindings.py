@@ -98,7 +98,11 @@ WRAPPERS = {
     "flash_bwd_dkv_tc bf16": lambda: _bwd("flash_bwd_dkv", 2, torch.bfloat16, None),
     "flash_bwd_dkv_tc bf16 learned bias": lambda: _bwd("flash_bwd_dkv", 2, torch.bfloat16,
                                                        torch.float32),
-    "flash_bwd_dlbias": lambda: _bwd("flash_bwd_dlbias", 1, torch.bfloat16, torch.bfloat16),
+    "flash_bwd_dlbias": lambda: _bwd("flash_bwd_dlbias", 1, torch.float32, torch.bfloat16),
+    "flash_bwd_dlbias_tc bf16 learned bias": lambda: _bwd("flash_bwd_dlbias", 1, torch.bfloat16,
+                                                          torch.bfloat16),
+    "flash_bwd_dlbias_tc bf16 fp32 learned bias": lambda: _bwd("flash_bwd_dlbias", 1,
+                                                               torch.bfloat16, torch.float32),
     "flash_decode": _decode,
     "flash_decode_paged": _paged,
     "fused_dropout": _dropout,
@@ -125,9 +129,10 @@ def loads(monkeypatch):
                         lambda what, tensors: next(iter(tensors.values())).device)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
     for counter in (fa.flash_attention, fa.flash_decode, fa.flash_decode_paged,
-                    fd.fused_dropout, fo.fused_adamw_leaf, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+                    fd.fused_dropout, fo.fused_adamw_leaf, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                    fa.flash_bwd_dlbias):
         monkeypatch.setattr(counter, "launches", counter.launches)
-    for counter in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+    for counter in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias):
         monkeypatch.setattr(counter, "tc_launches", counter.tc_launches)
     return seen
 
@@ -187,3 +192,39 @@ def test_fp32_backward_binds_the_cuda_core_entries(loads):
     for entry, n_out in (("flash_bwd_dq", 1), ("flash_bwd_dkv", 2)):
         assert _bwd(entry, n_out, torch.float32, None) == "flash_bwd"
     assert [sym for _, sym, _, _ in loads] == ["flash_bwd_dq", "flash_bwd_dkv"]
+
+
+def test_bf16_dlbias_binds_only_the_tensor_core_entry(loads):
+    """bf16 kernel-4 launches reach flash_bwd_dlbias_tc at every head dim,
+    with a bf16 or an fp32 learned bias, and each counts as a tensor-core
+    launch; nothing routes bf16 to the CUDA-core entry."""
+    tc_before = fa.flash_bwd_dlbias.tc_launches
+    for d in fa.KERNEL_HEAD_DIMS:
+        for lb in (torch.bfloat16, torch.float32):
+            assert _bwd("flash_bwd_dlbias", 1, torch.bfloat16, lb, d) == "flash_bwd_dlbias_tc"
+    assert {(lib, sym) for lib, sym, _, _ in loads} == {("flash_bwd_dlbias_tc",
+                                                         "flash_bwd_dlbias_tc")}
+    assert len(loads) == 2 * len(fa.KERNEL_HEAD_DIMS)
+
+
+def test_fp32_dlbias_binds_the_cuda_core_entry(loads):
+    for lb in (torch.bfloat16, torch.float32):
+        assert _bwd("flash_bwd_dlbias", 1, torch.float32, lb) == "flash_bwd_dlbias"
+    assert [sym for _, sym, _, _ in loads] == ["flash_bwd_dlbias"] * 2
+
+
+def test_dlbias_wrapper_counts_tensor_core_launches(loads):
+    """``flash_bwd_dlbias`` on tensors off the CPU (meta tensors stand in
+    for CUDA ones here) launches through ``dlbias_plan``: each call adds
+    one to ``launches``, and a bf16 one also to ``tc_launches``."""
+    n, tc = fa.flash_bwd_dlbias.launches, fa.flash_bwd_dlbias.tc_launches
+    for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.empty(2, 2, 64, 32, dtype=dtype, device="meta") for _ in range(4))
+        lse, delta = (torch.empty(2, 2, 64, device="meta") for _ in range(2))
+        lb = torch.empty(1, 2, 64, 64, dtype=torch.bfloat16, device="meta")
+        out = fa.flash_bwd_dlbias(q, k, v, None, lb, do, lse, delta, causal=False, scale=1.0)
+        assert out.shape == lb.shape and out.dtype == lb.dtype
+    assert fa.flash_bwd_dlbias.launches - n == 3
+    assert fa.flash_bwd_dlbias.tc_launches - tc == 2
+    assert [lib for lib, _, _, _ in loads] == ["flash_bwd_dlbias_tc", "flash_bwd_dlbias",
+                                               "flash_bwd_dlbias_tc"]

@@ -1,9 +1,20 @@
-"""The kernel build's library names (``cuda_build.library_path``), checked
-without nvcc: a library is named by a hash of its source and of every
-shared ``csrc/*.cuh`` header, so that editing a header a kernel includes
-gives a new name (a rebuild) instead of loading a stale library."""
+"""The kernel build, checked without nvcc: a library is named by a hash of
+its source and of every shared ``csrc/*.cuh`` header, so that editing a
+header a kernel includes gives a new name (a rebuild) instead of loading a
+stale library; ``build`` compiles only what is out of date; chip_smoke.py
+builds every source under ``csrc/`` and reads each tensor-core kernel's
+HGMMA count and stack frame from the built library, cached or not."""
+
+import importlib.util
+import os
+import stat
+import sys
+
+import pytest
 
 from distributed_llms_example_tpu_torch.ops import cuda_build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_header_edit_changes_the_library_path(tmp_path, monkeypatch):
@@ -23,6 +34,134 @@ def test_header_edit_changes_the_library_path(tmp_path, monkeypatch):
 
 
 def test_every_tensor_core_source_includes_the_shared_header():
-    for name in ("flash_fwd_tc", "flash_bwd_tc"):
+    for name in ("flash_fwd_tc", "flash_bwd_tc", "flash_bwd_dlbias_tc"):
         assert '#include "hopper.cuh"' in (cuda_build.CSRC / f"{name}.cu").read_text()
     assert (cuda_build.CSRC / "hopper.cuh").exists()
+
+
+def fake_tool(path, body: str):
+    """An executable Python script at ``path``: a stand-in for nvcc or
+    cuobjdump."""
+    path.write_text(f"#!{sys.executable}\nimport sys\n" + body)
+    path.chmod(path.stat().st_mode | stat.S_IEXEC)
+    return path
+
+
+def fake_sources(tmp_path, monkeypatch, names):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in names:
+        (csrc / f"{name}.cu").write_text(f'extern "C" int {name}() {{ return 0; }}\n')
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+
+
+def test_build_compiles_only_what_is_out_of_date(tmp_path, monkeypatch, capsys):
+    """A stand-in for nvcc that writes the library and prints a ptxas-like
+    line: ``build`` compiles each named source once, prints the compiler's
+    report when verbose, and compiles nothing whose library is up to
+    date."""
+    fake = fake_tool(tmp_path / "nvcc",
+                     "out = sys.argv[sys.argv.index('-o') + 1]\n"
+                     "open(out, 'wb').close()\n"
+                     "print('ptxas info    : Used 42 registers', sys.argv[-1].rsplit('/', 1)[-1])\n")
+    fake_sources(tmp_path, monkeypatch, ("a", "b"))
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: str(fake))
+    assert set(cuda_build.build(["a", "b"], verbose=True)) == {"a", "b"}
+    printed = capsys.readouterr().out
+    assert "Used 42 registers a.cu" in printed and "Used 42 registers b.cu" in printed
+    assert cuda_build.library_path("a").exists() and cuda_build.library_path("b").exists()
+    assert cuda_build.build(["a", "b"], verbose=True) == {}
+    assert capsys.readouterr().out == ""
+
+
+def test_chip_smoke_builds_every_source():
+    """chip_smoke.py's build list is every csrc/*.cu, ten of them: kernel
+    1's, 2-3's and 4's two routes each, kernels 5, 6, 7 and 8."""
+    mod = load_chip_smoke()
+    sources = {p.stem for p in cuda_build.CSRC.glob("*.cu")}
+    assert sorted(mod.KERNELS) == sorted(sources)
+    assert len(sources) == 10 and "flash_bwd_dlbias_tc" in sources
+    assert {lib for lib, _, _ in mod.TC_KERNELS} == {"flash_fwd_tc", "flash_bwd_tc",
+                                                     "flash_bwd_dlbias_tc"}
+
+
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+DLBIAS = "_ZN12_GLOBAL__N_126flash_bwd_dlbias_tc_kernelILi{}ELi{}EEEvNS_4ArgsE"
+OTHER = "_ZN12_GLOBAL__N_113other_kernelILi64EEEvNS_4ArgsE"
+
+
+def res_usage(stacks: dict) -> str:
+    """cuobjdump -res-usage's report of a library holding the kernel-4
+    instances (d, lbias_bytes) -> stack bytes, and one other kernel."""
+    lines = ["Fatbin elf code:", "================", "arch = sm_90a", "", "Resource usage:",
+             " Common:", "  GLOBAL:0"]
+    rows = [(DLBIAS.format(*k), 180 + k[0] % 7, v) for k, v in stacks.items()]
+    for name, regs, stack in rows + [(OTHER, 255, 64)]:
+        lines += [f" Function {name}:",
+                  f"  REG:{regs} STACK:{stack} SHARED:0 LOCAL:0 CONSTANT[0]:640 TEXTURE:0 "
+                  "SURFACE:0 SAMPLER:0"]
+    return "\n".join(lines) + "\n"
+
+
+def sass(instances) -> str:
+    """cuobjdump -sass's listing: each kernel-4 instance with two HGMMA
+    instructions, and one other kernel with one."""
+    lines = ["\tcode for sm_90a"]
+    for name, n in [(DLBIAS.format(*k), 2) for k in instances] + [(OTHER, 1)]:
+        lines += [f"\t\tFunction : {name}",
+                  "        /*0000*/                   MOV R1, c[0x0][0x28] ;"]
+        lines += ["        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], "
+                  "R24 ;"] * n
+    return "\n".join(lines) + "\n"
+
+
+def test_chip_smoke_reads_registers_and_stack_from_the_library(tmp_path, monkeypatch):
+    """chip_smoke.py's reading of a built library: per kernel-4 instance,
+    named by its int template arguments, its HGMMA count (cuobjdump -sass)
+    and its registers, stack frame and local memory (cuobjdump
+    -res-usage); another kernel's lines are not counted."""
+    mod = load_chip_smoke()
+    stacks = {(64, 2): 0, (128, 4): 24}
+    fake_tool(tmp_path / "cuobjdump",
+              f"print({sass(stacks)!r} if sys.argv[1] == '-sass' else {res_usage(stacks)!r})\n")
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    fake_sources(tmp_path, monkeypatch, ("flash_bwd_dlbias_tc",))
+    args = (cuda_build, "flash_bwd_dlbias_tc", "flash_bwd_dlbias_tc_kernel",
+            ("d", "lbias_bytes"))
+    assert mod.hgmma_counts(*args) == {"d=64 lbias_bytes=2": 2, "d=128 lbias_bytes=4": 2}
+    assert mod.resource_usage(*args) == {
+        "d=64 lbias_bytes=2": {"registers": 181, "stack_bytes": 0, "local_bytes": 0},
+        "d=128 lbias_bytes=4": {"registers": 182, "stack_bytes": 24, "local_bytes": 0}}
+    assert "flash_bwd_dlbias_tc_kernel" in mod.NO_SPILL
+
+
+@pytest.mark.parametrize("stack", (0, 8))
+def test_chip_smoke_spill_gate_reads_a_cached_library(tmp_path, monkeypatch, stack):
+    """The spill gate on a library that an earlier run built, so that
+    ``build`` compiles nothing this time: it passes when every kernel-4
+    instance has no stack frame and fails the run when one has a frame
+    (where a spill would go)."""
+    mod = load_chip_smoke()
+    stacks = {(d, lb): 0 for d in (16, 32, 64, 128) for lb in (2, 4)}
+    stacks[(64, 2)] = stack
+    fake_tool(tmp_path / "cuobjdump",
+              f"print({sass(stacks)!r} if sys.argv[1] == '-sass' else {res_usage(stacks)!r})\n")
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    fake_sources(tmp_path, monkeypatch, ("flash_bwd_dlbias_tc",))
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "/nonexistent/nvcc")
+    cuda_build.library_path("flash_bwd_dlbias_tc").parent.mkdir(parents=True)
+    cuda_build.library_path("flash_bwd_dlbias_tc").write_bytes(b"")  # built by an earlier run
+    assert cuda_build.build(["flash_bwd_dlbias_tc"], verbose=True) == {}
+    kernels = [k for k in mod.TC_KERNELS if k[0] == "flash_bwd_dlbias_tc"]
+    if stack == 0:
+        mod.sass_phase(cuda_build, kernels)
+    else:
+        with pytest.raises(SystemExit):
+            mod.sass_phase(cuda_build, kernels)
