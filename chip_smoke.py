@@ -17,7 +17,9 @@ Phases (each fatal, non-zero exit, no result line):
      every instance of the last must have no stack frame and no local
      memory, hence no spill (cuobjdump -res-usage, read from the built
      library, so a cached build is checked too); each tensor-core
-     instance's registers, stack frame and local memory reported
+     instance's registers, stack frame and local memory reported; every
+     instance of kernels 7 and 8 (dropout, AdamW, the gradient pass) must
+     have no stack frame and no local memory either
   3. kernels vs plain versions at the main paths' shapes and at lengths no
      tile divides, timed with CUDA events beside the plain version, the
      library yardstick (never called by the port) and the bound
@@ -51,10 +53,22 @@ Phases (each fatal, non-zero exit, no result line):
        within 1.5x the plain bf16 path's own error; exactly 0 on -inf rows
        and above the diagonal; two launches bit-equal; Q and dO rows
        permuted inside one query tile must break that limit by 10x;
-     - fused dropout: exactly equal in bf16 and fp32, kept fraction within
-       1e-3 of 1 - rate;
-     - fused AdamW: p', mu', nu' within AdamW_RTOL, health sums within
-       1e-5 relative, NaN counted once;
+     - fused dropout: exactly equal in bf16 and fp32 at the main paths'
+       shapes, rows of 1001, 7 and 1, views at a storage offset that is
+       not 16-byte aligned (vectors after a scalar head; all scalar where
+       x and the residual disagree modulo 16) and an fp32 residual into a
+       bf16 activation, each case's vector and scalar element counts
+       printed; kept fraction within 1e-3 of 1 - rate; timed at (8, 1024,
+       4096) beside F.dropout and at (8, 1024, 1024) with a residual;
+     - fused AdamW (a table of one leaf): p', mu', nu' within ADAMW_RTOL,
+       health sums within 1e-5 relative, NaN counted once; one launch over
+       t5-large's 509 leaves plus an odd-length, an empty and a
+       misaligned leaf, against per-leaf adamw_leaf_plain, the NaN counted
+       once in its own row; the train step's tail (gradient pass, step
+       scalars, AdamW) on the 509 leaves: the norm within one fp32 ulp of
+       grad_prep_plain, the division bit-equal to div_'s, a rerun
+       bit-equal in the norm and in every parameter and moment; the tail
+       timed beside clip_grad_norm_(foreach=True) + AdamW(fused=True);
      - paged flash decode at the llama-2-7b decode shape (72-block pool in
        scrambled order, sentinel tiles in the prompt gap and past the
        budget, padding bias; Q = 1 and 8, bf16 / fp32 / int8 / GQA 32:8,
@@ -85,9 +99,10 @@ Phases (each fatal, non-zero exit, no result line):
      whose counters must show both kernels too
   5. train: the CLI's train entry in-process, bart-large-cnn at full width,
      bf16, batch 8, source 1024 / target 128, 48 synthetic records (6
-     steps); every count of kernels 1, 2, 3, 7 and 8 equals what the model
-     implies (attention modules, dropout sites, parameter tensors) times
-     the steps; finite losses; non-zero q/k/v projection gradients; then
+     steps); every count of kernels 1, 2, 3, 7 and 8 (AdamW and the
+     gradient pass) equals what the model implies (attention modules,
+     dropout sites, the leaf table's launches) times the steps; finite
+     losses; non-zero q/k/v projection gradients; then
      three more steps timed for host enqueue vs finish on the card, and one
      under torch.profiler (device busy, kernels by group and by launches)
   6. gradient check: one fp32 forward+backward with dropout on, kernel
@@ -128,7 +143,8 @@ Phases (each fatal, non-zero exit, no result line):
      steps, paged and flat, kernel path vs plain path within 1e-4; a
      decode offset shifted by one must break it on each route
  13. a {"kernels_unported": []} line (every TPU kernel has a port), a
-     {"kernels": [...]} line of all eight (kernels 1-4 name both sources),
+     {"kernels": [...]} line of all eight (kernels 1-4 name both sources,
+     kernel 8 both entries of its source),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -263,6 +279,26 @@ def device_ms_of(fn, n: int, name: str):
         if hits:
             return sum(hits)
     return None
+
+
+def host_us(fn, n: int = 200) -> float:
+    """The host's median time to enqueue one call of ``fn`` onto an empty
+    queue (microseconds; the device is synchronized between calls, outside
+    the timed window, so a full launch queue cannot hold the host): what
+    the event time of back-to-back calls reads when it exceeds the device
+    time."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(out)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -776,10 +812,10 @@ def bwd_work(bias, B, H, S, D, per_key):
 
 def cuobjdump_instances(cuda_build, lib: str, kernel: str, params: tuple, flag: str) -> dict:
     """{kernel instance: the lines cuobjdump ``flag`` prints for it} of
-    every instance of the template ``kernel`` in the built library ``lib``
-    (read from the library itself, so a cached build is read as a fresh
-    one); an instance is named by its int template arguments
-    (``params``)."""
+    every instance of ``kernel`` in the built library ``lib`` (read from
+    the library itself, so a cached build is read as a fresh one); an
+    instance of a template is named by its int template arguments
+    (``params``), a kernel that is no template by its own name."""
     import re
     import shutil
 
@@ -791,11 +827,13 @@ def cuobjdump_instances(cuda_build, lib: str, kernel: str, params: tuple, flag: 
     found, name = {}, None
     for line in out.stdout.splitlines():
         if line.lstrip().startswith("Function"):
-            m = re.search(kernel + r"I((?:Li\d+E)+)E", line)
+            # the mangled name: the kernel's length-prefixed identifier, then
+            # its template arguments or the end of its nested name
+            m = re.search(rf"{len(kernel)}{kernel}(?:I((?:Li\d+E)+)E|(?=E))", line)
             name = None
             if m:
-                args = re.findall(r"Li(\d+)E", m.group(1))
-                name = " ".join(f"{p}={a}" for p, a in zip(params, args))
+                args = re.findall(r"Li(\d+)E", m.group(1) or "")
+                name = " ".join(f"{p}={a}" for p, a in zip(params, args)) or kernel
                 found[name] = []
         elif name:
             found[name].append(line)
@@ -834,6 +872,13 @@ TC_KERNELS = [("flash_fwd_tc", "flash_fwd_tc_kernel", ("d", "rows", "lbias_bytes
 # kernels whose every instance must have no stack frame and no local
 # memory, hence no spill
 NO_SPILL = ("flash_bwd_dlbias_tc_kernel",)
+# kernels 7 and 8 (CUDA-core kernels): (library, kernel, template
+# parameters); every instance must have no stack frame and no local memory
+# (kernel 8's leaf table is a __grid_constant__ parameter block: a copy of
+# it would land in local memory)
+STREAM_KERNELS = [("fused_dropout", "fused_dropout_kernel", ("bf16", "residual")),
+                  ("fused_adamw", "fused_adamw_kernel", ("clip",)),
+                  ("fused_adamw", "fused_grad_prep_kernel", ())]
 
 
 def sass_phase(cuda_build, kernels=TC_KERNELS) -> None:
@@ -852,6 +897,18 @@ def sass_phase(cuda_build, kernels=TC_KERNELS) -> None:
                 v["stack_bytes"] or v["local_bytes"] for v in usage.values())):
             fail(f"{kernel}: an instance spills (stack frame or local memory) or is missing "
                  f"from cuobjdump -res-usage: {usage}")
+
+
+def resource_phase(cuda_build, kernels=STREAM_KERNELS) -> None:
+    """Every instance of kernels 7 and 8 in its built library: registers,
+    and no stack frame and no local memory (no spill)."""
+    for lib, kernel, params in kernels:
+        usage = resource_usage(cuda_build, lib, kernel, params)
+        say({"phase": "resources", "library": lib, "kernel": kernel,
+             "resources_per_instance": usage})
+        if not usage or any(v["stack_bytes"] or v["local_bytes"] for v in usage.values()):
+            fail(f"{kernel}: no instance found, or an instance spills (stack frame or local "
+                 f"memory): {usage}")
 
 
 def tensor_core_route(fa, run: str, launches: dict) -> None:
@@ -1193,31 +1250,65 @@ def lbias_kernel_phase(torch, fa):
     return results, {n: max(v) for n, v in errs.items()}
 
 
+def dropout_cases(torch, dev, gen):
+    """(name, x, residual) for kernel 7's checks: the main paths' shapes in
+    bf16 and fp32, a row length no vector width divides (1001), rows of 7
+    and of 1, views at a storage offset that is not 16-byte aligned (x and
+    the residual at the same offset, so vectors follow a scalar head; and
+    at different ones, so every element is a scalar), and an fp32
+    residual into a bf16 activation."""
+    def rand(shape, dtype, offset=0):
+        n = 1
+        for d in shape:
+            n *= d
+        return torch.randn(n + offset, generator=gen, device=dev).to(dtype)[offset:].view(shape)
+
+    out = []
+    for shape, with_res in (((8, 1024, 1024), True), ((8, 1024, 4096), False),
+                            ((8, 128, 1000), True), ((8, 128, 4096), False),
+                            ((8, 128, 1001), True), ((8, 128, 1001), False),
+                            ((64, 7), True), ((4096, 1), False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            out.append((f"{shape} residual={with_res} {dtype}", rand(shape, dtype),
+                        rand(shape, dtype) if with_res else None))
+    for dtype, xo, ro in ((torch.bfloat16, 3, 3), (torch.bfloat16, 3, 0), (torch.bfloat16, 5, None),
+                          (torch.float32, 1, 1), (torch.float32, 2, 0)):
+        out.append((f"(8, 128, 1001) {dtype} offset x={xo} residual={ro}",
+                    rand((8, 128, 1001), dtype, xo),
+                    None if ro is None else rand((8, 128, 1001), dtype, ro)))
+    out.append(("(8, 128, 1024) bf16 with an fp32 residual", rand((8, 128, 1024), torch.bfloat16),
+                rand((8, 128, 1024), torch.float32)))
+    return out
+
+
 def dropout_kernel_phase(torch, fd):
-    """Kernel 7 against dropout_plain: exactly equal, and the kept fraction."""
+    """Kernel 7 against dropout_plain: exactly equal, and the kept fraction;
+    each case's split into vector and scalar elements (``dropout_plan``)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     rate = 0.1
     errs = []
-    for shape, with_res in (((8, 1024, 1024), True), ((8, 1024, 4096), False),
-                            ((8, 128, 1000), True), ((8, 128, 4096), False)):
-        for dtype in (torch.bfloat16, torch.float32):
-            for seed in (12345, -987654321):
-                x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
-                res = torch.randn(*shape, generator=gen, device=dev).to(dtype) if with_res else None
-                got = fd.fused_dropout(x, seed, rate, residual=res)
-                want = fd.dropout_plain(x, seed, rate, res)
-                torch.cuda.synchronize()
-                same = bool(torch.equal(got, want))
-                kept = float(((got if res is None else got - res) != 0).float().mean())
-                say({"phase": "kernel_check", "case": f"fused_dropout {shape} residual={with_res} "
-                     f"{dtype} seed={seed}", "bitwise_equal": same, "kept_fraction": kept})
-                if not same:
-                    fail(f"fused_dropout {shape} {dtype}: kernel differs from its plain version "
-                         f"(max abs err {float((got.float() - want.float()).abs().max())})")
-                if res is None and abs(kept - (1 - rate)) > 1e-3:
-                    fail(f"fused_dropout {shape}: kept fraction {kept} vs {1 - rate}")
-                errs.append(0.0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for case, x, res in dropout_cases(torch, dev, gen):
+        for seed in (12345, -987654321):
+            got = fd.fused_dropout(x, seed, rate, residual=res)
+            want = fd.dropout_plain(x, seed, rate, res)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, want))
+            kept = float(((got if res is None else got - res.to(x.dtype)) != 0).float().mean())
+            r = None if res is None else res.to(x.dtype)
+            plan = fd.dropout_plan(x.numel(), x.shape[-1], x.dtype, x.data_ptr(),
+                                   None if r is None else r.data_ptr(), got.data_ptr(), sms=sms)
+            say({"phase": "kernel_check", "case": f"fused_dropout {case} seed={seed}",
+                 "bitwise_equal": same, "kept_fraction": kept,
+                 "vector_elements": plan.vector_elements,
+                 "scalar_elements": plan.head + plan.tail, "grid": plan.grid})
+            if not same:
+                fail(f"fused_dropout {case}: kernel differs from its plain version "
+                     f"(max abs err {float((got.float() - want.float()).abs().max())})")
+            if res is None and x.numel() >= 2**20 and abs(kept - (1 - rate)) > 1e-3:
+                fail(f"fused_dropout {case}: kept fraction {kept} vs {1 - rate}")
+            errs.append(0.0)
     # the backward is the same kernel on g: one Function round trip
     x = torch.randn(8, 128, 1024, generator=gen, device=dev, dtype=torch.bfloat16,
                     requires_grad=True)
@@ -1237,10 +1328,13 @@ def dropout_kernel_phase(torch, fd):
                  bound_ms=b_ms, bound_by=b_by,
                  library_ms=time_ms(lambda: torch.nn.functional.dropout(x, rate), per_rep=20)
                  if lib else None)
+        ours = lambda: fd.fused_dropout(x, 5, rate, residual=res)  # noqa: E731
+        lib_call = lambda: torch.nn.functional.dropout(x, rate)  # noqa: E731
         say({"phase": "kernel_time", "kernel": "fused_dropout", "shape": list(shape),
              "residual": with_res, **r,
-             "device_ms": device_ms_of(lambda: fd.fused_dropout(x, 5, rate, residual=res), 20,
-                                       "fused_dropout_kernel")})
+             "device_ms": device_ms_of(ours, 20, "fused_dropout_kernel"), "host_us": host_us(ours),
+             **({"library_device_ms": sum(profile_device(lib_call, 20)[1].values()),
+                 "library_host_us": host_us(lib_call)} if lib else {})})
         results.setdefault("fused_dropout", r)
     return results
 
@@ -1295,7 +1389,179 @@ def adamw_kernel_phase(torch, fo):
              bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib.step, per_rep=5))
     say({"phase": "kernel_time", "kernel": "fused_adamw", "elements": n, **r,
          "device_ms": device_ms_of(run, 5, "fused_adamw_kernel")})
+    del p, mu, nu, g, ref, lib
+    worst = max(worst, adamw_table_phase(torch, fo))
+    r["max_abs_err"] = worst
     return {"fused_adamw": r}
+
+
+def t5_large_leaves(torch):
+    """(name, shape) of every parameter tensor of t5-large, in the model's
+    order (built on the meta device: nothing is allocated)."""
+    from distributed_llms_example_tpu_torch.models.registry import T5_CONFIGS
+    from distributed_llms_example_tpu_torch.models.t5 import T5ForConditionalGeneration
+
+    model = T5ForConditionalGeneration(T5_CONFIGS["t5-large"], dtype=torch.float32,
+                                       param_dtype=torch.float32, device="meta")
+    return [(name, tuple(p.shape)) for name, p in model.named_parameters()]
+
+
+def flat_leaves(buf, shapes, offsets):
+    """Views of ``buf``: one leaf of each shape at each offset."""
+    out = []
+    for shape, o in zip(shapes, offsets):
+        n = 1
+        for d in shape:
+            n *= d
+        out.append(buf[o:o + n].view(shape))
+    return out
+
+
+def adamw_table_phase(torch, fo) -> float:
+    """Kernel 8 over t5-large's 509 leaves in one launch: against per-leaf
+    adamw_leaf_plain with one odd-length leaf (BART's final_logits_bias),
+    one empty leaf, one leaf at an address no float4 takes and one NaN in
+    a gradient (counted once); then the train step's tail (the gradient
+    pass, the step scalars, AdamW) on the 509 leaves: the norm within one
+    fp32 ulp of grad_prep_plain, the divided gradients bit-equal to
+    ``div_``'s, a rerun bit-equal in the norm and in every parameter and
+    moment; the tail's time against clip_grad_norm_(foreach=True) +
+    AdamW(fused=True) on the same tensors.  Returns the largest error."""
+    from distributed_llms_example_tpu_torch.train import optim as toptim
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, max_norm=1.0)
+    named = t5_large_leaves(torch)
+    shapes = [shape for _, shape in named]
+    decay = [len(shape) >= 2 and not name.endswith(("scale", "bias")) for name, shape in named]
+    t5_leaves = len(shapes)
+    # extra leaves: odd length, empty, and one a float off 16-byte alignment
+    shapes += [(50265,), (0,), (1000,)]
+    decay += [False, False, True]
+    sizes = [int(torch.Size(shape).numel()) for shape in shapes]
+    offsets, o = [], 0
+    for i, n in enumerate(sizes):
+        o += (-o) % 4 + (1 if i == len(sizes) - 1 else 0)
+        offsets.append(o)
+        o += n
+    total = o
+    originals = {k: torch.randn(total, generator=gen, device=dev) for k in ("p", "mu", "g")}
+    originals["nu"] = torch.rand(total, generator=gen, device=dev) * 1e-3
+    nan_leaf = next(i for i, n in enumerate(sizes) if n == 1024)
+    originals["g"][offsets[nan_leaf] + 17] = float("nan")
+    work = {k: v.clone() for k, v in originals.items()}
+    leaves = {k: flat_leaves(v, shapes, offsets) for k, v in work.items()}
+    table = fo.leaf_table(leaves["g"], leaves["p"], leaves["mu"], leaves["nu"], decay)
+    vec = int((table.flags & fo.FLAG_VEC).astype(bool).sum())
+    scal = torch.tensor([3.5, 0.0, 0.271, 0.00299, -1e-4, 0, 0, 0], device=dev)
+    stats = torch.zeros(len(sizes), fo.STATS, dtype=torch.float64, device=dev)
+    before = fo.fused_adamw_leaf.launches
+    fo.adamw_tree_apply(leaves["p"], leaves["mu"], leaves["nu"], leaves["g"], scal, stats,
+                        weight_decay=0.01, decay=decay, table=table, **hyper)
+    torch.cuda.synchronize()
+    launches = fo.fused_adamw_leaf.launches - before
+    want = {k: originals[k].clone() for k in ("p", "mu", "nu")}  # the gaps stay as they are
+    want_stats = torch.zeros_like(stats)
+    orig = {k: flat_leaves(v, shapes, offsets) for k, v in originals.items()}
+    for i, (n, off) in enumerate(zip(sizes, offsets)):
+        wp, wmu, wnu, st = fo.adamw_leaf_plain(orig["p"][i], orig["mu"][i], orig["nu"][i],
+                                               orig["g"][i], scal, wd=0.01 if decay[i] else 0.0,
+                                               **hyper)
+        for k, v in (("p", wp), ("mu", wmu), ("nu", wnu)):
+            want[k][off:off + n] = v.reshape(-1)
+        want_stats[i] = st.double()
+    worst = 0.0
+    for k in ("p", "mu", "nu"):
+        ok, err = close_enough(work[k], want[k], atol=0.0, rtol=ADAMW_RTOL)
+        say({"phase": "kernel_check", "case": f"fused_adamw table t5-large + 3 leaves {k}",
+             "leaves": len(sizes), "float4_leaves": vec, "launches": launches,
+             "max_abs_err": err, "rtol": ADAMW_RTOL, "ok": ok})
+        if not ok:
+            fail(f"fused_adamw table {k}: kernel differs from per-leaf adamw_leaf_plain ({err})")
+        worst = max(worst, err)
+    nonfinite = stats[:, fo.STAT_NONFINITE]
+    ok_st, err_st = close_enough(stats[:, :2], want_stats[:, :2], atol=0.0, rtol=1e-5)
+    if (launches != 1 or not ok_st or float(nonfinite[nan_leaf]) != 1.0
+            or float(nonfinite.sum()) != 1.0):
+        fail(f"fused_adamw table: {launches} launches, stats rel err {err_st}, non-finite "
+             f"counts {nonfinite.nonzero().flatten().tolist()} (want leaf {nan_leaf} once)")
+    del want, want_stats, orig, stats
+
+    # the train step's tail on the 509 t5-large leaves, no NaN: twice from
+    # the same state, bit-equal
+    originals["g"][offsets[nan_leaf] + 17] = 0.5
+    shapes, sizes, offsets = shapes[:t5_leaves], sizes[:t5_leaves], offsets[:t5_leaves]
+    t5_total = offsets[-1] + sizes[-1]
+    spec = toptim.OptimizerSpec(learning_rate=1e-4, warmup_steps=0)
+    sched = toptim.linear_schedule_with_warmup(1e-4, 0, 100)
+    tokens = torch.full((), 977.0, device=dev)
+    first = None
+    for _ in range(2):
+        for k, v in work.items():
+            v.copy_(originals[k])
+        leaves = {k: flat_leaves(v, shapes, offsets) for k, v in work.items()}
+        state = toptim.AdamWState(0, leaves["mu"], leaves["nu"], torch.zeros(
+            len(sizes), fo.STATS, dtype=torch.float64, device=dev))
+        named_p = [(n, p) for (n, _), p in zip(named, leaves["p"])]
+        gnorm = toptim.fused_optimizer_apply(spec, sched, named_p, state, leaves["g"], tokens)
+        torch.cuda.synchronize()
+        if first is None:
+            first = (gnorm.clone(), {k: v.clone() for k, v in work.items() if k != "g"})
+    rerun = bool(torch.equal(first[0], gnorm)) and all(
+        torch.equal(v, work[k]) for k, v in first[1].items())
+    divided = bool(torch.equal(work["g"][:t5_total], originals["g"][:t5_total] / tokens))
+    g_plain = [v.clone() for v in flat_leaves(originals["g"], shapes, offsets)]
+    gnorm_plain = fo.grad_prep_plain(g_plain, tokens)
+    del g_plain
+    ulp = float(torch.nextafter(gnorm_plain, torch.full((), float("inf"), device=dev))
+                - gnorm_plain)
+    norm_err = abs(float(gnorm) - float(gnorm_plain))
+    say({"phase": "kernel_check", "case": "fused_grad_prep + fused_adamw t5-large tail",
+         "gnorm": float(gnorm), "gnorm_plain": float(gnorm_plain),
+         "gnorm_abs_err": norm_err, "fp32_ulp": ulp, "divided_bitwise_equal": divided,
+         "rerun_bitwise_equal": rerun})
+    if not (norm_err <= ulp and divided and rerun):
+        fail("fused_grad_prep: the norm is more than one fp32 ulp from grad_prep_plain, the "
+             "division differs from div_, or a rerun differs")
+    del first
+
+    # the tail's time: ours (tokens 1, so the gradients keep their size
+    # from call to call) against the library's clip + AdamW on the same
+    # tensors; both sets of state take ~24 GB, freed afterwards
+    del originals
+    free_cuda()
+    ones = torch.ones((), device=dev)
+    named_p = [(n, p) for (n, _), p in zip(named, leaves["p"])]
+    state.count = 0
+    run = lambda: toptim.fused_optimizer_apply(spec, sched, named_p, state, leaves["g"], ones)  # noqa: E731
+    n = sum(sizes)
+    counts: dict[str, float] = {}
+    _, kernels = profile_device(run, 3, counts)
+    ours = {k: v for k, v in kernels.items() if "fused_" in k}
+    params = [torch.nn.Parameter(p) for p in leaves["p"]]
+    for p, g in zip(params, leaves["g"]):
+        p.grad = g
+
+    def lib_step():
+        torch.nn.utils.clip_grad_norm_(params, 1.0, foreach=True)
+        lib.step()
+
+    lib = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.01, fused=True)
+    b_ms, b_by = bound(0.0, 36.0 * n)
+    say({"phase": "kernel_time", "kernel": "fused_grad_prep + fused_adamw",
+         "call": "train step tail, t5-large", "leaves": len(sizes), "elements": n,
+         "ms": time_ms(run, per_rep=2, reps=5), "device_ms": sum(ours.values()),
+         "host_ms": host_us(run, 20) / 1e3,
+         "device_ms_by_kernel": ours, "launches_per_tail": sum(counts.values()),
+         "kernel_launches_per_tail": {k: counts[k] for k in ours},
+         "bound_ms": b_ms, "bound_by": b_by,
+         "library": "clip_grad_norm_(foreach=True) + AdamW(fused=True)",
+         "library_ms": time_ms(lib_step, per_rep=2, reps=5),
+         "library_host_ms": host_us(lib_step, 20) / 1e3})
+    del params, lib, leaves, work, state
+    free_cuda()
+    return worst
 
 
 def paged_case(torch, fa, *, dtype, Q, heads_kv=32, gen, block_size=128):
@@ -1486,7 +1752,8 @@ TRAIN_ARGS = [
 
 def zero_counters(fa, fd, fo) -> None:
     for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias,
-               fd.fused_dropout, fo.fused_adamw_leaf, fa.flash_decode, fa.flash_decode_paged):
+               fd.fused_dropout, fo.fused_adamw_leaf, fo.fused_grad_prep, fa.flash_decode,
+               fa.flash_decode_paged):
         fn.launches = 0
     for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias):
         fn.tc_launches = 0
@@ -1498,7 +1765,8 @@ def read_counters(fa, fd, fo) -> dict:
             "flash_attention_bwd_dkv": fa.flash_bwd_dkv.launches,
             "flash_attention_bwd_dlbias": fa.flash_bwd_dlbias.launches,
             "fused_dropout": fd.fused_dropout.launches,
-            "fused_adamw": fo.fused_adamw_leaf.launches}
+            "fused_adamw": fo.fused_adamw_leaf.launches,
+            "fused_grad_prep": fo.fused_grad_prep.launches}
 
 
 def learned_bias_attention(model) -> int:
@@ -1516,18 +1784,22 @@ def expected_train_launches(model, steps: int, accum: int = 1) -> dict:
     dq and one dk/dv kernel per attention module per microbatch, one
     learned-bias gradient kernel per attention module with a learned bias
     per microbatch, one dropout kernel per dropout site in the forward and
-    again in the backward, one AdamW kernel per parameter tensor per
-    step."""
+    again in the backward, and per step one gradient pass and one AdamW
+    launch per group of the leaf table (MAX_LEAVES parameter tensors a
+    launch)."""
     from distributed_llms_example_tpu_torch.ops.fused_dropout import count_dropout_sites
+    from distributed_llms_example_tpu_torch.ops.fused_optim import leaf_groups
     from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
 
     attn = sum(isinstance(m, MultiHeadAttention) for m in model.modules())
+    tables = len(leaf_groups([p.numel() for p in model.parameters()]))
     return {"flash_attention_fwd": attn * accum * steps,
             "flash_attention_bwd_dq": attn * accum * steps,
             "flash_attention_bwd_dkv": attn * accum * steps,
             "flash_attention_bwd_dlbias": learned_bias_attention(model) * accum * steps,
             "fused_dropout": 2 * count_dropout_sites(model) * accum * steps,
-            "fused_adamw": len(list(model.parameters())) * steps}
+            "fused_adamw": tables * steps,
+            "fused_grad_prep": tables * steps}
 
 
 def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn"):
@@ -1613,7 +1885,8 @@ def profile_train_step(torch, trainer) -> None:
     for k, v in kernels.items():
         low = k.lower()
         g = next((tag for tag in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                                  "flash_bwd_dlbias", "fused_dropout", "fused_adamw")
+                                  "flash_bwd_dlbias", "fused_dropout", "fused_adamw",
+                                  "fused_grad_prep")
                   if tag in low),
                  "gemm" if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
                  else "elementwise" if "elementwise" in low
@@ -1648,6 +1921,14 @@ def backward_dropout_seed_off_by_one(fd):
         fd._FusedDropout.backward = saved
 
 
+def global_norm(grads):
+    """sqrt of the sum of per-tensor sums of squares, fp32 (optax's
+    ``global_norm``): the gradient checks' distance metric."""
+    import torch
+
+    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+
+
 def loss_and_grads(torch, model, batch):
     """One forward+backward with dropout seeds from a fresh generator:
     (loss, normalized gradients) like the train step's."""
@@ -1670,7 +1951,6 @@ def grad_check_phase(torch, fa, fd, trainer):
     that must break the limits; bf16: the kernel path's gradient distance
     from fp32 against the plain path's."""
     from distributed_llms_example_tpu_torch.models.registry import load_model
-    from distributed_llms_example_tpu_torch.train.optim import global_norm
     from distributed_llms_example_tpu_torch.train.trainer import put_batch
 
     batch = put_batch(next(iter(trainer.batches.epoch(0))), trainer.device)
@@ -1850,7 +2130,6 @@ def t5_grad_check_phase(torch, fa, fd, batch) -> None:
 
     from distributed_llms_example_tpu_torch.models.registry import T5_CONFIGS
     from distributed_llms_example_tpu_torch.models.t5 import T5ForConditionalGeneration
-    from distributed_llms_example_tpu_torch.train.optim import global_norm
 
     def build(mlp: str):
         cfg = dataclasses.replace(T5_CONFIGS["t5-large"], num_layers=2, feed_forward_proj=mlp)
@@ -2622,6 +2901,7 @@ def main() -> None:
     secs = cuda_build.build(KERNELS, verbose=True)
     say({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs})
     sass_phase(cuda_build)
+    resource_phase(cuda_build)
 
     # phase 3: kernels against their plain versions
     measured = kernel_phase(torch, fa)
@@ -2722,8 +3002,10 @@ def main() -> None:
              replaces=ref + "fused_dropout.py:195",
              launches=both["fused_dropout"], **measured["fused_dropout"]),
         dict(name="fused_adamw", route="cuda", source=src + "fused_adamw.cu",
-             replaces=ref + "fused_optim.py:162",
-             launches=both["fused_adamw"], **measured["fused_adamw"]),
+             entries=["fused_adamw", "fused_grad_prep"], replaces=ref + "fused_optim.py:162",
+             launches=both["fused_adamw"] + both["fused_grad_prep"],
+             entry_launches={k: both[k] for k in ("fused_adamw", "fused_grad_prep")},
+             **measured["fused_adamw"]),
     ]
     say({"kernels": rows})
     say({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

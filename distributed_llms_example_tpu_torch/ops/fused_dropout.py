@@ -18,7 +18,9 @@ Parts, as for every kernel of the port:
 - ``dropout_plain``: the plain PyTorch version, run for CPU tensors and
   held against the kernel on the card;
 - ``csrc/fused_dropout.cu``: the kernel, launched for CUDA tensors (or
-  the wrapper raises; there is no fallback);
+  the wrapper raises; there is no fallback), through ``dropout_plan``:
+  16-byte accesses between a scalar head and tail, a grid of a few CTAs
+  a SM;
 - ``fused_dropout.launches``: a plain integer bumped per kernel launch.
 
 Seeds come from a host-side stream: inside ``dropout_seeds(generator)``
@@ -31,6 +33,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import functools
 
 import torch
 from torch import nn
@@ -88,6 +92,7 @@ def hash_keep_mask(seed: int, shape: tuple[int, int], rate: float, *, tag_a: int
     return (_mix32(x) >> 8) < keep_threshold(rate)
 
 
+@functools.lru_cache(maxsize=64)
 def _inv_keep(rate: float) -> float:
     """1/(1-rate) rounded to fp32, the one scale factor both versions use."""
     return float(torch.tensor(1.0 / (1.0 - float(rate)), dtype=torch.float32))
@@ -107,9 +112,77 @@ def dropout_plain(x: torch.Tensor, seed: int, rate: float, residual: torch.Tenso
     return y.to(x.dtype)
 
 
+# csrc/fused_dropout.cu's launch shape: threads a CTA, 16-byte vectors of x
+# a thread has in flight (half of them with a residual), CTAs an SM holds
+# (its __launch_bounds__)
+NT, UNROLL, CTAS_PER_SM = 256, 4, 4
+VEC_BYTES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutPlan:
+    """How one launch covers ``numel`` elements: ``head`` scalar elements,
+    then ``vectors`` accesses of ``width`` elements (16 bytes each, aligned
+    in x, the residual and out alike), then ``tail`` scalar elements;
+    ``grid`` CTAs."""
+
+    width: int
+    head: int
+    vectors: int
+    tail: int
+    grid: int
+
+    @property
+    def vector_elements(self) -> int:
+        return self.vectors * self.width
+
+
+def dropout_plan(numel: int, cols: int, dtype: torch.dtype, x_ptr: int, res_ptr: int | None,
+                 out_ptr: int, *, sms: int = 132) -> DropoutPlan:
+    """The kernel's launch plan for a (numel // cols, cols) view in
+    ``dtype`` at the given addresses (``res_ptr`` None without a
+    residual) on a card of ``sms`` SMs.  The vectors start at the first
+    element whose three addresses are 16-byte aligned; where the addresses
+    disagree modulo 16 no element can take a vector and every one is a
+    scalar.  The grid is at most CTAS_PER_SM CTAs a SM, each doing the
+    same number of rounds (UNROLL * NT vectors, UNROLL / 2 * NT with a
+    residual, or NT scalars, a round).  Only the addresses modulo 16
+    matter, so plans are cached on them: a launch pays a lookup."""
+    return _plan(numel, cols, dtype, x_ptr % VEC_BYTES,
+                 None if res_ptr is None else res_ptr % VEC_BYTES, out_ptr % VEC_BYTES, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(numel: int, cols: int, dtype: torch.dtype, x_ptr: int, res_ptr: int | None,
+          out_ptr: int, sms: int) -> DropoutPlan:
+    if numel and (cols < 1 or numel % cols or cols >= 2**31):
+        raise ValueError(f"fused_dropout: {numel} elements do not form rows of {cols} "
+                         "(1 <= cols < 2**31)")
+    size = torch.finfo(dtype).bits // 8
+    width = VEC_BYTES // size
+    ptrs = [p for p in (x_ptr, res_ptr, out_ptr) if p is not None]
+    if any(p % size for p in ptrs):
+        raise ValueError(f"fused_dropout: an address is not {dtype}-aligned")
+    if len({p % VEC_BYTES for p in ptrs}) == 1:
+        head = min(numel, (-x_ptr % VEC_BYTES) // size)
+        vectors = (numel - head) // width
+    else:
+        head, vectors = numel, 0
+    tail = numel - head - vectors * width
+    unroll = UNROLL if res_ptr is None else UNROLL // 2
+    work = max(-(-vectors // (unroll * NT)), -(-(head + tail) // NT), 1)
+    rounds = -(-work // (CTAS_PER_SM * sms))
+    return DropoutPlan(width, head, vectors, tail, -(-work // rounds))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 _ARGTYPES = (
-    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
-    + [ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int]
+    + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float] + [ctypes.c_int, ctypes.c_void_p]
 )
 
 
@@ -121,10 +194,17 @@ def _dropout_cuda(x, residual, seed, rate):
     if residual is not None and residual.dtype != x.dtype:
         residual = residual.to(x.dtype)
     cols = x.shape[-1]
-    out = torch.empty_like(x)
+    # out shares x's address modulo 16, so that an x at a storage offset
+    # (and a residual at the same one) still takes 16-byte accesses
+    off = x.data_ptr() % VEC_BYTES // x.element_size()
+    out = (torch.empty(x.numel() + off, dtype=x.dtype, device=dev)[off:].view(x.shape) if off
+           else torch.empty_like(x))
+    res_ptr = None if residual is None else residual.data_ptr()
+    plan = dropout_plan(x.numel(), cols, x.dtype, x.data_ptr(), res_ptr, out.data_ptr(),
+                        sms=_sm_count(dev))
     fn = cuda_build.load("fused_dropout", _ARGTYPES)
-    err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(), out.data_ptr(),
-             x.numel(), cols, stream_key(seed), keep_threshold(rate), _inv_keep(rate),
+    err = fn(x.data_ptr(), res_ptr, out.data_ptr(), x.numel(), cols, plan.head, plan.vectors,
+             plan.grid, stream_key(seed), keep_threshold(rate), _inv_keep(rate),
              int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "fused_dropout")
     fused_dropout.launches += 1

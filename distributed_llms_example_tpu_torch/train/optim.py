@@ -7,9 +7,9 @@
 - ``OptimizerSpec``: the clip + AdamW hyperparameters as data;
 - ``AdamWState`` and ``fused_optimizer_apply``: the optimizer state (step
   count, fp32 mu and nu per parameter) and one clip + AdamW step through
-  the fused kernel (``ops/fused_optim.py``), one launch per parameter
-  tensor.  The global gradient norm is a plain PyTorch reduction outside
-  the kernel, as in the JAX package, and every step scalar stays on the
+  the fused kernels (``ops/fused_optim.py``): the gradient pass (token
+  division and global norm) and the AdamW update, each one launch over a
+  table of every parameter tensor.  Every step scalar stays on the
   device: a step needs no ``.item()``.
 """
 
@@ -29,7 +29,10 @@ from distributed_llms_example_tpu_torch.ops.fused_optim import (
     _S_TRIGGER,
     SCALARS,
     STATS,
+    LeafTable,
     adamw_tree_apply,
+    fused_grad_prep,
+    leaf_table,
 )
 
 Schedule = Callable[[int], float]
@@ -86,12 +89,17 @@ class AdamWState:
     (a host int: the schedule and the bias corrections read it without a
     device round trip) and fp32 first/second moments, one per parameter.
     ``stats`` is the kernel's (N, STATS) float64 table of per-leaf health
-    sums, allocated once and refilled by every step; nothing reads it yet."""
+    sums, allocated once and refilled by every step; nothing reads it yet.
+    ``table`` is the kernels' leaf table of the parameters and these
+    moments, built (and its tensors checked) at the first step on the GPU
+    and rebuilt only if the parameters' addresses change; each step adds
+    its gradients to a copy."""
 
     count: int
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
     stats: torch.Tensor
+    table: LeafTable | None = None
 
     @classmethod
     def zeros(cls, params: list[torch.Tensor]) -> "AdamWState":
@@ -99,12 +107,6 @@ class AdamWState:
                    [torch.zeros_like(p, dtype=torch.float32) for p in params],
                    torch.zeros(len(params), STATS, dtype=torch.float64,
                                device=params[0].device))
-
-
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """optax ``global_norm``: sqrt of the sum of per-leaf sums of squares,
-    fp32, a 0-d device tensor."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
 
 
 def step_scalars(spec: OptimizerSpec, schedule: Schedule, count: int,
@@ -127,18 +129,26 @@ def step_scalars(spec: OptimizerSpec, schedule: Schedule, count: int,
 
 
 def fused_optimizer_apply(spec: OptimizerSpec, schedule: Schedule, named_params, state: AdamWState,
-                          grads: list[torch.Tensor]):
+                          grads: list[torch.Tensor], tokens: torch.Tensor):
     """One clip + AdamW step, in place on the parameters and ``state``.
-    ``named_params``: (name, fp32 parameter) pairs; ``grads``: their
-    token-normalized fp32 gradients.  Returns the global grad norm, a
-    device tensor."""
+    ``named_params``: (name, fp32 parameter) pairs; ``grads``: their fp32
+    token-summed gradients, divided here IN PLACE by ``tokens`` (a
+    one-element fp32 tensor).  Returns the global norm of the normalized
+    gradients, a device tensor."""
     names, params = zip(*named_params)
-    gnorm = global_norm(grads)
+    params = list(params)
+    decay = [decay_mask(n, p) for n, p in zip(names, params)]
+    table = None
+    if params[0].device.type != "cpu":
+        if state.table is None or state.table.ptrs[:, 0].tolist() != [p.data_ptr() for p in params]:
+            state.table = leaf_table(grads, params, state.mu, state.nu, decay)
+        table = state.table.with_grads(grads)
+    gnorm = fused_grad_prep(grads, tokens, table=table)
     scal = step_scalars(spec, schedule, state.count, gnorm)
     adamw_tree_apply(
-        list(params), state.mu, state.nu, grads, scal, state.stats, b1=spec.b1, b2=spec.b2,
+        params, state.mu, state.nu, grads, scal, state.stats, b1=spec.b1, b2=spec.b2,
         eps=spec.eps, max_norm=spec.max_grad_norm, weight_decay=spec.weight_decay,
-        decay=[decay_mask(n, p) for n, p in zip(names, params)],
+        decay=decay, table=table,
     )
     state.count += 1
     return gnorm

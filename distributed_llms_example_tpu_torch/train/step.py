@@ -8,9 +8,9 @@
 - ``train_step``: the batch's rows split into ``grad_accum_steps``
   microbatches (row r joins microbatch r mod N, as in the JAX package),
   loss and gradient SUMS accumulated over them, then ONE optimizer apply
-  (``optimizer_apply_block``): normalize by tokens, clip + AdamW through
-  the fused kernel.  Any grouping gives the same step, since the sums are
-  additive over rows.
+  (``optimizer_apply_block``): normalize by tokens and take the global
+  norm, then clip + AdamW, through the fused kernels.  Any grouping gives
+  the same step, since the sums are additive over rows.
 
 Dropout seeds come from the caller's CPU generator (``dropout_seeds``), so
 the step draws no random number on the device and waits on nothing.
@@ -60,16 +60,16 @@ def seq2seq_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
 def optimizer_apply_block(spec: OptimizerSpec, schedule: Schedule, named_params,
                           state: AdamWState, lsum: torch.Tensor, tokens: torch.Tensor) -> dict:
     """The once-per-step tail: normalize the token-weighted sums (the
-    gradients in place in ``.grad``), clip + AdamW, metrics.  Every metric
-    but the learning rate is a device tensor."""
+    gradients in place in ``.grad``) and take their norm, clip + AdamW,
+    metrics.  Every metric but the learning rate is a device tensor."""
     tokens = torch.clamp(tokens, min=1.0)
     grads = []
     for _, p in named_params:
         if p.grad is None:
             p.grad = torch.zeros_like(p, dtype=torch.float32)
-        grads.append(p.grad.div_(tokens).float())
+        grads.append(p.grad)
     lr = schedule(state.count)
-    grad_norm = fused_optimizer_apply(spec, schedule, named_params, state, grads)
+    grad_norm = fused_optimizer_apply(spec, schedule, named_params, state, grads, tokens)
     return {"loss": lsum / tokens, "learning_rate": lr, "grad_norm": grad_norm,
             "target_tokens": tokens}
 

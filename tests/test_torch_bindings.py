@@ -82,8 +82,13 @@ def _dropout():
 
 def _adamw():
     p, mu, nu, g = (_t(100) for _ in range(4))
-    fo._adamw_cuda(p, mu, nu, g, _t(fo.SCALARS), torch.zeros(fo.STATS, dtype=torch.float64),
-                   b1=0.9, b2=0.999, eps=1e-8, max_norm=1.0, wd=0.01)
+    fo._adamw_cuda(fo.leaf_table([g], [p], [mu], [nu], [True]), _t(fo.SCALARS),
+                   torch.zeros(fo.STATS, dtype=torch.float64), b1=0.9, b2=0.999, eps=1e-8,
+                   max_norm=1.0, wd=0.01)
+
+
+def _grad_prep():
+    fo._grad_prep_cuda(fo.leaf_table([_t(100)]), _t(1))
 
 
 WRAPPERS = {
@@ -107,6 +112,7 @@ WRAPPERS = {
     "flash_decode_paged": _paged,
     "fused_dropout": _dropout,
     "fused_adamw": _adamw,
+    "fused_grad_prep": _grad_prep,
 }
 
 
@@ -128,9 +134,10 @@ def loads(monkeypatch):
     monkeypatch.setattr(cuda_build, "check_inputs",
                         lambda what, tensors: next(iter(tensors.values())).device)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
+    monkeypatch.setattr(fd, "_sm_count", lambda dev: 132)
     for counter in (fa.flash_attention, fa.flash_decode, fa.flash_decode_paged,
-                    fd.fused_dropout, fo.fused_adamw_leaf, fa.flash_bwd_dq, fa.flash_bwd_dkv,
-                    fa.flash_bwd_dlbias):
+                    fd.fused_dropout, fo.fused_adamw_leaf, fo.fused_grad_prep, fa.flash_bwd_dq,
+                    fa.flash_bwd_dkv, fa.flash_bwd_dlbias):
         monkeypatch.setattr(counter, "launches", counter.launches)
     for counter in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias):
         monkeypatch.setattr(counter, "tc_launches", counter.tc_launches)

@@ -3,7 +3,8 @@ its source and of every shared ``csrc/*.cuh`` header, so that editing a
 header a kernel includes gives a new name (a rebuild) instead of loading a
 stale library; ``build`` compiles only what is out of date; chip_smoke.py
 builds every source under ``csrc/`` and reads each tensor-core kernel's
-HGMMA count and stack frame from the built library, cached or not."""
+HGMMA count and stack frame from the built library, cached or not, and
+kernels 7 and 8's registers and stack frames too."""
 
 import importlib.util
 import os
@@ -165,3 +166,47 @@ def test_chip_smoke_spill_gate_reads_a_cached_library(tmp_path, monkeypatch, sta
     else:
         with pytest.raises(SystemExit):
             mod.sass_phase(cuda_build, kernels)
+
+
+# names as nvcc mangles kernels of an anonymous namespace: the namespace's
+# name ends in hex digits, and the prep kernel is no template
+STREAM_NAMES = {
+    ("fused_dropout", "bf16=1 residual=0"):
+        "_ZN49_GLOBAL__N__cd8948e6_16_fused_dropout_cu_cfe94f5620fused_dropout_kernelILi1ELi0EEEvPKvS2_PvxxxNS_4ArgsE",
+    ("fused_dropout", "bf16=0 residual=1"):
+        "_ZN49_GLOBAL__N__cd8948e6_16_fused_dropout_cu_cfe94f5620fused_dropout_kernelILi0ELi1EEEvPKvS2_PvxxxNS_4ArgsE",
+    ("fused_adamw", "clip=1"):
+        "_ZN47_GLOBAL__N__1785cb6c_14_fused_adamw_cu_57b34e9b18fused_adamw_kernelILi1EEEvNS_5TableEPKfPdNS_5HyperE",
+    ("fused_adamw", "fused_grad_prep_kernel"):
+        "_ZN47_GLOBAL__N__1785cb6c_14_fused_adamw_cu_57b34e9b22fused_grad_prep_kernelENS_5TableEPKfPdPfii",
+}
+
+
+@pytest.mark.parametrize("stack", (0, 8))
+def test_chip_smoke_resource_gate_reads_kernels_7_and_8(tmp_path, monkeypatch, stack):
+    """chip_smoke.py's register and stack reading of kernels 7 and 8, from
+    each library's cuobjdump -res-usage: every instance found by its
+    template arguments (or, for the gradient pass, its name), and the run
+    failed when one has a stack frame."""
+    mod = load_chip_smoke()
+    reports = {}
+    for (lib, inst), name in STREAM_NAMES.items():
+        frame = stack if inst == "fused_grad_prep_kernel" else 0
+        reports.setdefault(lib, []).extend([
+            f" Function {name}:",
+            f"  REG:{40 + len(inst)} STACK:{frame} SHARED:0 LOCAL:0 CONSTANT[0]:900"])
+    libs = {lib: "Resource usage:\n" + "\n".join(lines) + "\n" for lib, lines in reports.items()}
+    fake_tool(tmp_path / "cuobjdump",
+              f"reports = {libs!r}\n"
+              "print(next(v for k, v in reports.items() if '/lib' + k + '-' in sys.argv[2]))\n")
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    fake_sources(tmp_path, monkeypatch, ("fused_dropout", "fused_adamw"))
+    kernels = mod.STREAM_KERNELS
+    got = {(lib, name) for lib, kernel, params in kernels
+           for name in mod.resource_usage(cuda_build, lib, kernel, params)}
+    assert got == set(STREAM_NAMES)
+    if stack == 0:
+        mod.resource_phase(cuda_build, kernels)
+    else:
+        with pytest.raises(SystemExit):
+            mod.resource_phase(cuda_build, kernels)

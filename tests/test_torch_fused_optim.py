@@ -6,7 +6,14 @@ multiply-add of either JAX version into an FMA), with the clip trigger and
 weight decay on and off and a NaN counted once; the schedule step by step;
 and three tree-apply steps against the optax chain on ``bart-test``
 parameters, params within 1e-4 of the learning rate (Adam's g/sqrt(v)
-turns an fp32 rounding of a tiny gradient into at most that)."""
+turns an fp32 rounding of a tiny gradient into at most that).  The
+multi-tensor launch's leaf table covering every element of every leaf
+once (bart-test's and t5-test's real leaves, forced small limits, an empty
+leaf, a leaf no float4 takes); the multi-leaf plain path bit-equal to
+per-leaf ``adamw_leaf_plain``; the gradient pass against the JAX
+package's ``g / tokens`` and ``optax.global_norm``."""
+
+import bisect
 
 import jax
 import jax.numpy as jnp
@@ -115,7 +122,8 @@ def test_three_tree_steps_match_the_optax_chain(bart_params):
         tgrads = bart_state_dict_from_jax(grads)
         psq = torch.stack([torch.sum(p.detach().double() ** 2) for _, p in named])
         gnorm = toptim.fused_optimizer_apply(tspec, tsched, named, state,
-                                             [tgrads[n].clone() for n, _ in named])
+                                             [tgrads[n].clone() for n, _ in named],
+                                             torch.ones(()))
         np.testing.assert_allclose(float(gnorm), float(optax.global_norm(grads)), rtol=1e-5)
         # the state's health table is refilled each step, not accumulated
         np.testing.assert_allclose(state.stats[:, tfo.STAT_P_SUMSQ].numpy(), psq.numpy(),
@@ -130,5 +138,116 @@ def test_three_tree_steps_match_the_optax_chain(bart_params):
 
 def test_cuda_wrapper_refuses_cpu_tensors():
     z = torch.zeros(8)
+    table = tfo.leaf_table([z], [z], [z], [z])
     with pytest.raises(ValueError, match="expected a CUDA device"):
-        tfo._adamw_cuda(z, z, z, z, z, torch.zeros(4, dtype=torch.float64), wd=0.0, **HYPER)
+        tfo._adamw_cuda(table, z, torch.zeros(4, dtype=torch.float64), wd=0.0, **HYPER)
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        tfo._grad_prep_cuda(table, torch.ones(()))
+
+
+def _leaves(name):
+    """The real parameter tensors of a test model, an empty leaf and a
+    leaf one float off 16-byte alignment appended."""
+    params = [p.detach() for p in load_model(name, device="cpu", train=True).module.parameters()]
+    return params + [torch.zeros(0), torch.zeros(1001)[1:]]
+
+
+@pytest.mark.parametrize("chunk,max_leaves", [(4, 3), (64, 7), (tfo.CHUNK, tfo.MAX_LEAVES)])
+@pytest.mark.parametrize("name", ["bart-test", "t5-test"])
+def test_leaf_table_covers_every_element_once(name, chunk, max_leaves):
+    """Each launch's leaves, and each work item mapped to its (leaf, chunk)
+    as the kernels map it (the last leaf whose first item is at most the
+    item's index), cover every element of every leaf exactly once."""
+    leaves = _leaves(name)
+    decay = [i % 3 == 0 for i in range(len(leaves))]
+    table = tfo.leaf_table(leaves, leaves, leaves, leaves, decay, chunk=chunk,
+                           max_leaves=max_leaves)
+    seen = [np.zeros(t.numel(), np.int64) for t in leaves]
+    covered = []
+    for lo, hi, first in table.groups:
+        assert 1 <= hi - lo <= max_leaves and first[0] == 0 and first.dtype == np.int32
+        covered += range(lo, hi)
+        for item in range(int(first[-1])):
+            leaf = bisect.bisect_right(first, item) - 1
+            start = (item - int(first[leaf])) * chunk
+            n = int(table.numel[lo + leaf])
+            assert 0 <= start < n
+            seen[lo + leaf][start:min(n, start + chunk)] += 1
+    assert covered == list(range(len(leaves)))
+    assert all((s == 1).all() for s in seen)
+    assert table.ptrs[:, 3].tolist() == [t.data_ptr() for t in leaves]
+    vec = (table.flags & tfo.FLAG_VEC) != 0
+    assert vec.tolist() == [t.data_ptr() % 16 == 0 for t in leaves] and not vec[-1]
+    assert ((table.flags & tfo.FLAG_DECAY) != 0).tolist() == decay
+
+
+def test_with_grads_equals_a_fresh_table():
+    """A step's table from the cached one (the parameters and moments
+    checked once, new gradients each step) equals the table built from
+    scratch, an unaligned gradient included; a bad gradient is refused."""
+    params = _leaves("t5-test")
+    decay = [i % 2 == 0 for i in range(len(params))]
+    base = tfo.leaf_table(params, params, params, params, decay)
+    grads = [torch.zeros(t.numel() + 1)[1:].view(t.shape) if i == 3 else torch.zeros_like(t)
+             for i, t in enumerate(params)]
+    got, want = base.with_grads(grads), tfo.leaf_table(grads, params, params, params, decay)
+    np.testing.assert_array_equal(got.ptrs, want.ptrs)
+    np.testing.assert_array_equal(got.flags, want.flags)
+    assert not got.flags[3] & tfo.FLAG_VEC and base.flags[3] & tfo.FLAG_VEC
+    with pytest.raises(ValueError, match="g of leaf 0"):
+        base.with_grads([grads[0].double()] + grads[1:])
+
+
+def test_leaf_table_refuses_what_the_kernel_cannot_take():
+    g = torch.zeros(8)
+    for bad in (torch.zeros(8, dtype=torch.float64), torch.zeros(9), torch.zeros(4, 4).t()):
+        with pytest.raises(ValueError, match="leaf table"):
+            tfo.leaf_table([g], [bad])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tfo.leaf_table([g], chunk=6)
+
+
+def test_multi_leaf_plain_path_equals_per_leaf_plain():
+    """adamw_tree_apply on the CPU (the multi-leaf path's plain version),
+    mixed decay flags, one NaN: bit-equal to adamw_leaf_plain leaf by leaf,
+    and the NaN counted once, in its own leaf's row."""
+    rng = np.random.RandomState(7)
+    shapes = [(64, 32), (32,), (1001,), (16, 16), (0,), (50265,)]
+    leaves = [[torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in shapes]
+              for _ in range(4)]
+    leaves[2] = [v.abs() * 1e-2 for v in leaves[2]]
+    leaves[3][2][500] = float("nan")
+    decay = [True, False, False, True, False, True]
+    scal = torch.tensor([3.5, 0.0, 0.1, 0.001, -1e-3, 0, 0, 0])
+    want = [tfo.adamw_leaf_plain(p, m, v, g, scal, wd=0.01 if d else 0.0, **HYPER)
+            for p, m, v, g, d in zip(*leaves, decay)]
+    p, mu, nu, g = ([t.clone() for t in col] for col in leaves)
+    stats = torch.full((len(shapes), tfo.STATS), 7.0, dtype=torch.float64)
+    tfo.adamw_tree_apply(p, mu, nu, g, scal, stats, weight_decay=0.01, decay=decay, **HYPER)
+    for i, (wp, wmu, wnu, wst) in enumerate(want):
+        for got, w in ((p[i], wp), (mu[i], wmu), (nu[i], wnu)):
+            np.testing.assert_array_equal(got.numpy(), w.numpy())
+        np.testing.assert_array_equal(stats[i].numpy(), wst.double().numpy())
+    assert stats[:, tfo.STAT_NONFINITE].tolist() == [0, 0, 1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("name", ["bart-test", "t5-test"])
+def test_grad_prep_matches_jax_division_and_global_norm(name):
+    """grad_prep_plain (the CPU path of fused_grad_prep) on a model's leaf
+    shapes: the divided gradients bit-equal to ``div_``'s and to the JAX
+    package's ``g / tokens``; the norm within 1e-6 of ``optax.global_norm``
+    of them (float64 sums here, fp32 in optax)."""
+    rng = np.random.RandomState(3)
+    shapes = [tuple(t.shape) for t in _leaves(name)]
+    grads = [(rng.randn(*s) * 10.0 ** rng.uniform(-3, 3)).astype(np.float32) for s in shapes]
+    tokens = np.float32(977.0)
+    jgrads = [jnp.asarray(g) / jnp.float32(tokens) for g in grads]
+    got = [torch.from_numpy(g.copy()) for g in grads]
+    gnorm = tfo.fused_grad_prep(got, torch.tensor(tokens))
+    assert gnorm.dtype == torch.float32 and gnorm.shape == ()
+    for g, t, j in zip(grads, got, jgrads):
+        np.testing.assert_array_equal(t.numpy(), torch.from_numpy(g).div_(torch.tensor(tokens)))
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    np.testing.assert_allclose(float(gnorm), float(optax.global_norm(jgrads)), rtol=1e-6)
+    want = np.sqrt(sum(np.sum(np.asarray(j, np.float64) ** 2) for j in jgrads))
+    assert float(gnorm) == np.float32(want)
