@@ -19,14 +19,21 @@ Phases (each fatal, non-zero exit, no result line):
      library, so a cached build is checked too); each tensor-core
      instance's registers, stack frame and local memory reported; every
      instance of kernels 7 and 8 (dropout, AdamW, the gradient pass) must
-     have no stack frame and no local memory either
+     have no stack frame and no local memory either, and so must every
+     instance of kernels 5 and 6: the flat and the paged instances of the
+     one template in csrc/flash_decode.cuh, 32 in each library
   3. kernels vs plain versions at the main paths' shapes and at lengths no
      tile divides, timed with CUDA events beside the plain version, the
      library yardstick (never called by the port) and the bound
      max(flops / 989 TFLOP/s, bytes / 3.35 TB/s), kernel 1's over the live
      keys of its padding mask, since it skips the tiles the mask zeroes:
      - flash forward / decode (bf16 atol=rtol 2e-2, fp32 atol 1e-4,
-       fully-masked rows exactly zero);
+       fully-masked rows exactly zero); decode also with flan-t5-xl's
+       per-row relative bias, and timed at the bart-large-cnn and
+       flan-t5-xl serve shapes and at the llama-2-7b flat decode step (the
+       paged case's gathered view, Q = 1 and 8), with the host's enqueue
+       time and, at the last, the bound over every slot it reads beside the
+       bound over the live ones;
      - the tensor-core forward (bf16) at head dims 16, 32, 64 and 128 in
        every case the main paths give it (padding, causal, learned bias
        with padding and with causal, -inf rows, S = 1000 and 200, one query
@@ -137,8 +144,8 @@ Phases (each fatal, non-zero exit, no result line):
      modules x decode rounds and flash decode 0 on the paged run, the
      reverse on the flat one, flash forward 0 on both (the prompt prefill
      is plain attention, as in the JAX package); the pool drained; the
-     greedy tokens of the two runs all equal; one profiled paged decode
-     round
+     greedy tokens of the two runs all equal; one profiled prefill chunk
+     and decode round of each
  12. fp32 logits at llama-2-7b widths, 2 layers: a prefill + 4 decode
      steps, paged and flat, kernel path vs plain path within 1e-4; a
      decode offset shifted by one must break it on each route
@@ -439,26 +446,93 @@ def kernel_phase(torch, fa):
     torch.cuda.synchronize()
     errs.append(check_close("flash_decode int8 KV Q=1 bf16", o, po, atol=2e-2, rtol=2e-2))
 
-    qd, kd, vd, off = dec_inputs(torch.bfloat16, 1, stagger)
-    k_pos = torch.arange(L, device=dev)[None, None, None, :]
-    sdpa_mask = k_pos <= off[:, None, None, None]
-    ms = time_ms(lambda: fa.flash_decode(qd, kd, vd, offsets=off), per_rep=200)
-    plain_ms = time_ms(lambda: fa.flash_decode_plain(qd, kd, vd, offsets=off), per_rep=50)
-    lib_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=sdpa_mask), per_rep=200
-    )
-    live = [min(L, o + 1) for o in stagger]
-    flops = sum(4.0 * H * 1 * n * D for n in live)
-    nbytes = sum(2 * H * n * D * 2 for n in live) + 2 * B * H * D * 2 + B * 4
-    b_ms, b_by = bound(flops, nbytes)
-    results["flash_decode"] = dict(
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms,
-    )
-    say({"phase": "kernel_time", "kernel": "flash_decode", **results["flash_decode"],
-         "device_ms": device_ms_of(lambda: fa.flash_decode(qd, kd, vd, offsets=off), 50,
-                                   "flash_decode_kernel")})
+    # flan-t5-xl's decoder self-attention, with its per-row relative bias
+    shapes = decode_shapes(torch, gen)
+    qt, kt, vt, rel, off = shapes["flan-t5-xl"]
+    o = fa.flash_decode(qt, kt, vt, rel, offsets=off)
+    po = fa.flash_decode_plain(qt, kt, vt, rel, offsets=off)
+    torch.cuda.synchronize()
+    errs.append(check_close("flash_decode per-row relative bias Q=1 bf16 (flan-t5-xl shape)",
+                            o, po, atol=2e-2, rtol=2e-2))
+
+    # times at the BART shape (the numbers returned) and the flan-t5-xl one
+    for name in ("bart-large-cnn", "flan-t5-xl"):
+        r = decode_time(torch, fa, name, *shapes[name])
+        if name == "bart-large-cnn":
+            results["flash_decode"] = dict(max_abs_err=max(errs), **r)
     return results
+
+
+def decode_shapes(torch, gen) -> dict:
+    """Kernel 5's inputs (q, k, v, bias, offsets) at the seq2seq serve
+    shapes, bf16, Q = 1, a 128-slot cache at staggered offsets:
+    bart-large-cnn's decoder self-attention (8, 16, 1, 64), no bias, and
+    flan-t5-xl's (8, 32, 1, 64) with its per-row (8, 32, 1, 128) relative
+    bias."""
+    dev = torch.device("cuda")
+    B, D, L = 8, 64, 128
+    off = torch.tensor([0, 5, 17, 40, 64, 99, 120, 127], dtype=torch.int32, device=dev)
+    out = {}
+    for name, H, biased in (("bart-large-cnn", 16, False), ("flan-t5-xl", 32, True)):
+        q = torch.randn(B, H, 1, D, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(B, H, L, D, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        bias = torch.randn(B, H, 1, L, generator=gen, device=dev) if biased else None
+        out[name] = (q, k, v, bias, off)
+    return out
+
+
+def decode_work(q, k, bias, off, *, padding: bool):
+    """(flops, bytes, (B, H, Q, L) mask of the slots each row attends) of
+    kernel 5 over the slots each row's output depends on: K/V up to the
+    last row's offset (under a padding bias only the slots it leaves live,
+    where ``padding``), q, o, the bias over those slots, the offsets."""
+    import torch
+
+    B, H, Q, D = q.shape
+    L = k.shape[2]
+    k_pos = torch.arange(L, device=q.device)[None, None, None, :]
+    row = torch.arange(Q, device=q.device)[None, None, :, None]
+    seen = k_pos <= off[:, None, None, None] + row  # (B, 1, Q, L)
+    if padding:
+        seen = seen & (bias > -1)
+    seen = seen.expand(B, H, Q, L)
+    slots = float(seen[:, :, -1].sum())  # over the (b, h) pairs
+    nbytes = 2 * slots * D * k.element_size() + 2 * q.numel() * q.element_size() + B * 4
+    if bias is not None:
+        used = seen  # the bias entries those slots read, once each
+        for dim, n in enumerate(bias.shape):
+            if n == 1:
+                used = used.any(dim=dim, keepdim=True)
+        nbytes += float(used.sum()) * 4
+    return 4.0 * D * float(seen.sum()), nbytes, seen
+
+
+def decode_time(torch, fa, shape, q, k, v, bias, off, *, padding=False, **extra) -> dict:
+    """Kernel 5's timing line at one shape: events and device time, the
+    host's enqueue time, the plain version, SDPA on the same cache with the
+    same mask (the bias plus the per-row length mask), and the bound
+    (``decode_work``; under a ``padding`` bias over the live slots, with
+    the bound over every slot the kernel reads beside it).  Returns the
+    contract's numbers."""
+    import torch.nn.functional as F
+
+    flops, nbytes, seen = decode_work(q, k, bias, off, padding=padding)
+    b_ms, b_by = bound(flops, nbytes)
+    if padding:
+        extra["bound_all_slots_ms"] = bound(*decode_work(q, k, bias, off, padding=False)[:2])[0]
+    mask = seen if bias is None else torch.where(seen, bias, -torch.inf)
+    run = lambda: fa.flash_decode(q, k, v, bias, offsets=off)  # noqa: E731
+    r = dict(ms=time_ms(run, per_rep=200),
+             plain_ms=time_ms(lambda: fa.flash_decode_plain(q, k, v, bias, offsets=off),
+                              per_rep=50),
+             bound_ms=b_ms, bound_by=b_by,
+             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                                per_rep=200))
+    say({"phase": "kernel_time", "kernel": "flash_decode", "shape": shape, "Q": q.shape[2], **r,
+         **extra, "device_ms": device_ms_of(run, 50, "flash_decode_kernel"),
+         "host_us": host_us(run)})
+    return r
 
 
 def tc_kernel_phase(torch, fa):
@@ -879,6 +953,13 @@ NO_SPILL = ("flash_bwd_dlbias_tc_kernel",)
 STREAM_KERNELS = [("fused_dropout", "fused_dropout_kernel", ("bf16", "residual")),
                   ("fused_adamw", "fused_adamw_kernel", ("clip",)),
                   ("fused_adamw", "fused_grad_prep_kernel", ())]
+# kernels 5 and 6: one template (csrc/flash_decode.cuh), its flat and its
+# paged instances, each library with DECODE_INSTANCES of them; every one
+# must have no stack frame and no local memory
+DECODE_PARAMS = ("paged", "bf16", "int8", "d", "q_rows")
+DECODE_KERNELS = [("flash_decode", "flash_decode_kernel", DECODE_PARAMS),
+                  ("flash_decode_paged", "flash_decode_kernel", DECODE_PARAMS)]
+DECODE_INSTANCES = 2 * 2 * 4 * 2  # q dtype x int8 K/V x head dims x (1 or 8 q rows)
 
 
 def sass_phase(cuda_build, kernels=TC_KERNELS) -> None:
@@ -909,6 +990,23 @@ def resource_phase(cuda_build, kernels=STREAM_KERNELS) -> None:
         if not usage or any(v["stack_bytes"] or v["local_bytes"] for v in usage.values()):
             fail(f"{kernel}: no instance found, or an instance spills (stack frame or local "
                  f"memory): {usage}")
+
+
+def decode_resource_phase(cuda_build) -> None:
+    """Kernels 5 and 6: each library holds the DECODE_INSTANCES instances
+    of its own entry (paged=0 in flash_decode, paged=1 in
+    flash_decode_paged), each with its registers, none with a stack frame
+    or local memory (no spill)."""
+    for lib, kernel, params in DECODE_KERNELS:
+        usage = resource_usage(cuda_build, lib, kernel, params)
+        say({"phase": "resources", "library": lib, "kernel": kernel,
+             "resources_per_instance": usage})
+        paged = int(lib == "flash_decode_paged")
+        if (len(usage) != DECODE_INSTANCES
+                or any(not n.startswith(f"paged={paged} ") for n in usage)
+                or any(v["stack_bytes"] or v["local_bytes"] for v in usage.values())):
+            fail(f"{lib}: expected {DECODE_INSTANCES} instances of {kernel} with paged={paged}, "
+                 f"none with a stack frame or local memory: {usage}")
 
 
 def tensor_core_route(fa, run: str, launches: dict) -> None:
@@ -1604,7 +1702,8 @@ def paged_kernel_phase(torch, fa):
     8); kernel 5 over the gathered view of the same blocks against the same
     plain output (the flat LLaMA path's shape, d = 128) and bit for bit
     against kernel 6; a planted fault; kernel 6's times at the llama-2-7b
-    decode shape, Q = 8 and then Q = 1 (the numbers returned).  Returns
+    decode shape, Q = 8 and then Q = 1 (the numbers returned), each beside
+    kernel 5's on the gathered view (``decode_time``).  Returns
     ({"flash_decode_paged": numbers}, kernel 5's largest error here)."""
     import torch.nn.functional as F
 
@@ -1719,16 +1818,15 @@ def paged_kernel_phase(torch, fa):
                  plain_ms=time_ms(lambda: fa.flash_decode_paged_plain(
                      q, kp, vp, bias, block_tables=bt, offsets=off), per_rep=20),
                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        # kernel 5 on the already gathered view of the same blocks: the flat
-        # path's call at this shape, beside kernel 6
-        flat = lambda: fa.flash_decode(q, view_k, view_v, bias, offsets=off)  # noqa: E731
         say({"phase": "kernel_time", "kernel": "flash_decode_paged", "Q": Q, **r,
              "live_slots": live, "gather_ms_beside_library": gather_ms,
              "kernel6_bit_equal_kernel5": bit_equal,
-             "device_ms": device_ms_of(run, 50, "flash_decode_paged_kernel"),
-             "flash_decode_on_gathered_view_ms": time_ms(flat, per_rep=200),
-             "flash_decode_on_gathered_view_device_ms": device_ms_of(flat, 50,
-                                                                     "flash_decode_kernel")})
+             "device_ms": device_ms_of(run, 50, "flash_decode_kernel")})
+        # kernel 5 on the already gathered view of the same blocks: the flat
+        # path's call at this shape (it reads the prompt gap too, which the
+        # padding bias masks)
+        decode_time(torch, fa, "llama-2-7b flat", q, view_k, view_v, bias, off, padding=True,
+                    kernel6_bit_equal_kernel5=bit_equal)
     return {"flash_decode_paged": r}, max(errs5)
 
 
@@ -2676,7 +2774,7 @@ def llama_serve_phase(torch, fa, cli):
     flat: launch counts derived from the model, the pool drained, the
     greedy tokens of both runs equal (kernel 6 equals kernel 5 bit for bit
     over the same blocks, which the kernel phase checks), and one profiled
-    paged decode round."""
+    decode round of each."""
     from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
 
     os.makedirs(WORK, exist_ok=True)
@@ -2722,10 +2820,9 @@ def llama_serve_phase(torch, fa, cli):
         say(numbers)
         if records != 16 or stats.decode_steps == 0 or launches != want:
             fail(f"llama-2-7b {name} serve: {records} records, launches {launches} vs {want}")
-        if name == "paged":
-            if engine.pool.blocks_in_use != 0:
-                fail(f"llama-2-7b paged serve left {engine.pool.blocks_in_use} blocks in use")
-            where_the_time_goes(torch, engine)
+        if name == "paged" and engine.pool.blocks_in_use != 0:
+            fail(f"llama-2-7b paged serve left {engine.pool.blocks_in_use} blocks in use")
+        where_the_time_goes(torch, engine)
         runs[name] = (outs, launches)
         del engine
         free_cuda()
@@ -2902,6 +2999,7 @@ def main() -> None:
     say({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs})
     sass_phase(cuda_build)
     resource_phase(cuda_build)
+    decode_resource_phase(cuda_build)
 
     # phase 3: kernels against their plain versions
     measured = kernel_phase(torch, fa)
@@ -2977,11 +3075,13 @@ def main() -> None:
                        + t5_serve["flash_attention_fwd"]),
              **measured["flash_attention_fwd"]),
         dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
+             sources=[src + "flash_decode.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:931",
              launches=(launches["flash_decode"] + llama_flat["flash_decode"]
                        + t5_serve["flash_decode"]),
              **measured["flash_decode"]),
         dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
+             sources=[src + "flash_decode_paged.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:1155",
              launches=llama_paged["flash_decode_paged"], **measured["flash_decode_paged"]),
         dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd_tc.cu",

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash-attention
 // kernels (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu,
-// csrc/flash_bwd_dlbias_tc.cu) and the paged decode's copies: cp.async
-// copies, TMA tensor copies with their mbarriers, wgmma products with their
-// shared-memory descriptors, warpgroup barriers, and the swizzled bf16 tile
-// layout every wgmma operand is written in (which TMA's 128/64/32-byte
-// swizzle modes produce).
+// csrc/flash_bwd_dlbias_tc.cu) and the decode kernels' copies
+// (csrc/flash_decode.cuh): cp.async copies, TMA tensor copies with their
+// mbarriers, wgmma products with their shared-memory descriptors,
+// warpgroup barriers, and the swizzled bf16 tile layout every wgmma operand
+// is written in (which TMA's 128/64/32-byte swizzle modes produce).
 // Inline PTX only.  Each source that includes it gets its own copy (an
 // anonymous namespace); ops/cuda_build.py hashes every csrc/*.cuh into
 // each library's name, so an edited header rebuilds every kernel.

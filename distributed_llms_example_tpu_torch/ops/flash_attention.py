@@ -11,8 +11,9 @@ wrapper with three parts:
   ``csrc/flash_fwd.cu`` for fp32; ``csrc/flash_bwd_tc.cu`` for bf16 and
   ``csrc/flash_bwd.cu`` for fp32, each with two entries, dq and dk/dv;
   ``csrc/flash_bwd_dlbias_tc.cu`` for bf16 and ``csrc/flash_bwd_dlbias.cu``
-  for fp32; ``csrc/flash_decode.cu``, ``csrc/flash_decode_paged.cu``), which the
-  wrapper launches for tensors on a CUDA device — or raises: there is no
+  for fp32; ``csrc/flash_decode.cu`` and ``csrc/flash_decode_paged.cu``, the
+  flat and paged instances of one template in ``csrc/flash_decode.cuh``),
+  which the wrapper launches for tensors on a CUDA device — or raises: there is no
   fallback from a CUDA tensor to the plain version;
 - a **launch counter** (``flash_attention.launches``,
   ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``,

@@ -4,7 +4,9 @@ header a kernel includes gives a new name (a rebuild) instead of loading a
 stale library; ``build`` compiles only what is out of date; chip_smoke.py
 builds every source under ``csrc/`` and reads each tensor-core kernel's
 HGMMA count and stack frame from the built library, cached or not, and
-kernels 7 and 8's registers and stack frames too."""
+kernels 7 and 8's registers and stack frames too; kernels 5 and 6 are the
+two instances of one template in a shared header, and chip_smoke.py reads
+each library's instances of it."""
 
 import importlib.util
 import os
@@ -210,3 +212,73 @@ def test_chip_smoke_resource_gate_reads_kernels_7_and_8(tmp_path, monkeypatch, s
     else:
         with pytest.raises(SystemExit):
             mod.resource_phase(cuda_build, kernels)
+
+
+def test_decode_entries_instantiate_the_shared_template(tmp_path, monkeypatch):
+    """Kernels 5 and 6 are the flat and the paged instance of the one
+    kernel template in csrc/flash_decode.cuh: neither C entry holds a
+    kernel body of its own, each instantiates the template with its PAGED
+    value, and an edit of the header renames (rebuilds) both libraries."""
+    header = (cuda_build.CSRC / "flash_decode.cuh").read_text()
+    assert header.count("__global__") == 1
+    assert "template <int PAGED, int BF16, int INT8, int D, int QM>" in header
+    for name, paged in (("flash_decode", 0), ("flash_decode_paged", 1)):
+        src = (cuda_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "flash_decode.cuh"' in src
+        assert "__global__" not in src and "<<<" not in src
+        assert f"flash_decode_launch<{paged}>(" in src
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in cuda_build.CSRC.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    before = [cuda_build.library_path(n) for n in ("flash_decode", "flash_decode_paged")]
+    (csrc / "flash_decode.cuh").write_text(header + "// edited\n")
+    after = [cuda_build.library_path(n) for n in ("flash_decode", "flash_decode_paged")]
+    assert all(a != b for a, b in zip(after, before))
+
+
+def decode_names(lib: str, paged: int) -> list:
+    """The mangled names of every instance of the decode template in
+    ``lib``, as nvcc names kernels of an anonymous namespace."""
+    ns = f"_ZN52_GLOBAL__N__0badc0de_{len(lib) + 4}_{lib}_cu_89abcdef"
+    return [f"{ns}19flash_decode_kernelILi{paged}ELi{bf16}ELi{int8}ELi{d}ELi{qm}EEEvPKvS2_S2_"
+            "PKfS4_S4_xxxxPKiS6_Pviiiiiiif"
+            for bf16 in (0, 1) for int8 in (0, 1) for d in (16, 32, 64, 128) for qm in (1, 8)]
+
+
+@pytest.mark.parametrize("fault", [None, "stack", "missing", "paged"])
+def test_chip_smoke_decode_gate_reads_both_entries(tmp_path, monkeypatch, fault):
+    """chip_smoke.py's reading of kernels 5 and 6 from each library's
+    cuobjdump -res-usage: 32 instances of the one template each, named by
+    their template arguments, the flat library's all paged=0 and the paged
+    one's all paged=1, none with a stack frame.  The run fails on a stack
+    frame, on a missing instance, or on an instance of the other entry."""
+    mod = load_chip_smoke()
+    reports = {}
+    for lib, paged in (("flash_decode", 0), ("flash_decode_paged", 1)):
+        names = decode_names(lib, paged)
+        if lib == "flash_decode" and fault == "missing":
+            names = names[1:]
+        if lib == "flash_decode" and fault == "paged":
+            names[0] = names[0].replace("kernelILi0E", "kernelILi1E")
+        lines = []
+        for i, name in enumerate(names):
+            frame = 16 if fault == "stack" and lib == "flash_decode_paged" and i == 5 else 0
+            lines += [f" Function {name}:",
+                      f"  REG:{60 + i} STACK:{frame} SHARED:0 LOCAL:0 CONSTANT[0]:520"]
+        reports[lib] = "Resource usage:\n" + "\n".join(lines) + "\n"
+    fake_tool(tmp_path / "cuobjdump",
+              f"reports = {reports!r}\n"
+              "print(next(v for k, v in reports.items() if '/lib' + k + '-' in sys.argv[2]))\n")
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    fake_sources(tmp_path, monkeypatch, ("flash_decode", "flash_decode_paged"))
+    usage = mod.resource_usage(cuda_build, *mod.DECODE_KERNELS[0])
+    if fault is None:
+        assert len(usage) == mod.DECODE_INSTANCES == 32
+        assert usage["paged=0 bf16=1 int8=0 d=128 q_rows=1"] == {
+            "registers": 60 + 16 + 3 * 2, "stack_bytes": 0, "local_bytes": 0}
+        mod.decode_resource_phase(cuda_build)
+    else:
+        with pytest.raises(SystemExit):
+            mod.decode_resource_phase(cuda_build)

@@ -226,11 +226,14 @@ def _decode_inputs(rng, B, H, Q, L, d):
 
 @pytest.mark.parametrize("q_len", [1, 4, 8])
 @pytest.mark.parametrize("with_bias", [False, True])
-def test_flash_decode_matches_jax(q_len, with_bias):
-    rng = np.random.RandomState(3 + q_len)
-    B, H, L, d = 3, 2, 64, 16
+@pytest.mark.parametrize("L, d", [(64, 16), (128, 32), (256, 32)])
+def test_flash_decode_matches_jax(q_len, with_bias, L, d):
+    """Against the Pallas decode kernel in interpret mode, at cache lengths
+    of one and of several of its tiles."""
+    rng = np.random.RandomState(3 + q_len + L - 64)
+    B, H = 3, 2
     q, k, v = _decode_inputs(rng, B, H, q_len, L, d)
-    offsets = np.array([0, 29, L - q_len], np.int32)  # fresh slot, mid-decode, cache full
+    offsets = np.array([0, L // 2 - 3, L - q_len], np.int32)  # fresh slot, mid-decode, cache full
     bias = None
     if with_bias:
         bias = np.where(rng.rand(B, 1, 1, L) > 0.2, 0.0, NEG_INF).astype(np.float32)
