@@ -2,7 +2,9 @@
 """Chip smoke for the PyTorch port: builds the CUDA kernels, holds each
 against its plain PyTorch version on the card, serves bart-large-cnn at
 full width through the port's ``serve`` entry and fine-tunes it through the
-train entry, fine-tunes t5-large and serves flan-t5-xl at full width the
+train entry, which saves it as an HF checkpoint, then fine-tunes it again
+from that checkpoint with attention_dropout set (kernels 1-3's probs
+dropout), fine-tunes t5-large and serves flan-t5-xl at full width the
 same ways, serves llama-2-7b at full width through ``serve --paged-kv`` and
 through the flat cache, and checks that each run went through its kernels.
 
@@ -10,7 +12,11 @@ through the flat cache, and checks that each run went through its kernels.
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
-  2. build: one nvcc per kernel source, all ten at once (ptxas report);
+  2. build: one nvcc per kernel source, all ten at once (ptxas report),
+     and beside them an eleventh, a copy of csrc/flash_bwd_tc.cu whose
+     dk/dv hash takes (key, query) (a planted fault for phase 3);
+     each tensor-core kernel holds its instances with and without probs
+     dropout (48, 24, 24 and 16);
      the HGMMA instructions of every instance of the tensor-core forward,
      of both tensor-core backward kernels and of the tensor-core
      learned-bias gradient (cuobjdump -sass), none of which may have 0;
@@ -85,6 +91,18 @@ Phases (each fatal, non-zero exit, no result line):
        path's d = 128 shape) and bit for bit against paged decode; and a
        planted fault (a gap sentinel read as a poisoned block) that must
        break the fp32 limit by orders of magnitude;
+     - the probs-dropout branch of kernels 1-4 (bf16 tensor-core and fp32
+       instances, the mask of csrc/dropout_hash.cuh) at the BART encoder
+       (8, 16, 1024, 64) with a ragged padding mask (rate 0.1 and 0.5), the
+       causal decoder 128, cross 128 x 1024, S = 1000, -inf rows, and the
+       t5-large learned-bias encoder and causal decoder: within the limits
+       above of the plain versions with the same seed (bf16 also against
+       an fp32 reference, within 1.5x the plain path's own error); a second
+       launch bit-equal; rate 0 bit-equal to the no-dropout instances; the
+       backward's seed off by one and the dk/dv hash with (query, key)
+       swapped must each break the bf16 limit by 10x; the dropout
+       instances timed beside max(flops, bytes, hash operations / int32
+       rate) and SDPA with dropout_p 0.1 (forward, backward, both);
      - the learned-bias branch of kernels 1-3 and the learned-bias gradient
        (kernel 4) at the t5-large shapes, scale 1: encoder (8, 16, 1024,
        64) with a ragged padding mask, a 1000-token encoder, the causal
@@ -106,10 +124,13 @@ Phases (each fatal, non-zero exit, no result line):
      whose counters must show both kernels too
   5. train: the CLI's train entry in-process, bart-large-cnn at full width,
      bf16, batch 8, source 1024 / target 128, 48 synthetic records (6
-     steps); every count of kernels 1, 2, 3, 7 and 8 (AdamW and the
-     gradient pass) equals what the model implies (attention modules,
-     dropout sites, the leaf table's launches) times the steps; finite
-     losses; non-zero q/k/v projection gradients; then
+     steps), --output-dir under build/chip_smoke/; every count of kernels
+     1, 2, 3, 7 and 8 (AdamW and the gradient pass) equals what the model
+     implies (attention modules, dropout sites, the leaf table's launches)
+     times the steps, none of them a probs-dropout instance; finite
+     losses; non-zero q/k/v projection gradients; <output-dir>/model/
+     reloaded (load_model(dir, train=True)) bit-equal in every parameter;
+     then
      three more steps timed for host enqueue vs finish on the card, and one
      under torch.profiler (device busy, kernels by group and by launches)
   6. gradient check: one fp32 forward+backward with dropout on, kernel
@@ -117,9 +138,20 @@ Phases (each fatal, non-zero exit, no result line):
      norm and the largest per-tensor grad difference within limits that a
      backward dropout seed off by one must break; in bf16 the kernel path's
      gradient must stay within 1.5x the plain path's distance from fp32
+ 5b. train from phase 5's saved checkpoint with attention_dropout 0.1 in
+     its config.json (the weights linked, not copied), the same 6 steps:
+     phase 5's checks, and every launch of kernels 1, 2 and 3 (36 each a
+     step) a probs-dropout instance on the tensor cores
+ 6b. phase 6's fp32 check on that model (probs dropout 0.1): the fault
+     that must break the limits is the probs-dropout seed off by one in
+     kernels 2-4
   7. t5-large train: as phase 5 (same recipe and records), with kernel 4
      once per self-attention layer per step (72 / 72 / 72 / 48 a step for
      kernels 1 / 2 / 3 / 4) and non-zero gradients in both bucket tables
+ 7b. t5-large train with attention-probs dropout 0.1: the model built here
+     (T5Config's attn_dropout_rate, which no HF T5 config sets) and handed
+     to the same train entry; phase 7's checks, and every launch of
+     kernels 1-4 a probs-dropout instance on the tensor cores
   8. T5 gradient check: fp32, t5-large widths at 2 + 2 layers, the recipe's
      batch, within phase 6's limits and each bucket table's gradient
      within relative L2 1e-5: with t5-large's relu MLP, kernels 2, 3 and 4
@@ -130,7 +162,10 @@ Phases (each fatal, non-zero exit, no result line):
      model's whole-path distance, each model's plain path nudged by one
      fp32 ulp; a rerun of the relu kernel path must give the same bits in
      every gradient, both bucket tables included (their lookup's
-     backward is a fixed-order reduction)
+     backward is a fixed-order reduction); the relu model again with
+     attention-probs dropout 0.1, kernels 2-4's dropout instances vs their
+     plain versions within the relu limits, kernel 4's fp32 dropout
+     instance launched once per self-attention layer (counted from zero)
   9. flan-t5-xl serve: phase 4's prompts and settings; kernel 1 once per
      encoder layer per prefill chunk, kernel 5 once per decoder layer per
      decode round, kernels 2, 3, 4 and 6 never; one profiled round
@@ -149,8 +184,9 @@ Phases (each fatal, non-zero exit, no result line):
  12. fp32 logits at llama-2-7b widths, 2 layers: a prefill + 4 decode
      steps, paged and flat, kernel path vs plain path within 1e-4; a
      decode offset shifted by one must break it on each route
- 13. a {"kernels_unported": []} line (every TPU kernel has a port), a
-     {"kernels": [...]} line of all eight (kernels 1-4 name both sources,
+ 13. a {"kernels_unported": []} line (every TPU kernel has a port), the
+     whole run's wall time, a {"kernels": [...]} line of all eight and of
+     kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
      kernel 8 both entries of its source),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -939,12 +975,17 @@ def resource_usage(cuda_build, lib: str, kernel: str, params: tuple) -> dict:
 
 
 # each tensor-core kernel template: (library, kernel, template parameters)
-TC_KERNELS = [("flash_fwd_tc", "flash_fwd_tc_kernel", ("d", "rows", "lbias_bytes")),
-              ("flash_bwd_tc", "flash_bwd_dq_tc_kernel", ("d", "lbias_bytes")),
-              ("flash_bwd_tc", "flash_bwd_dkv_tc_kernel", ("d", "lbias_bytes")),
-              ("flash_bwd_dlbias_tc", "flash_bwd_dlbias_tc_kernel", ("d", "lbias_bytes"))]
-# kernels whose every instance must have no stack frame and no local
-# memory, hence no spill
+# (the last, "drop", is 1 for the probs-dropout instances)
+TC_KERNELS = [("flash_fwd_tc", "flash_fwd_tc_kernel", ("d", "rows", "lbias_bytes", "drop")),
+              ("flash_bwd_tc", "flash_bwd_dq_tc_kernel", ("d", "lbias_bytes", "drop")),
+              ("flash_bwd_tc", "flash_bwd_dkv_tc_kernel", ("d", "lbias_bytes", "drop")),
+              ("flash_bwd_dlbias_tc", "flash_bwd_dlbias_tc_kernel", ("d", "lbias_bytes", "drop"))]
+# each tensor-core kernel's instances: head dims x (rows) x learned-bias
+# dtypes x with and without probs dropout
+TC_INSTANCES = {"flash_fwd_tc_kernel": 4 * 2 * 3 * 2, "flash_bwd_dq_tc_kernel": 4 * 3 * 2,
+                "flash_bwd_dkv_tc_kernel": 4 * 3 * 2, "flash_bwd_dlbias_tc_kernel": 4 * 2 * 2}
+# kernels whose every instance, the dropout ones included, must have no
+# stack frame and no local memory, hence no spill
 NO_SPILL = ("flash_bwd_dlbias_tc_kernel",)
 # kernels 7 and 8 (CUDA-core kernels): (library, kernel, template
 # parameters); every instance must have no stack frame and no local memory
@@ -974,6 +1015,8 @@ def sass_phase(cuda_build, kernels=TC_KERNELS) -> None:
              "hgmma_total": sum(hgmma.values()), "resources_per_instance": usage})
         if not hgmma or min(hgmma.values()) == 0:
             fail(f"{kernel}: an instance has no HGMMA instruction: {hgmma}")
+        if kernel in TC_INSTANCES and len(hgmma) != TC_INSTANCES[kernel]:
+            fail(f"{kernel}: {len(hgmma)} instances, expected {TC_INSTANCES[kernel]}")
         if kernel in NO_SPILL and (set(usage) != set(hgmma) or any(
                 v["stack_bytes"] or v["local_bytes"] for v in usage.values())):
             fail(f"{kernel}: an instance spills (stack frame or local memory) or is missing "
@@ -1346,6 +1389,344 @@ def lbias_kernel_phase(torch, fa):
     r.pop("device_ms")
     results["flash_attention_bwd_dlbias"] = dict(r, library_ms=library_ms)
     return results, {n: max(v) for n, v in errs.items()}
+
+
+# Attention-probs dropout in kernels 1-4 (csrc/dropout_hash.cuh): the rate
+# the train path from a checkpoint with attention_dropout runs at, and the
+# hash's integer operations per score entry (the column term's add,
+# murmur3's finalizer, the compare and the select) over the H100 SXM's
+# int32 rate (132 SMs x 64 int32 lanes x 1.98 GHz boost clock), the third
+# term of a dropout instance's bound
+PROBS_DROPOUT = 0.1
+HASH_OPS = 12
+PEAK_INT32 = 132 * 64 * 1.98e9
+
+
+def dropout_bound(flops: float, nbytes: float, entries: float) -> tuple[float, str, str]:
+    """(ms, "operations" or "bytes", the term that sets it: "tensor",
+    "hash" or "bytes") of max(flops / 989 TFLOP/s, bytes / 3.35 TB/s,
+    HASH_OPS * entries / int32 rate)."""
+    terms = {"tensor": flops / PEAK_FLOPS * 1e3, "hash": HASH_OPS * entries / PEAK_INT32 * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+# the dk/dv kernel's hash multipliers as csrc/flash_bwd_tc.cu names them,
+# and the swap a planted fault compiles into a copy of the source
+DKV_MULS = "constexpr uint32_t DKV_QUERY_MUL = HASH_ROW_MUL, DKV_KEY_MUL = HASH_COL_MUL;"
+DKV_MULS_SWAPPED = "constexpr uint32_t DKV_QUERY_MUL = HASH_COL_MUL, DKV_KEY_MUL = HASH_ROW_MUL;"
+
+
+def start_swapped_dkv_build(cuda_build):
+    """Planted fault: csrc/flash_bwd_tc.cu with the dk/dv kernel's hash
+    taking (key, query) where it takes (query, key), compiled from a copy
+    by one nvcc started now (beside the real build) unless its library is
+    already built: it is named, as the real ones are, by the hash of the
+    source and csrc's headers.  Returns a function that waits for the build
+    and returns the library's path."""
+    src = (cuda_build.CSRC / "flash_bwd_tc.cu").read_text()
+    if src.count(DKV_MULS) != 1:
+        fail("csrc/flash_bwd_tc.cu no longer names the dk/dv hash multipliers as the planted "
+             "fault expects")
+    real = cuda_build.library_path("flash_bwd_tc")
+    lib = real.with_name(real.name.replace("flash_bwd_tc", "flash_bwd_tc_swapped_hash", 1))
+    if lib.exists():
+        return lambda: str(lib)
+    os.makedirs(WORK, exist_ok=True)
+    cu = os.path.join(WORK, "flash_bwd_tc_swapped_hash.cu")
+    with open(cu, "w") as f:
+        f.write(src.replace(DKV_MULS, DKV_MULS_SWAPPED))
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC), "-o",
+           str(tmp), cu]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait() -> str:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"the planted fault's build (dk/dv hash swapped) failed:\n{log[-3000:]}")
+        os.replace(tmp, lib)
+        return str(lib)
+
+    return wait
+
+
+@contextlib.contextmanager
+def library_swapped(cuda_build, lib: str, path: str):
+    """The wrappers' entries of ``lib`` loaded from the library at ``path``
+    (a planted fault's build) instead of their own."""
+    import ctypes
+
+    real = cuda_build.load
+
+    def load(name, argtypes, symbol=None):
+        if name != lib:
+            return real(name, argtypes, symbol)
+        fn = getattr(ctypes.CDLL(path), symbol or name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn
+
+    cuda_build.load = load
+    try:
+        yield
+    finally:
+        cuda_build.load = real
+
+
+def probs_dropout_phase(torch, fa, swapped_dkv_lib: str):
+    """Kernels 1-4's probs-dropout branch, bf16 on the tensor cores and
+    fp32 on the CUDA cores, against their plain versions with the same seed
+    at the main paths' shapes: the BART encoder (8, 16, 1024, 64) with a
+    ragged padding mask (rate 0.1 and 0.5), the causal decoder at 128,
+    128 x 1024 cross-attention, S = 1000, -inf rows, and the t5-large
+    learned-bias encoder (with padding) and causal decoder (scale 1).  The
+    limits are the no-dropout checks': bf16 within 2e-2 of the plain
+    version and within TC_REF_FACTOR x the plain bf16 path's own error from
+    an fp32 reference (the exact function at these bf16 values, same mask);
+    fp32 within 1e-4; dlbias relative to its largest entry.  -inf rows give
+    o = 0 and dq = 0; rate 0 gives the no-dropout instances' bits; a second
+    launch gives the same bits.  Planted faults must break the bf16 limit
+    by TC_FAULT_FACTOR: the backward's seed off by one (kernels 2-4), and
+    the dk/dv kernel's hash with (query, key) swapped (a build of that
+    swap).  Then the bf16 dropout instances timed at PERF.md's shapes
+    beside their bound max(flops, bytes, hash operations), their plain
+    versions and SDPA with dropout_p = 0.1 under the same mask (forward,
+    backward, forward + backward; never called by the port).  Returns
+    {row name: the kernel line's numbers}, each row's max_abs_err the
+    largest error against the plain version over every case."""
+    import torch.nn.functional as F
+
+    from distributed_llms_example_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, H, D, S = 8, 16, 64, 1024
+    seed = -1_234_567_891
+    tol = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2), torch.float32: dict(atol=1e-4)}
+    rel_limit = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+    def rnd(*shape, dtype, s=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
+
+    def pad_bias(K):
+        lens = torch.randint(K // 5, K + 1, (B,), generator=gen, device=dev)
+        lens[0], lens[1] = min(1000, K), 100
+        b = torch.where(torch.arange(K, device=dev)[None, :] < lens[:, None], 0.0, -1e9)
+        return b[:, None, None, :].float().contiguous()
+
+    def max_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def kernels(q, k, v, do, bias, lb, causal, scale, drop, bwd_drop=None):
+        """{o, lse, dq, dk, dv[, dlb]} from kernels 1-4; the backward may
+        take other dropout arguments (a planted fault)."""
+        o, lse = fa.flash_attention(q, k, v, bias, learned_bias=lb, causal=causal, scale=scale,
+                                    return_lse=True, **drop)
+        delta = fa.attention_delta(do, o)
+        kw = dict(causal=causal, scale=scale, **(drop if bwd_drop is None else bwd_drop))
+        out = dict(o=o, lse=lse, dq=fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, lbias=lb, **kw))
+        out["dk"], out["dv"] = fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, lbias=lb, **kw)
+        if lb is not None:
+            out["dlb"] = fa.flash_bwd_dlbias(q, k, v, bias, lb, do, lse, delta, **kw)
+        return out
+
+    def plain(q, k, v, do, bias, lb, causal, scale, drop, o, lse):
+        """The plain versions; the backward from ``o`` and ``lse``."""
+        po, plse = fa.flash_attention_plain(q, k, v, bias, lbias=lb, causal=causal, scale=scale,
+                                            **drop)
+        kw = dict(lbias=lb, causal=causal, scale=scale, **drop)
+        out = dict(o=po, lse=plse)
+        out["dq"], out["dk"], out["dv"] = fa.flash_attention_bwd_plain(q, k, v, bias, o, lse, do,
+                                                                       **kw)
+        if lb is not None:
+            out["dlb"] = fa._dlbias_plain(q, k, v, bias, lb, do, lse, fa.attention_delta(do, o),
+                                          causal=causal, scale=scale, **drop)
+        return out
+
+    def reference(q, k, v, do, bias, lb, causal, scale, drop):
+        """The exact function at these bf16 values, in fp32, same mask."""
+        f = [t.float() for t in (q, k, v, do)]
+        lbf = None if lb is None else lb.float()
+        o, lse = fa.flash_attention_plain(*f[:3], bias, lbias=lbf, causal=causal, scale=scale,
+                                          **drop)
+        return plain(*f, bias, lbf, causal, scale, drop, o, lse)
+
+    dead = torch.tensor([0, 7, 500, S - 1], device=dev)
+    dead_bias = torch.zeros(B, 1, S, S, device=dev)
+    dead_bias[:, :, dead, :] = -float("inf")
+    cases = [("BART encoder padding S=1024", S, S, dict(bias=pad_bias(S)), (PROBS_DROPOUT, 0.5)),
+             ("decoder causal S=128", 128, 128, dict(causal=True), (PROBS_DROPOUT,)),
+             ("cross 128x1024 padding", 128, S, dict(bias=pad_bias(S)), (PROBS_DROPOUT,)),
+             ("padding S=1000", 1000, 1000, dict(bias=pad_bias(1000)), (PROBS_DROPOUT,)),
+             ("-inf rows S=1024", S, S, dict(bias=dead_bias), (PROBS_DROPOUT,)),
+             ("t5-large encoder learned bias + padding S=1024", S, S,
+              dict(bias=pad_bias(S), lb=True), (PROBS_DROPOUT,)),
+             ("t5-large decoder learned bias causal S=128", 128, 128, dict(causal=True, lb=True),
+              (PROBS_DROPOUT,))]
+    errs: dict[str, list] = {}
+    faults = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, Q, K, kw, rates in cases:
+            bias, causal = kw.get("bias"), kw.get("causal", False)
+            q = rnd(B, H, Q, D, dtype=dtype, s=D ** -0.5 if kw.get("lb") else 1.0)
+            k, v, do = rnd(B, H, K, D, dtype=dtype), rnd(B, H, K, D, dtype=dtype), rnd(
+                B, H, Q, D, dtype=dtype)
+            lb = rnd(1, H, Q, K, dtype=dtype, s=0.5) if kw.get("lb") else None
+            scale = 1.0 if lb is not None else D ** -0.5
+            for rate in rates:
+                drop = dict(dropout_rate=rate, dropout_seed=seed)
+                case = f"probs dropout {rate} {name} {dtype}"
+                got = kernels(q, k, v, do, bias, lb, causal, scale, drop)
+                want = plain(q, k, v, do, bias, lb, causal, scale, drop, got["o"], got["lse"])
+                torch.cuda.synchronize()
+                for n in got:
+                    row = {"o": "fwd", "lse": "fwd", "dq": "dq", "dk": "dkv", "dv": "dkv",
+                           "dlb": "dlbias"}[n]
+                    if n == "dlb":
+                        e = check_rel(f"{case} dlbias", got[n], want[n], limit=rel_limit[dtype])
+                    else:
+                        e = check_close(f"{case} {n}", got[n], want[n], **tol[dtype])
+                    errs.setdefault(row, []).append(e)
+                if dtype == torch.bfloat16:
+                    ref = reference(q, k, v, do, bias, lb, causal, scale, drop)
+                    limits = {}
+                    for n in ("o", "dq", "dk", "dv", "dlb"):
+                        if n not in got:
+                            continue
+                        kernel_err, plain_err = max_err(got[n], ref[n]), max_err(want[n], ref[n])
+                        limits[n] = limit = TC_REF_FACTOR * plain_err
+                        ok = kernel_err <= limit
+                        say({"phase": "kernel_check", "case": f"{case} {n} vs fp32 reference",
+                             "kernel_err": kernel_err, "plain_bf16_err": plain_err,
+                             "limit": limit, "ok": ok})
+                        if not ok:
+                            fail(f"{case} {n}: {kernel_err} from the fp32 reference, beyond "
+                                 f"{TC_REF_FACTOR}x the plain bf16 path's {plain_err}")
+                    if rate == PROBS_DROPOUT and (name.startswith("BART") or lb is not None):
+                        faults[name] = (q, k, v, do, bias, lb, causal, scale, drop, ref, limits)
+                if "-inf" in name and not (bool((got["o"][:, :, dead] == 0).all())
+                                           and bool((got["dq"][:, :, dead] == 0).all())):
+                    fail(f"{case}: fully-masked rows are not o = 0 and dq = 0")
+                if lb is not None and causal and bool(
+                        torch.triu(got["dlb"][0].float().abs(), diagonal=1).any()):
+                    fail(f"{case}: non-zero learned-bias gradient above the causal diagonal")
+                if name.startswith("BART") or lb is not None:
+                    # a second launch gives the same bits; rate 0 runs the
+                    # instances without dropout, bit for bit
+                    again = kernels(q, k, v, do, bias, lb, causal, scale, drop)
+                    none = kernels(q, k, v, do, bias, lb, causal, scale, {})
+                    zero = kernels(q, k, v, do, bias, lb, causal, scale,
+                                   dict(dropout_rate=0.0, dropout_seed=seed))
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(got[n], again[n]) for n in got):
+                        fail(f"{case}: two launches on the same inputs differ")
+                    if not all(torch.equal(none[n], zero[n]) for n in none):
+                        fail(f"{case}: rate 0 does not give the no-dropout instances' bits")
+                del got, want
+    say({"phase": "kernel_check", "case": "probs dropout kernels 1-4: a second launch bit-equal, "
+         "rate 0 bit-equal to no dropout", "ok": True})
+
+    # planted faults, bf16: the backward's seed off by one; the dk/dv
+    # kernel's hash with (query, key) swapped
+    for name, (q, k, v, do, bias, lb, causal, scale, drop, ref, limits) in faults.items():
+        off = dict(drop, dropout_seed=drop["dropout_seed"] + 1)
+        bad = kernels(q, k, v, do, bias, lb, causal, scale, drop, bwd_drop=off)
+        with library_swapped(cuda_build, "flash_bwd_tc", swapped_dkv_lib):
+            swapped = kernels(q, k, v, do, bias, lb, causal, scale, drop)
+        torch.cuda.synchronize()
+        for what, got, names in (("backward seed off by one", bad, ("dq", "dk", "dv", "dlb")),
+                                 ("dk/dv hash with (query, key) swapped", swapped, ("dk", "dv"))):
+            times = max(max_err(got[n], ref[n]) / limits[n] for n in names if n in got)
+            say({"phase": "kernel_check", "case": f"probs dropout planted fault: {what}, {name}",
+                 "times_limit": times, "must_exceed": TC_FAULT_FACTOR})
+            if not times >= TC_FAULT_FACTOR:
+                fail(f"probs dropout planted fault ({what}, {name}) reads {times}x the limit, "
+                     f"under {TC_FAULT_FACTOR}x")
+    del faults
+
+    # times, bf16, rate 0.1: kernels 1-3 at the BART encoder shape, kernel 4
+    # at the t5-large encoder shape with its learned bias
+    drop = dict(dropout_rate=PROBS_DROPOUT, dropout_seed=seed)
+    act, rows = B * H * S * D * 2, B * H * S * 4
+    results = {}
+    for lb_case in (False, True):
+        bias = pad_bias(S)
+        q = rnd(B, H, S, D, dtype=torch.bfloat16, s=D ** -0.5 if lb_case else 1.0)
+        k, v, do = (rnd(B, H, S, D, dtype=torch.bfloat16) for _ in range(3))
+        lb = rnd(1, H, S, S, dtype=torch.bfloat16, s=0.5) if lb_case else None
+        scale = 1.0 if lb_case else D ** -0.5
+        o, lse = fa.flash_attention(q, k, v, bias, learned_bias=lb, scale=scale, return_lse=True,
+                                    **drop)
+        delta = fa.attention_delta(do, o)
+        kw = dict(causal=False, scale=scale, **drop)
+        entries = float((bias.reshape(B, -1) > -1e8).sum()) * H * S  # live score entries
+        lb_bytes = 0 if lb is None else lb.numel() * lb.element_size()
+        bwd_in = 4 * act + 2 * rows + bias.numel() * 4 + lb_bytes
+        mask = bias.to(torch.bfloat16) if lb is None else bias.to(torch.bfloat16) + lb
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, dropout_p=PROBS_DROPOUT,
+                                             scale=scale)
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=PROBS_DROPOUT, scale=scale), per_rep=5)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True),
+                           per_rep=5)
+
+        def sdpa_both():
+            o2 = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                dropout_p=PROBS_DROPOUT, scale=scale)
+            return torch.autograd.grad(o2, (qs, ks, vs), do)
+
+        sdpa_all = time_ms(sdpa_both, per_rep=3)
+        if lb_case:
+            rows_to_time = [
+                ("flash_attention_bwd_dlbias_dropout",
+                 lambda: fa.flash_bwd_dlbias(q, k, v, bias, lb, do, lse, delta, **kw),
+                 lambda: fa._dlbias_plain(q, k, v, bias, lb, do, lse, delta, **kw),
+                 bwd_work(bias, B, H, S, D, 4)[0], bwd_in + lb_bytes, "flash_bwd_dlbias_tc_kernel",
+                 sdpa_all)]
+        else:
+            fwd_flops, fwd_bytes = fwd_work(bias, B, H, S, D)
+            rows_to_time = [
+                ("flash_attention_fwd_dropout",
+                 lambda: fa.flash_attention(q, k, v, bias, **drop),
+                 lambda: fa.flash_attention_plain(q, k, v, bias, **drop),
+                 fwd_flops, fwd_bytes, "flash_fwd_tc_kernel", sdpa_fwd),
+                ("flash_attention_bwd_dq_dropout",
+                 lambda: fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw),
+                 lambda: fa.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, **kw)[0],
+                 bwd_work(bias, B, H, S, D, 6)[0], bwd_in + act, "flash_bwd_dq_tc_kernel",
+                 sdpa_bwd),
+                ("flash_attention_bwd_dkv_dropout",
+                 lambda: fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw),
+                 lambda: fa.flash_attention_bwd_plain(q, k, v, bias, o, lse, do, **kw)[1:],
+                 bwd_work(bias, B, H, S, D, 8)[0], bwd_in + 2 * act, "flash_bwd_dkv_tc_kernel",
+                 sdpa_bwd)]
+        for name, fn, plain_fn, flops, nbytes, dev_name, lib_ms in rows_to_time:
+            b_ms, b_by, term = dropout_bound(flops, nbytes, entries)
+            err_row = {"fwd": "fwd", "dq": "dq", "dkv": "dkv", "dlbias": "dlbias"}[
+                name.removeprefix("flash_attention_").removeprefix("bwd_").removesuffix(
+                    "_dropout")]
+            r = dict(max_abs_err=max(errs[err_row]), ms=time_ms(fn, per_rep=5),
+                     plain_ms=time_ms(plain_fn, per_rep=2), bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms)
+            results[name] = r
+            say({"phase": "kernel_time", "kernel": name, "branch": "probs dropout 0.1", **r,
+                 "bound_term": term, "bound_terms_ms": {
+                     "tensor": flops / PEAK_FLOPS * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
+                     "hash": HASH_OPS * entries / PEAK_INT32 * 1e3},
+                 "device_ms": device_ms_of(fn, 5, dev_name)})
+        say({"phase": "kernel_time", "kernel": "SDPA with dropout_p 0.1 (yardstick)",
+             "shape": "t5-large encoder, learned bias" if lb_case else "BART encoder",
+             "forward_ms": sdpa_fwd, "backward_ms": sdpa_bwd, "forward_backward_ms": sdpa_all})
+        del qs, ks, vs, out
+    if "flash_attention_bwd_dq_dropout" in results:
+        say({"phase": "kernel_time", "kernel": "probs dropout kernels 2 + 3",
+             "ms": results["flash_attention_bwd_dq_dropout"]["ms"]
+             + results["flash_attention_bwd_dkv_dropout"]["ms"],
+             "sdpa_backward_ms": results["flash_attention_bwd_dq_dropout"]["library_ms"]})
+    return results
 
 
 def dropout_cases(torch, dev, gen):
@@ -1841,9 +2222,12 @@ def write_train_records(path: str, n: int = 48) -> None:
         json.dump(recs, f)
 
 
+# byte tokens on every run, a checkpoint directory's included (it holds no
+# tokenizer files)
 TRAIN_ARGS = [
-    "--model-ckpt", "bart-large-cnn", "--batch-size", "8", "--num-epochs", "1",
-    "--max-source-length", "1024", "--max-target-length", "128", "--compute-dtype", "bfloat16",
+    "--model-ckpt", "bart-large-cnn", "--tokenizer", "byte", "--batch-size", "8",
+    "--num-epochs", "1", "--max-source-length", "1024", "--max-target-length", "128",
+    "--compute-dtype", "bfloat16",
     "--learning-rate", "1e-4", "--warmup-steps", "0", "--seed", "0", "--log-every-steps", "1",
 ]
 
@@ -1854,7 +2238,15 @@ def zero_counters(fa, fd, fo) -> None:
                fa.flash_decode_paged):
         fn.launches = 0
     for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias):
-        fn.tc_launches = 0
+        fn.tc_launches = fn.drop_launches = 0
+
+
+def drop_counters(fa) -> dict:
+    """Kernels 1-4's launches of their probs-dropout instances."""
+    return {"flash_attention_fwd": fa.flash_attention.drop_launches,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq.drop_launches,
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv.drop_launches,
+            "flash_attention_bwd_dlbias": fa.flash_bwd_dlbias.drop_launches}
 
 
 def read_counters(fa, fd, fo) -> dict:
@@ -1900,40 +2292,72 @@ def expected_train_launches(model, steps: int, accum: int = 1) -> dict:
             "fused_grad_prep": tables * steps}
 
 
-def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn"):
-    """The CLI's train entry at full width; counters, losses, gradients
-    (and, for T5, both bucket tables') and one profiled step."""
+def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn", *, probs_dropout=0.0,
+                loaded=None):
+    """The CLI's train entry at full width, saving to <WORK>/<run>-out;
+    counters, losses, gradients (and, for T5, both bucket tables'), the
+    export reloaded bit-equal, and one profiled step.  ``model`` may be a
+    checkpoint directory whose config sets attention_dropout to
+    ``probs_dropout``, or ``loaded`` a model built here with that
+    attn_dropout_rate (trained in place of ``model``'s, whose name it
+    keeps): then every launch of kernels 1-4 must be a dropout instance,
+    and none otherwise."""
+    from distributed_llms_example_tpu_torch.models.registry import load_model
     from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
 
     os.makedirs(WORK, exist_ok=True)
     path = os.path.join(WORK, "train.json")
     write_train_records(path)
+    run = os.path.basename(model) + ("" if loaded is None else "-attention-dropout")
+    out_dir = os.path.join(WORK, run + "-out")
     zero_counters(fa, fd, fo)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = cli.train([*TRAIN_ARGS, "--model-ckpt", model, "--train-file", path])
+    trainer = cli.train([*TRAIN_ARGS, "--model-ckpt", model, "--train-file", path,
+                         "--output-dir", out_dir], loaded=loaded)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters(fa, fd, fo)
-    tensor_core_route(fa, f"{model} train", launches)
+    dropped = drop_counters(fa)
+    tensor_core_route(fa, f"{run} train", launches)
+    want_drop = {k: launches[k] if probs_dropout else 0 for k in dropped}
+    say({"phase": "train_probs_dropout_launches", "model": run,
+         "attention_dropout": trainer.loaded.config.attn_dropout_rate,
+         "dropout_launches": dropped, "expected": want_drop})
+    if trainer.loaded.config.attn_dropout_rate != probs_dropout or dropped != want_drop:
+        fail(f"{run} train: probs-dropout launches {dropped}, expected {want_drop}")
+    # the export of the trained fp32 weights reloads bit for bit
+    saved = os.path.join(out_dir, "model")
+    t1 = time.perf_counter()
+    back = load_model(saved, dtype=trainer.model.dtype, device="cuda", train=True).module
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    trained = dict(trainer.model.named_parameters())
+    equal = [torch.equal(p, trained[n]) for n, p in back.named_parameters()]
+    say({"phase": "train_export", "model": run, "dir": saved, "files": sorted(os.listdir(saved)),
+         "bytes": os.path.getsize(os.path.join(saved, "model.safetensors")),
+         "reload_s": load_s, "parameters": len(equal), "bit_equal": sum(equal)})
+    if len(equal) != len(trained) or not all(equal):
+        fail(f"{run}: the saved checkpoint does not reload to the trained weights")
+    del back
     steps = len(trainer.history)
     want = expected_train_launches(trainer.model, steps, trainer.cfg.grad_accum_steps)
     losses = [float(m["loss"]) for m in trainer.history]
     step_s = [b - a for a, b in zip(trainer.step_ends, trainer.step_ends[1:])]
     t5 = model.startswith("t5")
-    say({"phase": "train_launches", "model": model, "steps": steps, "launches": launches,
+    say({"phase": "train_launches", "model": run, "steps": steps, "launches": launches,
          "expected": want, "per_step": {k: v / max(steps, 1) for k, v in launches.items()}})
     # every kernel of the path launched, the learned-bias gradient on T5 only
     required = [k for k in want if t5 or k != "flash_attention_bwd_dlbias"]
     if steps != 6 or launches != want or any(want[k] == 0 for k in required):
-        fail(f"{model} train run: {steps} steps, launches {launches} vs {want}")
+        fail(f"{run} train run: {steps} steps, launches {launches} vs {want}")
     named = dict(trainer.model.named_parameters())
     qkv = {n: float(named[n].grad.abs().max()) for n in named
            if n.endswith(("q_proj.weight", "k_proj.weight", "v_proj.weight"))}
     attn = sum(isinstance(m, MultiHeadAttention) for m in trainer.model.modules())
     tables = {n: float(named[n].grad.abs().max()) for n in named
               if n.endswith("relative_attention_bias.weight")}
-    say({"phase": "train", "model": model, "wall_s": wall, "losses": losses,
+    say({"phase": "train", "model": run, "wall_s": wall, "losses": losses,
          "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
          "learning_rates": [m["learning_rate"] for m in trainer.history],
          "step_s_after_first": step_s, "step_s_median": statistics.median(step_s),
@@ -1942,13 +2366,51 @@ def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn"):
          "qkv_weight_grads": len(qkv), "qkv_min_of_max_abs_grad": min(qkv.values()),
          "bucket_table_max_abs_grad": tables})
     if not all(torch.isfinite(torch.tensor(losses))):
-        fail(f"{model} train losses not finite: {losses}")
+        fail(f"{run} train losses not finite: {losses}")
     if len(qkv) != 3 * attn or min(qkv.values()) <= 0.0:
-        fail(f"{model}: some q/k/v projection weight got no gradient on the kernel path")
+        fail(f"{run}: some q/k/v projection weight got no gradient on the kernel path")
     if t5 and (len(tables) != 2 or min(tables.values()) <= 0.0):
-        fail(f"{model}: a relative-position bucket table got no gradient: {tables}")
+        fail(f"{run}: a relative-position bucket table got no gradient: {tables}")
     profile_train_step(torch, trainer)
-    return launches, trainer
+    return launches | {f"{k}_dropout": v for k, v in dropped.items()}, trainer
+
+
+def t5_large_with_attention_dropout(torch):
+    """t5-large for training (bf16 compute, fp32 master weights drawn from
+    seed 0) with attn_dropout_rate PROBS_DROPOUT: the one way to train T5
+    with probs dropout, as in the JAX package (HF's T5 config has no field
+    for it), handed to the train entry as a built model."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.core.precision import param_dtype
+    from distributed_llms_example_tpu_torch.models.registry import T5_CONFIGS, LoadedModel
+    from distributed_llms_example_tpu_torch.models.t5 import T5ForConditionalGeneration
+
+    cfg = dataclasses.replace(T5_CONFIGS["t5-large"], attn_dropout_rate=PROBS_DROPOUT)
+    dev = torch.device("cuda")
+    module = T5ForConditionalGeneration(cfg, dtype=torch.bfloat16,
+                                        param_dtype=param_dtype(torch.bfloat16, dev, train=True),
+                                        device=dev)
+    module.init_weights(torch.Generator(device=dev).manual_seed(0))
+    return LoadedModel("t5", cfg, module)
+
+
+def attention_dropout_checkpoint(src: str) -> str:
+    """A checkpoint directory beside ``src`` (an HF checkpoint the train
+    entry saved) whose config.json sets attention_dropout to PROBS_DROPOUT
+    and whose model.safetensors links to ``src``'s (no copy of the
+    weights)."""
+    dst = os.path.join(WORK, "bart-large-cnn-attention-dropout")
+    os.makedirs(dst, exist_ok=True)
+    with open(os.path.join(src, "config.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump({**cfg, "attention_dropout": PROBS_DROPOUT}, f, indent=2, sort_keys=True)
+    link = os.path.join(dst, "model.safetensors")
+    if os.path.lexists(link):
+        os.remove(link)
+    os.symlink(os.path.abspath(os.path.join(src, "model.safetensors")), link)
+    return dst
 
 
 def profile_train_step(torch, trainer) -> None:
@@ -2044,27 +2506,53 @@ def loss_and_grads(torch, model, batch):
     return float((lsum / tokens).detach()), grads
 
 
+@contextlib.contextmanager
+def probs_dropout_seed_off_by_one(fa):
+    """Planted fault: kernels 2-4 redraw the attention-probs dropout mask
+    from seed + 1, so the backward masks other entries than the forward."""
+    saved = fa._bwd_dq, fa._bwd_dkv, fa._bwd_dlbias
+
+    def shifted(fn):
+        def run(*args, drop, **kw):
+            return fn(*args, drop=None if drop is None else drop._replace(seed=drop.seed + 1),
+                      **kw)
+        return run
+
+    fa._bwd_dq, fa._bwd_dkv, fa._bwd_dlbias = map(shifted, saved)
+    try:
+        yield
+    finally:
+        fa._bwd_dq, fa._bwd_dkv, fa._bwd_dlbias = saved
+
+
 def grad_check_phase(torch, fa, fd, trainer):
     """fp32: kernel path vs plain path on one batch, with a planted fault
     that must break the limits; bf16: the kernel path's gradient distance
-    from fp32 against the plain path's."""
-    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from fp32 against the plain path's.  The trainer's model config is
+    used as it is: with attention-probs dropout (a checkpoint that sets
+    attention_dropout), the fault is the probs-dropout seed off by one in
+    the backward, and the bf16 comparison is left out; without it, the
+    residual dropout's backward seed off by one."""
     from distributed_llms_example_tpu_torch.train.trainer import put_batch
 
     batch = put_batch(next(iter(trainer.batches.epoch(0))), trainer.device)
     state = trainer.model.state_dict()
+    cfg = trainer.loaded.config
+    probs = cfg.attn_dropout_rate
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        lm = load_model("bart-large-cnn", dtype=dtype, device="cuda", train=True)
-        lm.module.load_state_dict(state)
-        model = lm.module
+    for dtype in (torch.float32,) if probs else (torch.float32, torch.bfloat16):
+        model = type(trainer.model)(cfg, dtype=dtype, param_dtype=torch.float32,
+                                    device="cuda").train()
+        model.load_state_dict(state)
         out[dtype, "kernel"] = loss_and_grads(torch, model, batch)
         with plain_kernels(fa, fd):
             out[dtype, "plain"] = loss_and_grads(torch, model, batch)
         if dtype == torch.float32:
-            with backward_dropout_seed_off_by_one(fd):
+            fault = probs_dropout_seed_off_by_one(fa) if probs else \
+                backward_dropout_seed_off_by_one(fd)
+            with fault:
                 out[dtype, "fault"] = loss_and_grads(torch, model, batch)
-        del lm, model
+        del model
         torch.cuda.empty_cache()
 
     def dist(a, b):
@@ -2079,17 +2567,22 @@ def grad_check_phase(torch, fa, fd, trainer):
     f32 = torch.float32
     ref = out[f32, "plain"]
     k32, fault = dist(out[f32, "kernel"], ref), dist(out[f32, "fault"], ref)
-    k16, p16 = dist(out[torch.bfloat16, "kernel"], ref), dist(out[torch.bfloat16, "plain"], ref)
-    say({"phase": "grad_check", "fp32_kernel_vs_plain": k32, "fp32_planted_fault": fault,
-         "limits": GRAD_LIMITS, "bf16_kernel_vs_fp32_plain": k16,
-         "bf16_plain_vs_fp32_plain": p16, "loss_fp32": ref[0],
-         "grad_norm_fp32": float(global_norm(ref[1]))})
+    line = {"phase": "grad_check", "attention_dropout": probs, "fp32_kernel_vs_plain": k32,
+            "fp32_planted_fault": fault, "planted_fault": (
+                "probs-dropout seed off by one in the backward" if probs
+                else "residual dropout's backward seed off by one"),
+            "limits": GRAD_LIMITS, "loss_fp32": ref[0],
+            "grad_norm_fp32": float(global_norm(ref[1]))}
+    if not probs:
+        line["bf16_kernel_vs_fp32_plain"] = k16 = dist(out[torch.bfloat16, "kernel"], ref)
+        line["bf16_plain_vs_fp32_plain"] = p16 = dist(out[torch.bfloat16, "plain"], ref)
+    say(line)
     for key, lim in GRAD_LIMITS.items():
         if not k32[key] <= lim:
             fail(f"fp32 gradient check: kernel path vs plain path {key} {k32[key]} > {lim}")
     if not any(fault[key] > lim for key, lim in GRAD_LIMITS.items()):
         fail(f"fp32 gradient check: the planted fault stays within every limit: {fault}")
-    if not k16["grad_rel_l2"] <= 1.5 * p16["grad_rel_l2"]:
+    if not probs and not k16["grad_rel_l2"] <= 1.5 * p16["grad_rel_l2"]:
         fail(f"bf16 gradient: kernel path {k16['grad_rel_l2']} from fp32 against the plain "
              f"path's {p16['grad_rel_l2']}")
 
@@ -2098,18 +2591,16 @@ def grad_check_phase(torch, fa, fd, trainer):
 def dlbias_delta_of_another_row(fa):
     """Planted fault: kernel 4 reads each batch row's δ from its
     neighbour (δ rolled by one along the batch)."""
-    saved = fa.flash_bwd_dlbias
+    saved = fa._bwd_dlbias
 
     def bad(q, k, v, bias, lbias, do, lse, delta, **kw):
         return saved(q, k, v, bias, lbias, do, lse, delta.roll(1, dims=0).contiguous(), **kw)
 
-    # the kernel's own counts, bumped through the module name, land here
-    bad.launches = bad.tc_launches = 0
-    fa.flash_bwd_dlbias = bad
+    fa._bwd_dlbias = bad
     try:
         yield
     finally:
-        fa.flash_bwd_dlbias = saved
+        fa._bwd_dlbias = saved
 
 
 @contextlib.contextmanager
@@ -2117,27 +2608,23 @@ def plain_backward_kernels(fa):
     """The flash Function's backward with kernels 2, 3 and 4 replaced by
     their plain versions on the same CUDA tensors; the forward (kernel 1)
     untouched, so both paths see bit-identical activations."""
-    saved = fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias
+    saved = fa._bwd_dq, fa._bwd_dkv, fa._bwd_dlbias
 
-    def dq(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale):
+    def dq(q, k, v, bias, do, lse, delta, *, lbias, causal, scale, drop):
         _, ds = fa._bwd_plain(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal,
-                              scale=scale)
+                              scale=scale, drop=drop)
         return fa._dq_plain(q, k, ds)
 
-    def dkv(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale):
+    def dkv(q, k, v, bias, do, lse, delta, *, lbias, causal, scale, drop):
         p, ds = fa._bwd_plain(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal,
-                              scale=scale)
+                              scale=scale, drop=drop)
         return fa._dkv_plain(q, k, v, do, p, ds)
 
-    def dlbias(q, k, v, bias, lbias, do, lse, delta, *, causal, scale):
-        return fa._dlbias_plain(q, k, v, bias, lbias, do, lse, delta, causal=causal,
-                                scale=scale)
-
-    fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias = dq, dkv, dlbias
+    fa._bwd_dq, fa._bwd_dkv, fa._bwd_dlbias = dq, dkv, fa._dlbias_sum
     try:
         yield
     finally:
-        fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias = saved
+        fa._bwd_dq, fa._bwd_dkv, fa._bwd_dlbias = saved
 
 
 @contextlib.contextmanager
@@ -2196,7 +2683,7 @@ def lookup_backward_bit_equal(torch, stack, q_len: int) -> bool:
     return torch.equal(*got)
 
 
-def t5_grad_check_phase(torch, fa, fd, batch) -> None:
+def t5_grad_check_phase(torch, fa, fd, fo, batch) -> int:
     """fp32 T5 at t5-large widths, 2 encoder + 2 decoder layers, on the
     recipe's batch (8 x 1024 source, 128 target), dropout on with the same
     seeds on every path, with each of T5's two MLPs.
@@ -2217,6 +2704,12 @@ def t5_grad_check_phase(torch, fa, fd, batch) -> None:
     ulp (below); kernel 1 reading the learned bias one key off must break
     them.
 
+    relu with attention-probs dropout at PROBS_DROPOUT: kernels 2, 3 and 4
+    (their dropout instances) against their plain versions inside the model
+    within the relu limits, kernel 4's fp32 (CUDA-core) dropout instance
+    launched once per self-attention layer, counted from zero (returned:
+    4).
+
     Reported beside them: each MLP's plain path against itself with every
     attention output nudged by one fp32 ulp (how far a rounding-sized
     change of the forward moves each model's gradient), the same for the
@@ -2229,8 +2722,9 @@ def t5_grad_check_phase(torch, fa, fd, batch) -> None:
     from distributed_llms_example_tpu_torch.models.registry import T5_CONFIGS
     from distributed_llms_example_tpu_torch.models.t5 import T5ForConditionalGeneration
 
-    def build(mlp: str):
-        cfg = dataclasses.replace(T5_CONFIGS["t5-large"], num_layers=2, feed_forward_proj=mlp)
+    def build(mlp: str, attn_dropout: float = 0.0):
+        cfg = dataclasses.replace(T5_CONFIGS["t5-large"], num_layers=2, feed_forward_proj=mlp,
+                                  attn_dropout_rate=attn_dropout)
         model = T5ForConditionalGeneration(cfg, dtype=torch.float32, param_dtype=torch.float32,
                                            device="cuda").train()
         model.init_weights(torch.Generator(device="cuda").manual_seed(0))
@@ -2289,6 +2783,18 @@ def t5_grad_check_phase(torch, fa, fd, batch) -> None:
             "loss_fp32": plain[0], "grad_norm_fp32": float(global_norm(plain[1])),
             "bucket_table_grad_norms": {names[i]: float(plain[1][i].norm()) for i in tables}}
 
+    # the relu model with attention-probs dropout: kernel 4's dropout branch
+    # (and kernels 2-3's) inside the model, against their plain versions
+    model, _, _ = build("relu", PROBS_DROPOUT)
+    zero_counters(fa, fd, fo)
+    dkernel = loss_and_grads(torch, model, batch)
+    drop_launched = fa.flash_bwd_dlbias.drop_launches
+    with plain_backward_kernels(fa):
+        dplain = loss_and_grads(torch, model, batch)
+    del model
+    free_cuda()
+    relu_drop = dist(dkernel, dplain, names, tables)
+
     model, gnames, gtables = build("gated-gelu")
     gkernel = loss_and_grads(torch, model, batch)
     with learned_bias_one_key_off():
@@ -2314,6 +2820,9 @@ def t5_grad_check_phase(torch, fa, fd, batch) -> None:
             "loss_fp32": gplain[0], "grad_norm_fp32": float(global_norm(gplain[1]))}
     say({"phase": "t5_grad_check", "layers": "2+2", "kernel4_launches": launched,
          "fp32_relu": relu, "fp32_gated_gelu": gelu,
+         "fp32_relu_attention_dropout": {"rate": PROBS_DROPOUT,
+                                         "kernel4_dropout_launches": drop_launched,
+                                         "kernels_2_3_4_vs_plain": relu_drop},
          "limits": dict(GRAD_LIMITS, bucket_table_rel_l2=T5_TABLE_REL_L2,
                         gated_gelu_nudge_factor=T5_NUDGE_FACTOR)})
     if launched != 4 or len(tables) != 2 or len(gtables) != 2:
@@ -2321,6 +2830,9 @@ def t5_grad_check_phase(torch, fa, fd, batch) -> None:
     if not within(relu["kernels_2_3_4_vs_plain"]):
         fail(f"t5 fp32 gradient check (relu): kernels 2-4 vs plain "
              f"{relu['kernels_2_3_4_vs_plain']}")
+    if drop_launched != 4 or not within(relu_drop):
+        fail(f"t5 fp32 gradient check with attention dropout: {drop_launched} kernel-4 dropout "
+             f"launches for 4 self-attention layers, kernels 2-4 vs plain {relu_drop}")
     if not max(relu["planted_fault_dlbias_delta"]["bucket_table_rel_l2"].values()) \
             > T5_TABLE_REL_L2:
         fail(f"t5 gradient check: δ of another batch row keeps the bucket tables within "
@@ -2338,6 +2850,7 @@ def t5_grad_check_phase(torch, fa, fd, batch) -> None:
              f"{relu['rerun_loss_equal']}, lookup backward equal "
              f"{relu['lookup_backward_bit_equal']}, tensors that differ "
              f"{relu['rerun_tensors_not_bit_equal']}")
+    return drop_launched
 
 
 T5_SERVE_ARGS = [
@@ -2508,9 +3021,10 @@ def plain_kernels(fa, fd=None):
     through its autograd Function with the plain version in both passes."""
     from distributed_llms_example_tpu_torch.ops import mha
 
-    def fwd(q, k, v, bias=None, *, learned_bias=None, causal=False, scale=None, dtype=None):
+    def fwd(q, k, v, bias=None, *, learned_bias=None, causal=False, scale=None, dtype=None,
+            **drop):
         return fa.flash_attention_plain(q, k, v, bias, lbias=learned_bias, causal=causal,
-                                        scale=scale)[0].to(dtype or q.dtype)
+                                        scale=scale, **drop)[0].to(dtype or q.dtype)
 
     def dec(q, k, v, bias=None, *, offsets, scale=None, dtype=None):
         return fa.flash_decode_plain(q, k, v, bias, offsets=offsets,
@@ -2975,6 +3489,7 @@ def main() -> None:
     sys.path.insert(0, HERE)
     import torch
 
+    wall0 = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs an NVIDIA GPU")
@@ -2995,8 +3510,11 @@ def main() -> None:
     from distributed_llms_example_tpu_torch.ops import fused_optim as fo
 
     t0 = time.perf_counter()
+    swapped_build = start_swapped_dkv_build(cuda_build)
     secs = cuda_build.build(KERNELS, verbose=True)
-    say({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs})
+    swapped_lib = swapped_build()
+    say({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs,
+         "planted_fault_build_s": time.perf_counter() - t0})
     sass_phase(cuda_build)
     resource_phase(cuda_build)
     decode_resource_phase(cuda_build)
@@ -3024,6 +3542,7 @@ def main() -> None:
     for name, key in (("flash_attention_fwd", "fwd"), ("flash_attention_bwd_dq", "dq"),
                       ("flash_attention_bwd_dkv", "dkv")):
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], lbias_errs[key])
+    measured.update(probs_dropout_phase(torch, fa, swapped_lib))
 
     # phases 4-6: the main paths
     from distributed_llms_example_tpu_torch.launch import cli
@@ -3039,15 +3558,34 @@ def main() -> None:
     del trainer
     free_cuda()
 
-    # phases 7-10: T5 — t5-large training and its gradient check, flan-t5-xl
-    # serving and its fp32 logits check
+    # phases 5b-6b: bart-large-cnn fine-tuned from phase 5's saved HF
+    # checkpoint with attention_dropout set: kernels 1-3's dropout instances
+    # on the train path, and the fp32 gradient check with probs dropout
+    ckpt = attention_dropout_checkpoint(os.path.join(WORK, "bart-large-cnn-out", "model"))
+    drop_train, trainer = train_phase(torch, fa, fd, fo, cli, ckpt, probs_dropout=PROBS_DROPOUT)
+    trainer.opt_state = None
+    for p in trainer.model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    grad_check_phase(torch, fa, fd, trainer)
+    del trainer
+    free_cuda()
+
+    # phases 7-10: T5 — t5-large training (7b: with attention-probs
+    # dropout, kernels 1-4's dropout instances) and its gradient check,
+    # flan-t5-xl serving and its fp32 logits check
     from distributed_llms_example_tpu_torch.train.trainer import put_batch
 
     t5_train, trainer = train_phase(torch, fa, fd, fo, cli, "t5-large")
     batch = put_batch(next(iter(trainer.batches.epoch(0))), trainer.device)
     del trainer
     free_cuda()
-    t5_grad_check_phase(torch, fa, fd, batch)
+    t5_drop_train, trainer = train_phase(torch, fa, fd, fo, cli, "t5-large",
+                                         probs_dropout=PROBS_DROPOUT,
+                                         loaded=t5_large_with_attention_dropout(torch))
+    del trainer
+    free_cuda()
+    t5_grad_check_drop = t5_grad_check_phase(torch, fa, fd, fo, batch)
     del batch
     t5_serve = t5_serve_phase(torch, fa, fd, fo, cli)
     t5_logits_phase(torch, fa)
@@ -3107,6 +3645,23 @@ def main() -> None:
              entry_launches={k: both[k] for k in ("fused_adamw", "fused_grad_prep")},
              **measured["fused_adamw"]),
     ]
+    # kernels 1-4's probs-dropout branch (csrc/dropout_hash.cuh in every
+    # source), all on the tensor cores: the launches of the BART train run
+    # from a checkpoint with attention_dropout and of the t5-large train
+    # run with attn_dropout_rate (kernel 4's from that run alone); kernel
+    # 4's fp32 CUDA-core dropout launches in the T5 gradient check beside
+    for name, srcs, line in (
+            ("flash_attention_fwd", ("flash_fwd_tc.cu", "flash_fwd.cu"), 173),
+            ("flash_attention_bwd_dq", ("flash_bwd_tc.cu", "flash_bwd.cu"), 309),
+            ("flash_attention_bwd_dkv", ("flash_bwd_tc.cu", "flash_bwd.cu"), 367),
+            ("flash_attention_bwd_dlbias", ("flash_bwd_dlbias_tc.cu", "flash_bwd_dlbias.cu"), 446)):
+        key = f"{name}_dropout"
+        rows.append(dict(name=key, route="cuda", source=src + srcs[0],
+                         sources=[src + x for x in (*srcs, "dropout_hash.cuh")],
+                         replaces=f"{ref}flash_attention.py:{line}",
+                         launches=drop_train[key] + t5_drop_train[key], **measured[key]))
+    rows[-1]["grad_check_fp32_cuda_core_launches"] = t5_grad_check_drop
+    say({"phase": "wall", "seconds": time.perf_counter() - wall0})
     say({"kernels": rows})
     say({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

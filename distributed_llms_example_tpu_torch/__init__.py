@@ -10,6 +10,8 @@ CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
 Ported so far: serving and fine-tuning T5 and BART, serving LLaMA from a
 flat or a paged KV cache (``launch/cli.py``), with all eight TPU kernels
 as CUDA kernels: flash-attention forward, its dq, dk/dv and learned-bias
-gradient backward, flash decode flat and paged, fused residual dropout
-and fused AdamW.  ROADMAP.md lists what is still to come.
+gradient backward (each with its attention-probs dropout branch), flash
+decode flat and paged, fused residual dropout and fused AdamW; models
+load from and save to local HF checkpoint directories.  ROADMAP.md lists
+what is still to come.
 """

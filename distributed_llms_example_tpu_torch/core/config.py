@@ -7,11 +7,17 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
+import tempfile
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     model_ckpt: str = "bart-large-cnn"  # the reference recipe's model; T5 names train too
+    # <output_dir>/model/: the final HF checkpoint; the JAX default
+    # /tmp/dllm-tpu-out, under the process's temporary directory ($TMPDIR)
+    output_dir: str = os.path.join(tempfile.gettempdir(), "dllm-tpu-out")
     train_file: str = ""
     tokenizer: str = ""
     source_column: str = ""
@@ -34,6 +40,9 @@ class TrainConfig:
     device: str = "cuda"
     seed: int = 0  # random-init seed for the weights
 
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
 
 def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The flags that training and ``serve`` share: which model, how its
@@ -53,6 +62,8 @@ def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     d = TrainConfig()
     add_model_args(p)
+    p.add_argument("--output-dir", type=str, default=d.output_dir,
+                   help="the final HF checkpoint goes to <output-dir>/model/")
     p.add_argument("--train-file", type=str, required=True,
                    help="path to train.json (JSON array, JSONL or {\"data\": [...]})")
     p.add_argument("--target-column", type=str, default=d.target_column)

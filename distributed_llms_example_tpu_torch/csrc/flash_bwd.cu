@@ -35,9 +35,13 @@
 // above the diagonal are skipped, as `diag_ok` skips them on the TPU.  Any
 // Sq and Sk: every load and score is bounds-checked.  The bias is a
 // constant mask: it gets no gradient; the learned bias's gradient is
-// kernel 4 (csrc/flash_bwd_dlbias.cu).  The probs-dropout branch of the
-// TPU kernels is not here (no model of the port trains with
-// attention-probs dropout).
+// kernel 4 (csrc/flash_bwd_dlbias.cu).
+//
+// Attention-probs dropout (template parameter DROP): the forward's mask m
+// is redrawn from the counter hash of csrc/dropout_hash.cuh over (seed, b,
+// h, absolute query, absolute key); dp becomes m * dp / (1 - rate) before
+// ds, and dv sums the dropped p, m * p / (1 - rate), each product with the
+// fp32 1 / (1 - rate) its own rounding.  DROP = 0 is the code as it was.
 //
 // What bounds it on the H100: arithmetic.  At the encoder shape (8, 16,
 // 1024, 64) the dq pass does 6*B*H*S*S*D = 51.5 GFLOP and the dk/dv pass
@@ -51,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -90,12 +96,15 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int 
 
 // The shared score step of both kernels: for the thread's 4 x 4 tile of
 // (query row ty*4+i, key tx+16j) it returns p and ds, with p = 0 wherever
-// the pair is out of range, causal-masked or on a sentinel row.
-template <int D, typename LB>
+// the pair is out of range, causal-masked or on a sentinel row.  With
+// dropout (DROP; `key` the (b, h) plane's hash key), p is the dropped p
+// that dv sums and ds is formed from the dropped dp.
+template <int D, typename LB, int DROP>
 __device__ __forceinline__ void score_tile(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs, const float* lse_s,
     const float* dl_s, int q0, int k0, int Lq, int Lk, float scale, int causal,
-    const Bias<float>& bias, const Bias<LB>& lbias, float p[4][4], float ds[4][4]) {
+    const Bias<float>& bias, const Bias<LB>& lbias, const ProbsDropout& drop, uint32_t key,
+    float p[4][4], float ds[4][4]) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float s[4][4], dp[4][4];
 #pragma unroll
@@ -134,8 +143,15 @@ __device__ __forceinline__ void score_tile(
       if (qi < Lq && ki < Lk && !(causal && ki > qi) && !(l <= MASK_VALUE / 2)) {
         pv = expf(s[i][j] * scale + bias.at(qi, ki) + lbias.at(qi, ki) - l);
       }
-      p[i][j] = pv;
-      ds[i][j] = pv * (dp[i][j] - delta) * scale;
+      float pd = pv, dpv = dp[i][j];
+      if constexpr (DROP) {
+        const bool keep = keep_word(
+            (uint32_t)qi * HASH_ROW_MUL + (uint32_t)ki * HASH_COL_MUL + key, drop.threshold << 8);
+        pd = keep ? __fmul_rn(pv, drop.inv_keep) : 0.f;
+        dpv = keep ? __fmul_rn(dpv, drop.inv_keep) : 0.f;
+      }
+      p[i][j] = pd;
+      ds[i][j] = pv * (dpv - delta) * scale;
     }
   }
 }
@@ -145,13 +161,13 @@ constexpr size_t dq_smem_floats() {
   return 2 * BQ * D + 2 * BK * (D + 1) + BQ * (BK + 1) + 2 * BQ;
 }
 
-template <typename T, typename LB, int D>
+template <typename T, typename LB, int D, int DROP>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, long long bsb, long long bsh, long long bsq, long long bsk,
     const LB* __restrict__ lbias, long long lsb, long long lsh, long long lsq, long long lsk,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int H, int Lq, int Lk, float scale, int causal) {
+    T* __restrict__ dq, int H, int Lq, int Lk, float scale, int causal, ProbsDropout drop) {
   constexpr int CD = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][D]
@@ -169,6 +185,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const T* vp = v + (size_t)bh * Lk * D;
   const Bias<float> bs{bias ? bias + b * bsb + h * bsh : nullptr, bsq, bsk};
   const Bias<LB> ls{lbias ? lbias + b * lsb + h * lsh : nullptr, lsq, lsk};
+  const uint32_t key = DROP ? stream_key(drop.seed, b, h) : 0u;  // the plane's hash key
 
   load_tile<T, D>(Qs, D, q + (size_t)bh * Lq * D, q0, Lq);
   load_tile<T, D>(dOs, D, dout + (size_t)bh * Lq * D, q0, Lq);
@@ -193,7 +210,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     load_tile<T, D>(Vs, D + 1, vp, k0, Lk);
     __syncthreads();
     float p[4][4], ds[4][4];
-    score_tile<D, LB>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Lq, Lk, scale, causal, bs, ls, p, ds);
+    score_tile<D, LB, DROP>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Lq, Lk, scale, causal, bs, ls,
+                            drop, key, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -228,13 +246,14 @@ constexpr size_t dkv_smem_floats() {
   return 2 * BK * (D + 1) + 2 * BQ * D + 2 * BQ * (BK + 1) + 2 * BQ;
 }
 
-template <typename T, typename LB, int D>
+template <typename T, typename LB, int D, int DROP>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, long long bsb, long long bsh, long long bsq, long long bsk,
     const LB* __restrict__ lbias, long long lsb, long long lsh, long long lsq, long long lsk,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk, float scale, int causal) {
+    T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk, float scale, int causal,
+    ProbsDropout drop) {
   constexpr int CD = D / 16;
   extern __shared__ float smem[];
   float* Ks = smem;                  // [BK][D + 1]
@@ -253,6 +272,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   const T* dop = dout + (size_t)bh * Lq * D;
   const Bias<float> bs{bias ? bias + b * bsb + h * bsh : nullptr, bsq, bsk};
   const Bias<LB> ls{lbias ? lbias + b * lsb + h * lsh : nullptr, lsq, lsk};
+  const uint32_t key = DROP ? stream_key(drop.seed, b, h) : 0u;  // the plane's hash key
 
   load_tile<T, D>(Ks, D + 1, k + (size_t)bh * Lk * D, k0, Lk);
   load_tile<T, D>(Vs, D + 1, v + (size_t)bh * Lk * D, k0, Lk);
@@ -277,7 +297,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     }
     __syncthreads();
     float p[4][4], ds[4][4];
-    score_tile<D, LB>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Lq, Lk, scale, causal, bs, ls, p, ds);
+    score_tile<D, LB, DROP>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Lq, Lk, scale, causal, bs, ls,
+                            drop, key, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -335,34 +356,39 @@ struct Args {
   int B, H, Lq, Lk;
   float scale;
   int causal;
+  ProbsDropout drop;
 };
 
 template <typename T, typename LB, int D>
 int launch_dq(const Args& a, cudaStream_t stream) {
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, LB, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = a.drop.on() ? flash_bwd_dq_kernel<T, LB, D, 1> : flash_bwd_dq_kernel<T, LB, D, 0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H);
-  flash_bwd_dq_kernel<T, LB, D><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.bias, a.bsb, a.bsh, a.bsq,
       a.bsk, (const LB*)a.lbias, a.lsb, a.lsh, a.lsq, a.lsk, (const T*)a.dout,
-      (const float*)a.lse, (const float*)a.delta, (T*)a.d1, a.H, a.Lq, a.Lk, a.scale, a.causal);
+      (const float*)a.lse, (const float*)a.delta, (T*)a.d1, a.H, a.Lq, a.Lk, a.scale, a.causal,
+      a.drop);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename LB, int D>
 int launch_dkv(const Args& a, cudaStream_t stream) {
   const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, LB, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel =
+      a.drop.on() ? flash_bwd_dkv_kernel<T, LB, D, 1> : flash_bwd_dkv_kernel<T, LB, D, 0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Lk + BK - 1) / BK, a.B * a.H);
-  flash_bwd_dkv_kernel<T, LB, D><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.bias, a.bsb, a.bsh, a.bsq,
       a.bsk, (const LB*)a.lbias, a.lsb, a.lsh, a.lsq, a.lsk, (const T*)a.dout,
       (const float*)a.lse, (const float*)a.delta, (T*)a.d1, (T*)a.d2, a.H, a.Lq, a.Lk, a.scale,
-      a.causal);
+      a.causal, a.drop);
   return (int)cudaGetLastError();
 }
 
@@ -381,10 +407,11 @@ int run(int which, const void* q, const void* k, const void* v, const void* bias
         long long bsh, long long bsq, long long bsk, const void* lbias, long long lsb,
         long long lsh, long long lsq, long long lsk, const void* dout, const void* lse,
         const void* delta, void* d1, void* d2, int B, int H, int Lq, int Lk, int D, float scale,
-        int causal, int lb_bf16, void* stream) {
+        int causal, const ProbsDropout& drop, int lb_bf16, void* stream) {
+  if (drop.threshold > (1u << 24)) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Lq == 0 || Lk == 0) return 0;
   const Args a{q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
-               d1, d2, B, H, Lq, Lk, scale, causal};
+               d1, d2, B, H, Lq, Lk, scale, causal, drop};
   cudaStream_t s = (cudaStream_t)stream;
   return lb_bf16 ? dispatch<float, __nv_bfloat16>(which, D, a, s)
                  : dispatch<float, float>(which, D, a, s);
@@ -392,14 +419,18 @@ int run(int which, const void* q, const void* k, const void* v, const void* bias
 
 }  // namespace
 
+// seed, threshold, inv_keep: the forward's probs dropout (threshold 2^24:
+// none)
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
                             long long bsb, long long bsh, long long bsq, long long bsk,
                             const void* lbias, long long lsb, long long lsh, long long lsq,
                             long long lsk, const void* dout, const void* lse, const void* delta,
                             void* dq, int B, int H, int Lq, int Lk, int D, float scale,
-                            int causal, int lb_bf16, void* stream) {
+                            int causal, int seed, unsigned int threshold, float inv_keep,
+                            int lb_bf16, void* stream) {
   return run(0, q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
-             dq, nullptr, B, H, Lq, Lk, D, scale, causal, lb_bf16, stream);
+             dq, nullptr, B, H, Lq, Lk, D, scale, causal, {seed, threshold, inv_keep}, lb_bf16,
+             stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* bias,
@@ -407,7 +438,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const void* lbias, long long lsb, long long lsh, long long lsq,
                              long long lsk, const void* dout, const void* lse, const void* delta,
                              void* dk, void* dv, int B, int H, int Lq, int Lk, int D, float scale,
-                             int causal, int lb_bf16, void* stream) {
+                             int causal, int seed, unsigned int threshold, float inv_keep,
+                             int lb_bf16, void* stream) {
   return run(1, q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
-             dk, dv, B, H, Lq, Lk, D, scale, causal, lb_bf16, stream);
+             dk, dv, B, H, Lq, Lk, D, scale, causal, {seed, threshold, inv_keep}, lb_bf16,
+             stream);
 }

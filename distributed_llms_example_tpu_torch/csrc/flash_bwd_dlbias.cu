@@ -15,7 +15,11 @@
 // p = exp(s - lse) (0 on rows whose lse is the MASK_VALUE sentinel: rows
 // with no live key) and dp = dO v^T recomputed per tile exactly as the dq
 // and dk/dv kernels (csrc/flash_bwd.cu) recompute them.  No scale factor:
-// the scale multiplies only q k^T, so ds/dlbias = 1.
+// the scale multiplies only q k^T, so ds/dlbias = 1.  With attention-probs
+// dropout (template parameter DROP), dp is the dropped m * dp / (1 - rate),
+// the mask m redrawn per batch row from the counter hash of
+// csrc/dropout_hash.cuh over (seed, b, h, absolute query, absolute key);
+// DROP = 0 is the code as it was.
 //
 // q, k, v, dO: (B, H, S, D) contiguous fp32; lse and delta (B, H, Sq) fp32;
 // the fp32 `bias` (a constant mask, may be null) and the learned (1, H, Sq,
@@ -43,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -75,13 +81,14 @@ constexpr size_t smem_floats() {
   return 2 * BQ * D + 2 * BK * (D + 1) + 2 * BQ;
 }
 
-template <typename T, typename O, int D>
+template <typename T, typename O, int D, int DROP>
 __global__ void __launch_bounds__(NT) flash_bwd_dlbias_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, long long bsb, long long bsh, long long bsq, long long bsk,
     const O* __restrict__ lbias, long long lsh, long long lsq, long long lsk,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    O* __restrict__ dlb, int B, int H, int Lq, int Lk, float scale, int causal) {
+    O* __restrict__ dlb, int B, int H, int Lq, int Lk, float scale, int causal,
+    ProbsDropout drop) {
   extern __shared__ float smem[];
   float* Qs = smem;                // [BQ][D]
   float* dOs = Qs + BQ * D;        // [BQ][D]
@@ -156,6 +163,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dlbias_kernel(
           }
       }
       const float* bp = bias ? bias + b * bsb + h * bsh : nullptr;
+      const uint32_t key = DROP ? stream_key(drop.seed, b, h) : 0u;  // this row's plane
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty * 4 + i, qi = q0 + r;
@@ -166,7 +174,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dlbias_kernel(
           if (qi < Lq && ki < Lk && !(causal && ki > qi) && !(l <= MASK_VALUE / 2)) {
             const float bv = bp ? bp[(long long)qi * bsq + (long long)ki * bsk] : 0.f;
             const float p = expf(s[i][j] * scale + bv + lb[i][j] - l);
-            acc[i][j] += p * (dp[i][j] - dl);
+            float dpv = dp[i][j];
+            if constexpr (DROP)
+              dpv = keep_word((uint32_t)qi * HASH_ROW_MUL + (uint32_t)ki * HASH_COL_MUL + key,
+                              drop.threshold << 8)
+                        ? __fmul_rn(dpv, drop.inv_keep) : 0.f;
+            acc[i][j] += p * (dpv - dl);
           }
         }
       }
@@ -196,19 +209,22 @@ struct Args {
   int B, H, Lq, Lk;
   float scale;
   int causal;
+  ProbsDropout drop;
 };
 
 template <typename T, typename O, int D>
 int launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dlbias_kernel<T, O, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = a.drop.on() ? flash_bwd_dlbias_kernel<T, O, D, 1>
+                            : flash_bwd_dlbias_kernel<T, O, D, 0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Lk + BK - 1) / BK, (a.Lq + BQ - 1) / BQ, a.H);
-  flash_bwd_dlbias_kernel<T, O, D><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.bias, a.bsb, a.bsh, a.bsq,
       a.bsk, (const O*)a.lbias, a.lsh, a.lsq, a.lsk, (const T*)a.dout, (const float*)a.lse,
-      (const float*)a.delta, (O*)a.out, a.B, a.H, a.Lq, a.Lk, a.scale, a.causal);
+      (const float*)a.delta, (O*)a.out, a.B, a.H, a.Lq, a.Lk, a.scale, a.causal, a.drop);
   return (int)cudaGetLastError();
 }
 
@@ -226,19 +242,21 @@ int dispatch_d(int D, const Args& a, cudaStream_t s) {
 }  // namespace
 
 // `lsb`, the learned bias's batch stride, is 0: its batch dim is 1, which
-// is what the kernel sums over.  `lb_bf16` gives the dtype of the learned
-// bias and of its gradient.
+// is what the kernel sums over.  seed, threshold, inv_keep: the forward's
+// probs dropout (threshold 2^24: none).  `lb_bf16` gives the dtype of the
+// learned bias and of its gradient.
 extern "C" int flash_bwd_dlbias(const void* q, const void* k, const void* v, const void* bias,
                                 long long bsb, long long bsh, long long bsq, long long bsk,
                                 const void* lbias, long long lsb, long long lsh, long long lsq,
                                 long long lsk, const void* dout, const void* lse,
                                 const void* delta, void* dlbias, int B, int H, int Lq, int Lk,
-                                int D, float scale, int causal, int lb_bf16, void* stream) {
+                                int D, float scale, int causal, int seed, unsigned int threshold,
+                                float inv_keep, int lb_bf16, void* stream) {
   (void)lsb;
-  if (lbias == nullptr) return (int)cudaErrorInvalidValue;
+  if (lbias == nullptr || threshold > (1u << 24)) return (int)cudaErrorInvalidValue;
   if (H == 0 || Lq == 0 || Lk == 0) return 0;
   const Args a{q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsh, lsq, lsk, dout, lse, delta, dlbias,
-               B, H, Lq, Lk, scale, causal};
+               B, H, Lq, Lk, scale, causal, {seed, threshold, inv_keep}};
   cudaStream_t s = (cudaStream_t)stream;
   return lb_bf16 ? dispatch_d<float, __nv_bfloat16>(D, a, s) : dispatch_d<float, float>(D, a, s);
 }

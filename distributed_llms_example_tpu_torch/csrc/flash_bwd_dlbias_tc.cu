@@ -17,6 +17,10 @@
 //                                            rounded once to lbias's dtype)
 //
 // No scale factor applies to the sum: the scale multiplies only q k^T.
+// With attention-probs dropout (template parameter DROP), dp is the
+// dropped m * dp / (1 - rate), the mask m redrawn per batch row from the
+// counter hash of csrc/dropout_hash.cuh over (seed, b, h, absolute query,
+// absolute key); DROP = 0 is the code as it was.
 // q, k, v, dO: (B, H, S, D) contiguous bf16, D in {16, 32, 64, 128}; lse
 // and delta (B, H, Sq) fp32; `bias` an fp32 additive mask read through its
 // element strides (a size-1 dim has stride 0; a key-only padding mask
@@ -65,7 +69,10 @@
 // - Registers: no setmaxnreg; __launch_bounds__(256, 1).  A thread holds
 //   32 fp32 of dlbias, 32 of S, 32 of dP and 16 or 32 of the learned bias;
 //   ptxas's report is printed by chip_smoke.py's build, which requires 0
-//   bytes of spill.
+//   bytes of spill in every instance, the dropout ones included.
+// - Dropout: the plane's key is formed once per batch row (the rows loop
+//   inside the CTA) and the thread's two (query, key) terms once, so an
+//   entry costs an add, the mix and a compare.
 // - Host: the four tensor maps are encoded per launch with
 //   cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
 //   (no link to libcuda), and passed in a __grid_constant__ Args.
@@ -73,6 +80,7 @@
 #include <cuda.h>
 #include <math.h>
 
+#include "dropout_hash.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -96,6 +104,7 @@ struct Args {
   int causal;
   int bias_tile;  // key-only padding bias (B, 1, 1, Sk)
   int out_vec;    // output rows 16-byte aligned: 16-byte stores
+  ProbsDropout drop;
 };
 
 // ST stages (batch rows) each of Q, dO (ROWS rows), K, V (BK rows), lse,
@@ -142,7 +151,7 @@ template <> struct LbPair<4> {
   static __device__ __forceinline__ float2 get(type p) { return p; }
 };
 
-template <int D, int LBB>
+template <int D, int LBB, int DROP>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dlbias_tc_kernel(const __grid_constant__ Args a) {
   using T = Tile<D>;
   using L = Smem<D, LBB>;
@@ -226,6 +235,16 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dlbias_tc_kernel(const __grid
     // a warpgroup whose every row precedes the CTA's first key sees no key
     const bool wg_live = !a.causal || k0 <= wg_first + 63;
     const bool edge = k0 + BK > Lk || (a.causal && k0 + BK - 1 > wg_first);
+    // probs dropout: the hash terms of the thread's two rows at its first
+    // column (the plane's key is added per batch row), and T * 256
+    uint32_t pos_word[2], thr8 = 0;
+    if constexpr (DROP) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        pos_word[i] = (uint32_t)(q0 + r_lo + 8 * i) * HASH_ROW_MUL +
+                      (uint32_t)(k0 + c_lo) * HASH_COL_MUL;
+      thr8 = a.drop.threshold << 8;
+    }
 
     for (int b = 0; b < B; ++b) {
       const int s = b % ST;
@@ -323,6 +342,17 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dlbias_tc_kernel(const __grid
           }
           wgmma_commit();
           wgmma_wait<0>();
+          if constexpr (DROP) {
+            // register r is row r_lo + 8 ((r >> 1) & 1), column 8 (r >> 2) +
+            // c_lo + (r & 1): a dropped entry's dp is 0, a kept one's scaled
+            const uint32_t key = stream_key(a.drop.seed, b, h);
+#pragma unroll
+            for (int r = 0; r < 32; ++r) {
+              const uint32_t w = pos_word[(r >> 1) & 1] + key +
+                                 (uint32_t)(8 * (r >> 2) + (r & 1)) * HASH_COL_MUL;
+              dp[r] = keep_word(w, thr8) ? __fmul_rn(dp[r], a.drop.inv_keep) : 0.f;
+            }
+          }
 #pragma unroll
           for (int r = 0; r < 32; ++r) acc[r] += sc[r] * (dp[r] - dl[(r >> 1) & 1]);
         }
@@ -411,7 +441,8 @@ int launch(Args& a, int smem, cudaStream_t stream) {
   // the caller's plan (ops/flash_attention.py dlbias_plan) sized the shared
   // memory; it must be this instance's
   if (smem != Smem<D, LBB>::BYTES) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dlbias_tc_kernel<D, LBB>;
+  auto kernel = a.drop.on() ? flash_bwd_dlbias_tc_kernel<D, LBB, 1>
+                            : flash_bwd_dlbias_tc_kernel<D, LBB, 0>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -437,24 +468,26 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // The signature of csrc/flash_bwd_tc.cu's entries with one output.  `lsb`,
 // the learned bias's batch stride, is unused: its batch dim is 1, which is
-// what the kernel sums over.  lb_bytes: the learned bias's element size (2
-// bf16, 4 fp32); smem from the caller's plan.
+// what the kernel sums over.  seed, threshold, inv_keep: the forward's
+// probs dropout (threshold 2^24: none); lb_bytes: the learned bias's
+// element size (2 bf16, 4 fp32); smem from the caller's plan.
 extern "C" int flash_bwd_dlbias_tc(const void* q, const void* k, const void* v,
                                    const void* bias, long long bsb, long long bsh, long long bsq,
                                    long long bsk, const void* lbias, long long lsb,
                                    long long lsh, long long lsq, long long lsk,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dlbias, int B, int H, int Lq, int Lk, int D, float scale,
-                                   int causal, int lb_bytes, int smem, void* stream) {
+                                   int causal, int seed, unsigned int threshold, float inv_keep,
+                                   int lb_bytes, int smem, void* stream) {
   (void)lsb;
-  if (lbias == nullptr) return (int)cudaErrorInvalidValue;
+  if (lbias == nullptr || threshold > (1u << 24)) return (int)cudaErrorInvalidValue;
   if (H == 0 || Lq == 0 || Lk == 0) return 0;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
     return (int)cudaErrorMisalignedAddress;
   Args a{{}, {}, {}, {}, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
          (const float*)bias, bsb, bsh, bsq, bsk, lbias, lsh, lsq, lsk,
          (const __nv_bfloat16*)dout, (const float*)lse, (const float*)delta, dlbias, B, H, Lq, Lk,
-         scale, causal, 0, 0};
+         scale, causal, 0, 0, {seed, threshold, inv_keep}};
   a.bias_tile = bias != nullptr && bsq == 0 && bsk == 1;
   a.out_vec = aligned16(dlbias) && ((long long)Lk * lb_bytes) % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;

@@ -16,6 +16,17 @@
 //   dp = dO v^T,  ds = p * (dp - delta) * scale
 //   dq = bf16(ds) k,  dk = bf16(ds)^T q,  dv = bf16(p)^T dO   (fp32 sums)
 //
+// and, with attention-probs dropout (template parameter DROP; the TPU
+// kernels' `dropout_rate` branch), the forward's mask m redrawn from the
+// counter hash of csrc/dropout_hash.cuh over (seed, b, h, absolute query,
+// absolute key), nothing saved between the passes:
+//
+//   dp = m * (dO v^T) / (1 - rate),   dv = bf16(m * p / (1 - rate))^T dO
+//
+// (delta = rowsum(dO * o) of the dropped o, as the wrapper computes it).
+// Each kept entry's product with the fp32 1 / (1 - rate) is its own
+// rounding, never contracted.  DROP = 0 is the code as it was.
+//
 // q, k, v, dO: (B, H, S, D) contiguous bf16, D in {16, 32, 64, 128}; lse
 // and delta = rowsum(dO * O) (B, H, Sq) fp32.  `bias` is an fp32 additive
 // mask read through its element strides (a size-1 dim has stride 0);
@@ -76,17 +87,24 @@
 //   D = 128 that is 64 + 64 + 16 + 16 with the 32-query tile (with 64
 //   queries it would be 192 before the fragments); at D = 64, 32 each.
 //   ptxas (-Xptxas -v, printed by chip_smoke.py's build) reports 0 bytes of
-//   spill in all 24 instances and 167-254 registers a thread (dq 167-248,
-//   dk/dv 173-254; the most at D = 128 with an fp32 learned bias), so one
-//   CTA of 8 warps a SM.
+//   spill in all 48 instances and 167-254 registers a thread (dq 167-248
+//   without dropout, 168-249 with; dk/dv 173-254 and 176-254; the most at
+//   D = 128 with an fp32 learned bias), so one CTA of 8 warps a SM.
+//
+// - Dropout: the plane's key is formed once a CTA and each thread's two row
+//   terms (dq: its queries; dk/dv: its keys) once, so an entry costs an
+//   add, the mix and a compare.  The dk/dv kernel draws a tile's mask once,
+//   into a bit per accumulator register, for both dV's and dK's fragments.
+//   Its accumulator is transposed (rows keys, columns queries) while the
+//   hash takes the query as its row: DKV_QUERY_MUL / DKV_KEY_MUL below
+//   name that once.  Dead tiles are still voted on the undropped p.
 //
 // Later work (not here): warp specialisation with TMA producers, keeping
-// the next tile's S in flight, and the in-kernel probs-dropout branch of
-// the TPU kernels (no model of the port trains with attention-probs
-// dropout).
+// the next tile's S in flight.
 
 #include <math.h>
 
+#include "dropout_hash.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -98,6 +116,10 @@ constexpr int NT = 256;    // two warpgroups
 // the dk/dv kernel's query tile: 32 at D = 128 keeps dK, dV, S^T and dP^T
 // in registers
 template <int D> constexpr int bq_of() { return D == 128 ? 32 : 64; }
+
+// the dk/dv kernel's hash multipliers: a query is the hash's row and a key
+// its column, though the kernel's accumulator rows are keys
+constexpr uint32_t DKV_QUERY_MUL = HASH_ROW_MUL, DKV_KEY_MUL = HASH_COL_MUL;
 
 struct Args {
   const __nv_bfloat16 *q, *k, *v;
@@ -113,6 +135,7 @@ struct Args {
   int causal;
   int bias_tile;  // key-only padding bias (B, 1, 1, Sk)
   int lb_tile;    // learned bias through the asynchronous tile copies
+  ProbsDropout drop;
 };
 
 // dq kernel: Q, dO, then two stages each of K, V, the learned-bias tile
@@ -195,7 +218,7 @@ __device__ __forceinline__ void store_rows(uint8_t* stage, const float (&acc)[D 
 
 // ------------------------------------------------------------ dq kernel
 
-template <int D, int LBB>
+template <int D, int LBB, int DROP>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(const Args a) {
   using T = Tile<D>;
   using L = DqSmem<D, LBB>;
@@ -268,6 +291,15 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(const Args a) {
   float dq_acc[D / 2];
 #pragma unroll
   for (int r = 0; r < D / 2; ++r) dq_acc[r] = 0.f;
+  // probs dropout: each of the thread's two rows' hash word (row term plus
+  // the (b, h) plane's key) and T * 256
+  uint32_t row_word[2], thr8 = 0;
+  if constexpr (DROP) {
+    const uint32_t key = stream_key(a.drop.seed, b, h);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) row_word[i] = (uint32_t)(q0 + r_lo + 8 * i) * HASH_ROW_MUL + key;
+    thr8 = a.drop.threshold << 8;
+  }
 
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt & 1, k0 = kt * BK;
@@ -366,13 +398,22 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(const Args a) {
         wgmma_wait<0>();
 
         // ds = p (dp - delta) scale, rounded to bf16 into the A fragment of
-        // dQ += ds K (k-step j / 4, register j % 4)
+        // dQ += ds K (k-step j / 4, register j % 4); with dropout, dp of a
+        // kept entry scaled and of a dropped one zeroed first (register j is
+        // row r_lo + 8 (j & 1), columns 8 (j >> 1) + c_lo + {0, 1})
         uint32_t da_frag[BK / 16][4];
+        const uint32_t col_word = (uint32_t)(k0 + c_lo) * HASH_COL_MUL;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int i = j & 1;
-          const float ds0 = sc[2 * j] * (dp[2 * j] - dl[i]) * a.scale;
-          const float ds1 = sc[2 * j + 1] * (dp[2 * j + 1] - dl[i]) * a.scale;
+          float dp0 = dp[2 * j], dp1 = dp[2 * j + 1];
+          if constexpr (DROP) {
+            const uint32_t w = row_word[i] + col_word + (uint32_t)(8 * (j >> 1)) * HASH_COL_MUL;
+            dp0 = keep_word(w, thr8) ? __fmul_rn(dp0, a.drop.inv_keep) : 0.f;
+            dp1 = keep_word(w + HASH_COL_MUL, thr8) ? __fmul_rn(dp1, a.drop.inv_keep) : 0.f;
+          }
+          const float ds0 = sc[2 * j] * (dp0 - dl[i]) * a.scale;
+          const float ds1 = sc[2 * j + 1] * (dp1 - dl[i]) * a.scale;
           da_frag[j / 4][j % 4] = pack_bf16(ds0, ds1);
         }
         wgmma_fence();
@@ -396,7 +437,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(const Args a) {
 
 // --------------------------------------------------------- dk/dv kernel
 
-template <int D, int LBB>
+template <int D, int LBB, int DROP>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(const Args a) {
   using T = Tile<D>;
   using L = DkvSmem<D, LBB>;
@@ -474,6 +515,15 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(const Args a) {
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
   for (int r = 0; r < D / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+  // probs dropout: each of the thread's two keys' hash word (column term
+  // plus the (b, h) plane's key) and T * 256
+  uint32_t key_word[2], thr8 = 0;
+  if constexpr (DROP) {
+    const uint32_t key = stream_key(a.drop.seed, b, h);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) key_word[i] = (uint32_t)(k0 + kr_lo + 8 * i) * DKV_KEY_MUL + key;
+    thr8 = a.drop.threshold << 8;
+  }
 
   for (int it = 0; it < n; ++it) {
     const int s = it & 1, q0 = (qt0 + it) * BQ;
@@ -555,10 +605,31 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(const Args a) {
       // every p of the warpgroup's tile exactly 0: dP^T and both products
       // add exactly nothing
       if (!warpgroup_all(1 + wg, pmax == 0.f)) {
-        // p^T rounded to bf16 into the A fragment of dV += p^T dO
+        // probs dropout: the tile's keep mask, bit r for accumulator
+        // register r (key row kr_lo + 8 ((r >> 1) & 1), query column
+        // 8 (r >> 2) + c_lo + (r & 1))
+        uint32_t keep = ~0u;
+        if constexpr (DROP) {
+          const uint32_t query_word = (uint32_t)(q0 + c_lo) * DKV_QUERY_MUL;
+          keep = 0u;
+#pragma unroll
+          for (int r = 0; r < NA; ++r) {
+            const uint32_t w = key_word[(r >> 1) & 1] + query_word +
+                               (uint32_t)(8 * (r >> 2) + (r & 1)) * DKV_QUERY_MUL;
+            keep |= (uint32_t)keep_word(w, thr8) << r;
+          }
+        }
+        // dropped: a kept entry's value scaled, a dropped one's zeroed
+        auto dropped = [&](float x, int r) {
+          if constexpr (DROP) return (keep >> r) & 1u ? __fmul_rn(x, a.drop.inv_keep) : 0.f;
+          else return x;
+        };
+        // p^T (dropped) rounded to bf16 into the A fragment of dV += p^T dO
         uint32_t pa[BQ / 16][4];
 #pragma unroll
-        for (int j = 0; j < NA / 2; ++j) pa[j / 4][j % 4] = pack_bf16(st[2 * j], st[2 * j + 1]);
+        for (int j = 0; j < NA / 2; ++j)
+          pa[j / 4][j % 4] =
+              pack_bf16(dropped(st[2 * j], 2 * j), dropped(st[2 * j + 1], 2 * j + 1));
         float dpt[NA];
         wgmma_fence();
         // dP^T = V dO^T
@@ -592,8 +663,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkv_tc_kernel(const Args a) {
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int r = 4 * cg + 2 * i, j = r / 2;
-            const float ds0 = st[r] * (dpt[r] - d2.x) * a.scale;
-            const float ds1 = st[r + 1] * (dpt[r + 1] - d2.y) * a.scale;
+            const float ds0 = st[r] * (dropped(dpt[r], r) - d2.x) * a.scale;
+            const float ds1 = st[r + 1] * (dropped(dpt[r + 1], r + 1) - d2.y) * a.scale;
             sa[j / 4][j % 4] = pack_bf16(ds0, ds1);
           }
         }
@@ -625,7 +696,11 @@ int launch(int which, const Args& a, int B, int smem, cudaStream_t stream) {
   // memory; it must be this instance's
   const int want = which ? DkvSmem<D, LBB>::BYTES : DqSmem<D, LBB>::BYTES;
   if (smem != want) return (int)cudaErrorInvalidValue;
-  auto kernel = which ? flash_bwd_dkv_tc_kernel<D, LBB> : flash_bwd_dq_tc_kernel<D, LBB>;
+  const bool drop = a.drop.on();
+  auto kernel = which ? (drop ? flash_bwd_dkv_tc_kernel<D, LBB, 1>
+                              : flash_bwd_dkv_tc_kernel<D, LBB, 0>)
+                      : (drop ? flash_bwd_dq_tc_kernel<D, LBB, 1>
+                              : flash_bwd_dq_tc_kernel<D, LBB, 0>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -651,7 +726,9 @@ int run(int which, const void* q, const void* k, const void* v, const void* bias
         long long bsb, long long bsh, long long bsq, long long bsk, const void* lbias,
         long long lsb, long long lsh, long long lsq, long long lsk, const void* dout,
         const void* lse, const void* delta, void* d1, void* d2, int B, int H, int Lq, int Lk,
-        int D, float scale, int causal, int lb_bytes, int smem, void* stream) {
+        int D, float scale, int causal, const ProbsDropout& drop, int lb_bytes, int smem,
+        void* stream) {
+  if (drop.threshold > (1u << 24)) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Lq == 0 || Lk == 0) return 0;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(d1) ||
       (d2 && !aligned16(d2)))
@@ -659,7 +736,7 @@ int run(int which, const void* q, const void* k, const void* v, const void* bias
   Args a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
          (const float*)bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk,
          (const __nv_bfloat16*)dout, (const float*)lse, (const float*)delta,
-         (__nv_bfloat16*)d1, (__nv_bfloat16*)d2, H, Lq, Lk, scale, causal, 0, 0};
+         (__nv_bfloat16*)d1, (__nv_bfloat16*)d2, H, Lq, Lk, scale, causal, 0, 0, drop};
   a.bias_tile = bias != nullptr && bsq == 0 && bsk == 1;
   a.lb_tile = lbias != nullptr && lb_bytes > 0 && lsk == 1 && aligned16(lbias) &&
               (lsq * lb_bytes) % 16 == 0 && (lsh * lb_bytes) % 16 == 0 &&
@@ -673,16 +750,19 @@ int run(int which, const void* q, const void* k, const void* v, const void* bias
 
 }  // namespace
 
-// lb_bytes: the learned bias's element size (2 bf16, 4 fp32, 0 none); smem
-// from the caller's plan.
+// seed, threshold, inv_keep: the forward's probs dropout (threshold 2^24:
+// none); lb_bytes: the learned bias's element size (2 bf16, 4 fp32, 0
+// none); smem from the caller's plan.
 extern "C" int flash_bwd_dq_tc(const void* q, const void* k, const void* v, const void* bias,
                                long long bsb, long long bsh, long long bsq, long long bsk,
                                const void* lbias, long long lsb, long long lsh, long long lsq,
                                long long lsk, const void* dout, const void* lse,
                                const void* delta, void* dq, int B, int H, int Lq, int Lk, int D,
-                               float scale, int causal, int lb_bytes, int smem, void* stream) {
+                               float scale, int causal, int seed, unsigned int threshold,
+                               float inv_keep, int lb_bytes, int smem, void* stream) {
   return run(0, q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
-             dq, nullptr, B, H, Lq, Lk, D, scale, causal, lb_bytes, smem, stream);
+             dq, nullptr, B, H, Lq, Lk, D, scale, causal, {seed, threshold, inv_keep},
+             lb_bytes, smem, stream);
 }
 
 extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v, const void* bias,
@@ -690,8 +770,10 @@ extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v, con
                                 const void* lbias, long long lsb, long long lsh, long long lsq,
                                 long long lsk, const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv, int B, int H, int Lq,
-                                int Lk, int D, float scale, int causal, int lb_bytes, int smem,
+                                int Lk, int D, float scale, int causal, int seed,
+                                unsigned int threshold, float inv_keep, int lb_bytes, int smem,
                                 void* stream) {
   return run(1, q, k, v, bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk, dout, lse, delta,
-             dk, dv, B, H, Lq, Lk, D, scale, causal, lb_bytes, smem, stream);
+             dk, dv, B, H, Lq, Lk, D, scale, causal, {seed, threshold, inv_keep}, lb_bytes,
+             smem, stream);
 }

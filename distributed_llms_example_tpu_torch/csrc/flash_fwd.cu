@@ -26,6 +26,11 @@
 // NEG_INF = -1e9 padding bias average all values uniformly, exactly as
 // plain softmax attention does.  As on the TPU, p is rounded to v's dtype
 // before the value product, while the row sum l accumulates unrounded p.
+// Attention-probs dropout (template parameter DROP): p is dropped by the
+// counter hash of csrc/dropout_hash.cuh over (seed, b, h, absolute query,
+// absolute key) after l has summed it, the kept entries scaled by the fp32
+// 1 / (1 - rate) before the rounding, as the TPU kernel does; DROP = 0 is
+// the code as it was.
 //
 // Any Lq and Lk: every tile load and score is bounds-checked.
 //
@@ -35,14 +40,14 @@
 // (S, S) score matrix out of device memory (one 64 x 64 tile in shared
 // memory at a time), reads every q/k/v element once per block, and
 // register-tiles both products (each thread owns a 4 x 4 score tile and a
-// 4 x D/16 output tile) so shared-memory loads are half the FMAs.  The
-// in-kernel probs-dropout branch of the TPU kernel is not here (no model
-// of the port trains with attention-probs dropout).
+// 4 x D/16 output tile) so shared-memory loads are half the FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -66,13 +71,13 @@ constexpr size_t smem_floats() {
   return BQ * D + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ;
 }
 
-template <typename T, typename LB, int D>
+template <typename T, typename LB, int D, int DROP>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ bias, long long bsb, long long bsh, long long bsq,
     long long bsk, const LB* __restrict__ lbias, long long lsb, long long lsh,
     long long lsq, long long lsk, T* __restrict__ o, float* __restrict__ lse, int H, int Lq,
-    int Lk, float scale, int causal) {
+    int Lk, float scale, int causal, ProbsDropout drop) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int CD = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -173,10 +178,18 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       // a row can still be all -inf: a finite stand-in max keeps
       // exp(-inf - m) = 0 instead of NaN, and l stays 0
       const float safe_m = (m_next == -INFINITY) ? 0.f : m_next;
+      // probs dropout: this row's hash word at the tile's first key
+      uint32_t word = 0;
+      if constexpr (DROP)
+        word = (uint32_t)(q0 + r) * HASH_ROW_MUL + (uint32_t)k0 * HASH_COL_MUL +
+               stream_key(drop.seed, b, h);
       float sum = 0.f;
       for (int c = part; c < BK; c += 4) {
-        const float p = expf(row[c] - safe_m);
+        float p = expf(row[c] - safe_m);
         sum += p;
+        if constexpr (DROP)
+          p = keep_word(word + (uint32_t)c * HASH_COL_MUL, drop.threshold << 8)
+                  ? __fmul_rn(p, drop.inv_keep) : 0.f;
         row[c] = round_to<T>(p);
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -238,27 +251,31 @@ struct Biases {
 
 template <typename T, typename LB, int D>
 int launch(const void* q, const void* k, const void* v, const Biases& bs, void* o, void* lse,
-           int B, int H, int Lq, int Lk, float scale, int causal, cudaStream_t stream) {
+           int B, int H, int Lq, int Lk, float scale, int causal, const ProbsDropout& drop,
+           cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, LB, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = drop.on() ? flash_fwd_kernel<T, LB, D, 1> : flash_fwd_kernel<T, LB, D, 0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, LB, D><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bs.bias, bs.bsb, bs.bsh, bs.bsq,
       bs.bsk, (const LB*)bs.lbias, bs.lsb, bs.lsh, bs.lsq, bs.lsk, (T*)o, (float*)lse, H, Lq,
-      Lk, scale, causal);
+      Lk, scale, causal, drop);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename LB>
 int dispatch_d(int D, const void* q, const void* k, const void* v, const Biases& bs, void* o,
-               void* lse, int B, int H, int Lq, int Lk, float scale, int causal, cudaStream_t s) {
+               void* lse, int B, int H, int Lq, int Lk, float scale, int causal,
+               const ProbsDropout& drop, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, LB, 16>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
-    case 32: return launch<T, LB, 32>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
-    case 64: return launch<T, LB, 64>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
-    case 128: return launch<T, LB, 128>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
+    case 16: return launch<T, LB, 16>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, drop, s);
+    case 32: return launch<T, LB, 32>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, drop, s);
+    case 64: return launch<T, LB, 64>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, drop, s);
+    case 128:
+      return launch<T, LB, 128>(q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, drop, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -266,21 +283,27 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const Biases&
 template <typename T>
 int dispatch_lb(int lb_bf16, int D, const void* q, const void* k, const void* v,
                 const Biases& bs, void* o, void* lse, int B, int H, int Lq, int Lk, float scale,
-                int causal, cudaStream_t s) {
+                int causal, const ProbsDropout& drop, cudaStream_t s) {
   if (lb_bf16)
-    return dispatch_d<T, __nv_bfloat16>(D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
-  return dispatch_d<T, float>(D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
+    return dispatch_d<T, __nv_bfloat16>(D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal,
+                                        drop, s);
+  return dispatch_d<T, float>(D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, drop, s);
 }
 
 }  // namespace
 
-// fp32 q/k/v only: bf16 goes to the tensor-core kernel (csrc/flash_fwd_tc.cu)
+// fp32 q/k/v only: bf16 goes to the tensor-core kernel (csrc/flash_fwd_tc.cu);
+// seed, threshold, inv_keep: the probs dropout (threshold 2^24: none)
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                          long long bsb, long long bsh, long long bsq, long long bsk,
                          const void* lbias, long long lsb, long long lsh, long long lsq,
                          long long lsk, void* o, void* lse, int B, int H, int Lq, int Lk, int D,
-                         float scale, int causal, int lb_bf16, void* stream) {
+                         float scale, int causal, int seed, unsigned int threshold,
+                         float inv_keep, int lb_bf16, void* stream) {
+  if (threshold > (1u << 24)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Biases bs{bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk};
-  return dispatch_lb<float>(lb_bf16, D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, s);
+  const ProbsDropout drop{seed, threshold, inv_keep};
+  return dispatch_lb<float>(lb_bf16, D, q, k, v, bs, o, lse, B, H, Lq, Lk, scale, causal, drop,
+                            s);
 }

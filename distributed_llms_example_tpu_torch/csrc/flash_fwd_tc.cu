@@ -8,7 +8,7 @@
 // rounding (TF32 wgmma would keep about three decimal digits).  The
 // function is the one flash_attention_plain computes:
 //
-//   o   = softmax(scale * q k^T + bias + lbias) v      (fp32 online softmax)
+//   o   = dropout(softmax(scale * q k^T + bias + lbias)) v   (fp32 online softmax)
 //   lse = m + log(l), or MASK_VALUE where a row has no live key
 //
 // q, k, v: (B, H, S, D) contiguous bf16, D in {16, 32, 64, 128}; o bf16
@@ -19,6 +19,18 @@
 // whose every key is -inf give o = 0 and lse = MASK_VALUE; as on the TPU,
 // p is rounded to bf16 before the value product while the row sum l
 // accumulates the unrounded fp32 p.  Any Lq and Lk.
+//
+// Attention-probs dropout (template parameter DROP, the TPU kernel's
+// `dropout_rate` branch): an entry of p is kept when the counter hash of
+// csrc/dropout_hash.cuh over (seed, b, h, absolute query, absolute key)
+// says so, and then scaled by the fp32 1 / (1 - rate).  It drops p after
+// l has summed the undropped p, so l normalises the undropped softmax and
+// only the value product sees the mask; the kept p is scaled in fp32 and
+// rounded to bf16 after that, as the TPU kernel does.  The plane's key is
+// formed once a CTA and each thread's two row terms once, so an entry
+// costs an add, the mix and a compare (about 10 integer operations, where
+// the tensor cores spend about 2 * D flops on it).  The instances without
+// dropout (DROP = 0) are the code as it was.
 //
 // What bounds it on the H100: at the serve shape (8, 16, 1024, 64) the
 // work is 4*B*H*S*S*D = 34.4 GFLOP against ~67 MB of q, k, v and o, so the
@@ -73,12 +85,11 @@
 //   registers, ran one CTA a SM and was slower on the H100.
 //
 // Later work (not here): warp specialisation with TMA producers and
-// ping-pong scheduling of the two warpgroups, and the in-kernel
-// probs-dropout branch of the TPU kernel (no model of the port trains with
-// attention-probs dropout).
+// ping-pong scheduling of the two warpgroups.
 
 #include <math.h>
 
+#include "dropout_hash.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -115,11 +126,12 @@ struct Args {
   int causal;
   int bias_tile;  // key-only padding bias: one BK-float copy per key tile
   int lb_tile;    // learned bias through the asynchronous tile copies
+  ProbsDropout drop;
 };
 
 // ------------------------------------------------------------------ kernel
 
-template <int D, int ROWS, int LBB>
+template <int D, int ROWS, int LBB, int DROP>
 __global__ void __launch_bounds__(2 * ROWS, (D <= 64 ? 2 : 1) * 128 / ROWS)
     flash_fwd_tc_kernel(const Args a) {
   using T = Tile<D>;
@@ -199,6 +211,15 @@ __global__ void __launch_bounds__(2 * ROWS, (D <= 64 ? 2 : 1) * 128 / ROWS)
 #pragma unroll
   for (int r = 0; r < D / 2; ++r) o_acc[r] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  // probs dropout: the hash word of each of the thread's two rows (row term
+  // plus the (b, h) plane's key) and T * 256
+  uint32_t row_word[2], thr8 = 0;
+  if constexpr (DROP) {
+    const uint32_t key = stream_key(a.drop.seed, b, h);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) row_word[i] = (uint32_t)(q0 + r_lo + 8 * i) * HASH_ROW_MUL + key;
+    thr8 = a.drop.threshold << 8;
+  }
 
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt & 1, k0 = kt * BK;
@@ -307,15 +328,24 @@ __global__ void __launch_bounds__(2 * ROWS, (D <= 64 ? 2 : 1) * 128 / ROWS)
           m_run[i] = m_new;
         }
         // p: unrounded into this thread's part of l, rounded to bf16 into
-        // the A fragment of the value product (k-step j / 4, register j % 4)
+        // the A fragment of the value product (k-step j / 4, register j % 4);
+        // with dropout, the kept entries scaled and the rest zeroed between
+        // the two (register j is row r_lo + 8 (j & 1), columns 8 (j >> 1) +
+        // c_lo + {0, 1})
         uint32_t pa[BK / 16][4];
         float ps[4] = {0.f, 0.f, 0.f, 0.f};
+        const uint32_t col_word = (uint32_t)(k0 + c_lo) * HASH_COL_MUL;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int i = j & 1;
-          const float p0 = ex2(fmaf(sc[2 * j], LOG2E, neg_m[i]));
-          const float p1 = ex2(fmaf(sc[2 * j + 1], LOG2E, neg_m[i]));
+          float p0 = ex2(fmaf(sc[2 * j], LOG2E, neg_m[i]));
+          float p1 = ex2(fmaf(sc[2 * j + 1], LOG2E, neg_m[i]));
           ps[j & 3] += p0 + p1;
+          if constexpr (DROP) {
+            const uint32_t w = row_word[i] + col_word + (uint32_t)(8 * (j >> 1)) * HASH_COL_MUL;
+            p0 = keep_word(w, thr8) ? __fmul_rn(p0, a.drop.inv_keep) : 0.f;
+            p1 = keep_word(w + HASH_COL_MUL, thr8) ? __fmul_rn(p1, a.drop.inv_keep) : 0.f;
+          }
           pa[j / 4][j % 4] = pack_bf16(p0, p1);
         }
 #pragma unroll
@@ -382,7 +412,8 @@ int launch(const Args& a, int B, int smem, cudaStream_t stream) {
   // the caller's plan (ops/flash_attention.py fwd_plan) sized the shared
   // memory; it must be this instance's
   if (smem != Smem<D, ROWS, LBB>::BYTES) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_fwd_tc_kernel<D, ROWS, LBB>;
+  auto kernel = a.drop.on() ? flash_fwd_tc_kernel<D, ROWS, LBB, 1>
+                            : flash_fwd_tc_kernel<D, ROWS, LBB, 0>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -413,19 +444,23 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// lb_bytes: the learned bias's element size (2 bf16, 4 fp32, 0 none); rows
-// and smem from the caller's plan.
+// seed, threshold, inv_keep: the probs dropout (csrc/dropout_hash.cuh;
+// threshold 2^24 is rate 0, no dropout); lb_bytes: the learned bias's
+// element size (2 bf16, 4 fp32, 0 none); rows and smem from the caller's
+// plan.
 extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v, const void* bias,
                             long long bsb, long long bsh, long long bsq, long long bsk,
                             const void* lbias, long long lsb, long long lsh, long long lsq,
                             long long lsk, void* o, void* lse, int B, int H, int Lq, int Lk,
-                            int D, float scale, int causal, int lb_bytes, int rows, int smem,
-                            void* stream) {
+                            int D, float scale, int causal, int seed, unsigned int threshold,
+                            float inv_keep, int lb_bytes, int rows, int smem, void* stream) {
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return (int)cudaErrorMisalignedAddress;
+  if (threshold > (1u << 24)) return (int)cudaErrorInvalidValue;
   Args a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
          (const float*)bias, bsb, bsh, bsq, bsk, lbias, lsb, lsh, lsq, lsk,
-         (__nv_bfloat16*)o, (float*)lse, H, Lq, Lk, scale, causal, 0, 0};
+         (__nv_bfloat16*)o, (float*)lse, H, Lq, Lk, scale, causal, 0, 0,
+         {seed, threshold, inv_keep}};
   a.bias_tile = bias != nullptr && bsq == 0 && bsk == 1;
   a.lb_tile = lbias != nullptr && lb_bytes > 0 && lsk == 1 && aligned16(lbias) &&
               (lsq * lb_bytes) % 16 == 0 && (lsh * lb_bytes) % 16 == 0 &&

@@ -8,7 +8,8 @@
 // over the activation's 2-D view (rows = numel / cols, cols = last dim),
 // with keep drawn from the counter-hash stream of the JAX package's
 // `hw_rng=False` branch: bits = mix32(row * 0x27D4EB2F + col * 0x165667B1
-// + key) in uint32 arithmetic, keep = (bits >> 8) < threshold.  `key` is
+// + key) in uint32 arithmetic, keep = (bits >> 8) < threshold (the stream
+// of csrc/dropout_hash.cuh, shared with kernels 1-4's probs dropout).  `key` is
 // mix32 of the (seed, tags) word, computed by the wrapper; it is the same
 // for every element, so the mask is a pure function of (seed, row, col)
 // and the backward (this kernel on the incoming gradient, no residual)
@@ -55,21 +56,14 @@
 
 #include <type_traits>
 
+#include "dropout_hash.cuh"
+
 namespace {
 
 constexpr int NT = 256;      // threads a CTA
 constexpr int UNROLL = 4;    // 16-byte vectors of x a thread has in flight (half with a residual)
 constexpr int MIN_CTAS = 4;  // CTAs an SM must hold (caps registers at 64)
-constexpr uint32_t ROW_MUL = 0x27D4EB2Fu, COL_MUL = 0x165667B1u;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
+constexpr uint32_t ROW_MUL = HASH_ROW_MUL, COL_MUL = HASH_COL_MUL;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }

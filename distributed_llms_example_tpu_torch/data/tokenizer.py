@@ -109,6 +109,6 @@ def get_tokenizer(spec: str, model_ckpt: str = "") -> Tokenizer:
     if model_ckpt and os.path.isdir(model_ckpt):
         try:
             return HFTokenizer(model_ckpt)
-        except (ImportError, OSError, ValueError):
+        except Exception:  # no tokenizer in the directory: bytes, as the JAX package
             pass
     return ByteTokenizer()

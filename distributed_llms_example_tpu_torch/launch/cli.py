@@ -7,6 +7,8 @@
     python -m distributed_llms_example_tpu_torch.launch.cli \\
         --model-ckpt t5-large --train-file train.json --batch-size 8 \\
         --num-epochs 1 --max-source-length 1024 --max-target-length 128
+    python -m distributed_llms_example_tpu_torch.launch.cli \\
+        --model-ckpt <HF checkpoint dir> --output-dir out --train-file train.json
     python -m distributed_llms_example_tpu_torch.launch.cli serve \\
         --model-ckpt bart-large-cnn --prompts-file prompts.json \\
         --max-slots 8 --max-new-tokens 128 --max-source-length 1024
@@ -18,10 +20,12 @@
         --max-slots 8 --max-new-tokens 128 --max-source-length 1024 --paged-kv
 
 Both take ``--device`` (default ``cuda``; without a GPU they stop unless
-``--device cpu`` is given) and ``--seed`` (the random-init seed: no
-weights ship with the repository).  Training takes a seq2seq model (T5 or
-BART) and the JAX CLI's flags that the port implements
-(``core/config.py``), no others.  ``serve`` takes every family of the
+``--device cpu`` is given), ``--model-ckpt`` (a registry name, whose
+weights are drawn from ``--seed``: no weights ship with the repository, or
+a local HF checkpoint directory, whose weights are read) and ``--seed``.
+Training takes a seq2seq model (T5 or BART) and the JAX CLI's flags that
+the port implements (``core/config.py``), no others, and writes the
+fine-tuned model to ``<output-dir>/model/`` as an HF checkpoint.  ``serve`` takes every family of the
 registry but Mixtral, and encodes a seq2seq model's prompts as sources
 (ending in eos) and a causal model's as prompts (no eos), as the JAX CLI
 does.  The JAX CLI's startup lints read XLA cache specs and have no
@@ -212,17 +216,20 @@ def build_train_parser() -> argparse.ArgumentParser:
     ))
 
 
-def train(argv: list[str] | None = None):
+def train(argv: list[str] | None = None, *, loaded=None):
     """Training (``main`` without a subcommand): load the records, build
-    the Trainer, run every epoch.  Returns the trainer, whose ``history``
-    holds each step's metrics."""
+    the Trainer, run every epoch, save the model under ``--output-dir``.
+    Returns the trainer, whose ``history`` holds each step's metrics.
+    ``loaded``: a model built by the caller, trained in place of
+    ``--model-ckpt``'s (``Trainer``)."""
     from distributed_llms_example_tpu_torch.core.config import config_from_args
     from distributed_llms_example_tpu_torch.data.dataset import load_json_records
     from distributed_llms_example_tpu_torch.train.trainer import Trainer
 
     cfg = config_from_args(build_train_parser().parse_args(argv))
-    trainer = Trainer(cfg, load_json_records(cfg.train_file))
+    trainer = Trainer(cfg, load_json_records(cfg.train_file), loaded=loaded)
     trainer.train()
+    trainer.save_final()
     return trainer
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from distributed_llms_example_tpu_torch.models.bart import BartForConditionalGeneration
+from distributed_llms_example_tpu_torch.models.convert import load_state
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -68,13 +69,4 @@ def load_jax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> None:
     leaf used), casting each leaf to its parameter's dtype and device."""
     convert = (bart_state_dict_from_jax if isinstance(module, BartForConditionalGeneration)
                else blocks_state_dict_from_jax)
-    sd = convert(params)
-    own = module.state_dict()
-    missing = sorted(set(own) - set(sd))
-    extra = sorted(set(sd) - set(own))
-    if missing or extra:
-        raise KeyError(f"JAX tree does not match the port: missing {missing}, unexpected {extra}")
-    for name, t in sd.items():
-        if tuple(t.shape) != tuple(own[name].shape):
-            raise ValueError(f"{name}: JAX shape {tuple(t.shape)} != port {tuple(own[name].shape)}")
-    module.load_state_dict({n: t.to(own[n].dtype) for n, t in sd.items()}, strict=True)
+    load_state(module, convert(params), source="JAX tree")

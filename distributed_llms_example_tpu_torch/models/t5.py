@@ -54,7 +54,10 @@ class T5Config:
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
     dropout_rate: float = 0.1
-    attn_dropout_rate: float = 0.0  # > 0 raises in training (not ported)
+    # attention-probs dropout in training: HF's T5 config has no field for
+    # it, so only an explicit config sets it (the flash kernels' in-kernel
+    # mask, kernel 4's branch included)
+    attn_dropout_rate: float = 0.0
     layer_norm_epsilon: float = 1e-6
     feed_forward_proj: str = "relu"  # or "gated-gelu"
     tie_word_embeddings: bool = True

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from distributed_llms_example_tpu_torch.ops.flash_attention import _dropped, _keep, probs_dropout
+
 NEG_INF = -1e9  # large-negative mask value; safe in both fp32 and bf16
 
 
@@ -23,9 +25,20 @@ def dot_product_attention(
     *,
     scale: float | None = None,
     dtype: torch.dtype | None = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: int | None = None,
 ) -> torch.Tensor:
     """Plain softmax attention; scores and softmax in fp32, the value
-    product in ``dtype`` (default q's), as the JAX version computes it."""
+    product in ``dtype`` (default q's), as the JAX version computes it.
+
+    ``dropout_rate`` > 0 (with an int32 ``dropout_seed``) applies inverted
+    dropout to the probs.  The JAX package's plain route draws that mask
+    with ``jax.random.bernoulli``, whose bits PyTorch cannot give; this
+    route draws the flash kernels' mask instead (the counter hash of
+    (seed, b, h, query, key), ``fused_dropout.attention_keep_mask``), so
+    both routes of the port use one stream.  It materializes the (B, H, Q,
+    K) mask, the cost the kernels' in-kernel draw avoids."""
+    keep, inv = _keep(probs_dropout(dropout_rate, dropout_seed), q, k)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     dtype = dtype or q.dtype
@@ -33,7 +46,7 @@ def dot_product_attention(
     if bias is not None:
         scores = scores + bias.float()
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    probs = probs / probs.sum(dim=-1, keepdim=True)
+    probs = _dropped(probs / probs.sum(dim=-1, keepdim=True), keep, inv)
     return torch.matmul(probs.to(dtype), v.to(dtype))
 
 

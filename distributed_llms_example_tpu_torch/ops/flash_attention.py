@@ -18,7 +18,8 @@ wrapper with three parts:
 - a **launch counter** (``flash_attention.launches``,
   ``flash_bwd_dq.launches``, ``flash_bwd_dkv.launches``,
   ``flash_bwd_dlbias.launches``, each with a ``tc_launches`` counting its
-  bf16 tensor-core launches, ``flash_decode.launches``,
+  bf16 tensor-core launches and a ``drop_launches`` counting its
+  probs-dropout launches, ``flash_decode.launches``,
   ``flash_decode_paged.launches``): a plain integer bumped where the
   kernel is launched and nowhere else.
 
@@ -28,6 +29,14 @@ rowsum(dO * O) in PyTorch (as the JAX package does outside its kernels)
 and runs the dq and dk/dv kernels, and the learned-bias gradient kernel
 when the learned bias needs a gradient.  The bias is a constant mask and
 gets no gradient; the learned bias (T5's relative-position bias) does.
+
+Attention-probs dropout (``dropout_rate`` > 0 with an int32
+``dropout_seed``) rides inside kernels 1-4, as in the JAX package: the
+keep-mask of plane (b, h) is the counter hash of (seed, b, h, absolute
+query, absolute key) (``fused_dropout.attention_keep_mask``, the JAX
+package's ``hw_rng=False`` stream, bit for bit), drawn in the forward after
+the row sum and redrawn by each backward kernel; the autograd Function
+saves the seed and the rate, never a mask.
 
 Layouts follow the JAX package: q/k/v (B, H, S, d), an additive ``bias``
 whose every dim is 1 or full (e.g. a (B, 1, 1, K) padding mask), a
@@ -45,10 +54,16 @@ JAX package for CPU tensors; they do not gate the CUDA kernels.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from distributed_llms_example_tpu_torch.ops import cuda_build
+from distributed_llms_example_tpu_torch.ops.fused_dropout import (
+    _inv_keep,
+    attention_keep_mask,
+    keep_threshold,
+)
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -111,6 +126,59 @@ def _check_bias(bias: torch.Tensor | None, full: tuple[int, int, int, int]) -> N
             raise ValueError(f"bias dim {i} is {bd}, must be 1 or {f}")
 
 
+# the kernels' probs-dropout threshold at rate 0: every entry kept, and the
+# entry runs its instance without dropout
+NO_DROP_THRESHOLD = 1 << 24
+
+
+class ProbsDropout(NamedTuple):
+    """Attention-probs dropout as kernels 1-4 take it: the int32 seed, the
+    rate, its keep threshold and the fp32 scale 1 / (1 - rate)."""
+
+    seed: int
+    rate: float
+    threshold: int
+    inv_keep: float
+
+
+def probs_dropout(rate: float, seed) -> ProbsDropout | None:
+    """The probs dropout of ``rate`` and ``seed``, or None at rate 0.  A
+    rate outside [0, 1), a rate above 0 without a seed, or a seed that is
+    no int32 raises."""
+    rate = float(rate)
+    if rate == 0.0:
+        return None
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if seed is None:
+        raise ValueError("dropout_rate > 0 requires a dropout_seed (an int32)")
+    seed = int(seed)
+    if not -(2**31) <= seed < 2**31:
+        raise ValueError(f"dropout_seed {seed} is not an int32")
+    return ProbsDropout(seed, rate, keep_threshold(rate), _inv_keep(rate))
+
+
+def _drop_args(drop: ProbsDropout | None) -> tuple[int, int, float]:
+    """(seed, threshold, inv_keep) as a C entry takes them."""
+    return (0, NO_DROP_THRESHOLD, 1.0) if drop is None else drop[:1] + drop[2:]
+
+
+def _keep(drop: ProbsDropout | None, q, k):
+    """(the (B, H, Sq, Sk) keep-mask, the fp32 scale) of the plain versions,
+    or (None, None) without dropout."""
+    if drop is None:
+        return None, None
+    B, H, Sq, _ = q.shape
+    keep = attention_keep_mask(drop.seed, (B, H, Sq, k.shape[2]), drop.rate, device=q.device)
+    return keep, torch.tensor(drop.inv_keep, dtype=torch.float32, device=q.device)
+
+
+def _dropped(x, keep, inv):
+    """x where kept, scaled by the fp32 1 / (1 - rate), else 0 (x itself
+    without dropout)."""
+    return x if keep is None else torch.where(keep, x * inv, torch.zeros((), device=x.device))
+
+
 def _bias_args(bias: torch.Tensor | None) -> tuple:
     """(pointer, 4 element strides) for a kernel reading the bias in place:
     a size-1 dim gets stride 0, so it is never broadcast in memory."""
@@ -138,19 +206,27 @@ def _scores(q, k, bias, lbias, *, causal, scale):
     return s
 
 
-def flash_attention_plain(q, k, v, bias=None, *, lbias=None, causal=False, scale=None):
+def flash_attention_plain(q, k, v, bias=None, *, lbias=None, causal=False, scale=None,
+                          dropout_rate=0.0, dropout_seed=None):
     """Plain PyTorch version of the forward kernel: (o, lse) with o in q's
     dtype and lse (B, H, Sq) fp32.  fp32 scores and softmax; p rounded to
     v's dtype before the value product (as the TPU kernel does); rows with
-    no live key give o = 0 and lse = MASK_VALUE."""
+    no live key give o = 0 and lse = MASK_VALUE.  With probs dropout, p is
+    dropped after its row sum l, the kept entries scaled by the fp32
+    1 / (1 - rate) before the rounding."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    return _fwd_plain(q, k, v, bias, lbias, causal, scale, probs_dropout(dropout_rate, dropout_seed))
+
+
+def _fwd_plain(q, k, v, bias, lbias, causal, scale, drop):
+    keep, inv = _keep(drop, q, k)
     s = _scores(q, k, bias, lbias, causal=causal, scale=scale)
     m = s.amax(dim=-1, keepdim=True)
     safe_m = torch.where(m == -torch.inf, torch.zeros((), device=q.device), m)
     p = torch.exp(s - safe_m)
     l = p.sum(dim=-1, keepdim=True)
-    pv = torch.matmul(p.to(v.dtype).float(), v.float())
+    pv = torch.matmul(_dropped(p, keep, inv).to(v.dtype).float(), v.float())
     l_safe = torch.where(l == 0.0, torch.ones((), device=q.device), l)
     o = (pv / l_safe).to(q.dtype)
     lse = torch.where(l == 0.0, torch.full((), MASK_VALUE, device=q.device),
@@ -158,12 +234,15 @@ def flash_attention_plain(q, k, v, bias=None, *, lbias=None, causal=False, scale
     return o, lse[..., 0]
 
 
+# the probs dropout: seed, threshold, fp32 1 / (1 - rate)
+_DROP_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_float]
 _FWD_HEAD = (
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_longlong] * 4
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int]
+    + _DROP_ARGTYPES
 )
-_FWD_ARGTYPES = _FWD_HEAD + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-_FWD_TC_ARGTYPES = _FWD_HEAD + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_FWD_ARGTYPES = _FWD_HEAD + [ctypes.c_int] + [ctypes.c_void_p]
+_FWD_TC_ARGTYPES = _FWD_HEAD + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 # kernel 1's key tile, as both CUDA sources define it, and the tensor-core
 # kernel's ring of stages
@@ -224,7 +303,7 @@ def _kernel_biases(what: str, dev, bias, lbias) -> tuple:
     return None if bias is None else bias.float(), lbias, int(lb_bf16)
 
 
-def _flash_fwd_cuda(q, k, v, bias, lbias, *, causal, scale):
+def _flash_fwd_cuda(q, k, v, bias, lbias, *, causal, scale, drop=None):
     dev = cuda_build.check_inputs("flash_attention", {"q": q, "k": k, "v": v})
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel takes fp32 or bf16 q/k/v of one dtype, got "
@@ -236,7 +315,8 @@ def _flash_fwd_cuda(q, k, v, bias, lbias, *, causal, scale):
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias), *_bias_args(lbias),
-            o.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D, float(scale), int(causal))
+            o.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D, float(scale), int(causal),
+            *_drop_args(drop))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if plan["entry"] == "flash_fwd_tc":
         fn = cuda_build.load("flash_fwd_tc", _FWD_TC_ARGTYPES)
@@ -247,24 +327,26 @@ def _flash_fwd_cuda(q, k, v, bias, lbias, *, causal, scale):
         fn = cuda_build.load("flash_fwd", _FWD_ARGTYPES)
         cuda_build.check(fn(*args, lb_bf16, stream), "flash_fwd")
     flash_attention.launches += 1
+    flash_attention.drop_launches += drop is not None
     return o, lse
 
 
-def _flash_fwd(q, k, v, bias, lbias, causal, scale):
+def _flash_fwd(q, k, v, bias, lbias, causal, scale, drop):
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, lbias=lbias, causal=causal, scale=scale)
-    return _flash_fwd_cuda(q, k, v, bias, lbias, causal=causal, scale=scale)
+        return _fwd_plain(q, k, v, bias, lbias, causal, scale, drop)
+    return _flash_fwd_cuda(q, k, v, bias, lbias, causal=causal, scale=scale, drop=drop)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Kernel 1 under autograd: the backward is kernels 2 and 3, and kernel
-    4 when the learned bias needs a gradient."""
+    4 when the learned bias needs a gradient.  The probs dropout is saved
+    as its seed and rate; each backward kernel redraws the mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, lbias, causal, scale):
-        o, lse = _flash_fwd(q, k, v, bias, lbias, causal, scale)
+    def forward(ctx, q, k, v, bias, lbias, causal, scale, drop):
+        o, lse = _flash_fwd(q, k, v, bias, lbias, causal, scale, drop)
         ctx.save_for_backward(q, k, v, bias, lbias, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.drop = causal, scale, drop
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -273,19 +355,18 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, bias, lbias, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         delta = attention_delta(do, o)
-        kw = dict(lbias=lbias, causal=ctx.causal, scale=ctx.scale)
-        dq = flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
-        dk, dv = flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw)
+        kw = dict(causal=ctx.causal, scale=ctx.scale, drop=ctx.drop)
+        dq = _bwd_dq(q, k, v, bias, do, lse, delta, lbias=lbias, **kw)
+        dk, dv = _bwd_dkv(q, k, v, bias, do, lse, delta, lbias=lbias, **kw)
         dlbias = None
         if ctx.needs_input_grad[4]:
-            dlbias = flash_bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, causal=ctx.causal,
-                                      scale=ctx.scale)
-        return dq, dk, dv, None, dlbias, None, None
+            dlbias = _bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, **kw)
+        return dq, dk, dv, None, dlbias, None, None, None
 
 
 def flash_attention(q, k, v, bias=None, *, learned_bias=None, causal: bool = False,
                     scale: float | None = None, dtype: torch.dtype | None = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, dropout_rate: float = 0.0, dropout_seed=None):
     """Blockwise-softmax attention; drop-in for ``dot_product_attention``,
     differentiable in q, k, v and ``learned_bias``.
 
@@ -294,9 +375,13 @@ def flash_attention(q, k, v, bias=None, *, learned_bias=None, causal: bool = Fal
     ``learned_bias`` (T5's relative-position bias) must be exactly (1, H,
     q_len, kv_len): it is added after the mask and its gradient, the batch
     sum of p·(dp − δ), comes from kernel 4 in its own dtype.  Any sequence
-    lengths.  Returns o (in ``dtype``, default q's), or (o, lse) with
+    lengths.  ``dropout_rate`` > 0 applies attention-probs dropout inside
+    the kernels, its mask drawn from ``dropout_seed`` (an int32; the JAX
+    package's signature): o = dropout(softmax(s))·v, lse of the undropped
+    softmax.  Returns o (in ``dtype``, default q's), or (o, lse) with
     ``return_lse``.  A CPU tensor runs the plain versions (forward and
     backward); a CUDA tensor launches the kernels."""
+    drop = probs_dropout(dropout_rate, dropout_seed)
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} "
                          "are not (B, H, S, d) of one batch, head count and head_dim")
@@ -316,9 +401,10 @@ def flash_attention(q, k, v, bias=None, *, learned_bias=None, causal: bool = Fal
         bias = bias.float()
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, learned_bias)):
-        o, lse = _FlashAttention.apply(q, k, v, bias, learned_bias, bool(causal), float(scale))
+        o, lse = _FlashAttention.apply(q, k, v, bias, learned_bias, bool(causal), float(scale),
+                                       drop)
     else:  # nothing to differentiate (serving): skip the autograd node's cost
-        o, lse = _flash_fwd(q, k, v, bias, learned_bias, bool(causal), float(scale))
+        o, lse = _flash_fwd(q, k, v, bias, learned_bias, bool(causal), float(scale), drop)
     if dtype is not None:
         o = o.to(dtype)
     return (o, lse) if return_lse else o
@@ -327,6 +413,8 @@ def flash_attention(q, k, v, bias=None, *, learned_bias=None, causal: bool = Fal
 flash_attention.launches = 0
 # the bf16 launches among them, which went to the tensor-core entry
 flash_attention.tc_launches = 0
+# the launches with probs dropout among them
+flash_attention.drop_launches = 0
 
 
 # ---------------------------------------------------------- backward kernels
@@ -338,19 +426,24 @@ def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(dim=-1)
 
 
-def _bwd_terms(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale):
+def _bwd_terms(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale, drop=None):
     """(p, p·(dp − δ)) of the backward in fp32, rows with the lse sentinel
-    zeroed: the learned bias's gradient terms, and ds before its scale."""
+    zeroed: the learned bias's gradient terms, and ds before its scale.
+    With probs dropout, the dropped p (what dv sums) and p·(m·dp/(1 −
+    rate) − δ), the mask m redrawn from the seed."""
+    keep, inv = _keep(drop, q, k)
     s = _scores(q, k, bias, lbias, causal=causal, scale=scale)
     lse = lse[..., None]
     p = torch.where(lse <= MASK_VALUE / 2, torch.zeros((), device=q.device), torch.exp(s - lse))
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    return p, p * (dp - delta[..., None])
+    dp = _dropped(torch.matmul(do.float(), v.float().transpose(-1, -2)), keep, inv)
+    return _dropped(p, keep, inv), p * (dp - delta[..., None])
 
 
-def _bwd_plain(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale):
-    """(p, ds) of the backward in fp32, rows with the lse sentinel zeroed."""
-    p, dsu = _bwd_terms(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal, scale=scale)
+def _bwd_plain(q, k, v, bias, do, lse, delta, *, lbias=None, causal, scale, drop=None):
+    """(p, ds) of the backward in fp32, rows with the lse sentinel zeroed
+    (p dropped, with probs dropout)."""
+    p, dsu = _bwd_terms(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal, scale=scale,
+                        drop=drop)
     return p, dsu * scale
 
 
@@ -364,16 +457,18 @@ def _dkv_plain(q, k, v, do, p, ds):
     return dk, dv
 
 
-def flash_attention_bwd_plain(q, k, v, bias, o, lse, do, *, lbias=None, causal=False, scale=None):
+def flash_attention_bwd_plain(q, k, v, bias, o, lse, do, *, lbias=None, causal=False, scale=None,
+                              dropout_rate=0.0, dropout_seed=None):
     """Plain PyTorch version of the backward kernels: (dq, dk, dv) from the
     forward's inputs, its output and lse, and the output gradient.  fp32
     arithmetic; ds rounded to k's dtype before the dq product and to q's
     before the dk product, p to dO's dtype before the dv product, as the
-    TPU kernels round."""
+    TPU kernels round.  With probs dropout (the forward's rate and seed),
+    dp is masked and rescaled and dv sums the dropped p."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     p, ds = _bwd_plain(q, k, v, bias, do, lse, attention_delta(do, o), lbias=lbias,
-                       causal=causal, scale=scale)
+                       causal=causal, scale=scale, drop=probs_dropout(dropout_rate, dropout_seed))
     return (_dq_plain(q, k, ds), *_dkv_plain(q, k, v, do, p, ds))
 
 
@@ -476,11 +571,13 @@ _BWD_ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
     + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
 )
-# (B, H, Lq, Lk, D, scale, causal), then each library's own ints and the stream
-_BWD_SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int]
+# (B, H, Lq, Lk, D, scale, causal), the probs dropout, then each library's
+# own ints and the stream
+_BWD_SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] + _DROP_ARGTYPES
 
 
-def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale, lbias=None) -> str:
+def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale, lbias=None,
+              drop=None) -> str:
     """Launch a backward kernel after the shared input checks: kernel 2 or
     3 (``entry`` flash_bwd_dq / flash_bwd_dkv) through ``bwd_plan``, or
     kernel 4 (flash_bwd_dlbias) through ``dlbias_plan``.  Returns the
@@ -510,84 +607,123 @@ def _bwd_cuda(entry, q, k, v, bias, do, lse, delta, outs, *, causal, scale, lbia
     fn = cuda_build.load(lib, argtypes, entry)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_bias_args(bias), *_bias_args(lbias),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), B, H,
-             Lq, k.shape[2], D, float(scale), int(causal), *tail,
+             Lq, k.shape[2], D, float(scale), int(causal), *_drop_args(drop), *tail,
              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, entry)
     return lib
 
 
-def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, lbias=None, causal: bool, scale: float):
+def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, lbias=None, causal: bool, scale: float,
+                 dropout_rate: float = 0.0, dropout_seed=None):
     """dq of flash attention (kernel 2) from the saved forward inputs, lse,
-    delta and dO.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel: bf16 the tensor-core one, fp32 the CUDA-core one
-    (``bwd_plan``)."""
+    delta and dO, and the forward's probs-dropout rate and seed.  A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel: bf16
+    the tensor-core one, fp32 the CUDA-core one (``bwd_plan``)."""
+    return _bwd_dq(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal, scale=scale,
+                   drop=probs_dropout(dropout_rate, dropout_seed))
+
+
+def _bwd_dq(q, k, v, bias, do, lse, delta, *, lbias, causal, scale, drop):
+    """``flash_bwd_dq`` past its argument checks (the autograd backward's
+    entry): the probs dropout as a validated ``ProbsDropout`` or None."""
     if q.device.type == "cpu":
         _, ds = _bwd_plain(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal,
-                           scale=scale)
+                           scale=scale, drop=drop)
         return _dq_plain(q, k, ds)
     dq = torch.empty_like(q)
     if _bwd_cuda("flash_bwd_dq", q, k, v, bias, do, lse, delta, (dq,), causal=causal,
-                 scale=scale, lbias=lbias) == "flash_bwd_tc":
+                 scale=scale, lbias=lbias, drop=drop) == "flash_bwd_tc":
         flash_bwd_dq.tc_launches += 1
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.drop_launches += drop is not None
     return dq
 
 
 flash_bwd_dq.launches = 0
-# the bf16 launches among them, which went to the tensor-core entry
+# the bf16 launches among them, which went to the tensor-core entry, and
+# the launches with probs dropout
 flash_bwd_dq.tc_launches = 0
+flash_bwd_dq.drop_launches = 0
 
 
-def flash_bwd_dkv(q, k, v, bias, do, lse, delta, *, lbias=None, causal: bool, scale: float):
+def flash_bwd_dkv(q, k, v, bias, do, lse, delta, *, lbias=None, causal: bool, scale: float,
+                  dropout_rate: float = 0.0, dropout_seed=None):
     """(dk, dv) of flash attention (kernel 3); as ``flash_bwd_dq``."""
+    return _bwd_dkv(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal, scale=scale,
+                    drop=probs_dropout(dropout_rate, dropout_seed))
+
+
+def _bwd_dkv(q, k, v, bias, do, lse, delta, *, lbias, causal, scale, drop):
+    """``flash_bwd_dkv`` past its argument checks; as ``_bwd_dq``."""
     if q.device.type == "cpu":
         p, ds = _bwd_plain(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal,
-                           scale=scale)
+                           scale=scale, drop=drop)
         return _dkv_plain(q, k, v, do, p, ds)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if _bwd_cuda("flash_bwd_dkv", q, k, v, bias, do, lse, delta, (dk, dv), causal=causal,
-                 scale=scale, lbias=lbias) == "flash_bwd_tc":
+                 scale=scale, lbias=lbias, drop=drop) == "flash_bwd_tc":
         flash_bwd_dkv.tc_launches += 1
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.drop_launches += drop is not None
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.tc_launches = 0
+flash_bwd_dkv.drop_launches = 0
 
 
-def _dlbias_plain(q, k, v, bias, lbias, do, lse, delta, *, causal, scale):
+def _dlbias_plain(q, k, v, bias, lbias, do, lse, delta, *, causal, scale, dropout_rate=0.0,
+                  dropout_seed=None):
     """Plain PyTorch version of kernel 4: dlbias = Σ_batch p·(dp − δ) in
     fp32 (no scale factor: the scale multiplies only q·k), (1, H, Sq, Sk)
-    in the learned bias's dtype.  Fully-masked rows and the causal upper
-    triangle are exactly 0, since p is 0 there."""
-    _, dsu = _bwd_terms(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal, scale=scale)
+    in the learned bias's dtype, dp masked and rescaled with probs
+    dropout.  Fully-masked rows and the causal upper triangle are exactly
+    0, since p is 0 there."""
+    return _dlbias_sum(q, k, v, bias, lbias, do, lse, delta, causal=causal, scale=scale,
+                       drop=probs_dropout(dropout_rate, dropout_seed))
+
+
+def _dlbias_sum(q, k, v, bias, lbias, do, lse, delta, *, causal, scale, drop):
+    _, dsu = _bwd_terms(q, k, v, bias, do, lse, delta, lbias=lbias, causal=causal, scale=scale,
+                        drop=drop)
     return dsu.sum(dim=0, keepdim=True).to(lbias.dtype)
 
 
-def flash_bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, *, causal: bool, scale: float):
+def flash_bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, *, causal: bool, scale: float,
+                     dropout_rate: float = 0.0, dropout_seed=None):
     """Gradient of the learned (1, H, Sq, Sk) bias (kernel 4) from the saved
-    forward inputs, lse, delta and dO, in the learned bias's dtype.  A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel
-    (``dlbias_plan``: bf16 the tensor-core one, fp32 the CUDA-core one),
-    which sums the batch inside each tile (no atomics) and writes every
-    tile, zeros included."""
+    forward inputs, lse, delta and dO, and the forward's probs-dropout rate
+    and seed, in the learned bias's dtype.  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel (``dlbias_plan``: bf16 the
+    tensor-core one, fp32 the CUDA-core one), which sums the batch inside
+    each tile (no atomics) and writes every tile, zeros included."""
     if tuple(lbias.shape) != (1, q.shape[1], q.shape[2], k.shape[2]):
         raise ValueError(f"learned bias shape {tuple(lbias.shape)} is not "
                          f"{(1, q.shape[1], q.shape[2], k.shape[2])}")
+    return _bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, causal=causal, scale=scale,
+                       drop=probs_dropout(dropout_rate, dropout_seed))
+
+
+def _bwd_dlbias(q, k, v, bias, lbias, do, lse, delta, *, causal, scale, drop):
+    """``flash_bwd_dlbias`` past its argument checks; as ``_bwd_dq``."""
     if q.device.type == "cpu":
-        return _dlbias_plain(q, k, v, bias, lbias, do, lse, delta, causal=causal, scale=scale)
+        return _dlbias_sum(q, k, v, bias, lbias, do, lse, delta, causal=causal, scale=scale,
+                           drop=drop)
     out = torch.empty(lbias.shape, dtype=lbias.dtype, device=q.device)
     if _bwd_cuda("flash_bwd_dlbias", q, k, v, bias, do, lse, delta, (out,), causal=causal,
-                 scale=scale, lbias=lbias) == "flash_bwd_dlbias_tc":
+                 scale=scale, lbias=lbias, drop=drop) == "flash_bwd_dlbias_tc":
         flash_bwd_dlbias.tc_launches += 1
     flash_bwd_dlbias.launches += 1
+    flash_bwd_dlbias.drop_launches += drop is not None
     return out
 
 
 flash_bwd_dlbias.launches = 0
-# the bf16 launches among them, which went to the tensor-core entry
+# the bf16 launches among them, which went to the tensor-core entry, and
+# the launches with probs dropout
 flash_bwd_dlbias.tc_launches = 0
+flash_bwd_dlbias.drop_launches = 0
 
 
 # ----------------------------------------------------------- int8 KV cache

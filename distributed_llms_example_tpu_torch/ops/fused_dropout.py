@@ -92,6 +92,25 @@ def hash_keep_mask(seed: int, shape: tuple[int, int], rate: float, *, tag_a: int
     return (_mix32(x) >> 8) < keep_threshold(rate)
 
 
+def attention_keep_mask(seed: int, shape: tuple[int, int, int, int], rate: float, *,
+                        device: torch.device | str = "cpu") -> torch.Tensor:
+    """The attention-probs dropout's (B, H, Sq, Sk) bool keep-mask, the one
+    kernels 1-4 draw: plane (b, h) is ``hash_keep_mask(seed, (Sq, Sk),
+    rate, tag_a=b, tag_b=h)`` over absolute (query, key).  Built a batch
+    row at a time, so its int64 temporaries stay (H, Sq, Sk)."""
+    B, H, Sq, Sk = shape
+    r = torch.arange(Sq, dtype=torch.int64, device=device)
+    c = torch.arange(Sk, dtype=torch.int64, device=device)
+    pos = _mul32(r, 0x27D4EB2F)[:, None] + _mul32(c, 0x165667B1)[None, :]
+    thr = keep_threshold(rate)
+    out = torch.empty(shape, dtype=torch.bool, device=device)
+    for b in range(B):
+        keys = torch.tensor([stream_key(seed, b, h) for h in range(H)], dtype=torch.int64,
+                            device=device)
+        out[b] = (_mix32((pos[None] + keys[:, None, None]) & M32) >> 8) < thr
+    return out
+
+
 @functools.lru_cache(maxsize=64)
 def _inv_keep(rate: float) -> float:
     """1/(1-rate) rounded to fp32, the one scale factor both versions use."""

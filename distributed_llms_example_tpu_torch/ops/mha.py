@@ -16,9 +16,14 @@ shape the kernels have an instance for; for CPU tensors, by the JAX
 package's own rule), and to plain attention (the counterpart of the JAX
 package's XLA path, hence the name ``"xla"``) otherwise.  A cached pass of
 more than ``MAX_DECODE_Q_ROWS`` rows (the LLaMA prompt prefill) is plain
-attention, as in the JAX package.  Ring attention, sharded execution and
-attention-probs dropout (which raises in training mode) join with later
-slices.
+attention, as in the JAX package.  Attention-probs dropout
+(``probs_dropout_rate``) applies to uncached passes in training mode: one
+int32 seed a call from the host-side stream of ``fused_dropout.next_seed``
+(what ``train_step`` opens with ``dropout_seeds``), passed to the flash
+kernels' in-kernel mask or to the plain route, which draws the same mask;
+eval and cached passes never drop, as in the JAX package.  Ring attention
+(which raises on CUDA, dropout or not) and sharded execution join with
+later slices.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from distributed_llms_example_tpu_torch.ops.attention import (
     make_causal_bias,
 )
 from distributed_llms_example_tpu_torch.ops.dense import Dense
+from distributed_llms_example_tpu_torch.ops.fused_dropout import next_seed
 from distributed_llms_example_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
     MAX_DECODE_Q_ROWS,
@@ -326,14 +332,10 @@ class MultiHeadAttention(nn.Module):
             q, k = self._rope(q, k, positions)
         k, v = self._repeat_kv(k), self._repeat_kv(v)
 
-        if self.training and self.probs_dropout_rate > 0.0:
-            # the flash kernels' in-kernel probs-dropout branch is not ported
-            # (no model of the port trains with it): refuse rather than train
-            # without the configured dropout
-            raise NotImplementedError(
-                f"attention-probs dropout (rate {self.probs_dropout_rate}) is not ported yet "
-                "(ROADMAP)"
-            )
+        # probs dropout: one seed a call from the host-side stream, the same
+        # mask on either route
+        rate = self.probs_dropout_rate if self.training else 0.0
+        drop = dict(dropout_rate=rate, dropout_seed=next_seed()) if rate > 0.0 else {}
         causal_here = self.causal
         impl, reason = select_attention_impl(
             self.attention_impl, head_dim=self.head_dim, q_len=q.shape[2],
@@ -344,7 +346,7 @@ class MultiHeadAttention(nn.Module):
         if impl == "flash":
             out = flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), bias, learned_bias=learned_bias,
-                causal=causal_here, scale=self.scale, dtype=self.dtype,
+                causal=causal_here, scale=self.scale, dtype=self.dtype, **drop,
             )
         else:
             if causal_here:
@@ -352,7 +354,8 @@ class MultiHeadAttention(nn.Module):
                 bias = step if bias is None else bias + step
             if learned_bias is not None:
                 bias = learned_bias if bias is None else bias + learned_bias
-            out = dot_product_attention(q, k, v, bias, scale=self.scale, dtype=self.dtype)
+            out = dot_product_attention(q, k, v, bias, scale=self.scale, dtype=self.dtype,
+                                        **drop)
         return self._merge(out)
 
     def _cached(self, q, k, v, bias, cache, cache_positions, positions):

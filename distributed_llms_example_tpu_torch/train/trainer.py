@@ -1,18 +1,21 @@
 """A minimal trainer (port of the JAX package's ``train/trainer.py``, one
 device): dataset → bucketed batches → the epoch loop of ``train_step`` →
-the JSON step lines of ``MetricLogger``.
+the JSON step lines of ``MetricLogger`` → ``save_final``, the fine-tuned
+model as an HF checkpoint.
 
-Weights are random-init from ``seed`` with fp32 master copies (the
-training build of ``models/registry.py``); activations run in the compute
-dtype.  Dropout seeds come from a CPU ``torch.Generator`` seeded with
-``shuffle_seed``, so a step draws nothing on the device.  Losses stay
-device tensors until a logging step converts them.  Evaluation,
-checkpoints, export, health/obs/recovery and multi-GPU wait for later
-slices (ROADMAP.md).
+Weights are random-init from ``seed``, or read from a local HF checkpoint
+directory (``--model-ckpt <dir>``), with fp32 master copies (the training
+build of ``models/registry.py``); activations run in the compute dtype.
+Dropout seeds (the residual dropout's and the attention-probs dropout's)
+come from a CPU ``torch.Generator`` seeded with ``shuffle_seed``, so a
+step draws nothing on the device.  Losses stay device tensors until a
+logging step converts them.  Evaluation, mid-run checkpoints and resume,
+health/obs/recovery and multi-GPU wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Sequence
 
@@ -24,7 +27,9 @@ from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resol
 from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD, BatchIterator
 from distributed_llms_example_tpu_torch.data.dataset import SummarizationDataset
 from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
-from distributed_llms_example_tpu_torch.models.registry import load_model
+from distributed_llms_example_tpu_torch.io.valohai_meta import save_valohai_metadata
+from distributed_llms_example_tpu_torch.models.export import save_hf_checkpoint
+from distributed_llms_example_tpu_torch.models.registry import LoadedModel, load_model
 from distributed_llms_example_tpu_torch.train.optim import (
     AdamWState,
     OptimizerSpec,
@@ -52,13 +57,31 @@ def batch_tokens(batch: dict[str, np.ndarray]) -> int:
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, train_records: Sequence[dict]):
+    def __init__(self, cfg: TrainConfig, train_records: Sequence[dict], *,
+                 loaded: LoadedModel | None = None):
+        """``loaded``: a model the caller built for training (fp32 master
+        weights, the compute dtype, on ``cfg.device``, its attention route
+        in its config: ``--attention-impl`` is refused beside it) in place
+        of loading ``cfg.model_ckpt``, for a configuration that no registry
+        name or HF config expresses, such as T5 with ``attn_dropout_rate``
+        > 0."""
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.loaded = load_model(
-            cfg.model_ckpt, dtype=parse_dtype(cfg.compute_dtype), device=self.device,
-            attention_impl=cfg.attention_impl or None, seed=cfg.seed, train=True,
-        )
+        if loaded is None:
+            loaded = load_model(
+                cfg.model_ckpt, dtype=parse_dtype(cfg.compute_dtype), device=self.device,
+                attention_impl=cfg.attention_impl or None, seed=cfg.seed, train=True,
+            )
+        elif not loaded.is_seq2seq or loaded.module.dtype != parse_dtype(cfg.compute_dtype) \
+                or loaded.device.type != self.device.type:
+            raise ValueError(f"the given {loaded.family} model ({loaded.module.dtype} on "
+                             f"{loaded.device}) is not a seq2seq model in {cfg.compute_dtype} "
+                             f"on {self.device}")
+        elif cfg.attention_impl:
+            raise ValueError("--attention-impl applies to a loaded model; a built one takes "
+                             "its route from its config")
+        loaded.module.train()
+        self.loaded = loaded
         self.model = self.loaded.module
         self.tokenizer = get_tokenizer(cfg.tokenizer, cfg.model_ckpt)
         self.train_ds = SummarizationDataset(
@@ -119,3 +142,19 @@ class Trainer:
         wall = time.perf_counter() - t0
         log_json({"event": "done", "steps": step, "wall_seconds": wall})
         return {"steps": step, "wall_seconds": wall}
+
+    def save_final(self) -> str:
+        """The final artifact, as the JAX trainer writes it (the reference's
+        ``model.save_pretrained(output_dir)``): ``<output_dir>/model/``
+        holds the fp32 master weights as an HF checkpoint (``config.json``
+        + ``model.safetensors``), ``train_config.json`` (this run's
+        TrainConfig) and a Valohai metadata sidecar for each file.  Returns
+        the directory."""
+        t0 = time.perf_counter()
+        out = os.path.join(self.cfg.output_dir, "model")
+        save_hf_checkpoint(out, self.loaded.family, self.loaded.config, self.model.state_dict())
+        with open(os.path.join(out, "train_config.json"), "w") as f:
+            f.write(self.cfg.to_json())
+        save_valohai_metadata(out)
+        log_json({"event": "saved", "path": out, "seconds": time.perf_counter() - t0})
+        return out

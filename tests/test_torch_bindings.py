@@ -235,3 +235,62 @@ def test_dlbias_wrapper_counts_tensor_core_launches(loads):
     assert fa.flash_bwd_dlbias.tc_launches - tc == 2
     assert [lib for lib, _, _, _ in loads] == ["flash_bwd_dlbias_tc", "flash_bwd_dlbias",
                                                "flash_bwd_dlbias_tc"]
+
+
+def c_param_names(lib: str, symbol: str) -> list[str]:
+    """The parameter names of ``csrc/<lib>.cu``'s ``extern "C"`` ``symbol``."""
+    text = (cuda_build.CSRC / f"{lib}.cu").read_text()
+    m = re.search(rf'extern\s+"C"\s+int\s+{symbol}\s*\(([^)]*)\)', text)
+    return [" ".join(p.split()).rsplit(" ", 1)[1].lstrip("*") for p in m.group(1).split(",")]
+
+
+@pytest.fixture
+def calls(monkeypatch, loads):
+    """Every (lib, symbol, call arguments) a wrapper would launch."""
+    seen = []
+
+    def fake_load(name, argtypes, symbol=None):
+        return lambda *args: seen.append((name, symbol or name, args)) or 0
+
+    monkeypatch.setattr(cuda_build, "load", fake_load)
+    for counter in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias):
+        monkeypatch.setattr(counter, "drop_launches", counter.drop_launches)
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate,seed", [(0.0, None), (0.1, 7), (0.5, -(2**31))])
+def test_probs_dropout_reaches_every_kernel_entry(calls, dtype, rate, seed):
+    """Kernels 1-4 in both dtypes get the probs dropout as the C entries
+    name it: ``seed`` (int32), ``threshold`` (T of the JAX package's
+    keep_threshold; 2^24, the instance without dropout, at rate 0) and
+    ``inv_keep`` (fp32 1 / (1 - rate)); each launch with dropout adds one
+    to its wrapper's ``drop_launches``."""
+    from distributed_llms_example_tpu_torch.ops.fused_dropout import _inv_keep, keep_threshold
+
+    q, k, v, do = (torch.empty(2, 2, 64, 32, dtype=dtype, device="meta") for _ in range(4))
+    lse, delta = (torch.empty(2, 2, 64, device="meta") for _ in range(2))
+    lb = torch.empty(1, 2, 64, 64, dtype=dtype, device="meta")
+    kw = dict(dropout_rate=rate, dropout_seed=seed)
+    before = [f.drop_launches for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                                        fa.flash_bwd_dlbias)]
+    fa.flash_attention(q, k, v, learned_bias=lb, scale=1.0, **kw)
+    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        fn(q, k, v, None, do, lse, delta, lbias=lb, causal=True, scale=1.0, **kw)
+    fa.flash_bwd_dlbias(q, k, v, None, lb, do, lse, delta, causal=True, scale=1.0, **kw)
+    want = ((0, 1 << 24, 1.0) if rate == 0 else (seed, keep_threshold(rate), _inv_keep(rate)))
+    assert len(calls) == 4
+    for lib, symbol, args in calls:
+        names = c_param_names(lib, symbol)
+        got = tuple(args[names.index(n)] for n in ("seed", "threshold", "inv_keep"))
+        assert got == want, (symbol, got)
+    after = [f.drop_launches for f in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                                       fa.flash_bwd_dlbias)]
+    assert [a - b for a, b in zip(after, before)] == [int(rate > 0)] * 4
+
+
+def test_cpu_tensors_never_reach_a_kernel_with_dropout(calls):
+    q = torch.randn(1, 2, 16, 16)
+    before = fa.flash_attention.drop_launches
+    fa.flash_attention(q, q, q, dropout_rate=0.2, dropout_seed=3)
+    assert calls == [] and fa.flash_attention.drop_launches == before

@@ -3,7 +3,8 @@ prompts file (``bart-test`` and ``t5-test``): one output record per
 prompt, the serve_summary event, and the one-device ``--mesh`` rule; and
 ``llama-test --paged-kv`` against the JAX CLI on the same file and
 weights: causal prompts carry no trailing eos, and the output records are
-equal."""
+equal; the same for ``llama-test`` served from a local HF checkpoint
+directory."""
 
 import json
 
@@ -97,3 +98,29 @@ def test_serve_llama_paged_matches_jax_cli(tmp_path, monkeypatch):
     assert all(r[-1] != tok.eos_id for r in seen)
     read = lambda p: [json.loads(line) for line in p.read_text().splitlines()]  # noqa: E731
     assert read(out_t) == read(out_j)
+
+
+def test_serve_llama_from_an_hf_dir_matches_jax_cli(tmp_path):
+    """``serve --model-ckpt <llama-test HF checkpoint dir>`` (written by the
+    JAX package's export of its init_params(0), with attention_dropout set,
+    which serving never applies): the port reads the weights from the
+    directory and its output records equal the JAX CLI's on the same
+    prompts file and directory (flat cache)."""
+    from distributed_llms_example_tpu.models.export import save_hf_checkpoint
+
+    lm = jax_load_model("llama-test")
+    ckpt = tmp_path / "llama-hf"
+    save_hf_checkpoint(str(ckpt), "llama", lm.config, jax.device_get(lm.init_params(0)))
+    cfg = json.loads((ckpt / "config.json").read_text())
+    (ckpt / "config.json").write_text(json.dumps({**cfg, "attention_dropout": 0.1}))
+    texts = ["a causal prompt", "another, somewhat longer causal prompt " * 2, "x", "four"]
+    prompts = tmp_path / "prompts.json"
+    prompts.write_text(json.dumps(texts))
+    common = ["--model-ckpt", str(ckpt), "--prompts-file", str(prompts), "--lint", "off",
+              "--max-slots", "8", "--max-new-tokens", "8", "--max-source-length", "64",
+              "--compute-dtype", "float32"]
+    out_j, out_t = tmp_path / "jax.jsonl", tmp_path / "port.jsonl"
+    assert jax_serve_main([*common, "--output-file", str(out_j)]) == 0
+    assert serve_main([*common, "--device", "cpu", "--output-file", str(out_t)]) == 0
+    read = lambda p: [json.loads(line) for line in p.read_text().splitlines()]  # noqa: E731
+    assert read(out_t) == read(out_j) and len(read(out_t)) == len(texts)

@@ -96,8 +96,14 @@ def load_chip_smoke():
     return mod
 
 
-DLBIAS = "_ZN12_GLOBAL__N_126flash_bwd_dlbias_tc_kernelILi{}ELi{}EEEvNS_4ArgsE"
+DLBIAS = "_ZN12_GLOBAL__N_126flash_bwd_dlbias_tc_kernelI{}EEvNS_4ArgsE"
 OTHER = "_ZN12_GLOBAL__N_113other_kernelILi64EEEvNS_4ArgsE"
+
+
+def dlbias_name(args) -> str:
+    """The mangled name of the kernel-4 instance of these int template
+    arguments."""
+    return DLBIAS.format("".join(f"Li{a}E" for a in args))
 
 
 def res_usage(stacks: dict) -> str:
@@ -105,7 +111,7 @@ def res_usage(stacks: dict) -> str:
     instances (d, lbias_bytes) -> stack bytes, and one other kernel."""
     lines = ["Fatbin elf code:", "================", "arch = sm_90a", "", "Resource usage:",
              " Common:", "  GLOBAL:0"]
-    rows = [(DLBIAS.format(*k), 180 + k[0] % 7, v) for k, v in stacks.items()]
+    rows = [(dlbias_name(k), 180 + k[0] % 7, v) for k, v in stacks.items()]
     for name, regs, stack in rows + [(OTHER, 255, 64)]:
         lines += [f" Function {name}:",
                   f"  REG:{regs} STACK:{stack} SHARED:0 LOCAL:0 CONSTANT[0]:640 TEXTURE:0 "
@@ -117,7 +123,7 @@ def sass(instances) -> str:
     """cuobjdump -sass's listing: each kernel-4 instance with two HGMMA
     instructions, and one other kernel with one."""
     lines = ["\tcode for sm_90a"]
-    for name, n in [(DLBIAS.format(*k), 2) for k in instances] + [(OTHER, 1)]:
+    for name, n in [(dlbias_name(k), 2) for k in instances] + [(OTHER, 1)]:
         lines += [f"\t\tFunction : {name}",
                   "        /*0000*/                   MOV R1, c[0x0][0x28] ;"]
         lines += ["        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], "
@@ -149,11 +155,13 @@ def test_chip_smoke_reads_registers_and_stack_from_the_library(tmp_path, monkeyp
 def test_chip_smoke_spill_gate_reads_a_cached_library(tmp_path, monkeypatch, stack):
     """The spill gate on a library that an earlier run built, so that
     ``build`` compiles nothing this time: it passes when every kernel-4
-    instance has no stack frame and fails the run when one has a frame
-    (where a spill would go)."""
+    instance (head dim, learned-bias bytes, probs dropout) has no stack
+    frame and fails the run when one has a frame (where a spill would go),
+    a dropout instance's included."""
     mod = load_chip_smoke()
-    stacks = {(d, lb): 0 for d in (16, 32, 64, 128) for lb in (2, 4)}
-    stacks[(64, 2)] = stack
+    stacks = {(d, lb, drop): 0 for d in (16, 32, 64, 128) for lb in (2, 4) for drop in (0, 1)}
+    assert len(stacks) == mod.TC_INSTANCES["flash_bwd_dlbias_tc_kernel"]
+    stacks[(64, 2, 1)] = stack
     fake_tool(tmp_path / "cuobjdump",
               f"print({sass(stacks)!r} if sys.argv[1] == '-sass' else {res_usage(stacks)!r})\n")
     monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
@@ -282,3 +290,44 @@ def test_chip_smoke_decode_gate_reads_both_entries(tmp_path, monkeypatch, fault)
     else:
         with pytest.raises(SystemExit):
             mod.decode_resource_phase(cuda_build)
+
+
+DROPOUT_SOURCES = ("fused_dropout", "flash_fwd_tc", "flash_fwd", "flash_bwd_tc", "flash_bwd",
+                   "flash_bwd_dlbias_tc", "flash_bwd_dlbias")
+
+
+@pytest.mark.parametrize("name", DROPOUT_SOURCES)
+def test_dropout_sources_share_the_hash_header(name):
+    """Kernel 7 and kernels 1-4 draw their masks from one copy of the
+    counter hash, csrc/dropout_hash.cuh (whose edits rebuild them all);
+    none keeps its own mix32."""
+    text = (cuda_build.CSRC / f"{name}.cu").read_text()
+    assert '#include "dropout_hash.cuh"' in text
+    assert "uint32_t mix32(" not in text
+    assert "uint32_t mix32(" in (cuda_build.CSRC / "dropout_hash.cuh").read_text()
+
+
+def test_chip_smoke_planted_hash_swap_finds_its_line():
+    """chip_smoke.py's planted fault swaps the dk/dv kernel's hash
+    multipliers in a copy of csrc/flash_bwd_tc.cu: the line it rewrites is
+    there once, and the swap exchanges the two multipliers."""
+    mod = load_chip_smoke()
+    text = (cuda_build.CSRC / "flash_bwd_tc.cu").read_text()
+    assert text.count(mod.DKV_MULS) == 1 and mod.DKV_MULS_SWAPPED not in text
+    swap = mod.DKV_MULS.replace("ROW", "@").replace("COL", "ROW").replace("@", "COL")
+    assert swap == mod.DKV_MULS_SWAPPED
+
+
+def test_chip_smoke_planted_hash_swap_build_is_cached(tmp_path, monkeypatch):
+    """The planted fault's library is named after the real flash_bwd_tc
+    library (the hash of the source and csrc's headers): once it is there,
+    no nvcc starts; a header edit names another library."""
+    mod = load_chip_smoke()
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(mod.subprocess, "Popen", lambda *a, **k: pytest.fail("nvcc started"))
+    real = cuda_build.library_path("flash_bwd_tc")
+    lib = real.with_name(real.name.replace("flash_bwd_tc", "flash_bwd_tc_swapped_hash", 1))
+    assert lib != real and lib.parent == cuda_build.BUILD_DIR
+    lib.parent.mkdir(parents=True)
+    lib.write_bytes(b"")  # built by an earlier run
+    assert mod.start_swapped_dkv_build(cuda_build)() == str(lib)

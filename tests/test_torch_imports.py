@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
 ``distributed_llms_example_tpu_torch``, or ``chip_smoke.py`` as a module,
-pulls in no JAX, flax, optax, orbax and no module of the JAX package (and
+pulls in no JAX, flax, optax, orbax, transformers or safetensors and no
+module of the JAX package (and
 importing the script runs none of it); and the port's entry points refuse
 to run quietly on the CPU when no GPU is present and the CPU was not asked
 for."""
@@ -17,7 +18,10 @@ import torch
 import distributed_llms_example_tpu_torch as port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distributed_llms_example_tpu")
+# the card's machine need not have transformers or safetensors: the port
+# reads and writes HF checkpoints itself
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distributed_llms_example_tpu",
+             "transformers", "safetensors")
 
 
 def _port_modules():

@@ -178,11 +178,21 @@ def test_relative_position_bucket_ids_equal_jax(bidirectional):
 
 
 def test_t5_attention_is_unscaled_and_probs_dropout_refuses_to_train():
-    cfg = dataclasses.replace(T5_CONFIGS["t5-test"], attn_dropout_rate=0.1)
+    """T5's attention is unscaled on every path.  Its probs dropout, which
+    training once refused, now trains: serving (eval mode) ignores it, a
+    training forward applies it (and differs from eval) the same way for
+    the same seed stream."""
+    from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
+
+    cfg = dataclasses.replace(T5_CONFIGS["t5-test"], attn_dropout_rate=0.1, dropout_rate=0.0)
     model = T5ForConditionalGeneration(cfg)
     model.init_weights(torch.Generator().manual_seed(0))
     assert {m.scale for m in model.modules() if hasattr(m, "scale")} == {1.0}
     ids = torch.randint(2, 256, (2, 16))
-    model.eval()(ids, None, ids)  # serving ignores it, as eval mode does
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train()(ids, None, ids)
+    served = model.eval()(ids, None, ids)  # serving ignores it, as eval mode does
+    assert torch.equal(served, model(ids, None, ids))
+    runs = []
+    for _ in range(2):
+        with dropout_seeds(torch.Generator().manual_seed(1)):
+            runs.append(model.train()(ids, None, ids))
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], served)

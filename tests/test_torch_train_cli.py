@@ -1,12 +1,19 @@
 """The port's train entry end to end on the CPU (``--device cpu`` at
 ``bart-test`` and ``t5-test`` size, a temporary JSON file): the JAX CLI's
 step lines, the done event, the returned trainer's history; flags this
-slice does not implement are refused by argparse."""
+slice does not implement are refused by argparse.  Also: training from a
+local HF checkpoint directory whose config sets attention_dropout, which
+writes <output-dir>/model/ (the reload is bit-equal to the trained
+weights); T5's and BART's training attention reaching flash_attention with
+the probs-dropout rate and a seed; the train entry taking a T5 built
+with attn_dropout_rate; LLaMA serving with attention_dropout
+and refusing to train."""
 
 import json
 
 import numpy as np
 import pytest
+import torch
 
 from distributed_llms_example_tpu_torch.launch.cli import (
     build_serve_parser,
@@ -29,7 +36,8 @@ def _write(tmp_path, n=12):
 
 def _args(path, *extra, model="bart-test"):
     return ["--device", "cpu", "--model-ckpt", model, "--train-file", str(path),
-            "--batch-size", "4", "--max-source-length", "128", "--max-target-length", "32",
+            "--output-dir", str(path.parent / "out"), "--batch-size", "4",
+            "--max-source-length", "128", "--max-target-length", "32",
             "--learning-rate", "1e-3", "--warmup-steps", "0", *extra]
 
 
@@ -72,8 +80,176 @@ def test_train_and_serve_share_the_model_flags(tmp_path):
     assert targs.model_ckpt in BART_CONFIGS
 
 
-@pytest.mark.parametrize("flag", [["--output-dir", "/tmp/x"], ["--optim-impl", "fused"],
+@pytest.mark.parametrize("flag", [["--evaluation-steps", "10"], ["--optim-impl", "fused"],
                                   ["--mesh", "data=2"], ["--remat"]])
 def test_unimplemented_flags_are_refused(tmp_path, flag):
     with pytest.raises(SystemExit):
         train(_args(_write(tmp_path, 4), *flag))
+
+
+def _hf_dir(tmp_path, name, **config):
+    """An HF checkpoint of ``name``'s seed-0 init, written by the port's
+    export, with ``config`` fields set in its config.json."""
+    from distributed_llms_example_tpu_torch.models.export import save_hf_checkpoint
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+
+    lm = load_model(name, device="cpu")
+    path = tmp_path / f"{name}-hf"
+    save_hf_checkpoint(str(path), lm.family, lm.config, lm.module.state_dict())
+    cfg = json.loads((path / "config.json").read_text())
+    (path / "config.json").write_text(json.dumps({**cfg, **config}))
+    return path
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+def test_train_from_an_hf_dir_with_probs_dropout_saves_the_model(tmp_path, impl):
+    """``train --model-ckpt <HF dir whose config sets attention_dropout>
+    --output-dir D``: the model trains with that probs dropout on either
+    route, and D/model/ holds the HF checkpoint of the trained fp32
+    weights (reloading bit-equal), train_config.json and a Valohai sidecar
+    for each file."""
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.ops import mha
+
+    ckpt = _hf_dir(tmp_path, "bart-test", attention_dropout=0.1)
+    seen = []
+    real = mha.flash_attention
+
+    def flash(*a, **k):
+        seen.append(k.get("dropout_rate", 0.0))
+        return real(*a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mha, "flash_attention", flash)
+        trainer = train(_args(_write(tmp_path, 8), "--attention-impl", impl,
+                              model=str(ckpt)))
+    assert trainer.loaded.config.attn_dropout_rate == 0.1
+    if impl == "flash":  # every training attention call dropped
+        assert seen and set(seen) == {0.1}
+    out = tmp_path / "out" / "model"
+    files = set(p.name for p in out.iterdir())
+    base = {"config.json", "model.safetensors", "train_config.json"}
+    assert files == base | {f"{f}.metadata.json" for f in base}
+    assert json.loads((out / "config.json").read_text())["attention_dropout"] == 0.1
+    cfg = json.loads((out / "train_config.json").read_text())
+    assert cfg["model_ckpt"] == str(ckpt) and cfg["output_dir"] == str(tmp_path / "out")
+    sidecar = json.loads((out / "model.safetensors.metadata.json").read_text())
+    assert sidecar["valohai.dataset-versions"][0]["valohai.tags"] == ["dev", "llm"]
+    reloaded = load_model(str(out), device="cpu", train=True).module.state_dict()
+    trained = trainer.model.state_dict()
+    assert set(reloaded) == set(trained)
+    assert all(torch.equal(reloaded[k], trained[k]) for k in trained)
+    # the model did train: its weights moved from the checkpoint's
+    start = load_model(str(ckpt), device="cpu").module.state_dict()
+    assert not torch.equal(start["shared.weight"], trained["shared.weight"])
+
+
+@pytest.mark.parametrize("name", ["bart-test", "t5-test"])
+def test_attn_dropout_routes_through_flash_attention_with_a_seed(name):
+    """A T5 and a BART module with attn_dropout_rate > 0 (the counterparts
+    of the JAX package's test_t5_attn_dropout_routes_through_kernel and
+    test_llama_attn_only_dropout_fires): every training attention call
+    reaches flash_attention with the rate and its own int32 seed, drawn
+    from the dropout_seeds stream, so a forward is deterministic per
+    stream and differs across streams and from eval; eval passes no
+    dropout; the gradients are finite."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.ops import mha
+    from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
+
+    lm = load_model(name, device="cpu", train=True, attention_impl="flash")
+    cfg = dataclasses.replace(lm.config, attn_dropout_rate=0.2, dropout_rate=0.0)
+    model = type(lm.module)(cfg)
+    model.load_state_dict(lm.module.state_dict())
+    ids = torch.randint(3, 250, (2, 32), generator=torch.Generator().manual_seed(0))
+    calls = []
+    real = mha.flash_attention
+
+    def flash(*a, **k):
+        calls.append((k.get("dropout_rate", 0.0), k.get("dropout_seed")))
+        return real(*a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mha, "flash_attention", flash)
+
+        def run(seed, train=True):
+            model.train(train)
+            with dropout_seeds(torch.Generator().manual_seed(seed)):
+                return model(ids, None, ids)
+
+        a = run(1)
+        n_attn = sum(isinstance(m, mha.MultiHeadAttention) for m in model.modules())
+        assert len(calls) == n_attn and {r for r, _ in calls} == {0.2}
+        seeds = [s for _, s in calls]
+        assert all(isinstance(s, int) and -(2**31) <= s < 2**31 for s in seeds)
+        assert len(set(seeds)) == len(seeds)
+        assert torch.equal(a, run(1)) and not torch.equal(a, run(2))
+        calls.clear()
+        ev = run(1, train=False)
+        assert calls and all(r == 0.0 and s is None for r, s in calls)
+        assert not torch.equal(a, ev)
+        run(3).float().square().mean().backward()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+
+
+def test_train_entry_takes_a_built_t5_with_probs_dropout(tmp_path):
+    """``train(argv, loaded=...)`` trains a model the caller built, here T5
+    with attn_dropout_rate (which no HF T5 config sets): every training
+    attention call reaches flash_attention with that rate, the run differs
+    from the same weights at rate 0, and the saved model reloads to the
+    trained weights.  A model in another dtype than --compute-dtype, or
+    beside --attention-impl, is refused."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.registry import LoadedModel, load_model
+    from distributed_llms_example_tpu_torch.ops import mha
+
+    def built(rate):
+        lm = load_model("t5-test", device="cpu", train=True, seed=0, attention_impl="flash")
+        cfg = dataclasses.replace(lm.config, attn_dropout_rate=rate)
+        module = type(lm.module)(cfg)
+        module.load_state_dict(lm.module.state_dict())
+        return LoadedModel("t5", cfg, module)
+
+    path = _write(tmp_path, 8)
+    seen = []
+    real = mha.flash_attention
+
+    def flash(*a, **k):
+        seen.append(k.get("dropout_rate", 0.0))
+        return real(*a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mha, "flash_attention", flash)
+        dropped = train(_args(path, "--compute-dtype", "float32", model="t5-test"),
+                        loaded=built(0.2))
+    assert dropped.loaded.config.attn_dropout_rate == 0.2
+    assert seen and set(seen) == {0.2}
+    plain = train(_args(path, "--compute-dtype", "float32", "--output-dir",
+                        str(tmp_path / "plain"), model="t5-test"), loaded=built(0.0))
+    losses = [float(m["loss"]) for m in dropped.history]
+    assert all(np.isfinite(losses))
+    assert losses != [float(m["loss"]) for m in plain.history]
+    reloaded = load_model(str(tmp_path / "out" / "model"), device="cpu").module.state_dict()
+    trained = dropped.model.state_dict()
+    assert all(torch.equal(reloaded[k], trained[k]) for k in trained)
+    with pytest.raises(ValueError, match="not a seq2seq model in bfloat16"):
+        train(_args(path, "--compute-dtype", "bfloat16", model="t5-test"), loaded=built(0.2))
+    with pytest.raises(ValueError, match="--attention-impl"):
+        train(_args(path, "--compute-dtype", "float32", "--attention-impl", "flash",
+                    model="t5-test"), loaded=built(0.2))
+
+
+def test_llama_with_attention_dropout_serves_and_refuses_to_train(tmp_path):
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+
+    ckpt = _hf_dir(tmp_path, "llama-test", attention_dropout=0.1)
+    lm = load_model(str(ckpt), device="cpu")
+    assert lm.config.attn_dropout_rate == 0.1 and not lm.module.training
+    ids = torch.randint(3, 250, (1, 16), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        assert torch.equal(lm.module(ids), lm.module(ids))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        load_model(str(ckpt), device="cpu", train=True)

@@ -12,7 +12,8 @@ the two stacks' fp32 noise, so the branch taken there depends on
 summation order; over seed 8's three steps the smallest relu input of a
 real token is 3.3e-6 from 0.  Also: grad accumulation 2 equals 1, a
 dropout-on step is deterministic per seed, the cross entropy with label
-smoothing, and attention-probs dropout refusing to train."""
+smoothing, and an attention-probs dropout step deterministic per seed on
+both attention routes."""
 
 import dataclasses
 
@@ -189,13 +190,29 @@ def test_cross_entropy_sums_match_jax(smoothing):
     assert float(tt) == float(jt) == 4 * 6
 
 
-def test_probs_dropout_refuses_to_train():
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_probs_dropout_step_is_deterministic_per_seed(jax_bart, impl):
+    """Attention-probs dropout alone (residual dropout 0) trains on either
+    route: a step is the same for the same seed stream, differs for
+    another, and differs from rate 0 on the same stream."""
     from distributed_llms_example_tpu_torch.models.bart import BartForConditionalGeneration
 
-    cfg = dataclasses.replace(BART_CONFIGS["bart-test"], attn_dropout_rate=0.1)
-    model = BartForConditionalGeneration(cfg)
-    model.init_weights(torch.Generator().manual_seed(0))
-    ids = torch.randint(4, 200, (2, 16))
-    model.eval()(ids, None, ids)  # serving ignores it, as eval mode does
-    with pytest.raises(NotImplementedError, match="probs dropout|ROADMAP"):
-        model.train()(ids, None, ids)
+    _, params = jax_bart
+    batch = put_batch(_port_batches(_records())[0], torch.device("cpu"))
+
+    def loss(rate, seed):
+        cfg = dataclasses.replace(BART_CONFIGS["bart-test"], dropout_rate=0.0,
+                                  attn_dropout_rate=rate, attention_impl=impl)
+        model = BartForConditionalGeneration(cfg).train()
+        load_jax_params(model, params)
+        named = list(model.named_parameters())
+        m = train_step(model, named, toptim.AdamWState.zeros([p for _, p in named]),
+                       toptim.OptimizerSpec(learning_rate=LR, warmup_steps=0),
+                       toptim.linear_schedule_with_warmup(LR, 0, 10), batch,
+                       generator=torch.Generator().manual_seed(seed))
+        return float(m["loss"]), {n: p.detach().clone() for n, p in named}
+
+    (la, pa), (lb, pb), (lc, _), (l0, _) = (loss(0.1, 3), loss(0.1, 3), loss(0.1, 4),
+                                            loss(0.0, 3))
+    assert la == lb and all(torch.equal(pa[n], pb[n]) for n in pa)
+    assert lc != la and l0 != la
