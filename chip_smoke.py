@@ -6,7 +6,9 @@ train entry, which saves it as an HF checkpoint, then fine-tunes it again
 from that checkpoint with attention_dropout set (kernels 1-3's probs
 dropout), fine-tunes t5-large and serves flan-t5-xl at full width the
 same ways, serves llama-2-7b at full width through ``serve --paged-kv`` and
-through the flat cache, and checks that each run went through its kernels.
+through the flat cache, runs the reference recipe's eval pass (beam search
+and ROUGE on a validation file) on bart-large-cnn, and checks that each run
+went through its kernels.
 
     python3 chip_smoke.py    # from the repository root, on one NVIDIA GPU
 
@@ -145,7 +147,31 @@ Phases (each fatal, non-zero exit, no result line):
  6b. phase 6's fp32 check on that model (probs dropout 0.1): the fault
      that must break the limits is the probs-dropout seed off by one in
      kernels 2-4
-  7. t5-large train: as phase 5 (same recipe and records), with kernel 4
+  6c. eval: the CLI's train entry on bart-large-cnn from phase 5's saved
+     checkpoint (the weights linked), bf16, --tokenizer byte, 16 records
+     (2 steps of 8) and a --val-file of 16 (sources of 200-1024
+     byte-tokens, targets of 40-128), --num-beams 2, --eval-max-new-tokens
+     128, --eval-batch-size 8, --evaluation-steps 0: exactly one eval
+     event, at the epoch's end, its four ROUGE means finite in [0, 1];
+     counters zeroed just before the eval and read just after: kernel 1
+     12 encoder layers x 2 batches = 24 launches, all on the tensor cores
+     and none a dropout instance, kernel 5 12 decoder layers x 128 steps x
+     2 batches = 3 072, kernels 2-4 and 6-8 none; the eval's wall time and
+     generated tokens/s; one beam decode step profiled (host enqueue vs
+     device busy); kernel 5 at that step's shape (16 rows x 16 heads, a
+     128-slot cache, d 64, bf16) against its plain version, timed beside
+     SDPA and its bound
+ 6d. beam search, kernel path vs plain path, fp32, beam 2, 32 new tokens,
+     8 ragged rows: BART at bart-large-cnn widths and T5 at t5-large widths
+     (2 + 2 layers: the beam-grouped cross-attention, T5's at scale 1,
+     kernel 5 with T5's per-row relative bias), LLaMA at llama-2-7b widths
+     (2 layers, a causal search over right-padded prompts): tokens,
+     parents and outputs equal, the chosen beams' per-step log-probs
+     within 1e-4, the smallest gap among each row's top 2K + 1 candidates
+     reported, kernel 1 once per encoder layer and kernel 5 once per
+     decoder layer per step; the decode offset shifted by one must break
+     the 1e-4 limit
+ 7. t5-large train: as phase 5 (same recipe and records), with kernel 4
      once per self-attention layer per step (72 / 72 / 72 / 48 a step for
      kernels 1 / 2 / 3 / 4) and non-zero gradients in both bucket tables
  7b. t5-large train with attention-probs dropout 0.1: the model built here
@@ -187,7 +213,8 @@ Phases (each fatal, non-zero exit, no result line):
  13. a {"kernels_unported": []} line (every TPU kernel has a port), the
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
-     kernel 8 both entries of its source),
+     kernel 8 both entries of its source; kernels 1 and 5 count phase 6c's
+     eval launches too),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -199,6 +226,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2211,13 +2239,14 @@ def paged_kernel_phase(torch, fa):
     return {"flash_decode_paged": r}, max(errs5)
 
 
-def write_train_records(path: str, n: int = 48) -> None:
+def write_train_records(path: str, n: int = 48, *, seed: int = 0,
+                        summary: tuple[int, int] = (20, 128)) -> None:
     import numpy as np
 
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
     recs = [{"dialogue": "".join(rng.choice(alphabet, rng.randint(200, 1025))),
-             "summary": "".join(rng.choice(alphabet, rng.randint(20, 128)))} for _ in range(n)]
+             "summary": "".join(rng.choice(alphabet, rng.randint(*summary)))} for _ in range(n)]
     with open(path, "w") as f:
         json.dump(recs, f)
 
@@ -2395,17 +2424,17 @@ def t5_large_with_attention_dropout(torch):
     return LoadedModel("t5", cfg, module)
 
 
-def attention_dropout_checkpoint(src: str) -> str:
-    """A checkpoint directory beside ``src`` (an HF checkpoint the train
-    entry saved) whose config.json sets attention_dropout to PROBS_DROPOUT
-    and whose model.safetensors links to ``src``'s (no copy of the
+def linked_checkpoint(src: str, name: str, **config) -> str:
+    """A checkpoint directory <WORK>/<name> holding ``src``'s config.json
+    (an HF checkpoint the train entry saved) with ``config``'s fields set,
+    and a model.safetensors that links to ``src``'s (no copy of the
     weights)."""
-    dst = os.path.join(WORK, "bart-large-cnn-attention-dropout")
+    dst = os.path.join(WORK, name)
     os.makedirs(dst, exist_ok=True)
     with open(os.path.join(src, "config.json")) as f:
         cfg = json.load(f)
     with open(os.path.join(dst, "config.json"), "w") as f:
-        json.dump({**cfg, "attention_dropout": PROBS_DROPOUT}, f, indent=2, sort_keys=True)
+        json.dump({**cfg, **config}, f, indent=2, sort_keys=True)
     link = os.path.join(dst, "model.safetensors")
     if os.path.lexists(link):
         os.remove(link)
@@ -3397,7 +3426,8 @@ def decode_logits(torch, model, chunk, full_mask, lengths, first, *, paged: bool
 def decode_route(fa, how: str):
     """The model's decode call sites (paged and flat) routed to their plain
     versions (``plain``), or to the kernels with each row's offset shifted
-    back by one (``fault``: a row no longer sees its own new K/V)."""
+    back by one (``fault``: a row no longer sees its own new K/V; a flat
+    row at offset 0 stays at 0)."""
     from distributed_llms_example_tpu_torch.ops import mha
 
     def plain_paged(q, kp, vp, bias=None, *, block_tables, offsets, scale=None, dtype=None):
@@ -3413,7 +3443,8 @@ def decode_route(fa, how: str):
                                      scale=scale).to(dtype or q.dtype)
 
     def fault_flat(q, k, v, bias=None, *, offsets, scale=None, dtype=None):
-        return fa.flash_decode(q, k, v, bias, offsets=offsets - 1, scale=scale, dtype=dtype)
+        return fa.flash_decode(q, k, v, bias, offsets=(offsets - 1).clamp(min=0), scale=scale,
+                               dtype=dtype)
 
     saved = mha.flash_decode_paged, mha.flash_decode
     if how == "plain":
@@ -3481,6 +3512,274 @@ def llama_logits_phase(torch, fa) -> None:
             if not fault_err > LLAMA_FP32_ATOL:
                 fail(f"llama fp32 logits ({route}): a decode offset shifted by one moves them "
                      f"only {fault_err}")
+
+
+# the eval pass (phases 6c-6d): the reference recipe's generate(max_length
+# =128, num_beams=2) -> ROUGE through the train entry, and the beam search's
+# kernel path against its plain path
+EVAL_ARGS = ["--num-beams", "2", "--eval-max-new-tokens", "128", "--eval-batch-size", "8",
+             "--evaluation-steps", "0"]
+EVAL_RECORDS = 16
+BEAM_NEW_TOKENS = 32
+BEAM_LOGP_ATOL = 1e-4
+
+
+def eval_phase(torch, fa, fd, fo, cli) -> dict:
+    """The CLI's train entry on bart-large-cnn from phase 5's saved
+    checkpoint (the weights linked), 16 records (2 steps of 8), with a
+    --val-file of 16 records (sources 200-1024 byte-tokens, targets
+    40-128), beam 2, 128 new tokens, eval batch 8, --evaluation-steps 0:
+    one eval at the epoch's end.  Counters zeroed just before the eval and
+    read just after: kernel 1 once per encoder layer per batch, all on the
+    tensor cores and none a dropout instance, kernel 5 once per decoder
+    layer per step per batch, kernels 2-4 and 6-8 never.  Then one beam
+    decode step profiled.  Returns the eval's launches."""
+    from distributed_llms_example_tpu_torch.train import trainer as trainer_mod
+
+    ckpt = linked_checkpoint(os.path.join(WORK, "bart-large-cnn-out", "model"),
+                             "bart-large-cnn-eval")
+    train_path, val_path = (os.path.join(WORK, f"eval_{x}.json") for x in ("train", "val"))
+    write_train_records(train_path, EVAL_RECORDS)
+    write_train_records(val_path, EVAL_RECORDS, seed=1, summary=(40, 129))
+    events, windows = [], []
+    real_evaluate, real_log = trainer_mod.Trainer.evaluate, trainer_mod.log_json
+
+    def evaluate(self, *a, **k):
+        torch.cuda.synchronize()
+        zero_counters(fa, fd, fo)
+        t0 = time.perf_counter()
+        scores = real_evaluate(self, *a, **k)
+        torch.cuda.synchronize()
+        windows.append(dict(
+            wall_s=time.perf_counter() - t0,
+            launches=read_counters(fa, fd, fo) | {
+                "flash_decode": fa.flash_decode.launches,
+                "flash_decode_paged": fa.flash_decode_paged.launches},
+            tc_launches=fa.flash_attention.tc_launches, dropout_launches=drop_counters(fa)))
+        return scores
+
+    def log(obj):
+        if obj.get("event") == "eval":
+            events.append(obj)
+        real_log(obj)
+
+    trainer_mod.Trainer.evaluate, trainer_mod.log_json = evaluate, log
+    try:
+        t0 = time.perf_counter()
+        trainer = cli.train([*TRAIN_ARGS, "--model-ckpt", ckpt, "--train-file", train_path,
+                             "--val-file", val_path, *EVAL_ARGS,
+                             "--output-dir", os.path.join(WORK, "bart-large-cnn-eval-out")])
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer.evaluate, trainer_mod.log_json = real_evaluate, real_log
+    cfg, mcfg = trainer.cfg, trainer.loaded.config
+    batches = -(-EVAL_RECORDS // cfg.eval_batch_size)
+    want = {k: 0 for k in windows[0]["launches"]} if windows else {}
+    want["flash_attention_fwd"] = mcfg.encoder_layers * batches
+    want["flash_decode"] = mcfg.decoder_layers * cfg.eval_max_new_tokens * batches
+    rouge = {k: events[0].get(k) for k in ("rouge1", "rouge2", "rougeL", "rougeLsum")} \
+        if events else {}
+    w = windows[0] if windows else {}
+    positions = EVAL_RECORDS * cfg.eval_max_new_tokens
+    say({"phase": "eval", "model": "bart-large-cnn", "checkpoint": ckpt,
+         "train_steps": len(trainer.history), "eval_events": events, "evals": len(windows),
+         "eval_wall_s": w.get("wall_s"), "run_wall_s": wall,
+         "generated_tokens": positions, "beam_rows": EVAL_RECORDS * cfg.num_beams,
+         "generated_tokens_per_s": positions / w["wall_s"] if w else None,
+         "launches": w.get("launches"), "expected": want,
+         "tc_launches": w.get("tc_launches"), "dropout_launches": w.get("dropout_launches")})
+    if len(trainer.history) != 2 or len(events) != 1 or len(windows) != 1:
+        fail(f"eval run: {len(trainer.history)} train steps, {len(events)} eval events, "
+             f"{len(windows)} evals (want 2, 1, 1)")
+    if not all(isinstance(v, float) and math.isfinite(v) and 0.0 <= v <= 1.0
+               for v in rouge.values()) or len(rouge) != 4 or events[0].get("step") != 2:
+        fail(f"eval event {events[0]}: the four ROUGE means must be finite in [0, 1]")
+    if w["launches"] != want or w["tc_launches"] != want["flash_attention_fwd"] \
+            or any(w["dropout_launches"].values()):
+        fail(f"eval launches {w['launches']} (tensor-core {w['tc_launches']}, dropout "
+             f"{w['dropout_launches']}), expected {want}, all kernel-1 launches on the "
+             "tensor cores and none a dropout instance")
+    profile_beam_step(torch, trainer)
+    return w["launches"]
+
+
+def profile_beam_step(torch, trainer) -> None:
+    """One beam decode step of the trainer's eval generator on the first
+    validation batch (8 rows x 2 beams, 128-slot caches, past a few warm
+    steps): the host's time to enqueue it against its time to finish on the
+    card, then one under torch.profiler (device busy, the heaviest
+    kernels)."""
+    from distributed_llms_example_tpu_torch.data.batching import BatchIterator
+
+    cfg, gen = trainer.cfg, trainer.evaluator.generator
+    batch = next(iter(BatchIterator(
+        trainer.val_ds, global_batch=cfg.eval_batch_size, shuffle=False, drop_last=False,
+        bucket_multiple=cfg.pad_to_multiple, max_source_length=cfg.max_source_length,
+        max_target_length=cfg.eval_max_new_tokens).epoch(0)))
+    ids, mask = (torch.as_tensor(batch[k], device=trainer.device).long()
+                 for k in ("input_ids", "attention_mask"))
+    trainer.model.eval()
+    with torch.no_grad():
+        box = [gen.prefill(ids, mask)]
+
+        def step():
+            box[0] = gen.decode_step(box[0])
+
+        for _ in range(4):
+            step()
+        enqueue, total = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+        counts: dict[str, float] = {}
+        wall, kernels = profile_device(step, 4, counts)
+    trainer.model.train()
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    say({"phase": "where_the_time_goes", "call": "beam_decode_step", "model": "bart-large-cnn",
+         "rows": int(ids.shape[0]) * gen.K, "t_after": box[0]["t"], "enqueue_ms": enqueue,
+         "step_ms": total, "wall_ms_profiled": wall, "device_busy_ms": busy,
+         "device_idle_share": max(0.0, 1 - busy / wall),
+         "kernel_launches": sum(counts.values()),
+         "top_kernels": [[k[:90], v, counts.get(k, 0.0)] for k, v in top]})
+
+
+def beam_kernel_time(torch, fa) -> None:
+    """Kernel 5 at the eval's beam step (16 rows = 8 x 2 beams, 16 heads,
+    a 128-slot cache read whole (the last step), d 64, bf16): against its
+    plain version, timed beside SDPA and its bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(16, 16, 1, 64, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(16, 16, 128, 64, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    off = torch.full((16,), 127, dtype=torch.int32, device=dev)
+    check_close("flash_decode beam step (16, 16, 1, 64) L=128 bf16",
+                fa.flash_decode(q, k, v, offsets=off), fa.flash_decode_plain(q, k, v, offsets=off),
+                atol=2e-2, rtol=2e-2)
+    decode_time(torch, fa, "bart-large-cnn beam 2 eval step", q, k, v, None, off)
+
+
+def traced_beam_search(torch, gen_cls, model, cfg, ids, mask):
+    """A beam-2 search of BEAM_NEW_TOKENS tokens whose every selection is
+    recorded: (output ids, the chosen beams' log-probs (steps, B, K), the
+    chosen tokens and parents, the smallest gap between consecutive
+    candidates among each row's top 2K + 1, those of a -1e7 beam left
+    out)."""
+    from distributed_llms_example_tpu_torch.evaluation import generation
+
+    rec = []
+    real = generation._beam_step_select
+
+    def select(logp, t, state, **kw):
+        new, chosen, parents = real(logp, t, state, **kw)
+        B, K = state[0].shape
+        lp = logp.reshape(B, K, -1)
+        rows = torch.arange(B, device=logp.device)[:, None]
+        top = (state[0][:, :, None] + lp).reshape(B, -1).topk(2 * K + 1, dim=-1).values
+        # gaps between live candidates (those below NEG_INF / 2 tie by design)
+        live = (top[:, 1:] > generation.NEG_INF / 2)
+        gaps = torch.where(live, top[:, :-1] - top[:, 1:], torch.inf)
+        rec.append((lp[rows, parents, chosen], chosen, parents, gaps.min()))
+        return new, chosen, parents
+
+    generation._beam_step_select = select
+    try:
+        out = gen_cls(model, cfg, BEAM_NEW_TOKENS, num_beams=2).run(ids, mask)
+    finally:
+        generation._beam_step_select = real
+    return (out, torch.stack([r[0] for r in rec]), torch.stack([r[1] for r in rec]),
+            torch.stack([r[2] for r in rec]), float(torch.stack([r[3] for r in rec]).min()))
+
+
+def beam_check_phase(torch, fa) -> None:
+    """fp32 beam search (2 beams, 32 new tokens, 8 ragged rows of 200-1024
+    byte-tokens), kernel path vs plain path on the same random weights: BART
+    at bart-large-cnn widths and T5 at t5-large widths (2 + 2 layers; the
+    beam-grouped cross-attention, T5's at scale 1, and kernel 5 with T5's
+    per-row relative bias), and LLaMA at llama-2-7b widths (2 layers; a
+    causal beam search over right-padded prompts).  Tokens, parents and
+    outputs equal; the chosen beams' per-step log-probs within
+    BEAM_LOGP_ATOL, which the decode offset shifted by one must break."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+    from distributed_llms_example_tpu_torch.evaluation.generation import (
+        CausalGenerator,
+        Seq2SeqGenerator,
+    )
+    from distributed_llms_example_tpu_torch.models.bart import BartForConditionalGeneration
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.models.registry import (
+        BART_CONFIGS,
+        LLAMA_CONFIGS,
+        T5_CONFIGS,
+    )
+    from distributed_llms_example_tpu_torch.models.t5 import T5ForConditionalGeneration
+
+    path = os.path.join(WORK, "beam_prompts.json")
+    write_prompts(path, 8)
+    with open(path) as f:
+        texts = json.load(f)
+    tok = ByteTokenizer()
+    cases = (
+        ("bart-large-cnn", BartForConditionalGeneration, Seq2SeqGenerator,
+         dataclasses.replace(BART_CONFIGS["bart-large-cnn"], encoder_layers=2, decoder_layers=2)),
+        ("t5-large", T5ForConditionalGeneration, Seq2SeqGenerator,
+         dataclasses.replace(T5_CONFIGS["t5-large"], num_layers=2)),
+        ("llama-2-7b", LlamaForCausalLM, CausalGenerator,
+         dataclasses.replace(LLAMA_CONFIGS["llama-2-7b"], num_hidden_layers=2)),
+    )
+    for name, cls, gen_cls, cfg in cases:
+        seq2seq = gen_cls is Seq2SeqGenerator
+        encode = tok.encode_source if seq2seq else tok.encode_prompt
+        ids = np.zeros((8, 1024), np.int64)
+        mask = np.zeros((8, 1024), np.int64)
+        for r, t in enumerate(texts):
+            row = encode(t, 1024)
+            ids[r, : len(row)] = row
+            mask[r, : len(row)] = 1
+        ids, mask = torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda")
+        model = cls(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda").eval()
+        model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        fa.flash_attention.launches = fa.flash_decode.launches = 0
+        kernel = traced_beam_search(torch, gen_cls, model, cfg, ids, mask)
+        launched = (fa.flash_attention.launches, fa.flash_decode.launches)
+        with plain_kernels(fa):
+            plain = traced_beam_search(torch, gen_cls, model, cfg, ids, mask)
+        with decode_route(fa, "fault"):
+            fault = traced_beam_search(torch, gen_cls, model, cfg, ids, mask)
+        del model
+        free_cuda()
+        same = all(torch.equal(a, b) for a, b in zip(kernel[:1] + kernel[2:4],
+                                                      plain[:1] + plain[2:4]))
+        err = float((kernel[1] - plain[1]).abs().max())
+        fault_err = float((fault[1] - plain[1]).abs().nan_to_num(float("inf")).max())
+        layers = 2
+        steps = BEAM_NEW_TOKENS if seq2seq else BEAM_NEW_TOKENS - 1
+        want = (layers if seq2seq else 0, layers * steps)
+        finite = bool(torch.isfinite(kernel[1]).all())
+        say({"phase": "beam_kernel_vs_plain", "model": name, "layers": "2+2" if seq2seq else 2,
+             "beams": 2, "new_tokens": BEAM_NEW_TOKENS, "rows": 8,
+             "tokens_equal": same, "finite": finite, "chosen_logp_max_abs_err": err,
+             "atol": BEAM_LOGP_ATOL, "planted_fault_err": fault_err,
+             "smallest_top_2k_margin": kernel[4], "plain_smallest_top_2k_margin": plain[4],
+             "kernel_launches": {"flash_attention_fwd": launched[0], "flash_decode": launched[1]},
+             "expected": {"flash_attention_fwd": want[0], "flash_decode": want[1]}})
+        if not same or not finite or launched != want:
+            fail(f"{name} beam search: tokens equal {same}, finite {finite}, launches "
+                 f"{launched} (want {want})")
+        if err > BEAM_LOGP_ATOL:
+            fail(f"{name} beam search: chosen log-probs differ by {err} between the paths")
+        if not fault_err > BEAM_LOGP_ATOL:
+            fail(f"{name} beam search: the decode offset shifted by one moves the chosen "
+                 f"log-probs only {fault_err}")
 
 
 def main() -> None:
@@ -3561,7 +3860,8 @@ def main() -> None:
     # phases 5b-6b: bart-large-cnn fine-tuned from phase 5's saved HF
     # checkpoint with attention_dropout set: kernels 1-3's dropout instances
     # on the train path, and the fp32 gradient check with probs dropout
-    ckpt = attention_dropout_checkpoint(os.path.join(WORK, "bart-large-cnn-out", "model"))
+    ckpt = linked_checkpoint(os.path.join(WORK, "bart-large-cnn-out", "model"),
+                             "bart-large-cnn-attention-dropout", attention_dropout=PROBS_DROPOUT)
     drop_train, trainer = train_phase(torch, fa, fd, fo, cli, ckpt, probs_dropout=PROBS_DROPOUT)
     trainer.opt_state = None
     for p in trainer.model.parameters():
@@ -3570,6 +3870,14 @@ def main() -> None:
     grad_check_phase(torch, fa, fd, trainer)
     del trainer
     free_cuda()
+
+    # phases 6c-6d: the eval pass (bart-large-cnn fine-tuned from phase 5's
+    # checkpoint, scored with beam 2 on a validation file through kernels 1
+    # and 5) and the beam search's kernel path against its plain path
+    eval_launches = eval_phase(torch, fa, fd, fo, cli)
+    free_cuda()
+    beam_kernel_time(torch, fa)
+    beam_check_phase(torch, fa)
 
     # phases 7-10: T5 — t5-large training (7b: with attention-probs
     # dropout, kernels 1-4's dropout instances) and its gradient check,
@@ -3598,9 +3906,10 @@ def main() -> None:
     # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
     # then the contract line.  A kernel that runs on several main paths
     # reports the sum of their counts: kernel 1 the BART and T5 serve and
-    # train runs, kernels 2, 3, 7 and 8 the BART and T5 train runs, kernel 4
-    # the T5 train run, kernel 5 the BART and flan-T5 serve runs and the flat
-    # LLaMA serve, kernel 6 the paged LLaMA serve.
+    # train runs and the BART eval, kernels 2, 3, 7 and 8 the BART and T5
+    # train runs, kernel 4 the T5 train run, kernel 5 the BART and flan-T5
+    # serve runs, the flat LLaMA serve and the BART eval, kernel 6 the paged
+    # LLaMA serve.
     say({"kernels_unported": []})
     src = "distributed_llms_example_tpu_torch/csrc/"
     ref = "distributed_llms_example_tpu/ops/"
@@ -3610,13 +3919,13 @@ def main() -> None:
              sources=[src + "flash_fwd_tc.cu", src + "flash_fwd.cu"],
              replaces=ref + "flash_attention.py:119",
              launches=(launches["flash_attention_fwd"] + both["flash_attention_fwd"]
-                       + t5_serve["flash_attention_fwd"]),
+                       + t5_serve["flash_attention_fwd"] + eval_launches["flash_attention_fwd"]),
              **measured["flash_attention_fwd"]),
         dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
              sources=[src + "flash_decode.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:931",
              launches=(launches["flash_decode"] + llama_flat["flash_decode"]
-                       + t5_serve["flash_decode"]),
+                       + t5_serve["flash_decode"] + eval_launches["flash_decode"]),
              **measured["flash_decode"]),
         dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
              sources=[src + "flash_decode_paged.cu", src + "flash_decode.cuh"],

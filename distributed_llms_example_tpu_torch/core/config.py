@@ -14,11 +14,12 @@ import tempfile
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    model_ckpt: str = "bart-large-cnn"  # the reference recipe's model; T5 names train too
+    model_ckpt: str = "t5-small"
     # <output_dir>/model/: the final HF checkpoint; the JAX default
     # /tmp/dllm-tpu-out, under the process's temporary directory ($TMPDIR)
     output_dir: str = os.path.join(tempfile.gettempdir(), "dllm-tpu-out")
     train_file: str = ""
+    val_file: str = ""  # "" or a missing file = no evaluation
     tokenizer: str = ""
     source_column: str = ""
     target_column: str = ""
@@ -36,6 +37,10 @@ class TrainConfig:
     max_target_length: int = 128
     compute_dtype: str = "bfloat16"
     log_every_steps: int = 100
+    evaluation_steps: int = 500  # eval every N steps (0 = only at each epoch's end)
+    num_beams: int = 2
+    eval_max_new_tokens: int = 128
+    eval_batch_size: int = 0  # 0 = batch_size
     attention_impl: str = ""  # "" = model default (auto)
     device: str = "cuda"
     seed: int = 0  # random-init seed for the weights
@@ -66,6 +71,9 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="the final HF checkpoint goes to <output-dir>/model/")
     p.add_argument("--train-file", type=str, required=True,
                    help="path to train.json (JSON array, JSONL or {\"data\": [...]})")
+    p.add_argument("--val-file", type=str, default=d.val_file,
+                   help="path to val.json: ROUGE of the generated summaries every "
+                        "--evaluation-steps and at each epoch's end")
     p.add_argument("--target-column", type=str, default=d.target_column)
     p.add_argument("--batch-size", type=int, default=d.batch_size)
     p.add_argument("--num-epochs", type=int, default=d.num_epochs)
@@ -81,6 +89,10 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", type=str, default=d.compute_dtype,
                    choices=("float32", "bfloat16"))
     p.add_argument("--log-every-steps", type=int, default=d.log_every_steps)
+    p.add_argument("--evaluation-steps", type=int, default=d.evaluation_steps)
+    p.add_argument("--num-beams", type=int, default=d.num_beams)
+    p.add_argument("--eval-max-new-tokens", type=int, default=d.eval_max_new_tokens)
+    p.add_argument("--eval-batch-size", type=int, default=d.eval_batch_size)
     return p
 
 

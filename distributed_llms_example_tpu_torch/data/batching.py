@@ -34,28 +34,34 @@ def pad_2d(seqs: Sequence[Sequence[int]], width: int, pad_value: int) -> np.ndar
 
 class BatchIterator:
     """Per-epoch iterator over padded batches: a deterministic function of
-    (seed, epoch), the same arrays the JAX package's training iterator
-    yields in a single process (shuffled, last partial batch dropped)."""
+    (seed, epoch), the same arrays the JAX package's iterator yields in a
+    single process.  Training takes the defaults (shuffled, last partial
+    batch dropped); evaluation passes ``shuffle=False, drop_last=False``
+    (the corpus in order, the last batch wrapped around to the start)."""
 
     def __init__(self, ds: SummarizationDataset, *, global_batch: int, seed: int = 1234,
+                 shuffle: bool = True, drop_last: bool = True,
                  bucket_multiple: int = 128, max_source_length: int = 1024,
                  max_target_length: int = 128):
         self.ds = ds
         self.global_batch = global_batch
         self.seed = seed
+        self.shuffle, self.drop_last = shuffle, drop_last
         self.bucket_multiple = bucket_multiple
         self.max_source_length = max_source_length
         self.max_target_length = max_target_length
 
     def steps_per_epoch(self) -> int:
-        return len(self.ds) // self.global_batch
+        steps, rem = divmod(len(self.ds), self.global_batch)
+        return steps + (1 if rem and not self.drop_last else 0)
 
     def epoch(self, epoch: int) -> Iterator[dict[str, np.ndarray]]:
         """The epoch's batches: input_ids, attention_mask (from lengths, so
         a pad id inside a sequence stays attended) and labels, int32."""
         pad_id = self.ds.tokenizer.pad_id
         for idx in iter_global_batches(len(self.ds), self.global_batch, seed=self.seed,
-                                       epoch=epoch):
+                                       epoch=epoch, shuffle=self.shuffle,
+                                       drop_last=self.drop_last):
             ex = [self.ds[int(i)] for i in idx]
             src_w = bucket_len(max(len(e.input_ids) for e in ex), self.bucket_multiple,
                                self.max_source_length)

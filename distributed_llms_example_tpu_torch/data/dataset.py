@@ -106,15 +106,24 @@ class SummarizationDataset:
         return ex
 
 
-def epoch_order(n: int, *, seed: int, epoch: int) -> np.ndarray:
-    """Deterministic (shuffled) example order for an epoch."""
+def epoch_order(n: int, *, seed: int, epoch: int, shuffle: bool = True) -> np.ndarray:
+    """Deterministic example order for an epoch: a permutation, or
+    ``0..n-1`` without ``shuffle`` (the eval order)."""
+    if not shuffle:
+        return np.arange(n)
     return np.random.RandomState(seed + epoch).permutation(n)
 
 
-def iter_global_batches(n: int, global_batch: int, *, seed: int,
-                        epoch: int) -> Iterator[np.ndarray]:
-    """Index arrays of exactly ``global_batch`` per step; the last partial
-    batch is dropped."""
-    order = epoch_order(n, seed=seed, epoch=epoch)
-    for s in range(n // global_batch):
+def iter_global_batches(n: int, global_batch: int, *, seed: int, epoch: int,
+                        shuffle: bool = True, drop_last: bool = True) -> Iterator[np.ndarray]:
+    """Index arrays of exactly ``global_batch`` per step.  The last partial
+    batch is dropped, or with ``drop_last=False`` wraps around to the
+    epoch start, so that every batch keeps its shape even for a corpus
+    smaller than one batch (``np.resize`` cycles the order)."""
+    order = epoch_order(n, seed=seed, epoch=epoch, shuffle=shuffle)
+    steps, rem = divmod(n, global_batch)
+    for s in range(steps):
         yield order[s * global_batch : (s + 1) * global_batch]
+    if rem and not drop_last:
+        tail = order[steps * global_batch :]
+        yield np.concatenate([tail, np.resize(order, global_batch - rem)])

@@ -1,0 +1,97 @@
+"""The eval pass (port of the JAX package's ``evaluation/evaluate.py``):
+generation → decode → ROUGE → the mean over processes.
+
+The reference's eval loop, per batch: ``generate`` with beam search, label
+-100 replaced by pad, decode, ROUGE with the stemmer.  Here the batches
+come in corpus order with the last one wrapped around to the start (the
+JAX package's fixed shapes), and the wrapped rows are trimmed before
+scoring.  The model runs on its own device in eval mode under
+``torch.no_grad()`` (its mode restored after): no dropout, and no seed
+drawn from any dropout stream.  On CUDA the encoder runs through the
+flash-attention kernel and every cached decoder step through the flash
+decode kernel, or the pass raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD, BatchIterator
+from distributed_llms_example_tpu_torch.data.dataset import SummarizationDataset
+from distributed_llms_example_tpu_torch.data.tokenizer import Tokenizer
+from distributed_llms_example_tpu_torch.evaluation import rouge as rouge_mod
+from distributed_llms_example_tpu_torch.evaluation.generation import (
+    CausalGenerator,
+    Seq2SeqGenerator,
+)
+from distributed_llms_example_tpu_torch.evaluation.metrics import aggregate_mean
+
+
+@dataclasses.dataclass
+class Evaluator:
+    model: torch.nn.Module
+    config: Any
+    tokenizer: Tokenizer
+    num_beams: int = 2
+    max_new_tokens: int = 128
+    length_penalty: float = 1.0
+    is_seq2seq: bool = True
+
+    def __post_init__(self) -> None:
+        cls = Seq2SeqGenerator if self.is_seq2seq else CausalGenerator
+        self.generator = cls(self.model, self.config, self.max_new_tokens,
+                             num_beams=self.num_beams, length_penalty=self.length_penalty)
+
+    def _decode_batch(self, ids: np.ndarray) -> list[str]:
+        """Each row's text: its tokens up to the first eos, pads dropped."""
+        eos, pad = self.config.eos_token_id, self.config.pad_token_id
+        out = []
+        for row in ids:
+            toks = []
+            for t in row.tolist():
+                if t == eos:
+                    break
+                if t != pad:
+                    toks.append(t)
+            out.append(self.tokenizer.decode(toks))
+        return out
+
+    def run(self, ds: SummarizationDataset, *, global_batch: int, bucket_multiple: int = 128,
+            max_source_length: int = 1024) -> dict[str, float]:
+        """ROUGE-1/2/L/Lsum means over ``ds``, ``global_batch`` rows a
+        generation."""
+        if not self.is_seq2seq:
+            raise NotImplementedError(
+                "the causal eval pass needs CausalLMDataset, which comes with LLaMA training "
+                "(ROADMAP.md queue 1 item 3)")
+        it = BatchIterator(ds, global_batch=global_batch, seed=0, shuffle=False,
+                           drop_last=False, bucket_multiple=bucket_multiple,
+                           max_source_length=max_source_length,
+                           max_target_length=self.max_new_tokens)
+        device = next(self.model.parameters()).device
+        preds: list[str] = []
+        refs: list[str] = []
+        seen = 0
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                for batch in it.epoch(0):
+                    out = self.generator.run(
+                        torch.as_tensor(batch["input_ids"], device=device).long(),
+                        torch.as_tensor(batch["attention_mask"], device=device).long())
+                    labels = np.where(batch["labels"] == LABEL_PAD, self.config.pad_token_id,
+                                      batch["labels"])
+                    # the last batch wraps around: its rows past the corpus
+                    # repeat the epoch's start
+                    valid = min(global_batch, len(ds) - seen)
+                    preds.extend(self._decode_batch(out.cpu().numpy()[:valid]))
+                    refs.extend(self._decode_batch(labels[:valid]))
+                    seen += global_batch
+        finally:
+            self.model.train(was_training)
+        return aggregate_mean(rouge_mod.compute(preds, refs, use_stemmer=True))

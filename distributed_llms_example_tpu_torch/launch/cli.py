@@ -9,6 +9,9 @@
         --num-epochs 1 --max-source-length 1024 --max-target-length 128
     python -m distributed_llms_example_tpu_torch.launch.cli \\
         --model-ckpt <HF checkpoint dir> --output-dir out --train-file train.json
+    python -m distributed_llms_example_tpu_torch.launch.cli \\
+        --model-ckpt bart-large-cnn --train-file train.json --val-file val.json \\
+        --evaluation-steps 500 --num-beams 2 --eval-max-new-tokens 128
     python -m distributed_llms_example_tpu_torch.launch.cli serve \\
         --model-ckpt bart-large-cnn --prompts-file prompts.json \\
         --max-slots 8 --max-new-tokens 128 --max-source-length 1024
@@ -24,7 +27,9 @@ Both take ``--device`` (default ``cuda``; without a GPU they stop unless
 weights are drawn from ``--seed``: no weights ship with the repository, or
 a local HF checkpoint directory, whose weights are read) and ``--seed``.
 Training takes a seq2seq model (T5 or BART) and the JAX CLI's flags that
-the port implements (``core/config.py``), no others, and writes the
+the port implements (``core/config.py``), no others, scores the model on
+``--val-file`` (ROUGE of beam-search summaries, an ``eval`` line every
+``--evaluation-steps`` steps and at each epoch's end) and writes the
 fine-tuned model to ``<output-dir>/model/`` as an HF checkpoint.  ``serve`` takes every family of the
 registry but Mixtral, and encodes a seq2seq model's prompts as sources
 (ending in eos) and a causal model's as prompts (no eos), as the JAX CLI
@@ -227,7 +232,12 @@ def train(argv: list[str] | None = None, *, loaded=None):
     from distributed_llms_example_tpu_torch.train.trainer import Trainer
 
     cfg = config_from_args(build_train_parser().parse_args(argv))
-    trainer = Trainer(cfg, load_json_records(cfg.train_file), loaded=loaded)
+    # the JAX CLI's rule: a validation file is read only when it is given
+    # and exists
+    val = cfg.val_file
+    val_records = load_json_records(val) if val and os.path.exists(val) else None
+    trainer = Trainer(cfg, load_json_records(cfg.train_file), val_records=val_records,
+                      loaded=loaded)
     trainer.train()
     trainer.save_final()
     return trainer

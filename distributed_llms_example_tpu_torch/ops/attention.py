@@ -50,6 +50,63 @@ def dot_product_attention(
     return torch.matmul(probs.to(dtype), v.to(dtype))
 
 
+def grouped_dot_product_attention(
+    q5: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    scale: float | None = None,
+    dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """``dot_product_attention`` with a beam group folded next to the heads.
+
+    ``q5`` (B, G, H, Q, d) attends the shared ``k``/``v`` (B, H, K, d):
+    the einsum contracts without building the (B·G, H, K, d) repeat, so
+    the K/V of a row are read once for all its beams.  The same arithmetic
+    per element as ``dot_product_attention`` on repeated K/V: scores and
+    softmax in fp32, the value product in ``dtype``.  ``bias`` is (B|1,
+    1|H, Q, K): per row, like K/V, never per beam."""
+    if scale is None:
+        scale = q5.shape[-1] ** -0.5
+    dtype = dtype or q5.dtype
+    scores = torch.einsum("bghqd,bhkd->bghqk", q5.float(), k.float()) * scale
+    if bias is not None:
+        scores = scores + bias.float()[:, None]
+    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    return torch.einsum("bghqk,bhkd->bghqd", probs.to(dtype), v.to(dtype))
+
+
+def beam_grouped_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    scale: float | None = None,
+    dtype: torch.dtype | None = None,
+    learned_bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Beam-decode front end of ``grouped_dot_product_attention``: ``q``
+    (B·G, H, Q, d) is the flat beam batch, ``k``/``v`` (B, H, K, d) are
+    shared by the G beams of a row.  A per-beam ``bias`` (leading dim B·G)
+    is stride-sliced to one row a group (the beams of a row share their
+    mask); ``learned_bias`` (1, H, Q, K) is added on top.  Returns (B·G,
+    H, Q, d)."""
+    B = k.shape[0]
+    G = q.shape[0] // B
+    H, Q, d = q.shape[1], q.shape[2], q.shape[3]
+    bb = None
+    if bias is not None:
+        bb = bias if bias.shape[0] in (1, B) else bias[::G]
+    if learned_bias is not None:
+        bb = learned_bias if bb is None else bb + learned_bias
+    out = grouped_dot_product_attention(q.reshape(B, G, H, Q, d), k, v, bb, scale=scale,
+                                        dtype=dtype)
+    return out.reshape(B * G, H, Q, d)
+
+
 def make_causal_bias(q_len: int, kv_len: int, *, device: torch.device | str = "cpu") -> torch.Tensor:
     """(1, 1, q_len, kv_len) additive causal mask (query i sees keys <= i)."""
     q_pos = torch.arange(q_len, device=device)[:, None]

@@ -16,7 +16,10 @@ shape the kernels have an instance for; for CPU tensors, by the JAX
 package's own rule), and to plain attention (the counterpart of the JAX
 package's XLA path, hence the name ``"xla"``) otherwise.  A cached pass of
 more than ``MAX_DECODE_Q_ROWS`` rows (the LLaMA prompt prefill) is plain
-attention, as in the JAX package.  Attention-probs dropout
+attention, as in the JAX package, and so is a beam-search cross-attention,
+whose ``cross_kv`` holds one row for the G beams of a row: the beam group
+is folded next to the heads (``ops/attention.beam_grouped_attention``),
+or under GQA K/V are repeated per beam.  Attention-probs dropout
 (``probs_dropout_rate``) applies to uncached passes in training mode: one
 int32 seed a call from the host-side stream of ``fused_dropout.next_seed``
 (what ``train_step`` opens with ``dropout_seeds``), passed to the flash
@@ -35,6 +38,7 @@ from torch import nn
 
 from distributed_llms_example_tpu_torch.ops.attention import (
     NEG_INF,
+    beam_grouped_attention,
     dot_product_attention,
     make_causal_bias,
 )
@@ -314,9 +318,18 @@ class MultiHeadAttention(nn.Module):
         if cross_kv is not None:
             k, v = cross_kv
             if k.shape[0] != hidden.shape[0]:
-                raise NotImplementedError(
-                    "beam-grouped cross-attention waits for the beam-search slice (ROADMAP)"
-                )
+                G = hidden.shape[0] // k.shape[0]
+                if self.kv_heads != self.num_heads:
+                    # GQA cannot fold the beams next to the heads (the head
+                    # counts already differ): K/V repeated per beam instead
+                    k, v = k.repeat_interleave(G, dim=0), v.repeat_interleave(G, dim=0)
+                else:
+                    # beam decode: the beams of a row share its cross K/V,
+                    # read once a row (plain attention, as in the JAX package)
+                    _log_impl_once("xla", "beam-grouped cross-attention")
+                    out = beam_grouped_attention(q, k, v, bias, scale=self.scale,
+                                                 dtype=self.dtype, learned_bias=learned_bias)
+                    return self._merge(out)
         else:
             kv_src = hidden if kv_hidden is None else kv_hidden
             k = self._split(self.k_proj(kv_src), self.kv_heads)

@@ -1,16 +1,20 @@
 """A minimal trainer (port of the JAX package's ``train/trainer.py``, one
 device): dataset → bucketed batches → the epoch loop of ``train_step`` →
-the JSON step lines of ``MetricLogger`` → ``save_final``, the fine-tuned
-model as an HF checkpoint.
+the JSON step lines of ``MetricLogger``, an ``eval`` line (ROUGE of the
+validation set's generated summaries, ``evaluate``) every
+``evaluation_steps`` steps and at each epoch's end → ``save_final``, the
+fine-tuned model as an HF checkpoint.
 
 Weights are random-init from ``seed``, or read from a local HF checkpoint
 directory (``--model-ckpt <dir>``), with fp32 master copies (the training
 build of ``models/registry.py``); activations run in the compute dtype.
 Dropout seeds (the residual dropout's and the attention-probs dropout's)
 come from a CPU ``torch.Generator`` seeded with ``shuffle_seed``, so a
-step draws nothing on the device.  Losses stay device tensors until a
-logging step converts them.  Evaluation, mid-run checkpoints and resume,
-health/obs/recovery and multi-GPU wait for later slices (ROADMAP.md).
+step draws nothing on the device; the eval pass draws no seed, so a run
+with evaluation trains exactly as one without.  Losses stay device
+tensors until a logging step converts them.  Mid-run checkpoints and
+resume, health/obs/recovery and multi-GPU wait for later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resol
 from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD, BatchIterator
 from distributed_llms_example_tpu_torch.data.dataset import SummarizationDataset
 from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
+from distributed_llms_example_tpu_torch.evaluation.evaluate import Evaluator
 from distributed_llms_example_tpu_torch.io.valohai_meta import save_valohai_metadata
 from distributed_llms_example_tpu_torch.models.export import save_hf_checkpoint
 from distributed_llms_example_tpu_torch.models.registry import LoadedModel, load_model
@@ -58,8 +63,9 @@ def batch_tokens(batch: dict[str, np.ndarray]) -> int:
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, train_records: Sequence[dict], *,
-                 loaded: LoadedModel | None = None):
-        """``loaded``: a model the caller built for training (fp32 master
+                 val_records: Sequence[dict] | None = None, loaded: LoadedModel | None = None):
+        """``val_records``: the validation set; without it there is no
+        evaluation.  ``loaded``: a model the caller built for training (fp32 master
         weights, the compute dtype, on ``cfg.device``, its attention route
         in its config: ``--attention-impl`` is refused beside it) in place
         of loading ``cfg.model_ckpt``, for a configuration that no registry
@@ -84,11 +90,21 @@ class Trainer:
         self.loaded = loaded
         self.model = self.loaded.module
         self.tokenizer = get_tokenizer(cfg.tokenizer, cfg.model_ckpt)
-        self.train_ds = SummarizationDataset(
-            train_records, self.tokenizer, max_source_length=cfg.max_source_length,
-            max_target_length=cfg.max_target_length, source_column=cfg.source_column,
-            target_column=cfg.target_column,
-        )
+        def dataset(records):
+            return SummarizationDataset(
+                records, self.tokenizer, max_source_length=cfg.max_source_length,
+                max_target_length=cfg.max_target_length, source_column=cfg.source_column,
+                target_column=cfg.target_column,
+            )
+
+        self.train_ds = dataset(train_records)
+        self.val_ds = dataset(val_records) if val_records else None
+        self.evaluator = None
+        if self.val_ds:
+            self.evaluator = Evaluator(self.model, self.loaded.config, self.tokenizer,
+                                       num_beams=cfg.num_beams,
+                                       max_new_tokens=cfg.eval_max_new_tokens,
+                                       is_seq2seq=self.loaded.is_seq2seq)
         self.batches = BatchIterator(
             self.train_ds, global_batch=cfg.batch_size, seed=cfg.shuffle_seed,
             bucket_multiple=cfg.pad_to_multiple, max_source_length=cfg.max_source_length,
@@ -119,10 +135,29 @@ class Trainer:
                   "param_tensors": len(self.named_params), "total_steps": self.total_steps,
                   "compute_dtype": cfg.compute_dtype, "grad_accum_steps": cfg.grad_accum_steps})
 
+    def evaluate(self, epoch: int | None = None, step: int | None = None) -> dict[str, float]:
+        """ROUGE of the validation set (no validation set: nothing), logged
+        as one ``eval`` line with ``step`` and ``epoch``.  The eval batch is
+        ``eval_batch_size`` (0: ``batch_size``), at most the set's size.
+        The model runs in eval mode under no_grad and is back in training
+        mode after (``Evaluator.run``)."""
+        if self.val_ds is None:
+            return {}
+        cfg = self.cfg
+        eval_batch = min(cfg.eval_batch_size or cfg.batch_size, len(self.val_ds))
+        scores = self.evaluator.run(self.val_ds, global_batch=eval_batch,
+                                    bucket_multiple=cfg.pad_to_multiple,
+                                    max_source_length=cfg.max_source_length)
+        if epoch is not None:
+            scores["epoch"] = float(epoch)
+        log_json({"event": "eval", **({"step": step} if step is not None else {}), **scores})
+        return scores
+
     def train(self) -> dict[str, Any]:
         cfg = self.cfg
         logger = MetricLogger(every=cfg.log_every_steps)
         step = 0
+        last_eval: dict[str, float] = {}
         t0 = time.perf_counter()
         for epoch in range(cfg.num_epochs):
             for batch in self.batches.epoch(epoch):
@@ -136,12 +171,16 @@ class Trainer:
                 logger.step(step, metrics["loss"], lr=metrics["learning_rate"],
                             tokens=batch_tokens(batch), epoch=epoch)
                 self.step_ends.append(time.perf_counter())
+                if cfg.evaluation_steps > 0 and step % cfg.evaluation_steps == 0:
+                    last_eval = self.evaluate(epoch, step=step)
+            # the epoch's partial metric window first, then its eval
             logger.flush(step, epoch=epoch)
+            last_eval = self.evaluate(epoch, step=step)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
         log_json({"event": "done", "steps": step, "wall_seconds": wall})
-        return {"steps": step, "wall_seconds": wall}
+        return {"steps": step, "wall_seconds": wall, "final_eval": last_eval}
 
     def save_final(self) -> str:
         """The final artifact, as the JAX trainer writes it (the reference's

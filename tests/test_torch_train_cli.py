@@ -7,7 +7,12 @@ writes <output-dir>/model/ (the reload is bit-equal to the trained
 weights); T5's and BART's training attention reaching flash_attention with
 the probs-dropout rate and a seed; the train entry taking a T5 built
 with attn_dropout_rate; LLaMA serving with attention_dropout
-and refusing to train."""
+and refusing to train.  Evaluation: ``--val-file`` with
+``--evaluation-steps 2`` over 3 steps logs ``eval`` lines (the four ROUGE
+means, step, epoch) at step 2 and at the epoch's end, the losses are bit
+for bit those of a run without it, and without a validation file (or with
+a missing one) there is no eval line.  The default ``--model-ckpt`` is the
+JAX CLI's."""
 
 import json
 
@@ -15,21 +20,22 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_llms_example_tpu.core.config import TrainConfig as JaxTrainConfig
 from distributed_llms_example_tpu_torch.launch.cli import (
     build_serve_parser,
     build_train_parser,
     main,
     train,
 )
-from distributed_llms_example_tpu_torch.models.registry import BART_CONFIGS
+from distributed_llms_example_tpu_torch.models.registry import T5_CONFIGS
 
 
-def _write(tmp_path, n=12):
-    rng = np.random.RandomState(0)
+def _write(tmp_path, n=12, name="train.json", seed=0):
+    rng = np.random.RandomState(seed)
     alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz   .,"))
     recs = [{"dialogue": "".join(rng.choice(alphabet, rng.randint(20, 100))),
              "summary": "".join(rng.choice(alphabet, rng.randint(5, 30)))} for _ in range(n)]
-    path = tmp_path / "train.json"
+    path = tmp_path / name
     path.write_text(json.dumps(recs))
     return path
 
@@ -76,11 +82,12 @@ def test_train_and_serve_share_the_model_flags(tmp_path):
     targs = build_train_parser().parse_args(["--train-file", "t.json"])
     sargs = build_serve_parser().parse_args(["--prompts-file", "p.json"])
     assert {k: getattr(targs, k) for k in shared} == {k: getattr(sargs, k) for k in shared}
-    # the default model is one the port builds
-    assert targs.model_ckpt in BART_CONFIGS
+    # the default model is the JAX CLI's, and one the port builds
+    assert targs.model_ckpt == JaxTrainConfig().model_ckpt
+    assert targs.model_ckpt in T5_CONFIGS
 
 
-@pytest.mark.parametrize("flag", [["--evaluation-steps", "10"], ["--optim-impl", "fused"],
+@pytest.mark.parametrize("flag", [["--save-every-steps", "10"], ["--optim-impl", "fused"],
                                   ["--mesh", "data=2"], ["--remat"]])
 def test_unimplemented_flags_are_refused(tmp_path, flag):
     with pytest.raises(SystemExit):
@@ -253,3 +260,67 @@ def test_llama_with_attention_dropout_serves_and_refuses_to_train(tmp_path):
         assert torch.equal(lm.module(ids), lm.module(ids))
     with pytest.raises(NotImplementedError, match="later slice"):
         load_model(str(ckpt), device="cpu", train=True)
+
+
+def _eval_args(tmp_path, *extra, val=True):
+    val_args = ["--val-file", str(_write(tmp_path, 5, "val.json", seed=1))] if val else []
+    return _args(_write(tmp_path, 12), *val_args, "--log-every-steps", "1",
+                 "--eval-max-new-tokens", "8", "--eval-batch-size", "2", *extra)
+
+
+def _lines(capsys):
+    return [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+
+
+def test_eval_every_n_steps_and_at_the_epoch_end(tmp_path, capsys):
+    """``--val-file v.json --evaluation-steps 2`` over 3 steps (12 records,
+    batch 4): an eval line at step 2 and one at the epoch's end (step 3),
+    after that epoch's step lines, each with the four ROUGE means in [0, 1],
+    step and epoch; the trainer returns the last one."""
+    assert main(_eval_args(tmp_path, "--evaluation-steps", "2", "--num-beams", "2")) == 0
+    lines = _lines(capsys)
+    evals = [x for x in lines if x.get("event") == "eval"]
+    assert [x["step"] for x in evals] == [2, 3]
+    for x in evals:
+        assert set(x) == {"event", "step", "epoch", "rouge1", "rouge2", "rougeL", "rougeLsum"}
+        assert x["epoch"] == 0.0
+        assert all(0.0 <= x[k] <= 1.0 for k in ("rouge1", "rouge2", "rougeL", "rougeLsum"))
+    order = [x.get("event", "step") for x in lines if "loss" in x or x.get("event") == "eval"]
+    assert order == ["step", "step", "eval", "step", "eval"]
+
+
+def test_eval_leaves_training_bit_equal(tmp_path, capsys):
+    """A run with evaluation after every step and at each epoch's end (8
+    eval passes over 2 epochs of 3 steps) logs the same losses, bit for
+    bit, as the same run without a validation file, and ends with the same
+    weights: the eval pass draws no dropout seed and leaves the model in
+    training mode."""
+    with_eval = train(_eval_args(tmp_path, "--evaluation-steps", "1", "--num-epochs", "2",
+                                 "--output-dir", str(tmp_path / "a")))
+    assert sum(x.get("event") == "eval" for x in _lines(capsys)) == 2 * (3 + 1)
+    assert with_eval.model.training
+    from distributed_llms_example_tpu_torch.ops import fused_dropout, mha
+
+    drawn = []
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (fused_dropout, mha):
+            mp.setattr(mod, "next_seed", lambda: drawn.append(1) or 0)
+        assert set(with_eval.evaluate(1, step=6)) >= {"rouge1", "epoch"}
+    assert drawn == [] and with_eval.model.training
+    capsys.readouterr()
+    without = train(_eval_args(tmp_path, "--evaluation-steps", "1", "--num-epochs", "2",
+                               "--output-dir", str(tmp_path / "b"), val=False))
+    assert not any(x.get("event") == "eval" for x in _lines(capsys))
+    a = [float(m["loss"]) for m in with_eval.history]
+    b = [float(m["loss"]) for m in without.history]
+    assert len(a) == 6 and a == b
+    sa, sb = with_eval.model.state_dict(), without.model.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+@pytest.mark.parametrize("how", ["none", "missing"])
+def test_no_val_file_means_no_eval(tmp_path, capsys, how):
+    extra = [] if how == "none" else ["--val-file", str(tmp_path / "absent.json")]
+    trainer = train(_args(_write(tmp_path, 8), "--evaluation-steps", "1", *extra))
+    assert trainer.val_ds is None and trainer.evaluate() == {}
+    assert not any(x.get("event") == "eval" for x in _lines(capsys))
