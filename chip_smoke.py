@@ -4,8 +4,9 @@ against its plain PyTorch version on the card, serves bart-large-cnn at
 full width through the port's ``serve`` entry and fine-tunes it through the
 train entry, which saves it as an HF checkpoint, then fine-tunes it again
 from that checkpoint with attention_dropout set (kernels 1-3's probs
-dropout), fine-tunes t5-large and serves flan-t5-xl at full width the
-same ways, serves llama-2-7b at full width through ``serve --paged-kv`` and
+dropout), stops, resumes and rewinds it (checkpoints, SIGTERM, the
+health watchdog on kernel 8's sums), fine-tunes t5-large and serves
+flan-t5-xl at full width the same ways, serves llama-2-7b at full width through ``serve --paged-kv`` and
 through the flat cache, runs the reference recipe's eval pass (beam search
 and ROUGE on a validation file) on bart-large-cnn, and checks that each run
 went through its kernels.
@@ -134,7 +135,12 @@ Phases (each fatal, non-zero exit, no result line):
      reloaded (load_model(dir, train=True)) bit-equal in every parameter;
      then
      three more steps timed for host enqueue vs finish on the card, and one
-     under torch.profiler (device busy, kernels by group and by launches)
+     under torch.profiler (device busy, kernels by group and by launches);
+     every train run (5, 5b, 5c, 6c, 7, 7b) empties its --output-dir first
+     (a run resumes from the checkpoints it finds there) and, after its
+     checks, deletes the checkpoints/ that every run now ends with (phase
+     5's model/ stays: 5b, 5c and 6c read it), printing each save's and
+     restore's seconds and GB
   6. gradient check: one fp32 forward+backward with dropout on, kernel
      path vs plain path (same seeds, so the same masks): loss, global grad
      norm and the largest per-tensor grad difference within limits that a
@@ -147,6 +153,29 @@ Phases (each fatal, non-zero exit, no result line):
  6b. phase 6's fp32 check on that model (probs dropout 0.1): the fault
      that must break the limits is the probs-dropout seed off by one in
      kernels 2-4
+ 5c. fault tolerance, phase 5's recipe: (a) from phase 5's checkpoint
+     with dropout, attention_dropout and activation_dropout 0 (weights
+     linked), an uninterrupted run with --save-every-steps 3, a run with
+     --chaos sigterm@4 (a real SIGTERM to this process through the
+     trainer's handler, restored after) that stops preempted at step 4,
+     and a third run in its --output-dir that logs resumed at step 4 with
+     cursor (0, 4) and takes steps 5-6, kernels 1-3 and 8 launched for
+     exactly those 2 steps: its losses, its final checkpoint's payload
+     (parameters, mu, nu, count) and its model/ export bit-equal to the
+     uninterrupted run's; (b) the default config (dropout 0.1, kernel 7)
+     with --save-every-steps 2 --health on --on-anomaly rewind --chaos
+     nan_grad@3 --log-every-steps 1: exactly one chaos_injection,
+     obs_anomaly (nonfinite), rewind to step 2, quarantine and
+     quarantine_skip, 5 steps with a finite final loss, kernel 8's
+     non-finite count > 0 at the anomaly step's first run only, the leaf
+     table built once, the final state bit-equal to a clean run that
+     quarantines the same batch from the start; (c) one more step of that
+     trainer: param_norm and the four update ratios from kernel 8's
+     float64 sums within 1e-6 relative of kernel 8's plain version's on
+     the same state, and the leaf of the largest norm moved to another
+     bucket must break it; (d) each save's and restore's seconds and GB,
+     the crc32 manifest's and verify's GB/s, the peak bytes under
+     build/chip_smoke/
   6c. eval: the CLI's train entry on bart-large-cnn from phase 5's saved
      checkpoint (the weights linked), bf16, --tokenizer byte, 16 records
      (2 steps of 8) and a --val-file of 16 (sources of 200-1024
@@ -214,7 +243,8 @@ Phases (each fatal, non-zero exit, no result line):
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
      kernel 8 both entries of its source; kernels 1 and 5 count phase 6c's
-     eval launches too),
+     eval launches too, kernels 1-3, 7 and 8 phase 5c's resumed and rewind
+     runs),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -228,6 +258,8 @@ import contextlib
 import json
 import math
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2338,12 +2370,13 @@ def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn", *, probs_
     path = os.path.join(WORK, "train.json")
     write_train_records(path)
     run = os.path.basename(model) + ("" if loaded is None else "-attention-dropout")
-    out_dir = os.path.join(WORK, run + "-out")
+    out_dir = fresh_dir(run + "-out")
     zero_counters(fa, fd, fo)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = cli.train([*TRAIN_ARGS, "--model-ckpt", model, "--train-file", path,
-                         "--output-dir", out_dir], loaded=loaded)
+    with logged_events() as events:
+        trainer = cli.train([*TRAIN_ARGS, "--model-ckpt", model, "--train-file", path,
+                             "--output-dir", out_dir], loaded=loaded)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters(fa, fd, fo)
@@ -2401,7 +2434,320 @@ def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn", *, probs_
     if t5 and (len(tables) != 2 or min(tables.values()) <= 0.0):
         fail(f"{run}: a relative-position bucket table got no gradient: {tables}")
     profile_train_step(torch, trainer)
+    checkpoint_costs(run, events, out_dir)
     return launches | {f"{k}_dropout": v for k, v in dropped.items()}, trainer
+
+
+def fresh_dir(name: str) -> str:
+    """<WORK>/<name>, emptied: a run resumes from the checkpoints it finds
+    in its --output-dir, and a save refuses a step already on disk."""
+    path = os.path.join(WORK, name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def tree_bytes(path: str) -> int:
+    """Bytes of the files under ``path`` (a link counts as itself)."""
+    return sum(os.lstat(os.path.join(d, f)).st_size for d, _, fs in os.walk(path) for f in fs)
+
+
+# the modules whose JSON lines the fault-tolerance checks read
+LOGGING_MODULES = ("train.trainer", "io.checkpoint", "obs.health", "obs.chaos", "obs.recorder",
+                   "train.recovery")
+
+
+@contextlib.contextmanager
+def logged_events():
+    """Every JSON line those modules log, collected (and printed as ever);
+    a ``ckpt_saved`` line also gets the bytes under WORK when it is logged
+    (the write is renamed into place, retention not yet applied: the peak)."""
+    import importlib
+
+    mods = [importlib.import_module(f"distributed_llms_example_tpu_torch.{m}")
+            for m in LOGGING_MODULES]
+    real = mods[0].log_json
+    events: list[dict] = []
+
+    def log(obj, **kw):
+        obj = dict(obj)
+        if obj.get("event") == "ckpt_saved":
+            obj["work_bytes"] = tree_bytes(WORK)
+        events.append(obj)
+        real(obj, **kw)
+
+    for m in mods:
+        m.log_json = log
+    try:
+        yield events
+    finally:
+        for m in mods:
+            m.log_json = real
+
+
+def checkpoint_costs(run: str, events: list[dict], out_dir: str) -> None:
+    """Each save's and restore's seconds and GB (the crc32 manifest's and
+    verify's GB/s beside them), the peak bytes under WORK; then the run's
+    checkpoints/ goes (its model/ export stays)."""
+    saves = [{"step": e["step"], "gb": e["bytes"] / 1e9, "host_copy_s": e["copy_s"],
+              "write_s": e["write_s"], "manifest_crc32_s": e["manifest_s"],
+              "crc32_gb_per_s": e["bytes"] / 1e9 / max(e["manifest_s"], 1e-9)}
+             for e in events if e.get("event") == "ckpt_saved"]
+    restores = [{"step": e["step"], "gb": e["bytes"] / 1e9, "verify_s": e["verify_s"],
+                 "read_s": e["read_s"], "verify_gb_per_s": e["bytes"] / 1e9 / max(e["verify_s"], 1e-9)}
+                for e in events if e.get("event") == "ckpt_restored"]
+    say({"phase": "checkpoint_cost", "run": run, "saves": saves, "restores": restores,
+         "peak_work_gb": max([e["work_bytes"] for e in events if "work_bytes" in e] + [0]) / 1e9})
+    shutil.rmtree(os.path.join(out_dir, "checkpoints"), ignore_errors=True)
+
+
+# phase 5c: phase 5's recipe with a checkpoint every 3 steps, the second run
+# preempted by a real SIGTERM to this process after step 4
+FT_SAVE_EVERY = 3
+FT_PREEMPT_AT = 4
+# the rewind run: a checkpoint every 2 steps, NaN before step 3
+FT_REWIND_SAVE_EVERY = 2
+FT_NAN_AT = 3
+# health numerics from kernel 8's float64 per-leaf sums against the same
+# numbers from its plain version's (fp32 sums per leaf): relative
+HEALTH_RTOL = 1e-6
+
+
+def equal_payloads(torch, a: str, b: str) -> bool:
+    """Two checkpoint steps' state.safetensors hold the same tensors, bit
+    for bit, and their meta.json the same host scalars."""
+    from distributed_llms_example_tpu_torch.io.safetensors import load_file
+
+    ta, tb = (load_file(os.path.join(d, "state.safetensors")) for d in (a, b))
+    metas = [json.load(open(os.path.join(d, "meta.json"))) for d in (a, b)]
+    return set(ta) == set(tb) and all(torch.equal(ta[k], tb[k]) for k in ta) \
+        and metas[0] == metas[1]
+
+
+def ft_events(events, name):
+    return [e for e in events if e.get("event") == name]
+
+
+def fault_tolerance_phase(torch, fa, fd, fo, cli) -> dict:
+    """Phase 5c: phase 5's recipe (bart-large-cnn, bf16, batch 8, 6 steps).
+    (a) From phase 5's checkpoint with every dropout 0: an uninterrupted run
+    with a checkpoint every 3 steps, one that a SIGTERM stops after step 4,
+    and one resuming it: steps 5-6's losses, the final checkpoint's payload
+    and the model export bit-equal to the uninterrupted run's, kernels 1-3
+    and 8 launched for exactly 2 steps.  (b) The default config (dropout
+    0.1: kernel 7 too) with a rewind on a NaN before step 3: one rewind to
+    step 2, kernel 8's non-finite count > 0 at the anomaly step only, the
+    leaf table built once, the final state bit-equal to a clean run that
+    quarantines the same batch from the start.  (c) One more step of (b)'s
+    trainer: the health numerics from kernel 8's sums within HEALTH_RTOL
+    of the plain version's; a leaf moved to another bucket must break it.
+    (d) Each save's and restore's seconds and GB.  Returns the launches of
+    the resumed run and of the rewind run."""
+    import filecmp
+
+    from distributed_llms_example_tpu_torch.core.config import config_from_args
+    from distributed_llms_example_tpu_torch.data.dataset import load_json_records
+    from distributed_llms_example_tpu_torch.train import optim as optim_mod
+    from distributed_llms_example_tpu_torch.train import trainer as trainer_mod
+
+    path = os.path.join(WORK, "train.json")
+    write_train_records(path)
+    say({"phase": "fault_tolerance_disk", "free_gb": shutil.disk_usage(WORK).free / 1e9})
+    # ---- (a) preemption and resume, bit-equal
+    ckpt = linked_checkpoint(os.path.join(WORK, "bart-large-cnn-out", "model"),
+                             "bart-large-cnn-no-dropout", dropout=0.0, attention_dropout=0.0,
+                             activation_dropout=0.0)
+    args = [*TRAIN_ARGS, "--model-ckpt", ckpt, "--train-file", path,
+            "--save-every-steps", str(FT_SAVE_EVERY)]
+    straight_dir, resumed_dir = fresh_dir("ft-straight-out"), fresh_dir("ft-resumed-out")
+    handlers = (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT))
+    with logged_events() as events:
+        t = cli.train([*args, "--output-dir", straight_dir])
+        straight = {"result": t.result, "losses": [m["loss"].item() for m in t.history]}
+        del t
+        free_cuda()
+        t = cli.train([*args, "--output-dir", resumed_dir, "--chaos", f"sigterm@{FT_PREEMPT_AT}"])
+        stopped = {"result": t.result, "steps_on_disk": t.checkpointer.all_steps(),
+                   "handlers_restored": handlers == (signal.getsignal(signal.SIGTERM),
+                                                     signal.getsignal(signal.SIGINT))}
+        del t
+        free_cuda()
+        torch.cuda.synchronize()
+        zero_counters(fa, fd, fo)
+        t = cli.train([*args, "--output-dir", resumed_dir])
+        torch.cuda.synchronize()
+        resume_launches = read_counters(fa, fd, fo)
+        want = expected_train_launches(t.model, 2)
+        resumed = {"result": t.result, "start_step": t.start_step, "count": t.opt_state.count,
+                   "losses": [m["loss"].item() for m in t.history]}
+        del t
+        free_cuda()
+    cursor = ft_events(events, "recovery_cursor_restored")
+    final = [os.path.join(d, "checkpoints", "6") for d in (straight_dir, resumed_dir)]
+    same_payload = equal_payloads(torch, *final)
+    same_export = filecmp.cmp(*(os.path.join(d, "model", "model.safetensors")
+                                for d in (straight_dir, resumed_dir)), shallow=False)
+    say({"phase": "fault_tolerance_resume", "uninterrupted": straight, "preempted": stopped,
+         "resumed": resumed, "resumed_events": ft_events(events, "resumed"), "cursor": cursor,
+         "launches": resume_launches, "expected": want,
+         "losses_bit_equal": resumed["losses"] == straight["losses"][FT_PREEMPT_AT:],
+         "final_checkpoint_bit_equal": same_payload, "model_export_bit_equal": same_export})
+    if straight["result"].get("steps") != 6 or "preempted" in straight["result"]:
+        fail(f"phase 5c uninterrupted run: {straight['result']}")
+    if not stopped["result"].get("preempted") or stopped["result"]["steps"] != FT_PREEMPT_AT \
+            or stopped["steps_on_disk"] != [FT_SAVE_EVERY, FT_PREEMPT_AT] \
+            or not stopped["handlers_restored"]:
+        fail(f"phase 5c preempted run: {stopped}")
+    if [e["step"] for e in ft_events(events, "resumed")] != [FT_PREEMPT_AT] or len(cursor) != 1 \
+            or (cursor[0]["epoch"], cursor[0]["pos"]) != (0, FT_PREEMPT_AT) \
+            or resumed["start_step"] != FT_PREEMPT_AT or resumed["count"] != 6:
+        fail(f"phase 5c resume: {resumed}, cursor {cursor}")
+    if resume_launches != want:
+        fail(f"phase 5c resumed run: launches {resume_launches}, expected 2 steps' {want}")
+    if resumed["losses"] != straight["losses"][FT_PREEMPT_AT:] or not same_payload \
+            or not same_export:
+        fail("phase 5c: the resumed run is not bit-equal to the uninterrupted one")
+    checkpoint_costs("5c (a) resume", events, resumed_dir)
+    shutil.rmtree(os.path.join(straight_dir, "checkpoints"), ignore_errors=True)
+
+    # ---- (b) the rewind on a NaN
+    rewind_dir, oracle_dir = fresh_dir("ft-rewind-out"), fresh_dir("ft-oracle-out")
+    rargs = [*TRAIN_ARGS, "--train-file", path, "--health", "on"]  # bart-large-cnn's config
+    windows: list = []
+    tables = []
+    real_to_host, real_leaf_table = trainer_mod.to_host, optim_mod.leaf_table
+
+    def to_host(pending):
+        out = real_to_host(pending)
+        windows.extend(out)
+        return out
+
+    def leaf_table(*a, **k):
+        tables.append(1)
+        return real_leaf_table(*a, **k)
+
+    trainer_mod.to_host, optim_mod.leaf_table = to_host, leaf_table
+    try:
+        with logged_events() as events:
+            torch.cuda.synchronize()
+            zero_counters(fa, fd, fo)
+            t = cli.train([*rargs, "--output-dir", rewind_dir, "--save-every-steps",
+                           str(FT_REWIND_SAVE_EVERY), "--on-anomaly", "rewind",
+                           "--chaos", f"nan_grad@{FT_NAN_AT}"])
+            torch.cuda.synchronize()
+            rewind_launches = read_counters(fa, fd, fo)
+    finally:
+        trainer_mod.to_host, optim_mod.leaf_table = real_to_host, real_leaf_table
+    steps_run = len(windows)
+    want = expected_train_launches(t.model, steps_run)
+    nonfinite = [[s, m["nonfinite_count"]] for s, m in windows]
+    kinds = {k: ft_events(events, k) for k in ("chaos_injection", "obs_anomaly", "recovery",
+                                                "quarantine", "quarantine_skip")}
+    say({"phase": "fault_tolerance_rewind", "result": t.result, "history": len(t.history),
+         "events": kinds, "nonfinite_count_per_step": nonfinite, "leaf_tables_built": len(tables),
+         "launches": rewind_launches, "expected": want,
+         "losses": [m["loss"].item() for m in t.history]})
+    counts = {k: len(v) for k, v in kinds.items()}
+    if counts != dict.fromkeys(kinds, 1) \
+            or (kinds["obs_anomaly"][0]["code"], kinds["obs_anomaly"][0]["step"]) != ("nonfinite",
+                                                                                    FT_NAN_AT) \
+            or (kinds["recovery"][0]["action"], kinds["recovery"][0]["restored_step"]) != (
+                "rewind", FT_REWIND_SAVE_EVERY):
+        fail(f"phase 5c rewind: events {counts}, {kinds['obs_anomaly']}, {kinds['recovery']}")
+    if t.result.get("steps") != 5 or "anomaly" in t.result or len(t.history) != 5 \
+            or not math.isfinite(t.history[-1]["loss"].item()):
+        fail(f"phase 5c rewind run: {t.result}, {len(t.history)} steps in its history")
+    if [s for s, _ in nonfinite] != [1, 2, FT_NAN_AT, FT_NAN_AT, 4, 5] \
+            or not all((v > 0) == (i == 2) for i, (_, v) in enumerate(nonfinite)):
+        fail(f"phase 5c rewind: kernel 8's non-finite counts {nonfinite}; > 0 at step "
+             f"{FT_NAN_AT}'s first run only")
+    if len(tables) != 1:
+        fail(f"phase 5c rewind: the leaf table was built {len(tables)} times; the restore "
+             "must keep the parameters' and moments' addresses")
+    if rewind_launches != want:
+        fail(f"phase 5c rewind run: launches {rewind_launches}, expected {want}")
+
+    # ---- (c) health numerics: kernel 8's sums against its plain version's
+    health_numerics_check(torch, t)
+    del t
+    free_cuda()
+
+    # the oracle: a clean run that quarantines the same batch from the start
+    cfg = config_from_args(cli.build_train_parser().parse_args([*rargs, "--output-dir",
+                                                                oracle_dir]))
+    oracle = trainer_mod.Trainer(cfg, load_json_records(path))
+    oracle.recovery.quarantine(0, FT_NAN_AT - 1, {}, reason="oracle")
+    oracle_result = oracle.train()
+    del oracle
+    free_cuda()
+    final = [os.path.join(d, "checkpoints", "6") for d in (rewind_dir, oracle_dir)]
+    same = equal_payloads(torch, *final)
+    say({"phase": "fault_tolerance_rewind_oracle", "result": oracle_result,
+         "final_state_bit_equal": same})
+    if oracle_result.get("steps") != 5 or not same:
+        fail("phase 5c: the rewind run's final state is not bit-equal to the oracle's")
+    checkpoint_costs("5c (b) rewind", events, rewind_dir)
+    shutil.rmtree(os.path.join(oracle_dir, "checkpoints"), ignore_errors=True)
+    return {k: resume_launches[k] + rewind_launches[k] for k in resume_launches}
+
+
+def health_numerics_check(torch, t) -> dict:
+    """One more step of ``t`` (a trainer with --health on), its health
+    numerics from kernel 8's float64 sums, against the same numbers from
+    kernel 8's plain version on the same state, gradients and step
+    scalars, within HEALTH_RTOL; moving the leaf of the largest norm to
+    another bucket must break it."""
+    from distributed_llms_example_tpu_torch.ops.fused_optim import STAT_P_SUMSQ, adamw_leaf_plain
+    from distributed_llms_example_tpu_torch.train.optim import decay_mask, step_scalars
+    from distributed_llms_example_tpu_torch.train.step import (
+        HEALTH_BUCKETS,
+        HEALTH_METRIC_KEYS,
+        health_metrics_from_stats,
+        train_step,
+    )
+    from distributed_llms_example_tpu_torch.train.trainer import put_batch
+
+    opt, spec = t.opt_state, t.spec
+    before = [(p.detach().clone(), mu.clone(), nu.clone())
+              for (_, p), mu, nu in zip(t.named_params, opt.mu, opt.nu)]
+    count = opt.count
+    batch = put_batch(next(iter(t.batches.epoch(0))), t.device)
+    got = train_step(t.model, t.named_params, opt, spec, t.schedule, batch,
+                     generator=t.generator, health_buckets=t.health_buckets)
+    scal = step_scalars(spec, t.schedule, count, got["grad_norm"])
+    rows = []
+    for (name, p), (p0, mu0, nu0) in zip(t.named_params, before):
+        rows.append(adamw_leaf_plain(
+            p0, mu0, nu0, p.grad, scal, b1=spec.b1, b2=spec.b2, eps=spec.eps,
+            max_norm=spec.max_grad_norm,
+            wd=spec.weight_decay if decay_mask(name, p) else 0.0)[3].double())
+    plain = torch.stack(rows)
+    del before
+
+    def rel(a, b):
+        return max(abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])), 1e-30)
+                   for k in HEALTH_METRIC_KEYS if k != "nonfinite_count")
+
+    want = health_metrics_from_stats(plain, t.health_buckets)
+    err = rel(got, want)
+    swapped = t.health_buckets.clone()
+    leaf = int(torch.argmax(plain[:, STAT_P_SUMSQ]))
+    swapped[leaf] = (swapped[leaf] + 1) % len(HEALTH_BUCKETS)
+    planted = rel(got, health_metrics_from_stats(plain, swapped))
+    out = {"kernel": {k: float(got[k]) for k in HEALTH_METRIC_KEYS},
+           "plain": {k: float(want[k]) for k in HEALTH_METRIC_KEYS},
+           "max_rel_err": err, "rtol": HEALTH_RTOL,
+           "planted_fault": f"{t.named_params[leaf][0]} moved from "
+                            f"{HEALTH_BUCKETS[int(t.health_buckets[leaf])]} to "
+                            f"{HEALTH_BUCKETS[int(swapped[leaf])]}",
+           "planted_max_rel_err": planted}
+    say({"phase": "kernel_check", "case": "fused_adamw health sums vs plain (one step of 5c (b))",
+         **out})
+    if float(got["nonfinite_count"]) != float(want["nonfinite_count"]) or not err <= HEALTH_RTOL:
+        fail(f"phase 5c: kernel 8's health numerics {out['kernel']} vs plain {out['plain']}: "
+             f"{err} > {HEALTH_RTOL}")
+    if not planted > HEALTH_RTOL:
+        fail(f"phase 5c: the planted bucket fault moved the health numerics by {planted} only")
+    return out
 
 
 def t5_large_with_attention_dropout(torch):
@@ -3541,8 +3887,8 @@ def eval_phase(torch, fa, fd, fo, cli) -> dict:
     train_path, val_path = (os.path.join(WORK, f"eval_{x}.json") for x in ("train", "val"))
     write_train_records(train_path, EVAL_RECORDS)
     write_train_records(val_path, EVAL_RECORDS, seed=1, summary=(40, 129))
-    events, windows = [], []
-    real_evaluate, real_log = trainer_mod.Trainer.evaluate, trainer_mod.log_json
+    windows = []
+    real_evaluate = trainer_mod.Trainer.evaluate
 
     def evaluate(self, *a, **k):
         torch.cuda.synchronize()
@@ -3558,20 +3904,17 @@ def eval_phase(torch, fa, fd, fo, cli) -> dict:
             tc_launches=fa.flash_attention.tc_launches, dropout_launches=drop_counters(fa)))
         return scores
 
-    def log(obj):
-        if obj.get("event") == "eval":
-            events.append(obj)
-        real_log(obj)
-
-    trainer_mod.Trainer.evaluate, trainer_mod.log_json = evaluate, log
+    out_dir = fresh_dir("bart-large-cnn-eval-out")
+    trainer_mod.Trainer.evaluate = evaluate
     try:
-        t0 = time.perf_counter()
-        trainer = cli.train([*TRAIN_ARGS, "--model-ckpt", ckpt, "--train-file", train_path,
-                             "--val-file", val_path, *EVAL_ARGS,
-                             "--output-dir", os.path.join(WORK, "bart-large-cnn-eval-out")])
-        wall = time.perf_counter() - t0
+        with logged_events() as logged:
+            t0 = time.perf_counter()
+            trainer = cli.train([*TRAIN_ARGS, "--model-ckpt", ckpt, "--train-file", train_path,
+                                 "--val-file", val_path, *EVAL_ARGS, "--output-dir", out_dir])
+            wall = time.perf_counter() - t0
     finally:
-        trainer_mod.Trainer.evaluate, trainer_mod.log_json = real_evaluate, real_log
+        trainer_mod.Trainer.evaluate = real_evaluate
+    events = [e for e in logged if e.get("event") == "eval"]
     cfg, mcfg = trainer.cfg, trainer.loaded.config
     batches = -(-EVAL_RECORDS // cfg.eval_batch_size)
     want = {k: 0 for k in windows[0]["launches"]} if windows else {}
@@ -3600,6 +3943,7 @@ def eval_phase(torch, fa, fd, fo, cli) -> dict:
              f"{w['dropout_launches']}), expected {want}, all kernel-1 launches on the "
              "tensor cores and none a dropout instance")
     profile_beam_step(torch, trainer)
+    shutil.rmtree(os.path.join(out_dir, "checkpoints"), ignore_errors=True)
     return w["launches"]
 
 
@@ -3871,6 +4215,11 @@ def main() -> None:
     del trainer
     free_cuda()
 
+    # phase 5c: fault tolerance (preemption and resume bit-equal, the rewind
+    # on kernel 8's non-finite count, the health numerics, checkpoint costs)
+    ft_launches = fault_tolerance_phase(torch, fa, fd, fo, cli)
+    free_cuda()
+
     # phases 6c-6d: the eval pass (bart-large-cnn fine-tuned from phase 5's
     # checkpoint, scored with beam 2 on a validation file through kernels 1
     # and 5) and the beam search's kernel path against its plain path
@@ -3906,14 +4255,15 @@ def main() -> None:
     # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
     # then the contract line.  A kernel that runs on several main paths
     # reports the sum of their counts: kernel 1 the BART and T5 serve and
-    # train runs and the BART eval, kernels 2, 3, 7 and 8 the BART and T5
-    # train runs, kernel 4 the T5 train run, kernel 5 the BART and flan-T5
+    # train runs, phase 5c's resumed and rewind runs and the BART eval,
+    # kernels 2, 3, 7 and 8 the BART and T5 train runs and phase 5c's,
+    # kernel 4 the T5 train run, kernel 5 the BART and flan-T5
     # serve runs, the flat LLaMA serve and the BART eval, kernel 6 the paged
     # LLaMA serve.
     say({"kernels_unported": []})
     src = "distributed_llms_example_tpu_torch/csrc/"
     ref = "distributed_llms_example_tpu/ops/"
-    both = {k: train_launches[k] + t5_train[k] for k in t5_train}
+    both = {k: train_launches[k] + t5_train[k] + ft_launches.get(k, 0) for k in t5_train}
     rows = [
         dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd_tc.cu",
              sources=[src + "flash_fwd_tc.cu", src + "flash_fwd.cu"],

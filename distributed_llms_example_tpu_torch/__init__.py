@@ -12,6 +12,7 @@ flat or a paged KV cache (``launch/cli.py``), with all eight TPU kernels
 as CUDA kernels: flash-attention forward, its dq, dk/dv and learned-bias
 gradient backward (each with its attention-probs dropout branch), flash
 decode flat and paged, fused residual dropout and fused AdamW; models
-load from and save to local HF checkpoint directories.  ROADMAP.md lists
-what is still to come.
+load from and save to local HF checkpoint directories; the trainer
+evaluates (beam search, ROUGE), checkpoints and resumes, and recovers
+from anomalies in-process.  ROADMAP.md lists what is still to come.
 """

@@ -1,7 +1,9 @@
 """Training configuration: the slice of the JAX package's ``TrainConfig``
 and ``add_reference_args`` that the port implements (flag names and
 defaults as there), plus ``--device`` and ``--seed``.  A flag the port does
-not implement is not accepted: argparse rejects it."""
+not implement is not accepted: argparse rejects it.  ``config_from_args``
+also checks, as the JAX package's does, what can be checked before the
+run: the rewind's prerequisites and the ``--chaos`` grammar."""
 
 from __future__ import annotations
 
@@ -10,6 +12,18 @@ import dataclasses
 import json
 import os
 import tempfile
+
+from distributed_llms_example_tpu_torch.obs.chaos import parse_chaos
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """Checkpoint/resume policy (``io/checkpoint.py``)."""
+
+    save_every_steps: int = 0  # 0 = only at the end of training
+    keep: int = 3
+    resume: bool = True  # resume from the newest verified step in output_dir/checkpoints
+    async_save: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +58,25 @@ class TrainConfig:
     attention_impl: str = ""  # "" = model default (auto)
     device: str = "cuda"
     seed: int = 0  # random-init seed for the weights
+    checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
+    # training health (obs/health.py): "on" adds the health numerics to every
+    # step and runs the watchdog at the log cadence; "auto" follows the JAX
+    # package's --obs jsonl, which the port does not have: off
+    health: str = "auto"
+    # an anomaly's policy: "warn" logs and continues; "halt" stops; "checkpoint"
+    # saves a resumable checkpoint, dumps the flight recorder and stops;
+    # "rewind" restores the last verified checkpoint in-process, quarantines
+    # the batch and retries (rewind -> skip_batch -> halt, train/recovery.py;
+    # needs --save-every-steps and the flight recorder)
+    on_anomaly: str = "warn"
+    max_rewinds: int = 2
+    # flight-recorder ring in steps (0 = off), dumped on anomaly/SIGTERM/crash
+    recorder_steps: int = 256
+    health_loss_spike_factor: float = 4.0
+    health_grad_norm_factor: float = 10.0
+    health_warmup_steps: int = 20
+    # deterministic fault injection (obs/chaos.py), e.g. "nan_grad@3,sigterm@5"
+    chaos: str = ""
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
@@ -93,8 +126,55 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--num-beams", type=int, default=d.num_beams)
     p.add_argument("--eval-max-new-tokens", type=int, default=d.eval_max_new_tokens)
     p.add_argument("--eval-batch-size", type=int, default=d.eval_batch_size)
+    p.add_argument("--save-every-steps", type=int, default=d.checkpoint.save_every_steps,
+                   help="checkpoint the whole training state every N steps to "
+                        "<output-dir>/checkpoints/<step>/ (0 = only at the end)")
+    p.add_argument("--no-resume", action="store_true",
+                   help="train from step 0 even where <output-dir>/checkpoints holds steps")
+    p.add_argument("--health", type=str, default=d.health, choices=("auto", "on", "off"),
+                   help="health numerics (param norm, per-bucket update ratios, "
+                        "non-finite gradient count) and the anomaly watchdog at the log "
+                        "cadence (auto = off: the port has no --obs jsonl)")
+    p.add_argument("--on-anomaly", type=str, default=d.on_anomaly,
+                   choices=("warn", "halt", "checkpoint", "rewind"),
+                   help="anomaly policy: warn and continue, halt, save a resumable "
+                        "checkpoint and stop, or rewind in-process to the last verified "
+                        "checkpoint, quarantine the batch and retry (rewind -> skip-batch "
+                        "-> halt; needs --save-every-steps and the flight recorder)")
+    p.add_argument("--max-rewinds", type=int, default=d.max_rewinds,
+                   help="in-process rewind budget for --on-anomaly rewind")
+    p.add_argument("--recorder-steps", type=int, default=d.recorder_steps,
+                   help="flight-recorder ring in steps (0 = off); dumped to "
+                        "<output-dir>/obs/flight-recorder-p000.json on anomaly/SIGTERM/crash")
+    p.add_argument("--chaos", type=str, default=d.chaos,
+                   help="deterministic fault injection: comma list of kind@tick with kind "
+                        "in nan_grad/ckpt_corrupt/data_error/sigterm/oom (tick = global "
+                        "step; for ckpt_corrupt the Nth checkpoint save)")
+    p.add_argument("--health-loss-spike-factor", type=float, default=d.health_loss_spike_factor)
+    p.add_argument("--health-grad-norm-factor", type=float, default=d.health_grad_norm_factor)
+    p.add_argument("--health-warmup-steps", type=int, default=d.health_warmup_steps)
     return p
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
-    return TrainConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)})
+    """The TrainConfig of parsed train flags; raises ValueError for what
+    would only fail mid-run: a negative --max-rewinds, --on-anomaly rewind
+    without periodic checkpoints or the flight recorder, a --chaos
+    grammar error."""
+    kw = {f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)
+          if f.name != "checkpoint"}
+    cfg = TrainConfig(**kw, checkpoint=CheckpointConfig(
+        save_every_steps=args.save_every_steps, resume=not args.no_resume))
+    if cfg.max_rewinds < 0:
+        raise ValueError(f"--max-rewinds must be >= 0, got {cfg.max_rewinds}")
+    if cfg.on_anomaly == "rewind":
+        if cfg.checkpoint.save_every_steps <= 0:
+            raise ValueError("--on-anomaly rewind needs periodic checkpointing to rewind TO: "
+                             "set --save-every-steps N (N bounds the optimizer steps one "
+                             "recovery can lose)")
+        if cfg.recorder_steps <= 0:
+            raise ValueError("--on-anomaly rewind quarantines the poison batch via the flight "
+                             "recorder's fingerprints: set --recorder-steps N (default 256) "
+                             "instead of 0")
+    parse_chaos(cfg.chaos)
+    return cfg

@@ -55,13 +55,17 @@ class BatchIterator:
         steps, rem = divmod(len(self.ds), self.global_batch)
         return steps + (1 if rem and not self.drop_last else 0)
 
-    def epoch(self, epoch: int) -> Iterator[dict[str, np.ndarray]]:
-        """The epoch's batches: input_ids, attention_mask (from lengths, so
-        a pad id inside a sequence stays attended) and labels, int32."""
+    def epoch(self, epoch: int, start_step: int = 0) -> Iterator[dict[str, np.ndarray]]:
+        """The epoch's batches from its ``start_step``-th on (the in-epoch
+        resume): input_ids, attention_mask (from lengths, so a pad id
+        inside a sequence stays attended) and labels, int32.  The batch
+        plan is a function of (seed, epoch), so the skip is on its index
+        lists: no skipped batch is tokenized or padded."""
         pad_id = self.ds.tokenizer.pad_id
-        for idx in iter_global_batches(len(self.ds), self.global_batch, seed=self.seed,
-                                       epoch=epoch, shuffle=self.shuffle,
-                                       drop_last=self.drop_last):
+        plan = list(iter_global_batches(len(self.ds), self.global_batch, seed=self.seed,
+                                        epoch=epoch, shuffle=self.shuffle,
+                                        drop_last=self.drop_last))
+        for idx in plan[start_step:]:
             ex = [self.ds[int(i)] for i in idx]
             src_w = bucket_len(max(len(e.input_ids) for e in ex), self.bucket_multiple,
                                self.max_source_length)

@@ -223,15 +223,23 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 def train(argv: list[str] | None = None, *, loaded=None):
     """Training (``main`` without a subcommand): load the records, build
-    the Trainer, run every epoch, save the model under ``--output-dir``.
-    Returns the trainer, whose ``history`` holds each step's metrics.
+    the Trainer (which resumes from ``--output-dir``'s newest verified
+    checkpoint), run every epoch; the trainer saves the model under
+    ``--output-dir`` when the run completes.  Returns the trainer, whose
+    ``history`` holds each step's metrics and ``result`` what its
+    ``train`` returned.
     ``loaded``: a model built by the caller, trained in place of
     ``--model-ckpt``'s (``Trainer``)."""
     from distributed_llms_example_tpu_torch.core.config import config_from_args
     from distributed_llms_example_tpu_torch.data.dataset import load_json_records
     from distributed_llms_example_tpu_torch.train.trainer import Trainer
 
-    cfg = config_from_args(build_train_parser().parse_args(argv))
+    parser = build_train_parser()
+    args = parser.parse_args(argv)
+    try:
+        cfg = config_from_args(args)
+    except ValueError as e:
+        parser.error(str(e))
     # the JAX CLI's rule: a validation file is read only when it is given
     # and exists
     val = cfg.val_file
@@ -239,7 +247,6 @@ def train(argv: list[str] | None = None, *, loaded=None):
     trainer = Trainer(cfg, load_json_records(cfg.train_file), val_records=val_records,
                       loaded=loaded)
     trainer.train()
-    trainer.save_final()
     return trainer
 
 

@@ -1,0 +1,145 @@
+"""The training-health watchdog (port of the JAX package's
+``obs/health.py``, one process).
+
+The train step's health numerics (``train/step.py``
+``health_metrics_from_stats``: param norm, per-bucket update ratios and
+the non-finite gradient count, from fused AdamW's per-leaf sums) stay
+device tensors.  The trainer appends each step's metrics to a pending
+list, and at the logging cadence ``to_host`` turns the whole window into
+host floats in ONE transfer; the detectors then run per step, so an
+anomaly is attributed to the step where the signal broke:
+
+- the non-finite tripwire: a non-finite loss or grad norm, or any
+  non-finite gradient element (no warmup);
+- the EWMA loss spike: loss above its running mean by ``spike_factor``
+  mean absolute deviations;
+- the grad-norm explosion: ``grad_factor`` times the EWMA grad norm.
+
+``agree_and_emit`` logs the ``obs_anomaly`` line.  With one process the
+local verdict is the agreed one; the multi-process agreement comes with
+multi-GPU training (ROADMAP.md queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
+
+EWMA_ALPHA = 0.05  # the weight of each new sample in the running means
+
+
+def health_enabled(cfg: Any) -> bool:
+    """The ``--health`` tri-state: "on"/"off" are literal; "auto" follows
+    ``--obs jsonl`` in the JAX package, a sink the port does not have yet,
+    so it is off here (as at the JAX package's default ``--obs stdout``)."""
+    return cfg.health == "on"
+
+
+@dataclasses.dataclass(frozen=True)
+class Anomaly:
+    step: int
+    code: str  # "nonfinite" | "loss_spike" | "grad_explosion"
+    value: float
+    detail: str
+
+
+def to_host(pending: Sequence[tuple[int, Mapping[str, Any]]]) -> list[tuple[int, dict]]:
+    """A window of per-step metric dicts as host floats, every tensor of
+    it in ONE device-to-host transfer (one ``torch.stack(...).cpu()``):
+    the only place the health path waits on the device."""
+    tensors = [v for _, m in pending for v in m.values() if isinstance(v, torch.Tensor)]
+    host = iter(torch.stack([t.detach().reshape(()).double() for t in tensors]).cpu().tolist()
+                if tensors else [])
+    return [(step, {k: next(host) if isinstance(v, torch.Tensor) else float(v)
+                    for k, v in m.items()}) for step, m in pending]
+
+
+class HealthWatchdog:
+    """EWMA-based per-step anomaly detection over host-float metrics.  The
+    EWMAs persist across windows; the detectors run per step."""
+
+    def __init__(self, *, loss_spike_factor: float = 4.0, grad_norm_factor: float = 10.0,
+                 warmup_steps: int = 20):
+        self.loss_spike_factor = float(loss_spike_factor)
+        self.grad_norm_factor = float(grad_norm_factor)
+        self.warmup_steps = int(warmup_steps)
+        self.n = 0  # finite samples absorbed
+        self.loss_ewma = 0.0
+        self.loss_dev_ewma = 0.0  # EWMA of |loss - mean|
+        self.grad_ewma = 0.0
+
+    def _check_one(self, step: int, m: Mapping[str, float]) -> Anomaly | None:
+        loss = float(m.get("loss", 0.0))
+        grad = float(m.get("grad_norm", 0.0))
+        nonfinite = float(m.get("nonfinite_count", 0.0))
+        if not np.isfinite(loss) or not np.isfinite(grad) or nonfinite > 0:
+            return Anomaly(step=step, code="nonfinite",
+                           value=nonfinite if nonfinite > 0 else loss,
+                           detail=(f"loss={loss!r}, grad_norm={grad!r}, "
+                                   f"{nonfinite:.0f} non-finite grad elements"))
+        if self.n >= self.warmup_steps:
+            if grad > self.grad_norm_factor * max(self.grad_ewma, 1e-12):
+                return Anomaly(step=step, code="grad_explosion", value=grad,
+                               detail=(f"grad_norm {grad:.4g} > {self.grad_norm_factor:g}× "
+                                       f"EWMA {self.grad_ewma:.4g}"))
+            # deviation floor: a flat loss stream must not turn epsilon
+            # wiggles into spikes
+            floor = max(self.loss_dev_ewma, 1e-3 * max(abs(self.loss_ewma), 1.0))
+            if loss - self.loss_ewma > self.loss_spike_factor * floor:
+                return Anomaly(step=step, code="loss_spike", value=loss,
+                               detail=(f"loss {loss:.4g} > EWMA {self.loss_ewma:.4g} + "
+                                       f"{self.loss_spike_factor:g}× deviation {floor:.4g}"))
+        return None
+
+    def _absorb(self, m: Mapping[str, float]) -> None:
+        loss = float(m.get("loss", 0.0))
+        grad = float(m.get("grad_norm", 0.0))
+        if not (np.isfinite(loss) and np.isfinite(grad)):
+            return  # never learn from garbage
+        if self.n == 0:
+            self.loss_ewma, self.grad_ewma = loss, grad
+        else:
+            a = EWMA_ALPHA
+            self.loss_dev_ewma = (1 - a) * self.loss_dev_ewma + a * abs(loss - self.loss_ewma)
+            self.loss_ewma = (1 - a) * self.loss_ewma + a * loss
+            self.grad_ewma = (1 - a) * self.grad_ewma + a * grad
+        self.n += 1
+
+    def check(self, entries: Sequence[tuple[int, Mapping[str, float]]]) -> list[Anomaly]:
+        """The detectors over one window of (step, host metrics), in step
+        order; a non-finite step ends the scan.  Flagged finite samples are
+        still absorbed, so a lasting level shift re-baselines the EWMAs
+        instead of firing on every window."""
+        out: list[Anomaly] = []
+        for step, m in entries:
+            a = self._check_one(step, m)
+            if a is not None:
+                out.append(a)
+                if a.code == "nonfinite":
+                    break
+            self._absorb(m)
+        return out
+
+
+def agree_and_emit(anomalies: Sequence[Anomaly], *, step: int, policy: str) -> dict | None:
+    """The ``obs_anomaly`` line for the first anomaly of a window (None
+    when there is none): with one process, the local verdict is the
+    agreed one, and every field the JAX package's record has is here."""
+    if not anomalies:
+        return None
+    first = anomalies[0]
+    v = float(first.value)
+    record: dict[str, Any] = {
+        "event": "obs_anomaly", "code": first.code, "step": int(first.step),
+        "detected_at_step": int(step), "ranks": [0], "policy": policy, "process_count": 1,
+        # non-finite values go as strings: "NaN" is not valid JSON
+        "value": round(v, 6) if np.isfinite(v) else repr(v), "detail": first.detail,
+        "detail_rank": 0,
+    }
+    log_json(record)
+    return record

@@ -89,11 +89,13 @@ class AdamWState:
     (a host int: the schedule and the bias corrections read it without a
     device round trip) and fp32 first/second moments, one per parameter.
     ``stats`` is the kernel's (N, STATS) float64 table of per-leaf health
-    sums, allocated once and refilled by every step; nothing reads it yet.
+    sums, allocated once and refilled by every step; the health numerics
+    read it (``train/step.py`` ``health_metrics_from_stats``).
     ``table`` is the kernels' leaf table of the parameters and these
     moments, built (and its tensors checked) at the first step on the GPU
-    and rebuilt only if the parameters' addresses change; each step adds
-    its gradients to a copy."""
+    and rebuilt only if the parameters' addresses change (a checkpoint
+    restore copies into the parameters and moments, so it keeps them);
+    each step adds its gradients to a copy."""
 
     count: int
     mu: list[torch.Tensor]

@@ -14,6 +14,13 @@
 
 Dropout seeds come from the caller's CPU generator (``dropout_seeds``), so
 the step draws no random number on the device and waits on nothing.
+
+Health numerics (``train_step(..., health_buckets=...)``): the global param norm,
+the non-finite gradient count and per-bucket update ratios ||Δw|| / ||w||
+(``HEALTH_BUCKETS``: embed, attn, mlp, head), assembled by
+``health_metrics_from_stats`` from fused AdamW's per-leaf sums
+(``AdamWState.stats``), as device tensors: the watchdog (``obs/health.py``)
+reads them at the logging cadence.
 """
 
 from __future__ import annotations
@@ -22,15 +29,91 @@ import contextlib
 
 import torch
 
+from torch import nn
+
 from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD
+from distributed_llms_example_tpu_torch.models.bart import _Embed
 from distributed_llms_example_tpu_torch.models.t5 import shift_right
 from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
+from distributed_llms_example_tpu_torch.ops.fused_optim import (
+    STAT_NONFINITE,
+    STAT_P_SUMSQ,
+    STAT_U_SUMSQ,
+)
 from distributed_llms_example_tpu_torch.train.optim import (
     AdamWState,
     OptimizerSpec,
     Schedule,
     fused_optimizer_apply,
 )
+
+
+# Coarse parameter buckets for the per-bucket update ratio (the JAX
+# package's ``HEALTH_BUCKETS``): four buckets are the resolution operators
+# act on.
+HEALTH_BUCKETS = ("embed", "attn", "mlp", "head")
+
+# The per-step scalars a health-enabled step adds to its metrics.
+HEALTH_METRIC_KEYS: tuple[str, ...] = ("param_norm", "nonfinite_count") + tuple(
+    f"update_ratio_{b}" for b in HEALTH_BUCKETS)
+
+# The port's copy of the JAX package's ``analysis/ir_lint.py``
+# ``MODULE_BUCKET_PATTERNS``.  Ordered: first match wins; head before embed
+# (an lm_head tied to the embedding table must not read as embed), embed
+# before attn/mlp.
+MODULE_BUCKET_PATTERNS: tuple[tuple[str, tuple[str, ...]], ...] = (
+    ("head", ("lm_head", "logits")),
+    ("embed", ("embed", "shared", "wte", "wpe")),
+    ("attn", ("attn", "attention")),
+    ("mlp", ("mlp", "ffn", "feed_forward", "densereludense", "fc1", "fc2")),
+)
+
+
+def bucket_of_path(path: str) -> str:
+    """The bucket of one parameter path: the first pattern any of whose
+    needles the lower-cased path contains; unmatched leaves (norms,
+    biases) fall to ``mlp``, since a parameter bucket must be total."""
+    p = path.lower()
+    for bucket, needles in MODULE_BUCKET_PATTERNS:
+        if any(n in p for n in needles):
+            return bucket
+    return "mlp"
+
+
+def param_buckets(model: nn.Module) -> torch.Tensor:
+    """Each parameter's ``HEALTH_BUCKETS`` index, in ``named_parameters``
+    order, as an int64 tensor on the model's device.  An embedding table's
+    path ends in ``embedding``, as the flax tree names its leaf, so every
+    parameter lands in its JAX counterpart's bucket (T5's relative-position
+    table among the embeddings)."""
+    tables = {name for name, m in model.named_modules() if isinstance(m, _Embed)}
+    out = []
+    for name, p in model.named_parameters():
+        owner = name.rpartition(".")[0]
+        out.append(HEALTH_BUCKETS.index(bucket_of_path(
+            f"{owner}.embedding" if owner in tables else name)))
+    return torch.tensor(out, dtype=torch.int64, device=p.device)
+
+
+def health_metrics_from_stats(stats: torch.Tensor,
+                              buckets: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The health numerics from fused AdamW's (N, STATS) float64 per-leaf
+    sums (``buckets[i]``: leaf i's ``HEALTH_BUCKETS`` index, on the same
+    device): the global param norm, the non-finite gradient count, and per
+    bucket ||update|| / ||param|| (0 for an empty bucket).  Summed in
+    float64 (a fixed-order reduction, no atomics; a non-finite leaf
+    reaches its own bucket only), returned as fp32 device tensors; nothing
+    waits on the device."""
+    ids = torch.arange(len(HEALTH_BUCKETS), device=stats.device)
+    member = (buckets[None, :] == ids[:, None])[:, :, None]  # (buckets, N, 1)
+    sums = torch.where(member, stats[None], 0.0).sum(dim=1)  # (buckets, STATS)
+    p_sq, u_sq = sums[:, STAT_P_SUMSQ], sums[:, STAT_U_SUMSQ]
+    ratio = torch.sqrt(u_sq) / torch.clamp(torch.sqrt(p_sq), min=1e-12)
+    out = {"param_norm": torch.sqrt(p_sq.sum()).float(),
+           "nonfinite_count": stats[:, STAT_NONFINITE].sum().float()}
+    for i, b in enumerate(HEALTH_BUCKETS):
+        out[f"update_ratio_{b}"] = ratio[i].float()
+    return out
 
 
 def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor,
@@ -58,10 +141,13 @@ def seq2seq_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
 
 
 def optimizer_apply_block(spec: OptimizerSpec, schedule: Schedule, named_params,
-                          state: AdamWState, lsum: torch.Tensor, tokens: torch.Tensor) -> dict:
+                          state: AdamWState, lsum: torch.Tensor, tokens: torch.Tensor, *,
+                          health_buckets=None) -> dict:
     """The once-per-step tail: normalize the token-weighted sums (the
     gradients in place in ``.grad``) and take their norm, clip + AdamW,
-    metrics.  Every metric but the learning rate is a device tensor."""
+    metrics, with the health numerics when ``health_buckets`` (each
+    leaf's bucket index) is given.  Every metric but the learning rate is
+    a device tensor."""
     tokens = torch.clamp(tokens, min=1.0)
     grads = []
     for _, p in named_params:
@@ -70,15 +156,19 @@ def optimizer_apply_block(spec: OptimizerSpec, schedule: Schedule, named_params,
         grads.append(p.grad)
     lr = schedule(state.count)
     grad_norm = fused_optimizer_apply(spec, schedule, named_params, state, grads, tokens)
-    return {"loss": lsum / tokens, "learning_rate": lr, "grad_norm": grad_norm,
-            "target_tokens": tokens}
+    metrics = {"loss": lsum / tokens, "learning_rate": lr, "grad_norm": grad_norm,
+               "target_tokens": tokens}
+    if health_buckets is not None:
+        metrics.update(health_metrics_from_stats(state.stats, health_buckets))
+    return metrics
 
 
 def train_step(model, named_params, state: AdamWState, spec: OptimizerSpec, schedule: Schedule,
                batch: dict, *, grad_accum_steps: int = 1, label_smoothing: float = 0.0,
-               generator: torch.Generator | None = None) -> dict:
+               generator: torch.Generator | None = None, health_buckets=None) -> dict:
     """One optimizer step on ``batch`` (tensors on the model's device).
-    ``generator`` (CPU) seeds the dropout of a model in training mode."""
+    ``generator`` (CPU) seeds the dropout of a model in training mode;
+    ``health_buckets`` (``param_buckets``) adds the health numerics."""
     n = int(grad_accum_steps)
     rows = batch["labels"].shape[0]
     if n < 1 or rows % n:
@@ -94,4 +184,5 @@ def train_step(model, named_params, state: AdamWState, spec: OptimizerSpec, sche
             ls.backward()
             ls = ls.detach()
             lsum, tokens = (ls, tk) if lsum is None else (lsum + ls, tokens + tk)
-    return optimizer_apply_block(spec, schedule, named_params, state, lsum, tokens)
+    return optimizer_apply_block(spec, schedule, named_params, state, lsum, tokens,
+                                 health_buckets=health_buckets)

@@ -1,8 +1,8 @@
-"""A minimal trainer (port of the JAX package's ``train/trainer.py``, one
-device): dataset → bucketed batches → the epoch loop of ``train_step`` →
-the JSON step lines of ``MetricLogger``, an ``eval`` line (ROUGE of the
-validation set's generated summaries, ``evaluate``) every
-``evaluation_steps`` steps and at each epoch's end → ``save_final``, the
+"""The trainer (port of the JAX package's ``train/trainer.py``, one device):
+dataset -> bucketed batches -> the epoch loop of ``train_step`` -> the JSON
+step lines of ``MetricLogger``, an ``eval`` line (ROUGE of the validation
+set's generated summaries, ``evaluate``) every ``evaluation_steps`` steps
+and at each epoch's end -> a final checkpoint and ``save_final``, the
 fine-tuned model as an HF checkpoint.
 
 Weights are random-init from ``seed``, or read from a local HF checkpoint
@@ -12,16 +12,40 @@ Dropout seeds (the residual dropout's and the attention-probs dropout's)
 come from a CPU ``torch.Generator`` seeded with ``shuffle_seed``, so a
 step draws nothing on the device; the eval pass draws no seed, so a run
 with evaluation trains exactly as one without.  Losses stay device
-tensors until a logging step converts them.  Mid-run checkpoints and
-resume, health/obs/recovery and multi-GPU wait for later slices
-(ROADMAP.md).
+tensors until a logging step converts them.
+
+Fault tolerance, as in the JAX package:
+
+- checkpoints (``io/checkpoint.py``) of the whole training state (the
+  fp32 parameters, AdamW's moments and count) every
+  ``--save-every-steps``, and at the end of every run, each with a
+  recovery sidecar (the data cursor and the quarantine set);
+- resume: a run whose ``<output_dir>/checkpoints`` holds steps restores
+  the newest verified one (copied into the live parameters and moments,
+  so the fused AdamW kernel's leaf table stays valid) and its exact data
+  cursor; if steps exist but none verifies, it refuses to start;
+- SIGTERM/SIGINT finish the step in flight, save and return
+  ``preempted``; the handlers are restored when ``train`` returns;
+- ``--health on``: the watchdog (``obs/health.py``) over the health
+  numerics of fused AdamW's per-leaf sums, with the flight recorder, and
+  ``--on-anomaly`` warn / halt / checkpoint / rewind (``train/recovery.py``:
+  rewind -> skip_batch -> halt);
+- ``--chaos``: the deterministic injections one process can take.
+
+The dropout generator is seeded at construction: a resumed run does not
+carry the stream of the run it resumes (neither does the JAX package's),
+while the in-process rewind restores the generator state of the save it
+rewinds to, so the replay draws the same masks.  Multi-GPU training waits
+for a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import signal
 import time
-from typing import Any, Sequence
+from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -32,15 +56,26 @@ from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD, BatchIte
 from distributed_llms_example_tpu_torch.data.dataset import SummarizationDataset
 from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
 from distributed_llms_example_tpu_torch.evaluation.evaluate import Evaluator
+from distributed_llms_example_tpu_torch.io.checkpoint import Checkpointer, write_json_atomic
 from distributed_llms_example_tpu_torch.io.valohai_meta import save_valohai_metadata
 from distributed_llms_example_tpu_torch.models.export import save_hf_checkpoint
 from distributed_llms_example_tpu_torch.models.registry import LoadedModel, load_model
+from distributed_llms_example_tpu_torch.obs.chaos import corrupt_checkpoint, parse_chaos
+from distributed_llms_example_tpu_torch.obs.health import (
+    HealthWatchdog,
+    agree_and_emit,
+    health_enabled,
+    to_host,
+)
+from distributed_llms_example_tpu_torch.obs.recorder import FlightRecorder, batch_fingerprint
 from distributed_llms_example_tpu_torch.train.optim import (
     AdamWState,
     OptimizerSpec,
     linear_schedule_with_warmup,
 )
-from distributed_llms_example_tpu_torch.train.step import train_step
+from distributed_llms_example_tpu_torch.train.recovery import RecoveryController
+from distributed_llms_example_tpu_torch.train.step import param_buckets, train_step
+from distributed_llms_example_tpu_torch.utils.backoff import sleep_backoff
 from distributed_llms_example_tpu_torch.utils.jsonlog import MetricLogger, log_json
 
 
@@ -128,12 +163,63 @@ class Trainer:
         self.named_params = list(self.model.named_parameters())
         self.opt_state = AdamWState.zeros([p for _, p in self.named_params])
         self.generator = torch.Generator().manual_seed(cfg.shuffle_seed)
-        self.history: list[dict[str, Any]] = []  # per-step metrics (device tensors)
+        # per-step metrics (device tensors) of the run's trajectory: a rewind
+        # drops the steps it undoes
+        self.history: list[dict[str, Any]] = []
         self.step_ends: list[float] = []  # host clock after each step's logger call
+        self.result: dict[str, Any] | None = None  # what train() returned
+        self.health_on = health_enabled(cfg)
+        self.health_buckets = param_buckets(self.model) if self.health_on else None
+        self.watchdog = HealthWatchdog(
+            loss_spike_factor=cfg.health_loss_spike_factor,
+            grad_norm_factor=cfg.health_grad_norm_factor,
+            warmup_steps=cfg.health_warmup_steps) if self.health_on else None
+        # the JAX package keeps the ring at its default --obs stdout too: a
+        # host crc32 of the batch and references to the step's metrics
+        self.recorder = FlightRecorder(cfg.recorder_steps) if cfg.recorder_steps > 0 else None
+        self._pending_health: list[tuple[int, dict]] = []
+        self.last_anomaly: dict[str, Any] | None = None
+        self.chaos = parse_chaos(cfg.chaos)
+        ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
+        self.checkpointer = Checkpointer(
+            ckpt_dir, save_every_steps=cfg.checkpoint.save_every_steps,
+            keep=cfg.checkpoint.keep, async_save=cfg.checkpoint.async_save)
+        self.recovery = RecoveryController(max_rewinds=cfg.max_rewinds)
+        self._save_ordinal = 0  # chaos ckpt_corrupt ticks on save ordinals
+        self._preempted = False
+        self._prev_handlers: dict = {}
         log_json({"event": "train_start", "model": cfg.model_ckpt, "device": str(self.device),
                   "params": sum(p.numel() for _, p in self.named_params),
                   "param_tensors": len(self.named_params), "total_steps": self.total_steps,
                   "compute_dtype": cfg.compute_dtype, "grad_accum_steps": cfg.grad_accum_steps})
+        self.start_step = self._last_step = 0
+        # the (epoch, pos) data cursor and the quarantine set of the restored
+        # step ride its recovery sidecar: after a quarantine skip the cursor
+        # drifts from step % steps_per_epoch
+        self._resume_cursor: tuple[int, int] | None = None
+        if cfg.checkpoint.resume and self.checkpointer.latest_step() is not None:
+            restored = self.checkpointer.restore_latest(self.state_tensors())
+            if restored is None:
+                # steps EXIST but none verified: training from step 0 would
+                # let retention delete the possibly salvageable steps
+                raise ValueError(
+                    f"resume: checkpoints exist under {ckpt_dir} "
+                    f"(steps {self.checkpointer.all_steps()}) but none passed "
+                    "integrity verification — see the ckpt_verify_failed events "
+                    "for per-file detail; inspect/restore the step dirs against "
+                    "their integrity-<step>.json manifests, or pass --no-resume "
+                    "to train from scratch (which will eventually retention-"
+                    "delete the corrupt steps)")
+            self.start_step = self._load_state(restored)
+            log_json({"event": "resumed", "step": self.start_step})
+            side = self._load_recovery_sidecar(self.start_step)
+            if side is not None:
+                self._resume_cursor = (int(side["epoch"]), int(side["pos"]))
+                for e, st, rec in side.get("quarantined", []):
+                    self.recovery.quarantined[(int(e), int(st))] = rec
+                log_json({"event": "recovery_cursor_restored", "step": self.start_step,
+                          "epoch": self._resume_cursor[0], "pos": self._resume_cursor[1],
+                          "quarantined": len(self.recovery.quarantined)})
 
     def evaluate(self, epoch: int | None = None, step: int | None = None) -> dict[str, float]:
         """ROUGE of the validation set (no validation set: nothing), logged
@@ -153,29 +239,348 @@ class Trainer:
         log_json({"event": "eval", **({"step": step} if step is not None else {}), **scores})
         return scores
 
+    # -- state and checkpoints ------------------------------------------
+
+    def state_tensors(self) -> dict[str, torch.Tensor]:
+        """The training state a checkpoint holds, by name: each fp32 master
+        parameter by its port name, its AdamW moments as ``mu/<name>`` and
+        ``nu/<name>`` (the live tensors, not copies)."""
+        out = {n: p.detach() for n, p in self.named_params}
+        for (n, _), mu, nu in zip(self.named_params, self.opt_state.mu, self.opt_state.nu):
+            out[f"mu/{n}"] = mu
+            out[f"nu/{n}"] = nu
+        return out
+
+    @torch.no_grad()
+    def _load_state(self, restored) -> int:
+        """Copy a restored step into the live parameters and moments (their
+        addresses, hence the fused AdamW kernel's leaf table, stay) and set
+        AdamW's count; returns the step."""
+        tensors, meta, step = restored
+        for name, t in self.state_tensors().items():
+            t.copy_(tensors[name])
+        self.opt_state.count = int(meta["count"])
+        return int(step)
+
+    def _save_checkpoint(self, step: int, epoch: int, pos: int) -> bool:
+        """Every save (cadence, rewind anchor, anomaly, preemption, final)
+        goes through here, so the rewind's snapshot (the dropout
+        generator's state and the data cursor), the recovery sidecar and
+        the chaos ``ckpt_corrupt`` ordinal miss none."""
+        if not self.checkpointer.save(step, self.state_tensors(), {"count": self.opt_state.count}):
+            return False
+        self._save_ordinal += 1
+        self.recovery.note_save(step, rng=self.generator.get_state(), epoch=epoch, pos=pos)
+        self._write_recovery_sidecar(step, epoch, pos)
+        if self.chaos.take("ckpt_corrupt", self._save_ordinal):
+            # the files AND their manifest first: verification, not a torn
+            # write, must catch the corruption
+            self.checkpointer.wait()
+            corrupt_checkpoint(self.checkpointer.step_dir(step))
+        return True
+
+    def _write_recovery_sidecar(self, step: int, epoch: int, pos: int) -> None:
+        """The data cursor and the quarantine set beside the checkpoint
+        (atomic).  The generator's state stays in memory: a bit-exact
+        replay is a same-process property, as in the JAX package."""
+        payload = {"step": int(step), "epoch": int(epoch), "pos": int(pos),
+                   "quarantined": [[e, s, rec]
+                                   for (e, s), rec in self.recovery.quarantined.items()]}
+        try:
+            write_json_atomic(self.checkpointer.recovery_path(step), payload)
+        except OSError as e:
+            # best effort: a resume without it takes the arithmetic cursor
+            log_json({"event": "recovery_sidecar_write_failed", "step": int(step),
+                      "error": str(e)[:200]})
+
+    def _load_recovery_sidecar(self, step: int) -> dict | None:
+        try:
+            with open(self.checkpointer.recovery_path(step)) as f:
+                return json.load(f)
+        except (OSError, json.JSONDecodeError):
+            return None
+
+    def _with_data_retries(self, batches: Iterable[dict]) -> Iterator[dict]:
+        """The epoch's batches with the chaos ``data_error`` injection
+        point and its retry (capped backoff, ``data_retry`` lines).  The
+        injected error is raised before the iterator is touched, so the
+        retry re-fetches cleanly; an error from the iterator itself
+        propagates (a generator that raised is finished)."""
+        class _Injected(OSError):
+            pass
+
+        it = iter(batches)
+        while True:
+            attempt, delay = 0, 0.05
+            while True:
+                try:
+                    if self.chaos.take("data_error", self._last_step + 1):
+                        raise _Injected("chaos: injected transient data-read error")
+                    batch = next(it)
+                    break
+                except StopIteration:
+                    return
+                except _Injected as e:
+                    attempt += 1
+                    log_json({"event": "data_retry", "step": self._last_step + 1,
+                              "attempt": attempt, "backoff_s": round(delay, 3),
+                              "error": str(e)[:200]})
+                    delay = sleep_backoff(delay, cap_s=2.0)
+            yield batch
+
+    # -- preemption ------------------------------------------------------
+
+    def _install_preemption_handler(self) -> None:
+        """SIGTERM/SIGINT -> finish the step in flight, checkpoint, return.
+        A second signal gets the previous handler.  No-op outside the main
+        thread (the signal module's restriction)."""
+        self._preempted = False
+
+        def on_signal(signum, frame):
+            self._preempted = True
+            log_json({"event": "preemption_signal", "signal": int(signum)})
+            prev = self._prev_handlers.get(signum)
+            if prev is not None:
+                signal.signal(signum, prev)
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev_handlers[sig] = signal.signal(sig, on_signal)
+            except ValueError:  # not the main thread
+                return
+
+    def _restore_signal_handlers(self) -> None:
+        for sig, handler in self._prev_handlers.items():
+            signal.signal(sig, handler)
+        self._prev_handlers = {}
+
+    # -- health ----------------------------------------------------------
+
+    def _on_step(self, step: int, epoch: int, metrics: dict, fingerprint: dict | None) -> str:
+        """Per step: the recorder and the health window take references
+        (no device sync); at the log cadence, the health check.  Returns
+        the anomaly policy's action, or "ok"."""
+        if self.recorder is not None:
+            self.recorder.record(step, epoch, metrics, fingerprint)
+        if self.watchdog is None:
+            return "ok"
+        self._pending_health.append((step, metrics))
+        if step % max(1, self.cfg.log_every_steps):
+            return "ok"
+        return self._health_cadence(step)
+
+    def _health_cadence(self, step: int) -> str:
+        """The window's metrics to the host in one transfer, the detectors,
+        the ``obs_anomaly`` line and, on an anomaly, the recorder's dump."""
+        if not self._pending_health:
+            return "ok"
+        entries = to_host(self._pending_health)
+        self._pending_health = []
+        if self.recorder is not None:
+            for s, vals in entries:
+                self.recorder.annotate(s, vals)
+        anomalies = self.watchdog.check(entries)
+        event = agree_and_emit(anomalies, step=step, policy=self.cfg.on_anomaly)
+        if event is None:
+            return "ok"
+        self.last_anomaly = event
+        if self.recorder is not None:
+            self.recorder.dump(self.cfg.output_dir, reason=f"anomaly:{event['code']}", step=step,
+                               anomalies=anomalies)
+        return self.cfg.on_anomaly
+
+    def _handle_rewind(self, step: int, epoch: int, pos: int) -> tuple[int, int, int] | None:
+        """The ``rewind`` action: the escalation (rewind / skip_batch /
+        halt) and its execution.  Returns the (epoch, pos, step) cursor the
+        loop resumes at, or None to stop (``_anomaly_action`` set)."""
+        t0 = time.perf_counter()
+        anomaly = self.last_anomaly or {"step": step, "code": "unknown"}
+        a_step = int(anomaly.get("step", step))
+        fingerprint = self.recorder.fingerprint_for(a_step) if self.recorder is not None else None
+        decision = self.recovery.decide(anomaly, fingerprint=fingerprint)
+        action, reason = decision.action, decision.reason
+        if action != "halt" and fingerprint is not None:
+            # quarantine first: evidence even if the restore below fails
+            self.recovery.quarantine(fingerprint["epoch"], fingerprint["epoch_step"], fingerprint,
+                                     reason=f"anomaly:{anomaly.get('code')}@{a_step}")
+        if action == "skip_batch":
+            log_json({"event": "recovery", "action": "skip_batch", "step": a_step,
+                      "detected_at_step": int(step), "code": anomaly.get("code"),
+                      "reason": reason})
+            return epoch, pos, step
+        if action == "rewind":
+            restored, rewind_err = None, None
+            try:
+                restored = self.checkpointer.restore_before(a_step, self.state_tensors())
+            except (OSError, ValueError, KeyError) as e:
+                rewind_err = e
+            if restored is None:
+                action = "halt"
+                reason = (f"no verified checkpoint older than anomaly step {a_step}"
+                          + (f" ({str(rewind_err)[:160]})" if rewind_err else ""))
+            else:
+                rstep = self._load_state(restored)
+                # steps newer than the target may hold the poisoned state
+                # with clean checksums: the replay saves them again
+                self.checkpointer.delete_after(rstep)
+                snap = self.recovery.snapshot_for(rstep)
+                if snap is not None:
+                    # the dropout generator and the data cursor as they
+                    # stood at that save: the replay is bit-identical
+                    self.generator.set_state(snap["rng"])
+                    r_epoch, r_pos = snap["epoch"], snap["pos"]
+                else:
+                    # a step of an earlier run (resume, then rewind): its
+                    # sidecar's cursor; the dropout stream goes on
+                    side = self._load_recovery_sidecar(rstep)
+                    if side is not None:
+                        r_epoch, r_pos = int(side["epoch"]), int(side["pos"])
+                    else:
+                        r_epoch, r_pos = divmod(rstep, self.batches.steps_per_epoch())
+                kept = max(0, rstep - self.start_step)
+                del self.history[kept:], self.step_ends[kept:]
+                self._pending_health = []
+                log_json({"event": "recovery", "action": "rewind", "step": a_step,
+                          "detected_at_step": int(step), "code": anomaly.get("code"),
+                          "restored_step": int(rstep), "steps_lost": int(step - rstep),
+                          "rewind_index": self.recovery.rewinds_done,
+                          "max_rewinds": self.recovery.max_rewinds,
+                          "quarantined": fingerprint is not None,
+                          "recovery_wall_s": round(time.perf_counter() - t0, 4),
+                          "reason": reason})
+                return r_epoch, r_pos, int(rstep)
+        self._anomaly_action = "halt"
+        log_json({"event": "recovery", "action": "halt", "step": a_step,
+                  "detected_at_step": int(step), "code": anomaly.get("code"), "reason": reason})
+        return None
+
+    # -- the loop --------------------------------------------------------
+
     def train(self) -> dict[str, Any]:
+        """Every epoch from the resume point; returns {"steps",
+        "wall_seconds", "final_eval"} plus ``"preempted": True`` or
+        ``"anomaly": <policy>`` when the run stopped early (also kept as
+        ``self.result``).  A run that completes saves its final checkpoint
+        and the model (``save_final``); a preempted or anomalous one saves
+        only the checkpoint its policy asks for."""
+        # handlers restored in a finally: a raising step must not leave the
+        # flag-setting handler installed process-wide
+        self._install_preemption_handler()
+        try:
+            self.result = self._train_loop()
+            return self.result
+        except Exception:
+            if self.recorder is not None:
+                self.recorder.dump(self.cfg.output_dir, reason="exception", step=self._last_step)
+            raise
+        finally:
+            self._restore_signal_handlers()
+
+    def _train_loop(self) -> dict[str, Any]:
         cfg = self.cfg
         logger = MetricLogger(every=cfg.log_every_steps)
-        step = 0
+        step = self.start_step
+        self._last_step = step
+        self._anomaly_action: str | None = None
         last_eval: dict[str, float] = {}
         t0 = time.perf_counter()
-        for epoch in range(cfg.num_epochs):
-            for batch in self.batches.epoch(epoch):
+        # (epoch, pos) is the DATA cursor: pos counts the batches of the epoch
+        # consumed, quarantine-skipped ones included; step counts optimizer
+        # steps (checkpoints, the LR schedule)
+        if self._resume_cursor is not None:
+            epoch, pos = self._resume_cursor
+        else:
+            epoch, pos = divmod(step, self.batches.steps_per_epoch())
+        report_epoch = epoch
+        if cfg.on_anomaly == "rewind" and self.checkpointer.latest_step() is None:
+            # the rewind anchor: an anomaly before the first periodic save
+            # still finds a step to restore
+            self._save_checkpoint(step, epoch, pos)
+            self.checkpointer.wait()
+        while epoch < cfg.num_epochs:
+            report_epoch = epoch
+            rewind_cursor = None
+            for batch in self._with_data_retries(self.batches.epoch(epoch, start_step=pos)):
+                pos += 1
+                if self.recovery.should_skip(epoch, pos - 1, batch):
+                    continue
+                if self.chaos.take("oom", step + 1):
+                    raise RuntimeError(
+                        f"RESOURCE_EXHAUSTED: chaos-injected out of memory before step {step + 1}")
+                if self.chaos.take("nan_grad", step + 1):
+                    with torch.no_grad():
+                        self.named_params[0][1].view(-1)[0] = float("nan")
+                fingerprint = (batch_fingerprint(batch, epoch=epoch, epoch_step=pos - 1)
+                               if self.recorder is not None else None)
                 metrics = train_step(
                     self.model, self.named_params, self.opt_state, self.spec, self.schedule,
                     put_batch(batch, self.device), grad_accum_steps=cfg.grad_accum_steps,
                     label_smoothing=cfg.label_smoothing, generator=self.generator,
+                    health_buckets=self.health_buckets,
                 )
                 step += 1
+                self._last_step = step
                 self.history.append(metrics)
                 logger.step(step, metrics["loss"], lr=metrics["learning_rate"],
                             tokens=batch_tokens(batch), epoch=epoch)
                 self.step_ends.append(time.perf_counter())
+                action = self._on_step(step, epoch, metrics, fingerprint)
+                if action in ("halt", "checkpoint"):
+                    self._anomaly_action = action
+                    break
+                if action == "rewind":
+                    rewind_cursor = self._handle_rewind(step, epoch, pos)
+                    break
+                if self.checkpointer.should_save(step):
+                    self._save_checkpoint(step, epoch, pos)
                 if cfg.evaluation_steps > 0 and step % cfg.evaluation_steps == 0:
                     last_eval = self.evaluate(epoch, step=step)
+                if self.chaos.take("sigterm", step):
+                    # a real signal through the real handler
+                    os.kill(os.getpid(), signal.SIGTERM)
+                if self._preempted:
+                    break
+            if rewind_cursor is not None:
+                # same process: no reload, the replay skips the quarantined batch
+                epoch, pos, step = rewind_cursor
+                self._last_step = step
+                continue
+            if self._preempted or self._anomaly_action is not None:
+                break
             # the epoch's partial metric window first, then its eval
             logger.flush(step, epoch=epoch)
             last_eval = self.evaluate(epoch, step=step)
+            epoch += 1
+            pos = 0
+        logger.flush(step, epoch=report_epoch)
+        # the final partial health window: a NaN in the last steps still fires
+        final_action = self._health_cadence(step) if self.watchdog is not None else "ok"
+        if self._anomaly_action is None and final_action in ("halt", "checkpoint", "rewind"):
+            # a rewind agreed in the final window has no loop left to replay:
+            # keep the evidence and stop, never export possibly poisoned
+            # weights as a finished run
+            self._anomaly_action = "checkpoint" if final_action == "rewind" else final_action
+        if self._anomaly_action is not None:
+            if self._anomaly_action == "checkpoint":
+                self._save_checkpoint(step, epoch, pos)
+                self.checkpointer.wait()
+            wall = time.perf_counter() - t0
+            log_json({"event": "anomaly_stop", "step": step, "policy": self._anomaly_action,
+                      "wall_seconds": wall})
+            return {"steps": step, "wall_seconds": wall, "final_eval": last_eval,
+                    "anomaly": self._anomaly_action}
+        if self._preempted:
+            if self.recorder is not None:
+                self.recorder.dump(cfg.output_dir, reason="preemption", step=step)
+            self._save_checkpoint(step, epoch, pos)
+            self.checkpointer.wait()
+            wall = time.perf_counter() - t0
+            log_json({"event": "preempted", "step": step, "wall_seconds": wall})
+            return {"steps": step, "wall_seconds": wall, "final_eval": last_eval,
+                    "preempted": True}
+        self._save_checkpoint(self.total_steps, epoch, pos)
+        self.checkpointer.wait()
+        self.save_final()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0

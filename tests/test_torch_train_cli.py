@@ -1,7 +1,8 @@
 """The port's train entry end to end on the CPU (``--device cpu`` at
 ``bart-test`` and ``t5-test`` size, a temporary JSON file): the JAX CLI's
 step lines, the done event, the returned trainer's history; flags this
-slice does not implement are refused by argparse.  Also: training from a
+slice does not implement are refused by argparse, and ``--chaos
+host_loss@K`` (multi-process) at parse time.  Also: training from a
 local HF checkpoint directory whose config sets attention_dropout, which
 writes <output-dir>/model/ (the reload is bit-equal to the trained
 weights); T5's and BART's training attention reaching flash_attention with
@@ -87,11 +88,13 @@ def test_train_and_serve_share_the_model_flags(tmp_path):
     assert targs.model_ckpt in T5_CONFIGS
 
 
-@pytest.mark.parametrize("flag", [["--save-every-steps", "10"], ["--optim-impl", "fused"],
-                                  ["--mesh", "data=2"], ["--remat"]])
-def test_unimplemented_flags_are_refused(tmp_path, flag):
+@pytest.mark.parametrize("flag", [["--prefetch-batches", "2"], ["--optim-impl", "fused"],
+                                  ["--mesh", "data=2"], ["--remat"], ["--chaos", "host_loss@2"]])
+def test_unimplemented_flags_are_refused(tmp_path, capsys, flag):
     with pytest.raises(SystemExit):
         train(_args(_write(tmp_path, 4), *flag))
+    if flag[0] == "--chaos":  # parsed, then refused: it needs several processes
+        assert "ROADMAP.md queue 1 item 4" in capsys.readouterr().err
 
 
 def _hf_dir(tmp_path, name, **config):
