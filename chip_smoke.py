@@ -197,9 +197,9 @@ Phases (each fatal, non-zero exit, no result line):
      (2 layers, a causal search over right-padded prompts): tokens,
      parents and outputs equal, the chosen beams' per-step log-probs
      within 1e-4, the smallest gap among each row's top 2K + 1 candidates
-     reported, kernel 1 once per encoder layer and kernel 5 once per
-     decoder layer per step; the decode offset shifted by one must break
-     the 1e-4 limit
+     reported, kernel 1 once per encoder layer (LLaMA: per layer, the
+     prompt prefill) and kernel 5 once per decoder layer per step; the
+     decode offset shifted by one must break the 1e-4 limit
  7. t5-large train: as phase 5 (same recipe and records), with kernel 4
      once per self-attention layer per step (72 / 72 / 72 / 48 a step for
      kernels 1 / 2 / 3 / 4) and non-zero gradients in both bucket tables
@@ -232,19 +232,49 @@ Phases (each fatal, non-zero exit, no result line):
      once with --paged-kv and once flat (the T5 model freed first);
      counters zeroed before and read after each: paged decode = attention
      modules x decode rounds and flash decode 0 on the paged run, the
-     reverse on the flat one, flash forward 0 on both (the prompt prefill
-     is plain attention, as in the JAX package); the pool drained; the
+     reverse on the flat one, flash forward = attention modules x prompt
+     prefills on both (a prefill written from cache slot 0 attends its own
+     keys: the causal pass through kernel 1); the pool drained; the
      greedy tokens of the two runs all equal; one profiled prefill chunk
      and decode round of each
  12. fp32 logits at llama-2-7b widths, 2 layers: a prefill + 4 decode
      steps, paged and flat, kernel path vs plain path within 1e-4; a
      decode offset shifted by one must break it on each route
- 13. a {"kernels_unported": []} line (every TPU kernel has a port), the
+ 13. llama train: llama-2-7b's published config.json at 4 of its 32
+     layers (all 32 take ~108 GB of fp32 state) and seed-0 weights,
+     written as a local HF directory by the port's export; the CLI's train
+     entry on it with --tokenizer byte --remat --fused-ce, bf16 compute and
+     fp32 masters, batch 8, source 1024 / target 128, lr 1e-4, 48 synthetic
+     instruction records (prompts of 200-900 bytes, targets of 64-128: 6
+     steps) and a --val-file of 16 (beam 2, 128 new tokens, eval batch 8,
+     --evaluation-steps 0); counters zeroed before, the eval's read in its
+     own window: the steps launch kernel 1 8 times a step (4 layers, the
+     forward and remat's recompute, all on the tensor cores), kernels 2 and
+     3 4 times, kernel 8 once and its gradient pass once, nothing else; the
+     eval exactly one event, four ROUGE means finite in [0, 1], kernel 1 4
+     times a batch (the prompt prefill) and kernel 5 4 x 127 a batch, nothing
+     else; finite losses; the export reloaded bit-equal; tokens/s, MFU, the
+     peak memory; one profiled step; each save's seconds and GB; kernel 8
+     over the 39-leaf table against its plain version (2 fp32 ulps; the norm
+     within one) and timed beside clip_grad_norm_(foreach=True) +
+     AdamW(fused=True). Then at 2 layers (the trained model's first two),
+     one batch of the recipe: (a) fp32, residual and attention-probs dropout
+     0.1, kernel path vs plain path within the BART limits, which kernels
+     2-3 drawing the probs mask from seed + 1 must break; (b) bf16 with
+     dropout and the fused CE: --remat off, full and dots bit-equal in the
+     loss and every gradient, each one's peak memory; (c) fp32: the fused CE
+     against the unfused (loss within 1e-5 relative, gradients within the
+     BART limits), the peak memory of each in fp32 and bf16. Last, kernels
+     1-3 at (8, 32, 1024, 128) bf16, causal with a ragged padding, against
+     their plain versions (2e-2) and timed beside their bounds and SDPA's
+     forward and backward with the same mask
+ 14. a {"kernels_unported": []} line (every TPU kernel has a port), the
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
      kernel 8 both entries of its source; kernels 1 and 5 count phase 6c's
      eval launches too, kernels 1-3, 7 and 8 phase 5c's resumed and rewind
-     runs),
+     runs, kernels 1, 2, 3, 5 and 8 phase 13's train and eval, kernel 1
+     phase 11's prompt prefills),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -2801,7 +2831,8 @@ def profile_train_step(torch, trainer) -> None:
 
     def step():
         train_step(trainer.model, trainer.named_params, trainer.opt_state, trainer.spec,
-                   trainer.schedule, batch, generator=trainer.generator)
+                   trainer.schedule, batch, generator=trainer.generator,
+                   is_seq2seq=trainer.loaded.is_seq2seq)
 
     step()
     enqueue, total = [], []
@@ -2829,7 +2860,7 @@ def profile_train_step(torch, trainer) -> None:
         ms, n = groups.get(g, [0.0, 0.0])
         groups[g] = [ms + v, n + counts.get(k, 0.0)]
     say({"phase": "where_the_time_goes", "call": "train_step",
-         "model": trainer.cfg.model_ckpt, "batch_shape": {
+         "model": os.path.basename(trainer.cfg.model_ckpt), "batch_shape": {
              k: list(v.shape) for k, v in batch.items()},
          "enqueue_ms": enqueue, "step_ms": total, "wall_ms_profiled": wall,
          "device_busy_ms": busy, "device_idle_share": max(0.0, 1 - busy / wall),
@@ -2864,21 +2895,33 @@ def global_norm(grads):
     return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
 
 
-def loss_and_grads(torch, model, batch):
+def loss_and_grads(torch, model, batch, *, is_seq2seq=True):
     """One forward+backward with dropout seeds from a fresh generator:
     (loss, normalized gradients) like the train step's."""
     from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
-    from distributed_llms_example_tpu_torch.train.step import seq2seq_loss_sums
+    from distributed_llms_example_tpu_torch.train.step import loss_sums
 
     for p in model.parameters():
         p.grad = None
     with dropout_seeds(torch.Generator().manual_seed(11)):
-        lsum, tokens = seq2seq_loss_sums(model, batch)
+        lsum, tokens = loss_sums(model, batch, is_seq2seq=is_seq2seq)
         lsum.backward()
     grads = [(p.grad / tokens).detach().clone() for p in model.parameters()]
     for p in model.parameters():
         p.grad = None
     return float((lsum / tokens).detach()), grads
+
+
+def grad_dist(a, b) -> dict:
+    """The gradient checks' distances between two (loss, gradients) pairs,
+    ``b`` the reference: the GRAD_LIMITS keys."""
+    (la, ga), (lb, gb) = a, b
+    per = [float((x - y).abs().max()) for x, y in zip(ga, gb)]
+    diff = float(global_norm([x - y for x, y in zip(ga, gb)]))
+    return {"loss_diff": abs(la - lb), "grad_norm_diff": abs(float(global_norm(ga)) -
+                                                              float(global_norm(gb))),
+            "max_tensor_grad_diff": max(per),
+            "grad_rel_l2": diff / float(global_norm(gb))}
 
 
 @contextlib.contextmanager
@@ -2930,18 +2973,9 @@ def grad_check_phase(torch, fa, fd, trainer):
         del model
         torch.cuda.empty_cache()
 
-    def dist(a, b):
-        (la, ga), (lb, gb) = a, b
-        per = [float((x - y).abs().max()) for x, y in zip(ga, gb)]
-        diff = float(global_norm([x - y for x, y in zip(ga, gb)]))
-        return {"loss_diff": abs(la - lb), "grad_norm_diff": abs(float(global_norm(ga)) -
-                                                                  float(global_norm(gb))),
-                "max_tensor_grad_diff": max(per),
-                "grad_rel_l2": diff / float(global_norm(gb))}
-
     f32 = torch.float32
     ref = out[f32, "plain"]
-    k32, fault = dist(out[f32, "kernel"], ref), dist(out[f32, "fault"], ref)
+    k32, fault = grad_dist(out[f32, "kernel"], ref), grad_dist(out[f32, "fault"], ref)
     line = {"phase": "grad_check", "attention_dropout": probs, "fp32_kernel_vs_plain": k32,
             "fp32_planted_fault": fault, "planted_fault": (
                 "probs-dropout seed off by one in the backward" if probs
@@ -2949,8 +2983,8 @@ def grad_check_phase(torch, fa, fd, trainer):
             "limits": GRAD_LIMITS, "loss_fp32": ref[0],
             "grad_norm_fp32": float(global_norm(ref[1]))}
     if not probs:
-        line["bf16_kernel_vs_fp32_plain"] = k16 = dist(out[torch.bfloat16, "kernel"], ref)
-        line["bf16_plain_vs_fp32_plain"] = p16 = dist(out[torch.bfloat16, "plain"], ref)
+        line["bf16_kernel_vs_fp32_plain"] = k16 = grad_dist(out[torch.bfloat16, "kernel"], ref)
+        line["bf16_plain_vs_fp32_plain"] = p16 = grad_dist(out[torch.bfloat16, "plain"], ref)
     say(line)
     for key, lim in GRAD_LIMITS.items():
         if not k32[key] <= lim:
@@ -3686,7 +3720,10 @@ def llama_serve_phase(torch, fa, cli):
         stats = engine.last_stats
         layers = sum(isinstance(m, MultiHeadAttention) for m in engine.model.modules())
         steps = layers * stats.decode_steps
-        want = {"flash_attention_fwd": 0, "flash_decode": 0 if name == "paged" else steps,
+        # kernel 1 once a layer per prompt prefill (a flat cache written
+        # from slot 0), then kernel 6 (paged) or 5 (flat) every decode round
+        want = {"flash_attention_fwd": layers * stats.prefill_calls,
+                "flash_decode": 0 if name == "paged" else steps,
                 "flash_decode_paged": steps if name == "paged" else 0}
         with open(out) as f:
             records = sum(1 for _ in f)
@@ -4107,7 +4144,7 @@ def beam_check_phase(torch, fa) -> None:
         fault_err = float((fault[1] - plain[1]).abs().nan_to_num(float("inf")).max())
         layers = 2
         steps = BEAM_NEW_TOKENS if seq2seq else BEAM_NEW_TOKENS - 1
-        want = (layers if seq2seq else 0, layers * steps)
+        want = (layers, layers * steps)  # the encoder's or the prompt prefill's kernel 1
         finite = bool(torch.isfinite(kernel[1]).all())
         say({"phase": "beam_kernel_vs_plain", "model": name, "layers": "2+2" if seq2seq else 2,
              "beams": 2, "new_tokens": BEAM_NEW_TOKENS, "rows": 8,
@@ -4124,6 +4161,525 @@ def beam_check_phase(torch, fa) -> None:
         if not fault_err > BEAM_LOGP_ATOL:
             fail(f"{name} beam search: the decode offset shifted by one moves the chosen "
                  f"log-probs only {fault_err}")
+
+
+# phase 13: causal-LM fine-tuning of llama-2-7b at full width, 4 of its 32
+# layers (its fp32 weights, gradients and AdamW moments take ~108 GB whole,
+# more than the card holds), from a local HF directory of seed-0 weights
+LLAMA_TRAIN_LAYERS = 4
+# llama-2-7b's published config.json (meta-llama/Llama-2-7b-hf), depth cut,
+# no attention dropout
+LLAMA_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "bos_token_id": 1,
+    "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 11008, "max_position_embeddings": 4096, "num_attention_heads": 32,
+    "num_hidden_layers": LLAMA_TRAIN_LAYERS, "num_key_value_heads": 32, "pretraining_tp": 1,
+    "rms_norm_eps": 1e-05, "rope_scaling": None, "rope_theta": 10000.0,
+    "tie_word_embeddings": False, "torch_dtype": "float16", "use_cache": True,
+    "vocab_size": 32000, "attention_dropout": 0.0, "attention_bias": False,
+}
+LLAMA_TRAIN_ARGS = [
+    "--tokenizer", "byte", "--remat", "--fused-ce", "--batch-size", "8", "--num-epochs", "1",
+    "--max-source-length", "1024", "--max-target-length", "128", "--compute-dtype", "bfloat16",
+    "--learning-rate", "1e-4", "--warmup-steps", "0", "--seed", "0", "--log-every-steps", "1",
+    "--evaluation-steps", "0", "--num-beams", "2", "--eval-max-new-tokens", "128",
+    "--eval-batch-size", "8",
+]
+LLAMA_TRAIN_RECORDS = 48
+LLAMA_VAL_RECORDS = 16
+# the CE check (fused against unfused, fp32): the loss, relative
+LLAMA_CE_LOSS_RTOL = 1e-5
+
+
+def write_instruction_records(path: str, n: int, *, seed: int) -> None:
+    """``n`` synthetic instruction records: prompts of 200-900 bytes,
+    targets of 64-128 (byte tokens)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
+    recs = [{"dialogue": "".join(rng.choice(alphabet, rng.randint(200, 901))),
+             "summary": "".join(rng.choice(alphabet, rng.randint(64, 129)))} for _ in range(n)]
+    with open(path, "w") as f:
+        json.dump(recs, f)
+
+
+def llama_hf_dir(torch) -> str:
+    """<WORK>/llama-2-7b-4l-hf: llama-2-7b's published config.json fields at
+    LLAMA_TRAIN_LAYERS layers, and seed-0 random fp32 weights written by the
+    port's HF export (nothing is fetched)."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.export import save_hf_checkpoint
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.models.registry import LLAMA_CONFIGS
+
+    path = fresh_dir(f"llama-2-7b-{LLAMA_TRAIN_LAYERS}l-hf")
+    cfg = dataclasses.replace(LLAMA_CONFIGS["llama-2-7b"], num_hidden_layers=LLAMA_TRAIN_LAYERS)
+    model = LlamaForCausalLM(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    t0 = time.perf_counter()
+    save_hf_checkpoint(path, "llama", cfg, model.state_dict())
+    with open(os.path.join(path, "config.json")) as f:
+        written = json.load(f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({**written, **LLAMA_HF_CONFIG}, f, indent=2, sort_keys=True)
+    say({"phase": "llama_train_checkpoint", "dir": path, "layers": LLAMA_TRAIN_LAYERS,
+         "parameters": sum(p.numel() for p in model.parameters()),
+         "leaves": len(list(model.parameters())), "write_s": time.perf_counter() - t0,
+         "bytes": tree_bytes(path)})
+    del model
+    free_cuda()
+    return path
+
+
+def llama_train_phase(torch, fa, fd, fo, cli) -> dict:
+    """The CLI's train entry on llama-2-7b's full width at LLAMA_TRAIN_LAYERS
+    layers from a local HF directory, --remat --fused-ce, bf16 compute and
+    fp32 master weights, 48 records (6 steps), one eval at the epoch's end
+    over a --val-file of 16 (beam 2, 128 new tokens).  Launches of the
+    steps exact (kernel 1 twice a layer a step: the forward and remat's
+    recompute; kernels 2-3 once; kernel 8 one AdamW and one gradient-pass
+    launch), the eval's in their own window (kernel 1 once a layer a batch:
+    the prompt prefill; kernel 5 once a layer a beam step), finite losses,
+    the export reloaded bit-equal, tokens/s, the peak memory; one profiled
+    step; kernel 8 over the 39-leaf table; then the in-process checks at 2
+    layers and the attention kernels timed at the recipe's shape.  Returns
+    the launches of the train and eval windows together."""
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.train import trainer as trainer_mod
+    from distributed_llms_example_tpu_torch.train.trainer import batch_tokens, put_batch
+
+    ckpt = llama_hf_dir(torch)
+    train_path, val_path = (os.path.join(WORK, f"llama_{x}.json") for x in ("train", "val"))
+    write_instruction_records(train_path, LLAMA_TRAIN_RECORDS, seed=0)
+    write_instruction_records(val_path, LLAMA_VAL_RECORDS, seed=1)
+    out_dir = fresh_dir("llama-2-7b-train-out")
+    windows = []
+    real_evaluate = trainer_mod.Trainer.evaluate
+
+    def evaluate(self, *a, **k):
+        torch.cuda.synchronize()
+        before = read_counters(fa, fd, fo) | {"flash_decode": fa.flash_decode.launches,
+                                              "flash_decode_paged": fa.flash_decode_paged.launches}
+        tc0 = fa.flash_attention.tc_launches
+        t0 = time.perf_counter()
+        scores = real_evaluate(self, *a, **k)
+        torch.cuda.synchronize()
+        after = read_counters(fa, fd, fo) | {"flash_decode": fa.flash_decode.launches,
+                                             "flash_decode_paged": fa.flash_decode_paged.launches}
+        windows.append(dict(wall_s=time.perf_counter() - t0,
+                            launches={k: after[k] - before[k] for k in after},
+                            tc_launches=fa.flash_attention.tc_launches - tc0))
+        return scores
+
+    zero_counters(fa, fd, fo)
+    fa.flash_decode.launches = fa.flash_decode_paged.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer_mod.Trainer.evaluate = evaluate
+    try:
+        with logged_events() as events:
+            t0 = time.perf_counter()
+            trainer = cli.train([*LLAMA_TRAIN_ARGS, "--model-ckpt", ckpt, "--train-file",
+                                 train_path, "--val-file", val_path, "--output-dir", out_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer.evaluate = real_evaluate
+    peak = torch.cuda.max_memory_allocated()
+    total = read_counters(fa, fd, fo) | {"flash_decode": fa.flash_decode.launches,
+                                         "flash_decode_paged": fa.flash_decode_paged.launches}
+    ev = windows[0] if windows else {"launches": {k: 0 for k in total}, "tc_launches": 0}
+    train_launches = {k: total[k] - ev["launches"][k] for k in total}
+    model, cfg = trainer.model, trainer.loaded.config
+    steps = len(trainer.history)
+    layers = cfg.num_hidden_layers
+    want = expected_train_launches(model, steps) | {"flash_decode": 0, "flash_decode_paged": 0}
+    want["flash_attention_fwd"] *= 2  # the forward, and remat's recompute in the backward
+    batches = -(-LLAMA_VAL_RECORDS // trainer.cfg.eval_batch_size)
+    beam_steps = trainer.cfg.eval_max_new_tokens - 1  # the prefill picks token 0
+    want_eval = {k: 0 for k in total} | {"flash_attention_fwd": layers * batches,
+                                         "flash_decode": layers * beam_steps * batches}
+    eval_events = [e for e in events if e.get("event") == "eval"]
+    rouge = {k: eval_events[0].get(k) for k in ("rouge1", "rouge2", "rougeL", "rougeLsum")} \
+        if eval_events else {}
+    losses = [float(m["loss"]) for m in trainer.history]
+    step_s = [b - a for a, b in zip(trainer.step_ends, trainer.step_ends[1:])]
+    plan = list(trainer.batches.epoch(0))
+    tokens = [batch_tokens(b, is_seq2seq=False) for b in plan]
+    widths = [int(b["input_ids"].shape[1]) for b in plan]
+    nonembed = sum(p.numel() for n, p in model.named_parameters() if "embed_tokens" not in n)
+    flops_per_token = 6.0 * nonembed  # the model flops a trained token costs
+    med = statistics.median(step_s) if step_s else float("nan")
+    say({"phase": "llama_train", "model": "llama-2-7b", "layers": layers, "checkpoint": ckpt,
+         "wall_s": wall, "steps": steps, "losses": losses,
+         "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
+         "step_s_after_first": step_s, "step_s_median": med,
+         "tokens_per_step": tokens, "batch_widths": widths,
+         "tokens_per_sec": statistics.mean(tokens) / med,
+         "model_flops_per_step": flops_per_token * statistics.mean(tokens),
+         "mfu": flops_per_token * statistics.mean(tokens) / med / PEAK_FLOPS,
+         "peak_mem_bytes": peak, "remat": model.remat_policy, "fused_ce": cfg.fused_ce,
+         "launches": train_launches, "expected": want,
+         "tc_launches": fa.flash_attention.tc_launches - ev["tc_launches"],
+         "dropout_launches": drop_counters(fa)})
+    say({"phase": "llama_eval", "eval_events": eval_events, "evals": len(windows),
+         "eval_wall_s": ev.get("wall_s"), "launches": ev["launches"], "expected": want_eval,
+         "tc_launches": ev["tc_launches"]})
+    if steps != 6 or not all(math.isfinite(x) for x in losses):
+        fail(f"llama train: {steps} steps, losses {losses}")
+    if train_launches != want or fa.flash_attention.tc_launches - ev["tc_launches"] != \
+            want["flash_attention_fwd"] or any(drop_counters(fa).values()):
+        fail(f"llama train launches {train_launches}, expected {want}, every kernel-1 launch "
+             "on the tensor cores and none a dropout instance")
+    if len(eval_events) != 1 or len(windows) != 1 or ev["launches"] != want_eval \
+            or ev["tc_launches"] != want_eval["flash_attention_fwd"]:
+        fail(f"llama eval: {len(eval_events)} events, {len(windows)} evals, launches "
+             f"{ev['launches']} vs {want_eval}")
+    if len(rouge) != 4 or not all(isinstance(v, float) and math.isfinite(v) and 0 <= v <= 1
+                                  for v in rouge.values()):
+        fail(f"llama eval event {eval_events}: the four ROUGE means must be finite in [0, 1]")
+    saved = os.path.join(out_dir, "model")
+    t1 = time.perf_counter()
+    back = load_model(saved, dtype=model.dtype, device="cuda", train=True).module
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    trained = dict(model.named_parameters())
+    equal = [torch.equal(p, trained[n]) for n, p in back.named_parameters()]
+    say({"phase": "train_export", "model": "llama-2-7b", "dir": saved,
+         "files": sorted(os.listdir(saved)), "bytes": tree_bytes(saved), "reload_s": load_s,
+         "parameters": len(equal), "bit_equal": sum(equal)})
+    if len(equal) != len(trained) or not all(equal):
+        fail("llama train: the saved checkpoint does not reload to the trained weights")
+    del back
+    free_cuda()
+    checkpoint_costs("llama-2-7b", events, out_dir)
+    profile_train_step(torch, trainer)
+    llama_adamw_phase(torch, fo, trainer)
+    batch = put_batch(plan[0], trainer.device)
+    small = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if not k.startswith("blocks.") or int(k.split(".")[1]) < 2}
+    del trainer, model, trained
+    free_cuda()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    llama_grad_checks(torch, fa, fd, batch, small, cfg)
+    del batch, small
+    free_cuda()
+    return {k: train_launches[k] + ev["launches"][k] for k in total}
+
+
+def llama_adamw_phase(torch, fo, trainer) -> None:
+    """Kernel 8 over the trained model's 39-leaf table (1.07 B elements, the
+    last step's gradients, tokens 1): one tail against the plain version's
+    on copies of the same state (each of p, mu, nu within ADAMW_RTOL, the
+    norm within one fp32 ulp), then timed beside the plain tail and
+    clip_grad_norm_(foreach=True) + AdamW(fused=True)."""
+    from distributed_llms_example_tpu_torch.train import optim as toptim
+
+    named = trainer.named_params
+    state, spec = trainer.opt_state, trainer.spec
+    params = [p for _, p in named]
+    grads = [p.grad for p in params]
+    dev = params[0].device
+    ones = torch.ones((), device=dev)
+    copies = [[t.detach().clone() for t in ts] for ts in (params, state.mu, state.nu, grads)]
+    count = state.count
+    with torch.no_grad():
+        gnorm = toptim.fused_optimizer_apply(spec, trainer.schedule, named, state, grads, ones)
+        cp, cmu, cnu, cg = copies
+        gplain = fo.grad_prep_plain(cg, ones)
+        scal = toptim.step_scalars(spec, trainer.schedule, count, gplain)
+        worst = 0.0
+        for i, (n, p) in enumerate(named):
+            wp, wmu, wnu, _ = fo.adamw_leaf_plain(
+                cp[i], cmu[i], cnu[i], cg[i], scal, b1=spec.b1, b2=spec.b2, eps=spec.eps,
+                max_norm=spec.max_grad_norm,
+                wd=spec.weight_decay if toptim.decay_mask(n, p) else 0.0)
+            for got, w in ((p, wp), (state.mu[i], wmu), (state.nu[i], wnu)):
+                ok, err = close_enough(got, w, atol=0.0, rtol=ADAMW_RTOL)
+                if not ok:
+                    fail(f"fused_adamw llama table {n}: kernel differs from plain ({err})")
+                worst = max(worst, err)
+            del wp, wmu, wnu
+    ulp = float(torch.finfo(torch.float32).eps * gplain.abs())
+    norm_err = float((gnorm - gplain).abs())
+    say({"phase": "kernel_check", "case": "fused_grad_prep + fused_adamw llama-2-7b 4-layer "
+         "table vs plain", "leaves": len(params), "elements": sum(p.numel() for p in params),
+         "max_abs_err": worst, "rtol": ADAMW_RTOL, "gnorm_abs_err": norm_err, "fp32_ulp": ulp})
+    if not norm_err <= ulp:
+        fail(f"fused_grad_prep llama table: norm {float(gnorm)} vs plain {float(gplain)}")
+    del copies, cp, cmu, cnu, cg
+    free_cuda()
+    n = sum(p.numel() for p in params)
+
+    def run():
+        toptim.fused_optimizer_apply(spec, trainer.schedule, named, state, grads, ones)
+
+    def plain():
+        g = fo.grad_prep_plain(grads, ones)
+        scal = toptim.step_scalars(spec, trainer.schedule, state.count, g)
+        for i, (name, p) in enumerate(named):
+            fo.adamw_leaf_plain(p, state.mu[i], state.nu[i], grads[i], scal, b1=spec.b1,
+                                b2=spec.b2, eps=spec.eps, max_norm=spec.max_grad_norm,
+                                wd=spec.weight_decay if toptim.decay_mask(name, p) else 0.0)
+
+    with torch.no_grad():
+        # a profiler session may drop events: take the first of up to three
+        # that saw both kernels once a tail
+        for _ in range(3):
+            counts: dict[str, float] = {}
+            _, kernels = profile_device(run, 3, counts)
+            ours = {k: v for k, v in kernels.items() if "fused_" in k}
+            if len(ours) == 2 and all(counts[k] == 1.0 for k in ours):
+                break
+        r = dict(ms=time_ms(run, per_rep=2, reps=5), device_ms=sum(ours.values()),
+                 plain_ms=time_ms(plain, per_rep=1, reps=3))
+    lib = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.01, fused=True)
+
+    def lib_step():
+        torch.nn.utils.clip_grad_norm_(params, 1.0, foreach=True)
+        lib.step()
+
+    b_ms, b_by = bound(0.0, 36.0 * n)
+    say({"phase": "kernel_time", "kernel": "fused_grad_prep + fused_adamw",
+         "call": "train step tail, llama-2-7b 4 layers", "leaves": len(params), "elements": n,
+         **r, "host_ms": host_us(run, 10) / 1e3, "device_ms_by_kernel": ours,
+         "launches_per_tail": sum(counts.values()), "bound_ms": b_ms, "bound_by": b_by,
+         "library": "clip_grad_norm_(foreach=True) + AdamW(fused=True)",
+         "library_ms": time_ms(lib_step, per_rep=1, reps=5)})
+    del lib
+    free_cuda()
+
+
+def llama_small(torch, state, cfg, *, dtype, dropout: float, fused_ce: bool):
+    """llama-2-7b's widths at 2 layers holding ``state`` (the trained
+    model's first two layers, embedding, final norm and head), in training
+    mode: residual and attention-probs dropout at ``dropout``."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = dataclasses.replace(cfg, num_hidden_layers=2, dropout_rate=dropout,
+                              attn_dropout_rate=dropout, fused_ce=fused_ce)
+    model = LlamaForCausalLM(cfg, dtype=dtype, param_dtype=torch.float32, device="cuda")
+    model.load_state_dict(state)
+    return model.train()
+
+
+def llama_grad_checks(torch, fa, fd, batch, state, cfg) -> None:
+    """At llama-2-7b's widths, 2 layers, one batch of the recipe:
+    the trained model's first two layers.
+    (a) fp32 with residual and attention-probs dropout 0.1 (kernels 1-3's
+    dropout instances at d = 128, kernel 7): the kernel path against the
+    plain path within GRAD_LIMITS, which kernels 2-3 drawing the probs
+    mask from seed + 1 must break; (b) bf16 with dropout, the recipe's
+    fused CE: --remat off, full and dots give a bit-equal loss and every
+    gradient bit-equal, with each one's peak memory; (c) fp32 without
+    dropout: the fused CE against the unfused within LLAMA_CE_LOSS_RTOL
+    (loss) and GRAD_LIMITS (gradients); each one's peak memory, in bf16
+    too; (d) the CLI run's instances, bf16 without dropout and with the
+    fused CE: the kernel path's gradient distance from the fp32 plain path
+    within 1.5 times the bf16 plain path's, as in phase 5's bf16 check."""
+
+    from distributed_llms_example_tpu_torch.ops import fused_optim as fo
+    from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
+    from distributed_llms_example_tpu_torch.train.step import causal_loss_sums
+
+    def measured(model):
+        """loss_and_grads's (loss, normalized gradients), with the forward +
+        backward's peak memory above the weights (the gradients included,
+        their normalized copies not) and its launches."""
+        for p in model.parameters():
+            p.grad = None
+        free_cuda()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(fa, fd, fo)
+        with dropout_seeds(torch.Generator().manual_seed(11)):
+            lsum, tokens = causal_loss_sums(model, batch)
+            lsum.backward()
+        torch.cuda.synchronize()
+        info = {"peak_bytes_above_weights": torch.cuda.max_memory_allocated() - base,
+                "launches": read_counters(fa, fd, fo) | {
+                    "flash_attention_fwd_dropout": fa.flash_attention.drop_launches}}
+        grads = [(p.grad / tokens).detach().clone() for p in model.parameters()]
+        for p in model.parameters():
+            p.grad = None
+        return (float((lsum / tokens).detach()), grads), info
+
+    # (a) fp32 kernel path vs plain path, dropout on
+    model = llama_small(torch, state, cfg, dtype=torch.float32, dropout=PROBS_DROPOUT,
+                        fused_ce=False)
+    kernel, k_info = measured(model)
+    with plain_kernels(fa, fd):
+        plain = loss_and_grads(torch, model, batch, is_seq2seq=False)
+    with probs_dropout_seed_off_by_one(fa):
+        fault = loss_and_grads(torch, model, batch, is_seq2seq=False)
+    del model
+    k32, f32 = grad_dist(kernel, plain), grad_dist(fault, plain)
+    say({"phase": "llama_grad_check", "dtype": "float32", "layers": 2,
+         "dropout": PROBS_DROPOUT, "attention_dropout": PROBS_DROPOUT,
+         "batch_shape": list(batch["input_ids"].shape), "kernel_vs_plain": k32,
+         "planted_fault": "kernels 2-3 draw the probs mask from seed + 1",
+         "planted_fault_vs_plain": f32, "limits": GRAD_LIMITS, "loss": plain[0],
+         "kernel_launches": k_info["launches"]})
+    want_a = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+              "flash_attention_bwd_dkv": 2, "fused_dropout": 8, "flash_attention_fwd_dropout": 2}
+    if any(k_info["launches"][k] != v for k, v in want_a.items()):
+        fail(f"llama fp32 gradient check launches {k_info['launches']}, expected {want_a}")
+    for key, lim in GRAD_LIMITS.items():
+        if not k32[key] <= lim:
+            fail(f"llama fp32 gradient check: kernel path vs plain path {key} {k32[key]} > {lim}")
+    if not any(f32[key] > lim for key, lim in GRAD_LIMITS.items()):
+        fail(f"llama fp32 gradient check: the planted fault stays within every limit: {f32}")
+
+    # (b) bf16 with dropout and the fused CE: remat off, full, dots bit-equal
+    model = llama_small(torch, state, cfg, dtype=torch.bfloat16, dropout=PROBS_DROPOUT,
+                        fused_ce=True)
+    runs = {}
+    for policy in (None, "full", "dots"):
+        model.remat_policy = policy
+        runs[policy or "off"] = measured(model)
+    (off, off_info) = runs["off"]
+    equal = {k: (v[0][0] == off[0], all(torch.equal(a, b) for a, b in zip(v[0][1], off[1])))
+             for k, v in runs.items()}
+    say({"phase": "llama_remat_check", "dtype": "bfloat16", "layers": 2,
+         "dropout": PROBS_DROPOUT, "fused_ce": True, "losses": {k: v[0][0] for k, v in runs.items()},
+         "loss_and_grads_bit_equal_to_off": equal,
+         "peak_bytes_above_weights": {k: v[1]["peak_bytes_above_weights"]
+                                      for k, v in runs.items()},
+         "launches": {k: v[1]["launches"] for k, v in runs.items()}})
+    if not all(a and b for a, b in equal.values()):
+        fail(f"llama remat: loss or gradients differ from the run without remat: {equal}")
+    del model, runs
+
+    # (c) the fused CE against the unfused, fp32 (and the memory of each in bf16);
+    # (d) with the fused CE, each dtype's plain path too
+    out, plain = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for fused in (False, True):
+            model = llama_small(torch, state, cfg, dtype=dtype, dropout=0.0, fused_ce=fused)
+            out[dtype, fused] = measured(model)
+            if fused:
+                with plain_kernels(fa, fd):
+                    plain[dtype] = loss_and_grads(torch, model, batch, is_seq2seq=False)
+            del model
+    f, u = out[torch.float32, True][0], out[torch.float32, False][0]
+    ce = grad_dist(f, u)
+    ce["loss_rel_diff"] = abs(f[0] - u[0]) / abs(u[0])
+    say({"phase": "llama_fused_ce_check", "dtype": "float32", "layers": 2, "fused_vs_unfused": ce,
+         "limits": {**GRAD_LIMITS, "loss_rel_diff": LLAMA_CE_LOSS_RTOL},
+         "bf16_loss": {"fused": out[torch.bfloat16, True][0][0],
+                       "unfused": out[torch.bfloat16, False][0][0]},
+         "peak_bytes_above_weights": {
+             f"{'bf16' if d == torch.bfloat16 else 'fp32'}_{'fused' if fu else 'unfused'}":
+             v[1]["peak_bytes_above_weights"] for (d, fu), v in out.items()}})
+    if not ce["loss_rel_diff"] <= LLAMA_CE_LOSS_RTOL:
+        fail(f"llama fused CE: loss {f[0]} vs unfused {u[0]}")
+    for key, lim in GRAD_LIMITS.items():
+        if key != "loss_diff" and not ce[key] <= lim:
+            fail(f"llama fused CE: gradients {key} {ce[key]} > {lim}")
+    ref = plain[torch.float32]
+    k16 = grad_dist(out[torch.bfloat16, True][0], ref)
+    p16 = grad_dist(plain[torch.bfloat16], ref)
+    say({"phase": "llama_bf16_check", "layers": 2, "dropout": 0.0, "fused_ce": True,
+         "bf16_kernel_vs_fp32_plain": k16, "bf16_plain_vs_fp32_plain": p16,
+         "limit": "kernel grad_rel_l2 <= 1.5 x plain grad_rel_l2", "loss_fp32_plain": ref[0]})
+    if not k16["grad_rel_l2"] <= 1.5 * p16["grad_rel_l2"]:
+        fail(f"llama bf16 gradient: kernel path {k16['grad_rel_l2']} from fp32 against the "
+             f"plain path's {p16['grad_rel_l2']}")
+    del out, plain, f, u, ref
+
+
+def causal_pad_work(lens, B, H, S, D, per_key):
+    """(flops, live (query, key) pairs) of a causal pass with right padding:
+    query row i of batch row b meets keys j <= i below its row's length."""
+    import torch
+
+    i = torch.arange(S, device=lens.device)
+    pairs = float(torch.minimum(i[None, :] + 1, lens[:, None]).sum())
+    return per_key * H * pairs * D, pairs
+
+
+def llama_attention_time(torch, fa) -> dict:
+    """Kernels 1, 2 and 3 at the llama recipe's shape, (8, 32, 1024, 128)
+    bf16, causal with a ragged right padding: against their plain versions
+    (the bf16 limits of phase 3), timed (events and device) beside their
+    bounds over the live (query, key) pairs and SDPA's forward and backward
+    with the same causal + padding mask."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, H, S, D = 8, 32, 1024, 128
+    lens = torch.randint(200, S + 1, (B,), generator=gen, device=dev)
+    lens[0] = S
+    bias = torch.where(torch.arange(S, device=dev)[None, :] < lens[:, None], 0.0, -1e9)
+    bias = bias[:, None, None, :].float().contiguous()
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=True, scale=D ** -0.5)
+    tol = dict(atol=2e-2, rtol=2e-2)
+    o, lse = fa.flash_attention(q, k, v, bias, causal=True, return_lse=True)
+    po, plse = fa.flash_attention_plain(q, k, v, bias, causal=True)
+    errs = {"fwd": max(check_close("flash_fwd llama (8, 32, 1024, 128) causal + padding bf16",
+                                   o, po, **tol),
+                       check_close("flash_fwd llama causal + padding lse bf16", lse, plse, **tol))}
+    delta = fa.attention_delta(do, o)
+    dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw)
+    _, ds = fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)
+    pdq = fa._dq_plain(q, k, ds)
+    pdk, pdv = fa._dkv_plain(q, k, v, do, *fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw))
+    errs["dq"] = check_close("flash_bwd_dq llama causal + padding bf16", dq, pdq, **tol)
+    errs["dkv"] = max(check_close("flash_bwd_dkv llama causal + padding dk bf16", dk, pdk, **tol),
+                      check_close("flash_bwd_dkv llama causal + padding dv bf16", dv, pdv, **tol))
+    del po, plse, pdq, pdk, pdv, ds
+    free_cuda()
+    # SDPA with the same causal + padding mask (a boolean (B, 1, S, S))
+    keep = (torch.arange(S, device=dev)[None, :] <= torch.arange(S, device=dev)[:, None])
+    keep = keep[None, None] & (torch.arange(S, device=dev) < lens[:, None])[:, None, None, :]
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
+                       per_rep=10)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True),
+                       per_rep=5)
+    flops1, pairs = causal_pad_work(lens, B, H, S, D, 4)
+    keys = float(lens.sum())
+    # every query row is read (q, do, lse, delta) and every output row
+    # written at full size, but only the live key rows of k and v: a padded
+    # key adds nothing to dq, and its dk/dv rows are zeros needing no read
+    kv_live = 2 * H * keys * D * 2
+    io_fwd = 2 * B * H * S * D * 2 + kv_live + bias.numel() * 4 + B * H * S * 4
+    io_bwd = 2 * B * H * S * D * 2 + kv_live + 2 * B * H * S * 4 + bias.numel() * 4
+    rows = {}
+    for name, fn, plain, per_key, out_bytes, dev_name, lib_ms, lib in (
+        ("flash_attention_fwd", lambda: fa.flash_attention(q, k, v, bias, causal=True),
+         lambda: fa.flash_attention_plain(q, k, v, bias, causal=True), 4, 0,
+         "flash_fwd_tc_kernel", sdpa_fwd, "SDPA forward, same mask"),
+        ("flash_attention_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw),
+         lambda: fa._dq_plain(q, k, fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)[1]),
+         6, B * H * S * D * 2, "flash_bwd_dq_tc_kernel", sdpa_bwd,
+         "SDPA backward (dq, dk, dv in one call), same mask"),
+        ("flash_attention_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, bias, do, lse, delta, **kw),
+         lambda: fa._dkv_plain(q, k, v, do, *fa._bwd_plain(q, k, v, bias, do, lse, delta, **kw)),
+         8, 2 * B * H * S * D * 2, "flash_bwd_dkv_tc_kernel", sdpa_bwd,
+         "SDPA backward (dq, dk, dv in one call), same mask"),
+    ):
+        flops, _ = causal_pad_work(lens, B, H, S, D, per_key)
+        nbytes = io_fwd if name == "flash_attention_fwd" else io_bwd + out_bytes
+        b_ms, b_by = bound(flops, nbytes)
+        rows[name] = dict(ms=time_ms(fn, per_rep=5), plain_ms=time_ms(plain, per_rep=1, reps=3),
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        say({"phase": "kernel_time", "kernel": name, "shape": [B, H, S, D],
+             "branch": "llama causal + padding", **rows[name], "library": lib,
+             "device_ms": device_ms_of(fn, 5, dev_name), "live_pairs": pairs,
+             "flops": flops, "bytes": nbytes})
+    del q, k, v, do, o, lse, delta, qs, ks, vs, out, keep
+    free_cuda()
+    return errs
 
 
 def main() -> None:
@@ -4251,31 +4807,46 @@ def main() -> None:
     llama_paged, llama_flat = llama_serve_phase(torch, fa, cli)
     llama_logits_phase(torch, fa)
 
-    # phase 13: the TPU kernels with no port yet (none), the kernel list
+    # phase 13: llama-2-7b causal-LM fine-tuning at full width, 4 layers
+    # (--remat --fused-ce, the causal eval), its 2-layer gradient, remat and
+    # fused-CE checks, kernel 8 over its table; kernels 1-3 at its shape
+    llama_train = llama_train_phase(torch, fa, fd, fo, cli)
+    for name, err in llama_attention_time(torch, fa).items():
+        key = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+               "dkv": "flash_attention_bwd_dkv"}[name]
+        measured[key]["max_abs_err"] = max(measured[key]["max_abs_err"], err)
+
+    # phase 14: the TPU kernels with no port yet (none), the kernel list
     # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
     # then the contract line.  A kernel that runs on several main paths
     # reports the sum of their counts: kernel 1 the BART and T5 serve and
-    # train runs, phase 5c's resumed and rewind runs and the BART eval,
-    # kernels 2, 3, 7 and 8 the BART and T5 train runs and phase 5c's,
-    # kernel 4 the T5 train run, kernel 5 the BART and flan-T5
-    # serve runs, the flat LLaMA serve and the BART eval, kernel 6 the paged
+    # train runs, phase 5c's resumed and rewind runs, the BART eval, the
+    # LLaMA serve runs' prompt prefills and the LLaMA train run and its
+    # eval; kernels 2, 3 and 8 the BART, T5 and LLaMA train runs and phase
+    # 5c's, kernel 7 the BART and T5 train runs and phase 5c's, kernel 4
+    # the T5 train run, kernel 5 the BART and flan-T5 serve runs, the flat
+    # LLaMA serve, the BART eval and the LLaMA eval, kernel 6 the paged
     # LLaMA serve.
     say({"kernels_unported": []})
     src = "distributed_llms_example_tpu_torch/csrc/"
     ref = "distributed_llms_example_tpu/ops/"
-    both = {k: train_launches[k] + t5_train[k] + ft_launches.get(k, 0) for k in t5_train}
+    both = {k: train_launches[k] + t5_train[k] + ft_launches.get(k, 0) + llama_train.get(k, 0)
+            for k in t5_train}
     rows = [
         dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd_tc.cu",
              sources=[src + "flash_fwd_tc.cu", src + "flash_fwd.cu"],
              replaces=ref + "flash_attention.py:119",
              launches=(launches["flash_attention_fwd"] + both["flash_attention_fwd"]
-                       + t5_serve["flash_attention_fwd"] + eval_launches["flash_attention_fwd"]),
+                       + t5_serve["flash_attention_fwd"] + eval_launches["flash_attention_fwd"]
+                       + llama_paged["flash_attention_fwd"]
+                       + llama_flat["flash_attention_fwd"]),
              **measured["flash_attention_fwd"]),
         dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
              sources=[src + "flash_decode.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:931",
              launches=(launches["flash_decode"] + llama_flat["flash_decode"]
-                       + t5_serve["flash_decode"] + eval_launches["flash_decode"]),
+                       + t5_serve["flash_decode"] + eval_launches["flash_decode"]
+                       + llama_train["flash_decode"]),
              **measured["flash_decode"]),
         dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
              sources=[src + "flash_decode_paged.cu", src + "flash_decode.cuh"],

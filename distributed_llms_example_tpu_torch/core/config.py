@@ -14,6 +14,7 @@ import os
 import tempfile
 
 from distributed_llms_example_tpu_torch.obs.chaos import parse_chaos
+from distributed_llms_example_tpu_torch.utils.remat import REMAT_POLICIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +57,10 @@ class TrainConfig:
     eval_max_new_tokens: int = 128
     eval_batch_size: int = 0  # 0 = batch_size
     attention_impl: str = ""  # "" = model default (auto)
+    remat: bool = False  # activation checkpointing of the transformer blocks
+    remat_policy: str = "full"  # "full" | "dots" (utils/remat.py)
+    fused_ce: bool = False  # vocab-chunked LM head + loss (causal families)
+    prefetch_batches: int = 2  # host batches assembled ahead of the device; 0 = off
     device: str = "cuda"
     seed: int = 0  # random-init seed for the weights
     checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
@@ -121,6 +126,16 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--max-target-length", type=int, default=d.max_target_length)
     p.add_argument("--compute-dtype", type=str, default=d.compute_dtype,
                    choices=("float32", "bfloat16"))
+    p.add_argument("--remat", action="store_true",
+                   help="checkpoint every transformer block: activations recomputed in the "
+                        "backward")
+    p.add_argument("--remat-policy", type=str, default=d.remat_policy, choices=REMAT_POLICIES,
+                   help="full: save nothing; dots: save the matmul outputs, recompute the rest")
+    p.add_argument("--fused-ce", action="store_true",
+                   help="vocab-chunked fused LM-head + cross-entropy (causal families; the "
+                        "logits never materialize)")
+    p.add_argument("--prefetch-batches", type=int, default=d.prefetch_batches,
+                   help="host batches assembled ahead on a thread (0 = off)")
     p.add_argument("--log-every-steps", type=int, default=d.log_every_steps)
     p.add_argument("--evaluation-steps", type=int, default=d.evaluation_steps)
     p.add_argument("--num-beams", type=int, default=d.num_beams)
@@ -167,6 +182,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         save_every_steps=args.save_every_steps, resume=not args.no_resume))
     if cfg.max_rewinds < 0:
         raise ValueError(f"--max-rewinds must be >= 0, got {cfg.max_rewinds}")
+    if cfg.prefetch_batches < 0:
+        raise ValueError(f"--prefetch-batches must be >= 0, got {cfg.prefetch_batches}")
     if cfg.on_anomaly == "rewind":
         if cfg.checkpoint.save_every_steps <= 0:
             raise ValueError("--on-anomaly rewind needs periodic checkpointing to rewind TO: "

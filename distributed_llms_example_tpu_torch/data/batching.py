@@ -5,7 +5,10 @@ Each batch is padded to the smallest multiple of ``bucket_multiple`` that
 fits its longest example, capped at the configured maximum: the number of
 distinct shapes stays bounded (max_len / bucket_multiple) while a short
 dialogue does not pay for a 1024-wide row.  Labels pad with ``LABEL_PAD``
-(-100), which the loss masks out.
+(-100), which the loss masks out.  The iterator reads only ``input_ids``
+and ``labels`` of an example, so it takes either dataset: a causal
+example's two have one length, and the trainer caps both widths at the
+source cap.
 """
 
 from __future__ import annotations
@@ -14,7 +17,11 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from distributed_llms_example_tpu_torch.data.dataset import SummarizationDataset, iter_global_batches
+from distributed_llms_example_tpu_torch.data.dataset import (
+    CausalLMDataset,
+    SummarizationDataset,
+    iter_global_batches,
+)
 
 LABEL_PAD = -100  # loss-mask value, parity with HF label padding
 
@@ -39,7 +46,7 @@ class BatchIterator:
     batch dropped); evaluation passes ``shuffle=False, drop_last=False``
     (the corpus in order, the last batch wrapped around to the start)."""
 
-    def __init__(self, ds: SummarizationDataset, *, global_batch: int, seed: int = 1234,
+    def __init__(self, ds: SummarizationDataset | CausalLMDataset, *, global_batch: int, seed: int = 1234,
                  shuffle: bool = True, drop_last: bool = True,
                  bucket_multiple: int = 128, max_source_length: int = 1024,
                  max_target_length: int = 128):

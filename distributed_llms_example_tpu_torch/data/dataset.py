@@ -7,6 +7,8 @@
 - ``resolve_columns`` / ``SummarizationDataset``: the dual column schema
   (``dialogue``/``summary`` first, then ``article``/``highlights``),
   tokenized lazily with truncation and memoized;
+- ``CausalLMDataset``: decoder-only instruction tuning, prompt and
+  continuation concatenated with the loss masked (-100) over the prompt;
 - ``epoch_order`` / ``iter_global_batches``: the deterministic shuffled
   per-epoch example order and its full batches, the same index stream as
   the JAX package's training stream for the same seed.
@@ -103,6 +105,60 @@ class SummarizationDataset:
             src = self.tokenizer.encode_source(str(r[self._src_col]), self._max_source_length)
             tgt = self.tokenizer.encode_target(str(r[self._tgt_col]), self._max_target_length)
             ex = self._cache[i] = Example(src, tgt)
+        return ex
+
+
+@dataclasses.dataclass
+class CausalExample:
+    input_ids: list[int]  # prompt + target (+ eos)
+    labels: list[int]  # -100 over the prompt, the target ids over the target
+    prompt_ids: list[int]
+    target_ids: list[int]
+
+
+class CausalLMDataset:
+    """Instruction-tuning examples for decoder-only models: source and
+    target concatenated, the loss masked over the prompt.  The target is
+    encoded first (a continuation ending in eos, at most
+    ``max_target_length``) and the prompt gets what is left of
+    ``max_length`` (at least one token), so the sum never passes
+    ``max_length``.  Encoded lazily and memoized, as
+    ``SummarizationDataset``."""
+
+    def __init__(self, records: Sequence[dict], tokenizer: Tokenizer, *,
+                 max_length: int = 1024, max_target_length: int = 256,
+                 source_column: str = "", target_column: str = ""):
+        self.tokenizer = tokenizer
+        self._records = records
+        self._max_length = max_length
+        self._max_target_length = max_target_length
+        self._cache: list[CausalExample | None] = [None] * len(records)
+        if records:
+            self._src_col, self._tgt_col = resolve_columns(
+                dict(records[0]), source_column, target_column)
+
+    def __len__(self) -> int:
+        return len(self._records)
+
+    def ensure_encoded(self, indices: Sequence[int]) -> None:
+        """Encode the given examples now (each prompt's budget depends on
+        its own target, so this is a loop)."""
+        for i in indices:
+            self[int(i)]
+
+    def clear_cache(self) -> None:
+        """Drop the memoized encodings."""
+        self._cache = [None] * len(self._records)
+
+    def __getitem__(self, i: int) -> CausalExample:
+        ex = self._cache[i]
+        if ex is None:
+            r = self._records[i]
+            tgt = self.tokenizer.encode_continuation(str(r[self._tgt_col]),
+                                                     self._max_target_length)
+            max_prompt = max(1, self._max_length - len(tgt))
+            src = self.tokenizer.encode_prompt(str(r[self._src_col]), max_prompt)
+            ex = self._cache[i] = CausalExample(src + tgt, [-100] * len(src) + tgt, src, tgt)
         return ex
 
 

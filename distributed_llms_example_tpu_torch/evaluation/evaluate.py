@@ -5,11 +5,13 @@ The reference's eval loop, per batch: ``generate`` with beam search, label
 -100 replaced by pad, decode, ROUGE with the stemmer.  Here the batches
 come in corpus order with the last one wrapped around to the start (the
 JAX package's fixed shapes), and the wrapped rows are trimmed before
-scoring.  The model runs on its own device in eval mode under
+scoring.  A decoder-only model generates continuations of its
+``CausalLMDataset`` prompts, scored against the targets
+(``_run_causal``).  The model runs on its own device in eval mode under
 ``torch.no_grad()`` (its mode restored after): no dropout, and no seed
-drawn from any dropout stream.  On CUDA the encoder runs through the
-flash-attention kernel and every cached decoder step through the flash
-decode kernel, or the pass raises.
+drawn from any dropout stream.  On CUDA the encoder or the causal prompt
+prefill runs through the flash-attention kernel and every cached decoder
+step through the flash decode kernel, or the pass raises.
 """
 
 from __future__ import annotations
@@ -20,8 +22,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD, BatchIterator
-from distributed_llms_example_tpu_torch.data.dataset import SummarizationDataset
+from distributed_llms_example_tpu_torch.data.batching import (
+    LABEL_PAD,
+    BatchIterator,
+    bucket_len,
+    pad_2d,
+)
+from distributed_llms_example_tpu_torch.data.dataset import CausalLMDataset, SummarizationDataset
 from distributed_llms_example_tpu_torch.data.tokenizer import Tokenizer
 from distributed_llms_example_tpu_torch.evaluation import rouge as rouge_mod
 from distributed_llms_example_tpu_torch.evaluation.generation import (
@@ -60,14 +67,14 @@ class Evaluator:
             out.append(self.tokenizer.decode(toks))
         return out
 
-    def run(self, ds: SummarizationDataset, *, global_batch: int, bucket_multiple: int = 128,
-            max_source_length: int = 1024) -> dict[str, float]:
+    def run(self, ds: SummarizationDataset | CausalLMDataset, *, global_batch: int,
+            bucket_multiple: int = 128, max_source_length: int = 1024) -> dict[str, float]:
         """ROUGE-1/2/L/Lsum means over ``ds``, ``global_batch`` rows a
-        generation."""
+        generation (a decoder-only model: ``_run_causal``)."""
         if not self.is_seq2seq:
-            raise NotImplementedError(
-                "the causal eval pass needs CausalLMDataset, which comes with LLaMA training "
-                "(ROADMAP.md queue 1 item 3)")
+            return self._run_causal(ds, global_batch=global_batch,
+                                    bucket_multiple=bucket_multiple,
+                                    max_source_length=max_source_length)
         it = BatchIterator(ds, global_batch=global_batch, seed=0, shuffle=False,
                            drop_last=False, bucket_multiple=bucket_multiple,
                            max_source_length=max_source_length,
@@ -92,6 +99,41 @@ class Evaluator:
                     preds.extend(self._decode_batch(out.cpu().numpy()[:valid]))
                     refs.extend(self._decode_batch(labels[:valid]))
                     seen += global_batch
+        finally:
+            self.model.train(was_training)
+        return aggregate_mean(rouge_mod.compute(preds, refs, use_stemmer=True))
+
+    def _run_causal(self, ds: CausalLMDataset, *, global_batch: int, bucket_multiple: int,
+                    max_source_length: int) -> dict[str, float]:
+        """Prompt-continuation eval of a decoder-only model: each batch's
+        prompts right-padded to the bucket of its longest prompt (the mask
+        from their lengths), generated from, and scored by ROUGE against
+        the target ids without eos.  The last batch wraps around to the
+        corpus start and its extra rows are trimmed."""
+        device = next(self.model.parameters()).device
+        pad, eos = self.config.pad_token_id, self.config.eos_token_id
+        n = len(ds)
+        preds: list[str] = []
+        refs: list[str] = []
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                for start in range(0, n, global_batch):
+                    idx = [(start + i) % n for i in range(global_batch)]
+                    prompts = [ds[i].prompt_ids for i in idx]
+                    width = bucket_len(max(len(p) for p in prompts), bucket_multiple,
+                                       max_source_length)
+                    input_ids = pad_2d(prompts, width, pad)
+                    mask = np.zeros_like(input_ids)
+                    for r, p in enumerate(prompts):
+                        mask[r, : min(len(p), width)] = 1
+                    out = self.generator.run(torch.as_tensor(input_ids, device=device).long(),
+                                             torch.as_tensor(mask, device=device).long())
+                    valid = min(global_batch, n - start)
+                    preds.extend(self._decode_batch(out.cpu().numpy()[:valid]))
+                    refs.extend(self.tokenizer.decode([t for t in ds[i].target_ids if t != eos])
+                                for i in idx[:valid])
         finally:
             self.model.train(was_training)
         return aggregate_mean(rouge_mod.compute(preds, refs, use_stemmer=True))

@@ -12,6 +12,9 @@
     python -m distributed_llms_example_tpu_torch.launch.cli \\
         --model-ckpt bart-large-cnn --train-file train.json --val-file val.json \\
         --evaluation-steps 500 --num-beams 2 --eval-max-new-tokens 128
+    python -m distributed_llms_example_tpu_torch.launch.cli \\
+        --model-ckpt <LLaMA HF checkpoint dir> --train-file train.json --remat \\
+        --fused-ce --batch-size 8 --max-source-length 1024 --max-target-length 128
     python -m distributed_llms_example_tpu_torch.launch.cli serve \\
         --model-ckpt bart-large-cnn --prompts-file prompts.json \\
         --max-slots 8 --max-new-tokens 128 --max-source-length 1024
@@ -26,11 +29,15 @@ Both take ``--device`` (default ``cuda``; without a GPU they stop unless
 ``--device cpu`` is given), ``--model-ckpt`` (a registry name, whose
 weights are drawn from ``--seed``: no weights ship with the repository, or
 a local HF checkpoint directory, whose weights are read) and ``--seed``.
-Training takes a seq2seq model (T5 or BART) and the JAX CLI's flags that
-the port implements (``core/config.py``), no others, scores the model on
-``--val-file`` (ROUGE of beam-search summaries, an ``eval`` line every
-``--evaluation-steps`` steps and at each epoch's end) and writes the
-fine-tuned model to ``<output-dir>/model/`` as an HF checkpoint.  ``serve`` takes every family of the
+Training takes a seq2seq model (T5 or BART: summarization) or a causal
+one (LLaMA: prompt-continuation fine-tuning, the loss masked over the
+prompt) and the JAX CLI's flags that the port implements
+(``core/config.py``: ``--remat``, ``--remat-policy``, ``--fused-ce`` and
+``--prefetch-batches`` among them), no others, scores the model on
+``--val-file`` (ROUGE of beam-search summaries or continuations, an
+``eval`` line every ``--evaluation-steps`` steps and at each epoch's end)
+and writes the fine-tuned model to ``<output-dir>/model/`` as an HF
+checkpoint.  ``serve`` takes every family of the
 registry but Mixtral, and encodes a seq2seq model's prompts as sources
 (ending in eos) and a causal model's as prompts (no eos), as the JAX CLI
 does.  The JAX CLI's startup lints read XLA cache specs and have no
@@ -217,7 +224,8 @@ def build_train_parser() -> argparse.ArgumentParser:
     return add_train_args(argparse.ArgumentParser(
         prog="dllm-torch",
         description="fine-tune a seq2seq model (T5, BART) on a JSON summarization "
-                    "file (train/trainer.py); 'serve' runs inference",
+                    "file or a causal LM (LLaMA) on prompt/continuation records "
+                    "(train/trainer.py); 'serve' runs inference",
     ))
 
 

@@ -11,8 +11,10 @@ after the FFN activation, and on every sublayer output with the residual
 add fused in (``ops/fused_dropout.Dropout(h, residual=r)`` == ``r +
 dropout(h)``).  Each call site owns its ``Dropout`` module, so counting the
 modules counts the calls.  In eval mode every one is ``residual + h``, the
-expression serving always computed.  The pipelined training adapter waits
-for the multi-GPU slice.
+expression serving always computed.  ``remat_policy`` checkpoints every
+encoder and decoder layer of a pass that records gradients
+(``utils/remat.py``).  The pipelined training adapter waits for the
+multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from distributed_llms_example_tpu_torch.ops.dense import Dense
 from distributed_llms_example_tpu_torch.ops.fused_dropout import Dropout
 from distributed_llms_example_tpu_torch.ops.mha import KVCache, MultiHeadAttention
 from distributed_llms_example_tpu_torch.ops.norms import LayerNorm
+from distributed_llms_example_tpu_torch.utils.remat import maybe_checkpointed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,10 +146,12 @@ class BartForConditionalGeneration(nn.Module):
     uninitialized until ``init_weights`` or a ``load_state_dict``."""
 
     def __init__(self, config: BartConfig, *, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None,
+                 remat_policy: str | None = None):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
+        self.remat_policy = remat_policy
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         n_pos = cfg.max_position_embeddings + cfg.POSITION_OFFSET
         self.shared = _Embed(cfg.vocab_size, cfg.d_model, **kw)
@@ -182,7 +187,7 @@ class BartForConditionalGeneration(nn.Module):
         hidden = self.encoder_embed_dropout(self.encoder_layernorm_embedding(hidden))
         bias = mask_to_bias(attention_mask) if attention_mask is not None else None
         for blk in self.encoder_blocks:
-            hidden = blk(hidden, bias)
+            hidden = maybe_checkpointed(self.remat_policy, blk, hidden, bias)
         return hidden
 
     def cross_kv(self, encoder_hidden: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
@@ -226,7 +231,8 @@ class BartForConditionalGeneration(nn.Module):
             self_bias = mask_to_bias(decoder_attention_mask)
         cross_bias = mask_to_bias(encoder_mask) if encoder_mask is not None else None
         for i, blk in enumerate(self.decoder_blocks):
-            hidden = blk(
+            hidden = maybe_checkpointed(
+                self.remat_policy if cache is None else None, blk,
                 hidden, self_bias, encoder_hidden, cross_bias,
                 cache=None if cache is None else cache[i],
                 cache_positions=cache_positions,

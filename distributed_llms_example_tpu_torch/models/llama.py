@@ -8,10 +8,15 @@ JAX module: embeddings, projections and logits in ``dtype``; RMSNorm
 statistics and softmax in fp32.  The causal mask lives inside attention;
 the model passes only the padding mask as a bias.
 
-LLaMA's dropout rates default to 0, so the residual adds are plain; a rate
-above 0 in training mode raises, as do Mixtral's routed experts
-(``num_experts > 0``) and the pipelined training adapter: later slices
-(ROADMAP.md).
+LLaMA's dropout rates default to 0 (HF configs carry none), so the
+residual adds are plain; a ``dropout_rate`` above 0 puts the fused
+residual dropout (``ops/fused_dropout.Dropout``, kernel 7 on CUDA) at the
+JAX module's two sites, after attention and after the MLP.
+``hidden_states`` is the final norm's output without the LM head, the
+input of the vocab-chunked loss (``ops/blockwise_ce.py``);
+``remat_policy`` checkpoints every block in training (``utils/remat.py``).
+Mixtral's routed experts (``num_experts > 0``) and the pipelined training
+adapter are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,8 +31,10 @@ from torch import nn
 from distributed_llms_example_tpu_torch.models.bart import _Embed
 from distributed_llms_example_tpu_torch.ops.attention import mask_to_bias
 from distributed_llms_example_tpu_torch.ops.dense import Dense
+from distributed_llms_example_tpu_torch.ops.fused_dropout import Dropout
 from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
 from distributed_llms_example_tpu_torch.ops.norms import RMSNorm
+from distributed_llms_example_tpu_torch.utils.remat import maybe_checkpointed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +86,6 @@ class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, **kw):
         super().__init__()
         dtype, device = kw["dtype"], kw.get("device")
-        self.dropout_rate = cfg.dropout_rate
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
         self.self_attn = MultiHeadAttention(
             cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size,
@@ -87,29 +93,30 @@ class LlamaBlock(nn.Module):
             use_rope=True, rope_theta=cfg.rope_theta, attention_impl=cfg.attention_impl,
             probs_dropout_rate=cfg.attn_dropout_rate, **kw,
         )
+        self.attn_dropout = Dropout(cfg.dropout_rate)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
         self.mlp = LlamaMLP(cfg, **kw)
+        self.mlp_dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, hidden, bias=None, *, positions=None, cache=None, cache_positions=None):
-        if self.training and self.dropout_rate > 0.0:
-            raise NotImplementedError(
-                f"LLaMA residual dropout (rate {self.dropout_rate}) in training is not ported "
-                "yet (ROADMAP)"
-            )
-        hidden = hidden + self.self_attn(
+        h = self.self_attn(
             self.attn_norm(hidden), bias=bias, cache=cache, cache_positions=cache_positions,
             positions=positions,
         )
-        return hidden + self.mlp(self.mlp_norm(hidden))
+        hidden = self.attn_dropout(h, residual=hidden)
+        return self.mlp_dropout(self.mlp(self.mlp_norm(hidden)), residual=hidden)
 
 
 class LlamaForCausalLM(nn.Module):
     """``dtype`` is the compute dtype; ``param_dtype`` the storage dtype of
     matmul weights and embeddings (``core/precision.param_dtype``).  Weights
-    are uninitialized until ``init_weights`` or a ``load_state_dict``."""
+    are uninitialized until ``init_weights`` or a ``load_state_dict``.
+    ``remat_policy`` (``"full"`` or ``"dots"``; None: off) checkpoints
+    every block of a pass that records gradients."""
 
     def __init__(self, config: LlamaConfig, *, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None,
+                 remat_policy: str | None = None):
         super().__init__()
         if config.num_experts > 0:
             raise NotImplementedError(
@@ -117,6 +124,7 @@ class LlamaForCausalLM(nn.Module):
             )
         cfg = self.config = config
         self.dtype = dtype
+        self.remat_policy = remat_policy
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.embed_tokens = _Embed(cfg.vocab_size, cfg.hidden_size, **kw)
         self.blocks = nn.ModuleList(LlamaBlock(cfg, **kw) for _ in range(cfg.num_hidden_layers))
@@ -143,10 +151,23 @@ class LlamaForCausalLM(nn.Module):
         shared index) or a decode step (per-row ``cache_positions``).
         ``positions`` are the RoPE positions; ``attention_mask`` covers
         every key the pass attends (the whole cache width when cached)."""
+        if cache is not None:
+            hidden = self.embed_tokens(input_ids)
+            bias = mask_to_bias(attention_mask) if attention_mask is not None else None
+            for blk, c in zip(self.blocks, cache):
+                hidden = blk(hidden, bias, positions=positions, cache=c,
+                             cache_positions=cache_positions)
+            return self.lm_head(self.final_norm(hidden))
+        return self.lm_head(self.hidden_states(input_ids, attention_mask, positions=positions))
+
+    def hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
+                      *, positions: torch.Tensor | None = None) -> torch.Tensor:
+        """The final norm's output of an uncached pass, without the LM head:
+        what the vocab-chunked loss (``ops/blockwise_ce.py``) consumes.
+        Each block is checkpointed under ``remat_policy`` when autograd
+        records."""
         hidden = self.embed_tokens(input_ids)
         bias = mask_to_bias(attention_mask) if attention_mask is not None else None
-        for i, blk in enumerate(self.blocks):
-            hidden = blk(hidden, bias, positions=positions,
-                         cache=None if cache is None else cache[i],
-                         cache_positions=cache_positions)
-        return self.lm_head(self.final_norm(hidden))
+        for blk in self.blocks:
+            hidden = maybe_checkpointed(self.remat_policy, blk, hidden, bias, positions=positions)
+        return self.final_norm(hidden)

@@ -10,9 +10,10 @@ passes through the CPU).  A local directory holding an HF ``config.json``
 ``model.safetensors.index.json`` or ``pytorch_model.bin.index.json`` first,
 then one ``model.safetensors``, then ``pytorch_model.bin``) is read by the
 port's own safetensors reader or ``torch.load``, converted
-(``models/convert.py``) and copied into the module.  The seq2seq families
-(T5, BART) serve and train; LLaMA serves.  Mixtral waits for a later slice
-(ROADMAP.md).
+(``models/convert.py``) and copied into the module.  Every family serves
+and trains (LLaMA as a causal LM, with the vocab-chunked loss under
+``fused_ce``; every family with its blocks checkpointed under ``remat``).
+Mixtral waits for a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from distributed_llms_example_tpu_torch.models.bart import BartConfig, BartForCo
 from distributed_llms_example_tpu_torch.models.convert import convert_state_dict, load_state
 from distributed_llms_example_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from distributed_llms_example_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
+from distributed_llms_example_tpu_torch.utils.remat import REMAT_POLICIES
 
 # Built-in configs sized like the public checkpoints (dims from the public
 # HF config.json files, as in the JAX package; no weights are bundled).
@@ -231,18 +233,25 @@ def load_model(
     attention_impl: str | None = None,
     seed: int = 0,
     train: bool = False,
+    remat: bool = False,
+    remat_policy: str = "full",
+    fused_ce: bool = False,
 ) -> LoadedModel:
     """Resolve a registry name or a local HF checkpoint directory into a
     LoadedModel on ``device`` (CUDA unless ``"cpu"`` is asked for): a
     name's weights are drawn from ``seed``, a directory's are read from its
     files.  ``train`` builds it for training: fp32 master weights on every
     device, whatever dtype the files hold, and the module in training mode
-    (dropout on); otherwise it is in eval mode.  The seq2seq families (T5,
-    BART) train; LLaMA serves only."""
+    (dropout on); otherwise it is in eval mode.  ``remat`` checkpoints the
+    blocks under ``remat_policy`` (``utils/remat.py``, any family);
+    ``fused_ce`` sets a causal config's vocab-chunked loss and is refused
+    for a seq2seq family, as the JAX trainer refuses it."""
     if attention_impl not in (None, "auto", "flash", "ring", "xla"):
         raise ValueError(
             f"attention_impl={attention_impl!r}: must be 'auto', 'flash', 'ring', or 'xla'"
         )
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={remat_policy!r}: must be one of {list(REMAT_POLICIES)}")
     short = name_or_path.rsplit("/", 1)[-1]
     local = os.path.isdir(name_or_path)
     if local:
@@ -259,16 +268,17 @@ def load_model(
                 raise NotImplementedError(f"{short!r}: {what} is a later slice of the port (ROADMAP.md)")
         raise ValueError(f"unknown model {name_or_path!r}: not one of "
                          f"{sorted(T5_CONFIGS) + sorted(BART_CONFIGS) + sorted(LLAMA_CONFIGS)}")
-    if train and family not in SEQ2SEQ:
-        raise NotImplementedError(
-            f"{short!r}: training a causal ({family}) model is a later slice of the port "
-            "(ROADMAP.md)"
-        )
+    if fused_ce:
+        if family in SEQ2SEQ:
+            raise ValueError("--fused-ce supports causal (decoder-only) families; seq2seq "
+                             f"models ({short!r} is {family}) compute their loss from decoder "
+                             "logits directly")
+        cfg = dataclasses.replace(cfg, fused_ce=True)
     if attention_impl is not None:
         cfg = dataclasses.replace(cfg, attention_impl=attention_impl)
     dev = resolve_device(device)
     module = _CLASSES[family](cfg, dtype=dtype, param_dtype=param_dtype(dtype, dev, train=train),
-                              device=dev)
+                              device=dev, remat_policy=remat_policy if remat else None)
     module.train(train)
     lm = LoadedModel(family, cfg, module, is_seq2seq=family in SEQ2SEQ)
     if local:

@@ -21,6 +21,8 @@ tables in fp32 with the bias rounded to ``dtype`` where the JAX module
 rounds it.  Dropout sits at the JAX module's call sites: the stack input,
 each sublayer's residual add (fused), the MLP's inner activation and
 after the final norm; each call site owns its ``Dropout`` module.
+``remat_policy`` checkpoints every block of both stacks in a pass that
+records gradients (``utils/remat.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from distributed_llms_example_tpu_torch.ops.dense import Dense
 from distributed_llms_example_tpu_torch.ops.fused_dropout import Dropout
 from distributed_llms_example_tpu_torch.ops.mha import KVCache, MultiHeadAttention
 from distributed_llms_example_tpu_torch.ops.norms import RMSNorm
+from distributed_llms_example_tpu_torch.utils.remat import maybe_checkpointed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,10 +216,11 @@ class T5Stack(nn.Module):
     """The encoder (``causal=False``) or the decoder (causal self-attention
     + cross-attention), with its own bucket table."""
 
-    def __init__(self, cfg: T5Config, *, causal: bool, **kw):
+    def __init__(self, cfg: T5Config, *, causal: bool, remat_policy: str | None = None, **kw):
         super().__init__()
         dtype, device = kw["dtype"], kw.get("device")
         self.config, self.causal, self.dtype = cfg, causal, dtype
+        self.remat_policy = remat_policy
         n = cfg.decoder_layers if causal else cfg.num_layers
         # fp32 table and lookup (flax nn.Embed(dtype=float32)); the bias is
         # rounded to the compute dtype after the lookup
@@ -277,7 +281,9 @@ class T5Stack(nn.Module):
         cross_bias = mask_to_bias(encoder_mask) if encoder_mask is not None else None
         hidden = self.input_dropout(hidden)
         for i, blk in enumerate(self.blocks):
-            hidden = blk(hidden, self_bias, encoder_hidden, cross_bias, pos_bias=pos_bias,
+            hidden = maybe_checkpointed(
+                self.remat_policy if cache is None else None, blk,
+                hidden, self_bias, encoder_hidden, cross_bias, pos_bias=pos_bias,
                          cache=None if cache is None else cache[i],
                          cache_positions=cache_positions,
                          cross_kv=None if cross_kv is None else cross_kv[i])
@@ -291,14 +297,16 @@ class T5ForConditionalGeneration(nn.Module):
     until ``init_weights`` or a ``load_state_dict``."""
 
     def __init__(self, config: T5Config, *, dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None,
+                 remat_policy: str | None = None):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
+        self.remat_policy = remat_policy
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.shared = _Embed(cfg.vocab_size, cfg.d_model, **kw)
-        self.encoder = T5Stack(cfg, causal=False, **kw)
-        self.decoder = T5Stack(cfg, causal=True, **kw)
+        self.encoder = T5Stack(cfg, causal=False, remat_policy=self.remat_policy, **kw)
+        self.decoder = T5Stack(cfg, causal=True, remat_policy=self.remat_policy, **kw)
         if not cfg.tie_word_embeddings:
             self.lm_head = Dense(cfg.d_model, cfg.vocab_size, use_bias=False, **kw)
 

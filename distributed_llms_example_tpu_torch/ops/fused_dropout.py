@@ -26,7 +26,8 @@ Parts, as for every kernel of the port:
 Seeds come from a host-side stream: inside ``dropout_seeds(generator)``
 every training-mode :class:`Dropout` call draws its int32 seed from that
 CPU ``torch.Generator`` (outside one, from torch's default CPU generator),
-so no seed ever needs a device sync.
+so no seed ever needs a device sync; a block recomputed under activation
+checkpointing replays the seeds of its first run (``seed_tape``).
 """
 
 from __future__ import annotations
@@ -291,11 +292,47 @@ def dropout_seeds(generator: torch.Generator):
         _STREAMS.pop()
 
 
+# (tape, replay, cursor) of the innermost ``seed_tape`` region
+_TAPES: list[tuple[list[int], bool, list[int]]] = []
+
+
+@contextlib.contextmanager
+def seed_tape(tape: list[int], *, replay: bool):
+    """A region whose seeds are recorded on its first run and replayed on
+    its recompute: inside, ``next_seed`` appends every seed it draws to
+    ``tape`` (``replay=False``), or hands out ``tape``'s seeds in order
+    without drawing (``replay=True``).  Activation checkpointing
+    (``utils/remat.py``) runs a block's forward again in the backward; the
+    replay gives that rerun the first run's masks, and the stream is drawn
+    once, as without checkpointing."""
+    cursor = [0]
+    _TAPES.append((tape, replay, cursor))
+    try:
+        yield
+    finally:
+        _TAPES.pop()
+    if replay and cursor[0] != len(tape):
+        raise RuntimeError(f"a recomputed region drew {cursor[0]} dropout seeds, its first run "
+                           f"{len(tape)}")
+
+
 def next_seed() -> int:
     """One int32 seed from the innermost ``dropout_seeds`` stream (or from
-    torch's default CPU generator outside one)."""
+    torch's default CPU generator outside one); inside a replaying
+    ``seed_tape``, the tape's next seed."""
+    if _TAPES:
+        tape, replay, cursor = _TAPES[-1]
+        if replay:
+            if cursor[0] >= len(tape):
+                raise RuntimeError(f"a recomputed region drew more dropout seeds than the "
+                                   f"{len(tape)} of its first run")
+            cursor[0] += 1
+            return tape[cursor[0] - 1]
     gen = _STREAMS[-1] if _STREAMS else None
-    return int(torch.randint(-(2**31), 2**31, (), generator=gen))
+    seed = int(torch.randint(-(2**31), 2**31, (), generator=gen))
+    if _TAPES:
+        _TAPES[-1][0].append(seed)
+    return seed
 
 
 class Dropout(nn.Module):

@@ -15,8 +15,11 @@ dk/dv backward), each where ``select_*_impl`` picks it (on CUDA, for every
 shape the kernels have an instance for; for CPU tensors, by the JAX
 package's own rule), and to plain attention (the counterpart of the JAX
 package's XLA path, hence the name ``"xla"``) otherwise.  A cached pass of
-more than ``MAX_DECODE_Q_ROWS`` rows (the LLaMA prompt prefill) is plain
-attention, as in the JAX package, and so is a beam-search cross-attention,
+more than ``MAX_DECODE_Q_ROWS`` rows is plain attention, as in the JAX
+package, but for the LLaMA prompt prefill on CUDA: a flat cache written
+from slot 0 holds only the pass's own keys, so the prefill is the uncached
+causal pass over them and goes to the flash-attention kernel.  A
+beam-search cross-attention is plain attention too,
 whose ``cross_kv`` holds one row for the G beams of a row: the beam group
 is folded next to the heads (``ops/attention.beam_grouped_attention``),
 or under GQA K/V are repeated per beam.  Attention-probs dropout
@@ -371,6 +374,25 @@ class MultiHeadAttention(nn.Module):
                                         **drop)
         return self._merge(out)
 
+    def _prefill_from_zero(self, q, k, v, bias):
+        """A prompt prefill written from cache slot 0 attends only its own
+        keys (the rest of the cache is masked): on CUDA it is the uncached
+        causal pass over them, through the flash-attention kernel, with the
+        key-padding mask cut to the prompt.  None where the kernel has no
+        instance (the caller then attends over the cache)."""
+        T = q.shape[2]
+        impl, reason = select_attention_impl(
+            self.attention_impl, head_dim=self.head_dim, q_len=T, kv_len=T, use_cache=False,
+            backend=q.device.type, causal=True)
+        if impl != "flash":
+            return None
+        _log_impl_once(impl, f"prompt prefill from slot 0: {reason}")
+        kb = None if bias is None else bias[..., :T].contiguous()
+        out = flash_attention(q.contiguous(), self._repeat_kv(k).contiguous(),
+                              self._repeat_kv(v).contiguous(), kb, causal=True,
+                              scale=self.scale, dtype=self.dtype)
+        return self._merge(out)
+
     def _cached(self, q, k, v, bias, cache, cache_positions, positions):
         """A cached pass: write this pass's K/V, then attend over the cache
         through the decode dispatch.  ``bias`` is the caller's constant
@@ -396,10 +418,16 @@ class MultiHeadAttention(nn.Module):
             cache.write_rows(k, v)
             kv_len = cache.kv_len
         elif cache_positions is None:
-            cache.k[:, :, cache.index:cache.index + T] = k.to(cache.k.dtype)
-            cache.v[:, :, cache.index:cache.index + T] = v.to(cache.v.dtype)
+            start = cache.index
+            cache.k[:, :, start:start + T] = k.to(cache.k.dtype)
+            cache.v[:, :, start:start + T] = v.to(cache.v.dtype)
             cache.index += T
             kv_len = cache.k.shape[2]
+            if start == 0 and T > 1 and q.device.type == "cuda" and cache.k.dtype == k.dtype \
+                    and (bias is None or bias.shape[1:3] == (1, 1)):
+                out = self._prefill_from_zero(q, k, v, bias)
+                if out is not None:
+                    return out
         else:
             write_cache_rows(cache.k, k, cache_positions)
             write_cache_rows(cache.v, v, cache_positions)

@@ -5,6 +5,11 @@
 - ``seq2seq_loss_sums``: teacher-forced decoder on ``shift_right(labels)``
   (BART and T5 alike; ``shift_right`` lives in ``models/t5.py``, as in the
   JAX package);
+- ``causal_loss_sums``: decoder-only next-token loss, position t's logits
+  against ``labels[t + 1]``; under the config's ``fused_ce`` the final
+  hidden states and the LM head go through the vocab-chunked
+  ``ops/blockwise_ce.py`` (no logits materialized), as the JAX package's
+  ``make_loss_fn`` does;
 - ``train_step``: the batch's rows split into ``grad_accum_steps``
   microbatches (row r joins microbatch r mod N, as in the JAX package),
   loss and gradient SUMS accumulated over them, then ONE optimizer apply
@@ -34,6 +39,7 @@ from torch import nn
 from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD
 from distributed_llms_example_tpu_torch.models.bart import _Embed
 from distributed_llms_example_tpu_torch.models.t5 import shift_right
+from distributed_llms_example_tpu_torch.ops.blockwise_ce import blockwise_cross_entropy_sums
 from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
 from distributed_llms_example_tpu_torch.ops.fused_optim import (
     STAT_NONFINITE,
@@ -140,6 +146,29 @@ def seq2seq_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
     return cross_entropy_sums(logits, labels, label_smoothing)
 
 
+def causal_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
+    """Loss sums of one (micro)batch of a decoder-only model: ``labels``
+    align with ``input_ids`` (-100 over the prompt and the padding), so
+    position t's logits predict ``labels[t + 1]``.  With the config's
+    ``fused_ce`` the LM head's weight, cast to the compute dtype as the
+    unfused head casts it, meets the hidden states chunk by chunk."""
+    labels = batch["labels"]
+    if model.config.fused_ce:
+        h = model.hidden_states(batch["input_ids"], batch["attention_mask"])
+        w = model.lm_head.weight.to(h.dtype)
+        return blockwise_cross_entropy_sums(h[:, :-1].reshape(-1, h.shape[-1]), w,
+                                            labels[:, 1:].reshape(-1), label_smoothing)
+    logits = model(batch["input_ids"], batch["attention_mask"])
+    return cross_entropy_sums(logits[:, :-1], labels[:, 1:], label_smoothing)
+
+
+def loss_sums(model, batch: dict, label_smoothing: float = 0.0, *, is_seq2seq: bool = True):
+    """The family's loss sums (the JAX package's ``make_loss_fn``)."""
+    if is_seq2seq:
+        return seq2seq_loss_sums(model, batch, label_smoothing)
+    return causal_loss_sums(model, batch, label_smoothing)
+
+
 def optimizer_apply_block(spec: OptimizerSpec, schedule: Schedule, named_params,
                           state: AdamWState, lsum: torch.Tensor, tokens: torch.Tensor, *,
                           health_buckets=None) -> dict:
@@ -165,10 +194,12 @@ def optimizer_apply_block(spec: OptimizerSpec, schedule: Schedule, named_params,
 
 def train_step(model, named_params, state: AdamWState, spec: OptimizerSpec, schedule: Schedule,
                batch: dict, *, grad_accum_steps: int = 1, label_smoothing: float = 0.0,
-               generator: torch.Generator | None = None, health_buckets=None) -> dict:
+               generator: torch.Generator | None = None, health_buckets=None,
+               is_seq2seq: bool = True) -> dict:
     """One optimizer step on ``batch`` (tensors on the model's device).
     ``generator`` (CPU) seeds the dropout of a model in training mode;
-    ``health_buckets`` (``param_buckets``) adds the health numerics."""
+    ``health_buckets`` (``param_buckets``) adds the health numerics;
+    ``is_seq2seq`` picks the family's loss (``loss_sums``)."""
     n = int(grad_accum_steps)
     rows = batch["labels"].shape[0]
     if n < 1 or rows % n:
@@ -180,7 +211,7 @@ def train_step(model, named_params, state: AdamWState, spec: OptimizerSpec, sche
     with seeds:
         for i in range(n):
             micro = {k: v[i::n] for k, v in batch.items()} if n > 1 else batch
-            ls, tk = seq2seq_loss_sums(model, micro, label_smoothing)
+            ls, tk = loss_sums(model, micro, label_smoothing, is_seq2seq=is_seq2seq)
             ls.backward()
             ls = ls.detach()
             lsum, tokens = (ls, tk) if lsum is None else (lsum + ls, tokens + tk)

@@ -1,9 +1,16 @@
 """The trainer (port of the JAX package's ``train/trainer.py``, one device):
-dataset -> bucketed batches -> the epoch loop of ``train_step`` -> the JSON
-step lines of ``MetricLogger``, an ``eval`` line (ROUGE of the validation
-set's generated summaries, ``evaluate``) every ``evaluation_steps`` steps
-and at each epoch's end -> a final checkpoint and ``save_final``, the
-fine-tuned model as an HF checkpoint.
+dataset -> bucketed batches (assembled ``--prefetch-batches`` ahead on a
+thread, ``data/prefetch.py``) -> the epoch loop of ``train_step`` -> the
+JSON step lines of ``MetricLogger``, an ``eval`` line (ROUGE of the
+validation set's generated summaries or continuations, ``evaluate``) every
+``evaluation_steps`` steps and at each epoch's end -> a final checkpoint
+and ``save_final``, the fine-tuned model as an HF checkpoint.
+
+A seq2seq model (T5, BART) trains on ``SummarizationDataset``; a causal one
+(LLaMA) on ``CausalLMDataset`` (prompt + target, the loss masked over the
+prompt), its label width capped at ``max_source_length`` like its inputs,
+with the next-token loss (``--fused-ce``: vocab-chunked) and ``--remat``
+for any family.
 
 Weights are random-init from ``seed``, or read from a local HF checkpoint
 directory (``--model-ckpt <dir>``), with fp32 master copies (the training
@@ -53,7 +60,8 @@ import torch
 from distributed_llms_example_tpu_torch.core.config import TrainConfig
 from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resolve_device
 from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD, BatchIterator
-from distributed_llms_example_tpu_torch.data.dataset import SummarizationDataset
+from distributed_llms_example_tpu_torch.data.dataset import CausalLMDataset, SummarizationDataset
+from distributed_llms_example_tpu_torch.data.prefetch import Prefetcher
 from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
 from distributed_llms_example_tpu_torch.evaluation.evaluate import Evaluator
 from distributed_llms_example_tpu_torch.io.checkpoint import Checkpointer, write_json_atomic
@@ -91,9 +99,14 @@ def put_batch(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, t
     return out
 
 
-def batch_tokens(batch: dict[str, np.ndarray]) -> int:
-    """Non-pad tokens of one seq2seq batch: source plus target."""
-    return int(np.sum(batch["attention_mask"])) + int(np.sum(batch["labels"] != LABEL_PAD))
+def batch_tokens(batch: dict[str, np.ndarray], is_seq2seq: bool = True) -> int:
+    """Non-pad tokens of one batch: source plus target for seq2seq; for a
+    causal batch the attention mask already covers prompt and target, so
+    the labels are not counted again."""
+    tokens = int(np.sum(batch["attention_mask"]))
+    if is_seq2seq:
+        tokens += int(np.sum(batch["labels"] != LABEL_PAD))
+    return tokens
 
 
 class Trainer:
@@ -101,31 +114,43 @@ class Trainer:
                  val_records: Sequence[dict] | None = None, loaded: LoadedModel | None = None):
         """``val_records``: the validation set; without it there is no
         evaluation.  ``loaded``: a model the caller built for training (fp32 master
-        weights, the compute dtype, on ``cfg.device``, its attention route
-        in its config: ``--attention-impl`` is refused beside it) in place
-        of loading ``cfg.model_ckpt``, for a configuration that no registry
+        weights, the compute dtype, on ``cfg.device``, its attention route,
+        remat policy and loss in its construction: ``--attention-impl``,
+        ``--remat`` and ``--fused-ce`` are refused beside it) in place of
+        loading ``cfg.model_ckpt``, for a configuration that no registry
         name or HF config expresses, such as T5 with ``attn_dropout_rate``
-        > 0."""
+        > 0 or LLaMA with residual dropout."""
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         if loaded is None:
             loaded = load_model(
                 cfg.model_ckpt, dtype=parse_dtype(cfg.compute_dtype), device=self.device,
                 attention_impl=cfg.attention_impl or None, seed=cfg.seed, train=True,
+                remat=cfg.remat, remat_policy=cfg.remat_policy, fused_ce=cfg.fused_ce,
             )
-        elif not loaded.is_seq2seq or loaded.module.dtype != parse_dtype(cfg.compute_dtype) \
+        elif loaded.module.dtype != parse_dtype(cfg.compute_dtype) \
                 or loaded.device.type != self.device.type:
+            kind = "seq2seq" if loaded.is_seq2seq else "causal"
             raise ValueError(f"the given {loaded.family} model ({loaded.module.dtype} on "
-                             f"{loaded.device}) is not a seq2seq model in {cfg.compute_dtype} "
+                             f"{loaded.device}) is not a {kind} model in {cfg.compute_dtype} "
                              f"on {self.device}")
-        elif cfg.attention_impl:
-            raise ValueError("--attention-impl applies to a loaded model; a built one takes "
-                             "its route from its config")
+        elif cfg.attention_impl or cfg.remat or cfg.fused_ce:
+            raise ValueError("--attention-impl, --remat and --fused-ce apply to a loaded model; "
+                             "a built one takes its route, remat policy and loss from its "
+                             "construction")
         loaded.module.train()
         self.loaded = loaded
         self.model = self.loaded.module
         self.tokenizer = get_tokenizer(cfg.tokenizer, cfg.model_ckpt)
+
         def dataset(records):
+            if not self.loaded.is_seq2seq:
+                # decoder-only: prompt + target, the loss masked over the prompt
+                return CausalLMDataset(
+                    records, self.tokenizer, max_length=cfg.max_source_length,
+                    max_target_length=cfg.max_target_length, source_column=cfg.source_column,
+                    target_column=cfg.target_column,
+                )
             return SummarizationDataset(
                 records, self.tokenizer, max_source_length=cfg.max_source_length,
                 max_target_length=cfg.max_target_length, source_column=cfg.source_column,
@@ -140,10 +165,13 @@ class Trainer:
                                        num_beams=cfg.num_beams,
                                        max_new_tokens=cfg.eval_max_new_tokens,
                                        is_seq2seq=self.loaded.is_seq2seq)
+        # a causal batch's inputs and labels share one width: both capped at
+        # max_source_length, so their buckets agree
+        tgt_cap = cfg.max_target_length if self.loaded.is_seq2seq else cfg.max_source_length
         self.batches = BatchIterator(
             self.train_ds, global_batch=cfg.batch_size, seed=cfg.shuffle_seed,
             bucket_multiple=cfg.pad_to_multiple, max_source_length=cfg.max_source_length,
-            max_target_length=cfg.max_target_length,
+            max_target_length=tgt_cap,
         )
         steps_per_epoch = self.batches.steps_per_epoch()
         if steps_per_epoch == 0:
@@ -191,7 +219,9 @@ class Trainer:
         log_json({"event": "train_start", "model": cfg.model_ckpt, "device": str(self.device),
                   "params": sum(p.numel() for _, p in self.named_params),
                   "param_tensors": len(self.named_params), "total_steps": self.total_steps,
-                  "compute_dtype": cfg.compute_dtype, "grad_accum_steps": cfg.grad_accum_steps})
+                  "compute_dtype": cfg.compute_dtype, "grad_accum_steps": cfg.grad_accum_steps,
+                  "remat": self.model.remat_policy, "fused_ce": bool(
+                      getattr(self.loaded.config, "fused_ce", False))})
         self.start_step = self._last_step = 0
         # the (epoch, pos) data cursor and the quarantine set of the restored
         # step ride its recovery sidecar: after a quarantine skip the cursor
@@ -500,46 +530,62 @@ class Trainer:
         while epoch < cfg.num_epochs:
             report_epoch = epoch
             rewind_cursor = None
-            for batch in self._with_data_retries(self.batches.epoch(epoch, start_step=pos)):
-                pos += 1
-                if self.recovery.should_skip(epoch, pos - 1, batch):
-                    continue
-                if self.chaos.take("oom", step + 1):
-                    raise RuntimeError(
-                        f"RESOURCE_EXHAUSTED: chaos-injected out of memory before step {step + 1}")
-                if self.chaos.take("nan_grad", step + 1):
-                    with torch.no_grad():
-                        self.named_params[0][1].view(-1)[0] = float("nan")
-                fingerprint = (batch_fingerprint(batch, epoch=epoch, epoch_step=pos - 1)
-                               if self.recorder is not None else None)
-                metrics = train_step(
-                    self.model, self.named_params, self.opt_state, self.spec, self.schedule,
-                    put_batch(batch, self.device), grad_accum_steps=cfg.grad_accum_steps,
-                    label_smoothing=cfg.label_smoothing, generator=self.generator,
-                    health_buckets=self.health_buckets,
-                )
-                step += 1
-                self._last_step = step
-                self.history.append(metrics)
-                logger.step(step, metrics["loss"], lr=metrics["learning_rate"],
-                            tokens=batch_tokens(batch), epoch=epoch)
-                self.step_ends.append(time.perf_counter())
-                action = self._on_step(step, epoch, metrics, fingerprint)
-                if action in ("halt", "checkpoint"):
-                    self._anomaly_action = action
-                    break
-                if action == "rewind":
-                    rewind_cursor = self._handle_rewind(step, epoch, pos)
-                    break
-                if self.checkpointer.should_save(step):
-                    self._save_checkpoint(step, epoch, pos)
-                if cfg.evaluation_steps > 0 and step % cfg.evaluation_steps == 0:
-                    last_eval = self.evaluate(epoch, step=step)
-                if self.chaos.take("sigterm", step):
-                    # a real signal through the real handler
-                    os.kill(os.getpid(), signal.SIGTERM)
-                if self._preempted:
-                    break
+            # host batches assembled prefetch_batches ahead on a thread; a
+            # resumed or rewound epoch skips at the index level
+            epoch_batches = self.batches.epoch(epoch, start_step=pos)
+            if cfg.prefetch_batches > 0:
+                epoch_batches = Prefetcher(epoch_batches, depth=cfg.prefetch_batches)
+            try:
+                for batch in self._with_data_retries(epoch_batches):
+                    pos += 1
+                    if self.recovery.should_skip(epoch, pos - 1, batch):
+                        continue
+                    if self.chaos.take("oom", step + 1):
+                        raise RuntimeError("RESOURCE_EXHAUSTED: chaos-injected out of memory "
+                                           f"before step {step + 1}")
+                    if self.chaos.take("nan_grad", step + 1):
+                        with torch.no_grad():
+                            self.named_params[0][1].view(-1)[0] = float("nan")
+                    fingerprint = (batch_fingerprint(batch, epoch=epoch, epoch_step=pos - 1)
+                                   if self.recorder is not None else None)
+                    metrics = train_step(
+                        self.model, self.named_params, self.opt_state, self.spec, self.schedule,
+                        put_batch(batch, self.device), grad_accum_steps=cfg.grad_accum_steps,
+                        label_smoothing=cfg.label_smoothing, generator=self.generator,
+                        health_buckets=self.health_buckets, is_seq2seq=self.loaded.is_seq2seq,
+                    )
+                    step += 1
+                    self._last_step = step
+                    self.history.append(metrics)
+                    logger.step(step, metrics["loss"], lr=metrics["learning_rate"],
+                                tokens=batch_tokens(batch, self.loaded.is_seq2seq), epoch=epoch)
+                    self.step_ends.append(time.perf_counter())
+                    action = self._on_step(step, epoch, metrics, fingerprint)
+                    if action in ("halt", "checkpoint"):
+                        self._anomaly_action = action
+                        break
+                    if action == "rewind":
+                        rewind_cursor = self._handle_rewind(step, epoch, pos)
+                        break
+                    if self.checkpointer.should_save(step):
+                        self._save_checkpoint(step, epoch, pos)
+                    if cfg.evaluation_steps > 0 and step % cfg.evaluation_steps == 0:
+                        last_eval = self.evaluate(epoch, step=step)
+                    if self.chaos.take("sigterm", step):
+                        # a real signal through the real handler
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    if self._preempted:
+                        break
+            finally:
+                # the producer thread stops even when the loop body raises
+                if isinstance(epoch_batches, Prefetcher):
+                    epoch_batches.close()
+                    # is the input pipeline on the critical path? (the
+                    # consumer's blocked time, once an epoch)
+                    st = epoch_batches.stats()
+                    log_json({"event": "prefetch_stats", "epoch": epoch,
+                              "depth": cfg.prefetch_batches, "items": st["items"],
+                              "consumer_wait_s": round(st["consumer_wait_s"], 4)})
             if rewind_cursor is not None:
                 # same process: no reload, the replay skips the quarantined batch
                 epoch, pos, step = rewind_cursor

@@ -9,7 +9,7 @@ port's ``rouge.compute`` equal to JAX's on fixed strings; the eval
 loader's arrays (corpus order, the last batch wrapped around, a corpus
 smaller than one batch) and the training loader's equal to JAX's; the
 single-process mean; the model's mode restored after a pass; the causal
-pass refused until its dataset is ported."""
+pass on its own dataset."""
 
 import jax
 import numpy as np
@@ -153,7 +153,15 @@ def test_aggregate_mean_single_process():
 
 
 def test_causal_eval_waits_for_its_dataset():
+    """The causal pass reads a ``CausalLMDataset``'s prompts and targets (a
+    summarization dataset has neither); its ROUGE against the JAX
+    ``Evaluator``'s is in ``test_torch_causal_eval.py``."""
+    from distributed_llms_example_tpu_torch.data.dataset import CausalLMDataset
+
     lm = load_model("llama-test", device="cpu")
     ev = Evaluator(lm.module, lm.config, ByteTokenizer(), is_seq2seq=False, max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="CausalLMDataset"):
+    with pytest.raises(AttributeError, match="prompt_ids"):
         ev.run(SummarizationDataset(_records(2), ByteTokenizer()), global_batch=2)
+    scores = ev.run(CausalLMDataset(_records(3), ByteTokenizer(), max_length=64),
+                    global_batch=2, bucket_multiple=32, max_source_length=64)
+    assert set(scores) == {"rouge1", "rouge2", "rougeL", "rougeLsum"}

@@ -1,5 +1,8 @@
 """The port stands alone: importing every module of
-``distributed_llms_example_tpu_torch``, or ``chip_smoke.py`` as a module,
+``distributed_llms_example_tpu_torch`` (the causal-training modules
+``data/prefetch.py``, ``utils/remat.py`` and ``ops/blockwise_ce.py`` among
+them, ``utils/remat.py`` importing checkpointing only inside its
+functions), or ``chip_smoke.py`` as a module,
 pulls in no JAX, flax, optax, orbax, transformers or safetensors and no
 module of the JAX package (and
 importing the script runs none of it); and the port's entry points refuse
@@ -33,7 +36,8 @@ def _port_modules():
 def test_port_imports_nothing_of_jax():
     mods = _port_modules()
     for name in ("serving.engine", "serving.cache_pool", "train.trainer", "models.llama",
-                 "models.t5", "evaluation.generation"):
+                 "models.t5", "evaluation.generation", "data.prefetch", "utils.remat",
+                 "ops.blockwise_ce"):
         assert f"distributed_llms_example_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -46,6 +50,23 @@ def test_port_imports_nothing_of_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_remat_imports_checkpointing_inside_its_functions():
+    """``utils/remat.py`` imports ``torch.utils.checkpoint`` (the selective
+    checkpointing of the ``dots`` policy among it) only inside the
+    functions that use it, never at module level."""
+    import ast
+
+    path = os.path.join(REPO, "distributed_llms_example_tpu_torch", "utils", "remat.py")
+    tree = ast.parse(open(path).read())
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top for a in n.names] + [
+        n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+    assert not any("checkpoint" in x for x in names), names
+    inner = [n for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+             and n.module == "torch.utils.checkpoint"]
+    assert len(inner) >= 2  # the dots policy's and maybe_checkpointed's
 
 
 def test_chip_smoke_imports_nothing_of_jax_and_runs_nothing():

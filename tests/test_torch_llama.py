@@ -173,11 +173,21 @@ def test_cached_prefill_and_decode_match_jax(jax_llama, impl):
 
 
 def test_training_a_causal_model_raises_before_building_it():
-    with pytest.raises(NotImplementedError, match="training a causal.*ROADMAP"):
-        load_model("llama-2-7b", device="cpu", train=True)
+    """A causal model trains now; what it refuses, it refuses before a
+    7B model is built: an unknown remat policy, and the fused loss for a
+    seq2seq family."""
+    with pytest.raises(ValueError, match="remat_policy"):
+        load_model("llama-2-7b", device="cpu", train=True, remat=True, remat_policy="all")
+    with pytest.raises(ValueError, match="seq2seq"):
+        load_model("bart-large-cnn", device="cpu", train=True, fused_ce=True)
+    lm = load_model("llama-test", device="cpu", train=True, remat=True, fused_ce=True)
+    assert lm.module.training and lm.module.remat_policy == "full" and lm.config.fused_ce
+    assert all(p.dtype == torch.float32 for p in lm.module.parameters())
 
 
 def test_mixtral_and_training_dropout_raise():
+    """Mixtral still raises; residual dropout in training now runs the fused
+    dropout at both residual adds (eval mode: a plain residual add)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_model("mixtral-test", device="cpu")
     cfg = dataclasses.replace(LlamaConfig(vocab_size=32, hidden_size=16, intermediate_size=32,
@@ -187,6 +197,14 @@ def test_mixtral_and_training_dropout_raise():
         LlamaForCausalLM(dataclasses.replace(cfg, num_experts=4))
     model = LlamaForCausalLM(cfg).eval()
     model.init_weights(torch.Generator().manual_seed(0))
-    model(torch.zeros(1, 4, dtype=torch.long))  # eval mode: a plain residual add
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train()(torch.zeros(1, 4, dtype=torch.long))
+    ids = torch.arange(8).reshape(1, 8) % 32
+    plain = model(ids)  # eval mode: a plain residual add
+    from distributed_llms_example_tpu_torch.ops.fused_dropout import (
+        count_dropout_sites,
+        dropout_seeds,
+    )
+
+    assert count_dropout_sites(model) == 2
+    with dropout_seeds(torch.Generator().manual_seed(0)):
+        dropped = model.train()(ids)
+    assert dropped.shape == plain.shape and not torch.equal(dropped, plain)

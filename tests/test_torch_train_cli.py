@@ -8,7 +8,7 @@ writes <output-dir>/model/ (the reload is bit-equal to the trained
 weights); T5's and BART's training attention reaching flash_attention with
 the probs-dropout rate and a seed; the train entry taking a T5 built
 with attn_dropout_rate; LLaMA serving with attention_dropout
-and refusing to train.  Evaluation: ``--val-file`` with
+and training with it.  Evaluation: ``--val-file`` with
 ``--evaluation-steps 2`` over 3 steps logs ``eval`` lines (the four ROUGE
 means, step, epoch) at step 2 and at the epoch's end, the losses are bit
 for bit those of a run without it, and without a validation file (or with
@@ -88,8 +88,9 @@ def test_train_and_serve_share_the_model_flags(tmp_path):
     assert targs.model_ckpt in T5_CONFIGS
 
 
-@pytest.mark.parametrize("flag", [["--prefetch-batches", "2"], ["--optim-impl", "fused"],
-                                  ["--mesh", "data=2"], ["--remat"], ["--chaos", "host_loss@2"]])
+@pytest.mark.parametrize("flag", [["--param-dtype", "bfloat16"], ["--optim-impl", "fused"],
+                                  ["--mesh", "data=2"], ["--pipeline-schedule", "1f1b"],
+                                  ["--chaos", "host_loss@2"]])
 def test_unimplemented_flags_are_refused(tmp_path, capsys, flag):
     with pytest.raises(SystemExit):
         train(_args(_write(tmp_path, 4), *flag))
@@ -253,16 +254,23 @@ def test_train_entry_takes_a_built_t5_with_probs_dropout(tmp_path):
 
 
 def test_llama_with_attention_dropout_serves_and_refuses_to_train(tmp_path):
+    """LLaMA with attention_dropout serves without it (eval mode) and, since
+    causal training is ported, trains with it: its training forward draws
+    a probs-dropout mask from the seed stream."""
     from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
 
     ckpt = _hf_dir(tmp_path, "llama-test", attention_dropout=0.1)
     lm = load_model(str(ckpt), device="cpu")
     assert lm.config.attn_dropout_rate == 0.1 and not lm.module.training
     ids = torch.randint(3, 250, (1, 16), generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        assert torch.equal(lm.module(ids), lm.module(ids))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        load_model(str(ckpt), device="cpu", train=True)
+        served = lm.module(ids)
+        assert torch.equal(lm.module(ids), served)
+    trained = load_model(str(ckpt), device="cpu", train=True)
+    assert trained.module.training
+    with torch.no_grad(), dropout_seeds(torch.Generator().manual_seed(1)):
+        assert not torch.equal(trained.module(ids), served)
 
 
 def _eval_args(tmp_path, *extra, val=True):
