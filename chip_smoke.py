@@ -1083,7 +1083,8 @@ NO_SPILL = ("flash_bwd_dlbias_tc_kernel",)
 # it would land in local memory)
 STREAM_KERNELS = [("fused_dropout", "fused_dropout_kernel", ("bf16", "residual")),
                   ("fused_adamw", "fused_adamw_kernel", ("clip",)),
-                  ("fused_adamw", "fused_grad_prep_kernel", ())]
+                  ("fused_adamw", "fused_grad_prep_kernel", ()),
+                  ("fused_adamw", "grad_norm_finish_kernel", ())]
 # kernels 5 and 6: one template (csrc/flash_decode.cuh), its flat and its
 # paged instances, each library with DECODE_INSTANCES of them; every one
 # must have no stack frame and no local memory
@@ -2325,8 +2326,8 @@ TRAIN_ARGS = [
 
 def zero_counters(fa, fd, fo) -> None:
     for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias,
-               fd.fused_dropout, fo.fused_adamw_leaf, fo.fused_grad_prep, fa.flash_decode,
-               fa.flash_decode_paged):
+               fd.fused_dropout, fo.fused_adamw_leaf, fo.fused_grad_prep, fo.grad_norm_finish,
+               fa.flash_decode, fa.flash_decode_paged):
         fn.launches = 0
     for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias):
         fn.tc_launches = fn.drop_launches = 0
@@ -2347,7 +2348,8 @@ def read_counters(fa, fd, fo) -> dict:
             "flash_attention_bwd_dlbias": fa.flash_bwd_dlbias.launches,
             "fused_dropout": fd.fused_dropout.launches,
             "fused_adamw": fo.fused_adamw_leaf.launches,
-            "fused_grad_prep": fo.fused_grad_prep.launches}
+            "fused_grad_prep": fo.fused_grad_prep.launches,
+            "fused_grad_norm_finish": fo.grad_norm_finish.launches}
 
 
 def learned_bias_attention(model) -> int:
@@ -2360,14 +2362,14 @@ def learned_bias_attention(model) -> int:
                for name, m in model.named_modules())
 
 
-def expected_train_launches(model, steps: int, accum: int = 1) -> dict:
+def expected_train_launches(model, steps: int, accum: int = 1, *, sharded: bool = False) -> dict:
     """Per-run launch counts the model implies: one forward kernel and one
     dq and one dk/dv kernel per attention module per microbatch, one
     learned-bias gradient kernel per attention module with a learned bias
     per microbatch, one dropout kernel per dropout site in the forward and
     again in the backward, and per step one gradient pass and one AdamW
     launch per group of the leaf table (MAX_LEAVES parameter tensors a
-    launch)."""
+    launch), and for a sharded model (FSDP) the norm's finish once a step."""
     from distributed_llms_example_tpu_torch.ops.fused_dropout import count_dropout_sites
     from distributed_llms_example_tpu_torch.ops.fused_optim import leaf_groups
     from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
@@ -2380,7 +2382,8 @@ def expected_train_launches(model, steps: int, accum: int = 1) -> dict:
             "flash_attention_bwd_dlbias": learned_bias_attention(model) * accum * steps,
             "fused_dropout": 2 * count_dropout_sites(model) * accum * steps,
             "fused_adamw": tables * steps,
-            "fused_grad_prep": tables * steps}
+            "fused_grad_prep": tables * steps,
+            "fused_grad_norm_finish": steps if sharded else 0}
 
 
 def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn", *, probs_dropout=0.0,
@@ -2439,8 +2442,10 @@ def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn", *, probs_
     t5 = model.startswith("t5")
     say({"phase": "train_launches", "model": run, "steps": steps, "launches": launches,
          "expected": want, "per_step": {k: v / max(steps, 1) for k, v in launches.items()}})
-    # every kernel of the path launched, the learned-bias gradient on T5 only
-    required = [k for k in want if t5 or k != "flash_attention_bwd_dlbias"]
+    # every kernel of the path launched, the learned-bias gradient on T5
+    # only (the norm's finish entry runs for a sharded model alone)
+    required = [k for k in want if (t5 or k != "flash_attention_bwd_dlbias")
+                and k != "fused_grad_norm_finish"]
     if steps != 6 or launches != want or any(want[k] == 0 for k in required):
         fail(f"{run} train run: {steps} steps, launches {launches} vs {want}")
     named = dict(trainer.model.named_parameters())
@@ -4204,18 +4209,18 @@ def write_instruction_records(path: str, n: int, *, seed: int) -> None:
         json.dump(recs, f)
 
 
-def llama_hf_dir(torch) -> str:
-    """<WORK>/llama-2-7b-4l-hf: llama-2-7b's published config.json fields at
-    LLAMA_TRAIN_LAYERS layers, and seed-0 random fp32 weights written by the
-    port's HF export (nothing is fetched)."""
+def llama_hf_dir(torch, layers: int = LLAMA_TRAIN_LAYERS) -> str:
+    """<WORK>/llama-2-7b-<layers>l-hf: llama-2-7b's published config.json
+    fields at ``layers`` layers, and seed-0 random fp32 weights written by
+    the port's HF export (nothing is fetched)."""
     import dataclasses
 
     from distributed_llms_example_tpu_torch.models.export import save_hf_checkpoint
     from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
     from distributed_llms_example_tpu_torch.models.registry import LLAMA_CONFIGS
 
-    path = fresh_dir(f"llama-2-7b-{LLAMA_TRAIN_LAYERS}l-hf")
-    cfg = dataclasses.replace(LLAMA_CONFIGS["llama-2-7b"], num_hidden_layers=LLAMA_TRAIN_LAYERS)
+    path = fresh_dir(f"llama-2-7b-{layers}l-hf")
+    cfg = dataclasses.replace(LLAMA_CONFIGS["llama-2-7b"], num_hidden_layers=layers)
     model = LlamaForCausalLM(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     t0 = time.perf_counter()
@@ -4223,8 +4228,9 @@ def llama_hf_dir(torch) -> str:
     with open(os.path.join(path, "config.json")) as f:
         written = json.load(f)
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({**written, **LLAMA_HF_CONFIG}, f, indent=2, sort_keys=True)
-    say({"phase": "llama_train_checkpoint", "dir": path, "layers": LLAMA_TRAIN_LAYERS,
+        json.dump({**written, **LLAMA_HF_CONFIG, "num_hidden_layers": layers}, f, indent=2,
+                  sort_keys=True)
+    say({"phase": "llama_train_checkpoint", "dir": path, "layers": layers,
          "parameters": sum(p.numel() for p in model.parameters()),
          "leaves": len(list(model.parameters())), "write_s": time.perf_counter() - t0,
          "bytes": tree_bytes(path)})
@@ -4682,6 +4688,318 @@ def llama_attention_time(torch, fa) -> dict:
     return errs
 
 
+
+# phase 14: data-parallel and FSDP training.  (a) in this process: a
+# world-1 NCCL group, llama-2-7b's widths at DIST_LAYERS layers, one bf16
+# --remat --fused-ce step of the model wrapped by parallel/fsdp.shard_model
+# against the same step unwrapped (a reduction over one rank is a copy:
+# loss, grad norm and every parameter after the step bit-equal), kernel
+# 8's partial norm mode split in two tables on the card; (b) two ranks on
+# cuda:0 over gloo (NCCL takes one rank a GPU) running the CLI with
+# --mesh fsdp=2, fp32, against the same CLI run on one rank within
+# GRAD_LIMITS' loss and norm terms.
+DIST_LAYERS = 2
+DIST_STEPS = 3
+DIST_RECORDS = 24
+DIST_ARGS = [
+    "--tokenizer", "byte", "--remat", "--fused-ce", "--batch-size", "8", "--num-epochs", "1",
+    "--max-source-length", "1024", "--max-target-length", "128", "--compute-dtype", "float32",
+    "--learning-rate", "1e-4", "--warmup-steps", "1", "--seed", "0", "--log-every-steps", "1",
+    "--evaluation-steps", "0",
+]
+DIST_RANK_TIMEOUT_S = 420
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_rank_main(spec_path: str) -> None:
+    """One rank of phase 14 (b) (``chip_smoke.py --dist-rank spec.json``):
+    a gloo group on cuda:0 joined from the spec, then the train CLI; rank 0
+    writes its steps' losses and grad norms and its launches."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, HERE)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    rank = int(spec["rank"])
+    torch.distributed.init_process_group("gloo", init_method=spec["init"],
+                                         world_size=spec["world"], rank=rank)
+    from distributed_llms_example_tpu_torch.launch import cli
+    from distributed_llms_example_tpu_torch.ops import flash_attention as fa
+    from distributed_llms_example_tpu_torch.ops import fused_dropout as fd
+    from distributed_llms_example_tpu_torch.ops import fused_optim as fo
+
+    zero_counters(fa, fd, fo)
+    trainer = cli.train(spec["argv"])
+    torch.cuda.synchronize()
+    want = expected_train_launches(trainer.model, len(trainer.history), sharded=True)
+    want["flash_attention_fwd"] *= 2  # remat's recompute
+    out = {"losses": [float(m["loss"]) for m in trainer.history],
+           "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
+           "launches": read_counters(fa, fd, fo), "expected": want,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    if rank == 0:
+        with open(spec["out"], "w") as f:
+            json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def dist_ranks(ckpt: str, train_path: str, world: int) -> dict:
+    """Phase 14 (b): ``world`` ranks of the CLI over gloo on cuda:0 with
+    --mesh fsdp=<world>; rank 0's result.  Every rank process is waited for
+    or killed before this returns."""
+    out_dir = fresh_dir("dist-fsdp-out")
+    init = f"tcp://127.0.0.1:{free_port()}"
+    result = os.path.join(WORK, "dist-rank0.json")
+    if os.path.exists(result):
+        os.remove(result)
+    procs, logs = [], []
+    argv = [*DIST_ARGS, "--model-ckpt", ckpt, "--train-file", train_path, "--output-dir",
+            out_dir, "--mesh", f"fsdp={world}"]
+    for rank in range(world):
+        spec = os.path.join(WORK, f"dist-rank{rank}-spec.json")
+        with open(spec, "w") as f:
+            json.dump({"rank": rank, "world": world, "init": init, "argv": argv,
+                       "out": result}, f)
+        log = os.path.join(WORK, f"dist-rank{rank}.log")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank",
+                                       spec], stdout=open(log, "w"), stderr=subprocess.STDOUT,
+                                      cwd=HERE))
+    try:
+        rcs = [p.wait(timeout=DIST_RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0] * world or not os.path.exists(result):
+        for r, log in enumerate(logs):
+            with open(log) as f:
+                tail = f.read()[-3000:]
+            print(f"--- phase 14 (b) rank {r} (exit {rcs[r]}) ---\n{tail}", file=sys.stderr)
+        fail(f"phase 14 (b): the {world} gloo ranks exited {rcs}")
+    with open(result) as f:
+        return json.load(f)
+
+
+def kernel8_split_norm_check(torch, fo, grads) -> dict:
+    """Kernel 8's partial mode on the card: the gradient pass over every
+    leaf in one table, partial then finished, bit-equal to the one-pass
+    norm; each leaf cut in two tables, two partial passes summed and
+    finished, within 1 fp32 ulp of it; a leaf of no element in each table;
+    the plain version the same.  Tokens 1, so the in-place division leaves
+    the gradients as they are.  The finish entry timed (one thread), beside
+    its plain version and its library call, one torch.sqrt into fp32."""
+    import numpy as np
+
+    tokens = torch.ones(1, dtype=torch.float32, device="cuda")
+    empty = torch.empty(0, dtype=torch.float32, device="cuda")
+    flat = [g.reshape(-1) for g in grads]
+    halves_a = [g[: g.numel() // 2] for g in flat] + [empty]
+    halves_b = [g[g.numel() // 2:] for g in flat] + [empty.clone()]
+    leaves = flat + [empty]
+    one = fo.fused_grad_prep(leaves, tokens)
+    whole = fo.grad_norm_finish(fo.fused_grad_prep(leaves, tokens, partial=True))
+    total = (fo.fused_grad_prep(halves_a, tokens, partial=True)
+             + fo.fused_grad_prep(halves_b, tokens, partial=True))
+    split = fo.grad_norm_finish(total)
+    cpu = [g.detach().cpu() for g in leaves]
+    plain_one = fo.grad_prep_plain(cpu, tokens.cpu())
+    plain_whole = fo.norm_finish_plain(fo.grad_prep_plain(cpu, tokens.cpu(), partial=True))
+    plain_split = fo.norm_finish_plain(
+        fo.grad_prep_plain([g[: g.numel() // 2] for g in cpu], tokens.cpu(), partial=True)
+        + fo.grad_prep_plain([g[g.numel() // 2:] for g in cpu], tokens.cpu(), partial=True))
+    torch.cuda.synchronize()
+    one_f = np.float32(float(one))
+    ulp = float(np.spacing(one_f))
+    t = fo.fused_grad_prep(leaves, tokens, partial=True)
+    finish_ms = time_ms(lambda: fo.grad_norm_finish(t), per_rep=200)
+    plain_ms = time_ms(lambda: fo.norm_finish_plain(t), per_rep=200)
+    # the library call: one torch.sqrt of the float64 total into an fp32
+    # tensor, the root rounded once as the finish rounds it (timed here,
+    # used nowhere in the port)
+    out32 = torch.empty((), dtype=torch.float32, device="cuda")
+    library_ms = time_ms(lambda: torch.sqrt(t, out=out32), per_rep=200)
+    torch.cuda.synchronize()
+    library_equal = bool(torch.equal(out32, fo.grad_norm_finish(t)))
+    # one float64 read and one fp32 write
+    finish_bound_ms, finish_bound_by = bound(2, 12)
+    line = {"phase": "kernel_check", "case": "fused_grad_prep partial + fused_grad_norm_finish",
+            "leaves": len(leaves), "elements": sum(g.numel() for g in leaves),
+            "one_pass": float(one), "partial_finished": float(whole),
+            "split_two_tables": float(split), "fp32_ulp": ulp,
+            "split_diff_ulps": abs(float(split) - float(one)) / ulp,
+            "plain_one_pass": float(plain_one), "plain_partial_finished": float(plain_whole),
+            "plain_split": float(plain_split),
+            "kernel_vs_plain_ulps": abs(float(one) - float(plain_one)) / ulp,
+            "finish_ms": finish_ms, "finish_plain_ms": plain_ms,
+            "finish_library_ms": library_ms, "library_bit_equal": library_equal,
+            "finish_bound_ms": finish_bound_ms, "finish_bound_by": finish_bound_by}
+    say(line)
+    if float(whole) != float(one) or float(plain_whole) != float(plain_one):
+        fail("kernel 8: the partial pass and its finish differ from the one-pass norm")
+    if abs(float(split) - float(one)) > ulp or abs(float(plain_split) - float(plain_one)) > ulp:
+        fail("kernel 8: two tables' partial sums, finished, are more than one fp32 ulp from "
+             "the one-pass norm")
+    if abs(float(one) - float(plain_one)) > ulp:
+        fail("kernel 8: the one-pass norm is more than one fp32 ulp from grad_prep_plain")
+    return {"finish_ms": finish_ms, "finish_plain_ms": plain_ms,
+            "finish_library_ms": library_ms, "finish_bound_ms": finish_bound_ms}
+
+
+def distributed_phase(torch, fa, fd, fo, cli) -> tuple[dict, dict]:
+    """Phase 14.  Returns (the wrapped step's launches, kernel 8's finish
+    numbers)."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.core.config import MeshConfig
+    from distributed_llms_example_tpu_torch.core.mesh import build_mesh, resolve_mesh_shape
+    from distributed_llms_example_tpu_torch.data.batching import BatchIterator
+    from distributed_llms_example_tpu_torch.data.dataset import CausalLMDataset, load_json_records
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.models.registry import LLAMA_CONFIGS
+    from distributed_llms_example_tpu_torch.parallel.fsdp import local, shard_model
+    from distributed_llms_example_tpu_torch.train.optim import (
+        AdamWState,
+        OptimizerSpec,
+        linear_schedule_with_warmup,
+    )
+    from distributed_llms_example_tpu_torch.train.step import StepGroups, train_step
+    from distributed_llms_example_tpu_torch.train.trainer import put_batch
+
+    t_phase = time.perf_counter()
+    train_path = os.path.join(WORK, "dist_train.json")
+    write_instruction_records(train_path, DIST_RECORDS, seed=2)
+    ds = CausalLMDataset(load_json_records(train_path), ByteTokenizer(), max_length=1024,
+                         max_target_length=128)
+    batch = put_batch(next(iter(BatchIterator(ds, global_batch=8, seed=1234,
+                                              max_source_length=1024,
+                                              max_target_length=1024).epoch(0))),
+                      torch.device("cuda"))
+
+    # (a) a world-1 NCCL group
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                         world_size=1, rank=0)
+    try:
+        mesh = build_mesh(resolve_mesh_shape(MeshConfig(data=1, fsdp=1), 1), "cuda")
+        cfg = dataclasses.replace(LLAMA_CONFIGS["llama-2-7b"], num_hidden_layers=DIST_LAYERS,
+                                  fused_ce=True)
+        spec = OptimizerSpec(learning_rate=1e-4, warmup_steps=0, total_steps=10)
+        sched = linear_schedule_with_warmup(1e-4, 0, 10)
+
+        def build():
+            m = LlamaForCausalLM(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                                 device="cuda", remat_policy="full")
+            m.init_weights(torch.Generator(device="cuda").manual_seed(0))
+            return m.train()
+
+        runs = {}
+        for name in ("unwrapped", "wrapped"):
+            model = build()
+            groups = StepGroups()
+            if name == "wrapped":
+                shard_model(model, mesh)
+                groups = StepGroups(world=1, shard_group=mesh.get_group("fsdp"))
+            named = list(model.named_parameters())
+            state = AdamWState.zeros([local(p.detach()) for _, p in named])
+            if name == "unwrapped":
+                want = expected_train_launches(model, 1, sharded=True)
+            free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters(fa, fd, fo)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(model, named, state, spec, sched, batch, is_seq2seq=False,
+                           generator=torch.Generator().manual_seed(3), groups=groups)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = read_counters(fa, fd, fo)
+            after = {n: local(p.detach()).clone() for n, p in named}
+            metrics = (float(m["loss"]), float(m["grad_norm"]))
+            step_s = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(model, named, state, spec, sched, batch, is_seq2seq=False,
+                           generator=torch.Generator().manual_seed(3), groups=groups)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            runs[name] = dict(metrics=metrics, after=after, launches=launches,
+                              first_step_s=first_s, step_s=step_s,
+                              peak_mem_bytes=torch.cuda.max_memory_allocated())
+            if name == "wrapped":
+                grads = [local(p.grad).detach().clone() for _, p in named]
+            del model, named, state, m
+            free_cuda()
+        want["flash_attention_fwd"] *= 2  # remat's recompute
+        want_plain = want | {"fused_grad_norm_finish": 0}
+        ref, wrapped = runs["unwrapped"], runs["wrapped"]
+        unequal = [n for n, t in ref["after"].items() if not torch.equal(t, wrapped["after"][n])]
+        line = {"phase": "dist_fsdp_world1", "model": "llama-2-7b", "layers": DIST_LAYERS,
+                "batch_shape": list(batch["input_ids"].shape), "compute_dtype": "bfloat16",
+                "remat": "full", "fused_ce": True,
+                "loss_grad_norm": {k: v["metrics"] for k, v in runs.items()},
+                "parameters": len(ref["after"]), "parameters_bit_equal":
+                    len(ref["after"]) - len(unequal), "unequal": unequal[:5],
+                "launches": {k: v["launches"] for k, v in runs.items()},
+                "expected": {"wrapped": want, "unwrapped": want_plain},
+                "first_step_s": {k: v["first_step_s"] for k, v in runs.items()},
+                "step_s": {k: v["step_s"] for k, v in runs.items()},
+                "step_s_median": {k: statistics.median(v["step_s"]) for k, v in runs.items()},
+                "peak_mem_bytes": {k: v["peak_mem_bytes"] for k, v in runs.items()}}
+        say(line)
+        if ref["metrics"] != wrapped["metrics"] or unequal:
+            fail(f"phase 14 (a): the wrapped step differs from the unwrapped one over one rank "
+                 f"(loss, grad norm {ref['metrics']} vs {wrapped['metrics']}; parameters "
+                 f"{unequal[:5]})")
+        if wrapped["launches"] != want or ref["launches"] != want_plain:
+            fail(f"phase 14 (a) launches {line['launches']}, expected {line['expected']}")
+        finish = kernel8_split_norm_check(torch, fo, grads)
+        del grads
+        free_cuda()
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # (b) the CLI on one rank, then on two gloo ranks of cuda:0 (fsdp=2)
+    ckpt = llama_hf_dir(torch, DIST_LAYERS)
+    zero_counters(fa, fd, fo)
+    one = cli.train([*DIST_ARGS, "--model-ckpt", ckpt, "--train-file", train_path,
+                     "--output-dir", fresh_dir("dist-one-out")])
+    torch.cuda.synchronize()
+    one_run = {"losses": [float(m["loss"]) for m in one.history],
+               "grad_norms": [float(m["grad_norm"]) for m in one.history]}
+    del one
+    free_cuda()
+    t0 = time.perf_counter()
+    two = dist_ranks(ckpt, train_path, 2)
+    two_s = time.perf_counter() - t0
+    loss_diff = max(abs(a - b) for a, b in zip(one_run["losses"], two["losses"]))
+    norm_diff = max(abs(a - b) for a, b in zip(one_run["grad_norms"], two["grad_norms"]))
+    say({"phase": "dist_fsdp_two_ranks", "backend": "gloo", "device": "cuda:0",
+         "mesh": "fsdp=2", "compute_dtype": "float32", "layers": DIST_LAYERS,
+         "one_rank": one_run, "two_ranks": two, "loss_diff": loss_diff,
+         "grad_norm_diff": norm_diff, "wall_s": two_s,
+         "phase_s": time.perf_counter() - t_phase})
+    if len(two["losses"]) != DIST_STEPS or len(one_run["losses"]) != DIST_STEPS \
+            or loss_diff > GRAD_LIMITS["loss_diff"] or norm_diff > GRAD_LIMITS["grad_norm_diff"]:
+        fail(f"phase 14 (b): two ranks' losses and norms are not within the BART limits of one "
+             f"rank's (loss {loss_diff}, norm {norm_diff})")
+    if two["launches"] != two["expected"]:
+        fail(f"phase 14 (b): rank 0's launches {two['launches']}, expected {two['expected']}")
+    return wrapped["launches"], finish
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "distributed_llms_example_tpu_torch")):
         fail("the port's package is not beside chip_smoke.py: run it from a checkout")
@@ -4816,14 +5134,21 @@ def main() -> None:
                "dkv": "flash_attention_bwd_dkv"}[name]
         measured[key]["max_abs_err"] = max(measured[key]["max_abs_err"], err)
 
-    # phase 14: the TPU kernels with no port yet (none), the kernel list
+    # phase 14: data-parallel and FSDP training (a world-1 NCCL group and
+    # the FSDP-wrapped step bit-equal to the unwrapped one; kernel 8's
+    # partial norm; two gloo ranks of the CLI under --mesh fsdp=2)
+    dist_launches, finish = distributed_phase(torch, fa, fd, fo, cli)
+    free_cuda()
+
+    # the end: the TPU kernels with no port yet (none), the kernel list
     # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
     # then the contract line.  A kernel that runs on several main paths
     # reports the sum of their counts: kernel 1 the BART and T5 serve and
     # train runs, phase 5c's resumed and rewind runs, the BART eval, the
     # LLaMA serve runs' prompt prefills and the LLaMA train run and its
     # eval; kernels 2, 3 and 8 the BART, T5 and LLaMA train runs and phase
-    # 5c's, kernel 7 the BART and T5 train runs and phase 5c's, kernel 4
+    # 5c's and phase 14's FSDP step (kernel 8's finish entry that step
+    # alone), kernel 7 the BART and T5 train runs and phase 5c's, kernel 4
     # the T5 train run, kernel 5 the BART and flan-T5 serve runs, the flat
     # LLaMA serve, the BART eval and the LLaMA eval, kernel 6 the paged
     # LLaMA serve.
@@ -4831,7 +5156,7 @@ def main() -> None:
     src = "distributed_llms_example_tpu_torch/csrc/"
     ref = "distributed_llms_example_tpu/ops/"
     both = {k: train_launches[k] + t5_train[k] + ft_launches.get(k, 0) + llama_train.get(k, 0)
-            for k in t5_train}
+            + dist_launches.get(k, 0) for k in t5_train}
     rows = [
         dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd_tc.cu",
              sources=[src + "flash_fwd_tc.cu", src + "flash_fwd.cu"],
@@ -4870,10 +5195,13 @@ def main() -> None:
              replaces=ref + "fused_dropout.py:195",
              launches=both["fused_dropout"], **measured["fused_dropout"]),
         dict(name="fused_adamw", route="cuda", source=src + "fused_adamw.cu",
-             entries=["fused_adamw", "fused_grad_prep"], replaces=ref + "fused_optim.py:162",
-             launches=both["fused_adamw"] + both["fused_grad_prep"],
-             entry_launches={k: both[k] for k in ("fused_adamw", "fused_grad_prep")},
-             **measured["fused_adamw"]),
+             entries=["fused_adamw", "fused_grad_prep", "fused_grad_norm_finish"],
+             replaces=ref + "fused_optim.py:162",
+             launches=(both["fused_adamw"] + both["fused_grad_prep"]
+                       + both["fused_grad_norm_finish"]),
+             entry_launches={k: both[k] for k in ("fused_adamw", "fused_grad_prep",
+                                                  "fused_grad_norm_finish")},
+             **finish, **measured["fused_adamw"]),
     ]
     # kernels 1-4's probs-dropout branch (csrc/dropout_hash.cuh in every
     # source), all on the tensor cores: the launches of the BART train run
@@ -4898,4 +5226,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
+        dist_rank_main(sys.argv[2])
+    else:
+        main()

@@ -3,18 +3,75 @@ and ``add_reference_args`` that the port implements (flag names and
 defaults as there), plus ``--device`` and ``--seed``.  A flag the port does
 not implement is not accepted: argparse rejects it.  ``config_from_args``
 also checks, as the JAX package's does, what can be checked before the
-run: the rewind's prerequisites and the ``--chaos`` grammar."""
+run: the rewind's prerequisites, the ``--chaos`` grammar and the
+``--mesh`` axes (``data`` and ``fsdp`` only: the model-parallel axes are a
+later slice, ROADMAP.md item 6)."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import difflib
 import json
 import os
 import tempfile
 
 from distributed_llms_example_tpu_torch.obs.chaos import parse_chaos
 from distributed_llms_example_tpu_torch.utils.remat import REMAT_POLICIES
+
+
+# The mesh axis names of the JAX package, in its order (``core/config.py``).
+AXES: tuple[str, ...] = ("stage", "data", "fsdp", "expert", "sequence", "tensor")
+# the axes the port lays out over a torch.distributed process group
+PORTED_AXES = ("data", "fsdp")
+
+
+def unknown_axis_error(name: str) -> ValueError:
+    hint = difflib.get_close_matches(name, AXES, n=1)
+    did_you_mean = f" (did you mean {hint[0]!r}?)" if hint else ""
+    return ValueError(
+        f"unknown mesh axis {name!r}{did_you_mean}; valid axes: {', '.join(AXES)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh shape (the JAX package's): ``data`` replicates
+    the parameters, ``fsdp`` shards them (ZeRO-3); the batch is split over
+    both.  -1 absorbs the devices the other axes leave (at most one axis).
+    The port runs ``data`` and ``fsdp``; the others stay 1."""
+
+    data: int = -1
+    fsdp: int = 1
+    sequence: int = 1
+    tensor: int = 1
+    stage: int = 1
+    expert: int = 1
+
+    def axis_sizes(self) -> dict[str, int]:
+        return {"stage": self.stage, "data": self.data, "fsdp": self.fsdp,
+                "expert": self.expert, "sequence": self.sequence, "tensor": self.tensor}
+
+
+def parse_mesh_arg(spec: str) -> MeshConfig:
+    """``"data=2,fsdp=4"`` -> MeshConfig (the JAX package's parser: the
+    wildcard stays on ``data`` unless another axis takes it).  An axis the
+    port does not lay out must be 1: anything else raises ValueError."""
+    kw: dict[str, int] = {}
+    if spec.strip():
+        for part in spec.split(","):
+            k, _, v = part.partition("=")
+            k = k.strip()
+            if k not in AXES:
+                raise unknown_axis_error(k)
+            kw[k] = int(v)
+    if "data" not in kw:
+        kw["data"] = 1 if -1 in kw.values() else -1
+    unported = {k: v for k, v in kw.items() if k not in PORTED_AXES and v != 1}
+    if unported:
+        raise ValueError(f"--mesh {spec!r}: the port lays out data and fsdp only; "
+                         f"{unported} needs tensor, sequence, pipeline or expert "
+                         "parallelism, a later slice (ROADMAP.md item 6)")
+    return MeshConfig(**kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +139,12 @@ class TrainConfig:
     health_warmup_steps: int = 20
     # deterministic fault injection (obs/chaos.py), e.g. "nan_grad@3,sigterm@5"
     chaos: str = ""
+    # the device mesh over the process group (core/mesh.py), and the
+    # rendezvous triple (empty: Valohai, then VH_* / torchrun env)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    coordinator_address: str = ""
+    num_processes: int = 0
+    process_id: int = -1
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
@@ -107,8 +170,9 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     add_model_args(p)
     p.add_argument("--output-dir", type=str, default=d.output_dir,
                    help="the final HF checkpoint goes to <output-dir>/model/")
-    p.add_argument("--train-file", type=str, required=True,
-                   help="path to train.json (JSON array, JSONL or {\"data\": [...]})")
+    p.add_argument("--train-file", type=str, default=d.train_file,
+                   help="path to train.json (JSON array, JSONL or {\"data\": [...]}); "
+                        "without it, train.json beside the Valohai 'dataset' input")
     p.add_argument("--val-file", type=str, default=d.val_file,
                    help="path to val.json: ROUGE of the generated summaries every "
                         "--evaluation-steps and at each epoch's end")
@@ -160,7 +224,7 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="in-process rewind budget for --on-anomaly rewind")
     p.add_argument("--recorder-steps", type=int, default=d.recorder_steps,
                    help="flight-recorder ring in steps (0 = off); dumped to "
-                        "<output-dir>/obs/flight-recorder-p000.json on anomaly/SIGTERM/crash")
+                        "<output-dir>/obs/flight-recorder-p<rank>.json on anomaly/SIGTERM/crash")
     p.add_argument("--chaos", type=str, default=d.chaos,
                    help="deterministic fault injection: comma list of kind@tick with kind "
                         "in nan_grad/ckpt_corrupt/data_error/sigterm/oom (tick = global "
@@ -168,6 +232,13 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--health-loss-spike-factor", type=float, default=d.health_loss_spike_factor)
     p.add_argument("--health-grad-norm-factor", type=float, default=d.health_grad_norm_factor)
     p.add_argument("--health-warmup-steps", type=int, default=d.health_warmup_steps)
+    p.add_argument("--mesh", type=str, default="data=-1",
+                   help="comma list axis=size over the process group: data=N (replicated "
+                        "parameters), fsdp=N (sharded), or both (HSDP)")
+    # the multi-process rendezvous triple (else Valohai, VH_* or torchrun env)
+    p.add_argument("--coordinator-address", type=str, default=d.coordinator_address)
+    p.add_argument("--num-processes", type=int, default=d.num_processes)
+    p.add_argument("--process-id", type=int, default=d.process_id)
     return p
 
 
@@ -175,10 +246,10 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     """The TrainConfig of parsed train flags; raises ValueError for what
     would only fail mid-run: a negative --max-rewinds, --on-anomaly rewind
     without periodic checkpoints or the flight recorder, a --chaos
-    grammar error."""
+    grammar error, a --mesh axis the port does not lay out."""
     kw = {f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)
-          if f.name != "checkpoint"}
-    cfg = TrainConfig(**kw, checkpoint=CheckpointConfig(
+          if f.name not in ("checkpoint", "mesh")}
+    cfg = TrainConfig(**kw, mesh=parse_mesh_arg(args.mesh), checkpoint=CheckpointConfig(
         save_every_steps=args.save_every_steps, resume=not args.no_resume))
     if cfg.max_rewinds < 0:
         raise ValueError(f"--max-rewinds must be >= 0, got {cfg.max_rewinds}")

@@ -34,6 +34,14 @@
 // holds runs as several launches, which carry the running total in the
 // workspace in stream order.
 //
+// Over a process group each rank holds shards of the leaves (FSDP), and
+// the global norm is the root of every rank's float64 sum of squares.  So
+// `fused_grad_prep` has a partial mode: given a `total` pointer, its last
+// launch writes the float64 sum there instead of the root; the caller
+// all-reduces it (float64 SUM) and `fused_grad_norm_finish`, one thread,
+// rounds the root with the same `sqrt_to_float`.  Over one rank the
+// partial pass and the finish give the one-pass norm bit for bit.
+//
 // The table (`Table`, < 32 KB) is the kernel's parameter block, copied at
 // launch: each leaf's p, mu, nu and g pointers, element count, flags
 // (decay; 16-byte aligned), and its first work item.  A work item is
@@ -235,6 +243,7 @@ __global__ void __launch_bounds__(NT, 2) fused_grad_prep_kernel(const __grid_con
                                                              const float* __restrict__ tokens,
                                                              double* __restrict__ ws,
                                                              float* __restrict__ gnorm,
+                                                             double* __restrict__ total_out,
                                                              int first_launch, int last_launch) {
   const float tok = *tokens;
   const int items = t.first[t.nleaves];
@@ -275,10 +284,18 @@ __global__ void __launch_bounds__(NT, 2) fused_grad_prep_kernel(const __grid_con
   block_sum<1>(ss);
   if (threadIdx.x == 0) {
     const double total = (first_launch ? 0.0 : ws[WS_TOTAL]) + ss[0];
-    if (last_launch) *gnorm = sqrt_to_float(total);
-    else ws[WS_TOTAL] = total;
+    if (!last_launch) ws[WS_TOTAL] = total;
+    else if (total_out != nullptr) *total_out = total;  // partial: the caller reduces it
+    else *gnorm = sqrt_to_float(total);
     *reinterpret_cast<unsigned int*>(ws + WS_COUNTER) = 0u;  // ready for the next launch
   }
+}
+
+// The root of an all-reduced float64 sum of squares, as the prep's last
+// launch rounds its own.
+__global__ void grad_norm_finish_kernel(const double* __restrict__ total,
+                                        float* __restrict__ gnorm) {
+  *gnorm = sqrt_to_float(*total);
 }
 
 // The host's copy of one launch's table from the wrapper's arrays: ptrs
@@ -348,12 +365,21 @@ extern "C" int fused_adamw(const void* ptrs, const void* numel, const void* flag
 
 extern "C" int fused_grad_prep(const void* ptrs, const void* numel, const void* flags,
                                const void* first, int nleaves, int chunk, const void* tokens,
-                               void* workspace, void* gnorm, int first_launch, int last_launch,
-                               void* stream) {
+                               void* workspace, void* gnorm, void* total, int first_launch,
+                               int last_launch, void* stream) {
   Table t;
   if (fill_table(t, ptrs, numel, flags, first, nleaves, chunk)) return (int)cudaErrorInvalidValue;
   const int grid = grid_for(fused_grad_prep_kernel, t.first[nleaves], MAX_GRID);
   fused_grad_prep_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      t, (const float*)tokens, (double*)workspace, (float*)gnorm, first_launch, last_launch);
+      t, (const float*)tokens, (double*)workspace, (float*)gnorm, (double*)total, first_launch,
+      last_launch);
+  return (int)cudaGetLastError();
+}
+
+// `total`: a float64 sum of squares on the device (the partial mode's,
+// all-reduced); `gnorm`: its root, rounded once to fp32.
+extern "C" int fused_grad_norm_finish(const void* total, void* gnorm, void* stream) {
+  grad_norm_finish_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const double*)total,
+                                                             (float*)gnorm);
   return (int)cudaGetLastError();
 }

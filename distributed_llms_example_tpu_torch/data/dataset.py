@@ -170,6 +170,14 @@ def epoch_order(n: int, *, seed: int, epoch: int, shuffle: bool = True) -> np.nd
     return np.random.RandomState(seed + epoch).permutation(n)
 
 
+def host_batch_slices(global_batch: int, process_count: int, process_index: int) -> slice:
+    """The contiguous rows of each global batch this process materializes."""
+    if global_batch % process_count != 0:
+        raise ValueError(f"global batch {global_batch} not divisible by {process_count} processes")
+    per = global_batch // process_count
+    return slice(process_index * per, (process_index + 1) * per)
+
+
 def iter_global_batches(n: int, global_batch: int, *, seed: int, epoch: int,
                         shuffle: bool = True, drop_last: bool = True) -> Iterator[np.ndarray]:
     """Index arrays of exactly ``global_batch`` per step.  The last partial

@@ -7,7 +7,10 @@ come in corpus order with the last one wrapped around to the start (the
 JAX package's fixed shapes), and the wrapped rows are trimmed before
 scoring.  A decoder-only model generates continuations of its
 ``CausalLMDataset`` prompts, scored against the targets
-(``_run_causal``).  The model runs on its own device in eval mode under
+(``_run_causal``).  Over a process group each rank generates and scores
+its own rows of every batch (the batch's widths from the whole batch),
+and the ROUGE means are the mean of the ranks' means, as in the JAX
+package.  The model runs on its own device in eval mode under
 ``torch.no_grad()`` (its mode restored after): no dropout, and no seed
 drawn from any dropout stream.  On CUDA the encoder or the causal prompt
 prefill runs through the flash-attention kernel and every cached decoder
@@ -22,6 +25,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from distributed_llms_example_tpu_torch.core.mesh import process_count, process_index
 from distributed_llms_example_tpu_torch.data.batching import (
     LABEL_PAD,
     BatchIterator,
@@ -75,10 +79,13 @@ class Evaluator:
             return self._run_causal(ds, global_batch=global_batch,
                                     bucket_multiple=bucket_multiple,
                                     max_source_length=max_source_length)
-        it = BatchIterator(ds, global_batch=global_batch, seed=0, shuffle=False,
-                           drop_last=False, bucket_multiple=bucket_multiple,
-                           max_source_length=max_source_length,
+        pc, pi = process_count(), process_index()
+        it = BatchIterator(ds, global_batch=global_batch, process_count=pc, process_index=pi,
+                           seed=0, shuffle=False, drop_last=False,
+                           bucket_multiple=bucket_multiple, max_source_length=max_source_length,
                            max_target_length=self.max_new_tokens)
+        per_host = global_batch // pc
+        lo = pi * per_host
         device = next(self.model.parameters()).device
         preds: list[str] = []
         refs: list[str] = []
@@ -95,7 +102,7 @@ class Evaluator:
                                       batch["labels"])
                     # the last batch wraps around: its rows past the corpus
                     # repeat the epoch's start
-                    valid = min(global_batch, len(ds) - seen)
+                    valid = int(np.clip(min(global_batch, len(ds) - seen) - lo, 0, per_host))
                     preds.extend(self._decode_batch(out.cpu().numpy()[:valid]))
                     refs.extend(self._decode_batch(labels[:valid]))
                     seen += global_batch
@@ -112,6 +119,8 @@ class Evaluator:
         corpus start and its extra rows are trimmed."""
         device = next(self.model.parameters()).device
         pad, eos = self.config.pad_token_id, self.config.eos_token_id
+        per_host = global_batch // process_count()
+        lo = process_index() * per_host
         n = len(ds)
         preds: list[str] = []
         refs: list[str] = []
@@ -121,16 +130,18 @@ class Evaluator:
             with torch.no_grad():
                 for start in range(0, n, global_batch):
                     idx = [(start + i) % n for i in range(global_batch)]
-                    prompts = [ds[i].prompt_ids for i in idx]
-                    width = bucket_len(max(len(p) for p in prompts), bucket_multiple,
+                    # the width from the whole batch: every rank's shape agrees
+                    width = bucket_len(max(len(ds[i].prompt_ids) for i in idx), bucket_multiple,
                                        max_source_length)
+                    idx = idx[lo:lo + per_host]
+                    prompts = [ds[i].prompt_ids for i in idx]
                     input_ids = pad_2d(prompts, width, pad)
                     mask = np.zeros_like(input_ids)
                     for r, p in enumerate(prompts):
                         mask[r, : min(len(p), width)] = 1
                     out = self.generator.run(torch.as_tensor(input_ids, device=device).long(),
                                              torch.as_tensor(mask, device=device).long())
-                    valid = min(global_batch, n - start)
+                    valid = int(np.clip(min(global_batch, n - start) - lo, 0, per_host))
                     preds.extend(self._decode_batch(out.cpu().numpy()[:valid]))
                     refs.extend(self.tokenizer.decode([t for t in ds[i].target_ids if t != eos])
                                 for i in idx[:valid])

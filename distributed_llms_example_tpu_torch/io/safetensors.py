@@ -83,3 +83,42 @@ def save_file(tensors: dict[str, torch.Tensor], path: str | os.PathLike,
         for t in tensors.values():
             if t.numel():
                 f.write(t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy())
+
+
+def read_header(path: str | os.PathLike) -> tuple[dict, int]:
+    """A file's header (without ``__metadata__``) and the offset of its
+    tensor bytes."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return header, 8 + n
+
+
+def read_rows(path: str | os.PathLike, header: dict, data_start: int, name: str, lo: int,
+              hi: int) -> torch.Tensor:
+    """Rows ``[lo, hi)`` along dim 0 of tensor ``name`` (a 0-d tensor: the
+    whole of it), read alone from the file: a CPU tensor of the file's
+    dtype."""
+    info = header[name]
+    dtype = _DTYPES[info["dtype"]]
+    shape = list(info["shape"])
+    size = torch.empty((), dtype=dtype).element_size()
+    if not shape:
+        lo, hi, row, out_shape = 0, 1, size, []
+    else:
+        row = size
+        for d in shape[1:]:
+            row *= d
+        if not 0 <= lo <= hi <= shape[0]:
+            raise ValueError(f"{path}: rows {lo}..{hi} of {name} {shape}")
+        out_shape = [hi - lo, *shape[1:]]
+    nbytes = (hi - lo) * row
+    buf = bytearray(nbytes)
+    with open(path, "rb") as f:
+        f.seek(data_start + info["data_offsets"][0] + lo * row)
+        if f.readinto(buf) != nbytes:
+            raise ValueError(f"{path}: truncated safetensors file")
+    if not nbytes:
+        return torch.empty(out_shape, dtype=dtype)
+    return torch.frombuffer(buf, dtype=dtype).reshape(out_shape)

@@ -15,6 +15,9 @@
     python -m distributed_llms_example_tpu_torch.launch.cli \\
         --model-ckpt <LLaMA HF checkpoint dir> --train-file train.json --remat \\
         --fused-ce --batch-size 8 --max-source-length 1024 --max-target-length 128
+    torchrun --nproc-per-node 4 -m distributed_llms_example_tpu_torch.launch.cli \\
+        --model-ckpt llama-2-7b --mesh fsdp=4 --remat --fused-ce \\
+        --train-file train.json --batch-size 8 --max-source-length 1024
     python -m distributed_llms_example_tpu_torch.launch.cli serve \\
         --model-ckpt bart-large-cnn --prompts-file prompts.json \\
         --max-slots 8 --max-new-tokens 128 --max-source-length 1024
@@ -43,8 +46,19 @@ registry but Mixtral, and encodes a seq2seq model's prompts as sources
 does.  The JAX CLI's startup lints read XLA cache specs and have no
 counterpart here yet: serve's ``--lint`` is parsed and one
 ``lint_skipped`` line says so.
-``--mesh`` accepts one-device layouts only; multi-GPU, ``serve-router``
-and ``serve-loadgen`` are later slices (ROADMAP.md).
+
+Training runs over several GPUs as one process per GPU (``torchrun
+--nproc-per-node N -m distributed_llms_example_tpu_torch.launch.cli ...``,
+or each process started with ``VH_MASTER_IP``, ``VH_WORLD_SIZE`` and
+``VH_RANK`` set, or with ``--coordinator-address``, ``--num-processes`` and
+``--process-id``; on Valohai the platform's own facts), laid out by
+``--mesh``: ``data=N`` (replicated parameters, the gradients all-reduced),
+``fsdp=N`` (sharded, FSDP2) or ``data=a,fsdp=b`` (HSDP).  The group is
+NCCL on CUDA and gloo with ``--device cpu`` (``core/mesh.py``).  Without
+``--train-file``, ``train.json`` and ``val.json`` beside the Valohai
+``dataset`` input are read.  ``serve``'s ``--mesh`` accepts one-device
+layouts only; multi-GPU serving, ``serve-router`` and ``serve-loadgen`` are
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -229,6 +243,23 @@ def build_train_parser() -> argparse.ArgumentParser:
     ))
 
 
+def resolve_dataset_files(train_file: str, val_file: str) -> tuple[str, str]:
+    """Explicit paths win; otherwise train.json and val.json beside the
+    first Valohai ``dataset`` input (the JAX CLI's fallback)."""
+    if train_file:
+        return train_file, val_file
+    try:
+        import valohai  # type: ignore
+
+        base = os.path.dirname(valohai.inputs("dataset").path())
+        return os.path.join(base, "train.json"), os.path.join(base, "val.json")
+    except Exception:
+        raise SystemExit(
+            "no --train-file given and no Valohai 'dataset' input available; "
+            "pass --train-file/--val-file"
+        ) from None
+
+
 def train(argv: list[str] | None = None, *, loaded=None):
     """Training (``main`` without a subcommand): load the records, build
     the Trainer (which resumes from ``--output-dir``'s newest verified
@@ -237,8 +268,12 @@ def train(argv: list[str] | None = None, *, loaded=None):
     ``history`` holds each step's metrics and ``result`` what its
     ``train`` returned.
     ``loaded``: a model built by the caller, trained in place of
-    ``--model-ckpt``'s (``Trainer``)."""
+    ``--model-ckpt``'s (``Trainer``).  The process joins its process group
+    (``core/mesh.py initialize_distributed``) before the model is built."""
+    import dataclasses
+
     from distributed_llms_example_tpu_torch.core.config import config_from_args
+    from distributed_llms_example_tpu_torch.core.mesh import initialize_distributed
     from distributed_llms_example_tpu_torch.data.dataset import load_json_records
     from distributed_llms_example_tpu_torch.train.trainer import Trainer
 
@@ -248,6 +283,10 @@ def train(argv: list[str] | None = None, *, loaded=None):
         cfg = config_from_args(args)
     except ValueError as e:
         parser.error(str(e))
+    train_file, val_file = resolve_dataset_files(cfg.train_file, cfg.val_file)
+    cfg = dataclasses.replace(cfg, train_file=train_file, val_file=val_file)
+    initialize_distributed(cfg.coordinator_address, cfg.num_processes, cfg.process_id,
+                           device_type=cfg.device)
     # the JAX CLI's rule: a validation file is read only when it is given
     # and exists
     val = cfg.val_file

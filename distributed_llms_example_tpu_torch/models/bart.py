@@ -139,6 +139,11 @@ class BartDecoderLayer(nn.Module):
         h = self.mlp(hidden)
         return self.final_layer_norm(self.mlp_dropout(h, residual=hidden))
 
+    def project_kv(self, encoder_hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """This layer's cross-attention K/V of the encoder output (a method of
+        the layer, so a sharded layer gathers its weights around it)."""
+        return self.cross_attn.project_kv(encoder_hidden)
+
 
 class BartForConditionalGeneration(nn.Module):
     """``dtype`` is the compute dtype; ``param_dtype`` the storage dtype of
@@ -193,7 +198,7 @@ class BartForConditionalGeneration(nn.Module):
     def cross_kv(self, encoder_hidden: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """Per-decoder-layer cross-attention K/V, projected once from the
         encoder output and threaded through every decode step."""
-        return [blk.cross_attn.project_kv(encoder_hidden) for blk in self.decoder_blocks]
+        return [blk.project_kv(encoder_hidden) for blk in self.decoder_blocks]
 
     def decode(
         self,

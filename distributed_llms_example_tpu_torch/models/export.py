@@ -8,7 +8,8 @@ The reference recipe ends with ``model.save_pretrained(output_dir)``;
 file layout of the JAX package's export.  Tensors are fp32 under their HF
 names, each tied embedding once under its canonical name (transformers
 re-ties on load).  Files are written by ``io/safetensors.py`` (no
-``safetensors`` package).
+``safetensors`` package).  A sharded model (``parallel/fsdp.py``) is
+gathered first, leaf by leaf, to process 0's host (``full_state_dict``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any, Mapping
 import torch
 
 from distributed_llms_example_tpu_torch.io.safetensors import save_file
+from distributed_llms_example_tpu_torch.parallel.fsdp import shard_rows
 
 # HF's default shard size, as in the JAX package's export
 MAX_SHARD_BYTES = 5 * 1024**3
@@ -172,6 +174,43 @@ def hf_config_dict(family: str, cfg: Any) -> dict:
             "eos_token_id": cfg.eos_token_id,
         }
     raise ValueError(f"no HF config export for family {family!r}")
+
+
+def _gather_rows(t) -> torch.Tensor:
+    """The whole of a DTensor sharded along dim 0 (FSDP2's placement; HSDP
+    replicates it over the mesh's other dimension): every rank's block,
+    padded to the first block's rows, all-gathered over the shard group
+    into one tensor, the padding cut off.  The collective FSDP2 gathers
+    with itself, on whatever backend the group has."""
+    dim = next(i for i, p in enumerate(t.placements) if p.is_shard())
+    group = t.device_mesh.get_group(dim)
+    world, rows = group.size(), t.shape[0]
+    local = t.to_local()
+    per = shard_rows(rows, world, 0)[1]
+    padded = local.new_zeros((per, *t.shape[1:]))
+    padded[: local.shape[0]] = local
+    out = local.new_empty((per * world, *t.shape[1:]))
+    torch.distributed.all_gather_into_tensor(out, padded, group=group)
+    return out[:rows]
+
+
+def full_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """``model.state_dict()`` with every sharded (DTensor) entry gathered
+    whole, one at a time (every rank joins every gather), and kept on
+    process 0's host only: the other ranks get no entry for it, so no rank
+    but the writer ever holds the whole model."""
+    from distributed_llms_example_tpu_torch.core.mesh import process_index
+
+    out = {}
+    for name, t in model.state_dict().items():
+        if hasattr(t, "device_mesh"):
+            full = _gather_rows(t.detach())
+            if process_index() == 0:
+                out[name] = full.cpu()
+            del full
+        else:
+            out[name] = t
+    return out
 
 
 def save_hf_checkpoint(out_dir: str, family: str, cfg: Any,

@@ -158,14 +158,25 @@ class LlamaForCausalLM(nn.Module):
                 hidden = blk(hidden, bias, positions=positions, cache=c,
                              cache_positions=cache_positions)
             return self.lm_head(self.final_norm(hidden))
-        return self.lm_head(self.hidden_states(input_ids, attention_mask, positions=positions))
+        return self.lm_head(self._hidden_states(input_ids, attention_mask, positions))
 
     def hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
                       *, positions: torch.Tensor | None = None) -> torch.Tensor:
-        """The final norm's output of an uncached pass, without the LM head:
-        what the vocab-chunked loss (``ops/blockwise_ce.py``) consumes.
+        """The final norm's output of an uncached pass, without the LM head.
         Each block is checkpointed under ``remat_policy`` when autograd
         records."""
+        return self._hidden_states(input_ids, attention_mask, positions)
+
+    def head_inputs(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(the final hidden states, the LM head's weight cast to their
+        dtype as the head casts it): what the vocab-chunked loss
+        (``ops/blockwise_ce.py``) consumes, from one method, so a sharded
+        model (``parallel/fsdp.py``) gathers the head around it."""
+        h = self._hidden_states(input_ids, attention_mask, None)
+        return h, self.lm_head.weight.to(h.dtype)
+
+    def _hidden_states(self, input_ids, attention_mask, positions) -> torch.Tensor:
         hidden = self.embed_tokens(input_ids)
         bias = mask_to_bias(attention_mask) if attention_mask is not None else None
         for blk in self.blocks:

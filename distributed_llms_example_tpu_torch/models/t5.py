@@ -211,6 +211,11 @@ class T5Block(nn.Module):
         h = self.mlp(self.mlp_norm(hidden))
         return self.mlp_dropout(h, residual=hidden)
 
+    def project_kv(self, encoder_hidden: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """This block's cross-attention K/V of the encoder output (a method of
+        the block, so a sharded block gathers its weights around it)."""
+        return self.cross_attn.project_kv(encoder_hidden)
+
 
 class T5Stack(nn.Module):
     """The encoder (``causal=False``) or the decoder (causal self-attention
@@ -345,7 +350,7 @@ class T5ForConditionalGeneration(nn.Module):
     def cross_kv(self, encoder_hidden: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """Per-decoder-layer cross-attention K/V, projected once from the
         encoder output and threaded through every decode step."""
-        return [blk.cross_attn.project_kv(encoder_hidden) for blk in self.decoder.blocks]
+        return [blk.project_kv(encoder_hidden) for blk in self.decoder.blocks]
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.config.tie_word_embeddings:

@@ -15,9 +15,9 @@ anomaly is attributed to the step where the signal broke:
   mean absolute deviations;
 - the grad-norm explosion: ``grad_factor`` times the EWMA grad norm.
 
-``agree_and_emit`` logs the ``obs_anomaly`` line.  With one process the
-local verdict is the agreed one; the multi-process agreement comes with
-multi-GPU training (ROADMAP.md queue 1 item 4).
+``agree_and_emit`` agrees on the verdict across the process group (an
+all-gather of each rank's first anomaly) and logs the ``obs_anomaly``
+line on process 0; with one process the local verdict is the agreed one.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ import torch
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
 EWMA_ALPHA = 0.05  # the weight of each new sample in the running means
+CODE_IDS = {"nonfinite": 1, "loss_spike": 2, "grad_explosion": 3}
+ID_CODES = {v: k for k, v in CODE_IDS.items()}
 
 
 def health_enabled(cfg: Any) -> bool:
@@ -127,19 +129,35 @@ class HealthWatchdog:
 
 
 def agree_and_emit(anomalies: Sequence[Anomaly], *, step: int, policy: str) -> dict | None:
-    """The ``obs_anomaly`` line for the first anomaly of a window (None
-    when there is none): with one process, the local verdict is the
-    agreed one, and every field the JAX package's record has is here."""
-    if not anomalies:
+    """The agreed ``obs_anomaly`` record of one window, or None when no
+    rank flagged anything.  Every process calls this at the same cadence
+    step with its local verdict; ``(flag, step, code)`` of each rank's
+    first anomaly is all-gathered, so every rank returns the same record
+    (and takes the same policy action), attributed to the earliest
+    flagged step.  Process 0 logs it; ``value``, ``detail`` and
+    ``detail_rank`` are the emitting rank's own view when it flagged."""
+    from distributed_llms_example_tpu_torch.core.mesh import process_allgather, process_index
+
+    first = anomalies[0] if anomalies else None
+    local = np.asarray([1 if first is not None else 0,
+                        first.step if first is not None else 0,
+                        CODE_IDS.get(first.code, 0) if first is not None else 0], np.int64)
+    gathered = process_allgather(local)
+    ranks = [i for i in range(gathered.shape[0]) if int(gathered[i, 0])]
+    if not ranks:
         return None
-    first = anomalies[0]
-    v = float(first.value)
+    steps = [int(gathered[r, 1]) for r in ranks]
+    r0 = ranks[int(np.argmin(steps))]
     record: dict[str, Any] = {
-        "event": "obs_anomaly", "code": first.code, "step": int(first.step),
-        "detected_at_step": int(step), "ranks": [0], "policy": policy, "process_count": 1,
-        # non-finite values go as strings: "NaN" is not valid JSON
-        "value": round(v, 6) if np.isfinite(v) else repr(v), "detail": first.detail,
-        "detail_rank": 0,
+        "event": "obs_anomaly", "code": ID_CODES.get(int(gathered[r0, 2]), "unknown"),
+        "step": int(gathered[r0, 1]), "detected_at_step": int(step), "ranks": ranks,
+        "policy": policy, "process_count": int(gathered.shape[0]),
     }
+    if first is not None:
+        # non-finite values go as strings: "NaN" is not valid JSON
+        v = float(first.value)
+        record["value"] = round(v, 6) if np.isfinite(v) else repr(v)
+        record["detail"] = first.detail
+        record["detail_rank"] = process_index()
     log_json(record)
     return record

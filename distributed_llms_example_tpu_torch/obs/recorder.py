@@ -1,11 +1,12 @@
-"""The flight recorder (port of the JAX package's ``obs/recorder.py``, one
-process): a bounded ring of the last N steps' evidence, dumped as one JSON
-bundle on an anomaly, a SIGTERM or a crash.
+"""The flight recorder (port of the JAX package's ``obs/recorder.py``): a
+bounded ring of the last N steps' evidence, dumped as one JSON bundle on
+an anomaly, a SIGTERM or a crash.
 
 Each entry holds the step's metrics (device tensors until the health
 cadence resolves them; never a per-step sync) and a fingerprint of the
 host batch.  The dump is atomic (tmp file + fsync + rename), to
-``<output_dir>/obs/flight-recorder-p000.json``.
+``<output_dir>/obs/flight-recorder-p<process index>.json`` (``p000`` for
+one process): every rank of a group dumps its own.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 
+from distributed_llms_example_tpu_torch.core.mesh import process_index
 from distributed_llms_example_tpu_torch.io.checkpoint import write_json_atomic
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
@@ -90,7 +92,7 @@ class FlightRecorder:
 
     @staticmethod
     def bundle_path(output_dir: str) -> str:
-        return os.path.join(output_dir, "obs", "flight-recorder-p000.json")
+        return os.path.join(output_dir, "obs", f"flight-recorder-p{process_index():03d}.json")
 
     def dump(self, output_dir: str, *, reason: str, step: int,
              anomalies: Sequence[Any] = ()) -> str | None:
@@ -106,7 +108,7 @@ class FlightRecorder:
             entries.append(out)
         bundle = {
             "schema_version": SCHEMA_VERSION, "event": "flight_recorder", "reason": reason,
-            "step": int(step), "process_index": 0, "capacity": self.capacity,
+            "step": int(step), "process_index": process_index(), "capacity": self.capacity,
             "entries": entries,
             "anomalies": [{"step": int(a.step), "code": a.code,
                            "value": self._to_jsonable(a.value), "detail": a.detail}
@@ -119,5 +121,5 @@ class FlightRecorder:
             log_json({"event": "recorder_dump_failed", "reason": str(e)[:200]})
             return None
         log_json({"event": "recorder_dump", "path": path, "reason": reason, "step": int(step),
-                  "steps_recorded": len(entries)})
+                  "steps_recorded": len(entries)}, all_processes=True)
         return path

@@ -27,7 +27,11 @@ Seeds come from a host-side stream: inside ``dropout_seeds(generator)``
 every training-mode :class:`Dropout` call draws its int32 seed from that
 CPU ``torch.Generator`` (outside one, from torch's default CPU generator),
 so no seed ever needs a device sync; a block recomputed under activation
-checkpointing replays the seeds of its first run (``seed_tape``).
+checkpointing replays the seeds of its first run (``seed_tape``).  Over a
+mesh of more than one rank every rank draws the same seed from the shared
+stream and folds its mesh position into it (``shard_seed``, the JAX
+package's ``_shard_seed``): the ranks hold different rows, and unfolded
+they would drop the same positions of each.
 """
 
 from __future__ import annotations
@@ -316,6 +320,38 @@ def seed_tape(tape: list[int], *, replay: bool):
                            f"{len(tape)}")
 
 
+# this rank's (data, fsdp, expert) mesh position, folded into every seed;
+# None on a mesh of one device (``set_shard_coords``)
+_SHARD_COORDS: list[tuple[int, ...] | None] = [None]
+_FOLD = 1000003
+
+
+def set_shard_coords(coords: tuple[int, ...] | None) -> None:
+    """This process's (data, fsdp, expert) position on a mesh of more than
+    one device, or None (one device: seeds stay as drawn)."""
+    _SHARD_COORDS[0] = None if coords is None else tuple(int(c) for c in coords)
+
+
+def shard_seed(seed: int, *, heads_axis: bool = False) -> int:
+    """``seed`` with this rank's mesh position folded in, in wrapping int32
+    arithmetic: ``seed = seed * 1000003 + index`` for each of data, fsdp
+    and expert in that order (the JAX package's ``_shard_seed`` over its
+    batch axes, size-1 axes included), and the ``tensor`` axis's 0 after
+    them for an attention-probs seed (``heads_axis``), as the JAX flash
+    path folds its head axis too.  On one device: ``seed`` itself."""
+    coords = _SHARD_COORDS[0]
+    if coords is None:
+        return seed
+    for c in coords + ((0,) if heads_axis else ()):
+        seed = (seed * _FOLD + c) & M32
+        seed = seed - (1 << 32) if seed >= 1 << 31 else seed
+    return seed
+
+
+def _draw(gen: torch.Generator | None) -> int:
+    return int(torch.randint(-(2**31), 2**31, (), generator=gen))
+
+
 def next_seed() -> int:
     """One int32 seed from the innermost ``dropout_seeds`` stream (or from
     torch's default CPU generator outside one); inside a replaying
@@ -328,8 +364,7 @@ def next_seed() -> int:
                                    f"{len(tape)} of its first run")
             cursor[0] += 1
             return tape[cursor[0] - 1]
-    gen = _STREAMS[-1] if _STREAMS else None
-    seed = int(torch.randint(-(2**31), 2**31, (), generator=gen))
+    seed = _draw(_STREAMS[-1] if _STREAMS else None)
     if _TAPES:
         _TAPES[-1][0].append(seed)
     return seed
@@ -350,7 +385,7 @@ class Dropout(nn.Module):
         if self.rate >= 1.0:
             z = torch.zeros_like(x)
             return z if residual is None else residual + z
-        return fused_dropout(x, next_seed(), self.rate, residual=residual)
+        return fused_dropout(x, shard_seed(next_seed()), self.rate, residual=residual)
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"

@@ -31,8 +31,15 @@ and ``optax.global_norm``), its sums of squares in float64.
   version's bit for bit; the health sums differ in summation order only.
   The gradient pass divides as ``div_`` does and sums in a fixed order,
   so its norm is the same bits on every run.
-- ``fused_adamw_leaf.launches`` and ``fused_grad_prep.launches``: plain
-  integers bumped per kernel launch.
+- The partial mode (``fused_grad_prep(..., partial=True)``), for a rank
+  that holds shards of the leaves: the float64 sum of squares instead of
+  the norm, which the caller all-reduces (float64 SUM) over the ranks
+  that hold the other shards; ``grad_norm_finish`` then takes its root,
+  rounded once to fp32, with the one-pass norm's arithmetic (a one-thread
+  entry of the same source).  A leaf may hold no element (an uneven
+  shard), in either pass.
+- ``fused_adamw_leaf.launches``, ``fused_grad_prep.launches`` and
+  ``grad_norm_finish.launches``: plain integers bumped per kernel launch.
 """
 
 from __future__ import annotations
@@ -85,16 +92,23 @@ def adamw_leaf_plain(p, mu, nu, g, scal, *, b1: float, b2: float, eps: float,
     return p + u, mu2, nu2, stats
 
 
-def grad_prep_plain(grads, tokens) -> torch.Tensor:
+def grad_prep_plain(grads, tokens, *, partial: bool = False) -> torch.Tensor:
     """The gradient pass in plain PyTorch, in place: every ``g /= tokens``,
     then the global norm of the result, each leaf's sum of squares and
     their total in float64, the square root rounded once to fp32 (a 0-d
-    tensor)."""
+    tensor).  ``partial``: the float64 total (a 0-d tensor), for
+    ``grad_norm_finish`` after a cross-rank sum."""
     if not grads:
-        return torch.zeros((), dtype=torch.float32, device=tokens.device)
+        total = torch.zeros((), dtype=torch.float64, device=tokens.device)
+        return total if partial else total.float()
     for g in grads:
         g.div_(tokens)
     total = torch.stack([torch.sum(g.double() ** 2) for g in grads]).sum()
+    return total if partial else norm_finish_plain(total)
+
+
+def norm_finish_plain(total: torch.Tensor) -> torch.Tensor:
+    """The root of a float64 sum of squares, rounded once to fp32."""
     return torch.sqrt(total).float()
 
 
@@ -186,7 +200,8 @@ def _table_args(table: LeafTable, lo: int, hi: int, first: np.ndarray) -> list:
 _TABLE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
 _ADAMW_ARGTYPES = _TABLE_ARGTYPES + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 7 + [
     ctypes.c_int, ctypes.c_void_p]
-_PREP_ARGTYPES = _TABLE_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_PREP_ARGTYPES = _TABLE_ARGTYPES + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_FINISH_ARGTYPES = [ctypes.c_void_p] * 3
 
 
 def _adamw_cuda(table: LeafTable, scal, stats, *, b1, b2, eps, max_norm, wd):
@@ -222,39 +237,71 @@ def _prep_workspace(dev: torch.device) -> torch.Tensor:
     return ws
 
 
-def _grad_prep_cuda(table: LeafTable, tokens) -> torch.Tensor:
+def _grad_prep_cuda(table: LeafTable, tokens, partial: bool = False) -> torch.Tensor:
     dev = cuda_build.check_inputs("fused_grad_prep", {"tokens": tokens})
     if table.device != dev:
         raise ValueError(f"fused_grad_prep: the gradients are on {table.device}, tokens on {dev}")
     if tokens.dtype != torch.float32 or tokens.numel() != 1:
         raise ValueError("fused_grad_prep: tokens must be one fp32 value")
     gnorm = torch.empty((), dtype=torch.float32, device=dev)
+    total = torch.empty((), dtype=torch.float64, device=dev) if partial else None
     if not table.groups:
-        return gnorm.zero_()
+        return total.zero_() if partial else gnorm.zero_()
     fn = cuda_build.load("fused_adamw", _PREP_ARGTYPES, "fused_grad_prep")
     ws = _prep_workspace(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     last = len(table.groups) - 1
     for k, (lo, hi, first) in enumerate(table.groups):
         err = fn(*_table_args(table, lo, hi, first), tokens.data_ptr(), ws.data_ptr(),
-                 gnorm.data_ptr(), int(k == 0), int(k == last), stream)
+                 gnorm.data_ptr(), total.data_ptr() if partial else None, int(k == 0),
+                 int(k == last), stream)
         cuda_build.check(err, "fused_grad_prep")
         fused_grad_prep.launches += 1
-    return gnorm
+    return total if partial else gnorm
 
 
 @torch.no_grad()
-def fused_grad_prep(grads, tokens, *, table: LeafTable | None = None) -> torch.Tensor:
+def fused_grad_prep(grads, tokens, *, table: LeafTable | None = None,
+                    partial: bool = False) -> torch.Tensor:
     """Divide every gradient by ``tokens`` (a one-element fp32 tensor) IN
-    PLACE and return the global norm of the result (a 0-d fp32 tensor).
-    CPU gradients run the plain version; CUDA ones the kernel, over
-    ``table`` when given (it must hold ``grads``)."""
+    PLACE and return the global norm of the result (a 0-d fp32 tensor),
+    or with ``partial`` its float64 sum of squares (a 0-d tensor, for
+    ``grad_norm_finish`` after a cross-rank sum).  CPU gradients run the
+    plain version; CUDA ones the kernel, over ``table`` when given (it
+    must hold ``grads``)."""
     if not grads or grads[0].device.type == "cpu":
-        return grad_prep_plain(grads, tokens)
-    return _grad_prep_cuda(table or leaf_table(grads), tokens.reshape(()))
+        return grad_prep_plain(grads, tokens, partial=partial)
+    return _grad_prep_cuda(table or leaf_table(grads), tokens.reshape(()), partial)
 
 
 fused_grad_prep.launches = 0
+
+
+@torch.no_grad()
+def grad_norm_finish(total: torch.Tensor) -> torch.Tensor:
+    """The global norm from ``fused_grad_prep(..., partial=True)``'s float64
+    sum of squares (all-reduced over the ranks by the caller): its root
+    rounded once to fp32, a 0-d tensor.  A CPU tensor runs the plain
+    version, a CUDA tensor the one-thread kernel."""
+    if total.device.type == "cpu":
+        return norm_finish_plain(total)
+    return _norm_finish_cuda(total)
+
+
+def _norm_finish_cuda(total: torch.Tensor) -> torch.Tensor:
+    dev = cuda_build.check_inputs("grad_norm_finish", {"total": total})
+    if total.dtype != torch.float64 or total.numel() != 1:
+        raise ValueError("grad_norm_finish: total must be one float64 value")
+    total = total.reshape(()).contiguous()
+    gnorm = torch.empty((), dtype=torch.float32, device=dev)
+    fn = cuda_build.load("fused_adamw", _FINISH_ARGTYPES, "fused_grad_norm_finish")
+    err = fn(total.data_ptr(), gnorm.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "grad_norm_finish")
+    grad_norm_finish.launches += 1
+    return gnorm
+
+
+grad_norm_finish.launches = 0
 
 
 @torch.no_grad()

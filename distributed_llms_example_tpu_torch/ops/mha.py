@@ -46,7 +46,7 @@ from distributed_llms_example_tpu_torch.ops.attention import (
     make_causal_bias,
 )
 from distributed_llms_example_tpu_torch.ops.dense import Dense
-from distributed_llms_example_tpu_torch.ops.fused_dropout import next_seed
+from distributed_llms_example_tpu_torch.ops.fused_dropout import next_seed, shard_seed
 from distributed_llms_example_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
     MAX_DECODE_Q_ROWS,
@@ -348,10 +348,11 @@ class MultiHeadAttention(nn.Module):
             q, k = self._rope(q, k, positions)
         k, v = self._repeat_kv(k), self._repeat_kv(v)
 
-        # probs dropout: one seed a call from the host-side stream, the same
-        # mask on either route
+        # probs dropout: one seed a call from the host-side stream (with the
+        # rank's mesh position folded in), the same mask on either route
         rate = self.probs_dropout_rate if self.training else 0.0
-        drop = dict(dropout_rate=rate, dropout_seed=next_seed()) if rate > 0.0 else {}
+        drop = (dict(dropout_rate=rate, dropout_seed=shard_seed(next_seed(), heads_axis=True))
+                if rate > 0.0 else {})
         causal_here = self.causal
         impl, reason = select_attention_impl(
             self.attention_impl, head_dim=self.head_dim, q_len=q.shape[2],

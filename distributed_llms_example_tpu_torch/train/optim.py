@@ -32,6 +32,7 @@ from distributed_llms_example_tpu_torch.ops.fused_optim import (
     LeafTable,
     adamw_tree_apply,
     fused_grad_prep,
+    grad_norm_finish,
     leaf_table,
 )
 
@@ -131,12 +132,15 @@ def step_scalars(spec: OptimizerSpec, schedule: Schedule, count: int,
 
 
 def fused_optimizer_apply(spec: OptimizerSpec, schedule: Schedule, named_params, state: AdamWState,
-                          grads: list[torch.Tensor], tokens: torch.Tensor):
+                          grads: list[torch.Tensor], tokens: torch.Tensor, *, norm_group=None):
     """One clip + AdamW step, in place on the parameters and ``state``.
     ``named_params``: (name, fp32 parameter) pairs; ``grads``: their fp32
     token-summed gradients, divided here IN PLACE by ``tokens`` (a
     one-element fp32 tensor).  Returns the global norm of the normalized
-    gradients, a device tensor."""
+    gradients, a device tensor.  ``norm_group``: the process group whose
+    ranks hold the other shards of these leaves (FSDP): the norm is the
+    root of the float64 sums of squares all-reduced over it (the gradient
+    pass's partial mode, then ``grad_norm_finish``)."""
     names, params = zip(*named_params)
     params = list(params)
     decay = [decay_mask(n, p) for n, p in zip(names, params)]
@@ -145,7 +149,12 @@ def fused_optimizer_apply(spec: OptimizerSpec, schedule: Schedule, named_params,
         if state.table is None or state.table.ptrs[:, 0].tolist() != [p.data_ptr() for p in params]:
             state.table = leaf_table(grads, params, state.mu, state.nu, decay)
         table = state.table.with_grads(grads)
-    gnorm = fused_grad_prep(grads, tokens, table=table)
+    if norm_group is None:
+        gnorm = fused_grad_prep(grads, tokens, table=table)
+    else:
+        total = fused_grad_prep(grads, tokens, table=table, partial=True)
+        torch.distributed.all_reduce(total, group=norm_group)
+        gnorm = grad_norm_finish(total)
     scal = step_scalars(spec, schedule, state.count, gnorm)
     adamw_tree_apply(
         params, state.mu, state.nu, grads, scal, state.stats, b1=spec.b1, b2=spec.b2,

@@ -1,4 +1,4 @@
-"""The train step (port of the JAX package's ``train/step.py``, one device).
+"""The train step (port of the JAX package's ``train/step.py``).
 
 - ``cross_entropy_sums``: token-summed cross entropy (optional label
   smoothing) and the count of unmasked tokens, fp32;
@@ -20,6 +20,16 @@
 Dropout seeds come from the caller's CPU generator (``dropout_seeds``), so
 the step draws no random number on the device and waits on nothing.
 
+Over a process group (``StepGroups``) each rank runs its rows of the
+global batch.  Its loss and token sums are all-reduced (SUM) before the
+division, so ``loss`` and ``target_tokens`` are global, as the JAX
+package's are.  The gradient sums meet once a step, after the last
+microbatch: sharded (FSDP, ``parallel/fsdp.py``) they are reduce-scattered
+in the backward, the earlier microbatches' sync turned off; replicated
+(``data`` only) they are all-reduced here in coalesced buckets, as the
+reference's hand-rolled all-reduce and the JAX package's psum.  Kernel 8
+then runs over the rank's shards, its norm summed over the ``fsdp`` axis.
+
 Health numerics (``train_step(..., health_buckets=...)``): the global param norm,
 the non-finite gradient count and per-bucket update ratios ||Δw|| / ||w||
 (``HEALTH_BUCKETS``: embed, attn, mlp, head), assembled by
@@ -31,6 +41,8 @@ reads them at the logging cadence.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+from typing import Any
 
 import torch
 
@@ -46,6 +58,7 @@ from distributed_llms_example_tpu_torch.ops.fused_optim import (
     STAT_P_SUMSQ,
     STAT_U_SUMSQ,
 )
+from distributed_llms_example_tpu_torch.parallel.fsdp import local
 from distributed_llms_example_tpu_torch.train.optim import (
     AdamWState,
     OptimizerSpec,
@@ -154,8 +167,7 @@ def causal_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
     unfused head casts it, meets the hidden states chunk by chunk."""
     labels = batch["labels"]
     if model.config.fused_ce:
-        h = model.hidden_states(batch["input_ids"], batch["attention_mask"])
-        w = model.lm_head.weight.to(h.dtype)
+        h, w = model.head_inputs(batch["input_ids"], batch["attention_mask"])
         return blockwise_cross_entropy_sums(h[:, :-1].reshape(-1, h.shape[-1]), w,
                                             labels[:, 1:].reshape(-1), label_smoothing)
     logits = model(batch["input_ids"], batch["attention_mask"])
@@ -169,25 +181,77 @@ def loss_sums(model, batch: dict, label_smoothing: float = 0.0, *, is_seq2seq: b
     return causal_loss_sums(model, batch, label_smoothing)
 
 
+@dataclasses.dataclass(frozen=True)
+class StepGroups:
+    """Where a step's sums meet over the process group: ``world`` ranks,
+    each with its own rows; ``shard_group``: the ranks that hold the other
+    shards of a leaf (the ``fsdp`` axis), over which the norm and the
+    health sums add up.  With a shard group the model's parameters are
+    FSDP shards (the backward reduces their gradients); without one each
+    rank holds whole leaves, replicas the step all-reduces."""
+
+    world: int = 1
+    shard_group: Any = None
+
+
+# 64 MB of fp32 gradients an all-reduce: a guess, not measured (the
+# data-only all-reduce has not run on the card)
+GRAD_BUCKET_ELEMENTS = 1 << 24
+
+
+@torch.no_grad()
+def all_reduce_grads(grads: list[torch.Tensor]) -> None:
+    """SUM every gradient over the process group in place, in coalesced
+    buckets of at most ``GRAD_BUCKET_ELEMENTS`` (a larger tensor alone)."""
+    dist = torch.distributed
+    group: list[torch.Tensor] = []
+
+    def flush():
+        if not group:
+            return
+        flat = torch.cat([g.reshape(-1) for g in group])
+        dist.all_reduce(flat)
+        off = 0
+        for g in group:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        group.clear()
+
+    size = 0
+    for g in grads:
+        if group and size + g.numel() > GRAD_BUCKET_ELEMENTS:
+            flush()
+            size = 0
+        group.append(g)
+        size += g.numel()
+    flush()
+
+
 def optimizer_apply_block(spec: OptimizerSpec, schedule: Schedule, named_params,
                           state: AdamWState, lsum: torch.Tensor, tokens: torch.Tensor, *,
-                          health_buckets=None) -> dict:
+                          health_buckets=None, groups: StepGroups = StepGroups()) -> dict:
     """The once-per-step tail: normalize the token-weighted sums (the
     gradients in place in ``.grad``) and take their norm, clip + AdamW,
     metrics, with the health numerics when ``health_buckets`` (each
     leaf's bucket index) is given.  Every metric but the learning rate is
-    a device tensor."""
+    a device tensor.  Sharded parameters are updated in their rank's
+    shards (``state`` holds the shards' moments)."""
     tokens = torch.clamp(tokens, min=1.0)
-    grads = []
-    for _, p in named_params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p, dtype=torch.float32)
-        grads.append(p.grad)
+    with torch.no_grad():
+        grads = []
+        for _, p in named_params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p, dtype=torch.float32)
+            grads.append(local(p.grad))
+        shards = [(n, local(p)) for n, p in named_params]
     lr = schedule(state.count)
-    grad_norm = fused_optimizer_apply(spec, schedule, named_params, state, grads, tokens)
+    grad_norm = fused_optimizer_apply(spec, schedule, shards, state, grads, tokens,
+                                      norm_group=groups.shard_group)
     metrics = {"loss": lsum / tokens, "learning_rate": lr, "grad_norm": grad_norm,
                "target_tokens": tokens}
     if health_buckets is not None:
+        if groups.shard_group is not None:
+            torch.distributed.all_reduce(state.stats, group=groups.shard_group)
         metrics.update(health_metrics_from_stats(state.stats, health_buckets))
     return metrics
 
@@ -195,11 +259,13 @@ def optimizer_apply_block(spec: OptimizerSpec, schedule: Schedule, named_params,
 def train_step(model, named_params, state: AdamWState, spec: OptimizerSpec, schedule: Schedule,
                batch: dict, *, grad_accum_steps: int = 1, label_smoothing: float = 0.0,
                generator: torch.Generator | None = None, health_buckets=None,
-               is_seq2seq: bool = True) -> dict:
-    """One optimizer step on ``batch`` (tensors on the model's device).
-    ``generator`` (CPU) seeds the dropout of a model in training mode;
-    ``health_buckets`` (``param_buckets``) adds the health numerics;
-    ``is_seq2seq`` picks the family's loss (``loss_sums``)."""
+               is_seq2seq: bool = True, groups: StepGroups = StepGroups()) -> dict:
+    """One optimizer step on ``batch`` (tensors on the model's device: the
+    rank's rows of the global batch).  ``generator`` (CPU) seeds the
+    dropout of a model in training mode; ``health_buckets``
+    (``param_buckets``) adds the health numerics; ``is_seq2seq`` picks the
+    family's loss (``loss_sums``); ``groups`` says how the sums meet over
+    the process group."""
     n = int(grad_accum_steps)
     rows = batch["labels"].shape[0]
     if n < 1 or rows % n:
@@ -211,9 +277,21 @@ def train_step(model, named_params, state: AdamWState, spec: OptimizerSpec, sche
     with seeds:
         for i in range(n):
             micro = {k: v[i::n] for k, v in batch.items()} if n > 1 else batch
+            if groups.shard_group is not None:
+                # the gradients meet once, in the last microbatch's backward
+                model.set_requires_gradient_sync(i == n - 1)
             ls, tk = loss_sums(model, micro, label_smoothing, is_seq2seq=is_seq2seq)
             ls.backward()
             ls = ls.detach()
             lsum, tokens = (ls, tk) if lsum is None else (lsum + ls, tokens + tk)
+    if groups.world > 1:
+        if groups.shard_group is None:
+            for _, p in named_params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p, dtype=torch.float32)
+            all_reduce_grads([p.grad for _, p in named_params])
+        sums = torch.stack([lsum, tokens.to(lsum.dtype)])
+        torch.distributed.all_reduce(sums)
+        lsum, tokens = sums[0], sums[1]
     return optimizer_apply_block(spec, schedule, named_params, state, lsum, tokens,
-                                 health_buckets=health_buckets)
+                                 health_buckets=health_buckets, groups=groups)

@@ -1,6 +1,6 @@
-"""The trainer (port of the JAX package's ``train/trainer.py``, one device):
-dataset -> bucketed batches (assembled ``--prefetch-batches`` ahead on a
-thread, ``data/prefetch.py``) -> the epoch loop of ``train_step`` -> the
+"""The trainer (port of the JAX package's ``train/trainer.py``): dataset ->
+bucketed batches (assembled ``--prefetch-batches`` ahead on a thread,
+``data/prefetch.py``) -> the epoch loop of ``train_step`` -> the
 JSON step lines of ``MetricLogger``, an ``eval`` line (ROUGE of the
 validation set's generated summaries or continuations, ``evaluate``) every
 ``evaluation_steps`` steps and at each epoch's end -> a final checkpoint
@@ -42,8 +42,20 @@ Fault tolerance, as in the JAX package:
 The dropout generator is seeded at construction: a resumed run does not
 carry the stream of the run it resumes (neither does the JAX package's),
 while the in-process rewind restores the generator state of the save it
-rewinds to, so the replay draws the same masks.  Multi-GPU training waits
-for a later slice (ROADMAP.md).
+rewinds to, so the replay draws the same masks.
+
+Over a process group (``core/mesh.py``; one process a GPU) the ``--mesh``
+lays the ranks out on ``data`` x ``fsdp``: each rank trains on its rows of
+every global batch (``BatchIterator``'s host slice, the widths agreed
+once an epoch), with its mesh position folded into every dropout seed;
+``fsdp`` > 1 shards the model (``parallel/fsdp.py``; HSDP with ``data`` >
+1 too), ``data`` alone replicates it and the step all-reduces the
+gradients.  The ranks agree on every branch that runs collectives: the
+health verdict (``agree_and_emit``), the preemption flag (an all-gather
+every ``log_every_steps`` and at each epoch's end), the checkpoint to
+restore (process 0 verifies).  Process 0 alone writes the sidecars, the
+chaos corruption and the final model; every rank writes its own shards of
+a checkpoint (``io/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -58,15 +70,33 @@ import numpy as np
 import torch
 
 from distributed_llms_example_tpu_torch.core.config import TrainConfig
+from distributed_llms_example_tpu_torch.core.mesh import (
+    build_mesh,
+    device_report,
+    local_device,
+    mesh_coords,
+    process_allgather,
+    process_count,
+    process_index,
+    resolve_mesh_shape,
+)
 from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resolve_device
-from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD, BatchIterator
+from distributed_llms_example_tpu_torch.data.batching import (
+    LABEL_PAD,
+    BatchIterator,
+    validate_batch_mesh,
+)
 from distributed_llms_example_tpu_torch.data.dataset import CausalLMDataset, SummarizationDataset
 from distributed_llms_example_tpu_torch.data.prefetch import Prefetcher
 from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
 from distributed_llms_example_tpu_torch.evaluation.evaluate import Evaluator
-from distributed_llms_example_tpu_torch.io.checkpoint import Checkpointer, write_json_atomic
+from distributed_llms_example_tpu_torch.io.checkpoint import (
+    Checkpointer,
+    ShardLayout,
+    write_json_atomic,
+)
 from distributed_llms_example_tpu_torch.io.valohai_meta import save_valohai_metadata
-from distributed_llms_example_tpu_torch.models.export import save_hf_checkpoint
+from distributed_llms_example_tpu_torch.models.export import full_state_dict, save_hf_checkpoint
 from distributed_llms_example_tpu_torch.models.registry import LoadedModel, load_model
 from distributed_llms_example_tpu_torch.obs.chaos import corrupt_checkpoint, parse_chaos
 from distributed_llms_example_tpu_torch.obs.health import (
@@ -76,20 +106,24 @@ from distributed_llms_example_tpu_torch.obs.health import (
     to_host,
 )
 from distributed_llms_example_tpu_torch.obs.recorder import FlightRecorder, batch_fingerprint
+from distributed_llms_example_tpu_torch.ops.fused_dropout import set_shard_coords
+from distributed_llms_example_tpu_torch.parallel.fsdp import local, shard_model
 from distributed_llms_example_tpu_torch.train.optim import (
     AdamWState,
     OptimizerSpec,
     linear_schedule_with_warmup,
 )
 from distributed_llms_example_tpu_torch.train.recovery import RecoveryController
-from distributed_llms_example_tpu_torch.train.step import param_buckets, train_step
+from distributed_llms_example_tpu_torch.train.step import StepGroups, param_buckets, train_step
 from distributed_llms_example_tpu_torch.utils.backoff import sleep_backoff
 from distributed_llms_example_tpu_torch.utils.jsonlog import MetricLogger, log_json
 
 
 def put_batch(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
     """Host int32 arrays → device int64 tensors (pinned, asynchronous copy
-    on CUDA)."""
+    on CUDA).  Over a process group the arrays are the rank's rows of the
+    global batch (``BatchIterator``), and they stay this rank's: the JAX
+    package's global arrays are these rows side by side."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -122,6 +156,18 @@ class Trainer:
         > 0 or LLaMA with residual dropout."""
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        world = process_count()
+        if world > 1 and self.device.type == "cuda":
+            self.device = local_device("cuda")
+        self.mesh_spec = resolve_mesh_shape(cfg.mesh, world)
+        validate_batch_mesh(cfg.batch_size, {"data": self.mesh_spec.data,
+                                             "fsdp": self.mesh_spec.fsdp},
+                            process_count=world, grad_accum_steps=cfg.grad_accum_steps)
+        self.mesh = build_mesh(self.mesh_spec, self.device.type) if world > 1 else None
+        # every rank draws each dropout seed from the shared stream and folds
+        # its (data, fsdp, expert) position in, as the JAX package's shards do
+        set_shard_coords((*mesh_coords(self.mesh_spec, process_index()), 0)
+                         if world > 1 else None)
         if loaded is None:
             loaded = load_model(
                 cfg.model_ckpt, dtype=parse_dtype(cfg.compute_dtype), device=self.device,
@@ -141,6 +187,11 @@ class Trainer:
         loaded.module.train()
         self.loaded = loaded
         self.model = self.loaded.module
+        sharded = self.mesh_spec.fsdp > 1
+        if sharded:
+            shard_model(self.model, self.mesh)
+        self.groups = StepGroups(world=world,
+                                 shard_group=self.mesh.get_group("fsdp") if sharded else None)
         self.tokenizer = get_tokenizer(cfg.tokenizer, cfg.model_ckpt)
 
         def dataset(records):
@@ -169,7 +220,8 @@ class Trainer:
         # max_source_length, so their buckets agree
         tgt_cap = cfg.max_target_length if self.loaded.is_seq2seq else cfg.max_source_length
         self.batches = BatchIterator(
-            self.train_ds, global_batch=cfg.batch_size, seed=cfg.shuffle_seed,
+            self.train_ds, global_batch=cfg.batch_size, process_count=world,
+            process_index=process_index(), seed=cfg.shuffle_seed,
             bucket_multiple=cfg.pad_to_multiple, max_source_length=cfg.max_source_length,
             max_target_length=tgt_cap,
         )
@@ -188,8 +240,10 @@ class Trainer:
         )
         self.schedule = linear_schedule_with_warmup(cfg.learning_rate, cfg.warmup_steps,
                                                     self.total_steps)
+        # (name, parameter): a DTensor when sharded; AdamW's moments and the
+        # checkpoints hold the rank's shard (``local``)
         self.named_params = list(self.model.named_parameters())
-        self.opt_state = AdamWState.zeros([p for _, p in self.named_params])
+        self.opt_state = AdamWState.zeros([local(p.detach()) for _, p in self.named_params])
         self.generator = torch.Generator().manual_seed(cfg.shuffle_seed)
         # per-step metrics (device tensors) of the run's trajectory: a rewind
         # drops the steps it undoes
@@ -211,11 +265,15 @@ class Trainer:
         ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
         self.checkpointer = Checkpointer(
             ckpt_dir, save_every_steps=cfg.checkpoint.save_every_steps,
-            keep=cfg.checkpoint.keep, async_save=cfg.checkpoint.async_save)
+            keep=cfg.checkpoint.keep, async_save=cfg.checkpoint.async_save,
+            layout=ShardLayout.of(self.mesh_spec, process_index()) if world > 1 else None)
         self.recovery = RecoveryController(max_rewinds=cfg.max_rewinds)
         self._save_ordinal = 0  # chaos ckpt_corrupt ticks on save ordinals
         self._preempted = False
         self._prev_handlers: dict = {}
+        if world > 1:
+            log_json({"event": "device_report", **device_report(self.device),
+                      "mesh": {"data": self.mesh_spec.data, "fsdp": self.mesh_spec.fsdp}})
         log_json({"event": "train_start", "model": cfg.model_ckpt, "device": str(self.device),
                   "params": sum(p.numel() for _, p in self.named_params),
                   "param_tensors": len(self.named_params), "total_steps": self.total_steps,
@@ -228,7 +286,8 @@ class Trainer:
         # drifts from step % steps_per_epoch
         self._resume_cursor: tuple[int, int] | None = None
         if cfg.checkpoint.resume and self.checkpointer.latest_step() is not None:
-            restored = self.checkpointer.restore_latest(self.state_tensors())
+            restored = self.checkpointer.restore_latest(self.state_tensors(),
+                                                        shapes=self.state_shapes())
             if restored is None:
                 # steps EXIST but none verified: training from step 0 would
                 # let retention delete the possibly salvageable steps
@@ -260,7 +319,11 @@ class Trainer:
         if self.val_ds is None:
             return {}
         cfg = self.cfg
-        eval_batch = min(cfg.eval_batch_size or cfg.batch_size, len(self.val_ds))
+        # at most the set's size, a multiple of the ranks: each generates
+        # its rows of every eval batch
+        pc = self.groups.world
+        eval_batch = min(cfg.eval_batch_size or cfg.batch_size, max(pc, len(self.val_ds)))
+        eval_batch = max(pc, eval_batch - eval_batch % pc)
         scores = self.evaluator.run(self.val_ds, global_batch=eval_batch,
                                     bucket_multiple=cfg.pad_to_multiple,
                                     max_source_length=cfg.max_source_length)
@@ -274,11 +337,20 @@ class Trainer:
     def state_tensors(self) -> dict[str, torch.Tensor]:
         """The training state a checkpoint holds, by name: each fp32 master
         parameter by its port name, its AdamW moments as ``mu/<name>`` and
-        ``nu/<name>`` (the live tensors, not copies)."""
-        out = {n: p.detach() for n, p in self.named_params}
+        ``nu/<name>`` (the live tensors, not copies; a sharded model's: the
+        rank's shards)."""
+        out = {n: local(p.detach()) for n, p in self.named_params}
         for (n, _), mu, nu in zip(self.named_params, self.opt_state.mu, self.opt_state.nu):
             out[f"mu/{n}"] = mu
             out[f"nu/{n}"] = nu
+        return out
+
+    def state_shapes(self) -> dict[str, tuple[int, ...]]:
+        """The global shape of each tensor of ``state_tensors``."""
+        out = {}
+        for n, p in self.named_params:
+            for k in (n, f"mu/{n}", f"nu/{n}"):
+                out[k] = tuple(p.shape)
         return out
 
     @torch.no_grad()
@@ -297,7 +369,8 @@ class Trainer:
         goes through here, so the rewind's snapshot (the dropout
         generator's state and the data cursor), the recovery sidecar and
         the chaos ``ckpt_corrupt`` ordinal miss none."""
-        if not self.checkpointer.save(step, self.state_tensors(), {"count": self.opt_state.count}):
+        if not self.checkpointer.save(step, self.state_tensors(), {"count": self.opt_state.count},
+                                      shapes=self.state_shapes()):
             return False
         self._save_ordinal += 1
         self.recovery.note_save(step, rng=self.generator.get_state(), epoch=epoch, pos=pos)
@@ -306,13 +379,17 @@ class Trainer:
             # the files AND their manifest first: verification, not a torn
             # write, must catch the corruption
             self.checkpointer.wait()
-            corrupt_checkpoint(self.checkpointer.step_dir(step))
+            if process_index() == 0:  # one writer corrupts one shared file
+                corrupt_checkpoint(self.checkpointer.step_dir(step))
         return True
 
     def _write_recovery_sidecar(self, step: int, epoch: int, pos: int) -> None:
         """The data cursor and the quarantine set beside the checkpoint
-        (atomic).  The generator's state stays in memory: a bit-exact
-        replay is a same-process property, as in the JAX package."""
+        (atomic; process 0 writes it).  The generator's state stays in
+        memory: a bit-exact replay is a same-process property, as in the
+        JAX package."""
+        if process_index() != 0:
+            return
         payload = {"step": int(step), "epoch": int(epoch), "pos": int(pos),
                    "quarantined": [[e, s, rec]
                                    for (e, s), rec in self.recovery.quarantined.items()]}
@@ -384,6 +461,25 @@ class Trainer:
             signal.signal(sig, handler)
         self._prev_handlers = {}
 
+    def _preemption_agreed(self) -> bool:
+        """Every rank must stop at the same step, or one saves while the
+        others run the next step's collectives: the local flags are
+        all-gathered, and any rank signalled stops them all."""
+        if self.groups.world == 1:
+            return self._preempted
+        return bool(process_allgather(np.asarray([int(self._preempted)], np.int64)).any())
+
+    def _check_preemption(self, step: int) -> bool:
+        """The step loop's preemption check: one process reads its flag
+        every step; a group agrees every ``log_every_steps`` steps (the
+        step counter is the same on every rank, so all enter the gather
+        together), a signal acted on at most that many steps late."""
+        if self.groups.world == 1:
+            return self._preempted
+        if step % max(1, self.cfg.log_every_steps):
+            return False
+        return self._preemption_agreed()
+
     # -- health ----------------------------------------------------------
 
     def _on_step(self, step: int, epoch: int, metrics: dict, fingerprint: dict | None) -> str:
@@ -441,7 +537,8 @@ class Trainer:
         if action == "rewind":
             restored, rewind_err = None, None
             try:
-                restored = self.checkpointer.restore_before(a_step, self.state_tensors())
+                restored = self.checkpointer.restore_before(a_step, self.state_tensors(),
+                                                            shapes=self.state_shapes())
             except (OSError, ValueError, KeyError) as e:
                 rewind_err = e
             if restored is None:
@@ -545,7 +642,9 @@ class Trainer:
                                            f"before step {step + 1}")
                     if self.chaos.take("nan_grad", step + 1):
                         with torch.no_grad():
-                            self.named_params[0][1].view(-1)[0] = float("nan")
+                            p0 = local(self.named_params[0][1])
+                            if p0.numel():
+                                p0.view(-1)[0] = float("nan")
                     fingerprint = (batch_fingerprint(batch, epoch=epoch, epoch_step=pos - 1)
                                    if self.recorder is not None else None)
                     metrics = train_step(
@@ -553,12 +652,16 @@ class Trainer:
                         put_batch(batch, self.device), grad_accum_steps=cfg.grad_accum_steps,
                         label_smoothing=cfg.label_smoothing, generator=self.generator,
                         health_buckets=self.health_buckets, is_seq2seq=self.loaded.is_seq2seq,
+                        groups=self.groups,
                     )
                     step += 1
                     self._last_step = step
                     self.history.append(metrics)
+                    # the rank's tokens times the ranks: the global batch's, as
+                    # the JAX package counts them
                     logger.step(step, metrics["loss"], lr=metrics["learning_rate"],
-                                tokens=batch_tokens(batch, self.loaded.is_seq2seq), epoch=epoch)
+                                tokens=batch_tokens(batch, self.loaded.is_seq2seq)
+                                * self.groups.world, epoch=epoch)
                     self.step_ends.append(time.perf_counter())
                     action = self._on_step(step, epoch, metrics, fingerprint)
                     if action in ("halt", "checkpoint"):
@@ -574,7 +677,8 @@ class Trainer:
                     if self.chaos.take("sigterm", step):
                         # a real signal through the real handler
                         os.kill(os.getpid(), signal.SIGTERM)
-                    if self._preempted:
+                    if self._check_preemption(step):
+                        self._preempted = True
                         break
             finally:
                 # the producer thread stops even when the loop body raises
@@ -591,6 +695,10 @@ class Trainer:
                 epoch, pos, step = rewind_cursor
                 self._last_step = step
                 continue
+            # a signal that landed between two agreement steps set only the
+            # local flag: every rank reaches the epoch's end at the same
+            # step, so agree here before eval's collectives
+            self._preempted = self._preemption_agreed()
             if self._preempted or self._anomaly_action is not None:
                 break
             # the epoch's partial metric window first, then its eval
@@ -638,11 +746,16 @@ class Trainer:
         ``model.save_pretrained(output_dir)``): ``<output_dir>/model/``
         holds the fp32 master weights as an HF checkpoint (``config.json``
         + ``model.safetensors``), ``train_config.json`` (this run's
-        TrainConfig) and a Valohai metadata sidecar for each file.  Returns
-        the directory."""
+        TrainConfig) and a Valohai metadata sidecar for each file.  A
+        sharded model is gathered leaf by leaf to process 0's host (every
+        rank joins every gather) and process 0 writes.  Returns the
+        directory."""
         t0 = time.perf_counter()
         out = os.path.join(self.cfg.output_dir, "model")
-        save_hf_checkpoint(out, self.loaded.family, self.loaded.config, self.model.state_dict())
+        state = full_state_dict(self.model)
+        if process_index() != 0:
+            return out
+        save_hf_checkpoint(out, self.loaded.family, self.loaded.config, state)
         with open(os.path.join(out, "train_config.json"), "w") as f:
             f.write(self.cfg.to_json())
         save_valohai_metadata(out)

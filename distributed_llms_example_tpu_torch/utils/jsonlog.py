@@ -2,8 +2,10 @@
 
 The port's own copy of the JAX package's ``utils/jsonlog.log_json``
 contract (the platform parses each stdout line as execution metadata).
-The port is single-process, so every call emits; floats are rounded to
-six places and 0-d tensors / numpy scalars become plain Python numbers.
+Only process 0 of a process group emits, unless the caller asks for
+every process (``all_processes``), as in the JAX package; floats are
+rounded to six places and 0-d tensors / numpy scalars become plain Python
+numbers.
 ``MetricLogger`` is the JAX package's step-cadence logger.
 """
 
@@ -24,8 +26,15 @@ def _to_scalar(v: Any) -> Any:
     return v
 
 
-def log_json(metrics: Mapping[str, Any], *, file=None) -> None:
-    """Emit ``metrics`` as a single JSON line on ``file`` (stdout)."""
+def log_json(metrics: Mapping[str, Any], *, all_processes: bool = False, file=None) -> None:
+    """Emit ``metrics`` as a single JSON line on ``file`` (stdout), on
+    process 0 only unless ``all_processes``.  The gate comes before any
+    conversion, so a silent rank never waits on its device values."""
+    if not all_processes:
+        from distributed_llms_example_tpu_torch.core.mesh import process_index
+
+        if process_index() != 0:
+            return
     out = {k: _to_scalar(v) for k, v in metrics.items()}
     print(json.dumps(out), file=file or sys.stdout, flush=True)
 

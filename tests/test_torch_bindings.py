@@ -87,8 +87,12 @@ def _adamw():
                    max_norm=1.0, wd=0.01)
 
 
-def _grad_prep():
-    fo._grad_prep_cuda(fo.leaf_table([_t(100)]), _t(1))
+def _grad_prep(partial=False):
+    fo._grad_prep_cuda(fo.leaf_table([_t(100)]), _t(1), partial)
+
+
+def _norm_finish():
+    fo._norm_finish_cuda(torch.zeros((), dtype=torch.float64))
 
 
 WRAPPERS = {
@@ -113,6 +117,8 @@ WRAPPERS = {
     "fused_dropout": _dropout,
     "fused_adamw": _adamw,
     "fused_grad_prep": _grad_prep,
+    "fused_grad_prep partial": lambda: _grad_prep(partial=True),
+    "fused_grad_norm_finish": _norm_finish,
 }
 
 
@@ -136,7 +142,8 @@ def loads(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: _Stream())
     monkeypatch.setattr(fd, "_sm_count", lambda dev: 132)
     for counter in (fa.flash_attention, fa.flash_decode, fa.flash_decode_paged,
-                    fd.fused_dropout, fo.fused_adamw_leaf, fo.fused_grad_prep, fa.flash_bwd_dq,
+                    fd.fused_dropout, fo.fused_adamw_leaf, fo.fused_grad_prep,
+                    fo.grad_norm_finish, fa.flash_bwd_dq,
                     fa.flash_bwd_dkv, fa.flash_bwd_dlbias):
         monkeypatch.setattr(counter, "launches", counter.launches)
     for counter in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dlbias):

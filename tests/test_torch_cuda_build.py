@@ -188,7 +188,9 @@ STREAM_NAMES = {
     ("fused_adamw", "clip=1"):
         "_ZN47_GLOBAL__N__1785cb6c_14_fused_adamw_cu_57b34e9b18fused_adamw_kernelILi1EEEvNS_5TableEPKfPdNS_5HyperE",
     ("fused_adamw", "fused_grad_prep_kernel"):
-        "_ZN47_GLOBAL__N__1785cb6c_14_fused_adamw_cu_57b34e9b22fused_grad_prep_kernelENS_5TableEPKfPdPfii",
+        "_ZN47_GLOBAL__N__1785cb6c_14_fused_adamw_cu_57b34e9b22fused_grad_prep_kernelENS_5TableEPKfPdPfS3_ii",
+    ("fused_adamw", "grad_norm_finish_kernel"):
+        "_ZN47_GLOBAL__N__1785cb6c_14_fused_adamw_cu_57b34e9b23grad_norm_finish_kernelEPKdPf",
 }
 
 
@@ -196,8 +198,8 @@ STREAM_NAMES = {
 def test_chip_smoke_resource_gate_reads_kernels_7_and_8(tmp_path, monkeypatch, stack):
     """chip_smoke.py's register and stack reading of kernels 7 and 8, from
     each library's cuobjdump -res-usage: every instance found by its
-    template arguments (or, for the gradient pass, its name), and the run
-    failed when one has a stack frame."""
+    template arguments (or, for the gradient pass and the norm's finish, its
+    name), and the run failed when one has a stack frame."""
     mod = load_chip_smoke()
     reports = {}
     for (lib, inst), name in STREAM_NAMES.items():

@@ -2,7 +2,8 @@
 ``distributed_llms_example_tpu_torch`` (the causal-training modules
 ``data/prefetch.py``, ``utils/remat.py`` and ``ops/blockwise_ce.py`` among
 them, ``utils/remat.py`` importing checkpointing only inside its
-functions), or ``chip_smoke.py`` as a module,
+functions; the distributed modules ``core/mesh.py`` and
+``parallel/fsdp.py`` too), or ``chip_smoke.py`` as a module,
 pulls in no JAX, flax, optax, orbax, transformers or safetensors and no
 module of the JAX package (and
 importing the script runs none of it); and the port's entry points refuse
@@ -37,7 +38,7 @@ def test_port_imports_nothing_of_jax():
     mods = _port_modules()
     for name in ("serving.engine", "serving.cache_pool", "train.trainer", "models.llama",
                  "models.t5", "evaluation.generation", "data.prefetch", "utils.remat",
-                 "ops.blockwise_ce"):
+                 "ops.blockwise_ce", "core.mesh", "parallel.fsdp"):
         assert f"distributed_llms_example_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
