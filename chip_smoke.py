@@ -8,10 +8,12 @@ dropout), stops, resumes and rewinds it (checkpoints, SIGTERM, the
 health watchdog on kernel 8's sums), fine-tunes t5-large and serves
 flan-t5-xl at full width the same ways, serves llama-2-7b at full width through ``serve --paged-kv`` and
 through the flat cache, runs the reference recipe's eval pass (beam search
-and ROUGE on a validation file) on bart-large-cnn, and checks that each run
-went through its kernels.
+and ROUGE on a validation file) on bart-large-cnn, trains over process
+groups (FSDP; a host loss rebuilt onto a new mesh and replayed), and checks
+that each run went through its kernels.
 
     python3 chip_smoke.py    # from the repository root, on one NVIDIA GPU
+    python3 chip_smoke.py --phase 15    # the build, then phase 15 alone
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
@@ -153,9 +155,11 @@ Phases (each fatal, non-zero exit, no result line):
  6b. phase 6's fp32 check on that model (probs dropout 0.1): the fault
      that must break the limits is the probs-dropout seed off by one in
      kernels 2-4
- 5c. fault tolerance, phase 5's recipe: (a) from phase 5's checkpoint
-     with dropout, attention_dropout and activation_dropout 0 (weights
-     linked), an uninterrupted run with --save-every-steps 3, a run with
+ 5c. fault tolerance, phase 5's recipe at bart-large-cnn's widths and
+     4 + 4 layers (seed-0 weights written as an HF directory; the depth
+     cut holds the time limit): (a) from that directory with dropout,
+     attention_dropout and activation_dropout 0 (weights linked), an
+     uninterrupted run with --save-every-steps 3, a run with
      --chaos sigterm@4 (a real SIGTERM to this process through the
      trainer's handler, restored after) that stops preempted at step 4,
      and a third run in its --output-dir that logs resumed at step 4 with
@@ -200,12 +204,14 @@ Phases (each fatal, non-zero exit, no result line):
      reported, kernel 1 once per encoder layer (LLaMA: per layer, the
      prompt prefill) and kernel 5 once per decoder layer per step; the
      decode offset shifted by one must break the 1e-4 limit
- 7. t5-large train: as phase 5 (same recipe and records), with kernel 4
-     once per self-attention layer per step (72 / 72 / 72 / 48 a step for
-     kernels 1 / 2 / 3 / 4) and non-zero gradients in both bucket tables
- 7b. t5-large train with attention-probs dropout 0.1: the model built here
-     (T5Config's attn_dropout_rate, which no HF T5 config sets) and handed
-     to the same train entry; phase 7's checks, and every launch of
+ 7. t5-large train at t5-large's widths and 12 + 12 layers (seed-0
+     weights, the model built here and handed to the train entry; the
+     depth cut holds the time limit): as phase 5 (same recipe and
+     records), with kernel 4 once per self-attention layer per step
+     (36 / 36 / 36 / 24 a step for kernels 1 / 2 / 3 / 4) and non-zero
+     gradients in both bucket tables
+ 7b. t5-large train with attention-probs dropout 0.1: the same model with
+     T5Config's attn_dropout_rate (which no HF T5 config sets); phase 7's checks, and every launch of
      kernels 1-4 a probs-dropout instance on the tensor cores
   8. T5 gradient check: fp32, t5-large widths at 2 + 2 layers, the recipe's
      batch, within phase 6's limits and each bucket table's gradient
@@ -268,12 +274,38 @@ Phases (each fatal, non-zero exit, no result line):
      1-3 at (8, 32, 1024, 128) bf16, causal with a ragged padding, against
      their plain versions (2e-2) and timed beside their bounds and SDPA's
      forward and backward with the same mask
- 14. a {"kernels_unported": []} line (every TPU kernel has a port), the
+ 14. data-parallel and FSDP training: a world-1 NCCL group, the
+     FSDP-wrapped llama-2-7b-width step bit-equal to the unwrapped one,
+     kernel 8's split norm, the CLI on two gloo ranks of cuda:0
+ 15. elastic fine-tuning: bart-large-cnn's widths at 2 + 2 layers, seed-0
+     weights written by the port's export, its residual dropout 0.1, bf16,
+     48 records (6 steps), --obs jsonl --obs-budget on, a save every 2
+     steps and --chaos host_loss@3. (a) over a world-1 NCCL group, log
+     cadence 2: 6 steps, one chaos_injection, one topology_change
+     (reshard), one reshard_restore of step 2 found at step 3 (1 step
+     lost); the trainer keeps the group; the losses of steps 3-6 and the
+     final state bit-equal to a clean run resumed from the same step-2
+     checkpoint with that save's dropout stream; kernels 1, 2, 3, 7 and 8
+     launched exactly as 7 steps (the replay included); then
+     reinitialize_distributed tears the group down and re-creates it
+     (generation + 1, NCCL, an all-reduce right). (b) two gloo ranks on
+     cuda:0 (--dist-rank), --mesh data=2 rebuilt on fsdp=2 after the loss
+     (the _next_mesh_override hook) over a re-created group: ends on
+     fsdp=2, the replay and the export bit-equal to a clean fsdp=2 run
+     resumed from the step-2 checkpoint, rank 0's heartbeats skew 0, its
+     launches exact. (c) the port's obs.report on both output directories:
+     one topology change, one reshard, MTTR > 0, no organic fault,
+     --strict 0. (d) the telemetry's device syncs in (a) equal its log
+     windows. Phases 5 and 13 run with --obs jsonl --obs-budget on (health
+     off, as without; phase 5 at log cadence 2) and print their last
+     step_budget account
+ 16. a {"kernels_unported": []} line (every TPU kernel has a port), the
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
      kernel 8 both entries of its source; kernels 1 and 5 count phase 6c's
      eval launches too, kernels 1-3, 7 and 8 phase 5c's resumed and rewind
-     runs, kernels 1, 2, 3, 5 and 8 phase 13's train and eval, kernel 1
+     runs, kernels 1, 2, 3, 5 and 8 phase 13's train and eval, kernels 1-3,
+     7 and 8 phase 14's step and phase 15's two host-loss runs, kernel 1
      phase 11's prompt prefills),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -2387,7 +2419,7 @@ def expected_train_launches(model, steps: int, accum: int = 1, *, sharded: bool 
 
 
 def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn", *, probs_dropout=0.0,
-                loaded=None):
+                loaded=None, budget: bool = False):
     """The CLI's train entry at full width, saving to <WORK>/<run>-out;
     counters, losses, gradients (and, for T5, both bucket tables'), the
     export reloaded bit-equal, and one profiled step.  ``model`` may be a
@@ -2395,23 +2427,30 @@ def train_phase(torch, fa, fd, fo, cli, model: str = "bart-large-cnn", *, probs_
     ``probs_dropout``, or ``loaded`` a model built here with that
     attn_dropout_rate (trained in place of ``model``'s, whose name it
     keeps): then every launch of kernels 1-4 must be a dropout instance,
-    and none otherwise."""
+    and none otherwise.  ``budget``: with the JSONL sink and the step-time
+    budget at a log cadence of 2 (the health numerics off, as without), and
+    the last account printed."""
     from distributed_llms_example_tpu_torch.models.registry import load_model
     from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
 
     os.makedirs(WORK, exist_ok=True)
     path = os.path.join(WORK, "train.json")
     write_train_records(path)
-    run = os.path.basename(model) + ("" if loaded is None else "-attention-dropout")
+    run = os.path.basename(model) + ("-attention-dropout" if loaded is not None and probs_dropout
+                                     else "")
     out_dir = fresh_dir(run + "-out")
     zero_counters(fa, fd, fo)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with logged_events() as events:
         trainer = cli.train([*TRAIN_ARGS, "--model-ckpt", model, "--train-file", path,
-                             "--output-dir", out_dir], loaded=loaded)
+                             "--output-dir", out_dir,
+                             *([*BUDGET_ARGS, "--log-every-steps", "2"] if budget else [])],
+                            loaded=loaded)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if budget:
+        budget_account(run, out_dir)
     launches = read_counters(fa, fd, fo)
     dropped = drop_counters(fa)
     tensor_core_route(fa, f"{run} train", launches)
@@ -2542,6 +2581,9 @@ FT_PREEMPT_AT = 4
 # the rewind run: a checkpoint every 2 steps, NaN before step 3
 FT_REWIND_SAVE_EVERY = 2
 FT_NAN_AT = 3
+# phase 5c's depth (bart-large-cnn's widths): its nine saves of the whole
+# training state at 12 + 12 layers held the run near its time limit
+FT_LAYERS = 4
 # health numerics from kernel 8's float64 per-leaf sums against the same
 # numbers from its plain version's (fp32 sums per leaf): relative
 HEALTH_RTOL = 1e-6
@@ -2579,6 +2621,7 @@ def fault_tolerance_phase(torch, fa, fd, fo, cli) -> dict:
     the resumed run and of the rewind run."""
     import filecmp
 
+    from distributed_llms_example_tpu_torch import obs as obs_mod
     from distributed_llms_example_tpu_torch.core.config import config_from_args
     from distributed_llms_example_tpu_torch.data.dataset import load_json_records
     from distributed_llms_example_tpu_torch.train import optim as optim_mod
@@ -2588,9 +2631,9 @@ def fault_tolerance_phase(torch, fa, fd, fo, cli) -> dict:
     write_train_records(path)
     say({"phase": "fault_tolerance_disk", "free_gb": shutil.disk_usage(WORK).free / 1e9})
     # ---- (a) preemption and resume, bit-equal
-    ckpt = linked_checkpoint(os.path.join(WORK, "bart-large-cnn-out", "model"),
-                             "bart-large-cnn-no-dropout", dropout=0.0, attention_dropout=0.0,
-                             activation_dropout=0.0)
+    src = bart_hf_dir(torch, FT_LAYERS)
+    ckpt = linked_checkpoint(src, "bart-large-cnn-no-dropout", dropout=0.0,
+                             attention_dropout=0.0, activation_dropout=0.0)
     args = [*TRAIN_ARGS, "--model-ckpt", ckpt, "--train-file", path,
             "--save-every-steps", str(FT_SAVE_EVERY)]
     straight_dir, resumed_dir = fresh_dir("ft-straight-out"), fresh_dir("ft-resumed-out")
@@ -2646,10 +2689,12 @@ def fault_tolerance_phase(torch, fa, fd, fo, cli) -> dict:
 
     # ---- (b) the rewind on a NaN
     rewind_dir, oracle_dir = fresh_dir("ft-rewind-out"), fresh_dir("ft-oracle-out")
-    rargs = [*TRAIN_ARGS, "--train-file", path, "--health", "on"]  # bart-large-cnn's config
+    # bart-large-cnn's config (dropout 0.1) at FT_LAYERS layers
+    rargs = [*TRAIN_ARGS, "--model-ckpt", src, "--train-file", path, "--health", "on"]
     windows: list = []
     tables = []
-    real_to_host, real_leaf_table = trainer_mod.to_host, optim_mod.leaf_table
+    # the health window's one transfer (TrainerObs) and the leaf table
+    real_to_host, real_leaf_table = obs_mod.to_host, optim_mod.leaf_table
 
     def to_host(pending):
         out = real_to_host(pending)
@@ -2660,7 +2705,7 @@ def fault_tolerance_phase(torch, fa, fd, fo, cli) -> dict:
         tables.append(1)
         return real_leaf_table(*a, **k)
 
-    trainer_mod.to_host, optim_mod.leaf_table = to_host, leaf_table
+    obs_mod.to_host, optim_mod.leaf_table = to_host, leaf_table
     try:
         with logged_events() as events:
             torch.cuda.synchronize()
@@ -2671,7 +2716,7 @@ def fault_tolerance_phase(torch, fa, fd, fo, cli) -> dict:
             torch.cuda.synchronize()
             rewind_launches = read_counters(fa, fd, fo)
     finally:
-        trainer_mod.to_host, optim_mod.leaf_table = real_to_host, real_leaf_table
+        obs_mod.to_host, optim_mod.leaf_table = real_to_host, real_leaf_table
     steps_run = len(windows)
     want = expected_train_launches(t.model, steps_run)
     nonfinite = [[s, m["nonfinite_count"]] for s, m in windows]
@@ -2785,18 +2830,25 @@ def health_numerics_check(torch, t) -> dict:
     return out
 
 
-def t5_large_with_attention_dropout(torch):
-    """t5-large for training (bf16 compute, fp32 master weights drawn from
-    seed 0) with attn_dropout_rate PROBS_DROPOUT: the one way to train T5
-    with probs dropout, as in the JAX package (HF's T5 config has no field
-    for it), handed to the train entry as a built model."""
+# phase 7's depth (t5-large's widths): at 24 + 24 layers its two runs' saves
+# of the whole training state held the run near its time limit
+T5_TRAIN_LAYERS = 12
+
+
+def t5_large_train_model(torch, attn_dropout_rate: float = 0.0):
+    """t5-large's widths at T5_TRAIN_LAYERS + T5_TRAIN_LAYERS layers for
+    training (bf16 compute, fp32 master weights drawn from seed 0), with
+    ``attn_dropout_rate``: the one way to train T5 with probs dropout, as in
+    the JAX package (HF's T5 config has no field for it), handed to the
+    train entry as a built model."""
     import dataclasses
 
     from distributed_llms_example_tpu_torch.core.precision import param_dtype
     from distributed_llms_example_tpu_torch.models.registry import T5_CONFIGS, LoadedModel
     from distributed_llms_example_tpu_torch.models.t5 import T5ForConditionalGeneration
 
-    cfg = dataclasses.replace(T5_CONFIGS["t5-large"], attn_dropout_rate=PROBS_DROPOUT)
+    cfg = dataclasses.replace(T5_CONFIGS["t5-large"], num_layers=T5_TRAIN_LAYERS,
+                              attn_dropout_rate=attn_dropout_rate)
     dev = torch.device("cuda")
     module = T5ForConditionalGeneration(cfg, dtype=torch.bfloat16,
                                         param_dtype=param_dtype(torch.bfloat16, dev, train=True),
@@ -4287,11 +4339,13 @@ def llama_train_phase(torch, fa, fd, fo, cli) -> dict:
         with logged_events() as events:
             t0 = time.perf_counter()
             trainer = cli.train([*LLAMA_TRAIN_ARGS, "--model-ckpt", ckpt, "--train-file",
-                                 train_path, "--val-file", val_path, "--output-dir", out_dir])
+                                 train_path, "--val-file", val_path, "--output-dir", out_dir,
+                                 *BUDGET_ARGS])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         trainer_mod.Trainer.evaluate = real_evaluate
+    budget_account("llama-2-7b", out_dir)
     peak = torch.cuda.max_memory_allocated()
     total = read_counters(fa, fd, fo) | {"flash_decode": fa.flash_decode.launches,
                                          "flash_decode_paged": fa.flash_decode_paged.launches}
@@ -4718,10 +4772,37 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+@contextlib.contextmanager
+def trainer_hooks(torch, *, next_mesh=None, rng_state=None):
+    """``Trainer.train`` with the test hooks set first: ``next_mesh``
+    ([data, fsdp]) the layout a host loss rebuilds onto
+    (``_next_mesh_override``), ``rng_state`` (a list of bytes) the dropout
+    generator's state."""
+    from distributed_llms_example_tpu_torch.core.mesh import MeshSpec
+    from distributed_llms_example_tpu_torch.train.trainer import Trainer
+
+    real = Trainer.train
+
+    def train(self):
+        if next_mesh is not None:
+            self._next_mesh_override = MeshSpec(*next_mesh)
+        if rng_state is not None:
+            self.generator.set_state(torch.tensor(rng_state, dtype=torch.uint8))
+        return real(self)
+
+    Trainer.train = train
+    try:
+        yield
+    finally:
+        Trainer.train = real
+
+
 def dist_rank_main(spec_path: str) -> None:
-    """One rank of phase 14 (b) (``chip_smoke.py --dist-rank spec.json``):
-    a gloo group on cuda:0 joined from the spec, then the train CLI; rank 0
-    writes its steps' losses and grad norms and its launches."""
+    """One rank of phase 14 (b) or 15 (b) (``chip_smoke.py --dist-rank
+    spec.json``): a gloo group on cuda:0 joined through ``core/mesh.py``
+    from the spec (NCCL refuses two ranks on one card), then the train CLI
+    (with phase 15's hooks); rank 0 writes its steps' losses and grad norms
+    and its launches."""
     with open(spec_path) as f:
         spec = json.load(f)
     sys.path.insert(0, HERE)
@@ -4731,45 +4812,52 @@ def dist_rank_main(spec_path: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     rank = int(spec["rank"])
-    torch.distributed.init_process_group("gloo", init_method=spec["init"],
-                                         world_size=spec["world"], rank=rank)
+    from distributed_llms_example_tpu_torch.core.mesh import initialize_distributed
     from distributed_llms_example_tpu_torch.launch import cli
     from distributed_llms_example_tpu_torch.ops import flash_attention as fa
     from distributed_llms_example_tpu_torch.ops import fused_dropout as fd
     from distributed_llms_example_tpu_torch.ops import fused_optim as fo
 
+    initialize_distributed(spec["address"], spec["world"], rank, device_type="cpu")
     zero_counters(fa, fd, fo)
-    trainer = cli.train(spec["argv"])
+    with trainer_hooks(torch, next_mesh=spec.get("next_mesh"), rng_state=spec.get("rng_state")):
+        trainer = cli.train(spec["argv"])
     torch.cuda.synchronize()
-    want = expected_train_launches(trainer.model, len(trainer.history), sharded=True)
-    want["flash_attention_fwd"] *= 2  # remat's recompute
     out = {"losses": [float(m["loss"]) for m in trainer.history],
            "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
-           "launches": read_counters(fa, fd, fo), "expected": want,
+           "launches": read_counters(fa, fd, fo),
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    if "steps_run" in spec:  # phase 15: the steps launched (a replay included)
+        out["expected"] = expected_train_launches(trainer.model, spec["steps_run"]) | {
+            "fused_grad_norm_finish": spec["sharded_steps"]}
+        snap = trainer.recovery.snapshot_for(ELASTIC_SAVE_EVERY)
+        out.update(mesh=[trainer.mesh_spec.data, trainer.mesh_spec.fsdp],
+                   result={k: v for k, v in trainer.result.items() if k != "final_eval"},
+                   rng_state=snap["rng"].tolist() if snap is not None else None)
+    else:
+        out["expected"] = expected_train_launches(trainer.model, len(trainer.history),
+                                                  sharded=True)
+        out["expected"]["flash_attention_fwd"] *= 2  # remat's recompute
     if rank == 0:
         with open(spec["out"], "w") as f:
             json.dump(out, f)
     torch.distributed.destroy_process_group()
 
 
-def dist_ranks(ckpt: str, train_path: str, world: int) -> dict:
-    """Phase 14 (b): ``world`` ranks of the CLI over gloo on cuda:0 with
-    --mesh fsdp=<world>; rank 0's result.  Every rank process is waited for
-    or killed before this returns."""
-    out_dir = fresh_dir("dist-fsdp-out")
-    init = f"tcp://127.0.0.1:{free_port()}"
+def dist_ranks(argv: list[str], world: int, *, phase: str, **extra) -> dict:
+    """``world`` ranks of the train CLI with ``argv`` over gloo on cuda:0
+    (``extra``: more of the spec, phase 15's hooks); rank 0's result.
+    Every rank process is waited for or killed before this returns."""
+    address = f"127.0.0.1:{free_port()}"
     result = os.path.join(WORK, "dist-rank0.json")
     if os.path.exists(result):
         os.remove(result)
     procs, logs = [], []
-    argv = [*DIST_ARGS, "--model-ckpt", ckpt, "--train-file", train_path, "--output-dir",
-            out_dir, "--mesh", f"fsdp={world}"]
     for rank in range(world):
         spec = os.path.join(WORK, f"dist-rank{rank}-spec.json")
         with open(spec, "w") as f:
-            json.dump({"rank": rank, "world": world, "init": init, "argv": argv,
-                       "out": result}, f)
+            json.dump({"rank": rank, "world": world, "address": address, "argv": argv,
+                       "out": result, **extra}, f)
         log = os.path.join(WORK, f"dist-rank{rank}.log")
         logs.append(log)
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank",
@@ -4786,8 +4874,8 @@ def dist_ranks(ckpt: str, train_path: str, world: int) -> dict:
         for r, log in enumerate(logs):
             with open(log) as f:
                 tail = f.read()[-3000:]
-            print(f"--- phase 14 (b) rank {r} (exit {rcs[r]}) ---\n{tail}", file=sys.stderr)
-        fail(f"phase 14 (b): the {world} gloo ranks exited {rcs}")
+            print(f"--- phase {phase} rank {r} (exit {rcs[r]}) ---\n{tail}", file=sys.stderr)
+        fail(f"phase {phase}: the {world} gloo ranks exited {rcs}")
     with open(result) as f:
         return json.load(f)
 
@@ -4982,7 +5070,9 @@ def distributed_phase(torch, fa, fd, fo, cli) -> tuple[dict, dict]:
     del one
     free_cuda()
     t0 = time.perf_counter()
-    two = dist_ranks(ckpt, train_path, 2)
+    two = dist_ranks([*DIST_ARGS, "--model-ckpt", ckpt, "--train-file", train_path,
+                      "--output-dir", fresh_dir("dist-fsdp-out"), "--mesh", "fsdp=2"], 2,
+                     phase="14 (b)")
     two_s = time.perf_counter() - t0
     loss_diff = max(abs(a - b) for a, b in zip(one_run["losses"], two["losses"]))
     norm_diff = max(abs(a - b) for a, b in zip(one_run["grad_norms"], two["grad_norms"]))
@@ -4997,7 +5087,269 @@ def distributed_phase(torch, fa, fd, fo, cli) -> tuple[dict, dict]:
              f"rank's (loss {loss_diff}, norm {norm_diff})")
     if two["launches"] != two["expected"]:
         fail(f"phase 14 (b): rank 0's launches {two['launches']}, expected {two['expected']}")
+    # ~24 GB of weights, final saves and exports: the machine's disk holds
+    # what every phase ever wrote at once, so they go before phase 15
+    for name in ("dist-one-out", "dist-fsdp-out"):
+        shutil.rmtree(os.path.join(WORK, name), ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
     return wrapped["launches"], finish
+
+
+# phase 15: elastic fine-tuning at bart-large-cnn's published widths (d_model
+# 1024, 16 heads, FFN 4096, its vocabulary) cut to 2 + 2 of its 12 + 12
+# layers, its residual dropout 0.1 (kernel 7 on the path) and attention
+# dropout 0; 48 records (6 steps), a save every 2 steps, the host lost after
+# step 3 (so step 2 is restored and step 3 replayed: 7 steps launched)
+ELASTIC_LAYERS = 2
+ELASTIC_SAVE_EVERY = 2
+ELASTIC_HOST_LOSS_AT = 3
+ELASTIC_ARGS = [
+    "--tokenizer", "byte", "--batch-size", "8", "--num-epochs", "1",
+    "--max-source-length", "1024", "--max-target-length", "128", "--compute-dtype", "bfloat16",
+    "--learning-rate", "1e-4", "--warmup-steps", "0", "--seed", "0", "--evaluation-steps", "0",
+    "--save-every-steps", str(ELASTIC_SAVE_EVERY), "--obs", "jsonl", "--obs-budget", "on",
+]
+ELASTIC_CHAOS = ["--chaos", f"host_loss@{ELASTIC_HOST_LOSS_AT}"]
+# (a)'s log cadence: steps 1, 3 and 5 are off it, so a telemetry sync there
+# would show in the sync count
+ELASTIC_LOG_EVERY = 2
+# the oracles resume from a linked step and save only at their end: the
+# machine's disk counts every byte written
+ORACLE_SAVES = ["--save-every-steps", "0"]
+# phases 5 and 13: the sink, the budget, the health numerics as before (off)
+BUDGET_ARGS = ["--obs", "jsonl", "--obs-budget", "on", "--health", "off"]
+
+
+def obs_events(out_dir: str, rank: int = 0) -> list[dict]:
+    with open(os.path.join(out_dir, "obs", f"metrics-p{rank:03d}.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def budget_account(run: str, out_dir: str) -> dict:
+    """A run's last ``step_budget`` account on a line of its own (the six
+    components in ms, the efficiency, the tripwire's count) and the stdout
+    sink back in place of the run's."""
+    from distributed_llms_example_tpu_torch.obs import sink
+    from distributed_llms_example_tpu_torch.obs.budget import COMPONENTS
+
+    sink.install_sink(sink.build_sink("stdout", ""))
+    accounts = [e for e in obs_events(out_dir) if e.get("event") == "step_budget"]
+    if not accounts:
+        fail(f"{run}: no step_budget account under {out_dir}/obs")
+    last = accounts[-1]
+    line = {"phase": "step_budget", "run": run, "step": last["step"],
+            "window_steps": last["window_steps"], "wall_ms": last["wall_ms"],
+            **{f"{c}_ms": last[f"{c}_ms"] for c in COMPONENTS},
+            "dispatch_efficiency": last["dispatch_efficiency"],
+            "offcadence_sync_steps": last["offcadence_sync_steps"],
+            "offcadence_sync_suspect": last["offcadence_sync_suspect"],
+            "accounts": len(accounts),
+            "offcadence_sync_steps_all": [a["offcadence_sync_steps"] for a in accounts],
+            "dispatch_efficiency_all": [a["dispatch_efficiency"] for a in accounts]}
+    say(line)
+    return line
+
+
+def bart_hf_dir(torch, layers: int) -> str:
+    """<WORK>/bart-large-cnn-<layers>l-hf: bart-large-cnn's config at
+    ``layers`` + ``layers`` layers and seed-0 random fp32 weights, written by
+    the port's HF export (a link to phase 5's 12 + 12-layer weights would not
+    load: the loader is strict)."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.bart import BartForConditionalGeneration
+    from distributed_llms_example_tpu_torch.models.export import save_hf_checkpoint
+    from distributed_llms_example_tpu_torch.models.registry import BART_CONFIGS
+
+    path = fresh_dir(f"bart-large-cnn-{layers}l-hf")
+    cfg = dataclasses.replace(BART_CONFIGS["bart-large-cnn"], encoder_layers=layers,
+                              decoder_layers=layers)
+    model = BartForConditionalGeneration(cfg, dtype=torch.float32, param_dtype=torch.float32,
+                                         device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    save_hf_checkpoint(path, "bart", cfg, model.state_dict())
+    del model
+    free_cuda()
+    return path
+
+
+def step_copy(out_dir: str, name: str, step: int) -> str:
+    """<WORK>/<name>/checkpoints holding step ``step`` of ``out_dir``'s run
+    (its files hard-linked: nothing written) and its two sidecars: a run
+    there resumes from that step."""
+    src, dst = os.path.join(out_dir, "checkpoints"), os.path.join(fresh_dir(name), "checkpoints")
+    shutil.copytree(os.path.join(src, str(step)), os.path.join(dst, str(step)),
+                    copy_function=os.link)
+    for side in (f"integrity-{step}.json", f"recovery-{step}.json"):
+        shutil.copy(os.path.join(src, side), os.path.join(dst, side))
+    return os.path.dirname(dst)
+
+
+def host_loss_events(name: str, events: list[dict]) -> dict:
+    """The run's chaos, topology and reshard lines: exactly one of each, the
+    reshard restoring the last save before the loss and replaying what
+    followed it."""
+    def named(kind):
+        return [e for e in events if e.get("event") == kind]
+
+    chaos, topo, reshard = named("chaos_injection"), named("topology_change"), \
+        named("reshard_restore")
+    want = (ELASTIC_SAVE_EVERY, ELASTIC_HOST_LOSS_AT, ELASTIC_HOST_LOSS_AT - ELASTIC_SAVE_EVERY)
+    if [(e["kind"], e["step"]) for e in chaos] != [("host_loss", ELASTIC_HOST_LOSS_AT)] \
+            or [e["policy"] for e in topo] != ["reshard"] or len(reshard) != 1 \
+            or (reshard[0]["step"], reshard[0]["detected_at_step"],
+                reshard[0]["steps_lost"]) != want:
+        fail(f"phase 15 ({name}): chaos {chaos}, topology {topo}, reshard {reshard}")
+    return reshard[0]
+
+
+def elastic_phase(torch, fa, fd, fo, cli) -> dict:
+    """Phase 15.  Returns the launches of the two host-loss runs ((a), and
+    (b)'s rank 0)."""
+    import contextlib as ctx
+    import io
+
+    from distributed_llms_example_tpu_torch.core import mesh
+    from distributed_llms_example_tpu_torch.obs import report, sink
+    from distributed_llms_example_tpu_torch.obs.budget import sync_device
+
+    t_phase = time.perf_counter()
+    ckpt = bart_hf_dir(torch, ELASTIC_LAYERS)
+    path = os.path.join(WORK, "elastic_train.json")
+    write_train_records(path, seed=15)
+    base = [*ELASTIC_ARGS, "--model-ckpt", ckpt, "--train-file", path]
+
+    # (a) a world-1 NCCL group: the trainer keeps it through the host loss
+    out_a = fresh_dir("elastic-a-out")
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                         world_size=1, rank=0)
+    try:
+        gen0 = mesh.generation()
+        zero_counters(fa, fd, fo)
+        syncs0 = sync_device.syncs
+        t0 = time.perf_counter()
+        run = cli.train([*base, "--output-dir", out_a, "--log-every-steps",
+                         str(ELASTIC_LOG_EVERY), *ELASTIC_CHAOS])
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        syncs = sync_device.syncs - syncs0
+        launches = read_counters(fa, fd, fo)
+        want = expected_train_launches(run.model, len(run.history) + 1)  # the replayed step
+        kept = mesh.generation() == gen0 and torch.distributed.get_backend() == "nccl"
+        events = obs_events(out_a)
+        reshard = host_loss_events("a", events)
+        rng = run.recovery.snapshot_for(ELASTIC_SAVE_EVERY)["rng"]
+        losses = [float(m["loss"]) for m in run.history]
+        result = {k: v for k, v in run.result.items() if k != "final_eval"}
+        state = {k: v.clone() for k, v in run.state_tensors().items()}
+        del run
+        free_cuda()
+        # the oracle: a clean run resumed from the same step-2 checkpoint with
+        # that save's dropout stream
+        out_ac = step_copy(out_a, "elastic-a-clean-out", ELASTIC_SAVE_EVERY)
+        with trainer_hooks(torch, rng_state=rng.tolist()):
+            clean = cli.train([*base, "--output-dir", out_ac, "--log-every-steps",
+                               str(ELASTIC_LOG_EVERY), *ORACLE_SAVES])
+        torch.cuda.synchronize()
+        clean_losses = [float(m["loss"]) for m in clean.history]
+        cstate = clean.state_tensors()
+        unequal = [k for k in state if not torch.equal(state[k], cstate[k])]
+        state_names = sorted(state)
+        del clean, cstate, state
+        free_cuda()
+        for d in (os.path.join(out_a, "checkpoints"), os.path.join(out_a, "model"), out_ac):
+            shutil.rmtree(d, ignore_errors=True)
+        # the group torn down and re-created by reinitialize_distributed, and
+        # an all-reduce over it
+        t1 = time.perf_counter()
+        world = mesh.reinitialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+        x = torch.full((1 << 20,), 3.0, device="cuda")
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+        reinit_s = time.perf_counter() - t1
+        recreated = (world == 1 and mesh.generation() == gen0 + 1
+                     and torch.distributed.get_backend() == "nccl" and bool((x == 3.0).all()))
+    finally:
+        torch.distributed.destroy_process_group()
+    windows = [e for e in events if e.get("event") == "step_budget"]
+    say({"phase": "elastic_world1", "backend": "nccl", "layers": ELASTIC_LAYERS,
+         "result": result, "wall_s": wall_a, "losses": losses,
+         "clean_resume_losses": clean_losses, "state_tensors": len(state_names),
+         "unequal": unequal[:5], "reshard_restore": reshard, "group_kept": kept,
+         "launches": launches, "expected": want, "telemetry_syncs": syncs,
+         "log_windows": len(windows), "reinit_s": reinit_s, "group_recreated": recreated})
+    if result.get("steps") != 6 or "anomaly" in result or len(losses) != 6:
+        fail(f"phase 15 (a): the host-loss run ended {result} with {len(losses)} steps")
+    if losses[ELASTIC_SAVE_EVERY:] != clean_losses or unequal:
+        fail(f"phase 15 (a): the replay differs from a clean resume from step "
+             f"{ELASTIC_SAVE_EVERY} (losses {losses[ELASTIC_SAVE_EVERY:]} vs {clean_losses}, "
+             f"state {unequal[:5]})")
+    required = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                "fused_dropout", "fused_adamw", "fused_grad_prep")
+    if launches != want or any(want[k] == 0 for k in required):
+        fail(f"phase 15 (a): launches {launches}, expected {want} (the replayed step included)")
+    if not kept or not recreated:
+        fail(f"phase 15 (a): the world-1 group kept by the trainer {kept}, torn down and "
+             f"re-created by reinitialize_distributed {recreated}")
+    # (d) the telemetry waited on the card at the log cadence only
+    if syncs != len(windows) or len(windows) != 6 // ELASTIC_LOG_EVERY:
+        fail(f"phase 15 (d): {syncs} telemetry syncs over {len(windows)} log windows")
+
+    # (b) two gloo ranks on cuda:0: data=2, rebuilt on fsdp=2 over a
+    # re-created group; then the oracle, a clean fsdp=2 run from the same
+    # step-2 checkpoint with that save's dropout stream
+    out_b = fresh_dir("elastic-b-out")
+    t0 = time.perf_counter()
+    two = dist_ranks([*base, "--output-dir", out_b, "--mesh", "data=2", "--log-every-steps", "1",
+                      "--obs-heartbeat-steps", "1", *ELASTIC_CHAOS], 2, phase="15 (b)",
+                     next_mesh=[1, 2], steps_run=7, sharded_steps=4)
+    wall_b = time.perf_counter() - t0
+    out_bc = step_copy(out_b, "elastic-b-clean-out", ELASTIC_SAVE_EVERY)
+    clean_b = dist_ranks([*base, "--output-dir", out_bc, "--mesh", "fsdp=2", "--log-every-steps",
+                          "1", *ORACLE_SAVES], 2, phase="15 (b) oracle",
+                         rng_state=two["rng_state"], steps_run=4, sharded_steps=4)
+    events_b = obs_events(out_b)
+    reshard_b = host_loss_events("b", events_b)
+    beats = [e for e in events_b if e.get("event") == "heartbeat"]
+    exported = [open(os.path.join(d, "model", "model.safetensors"), "rb").read()
+                for d in (out_b, out_bc)]
+    for d in (os.path.join(out_b, "checkpoints"), os.path.join(out_b, "model"), out_bc):
+        shutil.rmtree(d, ignore_errors=True)
+    say({"phase": "elastic_two_ranks", "backend": "gloo", "device": "cuda:0",
+         "mesh": "data=2 -> fsdp=2", "result": two["result"], "ended_on": two["mesh"],
+         "losses": two["losses"], "clean_resume_losses": clean_b["losses"],
+         "exports_bit_equal": exported[0] == exported[1], "reshard_restore": reshard_b,
+         "heartbeats": [(b["step"], b["skew_steps"], b["process_count"]) for b in beats],
+         "launches": two["launches"], "expected": two["expected"], "wall_s": wall_b})
+    if two["mesh"] != [1, 2] or two["result"].get("steps") != 6 or "anomaly" in two["result"]:
+        fail(f"phase 15 (b): ended {two['result']} on {two['mesh']}")
+    if two["losses"][ELASTIC_SAVE_EVERY:] != clean_b["losses"] or exported[0] != exported[1]:
+        fail("phase 15 (b): the two ranks' replay differs from a clean fsdp=2 resume")
+    if not beats or any(b["skew_steps"] or b["process_count"] != 2 for b in beats):
+        fail(f"phase 15 (b): heartbeats {beats}")
+    if two["launches"] != two["expected"] or clean_b["launches"] != clean_b["expected"]:
+        fail(f"phase 15 (b): launches {two['launches']} vs {two['expected']}, the oracle's "
+             f"{clean_b['launches']} vs {clean_b['expected']}")
+
+    # (c) the port's obs.report on both output directories
+    for name, out_dir in (("a", out_a), ("b", out_b)):
+        rep = report.build_report(out_dir)
+        with ctx.redirect_stdout(io.StringIO()):
+            rc = report.main([out_dir, "--strict"])
+        rec = rep["recovery"]
+        say({"phase": "elastic_report", "run": name, "topology": rec["topology"],
+             "reshards": rec["reshards"], "mttr_s": rec["mttr_s"],
+             "organic_faults": rec["organic_faults"], "strict_rc": rc,
+             "dispatch_efficiency": (rep["budget"] or {}).get("dispatch_efficiency"),
+             "stragglers": rep["stragglers"]})
+        if len(rec["topology"]) != 1 or len(rec["reshards"]) != 1 or not rec["mttr_s"] \
+                or rec["organic_faults"] or rc != 0:
+            fail(f"phase 15 (c): obs.report on ({name}): {rec}, --strict {rc}")
+    sink.install_sink(sink.build_sink("stdout", ""))
+    say({"phase": "elastic", "phase_s": time.perf_counter() - t_phase})
+    for d in (out_a, out_b, ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    return {k: launches[k] + two["launches"][k] for k in launches}
 
 
 def main() -> None:
@@ -5032,6 +5384,18 @@ def main() -> None:
     swapped_lib = swapped_build()
     say({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs,
          "planted_fault_build_s": time.perf_counter() - t0})
+
+    def lap(after: str) -> None:
+        """The run's seconds so far, after a group of phases: where the
+        time limit goes."""
+        say({"phase": "elapsed", "after": after, "seconds": time.perf_counter() - wall0})
+    if sys.argv[1:] == ["--phase", "15"]:
+        # phase 15 alone (after the build): a quick check of the elastic path
+        from distributed_llms_example_tpu_torch.launch import cli
+
+        elastic_phase(torch, fa, fd, fo, cli)
+        say({"phase": "wall", "seconds": time.perf_counter() - wall0})
+        return
     sass_phase(cuda_build)
     resource_phase(cuda_build)
     decode_resource_phase(cuda_build)
@@ -5060,13 +5424,15 @@ def main() -> None:
                       ("flash_attention_bwd_dkv", "dkv")):
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"], lbias_errs[key])
     measured.update(probs_dropout_phase(torch, fa, swapped_lib))
+    lap("3")
 
     # phases 4-6: the main paths
     from distributed_llms_example_tpu_torch.launch import cli
 
     launches = serve_phase(torch, fa, cli)
     torch.cuda.empty_cache()
-    train_launches, trainer = train_phase(torch, fa, fd, fo, cli)
+    lap("4")
+    train_launches, trainer = train_phase(torch, fa, fd, fo, cli, budget=True)
     trainer.opt_state = None
     for p in trainer.model.parameters():
         p.grad = None
@@ -5091,8 +5457,10 @@ def main() -> None:
 
     # phase 5c: fault tolerance (preemption and resume bit-equal, the rewind
     # on kernel 8's non-finite count, the health numerics, checkpoint costs)
+    lap("5-6b")
     ft_launches = fault_tolerance_phase(torch, fa, fd, fo, cli)
     free_cuda()
+    lap("5c")
 
     # phases 6c-6d: the eval pass (bart-large-cnn fine-tuned from phase 5's
     # checkpoint, scored with beam 2 on a validation file through kernels 1
@@ -5101,29 +5469,33 @@ def main() -> None:
     free_cuda()
     beam_kernel_time(torch, fa)
     beam_check_phase(torch, fa)
+    lap("6c-6d")
 
     # phases 7-10: T5 — t5-large training (7b: with attention-probs
     # dropout, kernels 1-4's dropout instances) and its gradient check,
     # flan-t5-xl serving and its fp32 logits check
     from distributed_llms_example_tpu_torch.train.trainer import put_batch
 
-    t5_train, trainer = train_phase(torch, fa, fd, fo, cli, "t5-large")
+    t5_train, trainer = train_phase(torch, fa, fd, fo, cli, "t5-large",
+                                    loaded=t5_large_train_model(torch))
     batch = put_batch(next(iter(trainer.batches.epoch(0))), trainer.device)
     del trainer
     free_cuda()
     t5_drop_train, trainer = train_phase(torch, fa, fd, fo, cli, "t5-large",
                                          probs_dropout=PROBS_DROPOUT,
-                                         loaded=t5_large_with_attention_dropout(torch))
+                                         loaded=t5_large_train_model(torch, PROBS_DROPOUT))
     del trainer
     free_cuda()
     t5_grad_check_drop = t5_grad_check_phase(torch, fa, fd, fo, batch)
     del batch
     t5_serve = t5_serve_phase(torch, fa, fd, fo, cli)
     t5_logits_phase(torch, fa)
+    lap("7-10")
 
     # phases 11-12: llama-2-7b serving, paged and flat; fp32 logits
     llama_paged, llama_flat = llama_serve_phase(torch, fa, cli)
     llama_logits_phase(torch, fa)
+    lap("11-12")
 
     # phase 13: llama-2-7b causal-LM fine-tuning at full width, 4 layers
     # (--remat --fused-ce, the causal eval), its 2-layer gradient, remat and
@@ -5133,11 +5505,21 @@ def main() -> None:
         key = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
                "dkv": "flash_attention_bwd_dkv"}[name]
         measured[key]["max_abs_err"] = max(measured[key]["max_abs_err"], err)
+    lap("13")
 
     # phase 14: data-parallel and FSDP training (a world-1 NCCL group and
     # the FSDP-wrapped step bit-equal to the unwrapped one; kernel 8's
     # partial norm; two gloo ranks of the CLI under --mesh fsdp=2)
     dist_launches, finish = distributed_phase(torch, fa, fd, fo, cli)
+    free_cuda()
+    lap("14")
+
+    # phase 15: elastic fine-tuning (host loss at bart-large-cnn widths, 2 +
+    # 2 layers: a world-1 NCCL group kept through the reshard and re-created
+    # by reinitialize_distributed; two gloo ranks rebuilt from data=2 onto
+    # fsdp=2; each replay bit-equal to a clean resume; obs.report; the
+    # telemetry's syncs at the log cadence only)
+    elastic_launches = elastic_phase(torch, fa, fd, fo, cli)
     free_cuda()
 
     # the end: the TPU kernels with no port yet (none), the kernel list
@@ -5147,8 +5529,9 @@ def main() -> None:
     # train runs, phase 5c's resumed and rewind runs, the BART eval, the
     # LLaMA serve runs' prompt prefills and the LLaMA train run and its
     # eval; kernels 2, 3 and 8 the BART, T5 and LLaMA train runs and phase
-    # 5c's and phase 14's FSDP step (kernel 8's finish entry that step
-    # alone), kernel 7 the BART and T5 train runs and phase 5c's, kernel 4
+    # 5c's, phase 14's FSDP step and phase 15's host-loss runs (kernel 8's
+    # finish entry phase 14's step and phase 15's fsdp=2 steps), kernel 7
+    # the BART and T5 train runs and phases 5c's and 15's, kernel 4
     # the T5 train run, kernel 5 the BART and flan-T5 serve runs, the flat
     # LLaMA serve, the BART eval and the LLaMA eval, kernel 6 the paged
     # LLaMA serve.
@@ -5156,7 +5539,7 @@ def main() -> None:
     src = "distributed_llms_example_tpu_torch/csrc/"
     ref = "distributed_llms_example_tpu/ops/"
     both = {k: train_launches[k] + t5_train[k] + ft_launches.get(k, 0) + llama_train.get(k, 0)
-            + dist_launches.get(k, 0) for k in t5_train}
+            + dist_launches.get(k, 0) + elastic_launches.get(k, 0) for k in t5_train}
     rows = [
         dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd_tc.cu",
              sources=[src + "flash_fwd_tc.cu", src + "flash_fwd.cu"],
@@ -5228,5 +5611,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         dist_rank_main(sys.argv[2])
-    else:
+    elif sys.argv[1:] in ([], ["--phase", "15"]):
         main()
+    else:
+        fail(f"usage: {sys.argv[0]} [--phase 15]")

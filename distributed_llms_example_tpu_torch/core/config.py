@@ -3,7 +3,8 @@ and ``add_reference_args`` that the port implements (flag names and
 defaults as there), plus ``--device`` and ``--seed``.  A flag the port does
 not implement is not accepted: argparse rejects it.  ``config_from_args``
 also checks, as the JAX package's does, what can be checked before the
-run: the rewind's prerequisites, the ``--chaos`` grammar and the
+run: the rewind's prerequisites, the ``--chaos`` grammar (and the
+checkpoint cadence a ``host_loss`` reshard restores from) and the
 ``--mesh`` axes (``data`` and ``fsdp`` only: the model-parallel axes are a
 later slice, ROADMAP.md item 6)."""
 
@@ -16,7 +17,6 @@ import json
 import os
 import tempfile
 
-from distributed_llms_example_tpu_torch.obs.chaos import parse_chaos
 from distributed_llms_example_tpu_torch.utils.remat import REMAT_POLICIES
 
 
@@ -121,9 +121,20 @@ class TrainConfig:
     device: str = "cuda"
     seed: int = 0  # random-init seed for the weights
     checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
+    # telemetry (obs/): "stdout" prints every line (process 0); "jsonl" also
+    # writes them, schema-stamped, to <output_dir>/obs/metrics-p{rank}.jsonl;
+    # "off" turns the obs instrumentation off (the stdout lines stay)
+    obs: str = "stdout"
+    # heartbeat cadence in steps (0 = off): every rank probes at the same step
+    obs_heartbeat_steps: int = 0
+    # a rank named laggard this many heartbeats in a row: host_loss_suspect
+    # (detection only; 0 = off)
+    obs_heartbeat_suspect_beats: int = 3
+    # the step-time budget (obs/budget.py): "auto" = on unless --obs off
+    obs_budget: str = "auto"
     # training health (obs/health.py): "on" adds the health numerics to every
-    # step and runs the watchdog at the log cadence; "auto" follows the JAX
-    # package's --obs jsonl, which the port does not have: off
+    # step and runs the watchdog at the log cadence; "auto" = on under --obs
+    # jsonl
     health: str = "auto"
     # an anomaly's policy: "warn" logs and continues; "halt" stops; "checkpoint"
     # saves a resumable checkpoint, dumps the flight recorder and stops;
@@ -132,6 +143,11 @@ class TrainConfig:
     # needs --save-every-steps and the flight recorder)
     on_anomaly: str = "warn"
     max_rewinds: int = 2
+    # an agreed host loss: "reshard" tears the process group down, re-creates
+    # it on the surviving ranks, rebuilds the model on the new mesh and
+    # restores the newest verified checkpoint through the resharding path;
+    # "halt" saves a checkpoint and stops
+    on_host_loss: str = "reshard"
     # flight-recorder ring in steps (0 = off), dumped on anomaly/SIGTERM/crash
     recorder_steps: int = 256
     health_loss_spike_factor: float = 4.0
@@ -210,10 +226,26 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "<output-dir>/checkpoints/<step>/ (0 = only at the end)")
     p.add_argument("--no-resume", action="store_true",
                    help="train from step 0 even where <output-dir>/checkpoints holds steps")
+    p.add_argument("--obs", type=str, default=d.obs, choices=("off", "stdout", "jsonl"),
+                   help="telemetry (obs/): stdout-only events, + JSONL file under the "
+                        "output dir, or off (metric stdout always stays on)")
+    p.add_argument("--obs-heartbeat-steps", type=int, default=d.obs_heartbeat_steps)
+    p.add_argument("--obs-heartbeat-suspect-beats", type=int,
+                   default=d.obs_heartbeat_suspect_beats,
+                   help="consecutive heartbeats a rank must be named laggard before "
+                        "the pod-agreed host_loss_suspect event fires (detection + "
+                        "report row only; --on-host-loss policy unchanged; 0 = off)")
+    p.add_argument("--obs-budget", type=str, default=d.obs_budget,
+                   choices=("auto", "on", "off"),
+                   help="step-time budget accounting: per-window wall time decomposed "
+                        "into data_wait/dispatch/device_busy/sync_block/host_overhead "
+                        "with a dispatch_efficiency gauge and the off-cadence "
+                        "host-transfer tripwire (step_budget events).  auto = on "
+                        "whenever --obs is not off")
     p.add_argument("--health", type=str, default=d.health, choices=("auto", "on", "off"),
                    help="health numerics (param norm, per-bucket update ratios, "
                         "non-finite gradient count) and the anomaly watchdog at the log "
-                        "cadence (auto = off: the port has no --obs jsonl)")
+                        "cadence (auto = on under --obs jsonl)")
     p.add_argument("--on-anomaly", type=str, default=d.on_anomaly,
                    choices=("warn", "halt", "checkpoint", "rewind"),
                    help="anomaly policy: warn and continue, halt, save a resumable "
@@ -222,13 +254,22 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "-> halt; needs --save-every-steps and the flight recorder)")
     p.add_argument("--max-rewinds", type=int, default=d.max_rewinds,
                    help="in-process rewind budget for --on-anomaly rewind")
+    p.add_argument("--on-host-loss", type=str, default=d.on_host_loss,
+                   choices=("reshard", "halt"),
+                   help="agreed topology-change policy: reshard — tear the process "
+                        "group down, re-create it on the surviving ranks, rebuild the "
+                        "model on the new mesh and restore the newest verified "
+                        "checkpoint through the resharding path (needs "
+                        "--save-every-steps); halt — checkpoint the evidence and stop, "
+                        "leaving recovery to a resumed run (the resume reshards either "
+                        "way)")
     p.add_argument("--recorder-steps", type=int, default=d.recorder_steps,
                    help="flight-recorder ring in steps (0 = off); dumped to "
                         "<output-dir>/obs/flight-recorder-p<rank>.json on anomaly/SIGTERM/crash")
     p.add_argument("--chaos", type=str, default=d.chaos,
                    help="deterministic fault injection: comma list of kind@tick with kind "
-                        "in nan_grad/ckpt_corrupt/data_error/sigterm/oom (tick = global "
-                        "step; for ckpt_corrupt the Nth checkpoint save)")
+                        "in nan_grad/ckpt_corrupt/data_error/sigterm/host_loss/oom (tick = "
+                        "global step; for ckpt_corrupt the Nth checkpoint save)")
     p.add_argument("--health-loss-spike-factor", type=float, default=d.health_loss_spike_factor)
     p.add_argument("--health-grad-norm-factor", type=float, default=d.health_grad_norm_factor)
     p.add_argument("--health-warmup-steps", type=int, default=d.health_warmup_steps)
@@ -246,7 +287,9 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     """The TrainConfig of parsed train flags; raises ValueError for what
     would only fail mid-run: a negative --max-rewinds, --on-anomaly rewind
     without periodic checkpoints or the flight recorder, a --chaos
-    grammar error, a --mesh axis the port does not lay out."""
+    grammar error, ``--chaos host_loss@K`` under ``--on-host-loss reshard``
+    without periodic checkpoints, a --mesh axis the port does not lay
+    out."""
     kw = {f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)
           if f.name not in ("checkpoint", "mesh")}
     cfg = TrainConfig(**kw, mesh=parse_mesh_arg(args.mesh), checkpoint=CheckpointConfig(
@@ -264,5 +307,12 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             raise ValueError("--on-anomaly rewind quarantines the poison batch via the flight "
                              "recorder's fingerprints: set --recorder-steps N (default 256) "
                              "instead of 0")
-    parse_chaos(cfg.chaos)
+    from distributed_llms_example_tpu_torch.obs.chaos import parse_chaos  # obs imports core
+
+    schedule = parse_chaos(cfg.chaos)
+    if (schedule.armed_at("host_loss") and cfg.on_host_loss == "reshard"
+            and cfg.checkpoint.save_every_steps <= 0):
+        raise ValueError("--chaos host_loss@K with --on-host-loss reshard needs a checkpoint to "
+                         "reshard FROM: set --save-every-steps N (a lost host's state is gone — "
+                         "topology recovery is a restore, not a migration)")
     return cfg

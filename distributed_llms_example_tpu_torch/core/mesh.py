@@ -20,11 +20,24 @@ Launch (one process per GPU)::
 
 or each process with ``VH_MASTER_IP``, ``VH_WORLD_SIZE`` and ``VH_RANK`` set
 (or ``--coordinator-address``, ``--num-processes``, ``--process-id``).
+
+Host-loss recovery re-creates the group on the surviving ranks
+(``reinitialize_distributed``, the one owner of the teardown).  Rank 0
+serves the rendezvous ``TCPStore`` on the coordinator's port; the process
+keeps that store for its life and gives each generation of the group its
+own ``PrefixStore`` (``gen0``, ``gen1``, ...), so a re-created group never
+binds the port again nor meets the keys of the group it replaces.  The
+generation counts the re-inits each process has completed, and every
+survivor has completed the same ones, so the prefixes agree; a replacement
+process joining a re-created group (it would start at ``gen0``) is not
+supported.
+``elastic_mesh_spec`` re-resolves ``--mesh`` for the survivors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 
 import numpy as np
@@ -33,6 +46,14 @@ import torch
 from distributed_llms_example_tpu_torch.core.config import PORTED_AXES, MeshConfig
 
 DEFAULT_COORDINATOR_PORT = 1234  # the reference's tcp://<master>:1234
+STORE_TIMEOUT = datetime.timedelta(minutes=30)  # the rendezvous store's (torch's default)
+
+# the process group is process-wide state in torch.distributed, and so is
+# what re-creating it needs: the rendezvous store of each coordinator
+# address, the facts the live group was made from, and its generation
+_STORES: dict[str, "torch.distributed.TCPStore"] = {}
+_GROUP_FACTS: dict[str, object] = {}
+_GENERATION = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,16 +164,98 @@ def initialize_distributed(coordinator_address: str = "", num_processes: int = 0
         raise ValueError(
             f"num_processes={num_processes} but no process id found "
             "(pass --process-id, or set VH_RANK/RANK)")
-    if ":" not in coordinator_address:
-        port = os.environ.get("MASTER_PORT", str(DEFAULT_COORDINATOR_PORT))
-        coordinator_address = f"{coordinator_address}:{port}"
-    backend = "nccl" if device_type == "cuda" else "gloo"
-    if device_type == "cuda":
+    _create_group(coordinator_address, num_processes, process_id,
+                  "nccl" if device_type == "cuda" else "gloo", _GENERATION)
+    return num_processes
+
+
+def _with_port(address: str) -> str:
+    if ":" in address:
+        return address
+    return f"{address}:{os.environ.get('MASTER_PORT', str(DEFAULT_COORDINATOR_PORT))}"
+
+
+def _create_group(address: str, world: int, rank: int, backend: str, gen: int) -> None:
+    """The group of generation ``gen`` over the address's store (made on
+    the first use of the address: rank 0 serves it)."""
+    address = _with_port(address)
+    store = _STORES.get(address)
+    if store is None:
+        host, port = address.rsplit(":", 1)
+        store = torch.distributed.TCPStore(host, int(port), world, is_master=rank == 0,
+                                           timeout=STORE_TIMEOUT, wait_for_workers=False)
+        _STORES[address] = store
+    if backend == "nccl":
         torch.cuda.set_device(local_device("cuda"))
     torch.distributed.init_process_group(
-        backend, init_method=f"tcp://{coordinator_address}", world_size=num_processes,
-        rank=process_id)
+        backend, store=torch.distributed.PrefixStore(f"gen{gen}", store),
+        world_size=world, rank=rank)
+    _GROUP_FACTS.update(address=address, world=world, rank=rank)
+
+
+def generation() -> int:
+    """How many times ``reinitialize_distributed`` re-created the group."""
+    return _GENERATION
+
+
+def reinitialize_distributed(coordinator_address: str = "", num_processes: int = 0,
+                             process_id: int = -1, *, device_type: str = "cuda") -> int:
+    """Tear the process group down and create the next generation on the
+    surviving ranks (topology-change recovery); returns the world size.
+
+    The one owner of the teardown: ``destroy_process_group`` if a group is
+    live (the caller has nothing in flight on it: saves joined, the card
+    synchronised, the prefetch thread stopped), then the group anew from the
+    rendezvous facts re-read as at startup (the arguments, the platform,
+    ``VH_*``, torchrun's env), else the facts of the group torn down.  The
+    backend is the torn-down group's (NCCL stays NCCL: a failing NCCL raises
+    and never turns into gloo), else by ``device_type``.  Without a live
+    group and with a world of one it creates nothing."""
+    global _GENERATION
+    live = is_distributed()
+    backend = torch.distributed.get_backend() if live else (
+        "nccl" if device_type == "cuda" else "gloo")
+    if live:
+        torch.distributed.destroy_process_group()
+    if not coordinator_address or num_processes <= 0 or process_id < 0:
+        ip, world, rank = _valohai_facts()
+        coordinator_address = coordinator_address or ip or str(_GROUP_FACTS.get("address", ""))
+        if num_processes <= 0:
+            num_processes = world if ip else int(_GROUP_FACTS.get("world", world))
+        if process_id < 0:
+            process_id = rank if rank is not None else int(_GROUP_FACTS.get("rank", -1))
+    if num_processes <= 1 and not live:
+        return 1
+    if not coordinator_address or process_id < 0:
+        raise ValueError("re-creating the process group needs its rendezvous facts: pass "
+                         "--coordinator-address and --process-id, or set VH_MASTER_IP/"
+                         "MASTER_ADDR and VH_RANK/RANK")
+    # counted once the group exists: a failed attempt leaves the prefix
+    # where the other ranks' is
+    _create_group(coordinator_address, num_processes, process_id, backend, _GENERATION + 1)
+    _GENERATION += 1
     return num_processes
+
+
+def elastic_mesh_spec(cfg: MeshConfig, n_devices: int) -> MeshSpec:
+    """The mesh for a CHANGED device count (topology-change recovery): the
+    configured shape re-resolved against the survivors.  A -1 axis absorbs
+    the change as at startup; a fully pinned shape whose product no longer
+    matches re-scales ``data`` (replicas are what elasticity varies); when
+    the other axes' product does not divide the count there is no shrink,
+    and this raises with both shapes named."""
+    sizes = cfg.axis_sizes()
+    try:
+        return resolve_mesh_shape(cfg, n_devices)
+    except ValueError:
+        pass
+    rest = int(np.prod([v for k, v in sizes.items() if k != "data"]))
+    if -1 in sizes.values() or rest <= 0 or n_devices % rest:
+        raise ValueError(
+            f"cannot re-factorize mesh {sizes} onto {n_devices} surviving device(s): the "
+            f"non-data axes' product ({rest}) must divide the device count — resume on a "
+            "slice shape the configured model sharding fits, or change the mesh config")
+    return resolve_mesh_shape(dataclasses.replace(cfg, data=n_devices // rest), n_devices)
 
 
 def build_mesh(spec: MeshSpec, device_type: str):

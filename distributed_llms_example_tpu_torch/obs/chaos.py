@@ -1,5 +1,5 @@
 """Deterministic fault injection (port of the JAX package's
-``obs/chaos.py``, one process): every recovery mechanism gets a switch.
+``obs/chaos.py``): every recovery mechanism gets a switch.
 
     --chaos nan_grad@120,ckpt_corrupt@2,data_error@300,sigterm@240
 
@@ -15,9 +15,12 @@ Training kinds:
 - ``sigterm@K``       SIGTERM to this process after step K (the graceful
                       preemption path, through the real handler)
 - ``oom@K``           a RESOURCE_EXHAUSTED-shaped error before step K
+- ``host_loss@K``     the agreed topology-change signal after step K: the
+                      trainer's ``--on-host-loss`` policy (reshard onto the
+                      surviving ranks, or save and stop), in one process as
+                      in many (the schedule is the same on every rank)
 
-``host_loss`` (the topology-change signal) needs several processes and is
-refused.  The serving kinds (``replica_crash``, ``replica_stall``,
+The serving kinds (``replica_crash``, ``replica_stall``,
 ``request_storm``) parse and stay armed and unfired: nothing in the port
 consumes them yet.
 
@@ -48,11 +51,6 @@ GRAMMAR_HELP = (
     "replica_*/request_storm serving kinds a router scheduler tick), "
     "e.g. 'nan_grad@120,ckpt_corrupt@2,sigterm@240' or "
     "'replica_crash@40,request_storm@10'"
-)
-HOST_LOSS_REFUSED = (
-    "--chaos host_loss needs a multi-process run (the agreed topology change, "
-    "resharding restore and re-initialisation on the surviving processes), which "
-    "the port does not have yet: ROADMAP.md queue 1 item 4"
 )
 
 
@@ -98,8 +96,8 @@ class ChaosSchedule:
 
 def parse_chaos(spec: str) -> ChaosSchedule:
     """Parse the ``--chaos`` grammar; raises ValueError (with the grammar
-    help) on anything malformed, and on ``host_loss``, so a chaos config
-    fails at parse time and not at injection time."""
+    help) on anything malformed, so a chaos config fails at parse time and
+    not at injection time."""
     schedule = ChaosSchedule()
     spec = (spec or "").strip()
     if not spec:
@@ -109,8 +107,6 @@ def parse_chaos(spec: str) -> ChaosSchedule:
         kind, sep, tick = part.partition("@")
         if not sep or kind not in KINDS or not tick.isdigit() or int(tick) < 1:
             raise ValueError(f"bad --chaos entry {part!r}: {GRAMMAR_HELP}")
-        if kind == "host_loss":
-            raise ValueError(HOST_LOSS_REFUSED)
         schedule.arm(kind, int(tick))
     return schedule
 

@@ -1,5 +1,5 @@
 """The training-health watchdog (port of the JAX package's
-``obs/health.py``, one process).
+``obs/health.py``).
 
 The train step's health numerics (``train/step.py``
 ``health_metrics_from_stats``: param norm, per-bucket update ratios and
@@ -17,7 +17,10 @@ anomaly is attributed to the step where the signal broke:
 
 ``agree_and_emit`` agrees on the verdict across the process group (an
 all-gather of each rank's first anomaly) and logs the ``obs_anomaly``
-line on process 0; with one process the local verdict is the agreed one.
+line (process 0 on stdout, every rank in its own file); with one process
+the local verdict is the agreed one.  ``LaggardStreaks`` turns a rank the
+heartbeat names laggard beat after beat into a ``host_loss_suspect``
+event: detection only.
 """
 
 from __future__ import annotations
@@ -36,10 +39,13 @@ ID_CODES = {v: k for k, v in CODE_IDS.items()}
 
 
 def health_enabled(cfg: Any) -> bool:
-    """The ``--health`` tri-state: "on"/"off" are literal; "auto" follows
-    ``--obs jsonl`` in the JAX package, a sink the port does not have yet,
-    so it is off here (as at the JAX package's default ``--obs stdout``)."""
-    return cfg.health == "on"
+    """The ``--health`` tri-state: "on"/"off" are literal, "auto" follows
+    ``--obs jsonl``."""
+    if cfg.health == "on":
+        return True
+    if cfg.health == "off":
+        return False
+    return cfg.obs == "jsonl"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,13 +134,46 @@ class HealthWatchdog:
         return out
 
 
+class LaggardStreaks:
+    """Persistent heartbeat laggards: a rank named laggard in one heartbeat
+    is a wobble; in ``suspect_beats`` consecutive heartbeats it is a
+    ``host_loss_suspect`` ("go look at rank N before the next collective
+    hangs").  Every rank feeds this the same gathered probe, so every rank
+    computes the same suspects.  Detection and a report row only: the
+    ``--on-host-loss`` policy acts on the agreed signal, never on this."""
+
+    def __init__(self, *, suspect_beats: int = 3):
+        self.suspect_beats = max(1, int(suspect_beats))
+        self.streaks: dict[int, int] = {}
+        self._suspected: set[int] = set()
+
+    def update(self, laggards: Sequence[int], step: int) -> list[dict]:
+        """Fold one heartbeat's laggard set; returns the suspects that cross
+        the threshold this beat, as event records.  One clean beat resets a
+        rank's streak and re-arms it."""
+        lag = {int(r) for r in laggards}
+        out: list[dict] = []
+        for r in list(self.streaks):
+            if r not in lag:
+                self.streaks.pop(r)
+                self._suspected.discard(r)
+        for r in sorted(lag):
+            self.streaks[r] = self.streaks.get(r, 0) + 1
+            if self.streaks[r] >= self.suspect_beats and r not in self._suspected:
+                self._suspected.add(r)
+                out.append({"event": "host_loss_suspect", "rank": r, "step": int(step),
+                            "consecutive_beats": self.streaks[r]})
+        return out
+
+
 def agree_and_emit(anomalies: Sequence[Anomaly], *, step: int, policy: str) -> dict | None:
     """The agreed ``obs_anomaly`` record of one window, or None when no
     rank flagged anything.  Every process calls this at the same cadence
     step with its local verdict; ``(flag, step, code)`` of each rank's
     first anomaly is all-gathered, so every rank returns the same record
     (and takes the same policy action), attributed to the earliest
-    flagged step.  Process 0 logs it; ``value``, ``detail`` and
+    flagged step.  Process 0 prints it, every rank writes it to its own
+    file; ``value``, ``detail`` and
     ``detail_rank`` are the emitting rank's own view when it flagged."""
     from distributed_llms_example_tpu_torch.core.mesh import process_allgather, process_index
 
@@ -159,5 +198,5 @@ def agree_and_emit(anomalies: Sequence[Anomaly], *, step: int, policy: str) -> d
         record["value"] = round(v, 6) if np.isfinite(v) else repr(v)
         record["detail"] = first.detail
         record["detail_rank"] = process_index()
-    log_json(record)
+    log_json(record, local=True)
     return record

@@ -37,7 +37,20 @@ Fault tolerance, as in the JAX package:
   numerics of fused AdamW's per-leaf sums, with the flight recorder, and
   ``--on-anomaly`` warn / halt / checkpoint / rewind (``train/recovery.py``:
   rewind -> skip_batch -> halt);
-- ``--chaos``: the deterministic injections one process can take.
+- ``--chaos``: the deterministic injections, ``host_loss`` among them;
+- host loss (``--on-host-loss``): "reshard" tears the process group down
+  and re-creates it on the surviving ranks (``core/mesh.py
+  reinitialize_distributed``; at one process the group is kept), builds a
+  fresh model on the new mesh (``elastic_mesh_spec``, or the test hook
+  ``_next_mesh_override``), restores the newest verified checkpoint
+  through the resharding path and resumes from its cursor; "halt" saves
+  and stops.
+
+Telemetry (``obs/``, ``TrainerObs``): the ``--obs`` sink, host-clock spans
+around the loop's data wait, dispatch, cadenced readback, eval,
+checkpoint and fingerprint, the step-time budget (its one device sync at
+the log cadence), the heartbeat, the health watchdog and the flight
+recorder.
 
 The dropout generator is seeded at construction: a resumed run does not
 carry the stream of the run it resumes (neither does the JAX package's),
@@ -60,6 +73,7 @@ a checkpoint (``io/checkpoint.py``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import signal
@@ -71,16 +85,23 @@ import torch
 
 from distributed_llms_example_tpu_torch.core.config import TrainConfig
 from distributed_llms_example_tpu_torch.core.mesh import (
+    MeshSpec,
     build_mesh,
     device_report,
+    elastic_mesh_spec,
     local_device,
     mesh_coords,
     process_allgather,
     process_count,
     process_index,
+    reinitialize_distributed,
     resolve_mesh_shape,
 )
-from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resolve_device
+from distributed_llms_example_tpu_torch.core.precision import (
+    param_dtype,
+    parse_dtype,
+    resolve_device,
+)
 from distributed_llms_example_tpu_torch.data.batching import (
     LABEL_PAD,
     BatchIterator,
@@ -98,14 +119,11 @@ from distributed_llms_example_tpu_torch.io.checkpoint import (
 from distributed_llms_example_tpu_torch.io.valohai_meta import save_valohai_metadata
 from distributed_llms_example_tpu_torch.models.export import full_state_dict, save_hf_checkpoint
 from distributed_llms_example_tpu_torch.models.registry import LoadedModel, load_model
+from distributed_llms_example_tpu_torch.obs import TrainerObs
 from distributed_llms_example_tpu_torch.obs.chaos import corrupt_checkpoint, parse_chaos
-from distributed_llms_example_tpu_torch.obs.health import (
-    HealthWatchdog,
-    agree_and_emit,
-    health_enabled,
-    to_host,
-)
-from distributed_llms_example_tpu_torch.obs.recorder import FlightRecorder, batch_fingerprint
+from distributed_llms_example_tpu_torch.obs.health import health_enabled
+from distributed_llms_example_tpu_torch.obs.recorder import batch_fingerprint
+from distributed_llms_example_tpu_torch.obs.sink import build_sink, flush, install_sink
 from distributed_llms_example_tpu_torch.ops.fused_dropout import set_shard_coords
 from distributed_llms_example_tpu_torch.parallel.fsdp import local, shard_model
 from distributed_llms_example_tpu_torch.train.optim import (
@@ -155,19 +173,13 @@ class Trainer:
         name or HF config expresses, such as T5 with ``attn_dropout_rate``
         > 0 or LLaMA with residual dropout."""
         self.cfg = cfg
+        # the sink first: every line below goes through --obs's channel
+        install_sink(build_sink(cfg.obs, cfg.output_dir))
         self.device = resolve_device(cfg.device)
         world = process_count()
         if world > 1 and self.device.type == "cuda":
             self.device = local_device("cuda")
-        self.mesh_spec = resolve_mesh_shape(cfg.mesh, world)
-        validate_batch_mesh(cfg.batch_size, {"data": self.mesh_spec.data,
-                                             "fsdp": self.mesh_spec.fsdp},
-                            process_count=world, grad_accum_steps=cfg.grad_accum_steps)
-        self.mesh = build_mesh(self.mesh_spec, self.device.type) if world > 1 else None
-        # every rank draws each dropout seed from the shared stream and folds
-        # its (data, fsdp, expert) position in, as the JAX package's shards do
-        set_shard_coords((*mesh_coords(self.mesh_spec, process_index()), 0)
-                         if world > 1 else None)
+        self._set_mesh(resolve_mesh_shape(cfg.mesh, world))
         if loaded is None:
             loaded = load_model(
                 cfg.model_ckpt, dtype=parse_dtype(cfg.compute_dtype), device=self.device,
@@ -186,12 +198,6 @@ class Trainer:
                              "construction")
         loaded.module.train()
         self.loaded = loaded
-        self.model = self.loaded.module
-        sharded = self.mesh_spec.fsdp > 1
-        if sharded:
-            shard_model(self.model, self.mesh)
-        self.groups = StepGroups(world=world,
-                                 shard_group=self.mesh.get_group("fsdp") if sharded else None)
         self.tokenizer = get_tokenizer(cfg.tokenizer, cfg.model_ckpt)
 
         def dataset(records):
@@ -210,21 +216,7 @@ class Trainer:
 
         self.train_ds = dataset(train_records)
         self.val_ds = dataset(val_records) if val_records else None
-        self.evaluator = None
-        if self.val_ds:
-            self.evaluator = Evaluator(self.model, self.loaded.config, self.tokenizer,
-                                       num_beams=cfg.num_beams,
-                                       max_new_tokens=cfg.eval_max_new_tokens,
-                                       is_seq2seq=self.loaded.is_seq2seq)
-        # a causal batch's inputs and labels share one width: both capped at
-        # max_source_length, so their buckets agree
-        tgt_cap = cfg.max_target_length if self.loaded.is_seq2seq else cfg.max_source_length
-        self.batches = BatchIterator(
-            self.train_ds, global_batch=cfg.batch_size, process_count=world,
-            process_index=process_index(), seed=cfg.shuffle_seed,
-            bucket_multiple=cfg.pad_to_multiple, max_source_length=cfg.max_source_length,
-            max_target_length=tgt_cap,
-        )
+        self._lay_out()
         steps_per_epoch = self.batches.steps_per_epoch()
         if steps_per_epoch == 0:
             raise ValueError(f"dataset of {len(self.train_ds)} examples is smaller than one "
@@ -240,38 +232,22 @@ class Trainer:
         )
         self.schedule = linear_schedule_with_warmup(cfg.learning_rate, cfg.warmup_steps,
                                                     self.total_steps)
-        # (name, parameter): a DTensor when sharded; AdamW's moments and the
-        # checkpoints hold the rank's shard (``local``)
-        self.named_params = list(self.model.named_parameters())
-        self.opt_state = AdamWState.zeros([local(p.detach()) for _, p in self.named_params])
         self.generator = torch.Generator().manual_seed(cfg.shuffle_seed)
         # per-step metrics (device tensors) of the run's trajectory: a rewind
-        # drops the steps it undoes
+        # or a reshard drops the steps it undoes
         self.history: list[dict[str, Any]] = []
         self.step_ends: list[float] = []  # host clock after each step's logger call
         self.result: dict[str, Any] | None = None  # what train() returned
-        self.health_on = health_enabled(cfg)
-        self.health_buckets = param_buckets(self.model) if self.health_on else None
-        self.watchdog = HealthWatchdog(
-            loss_spike_factor=cfg.health_loss_spike_factor,
-            grad_norm_factor=cfg.health_grad_norm_factor,
-            warmup_steps=cfg.health_warmup_steps) if self.health_on else None
-        # the JAX package keeps the ring at its default --obs stdout too: a
-        # host crc32 of the batch and references to the step's metrics
-        self.recorder = FlightRecorder(cfg.recorder_steps) if cfg.recorder_steps > 0 else None
-        self._pending_health: list[tuple[int, dict]] = []
-        self.last_anomaly: dict[str, Any] | None = None
         self.chaos = parse_chaos(cfg.chaos)
-        ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
-        self.checkpointer = Checkpointer(
-            ckpt_dir, save_every_steps=cfg.checkpoint.save_every_steps,
-            keep=cfg.checkpoint.keep, async_save=cfg.checkpoint.async_save,
-            layout=ShardLayout.of(self.mesh_spec, process_index()) if world > 1 else None)
         self.recovery = RecoveryController(max_rewinds=cfg.max_rewinds)
         self._save_ordinal = 0  # chaos ckpt_corrupt ticks on save ordinals
         self._preempted = False
+        self._host_lost = False
         self._prev_handlers: dict = {}
-        if world > 1:
+        # test hook: the mesh of the next topology change (a MeshSpec); None
+        # re-resolves --mesh against the surviving ranks (elastic_mesh_spec)
+        self._next_mesh_override: MeshSpec | None = None
+        if self.groups.world > 1:
             log_json({"event": "device_report", **device_report(self.device),
                       "mesh": {"data": self.mesh_spec.data, "fsdp": self.mesh_spec.fsdp}})
         log_json({"event": "train_start", "model": cfg.model_ckpt, "device": str(self.device),
@@ -286,13 +262,14 @@ class Trainer:
         # drifts from step % steps_per_epoch
         self._resume_cursor: tuple[int, int] | None = None
         if cfg.checkpoint.resume and self.checkpointer.latest_step() is not None:
+            t0 = time.perf_counter()
             restored = self.checkpointer.restore_latest(self.state_tensors(),
                                                         shapes=self.state_shapes())
             if restored is None:
                 # steps EXIST but none verified: training from step 0 would
                 # let retention delete the possibly salvageable steps
                 raise ValueError(
-                    f"resume: checkpoints exist under {ckpt_dir} "
+                    f"resume: checkpoints exist under {self.checkpointer.directory} "
                     f"(steps {self.checkpointer.all_steps()}) but none passed "
                     "integrity verification — see the ckpt_verify_failed events "
                     "for per-file detail; inspect/restore the step dirs against "
@@ -301,6 +278,10 @@ class Trainer:
                     "delete the corrupt steps)")
             self.start_step = self._load_state(restored)
             log_json({"event": "resumed", "step": self.start_step})
+            saved = self._saved_layout(restored[1])
+            if saved != self._live_mesh_layout():
+                self._emit_reshard_restore(saved, self.start_step,
+                                           reshard_wall_s=round(time.perf_counter() - t0, 4))
             side = self._load_recovery_sidecar(self.start_step)
             if side is not None:
                 self._resume_cursor = (int(side["epoch"]), int(side["pos"]))
@@ -309,6 +290,80 @@ class Trainer:
                 log_json({"event": "recovery_cursor_restored", "step": self.start_step,
                           "epoch": self._resume_cursor[0], "pos": self._resume_cursor[1],
                           "quarantined": len(self.recovery.quarantined)})
+        # the telemetry bundle (spans, budget, heartbeat, health, recorder),
+        # last, as in the JAX package: its first window opens here
+        self.obs = TrainerObs(cfg, self.device)
+
+    # -- the mesh and what is laid out on it ------------------------------
+
+    def _set_mesh(self, spec: MeshSpec) -> None:
+        """The (data, fsdp) layout of the live group: checked against the
+        global batch, the DeviceMesh and this rank's dropout seed fold."""
+        world = process_count()
+        validate_batch_mesh(self.cfg.batch_size, {"data": spec.data, "fsdp": spec.fsdp},
+                            process_count=world, grad_accum_steps=self.cfg.grad_accum_steps)
+        self.mesh_spec = spec
+        self.mesh = build_mesh(spec, self.device.type) if world > 1 else None
+        # every rank draws each dropout seed from the shared stream and folds
+        # its (data, fsdp, expert) position in, as the JAX package's shards do
+        set_shard_coords((*mesh_coords(spec, process_index()), 0) if world > 1 else None)
+
+    def _lay_out(self) -> None:
+        """Everything that depends on the mesh and the model: the sharding,
+        the step's process groups, the evaluator, the batch plan (the global
+        batch is kept; this rank's rows follow the mesh), the named
+        parameters, AdamW's moments, the health buckets and the
+        checkpointer's shard layout."""
+        cfg, world = self.cfg, process_count()
+        self.model = self.loaded.module
+        sharded = self.mesh_spec.fsdp > 1
+        if sharded:
+            shard_model(self.model, self.mesh)
+        self.groups = StepGroups(world=world,
+                                 shard_group=self.mesh.get_group("fsdp") if sharded else None)
+        self.evaluator = None
+        if self.val_ds:
+            self.evaluator = Evaluator(self.model, self.loaded.config, self.tokenizer,
+                                       num_beams=cfg.num_beams,
+                                       max_new_tokens=cfg.eval_max_new_tokens,
+                                       is_seq2seq=self.loaded.is_seq2seq)
+        # a causal batch's inputs and labels share one width: both capped at
+        # max_source_length, so their buckets agree
+        tgt_cap = cfg.max_target_length if self.loaded.is_seq2seq else cfg.max_source_length
+        self.batches = BatchIterator(
+            self.train_ds, global_batch=cfg.batch_size, process_count=world,
+            process_index=process_index(), seed=cfg.shuffle_seed,
+            bucket_multiple=cfg.pad_to_multiple, max_source_length=cfg.max_source_length,
+            max_target_length=tgt_cap,
+        )
+        # (name, parameter): a DTensor when sharded; AdamW's moments and the
+        # checkpoints hold the rank's shard (``local``)
+        self.named_params = list(self.model.named_parameters())
+        self.opt_state = AdamWState.zeros([local(p.detach()) for _, p in self.named_params])
+        self.health_buckets = param_buckets(self.model) if health_enabled(cfg) else None
+        self.checkpointer = Checkpointer(
+            os.path.join(cfg.output_dir, "checkpoints"),
+            save_every_steps=cfg.checkpoint.save_every_steps, keep=cfg.checkpoint.keep,
+            async_save=cfg.checkpoint.async_save,
+            layout=ShardLayout.of(self.mesh_spec, process_index()) if world > 1 else None)
+
+    def _live_mesh_layout(self) -> dict:
+        return {"axes": {"data": self.mesh_spec.data, "fsdp": self.mesh_spec.fsdp},
+                "processes": self.groups.world}
+
+    @staticmethod
+    def _saved_layout(meta: dict) -> dict:
+        """The layout a checkpoint was saved under (one process's save
+        records none: one rank, data 1 x fsdp 1)."""
+        return meta.get("mesh_layout") or {"axes": {"data": 1, "fsdp": 1}, "processes": 1}
+
+    def _emit_reshard_restore(self, saved: dict, step: int, **extra: Any) -> None:
+        """The ``reshard_restore`` line: a checkpoint crossed a layout on
+        its way back in (what ``obs.report``'s recovery timeline reads)."""
+        live = self._live_mesh_layout()
+        log_json({"event": "reshard_restore", "step": int(step), "old_mesh": saved["axes"],
+                  "old_processes": saved["processes"], "new_mesh": live["axes"],
+                  "new_processes": live["processes"], "ef_mode": "none", **extra}, local=True)
 
     def evaluate(self, epoch: int | None = None, step: int | None = None) -> dict[str, float]:
         """ROUGE of the validation set (no validation set: nothing), logged
@@ -461,68 +516,39 @@ class Trainer:
             signal.signal(sig, handler)
         self._prev_handlers = {}
 
-    def _preemption_agreed(self) -> bool:
-        """Every rank must stop at the same step, or one saves while the
-        others run the next step's collectives: the local flags are
-        all-gathered, and any rank signalled stops them all."""
+    def _agreed_flags(self) -> tuple[bool, bool]:
+        """(preempted, host lost), the same on every rank.  Every rank must
+        stop or tear down at the same step, or one saves while the others
+        run the next step's collectives: both local flags go through one
+        all-gather, and any rank's flag holds for them all.  (The
+        ``host_loss@K`` schedule is the same on every rank; the gather is
+        the belt the preemption flag wears too.)"""
+        flags = (self._preempted, self._host_lost)
         if self.groups.world == 1:
-            return self._preempted
-        return bool(process_allgather(np.asarray([int(self._preempted)], np.int64)).any())
+            return flags
+        agreed = process_allgather(np.asarray(flags, np.int64)).any(axis=0)
+        return bool(agreed[0]), bool(agreed[1])
 
-    def _check_preemption(self, step: int) -> bool:
-        """The step loop's preemption check: one process reads its flag
-        every step; a group agrees every ``log_every_steps`` steps (the
-        step counter is the same on every rank, so all enter the gather
-        together), a signal acted on at most that many steps late."""
-        if self.groups.world == 1:
-            return self._preempted
-        if step % max(1, self.cfg.log_every_steps):
-            return False
-        return self._preemption_agreed()
+    def _check_signals(self, step: int) -> tuple[bool, bool]:
+        """The step loop's preemption and host-loss checks: one process
+        reads its flags every step; a group agrees every ``log_every_steps``
+        steps (the step counter is the same on every rank, so all enter the
+        gather together), a signal acted on at most that many steps late."""
+        if self.groups.world > 1 and step % max(1, self.cfg.log_every_steps):
+            return False, False
+        return self._agreed_flags()
 
-    # -- health ----------------------------------------------------------
-
-    def _on_step(self, step: int, epoch: int, metrics: dict, fingerprint: dict | None) -> str:
-        """Per step: the recorder and the health window take references
-        (no device sync); at the log cadence, the health check.  Returns
-        the anomaly policy's action, or "ok"."""
-        if self.recorder is not None:
-            self.recorder.record(step, epoch, metrics, fingerprint)
-        if self.watchdog is None:
-            return "ok"
-        self._pending_health.append((step, metrics))
-        if step % max(1, self.cfg.log_every_steps):
-            return "ok"
-        return self._health_cadence(step)
-
-    def _health_cadence(self, step: int) -> str:
-        """The window's metrics to the host in one transfer, the detectors,
-        the ``obs_anomaly`` line and, on an anomaly, the recorder's dump."""
-        if not self._pending_health:
-            return "ok"
-        entries = to_host(self._pending_health)
-        self._pending_health = []
-        if self.recorder is not None:
-            for s, vals in entries:
-                self.recorder.annotate(s, vals)
-        anomalies = self.watchdog.check(entries)
-        event = agree_and_emit(anomalies, step=step, policy=self.cfg.on_anomaly)
-        if event is None:
-            return "ok"
-        self.last_anomaly = event
-        if self.recorder is not None:
-            self.recorder.dump(self.cfg.output_dir, reason=f"anomaly:{event['code']}", step=step,
-                               anomalies=anomalies)
-        return self.cfg.on_anomaly
+    # -- recovery --------------------------------------------------------
 
     def _handle_rewind(self, step: int, epoch: int, pos: int) -> tuple[int, int, int] | None:
         """The ``rewind`` action: the escalation (rewind / skip_batch /
         halt) and its execution.  Returns the (epoch, pos, step) cursor the
         loop resumes at, or None to stop (``_anomaly_action`` set)."""
         t0 = time.perf_counter()
-        anomaly = self.last_anomaly or {"step": step, "code": "unknown"}
+        anomaly = self.obs.last_anomaly or {"step": step, "code": "unknown"}
         a_step = int(anomaly.get("step", step))
-        fingerprint = self.recorder.fingerprint_for(a_step) if self.recorder is not None else None
+        recorder = self.obs.recorder
+        fingerprint = recorder.fingerprint_for(a_step) if recorder is not None else None
         decision = self.recovery.decide(anomaly, fingerprint=fingerprint)
         action, reason = decision.action, decision.reason
         if action != "halt" and fingerprint is not None:
@@ -566,7 +592,7 @@ class Trainer:
                         r_epoch, r_pos = divmod(rstep, self.batches.steps_per_epoch())
                 kept = max(0, rstep - self.start_step)
                 del self.history[kept:], self.step_ends[kept:]
-                self._pending_health = []
+                self.obs.pending_health = []
                 log_json({"event": "recovery", "action": "rewind", "step": a_step,
                           "detected_at_step": int(step), "code": anomaly.get("code"),
                           "restored_step": int(rstep), "steps_lost": int(step - rstep),
@@ -580,6 +606,101 @@ class Trainer:
         log_json({"event": "recovery", "action": "halt", "step": a_step,
                   "detected_at_step": int(step), "code": anomaly.get("code"), "reason": reason})
         return None
+
+    def _rebuild_for_mesh(self, spec: MeshSpec) -> None:
+        """Lay the run out again on a new mesh: FSDP2's parameters are tied
+        to the old DeviceMesh and its groups, so a fresh module of the same
+        config (fp32 masters, uninitialised: the restore that must follow
+        fills every parameter) is built and sharded on the new mesh, and
+        everything derived from the model and the mesh is rebuilt
+        (``_lay_out``).  The global batch is kept."""
+        old = self.loaded.module
+        cls, dtype, remat = type(old), old.dtype, old.remat_policy
+        # drop the old model's every reference before its replacement exists
+        self.model = self.named_params = self.opt_state = self.evaluator = None
+        self.loaded = dataclasses.replace(self.loaded, module=None)
+        del old
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self._set_mesh(spec)
+        module = cls(self.loaded.config, dtype=dtype,
+                     param_dtype=param_dtype(dtype, self.device, train=True),
+                     device=self.device, remat_policy=remat).train()
+        self.loaded = dataclasses.replace(self.loaded, module=module)
+        self._lay_out()
+
+    def _handle_topology_change(self, step: int) -> tuple[int, int, int] | None:
+        """The agreed host-loss action (every rank at the same step, with
+        the prefetch thread stopped): under "reshard", the save in flight
+        joined and the card drained, the group re-created on the survivors
+        when the old layout had several processes (one process keeps its
+        group), the run rebuilt on the new mesh, the newest verified
+        checkpoint restored through the resharding path, and the cursor,
+        quarantine set and dropout stream of that save back.  Returns the
+        (epoch, pos, step) the loop resumes at, or None to stop
+        (``_anomaly_action``: "checkpoint" under "halt", "halt" when the
+        re-init, the rebuild or the restore failed)."""
+        t0 = time.perf_counter()
+        self._host_lost = False
+        old = self._live_mesh_layout()
+        halt_reason = None
+        if self.cfg.on_host_loss != "reshard":
+            halt_reason = "--on-host-loss halt: leaving recovery to a resumed run"
+        log_json({"event": "topology_change", "step": int(step), "old_mesh": old["axes"],
+                  "old_processes": old["processes"],
+                  "policy": "halt" if halt_reason else "reshard",
+                  **({"reason": halt_reason} if halt_reason else {})}, local=True)
+        flush(fsync=True)
+        if halt_reason:
+            self._anomaly_action = "checkpoint"
+            return None
+        # nothing in flight may straddle the teardown
+        self.checkpointer.wait()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        try:
+            world = process_count()
+            if old["processes"] > 1:
+                world = reinitialize_distributed(device_type=self.device.type)
+            spec = self._next_mesh_override or elastic_mesh_spec(self.cfg.mesh, world)
+            self._next_mesh_override = None
+            self._rebuild_for_mesh(spec)
+            restored = self.checkpointer.restore_latest(self.state_tensors(),
+                                                        shapes=self.state_shapes())
+        except Exception as e:  # any failure of the recovery halts the run, recorded
+            restored, reason = None, f"topology rebuild/restore failed: {e!r}"[:300]
+        else:
+            reason = "no verified checkpoint to reshard from"
+        if restored is None:
+            log_json({"event": "recovery", "action": "halt", "step": int(step),
+                      "code": "host_loss", "reason": reason}, local=True)
+            flush(fsync=True)
+            self._anomaly_action = "halt"
+            return None
+        rstep = self._load_state(restored)
+        # the cursor and the quarantine set as at that save: the in-memory
+        # snapshot first (the dropout generator too, so the replay draws the
+        # same masks), then the sidecar, then arithmetic
+        snap = self.recovery.snapshot_for(rstep)
+        side = self._load_recovery_sidecar(rstep)
+        if side is not None:
+            for e, st, rec in side.get("quarantined", []):
+                self.recovery.quarantined.setdefault((int(e), int(st)), rec)
+        if snap is not None:
+            self.generator.set_state(snap["rng"])
+            r_epoch, r_pos = snap["epoch"], snap["pos"]
+        elif side is not None:
+            r_epoch, r_pos = int(side["epoch"]), int(side["pos"])
+        else:
+            r_epoch, r_pos = divmod(rstep, self.batches.steps_per_epoch())
+        kept = max(0, rstep - self.start_step)
+        del self.history[kept:], self.step_ends[kept:]
+        self.obs.pending_health = []
+        self._emit_reshard_restore(self._saved_layout(restored[1]), rstep,
+                                   detected_at_step=int(step), steps_lost=int(step - rstep),
+                                   reshard_wall_s=round(time.perf_counter() - t0, 4))
+        flush(fsync=True)
+        return r_epoch, r_pos, rstep
 
     # -- the loop --------------------------------------------------------
 
@@ -597,14 +718,16 @@ class Trainer:
             self.result = self._train_loop()
             return self.result
         except Exception:
-            if self.recorder is not None:
-                self.recorder.dump(self.cfg.output_dir, reason="exception", step=self._last_step)
+            if self.obs.recorder is not None:
+                self.obs.recorder.dump(self.cfg.output_dir, reason="exception",
+                                       step=self._last_step)
+            flush(fsync=True)
             raise
         finally:
             self._restore_signal_handlers()
 
     def _train_loop(self) -> dict[str, Any]:
-        cfg = self.cfg
+        cfg, obs = self.cfg, self.obs
         logger = MetricLogger(every=cfg.log_every_steps)
         step = self.start_step
         self._last_step = step
@@ -627,13 +750,14 @@ class Trainer:
         while epoch < cfg.num_epochs:
             report_epoch = epoch
             rewind_cursor = None
+            host_lost = False
             # host batches assembled prefetch_batches ahead on a thread; a
             # resumed or rewound epoch skips at the index level
             epoch_batches = self.batches.epoch(epoch, start_step=pos)
             if cfg.prefetch_batches > 0:
                 epoch_batches = Prefetcher(epoch_batches, depth=cfg.prefetch_batches)
             try:
-                for batch in self._with_data_retries(epoch_batches):
+                for batch in obs.wrap_batches(self._with_data_retries(epoch_batches)):
                     pos += 1
                     if self.recovery.should_skip(epoch, pos - 1, batch):
                         continue
@@ -645,25 +769,32 @@ class Trainer:
                             p0 = local(self.named_params[0][1])
                             if p0.numel():
                                 p0.view(-1)[0] = float("nan")
-                    fingerprint = (batch_fingerprint(batch, epoch=epoch, epoch_step=pos - 1)
-                                   if self.recorder is not None else None)
-                    metrics = train_step(
-                        self.model, self.named_params, self.opt_state, self.spec, self.schedule,
-                        put_batch(batch, self.device), grad_accum_steps=cfg.grad_accum_steps,
-                        label_smoothing=cfg.label_smoothing, generator=self.generator,
-                        health_buckets=self.health_buckets, is_seq2seq=self.loaded.is_seq2seq,
-                        groups=self.groups,
-                    )
+                    with obs.host_span():  # the budget's host_overhead
+                        fingerprint = (batch_fingerprint(batch, epoch=epoch, epoch_step=pos - 1)
+                                       if obs.recorder is not None else None)
+                    with obs.step_span():
+                        metrics = train_step(
+                            self.model, self.named_params, self.opt_state, self.spec,
+                            self.schedule, put_batch(batch, self.device),
+                            grad_accum_steps=cfg.grad_accum_steps,
+                            label_smoothing=cfg.label_smoothing, generator=self.generator,
+                            health_buckets=self.health_buckets,
+                            is_seq2seq=self.loaded.is_seq2seq, groups=self.groups,
+                        )
                     step += 1
                     self._last_step = step
                     self.history.append(metrics)
                     # the rank's tokens times the ranks: the global batch's, as
                     # the JAX package counts them
-                    logger.step(step, metrics["loss"], lr=metrics["learning_rate"],
-                                tokens=batch_tokens(batch, self.loaded.is_seq2seq)
-                                * self.groups.world, epoch=epoch)
+                    tokens = batch_tokens(batch, self.loaded.is_seq2seq) * self.groups.world
+                    # at the log cadence only: the queue drain, timed before
+                    # the logger reads the loss
+                    obs.budget_probe(step, metrics["loss"])
+                    with obs.sync_span():
+                        logger.step(step, metrics["loss"], lr=metrics["learning_rate"],
+                                    tokens=tokens, epoch=epoch)
                     self.step_ends.append(time.perf_counter())
-                    action = self._on_step(step, epoch, metrics, fingerprint)
+                    action = obs.on_step(step, epoch, metrics, fingerprint)
                     if action in ("halt", "checkpoint"):
                         self._anomaly_action = action
                         break
@@ -671,13 +802,24 @@ class Trainer:
                         rewind_cursor = self._handle_rewind(step, epoch, pos)
                         break
                     if self.checkpointer.should_save(step):
-                        self._save_checkpoint(step, epoch, pos)
+                        with obs.checkpoint_span():
+                            self._save_checkpoint(step, epoch, pos)
                     if cfg.evaluation_steps > 0 and step % cfg.evaluation_steps == 0:
-                        last_eval = self.evaluate(epoch, step=step)
+                        with obs.eval_span():
+                            last_eval = self.evaluate(epoch, step=step)
+                    # their time is on their own spans, not the next step's
+                    obs.spans.mark_step_start()
                     if self.chaos.take("sigterm", step):
                         # a real signal through the real handler
                         os.kill(os.getpid(), signal.SIGTERM)
-                    if self._check_preemption(step):
+                    if self.chaos.take("host_loss", step):
+                        # the agreed topology-change signal: the schedule is
+                        # the same on every rank
+                        self._host_lost = True
+                    preempted, host_lost = self._check_signals(step)
+                    if host_lost:
+                        break  # handled once the prefetch thread has stopped
+                    if preempted:
                         self._preempted = True
                         break
             finally:
@@ -694,21 +836,35 @@ class Trainer:
                 # same process: no reload, the replay skips the quarantined batch
                 epoch, pos, step = rewind_cursor
                 self._last_step = step
+                obs.spans.mark_step_start()
+                continue
+            if host_lost:
+                cursor = self._handle_topology_change(step)
+                if cursor is None:
+                    break  # _anomaly_action set
+                # the epoch re-enters with the rebuilt batch plan at the
+                # restored step's cursor
+                epoch, pos, step = cursor
+                self._last_step = step
+                obs.spans.mark_step_start()
                 continue
             # a signal that landed between two agreement steps set only the
             # local flag: every rank reaches the epoch's end at the same
             # step, so agree here before eval's collectives
-            self._preempted = self._preemption_agreed()
+            self._preempted = self._agreed_flags()[0]
             if self._preempted or self._anomaly_action is not None:
                 break
             # the epoch's partial metric window first, then its eval
             logger.flush(step, epoch=epoch)
-            last_eval = self.evaluate(epoch, step=step)
+            with obs.eval_span():
+                last_eval = self.evaluate(epoch, step=step)
+            obs.spans.mark_step_start()
             epoch += 1
             pos = 0
         logger.flush(step, epoch=report_epoch)
-        # the final partial health window: a NaN in the last steps still fires
-        final_action = self._health_cadence(step) if self.watchdog is not None else "ok"
+        # the final partial window's budget, health check (a NaN in the last
+        # steps still fires) and span summary; the file channel to disk
+        final_action = obs.finalize(step, report_epoch)
         if self._anomaly_action is None and final_action in ("halt", "checkpoint", "rewind"):
             # a rewind agreed in the final window has no loop left to replay:
             # keep the evidence and stop, never export possibly poisoned
@@ -724,8 +880,8 @@ class Trainer:
             return {"steps": step, "wall_seconds": wall, "final_eval": last_eval,
                     "anomaly": self._anomaly_action}
         if self._preempted:
-            if self.recorder is not None:
-                self.recorder.dump(cfg.output_dir, reason="preemption", step=step)
+            if obs.recorder is not None:
+                obs.recorder.dump(cfg.output_dir, reason="preemption", step=step)
             self._save_checkpoint(step, epoch, pos)
             self.checkpointer.wait()
             wall = time.perf_counter() - t0

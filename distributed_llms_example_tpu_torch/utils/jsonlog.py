@@ -2,17 +2,17 @@
 
 The port's own copy of the JAX package's ``utils/jsonlog.log_json``
 contract (the platform parses each stdout line as execution metadata).
-Only process 0 of a process group emits, unless the caller asks for
-every process (``all_processes``), as in the JAX package; floats are
-rounded to six places and 0-d tensors / numpy scalars become plain Python
-numbers.
+Every line goes through the installed sink (``obs/sink.py``): stdout, and
+under ``--obs jsonl`` the same records in the run's JSONL file.  Only
+process 0 of a process group prints, unless the caller asks for every
+process (``all_processes``), as in the JAX package; a ``local`` record
+also reaches every rank's own file.  Floats are rounded to six places and
+0-d tensors / numpy scalars become plain Python numbers.
 ``MetricLogger`` is the JAX package's step-cadence logger.
 """
 
 from __future__ import annotations
 
-import json
-import sys
 import time
 from typing import Any, Mapping
 
@@ -26,17 +26,18 @@ def _to_scalar(v: Any) -> Any:
     return v
 
 
-def log_json(metrics: Mapping[str, Any], *, all_processes: bool = False, file=None) -> None:
-    """Emit ``metrics`` as a single JSON line on ``file`` (stdout), on
-    process 0 only unless ``all_processes``.  The gate comes before any
-    conversion, so a silent rank never waits on its device values."""
-    if not all_processes:
-        from distributed_llms_example_tpu_torch.core.mesh import process_index
+def log_json(metrics: Mapping[str, Any], *, all_processes: bool = False,
+             local: bool = False) -> None:
+    """Emit ``metrics`` as a single JSON line through the installed sink, on
+    process 0 only unless ``all_processes`` (``local``: every rank's file
+    too).  The gate comes before any conversion, so a silent rank never
+    waits on its device values."""
+    from distributed_llms_example_tpu_torch.obs import sink
 
-        if process_index() != 0:
-            return
-    out = {k: _to_scalar(v) for k, v in metrics.items()}
-    print(json.dumps(out), file=file or sys.stdout, flush=True)
+    if not sink.wants(all_processes=all_processes, local=local):
+        return
+    sink.emit({k: _to_scalar(v) for k, v in metrics.items()}, all_processes=all_processes,
+              local=local)
 
 
 class MetricLogger:

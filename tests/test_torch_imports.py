@@ -3,7 +3,9 @@
 ``data/prefetch.py``, ``utils/remat.py`` and ``ops/blockwise_ce.py`` among
 them, ``utils/remat.py`` importing checkpointing only inside its
 functions; the distributed modules ``core/mesh.py`` and
-``parallel/fsdp.py`` too), or ``chip_smoke.py`` as a module,
+``parallel/fsdp.py`` too; the telemetry's ``obs/sink.py``,
+``obs/spans.py``, ``obs/budget.py``, ``obs/heartbeat.py`` and
+``obs/report.py``), or ``chip_smoke.py`` as a module,
 pulls in no JAX, flax, optax, orbax, transformers or safetensors and no
 module of the JAX package (and
 importing the script runs none of it); and the port's entry points refuse
@@ -38,7 +40,8 @@ def test_port_imports_nothing_of_jax():
     mods = _port_modules()
     for name in ("serving.engine", "serving.cache_pool", "train.trainer", "models.llama",
                  "models.t5", "evaluation.generation", "data.prefetch", "utils.remat",
-                 "ops.blockwise_ce", "core.mesh", "parallel.fsdp"):
+                 "ops.blockwise_ce", "core.mesh", "parallel.fsdp", "obs", "obs.sink",
+                 "obs.spans", "obs.budget", "obs.heartbeat", "obs.report"):
         assert f"distributed_llms_example_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -117,9 +117,16 @@ def test_mesh_and_facts_match_jax(monkeypatch, kind, name):
 
 @pytest.mark.parametrize("device,backend", [("cpu", "gloo"), ("cuda", "nccl")])
 def test_backend_follows_the_device_and_never_falls_back(monkeypatch, device, backend):
-    seen = []
+    """The group's rendezvous store is the coordinator's TCPStore (rank 0
+    serves it; here an in-memory stand-in), each generation of the group
+    under its own prefix."""
+    seen, stores = [], []
     monkeypatch.setattr(torch.distributed, "init_process_group",
                         lambda b, **k: seen.append((b, k)))
+    monkeypatch.setattr(torch.distributed, "TCPStore",
+                        lambda *a, **k: stores.append((a, k)) or torch.distributed.HashStore())
+    monkeypatch.setattr(tmesh, "_STORES", {})
+    monkeypatch.setattr(tmesh, "_GROUP_FACTS", {})
     monkeypatch.setattr(torch.cuda, "set_device", lambda d: seen.append(("device", str(d))))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setenv("LOCAL_RANK", "3")
@@ -127,8 +134,10 @@ def test_backend_follows_the_device_and_never_falls_back(monkeypatch, device, ba
         monkeypatch.delenv(k, raising=False)
     assert tmesh.initialize_distributed("10.0.0.1", 4, 3, device_type=device) == 4
     b, kw = seen[-1]
-    assert b == backend and kw == {"init_method": "tcp://10.0.0.1:1234", "world_size": 4,
-                                   "rank": 3}
+    assert b == backend and {k: kw[k] for k in ("world_size", "rank")} == {"world_size": 4,
+                                                                          "rank": 3}
+    assert isinstance(kw["store"], torch.distributed.PrefixStore)
+    assert [(a, k["is_master"]) for a, k in stores] == [(("10.0.0.1", 1234, 4), False)]
     if device == "cuda":
         assert seen[0] == ("device", "cuda:3")
 

@@ -1,6 +1,6 @@
 """The port's fault-tolerant training on the CPU, against the JAX package:
-the chaos grammar accepted and refused as by JAX ``parse_chaos`` (but
-``host_loss``, which the port refuses); the same escalation decisions as
+the chaos grammar accepted and refused as by JAX ``parse_chaos``
+(``host_loss`` included); the same escalation decisions as
 the JAX ``RecoveryController`` and the same anomalies as the JAX
 ``HealthWatchdog`` on the same inputs; each port parameter in the bucket
 of its JAX counterpart; the health numerics of one step from fused
@@ -51,7 +51,7 @@ from distributed_llms_example_tpu_torch.models.from_jax import (
 )
 from distributed_llms_example_tpu_torch.models.registry import load_model
 from distributed_llms_example_tpu_torch.obs import health
-from distributed_llms_example_tpu_torch.obs.chaos import HOST_LOSS_REFUSED, parse_chaos
+from distributed_llms_example_tpu_torch.obs.chaos import parse_chaos
 from distributed_llms_example_tpu_torch.obs.chaos import corrupt_checkpoint
 from distributed_llms_example_tpu_torch.obs.health import HealthWatchdog, to_host
 from distributed_llms_example_tpu_torch.train import optim as toptim
@@ -106,18 +106,12 @@ CHAOS_SPECS = [
 
 @pytest.mark.parametrize("spec", CHAOS_SPECS)
 def test_chaos_grammar_matches_jax(spec, capsys):
-    """Accepted and refused as by JAX, the same ticks armed per kind, and
-    ``take`` one-shot; ``host_loss``, which JAX accepts, is refused with
-    the message naming ROADMAP queue 1 item 4."""
+    """Accepted and refused as by JAX (``host_loss`` armed like every
+    kind), the same ticks armed per kind, and ``take`` one-shot."""
     try:
         want = jax_parse_chaos(spec)
     except ValueError:
         want = None
-    if "host_loss" in spec and want is not None:
-        with pytest.raises(ValueError, match="queue 1 item 4") as e:
-            parse_chaos(spec)
-        assert str(e.value) == HOST_LOSS_REFUSED
-        return
     if want is None:
         with pytest.raises(ValueError, match="bad --chaos entry"):
             parse_chaos(spec)

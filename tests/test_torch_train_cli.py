@@ -2,7 +2,7 @@
 ``bart-test`` and ``t5-test`` size, a temporary JSON file): the JAX CLI's
 step lines, the done event, the returned trainer's history; flags this
 slice does not implement are refused by argparse, and ``--chaos
-host_loss@K`` (multi-process) at parse time.  Also: training from a
+host_loss@K`` without a checkpoint cadence to reshard from at parse time.  Also: training from a
 local HF checkpoint directory whose config sets attention_dropout, which
 writes <output-dir>/model/ (the reload is bit-equal to the trained
 weights); T5's and BART's training attention reaching flash_attention with
@@ -94,8 +94,8 @@ def test_train_and_serve_share_the_model_flags(tmp_path):
 def test_unimplemented_flags_are_refused(tmp_path, capsys, flag):
     with pytest.raises(SystemExit):
         train(_args(_write(tmp_path, 4), *flag))
-    if flag[0] == "--chaos":  # parsed, then refused: it needs several processes
-        assert "ROADMAP.md queue 1 item 4" in capsys.readouterr().err
+    if flag[0] == "--chaos":  # parsed, then refused: a reshard needs --save-every-steps
+        assert "needs a checkpoint to reshard FROM" in capsys.readouterr().err
     if flag[0] == "--mesh":  # data and fsdp are laid out; the model-parallel axes are not
         assert "ROADMAP.md item 6" in capsys.readouterr().err
 

@@ -9,11 +9,12 @@ one rank, by rank), ``out`` (where rank 0 saves its result with
 trained with residual dropout at this rate, a model the CLI's flags do not
 express), ``seed_cycle`` (every dropout seed drawn from this list in
 order, cycling, in place of the host stream), ``no_fold`` (ranks draw
-unfolded seeds); or ``ckpt``, a checkpoint scenario (``_ckpt``) in place
-of a run.
+unfolded seeds), ``next_mesh`` ([data, fsdp]: the layout a host loss
+rebuilds onto, the trainer's ``_next_mesh_override``); or ``ckpt``, a
+checkpoint scenario (``_ckpt``) in place of a run.
 The result: each step's loss and grad norm (and health numerics, when on),
-the final parameters by port name (gathered whole), and what
-``Trainer.train`` returned."""
+the final parameters by port name (gathered whole), what
+``Trainer.train`` returned and the (data, fsdp) layout it ended on."""
 
 import dataclasses
 import itertools
@@ -34,6 +35,22 @@ def _patch_seeds(spec) -> None:
         fd._draw = lambda gen: next(stream)
     if spec.get("no_fold"):
         fd.set_shard_coords = lambda coords: None
+
+
+def _patch_next_mesh(spec) -> None:
+    from distributed_llms_example_tpu_torch.core.mesh import MeshSpec
+    from distributed_llms_example_tpu_torch.train.trainer import Trainer
+
+    if not spec.get("next_mesh"):
+        return
+    data, fsdp = spec["next_mesh"]
+    train = Trainer.train
+
+    def with_override(self):
+        self._next_mesh_override = MeshSpec(data=data, fsdp=fsdp)
+        return train(self)
+
+    Trainer.train = with_override
 
 
 def _loaded(spec):
@@ -128,6 +145,7 @@ def main(path: str) -> None:
             torch.distributed.destroy_process_group()
         return
     _patch_seeds(spec)
+    _patch_next_mesh(spec)
     from distributed_llms_example_tpu_torch.launch.cli import train
     from distributed_llms_example_tpu_torch.models.export import full_state_dict
 
@@ -138,8 +156,8 @@ def main(path: str) -> None:
                for m in trainer.history]
     params = full_state_dict(trainer.model)
     if rank == 0:
-        torch.save({"history": history, "params": params, "result": trainer.result},
-                   spec["out"])
+        torch.save({"history": history, "params": params, "result": trainer.result,
+                    "mesh": [trainer.mesh_spec.data, trainer.mesh_spec.fsdp]}, spec["out"])
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 
