@@ -13,6 +13,7 @@ groups (FSDP; a host loss rebuilt onto a new mesh and replayed), and checks
 that each run went through its kernels.
 
     python3 chip_smoke.py    # from the repository root, on one NVIDIA GPU
+    python3 chip_smoke.py --phase 13    # the build, then phase 13 alone
     python3 chip_smoke.py --phase 15    # the build, then phase 15 alone
 
 Phases (each fatal, non-zero exit, no result line):
@@ -273,7 +274,17 @@ Phases (each fatal, non-zero exit, no result line):
      BART limits), the peak memory of each in fp32 and bf16. Last, kernels
      1-3 at (8, 32, 1024, 128) bf16, causal with a ragged padding, against
      their plain versions (2e-2) and timed beside their bounds and SDPA's
-     forward and backward with the same mask
+     forward and backward with the same mask.  The CLI run also takes
+     --obs-gauges on --profile-steps 4:5: exactly one capture of [4, 5]
+     and one device_account; every kernel event of kernels 1-3 in attn and
+     of kernel 8's two entries in optimizer, as many as 2 steps of the
+     launch counters (16/8/8/2 + 2); the bucket sum equal to the event sum,
+     the busy union within the span; each memory_window's peak equal to
+     torch.cuda.max_memory_allocated read beside it; the memory account's
+     params + optimizer_state equal to the state's bytes; the gauge FLOPs
+     (flop_counter) and window MFU beside this script's own MFU;
+     optimizer_apply_ms beside kernel 8's profiler time; obs.report --trace
+     loads with host spans and device lanes
  14. data-parallel and FSDP training: a world-1 NCCL group, the
      FSDP-wrapped llama-2-7b-width step bit-equal to the unwrapped one,
      kernel 8's split norm, the CLI on two gloo ranks of cuda:0
@@ -298,7 +309,11 @@ Phases (each fatal, non-zero exit, no result line):
      --strict 0. (d) the telemetry's device syncs in (a) equal its log
      windows. Phases 5 and 13 run with --obs jsonl --obs-budget on (health
      off, as without; phase 5 at log cadence 2) and print their last
-     step_budget account
+     step_budget account. (e) the same model with --chaos oom@3, log
+     cadence 1: the run raises the injected out-of-memory error, leaves
+     exactly one memory-postmortem-p000.json with the memory account and
+     the memory windows of steps 1-2, obs.report renders it; an oversize
+     torch.empty on the card raises an error is_resource_exhausted accepts
  16. a {"kernels_unported": []} line (every TPU kernel has a port), the
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
@@ -4244,6 +4259,19 @@ LLAMA_TRAIN_ARGS = [
 ]
 LLAMA_TRAIN_RECORDS = 48
 LLAMA_VAL_RECORDS = 16
+# phase 13's telemetry: the startup gauges and a torch.profiler window of
+# steps 4-5 (steady state: step 1 loads the kernels), parsed into the
+# device account (obs/devprof.py)
+LLAMA_PROFILE_WINDOW = (4, 5)
+LLAMA_OBS_ARGS = ["--obs-gauges", "on", "--profile-steps", "%d:%d" % LLAMA_PROFILE_WINDOW]
+# each kernel of the path by the tag its kernel events' names carry, and
+# the launch counter it is held to
+KERNEL_TAGS = {"flash_fwd": "flash_attention_fwd", "flash_bwd_dq": "flash_attention_bwd_dq",
+               "flash_bwd_dkv": "flash_attention_bwd_dkv", "fused_adamw": "fused_adamw",
+               "fused_grad_prep": "fused_grad_prep"}
+# the device-account bucket each of those kernels must land in
+KERNEL_BUCKETS = {"flash_fwd": "attn", "flash_bwd_dq": "attn", "flash_bwd_dkv": "attn",
+                  "fused_adamw": "optimizer", "fused_grad_prep": "optimizer"}
 # the CE check (fused against unfused, fp32): the loss, relative
 LLAMA_CE_LOSS_RTOL = 1e-5
 
@@ -4331,20 +4359,34 @@ def llama_train_phase(torch, fa, fd, fo, cli) -> dict:
                             tc_launches=fa.flash_attention.tc_launches - tc0))
         return scores
 
+    from distributed_llms_example_tpu_torch.obs import memprof
+
+    # each memory_window's peak beside the allocator's peak read at once
+    mem_pairs = []
+    real_sample = memprof.MemoryMonitor.sample
+
+    def sample(self, step, **kw):
+        rec = real_sample(self, step, **kw)
+        if rec is not None:
+            mem_pairs.append((step, rec["peak_bytes_in_use"], torch.cuda.max_memory_allocated()))
+        return rec
+
     zero_counters(fa, fd, fo)
     fa.flash_decode.launches = fa.flash_decode_paged.launches = 0
     torch.cuda.reset_peak_memory_stats()
     trainer_mod.Trainer.evaluate = evaluate
+    memprof.MemoryMonitor.sample = sample
     try:
         with logged_events() as events:
             t0 = time.perf_counter()
             trainer = cli.train([*LLAMA_TRAIN_ARGS, "--model-ckpt", ckpt, "--train-file",
                                  train_path, "--val-file", val_path, "--output-dir", out_dir,
-                                 *BUDGET_ARGS])
+                                 *BUDGET_ARGS, *LLAMA_OBS_ARGS])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         trainer_mod.Trainer.evaluate = real_evaluate
+        memprof.MemoryMonitor.sample = real_sample
     budget_account("llama-2-7b", out_dir)
     peak = torch.cuda.max_memory_allocated()
     total = read_counters(fa, fd, fo) | {"flash_decode": fa.flash_decode.launches,
@@ -4368,17 +4410,23 @@ def llama_train_phase(torch, fa, fd, fo, cli) -> dict:
     plan = list(trainer.batches.epoch(0))
     tokens = [batch_tokens(b, is_seq2seq=False) for b in plan]
     widths = [int(b["input_ids"].shape[1]) for b in plan]
-    nonembed = sum(p.numel() for n, p in model.named_parameters() if "embed_tokens" not in n)
-    flops_per_token = 6.0 * nonembed  # the model flops a trained token costs
-    med = statistics.median(step_s) if step_s else float("nan")
+    flops = [llama_model_flops(cfg, int(b["input_ids"].shape[0]), w) for b, w in zip(plan, widths)]
+    # the timed steps: after the first (kernel loading), outside the
+    # profiled window and the step after it (which carries the capture's
+    # stop, export and parse); step_s[i] is step i + 2's
+    lo, hi = LLAMA_PROFILE_WINDOW
+    timed = [i + 2 for i in range(len(step_s)) if not lo <= i + 2 <= hi + 1]
+    med = statistics.median(step_s[s - 2] for s in timed) if timed else float("nan")
+    mean_tokens = statistics.mean(tokens[s - 1] for s in timed) if timed else float("nan")
+    mean_flops = statistics.mean(flops[s - 1] for s in timed) if timed else float("nan")
+    own_mfu = mean_flops / med / PEAK_FLOPS
     say({"phase": "llama_train", "model": "llama-2-7b", "layers": layers, "checkpoint": ckpt,
          "wall_s": wall, "steps": steps, "losses": losses,
          "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
-         "step_s_after_first": step_s, "step_s_median": med,
+         "step_s_after_first": step_s, "timed_steps": timed, "step_s_median": med,
          "tokens_per_step": tokens, "batch_widths": widths,
-         "tokens_per_sec": statistics.mean(tokens) / med,
-         "model_flops_per_step": flops_per_token * statistics.mean(tokens),
-         "mfu": flops_per_token * statistics.mean(tokens) / med / PEAK_FLOPS,
+         "tokens_per_sec": mean_tokens / med, "model_flops_per_step": flops,
+         "mfu": own_mfu,
          "peak_mem_bytes": peak, "remat": model.remat_policy, "fused_ce": cfg.fused_ce,
          "launches": train_launches, "expected": want,
          "tc_launches": fa.flash_attention.tc_launches - ev["tc_launches"],
@@ -4399,6 +4447,10 @@ def llama_train_phase(torch, fa, fd, fo, cli) -> dict:
     if len(rouge) != 4 or not all(isinstance(v, float) and math.isfinite(v) and 0 <= v <= 1
                                   for v in rouge.values()):
         fail(f"llama eval event {eval_events}: the four ROUGE means must be finite in [0, 1]")
+    if len(timed) < 2:
+        fail(f"llama train: {len(timed)} steps timed outside the profiled window")
+    llama_obs_checks(torch, trainer, out_dir, per_step={k: v // steps for k, v in want.items()},
+                     mem_pairs=mem_pairs, own_mfu=own_mfu)
     saved = os.path.join(out_dir, "model")
     t1 = time.perf_counter()
     back = load_model(saved, dtype=model.dtype, device="cuda", train=True).module
@@ -4427,6 +4479,191 @@ def llama_train_phase(torch, fa, fd, fo, cli) -> dict:
     del batch, small
     free_cuda()
     return {k: train_launches[k] + ev["launches"][k] for k in total}
+
+
+def llama_model_flops(cfg, rows: int, width: int) -> int:
+    """Model FLOPs of one LLaMA train step of ``rows`` x ``width`` tokens,
+    padding included, counted by hand as obs/gauges.py's FlopCounterMode
+    count defines them: every matmul of the forward (q, k, v, o, gate, up,
+    down, the head; the two attention products over the whole S x S
+    square) and its backward (twice each), no recompute."""
+    h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    kv = cfg.head_dim * (cfg.num_key_value_heads or cfg.num_attention_heads)
+    tokens = rows * width
+    forward = (2 * tokens * (L * (2 * h * h + 2 * h * kv + 3 * h * i) + h * cfg.vocab_size)
+               + L * 4 * rows * width * width * h)
+    return 3 * forward
+
+
+def llama_state_bytes(cfg) -> tuple[int, int]:
+    """(params, optimizer state) bytes of a LLaMA trained on one card, from
+    its config alone: fp32 masters of every parameter (embeddings, the
+    head, each layer's seven matrices and two norms, the final norm), and
+    AdamW's two fp32 moments plus kernel 8's float64 (leaves, STATS) table."""
+    from distributed_llms_example_tpu_torch.ops.fused_optim import STATS
+
+    h, i, L, V = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers, cfg.vocab_size
+    kv = cfg.head_dim * (cfg.num_key_value_heads or cfg.num_attention_heads)
+    n = 2 * V * h + L * (2 * h * h + 2 * h * kv + 3 * h * i + 2 * h) + h
+    leaves = 3 + 9 * L
+    return 4 * n, 8 * n + leaves * STATS * 8
+
+
+def llama_obs_checks(torch, trainer, out_dir: str, *, per_step: dict, mem_pairs: list,
+                     own_mfu: float) -> None:
+    """Phase 13's telemetry, read from the CLI run's JSONL and its capture:
+    one capture of LLAMA_PROFILE_WINDOW and one device_account; every kernel
+    event of kernels 1-3 in attn and of kernel 8's two entries in
+    optimizer, as many as the launch counters give those steps; the
+    bucket sum equal to the event sum and the busy union within the span;
+    each memory_window's peak equal to torch.cuda.max_memory_allocated read
+    beside it; the memory account's params + optimizer_state equal to the
+    bytes this script reckons from the config; the gauge FLOPs equal to
+    this script's hand count at the cap shape, the window MFU beside this
+    script's own MFU (one definition: model FLOPs); optimizer_apply_ms beside kernel 8's profiler time;
+    and obs.report's --trace export loading with host and device lanes."""
+    import contextlib as ctx
+    import io
+
+    from distributed_llms_example_tpu_torch.obs import devprof, report
+    from distributed_llms_example_tpu_torch.obs.budget import sync_device
+    from distributed_llms_example_tpu_torch.obs.trace import TID_DEVICE, TID_SPANS
+
+    events = obs_events(out_dir)
+
+    def named(kind):
+        return [e for e in events if e.get("event") == kind]
+
+    captures, accounts = named("profile_captured"), named("device_account")
+    if [c["window"] for c in captures] != [list(LLAMA_PROFILE_WINDOW)] or len(accounts) != 1:
+        fail(f"llama telemetry: captures {captures}, {len(accounts)} device accounts "
+             f"({named('device_account_skipped')})")
+    acct = accounts[0]
+    window_steps = LLAMA_PROFILE_WINDOW[1] - LLAMA_PROFILE_WINDOW[0] + 1
+    files = devprof.find_trace_files(captures[0]["path"])
+    raw = [e for f in files for e in devprof.load_trace_events(f)]
+    ops = devprof.device_op_events(raw)
+    trace_bytes = sum(os.path.getsize(f) for f in files)
+    # where the host waits inside its enqueue: the CUDA runtime calls by
+    # their summed time (a diagnostic, no limit)
+    runtime: dict[str, list[float]] = {}
+    waits = []
+    for e in raw:
+        if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            slot = runtime.setdefault(e["name"], [0, 0.0, 0.0])
+            slot[0] += 1
+            slot[1] += float(e.get("dur", 0.0)) / 1e3
+            slot[2] = max(slot[2], float(e.get("dur", 0.0)) / 1e3)
+            if "Synchronize" in e["name"] and float(e.get("dur", 0.0)) > 1000.0:
+                waits.append(e)
+    # each wait over 1 ms and the ops (and scopes) open around it on its
+    # thread, outermost first
+    blocking = []
+    for w in waits:
+        t0, t1 = float(w["ts"]), float(w["ts"]) + float(w["dur"])
+        around = sorted((e for e in raw if e.get("ph") == "X"
+                         and e.get("cat") in ("cpu_op", "user_annotation")
+                         and (e.get("pid"), e.get("tid")) == (w.get("pid"), w.get("tid"))
+                         and float(e["ts"]) <= t0 and float(e["ts"]) + float(e["dur"]) >= t1),
+                        key=lambda e: float(e["ts"]))
+        blocking.append([w["name"], round(float(w["dur"]) / 1e3, 3),
+                         [e["name"][:60] for e in around][-8:]])
+    del raw
+    by_kernel: dict[str, dict[str, int]] = {t: {} for t in KERNEL_TAGS}
+    unscoped: dict[str, int] = {}
+    kernel8_ms = 0.0
+    # each bucket's device ms by kind of kernel (a diagnostic, no limit)
+    classes: dict[str, dict[str, float]] = {}
+    for e in ops:
+        bucket = devprof.classify_event(e["name"], e["hlo_op"], scope=e["scope"],
+                                        kind=e["kind"])
+        low = e["name"].lower()
+        tag = next((t for t in KERNEL_TAGS if t in low), None)
+        kind = tag or ("gemm" if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass",
+                                                          "sm90_"))
+                       else "elementwise" if "elementwise" in low
+                       else "reduce" if "reduce" in low else e["kind"])
+        row = classes.setdefault(bucket, {})
+        row[kind] = round(row.get(kind, 0.0) + e["dur"] / 1e3, 3)
+        if tag is not None:
+            by_kernel[tag][bucket] = by_kernel[tag].get(bucket, 0) + 1
+            if tag in ("fused_adamw", "fused_grad_prep"):
+                kernel8_ms += e["dur"] / 1e3
+        if not e["scope"] and e["kind"] == "kernel" and bucket == "other":
+            unscoped[e["name"][:60]] = unscoped.get(e["name"][:60], 0) + 1
+    event_ms = sum(e["dur"] for e in ops) / 1e3
+    bucket_ms = sum(acct["buckets_ms"].values())
+    say({"phase": "llama_device_account", "window": acct["window"], "events": acct["events"],
+         "trace_files": len(files), "trace_bytes": trace_bytes,
+         "span_ms": acct["span_ms"], "busy_ms": acct["busy_ms"],
+         "exposed_idle_ms": acct["exposed_idle_ms"], "buckets_ms": acct["buckets_ms"],
+         "bucket_frac": acct["bucket_frac"], "collectives": acct["collectives"],
+         "overlap": acct["overlap"], "event_ms": event_ms, "bucket_sum_ms": bucket_ms,
+         "kernels_by_bucket": by_kernel, "bucket_ms_by_kind": classes,
+         "unscoped_other_kernels": dict(sorted(unscoped.items(), key=lambda kv: -kv[1])[:12]),
+         "host_runtime_calls_count_ms_max": dict(sorted(runtime.items(),
+                                                        key=lambda kv: -kv[1][1])[:6]),
+         "host_waits_ms_inside": blocking})
+    for tag, counter in KERNEL_TAGS.items():
+        want = per_step[counter] * window_steps
+        got = by_kernel[tag]
+        if got != {KERNEL_BUCKETS[tag]: want}:
+            fail(f"llama device account: {tag} kernel events by bucket {got}, expected "
+                 f"{want} in {KERNEL_BUCKETS[tag]} (2 steps of the launch counters)")
+    if acct["events"] != len(ops) or abs(bucket_ms - event_ms) > 0.001 * len(acct["buckets_ms"]) \
+            or acct["busy_ms"] > acct["span_ms"] + 0.001:
+        fail(f"llama device account: {acct['events']} events vs {len(ops)}, bucket sum "
+             f"{bucket_ms} ms vs event sum {event_ms}, busy {acct['busy_ms']} vs span "
+             f"{acct['span_ms']}")
+    # the memory account and the watermark
+    (mem,) = named("memory_account")
+    state, opt_bytes = llama_state_bytes(trainer.loaded.config)
+    windows = named("memory_window")
+    say({"phase": "llama_memory_account", "buckets_bytes": mem["buckets_bytes"],
+         "peak_bytes": mem["peak_bytes"], "measured": mem["measured"],
+         "fits_budget": mem["fits_budget"],
+         "hbm_headroom_gib": mem["hbm_headroom_gib"], "state_params_bytes": state,
+         "state_optimizer_bytes": opt_bytes, "windows": len(windows),
+         "window_peaks_vs_allocator": mem_pairs[:8]})
+    # the peak was reset before the run: its first step sets the run's peak
+    if mem["buckets_bytes"]["params"] != state or mem["buckets_bytes"]["optimizer_state"] \
+            != opt_bytes or not (mem["measured"] or {}).get("step_set_peak"):
+        fail(f"llama memory account {mem['buckets_bytes']} vs params {state} B, optimizer "
+             f"state {opt_bytes} B (measured {mem['measured']})")
+    if not mem_pairs or any(a != b for _, a, b in mem_pairs) or len(windows) != len(mem_pairs):
+        fail(f"llama memory_window peaks vs torch.cuda.max_memory_allocated: {mem_pairs}")
+    # the gauges: FLOPs a step and the window MFU; the optimizer sample
+    (gauges,) = named("obs_gauges")
+    cap = llama_model_flops(trainer.loaded.config, trainer.cfg.batch_size,
+                            trainer.cfg.max_source_length)
+    mfus = [w["mfu"] for w in named("obs_window") if "mfu" in w]
+    budgets = [b for b in named("step_budget") if "optimizer_apply_ms" in b]
+    say({"phase": "llama_gauges", "flops_per_step": gauges["flops_per_step"],
+         "flops_source": gauges["flops_source"], "flops_counted": gauges["flops_counted"],
+         "hand_count_flops_at_cap": cap, "tokens_per_step": gauges["tokens_per_step"],
+         "params": gauges["params"], "comm_total_bytes": gauges["comm"]["total_bytes"],
+         "window_mfu": mfus, "chip_smoke_mfu": own_mfu,
+         "optimizer_apply_ms": [b["optimizer_apply_ms"] for b in budgets],
+         "optimizer_share_of_step": [b["optimizer_share_of_step"] for b in budgets],
+         "kernel8_profiler_ms_per_step": kernel8_ms / window_steps,
+         "syncs": {"budget": sync_device.syncs, "profile": sync_device.profile_syncs}})
+    if gauges["flops_source"] != "flop_counter" or gauges["flops_per_step"] != cap \
+            or not mfus or not all(math.isfinite(m) and 0 < m < 1 for m in mfus) or not budgets:
+        fail(f"llama gauges: {gauges['flops_source']} {gauges['flops_per_step']} FLOPs vs the "
+             f"hand count {cap}, window MFU {mfus}, {len(budgets)} windows with "
+             "optimizer_apply_ms")
+    # the merged Perfetto export: host spans and device lanes
+    path = os.path.join(out_dir, "trace.json")
+    with ctx.redirect_stdout(io.StringIO()), ctx.redirect_stderr(io.StringIO()):
+        rc = report.main([out_dir, "--trace", path])
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    host = sum(1 for e in trace if e.get("ph") == "X" and e.get("tid") == TID_SPANS)
+    lanes = sum(1 for e in trace if e.get("ph") == "X" and e.get("tid") == TID_DEVICE)
+    say({"phase": "llama_trace_export", "rc": rc, "events": len(trace), "host_spans": host,
+         "device_slices": lanes, "bytes": os.path.getsize(path)})
+    if rc != 0 or not host or not lanes:
+        fail(f"llama trace export: rc {rc}, {host} host spans, {lanes} device slices")
 
 
 def llama_adamw_phase(torch, fo, trainer) -> None:
@@ -5346,10 +5583,86 @@ def elastic_phase(torch, fa, fd, fo, cli) -> dict:
                 or rec["organic_faults"] or rc != 0:
             fail(f"phase 15 (c): obs.report on ({name}): {rec}, --strict {rc}")
     sink.install_sink(sink.build_sink("stdout", ""))
-    say({"phase": "elastic", "phase_s": time.perf_counter() - t_phase})
-    for d in (out_a, out_b, ckpt):
+    for d in (out_a, out_b):
         shutil.rmtree(d, ignore_errors=True)
+    oom_postmortem_phase(torch, cli, base)
+    say({"phase": "elastic", "phase_s": time.perf_counter() - t_phase})
+    shutil.rmtree(ckpt, ignore_errors=True)
     return {k: launches[k] + two["launches"][k] for k in launches}
+
+
+# phase 15e: the OOM postmortem, injected before this step
+OOM_AT = 3
+
+
+def oom_postmortem_phase(torch, cli, base: list[str]) -> None:
+    """Phase 15e: phase 15's BART (2 + 2 layers) through the CLI with
+    ``--chaos oom@OOM_AT``: the run raises the injected out-of-memory error,
+    which ``is_resource_exhausted`` accepts, and leaves exactly one
+    parseable ``memory-postmortem-p000.json`` carrying the memory account
+    and the memory windows of the steps before it; obs.report renders its
+    memory section; and an oversize ``torch.empty`` on the card raises an
+    error ``is_resource_exhausted`` accepts."""
+    import contextlib as ctx
+    import glob
+    import io
+
+    from distributed_llms_example_tpu_torch.obs import report, sink
+    from distributed_llms_example_tpu_torch.obs.memprof import is_resource_exhausted
+
+    t0 = time.perf_counter()
+    out = fresh_dir("oom-out")
+    try:
+        cli.train([*base, "--output-dir", out, "--log-every-steps", "1", "--obs-gauges", "on",
+                   "--chaos", f"oom@{OOM_AT}"])
+    except RuntimeError as e:
+        error = e.with_traceback(None)  # its frames hold the trainer's tensors
+    else:
+        fail(f"phase 15e: the run with --chaos oom@{OOM_AT} ended without an error")
+    sink.install_sink(sink.build_sink("stdout", ""))
+    torch.cuda.synchronize()
+    free_cuda()
+    bundles = sorted(glob.glob(os.path.join(out, "obs", "memory-postmortem-p*.json")))
+    bundle = {}
+    if bundles:
+        with open(bundles[0]) as f:
+            bundle = json.load(f)
+    history = [w["step"] for w in bundle.get("watermark_history", [])]
+    account = bundle.get("account") or {}
+    rep = report.build_report(out)
+    with ctx.redirect_stdout(io.StringIO()) as md:
+        report.main([out])
+    text = md.getvalue()
+    try:
+        torch.empty(1 << 40, dtype=torch.uint8, device="cuda")
+        oversize = None
+    except RuntimeError as e:
+        oversize = e
+    free_cuda()
+    say({"phase": "oom_postmortem", "error": str(error)[:160],
+         "recognized": is_resource_exhausted(error),
+         "bundles": [os.path.basename(b) for b in bundles], "bundle_step": bundle.get("step"),
+         "watermark_steps": history, "account_buckets": account.get("buckets_bytes"),
+         "account_measured": account.get("measured"),
+         "live_buffers_top": len(bundle.get("live_buffers_top") or []),
+         "report_postmortems": (rep.get("memory") or {}).get("postmortems"),
+         "report_memory_section": "## Where did the bytes go" in text and "OOM postmortem" in text,
+         "oversize_empty": f"{type(oversize).__name__}: {str(oversize)[:120]}",
+         "oversize_recognized": oversize is not None and is_resource_exhausted(oversize),
+         "phase_s": time.perf_counter() - t0})
+    if not is_resource_exhausted(error) or f"before step {OOM_AT}" not in str(error):
+        fail(f"phase 15e: the run raised {error!r}, not the injected out-of-memory error")
+    if [os.path.basename(b) for b in bundles] != ["memory-postmortem-p000.json"] \
+            or bundle.get("event") != "memory_postmortem" or not account.get("buckets_bytes") \
+            or history != list(range(1, OOM_AT)):
+        fail(f"phase 15e: postmortems {bundles}: step {bundle.get('step')}, watermark steps "
+             f"{history}, account {account.get('buckets_bytes')}")
+    if "0" not in ((rep.get("memory") or {}).get("postmortems") or {}) \
+            or "OOM postmortem" not in text:
+        fail(f"phase 15e: obs.report's memory section {rep.get('memory')}")
+    if oversize is None or not is_resource_exhausted(oversize):
+        fail(f"phase 15e: an oversize torch.empty raised {oversize!r}")
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def main() -> None:
@@ -5389,11 +5702,15 @@ def main() -> None:
         """The run's seconds so far, after a group of phases: where the
         time limit goes."""
         say({"phase": "elapsed", "after": after, "seconds": time.perf_counter() - wall0})
-    if sys.argv[1:] == ["--phase", "15"]:
-        # phase 15 alone (after the build): a quick check of the elastic path
+    if sys.argv[1:] in (["--phase", "13"], ["--phase", "15"]):
+        # phase 13 or 15 alone (after the build): a quick check of the
+        # LLaMA train path and its telemetry, or of the elastic path
         from distributed_llms_example_tpu_torch.launch import cli
 
-        elastic_phase(torch, fa, fd, fo, cli)
+        if sys.argv[2] == "13":
+            llama_train_phase(torch, fa, fd, fo, cli)
+        else:
+            elastic_phase(torch, fa, fd, fo, cli)
         say({"phase": "wall", "seconds": time.perf_counter() - wall0})
         return
     sass_phase(cuda_build)
@@ -5518,7 +5835,7 @@ def main() -> None:
     # 2 layers: a world-1 NCCL group kept through the reshard and re-created
     # by reinitialize_distributed; two gloo ranks rebuilt from data=2 onto
     # fsdp=2; each replay bit-equal to a clean resume; obs.report; the
-    # telemetry's syncs at the log cadence only)
+    # telemetry's syncs at the log cadence only; 15e: the OOM postmortem)
     elastic_launches = elastic_phase(torch, fa, fd, fo, cli)
     free_cuda()
 
@@ -5611,7 +5928,15 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         dist_rank_main(sys.argv[2])
-    elif sys.argv[1:] in ([], ["--phase", "15"]):
+    elif sys.argv[1:] in ([], ["--phase", "13"], ["--phase", "15"]):
         main()
+        # every check passed and every line is out (the rank processes
+        # were joined in their phases): leave without the interpreter's
+        # teardown, where a native thread's destructor (a process group's,
+        # a store's, the profiler's) once aborted a passing run after its
+        # last line ("terminate called without an active exception", 134)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
     else:
-        fail(f"usage: {sys.argv[0]} [--phase 15]")
+        fail(f"usage: {sys.argv[0]} [--phase 13|15]")

@@ -155,6 +155,23 @@ class TrainConfig:
     health_warmup_steps: int = 20
     # deterministic fault injection (obs/chaos.py), e.g. "nan_grad@3,sigterm@5"
     chaos: str = ""
+    # the startup gauges (obs/gauges.py: FLOPs a step, the collective byte
+    # account) and the memory account: "auto" = on under --obs jsonl
+    obs_gauges: str = "auto"
+    # the MFU denominator per card: the H100 SXM's dense bf16 TFLOP/s
+    obs_peak_tflops: float = 989.0
+    # the device-memory ceiling of the memory account's fit verdict (H100)
+    hbm_budget_gib: float = 80.0
+    # torch.profiler capture (obs/profile.py): "" = no --profile-dir; the
+    # count form ("3": 3 steps after the first, needs profile_dir) or an
+    # inclusive step window ("100:105", under output_dir unless profile_dir)
+    profile_dir: str = ""
+    profile_steps: int | str = 3
+    # the trigger file polled every step ("" = <output_dir>/obs/profile.trigger
+    # when obs is on)
+    profile_trigger: str = ""
+    # an agreed anomaly arms the trigger: the next steps are captured
+    profile_on_anomaly: bool = False
     # the device mesh over the process group (core/mesh.py), and the
     # rendezvous triple (empty: Valohai, then VH_* / torchrun env)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
@@ -200,7 +217,12 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--weight-decay", type=float, default=d.weight_decay)
     p.add_argument("--max-grad-norm", type=float, default=d.max_grad_norm)
     p.add_argument("--label-smoothing", type=float, default=d.label_smoothing)
-    p.add_argument("--grad-accum-steps", type=int, default=d.grad_accum_steps)
+    # the reference's name for it, as valohai.yaml passes it, in both
+    # spellings (the JAX CLI's aliases)
+    p.add_argument("--grad-accum-steps", "--gradient-accumulation-steps",
+                   "--gradient_accumulation_steps", dest="grad_accum_steps", type=int,
+                   default=d.grad_accum_steps,
+                   help="microbatches a step: --batch-size stays the optimizer batch")
     p.add_argument("--shuffle-seed", type=int, default=d.shuffle_seed)
     p.add_argument("--pad-to-multiple", type=int, default=d.pad_to_multiple)
     p.add_argument("--max-target-length", type=int, default=d.max_target_length)
@@ -242,6 +264,25 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "with a dispatch_efficiency gauge and the off-cadence "
                         "host-transfer tripwire (step_budget events).  auto = on "
                         "whenever --obs is not off")
+    p.add_argument("--obs-gauges", type=str, default=d.obs_gauges, choices=("auto", "on", "off"),
+                   help="the startup gauges (FLOPs a step from one meta-device pass, the "
+                        "collective byte account) and the memory account (auto = only under "
+                        "--obs jsonl)")
+    p.add_argument("--obs-peak-tflops", type=float, default=d.obs_peak_tflops,
+                   help="peak TFLOP/s a card, the MFU denominator (H100 SXM dense bf16 = 989)")
+    p.add_argument("--hbm-budget-gib", type=float, default=d.hbm_budget_gib,
+                   help="device-memory ceiling in GiB of the memory account's fit verdict and "
+                        "the report's memory gates (H100 = 80)")
+    p.add_argument("--profile-dir", type=str, default=d.profile_dir)
+    p.add_argument("--profile-steps", type=str, default=str(d.profile_steps),
+                   help="torch.profiler capture: a step count ('3', needs --profile-dir) or "
+                        "an inclusive step window ('100:105')")
+    p.add_argument("--profile-trigger", type=str, default=d.profile_trigger,
+                   help="trigger file polled every step for an on-demand capture (default: "
+                        "<output-dir>/obs/profile.trigger when --obs is on)")
+    p.add_argument("--profile-on-anomaly", action="store_true", default=d.profile_on_anomaly,
+                   help="arm the profile trigger when the health watchdog agrees an anomaly: "
+                        "the following steps are captured and parsed into a device_account")
     p.add_argument("--health", type=str, default=d.health, choices=("auto", "on", "off"),
                    help="health numerics (param norm, per-bucket update ratios, "
                         "non-finite gradient count) and the anomaly watchdog at the log "
@@ -289,7 +330,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     without periodic checkpoints or the flight recorder, a --chaos
     grammar error, ``--chaos host_loss@K`` under ``--on-host-loss reshard``
     without periodic checkpoints, a --mesh axis the port does not lay
-    out."""
+    out, a malformed --profile-steps."""
     kw = {f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)
           if f.name not in ("checkpoint", "mesh")}
     cfg = TrainConfig(**kw, mesh=parse_mesh_arg(args.mesh), checkpoint=CheckpointConfig(
@@ -298,6 +339,9 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         raise ValueError(f"--max-rewinds must be >= 0, got {cfg.max_rewinds}")
     if cfg.prefetch_batches < 0:
         raise ValueError(f"--prefetch-batches must be >= 0, got {cfg.prefetch_batches}")
+    from distributed_llms_example_tpu_torch.obs.profile import parse_profile_steps
+
+    parse_profile_steps(cfg.profile_steps)  # a malformed window raises here
     if cfg.on_anomaly == "rewind":
         if cfg.checkpoint.save_every_steps <= 0:
             raise ValueError("--on-anomaly rewind needs periodic checkpointing to rewind TO: "

@@ -43,9 +43,14 @@ and writes the fine-tuned model to ``<output-dir>/model/`` as an HF
 checkpoint.  ``serve`` takes every family of the
 registry but Mixtral, and encodes a seq2seq model's prompts as sources
 (ending in eos) and a causal model's as prompts (no eos), as the JAX CLI
-does.  The JAX CLI's startup lints read XLA cache specs and have no
-counterpart here yet: serve's ``--lint`` is parsed and one
-``lint_skipped`` line says so.
+does.  The JAX CLI's startup lints read the compiled XLA program and
+have no counterpart here: ``--lint`` (train and serve) is parsed and one
+``lint_skipped`` line says so.  ``--dry-run`` prints the resolved training
+config and exits.  Telemetry: ``--obs jsonl`` with ``--obs-gauges``,
+``--profile-steps a:b`` (a ``torch.profiler`` capture parsed into a
+``device_account``), ``--hbm-budget-gib``; read a run with ``python -m
+distributed_llms_example_tpu_torch.obs.report <output-dir> [--trace
+out.json]``.
 
 Training runs over several GPUs as one process per GPU (``torchrun
 --nproc-per-node N -m distributed_llms_example_tpu_torch.launch.cli ...``,
@@ -235,12 +240,17 @@ def serve_main(argv: list[str] | None = None) -> int:
 def build_train_parser() -> argparse.ArgumentParser:
     from distributed_llms_example_tpu_torch.core.config import add_train_args
 
-    return add_train_args(argparse.ArgumentParser(
+    p = add_train_args(argparse.ArgumentParser(
         prog="dllm-torch",
         description="fine-tune a seq2seq model (T5, BART) on a JSON summarization "
                     "file or a causal LM (LLaMA) on prompt/continuation records "
                     "(train/trainer.py); 'serve' runs inference",
     ))
+    p.add_argument("--dry-run", action="store_true", help="print the resolved config and exit")
+    p.add_argument("--lint", type=str, default="warn", choices=("off", "warn", "strict"),
+                   help="the JAX CLI's startup lints; the port has no XLA program to lint: "
+                        "one lint_skipped line says so")
+    return p
 
 
 def resolve_dataset_files(train_file: str, val_file: str) -> tuple[str, str]:
@@ -269,7 +279,9 @@ def train(argv: list[str] | None = None, *, loaded=None):
     ``train`` returned.
     ``loaded``: a model built by the caller, trained in place of
     ``--model-ckpt``'s (``Trainer``).  The process joins its process group
-    (``core/mesh.py initialize_distributed``) before the model is built."""
+    (``core/mesh.py initialize_distributed``) before the model is built.
+    ``--dry-run`` prints the resolved ``TrainConfig`` and returns None,
+    before any device or dataset is touched."""
     import dataclasses
 
     from distributed_llms_example_tpu_torch.core.config import config_from_args
@@ -283,10 +295,18 @@ def train(argv: list[str] | None = None, *, loaded=None):
         cfg = config_from_args(args)
     except ValueError as e:
         parser.error(str(e))
+    if args.dry_run:
+        print(cfg.to_json())
+        return None
     train_file, val_file = resolve_dataset_files(cfg.train_file, cfg.val_file)
     cfg = dataclasses.replace(cfg, train_file=train_file, val_file=val_file)
     initialize_distributed(cfg.coordinator_address, cfg.num_processes, cfg.process_id,
                            device_type=cfg.device)
+    if args.lint != "off":
+        from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
+
+        log_json({"event": "lint_skipped", "lint": args.lint,
+                  "reason": "the JAX CLI's lints read the compiled XLA program; the port has none"})
     # the JAX CLI's rule: a validation file is read only when it is given
     # and exists
     val = cfg.val_file

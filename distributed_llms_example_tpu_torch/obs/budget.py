@@ -42,13 +42,27 @@ launches and the kernels' loading.
 Everything here is host-clock arithmetic over the span recorder's step
 records; the one device interaction is ``sync_device``, through which every
 device sync of the telemetry goes, counted in ``sync_device.syncs`` as the
-kernel wrappers count their launches.  The JAX package's ``probe_optimizer``
-and ``attach_device_account`` need a stand-alone optimizer program and the
-device profile parser (devprof): they come with the profiler's slice.
+kernel wrappers count their launches (the profiler's stop sync apart, in
+``sync_device.profile_syncs``).
+
+Two gauges ride the account besides its components:
+
+- ``optimizer_apply_ms`` (``probe_optimizer``), under the JAX package's key
+  and with its placement (sampled after the window closes, on the next
+  window's account with ``optimizer_share_of_step``).  The JAX package times
+  a stand-alone jitted apply, since XLA fuses the apply into its step.  The
+  port's apply is its own pair of kernel-8 launches updating the state in
+  place, so a stand-alone apply would need a copy of the whole optimizer
+  state; instead ``OptimizerTimer`` brackets the cadence step's own
+  ``optimizer_apply_block`` with CUDA events (the host clock on the CPU),
+  read once the window's drain has run: no sync of its own;
+- ``attach_device_account``: a parsed profile capture (``obs/devprof.py``)
+  as a bulk, local ``device_account`` event.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import torch
@@ -73,18 +87,54 @@ SUSPECT_FRAC = 0.5
 MIN_BLOCK_S = 0.005
 
 
-def sync_device(x: torch.Tensor | torch.device) -> None:
+def sync_device(x: torch.Tensor | torch.device, *, purpose: str = "budget") -> None:
     """Wait until the card has finished everything queued on ``x``'s device
     (a tensor's, or a device): the telemetry's one way to wait on the card.
-    Every call counts in ``sync_device.syncs``, on the CPU too (where it
-    waits for nothing), so a test can count the telemetry's syncs."""
-    sync_device.syncs += 1
+    Every call counts, on the CPU too (where it waits for nothing), so a
+    test can count the telemetry's syncs: the budget's in
+    ``sync_device.syncs``, the profiler's stop (``purpose="profile"``) in
+    ``sync_device.profile_syncs``."""
+    if purpose == "profile":
+        sync_device.profile_syncs += 1
+    else:
+        sync_device.syncs += 1
     dev = x.device if isinstance(x, torch.Tensor) else torch.device(x)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
 sync_device.syncs = 0
+sync_device.profile_syncs = 0
+
+
+class OptimizerTimer:
+    """Brackets one ``optimizer_apply_block`` (a context manager): CUDA
+    events on the card, the host clock on the CPU.  ``elapsed_ms`` is read
+    after a drain has passed the end event."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._t = [0.0, 0.0]
+        if self.cuda:
+            self._ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def _mark(self, i: int) -> None:
+        if self.cuda:
+            self._ev[i].record()
+        else:
+            self._t[i] = time.perf_counter()
+
+    def __enter__(self):
+        self._mark(0)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mark(1)
+
+    def elapsed_ms(self) -> float:
+        if self.cuda:
+            return float(self._ev[0].elapsed_time(self._ev[1]))
+        return (self._t[1] - self._t[0]) * 1e3
 
 
 def _ms(seconds: float) -> float:
@@ -105,6 +155,11 @@ class BudgetAccountant:
         self.async_dispatch = bool(async_dispatch)
         self.warmup_windows = int(warmup_windows)
         self._closed = 0
+        # the newest parsed profile capture (attach_device_account)
+        self.last_device_account: dict | None = None
+        # the gauges riding the account: the optimizer-apply sample
+        self._gauges: dict[str, float] = {}
+        self._opt_probe_dead = False
 
     def probe(self, x: torch.Tensor | torch.device) -> None:
         """The queue drain as a ``device_busy`` span.  The caller gates this
@@ -112,6 +167,31 @@ class BudgetAccountant:
         one line later."""
         with self.spans.span("device_busy"):
             sync_device(x)
+
+    def probe_optimizer(self, timer: OptimizerTimer) -> None:
+        """The cadence step's ``optimizer_apply_block`` time, read from its
+        timer after the window's drain, as ``optimizer_apply_ms`` of the next
+        window's account.  A gauge: a failure to read it turns the probe off
+        for the run with one ``optimizer_probe_disabled`` event."""
+        if self._opt_probe_dead:
+            return
+        try:
+            self._gauges["optimizer_apply_ms"] = _ms(timer.elapsed_ms() / 1e3)
+        except RuntimeError as e:  # an event never recorded or not yet reached
+            self._opt_probe_dead = True
+            self._gauges.pop("optimizer_apply_ms", None)
+            log_json({"event": "optimizer_probe_disabled", "reason": str(e)[:300]}, local=True)
+
+    def attach_device_account(self, account: dict) -> dict:
+        """One parsed profile capture (``obs/devprof.py``) as a
+        ``device_account`` event: bulk (the file channel only: its lanes
+        have no place on stdout) and local (every capturing rank's file).
+        Kept as ``last_device_account``."""
+        record = {"event": "device_account",
+                  **{k: v for k, v in account.items() if k != "event"}}
+        self.last_device_account = record
+        log_json(record, local=True, bulk=True)
+        return record
 
     def close_window(self, step: int, epoch: int | None = None, *,
                      emit: bool = True) -> dict | None:
@@ -153,6 +233,10 @@ class BudgetAccountant:
         acct["dispatch_efficiency"] = round(max(0.0, 1.0 - stalled / wall), 4)
         acct["offcadence_sync_steps"] = int(offcadence)
         acct["offcadence_sync_suspect"] = bool(offcadence > 0 and self.async_dispatch)
+        opt_ms = self._gauges.get("optimizer_apply_ms")
+        if opt_ms is not None:
+            acct["optimizer_apply_ms"] = opt_ms
+            acct["optimizer_share_of_step"] = round(opt_ms / max(_ms(mean_step), 1e-9), 4)
         if not self.async_dispatch:
             acct["sync_dispatch_backend"] = True
         if warmup:
@@ -180,6 +264,14 @@ def aggregate_accounts(accounts: list[dict]) -> dict | None:
     out["accounted_frac"] = round((wall - out["unattributed_ms"]) / wall, 4) if wall else None
     out["offcadence_sync_steps"] = sum(int(a.get("offcadence_sync_steps", 0) or 0)
                                        for a in accounts)
+    opt = [float(a["optimizer_apply_ms"]) for a in accounts
+           if a.get("optimizer_apply_ms") is not None]
+    if opt:
+        out["optimizer_apply_ms"] = round(sum(opt) / len(opt), 3)
+        share = [float(a["optimizer_share_of_step"]) for a in accounts
+                 if a.get("optimizer_share_of_step") is not None]
+        if share:
+            out["optimizer_share_of_step"] = round(sum(share) / len(share), 4)
     return out
 
 

@@ -18,14 +18,24 @@ the run left, checks ``schema_version`` on every line, and rebuilds:
   topology changes and reshard restores (their wall in the MTTR), the
   serving tier's replica events, host-loss suspects, and every fault split
   into injected (a ``chaos_injection`` explains it) and organic;
+- the device account of every profiled window (``device_account``,
+  ``obs/devprof.py``): per-bucket device time, each collective's achieved
+  bandwidth against the startup gauges' byte account, compute/comm
+  overlap and exposed idle;
+- the comm account (``obs_gauges``, ``obs/gauges.py``) with the
+  reduce-scatter smell;
+- "Where did the bytes go" (``memory_account``, ``memory_window`` and the
+  ``memory-postmortem-p*.json`` bundles, ``obs/memprof.py``);
 - the anomaly log and the flight-recorder bundles.
 
-Markdown by default, ``--json`` for the whole report.  ``--strict`` exits 1
-on a schema error, an organic fault or, with ``--min-dispatch-efficiency``,
-an efficiency below the floor.  A pure file reader: nothing here touches a
-device.  The JAX package's comm, device, memory, load-sweep, prefix-cache
-and speculative-decode sections, and the Perfetto export, come with the
-slices that emit their events.
+Markdown by default, ``--json`` for the whole report, ``--trace out.json``
+the merged Perfetto trace (``obs/trace.py``).  ``--strict`` exits 1 on a
+schema error, an organic fault, or a gate it is given that fails or has
+nothing to read: ``--min-dispatch-efficiency``, ``--min-overlap-frac``,
+``--max-peak-hbm-frac``, ``--min-hbm-headroom-gib``.  A pure file reader:
+nothing here touches a device.  The JAX package's load-sweep, prefix-cache
+and speculative-decode sections come with the slices that emit their
+events.
 """
 
 from __future__ import annotations
@@ -98,7 +108,24 @@ def load_run(output_dir: str) -> dict[str, Any]:
                           f"!= {SCHEMA_VERSION}")
             continue
         recorders[int(m.group(1))] = bundle
-    return {"processes": processes, "recorders": recorders, "errors": errors}
+    postmortems: dict[int, dict] = {}
+    for path in sorted(glob.glob(os.path.join(obs_dir, "memory-postmortem-p*.json"))):
+        m = re.search(r"-p(\d+)\.json$", path)
+        if not m:
+            continue
+        try:
+            with open(path) as f:
+                bundle = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            errors.append(f"{path}: unreadable bundle ({e})")
+            continue
+        if bundle.get("schema_version") != SCHEMA_VERSION:
+            errors.append(f"{path}: schema_version {bundle.get('schema_version')!r} "
+                          f"!= {SCHEMA_VERSION}")
+            continue
+        postmortems[int(m.group(1))] = bundle
+    return {"processes": processes, "recorders": recorders, "postmortems": postmortems,
+            "errors": errors}
 
 
 def _by_event(records: list[dict]) -> dict[str, list[dict]]:
@@ -196,6 +223,62 @@ def window_trends(processes: dict[int, list[dict]]) -> dict[str, list[dict]]:
             for proc, records in sorted(processes.items())}
 
 
+def account_gradient_bytes_by_op(account: dict) -> dict[str, int]:
+    """The comm account's ``{op: gradient_bytes}``."""
+    return {op: int(slot["gradient_bytes"]) for op, slot in account.items()
+            if isinstance(slot, dict) and "gradient_bytes" in slot}
+
+
+# the smell's thresholds (the JAX package's): all-reduce gradient bytes at
+# least this multiple of the reduce-scatter ones, and at least this many
+SMELL_RATIO = 2.0
+SMELL_MIN_BYTES = 1 << 20
+
+
+def reduce_scatter_smell(gradient_bytes_by_op: dict[str, int], mesh_axes: dict) -> dict | None:
+    """The JAX package's reduce-scatter smell over a gradient-byte account:
+    on an ``fsdp`` mesh, gradient bytes riding all-reduce well above those
+    riding reduce-scatter (the gradients kept replicated through the
+    reduction, twice the traffic).  Its finding as JSON, or None."""
+    if int(mesh_axes.get("fsdp", 1) or 1) <= 1:
+        return None
+    merged: dict[str, int] = {}
+    for op, b in gradient_bytes_by_op.items():
+        base = op[: -len("-start")] if op.endswith("-start") else op
+        merged[base] = merged.get(base, 0) + int(b)
+    ar = merged.get("all-reduce", 0)
+    rs = merged.get("reduce-scatter", 0)
+    if ar < max(SMELL_MIN_BYTES, int(SMELL_RATIO * max(rs, 1))):
+        return None
+    return {"event": "lint_finding", "severity": "warning", "pass": "ir",
+            "code": "gradient-all-reduce-not-reduce-scatter",
+            "message": (f"{ar / 1024**2:.1f} MiB of gradient bytes ride all-reduce vs "
+                        f"{rs / 1024**2:.1f} MiB on reduce-scatter on an fsdp mesh "
+                        f"(fsdp={mesh_axes.get('fsdp')}) — sharded gradients should "
+                        "reduce-scatter; an all-reduce keeps them replicated through "
+                        "the reduction and pays ~2× the gradient traffic"),
+            "all_reduce_gradient_bytes": ar, "reduce_scatter_gradient_bytes": rs,
+            "ratio_threshold": SMELL_RATIO}
+
+
+def comm_report(processes: dict[int, list[dict]]) -> dict[str, Any] | None:
+    """The startup gauges' collective byte account, with the reduce-scatter
+    smell over it."""
+    for records in processes.values():
+        for r in _by_event(records).get("obs_gauges", []):
+            comm = r.get("comm")
+            if not isinstance(comm, dict):
+                continue
+            out: dict[str, Any] = {"mesh": r.get("mesh"), "flops_per_step": r.get("flops_per_step"),
+                                   "flops_source": r.get("flops_source"),
+                                   "grad_compression": r.get("grad_compression"), "comm": comm}
+            smell = reduce_scatter_smell(account_gradient_bytes_by_op(comm), r.get("mesh") or {})
+            if smell is not None:
+                out["reduce_scatter_smell"] = smell
+            return out
+    return None
+
+
 def budget_report(processes: dict[int, list[dict]]) -> dict[str, Any] | None:
     """"Where did the time go" over every rank's ``step_budget`` events:
     per-rank totals and efficiency (``aggregate_accounts``), the host-stall
@@ -242,6 +325,109 @@ def budget_report(processes: dict[int, list[dict]]) -> dict[str, Any] | None:
                         for c, v in totals.items()), key=lambda o: -o["total_ms"])
     return {"ranks": ranks, "windows": windows, "offenders": offenders,
             "incidents": incidents, "dispatch_efficiency": overall_eff}
+
+
+def device_report(processes: dict[int, list[dict]]) -> dict[str, Any] | None:
+    """Each rank's newest ``device_account``, the ``profile_captured``
+    inventory, and the bandwidth join for an account emitted without it."""
+    from distributed_llms_example_tpu_torch.obs.devprof import join_collective_bandwidth
+
+    comm = None
+    for records in processes.values():
+        for r in _by_event(records).get("obs_gauges", []):
+            if isinstance(r.get("comm"), dict):
+                comm = r["comm"]
+                break
+        if comm:
+            break
+    ranks: dict[str, dict] = {}
+    captures: list[dict] = []
+    n_accounts = 0
+    for proc, records in sorted(processes.items()):
+        ev = _by_event(records)
+        for r in ev.get("profile_captured", []):
+            captures.append({"rank": proc, "path": r.get("path"), "window": r.get("window"),
+                             "steps": r.get("steps"),
+                             **({"truncated": True} if r.get("truncated") else {})})
+        accts = ev.get("device_account", [])
+        n_accounts += len(accts)
+        if not accts:
+            continue
+        acct = dict(accts[-1])
+        acct.pop("lanes", None)  # the exporter's payload
+        needs_join = any("achieved_bytes_per_sec" not in slot
+                         for slot in (acct.get("collectives") or {}).values())
+        if needs_join and comm:
+            join_collective_bandwidth(acct, comm, int(acct.get("window_steps", 0) or 0))
+        ranks[str(proc)] = acct
+    if not ranks and not captures:
+        return None
+    return {"ranks": ranks, "captures": captures, "accounts": n_accounts}
+
+
+def memory_report(processes: dict[int, list[dict]],
+                  postmortems: dict[int, dict] | None = None) -> dict[str, Any] | None:
+    """"Where did the bytes go": the last static ``memory_account``, the
+    ``memory_window`` envelope over every rank, the serving account, the
+    postmortem bundles.  ``measured_peak_bytes`` (the gates' input) is the
+    runtime peak where a window was sampled, else the static account's."""
+    accounts: list[dict] = []
+    windows: list[dict] = []
+    skips: list[dict] = []
+    serve_accounts: list[dict] = []
+    for _, records in sorted(processes.items()):
+        ev = _by_event(records)
+        accounts.extend(ev.get("memory_account", []))
+        windows.extend(ev.get("memory_window", []))
+        skips.extend(ev.get("memory_window_skipped", []))
+        for r in ev.get("serve_summary", []):
+            if isinstance(r.get("memory_account"), dict):
+                serve_accounts.append(r["memory_account"])
+    postmortems = postmortems or {}
+    if not (accounts or windows or skips or serve_accounts or postmortems):
+        return None
+    account = accounts[-1] if accounts else None
+    serve_account = serve_accounts[-1] if serve_accounts else None
+    runtime = None
+    if windows:
+        runtime = {
+            "windows": len(windows),
+            "max_bytes_in_use": max(int(w.get("bytes_in_use", 0)) for w in windows),
+            "peak_bytes_in_use": max(int(w.get("peak_bytes_in_use", 0)) for w in windows),
+            "max_watermark_delta_bytes": max(int(w.get("watermark_delta_bytes", 0))
+                                             for w in windows),
+            "bytes_limit": max(int(w.get("bytes_limit", 0)) for w in windows),
+        }
+    measured_peak = peak_source = None
+    if runtime is not None:
+        measured_peak, peak_source = runtime["peak_bytes_in_use"], "memory_window"
+    elif account is not None and isinstance(account.get("peak_bytes"), (int, float)):
+        measured_peak, peak_source = int(account["peak_bytes"]), "static_account"
+    budget_bytes = None
+    for src in (account, serve_account):
+        if src is not None and isinstance(src.get("hbm_budget_bytes"), (int, float)):
+            budget_bytes = int(src["hbm_budget_bytes"])
+            break
+    headrooms = [a["hbm_headroom_gib"] for a in (account, serve_account)
+                 if a is not None and isinstance(a.get("hbm_headroom_gib"), (int, float))]
+    return {
+        "account": account,
+        "serve_account": serve_account,
+        "runtime": runtime,
+        "static_only": bool(not windows and (account or serve_account)),
+        "skips": [x.get("reason") for x in skips[:1]],
+        "measured_peak_bytes": measured_peak,
+        "measured_peak_source": peak_source,
+        "hbm_budget_bytes": budget_bytes,
+        "peak_frac_of_budget": (round(measured_peak / budget_bytes, 4)
+                                if (measured_peak is not None and budget_bytes) else None),
+        "min_headroom_gib": min(headrooms) if headrooms else None,
+        "postmortems": {str(p): {"reason": b.get("reason"), "step": b.get("step"),
+                                 "has_account": b.get("account") is not None,
+                                 "watermark_samples": len(b.get("watermark_history") or []),
+                                 "live_buffers_top": len(b.get("live_buffers_top") or [])}
+                        for p, b in sorted(postmortems.items())},
+    }
 
 
 def recovery_report(processes: dict[int, list[dict]]) -> dict[str, Any]:
@@ -427,7 +613,10 @@ def build_report(output_dir: str) -> dict[str, Any]:
         "timeline": merge_timeline(processes),
         "trends": window_trends(processes),
         "stragglers": straggler_attribution(processes),
+        "comm": comm_report(processes),
         "budget": budget_report(processes),
+        "device": device_report(processes),
+        "memory": memory_report(processes, run["postmortems"]),
         "recovery": recovery_report(processes),
         "anomalies": [r for records in processes.values()
                       for r in _by_event(records).get("obs_anomaly", [])],
@@ -476,7 +665,8 @@ def render_markdown(report: dict[str, Any], *, last: int = 20) -> str:
             continue
         first, final = ws[0], ws[-1]
         add(f"- rank {proc}: p50 {_fmt(first['p50'])} → {_fmt(final['p50'])}, "
-            f"p95 {_fmt(first['p95'])} → {_fmt(final['p95'])} over {len(ws)} windows")
+            f"p95 {_fmt(first['p95'])} → {_fmt(final['p95'])} over {len(ws)} windows"
+            + (f", last mfu {_fmt(final['mfu'])}" if final.get("mfu") is not None else ""))
     s = report["stragglers"]
     add("")
     add("## Straggler attribution")
@@ -505,6 +695,14 @@ def render_markdown(report: dict[str, Any], *, last: int = 20) -> str:
             comps = " | ".join(_fmt(agg.get(f"{c}_ms")) for c in COMPONENTS)
             add(f"| {rank} | {agg['windows']} | {_fmt(agg['wall_ms'])} | {comps} | "
                 f"{_fmt(agg['dispatch_efficiency'])} |")
+        opt_rows = [(rank, agg) for rank, agg in sorted(budget["ranks"].items())
+                    if agg.get("optimizer_apply_ms") is not None]
+        if opt_rows:
+            add("optimizer apply (cadenced stand-alone sample): " + ", ".join(
+                f"r{rank}={_fmt(agg['optimizer_apply_ms'])}ms"
+                + (f" ({_fmt(agg['optimizer_share_of_step'] * 100)}% of step)"
+                   if agg.get("optimizer_share_of_step") is not None else "")
+                for rank, agg in opt_rows))
         add("")
         add("worst offenders (host-stall components, share of total wall):")
         for o in budget["offenders"]:
@@ -527,6 +725,9 @@ def render_markdown(report: dict[str, Any], *, last: int = 20) -> str:
             add(f"- rank {rank} windows: efficiency {_fmt(first['dispatch_efficiency'])} → "
                 f"{_fmt(final['dispatch_efficiency'])}, accounted "
                 f"{_fmt(final['accounted_frac'])} of wall over {len(ws)} window(s)")
+    _render_device(add, report.get("device"))
+    _render_comm(add, report.get("comm"))
+    _render_memory(add, report.get("memory"))
     rec = report.get("recovery") or {}
     add("")
     add("## Recovery timeline")
@@ -592,6 +793,167 @@ def render_markdown(report: dict[str, Any], *, last: int = 20) -> str:
     return "\n".join(lines) + "\n"
 
 
+def _render_device(add, device: dict | None) -> None:
+    from distributed_llms_example_tpu_torch.obs.devprof import DEVICE_BUCKETS
+
+    add("")
+    add("## Device account (profiled windows)")
+    if device is None:
+        add("- no device_account records (no profile window landed — "
+            "touch the profile trigger or pass --profile-steps)")
+        return
+    for cap in device["captures"]:
+        add(f"- capture r{cap['rank']}: steps {cap.get('window')} → `{cap.get('path')}`"
+            + (" (truncated)" if cap.get("truncated") else ""))
+    if not device["ranks"]:
+        add("- captures exist but no device_account parsed — run with "
+            "--obs-budget on, or parse offline: python -m "
+            "distributed_llms_example_tpu_torch.obs.devprof <capture_dir>")
+        return
+    add("")
+    add("| rank | window | span ms | busy ms | idle ms | " + " | ".join(DEVICE_BUCKETS) + " |")
+    add("|---" * (len(DEVICE_BUCKETS) + 5) + "|")
+    for rank, acct in sorted(device["ranks"].items()):
+        b = acct.get("buckets_ms", {})
+        cells = " | ".join(_fmt(b.get(k)) for k in DEVICE_BUCKETS)
+        add(f"| {rank} | {acct.get('window')} | {_fmt(acct.get('span_ms'))} | "
+            f"{_fmt(acct.get('busy_ms'))} | {_fmt(acct.get('exposed_idle_ms'))} | {cells} |")
+    add("")
+    add("collective bandwidth (measured device time × static byte account):")
+    any_coll = False
+    for rank, acct in sorted(device["ranks"].items()):
+        for op, slot in sorted((acct.get("collectives") or {}).items()):
+            any_coll = True
+            bw = slot.get("achieved_bytes_per_sec")
+            add(f"- r{rank} {op}: ×{slot.get('count')} — {_fmt(slot.get('time_ms'))} ms"
+                + (f", {slot.get('bytes_per_step', 0):,} B/step → {bw / 1e6:.1f} MB/s achieved"
+                   if isinstance(bw, (int, float)) else ""))
+    if not any_coll:
+        add("- no collective device time in the captured window")
+    for rank, acct in sorted(device["ranks"].items()):
+        ov = acct.get("overlap") or {}
+        if not ov:
+            continue
+        frac = ov.get("overlap_frac")
+        add(f"- r{rank} overlap: collective {_fmt(ov.get('collective_ms'))} ms, "
+            f"compute {_fmt(ov.get('compute_ms'))} ms, "
+            f"overlapped {_fmt(ov.get('overlapped_ms'))} ms"
+            + (f" (overlap_frac {_fmt(frac)})" if frac is not None else "")
+            + f", exposed collective {_fmt(ov.get('exposed_collective_ms'))} ms, "
+            f"exposed idle {_fmt(acct.get('exposed_idle_ms'))} ms")
+
+
+def _render_comm(add, comm: dict | None) -> None:
+    add("")
+    add("## Comm account")
+    if comm is None:
+        add("- no obs_gauges record (run without --obs-gauges?)")
+        return
+    acct = comm["comm"]
+    add(f"- total {acct.get('total_bytes', 0):,} B/step — gradient "
+        f"{acct.get('gradient_bytes', 0):,} B, activation "
+        f"{acct.get('activation_bytes', 0):,} B (mesh {comm.get('mesh')})")
+    for op, slot in sorted(acct.items()):
+        if isinstance(slot, dict):
+            add(f"  - {op}: ×{slot.get('count')} — grad {slot.get('gradient_bytes', 0):,} B, "
+                f"act {slot.get('activation_bytes', 0):,} B")
+    if "reduce_scatter_smell" in comm:
+        add(f"- **smell**: {comm['reduce_scatter_smell'].get('message')}")
+
+
+def _render_memory(add, mem: dict | None) -> None:
+    if mem is None:
+        return
+    add("")
+    add("## Where did the bytes go")
+    acct = mem.get("account")
+    if acct is not None:
+        add(f"- static account (model {acct.get('model')}, mesh {acct.get('mesh')}): "
+            f"compiled peak {int(acct.get('peak_bytes', 0)):,} B "
+            f"({_fmt(acct.get('peak_gib'))} GiB) vs budget {_fmt(acct.get('hbm_budget_gib'))} GiB — "
+            + ("fits" if acct.get("fits_budget") else "**OVER BUDGET**")
+            + f" (headroom {_fmt(acct.get('hbm_headroom_gib'))} GiB, "
+            f"additivity gap {int(acct.get('additivity_gap_bytes', 0)):,} B)")
+        add("")
+        add("| bucket | bytes | GiB | share of peak |")
+        add("|---|---|---|---|")
+        peak = max(1, int(acct.get("peak_bytes", 0)))
+        for bucket, b in sorted((acct.get("buckets_bytes") or {}).items(), key=lambda kv: -kv[1]):
+            add(f"| {bucket} | {int(b):,} | {b / 1024**3:.3f} | {b / peak:.1%} |")
+        add("")
+        for row in (acct.get("largest_buffers") or [])[:8]:
+            add(f"- {row.get('name')}: {int(row.get('bytes', 0)):,} B "
+                f"(shard {row.get('shard_shape')} {row.get('dtype')}"
+                + (f", module {row['module']}" if row.get("module") else "") + ")")
+    sa = mem.get("serve_account")
+    if sa is not None:
+        buckets = sa.get("buckets_bytes") or {}
+        add(f"- serving account: params {int(buckets.get('params', 0)):,} B"
+            f" + kv_cache {int(buckets.get('kv_cache', 0)):,} B = "
+            f"{int(sa.get('peak_bytes', 0)):,} B vs budget {_fmt(sa.get('hbm_budget_gib'))} GiB — "
+            + ("fits" if sa.get("fits_budget") else "**OVER BUDGET**"))
+    rt = mem.get("runtime")
+    if rt is not None:
+        add(f"- runtime ({rt.get('windows')} memory_window samples): bytes in use ≤ "
+            f"{rt.get('max_bytes_in_use', 0):,} B, process peak {rt.get('peak_bytes_in_use', 0):,} B, "
+            f"largest per-window watermark delta {rt.get('max_watermark_delta_bytes', 0):,} B")
+    elif mem.get("static_only"):
+        reason = (mem.get("skips") or [None])[0]
+        add("- runtime: static-only" + (f" — {reason}" if reason else ""))
+    for p, b in sorted((mem.get("postmortems") or {}).items()):
+        add(f"- **OOM postmortem** p{p} at step {b.get('step')}: {b.get('reason')} "
+            f"({b.get('watermark_samples')} watermark samples, account "
+            + ("attached" if b.get("has_account") else "absent") + ")")
+
+
+def _strict_gates(report: dict, args) -> int:
+    """The gates ``--strict`` was given: 1 where one fails or has nothing to
+    read (a missing measurement never reads as a pass), else 0."""
+    rc = 0
+
+    def failed(msg: str) -> None:
+        nonlocal rc
+        print(f"strict: {msg}", file=sys.stderr)
+        rc = 1
+
+    floor = args.min_dispatch_efficiency
+    if floor > 0:
+        eff = report["budget"]["dispatch_efficiency"] if report["budget"] else None
+        if eff is None:
+            failed("--min-dispatch-efficiency set but no step_budget records found")
+        elif eff < floor:
+            failed(f"dispatch_efficiency {eff} below the {floor} floor")
+    mem = report.get("memory")
+    if args.max_peak_hbm_frac > 0:
+        frac = (mem or {}).get("peak_frac_of_budget")
+        if frac is None:
+            failed("--max-peak-hbm-frac set but no memory measurement found (no memory_window "
+                   "samples and no memory_account)")
+        elif frac > args.max_peak_hbm_frac:
+            failed(f"HBM peak at {frac} of the budget (source: "
+                   f"{(mem or {}).get('measured_peak_source')}) exceeds the "
+                   f"{args.max_peak_hbm_frac} ceiling")
+    if args.min_hbm_headroom_gib > 0:
+        headroom = (mem or {}).get("min_headroom_gib")
+        if headroom is None:
+            failed("--min-hbm-headroom-gib set but no memory account found")
+        elif headroom < args.min_hbm_headroom_gib:
+            failed(f"hbm_headroom_gib {headroom} below the {args.min_hbm_headroom_gib} GiB floor")
+    if args.min_overlap_frac > 0:
+        device = report.get("device")
+        if device is None or not device["ranks"]:
+            failed("--min-overlap-frac set but no device_account records found"
+                   + (f" ({len(device['captures'])} profile capture(s) landed without one)"
+                      if device is not None else ""))
+        else:
+            for rank, acct in sorted(device["ranks"].items()):
+                frac = (acct.get("overlap") or {}).get("overlap_frac")
+                if frac is not None and frac < args.min_overlap_frac:
+                    failed(f"rank {rank} overlap_frac {frac} below the "
+                           f"{args.min_overlap_frac} floor (exposed collective time)")
+    return rc
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="python -m distributed_llms_example_tpu_torch.obs.report",
                                 description="read a run's --obs jsonl telemetry")
@@ -606,6 +968,21 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--min-dispatch-efficiency", type=float, default=0.0,
                    help="with --strict: fail when the run's wall-weighted dispatch_efficiency "
                         "(step_budget events) falls below this floor (0 = no floor)")
+    p.add_argument("--min-overlap-frac", type=float, default=0.0,
+                   help="with --strict: fail when a rank's device_account shows collective "
+                        "time with overlap_frac below this floor, or when no device_account "
+                        "exists (0 = no floor)")
+    p.add_argument("--max-peak-hbm-frac", type=float, default=0.0,
+                   help="with --strict: fail when the measured peak (memory_window, else the "
+                        "static account's) exceeds this fraction of --hbm-budget-gib, or when "
+                        "no memory measurement exists (0 = off)")
+    p.add_argument("--min-hbm-headroom-gib", type=float, default=0.0,
+                   help="with --strict: fail when a memory account's hbm_headroom_gib falls "
+                        "below this floor, or when none exists (0 = off)")
+    p.add_argument("--trace", type=str, default="",
+                   help="also export the merged Chrome-trace/Perfetto JSON here (every "
+                        "rank's spans aligned on shared step boundaries, budget counters, "
+                        "device lanes of profiled windows) — open at ui.perfetto.dev")
     args = p.parse_args(argv)
     if not os.path.isdir(os.path.join(args.output_dir, "obs")):
         print(f"no obs/ directory under {args.output_dir}", file=sys.stderr)
@@ -615,22 +992,16 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps(report))
     else:
         print(render_markdown(report, last=args.last), end="")
+    if args.trace:
+        from distributed_llms_example_tpu_torch.obs.trace import export_chrome_trace
+
+        summary = export_chrome_trace(args.output_dir, args.trace)
+        print(f"trace: {summary['events']} events from ranks {summary['ranks']} → "
+              f"{summary['path']}", file=sys.stderr)
     if not args.strict:
         return 0
-    rc = 0
-    if report["schema_errors"] or report["recovery"]["organic_faults"]:
-        rc = 1
-    floor = args.min_dispatch_efficiency
-    if floor > 0:
-        eff = report["budget"]["dispatch_efficiency"] if report["budget"] else None
-        if eff is None:
-            print("strict: --min-dispatch-efficiency set but no step_budget records found",
-                  file=sys.stderr)
-            rc = 1
-        elif eff < floor:
-            print(f"strict: dispatch_efficiency {eff} below the {floor} floor", file=sys.stderr)
-            rc = 1
-    return rc
+    rc = 1 if report["schema_errors"] or report["recovery"]["organic_faults"] else 0
+    return max(rc, _strict_gates(report, args))
 
 
 if __name__ == "__main__":

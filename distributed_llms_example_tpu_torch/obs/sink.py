@@ -17,7 +17,8 @@ host numbers: on a silent rank a record nobody emits costs no device sync.
 
 A record may be ``local`` (per-process telemetry: span windows, budget
 accounts, recorder events, agreed verdicts): it goes to every rank's own
-file, while stdout stays process 0's.  ``ProductJsonlWriter`` (the serving
+file, while stdout stays process 0's.  A ``bulk`` record (span instances,
+a device account's lanes) goes to the file channel only, never to stdout.  ``ProductJsonlWriter`` (the serving
 router's and load generator's output) waits for their slice.
 """
 
@@ -43,12 +44,13 @@ class StdoutSink:
     """The Valohai stdout channel: process 0 only, unless a record is for
     every process (``all_processes``); ``local`` does not widen it."""
 
-    def wants(self, *, all_processes: bool = False, local: bool = False) -> bool:
-        return all_processes or _process_index() == 0
+    def wants(self, *, all_processes: bool = False, local: bool = False,
+              bulk: bool = False) -> bool:
+        return not bulk and (all_processes or _process_index() == 0)
 
     def emit(self, record: Mapping[str, Any], *, all_processes: bool = False,
-             local: bool = False) -> None:
-        if self.wants(all_processes=all_processes, local=local):
+             local: bool = False, bulk: bool = False) -> None:
+        if self.wants(all_processes=all_processes, local=local, bulk=bulk):
             print(json.dumps(record), file=sys.stdout, flush=True)
 
     def flush(self, *, fsync: bool = False) -> None:
@@ -69,14 +71,15 @@ class JsonlFileSink:
         self._f = None
         self._dead = False
 
-    def wants(self, *, all_processes: bool = False, local: bool = False) -> bool:
-        # the file is per process by its path: a local record lands in every
-        # rank's own file
-        return not self._dead and (all_processes or local or _process_index() == 0)
+    def wants(self, *, all_processes: bool = False, local: bool = False,
+              bulk: bool = False) -> bool:
+        # the file is per process by its path: a local or bulk record lands
+        # in every rank's own file
+        return not self._dead and (all_processes or local or bulk or _process_index() == 0)
 
     def emit(self, record: Mapping[str, Any], *, all_processes: bool = False,
-             local: bool = False) -> None:
-        if not self.wants(all_processes=all_processes, local=local):
+             local: bool = False, bulk: bool = False) -> None:
+        if not self.wants(all_processes=all_processes, local=local, bulk=bulk):
             return
         try:
             if self._f is None:
@@ -113,13 +116,15 @@ class TeeSink:
     def __init__(self, sinks: list):
         self.sinks = list(sinks)
 
-    def wants(self, *, all_processes: bool = False, local: bool = False) -> bool:
-        return any(s.wants(all_processes=all_processes, local=local) for s in self.sinks)
+    def wants(self, *, all_processes: bool = False, local: bool = False,
+              bulk: bool = False) -> bool:
+        return any(s.wants(all_processes=all_processes, local=local, bulk=bulk)
+                   for s in self.sinks)
 
     def emit(self, record: Mapping[str, Any], *, all_processes: bool = False,
-             local: bool = False) -> None:
+             local: bool = False, bulk: bool = False) -> None:
         for s in self.sinks:
-            s.emit(record, all_processes=all_processes, local=local)
+            s.emit(record, all_processes=all_processes, local=local, bulk=bulk)
 
     def flush(self, *, fsync: bool = False) -> None:
         for s in self.sinks:
@@ -158,12 +163,13 @@ def build_sink(mode: str, output_dir: str):
     return TeeSink([_DEFAULT, JsonlFileSink(path)])
 
 
-def wants(*, all_processes: bool = False, local: bool = False) -> bool:
-    return _SINK.wants(all_processes=all_processes, local=local)
+def wants(*, all_processes: bool = False, local: bool = False, bulk: bool = False) -> bool:
+    return _SINK.wants(all_processes=all_processes, local=local, bulk=bulk)
 
 
-def emit(record: Mapping[str, Any], *, all_processes: bool = False, local: bool = False) -> None:
-    _SINK.emit(record, all_processes=all_processes, local=local)
+def emit(record: Mapping[str, Any], *, all_processes: bool = False, local: bool = False,
+         bulk: bool = False) -> None:
+    _SINK.emit(record, all_processes=all_processes, local=local, bulk=bulk)
 
 
 def flush(*, fsync: bool = False) -> None:

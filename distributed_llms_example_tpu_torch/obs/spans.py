@@ -55,6 +55,10 @@ class SpanRecorder:
         # partition of the step's duration for the budget (obs/budget.py)
         self._step_spans: dict[str, float] = {}
         self._step_records: list[dict] = []  # rings with _ring
+        # a span-instance listener (obs/trace.py ``TraceCollector``), called
+        # with (name, t0, dur) at every outermost span's exit: one None check
+        # a span when there is none
+        self.listener = None
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -75,6 +79,8 @@ class SpanRecorder:
                     agg[2] = dt
             if self._depth == 0:
                 self._step_spans[name] = self._step_spans.get(name, 0.0) + dt
+                if self.listener is not None:
+                    self.listener.on_span(name, t0, dt)
 
     def step_complete(self) -> None:
         """One train-loop iteration finished: record its wall duration (the

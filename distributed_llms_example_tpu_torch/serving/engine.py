@@ -51,13 +51,11 @@ from distributed_llms_example_tpu_torch.evaluation.generation import (
     init_cache,
     init_causal_cache,
 )
+from distributed_llms_example_tpu_torch.obs.memprof import serving_account
 from distributed_llms_example_tpu_torch.ops.flash_attention import auto_block
 from distributed_llms_example_tpu_torch.ops.mha import PagedKVCache
 from distributed_llms_example_tpu_torch.serving import cache_pool
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
-
-GIB = 1024**3
-MEMORY_BUCKETS = ("params", "optimizer_state", "grad_accum", "activations", "kv_cache", "other")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,26 +186,6 @@ def compute_goodput(ttft_s: Sequence[float | None], tokens_out: Sequence[int], *
         out["ttft_slo_ms"] = round(float(ttft_slo_ms), 1)
         out["slo_attainment"] = round(len(met) / len(finished), 4) if finished else 0.0
     return out
-
-
-def serving_account(*, params_bytes: int, kv_cache_bytes: int, hbm_budget_gib: float) -> dict:
-    """The serving memory account over the JAX package's bucket taxonomy."""
-    buckets = {b: 0 for b in MEMORY_BUCKETS}
-    buckets["params"] = int(params_bytes)
-    buckets["kv_cache"] = int(kv_cache_bytes)
-    total = sum(buckets.values())
-    budget_bytes = int(float(hbm_budget_gib) * GIB)
-    return {
-        "buckets_bytes": buckets,
-        "bucket_total_bytes": total,
-        "peak_bytes": total,
-        "peak_gib": round(total / GIB, 3),
-        "hbm_budget_gib": float(hbm_budget_gib),
-        "hbm_budget_bytes": budget_bytes,
-        "peak_frac_of_budget": round(total / budget_bytes, 4) if budget_bytes else None,
-        "hbm_headroom_gib": round((budget_bytes - total) / GIB, 3),
-        "fits_budget": total < budget_bytes,
-    }
 
 
 class ServingEngine:

@@ -51,6 +51,7 @@ from torch import nn
 from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD
 from distributed_llms_example_tpu_torch.models.bart import _Embed
 from distributed_llms_example_tpu_torch.models.t5 import shift_right
+from distributed_llms_example_tpu_torch.obs.devprof import scope
 from distributed_llms_example_tpu_torch.ops.blockwise_ce import blockwise_cross_entropy_sums
 from distributed_llms_example_tpu_torch.ops.fused_dropout import dropout_seeds
 from distributed_llms_example_tpu_torch.ops.fused_optim import (
@@ -168,8 +169,9 @@ def causal_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
     labels = batch["labels"]
     if model.config.fused_ce:
         h, w = model.head_inputs(batch["input_ids"], batch["attention_mask"])
-        return blockwise_cross_entropy_sums(h[:, :-1].reshape(-1, h.shape[-1]), w,
-                                            labels[:, 1:].reshape(-1), label_smoothing)
+        with scope("lm_head"):  # the head's matmuls, chunked into the loss
+            return blockwise_cross_entropy_sums(h[:, :-1].reshape(-1, h.shape[-1]), w,
+                                                labels[:, 1:].reshape(-1), label_smoothing)
     logits = model(batch["input_ids"], batch["attention_mask"])
     return cross_entropy_sums(logits[:, :-1], labels[:, 1:], label_smoothing)
 
@@ -259,13 +261,16 @@ def optimizer_apply_block(spec: OptimizerSpec, schedule: Schedule, named_params,
 def train_step(model, named_params, state: AdamWState, spec: OptimizerSpec, schedule: Schedule,
                batch: dict, *, grad_accum_steps: int = 1, label_smoothing: float = 0.0,
                generator: torch.Generator | None = None, health_buckets=None,
-               is_seq2seq: bool = True, groups: StepGroups = StepGroups()) -> dict:
+               is_seq2seq: bool = True, groups: StepGroups = StepGroups(),
+               opt_timer=None) -> dict:
     """One optimizer step on ``batch`` (tensors on the model's device: the
     rank's rows of the global batch).  ``generator`` (CPU) seeds the
     dropout of a model in training mode; ``health_buckets``
     (``param_buckets``) adds the health numerics; ``is_seq2seq`` picks the
     family's loss (``loss_sums``); ``groups`` says how the sums meet over
-    the process group."""
+    the process group; ``opt_timer`` (``obs/budget.OptimizerTimer``)
+    brackets the optimizer tail.  The tail runs in the ``optimizer_apply_block``
+    profiler scope (``obs/devprof.py``)."""
     n = int(grad_accum_steps)
     rows = batch["labels"].shape[0]
     if n < 1 or rows % n:
@@ -293,5 +298,6 @@ def train_step(model, named_params, state: AdamWState, spec: OptimizerSpec, sche
         sums = torch.stack([lsum, tokens.to(lsum.dtype)])
         torch.distributed.all_reduce(sums)
         lsum, tokens = sums[0], sums[1]
-    return optimizer_apply_block(spec, schedule, named_params, state, lsum, tokens,
-                                 health_buckets=health_buckets, groups=groups)
+    with scope("optimizer_apply_block"), opt_timer or contextlib.nullcontext():
+        return optimizer_apply_block(spec, schedule, named_params, state, lsum, tokens,
+                                     health_buckets=health_buckets, groups=groups)

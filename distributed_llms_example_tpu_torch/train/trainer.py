@@ -49,8 +49,14 @@ Fault tolerance, as in the JAX package:
 Telemetry (``obs/``, ``TrainerObs``): the ``--obs`` sink, host-clock spans
 around the loop's data wait, dispatch, cadenced readback, eval,
 checkpoint and fingerprint, the step-time budget (its one device sync at
-the log cadence), the heartbeat, the health watchdog and the flight
-recorder.
+the log cadence; the cadence step's optimizer tail timed in the step),
+the startup gauges (FLOPs a step for the window MFU, the collective byte
+account; again after an elastic rebuild), the memory account after each
+layout's first step and the ``memory_window`` watermark, the profiler's
+windows (the model's module scopes, ``obs/devprof.open_module_scopes``,
+opened for a capture's length and read by the device account), the heartbeat, the health watchdog, the
+flight recorder, and on an out-of-memory error the memory postmortem
+before the error goes on.
 
 The dropout generator is seeded at construction: a resumed run does not
 carry the stream of the run it resumes (neither does the JAX package's),
@@ -290,9 +296,11 @@ class Trainer:
                 log_json({"event": "recovery_cursor_restored", "step": self.start_step,
                           "epoch": self._resume_cursor[0], "pos": self._resume_cursor[1],
                           "quarantined": len(self.recovery.quarantined)})
-        # the telemetry bundle (spans, budget, heartbeat, health, recorder),
-        # last, as in the JAX package: its first window opens here
-        self.obs = TrainerObs(cfg, self.device)
+        # the telemetry bundle (spans, budget, gauges, profiler, memory,
+        # heartbeat, health, recorder), last, as in the JAX package: its
+        # first window opens here
+        self.obs = TrainerObs(cfg, self.device, start_step=self.start_step)
+        self._startup_gauges()
 
     # -- the mesh and what is laid out on it ------------------------------
 
@@ -329,7 +337,8 @@ class Trainer:
                                        is_seq2seq=self.loaded.is_seq2seq)
         # a causal batch's inputs and labels share one width: both capped at
         # max_source_length, so their buckets agree
-        tgt_cap = cfg.max_target_length if self.loaded.is_seq2seq else cfg.max_source_length
+        tgt_cap = self._tgt_cap = (cfg.max_target_length if self.loaded.is_seq2seq
+                                   else cfg.max_source_length)
         self.batches = BatchIterator(
             self.train_ds, global_batch=cfg.batch_size, process_count=world,
             process_index=process_index(), seed=cfg.shuffle_seed,
@@ -346,6 +355,16 @@ class Trainer:
             save_every_steps=cfg.checkpoint.save_every_steps, keep=cfg.checkpoint.keep,
             async_save=cfg.checkpoint.async_save,
             layout=ShardLayout.of(self.mesh_spec, process_index()) if world > 1 else None)
+
+    def _startup_gauges(self) -> None:
+        """The gauges of the live layout (at startup and after a rebuild),
+        and the model whose scopes a capture opens."""
+        self.obs.model = self.model
+        self.obs.startup_gauges(
+            self.model, model_name=self.cfg.model_ckpt, data=self.mesh_spec.data,
+            fsdp=self.mesh_spec.fsdp, global_batch=self.cfg.batch_size,
+            src_len=self.cfg.max_source_length, tgt_len=self._tgt_cap,
+            is_seq2seq=self.loaded.is_seq2seq)
 
     def _live_mesh_layout(self) -> dict:
         return {"axes": {"data": self.mesh_spec.data, "fsdp": self.mesh_spec.fsdp},
@@ -628,6 +647,7 @@ class Trainer:
                      device=self.device, remat_policy=remat).train()
         self.loaded = dataclasses.replace(self.loaded, module=module)
         self._lay_out()
+        self._startup_gauges()  # the new layout's FLOPs and byte account
 
     def _handle_topology_change(self, step: int) -> tuple[int, int, int] | None:
         """The agreed host-loss action (every rank at the same step, with
@@ -717,10 +737,15 @@ class Trainer:
         try:
             self.result = self._train_loop()
             return self.result
-        except Exception:
+        except Exception as e:
+            # the evidence before the traceback: the flight recorder, and on
+            # an out-of-memory error the memory postmortem
             if self.obs.recorder is not None:
                 self.obs.recorder.dump(self.cfg.output_dir, reason="exception",
                                        step=self._last_step)
+            if self.obs.memory is not None:
+                self.obs.memory.maybe_dump_postmortem(self.cfg.output_dir, step=self._last_step,
+                                                      error=e)
             flush(fsync=True)
             raise
         finally:
@@ -761,6 +786,7 @@ class Trainer:
                     pos += 1
                     if self.recovery.should_skip(epoch, pos - 1, batch):
                         continue
+                    obs.profiler.before_step(step + 1)
                     if self.chaos.take("oom", step + 1):
                         raise RuntimeError("RESOURCE_EXHAUSTED: chaos-injected out of memory "
                                            f"before step {step + 1}")
@@ -772,6 +798,10 @@ class Trainer:
                     with obs.host_span():  # the budget's host_overhead
                         fingerprint = (batch_fingerprint(batch, epoch=epoch, epoch_step=pos - 1)
                                        if obs.recorder is not None else None)
+                    opt_timer = obs.optimizer_timer(step + 1)
+                    first_of_layout = obs.memory_account_pending()
+                    if first_of_layout:
+                        obs.before_first_step()
                     with obs.step_span():
                         metrics = train_step(
                             self.model, self.named_params, self.opt_state, self.spec,
@@ -780,7 +810,16 @@ class Trainer:
                             label_smoothing=cfg.label_smoothing, generator=self.generator,
                             health_buckets=self.health_buckets,
                             is_seq2seq=self.loaded.is_seq2seq, groups=self.groups,
+                            opt_timer=opt_timer,
                         )
+                    if first_of_layout:
+                        with obs.host_span():
+                            obs.after_first_step(
+                                self.named_params,
+                                [*self.opt_state.mu, *self.opt_state.nu, self.opt_state.stats],
+                                [p.grad for _, p in self.named_params],
+                                model_name=cfg.model_ckpt,
+                                mesh={"data": self.mesh_spec.data, "fsdp": self.mesh_spec.fsdp})
                     step += 1
                     self._last_step = step
                     self.history.append(metrics)
@@ -801,6 +840,9 @@ class Trainer:
                     if action == "rewind":
                         rewind_cursor = self._handle_rewind(step, epoch, pos)
                         break
+                    # the cadence step's optimizer time, past the window's
+                    # drain: the next window's optimizer_apply_ms
+                    obs.optimizer_probe(opt_timer)
                     if self.checkpointer.should_save(step):
                         with obs.checkpoint_span():
                             self._save_checkpoint(step, epoch, pos)
@@ -864,7 +906,8 @@ class Trainer:
         logger.flush(step, epoch=report_epoch)
         # the final partial window's budget, health check (a NaN in the last
         # steps still fires) and span summary; the file channel to disk
-        final_action = obs.finalize(step, report_epoch)
+        final_action = obs.finalize(step, report_epoch,
+                                    sync_on=self.history[-1]["loss"] if self.history else None)
         if self._anomaly_action is None and final_action in ("halt", "checkpoint", "rewind"):
             # a rewind agreed in the final window has no loop left to replay:
             # keep the evidence and stop, never export possibly poisoned

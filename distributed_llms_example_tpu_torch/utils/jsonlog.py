@@ -27,17 +27,17 @@ def _to_scalar(v: Any) -> Any:
 
 
 def log_json(metrics: Mapping[str, Any], *, all_processes: bool = False,
-             local: bool = False) -> None:
+             local: bool = False, bulk: bool = False) -> None:
     """Emit ``metrics`` as a single JSON line through the installed sink, on
     process 0 only unless ``all_processes`` (``local``: every rank's file
-    too).  The gate comes before any conversion, so a silent rank never
-    waits on its device values."""
+    too; ``bulk``: the file channel only).  The gate comes before any
+    conversion, so a silent rank never waits on its device values."""
     from distributed_llms_example_tpu_torch.obs import sink
 
-    if not sink.wants(all_processes=all_processes, local=local):
+    if not sink.wants(all_processes=all_processes, local=local, bulk=bulk):
         return
     sink.emit({k: _to_scalar(v) for k, v in metrics.items()}, all_processes=all_processes,
-              local=local)
+              local=local, bulk=bulk)
 
 
 class MetricLogger:

@@ -4,8 +4,11 @@
 them, ``utils/remat.py`` importing checkpointing only inside its
 functions; the distributed modules ``core/mesh.py`` and
 ``parallel/fsdp.py`` too; the telemetry's ``obs/sink.py``,
-``obs/spans.py``, ``obs/budget.py``, ``obs/heartbeat.py`` and
-``obs/report.py``), or ``chip_smoke.py`` as a module,
+``obs/spans.py``, ``obs/budget.py``, ``obs/heartbeat.py``,
+``obs/report.py``, and the profiler's ``obs/profile.py``, ``obs/devprof.py``,
+``obs/gauges.py``, ``obs/memprof.py`` and ``obs/trace.py``, which keep their
+own copies of the JAX package's JAX-free parsers), or ``chip_smoke.py`` as a
+module,
 pulls in no JAX, flax, optax, orbax, transformers or safetensors and no
 module of the JAX package (and
 importing the script runs none of it); and the port's entry points refuse
@@ -41,7 +44,8 @@ def test_port_imports_nothing_of_jax():
     for name in ("serving.engine", "serving.cache_pool", "train.trainer", "models.llama",
                  "models.t5", "evaluation.generation", "data.prefetch", "utils.remat",
                  "ops.blockwise_ce", "core.mesh", "parallel.fsdp", "obs", "obs.sink",
-                 "obs.spans", "obs.budget", "obs.heartbeat", "obs.report"):
+                 "obs.spans", "obs.budget", "obs.heartbeat", "obs.report", "obs.profile",
+                 "obs.devprof", "obs.gauges", "obs.memprof", "obs.trace"):
         assert f"distributed_llms_example_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -7,10 +7,20 @@ clock through the same span sequences (additivity, nested spans,
 ``--obs off --obs-budget on`` window reset), every ``step_budget`` field
 and every window summary equal; ``aggregate_accounts``; the ``--health``
 and ``--obs-budget`` tri-states over every ``--obs`` mode;
-``detect_laggards`` and ``LaggardStreaks`` over seeded arrivals; and the
+``detect_laggards`` and ``LaggardStreaks`` over seeded arrivals; the
 telemetry's device syncs (``sync_device.syncs``) only at the log cadence,
-in ``TrainerObs`` and in a training run."""
+in ``TrainerObs`` and in a training run.  The gauges (``obs/gauges.py``):
+``mfu`` and ``training_flops_estimate`` equal the JAX package's; the meta
+FLOP count equals a hand count of a 1-layer LLaMA's matmuls and a real CPU
+train step's FlopCounterMode count at 1 and 4 microbatches, and leaves
+remat's recompute out; the collective
+byte account equals what a counting wrapper around torch.distributed sees
+each step carry on two gloo ranks (``data=2``, ``fsdp=2``, and ``fsdp=2``
+over 2 microbatches).  A 3-step CPU run with the profiler window 2:2 emits
+the slice's events; the new flags' defaults are the JAX package's but for
+the card's peak and memory."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -393,3 +403,168 @@ def test_a_training_run_syncs_once_a_log_window(tmp_path, capsys):
     windows = [x for x in lines if x.get("event") == "obs_window"]
     assert len(windows) == 3 and all("health" in w for w in windows)
     capsys.readouterr()
+
+
+# ---------------------------------------------------------------------------
+# the gauges (obs/gauges.py): FLOPs a step, MFU, the collective byte account
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", range(3))
+def test_mfu_and_flops_estimate_match_jax(seed):
+    from distributed_llms_example_tpu.obs import gauges as jax_gauges
+    from distributed_llms_example_tpu_torch.obs import gauges
+
+    rng = np.random.RandomState(seed)
+    for _ in range(20):
+        n, tokens = int(rng.randint(1, 1 << 33)), int(rng.randint(1, 1 << 20))
+        assert gauges.training_flops_estimate(n, tokens) \
+            == jax_gauges.training_flops_estimate(n, tokens)
+        args = (float(rng.rand() * 1e16), float(rng.choice([0.0, rng.rand()])),
+                int(rng.randint(0, 9)), float(rng.choice([989e12, 197e12])))
+        assert gauges.mfu(*args) == jax_gauges.mfu(*args)
+
+
+def test_flop_counter_against_a_hand_count():
+    """One forward and backward of a 1-layer LLaMA at a tiny width: three
+    times the forward's matmul FLOPs (each matmul's backward is two of its
+    size): q, k, v, o, gate, up, down and the head, and the two attention
+    products."""
+    from distributed_llms_example_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.obs.gauges import count_step_flops
+
+    cfg = LlamaConfig(vocab_size=48, hidden_size=16, intermediate_size=24, num_hidden_layers=1,
+                      num_attention_heads=2, max_position_embeddings=64)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    B, S, h, i, V, H, d = 3, 10, 16, 24, 48, 2, 8
+    tokens = B * S
+    forward = (2 * tokens * h * h * 4 + 2 * tokens * h * i * 3 + 2 * tokens * h * V
+               + 2 * (2 * B * H * S * S * d))
+    assert count_step_flops(model, global_batch=B, src_len=S, tgt_len=S,
+                            is_seq2seq=False) == 3 * forward
+
+
+def test_the_flop_gauge_counts_model_flops_not_remat():
+    """A model trained under remat or the vocab-chunked loss gives the
+    gauge the FLOPs of the same model without them (model FLOPs: the
+    recompute is left out), and the ``obs_gauges`` fields say what was
+    counted."""
+    from distributed_llms_example_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.obs.gauges import (
+        FLOPS_COUNTED,
+        count_step_flops,
+        train_step_static_gauges,
+    )
+
+    cfg = LlamaConfig(vocab_size=48, hidden_size=16, intermediate_size=24, num_hidden_layers=2,
+                      num_attention_heads=2, max_position_embeddings=64)
+    fused = dataclasses.replace(cfg, fused_ce=True)
+    counts = [count_step_flops(LlamaForCausalLM(c, device="cpu", remat_policy=rp),
+                               global_batch=2, src_len=12, tgt_len=12, is_seq2seq=False)
+              for c in (cfg, fused) for rp in (None, "full", "dots")]
+    assert len(set(counts)) == 1 and counts[0] > 0
+    gauge = train_step_static_gauges(LlamaForCausalLM(fused, device="cpu", remat_policy="full"),
+                                     model_name="t", data=1, fsdp=1, global_batch=2, src_len=12,
+                                     tgt_len=12, is_seq2seq=False)
+    assert (gauge["flops_per_step"], gauge["flops_counted"]) == (counts[0], FLOPS_COUNTED)
+
+
+def test_flops_do_not_change_with_grad_accumulation():
+    """The gauge equals the FLOPs FlopCounterMode counts over a real CPU
+    train step of the same global batch, at 1 and at 4 microbatches."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.obs.gauges import train_step_static_gauges
+    from distributed_llms_example_tpu_torch.train.optim import (
+        AdamWState,
+        OptimizerSpec,
+        linear_schedule_with_warmup,
+    )
+    from distributed_llms_example_tpu_torch.train.step import train_step
+
+    lm = load_model("bart-test", device="cpu", train=True)
+    named = list(lm.module.named_parameters())
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(3, 200, (8, 32)))
+    batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids),
+             "labels": torch.from_numpy(rng.randint(3, 200, (8, 16)))}
+    spec = OptimizerSpec(learning_rate=1e-3, weight_decay=0.0, warmup_steps=0, total_steps=2,
+                         max_grad_norm=1.0)
+    counted = []
+    for n in (1, 4):
+        state = AdamWState.zeros([p.detach() for _, p in named])
+        with FlopCounterMode(display=False) as fc:
+            train_step(lm.module, named, state, spec, linear_schedule_with_warmup(1e-3, 0, 2),
+                       batch, grad_accum_steps=n, generator=torch.Generator().manual_seed(0))
+        gauge = train_step_static_gauges(lm.module, model_name="bart-test", data=1, fsdp=1,
+                                         global_batch=8, src_len=32, tgt_len=16,
+                                         is_seq2seq=True, grad_accum_steps=n)
+        assert gauge["grad_accum_steps"] == n and gauge["flops_source"] == "flop_counter"
+        counted.append((fc.get_total_flops(), gauge["flops_per_step"]))
+    assert counted[0] == counted[1] and counted[0][0] == counted[0][1] > 0
+
+
+@pytest.mark.parametrize("layout,extra", [("data=2", []), ("fsdp=2", []),
+                                          ("fsdp=2", ["--grad-accum-steps", "2"])])
+def test_comm_account_is_what_the_collectives_carry(tmp_path, layout, extra):
+    """Two gloo ranks of the CLI: every step's collectives, counted by a
+    wrapper around torch.distributed (calls and the bytes of the tensor each
+    defines), equal the startup gauges' byte account."""
+    from torch_dist_helpers import cli_argv, records, spawn
+
+    path = tmp_path / "train.json"
+    path.write_text(json.dumps(records(16)))
+    argv = cli_argv("llama-test", path, tmp_path / "out", "--mesh", layout, "--obs-gauges", "on",
+                    *extra, num_epochs=1)
+    _, _, result = spawn({"argv": argv, "count_collectives": True}, 2, tmp_path)
+    comm = result["comm"]
+    want = {op: [slot["count"], slot["gradient_bytes"] + slot["activation_bytes"]]
+            for op, slot in comm.items() if isinstance(slot, dict)}
+    assert len(result["collectives"]) == 2
+    assert all(step == want for step in result["collectives"]), (result["collectives"], want)
+    grads = sum(s["gradient_bytes"] for s in comm.values() if isinstance(s, dict))
+    assert comm["gradient_bytes"] == grads > 0 and comm["activation_bytes"] > 0
+
+
+def test_a_profiled_cpu_run_emits_the_slices_events(tmp_path, capsys):
+    """Three CPU steps under ``--obs jsonl --obs-gauges on --profile-steps
+    2:2``: the gauges, one capture of [2, 2] and its device account, one
+    memory_window_skipped (the CPU reports no memory), the memory account,
+    ``optimizer_apply_ms`` from the second window on, and a window MFU."""
+    path = tmp_path / "train.json"
+    rng = np.random.RandomState(1)
+    path.write_text(json.dumps([{"dialogue": " ".join(f"w{rng.randint(40)}" for _ in range(12)),
+                                 "summary": f"w{rng.randint(40)}"} for _ in range(12)]))
+    out = tmp_path / "out"
+    train(["--device", "cpu", "--model-ckpt", "llama-test", "--tokenizer", "byte",
+           "--train-file", str(path), "--output-dir", str(out), "--batch-size", "4",
+           "--max-source-length", "32", "--max-target-length", "16", "--pad-to-multiple", "32",
+           "--log-every-steps", "1", "--evaluation-steps", "0", "--obs", "jsonl",
+           "--obs-gauges", "on", "--profile-steps", "2:2"])
+    lines = [json.loads(x) for x in open(out / "obs" / "metrics-p000.jsonl")]
+
+    def named(kind):
+        return [x for x in lines if x.get("event") == kind]
+
+    (gauges,) = named("obs_gauges")
+    assert gauges["flops_source"] == "flop_counter" and gauges["flops_per_step"] > 0
+    assert [c["window"] for c in named("profile_captured")] == [[2, 2]]
+    (acct,) = named("device_account")
+    assert acct["window"] == [2, 2] and acct["buckets_ms"]["attn"] > 0 and acct["lanes"]
+    assert len(named("memory_window_skipped")) == 1 and len(named("memory_account")) == 1
+    budgets = named("step_budget")
+    assert [("optimizer_apply_ms" in b) for b in budgets] == [False, True, True]
+    assert all(w["mfu"] > 0 for w in named("obs_window"))
+    assert named("trace_spans")
+    # --lint (default warn) says once that there is nothing to lint
+    assert capsys.readouterr().out.count('"event": "lint_skipped"') == 1
+
+
+def test_the_new_obs_defaults_are_the_jax_packages_but_the_cards():
+    got, want = TrainConfig(), JaxTrainConfig()
+    for k in ("obs_gauges", "profile_dir", "profile_steps", "profile_trigger",
+              "profile_on_anomaly"):
+        assert getattr(got, k) == getattr(want, k), k
+    # an H100's figures where the JAX package has a TPU v5e's
+    assert (got.obs_peak_tflops, got.hbm_budget_gib) == (989.0, 80.0)
+    assert (want.obs_peak_tflops, want.hbm_budget_gib) == (197.0, 16.0)

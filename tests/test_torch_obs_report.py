@@ -8,11 +8,18 @@ a torn line).  The report's sections (timeline, trends, stragglers,
 budget, recovery, anomalies, recorders, schema errors) equal JAX
 ``build_report``'s, the markdown of each of those sections JAX
 ``render_markdown``'s, and ``main`` with ``--strict`` (and
-``--min-dispatch-efficiency``) exits as JAX's."""
+``--min-dispatch-efficiency``) exits as JAX's.  Two ranks' streams of the
+profiler slice's records (startup gauges on an fsdp mesh, optimizer
+samples, device accounts, span instances, memory accounts and windows, a
+serving account, a postmortem bundle): the comm, device, memory, budget
+and trend sections and their markdown equal JAX's, the overlap and memory
+gates exit as JAX's (and fail with nothing to read), and the Perfetto
+export (``obs/trace.py``, and ``--trace``) equals JAX ``build_trace``'s."""
 
 import json
 import os
 
+import numpy as np
 import pytest
 
 from distributed_llms_example_tpu.obs import report as jax_report
@@ -95,6 +102,21 @@ def test_report_of_a_port_run_is_jaxs(run_dir, capsys):
     capsys.readouterr()
 
 
+def test_the_rebuild_reruns_the_startup_gauges(run_dir):
+    """The host-loss rebuild lays the run out anew: the startup gauges and
+    the memory account of the new layout are logged again, as the JAX
+    trainer re-runs its startup gauges."""
+    lines = [json.loads(x) for x in open(run_dir / "obs" / "metrics-p000.jsonl")]
+    events = [x.get("event") for x in lines]
+    lost, restored = events.index("topology_change"), events.index("reshard_restore")
+    gauges = [i for i, e in enumerate(events) if e == "obs_gauges"]
+    memory = [i for i, e in enumerate(events) if e == "memory_account"]
+    # the new layout's gauges with its model, its memory account after its
+    # first step
+    assert len(gauges) == 2 and gauges[0] < lost < gauges[1] < restored, events
+    assert len(memory) == 2 and memory[0] < lost and memory[1] > restored, events
+
+
 def _write(path, rank, events, extra_lines=()):
     os.makedirs(path / "obs", exist_ok=True)
     with open(path / "obs" / f"metrics-p{rank:03d}.jsonl", "w") as f:
@@ -159,3 +181,139 @@ def test_report_of_two_ranks_is_jaxs(tmp_path, injected, corrupt):
         {"rank": 1, "step": 5, "consecutive_beats": 3}]
     assert got["stragglers"]["heartbeat_laggard_counts"] == {"1": 6}
     assert [i["rank"] for i in got["budget"]["incidents"]] == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# the device, comm and memory sections and the Perfetto export
+# ---------------------------------------------------------------------------
+
+NEW_SECTIONS = ("comm", "device", "memory", "budget", "trends")
+NEW_HEADINGS = ("## Device account", "## Comm account", "## Where did the bytes go",
+                "## Where did the time go", "## Trends")
+
+
+def _new_sections(text: str) -> dict[str, str]:
+    out, key = {}, None
+    for line in text.splitlines():
+        if line.startswith("#"):
+            key = next((h for h in NEW_HEADINGS if line.startswith(h)), None)
+        if key is not None:
+            out[key] = out.get(key, "") + line + "\n"
+    return out
+
+
+def _telemetry_run(path, seed: int, *, postmortem: bool):
+    """Two ranks' streams with every record the slice adds: the startup
+    gauges (an fsdp mesh whose gradient bytes ride all-reduce: the smell),
+    budgets with the optimizer sample, a profile capture and its device
+    account (from seeded events, collectives overlapping compute), span
+    instances with step marks, the memory account, windows and a skip, a
+    serving account, and a postmortem bundle."""
+    from distributed_llms_example_tpu_torch.obs import devprof
+
+    rng = np.random.RandomState(seed)
+    comm = {"all-reduce": {"count": 3, "gradient_bytes": 64 << 20, "activation_bytes": 8},
+            "all-gather": {"count": 5, "gradient_bytes": 8 << 20, "activation_bytes": 0},
+            "reduce-scatter": {"count": 3, "gradient_bytes": 4 << 20, "activation_bytes": 0}}
+    comm.update(total_bytes=(76 << 20) + 8, gradient_bytes=76 << 20, activation_bytes=8)
+    gauges = {"event": "obs_gauges", "peak_flops_per_chip": 989e12, "model": "m",
+              "mesh": {"data": 1, "fsdp": 2}, "global_batch": 8, "grad_accum_steps": 1,
+              "grad_compression": "off", "params": 1000, "tokens_per_step": 64,
+              "flops_per_step": 3.5e9, "flops_source": "flop_counter", "comm": comm}
+    for rank in (0, 1):
+        events = [{"name": n, "hlo_op": "", "ts": float(rng.randint(0, 3000)),
+                   "dur": float(rng.randint(1, 300)), "pid": 1, "tid": int(rng.randint(2))}
+                  for n in rng.choice(["jit/blocks_0/self_attn/dot", "jit/mlp/fc1", "all-gather.1",
+                                       "all-reduce.2", "jit/lm_head/dot", "infeed.3"], 60)]
+        acct = devprof.build_account(events, max_lane_slices=40)
+        acct.pop("event")
+        rec = []
+        if rank == 0:
+            rec.append(gauges)
+        for s in (2, 4, 6):
+            b = _budget(s, 100.0 + s, False)
+            if s > 2:
+                b.update(optimizer_apply_ms=12.5 + s + rank, optimizer_share_of_step=0.1 + s / 100)
+            rec.append(b)
+            rec.append({"event": "obs_window", "step": s, "window_steps": 2, "window_seconds": 0.2,
+                        "step_ms_p50": 90.0 + s, "step_ms_p95": 99.0, "step_ms_max": 100.0,
+                        "straggler": False, "spans": {}, "mfu": 0.123 + s / 1000})
+            rec.append({"event": "memory_window", "step": s, "bytes_in_use": (5 + s) << 30,
+                        "peak_bytes_in_use": (9 + s) << 30, "watermark_delta_bytes": s << 20,
+                        "reserved_bytes": 20 << 30, "bytes_limit": 80 << 30, "devices": 1})
+        rec += [
+            {"event": "trace_spans", "step": 6, "wall0": 1.7e9 + rank, "spans": [
+                ["data_wait", 0.01 * s, 0.001] for s in range(6)] + [
+                ["step_dispatch", 0.01 * s + 0.002, 0.005] for s in range(6)],
+             "steps": [[s, 0.01 * s + 0.009 + rank * 1e-4] for s in range(1, 7)]},
+            {"event": "profile_captured", "path": f"/x/proc{rank:03d}-s000004-000005",
+             "window": [4, 5], "steps": 2},
+            {"event": "device_account", "step": 5, "window": [4, 5], "window_steps": 2, **acct},
+            {"event": "memory_account", "model": "m", "mesh": {"data": 1, "fsdp": 2},
+             "backend": "cuda", "buckets_bytes": {"params": 1 << 30, "optimizer_state": 2 << 30,
+                                                  "grad_accum": 1 << 30, "activations": 9 << 30,
+                                                  "kv_cache": 0, "other": 1 << 20},
+             "bucket_total_bytes": (13 << 30) + (1 << 20), "peak_bytes": (13 << 30) + (1 << 20),
+             "peak_gib": 13.001, "additivity_gap_bytes": 0, "measured": None,
+             "largest_buffers": [{"name": "embed_tokens.weight", "shape": [32000, 4096],
+                                  "shard_shape": [16000, 4096], "dtype": "float32",
+                                  "bytes": 262144000, "module": "embed"}],
+             "hbm_budget_gib": 80.0, "hbm_budget_bytes": 80 << 30, "peak_frac_of_budget": 0.1625,
+             "hbm_headroom_gib": 66.999, "fits_budget": True},
+            {"event": "serve_summary", "memory_account": {
+                "buckets_bytes": {"params": 5 << 30, "kv_cache": 1 << 30}, "peak_bytes": 6 << 30,
+                "hbm_budget_gib": 80.0, "hbm_budget_bytes": 80 << 30, "hbm_headroom_gib": 74.0,
+                "fits_budget": True}},
+        ]
+        if rank == 1:
+            rec.append({"event": "memory_window_skipped", "step": 2, "reason": "no device"})
+        _write(path, rank, rec)
+    if postmortem:
+        with open(path / "obs" / "memory-postmortem-p001.json", "w") as f:
+            json.dump({"schema_version": 1, "event": "memory_postmortem", "step": 7,
+                       "reason": "RuntimeError: CUDA out of memory", "account": {"x": 1},
+                       "watermark_history": [{"step": 6}], "live_buffers_top": [{"bytes": 9}]},
+                      f)
+
+
+@pytest.mark.parametrize("seed,postmortem", [(0, True), (1, False)])
+def test_device_comm_memory_sections_and_trace_are_jaxs(tmp_path, seed, postmortem, capsys):
+    from distributed_llms_example_tpu.obs import trace as jax_trace
+    from distributed_llms_example_tpu_torch.obs import trace
+
+    _telemetry_run(tmp_path, seed, postmortem=postmortem)
+    got, want = report.build_report(str(tmp_path)), jax_report.build_report(str(tmp_path))
+    for k in NEW_SECTIONS:
+        assert got[k] == want[k], k
+    assert got["comm"]["reduce_scatter_smell"]["code"] == "gradient-all-reduce-not-reduce-scatter"
+    assert got["device"]["accounts"] == 2 and bool(got["memory"]["postmortems"]) is postmortem
+    assert got["budget"]["ranks"]["0"]["optimizer_apply_ms"] > 0
+    md = _new_sections(report.render_markdown(got))
+    assert set(md) == set(NEW_HEADINGS)
+    assert md == {k: v for k, v in _new_sections(jax_report.render_markdown(want)).items()
+                  if k in md}
+    for flags in (["--min-overlap-frac", "0.99"], ["--min-overlap-frac", "0.01"],
+                  ["--max-peak-hbm-frac", "0.1"], ["--max-peak-hbm-frac", "0.5"],
+                  ["--min-hbm-headroom-gib", "70"], ["--min-hbm-headroom-gib", "1"]):
+        rcs = [m.main([str(tmp_path), "--strict", *flags]) for m in (report, jax_report)]
+        assert rcs[0] == rcs[1], flags
+    ours, theirs = trace.build_trace(str(tmp_path)), jax_trace.build_trace(str(tmp_path))
+    assert ours["traceEvents"] == theirs["traceEvents"]
+    assert {k: v for k, v in ours["otherData"].items() if k != "source"} == \
+        {k: v for k, v in theirs["otherData"].items() if k != "source"}
+    tids = {e.get("tid") for e in ours["traceEvents"] if e.get("ph") == "X"}
+    assert {trace.TID_SPANS, trace.TID_STEPS, trace.TID_DEVICE} <= tids
+    out = tmp_path / "t.json"
+    assert report.main([str(tmp_path), "--trace", str(out)]) == 0
+    assert json.loads(out.read_text())["traceEvents"] == ours["traceEvents"]
+    capsys.readouterr()
+
+
+def test_gates_with_nothing_to_read_fail(tmp_path, capsys):
+    _write(tmp_path, 0, [_budget(2, 10.0, False)])
+    for flags in (["--min-overlap-frac", "0.5"], ["--max-peak-hbm-frac", "0.9"],
+                  ["--min-hbm-headroom-gib", "1"]):
+        assert report.main([str(tmp_path), "--strict", *flags]) == 1
+        assert jax_report.main([str(tmp_path), "--strict", *flags]) == 1
+    assert report.main([str(tmp_path), "--strict"]) == 0
+    capsys.readouterr()

@@ -13,7 +13,10 @@ and training with it.  Evaluation: ``--val-file`` with
 means, step, epoch) at step 2 and at the epoch's end, the losses are bit
 for bit those of a run without it, and without a validation file (or with
 a missing one) there is no eval line.  The default ``--model-ckpt`` is the
-JAX CLI's."""
+JAX CLI's.  The reference's ``--gradient-accumulation-steps`` (both
+spellings) parses as the JAX CLI's; ``--dry-run`` prints the resolved
+config and exits 0 without a device or a dataset; ``--lint`` and the
+profiler, gauge and memory flags parse."""
 
 import json
 
@@ -337,3 +340,50 @@ def test_no_val_file_means_no_eval(tmp_path, capsys, how):
     trainer = train(_args(_write(tmp_path, 8), "--evaluation-steps", "1", *extra))
     assert trainer.val_ds is None and trainer.evaluate() == {}
     assert not any(x.get("event") == "eval" for x in _lines(capsys))
+
+
+@pytest.mark.parametrize("flag", ["--grad-accum-steps", "--gradient-accumulation-steps",
+                                  "--gradient_accumulation_steps"])
+def test_gradient_accumulation_spellings_parse_as_jax(flag):
+    """The reference's name, as valohai.yaml passes it, in both spellings:
+    each lands on grad_accum_steps, as in the JAX CLI."""
+    from distributed_llms_example_tpu.launch.cli import build_parser as jax_parser
+
+    got = build_train_parser().parse_args([flag, "4"])
+    want = jax_parser().parse_args([flag, "4"])
+    assert got.grad_accum_steps == want.grad_accum_steps == 4
+
+
+def test_dry_run_prints_the_config_and_touches_nothing(tmp_path, capsys):
+    """``--dry-run`` prints the resolved TrainConfig and exits 0 before any
+    device or dataset: ``--device cuda`` on a machine without one and a
+    train file that does not exist."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.core.config import TrainConfig
+
+    assert main(["--dry-run", "--train-file", str(tmp_path / "missing.json"),
+                 "--gradient-accumulation-steps", "2", "--profile-steps", "4:5"]) == 0
+    printed = json.loads(capsys.readouterr().out)
+    assert set(printed) == {f.name for f in dataclasses.fields(TrainConfig)}
+    assert (printed["grad_accum_steps"], printed["profile_steps"], printed["device"]) \
+        == (2, "4:5", "cuda")
+    assert not (tmp_path / "missing.json").exists()
+
+
+def test_lint_and_the_telemetry_flags_parse(capsys):
+    p = build_train_parser()
+    for mode in ("off", "warn", "strict"):
+        assert p.parse_args(["--lint", mode]).lint == mode
+    assert p.parse_args([]).lint == "warn"
+    with pytest.raises(SystemExit):
+        p.parse_args(["--lint", "loud"])
+    args = p.parse_args(["--profile-dir", "pd", "--profile-steps", "3", "--profile-trigger", "t",
+                         "--profile-on-anomaly", "--obs-gauges", "on", "--obs-peak-tflops",
+                         "197", "--hbm-budget-gib", "16"])
+    assert (args.profile_dir, args.profile_steps, args.profile_trigger, args.profile_on_anomaly,
+            args.obs_gauges, args.obs_peak_tflops, args.hbm_budget_gib) == (
+        "pd", "3", "t", True, "on", 197.0, 16.0)
+    with pytest.raises(SystemExit):  # a window that ends before it starts
+        train(["--dry-run", "--profile-steps", "5:2"])
+    assert "--profile-steps window" in capsys.readouterr().err

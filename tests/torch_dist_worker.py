@@ -10,8 +10,10 @@ trained with residual dropout at this rate, a model the CLI's flags do not
 express), ``seed_cycle`` (every dropout seed drawn from this list in
 order, cycling, in place of the host stream), ``no_fold`` (ranks draw
 unfolded seeds), ``next_mesh`` ([data, fsdp]: the layout a host loss
-rebuilds onto, the trainer's ``_next_mesh_override``); or ``ckpt``, a
-checkpoint scenario (``_ckpt``) in place of a run.
+rebuilds onto, the trainer's ``_next_mesh_override``), ``count_collectives``
+(each train step's collectives counted by op, with the bytes of the tensor
+each call defines: an all-reduce's, an all-gather's or reduce-scatter's
+output); or ``ckpt``, a checkpoint scenario (``_ckpt``) in place of a run.
 The result: each step's loss and grad norm (and health numerics, when on),
 the final parameters by port name (gathered whole), what
 ``Trainer.train`` returned and the (data, fsdp) layout it ended on."""
@@ -51,6 +53,57 @@ def _patch_next_mesh(spec) -> None:
         return train(self)
 
     Trainer.train = with_override
+
+
+# torch.distributed call -> the collective opcode of the byte account
+_COUNTED = {"all_reduce": "all-reduce", "all_gather_single": "all-gather",
+            "all_gather_into_tensor": "all-gather", "reduce_scatter_single": "reduce-scatter",
+            "reduce_scatter_tensor": "reduce-scatter"}
+
+
+def _count_collectives(spec) -> list | None:
+    """With ``count_collectives``: every train step's collectives, as
+    ``{op: [calls, bytes]}`` a step (a call made inside another counted
+    call is that call's own business, not counted again)."""
+    if not spec.get("count_collectives"):
+        return None
+    import torch.distributed as dist
+
+    from distributed_llms_example_tpu_torch.train import trainer as trainer_mod
+
+    steps: list[dict] = []
+    state = {"step": None, "depth": 0}
+
+    def counting(real, op):
+        def call(*args, **kwargs):
+            if state["step"] is not None and state["depth"] == 0:
+                out = (args[0] if args else kwargs.get("output_tensor", kwargs.get(
+                    "output", kwargs.get("tensor"))))
+                slot = state["step"].setdefault(op, [0, 0])
+                slot[0] += 1
+                slot[1] += out.numel() * out.element_size()
+            state["depth"] += 1
+            try:
+                return real(*args, **kwargs)
+            finally:
+                state["depth"] -= 1
+        return call
+
+    for name, op in _COUNTED.items():
+        if hasattr(dist, name):
+            setattr(dist, name, counting(getattr(dist, name), op))
+    real_step = trainer_mod.train_step
+
+    def step(*args, **kwargs):
+        state["step"] = {}
+        try:
+            return real_step(*args, **kwargs)
+        finally:
+            steps.append(state["step"])
+            state["step"] = None
+
+    trainer_mod.train_step = step
+    return steps
 
 
 def _loaded(spec):
@@ -150,6 +203,7 @@ def main(path: str) -> None:
     from distributed_llms_example_tpu_torch.models.export import full_state_dict
 
     argv = spec["argv"] + spec.get("rank_argv", {}).get(str(rank), [])
+    collectives = _count_collectives(spec)
     trainer = train(argv, loaded=_loaded(spec))
     history = [{k: float(m[k]) for k in ("loss", "grad_norm", "target_tokens", "param_norm",
                                          "nonfinite_count") if k in m}
@@ -157,7 +211,9 @@ def main(path: str) -> None:
     params = full_state_dict(trainer.model)
     if rank == 0:
         torch.save({"history": history, "params": params, "result": trainer.result,
-                    "mesh": [trainer.mesh_spec.data, trainer.mesh_spec.fsdp]}, spec["out"])
+                    "mesh": [trainer.mesh_spec.data, trainer.mesh_spec.fsdp],
+                    "collectives": collectives,
+                    "comm": trainer.obs._comm_account}, spec["out"])
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 
