@@ -15,6 +15,7 @@ that each run went through its kernels.
     python3 chip_smoke.py    # from the repository root, on one NVIDIA GPU
     python3 chip_smoke.py --phase 13    # the build, then phase 13 alone
     python3 chip_smoke.py --phase 15    # the build, then phase 15 alone
+    python3 chip_smoke.py --phase 16    # the build, then phase 16 alone
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
@@ -157,7 +158,7 @@ Phases (each fatal, non-zero exit, no result line):
      that must break the limits is the probs-dropout seed off by one in
      kernels 2-4
  5c. fault tolerance, phase 5's recipe at bart-large-cnn's widths and
-     4 + 4 layers (seed-0 weights written as an HF directory; the depth
+     2 + 2 layers (seed-0 weights written as an HF directory; the depth
      cut holds the time limit): (a) from that directory with dropout,
      attention_dropout and activation_dropout 0 (weights linked), an
      uninterrupted run with --save-every-steps 3, a run with
@@ -205,12 +206,13 @@ Phases (each fatal, non-zero exit, no result line):
      reported, kernel 1 once per encoder layer (LLaMA: per layer, the
      prompt prefill) and kernel 5 once per decoder layer per step; the
      decode offset shifted by one must break the 1e-4 limit
- 7. t5-large train at t5-large's widths and 12 + 12 layers (seed-0
+ 7. t5-large train at t5-large's widths and 4 + 4 layers (seed-0
      weights, the model built here and handed to the train entry; the
      depth cut holds the time limit): as phase 5 (same recipe and
      records), with kernel 4 once per self-attention layer per step
-     (36 / 36 / 36 / 24 a step for kernels 1 / 2 / 3 / 4) and non-zero
-     gradients in both bucket tables
+     (12 / 12 / 12 / 8 a step for kernels 1 / 2 / 3 / 4) and non-zero
+     gradients in both bucket tables; with --obs jsonl --obs-budget on, as
+     phase 5, and its last step_budget account printed
  7b. t5-large train with attention-probs dropout 0.1: the same model with
      T5Config's attn_dropout_rate (which no HF T5 config sets); phase 7's checks, and every launch of
      kernels 1-4 a probs-dropout instance on the tensor cores
@@ -235,7 +237,8 @@ Phases (each fatal, non-zero exit, no result line):
      steps at staggered per-row offsets, kernel path vs plain path within
      1e-4; the per-row relative bias shifted by one must break it
  11. llama-2-7b serve: the CLI's serve entry, bf16, seed 0, 16 byte-token
-     prompts of 200-1024 tokens, 8 slots, 128 new tokens, source 1024,
+     prompts of 200-1024 tokens (two waves: the second admitted into the
+     slots the first freed), 8 slots, 128 new tokens, source 1024,
      once with --paged-kv and once flat (the T5 model freed first);
      counters zeroed before and read after each: paged decode = attention
      modules x decode rounds and flash decode 0 on the paged run, the
@@ -283,12 +286,13 @@ Phases (each fatal, non-zero exit, no result line):
      torch.cuda.max_memory_allocated read beside it; the memory account's
      params + optimizer_state equal to the state's bytes; the gauge FLOPs
      (flop_counter) and window MFU beside this script's own MFU;
-     optimizer_apply_ms beside kernel 8's profiler time; obs.report --trace
-     loads with host spans and device lanes
+     optimizer_apply_ms beside kernel 8's profiler time; no device sync
+     (cudaStreamSynchronize or other) inside the optimizer tail's scope;
+     obs.report --trace loads with host spans and device lanes
  14. data-parallel and FSDP training: a world-1 NCCL group, the
      FSDP-wrapped llama-2-7b-width step bit-equal to the unwrapped one,
      kernel 8's split norm, the CLI on two gloo ranks of cuda:0
- 15. elastic fine-tuning: bart-large-cnn's widths at 2 + 2 layers, seed-0
+ 15. elastic fine-tuning: bart-large-cnn's widths at 1 + 1 layers, seed-0
      weights written by the port's export, its residual dropout 0.1, bf16,
      48 records (6 steps), --obs jsonl --obs-budget on, a save every 2
      steps and --chaos host_loss@3. (a) over a world-1 NCCL group, log
@@ -314,14 +318,42 @@ Phases (each fatal, non-zero exit, no result line):
      exactly one memory-postmortem-p000.json with the memory account and
      the memory windows of steps 1-2, obs.report renders it; an oversize
      torch.empty on the card raises an error is_resource_exhausted accepts
- 16. a {"kernels_unported": []} line (every TPU kernel has a port), the
+ 16. the serving features at llama-2-7b's full width, one loaded model
+     (bf16, seed 0, byte tokenizer), through the serve entry's loaded=:
+     first kernels 5 and 6 at the verify shape (Q = 4) and int8, each row
+     of a Q = 4 launch bit-equal to a Q = 1 launch at that row's offset
+     (bf16, fp32, int8), within 2 bf16 ulps of the plain version's
+     largest entry and timed beside it and SDPA on the same dequantized
+     K/V; then 8 prompts, 8 slots, 64 new tokens, blocks
+     of 64: plain paged, --kv-cache-dtype int8 paged and flat (their tokens
+     equal),
+     --spec-tokens 3 n-gram and with a 2-layer
+     llama-2-7b-width draft directory, and a planted fault (one more draft
+     accepted than matched); 16 multi-turn prompts (a 512-token system
+     prefix, 64-256-token tails, blocks of 128) with --prefix-cache
+     --prefix-cache-budget-gib 2 against the same prompts cold (15 hits,
+     15 x 512 tokens saved).  Each run: launches of kernels
+     1, 5 and 6 equal to the counts its ledger and layer counts give, the
+     pool drained with exact refcounts; the plain paged, n-gram and draft
+     runs: in a profiler trace of 2 steady rounds of a fresh session, one
+     device sync, one device-to-host copy and no scalar read a round.
+     Speculative and warm runs equal their plain runs up to each request's
+     first divergence, where the run's token lies within 4x the phase's
+     own route floor (a verify block against single-row steps, steps
+     against a teacher-forced prefill) of the plain run's top logit (so its
+     top-2 gap does too); the planted fault must break that.  (e) a
+     ballast tensor leaves 256 MiB: a session's step runs out of memory,
+     the postmortem bundle (its kv_cache bytes the engine's account) is
+     written and the error re-raised
+ 17. a {"kernels_unported": []} line (every TPU kernel has a port), the
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
      kernel 8 both entries of its source; kernels 1 and 5 count phase 6c's
      eval launches too, kernels 1-3, 7 and 8 phase 5c's resumed and rewind
      runs, kernels 1, 2, 3, 5 and 8 phase 13's train and eval, kernels 1-3,
      7 and 8 phase 14's step and phase 15's two host-loss runs, kernel 1
-     phase 11's prompt prefills),
+     phase 11's prompt prefills, kernels 1, 5 and 6 phase 16's runs, and
+     kernels 5 and 6 carry phase 16's verify_q4 and int8 times),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -2597,8 +2629,9 @@ FT_PREEMPT_AT = 4
 FT_REWIND_SAVE_EVERY = 2
 FT_NAN_AT = 3
 # phase 5c's depth (bart-large-cnn's widths): its nine saves of the whole
-# training state at 12 + 12 layers held the run near its time limit
-FT_LAYERS = 4
+# training state at 12 + 12 layers held the run near its time limit, and
+# at 4 + 4 phase 16's serving runs did
+FT_LAYERS = 2
 # health numerics from kernel 8's float64 per-leaf sums against the same
 # numbers from its plain version's (fp32 sums per leaf): relative
 HEALTH_RTOL = 1e-6
@@ -2846,8 +2879,9 @@ def health_numerics_check(torch, t) -> dict:
 
 
 # phase 7's depth (t5-large's widths): at 24 + 24 layers its two runs' saves
-# of the whole training state held the run near its time limit
-T5_TRAIN_LAYERS = 12
+# of the whole training state held the run near its time limit, and at 12 +
+# 12 and 6 + 6 phase 16's serving runs did
+T5_TRAIN_LAYERS = 4
 
 
 def t5_large_train_model(torch, attn_dropout_rate: float = 0.0):
@@ -3736,8 +3770,12 @@ def ragged_serve(fa, cli, args) -> None:
         fail(f"ragged serve run: {len(outs)} records, launches {launches} vs {want}")
 
 
+# two waves of the 8 slots: the second is admitted into freed slots, whose
+# stale K/V its masks must hide (the paged and the flat run's tokens equal)
+LLAMA_SERVE_PROMPTS = 16
 LLAMA_ARGS = [
-    "--model-ckpt", "llama-2-7b", "--max-slots", "8", "--max-new-tokens", "128",
+    "--model-ckpt", "llama-2-7b", "--num-prompts", str(LLAMA_SERVE_PROMPTS), "--max-slots", "8",
+    "--max-new-tokens", "128",
     "--max-source-length", "1024", "--compute-dtype", "bfloat16", "--seed", "0",
     "--log-every-steps", "64", "--lint", "off",
 ]
@@ -3816,7 +3854,7 @@ def llama_serve_phase(torch, fa, cli):
                            blocks_in_use_at_end=engine.pool.blocks_in_use,
                            admit_deferrals=stats.admit_deferrals)
         say(numbers)
-        if records != 16 or stats.decode_steps == 0 or launches != want:
+        if records != LLAMA_SERVE_PROMPTS or stats.decode_steps == 0 or launches != want:
             fail(f"llama-2-7b {name} serve: {records} records, launches {launches} vs {want}")
         if name == "paged" and engine.pool.blocks_in_use != 0:
             fail(f"llama-2-7b paged serve left {engine.pool.blocks_in_use} blocks in use")
@@ -4547,27 +4585,33 @@ def llama_obs_checks(torch, trainer, out_dir: str, *, per_step: dict, mem_pairs:
     # where the host waits inside its enqueue: the CUDA runtime calls by
     # their summed time (a diagnostic, no limit)
     runtime: dict[str, list[float]] = {}
-    waits = []
+    waits, syncs = [], []
     for e in raw:
         if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver"):
             slot = runtime.setdefault(e["name"], [0, 0.0, 0.0])
             slot[0] += 1
             slot[1] += float(e.get("dur", 0.0)) / 1e3
             slot[2] = max(slot[2], float(e.get("dur", 0.0)) / 1e3)
-            if "Synchronize" in e["name"] and float(e.get("dur", 0.0)) > 1000.0:
-                waits.append(e)
-    # each wait over 1 ms and the ops (and scopes) open around it on its
-    # thread, outermost first
-    blocking = []
-    for w in waits:
+            if "Synchronize" in e["name"]:
+                syncs.append(e)
+                if float(e.get("dur", 0.0)) > 1000.0:
+                    waits.append(e)
+    def around(w) -> list[str]:
+        """The ops (and scopes) open around a runtime call on its thread,
+        outermost first."""
         t0, t1 = float(w["ts"]), float(w["ts"]) + float(w["dur"])
-        around = sorted((e for e in raw if e.get("ph") == "X"
-                         and e.get("cat") in ("cpu_op", "user_annotation")
-                         and (e.get("pid"), e.get("tid")) == (w.get("pid"), w.get("tid"))
-                         and float(e["ts"]) <= t0 and float(e["ts"]) + float(e["dur"]) >= t1),
-                        key=lambda e: float(e["ts"]))
-        blocking.append([w["name"], round(float(w["dur"]) / 1e3, 3),
-                         [e["name"][:60] for e in around][-8:]])
+        return [e["name"][:60] for e in sorted(
+            (e for e in raw if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "user_annotation")
+             and (e.get("pid"), e.get("tid")) == (w.get("pid"), w.get("tid"))
+             and float(e["ts"]) <= t0 and float(e["ts"]) + float(e["dur"]) >= t1),
+            key=lambda e: float(e["ts"]))]
+
+    # each wait over 1 ms and the ops open around it; and every device sync
+    # of any length inside the optimizer tail, which must wait for nothing
+    # (a host value enters the step's scalars through a fill, not a copy)
+    blocking = [[w["name"], round(float(w["dur"]) / 1e3, 3), around(w)[-8:]] for w in waits]
+    tail_syncs = [[w["name"], round(float(w["dur"]) / 1e3, 3), around(w)[-8:]] for w in syncs
+                  if "dllm/optimizer_apply_block" in around(w)]
     del raw
     by_kernel: dict[str, dict[str, int]] = {t: {} for t in KERNEL_TAGS}
     unscoped: dict[str, int] = {}
@@ -4603,7 +4647,9 @@ def llama_obs_checks(torch, trainer, out_dir: str, *, per_step: dict, mem_pairs:
          "unscoped_other_kernels": dict(sorted(unscoped.items(), key=lambda kv: -kv[1])[:12]),
          "host_runtime_calls_count_ms_max": dict(sorted(runtime.items(),
                                                         key=lambda kv: -kv[1][1])[:6]),
-         "host_waits_ms_inside": blocking})
+         "host_waits_ms_inside": blocking, "optimizer_tail_syncs": tail_syncs})
+    if tail_syncs:
+        fail(f"llama device account: the optimizer tail waits on the card: {tail_syncs}")
     for tag, counter in KERNEL_TAGS.items():
         want = per_step[counter] * window_steps
         got = by_kernel[tag]
@@ -4988,8 +5034,10 @@ def llama_attention_time(torch, fa) -> dict:
 # 8's partial norm mode split in two tables on the card; (b) two ranks on
 # cuda:0 over gloo (NCCL takes one rank a GPU) running the CLI with
 # --mesh fsdp=2, fp32, against the same CLI run on one rank within
-# GRAD_LIMITS' loss and norm terms.
-DIST_LAYERS = 2
+# GRAD_LIMITS' loss and norm terms.  One layer since phase 16 joined the
+# run: (b)'s fp32 gradients cross gloo through host memory every step, and
+# at 2 layers (b) took 73 s of the run's time limit
+DIST_LAYERS = 1
 DIST_STEPS = 3
 DIST_RECORDS = 24
 DIST_ARGS = [
@@ -5333,11 +5381,11 @@ def distributed_phase(torch, fa, fd, fo, cli) -> tuple[dict, dict]:
 
 
 # phase 15: elastic fine-tuning at bart-large-cnn's published widths (d_model
-# 1024, 16 heads, FFN 4096, its vocabulary) cut to 2 + 2 of its 12 + 12
-# layers, its residual dropout 0.1 (kernel 7 on the path) and attention
+# 1024, 16 heads, FFN 4096, its vocabulary) cut to 1 + 1 of its 12 + 12
+# layers (2 + 2 until phase 16 joined the run), its residual dropout 0.1 (kernel 7 on the path) and attention
 # dropout 0; 48 records (6 steps), a save every 2 steps, the host lost after
 # step 3 (so step 2 is restored and step 3 replayed: 7 steps launched)
-ELASTIC_LAYERS = 2
+ELASTIC_LAYERS = 1
 ELASTIC_SAVE_EVERY = 2
 ELASTIC_HOST_LOSS_AT = 3
 ELASTIC_ARGS = [
@@ -5596,7 +5644,7 @@ OOM_AT = 3
 
 
 def oom_postmortem_phase(torch, cli, base: list[str]) -> None:
-    """Phase 15e: phase 15's BART (2 + 2 layers) through the CLI with
+    """Phase 15e: phase 15's BART (1 + 1 layers) through the CLI with
     ``--chaos oom@OOM_AT``: the run raises the injected out-of-memory error,
     which ``is_resource_exhausted`` accepts, and leaves exactly one
     parseable ``memory-postmortem-p000.json`` carrying the memory account
@@ -5665,6 +5713,572 @@ def oom_postmortem_phase(torch, cli, base: list[str]) -> None:
     shutil.rmtree(out, ignore_errors=True)
 
 
+# phase 16: the JAX engine's serving features at llama-2-7b's full width
+# (6.74 B parameters, bf16, seed 0, byte tokenizer), one loaded model for
+# every run: (a) the int8 KV cache paged and flat, (b) n-gram speculative
+# decode and (c) a 2-layer llama-2-7b-width draft model, both paged, each
+# against the plain paged run on the same prompts; (d) the prefix cache
+# over multi-turn prompts against the same prompts cold; (e) a real CUDA
+# out-of-memory error in a session's step with --postmortem-dir
+SERVE16_ARGS = ["--model-ckpt", "llama-2-7b", "--num-prompts", "8", "--max-slots", "8",
+                "--max-new-tokens", "64",
+                "--max-source-length", "1024", "--kv-block-size", "64", "--compute-dtype",
+                "bfloat16", "--seed", "0", "--log-every-steps", "0", "--lint", "off"]
+SPEC_K = 3
+# run (d): one 512-token system prefix, 64-256-token tails, 16 requests,
+# pool blocks of 128 slots (768 + 128 = 7 blocks a row); a 256 bucket, so
+# that a warm tail is prefilled at 256 rows, not at the prompt width
+PREFIX16_ARGS = ["--model-ckpt", "llama-2-7b", "--max-slots", "8", "--max-new-tokens", "128",
+                 "--max-source-length", "768", "--kv-block-size", "128", "--compute-dtype",
+                 "bfloat16", "--seed", "0", "--log-every-steps", "0", "--lint", "off",
+                 "--paged-kv", "--prefill-buckets", "256"]
+PREFIX16_SYS, PREFIX16_TAILS = 512, (64, 256)
+# a divergence from the plain run is rounding when the other run's token
+# there lies within this many times the phase's own route floor of the
+# plain run's top logit: each of the two tokens' logits may move by the
+# floor between the two runs, and again between the plain run and the
+# teacher-forced pass that reads its logits
+ROUTE_FLOOR_FACTOR = 4
+
+
+def write_prefix_prompts(path: str, n: int = 16) -> None:
+    """Run (d)'s prompts: one 512-byte system prefix, then a 64-256-byte
+    tail each (byte tokenizer: a byte a token, no eos)."""
+    import numpy as np
+
+    rng = np.random.RandomState(16)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
+    head = "".join(rng.choice(alphabet, PREFIX16_SYS))
+    texts = [head + "".join(rng.choice(alphabet, rng.randint(PREFIX16_TAILS[0],
+                                                             PREFIX16_TAILS[1] + 1)))
+             for _ in range(n)]
+    with open(path, "w") as f:
+        json.dump(texts, f)
+
+
+def draft_hf_dir(torch) -> str:
+    """Run (c)'s draft: llama-2-7b's widths at 2 layers (phase 14's
+    directory when it is there)."""
+    path = os.path.join(WORK, "llama-2-7b-2l-hf")
+    if os.path.exists(os.path.join(path, "config.json")):
+        return path
+    return llama_hf_dir(torch, 2)
+
+
+def round_host_traffic(torch, engine, reqs: list[list[int]], n: int = 2) -> dict:
+    """What ``n`` steady rounds of a fresh session on the served engine
+    read back from the card, per round, from a torch.profiler trace: the
+    CUDA runtime's device syncs inside the rounds by name (a blocking copy
+    either way waits in cudaStreamSynchronize), the device-to-host copies,
+    and the scalar reads (``aten::_local_scalar_dense``)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sess = engine.open()
+    for r in reqs:
+        sess.submit(r)
+    for _ in range(2):  # the admission (the draft's prefill too) and the first two rounds
+        sess.step()
+    torch.cuda.synchronize()
+    steps = sess.stats.decode_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke/rounds"):
+            for _ in range(n):
+                sess.step()
+    torch.cuda.synchronize()
+    events = prof.events()
+    win = next(e.time_range for e in events if e.name == "smoke/rounds")
+    inside = [e for e in events if win.start <= e.time_range.start <= win.end]
+    syncs: dict[str, float] = {}
+    copies: dict[str, float] = {}
+    for e in events:
+        if e.name.startswith("Memcpy"):
+            copies[e.name] = copies.get(e.name, 0) + 1 / n
+    for e in inside:
+        if "Synchronize" not in e.name:
+            continue
+        # the ops open around the sync on its thread, innermost last
+        t = e.time_range
+        ops = sorted((o for o in inside if o.thread == e.thread and o is not e
+                      and not o.name.startswith("cuda") and o.time_range.start <= t.start
+                      and o.time_range.end >= t.end), key=lambda o: o.time_range.start)
+        key = " > ".join([o.name[:40] for o in ops][-5:] + [e.name])
+        syncs[key] = syncs.get(key, 0) + 1 / n
+    return {"rounds": sess.stats.decode_steps - steps,
+            "runtime_calls": sum(e.name.startswith("cuda") for e in inside),
+            "syncs_per_round": syncs, "copies_per_round": copies,
+            "dtoh_copies_per_round": sum(v for k, v in copies.items() if "DtoH" in k),
+            "scalar_reads_per_round": sum(e.name == "aten::_local_scalar_dense"
+                                          for e in inside) / n}
+
+
+def serve16(torch, fa, cli, lm, name: str, argv: list[str], prompts: str, *,
+            reads: list[list[int]] | None = None) -> dict:
+    """One run of the CLI's serve entry on the loaded model: launches of
+    kernels 1, 5 and 6 held to the counts the engine's ledger and the
+    layer counts give, the pool drained with exact refcounts; with
+    ``reads`` (the run's prompts), a fresh session's steady rounds read
+    back one copy of their tokens each, behind one device sync
+    (``round_host_traffic``)."""
+    from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
+
+    out = os.path.join(WORK, f"serve16_{name}.jsonl")
+    fa.flash_attention.launches = fa.flash_decode.launches = 0
+    fa.flash_decode_paged.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, outs = cli.serve([*argv, "--prompts-file", prompts, "--output-file", out],
+                             loaded=lm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.flash_attention.launches,
+                "flash_decode": fa.flash_decode.launches,
+                "flash_decode_paged": fa.flash_decode_paged.launches}
+    st = engine.last_stats
+    layers = sum(isinstance(m, MultiHeadAttention) for m in engine.model.modules())
+    # kernel 1: a layer's prompt prefill from cache slot 0 per cold chunk
+    # (not into an int8 cache: those prompts take the plain path, wider
+    # than 8 rows); kernel 6 (paged) or 5 (flat): a layer per decode round
+    # or verify round (at Q = k + 1); warm tails wider than 8 rows take the
+    # plain path; a draft model: a layer per prompt chunk (kernel 1) and
+    # per catch-up pass and draft step (kernel 5)
+    int8 = engine.kv_dtype == "int8"
+    steps = layers * st.decode_steps
+    want = {"flash_attention_fwd": 0 if int8 else layers * st.prefill_calls,
+            "flash_decode": 0 if engine.paged else steps,
+            "flash_decode_paged": steps if engine.paged else 0}
+    drafter = engine.drafter
+    if drafter is not None:
+        dl = sum(isinstance(m, MultiHeadAttention) for m in drafter.model.modules())
+        want["flash_attention_fwd"] += dl * drafter.prefill_calls
+        want["flash_decode"] += dl * drafter.rounds * engine.spec
+    p50, p95 = st.ttft_percentiles()
+    line = {"phase": f"serve16_{name}", "wall_s": wall, "attention_modules": layers,
+            "kv_cache_dtype": engine.kv_dtype, "paged": engine.paged,
+            "decode_steps": st.decode_steps, "prefill_calls": st.prefill_calls,
+            "warm_admit_calls": st.warm_admit_calls, "launches": launches, "expected": want,
+            "decode_tokens": st.decode_tokens, "decode_tokens_per_sec": st.tokens_per_sec(),
+            "ttft_p50_ms": p50 * 1e3, "ttft_p95_ms": p95 * 1e3, **st.ttft_decomposition(),
+            "prefill_seconds": st.prefill_seconds, "decode_seconds": st.decode_seconds,
+            "cache_bytes_resident": st.cache_bytes_resident,
+            "bytes_per_live_token": st.bytes_per_live_token,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    if engine.paged:
+        line.update(pool_blocks=engine.pool.num_blocks, kv_block_size=engine.block_size,
+                    blocks_in_use_at_end=engine.pool.blocks_in_use,
+                    ref_violations=engine.pool.ref_invariant_violations([]),
+                    admit_deferrals=st.admit_deferrals)
+    if engine.prefix:
+        line.update(prefix_lookups=st.prefix_lookups, prefix_hits=st.prefix_hits,
+                    prefill_tokens_total=st.prefill_tokens_total,
+                    prefill_tokens_saved=st.prefill_tokens_saved,
+                    pool_blocks_warm=engine.pool.blocks_warm)
+    if engine.spec:
+        line.update(spec_steps=st.spec_steps, spec_slot_rounds=st.spec_slot_rounds,
+                    spec_drafted=st.spec_drafted, spec_accepted=st.spec_accepted,
+                    spec_emitted=st.spec_emitted,
+                    accepted_tokens_per_step=st.spec_emitted / max(st.spec_slot_rounds, 1),
+                    acceptance_rate=st.spec_accepted / max(st.spec_drafted, 1),
+                    draft_rounds=drafter.rounds if drafter else None)
+    say(line)
+    if launches != want or st.decode_steps == 0 or len(outs) != st.sequences:
+        fail(f"serve16 {name}: launches {launches} vs {want}, {st.decode_steps} decode rounds")
+    if engine.paged and (engine.pool.blocks_in_use or line["ref_violations"]):
+        fail(f"serve16 {name}: {engine.pool.blocks_in_use} blocks left in use, "
+             f"{line['ref_violations']}")
+    if engine.spec and st.spec_emitted != st.decode_tokens:
+        fail(f"serve16 {name}: spec_emitted {st.spec_emitted} != decode_tokens {st.decode_tokens}")
+    if reads is not None:
+        traffic = round_host_traffic(torch, engine, reads)
+        say({"phase": f"serve16_{name}_round_host_traffic", **traffic})
+        if traffic["rounds"] != 2 or not traffic["runtime_calls"] \
+                or sum(traffic["syncs_per_round"].values()) != 1 \
+                or traffic["dtoh_copies_per_round"] != 1 or traffic["scalar_reads_per_round"]:
+            fail(f"serve16 {name}: a steady round reads back more than its tokens, behind "
+                 f"more than one device sync: {traffic}")
+    # no free_cuda() between the runs: the next run reuses the allocator's
+    # cached blocks (a collection and an empty cache a run cost seconds)
+    del engine
+    return {"outs": outs, "stats": st, "launches": launches, "line": line}
+
+
+def divergences(plain: list[list[int]], other: list[list[int]]) -> list[tuple[int, int]]:
+    """(request, token index) of each request's first token that differs
+    from the plain run's (a length difference counts at the shorter
+    end)."""
+    out = []
+    for i, (a, b) in enumerate(zip(plain, other)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None and len(a) != len(b):
+            j = min(len(a), len(b))
+        if j is not None:
+            out.append((i, j))
+    return out
+
+
+def padded_batch(torch, seqs: list[list[int]], dev):
+    """Right-padded (ids, mask) of token sequences on ``dev``."""
+    width = max(len(s) for s in seqs)
+    ids = torch.zeros((len(seqs), width), dtype=torch.long, device=dev)
+    mask = torch.zeros((len(seqs), width), dtype=torch.int32, device=dev)
+    for r, s in enumerate(seqs):
+        ids[r, : len(s)] = torch.as_tensor(s, device=dev)
+        mask[r, : len(s)] = 1
+    return ids, mask
+
+
+def logit_gaps(torch, model, prompts: list[list[int]], plain: list[list[int]],
+               other: list[list[int]], where: list[tuple[int, int]]) -> list[list[float]]:
+    """At each divergence, the plain run's logits read by a teacher-forced
+    prefill of the prompt and the plain run's tokens before it (kernel 1,
+    one pass): [its top-2 gap, its gap from the top to the other run's
+    token there] (the latter the top-2 gap where the other run has no
+    token there)."""
+    from distributed_llms_example_tpu_torch.evaluation.generation import causal_prefill
+
+    if not where:
+        return []
+    ids, mask = padded_batch(torch, [prompts[i] + plain[i][:j] for i, j in where],
+                             next(model.parameters()).device)
+    with torch.inference_mode():
+        _, _, _, first = causal_prefill(model, ids, mask, 1)
+    first = first.float()
+    top = first.topk(2, dim=-1).values
+    out = []
+    for r, (i, j) in enumerate(where):
+        top2 = float(top[r, 0] - top[r, 1])
+        to_other = float(top[r, 0] - first[r, other[i][j]]) if j < len(other[i]) else top2
+        out.append([top2, to_other])
+    return out
+
+
+def route_floor(torch, model, prompts: list[list[int]]) -> dict:
+    """The logit noise between routes that compute the same function on
+    this model in bf16: (i) a verify block of k + 1 rows (kernel 5 at Q = 4)
+    against k + 1 single-row decode steps (Q = 1) over the same prefilled
+    cache; (ii) those decode steps against the teacher-forced prefill of
+    the same tokens (kernel 1).  The largest |Δ logit| of each."""
+    from distributed_llms_example_tpu_torch.evaluation.generation import causal_prefill
+    from distributed_llms_example_tpu_torch.ops.mha import KVCache
+
+    dev = next(model.parameters()).device
+    rows = prompts[:8]
+    ids, mask = padded_batch(torch, rows, dev)
+    P = ids.shape[1]
+    K1 = SPEC_K + 1
+    x = torch.randint(4, 120, (len(rows), K1), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    with torch.inference_mode():
+        cache, full_mask, lengths, _ = causal_prefill(model, ids, mask, K1)
+        offs = torch.full((len(rows),), P, dtype=torch.int32, device=dev)
+        fm = full_mask.clone()
+        fm[:, P:] = 1
+        block = model(x, fm, positions=lengths.long()[:, None] + torch.arange(K1, device=dev),
+                      cache=[KVCache(c.k.clone(), c.v.clone()) for c in cache],
+                      cache_positions=offs).float()
+        singles = []
+        for j in range(K1):
+            m = full_mask.clone()
+            m[:, P:P + j + 1] = 1
+            singles.append(model(x[:, j:j + 1], m, positions=(lengths.long() + j)[:, None],
+                                 cache=cache, cache_positions=offs + j)[:, 0].float())
+        singles = torch.stack(singles, 1)
+        # (ii): the prefill of prompt + x[:, :j+1] reads row j's logits
+        # at its last position
+        forced = [causal_prefill(model, *padded_batch(
+            torch, [list(r) + x[b, : j + 1].tolist() for b, r in enumerate(rows)], dev), 1)[3]
+            .float() for j in range(K1)]
+        forced = torch.stack(forced, 1)
+    out = {"verify_vs_steps": float((block - singles).abs().max()),
+           "steps_vs_prefill": float((singles - forced).abs().max()),
+           "max_abs_logit": float(singles.abs().max())}
+    out["floor"] = max(out["verify_vs_steps"], out["steps_vs_prefill"])
+    return out
+
+
+def end_to_end_check(torch, lm, name: str, prompts: list[list[int]], plain: list[list[int]],
+                     other: list[list[int]], floor: float) -> dict:
+    """The serving features' end-to-end check: each request's tokens equal
+    the plain run's up to its first divergence, where the other run's
+    token lies within ROUTE_FLOOR_FACTOR × the route floor of the plain
+    run's top logit (so the plain run's top-2 gap does too): a token a
+    rounding of the same logits could have picked.  Each divergence is
+    [request, token, top-2 gap, gap to the other run's token]."""
+    where = divergences(plain, other)
+    gaps = logit_gaps(torch, lm.module, prompts, plain, other, where)
+    limit = ROUTE_FLOOR_FACTOR * floor
+    same = sum(x == y for a, b in zip(plain, other) for x, y in zip(a, b))
+    total = sum(max(len(a), len(b)) for a, b in zip(plain, other))
+    rows = [[i, j, *g] for (i, j), g in zip(where, gaps)]
+    return {"run": name, "token_match_rate": same / max(total, 1), "positions": total,
+            "requests_equal": len(plain) - len(where), "divergences": rows,
+            "gap_limit": limit, "unexplained": [r for r in rows if r[3] > limit]}
+
+
+def verify_kernel_phase(torch, fa) -> dict:
+    """Kernels 5 and 6 at the verify shape (Q = k + 1 = 4) and in their int8
+    branch, at the llama-2-7b step's shape (``paged_case``): each row of a
+    Q = 4 launch bit-equal to a Q = 1 launch at that row's offset over the
+    same cache, bf16, fp32 and int8; then times at Q = 4 (bf16) and int8
+    Q = 1, each beside the plain version and SDPA on the same (dequantized,
+    bf16) K/V, with the bound.  Returns {kernel: {"verify_q4": numbers,
+    "int8": numbers}}."""
+    from functools import partial
+
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    equal = {}
+    for dtype, int8 in ((torch.bfloat16, False), (torch.float32, False), (torch.bfloat16, True)):
+        q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=dtype, Q=SPEC_K + 1, gen=gen)
+        s6, s5 = {}, {}
+        if int8:
+            (kp, ks), (vp, vs) = fa.quantize_kv(kp), fa.quantize_kv(vp)
+            s6 = dict(k_scale_pool=ks, v_scale_pool=vs)
+            s5 = dict(k_scale=fa.gather_blocks(ks, bt), v_scale=fa.gather_blocks(vs, bt))
+        vk, vv = fa.gather_blocks(kp, bt), fa.gather_blocks(vp, bt)
+        o6 = fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt, offsets=off, **s6)
+        o5 = fa.flash_decode(q, vk, vv, bias, offsets=off, **s5)
+        for r in range(SPEC_K + 1):
+            qr = q[:, :, r:r + 1].contiguous()
+            r6 = fa.flash_decode_paged(qr, kp, vp, bias, block_tables=bt, offsets=off + r, **s6)
+            r5 = fa.flash_decode(qr, vk, vv, bias, offsets=off + r, **s5)
+            name = f"{'int8' if int8 else dtype} row {r}"
+            equal[f"kernel6 {name}"] = bool(torch.equal(o6[:, :, r], r6[:, :, 0]))
+            equal[f"kernel5 {name}"] = bool(torch.equal(o5[:, :, r], r5[:, :, 0]))
+    say({"phase": "verify_rows_vs_single_rows", "bit_equal": equal})
+    if not all(equal.values()):
+        fail(f"a Q = {SPEC_K + 1} decode launch differs from Q = 1 launches at its rows' "
+             f"offsets: {[k for k, v in equal.items() if not v]}")
+    out: dict[str, dict] = {"flash_decode": {}, "flash_decode_paged": {}}
+    timed = []
+    for what, Q, int8 in (("verify_q4", SPEC_K + 1, False), ("int8", 1, True)):
+        q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=torch.bfloat16, Q=Q, gen=gen)
+        s6, s5, esz = {}, {}, 2
+        if int8:
+            (kp, ks), (vp, vs) = fa.quantize_kv(kp), fa.quantize_kv(vp)
+            s6 = dict(k_scale_pool=ks, v_scale_pool=vs)
+            s5 = dict(k_scale=fa.gather_blocks(ks, bt), v_scale=fa.gather_blocks(vs, bt))
+            esz = 1
+        vk, vv = fa.gather_blocks(kp, bt), fa.gather_blocks(vp, bt)
+        dk = fa.dequantize_kv(vk, s5["k_scale"]).to(torch.bfloat16) if int8 else vk
+        dv = fa.dequantize_kv(vv, s5["v_scale"]).to(torch.bfloat16) if int8 else vv
+        row = torch.arange(Q, device="cuda")[None, None, :, None]
+        k_pos = torch.arange(vk.shape[2], device="cuda")[None, None, None, :]
+        sdpa_mask = (bias > -1) & (k_pos <= off[:, None, None, None] + row)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, dk, dv, attn_mask=sdpa_mask),
+                         per_rep=100)
+        alloc = (bt < kp.shape[0]).repeat_interleave(128, dim=1) & (bias[:, 0, 0, :] > -1)
+        seen = alloc[:, None, :] & (k_pos[0, 0] <= off[:, None, None] + row[0, 0])
+        live = int(seen[:, -1].sum())
+        H, D = 32, 128
+        # K/V of every slot the output depends on read once (int8: a byte
+        # an element and an fp32 scale a slot each), q, o, the bias, the
+        # tables and the offsets
+        nbytes = (2 * H * live * (D * esz + (4 if int8 else 0)) + 2 * q.numel() * 2
+                  + bias.numel() * 4 + bt.numel() * 4 + 8 * 4)
+        b_ms, b_by = bound(4.0 * H * D * float(seen.sum()), nbytes)
+        # partials bind this case's tensors: the profiler session after the
+        # loop calls every case's launch
+        paged = dict(block_tables=bt, offsets=off, **s6)
+        for kernel, run, plain in (
+                ("flash_decode_paged", partial(fa.flash_decode_paged, q, kp, vp, bias, **paged),
+                 partial(fa.flash_decode_paged_plain, q, kp, vp, bias, **paged)),
+                ("flash_decode", partial(fa.flash_decode, q, vk, vv, bias, offsets=off, **s5),
+                 partial(fa.flash_decode_plain, q, vk, vv, bias, offsets=off, **s5))):
+            got, want = run().float(), plain().float()
+            err = float((got - want).abs().max())
+            # both dequantize and accumulate in fp32 and round once to bf16:
+            # within 2 bf16 ulps of the output's largest entry
+            top = float(want.abs().max())
+            limit = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+            if not err <= limit:
+                fail(f"{kernel} {what}: kernel vs plain max abs err {err} over {limit} (2 bf16 "
+                     f"ulps of max |out| {top})")
+            out[kernel][what] = dict(max_abs_err=err, err_limit=limit, max_abs_out=top,
+                                     mean_abs_out=float(want.abs().mean()),
+                                     ms=time_ms(run, per_rep=200),
+                                     plain_ms=time_ms(plain, per_rep=20), bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=lib_ms)
+            # the instance's template arguments (PAGED, BF16, INT8, D, QM)
+            # name its kernel events in the one profiler session below
+            timed.append((kernel, what, f"<{int(kernel.endswith('paged'))}, 1, {int(int8)}, 128, "
+                          f"{1 if Q == 1 else 8}>", run, live))
+    _, device = profile_device(lambda: [t[3]() for t in timed], 50)
+    for kernel, what, inst, _, live in timed:
+        r = out[kernel][what]
+        r["device_ms"] = sum(v for k, v in device.items() if "flash_decode_kernel" + inst in k) \
+            or None
+        say({"phase": "kernel_time", "kernel": kernel, "case": what, "instance": inst,
+             "kv": "int8" if what == "int8" else "bf16", "live_slots": live, **r})
+    return out
+
+
+def serving_oom_phase(torch, lm) -> dict:
+    """(e): a session's step on the loaded model with a ballast tensor
+    holding all but 256 MiB of the card: the admission's prefill runs out
+    of memory inside ``step()``, the tripwire writes the postmortem bundle
+    (its kv_cache bucket the engine's own account), and the error is
+    re-raised."""
+    import glob
+
+    from distributed_llms_example_tpu_torch.obs.memprof import is_resource_exhausted
+    from distributed_llms_example_tpu_torch.serving.engine import ServeConfig, ServingEngine
+
+    out = fresh_dir("serve16-oom")
+    eng = ServingEngine(lm.module, lm.config, ServeConfig(
+        max_slots=8, max_new_tokens=64, max_source_length=1024, paged_kv=True,
+        kv_block_size=64, request_spans=False, postmortem_dir=out), is_seq2seq=False,
+        device="cuda")
+    sess = eng.open()
+    with open(os.path.join(WORK, "llama_prompts.json")) as f:
+        texts = json.load(f)
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    for t in texts[:8]:
+        sess.submit(tok.encode_prompt(t, 1024))
+    free_cuda()
+    free, _ = torch.cuda.mem_get_info()
+    ballast = torch.empty(free - (256 << 20), dtype=torch.uint8, device="cuda")
+    error = None
+    try:
+        sess.step()
+    except Exception as e:  # the tripwire re-raises what it caught
+        error = e.with_traceback(None)
+    account = sess._memory_account()
+    del ballast
+    free_cuda()
+    bundles = sorted(glob.glob(os.path.join(out, "obs", "memory-postmortem-p*.json")))
+    bundle = {}
+    if bundles:
+        with open(bundles[0]) as f:
+            bundle = json.load(f)
+    got = (bundle.get("account") or {}).get("buckets_bytes", {})
+    line = {"phase": "serve16_oom_postmortem", "error": f"{type(error).__name__}: "
+            f"{str(error)[:160]}", "recognized": error is not None and is_resource_exhausted(error),
+            "bundles": [os.path.basename(b) for b in bundles], "bundle_step": bundle.get("step"),
+            "bundle_kv_cache_bytes": got.get("kv_cache"),
+            "engine_kv_cache_bytes": account["buckets_bytes"]["kv_cache"],
+            "tmp_left": bool(glob.glob(os.path.join(out, "obs", "*.tmp")))}
+    say(line)
+    if error is None or not line["recognized"]:
+        fail(f"serve16 (e): step() raised {error!r}, not an out-of-memory error")
+    if line["bundles"] != ["memory-postmortem-p000.json"] or line["tmp_left"] \
+            or bundle.get("event") != "memory_postmortem" \
+            or got.get("kv_cache") != account["buckets_bytes"]["kv_cache"] \
+            or got.get("params") != account["buckets_bytes"]["params"]:
+        fail(f"serve16 (e): bundle {line}")
+    del sess, eng
+    free_cuda()
+    shutil.rmtree(out, ignore_errors=True)
+    return line
+
+
+def serving_features_phase(torch, fa, cli) -> dict:
+    """Phase 16 (above).  Returns the runs' summed launches and the kernel
+    times of ``verify_kernel_phase``."""
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.serving import spec
+
+    t0 = time.perf_counter()
+    marks = {}  # where the phase's seconds go
+
+    def mark(what: str) -> None:
+        marks[what] = time.perf_counter() - t0 - sum(marks.values())
+
+    kernel_times = verify_kernel_phase(torch, fa)
+    mark("kernels_s")
+    os.makedirs(WORK, exist_ok=True)
+    prompts = os.path.join(WORK, "llama_prompts.json")
+    write_llama_prompts(prompts)
+    chat = os.path.join(WORK, "prefix_prompts.json")
+    write_prefix_prompts(chat)
+    tok = ByteTokenizer()
+    with open(prompts) as f:
+        ids = [tok.encode_prompt(t, 1024) for t in json.load(f)[:8]]
+    with open(chat) as f:
+        chat_ids = [tok.encode_prompt(t, 768) for t in json.load(f)]
+    draft = draft_hf_dir(torch)
+    lm = load_model("llama-2-7b", dtype=torch.bfloat16, device="cuda", seed=0)
+    mark("setup_s")
+    paged = ["--paged-kv"]
+    spec_args = ["--spec-tokens", str(SPEC_K)]
+    runs = {}
+    for name, argv, p in (
+            ("plain_paged", [*SERVE16_ARGS, *paged], prompts),
+            ("int8_paged", [*SERVE16_ARGS, *paged, "--kv-cache-dtype", "int8"], prompts),
+            ("int8_flat", [*SERVE16_ARGS, "--kv-cache-dtype", "int8"], prompts),
+            ("spec_ngram", [*SERVE16_ARGS, *paged, *spec_args], prompts),
+            ("spec_draft", [*SERVE16_ARGS, *paged, *spec_args, "--spec-draft-model", draft],
+             prompts),
+            ("prefix_cold", PREFIX16_ARGS, chat),
+            ("prefix_warm", [*PREFIX16_ARGS, "--prefix-cache", "--prefix-cache-budget-gib", "2"],
+             chat)):
+        runs[name] = serve16(torch, fa, cli, lm, name, argv, p,
+                             reads=ids if name in ("plain_paged", "spec_ngram", "spec_draft")
+                             else None)
+    # the planted fault: one more draft accepted than matched
+    real = spec.acceptance_lengths
+    spec.acceptance_lengths = lambda x, t, room: (real(x, t, room) + 1).clamp(max=SPEC_K)
+    try:
+        fault = serve16(torch, fa, cli, lm, "spec_ngram_fault_accept_one_more",
+                        [*SERVE16_ARGS, *paged, *spec_args], prompts)
+    finally:
+        spec.acceptance_lengths = real
+    mark("runs_s")
+    floor = route_floor(torch, lm.module, ids)
+    say({"phase": "serve16_route_floor", **floor})
+    checks = {}
+    for name, base, got, p in (("int8_paged_vs_int8_flat", "int8_flat", "int8_paged", ids),
+                               ("spec_ngram", "plain_paged", "spec_ngram", ids),
+                               ("spec_draft", "plain_paged", "spec_draft", ids),
+                               ("prefix_warm", "prefix_cold", "prefix_warm", chat_ids),
+                               ("int8_paged_vs_plain_paged", "plain_paged", "int8_paged", ids)):
+        checks[name] = end_to_end_check(torch, lm, name, p, runs[base]["outs"],
+                                        runs[got]["outs"], floor["floor"])
+        say({"phase": "serve16_end_to_end", **checks[name]})
+    planted = end_to_end_check(torch, lm, "spec_ngram_fault", ids, runs["plain_paged"]["outs"],
+                               fault["outs"], floor["floor"])
+    say({"phase": "serve16_end_to_end", "planted_fault": True, **planted})
+    # kernel 6 equals kernel 5 over the same blocks bit for bit, so the
+    # int8 runs' tokens must be equal; speculation and warm prefixes agree
+    # with their plain runs up to rounding; the planted fault must not
+    if checks["int8_paged_vs_int8_flat"]["divergences"]:
+        fail(f"serve16: int8 paged and flat tokens differ: {checks['int8_paged_vs_int8_flat']}")
+    for name in ("spec_ngram", "spec_draft", "prefix_warm"):
+        if checks[name]["unexplained"]:
+            fail(f"serve16 {name}: divergences beyond rounding: {checks[name]['unexplained']}")
+    if not planted["unexplained"]:
+        fail(f"serve16: accepting one more draft than matched went unseen: {planted}")
+    warm, cold = runs["prefix_warm"]["stats"], runs["prefix_cold"]["stats"]
+    n = len(chat_ids)
+    if (warm.prefix_lookups, warm.prefix_hits, warm.prefill_tokens_saved) != \
+            (n, n - 1, (n - 1) * PREFIX16_SYS):
+        fail(f"serve16 prefix: lookups {warm.prefix_lookups}, hits {warm.prefix_hits}, tokens "
+             f"saved {warm.prefill_tokens_saved}")
+    i8, bf = runs["int8_paged"]["stats"], runs["plain_paged"]["stats"]
+    say({"phase": "serve16_summary",
+         "decode_tokens_per_sec": {k: r["stats"].tokens_per_sec() for k, r in runs.items()},
+         "bytes_per_live_token": {k: r["stats"].bytes_per_live_token for k, r in runs.items()},
+         "int8_vs_bf16_resident_bytes": bf.cache_bytes_resident / i8.cache_bytes_resident,
+         "accepted_tokens_per_step": {k: runs[k]["line"]["accepted_tokens_per_step"]
+                                      for k in ("spec_ngram", "spec_draft")},
+         "ttft_ms_warm_vs_cold": {"warm": [x * 1e3 for x in warm.ttft_percentiles()],
+                                  "cold": [x * 1e3 for x in cold.ttft_percentiles()]},
+         "prefix_hit_rate": warm.prefix_hits / max(warm.prefix_lookups, 1)})
+    mark("checks_s")
+    oom = serving_oom_phase(torch, lm)
+    del lm
+    free_cuda()
+    mark("oom_s")
+    launches = {k: sum(r["launches"][k] for r in (*runs.values(), fault))
+                for k in ("flash_attention_fwd", "flash_decode", "flash_decode_paged")}
+    say({"phase": "serve16_wall", "seconds": time.perf_counter() - t0, **marks,
+         "launches": launches, "oom_bundle": oom["bundles"]})
+    return {"launches": launches, "kernel_times": kernel_times}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "distributed_llms_example_tpu_torch")):
         fail("the port's package is not beside chip_smoke.py: run it from a checkout")
@@ -5702,15 +6316,15 @@ def main() -> None:
         """The run's seconds so far, after a group of phases: where the
         time limit goes."""
         say({"phase": "elapsed", "after": after, "seconds": time.perf_counter() - wall0})
-    if sys.argv[1:] in (["--phase", "13"], ["--phase", "15"]):
-        # phase 13 or 15 alone (after the build): a quick check of the
-        # LLaMA train path and its telemetry, or of the elastic path
+    if sys.argv[1:2] == ["--phase"]:
+        # phase 13, 15 or 16 alone (after the build): a quick check of the
+        # LLaMA train path and its telemetry, of the elastic path, or of
+        # the serving features
         from distributed_llms_example_tpu_torch.launch import cli
 
-        if sys.argv[2] == "13":
-            llama_train_phase(torch, fa, fd, fo, cli)
-        else:
-            elastic_phase(torch, fa, fd, fo, cli)
+        {"13": lambda: llama_train_phase(torch, fa, fd, fo, cli),
+         "15": lambda: elastic_phase(torch, fa, fd, fo, cli),
+         "16": lambda: serving_features_phase(torch, fa, cli)}[sys.argv[2]]()
         say({"phase": "wall", "seconds": time.perf_counter() - wall0})
         return
     sass_phase(cuda_build)
@@ -5794,7 +6408,7 @@ def main() -> None:
     from distributed_llms_example_tpu_torch.train.trainer import put_batch
 
     t5_train, trainer = train_phase(torch, fa, fd, fo, cli, "t5-large",
-                                    loaded=t5_large_train_model(torch))
+                                    loaded=t5_large_train_model(torch), budget=True)
     batch = put_batch(next(iter(trainer.batches.epoch(0))), trainer.device)
     del trainer
     free_cuda()
@@ -5838,6 +6452,14 @@ def main() -> None:
     # telemetry's syncs at the log cadence only; 15e: the OOM postmortem)
     elastic_launches = elastic_phase(torch, fa, fd, fo, cli)
     free_cuda()
+    lap("15")
+
+    # phase 16: the serving features at llama-2-7b's full width (int8 KV
+    # paged and flat, n-gram and draft-model speculation, the prefix cache
+    # warm against cold, a real out-of-memory postmortem), kernels 5 and 6
+    # at the verify shape and in their int8 branch
+    features = serving_features_phase(torch, fa, cli)
+    served = features["launches"]
 
     # the end: the TPU kernels with no port yet (none), the kernel list
     # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
@@ -5864,19 +6486,21 @@ def main() -> None:
              launches=(launches["flash_attention_fwd"] + both["flash_attention_fwd"]
                        + t5_serve["flash_attention_fwd"] + eval_launches["flash_attention_fwd"]
                        + llama_paged["flash_attention_fwd"]
-                       + llama_flat["flash_attention_fwd"]),
+                       + llama_flat["flash_attention_fwd"] + served["flash_attention_fwd"]),
              **measured["flash_attention_fwd"]),
         dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
              sources=[src + "flash_decode.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:931",
              launches=(launches["flash_decode"] + llama_flat["flash_decode"]
                        + t5_serve["flash_decode"] + eval_launches["flash_decode"]
-                       + llama_train["flash_decode"]),
-             **measured["flash_decode"]),
+                       + llama_train["flash_decode"] + served["flash_decode"]),
+             **features["kernel_times"]["flash_decode"], **measured["flash_decode"]),
         dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
              sources=[src + "flash_decode_paged.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:1155",
-             launches=llama_paged["flash_decode_paged"], **measured["flash_decode_paged"]),
+             launches=llama_paged["flash_decode_paged"] + served["flash_decode_paged"],
+             **features["kernel_times"]["flash_decode_paged"],
+             **measured["flash_decode_paged"]),
         dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd_tc.cu",
              sources=[src + "flash_bwd_tc.cu", src + "flash_bwd.cu"],
              replaces=ref + "flash_attention.py:264",
@@ -5928,7 +6552,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         dist_rank_main(sys.argv[2])
-    elif sys.argv[1:] in ([], ["--phase", "13"], ["--phase", "15"]):
+    elif sys.argv[1:] in ([], ["--phase", "13"], ["--phase", "15"], ["--phase", "16"]):
         main()
         # every check passed and every line is out (the rank processes
         # were joined in their phases): leave without the interpreter's
@@ -5939,4 +6563,4 @@ if __name__ == "__main__":
         sys.stderr.flush()
         os._exit(0)
     else:
-        fail(f"usage: {sys.argv[0]} [--phase 13|15]")
+        fail(f"usage: {sys.argv[0]} [--phase 13|15|16]")

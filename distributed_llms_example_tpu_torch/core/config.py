@@ -25,6 +25,13 @@ AXES: tuple[str, ...] = ("stage", "data", "fsdp", "expert", "sequence", "tensor"
 # the axes the port lays out over a torch.distributed process group
 PORTED_AXES = ("data", "fsdp")
 
+# Speculative-decode draft cap: the verify step scores spec_tokens + 1
+# positions in one decode-kernel call, and the kernel's q block holds at
+# most 8 rows (ops/flash_attention.py MAX_DECODE_Q_ROWS), so at most 7
+# drafts ride each round.  Kept here, free of the ops stack, so the CLI
+# validates --spec-tokens at parse time.
+SPEC_MAX_DRAFT_TOKENS = 7
+
 
 def unknown_axis_error(name: str) -> ValueError:
     hint = difflib.get_close_matches(name, AXES, n=1)

@@ -34,33 +34,47 @@ from distributed_llms_example_tpu_torch.ops.mha import KVCache
 NEG_INF = -1.0e7
 
 
-def _zero_caches(attns, batch: int, max_len: int, device) -> list[KVCache]:
+KV_CACHE_DTYPES = ("f32", "int8")
+
+
+def _zero_caches(attns, batch: int, max_len: int, device, kv_cache_dtype: str) -> list[KVCache]:
+    if kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}: must be 'f32' or 'int8'")
+    int8 = kv_cache_dtype == "int8"
     out = []
     for attn in attns:
         shape = (batch, attn.kv_heads, max_len, attn.head_dim)
-        out.append(KVCache(
-            torch.zeros(shape, dtype=attn.dtype, device=device),
-            torch.zeros(shape, dtype=attn.dtype, device=device),
-        ))
+        store = torch.int8 if int8 else attn.dtype
+        c = KVCache(torch.zeros(shape, dtype=store, device=device),
+                    torch.zeros(shape, dtype=store, device=device))
+        if int8:
+            c.k_scale = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+            c.v_scale = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+        out.append(c)
     return out
 
 
-def init_cache(model, batch: int, max_len: int, *, device: torch.device | str) -> list[KVCache]:
+def init_cache(model, batch: int, max_len: int, *, device: torch.device | str,
+               kv_cache_dtype: str = "f32") -> list[KVCache]:
     """Zero decoder self-attention caches of a seq2seq model (BART or T5:
     both name their decoder layers ``decoder_blocks``) for a (batch,
     max_len) decode; the serving engine's max_len is the decode budget, as
-    in the JAX package."""
-    return _zero_caches((blk.self_attn for blk in model.decoder_blocks), batch, max_len, device)
+    in the JAX package.  ``kv_cache_dtype`` "f32" keeps K/V in the compute
+    dtype (the JAX flag's name), "int8" quantizes them with fp32 scales."""
+    return _zero_caches((blk.self_attn for blk in model.decoder_blocks), batch, max_len, device,
+                        kv_cache_dtype)
 
 
-def init_causal_cache(model, batch: int, max_len: int, *,
-                      device: torch.device | str) -> list[KVCache]:
-    """Zero self-attention caches of a decoder-only model, one per block."""
-    return _zero_caches((blk.self_attn for blk in model.blocks), batch, max_len, device)
+def init_causal_cache(model, batch: int, max_len: int, *, device: torch.device | str,
+                      kv_cache_dtype: str = "f32") -> list[KVCache]:
+    """Zero self-attention caches of a decoder-only model, one per block
+    (``kv_cache_dtype`` as in ``init_cache``)."""
+    return _zero_caches((blk.self_attn for blk in model.blocks), batch, max_len, device,
+                        kv_cache_dtype)
 
 
 def causal_prefill(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                   new_tokens: int):
+                   new_tokens: int, *, kv_cache_dtype: str = "f32"):
     """One-pass prompt prefill for decoder-only decode (the JAX package's
     ``_causal_prefill``).
 
@@ -72,7 +86,8 @@ def causal_prefill(model, input_ids: torch.Tensor, attention_mask: torch.Tensor,
     1`` clipped at 0), not the cache slot, and pad slots stay masked."""
     B, P = input_ids.shape
     dev = input_ids.device
-    cache = init_causal_cache(model, B, P + new_tokens, device=dev)
+    cache = init_causal_cache(model, B, P + new_tokens, device=dev,
+                              kv_cache_dtype=kv_cache_dtype)
     mask = attention_mask.to(torch.int32)
     full_mask = torch.cat([mask, torch.zeros((B, new_tokens), dtype=torch.int32, device=dev)], 1)
     lengths = mask.sum(dim=1, dtype=torch.int32)

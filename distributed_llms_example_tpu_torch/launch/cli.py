@@ -26,7 +26,9 @@
         --max-slots 8 --max-new-tokens 128 --max-source-length 1024
     python -m distributed_llms_example_tpu_torch.launch.cli serve \\
         --model-ckpt llama-2-7b --prompts-file prompts.json \\
-        --max-slots 8 --max-new-tokens 128 --max-source-length 1024 --paged-kv
+        --max-slots 8 --max-new-tokens 128 --max-source-length 1024 --paged-kv \\
+        [--kv-cache-dtype int8] [--prefix-cache --prefix-cache-budget-gib 2] \\
+        [--spec-tokens 3 [--spec-draft-model <causal HF dir>]] [--postmortem-dir D]
 
 Both take ``--device`` (default ``cuda``; without a GPU they stop unless
 ``--device cpu`` is given), ``--model-ckpt`` (a registry name, whose
@@ -94,19 +96,32 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-new-tokens", type=int, default=128)
     p.add_argument("--log-every-steps", type=int, default=50)
     p.add_argument("--ttft-slo-ms", type=float, default=0.0)
-    p.add_argument("--kv-cache-dtype", type=str, default="f32", choices=("f32", "int8"))
+    p.add_argument("--kv-cache-dtype", type=str, default="f32", choices=("f32", "int8"),
+                   help="f32: K/V in the compute dtype; int8: quantized with one fp32 scale "
+                        "per position (the decode kernels dequantize per tile)")
     p.add_argument("--prefill-buckets", type=str, default="")
     p.add_argument("--paged-kv", action="store_true")
     p.add_argument("--pool-blocks", type=int, default=0)
     p.add_argument("--kv-block-size", type=int, default=0)
-    p.add_argument("--prefix-cache", action="store_true")
-    p.add_argument("--prefix-cache-budget-gib", type=float, default=0.0)
-    p.add_argument("--spec-tokens", type=int, default=0)
-    p.add_argument("--spec-draft-model", type=str, default="")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="--paged-kv: share full prompt blocks across requests by chain hash; "
+                        "a hit prefills only the uncached tail")
+    p.add_argument("--prefix-cache-budget-gib", type=float, default=0.0,
+                   help="prefix cache: GiB of finished requests' blocks kept warm (LRU, "
+                        "evicted only at refcount 0; 0 = no warm retention)")
+    p.add_argument("--spec-tokens", type=int, default=0,
+                   help="causal families: speculative decode, this many drafts a slot a "
+                        "round verified in one decode pass of k + 1 rows (0 = off, max "
+                        "SPEC_MAX_DRAFT_TOKENS = 7)")
+    p.add_argument("--spec-draft-model", type=str, default="",
+                   help="registry name or HF directory of a causal draft model with the "
+                        "target's vocabulary ('' = n-gram self-drafting)")
     p.add_argument("--hbm-budget-gib", type=float, default=80.0,
                    help="device-memory ceiling in GiB for the serve summary's "
                         "memory account (H100 = 80)")
-    p.add_argument("--postmortem-dir", type=str, default="")
+    p.add_argument("--postmortem-dir", type=str, default="",
+                   help="where an out-of-memory error mid-serve writes its "
+                        "memory-postmortem-p*.json bundle ('' = off)")
     p.add_argument("--mesh", type=str, default="data=-1",
                    help="one-device layouts only (every axis 1 or -1)")
     p.add_argument("--compute-dtype", type=str, default="bfloat16")
@@ -196,11 +211,20 @@ def _write_serve_output(args, lm, tok, prompts, outputs) -> None:
     log_json({"event": "serve_output", "path": args.output_file, "records": len(lines)})
 
 
-def serve(argv: list[str] | None = None):
+def serve(argv: list[str] | None = None, *, loaded=None):
     """The ``serve`` subcommand: load → continuous-batching decode → write
     outputs.  Returns ``(engine, outputs)``: the engine's ``last_stats``
-    hold the run, ``outputs`` the generated ids per prompt."""
-    args = build_serve_parser().parse_args(argv)
+    hold the run, ``outputs`` the generated ids per prompt.  ``loaded``: a
+    model built by the caller (a ``LoadedModel`` on the device), served in
+    place of ``--model-ckpt``'s."""
+    from distributed_llms_example_tpu_torch.core.config import SPEC_MAX_DRAFT_TOKENS
+
+    parser = build_serve_parser()
+    args = parser.parse_args(argv)
+    if not 0 <= args.spec_tokens <= SPEC_MAX_DRAFT_TOKENS:
+        parser.error(f"--spec-tokens {args.spec_tokens}: must be in [0, {SPEC_MAX_DRAFT_TOKENS}] "
+                     f"(the verify pass scores spec_tokens + 1 rows; the decode kernels take "
+                     f"at most {SPEC_MAX_DRAFT_TOKENS + 1})")
     from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resolve_device
     from distributed_llms_example_tpu_torch.data.dataset import load_json_records
     from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
@@ -215,7 +239,7 @@ def serve(argv: list[str] | None = None):
     if args.num_prompts > 0:
         records = records[: args.num_prompts]
     prompts = [_prompt_text(r, args.source_column) for r in records]
-    lm = load_model(
+    lm = loaded or load_model(
         args.model_ckpt, dtype=parse_dtype(args.compute_dtype), device=device,
         attention_impl=args.attention_impl or None, seed=args.seed,
     )

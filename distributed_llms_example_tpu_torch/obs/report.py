@@ -26,16 +26,18 @@ the run left, checks ``schema_version`` on every line, and rebuilds:
   reduce-scatter smell;
 - "Where did the bytes go" (``memory_account``, ``memory_window`` and the
   ``memory-postmortem-p*.json`` bundles, ``obs/memprof.py``);
+- the serving engine's prefix-cache and speculative-decode ledgers (its
+  ``serve_summary`` and ``serve_window`` events);
 - the anomaly log and the flight-recorder bundles.
 
 Markdown by default, ``--json`` for the whole report, ``--trace out.json``
 the merged Perfetto trace (``obs/trace.py``).  ``--strict`` exits 1 on a
 schema error, an organic fault, or a gate it is given that fails or has
 nothing to read: ``--min-dispatch-efficiency``, ``--min-overlap-frac``,
-``--max-peak-hbm-frac``, ``--min-hbm-headroom-gib``.  A pure file reader:
-nothing here touches a device.  The JAX package's load-sweep, prefix-cache
-and speculative-decode sections come with the slices that emit their
-events.
+``--max-peak-hbm-frac``, ``--min-hbm-headroom-gib``,
+``--min-prefix-hit-rate``, ``--min-acceptance-rate``.  A pure file reader:
+nothing here touches a device.  The JAX package's load-sweep section comes
+with the slice that emits its events.
 """
 
 from __future__ import annotations
@@ -601,6 +603,68 @@ def recovery_report(processes: dict[int, list[dict]]) -> dict[str, Any]:
     }
 
 
+def _serving_ledger(processes: dict[int, list[dict]], flag: str,
+                    window_key: str) -> tuple[list[dict], int]:
+    """The ``serve_summary`` events whose engine ran with ``flag`` on, and
+    the count of serve windows that carry ``window_key``."""
+    serve: list[dict] = []
+    windows = 0
+    for _, records in sorted(processes.items()):
+        ev = _by_event(records)
+        serve.extend(r for r in ev.get("serve_summary", []) if r.get(flag))
+        windows += sum(1 for r in ev.get("serve_window", []) if window_key in r)
+    return serve, windows
+
+
+def prefix_report(processes: dict[int, list[dict]]) -> dict[str, Any] | None:
+    """The prefix-cache rollup of the last ``serve_summary`` of an engine
+    run with the cache on (``scope`` "engine", the JAX report's key; its
+    router aggregate comes with the router).  ``hit_rate`` is the
+    ``--min-prefix-hit-rate`` gate's input: None when no such engine
+    summarized, which the gate fails."""
+    serve, windows = _serving_ledger(processes, "prefix_cache", "prefix_hit_rate")
+    if not serve:
+        return None
+    last = serve[-1]
+    return {
+        "scope": "engine",
+        "hit_rate": last.get("prefix_hit_rate"),
+        "lookups": last.get("prefix_lookups"),
+        "hits": last.get("prefix_hits"),
+        "prefill_tokens_total": last.get("prefill_tokens_total"),
+        "prefill_tokens_saved": last.get("prefill_tokens_saved"),
+        "prefill_tokens_saved_frac": last.get("prefill_tokens_saved_frac"),
+        "budget_gib": last.get("prefix_cache_budget_gib"),
+        "pool_blocks_warm": last.get("pool_blocks_warm"),
+        "warm_bytes": last.get("warm_bytes"),
+        "windows": windows,
+        "engines": len(serve),
+    }
+
+
+def spec_report(processes: dict[int, list[dict]]) -> dict[str, Any] | None:
+    """The speculative-decode rollup of the last ``serve_summary`` of an
+    engine run with speculation on (``scope`` as in ``prefix_report``).
+    ``acceptance_rate`` is the ``--min-acceptance-rate`` gate's input: None
+    when no such engine summarized, which the gate fails."""
+    serve, windows = _serving_ledger(processes, "spec_decode", "acceptance_rate")
+    if not serve:
+        return None
+    last = serve[-1]
+    return {
+        "scope": "engine",
+        "acceptance_rate": last.get("acceptance_rate"),
+        "accepted_tokens_per_step": last.get("accepted_tokens_per_step"),
+        "drafted_tokens": last.get("spec_drafted_tokens"),
+        "accepted_tokens": last.get("spec_accepted_tokens"),
+        "spec_tokens": last.get("spec_tokens"),
+        "draft_model": last.get("spec_draft_model"),
+        "spec_steps": last.get("spec_steps"),
+        "windows": windows,
+        "engines": len(serve),
+    }
+
+
 def build_report(output_dir: str) -> dict[str, Any]:
     run = load_run(output_dir)
     processes = run["processes"]
@@ -617,6 +681,8 @@ def build_report(output_dir: str) -> dict[str, Any]:
         "budget": budget_report(processes),
         "device": device_report(processes),
         "memory": memory_report(processes, run["postmortems"]),
+        "prefix": prefix_report(processes),
+        "spec": spec_report(processes),
         "recovery": recovery_report(processes),
         "anomalies": [r for records in processes.values()
                       for r in _by_event(records).get("obs_anomaly", [])],
@@ -728,6 +794,7 @@ def render_markdown(report: dict[str, Any], *, last: int = 20) -> str:
     _render_device(add, report.get("device"))
     _render_comm(add, report.get("comm"))
     _render_memory(add, report.get("memory"))
+    _render_serving(add, report.get("prefix"), report.get("spec"))
     rec = report.get("recovery") or {}
     add("")
     add("## Recovery timeline")
@@ -906,6 +973,33 @@ def _render_memory(add, mem: dict | None) -> None:
             + ("attached" if b.get("has_account") else "absent") + ")")
 
 
+def _render_serving(add, px: dict | None, sp: dict | None) -> None:
+    if px is not None:
+        add("")
+        add("## Prefix cache")
+        add(f"- scope={px.get('scope')} engines={px.get('engines')} "
+            f"budget={_fmt(px.get('budget_gib'))} GiB — hit rate: "
+            f"**{_fmt(px.get('hit_rate'))}** "
+            f"({_fmt(px.get('hits'))}/{_fmt(px.get('lookups'))} lookups)")
+        add(f"- prefill tokens saved: {_fmt(px.get('prefill_tokens_saved'))}"
+            f"/{_fmt(px.get('prefill_tokens_total'))} "
+            f"({_fmt(px.get('prefill_tokens_saved_frac'))} of all prefill) — "
+            f"warm set {_fmt(px.get('pool_blocks_warm'))} blocks / "
+            f"{_fmt(px.get('warm_bytes'))} bytes at last summary")
+    if sp is not None:
+        add("")
+        add("## Speculative decode")
+        add(f"- scope={sp.get('scope')} engines={sp.get('engines')} "
+            f"k={_fmt(sp.get('spec_tokens'))} "
+            f"draft={_fmt(sp.get('draft_model'))} — accepted tokens per "
+            f"step: **{_fmt(sp.get('accepted_tokens_per_step'))}** "
+            "(plain decode = 1.0)")
+        add(f"- draft acceptance: {_fmt(sp.get('accepted_tokens'))}"
+            f"/{_fmt(sp.get('drafted_tokens'))} proposals "
+            f"(rate {_fmt(sp.get('acceptance_rate'))}) over "
+            f"{_fmt(sp.get('spec_steps'))} verify rounds")
+
+
 def _strict_gates(report: dict, args) -> int:
     """The gates ``--strict`` was given: 1 where one fails or has nothing to
     read (a missing measurement never reads as a pass), else 0."""
@@ -951,6 +1045,24 @@ def _strict_gates(report: dict, args) -> int:
                 if frac is not None and frac < args.min_overlap_frac:
                     failed(f"rank {rank} overlap_frac {frac} below the "
                            f"{args.min_overlap_frac} floor (exposed collective time)")
+    if args.min_prefix_hit_rate > 0:
+        rate = (report.get("prefix") or {}).get("hit_rate")
+        if rate is None:
+            failed("--min-prefix-hit-rate set but no prefix-enabled serve_summary found (run "
+                   "with --prefix-cache on a paged engine) — a missing measurement must never "
+                   "read as a pass")
+        elif rate < args.min_prefix_hit_rate:
+            failed(f"prefix_hit_rate {rate} below the {args.min_prefix_hit_rate} floor — the "
+                   "workload is not sharing prefixes or the warm budget is too small")
+    if args.min_acceptance_rate > 0:
+        rate = (report.get("spec") or {}).get("acceptance_rate")
+        if rate is None:
+            failed("--min-acceptance-rate set but no spec-enabled serve_summary found (run "
+                   "with --spec-tokens > 0) — a missing measurement must never read as a pass")
+        elif rate < args.min_acceptance_rate:
+            failed(f"acceptance_rate {rate} below the {args.min_acceptance_rate} floor — the "
+                   "drafter is mispredicting this workload (try a draft model, fewer "
+                   "--spec-tokens, or a more repetitive mix)")
     return rc
 
 
@@ -979,6 +1091,14 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--min-hbm-headroom-gib", type=float, default=0.0,
                    help="with --strict: fail when a memory account's hbm_headroom_gib falls "
                         "below this floor, or when none exists (0 = off)")
+    p.add_argument("--min-prefix-hit-rate", type=float, default=0.0,
+                   help="with --strict: fail when the prefix cache's hit rate (the last "
+                        "prefix-enabled serve_summary's prefix_hit_rate) falls below this "
+                        "floor, or when no such summary exists (0 = off)")
+    p.add_argument("--min-acceptance-rate", type=float, default=0.0,
+                   help="with --strict: fail when speculative decode's draft acceptance rate "
+                        "(the last spec-enabled serve_summary's) falls below this floor, or "
+                        "when no such summary exists (0 = off)")
     p.add_argument("--trace", type=str, default="",
                    help="also export the merged Chrome-trace/Perfetto JSON here (every "
                         "rank's spans aligned on shared step boundaries, budget counters, "

@@ -749,7 +749,7 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------- decode kernel
 
 # The decode kernel's q-block ceiling (one decode row; a speculative
-# verify block of up to 8 rows in a later slice).
+# verify block of spec_tokens + 1 rows; a warm prompt tail this short).
 MAX_DECODE_Q_ROWS = 8
 
 

@@ -8,18 +8,23 @@ differentiable learned bias, RoPE in the HF half-rotation layout, grouped-query
 attention (``num_kv_heads``; K/V repeated per group on the paths that need
 full heads), and two decode caches written per row for continuous-batching
 decode: a flat per-layer ``KVCache`` and a ``PagedKVCache`` over a shared
-block pool.  The dispatch mirrors the JAX module: a cached step goes to the
-flash decode kernel (the paged kernel for a paged cache), an uncached pass
-to the flash-attention kernels (forward, and under autograd the dq and
-dk/dv backward), each where ``select_*_impl`` picks it (on CUDA, for every
+block pool, each in the compute dtype or int8 with per-position fp32
+scales (the decode kernels dequantize per tile; the plain path through
+``dequantize_kv``, the same expression), each written a span of rows a
+slot at its own position (one row a decode step, k + 1 a speculative
+verify block, a warm prompt tail).  The dispatch mirrors the JAX module:
+a cached step goes to the flash decode kernel (the paged kernel for a
+paged cache), an uncached pass to the flash-attention kernels (forward,
+and under autograd the dq and dk/dv backward), each where ``select_*_impl`` picks it (on CUDA, for every
 shape the kernels have an instance for; for CPU tensors, by the JAX
 package's own rule), and to plain attention (the counterpart of the JAX
 package's XLA path, hence the name ``"xla"``) otherwise.  A cached pass of
 more than ``MAX_DECODE_Q_ROWS`` rows is plain attention, as in the JAX
 package, but for the LLaMA prompt prefill on CUDA: a flat cache written
 from slot 0 holds only the pass's own keys, so the prefill is the uncached
-causal pass over them and goes to the flash-attention kernel.  A
-beam-search cross-attention is plain attention too,
+causal pass over them and goes to the flash-attention kernel (not into an
+int8 cache: there, as in the JAX package, the prefill attends over the
+dequantized cache).  A beam-search cross-attention is plain attention too,
 whose ``cross_kv`` holds one row for the G beams of a row: the beam group
 is folded next to the heads (``ops/attention.beam_grouped_attention``),
 or under GQA K/V are repeated per beam.  Attention-probs dropout
@@ -55,6 +60,8 @@ from distributed_llms_example_tpu_torch.ops.flash_attention import (
     flash_decode_paged,
     flash_decode_supported,
     flash_supported,
+    dequantize_kv,
+    quantize_kv,
 )
 from distributed_llms_example_tpu_torch.serving.cache_pool import gather_cache, scatter_step
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
@@ -187,14 +194,27 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 class KVCache:
     """One attention layer's flat decode cache: (B, H_kv, L, d) K and V
     buffers in the compute dtype, updated in place.  A step with per-row
-    ``cache_positions`` writes row b at its own position
+    ``cache_positions`` writes row b's span at its own position
     (``write_cache_rows``); a step without them writes every row at the
     shared ``index`` and advances it (the JAX package's ``cache_index``:
-    the prompt prefill)."""
+    the prompt prefill).  An int8 cache holds int8 K and V and one fp32
+    scale per (row, head, position) in ``k_scale``/``v_scale`` ((B, H_kv,
+    L)): each write quantizes its own rows (``quantize_kv``), so nothing
+    is ever requantized."""
 
     k: torch.Tensor
     v: torch.Tensor
     index: int = 0
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+def kv_leaves(cache) -> tuple[torch.Tensor, ...]:
+    """A cache's buffers in one order: (k, v), then (k_scale, v_scale)
+    for an int8 cache."""
+    if cache.k_scale is None:
+        return cache.k, cache.v
+    return cache.k, cache.v, cache.k_scale, cache.v_scale
 
 
 @dataclasses.dataclass
@@ -205,39 +225,53 @@ class PagedKVCache:
     ``(rows, blocks, slots)`` — which batch rows write their new K/V row
     into which pool block at which in-block slot (parked rows and sentinel
     tiles are absent from it, so their writes drop).  The engine builds the
-    plan once per step for every layer (``serving/cache_pool.py``)."""
+    plan once per step for every layer (``serving/cache_pool.py``).  A
+    pass of ``span`` rows a slot (a speculative verify block) writes them
+    all: the plan's rows index the (B·span) flattened rows.  An int8 pool
+    carries its (N, H_kv, bs) fp32 scale pools in ``k_scale``/``v_scale``."""
 
     k: torch.Tensor
     v: torch.Tensor
     block_tables: torch.Tensor
     write: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    span: int = 1
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @property
     def kv_len(self) -> int:
         return self.block_tables.shape[1] * self.k.shape[2]
 
-    def write_rows(self, k: torch.Tensor, v: torch.Tensor) -> None:
-        """This step's one new row per batch row ((B, H_kv, 1, d)) into the
+    def write_rows(self, *new: torch.Tensor) -> None:
+        """This pass's ``span`` new rows per batch row ((B, H_kv, span, d)
+        K and V, then (B, H_kv, span) scales for an int8 pool) into the
         pool, in place, through ``cache_pool.scatter_step``."""
-        if k.shape[2] != 1:
-            raise ValueError(f"a paged step writes one row per slot, got {k.shape[2]}")
-        scatter_step((self.k, self.v), (k[:, :, 0], v[:, :, 0]), self.write)
+        B, _, T = new[0].shape[:3]
+        if T != self.span:
+            raise ValueError(f"this pass writes {T} rows per slot, the write plan {self.span}")
+        flat = tuple(x.transpose(1, 2).reshape(B * T, x.shape[1], *x.shape[3:]) for x in new)
+        scatter_step(kv_leaves(self), flat, self.write)
 
 
 def write_cache_rows(buf: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> None:
-    """Per-row in-place cache write: row b's T new positions land at
-    ``positions[b] + [0, T)``; an out-of-range position is a no-op, which
-    is how idle serving slots park (the JAX package's ``mode="drop"``).
-    Done without a host sync: the clamped slot is rewritten with its own
-    old value where the position is out of range."""
-    B, _, L, _ = buf.shape
-    rows = torch.arange(B, device=buf.device)
-    for t in range(new.shape[2]):
-        pos = positions.long() + t
-        valid = (pos >= 0) & (pos < L)
-        idx = pos.clamp(0, L - 1)
-        old = buf[rows, :, idx]  # (B, H, d)
-        buf[rows, :, idx] = torch.where(valid[:, None, None], new[:, :, t].to(buf.dtype), old)
+    """Per-row in-place span write along axis 2 of a (B, H, L[, d]) buffer:
+    row b's T new entries ((B, H, T[, d])) land at ``positions[b] + [0,
+    T)``; an entry past the end is a no-op, which is how idle serving
+    slots park (the JAX package's ``mode="drop"``).  One scatter, without
+    a host sync: an entry past the end rewrites its row's last entry that
+    lands, with that entry's value, and a row none of whose entries land
+    rewrites slot L - 1 with its own old value, so no two writes of one
+    call disagree.  Positions are never negative."""
+    B, L, T = buf.shape[0], buf.shape[2], new.shape[2]
+    dev = buf.device
+    rows = torch.arange(B, device=dev)[:, None]
+    pos = positions.long()
+    last = (L - 1 - pos).clamp(max=T - 1)  # the row's last entry that lands; < 0: none
+    src = torch.minimum(torch.arange(T, device=dev)[None, :], last[:, None]).clamp(min=0)
+    idx = (pos[:, None] + src).clamp(0, L - 1)
+    vals = new[rows, :, src].to(buf.dtype)  # (B, T, H[, d])
+    parked = (last < 0).view(B, 1, *([1] * (buf.dim() - 2)))
+    buf[rows, :, idx] = torch.where(parked, buf[rows, :, idx], vals)
 
 
 class MultiHeadAttention(nn.Module):
@@ -415,13 +449,20 @@ class MultiHeadAttention(nn.Module):
             if positions is None:
                 positions = offsets.long()[:, None] + torch.arange(T, device=q.device)[None, :]
             q, k = self._rope(q, k, positions)
+        # an int8 cache stores each written row quantized with its scale
+        int8 = cache.k_scale is not None
+        if int8:
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            new = (kq, vq, ks, vs)  # kv_leaves' order
+        else:
+            new = (k, v)
         if paged:
-            cache.write_rows(k, v)
+            cache.write_rows(*new)
             kv_len = cache.kv_len
         elif cache_positions is None:
             start = cache.index
-            cache.k[:, :, start:start + T] = k.to(cache.k.dtype)
-            cache.v[:, :, start:start + T] = v.to(cache.v.dtype)
+            for buf, x in zip(kv_leaves(cache), new):
+                buf[:, :, start:start + T] = x.to(buf.dtype)
             cache.index += T
             kv_len = cache.k.shape[2]
             if start == 0 and T > 1 and q.device.type == "cuda" and cache.k.dtype == k.dtype \
@@ -430,8 +471,8 @@ class MultiHeadAttention(nn.Module):
                 if out is not None:
                     return out
         else:
-            write_cache_rows(cache.k, k, cache_positions)
-            write_cache_rows(cache.v, v, cache_positions)
+            for buf, x in zip(kv_leaves(cache), new):
+                write_cache_rows(buf, x, cache_positions)
             kv_len = cache.k.shape[2]
         impl, reason = select_decode_impl(
             self.attention_impl, head_dim=self.head_dim, q_len=T, kv_len=kv_len,
@@ -443,19 +484,23 @@ class MultiHeadAttention(nn.Module):
         if impl == "flash_decode_paged":
             # the kernel reads the pool through the block tables: the slot
             # view is never built, and the kv-head groups are never repeated
+            scales = (dict(k_scale_pool=cache.k_scale, v_scale_pool=cache.v_scale)
+                      if int8 else {})
             out = flash_decode_paged(q.contiguous(), cache.k, cache.v, bias,
                                      block_tables=cache.block_tables, offsets=offsets,
-                                     scale=self.scale, dtype=self.dtype)
+                                     scale=self.scale, dtype=self.dtype, **scales)
             return self._merge(out)
-        if paged:
-            k, v = gather_cache((cache.k, cache.v), cache.block_tables)
-        else:
-            k, v = cache.k, cache.v
-        k, v = self._repeat_kv(k), self._repeat_kv(v)
+        leaves = (gather_cache(kv_leaves(cache), cache.block_tables) if paged
+                  else kv_leaves(cache))
+        k, v, *scales = (self._repeat_kv(x) for x in leaves)
         if impl == "flash_decode":
             out = flash_decode(q.contiguous(), k, v, bias, offsets=offsets, scale=self.scale,
-                               dtype=self.dtype)
+                               dtype=self.dtype,
+                               **(dict(k_scale=scales[0], v_scale=scales[1]) if int8 else {}))
         else:
+            if int8:
+                # the expression the kernel evaluates per tile
+                k, v = dequantize_kv(k, scales[0]), dequantize_kv(v, scales[1])
             step = decode_step_bias(offsets, T, kv_len)
             out = dot_product_attention(q, k, v, step if bias is None else bias + step,
                                         scale=self.scale, dtype=self.dtype)

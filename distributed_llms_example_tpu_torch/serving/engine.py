@@ -28,9 +28,24 @@ admitted between per-token steps.  Per model, three steps:
 The slot state lives on the device and is updated in place (the JAX
 package donates it to the compiled step for the same effect).  Greedy
 only.  The ``serve_window`` / ``serve_request`` / ``serve_summary`` JSON
-events carry the JAX engine's keys.  Prefix caching, speculative decode
-and the int8 KV cache are later slices and raise ``NotImplementedError``
-(ROADMAP.md).
+events carry the JAX engine's keys.  The JAX engine's serving features
+compose as there:
+
+- ``kv_cache_dtype="int8"``: K/V stored int8 with per-position fp32
+  scales, flat or paged; the decode kernels dequantize per tile, and a
+  prompt prefill attends over the dequantized cache (``ops/mha.py``);
+- ``prefix_cache`` (paged only): an admission matches its prompt's longest
+  cached chain of full blocks (``serving/cache_pool.py``), takes a
+  reference on it and prefills only the uncached tail, at absolute
+  positions from the chain's end, over a gathered view of its blocks
+  (warm admission); only the tail's fresh tiles scatter back, the shared
+  chain is never written.  Finished requests' chains stay warm under
+  ``prefix_cache_budget_gib``;
+- ``spec_tokens`` (causal only): each decode round drafts k tokens a slot
+  (n-gram, or ``spec_draft_model`` / an injected ``draft`` model) and
+  verifies them in one target pass of k + 1 rows (``serving/spec.py``);
+- ``postmortem_dir``: an out-of-memory error escaping ``step()`` writes
+  the memory postmortem bundle (``obs/memprof.py``), then re-raises.
 """
 
 from __future__ import annotations
@@ -45,16 +60,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_llms_example_tpu_torch.core.config import SPEC_MAX_DRAFT_TOKENS
 from distributed_llms_example_tpu_torch.core.precision import resolve_device
 from distributed_llms_example_tpu_torch.evaluation.generation import (
     causal_prefill,
     init_cache,
     init_causal_cache,
 )
-from distributed_llms_example_tpu_torch.obs.memprof import serving_account
+from distributed_llms_example_tpu_torch.obs.memprof import (
+    dump_postmortem,
+    is_resource_exhausted,
+    serving_account,
+)
 from distributed_llms_example_tpu_torch.ops.flash_attention import auto_block
-from distributed_llms_example_tpu_torch.ops.mha import PagedKVCache
-from distributed_llms_example_tpu_torch.serving import cache_pool
+from distributed_llms_example_tpu_torch.ops.mha import KVCache, PagedKVCache, kv_leaves
+from distributed_llms_example_tpu_torch.serving import cache_pool, spec
+from distributed_llms_example_tpu_torch.serving.cache_pool import to_device
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
 
@@ -74,9 +95,15 @@ class ServeConfig:
     (an H100 has 80).  ``paged_kv``: causal K/V in a shared block pool of
     ``pool_blocks`` blocks (0 = slots × tiles per slot) of
     ``kv_block_size`` slots (0 = derived from the cache width and the
-    buckets).  The JAX engine's other knobs (prefix caching, speculative
-    decode, int8 KV, the OOM postmortem) are fields here so the CLI keeps
-    its flags, and raise when set: they are later slices."""
+    buckets).  ``kv_cache_dtype``: "f32" (K/V in the compute dtype, the
+    JAX flag's name) or "int8".  ``prefix_cache``: share full prompt blocks
+    across requests (paged only); ``prefix_cache_budget_gib`` keeps
+    finished requests' blocks warm up to that many GiB.  ``spec_tokens``:
+    speculative decode, k drafts a slot a round (causal only, 1 ..
+    ``SPEC_MAX_DRAFT_TOKENS``); ``spec_draft_model``: a registry name or
+    HF directory of the draft model ("" = n-gram self-drafting).
+    ``postmortem_dir``: where an out-of-memory error mid-serve writes its
+    memory postmortem ("" = off)."""
 
     max_slots: int = 8
     prefill_batch: int = 0
@@ -100,20 +127,6 @@ class ServeConfig:
     def __post_init__(self):
         if self.kv_cache_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: must be 'f32' or 'int8'")
-        later = {
-            "kv_cache_dtype='int8'": self.kv_cache_dtype == "int8",
-            "prefix_cache": self.prefix_cache,
-            "prefix_cache_budget_gib": bool(self.prefix_cache_budget_gib),
-            "spec_tokens": bool(self.spec_tokens),
-            "spec_draft_model": bool(self.spec_draft_model),
-            "postmortem_dir": bool(self.postmortem_dir),
-        }
-        asked = [k for k, on in later.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: not ported yet — a later slice of the "
-                "PyTorch port (ROADMAP.md)"
-            )
 
 
 @dataclasses.dataclass
@@ -125,12 +138,30 @@ class ServeStats:
     decode_tokens: int = 0
     decode_seconds: float = 0.0
     prefill_seconds: float = 0.0
-    prefill_calls: int = 0  # admission chunks prefilled
+    prefill_calls: int = 0  # cold admission chunks prefilled (from cache slot 0)
+    warm_admit_calls: int = 0  # prefix cache: warm chunks (uncached tails only)
     admit_deferrals: int = 0  # paged: admissions deferred on a short free list
     slot_occupancy: float = 0.0
     cache_bytes_resident: int = 0
     peak_cache_bytes_in_use: int = 0
     bytes_per_live_token: float = 0.0
+    # prefix cache: a lookup per admitted request, a hit when its longest
+    # cached chain is >= 1 block; tokens saved = prompt tokens served from
+    # shared blocks instead of prefilled
+    prefix_lookups: int = 0
+    prefix_hits: int = 0
+    prefill_tokens_total: int = 0
+    prefill_tokens_saved: int = 0
+    # speculative decode: a step is one verify round; drafted counts k a
+    # live slot, accepted the drafts the target's argmax confirmed, emitted
+    # every appended token; slot_rounds one a live slot a round, so
+    # spec_emitted / spec_slot_rounds (accepted_tokens_per_step) is the
+    # per-sequence yield in [1, k + 1]
+    spec_steps: int = 0
+    spec_slot_rounds: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_emitted: int = 0
     ttft_s: list[float] = dataclasses.field(default_factory=list)
     queue_wait_s: list[float] = dataclasses.field(default_factory=list)
     prefill_share_s: list[float] = dataclasses.field(default_factory=list)
@@ -193,10 +224,13 @@ class ServingEngine:
 
     ``model`` is a seq2seq module (``models/t5.py``, ``models/bart.py``:
     ``is_seq2seq``) or a causal LM (``models/llama.py``) already on
-    ``device``; ``device`` is CUDA unless ``"cpu"`` is asked for."""
+    ``device``; ``device`` is CUDA unless ``"cpu"`` is asked for.
+    ``draft``: a causal ``LoadedModel`` on ``device`` to draft with in place
+    of loading ``spec_draft_model`` (the caller's weights)."""
 
     def __init__(self, model: Any, config: Any, serve: ServeConfig | None = None, *,
-                 is_seq2seq: bool = True, device: str | torch.device | None = None):
+                 is_seq2seq: bool = True, device: str | torch.device | None = None,
+                 draft: Any = None):
         self.device = resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev.type != self.device.type:
@@ -212,6 +246,7 @@ class ServingEngine:
         self.L = self.serve.max_new_tokens
         self.S = self.serve.max_slots
         self.W = self.serve.max_source_length
+        self.kv_dtype = self.serve.kv_cache_dtype
         self.prefill_batch = self.serve.prefill_batch or self.S
         if not 1 <= self.prefill_batch <= self.S:
             raise ValueError(f"prefill_batch {self.prefill_batch} must be in [1, max_slots={self.S}]")
@@ -222,8 +257,54 @@ class ServingEngine:
         self.pool: cache_pool.CachePool | None = None
         if self.paged:
             self._init_pool()
+        self.prefix = bool(self.serve.prefix_cache)
+        if self.prefix and not self.paged:
+            raise ValueError(
+                "prefix_cache shares paged pool blocks — it requires paged_kv (the flat cache "
+                "has no block identity to share)"
+            )
+        # speculative decode: the verify q block is spec_tokens + 1 rows,
+        # capped by the decode kernels' q-row limit
+        self.spec = int(self.serve.spec_tokens or 0)
+        self.drafter: spec.DraftRunner | None = None
+        if self.spec:
+            if self.is_seq2seq:
+                raise ValueError(
+                    "spec_tokens applies to causal decode (the verify q block rides the causal "
+                    "decode cache's staggered per-row offsets); seq2seq families run plain decode"
+                )
+            if not 1 <= self.spec <= SPEC_MAX_DRAFT_TOKENS:
+                raise ValueError(
+                    f"spec_tokens={self.spec} must be in [1, {SPEC_MAX_DRAFT_TOKENS}]: the "
+                    "verify step scores spec_tokens + 1 positions in one decode call and the "
+                    f"decode kernels' q block caps at {SPEC_MAX_DRAFT_TOKENS + 1} rows"
+                )
+            if draft is not None or self.serve.spec_draft_model:
+                self.drafter = self._init_drafter(draft)
         self._warmed = False
         self.last_stats: ServeStats | None = None
+
+    def _init_drafter(self, draft: Any) -> spec.DraftRunner:
+        name = self.serve.spec_draft_model or "the injected draft"
+        if draft is None:
+            from distributed_llms_example_tpu_torch.models.registry import load_model
+
+            draft = load_model(self.serve.spec_draft_model, device=self.device,
+                               dtype=getattr(self.model, "dtype", torch.float32))
+        if draft.is_seq2seq:
+            raise ValueError(
+                f"spec_draft_model={name!r} is seq2seq — the draft model proposes causal "
+                "decode tokens, so it must be a causal family"
+            )
+        if draft.config.vocab_size != self.config.vocab_size:
+            raise ValueError(
+                f"spec_draft_model={name!r} vocab {draft.config.vocab_size} != target vocab "
+                f"{self.config.vocab_size} — draft proposals are token ids compared against "
+                "the target argmax, so the vocabs must be the same id space"
+            )
+        return spec.DraftRunner(draft.module, slots=self.S, src_width=self.W, max_new=self.L,
+                                k=self.spec, kv_cache_dtype=self.kv_dtype,
+                                device=self.device)
 
     def _init_pool(self) -> None:
         """Block size, tiles per slot and the allocator, by the JAX engine's
@@ -269,7 +350,8 @@ class ServingEngine:
         if self.is_seq2seq:
             enc = self.model.encode(ids, mask)
             return enc, mask, self.model.cross_kv(enc)
-        cache, full_mask, lengths, first = causal_prefill(self.model, ids, mask, self.L)
+        cache, full_mask, lengths, first = causal_prefill(self.model, ids, mask, self.L,
+                                                          kv_cache_dtype=self.kv_dtype)
         return cache, full_mask, lengths, first.argmax(dim=-1).to(torch.int32)
 
     def _pad_axis(self, x: torch.Tensor, axis: int, width: int | None = None) -> torch.Tensor:
@@ -288,8 +370,8 @@ class ServingEngine:
         rows = np.nonzero(slot_idx < self.S)[0]
         if rows.size == 0:
             return
-        r = torch.as_tensor(rows, device=self.device)
-        s = torch.as_tensor(slot_idx[rows].astype(np.int64), device=self.device)
+        r = to_device(rows, self.device)
+        s = to_device(slot_idx[rows].astype(np.int64), self.device)
         state["enc"][s] = self._pad_axis(enc, 1)[r]
         state["enc_mask"][s] = self._pad_axis(mask, 1)[r]
         for (dk, dv), (k, v) in zip(state["ckv"], ckv):
@@ -305,27 +387,72 @@ class ServingEngine:
         tiles into the pool; the mask and the first token per slot."""
         width = self.W + self.L
         if self.paged:
-            cache_pool.scatter_admit(state["pool"], [(c.k, c.v) for c in cache],
+            cache_pool.scatter_admit(state["pool"], [kv_leaves(c) for c in cache],
                                      admit_blocks, self.block_size)
         rows = np.nonzero(slot_idx < self.S)[0]
         if rows.size == 0:
             return
-        r = torch.as_tensor(rows, device=self.device)
-        s = torch.as_tensor(slot_idx[rows].astype(np.int64), device=self.device)
+        r = to_device(rows, self.device)
+        s = to_device(slot_idx[rows].astype(np.int64), self.device)
         if not self.paged:
             for dst, src in zip(state["cache"], cache):
-                dst.k[s] = self._pad_axis(src.k, 2, width)[r]
-                dst.v[s] = self._pad_axis(src.v, 2, width)[r]
+                for d, x in zip(kv_leaves(dst), kv_leaves(src)):
+                    d[s] = self._pad_axis(x, 2, width)[r]
         state["mask"][s] = self._pad_axis(full_mask, 1, width)[r]
         state["last"][s] = first[r]
+
+    @torch.inference_mode()
+    def _warm_admit(self, state: dict, ids_tail: np.ndarray, mask_full: np.ndarray,
+                    start: np.ndarray, tail_last: np.ndarray, slot_idx: np.ndarray,
+                    block_tables: np.ndarray, admit_blocks: np.ndarray) -> torch.Tensor:
+        """Warm admission: each row's longest cached chain is already in the
+        pool, so the model runs over only the uncached tail (``ids_tail``,
+        at the tail bucket's width) against a gathered view of the row's
+        blocks, at absolute positions from ``start`` (the chain's length),
+        writing the tail's K/V as a span from there.  The first token reads
+        off the last real tail position, where the cold prefill reads it;
+        only the fresh tail tiles scatter back (``admit_blocks`` holds
+        sentinels over the shared chain, which is never written).  Returns
+        the first tokens on the device."""
+        dev = self.device
+        bt = to_device(block_tables, dev)
+        view = [KVCache(*leaves[:2], 0, *leaves[2:])
+                for leaves in cache_pool.gather_cache(state["pool"], bt)]
+        start_t = to_device(start.astype(np.int32), dev)
+        T = ids_tail.shape[1]
+        mask_t = to_device(mask_full, dev)
+        logits = self.model(to_device(ids_tail, dev), mask_t,
+                            positions=start_t.long()[:, None] + torch.arange(T, device=dev),
+                            cache=view, cache_positions=start_t)
+        rows = torch.arange(logits.shape[0], device=dev)
+        first = logits[rows, to_device(tail_last.astype(np.int64), dev)]
+        first = first.argmax(dim=-1).to(torch.int32)
+        cache_pool.scatter_admit(state["pool"], [kv_leaves(c) for c in view], admit_blocks,
+                                 self.block_size)
+        keep = np.nonzero(slot_idx < self.S)[0]
+        r = to_device(keep, dev)
+        s = to_device(slot_idx[keep].astype(np.int64), dev)
+        state["mask"][s] = mask_t[r]
+        state["last"][s] = first[r]
+        return first
+
+    def _paged_caches(self, state: dict, block_tables: np.ndarray, offsets: np.ndarray,
+                      span: int = 1) -> list[PagedKVCache]:
+        """Each layer's view of the pool for one pass writing ``span`` rows
+        a slot from ``offsets`` (host arrays): one write plan, shared."""
+        dev = self.device
+        bt = to_device(block_tables, dev)
+        plan = cache_pool.step_write_plan(block_tables, offsets, num_blocks=self.pool.num_blocks,
+                                          block_size=self.block_size, device=dev, span=span)
+        return [PagedKVCache(k, v, bt, plan, span, *scales) for k, v, *scales in state["pool"]]
 
     @torch.inference_mode()
     def _step(self, state: dict, offsets: np.ndarray, active: np.ndarray) -> torch.Tensor:
         # idle slots park at L: their cache writes drop and their tokens are
         # masked to pad below
         offs_h = np.where(active, offsets, self.L).astype(np.int32)
-        offs = torch.as_tensor(offs_h, device=self.device)
-        act = torch.as_tensor(active, device=self.device)
+        offs = to_device(offs_h, self.device)
+        act = to_device(active, self.device)
         logits = self.model.decode(
             state["last"], None, state["enc_mask"], cache=state["cache"],
             cache_offset=offs, cross_kv=state["ckv"],
@@ -345,34 +472,48 @@ class ServingEngine:
         """One causal decode step: slot s feeds its last token at cache slot
         ``write_pos[s]`` with RoPE position ``rope_pos[s]``; idle slots park
         past the cache width, so their writes drop."""
-        S, dev = self.S, self.device
+        dev = self.device
         width = state["mask"].shape[1]
         offs_h = np.where(active, write_pos, width).astype(np.int32)
         live = np.nonzero(offs_h < width)[0]
-        state["mask"][torch.as_tensor(live, device=dev),
-                      torch.as_tensor(offs_h[live].astype(np.int64), device=dev)] = 1
-        offs = torch.as_tensor(offs_h, device=dev)
-        if self.paged:
-            bt = torch.as_tensor(block_tables, device=dev)
-            plan = cache_pool.step_write_plan(block_tables, offs_h, num_blocks=self.pool.num_blocks,
-                                              block_size=self.block_size, device=dev)
-            cache = [PagedKVCache(k, v, bt, plan) for k, v in state["pool"]]
-        else:
-            cache = state["cache"]
+        # the value made on the device: a host scalar would be a blocking
+        # one-element copy, a sync every round
+        state["mask"].index_put_((to_device(live, dev), to_device(offs_h[live].astype(np.int64), dev)),
+                                 state["mask"].new_ones(()))
+        offs = to_device(offs_h, dev)
+        cache = (self._paged_caches(state, block_tables, offs_h) if self.paged
+                 else state["cache"])
         logits = self.model(
             state["last"][:, None], state["mask"],
-            positions=torch.as_tensor(rope_pos.astype(np.int64), device=dev)[:, None],
+            positions=to_device(rope_pos.astype(np.int64), dev)[:, None],
             cache=cache, cache_positions=offs,
         )
         nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
-        nxt = torch.where(torch.as_tensor(active, device=dev), nxt, self.pad).to(torch.int32)
+        nxt = torch.where(to_device(active, dev), nxt, self.pad).to(torch.int32)
         state["last"] = nxt
         return nxt
+
+    @torch.inference_mode()
+    def _verify(self, state: dict, x: torch.Tensor, write_pos: np.ndarray, rope_pos: np.ndarray,
+                active: np.ndarray, room: np.ndarray, block_tables: np.ndarray | None):
+        """One speculative verify round (``spec.verify``); paged, the pass
+        writes its k + 1 rows a slot through one span write plan."""
+        dev = self.device
+        cache = None
+        if self.paged:
+            width = state["mask"].shape[1]
+            offs_h = np.where(active, write_pos, width).astype(np.int32)
+            cache = self._paged_caches(state, block_tables, offs_h, span=self.spec + 1)
+        t = lambda a: to_device(a, dev)  # noqa: E731
+        return spec.verify(self.model, state, x, write_pos=t(write_pos.astype(np.int32)),
+                           rope_pos=t(rope_pos.astype(np.int32)), active=t(active),
+                           room=t(room), pad=self.pad, cache=cache)
 
     # ------------------------------------------------------------- state
     def _init_state(self) -> dict:
         S, W, L = self.S, self.W, self.L
         cfg, dt, dev = self.config, self.model.dtype, self.device
+        kv = self.kv_dtype
         if not self.is_seq2seq:
             state = {
                 "mask": torch.zeros((S, W + L), dtype=torch.int32, device=dev),
@@ -380,11 +521,12 @@ class ServingEngine:
             }
             if self.paged:
                 # one slot's worth of shapes is enough to size the pool
-                one = init_causal_cache(self.model, 1, 1, device=dev)
+                one = init_causal_cache(self.model, 1, 1, device=dev, kv_cache_dtype=kv)
                 state["pool"] = cache_pool.pool_cache_tree(
-                    [(c.k, c.v) for c in one], self.pool.num_blocks, self.block_size)
+                    [kv_leaves(c) for c in one], self.pool.num_blocks, self.block_size)
             else:
-                state["cache"] = init_causal_cache(self.model, S, W + L, device=dev)
+                state["cache"] = init_causal_cache(self.model, S, W + L, device=dev,
+                                                   kv_cache_dtype=kv)
             return state
         # the cross-K/V slots take each decoder layer's own cross-attention
         # shape, so any seq2seq family (BART, T5) sizes its state alike
@@ -394,7 +536,7 @@ class ServingEngine:
             ckv.append((torch.zeros(shape, dtype=dt, device=dev),
                         torch.zeros(shape, dtype=dt, device=dev)))
         return {
-            "cache": init_cache(self.model, S, L, device=dev),
+            "cache": init_cache(self.model, S, L, device=dev, kv_cache_dtype=kv),
             "enc": torch.zeros((S, W, cfg.d_model), dtype=dt, device=dev),
             "enc_mask": torch.zeros((S, W), dtype=torch.int32, device=dev),
             "ckv": ckv,
@@ -416,15 +558,19 @@ class ServingEngine:
         pays a kernel build (the JAX package AOT-compiles its programs
         here): a seq2seq prefill (BART, or T5 through the learned-bias
         branch) runs the flash forward and its decode the flash decode
-        kernel; a causal decode runs the paged or the flat decode kernel.
+        kernel; a causal decode runs the paged or the flat decode kernel,
+        a warm prefix tail and a draft model's decode the flat one.
         Nothing to do on the CPU."""
         if self._warmed:
             return
         if self.device.type == "cuda":
             from distributed_llms_example_tpu_torch.ops import cuda_build
 
-            cuda_build.build(["flash_fwd", "flash_decode"] if self.is_seq2seq
-                             else ["flash_decode_paged"] if self.paged else ["flash_decode"])
+            names = (["flash_fwd", "flash_decode"] if self.is_seq2seq
+                     else ["flash_decode_paged"] if self.paged else ["flash_decode"])
+            if self.prefix or self.drafter is not None:
+                names.append("flash_decode")
+            cuda_build.build(sorted(set(names)))
         self._warmed = True
 
     # -------------------------------------------------------------- loop
@@ -470,20 +616,37 @@ class ServeSession:
         self.base = np.full(S, eng.W, np.int64)  # causal: decode tail start
         self.active = np.zeros(S, bool)
         # paged: blocks each slot holds, and the block tables the step reads
-        # (sentinel = num_blocks: reads see nothing, writes drop)
+        # (sentinel = num_blocks: reads see nothing, writes drop); prefix
+        # cache: each slot's registered full-prompt chain (root first), a
+        # part of its blocks, released tail first so the warm LRU keeps a
+        # chain's root longest
         self.slot_blocks: list[list[int]] = [[] for _ in range(S)]
+        self.slot_chain: list[list[int]] = [[] for _ in range(S)]
         self.slot_bt = (np.full((S, eng.n_tiles), eng.pool.num_blocks, np.int32)
                         if eng.paged else None)
         eng.warm()
         self.state = eng._init_state()
         self.t_open = time.perf_counter()
         self.stats.cache_bytes_resident, self._per_block = eng._state_byte_account(self.state)
+        if eng.paged and eng.prefix:
+            # the pool tensors were just made anew: chains a previous
+            # session left warm index nothing now
+            eng.pool.drop_warm()
+            if self._per_block:
+                eng.pool.warm_capacity = int(
+                    eng.serve.prefix_cache_budget_gib * (1 << 30) // self._per_block)
         self.params_bytes = sum(p.numel() * p.element_size() for p in eng.model.parameters())
         self._bpt_samples: list[float] = []
         self._win_tokens, self._win_occ = 0, 0.0
         self._win_t0 = time.perf_counter()
         self._win_prefill, self._win_decode = 0.0, 0.0
         self._win_arrivals, self._win_done = 0, 0
+        # speculative decode: what each slot appended last round (the draft
+        # model's catch-up feed; None until its first round), the draft
+        # model's own slot state
+        self._spec_fed: list[list[int] | None] = [None] * S
+        self.draft_state = eng.drafter.init_state() if eng.drafter is not None else None
+        self._win_spec_steps, self._win_spec_emitted = 0, 0
         self._finalized = False
 
     # ------------------------------------------------------------ intake
@@ -508,6 +671,12 @@ class ServeSession:
 
     def has_work(self) -> bool:
         return bool(self.pending) or bool(self.active.any())
+
+    def prefix_ref_violations(self) -> list[str]:
+        """The pool's refcount invariant walked from this session's live
+        block tables (``CachePool.ref_invariant_violations``); empty when
+        every block's refcount equals its live references."""
+        return self.eng.pool.ref_invariant_violations([sb for sb in self.slot_blocks if sb])
 
     def _bytes_in_use(self) -> int:
         if self.eng.paged:
@@ -545,18 +714,25 @@ class ServeSession:
         log_json(record)
 
     def _evict_slot(self, slot: int) -> None:
-        """Free the slot now and, paged, return every block it held."""
+        """Free the slot now and, paged, drop one reference on every block
+        it held (a shared block survives until its last holder leaves); the
+        registered chain goes tail first."""
         self.active[slot] = False
         self.slot_req[slot] = -1
+        self._spec_fed[slot] = None
         self._win_done += 1
         if self.eng.paged and self.slot_blocks[slot]:
-            self.eng.pool.free(self.slot_blocks[slot])
+            chain = self.slot_chain[slot]
+            in_chain = set(chain)
+            rest = [b for b in self.slot_blocks[slot] if b not in in_chain]
+            self.eng.pool.free(rest + chain[::-1])
             self.slot_blocks[slot] = []
+            self.slot_chain[slot] = []
             self.slot_bt[slot, :] = self.eng.pool.num_blocks
 
-    def _emit(self, slot: int, tok: int, now: float, finished: list) -> None:
+    def _emit(self, slot: int, tok: int, now: float, finished: list) -> bool:
         """Append one generated token to the slot's request; evict on eos
-        or an exhausted budget."""
+        or an exhausted budget (True when it did)."""
         rid = int(self.slot_req[slot])
         self.outputs[rid].append(tok)
         if self.ttft[rid] is None:
@@ -566,9 +742,67 @@ class ServeSession:
             self._evict_slot(slot)
             self._finish_request(rid, slot, now)
             finished.append(rid)
+            return True
+        return False
+
+    def _admit_row(self, rid: int, slot: int, length: int, base: int, t0: float, dt: float,
+                   now: float, finished: list, first: int | None = None) -> None:
+        """A request's slot bookkeeping after its prefill; a causal
+        prefill's first token is emitted here."""
+        self.slot_req[slot] = rid
+        self.emitted[slot] = 0
+        self.lengths[slot] = length
+        self.base[slot] = base
+        self.active[slot] = True
+        self.admit_t[rid] = t0
+        self.prefill_dt[rid] = dt
+        if first is not None:
+            self._emit(slot, first, now, finished)
+
+    def _prefill_chunk(self, rows: list[tuple[int, int]], bucket: int, finished: list,
+                       admit_rows: np.ndarray | None = None) -> None:
+        """One cold admission chunk: ``rows`` (rid, slot) prefilled from
+        cache slot 0 at ``bucket`` width and admitted (paged: by
+        ``admit_rows``, the chunk's (chunk, tiles) block assignment)."""
+        eng = self.eng
+        C, S = eng.prefill_batch, eng.S
+        ids = np.full((C, bucket), eng.pad, np.int64)
+        mask = np.zeros((C, bucket), np.int32)
+        slot_idx = np.full(C, S, np.int64)  # padding rows drop
+        for r, (rid, slot) in enumerate(rows):
+            toks = self.requests[rid][:bucket]
+            ids[r, : len(toks)] = toks
+            mask[r, : len(toks)] = 1
+            slot_idx[r] = slot
+        t0 = time.perf_counter()
+        pre = eng._prefill(to_device(ids, eng.device),
+                           to_device(mask, eng.device))
+        if eng.is_seq2seq:
+            enc, pmask, ckv = pre
+            eng._admit(self.state, enc, pmask, ckv, slot_idx)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)  # the prefill's time is its device time
+            lengths, firsts = [min(len(self.requests[rid]), eng.W) for rid, _ in rows], None
+        else:
+            cache, full_mask, plens, first = pre
+            eng._admit_causal(self.state, cache, full_mask, first, slot_idx,
+                              None if admit_rows is None else admit_rows.reshape(-1))
+            lengths, firsts = plens.cpu().tolist(), first.cpu().tolist()
+            del cache, pre
+        dt = time.perf_counter() - t0
+        self.stats.prefill_seconds += dt
+        self.stats.prefill_calls += 1
+        self._win_prefill += dt
+        now = time.perf_counter()
+        for r, (rid, slot) in enumerate(rows):
+            self._admit_row(rid, slot, int(lengths[r]), bucket, t0, dt, now, finished,
+                            None if firsts is None else int(firsts[r]))
 
     def _admit_now(self, finished: list) -> None:
         eng = self.eng
+        if eng.paged and eng.prefix:
+            self._admit_now_prefix(finished)
+            return
         S, W, C = eng.S, eng.W, eng.prefill_batch
         free = [i for i in range(S) if not self.active[i]]
         n = min(len(free), C, len(self.pending))
@@ -588,14 +822,6 @@ class ServeSession:
                 return
         reqs = [self.pending.popleft() for _ in range(n)]
         bucket = next(b for b in eng.buckets if b >= max(plen(rid) for rid in reqs))
-        ids = np.full((C, bucket), eng.pad, np.int64)
-        mask = np.zeros((C, bucket), np.int32)
-        for r, rid in enumerate(reqs):
-            toks = self.requests[rid][:bucket]
-            ids[r, : len(toks)] = toks
-            mask[r, : len(toks)] = 1
-        slot_idx = np.full(C, S, np.int64)  # padding rows drop
-        slot_idx[:n] = free[:n]
         admit_rows = None
         if eng.paged:
             # fund and map each row's blocks before the prefill; the flat
@@ -606,50 +832,138 @@ class ServeSession:
             for r, rid in enumerate(reqs):
                 blocks = eng.pool.alloc(
                     cache_pool.blocks_needed(plen(rid), self.budgets[rid], eng.block_size))
-                slot = free[r]
-                self.slot_blocks[slot] = blocks
-                row = cache_pool.build_block_row(
-                    eng.n_tiles, blocks, prompt_len=plen(rid), bucket_width=bucket,
-                    budget=self.budgets[rid], block_size=eng.block_size,
-                    sentinel=eng.pool.num_blocks)
-                self.slot_bt[slot, :] = row
-                admit_rows[r, :] = row[:ntc]
-        t0 = time.perf_counter()
-        pre = eng._prefill(
-            torch.as_tensor(ids, device=eng.device), torch.as_tensor(mask, device=eng.device)
-        )
-        if eng.is_seq2seq:
-            enc, pmask, ckv = pre
-            eng._admit(self.state, enc, pmask, ckv, slot_idx)
-            if eng.device.type == "cuda":
-                torch.cuda.synchronize(eng.device)  # the prefill's time is its device time
-        else:
-            cache, full_mask, plens, first = pre
-            eng._admit_causal(self.state, cache, full_mask, first, slot_idx,
-                              None if admit_rows is None else admit_rows.reshape(-1))
-            plens_h, first_h = plens.cpu().numpy(), first.cpu().numpy()
-            del cache, pre
-        dt = time.perf_counter() - t0
-        self.stats.prefill_seconds += dt
-        self.stats.prefill_calls += 1
-        self._win_prefill += dt
-        now = time.perf_counter()
-        for r, rid in enumerate(reqs):
-            slot = free[r]
-            self.slot_req[slot] = rid
-            self.emitted[slot] = 0
-            self.lengths[slot] = plen(rid)
-            self.base[slot] = bucket
-            self.active[slot] = True
-            self.admit_t[rid] = t0
-            self.prefill_dt[rid] = dt
-            if not eng.is_seq2seq:
-                # the causal prefill already produced token #1
-                self.lengths[slot] = int(plens_h[r])
-                self._emit(slot, int(first_h[r]), now, finished)
+                self.slot_blocks[free[r]] = blocks
+                admit_rows[r, :] = self._map_blocks(free[r], rid, plen(rid), bucket)[:ntc]
+        self._prefill_chunk(list(zip(reqs, free)), bucket, finished, admit_rows)
         self.stats.peak_cache_bytes_in_use = max(
             self.stats.peak_cache_bytes_in_use, self._bytes_in_use()
         )
+
+    def _map_blocks(self, slot: int, rid: int, p: int, bucket: int) -> np.ndarray:
+        """The slot's block-table row over its blocks, set and returned."""
+        eng = self.eng
+        row = cache_pool.build_block_row(
+            eng.n_tiles, self.slot_blocks[slot], prompt_len=p, bucket_width=bucket,
+            budget=self.budgets[rid], block_size=eng.block_size, sentinel=eng.pool.num_blocks)
+        self.slot_bt[slot, :] = row
+        return row
+
+    def _admit_now_prefix(self, finished: list) -> None:
+        """Prefix-cache admission: per row, match the longest cached chain,
+        acquire it and allocate only the tail (rolled back when the pool
+        comes up short), then at most two dispatches: the cold prefill
+        chunk of the rows with no cached prefix, then one warm chunk that
+        gathers the matched chains and prefills only the tails.  Cold goes
+        first so a warm row may match a chain a cold row of the same wave
+        registered; a warm row must not match another warm row's fresh
+        tail blocks (written in the same pass it would gather from), so a
+        match stops before any block this wave's warm chunk writes."""
+        eng = self.eng
+        S, W, C = eng.S, eng.W, eng.prefill_batch
+        bs, N = eng.block_size, eng.pool.num_blocks
+        free = [i for i in range(S) if not self.active[i]]
+        n = min(len(free), C, len(self.pending))
+        if n == 0:
+            return
+        cold: list[tuple[int, int, int]] = []  # rid, slot, prompt length
+        warm: list[dict] = []
+        warm_written: set[int] = set()
+        taken = 0
+        while taken < n:
+            rid = self.pending[0]
+            p = min(len(self.requests[rid]), W)
+            toks = self.requests[rid][:p]
+            hashes = cache_pool.chain_hashes(toks, bs)
+            # keep >= 1 prompt token in the tail: the first output token
+            # comes from the last prompt position's logits
+            chain = eng.pool.match_chain(hashes[: (p - 1) // bs])
+            for i, b in enumerate(chain):
+                if b in warm_written:
+                    chain = chain[:i]
+                    break
+            k = len(chain)
+            need = max(1, math.ceil(p / bs)) - k + math.ceil(max(self.budgets[rid], 1) / bs)
+            if k:
+                eng.pool.acquire(chain)
+            fresh = eng.pool.alloc(need)
+            if fresh is None:
+                if k:
+                    eng.pool.free(chain[::-1])  # roll back
+                break
+            self.pending.popleft()
+            slot = free[taken]
+            taken += 1
+            blocks = chain + fresh
+            self.slot_blocks[slot] = blocks
+            full_tiles = p // bs
+            if full_tiles:
+                eng.pool.register(blocks[:full_tiles], hashes[:full_tiles])
+            self.slot_chain[slot] = list(blocks[:full_tiles])
+            self.stats.prefix_lookups += 1
+            self.stats.prefill_tokens_total += p
+            if k:
+                self.stats.prefix_hits += 1
+                self.stats.prefill_tokens_saved += k * bs
+                warm_written.update(blocks[k:full_tiles])
+                warm.append({"rid": rid, "slot": slot, "p": p,
+                             "bucket": next(b for b in eng.buckets if b >= p),
+                             "start": k * bs, "tail": toks[k * bs:]})
+            else:
+                cold.append((rid, slot, p))
+        if taken == 0:
+            self.stats.admit_deferrals += 1
+            return
+        if cold:
+            bucket = next(b for b in eng.buckets if b >= max(p for _, _, p in cold))
+            ntc = (bucket + eng.L) // bs
+            admit_rows = np.full((C, ntc), N, np.int32)
+            for r, (rid, slot, p) in enumerate(cold):
+                admit_rows[r, :] = self._map_blocks(slot, rid, p, bucket)[:ntc]
+            self._prefill_chunk([(rid, slot) for rid, slot, _ in cold], bucket, finished,
+                                admit_rows)
+        if warm:
+            self._warm_chunk(warm, finished)
+        self.stats.peak_cache_bytes_in_use = max(
+            self.stats.peak_cache_bytes_in_use, self._bytes_in_use()
+        )
+
+    def _warm_chunk(self, warm: list[dict], finished: list) -> None:
+        """The warm admission chunk (``ServingEngine._warm_admit``)."""
+        eng = self.eng
+        C, S, bs, N = eng.prefill_batch, eng.S, eng.block_size, eng.pool.num_blocks
+        width = eng.W + eng.L
+        tail_bucket = next(b for b in eng.buckets if b >= max(len(w["tail"]) for w in warm))
+        ids_t = np.full((C, tail_bucket), eng.pad, np.int64)
+        mask_f = np.zeros((C, width), np.int32)
+        start = np.full(C, width, np.int32)  # padding rows write nowhere
+        tail_last = np.zeros(C, np.int64)
+        slot_idx = np.full(C, S, np.int64)
+        bt = np.full((C, eng.n_tiles), N, np.int32)
+        admit_rows = np.full((C, eng.n_tiles), N, np.int32)
+        for r, wr in enumerate(warm):
+            slot, tail = wr["slot"], wr["tail"]
+            ids_t[r, : len(tail)] = tail
+            mask_f[r, : wr["p"]] = 1
+            start[r] = wr["start"]
+            tail_last[r] = len(tail) - 1
+            slot_idx[r] = slot
+            row = self._map_blocks(slot, wr["rid"], wr["p"], wr["bucket"])
+            bt[r, :] = row
+            # only the fresh prompt tiles scatter back: the matched chain is
+            # shared and never written; decode tiles are written by decode
+            k_tiles, p_tiles = wr["start"] // bs, max(1, math.ceil(wr["p"] / bs))
+            admit_rows[r, k_tiles:p_tiles] = row[k_tiles:p_tiles]
+        t0 = time.perf_counter()
+        first = eng._warm_admit(self.state, ids_t, mask_f, start, tail_last, slot_idx, bt,
+                                admit_rows.reshape(-1)).cpu().tolist()
+        dt = time.perf_counter() - t0
+        self.stats.prefill_seconds += dt
+        self.stats.warm_admit_calls += 1
+        self._win_prefill += dt
+        now = time.perf_counter()
+        for r, wr in enumerate(warm):
+            self._admit_row(wr["rid"], wr["slot"], wr["p"], wr["bucket"], t0, dt, now,
+                            finished, int(first[r]))
 
     def _memory_account(self) -> dict:
         return serving_account(
@@ -659,8 +973,123 @@ class ServeSession:
 
     def step(self) -> list[int]:
         """One scheduler round: admit into free slots, then one decode step
-        if any slot is live.  Returns the rids that finished (at prefill
-        included)."""
+        (or speculative verify round) if any slot is live.  Returns the
+        rids that finished (at prefill included).  An out-of-memory error
+        escaping the round writes the memory postmortem when
+        ``postmortem_dir`` is set, then re-raises."""
+        try:
+            return self._step_round()
+        except Exception as e:
+            self._oom_tripwire(e)
+            raise
+
+    def _oom_tripwire(self, e: BaseException) -> None:
+        out_dir = self.eng.serve.postmortem_dir
+        if not out_dir or not is_resource_exhausted(e):
+            return
+        dump_postmortem(
+            out_dir, reason=f"{type(e).__name__}: {str(e)[:300]}",
+            step=self.stats.decode_steps, account=self._memory_account(),
+            device=self.eng.device if self.eng.device.type == "cuda" else None,
+        )
+
+    def _spec_dispatch(self, offsets: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Assemble and run one draft-then-verify round: drafts from the
+        n-gram self-drafter or the draft model (``serving/spec.py``), the
+        target's verify pass, one device-to-host read of its tokens and
+        emit counts.  Returns host arrays ``(target (S, k+1), n_emit
+        (S,))``."""
+        eng = self.eng
+        K, S, dev = eng.spec, eng.S, eng.device
+        x0 = np.full((S, 1), eng.pad, np.int32)
+        room = np.zeros((S,), np.int32)
+        live = np.nonzero(self.active)[0]
+        for s in live:
+            rid = int(self.slot_req[s])
+            x0[s, 0] = self.outputs[rid][-1]
+            # the budget left minus the bonus token that always lands
+            room[s] = max(int(self.budgets[rid]) - int(self.emitted[s]) - 1, 0)
+        if eng.drafter is not None:
+            self._draft_admissions()
+            fed = np.full((S, K + 1), eng.pad, np.int32)
+            n_fed = np.zeros((S,), np.int32)
+            pos0 = np.zeros((S,), np.int32)
+            rope0 = np.zeros((S,), np.int32)
+            for s in live:
+                f = self._spec_fed[s]
+                fed[s, : len(f)] = f
+                n_fed[s] = len(f)
+                pos0[s] = int(self.base[s]) + int(self.emitted[s]) - len(f)
+                rope0[s] = int(self.lengths[s]) + int(self.emitted[s]) - len(f)
+            t = lambda a: to_device(a, dev)  # noqa: E731
+            act = t(self.active)
+            drafts = eng.drafter.round(self.draft_state, t(fed), t(n_fed), t(pos0), t(rope0),
+                                       act)
+            x = torch.cat([t(x0), torch.where(act[:, None], drafts, eng.pad)], dim=1)
+        else:
+            hist = [self.requests[int(self.slot_req[s])] + self.outputs[int(self.slot_req[s])]
+                    if self.active[s] else None for s in range(S)]
+            x = to_device(np.concatenate([x0, spec.ngram_drafts(hist, K, eng.pad)], 1), dev)
+        target, n_emit = eng._verify(self.state, x, offsets, self.lengths + self.emitted - 1,
+                                     self.active.copy(), room, self.slot_bt)
+        both = torch.cat([target, n_emit[:, None]], dim=1).cpu().numpy()
+        return both[:, :-1], both[:, -1]
+
+    def _draft_admissions(self) -> None:
+        """Slots admitted since the last round enter the draft model's
+        cache: the draft prefills the same whole prompts at the same bucket
+        widths (under a warm prefix hit too: its cache shares nothing), and
+        the catch-up feed starts from the admission's first token."""
+        eng = self.eng
+        need = [s for s in np.nonzero(self.active)[0] if self._spec_fed[s] is None]
+        if not need:
+            return
+        by_bucket: dict[int, list[int]] = collections.defaultdict(list)
+        for s in need:
+            self._spec_fed[s] = [self.outputs[int(self.slot_req[s])][-1]]
+            by_bucket[int(self.base[s])].append(s)
+        C = eng.prefill_batch
+        for bucket, slots in sorted(by_bucket.items()):
+            for i in range(0, len(slots), C):
+                ids = np.full((C, bucket), eng.pad, np.int64)
+                mask = np.zeros((C, bucket), np.int32)
+                slot_idx = np.full((C,), eng.S, np.int64)
+                for r, s in enumerate(slots[i:i + C]):
+                    toks = self.requests[int(self.slot_req[s])][:bucket]
+                    ids[r, : len(toks)] = toks
+                    mask[r, : len(toks)] = 1
+                    slot_idx[r] = s
+                eng.drafter.admit_prompt(self.draft_state, to_device(ids, eng.device),
+                                         to_device(mask, eng.device), slot_idx)
+
+    def _spec_append(self, toks: np.ndarray, n_emit: np.ndarray, now: float,
+                     finished: list) -> int:
+        """Append one verify round's accepted prefix + bonus token a live
+        slot, with the plain loop's eos/budget eviction (an accepted prefix
+        crossing eos stops there).  Returns the tokens appended."""
+        stats = self.stats
+        appended = slot_rounds = 0
+        for slot in np.nonzero(self.active)[0]:
+            n = int(n_emit[slot])
+            slot_rounds += 1
+            stats.spec_drafted += self.eng.spec
+            stats.spec_accepted += n - 1
+            fed: list[int] = []
+            for j in range(n):
+                fed.append(int(toks[slot, j]))
+                appended += 1
+                if self._emit(slot, fed[-1], now, finished):
+                    break
+            else:
+                self._spec_fed[slot] = fed
+        stats.spec_steps += 1
+        stats.spec_slot_rounds += slot_rounds
+        stats.spec_emitted += appended
+        self._win_spec_steps += slot_rounds
+        self._win_spec_emitted += appended
+        return appended
+
+    def _step_round(self) -> list[int]:
         if self._finalized:
             raise RuntimeError("session already finalized")
         eng = self.eng
@@ -669,13 +1098,15 @@ class ServeSession:
         if not self.active.any():
             return finished
         t0 = time.perf_counter()
-        if eng.is_seq2seq:
-            tokens = eng._step(self.state, self.emitted.astype(np.int32), self.active.copy())
+        if eng.spec:
+            spec_toks, spec_emit = self._spec_dispatch(self.base + self.emitted - 1)
+        elif eng.is_seq2seq:
+            toks = eng._step(self.state, self.emitted.astype(np.int32),
+                             self.active.copy()).cpu().numpy()
         else:
-            tokens = eng._step_causal(self.state, self.base + self.emitted - 1,
-                                      self.lengths + self.emitted - 1, self.active.copy(),
-                                      self.slot_bt)
-        toks = tokens.cpu().numpy()
+            toks = eng._step_causal(self.state, self.base + self.emitted - 1,
+                                    self.lengths + self.emitted - 1, self.active.copy(),
+                                    self.slot_bt).cpu().numpy()
         dt = time.perf_counter() - t0
         self.stats.decode_seconds += dt
         self.stats.decode_steps += 1
@@ -685,20 +1116,27 @@ class ServeSession:
         self._win_occ += n_active / eng.S
         self._bpt_samples.append(self._bytes_in_use() / max(self._live_tokens(), 1))
         now = time.perf_counter()
-        for slot in np.nonzero(self.active)[0]:
-            self._emit(slot, int(toks[slot]), now, finished)
-        self.stats.decode_tokens += n_active
-        self._win_tokens += n_active
+        if eng.spec:
+            # a verify round appends 1..k+1 tokens a slot: the account counts
+            # the tokens emitted
+            appended = self._spec_append(spec_toks, spec_emit, now, finished)
+        else:
+            appended = n_active
+            for slot in np.nonzero(self.active)[0]:
+                self._emit(slot, int(toks[slot]), now, finished)
+        self.stats.decode_tokens += appended
+        self._win_tokens += appended
         every = eng.serve.log_every_steps
         if every and self.stats.decode_steps % every == 0:
             self._log_window(now, every)
         return finished
 
     def _log_window(self, now: float, every: int) -> None:
+        eng, stats = self.eng, self.stats
         w_dt = max(now - self._win_t0, 1e-9)
         window = {
             "event": "serve_window",
-            "step": self.stats.decode_steps,
+            "step": stats.decode_steps,
             "decode_tokens_per_sec": round(self._win_tokens / w_dt, 1),
             "decode_tokens_per_sec_chip": round(self._win_tokens / w_dt / self.n_chips, 1),
             "slot_occupancy": round(self._win_occ / every, 4),
@@ -713,13 +1151,25 @@ class ServeSession:
                 self._bytes_in_use() / max(self._live_tokens(), 1), 1
             ),
         }
-        if self.eng.paged:
-            window["pool_blocks_in_use"] = self.eng.pool.blocks_in_use
-            window["pool_blocks_free"] = self.eng.pool.blocks_free
+        if eng.paged:
+            window["pool_blocks_in_use"] = eng.pool.blocks_in_use
+            window["pool_blocks_free"] = eng.pool.blocks_free
+            if eng.prefix:
+                window["prefix_hit_rate"] = round(
+                    stats.prefix_hits / max(stats.prefix_lookups, 1), 4)
+                window["prefill_tokens_saved_frac"] = round(
+                    stats.prefill_tokens_saved / max(stats.prefill_tokens_total, 1), 4)
+                window["pool_blocks_warm"] = eng.pool.blocks_warm
+                window["warm_bytes"] = eng.pool.blocks_warm * self._per_block
+        if eng.spec:
+            window["accepted_tokens_per_step"] = round(
+                self._win_spec_emitted / max(self._win_spec_steps, 1), 4)
+            window["acceptance_rate"] = round(stats.spec_accepted / max(stats.spec_drafted, 1), 4)
         log_json(window)
         self._win_tokens, self._win_t0, self._win_occ = 0, now, 0.0
         self._win_prefill, self._win_decode = 0.0, 0.0
         self._win_arrivals, self._win_done = 0, 0
+        self._win_spec_steps, self._win_spec_emitted = 0, 0
 
     # ---------------------------------------------------------- closing
     def finalize(self) -> ServeStats:
@@ -777,6 +1227,32 @@ class ServeSession:
             summary["pool_blocks"] = eng.pool.num_blocks
             summary["kv_block_size"] = eng.block_size
             summary["admit_deferrals"] = stats.admit_deferrals
+            if eng.prefix:
+                summary.update(
+                    prefix_cache=True,
+                    prefix_cache_budget_gib=eng.serve.prefix_cache_budget_gib,
+                    prefix_lookups=stats.prefix_lookups,
+                    prefix_hits=stats.prefix_hits,
+                    prefix_hit_rate=round(stats.prefix_hits / max(stats.prefix_lookups, 1), 4),
+                    prefill_tokens_total=stats.prefill_tokens_total,
+                    prefill_tokens_saved=stats.prefill_tokens_saved,
+                    prefill_tokens_saved_frac=round(
+                        stats.prefill_tokens_saved / max(stats.prefill_tokens_total, 1), 4),
+                    pool_blocks_warm=eng.pool.blocks_warm,
+                    warm_bytes=eng.pool.blocks_warm * self._per_block,
+                )
+        if eng.spec:
+            summary.update(
+                spec_decode=True,
+                spec_tokens=eng.spec,
+                spec_draft_model=eng.serve.spec_draft_model or "ngram",
+                spec_steps=stats.spec_steps,
+                spec_drafted_tokens=stats.spec_drafted,
+                spec_accepted_tokens=stats.spec_accepted,
+                accepted_tokens_per_step=round(
+                    stats.spec_emitted / max(stats.spec_slot_rounds, 1), 4),
+                acceptance_rate=round(stats.spec_accepted / max(stats.spec_drafted, 1), 4),
+            )
         acct = self._memory_account()
         summary["memory_account"] = acct
         summary["hbm_headroom_gib"] = acct["hbm_headroom_gib"]

@@ -124,10 +124,13 @@ def step_scalars(spec: OptimizerSpec, schedule: Schedule, count: int,
     bc2 = 1 - torch.full((), spec.b2, dtype=torch.float32, device=dev) ** count_inc
     trigger = ((gnorm < spec.max_grad_norm).float() if spec.max_grad_norm > 0
                else torch.ones((), device=dev))
+    # a Python number assigned into a CUDA tensor is a pageable host copy,
+    # which waits for the stream: -lr enters through a fill instead
+    neg_lr = torch.full((), -1 * schedule(count), dtype=torch.float32, device=dev)
     scal = torch.zeros(SCALARS, dtype=torch.float32, device=dev)
-    for i, v in ((_S_GNORM, gnorm), (_S_TRIGGER, trigger), (_S_BC1, bc1), (_S_BC2, bc2)):
+    for i, v in ((_S_GNORM, gnorm), (_S_TRIGGER, trigger), (_S_BC1, bc1), (_S_BC2, bc2),
+                 (_S_NEG_LR, neg_lr)):
         scal[i] = v
-    scal[_S_NEG_LR] = -1 * schedule(count)
     return scal
 
 

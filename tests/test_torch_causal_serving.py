@@ -5,7 +5,10 @@ with 8-slot blocks and an 8-wide bucket, and paged with the derived block
 size all give the JAX engine's tokens exactly; a pool too small for the
 concurrency defers admissions and still gives them; the pool drains to 0;
 a pool poisoned with NaN at init changes nothing (every read is masked to
-what its owner wrote)."""
+what its owner wrote).  The int8 K/V cache, flat and paged, gives the
+JAX engine's int8 tokens exactly, holds 4d/(d + 4) fewer bytes than the
+fp32 cache, and keeps the JAX tests' floor of 0.85 greedy-token agreement
+with the fp32 engine (``llama-test``'s random logits are near ties)."""
 
 import json
 
@@ -151,3 +154,27 @@ def test_paged_step_never_gathers_on_the_kernel_route(llama_runs, monkeypatch):
             blk.self_attn.attention_impl = "auto"
     assert calls["paged"] == len(tlm.module.blocks) * eng.last_stats.decode_steps > 0
     assert got == want
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"paged_kv": True, "kv_block_size": 8, "prefill_buckets": (8,)},
+], ids=["flat", "paged_bs8_bucketed"])
+def test_int8_engine_tokens_match_jax_engine(llama_runs, extra):
+    lm, params, tlm, reqs, flat = llama_runs
+    kw = {**KW, **extra, "kv_cache_dtype": "int8"}
+    want = JaxServingEngine(lm.module, lm.config, None, JaxServeConfig(**kw),
+                            is_seq2seq=False).generate(params, reqs)
+    eng = _engine(tlm, kv_cache_dtype="int8", **extra)
+    got = eng.generate(reqs)
+    assert got == want
+    same = sum(x == y for a, b in zip(got, flat) for x, y in zip(a, b))
+    assert same / sum(max(len(a), len(b)) for a, b in zip(got, flat)) >= 0.85
+    if eng.paged:
+        assert eng.pool.blocks_in_use == 0
+        # int8 K/V pools beside their fp32 scale pools, in every layer
+        assert all([str(x.dtype) for x in layer] == ["torch.int8"] * 2 + ["torch.float32"] * 2
+                   for layer in eng.open().state["pool"])
+    else:
+        d = tlm.config.hidden_size // tlm.config.num_attention_heads
+        ratio = _engine(tlm).open().stats.cache_bytes_resident / eng.last_stats.cache_bytes_resident
+        assert ratio == pytest.approx(4 * d / (d + 4))

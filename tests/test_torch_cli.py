@@ -49,8 +49,14 @@ def test_serve_cpu_end_to_end(tmp_path, capsys, model):
 def test_serve_rejects_later_slices(tmp_path):
     prompts = tmp_path / "p.json"
     prompts.write_text(json.dumps(["x"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the serving features run since their slice: what still stops is a
+    # composition the JAX engine refuses, --spec-tokens out of range at
+    # parse time, and Mixtral
+    with pytest.raises(ValueError, match="requires paged_kv"):
         serve_main(_args(prompts, tmp_path / "o.jsonl", "--prefix-cache"))
+    for k in ("8", "-1"):
+        with pytest.raises(SystemExit):
+            serve_main(_args(prompts, tmp_path / "o.jsonl", "--spec-tokens", k))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_main(_args(prompts, tmp_path / "o.jsonl", "--model-ckpt", "mixtral-test"))
 

@@ -251,3 +251,34 @@ def test_grad_prep_matches_jax_division_and_global_norm(name):
     np.testing.assert_allclose(float(gnorm), float(optax.global_norm(jgrads)), rtol=1e-6)
     want = np.sqrt(sum(np.sum(np.asarray(j, np.float64) ** 2) for j in jgrads))
     assert float(gnorm) == np.float32(want)
+
+
+def test_step_scalars_take_host_values_by_fill_not_copy(monkeypatch):
+    """Building the kernel's scalar vector waits on nothing: every value set
+    into it is a tensor on its device (the gradient norm, and -lr and the
+    bias corrections made there by fills), never a Python number, which
+    PyTorch copies into a CUDA tensor from a host tensor, a copy that syncs
+    the stream.  On the CPU the vector is the one the plain expressions
+    give, bit for bit."""
+    spec = toptim.OptimizerSpec(learning_rate=3e-4, warmup_steps=2, total_steps=10)
+    sched = toptim.linear_schedule_with_warmup(spec.learning_rate, spec.warmup_steps,
+                                               spec.total_steps)
+    assigned = []
+    setitem = torch.Tensor.__setitem__
+
+    def recording(self, idx, value):
+        assigned.append(type(value))
+        return setitem(self, idx, value)
+
+    monkeypatch.setattr(torch.Tensor, "__setitem__", recording)
+    for count in (0, 1, 5, 9):
+        gnorm = torch.tensor(0.75)
+        got = toptim.step_scalars(spec, sched, count, gnorm)
+        c = torch.tensor(count + 1, dtype=torch.float32)
+        want = {toptim._S_GNORM: gnorm, toptim._S_TRIGGER: torch.tensor(1.0),
+                toptim._S_BC1: 1 - torch.tensor(spec.b1) ** c,
+                toptim._S_BC2: 1 - torch.tensor(spec.b2) ** c,
+                toptim._S_NEG_LR: torch.tensor(-1 * sched(count))}
+        for i, v in want.items():
+            assert got[i].item() == v.float().item(), (count, i)
+    assert assigned and set(assigned) == {torch.Tensor}

@@ -5,7 +5,10 @@ torch's out-of-memory error; the serving account; the postmortem bundle
 (its fields, atomic, an I/O failure reported and never raised); the state
 account's additivity and fit verdict; the monitor's one named skip where
 nothing reports; and ``--chaos oom@2`` on a tiny CPU run, which writes the
-bundle (the memory account attached) and re-raises."""
+bundle (the memory account attached) and re-raises; a serving session's
+tripwire (``--postmortem-dir``): an out-of-memory error injected into a
+decode round writes the bundle atomically, with the engine's own account,
+and re-raises, while another error writes nothing, as the JAX engine's."""
 
 import json
 import os
@@ -156,4 +159,55 @@ def test_chaos_oom_writes_the_bundle_and_reraises(tmp_path, capsys):
     assert bundle["account"]["buckets_bytes"]["params"] > 0
     events = [json.loads(x).get("event") for x in open(out / "obs" / "metrics-p000.jsonl")]
     assert events.count("memory_postmortem") == 1 and events.count("memory_account") == 1
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+def test_serving_oom_tripwire_writes_the_bundle_and_reraises(tmp_path, paged, capsys):
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.serving.engine import ServeConfig, ServingEngine
+
+    tlm = load_model("llama-test", device="cpu")
+    kw = dict(max_slots=2, max_new_tokens=8, max_source_length=16, request_spans=False,
+              paged_kv=paged, kv_block_size=8 if paged else 0)
+    out = tmp_path / "pm"
+    eng = ServingEngine(tlm.module, tlm.config, ServeConfig(postmortem_dir=str(out), **kw),
+                        is_seq2seq=False, device="cpu")
+    sess = eng.open()
+    for n in (5, 9, 3):
+        sess.submit(list(range(4, 4 + n)))
+    sess.step()
+    calls = {"n": 0}
+    real = eng._step_causal
+
+    def oom_on_second(*a, **k):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("RESOURCE_EXHAUSTED: CUDA out of memory (injected)")
+        return real(*a, **k)
+
+    eng._step_causal = oom_on_second
+    sess.step()
+    with pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED"):
+        sess.step()
+    path = out / "obs" / "memory-postmortem-p000.json"
+    assert os.path.exists(path) and not os.path.exists(str(path) + ".tmp")
+    bundle = json.load(open(path))
+    assert bundle["event"] == "memory_postmortem" and "RESOURCE_EXHAUSTED" in bundle["reason"]
+    assert bundle["step"] == sess.stats.decode_steps == 2
+    acct = bundle["account"]
+    assert acct == sess._memory_account()
+    assert acct["buckets_bytes"]["kv_cache"] == sess._bytes_in_use() > 0
+    assert set(acct) == set(jax_memprof.serving_account(
+        params_bytes=1, kv_cache_bytes=1, hbm_budget_gib=80.0))
+    # another error re-raises and writes no bundle
+    other = tmp_path / "other"
+    eng2 = ServingEngine(tlm.module, tlm.config, ServeConfig(postmortem_dir=str(other), **kw),
+                         is_seq2seq=False, device="cpu")
+    eng2._step_causal = lambda *a, **k: (_ for _ in ()).throw(ValueError("not an oom"))
+    sess2 = eng2.open()
+    sess2.submit([4, 5, 6])
+    with pytest.raises(ValueError, match="not an oom"):
+        sess2.step()
+    assert not os.path.exists(other)
     capsys.readouterr()

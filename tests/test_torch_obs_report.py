@@ -14,7 +14,12 @@ samples, device accounts, span instances, memory accounts and windows, a
 serving account, a postmortem bundle): the comm, device, memory, budget
 and trend sections and their markdown equal JAX's, the overlap and memory
 gates exit as JAX's (and fail with nothing to read), and the Perfetto
-export (``obs/trace.py``, and ``--trace``) equals JAX ``build_trace``'s."""
+export (``obs/trace.py``, and ``--trace``) equals JAX ``build_trace``'s.
+A CPU serving run of the port with the prefix cache and speculative
+decode into ``--obs jsonl``'s file: the prefix and speculative-decode
+sections and their markdown equal JAX's, and the
+``--min-prefix-hit-rate`` / ``--min-acceptance-rate`` gates exit as JAX's
+(and fail with nothing to read)."""
 
 import json
 import os
@@ -316,4 +321,64 @@ def test_gates_with_nothing_to_read_fail(tmp_path, capsys):
         assert report.main([str(tmp_path), "--strict", *flags]) == 1
         assert jax_report.main([str(tmp_path), "--strict", *flags]) == 1
     assert report.main([str(tmp_path), "--strict"]) == 0
+    capsys.readouterr()
+
+
+@pytest.fixture(scope="module")
+def serve_run(tmp_path_factory):
+    """A CPU serving run of the port (llama-test, the paged prefix cache and
+    n-gram speculation, a serve_window every 2 steps) into ``--obs
+    jsonl``'s file, as the serving slice emits its ledgers."""
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.serving.engine import ServeConfig, ServingEngine
+
+    out = tmp_path_factory.mktemp("serve-obs")
+    rng = np.random.RandomState(23)
+    head = [int(t) for t in rng.randint(4, 120, 8)]
+    reqs = [head + [int(t) for t in rng.randint(4, 120, rng.randint(2, 8))] for _ in range(6)]
+    tlm = load_model("llama-test", device="cpu")
+    sink.install_sink(sink.build_sink("jsonl", str(out)))
+    try:
+        ServingEngine(tlm.module, tlm.config, ServeConfig(
+            max_slots=2, max_new_tokens=8, max_source_length=16, log_every_steps=2,
+            paged_kv=True, kv_block_size=8, pool_blocks=24, prefix_cache=True,
+            prefix_cache_budget_gib=0.25, spec_tokens=3), is_seq2seq=False,
+            device="cpu").generate(reqs)
+    finally:
+        sink.install_sink(sink.build_sink("stdout", ""))
+    return out
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--min-prefix-hit-rate", "0.5"], ["--min-prefix-hit-rate", "0.99"],
+    ["--min-acceptance-rate", "0.005"], ["--min-acceptance-rate", "0.99"],
+], ids=["none", "hit_ok", "hit_low", "accept_ok", "accept_low"])
+def test_prefix_and_spec_sections_and_gates_are_jaxs(serve_run, flags, capsys):
+    got, want = report.build_report(str(serve_run)), jax_report.build_report(str(serve_run))
+    for key in ("prefix", "spec"):
+        assert got[key] is not None and got[key] == want[key], key
+    assert got["prefix"]["windows"] > 0 and got["spec"]["windows"] > 0
+    md = _serving_sections(report.render_markdown(got))
+    assert len(md) == 2 and md == _serving_sections(jax_report.render_markdown(want))
+    rcs = [m.main([str(serve_run), "--strict", *flags]) for m in (report, jax_report)]
+    assert rcs[0] == rcs[1] == (1 if flags and flags[1] == "0.99" else 0)
+    capsys.readouterr()
+
+
+def _serving_sections(text: str) -> dict[str, str]:
+    out, key = {}, None
+    for line in text.splitlines():
+        if line.startswith("#"):
+            key = line if line in ("## Prefix cache", "## Speculative decode") else None
+        if key is not None:
+            out[key] = out.get(key, "") + line + "\n"
+    return out
+
+
+def test_serving_gates_with_nothing_to_read_fail(tmp_path, capsys):
+    _write(tmp_path, 0, [_budget(2, 10.0, False)])
+    for flags in (["--min-prefix-hit-rate", "0.1"], ["--min-acceptance-rate", "0.1"]):
+        assert report.main([str(tmp_path), "--strict", *flags]) == 1
+        assert jax_report.main([str(tmp_path), "--strict", *flags]) == 1
+    assert report.build_report(str(tmp_path))["prefix"] is None
     capsys.readouterr()

@@ -88,12 +88,44 @@ def test_goodput_matches_jax_arithmetic():
             jax_goodput(ttft, toks, wall_s=2.0, ttft_slo_ms=slo, n_chips=1)
 
 
-@pytest.mark.parametrize("field", [{"prefix_cache_budget_gib": 1.0}, {"prefix_cache": True},
-                                   {"spec_tokens": 2}, {"kv_cache_dtype": "int8"},
-                                   {"spec_draft_model": "llama-test"}, {"postmortem_dir": "pm"}])
-def test_later_slices_raise(field):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(**field)
+def _other_vocab_draft():
+    """A causal draft whose vocabulary is not the target's."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.models.registry import LoadedModel
+
+    cfg = dataclasses.replace(load_model("llama-test", device="cpu").config, vocab_size=77)
+    return LoadedModel("llama", cfg, LlamaForCausalLM(cfg, device="cpu"), is_seq2seq=False)
+
+
+# the JAX engine's composition rules (serving/engine.py), each a ValueError
+# at construction: (model, ServeConfig fields, message, the JAX engine too)
+COMPOSITION_ERRORS = {
+    "prefix_without_paged": ("llama-test", {"prefix_cache": True}, "requires paged_kv", True),
+    "spec_on_seq2seq": ("t5-test", {"spec_tokens": 2}, "causal decode", True),
+    "spec_tokens_8": ("llama-test", {"spec_tokens": 8}, "spec_tokens=8", True),
+    "spec_tokens_minus_1": ("llama-test", {"spec_tokens": -1}, "spec_tokens=-1", True),
+    "seq2seq_draft": ("llama-test", {"spec_tokens": 2, "spec_draft_model": "t5-test"},
+                      "seq2seq", True),
+    "draft_other_vocab": ("llama-test", {"spec_tokens": 2}, "vocab 77", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COMPOSITION_ERRORS))
+def test_serve_composition_errors(case):
+    name, fields, match, on_jax = COMPOSITION_ERRORS[case]
+    kw = dict(max_slots=2, prefill_batch=2, **fields)
+    tlm = load_model(name, device="cpu")
+    draft = _other_vocab_draft() if case == "draft_other_vocab" else None
+    with pytest.raises(ValueError, match=match):
+        ServingEngine(tlm.module, tlm.config, ServeConfig(**kw), is_seq2seq=tlm.is_seq2seq,
+                      device="cpu", draft=draft)
+    if on_jax:
+        lm = jax_load_model(name)
+        with pytest.raises(ValueError, match=match):
+            JaxServingEngine(lm.module, lm.config, None, JaxServeConfig(**kw),
+                             is_seq2seq=lm.is_seq2seq)
 
 
 def test_causal_engine_raises():
