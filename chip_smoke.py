@@ -7,7 +7,8 @@ from that checkpoint with attention_dropout set (kernels 1-3's probs
 dropout), stops, resumes and rewinds it (checkpoints, SIGTERM, the
 health watchdog on kernel 8's sums), fine-tunes t5-large and serves
 flan-t5-xl at full width the same ways, serves llama-2-7b at full width through ``serve --paged-kv`` and
-through the flat cache, runs the reference recipe's eval pass (beam search
+through the flat cache, through ``serve-router`` (a replica crash, stall and
+drain) and ``serve-loadgen`` (an open-loop QPS sweep), runs the reference recipe's eval pass (beam search
 and ROUGE on a validation file) on bart-large-cnn, trains over process
 groups (FSDP; a host loss rebuilt onto a new mesh and replayed), and checks
 that each run went through its kernels.
@@ -16,6 +17,7 @@ that each run went through its kernels.
     python3 chip_smoke.py --phase 13    # the build, then phase 13 alone
     python3 chip_smoke.py --phase 15    # the build, then phase 15 alone
     python3 chip_smoke.py --phase 16    # the build, then phase 16 alone
+    python3 chip_smoke.py --phase 17    # the build, then phase 17 alone
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
@@ -250,24 +252,25 @@ Phases (each fatal, non-zero exit, no result line):
  12. fp32 logits at llama-2-7b widths, 2 layers: a prefill + 4 decode
      steps, paged and flat, kernel path vs plain path within 1e-4; a
      decode offset shifted by one must break it on each route
- 13. llama train: llama-2-7b's published config.json at 4 of its 32
-     layers (all 32 take ~108 GB of fp32 state) and seed-0 weights,
+ 13. llama train: llama-2-7b's published config.json at 2 of its 32
+     layers (all 32 take ~108 GB of fp32 state; 4 before the serving
+     tier's phase 17 took their time) and seed-0 weights,
      written as a local HF directory by the port's export; the CLI's train
      entry on it with --tokenizer byte --remat --fused-ce, bf16 compute and
      fp32 masters, batch 8, source 1024 / target 128, lr 1e-4, 48 synthetic
      instruction records (prompts of 200-900 bytes, targets of 64-128: 6
      steps) and a --val-file of 16 (beam 2, 128 new tokens, eval batch 8,
      --evaluation-steps 0); counters zeroed before, the eval's read in its
-     own window: the steps launch kernel 1 8 times a step (4 layers, the
+     own window: the steps launch kernel 1 4 times a step (2 layers, the
      forward and remat's recompute, all on the tensor cores), kernels 2 and
-     3 4 times, kernel 8 once and its gradient pass once, nothing else; the
-     eval exactly one event, four ROUGE means finite in [0, 1], kernel 1 4
-     times a batch (the prompt prefill) and kernel 5 4 x 127 a batch, nothing
+     3 twice, kernel 8 once and its gradient pass once, nothing else; the
+     eval exactly one event, four ROUGE means finite in [0, 1], kernel 1
+     twice a batch (the prompt prefill) and kernel 5 2 x 127 a batch, nothing
      else; finite losses; the export reloaded bit-equal; tokens/s, MFU, the
      peak memory; one profiled step; each save's seconds and GB; kernel 8
-     over the 39-leaf table against its plain version (2 fp32 ulps; the norm
+     over the 21-leaf table against its plain version (2 fp32 ulps; the norm
      within one) and timed beside clip_grad_norm_(foreach=True) +
-     AdamW(fused=True). Then at 2 layers (the trained model's first two),
+     AdamW(fused=True). Then at 2 layers (the trained model's),
      one batch of the recipe: (a) fp32, residual and attention-probs dropout
      0.1, kernel path vs plain path within the BART limits, which kernels
      2-3 drawing the probs mask from seed + 1 must break; (b) bf16 with
@@ -345,15 +348,38 @@ Phases (each fatal, non-zero exit, no result line):
      ballast tensor leaves 256 MiB: a session's step runs out of memory,
      the postmortem bundle (its kv_cache bytes the engine's account) is
      written and the error re-raised
- 17. a {"kernels_unported": []} line (every TPU kernel has a port), the
+ 17. the serving tier at llama-2-7b's full width on phase 16's model
+     (bf16; a bare serve run of one 4-slot engine, closed loop, and phase
+     16's route floor the oracles): (a) serve-router --replicas 2
+     --paged-kv, 4 slots a replica,
+     16 prompts (two waves a replica), 32 new tokens, blocks of 32, without
+     chaos and with --chaos replica_crash@12 (the busier replica holds 4
+     requests mid-decode): 16 completed, 4 re-prefilled, every request
+     within the route floor of the unfailed run and of the bare run's,
+     obs.report --strict 0 with the injected crash its only fault; (b) the
+     same at 2 of 32 layers in fp32: tokens equal and the re-prefilled
+     requests' decode logits within 1e-4 of the unfailed run's, and a retry
+     that keeps the dead replica's partial tokens must break both; (c) fp32,
+     --chaos replica_stall@12: live -> suspect -> dead from ticks alone,
+     its requests re-prefilled, tokens equal; drain_replica(0) after the
+     first tick: drained, no retry, nothing lost; (d) serve-loadgen
+     --replicas 0, Poisson (seed 17), 16 requests a point at 0.5x, 1x and 2x
+     the bare run's closed-loop requests/s (the same single engine): the
+     0.5x point's queue stable and the 2x point's growing, every point's
+     tokens within the route floor of the bare run's.
+     Each run: kernel 1 a layer per prompt chunk and kernel 6 a layer per
+     decode round of every session (a dead replica's too), every pool
+     drained with exact refcounts
+ 18. a {"kernels_unported": []} line (every TPU kernel has a port), the
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
      kernel 8 both entries of its source; kernels 1 and 5 count phase 6c's
      eval launches too, kernels 1-3, 7 and 8 phase 5c's resumed and rewind
      runs, kernels 1, 2, 3, 5 and 8 phase 13's train and eval, kernels 1-3,
      7 and 8 phase 14's step and phase 15's two host-loss runs, kernel 1
-     phase 11's prompt prefills, kernels 1, 5 and 6 phase 16's runs, and
-     kernels 5 and 6 carry phase 16's verify_q4 and int8 times),
+     phase 11's prompt prefills, kernels 1, 5 and 6 phase 16's runs,
+     kernels 1 and 6 phase 17's, and kernels 5 and 6 carry phase 16's
+     verify_q4 and int8 times),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -4273,10 +4299,10 @@ def beam_check_phase(torch, fa) -> None:
                  f"log-probs only {fault_err}")
 
 
-# phase 13: causal-LM fine-tuning of llama-2-7b at full width, 4 of its 32
+# phase 13: causal-LM fine-tuning of llama-2-7b at full width, 2 of its 32
 # layers (its fp32 weights, gradients and AdamW moments take ~108 GB whole,
 # more than the card holds), from a local HF directory of seed-0 weights
-LLAMA_TRAIN_LAYERS = 4
+LLAMA_TRAIN_LAYERS = 2
 # llama-2-7b's published config.json (meta-llama/Llama-2-7b-hf), depth cut,
 # no attention dropout
 LLAMA_HF_CONFIG = {
@@ -4367,7 +4393,7 @@ def llama_train_phase(torch, fa, fd, fo, cli) -> dict:
     launch), the eval's in their own window (kernel 1 once a layer a batch:
     the prompt prefill; kernel 5 once a layer a beam step), finite losses,
     the export reloaded bit-equal, tokens/s, the peak memory; one profiled
-    step; kernel 8 over the 39-leaf table; then the in-process checks at 2
+    step; kernel 8 over the 21-leaf table; then the in-process checks at 2
     layers and the attention kernels timed at the recipe's shape.  Returns
     the launches of the train and eval windows together."""
     from distributed_llms_example_tpu_torch.models.registry import load_model
@@ -4713,7 +4739,7 @@ def llama_obs_checks(torch, trainer, out_dir: str, *, per_step: dict, mem_pairs:
 
 
 def llama_adamw_phase(torch, fo, trainer) -> None:
-    """Kernel 8 over the trained model's 39-leaf table (1.07 B elements, the
+    """Kernel 8 over the trained model's 21-leaf table (0.67 B elements, the
     last step's gradients, tokens 1): one tail against the plain version's
     on copies of the same state (each of p, mu, nu within ADAMW_RTOL, the
     norm within one fp32 ulp), then timed beside the plain tail and
@@ -4747,8 +4773,8 @@ def llama_adamw_phase(torch, fo, trainer) -> None:
             del wp, wmu, wnu
     ulp = float(torch.finfo(torch.float32).eps * gplain.abs())
     norm_err = float((gnorm - gplain).abs())
-    say({"phase": "kernel_check", "case": "fused_grad_prep + fused_adamw llama-2-7b 4-layer "
-         "table vs plain", "leaves": len(params), "elements": sum(p.numel() for p in params),
+    say({"phase": "kernel_check", "case": "fused_grad_prep + fused_adamw llama-2-7b "
+         f"{LLAMA_TRAIN_LAYERS}-layer table vs plain", "leaves": len(params), "elements": sum(p.numel() for p in params),
          "max_abs_err": worst, "rtol": ADAMW_RTOL, "gnorm_abs_err": norm_err, "fp32_ulp": ulp})
     if not norm_err <= ulp:
         fail(f"fused_grad_prep llama table: norm {float(gnorm)} vs plain {float(gplain)}")
@@ -4786,7 +4812,7 @@ def llama_adamw_phase(torch, fo, trainer) -> None:
 
     b_ms, b_by = bound(0.0, 36.0 * n)
     say({"phase": "kernel_time", "kernel": "fused_grad_prep + fused_adamw",
-         "call": "train step tail, llama-2-7b 4 layers", "leaves": len(params), "elements": n,
+         "call": f"train step tail, llama-2-7b {LLAMA_TRAIN_LAYERS} layers", "leaves": len(params), "elements": n,
          **r, "host_ms": host_us(run, 10) / 1e3, "device_ms_by_kernel": ours,
          "launches_per_tail": sum(counts.values()), "bound_ms": b_ms, "bound_by": b_by,
          "library": "clip_grad_norm_(foreach=True) + AdamW(fused=True)",
@@ -6174,11 +6200,19 @@ def serving_oom_phase(torch, lm) -> dict:
     return line
 
 
-def serving_features_phase(torch, fa, cli) -> dict:
-    """Phase 16 (above).  Returns the runs' summed launches and the kernel
-    times of ``verify_kernel_phase``."""
-    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+def llama_7b(torch):
+    """llama-2-7b at full width, bf16, seed 0: the model phases 16 and 17
+    share (phase 11's CLI loads draw the same weights)."""
     from distributed_llms_example_tpu_torch.models.registry import load_model
+
+    return load_model("llama-2-7b", dtype=torch.bfloat16, device="cuda", seed=0)
+
+
+def serving_features_phase(torch, fa, cli, lm) -> dict:
+    """Phase 16 (above), on the loaded llama-2-7b ``lm``.  Returns the
+    runs' summed launches, the kernel times of ``verify_kernel_phase`` and
+    the route floor."""
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
     from distributed_llms_example_tpu_torch.serving import spec
 
     t0 = time.perf_counter()
@@ -6200,7 +6234,6 @@ def serving_features_phase(torch, fa, cli) -> dict:
     with open(chat) as f:
         chat_ids = [tok.encode_prompt(t, 768) for t in json.load(f)]
     draft = draft_hf_dir(torch)
-    lm = load_model("llama-2-7b", dtype=torch.bfloat16, device="cuda", seed=0)
     mark("setup_s")
     paged = ["--paged-kv"]
     spec_args = ["--spec-tokens", str(SPEC_K)]
@@ -6269,14 +6302,425 @@ def serving_features_phase(torch, fa, cli) -> dict:
          "prefix_hit_rate": warm.prefix_hits / max(warm.prefix_lookups, 1)})
     mark("checks_s")
     oom = serving_oom_phase(torch, lm)
-    del lm
     free_cuda()
     mark("oom_s")
     launches = {k: sum(r["launches"][k] for r in (*runs.values(), fault))
                 for k in ("flash_attention_fwd", "flash_decode", "flash_decode_paged")}
     say({"phase": "serve16_wall", "seconds": time.perf_counter() - t0, **marks,
          "launches": launches, "oom_bundle": oom["bundles"]})
-    return {"launches": launches, "kernel_times": kernel_times}
+    return {"launches": launches, "kernel_times": kernel_times, "floor": floor["floor"]}
+
+
+# phase 17: the serving tier at llama-2-7b width.  Router runs: 2 replicas
+# of 4 slots over one loaded model, 16 prompts (two waves a replica, the
+# second into the slots the first freed), 32 new tokens (the open loop's
+# 0.5x point alone spans twice the unfailed run's wall, so the budget sets
+# the phase's time), blocks of 32 (1024 + 32 slots); the crash and the
+# stall at tick 12, when every replica holds 4 requests mid-decode
+ROUTER17_NEW_TOKENS = 32
+ROUTER17_ARGS = ["--model-ckpt", "llama-2-7b", "--num-prompts", "16", "--max-slots", "4",
+                 "--max-new-tokens", str(ROUTER17_NEW_TOKENS), "--max-source-length", "1024",
+                 "--kv-block-size", "32", "--seed", "0", "--log-every-steps", "0", "--lint", "off",
+                 "--paged-kv"]
+CRASH17_TICK = 12
+# fp32 at 2 of the 32 layers: a re-prefilled request's decode logits
+# within this of the unfailed run's (the JAX package's contract: the
+# re-prefill equals an unfailed run), its tokens equal
+ROUTER17_FP32_ATOL = 1e-4
+LOADGEN17_SEED = 17
+
+
+@contextlib.contextmanager
+def opened_sessions():
+    """Every serving session opened inside, in order (a dead replica's
+    too, which its router drops): the ledger its launches are held to."""
+    from distributed_llms_example_tpu_torch.serving.engine import ServingEngine
+
+    real = ServingEngine.open
+    sessions: list = []
+
+    def recording(self, **kw):
+        sessions.append(real(self, **kw))
+        return sessions[-1]
+
+    ServingEngine.open = recording
+    try:
+        yield sessions
+    finally:
+        ServingEngine.open = real
+
+
+@contextlib.contextmanager
+def recovery_tick(out: dict):
+    """The router tick at which the last request a failure displaced was
+    dispatched again (the router stamps that instant as ``t_recovered``)."""
+    from distributed_llms_example_tpu_torch.serving import router as rt
+
+    real = rt.ReplicaRouter._dispatch
+
+    def dispatch(self):
+        before = self.t_recovered
+        real(self)
+        if before is None and self.t_recovered is not None:
+            out["tick"] = self.ticks
+
+    rt.ReplicaRouter._dispatch = dispatch
+    try:
+        yield out
+    finally:
+        rt.ReplicaRouter._dispatch = real
+
+
+@contextlib.contextmanager
+def decode_logits_by_request(model, store: dict):
+    """Every decode step's fp32 logits row, by (router request id, token
+    index): a forward hook on the model reads the session stepping (a
+    prefill, wider than one row, is left out).  A re-prefilled request's
+    rows overwrite its dead replica's, so the store holds what produced
+    each request's final tokens."""
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.serving import engine as eng
+
+    stepping: list = []
+    real = eng.ServeSession._step_round
+
+    def step_round(self):
+        stepping.append(self)
+        try:
+            return real(self)
+        finally:
+            stepping.pop()
+
+    def hook(module, args, out):
+        if out.shape[1] != 1 or not stepping:
+            return
+        sess = stepping[-1]
+        for s in np.nonzero(sess.active)[0]:
+            rid = int(sess.slot_req[s])
+            store[(sess.labels[rid], int(sess.emitted[s]))] = out[s, 0].float().clone()
+
+    handle = model.register_forward_hook(hook)
+    eng.ServeSession._step_round = step_round
+    try:
+        yield store
+    finally:
+        handle.remove()
+        eng.ServeSession._step_round = real
+
+
+@contextlib.contextmanager
+def planted_keeps_partial():
+    """The planted fault of phase 17 (b): a request re-dispatched after its
+    replica died keeps the dead replica's partial tokens and resumes its
+    decode after them (their K/V, never written on the survivor, masked
+    out; its positions past them), where the re-prefill must regenerate
+    from the prompt."""
+    from distributed_llms_example_tpu_torch.serving import engine as eng
+    from distributed_llms_example_tpu_torch.serving import router as rt
+
+    partial: dict = {}
+    real_fail, real_admit = rt.ReplicaRouter._fail_replica, eng.ServeSession._admit_row
+
+    def fail_replica(self, r, **kw):
+        for q in self.requests:
+            if q.replica == r.idx and q.local is not None and r.session.outputs[q.local]:
+                partial[q.rid] = list(r.session.outputs[q.local][:-1])
+        return real_fail(self, r, **kw)
+
+    def admit_row(self, rid, slot, *args, **kw):
+        kept = partial.pop(self.labels[rid], [])
+        self.outputs[rid].extend(kept)
+        real_admit(self, rid, slot, *args, **kw)
+        self.emitted[slot] += len(kept)
+
+    rt.ReplicaRouter._fail_replica, eng.ServeSession._admit_row = fail_replica, admit_row
+    try:
+        yield
+    finally:
+        rt.ReplicaRouter._fail_replica, eng.ServeSession._admit_row = real_fail, real_admit
+
+
+def router17(torch, fa, cli, lm, name: str, argv: list[str], prompts: str, *, sub="serve-router",
+             obs_dir: str | None = None, logits: dict | None = None, fault: bool = False) -> dict:
+    """One run of ``serve-router`` (or ``serve-loadgen``, or a bare ``serve``)
+    through the CLI's entry on the loaded model: the launches of kernels 1, 5 and 6 held to
+    what every session's ledger (a dead replica's too) and the layer count
+    give, every pool drained with exact refcounts; with ``obs_dir`` its
+    JSONL written there (and read by ``obs.report --strict``)."""
+    import io
+
+    from distributed_llms_example_tpu_torch.obs import report, sink
+    from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
+
+    fa.flash_attention.launches = fa.flash_decode.launches = 0
+    fa.flash_decode_paged.launches = 0
+    if obs_dir:
+        sink.install_sink(sink.build_sink("jsonl", obs_dir))
+    entry = {"serve-router": cli.serve_router, "serve-loadgen": cli.serve_loadgen,
+             "serve": cli.serve}[sub]
+    out = os.path.join(WORK, f"router17_{name}.jsonl")
+    t0 = time.perf_counter()
+    recovered: dict = {}
+    with contextlib.ExitStack() as stack:
+        sessions = stack.enter_context(opened_sessions())
+        stack.enter_context(recovery_tick(recovered))
+        if logits is not None:
+            stack.enter_context(decode_logits_by_request(lm.module, logits))
+        if fault:
+            stack.enter_context(planted_keeps_partial())
+        result, outs = entry([*argv, "--prompts-file", prompts, "--output-file", out],
+                             loaded=lm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if obs_dir:
+        sink.install_sink(sink.build_sink("stdout", ""))
+    launches = {"flash_attention_fwd": fa.flash_attention.launches,
+                "flash_decode": fa.flash_decode.launches,
+                "flash_decode_paged": fa.flash_decode_paged.launches}
+    layers = sum(isinstance(m, MultiHeadAttention) for m in lm.module.modules())
+    prefills = sum(s.stats.prefill_calls for s in sessions)
+    steps = sum(s.stats.decode_steps for s in sessions)
+    admitted = sum(t is not None for s in sessions for t in s.admit_t)
+    # kernel 1 once a layer per prompt chunk (from cache slot 0), kernel 6
+    # once a layer per decode round, of every session
+    want = {"flash_attention_fwd": layers * prefills, "flash_decode": 0,
+            "flash_decode_paged": layers * steps}
+    engines = ([r.engine for r in result.replicas] if sub == "serve-router"
+               else [s.eng for s in sessions])
+    line = {"phase": f"router17_{name}", "wall_s": wall, "attention_modules": layers,
+            "sessions": len(sessions), "prefill_chunks": prefills, "decode_rounds": steps,
+            "rows_admitted": admitted, "launches": launches, "expected": want,
+            "blocks_in_use_at_end": [e.pool.blocks_in_use for e in engines],
+            "ref_violations": [v for e in engines for v in e.pool.ref_invariant_violations([])]}
+    if sub == "serve-router":
+        line["router_summary"] = result.last_stats
+        line["recovered_at_tick"] = recovered.get("tick")
+    say(line)
+    if launches != want or any(line["blocks_in_use_at_end"]) or line["ref_violations"]:
+        fail(f"phase 17 {name}: launches {launches} vs {want}, blocks left "
+             f"{line['blocks_in_use_at_end']}, {line['ref_violations']}")
+    rc = rep = None
+    if obs_dir:
+        rep = report.build_report(obs_dir)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = report.main([obs_dir, "--strict"])
+        rec = rep["recovery"]
+        say({"phase": f"router17_{name}_report", "faults": rec["faults"],
+             "organic_faults": rec["organic_faults"], "serving": rec["serving"],
+             "loadgen_knee": (rep["loadgen"] or {}).get("knee_qps"), "strict_rc": rc})
+        if rc != 0 or rec["organic_faults"]:
+            fail(f"phase 17 {name}: obs.report --strict {rc}, organic {rec['organic_faults']}")
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    return {"result": result, "outs": outs, "launches": launches, "line": line, "wall_s": wall,
+            "admitted": admitted, "report": rep}
+
+
+def reprefilled(router) -> list[int]:
+    """The requests a dead replica held mid-decode (re-prefilled on a
+    survivor)."""
+    return [q.rid for q in router.requests if q.retries]
+
+
+def llama17_fp32(torch):
+    """llama-2-7b's widths at 2 of its 32 layers, fp32, seed 0 (phase 12's
+    model), as a ``LoadedModel`` for the CLI's ``loaded=``."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.models.registry import LLAMA_CONFIGS, LoadedModel
+
+    cfg = dataclasses.replace(LLAMA_CONFIGS["llama-2-7b"], num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, dtype=torch.float32, param_dtype=torch.float32,
+                             device="cuda").eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    return LoadedModel("llama", cfg, model, is_seq2seq=False)
+
+
+def logit_err(a: dict, b: dict, rids) -> float:
+    """Largest |Δ logit| over the decode rows of requests ``rids`` (inf
+    where the two runs decoded different rows)."""
+    worst = 0.0
+    for rid in rids:
+        ka = sorted(k for k in a if k[0] == rid)
+        if ka != sorted(k for k in b if k[0] == rid) or not ka:
+            return math.inf
+        worst = max(worst, max(float((a[k] - b[k]).abs().max()) for k in ka))
+    return worst
+
+
+def serving_tier_phase(torch, fa, cli, lm, *, floor: float | None = None) -> dict:
+    """Phase 17 (above).  ``floor``: phase 16's route floor.  Returns the
+    runs' summed launches."""
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(what: str) -> None:
+        marks[what] = time.perf_counter() - t0 - sum(marks.values())
+
+    os.makedirs(WORK, exist_ok=True)
+    prompts = os.path.join(WORK, "llama_prompts.json")
+    write_llama_prompts(prompts)
+    tok = ByteTokenizer()
+    with open(prompts) as f:
+        ids = [tok.encode_prompt(t, 1024) for t in json.load(f)]
+    bf16 = [*ROUTER17_ARGS, "--compute-dtype", "bfloat16"]
+    runs = {}
+    # the bare engine of the same settings, closed loop (every prompt
+    # submitted at once): the oracle of (a) and (d), and the requests/s
+    # that sets (d)'s grid, since (d) drives that same single engine
+    runs["closed"] = router17(torch, fa, cli, lm, "closed", bf16, prompts, sub="serve")
+    oracle = runs["closed"]["outs"]
+    # (a) bf16, 32 layers: unfailed, then the crash
+    runs["unfailed"] = router17(torch, fa, cli, lm, "unfailed", bf16, prompts)
+    runs["crash"] = router17(torch, fa, cli, lm, "crash",
+                             [*bf16, "--chaos", f"replica_crash@{CRASH17_TICK}"], prompts,
+                             obs_dir=fresh_dir("router17-crash-obs"))
+    if floor is None:
+        floor = route_floor(torch, lm.module, ids[:8])["floor"]
+    mark("bf16_runs_s")
+    crash = runs["crash"]["result"]
+    s = crash.last_stats
+    again = reprefilled(crash)
+    say({"phase": "router17_crash", "reprefilled": again, "retries": s["retries"],
+         "crash_tick": CRASH17_TICK,
+         "recovered_at_tick": runs["crash"]["line"]["recovered_at_tick"],
+         "extra_ticks": s["ticks"] - runs["unfailed"]["result"].last_stats["ticks"],
+         "replica_states": s["replica_states"], "completed": s["completed"],
+         "shed": s["shed"], "request_mttr_s": s["request_mttr_s"], "ticks": s["ticks"],
+         "t_fail_s": s.get("t_fail_s"), "t_recovered_s": s.get("t_recovered_s"),
+         "ttft_ms": [s["ttft_p50_ms"], s["ttft_p95_ms"], s["ttft_p99_ms"]],
+         "unfailed_ttft_ms": [runs["unfailed"]["result"].last_stats[k]
+                              for k in ("ttft_p50_ms", "ttft_p95_ms", "ttft_p99_ms")]})
+    if s["completed"] != 16 or s["shed"] or s["replica_states"] != {"0": "dead", "1": "live"} \
+            or len(again) != 4 or runs["crash"]["admitted"] != 16 + len(again):
+        fail(f"phase 17 (a): the crash run {s}, re-prefilled {again}")
+    checks = {}
+    for name, base, got in (("crash_vs_unfailed", runs["unfailed"]["outs"], runs["crash"]["outs"]),
+                            ("crash_vs_bare", oracle, runs["crash"]["outs"]),
+                            ("unfailed_vs_bare", oracle, runs["unfailed"]["outs"])):
+        checks[name] = end_to_end_check(torch, lm, name, ids, base, got, floor)
+        say({"phase": "router17_end_to_end", **checks[name]})
+        if checks[name]["unexplained"]:
+            fail(f"phase 17 (a) {name}: divergences beyond rounding: {checks[name]}")
+
+    # (b) fp32 at 2 layers: the re-prefilled requests equal the unfailed
+    # run's, tokens and decode logits; the planted fault must break both
+    lm32 = llama17_fp32(torch)
+    fp32 = [*ROUTER17_ARGS, "--compute-dtype", "float32"]
+    logits = {k: {} for k in ("unfailed", "crash", "fault")}
+    crash_args = [*fp32, "--chaos", f"replica_crash@{CRASH17_TICK}"]
+    for name, argv in (("unfailed", fp32), ("crash", crash_args), ("fault", crash_args)):
+        runs[f"fp32_{name}"] = router17(torch, fa, cli, lm32, f"fp32_{name}", argv, prompts,
+                                        logits=logits[name], fault=name == "fault")
+    want = runs["fp32_unfailed"]["outs"]
+    again32 = reprefilled(runs["fp32_crash"]["result"])
+    fault_again = reprefilled(runs["fp32_fault"]["result"])
+    line = {"phase": "router17_fp32", "layers": 2, "reprefilled": again32,
+            "tokens_equal": runs["fp32_crash"]["outs"] == want,
+            "reprefilled_logits_max_abs_err": logit_err(logits["crash"], logits["unfailed"],
+                                                        again32),
+            "atol": ROUTER17_FP32_ATOL,
+            "planted_tokens_equal": runs["fp32_fault"]["outs"] == want,
+            "planted_requests_differing": [i for i, (a, b) in enumerate(
+                zip(runs["fp32_fault"]["outs"], want)) if a != b],
+            "planted_logits_max_abs_err": logit_err(logits["fault"], logits["unfailed"],
+                                                    fault_again)}
+    say(line)
+    if not again32 or not line["tokens_equal"] \
+            or line["reprefilled_logits_max_abs_err"] > ROUTER17_FP32_ATOL:
+        fail(f"phase 17 (b): a re-prefilled request differs from the unfailed run: {line}")
+    if line["planted_tokens_equal"] or not line["planted_logits_max_abs_err"] > ROUTER17_FP32_ATOL:
+        fail(f"phase 17 (b): a retry keeping the dead replica's tokens went unseen: {line}")
+    del logits
+    mark("fp32_crash_s")
+
+    # (c) fp32: replica_stall (suspect, then dead, from ticks alone; its
+    # requests re-prefilled) and drain_replica (retired, nothing lost)
+    runs["fp32_stall"] = router17(
+        torch, fa, cli, lm32, "fp32_stall",
+        [*fp32, "--chaos", f"replica_stall@{CRASH17_TICK}", "--suspect-after-ticks", "3",
+         "--dead-after-ticks", "6"], prompts, obs_dir=fresh_dir("router17-stall-obs"))
+    stall = runs["fp32_stall"]["result"]
+    moves = runs["fp32_stall"]["report"]["recovery"]["serving"]["replica_transitions"]
+    stall_again = reprefilled(stall)
+    from distributed_llms_example_tpu_torch.serving.router import ReplicaRouter, RouterConfig
+
+    # the drain through the library: the CLI's engines and requests, one tick,
+    # then drain_replica(0)
+    args = cli.build_router_parser().parse_args([*fp32, "--prompts-file", prompts])
+    _, _, _, _, requests = cli._serve_setup(args, lm32)
+    engines = [cli._engine(args, lm32, lm32.device) for _ in range(2)]
+    drain = ReplicaRouter(engines, RouterConfig(log_every_ticks=0))
+    for r in requests:
+        drain.submit(r)
+    drain.tick()
+    drain.drain_replica(0)
+    drain.run_until_drained()
+    drain.finalize()
+    line = {"phase": "router17_fp32_stall_drain", "stall_states": stall.last_stats["replica_states"],
+            "stall_transitions": [(e.get("from"), e.get("to"), e.get("cause")) for e in moves],
+            "stall_reprefilled": stall_again, "stall_tokens_equal": runs["fp32_stall"]["outs"] == want,
+            "drain_states": drain.last_stats["replica_states"],
+            "drain_retries": drain.last_stats["retries_total"],
+            "drain_completed": drain.last_stats["completed"],
+            "drain_tokens_equal": [q.out for q in drain.requests] == want,
+            "drain_blocks_in_use": [e.pool.blocks_in_use for e in engines],
+            "drain_ref_violations": [v for e in engines
+                                     for v in e.pool.ref_invariant_violations([])]}
+    say(line)
+    if line["stall_states"] != {"0": "dead", "1": "live"} or not stall_again \
+            or ("live", "suspect", None) not in line["stall_transitions"] \
+            or ("suspect", "dead", "stall") not in line["stall_transitions"] \
+            or not line["stall_tokens_equal"]:
+        fail(f"phase 17 (c): the stalled replica: {line}")
+    if line["drain_states"] != {"0": "drained", "1": "live"} or line["drain_retries"] \
+            or line["drain_completed"] != 16 or not line["drain_tokens_equal"] \
+            or any(line["drain_blocks_in_use"]) or line["drain_ref_violations"]:
+        fail(f"phase 17 (c): the drained replica: {line}")
+    del drain, engines, stall, lm32
+    free_cuda()
+    mark("fp32_stall_drain_s")
+
+    # (d) serve-loadgen --replicas 0, Poisson, 16 requests a point at 0.5x,
+    # 1x and 2x the rate the bare engine's closed-loop run sustained
+    rate = len(oracle) / runs["closed"]["wall_s"]
+    grid = [0.5 * rate, rate, 2 * rate]
+    runs["loadgen"] = router17(
+        torch, fa, cli, lm, "loadgen",
+        [*bf16, "--replicas", "0", "--arrival-process", "poisson", "--loadgen-seed",
+         str(LOADGEN17_SEED), "--qps-grid", ",".join(f"{q:.6f}" for q in grid)], prompts,
+        sub="serve-loadgen")
+    summary = runs["loadgen"]["result"]
+    points = summary["points"]
+    say({"phase": "router17_loadgen", "closed_loop_rps": rate,
+         "closed_loop_of": "serve, one engine of 4 slots, 16 prompts at once",
+         "closed_loop_wall_s": runs["closed"]["wall_s"], "knee_qps": summary["knee_qps"],
+         "points": [{k: p[k] for k in ("offered_qps", "offered_qps_realized", "achieved_qps",
+                                       "goodput_qps", "slo_attainment", "ttft_p50_ms",
+                                       "ttft_p95_ms", "ttft_p99_ms", "queue_delay_p50_ms",
+                                       "queue_delay_p99_ms", "queue_growing", "completed",
+                                       "wall_s")} for p in points]})
+    # the grid brackets the collapse: the 0.5x point's queue is stable, the
+    # 2x point's grows (the knee, printed, also reads a 16-request
+    # sample's decode tail as lost tracking, so it is not the check)
+    if len(points) != 3 or any(p["completed"] != 16 for p in points) \
+            or points[0]["queue_growing"] or not points[2]["queue_growing"]:
+        fail(f"phase 17 (d): the grid does not bracket the collapse (0.5x stable, "
+             f"2x growing): {summary}")
+    for i, outs in enumerate(runs["loadgen"]["outs"]):
+        check = end_to_end_check(torch, lm, f"loadgen_point_{i}", ids, oracle, outs, floor)
+        say({"phase": "router17_end_to_end", **check})
+        if check["unexplained"]:
+            fail(f"phase 17 (d): point {i}'s tokens beyond rounding of the closed loop: {check}")
+    mark("loadgen_s")
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ("flash_attention_fwd", "flash_decode", "flash_decode_paged")}
+    say({"phase": "router17_wall", "seconds": time.perf_counter() - t0, **marks,
+         "launches": launches})
+    return {"launches": launches}
 
 
 def main() -> None:
@@ -6317,14 +6761,15 @@ def main() -> None:
         time limit goes."""
         say({"phase": "elapsed", "after": after, "seconds": time.perf_counter() - wall0})
     if sys.argv[1:2] == ["--phase"]:
-        # phase 13, 15 or 16 alone (after the build): a quick check of the
-        # LLaMA train path and its telemetry, of the elastic path, or of
-        # the serving features
+        # phase 13, 15, 16 or 17 alone (after the build): a quick check of
+        # the LLaMA train path and its telemetry, of the elastic path, of
+        # the serving features or of the serving tier
         from distributed_llms_example_tpu_torch.launch import cli
 
         {"13": lambda: llama_train_phase(torch, fa, fd, fo, cli),
          "15": lambda: elastic_phase(torch, fa, fd, fo, cli),
-         "16": lambda: serving_features_phase(torch, fa, cli)}[sys.argv[2]]()
+         "16": lambda: serving_features_phase(torch, fa, cli, llama_7b(torch)),
+         "17": lambda: serving_tier_phase(torch, fa, cli, llama_7b(torch))}[sys.argv[2]]()
         say({"phase": "wall", "seconds": time.perf_counter() - wall0})
         return
     sass_phase(cuda_build)
@@ -6428,7 +6873,7 @@ def main() -> None:
     llama_logits_phase(torch, fa)
     lap("11-12")
 
-    # phase 13: llama-2-7b causal-LM fine-tuning at full width, 4 layers
+    # phase 13: llama-2-7b causal-LM fine-tuning at full width, 2 layers
     # (--remat --fused-ce, the causal eval), its 2-layer gradient, remat and
     # fused-CE checks, kernel 8 over its table; kernels 1-3 at its shape
     llama_train = llama_train_phase(torch, fa, fd, fo, cli)
@@ -6458,8 +6903,16 @@ def main() -> None:
     # paged and flat, n-gram and draft-model speculation, the prefix cache
     # warm against cold, a real out-of-memory postmortem), kernels 5 and 6
     # at the verify shape and in their int8 branch
-    features = serving_features_phase(torch, fa, cli)
+    lm = llama_7b(torch)
+    features = serving_features_phase(torch, fa, cli, lm)
     served = features["launches"]
+
+    # phase 17: the serving tier at llama-2-7b's width on the same model
+    # (router crash, stall and drain; the open-loop sweep), a bare engine's
+    # closed-loop run and phase 16's route floor its oracles
+    tier = serving_tier_phase(torch, fa, cli, lm, floor=features["floor"])["launches"]
+    del lm
+    free_cuda()
 
     # the end: the TPU kernels with no port yet (none), the kernel list
     # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
@@ -6486,19 +6939,22 @@ def main() -> None:
              launches=(launches["flash_attention_fwd"] + both["flash_attention_fwd"]
                        + t5_serve["flash_attention_fwd"] + eval_launches["flash_attention_fwd"]
                        + llama_paged["flash_attention_fwd"]
-                       + llama_flat["flash_attention_fwd"] + served["flash_attention_fwd"]),
+                       + llama_flat["flash_attention_fwd"] + served["flash_attention_fwd"]
+                       + tier["flash_attention_fwd"]),
              **measured["flash_attention_fwd"]),
         dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
              sources=[src + "flash_decode.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:931",
              launches=(launches["flash_decode"] + llama_flat["flash_decode"]
                        + t5_serve["flash_decode"] + eval_launches["flash_decode"]
-                       + llama_train["flash_decode"] + served["flash_decode"]),
+                       + llama_train["flash_decode"] + served["flash_decode"]
+                       + tier["flash_decode"]),
              **features["kernel_times"]["flash_decode"], **measured["flash_decode"]),
         dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
              sources=[src + "flash_decode_paged.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:1155",
-             launches=llama_paged["flash_decode_paged"] + served["flash_decode_paged"],
+             launches=(llama_paged["flash_decode_paged"] + served["flash_decode_paged"]
+                       + tier["flash_decode_paged"]),
              **features["kernel_times"]["flash_decode_paged"],
              **measured["flash_decode_paged"]),
         dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd_tc.cu",
@@ -6552,7 +7008,8 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         dist_rank_main(sys.argv[2])
-    elif sys.argv[1:] in ([], ["--phase", "13"], ["--phase", "15"], ["--phase", "16"]):
+    elif sys.argv[1:] in ([], ["--phase", "13"], ["--phase", "15"], ["--phase", "16"],
+                          ["--phase", "17"]):
         main()
         # every check passed and every line is out (the rank processes
         # were joined in their phases): leave without the interpreter's
@@ -6563,4 +7020,4 @@ if __name__ == "__main__":
         sys.stderr.flush()
         os._exit(0)
     else:
-        fail(f"usage: {sys.argv[0]} [--phase 13|15|16]")
+        fail(f"usage: {sys.argv[0]} [--phase 13|15|16|17]")

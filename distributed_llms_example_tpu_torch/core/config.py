@@ -114,6 +114,9 @@ class TrainConfig:
     pad_to_multiple: int = 128
     max_source_length: int = 1024
     max_target_length: int = 128
+    # the JAX CLI's flag, read by nothing there either: the master weights
+    # are fp32 (the one value accepted) and the compute dtype is --compute-dtype
+    param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     log_every_steps: int = 100
     evaluation_steps: int = 500  # eval every N steps (0 = only at each epoch's end)
@@ -233,6 +236,8 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--shuffle-seed", type=int, default=d.shuffle_seed)
     p.add_argument("--pad-to-multiple", type=int, default=d.pad_to_multiple)
     p.add_argument("--max-target-length", type=int, default=d.max_target_length)
+    p.add_argument("--param-dtype", type=str, default=d.param_dtype, choices=("float32",),
+                   help="the master weights' dtype: fp32 only (bf16 masters are not ported)")
     p.add_argument("--compute-dtype", type=str, default=d.compute_dtype,
                    choices=("float32", "bfloat16"))
     p.add_argument("--remat", action="store_true",

@@ -1,9 +1,10 @@
 """JSON summarization data (the port's own copy of the JAX package's
 ``data/dataset.py``, single process).
 
-- ``load_json_records``: a JSON array, JSONL, or a ``{"data": [...]}``
-  wrapper; malformed JSONL lines are skipped and counted in one
-  ``data_skipped_records`` event;
+- ``load_json_records``: a JSON array, JSONL (through the native loader of
+  ``native/``), or a ``{"data": [...]}`` wrapper, with the JAX loader's
+  errors, its retry of transient read errors and its count of skipped
+  lines;
 - ``resolve_columns`` / ``SummarizationDataset``: the dual column schema
   (``dialogue``/``summary`` first, then ``article``/``highlights``),
   tokenized lazily with truncation and memoized;
@@ -18,45 +19,108 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Iterator, Sequence
 
 import numpy as np
 
 from distributed_llms_example_tpu_torch.data.tokenizer import Tokenizer
+from distributed_llms_example_tpu_torch.utils.backoff import sleep_backoff
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
 SOURCE_COLUMNS = ("dialogue", "article", "document", "text")
 TARGET_COLUMNS = ("summary", "highlights", "target")
 
 
-def load_json_records(path: str) -> list:
-    with open(path, "r", encoding="utf-8") as f:
-        text = f.read().lstrip()
-    if text.startswith("["):
-        return json.loads(text)
-    try:
-        doc = json.loads(text)
-    except json.JSONDecodeError:
-        doc = None  # more than one document: JSONL
-    if isinstance(doc, dict):
-        return doc["data"] if isinstance(doc.get("data"), list) else [doc]
-    records, skipped = [], 0
-    for line in text.splitlines():
-        line = line.strip()
-        if not line:
-            continue
+DATA_READ_RETRIES = 3  # transient-I/O retry budget of load_json_records
+
+
+def load_json_records(path: str, *, retries: int = DATA_READ_RETRIES,
+                      backoff_s: float = 0.1) -> Sequence[dict]:
+    """Load a JSON array, JSONL, or ``{"data": [...]}`` file into records,
+    as the JAX package's loader does on every input.
+
+    JSONL goes through the native C++ loader (``native/``; a lazy zero-copy
+    sequence) unless ``DLLM_NATIVE_JSONL=0``; a file the native parser
+    rejects (a multi-line object, a data wrapper, a bad line) takes the
+    Python path.  A transient read error (``OSError``) retries with capped
+    exponential backoff, each retry logged as a ``data_retry`` line before
+    its sleep; a missing path, a denied one or a directory fails at once.
+    Malformed or non-object JSONL lines are skipped and counted in one
+    ``data_skipped_records`` line (``skipped``, ``kept``); a file with no
+    parseable record, or one that is neither an array, JSONL nor a data
+    wrapper, raises ``ValueError``."""
+    delay = float(backoff_s)
+    for attempt in range(max(0, retries) + 1):
         try:
-            rec = json.loads(line)
-        except json.JSONDecodeError:
-            skipped += 1
-            continue
-        if isinstance(rec, (dict, str)):
+            return _read_json_records(path)
+        except (FileNotFoundError, PermissionError, IsADirectoryError, NotADirectoryError):
+            raise  # permanent: a wrong path fails now, it does not retry
+        except OSError as e:
+            if attempt == retries:
+                raise
+            log_json({"event": "data_retry", "path": path, "attempt": attempt + 1,
+                      "backoff_s": round(delay, 3), "error": str(e)[:200]})
+            delay = sleep_backoff(delay, cap_s=2.0)
+    raise AssertionError("unreachable")
+
+
+def _read_json_records(path: str) -> Sequence[dict]:
+    from distributed_llms_example_tpu_torch import native
+
+    with open(path, "r", encoding="utf-8") as f:
+        head = f.read(1)
+        f.seek(0)
+        # the opt-out is read first: it must not start the g++ build
+        if head == "{" and os.environ.get("DLLM_NATIVE_JSONL", "1") != "0":
+            try:
+                recs = native.load_jsonl(path)
+            except ValueError:
+                pass  # a multi-line object, a data wrapper, a bad line: Python's
+            else:
+                if len(recs) == 1:
+                    only = recs[0]  # materialized once: json.loads runs on access
+                    if isinstance(only.get("data"), list):
+                        return only["data"]  # a one-line {"data": [...]} wrapper
+                return recs
+        if head == "[":
+            return json.load(f)
+        if head != "{":
+            raise ValueError(f"{path}: not a JSON array, JSONL, or data-wrapper file")
+        records: list[dict] = []
+        skipped = 0
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                skipped += 1
+                continue
+            if not isinstance(rec, dict):
+                skipped += 1  # a bare scalar or array line is not a record
+                continue
             records.append(rec)
-        else:
-            skipped += 1
-    if skipped:
-        log_json({"event": "data_skipped_records", "path": path, "skipped": skipped})
-    return records
+        if skipped:
+            # unparseable lines: a pretty-printed single document (parse it
+            # whole), or JSONL with bad lines (skip them, counted)
+            f.seek(0)
+            try:
+                whole = json.load(f)
+            except json.JSONDecodeError:
+                pass
+            else:
+                if isinstance(whole, dict) and isinstance(whole.get("data"), list):
+                    return whole["data"]
+                return [whole]
+            if not records:
+                raise ValueError(f"{path}: no parseable JSON records")
+            log_json({"event": "data_skipped_records", "path": path, "skipped": skipped,
+                      "kept": len(records)})
+        if len(records) == 1 and isinstance(records[0].get("data"), list):
+            return records[0]["data"]
+        return records
 
 
 def resolve_columns(record: dict, source_column: str = "", target_column: str = "") -> tuple[str, str]:

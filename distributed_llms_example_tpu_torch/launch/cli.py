@@ -1,5 +1,6 @@
 """Command line for the PyTorch port (port of the JAX package's
-``launch/cli.py``): training without a subcommand, and ``serve``.
+``launch/cli.py``): training without a subcommand, ``serve``,
+``serve-router`` and ``serve-loadgen``.
 
     python -m distributed_llms_example_tpu_torch.launch.cli \\
         --model-ckpt bart-large-cnn --train-file train.json --batch-size 8 \\
@@ -64,8 +65,23 @@ or each process started with ``VH_MASTER_IP``, ``VH_WORLD_SIZE`` and
 NCCL on CUDA and gloo with ``--device cpu`` (``core/mesh.py``).  Without
 ``--train-file``, ``train.json`` and ``val.json`` beside the Valohai
 ``dataset`` input are read.  ``serve``'s ``--mesh`` accepts one-device
-layouts only; multi-GPU serving, ``serve-router`` and ``serve-loadgen`` are
-later slices (ROADMAP.md).
+layouts only; multi-GPU serving is a later slice (ROADMAP.md).
+
+``serve-router`` serves the prompts through ``--replicas`` engines that
+share the one loaded model, behind ``serving/router.py``'s router (health
+machine, retry and re-prefill, admission control, deadlines, ``--chaos
+replica_crash@K,replica_stall@K,request_storm@K``); ``serve-loadgen`` drives
+one engine session (``--replicas 0``, its default) or a router pool
+through ``serving/loadgen.py``'s open-loop QPS sweep (``--qps-grid``,
+``--arrival-process``, ``--loadgen-seed``).  Both take every ``serve``
+flag, run on CUDA unless ``--device cpu`` and write through ``--output-file``:
+
+    python -m distributed_llms_example_tpu_torch.launch.cli serve-router \\
+        --model-ckpt llama-2-7b --prompts-file prompts.json --paged-kv \\
+        --replicas 2 --chaos replica_crash@40
+    python -m distributed_llms_example_tpu_torch.launch.cli serve-loadgen \\
+        --model-ckpt llama-2-7b --prompts-file prompts.json --paged-kv \\
+        --qps-grid 0.5,1,2 --loadgen-seed 0
 """
 
 from __future__ import annotations
@@ -181,60 +197,52 @@ def _serve_config_from_args(args):
     )
 
 
-def _write_serve_output(args, lm, tok, prompts, outputs) -> None:
+def _write_serve_output(args, lm, tok, prompts, outputs, *, extra=None) -> None:
     """Request outputs (the served product): JSONL on stdout or, with
-    ``--output-file``, one ``os.write`` per line and an fsync on close."""
+    ``--output-file``, through ``obs/sink.py``'s ``ProductJsonlWriter``
+    (one ``os.write`` a line, an fsync on close).  ``extra``: fields added
+    to each record (the router's shed reason)."""
+    from distributed_llms_example_tpu_torch.obs.sink import ProductJsonlWriter
     from distributed_llms_example_tpu_torch.serving.engine import trim_eos
     from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
     eos, pad = lm.config.eos_token_id, lm.config.pad_token_id
     lines = []
-    for prompt, ids in zip(prompts, outputs):
+    for i, (prompt, ids) in enumerate(zip(prompts, outputs)):
         kept = [t for t in trim_eos(ids, eos, pad) if t != eos]
-        lines.append({"prompt": prompt, "output": tok.decode(kept), "tokens": len(kept)})
+        lines.append({"prompt": prompt, "output": tok.decode(kept), "tokens": len(kept),
+                      **(extra[i] if extra is not None else {})})
     if not args.output_file:
         for rec in lines:
             sys.stdout.write(json.dumps(rec) + "\n")
         return
-    parent = os.path.dirname(args.output_file)
-    if parent:
-        os.makedirs(parent, exist_ok=True)
-    fd = os.open(args.output_file, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    writer = ProductJsonlWriter(args.output_file)
     try:
         for rec in lines:
-            data = (json.dumps(rec) + "\n").encode("utf-8")
-            while data:
-                data = data[os.write(fd, data):]
-        os.fsync(fd)
+            writer.write(rec)
     finally:
-        os.close(fd)
+        writer.close()
     log_json({"event": "serve_output", "path": args.output_file, "records": len(lines)})
 
 
-def serve(argv: list[str] | None = None, *, loaded=None):
-    """The ``serve`` subcommand: load → continuous-batching decode → write
-    outputs.  Returns ``(engine, outputs)``: the engine's ``last_stats``
-    hold the run, ``outputs`` the generated ids per prompt.  ``loaded``: a
-    model built by the caller (a ``LoadedModel`` on the device), served in
-    place of ``--model-ckpt``'s."""
+def _serve_setup(args, loaded):
+    """What ``serve``, ``serve-router`` and ``serve-loadgen`` share: the
+    device, the prompts, the model (``loaded``, or ``--model-ckpt``'s,
+    loaded once: the router's replicas share it), the tokenizer and the
+    encoded requests.  Returns ``(device, lm, tok, prompts, requests)``."""
     from distributed_llms_example_tpu_torch.core.config import SPEC_MAX_DRAFT_TOKENS
-
-    parser = build_serve_parser()
-    args = parser.parse_args(argv)
-    if not 0 <= args.spec_tokens <= SPEC_MAX_DRAFT_TOKENS:
-        parser.error(f"--spec-tokens {args.spec_tokens}: must be in [0, {SPEC_MAX_DRAFT_TOKENS}] "
-                     f"(the verify pass scores spec_tokens + 1 rows; the decode kernels take "
-                     f"at most {SPEC_MAX_DRAFT_TOKENS + 1})")
     from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resolve_device
     from distributed_llms_example_tpu_torch.data.dataset import load_json_records
     from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
     from distributed_llms_example_tpu_torch.models.registry import load_model
-    from distributed_llms_example_tpu_torch.serving.engine import ServingEngine
     from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
+    if not 0 <= args.spec_tokens <= SPEC_MAX_DRAFT_TOKENS:
+        raise SystemExit(f"--spec-tokens {args.spec_tokens}: must be in [0, "
+                         f"{SPEC_MAX_DRAFT_TOKENS}] (the verify pass scores spec_tokens + 1 "
+                         f"rows; the decode kernels take at most {SPEC_MAX_DRAFT_TOKENS + 1})")
     device = resolve_device(args.device)
     check_single_device_mesh(args.mesh)
-    serve_cfg = _serve_config_from_args(args)
     records = load_json_records(args.prompts_file)
     if args.num_prompts > 0:
         records = records[: args.num_prompts]
@@ -249,8 +257,25 @@ def serve(argv: list[str] | None = None, *, loaded=None):
     tok = get_tokenizer(args.tokenizer, args.model_ckpt)
     encode = tok.encode_source if lm.is_seq2seq else tok.encode_prompt
     requests = [encode(t, args.max_source_length) for t in prompts]
-    engine = ServingEngine(lm.module, lm.config, serve_cfg, is_seq2seq=lm.is_seq2seq,
-                           device=device)
+    return device, lm, tok, prompts, requests
+
+
+def _engine(args, lm, device):
+    from distributed_llms_example_tpu_torch.serving.engine import ServingEngine
+
+    return ServingEngine(lm.module, lm.config, _serve_config_from_args(args),
+                         is_seq2seq=lm.is_seq2seq, device=device)
+
+
+def serve(argv: list[str] | None = None, *, loaded=None):
+    """The ``serve`` subcommand: load → continuous-batching decode → write
+    outputs.  Returns ``(engine, outputs)``: the engine's ``last_stats``
+    hold the run, ``outputs`` the generated ids per prompt.  ``loaded``: a
+    model built by the caller (a ``LoadedModel`` on the device), served in
+    place of ``--model-ckpt``'s."""
+    args = build_serve_parser().parse_args(argv)
+    device, lm, tok, prompts, requests = _serve_setup(args, loaded)
+    engine = _engine(args, lm, device)
     outputs = engine.generate(requests)
     _write_serve_output(args, lm, tok, prompts, outputs)
     return engine, outputs
@@ -259,6 +284,179 @@ def serve(argv: list[str] | None = None, *, loaded=None):
 def serve_main(argv: list[str] | None = None) -> int:
     serve(argv)
     return 0
+
+
+def build_router_parser() -> argparse.ArgumentParser:
+    """``serve-router``: every ``serve`` flag and the router's."""
+    p = build_serve_parser()
+    p.prog = "dllm-torch serve-router"
+    p.description = ("fault-tolerant serving tier (serving/router.py): N engine replicas "
+                     "sharing one model behind a router with session affinity, queue-depth "
+                     "dispatch, bounded retry and re-prefill on a replica's failure, "
+                     "admission control, drain, and the serving chaos kinds")
+    p.add_argument("--replicas", type=int, default=2,
+                   help="engine replicas in the pool (each its own slots and block pool)")
+    p.add_argument("--max-retries", type=int, default=2,
+                   help="re-dispatches a request gets after replica failures; past it, shed")
+    p.add_argument("--deadline-ms", type=float, default=0.0,
+                   help="a request's wall deadline while it waits for dispatch (0 = none); "
+                        "expired requests shed with reason 'deadline'")
+    p.add_argument("--router-max-queue", type=int, default=0,
+                   help="the router queue's bound (0 = none); submissions over it shed or "
+                        "defer per --shed-policy")
+    p.add_argument("--shed-policy", type=str, default="defer", choices=("defer", "shed"),
+                   help="a submission over the bound: defer parks it client-side, shed "
+                        "rejects it")
+    p.add_argument("--suspect-after-ticks", type=int, default=3,
+                   help="missed heartbeats (router ticks without a replica's progress) "
+                        "before live -> suspect")
+    p.add_argument("--dead-after-ticks", type=int, default=6,
+                   help="missed heartbeats before suspect -> dead (its requests re-prefill "
+                        "elsewhere)")
+    p.add_argument("--chaos", type=str, default="",
+                   help="serving chaos (obs/chaos.py): replica_crash@K,replica_stall@K,"
+                        "request_storm@K with K a router tick")
+    return p
+
+
+def _router_config(args):
+    from distributed_llms_example_tpu_torch.obs.chaos import parse_chaos
+    from distributed_llms_example_tpu_torch.serving.router import RouterConfig
+
+    try:
+        return RouterConfig(
+            max_retries=args.max_retries, deadline_s=args.deadline_ms / 1e3,
+            max_queue=args.router_max_queue, shed_policy=args.shed_policy,
+            suspect_after_ticks=args.suspect_after_ticks,
+            dead_after_ticks=args.dead_after_ticks, log_every_ticks=args.log_every_steps,
+            chaos=parse_chaos(args.chaos) if args.chaos else None,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def serve_router(argv: list[str] | None = None, *, loaded=None):
+    """The ``serve-router`` subcommand: the model loaded once, ``--replicas``
+    engines over it, routed to completion, the outputs written (a shed
+    request's record carries its reason).  Returns ``(router, outputs)``."""
+    from distributed_llms_example_tpu_torch.serving.router import ReplicaRouter
+
+    args = build_router_parser().parse_args(argv)
+    if args.replicas < 1:
+        raise SystemExit("--replicas must be >= 1")
+    cfg = _router_config(args)
+    device, lm, tok, prompts, requests = _serve_setup(args, loaded)
+    router = ReplicaRouter([_engine(args, lm, device) for _ in range(args.replicas)], cfg)
+    outputs = router.serve(requests)
+    extra = [{"shed": q.shed_reason} if q.shed else {}
+             for q in router.requests if not q.synthetic]
+    _write_serve_output(args, lm, tok, prompts, outputs, extra=extra)
+    return router, outputs
+
+
+def build_loadgen_parser() -> argparse.ArgumentParser:
+    """``serve-loadgen``: every ``serve-router`` flag and the sweep's;
+    ``--replicas 0`` (the default here) drives one engine session, >= 1 a
+    router pool (which composes with ``--chaos``)."""
+    p = build_router_parser()
+    p.prog = "dllm-torch serve-loadgen"
+    p.description = ("open-loop load sweep (serving/loadgen.py): seeded arrivals over an "
+                     "offered-QPS grid, offered vs goodput and TTFT percentile curves, the "
+                     "saturation knee; --replicas 0 drives one engine session, >= 1 a router")
+    p.set_defaults(replicas=0)
+    p.add_argument("--arrival-process", type=str, default="poisson",
+                   choices=("poisson", "bursty", "ramp"),
+                   help="exponential gaps, bursts of --burst-size, or a linear rate ramp "
+                        "from --ramp-start-frac x rate")
+    p.add_argument("--loadgen-seed", type=int, default=0,
+                   help="the arrival schedule's seed (same seed and config: the same "
+                        "schedule bit for bit)")
+    p.add_argument("--qps-grid", type=str, default="1,2,4,8",
+                   help="comma list of ascending offered QPS points")
+    p.add_argument("--burst-size", type=int, default=4, help="bursty: arrivals a burst")
+    p.add_argument("--ramp-start-frac", type=float, default=0.25,
+                   help="ramp: the starting rate as a fraction of the point's")
+    p.add_argument("--max-wall-s", type=float, default=0.0,
+                   help="a point's wall cap (0 = none); past it the unfinished tail reports")
+    p.add_argument("--track-tol", type=float, default=0.9,
+                   help="knee sensitivity: achieved QPS below track-tol x offered saturates")
+    p.add_argument("--workload", type=str, default="random", choices=("random", "chatbot"),
+                   help="'random' drives the prompts file; 'chatbot' the seeded "
+                        "shared-prefix multi-turn mix (serving/loadgen.py chatbot_requests: "
+                        "session keys for the router's affinity, the scripted reply lengths "
+                        "as decode budgets), ignoring the prompts file")
+    p.add_argument("--chat-sessions", type=int, default=8, help="chatbot: sessions")
+    p.add_argument("--chat-turns", type=int, default=4, help="chatbot: turns a session")
+    p.add_argument("--chat-shared-frac", type=float, default=0.9,
+                   help="chatbot: the fraction of sessions opening with the shared system "
+                        "prompt")
+    return p
+
+
+def serve_loadgen(argv: list[str] | None = None, *, loaded=None):
+    """The ``serve-loadgen`` subcommand: the model loaded once, a fresh
+    session (or router pool) a point of the QPS grid, the sweep's summary
+    written with ``--output-file``.  Returns ``(summary, outputs)``:
+    ``outputs[i]`` the generated ids of every request at grid point i, in
+    request order."""
+    from distributed_llms_example_tpu_torch.serving.loadgen import (
+        EngineTarget,
+        LoadgenConfig,
+        RouterTarget,
+        chatbot_requests,
+        sweep_qps,
+    )
+    from distributed_llms_example_tpu_torch.serving.router import ReplicaRouter
+
+    args = build_loadgen_parser().parse_args(argv)
+    if args.replicas < 0:
+        raise SystemExit("--replicas must be >= 0")
+    router_cfg = _router_config(args) if args.replicas else None
+    try:
+        cfg = LoadgenConfig(
+            process=args.arrival_process, seed=args.loadgen_seed, burst_size=args.burst_size,
+            ramp_start_frac=args.ramp_start_frac,
+            qps_grid=tuple(float(q) for q in args.qps_grid.split(",") if q.strip()),
+            # the serve flag's 0 (no SLO) would make attainment vacuous
+            ttft_slo_ms=args.ttft_slo_ms or 500.0, max_wall_s=args.max_wall_s,
+            track_tol=args.track_tol,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    device, lm, tok, prompts, requests = _serve_setup(args, loaded)
+    sessions = budgets = None
+    if args.workload == "chatbot":
+        requests, sessions, budgets = chatbot_requests(
+            sessions=args.chat_sessions, turns=args.chat_turns, seed=args.loadgen_seed,
+            vocab=int(lm.config.vocab_size), shared_frac=args.chat_shared_frac,
+            max_len=args.max_source_length, with_budgets=True)
+    targets: list = []
+    if args.replicas:
+        def target_factory():
+            engines = [_engine(args, lm, device) for _ in range(args.replicas)]
+            targets.append(RouterTarget(ReplicaRouter(engines, router_cfg)))
+            return targets[-1]
+    else:
+        engine = _engine(args, lm, device)
+
+        def target_factory():
+            targets.append(EngineTarget(engine.open()))
+            return targets[-1]
+
+    summary = sweep_qps(target_factory, requests, cfg, sessions=sessions, budgets=budgets)
+    if args.replicas:
+        outputs = [[list(q.out) for q in t.router.requests if not q.synthetic] for t in targets]
+    else:
+        outputs = [[list(o) for o in t.session.outputs] for t in targets]
+    if args.output_file:
+        from distributed_llms_example_tpu_torch.obs.sink import ProductJsonlWriter
+
+        writer = ProductJsonlWriter(args.output_file)
+        try:
+            writer.write(summary)
+        finally:
+            writer.close()
+    return summary, outputs
 
 
 def build_train_parser() -> argparse.ArgumentParser:
@@ -346,8 +544,12 @@ def main(argv: list[str] | None = None) -> int:
         argv = sys.argv[1:]
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
-    if argv and argv[0] in ("serve-router", "serve-loadgen"):
-        raise SystemExit(f"{argv[0]} is a later slice of the port (ROADMAP.md)")
+    if argv and argv[0] == "serve-router":
+        serve_router(argv[1:])
+        return 0
+    if argv and argv[0] == "serve-loadgen":
+        serve_loadgen(argv[1:])
+        return 0
     train(argv)
     return 0
 

@@ -20,9 +20,14 @@ Training kinds:
                       surviving ranks, or save and stop), in one process as
                       in many (the schedule is the same on every rank)
 
-The serving kinds (``replica_crash``, ``replica_stall``,
-``request_storm``) parse and stay armed and unfired: nothing in the port
-consumes them yet.
+Serving kinds, ticks the replica router's scheduler ticks
+(``serving/router.py``):
+
+- ``replica_crash@K``  the busiest replica fails at tick K (its requests
+                       re-prefill on the survivors)
+- ``replica_stall@K``  the busiest replica stops stepping at tick K (only
+                       the heartbeat detector sees it)
+- ``request_storm@K``  a synthetic burst through admission control
 
 Every injection is one-shot (armed, then fired): a rewind replaying the
 same steps does not re-inject.  Each firing logs a ``chaos_injection``
@@ -37,8 +42,8 @@ from typing import Iterable
 
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
-# the last three are serving kinds, ticked by a router's scheduler: a
-# training run leaves them armed and unfired
+# the last three are serving kinds, ticked by the replica router's
+# scheduler: a training run leaves them armed and unfired
 KINDS = (
     "nan_grad", "ckpt_corrupt", "data_error", "sigterm", "host_loss", "oom",
     "replica_crash", "replica_stall", "request_storm",

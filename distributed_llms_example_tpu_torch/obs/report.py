@@ -27,7 +27,11 @@ the run left, checks ``schema_version`` on every line, and rebuilds:
 - "Where did the bytes go" (``memory_account``, ``memory_window`` and the
   ``memory-postmortem-p*.json`` bundles, ``obs/memprof.py``);
 - the serving engine's prefix-cache and speculative-decode ledgers (its
-  ``serve_summary`` and ``serve_window`` events);
+  ``serve_summary`` and ``serve_window`` events, the router's
+  cross-replica aggregate in ``router_summary`` when there is one);
+- the open-loop load sweep (``loadgen_point`` / ``loadgen_summary``,
+  ``serving/loadgen.py``): offered, achieved and goodput QPS, TTFT
+  percentiles and queue delay a point, and the saturation knee;
 - the anomaly log and the flight-recorder bundles.
 
 Markdown by default, ``--json`` for the whole report, ``--trace out.json``
@@ -35,9 +39,10 @@ the merged Perfetto trace (``obs/trace.py``).  ``--strict`` exits 1 on a
 schema error, an organic fault, or a gate it is given that fails or has
 nothing to read: ``--min-dispatch-efficiency``, ``--min-overlap-frac``,
 ``--max-peak-hbm-frac``, ``--min-hbm-headroom-gib``,
-``--min-prefix-hit-rate``, ``--min-acceptance-rate``.  A pure file reader:
-nothing here touches a device.  The JAX package's load-sweep section comes
-with the slice that emits its events.
+``--max-request-retry-rate``, ``--min-serve-goodput-frac``,
+``--min-slo-attainment``, ``--max-p99-ttft-ms``, ``--min-prefix-hit-rate``,
+``--min-acceptance-rate``.  A pure file reader: nothing here touches a
+device.
 """
 
 from __future__ import annotations
@@ -603,63 +608,107 @@ def recovery_report(processes: dict[int, list[dict]]) -> dict[str, Any]:
     }
 
 
+def loadgen_report(processes: dict[int, list[dict]]) -> dict[str, Any] | None:
+    """The open-loop load sweep: the curve (a row a grid point) and the
+    knee, from ``loadgen_point`` / ``loadgen_summary`` events; the newest
+    summary is authoritative (bare points, a sweep cut short, still
+    render).  ``best_slo_attainment`` and ``best_ttft_p99_ms`` are the
+    gates' inputs: the best attainment of any point and the lowest measured
+    p99 TTFT (a point where nothing finished measures None and is left
+    out, so a sweep whose every point collapsed has no p99 and the gate
+    fails it)."""
+    points: list[dict] = []
+    summaries: list[dict] = []
+    for _, records in sorted(processes.items()):
+        ev = _by_event(records)
+        points.extend(ev.get("loadgen_point", []))
+        summaries.extend(ev.get("loadgen_summary", []))
+    if not points and not summaries:
+        return None
+    summary = summaries[-1] if summaries else None
+    curve = list((summary or {}).get("points") or points)
+    attains = [p["slo_attainment"] for p in curve
+               if isinstance(p.get("slo_attainment"), (int, float))]
+    p99s = [p["ttft_p99_ms"] for p in curve if isinstance(p.get("ttft_p99_ms"), (int, float))]
+    meta = summary or (points[-1] if points else {})
+    return {
+        "process": meta.get("process"),
+        "seed": meta.get("seed"),
+        "ttft_slo_ms": meta.get("ttft_slo_ms"),
+        "requests_per_point": (summary or {}).get("requests_per_point"),
+        "qps_grid": (summary or {}).get("qps_grid"),
+        "knee_qps": (summary or {}).get("knee_qps"),
+        "sweeps": len(summaries),
+        "points": curve,
+        "best_slo_attainment": max(attains) if attains else None,
+        "best_ttft_p99_ms": min(p99s) if p99s else None,
+    }
+
+
 def _serving_ledger(processes: dict[int, list[dict]], flag: str,
-                    window_key: str) -> tuple[list[dict], int]:
-    """The ``serve_summary`` events whose engine ran with ``flag`` on, and
-    the count of serve windows that carry ``window_key``."""
+                    window_key: str) -> tuple[list[dict], list[dict], int]:
+    """The ``serve_summary`` events whose engine ran with ``flag`` on, the
+    ``router_summary`` events that carry ``window_key`` (the router's
+    cross-replica aggregate), and the count of serve windows that carry
+    ``window_key``."""
     serve: list[dict] = []
+    router: list[dict] = []
     windows = 0
     for _, records in sorted(processes.items()):
         ev = _by_event(records)
         serve.extend(r for r in ev.get("serve_summary", []) if r.get(flag))
+        router.extend(r for r in ev.get("router_summary", []) if window_key in r)
         windows += sum(1 for r in ev.get("serve_window", []) if window_key in r)
-    return serve, windows
+    return serve, router, windows
 
 
 def prefix_report(processes: dict[int, list[dict]]) -> dict[str, Any] | None:
-    """The prefix-cache rollup of the last ``serve_summary`` of an engine
-    run with the cache on (``scope`` "engine", the JAX report's key; its
-    router aggregate comes with the router).  ``hit_rate`` is the
-    ``--min-prefix-hit-rate`` gate's input: None when no such engine
-    summarized, which the gate fails."""
-    serve, windows = _serving_ledger(processes, "prefix_cache", "prefix_hit_rate")
-    if not serve:
+    """The prefix-cache rollup: the router's cross-replica aggregate when a
+    ``router_summary`` carries one (``scope`` "router": a replica's own
+    summary sees only its traffic), else the last ``serve_summary`` of an
+    engine run with the cache on (``scope`` "engine").  ``hit_rate`` is the
+    ``--min-prefix-hit-rate`` gate's input: None when neither exists,
+    which the gate fails."""
+    serve, router, windows = _serving_ledger(processes, "prefix_cache", "prefix_hit_rate")
+    if not (serve or router):
         return None
-    last = serve[-1]
+    src = router[-1] if router else serve[-1]
+    latest = serve[-1] if serve else {}
     return {
-        "scope": "engine",
-        "hit_rate": last.get("prefix_hit_rate"),
-        "lookups": last.get("prefix_lookups"),
-        "hits": last.get("prefix_hits"),
-        "prefill_tokens_total": last.get("prefill_tokens_total"),
-        "prefill_tokens_saved": last.get("prefill_tokens_saved"),
-        "prefill_tokens_saved_frac": last.get("prefill_tokens_saved_frac"),
-        "budget_gib": last.get("prefix_cache_budget_gib"),
-        "pool_blocks_warm": last.get("pool_blocks_warm"),
-        "warm_bytes": last.get("warm_bytes"),
+        "scope": "router" if router else "engine",
+        "hit_rate": src.get("prefix_hit_rate"),
+        "lookups": src.get("prefix_lookups"),
+        "hits": src.get("prefix_hits"),
+        "prefill_tokens_total": src.get("prefill_tokens_total"),
+        "prefill_tokens_saved": src.get("prefill_tokens_saved"),
+        "prefill_tokens_saved_frac": src.get("prefill_tokens_saved_frac"),
+        "budget_gib": latest.get("prefix_cache_budget_gib"),
+        "pool_blocks_warm": latest.get("pool_blocks_warm"),
+        "warm_bytes": latest.get("warm_bytes"),
         "windows": windows,
         "engines": len(serve),
     }
 
 
 def spec_report(processes: dict[int, list[dict]]) -> dict[str, Any] | None:
-    """The speculative-decode rollup of the last ``serve_summary`` of an
-    engine run with speculation on (``scope`` as in ``prefix_report``).
+    """The speculative-decode rollup, scoped as ``prefix_report``.
     ``acceptance_rate`` is the ``--min-acceptance-rate`` gate's input: None
-    when no such engine summarized, which the gate fails."""
-    serve, windows = _serving_ledger(processes, "spec_decode", "acceptance_rate")
-    if not serve:
+    when no spec-enabled engine or router summarized, which the gate
+    fails."""
+    serve, router, windows = _serving_ledger(processes, "spec_decode", "acceptance_rate")
+    if not (serve or router):
         return None
-    last = serve[-1]
+    src = router[-1] if router else serve[-1]
+    latest = serve[-1] if serve else {}
     return {
-        "scope": "engine",
-        "acceptance_rate": last.get("acceptance_rate"),
-        "accepted_tokens_per_step": last.get("accepted_tokens_per_step"),
-        "drafted_tokens": last.get("spec_drafted_tokens"),
-        "accepted_tokens": last.get("spec_accepted_tokens"),
-        "spec_tokens": last.get("spec_tokens"),
-        "draft_model": last.get("spec_draft_model"),
-        "spec_steps": last.get("spec_steps"),
+        "scope": "router" if router else "engine",
+        "acceptance_rate": src.get("acceptance_rate"),
+        "accepted_tokens_per_step": src.get("accepted_tokens_per_step"),
+        "drafted_tokens": src.get("spec_drafted_tokens"),
+        "accepted_tokens": src.get("spec_accepted_tokens"),
+        "spec_tokens": latest.get("spec_tokens", src.get("spec_tokens")),
+        "draft_model": latest.get("spec_draft_model"),
+        "spec_steps": latest.get("spec_steps"),
         "windows": windows,
         "engines": len(serve),
     }
@@ -681,6 +730,7 @@ def build_report(output_dir: str) -> dict[str, Any]:
         "budget": budget_report(processes),
         "device": device_report(processes),
         "memory": memory_report(processes, run["postmortems"]),
+        "loadgen": loadgen_report(processes),
         "prefix": prefix_report(processes),
         "spec": spec_report(processes),
         "recovery": recovery_report(processes),
@@ -794,6 +844,7 @@ def render_markdown(report: dict[str, Any], *, last: int = 20) -> str:
     _render_device(add, report.get("device"))
     _render_comm(add, report.get("comm"))
     _render_memory(add, report.get("memory"))
+    _render_loadgen(add, report.get("loadgen"))
     _render_serving(add, report.get("prefix"), report.get("spec"))
     rec = report.get("recovery") or {}
     add("")
@@ -973,6 +1024,29 @@ def _render_memory(add, mem: dict | None) -> None:
             + ("attached" if b.get("has_account") else "absent") + ")")
 
 
+def _render_loadgen(add, lg: dict | None) -> None:
+    if lg is None:
+        return
+    add("")
+    add("## Open-loop load sweep")
+    knee = lg.get("knee_qps")
+    add(f"- process={lg.get('process')} seed={lg.get('seed')} "
+        f"slo={_fmt(lg.get('ttft_slo_ms'))}ms requests/point={lg.get('requests_per_point')} "
+        "— knee: " + (f"**{_fmt(knee)} QPS** (first saturated offered rate)"
+                      if knee is not None else "not reached on this grid"))
+    add("")
+    add("| offered QPS | achieved | goodput | SLO attain | ttft p50 ms | p95 | p99 "
+        "| qdelay p99 ms | growing | shed | unfinished |")
+    add("|---" * 11 + "|")
+    for pt in lg.get("points", []):
+        add(f"| {_fmt(pt.get('offered_qps'))} | {_fmt(pt.get('achieved_qps'))} | "
+            f"{_fmt(pt.get('goodput_qps'))} | {_fmt(pt.get('slo_attainment'))} | "
+            f"{_fmt(pt.get('ttft_p50_ms'))} | {_fmt(pt.get('ttft_p95_ms'))} | "
+            f"{_fmt(pt.get('ttft_p99_ms'))} | {_fmt(pt.get('queue_delay_p99_ms'))} | "
+            f"{'yes' if pt.get('queue_growing') else ''} | {_fmt(pt.get('shed'))} | "
+            f"{_fmt(pt.get('unfinished'))} |")
+
+
 def _render_serving(add, px: dict | None, sp: dict | None) -> None:
     if px is not None:
         add("")
@@ -1045,6 +1119,42 @@ def _strict_gates(report: dict, args) -> int:
                 if frac is not None and frac < args.min_overlap_frac:
                     failed(f"rank {rank} overlap_frac {frac} below the "
                            f"{args.min_overlap_frac} floor (exposed collective time)")
+    serving = report["recovery"].get("serving")
+    if args.max_request_retry_rate >= 0:
+        rate = (serving or {}).get("request_retry_rate")
+        if rate is None:
+            failed("--max-request-retry-rate set but no router_summary found (a serve-router "
+                   "run is needed) — a missing measurement must never read as a pass")
+        elif rate > args.max_request_retry_rate:
+            failed(f"request_retry_rate {rate} exceeds the {args.max_request_retry_rate} "
+                   "ceiling — the pool is retry-storming (dying replicas, or a deadline or "
+                   "backoff too tight)")
+    if args.min_serve_goodput_frac > 0:
+        frac = (serving or {}).get("goodput_frac")
+        if frac is None:
+            failed("--min-serve-goodput-frac set but no router_summary found (a serve-router "
+                   "run is needed) — a missing measurement must never read as a pass")
+        elif frac < args.min_serve_goodput_frac:
+            failed(f"goodput_frac {frac} below the {args.min_serve_goodput_frac} floor — "
+                   "requests are shed or miss the TTFT SLO")
+    lg = report.get("loadgen")
+    if args.min_slo_attainment > 0:
+        best = (lg or {}).get("best_slo_attainment")
+        if best is None:
+            failed("--min-slo-attainment set but no loadgen measurement found (run "
+                   "serve-loadgen) — a missing measurement must never read as a pass")
+        elif best < args.min_slo_attainment:
+            failed(f"best per-point slo_attainment {best} below the {args.min_slo_attainment} "
+                   "floor — no offered rate on the sweep grid meets the SLO")
+    if args.max_p99_ttft_ms > 0:
+        best = (lg or {}).get("best_ttft_p99_ms")
+        if best is None:
+            failed("--max-p99-ttft-ms set but no measured p99 TTFT found (no loadgen run, or "
+                   "nothing finished at any offered rate) — a missing measurement must never "
+                   "read as a pass")
+        elif best > args.max_p99_ttft_ms:
+            failed(f"best per-point p99 TTFT {best} ms exceeds the {args.max_p99_ttft_ms} ms "
+                   "ceiling at every offered rate on the sweep grid")
     if args.min_prefix_hit_rate > 0:
         rate = (report.get("prefix") or {}).get("hit_rate")
         if rate is None:
@@ -1091,13 +1201,30 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--min-hbm-headroom-gib", type=float, default=0.0,
                    help="with --strict: fail when a memory account's hbm_headroom_gib falls "
                         "below this floor, or when none exists (0 = off)")
+    p.add_argument("--max-request-retry-rate", type=float, default=-1.0,
+                   help="with --strict: fail when the router's request_retry_rate "
+                        "(router_summary) exceeds this ceiling, or when no router_summary "
+                        "exists (-1 = off; 0 is a ceiling: any retry fails)")
+    p.add_argument("--min-serve-goodput-frac", type=float, default=0.0,
+                   help="with --strict: fail when the router's goodput_frac (requests "
+                        "completed within the TTFT SLO over requests submitted) falls below "
+                        "this floor, or when no router_summary exists (0 = off)")
+    p.add_argument("--min-slo-attainment", type=float, default=0.0,
+                   help="with --strict: fail when the load sweep's best per-point "
+                        "slo_attainment falls below this floor, or when no loadgen "
+                        "measurement exists (0 = off)")
+    p.add_argument("--max-p99-ttft-ms", type=float, default=0.0,
+                   help="with --strict: fail when the load sweep's lowest measured "
+                        "per-point p99 TTFT exceeds this ceiling, or when no point measured "
+                        "one (0 = off)")
     p.add_argument("--min-prefix-hit-rate", type=float, default=0.0,
-                   help="with --strict: fail when the prefix cache's hit rate (the last "
-                        "prefix-enabled serve_summary's prefix_hit_rate) falls below this "
+                   help="with --strict: fail when the prefix cache's hit rate (the router "
+                        "aggregate, else the last prefix-enabled serve_summary's) falls below this "
                         "floor, or when no such summary exists (0 = off)")
     p.add_argument("--min-acceptance-rate", type=float, default=0.0,
                    help="with --strict: fail when speculative decode's draft acceptance rate "
-                        "(the last spec-enabled serve_summary's) falls below this floor, or "
+                        "(the router aggregate, else the last spec-enabled serve_summary's) "
+                        "falls below this floor, or "
                         "when no such summary exists (0 = off)")
     p.add_argument("--trace", type=str, default="",
                    help="also export the merged Chrome-trace/Perfetto JSON here (every "

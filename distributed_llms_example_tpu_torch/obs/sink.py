@@ -18,8 +18,10 @@ host numbers: on a silent rank a record nobody emits costs no device sync.
 A record may be ``local`` (per-process telemetry: span windows, budget
 accounts, recorder events, agreed verdicts): it goes to every rank's own
 file, while stdout stays process 0's.  A ``bulk`` record (span instances,
-a device account's lanes) goes to the file channel only, never to stdout.  ``ProductJsonlWriter`` (the serving
-router's and load generator's output) waits for their slice.
+a device account's lanes) goes to the file channel only, never to stdout.
+
+``ProductJsonlWriter`` is not a metric channel: it writes the served
+product (the serve, serve-router and serve-loadgen outputs) crash-safe.
 """
 
 from __future__ import annotations
@@ -110,6 +112,37 @@ class JsonlFileSink:
             except OSError:
                 pass
             self._f = None
+
+
+class ProductJsonlWriter:
+    """Crash-safe JSONL writer for product output (the serving CLIs'
+    records; no ``schema_version``, no process gate).  Each record is
+    encoded once and pushed through ``os.write`` on the raw fd, so a kill
+    -9 mid-run can drop only records never written, never tear a line (the
+    loop completes a short write); ``close()`` fsyncs, so a finished run's
+    output survives the machine going down.  Errors raise: losing the
+    product is data loss the caller must see."""
+
+    def __init__(self, path: str):
+        self.path = path
+        parent = os.path.dirname(path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        self._fd: int | None = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        self.records = 0
+
+    def write(self, record: Mapping[str, Any]) -> None:
+        data = (json.dumps(record) + "\n").encode("utf-8")
+        while data:
+            data = data[os.write(self._fd, data):]
+        self.records += 1
+
+    def close(self) -> None:
+        if self._fd is None:
+            return
+        os.fsync(self._fd)
+        os.close(self._fd)
+        self._fd = None
 
 
 class TeeSink:

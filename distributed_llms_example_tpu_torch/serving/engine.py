@@ -574,19 +574,26 @@ class ServingEngine:
         self._warmed = True
 
     # -------------------------------------------------------------- loop
-    def open(self) -> "ServeSession":
-        return ServeSession(self)
+    def open(self, *, replica: int | None = None) -> "ServeSession":
+        """A stepwise serving session over this engine (``generate`` is its
+        batch wrapper; the replica router drives one a replica).
+        ``replica`` stamps the session's serve events."""
+        return ServeSession(self, replica=replica)
 
     def generate(self, requests: Sequence[Sequence[int]], *,
+                 attention_masks: Sequence[Sequence[int]] | None = None,
                  max_new: Sequence[int] | None = None) -> list[list[int]]:
         """Serve ``requests`` (token-id prompts, order preserved) to
         completion; returns per-request generated ids (eos included when
-        emitted).  ``max_new`` caps each request below ``max_new_tokens``."""
+        emitted).  ``max_new`` caps each request below ``max_new_tokens``;
+        ``attention_masks`` replace a request's all-ones prompt mask."""
         if max_new is not None and len(max_new) != len(requests):
             raise ValueError(f"max_new has {len(max_new)} entries for {len(requests)} requests")
         sess = self.open()
         for i, req in enumerate(requests):
-            sess.submit(req, max_new=max_new[i] if max_new is not None else None)
+            sess.submit(req, max_new=max_new[i] if max_new is not None else None,
+                        attention_mask=(attention_masks[i] if attention_masks is not None
+                                        else None))
         while sess.has_work():
             sess.step()
         sess.finalize()
@@ -594,22 +601,33 @@ class ServingEngine:
 
 
 class ServeSession:
-    """One serving lifetime over an engine, stepwise: ``submit`` requests,
-    drive ``step()`` per scheduler round, ``finalize()`` at the end."""
+    """One serving lifetime over an engine, stepwise: ``submit`` requests
+    (at any time), drive ``step()`` per scheduler round, ``finalize()`` at
+    the end.  The replica router drives one session a replica: ``progress``
+    (bumped on every admit chunk and decode step) is its heartbeat,
+    ``take_pending`` its drain path, and a request's ``label`` the id its
+    ``serve_request`` event carries."""
 
-    def __init__(self, engine: ServingEngine):
+    def __init__(self, engine: ServingEngine, *, replica: int | None = None):
         eng = self.eng = engine
+        self.replica = replica
         self.n_chips = 1
         S = eng.S
         self.requests: list[list[int]] = []
+        self.attn_masks: list[list[int] | None] = []
         self.budgets: list[int] = []
+        self.labels: list[Any] = []
         self.outputs: list[list[int]] = []
         self.ttft: list[float | None] = []
         self.submit_t: list[float] = []
+        # the scheduled arrival (perf_counter); an open-loop load submits
+        # after it, closed-loop callers at it: the gap is queue_delay_ms
+        self.arrival_t: list[float] = []
         self.admit_t: list[float | None] = []
         self.prefill_dt: list[float] = []
         self.pending: collections.deque[int] = collections.deque()
         self.stats = ServeStats()
+        self.progress = 0
         self.slot_req = np.full(S, -1, np.int64)
         self.emitted = np.zeros(S, np.int64)
         self.lengths = np.zeros(S, np.int64)  # true prompt lengths
@@ -650,18 +668,27 @@ class ServeSession:
         self._finalized = False
 
     # ------------------------------------------------------------ intake
-    def submit(self, tokens: Sequence[int], *, max_new: int | None = None) -> int:
-        """Enqueue one request (closed loop: it arrives when submitted);
-        returns the session-local rid, which its ``serve_request`` event
-        carries."""
+    def submit(self, tokens: Sequence[int], *, max_new: int | None = None,
+               attention_mask: Sequence[int] | None = None, label: Any = None,
+               arrival: float | None = None) -> int:
+        """Enqueue one request; returns the session-local rid.  ``label``
+        (default: the rid) is the ``request`` its ``serve_request`` event
+        carries; ``attention_mask`` replaces the prompt's all-ones mask (such
+        a request neither matches nor registers a cached prefix: its K/V
+        depends on the mask); ``arrival`` (a perf_counter instant, default
+        now) is when it arrived, before the submit under open-loop load."""
         if self._finalized:
             raise RuntimeError("session already finalized")
         rid = len(self.requests)
         self.requests.append(list(tokens))
+        self.attn_masks.append(list(attention_mask) if attention_mask is not None else None)
         self.budgets.append(min(int(max_new), self.eng.L) if max_new is not None else self.eng.L)
+        self.labels.append(rid if label is None else label)
         self.outputs.append([])
         self.ttft.append(None)
-        self.submit_t.append(time.perf_counter())
+        now = time.perf_counter()
+        self.submit_t.append(now)
+        self.arrival_t.append(float(arrival) if arrival is not None else now)
         self.admit_t.append(None)
         self.prefill_dt.append(0.0)
         self.pending.append(rid)
@@ -669,8 +696,33 @@ class ServeSession:
         self._win_arrivals += 1
         return rid
 
+    def take_pending(self) -> list[Any]:
+        """Remove every request not yet admitted and return their labels
+        (the router's drain path: they are dispatched elsewhere while the
+        live slots decode on here).  They never reach the serve_request
+        stream."""
+        labels = [self.labels[rid] for rid in self.pending]
+        self.pending.clear()
+        return labels
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.pending)
+
+    @property
+    def active_count(self) -> int:
+        return int(self.active.sum())
+
     def has_work(self) -> bool:
         return bool(self.pending) or bool(self.active.any())
+
+    def output(self, rid: int) -> list[int]:
+        return self.outputs[rid]
+
+    def first_token_wall(self, rid: int) -> float | None:
+        """The perf_counter instant of the request's first token."""
+        t = self.ttft[rid]
+        return None if t is None else self.submit_t[rid] + t
 
     def prefix_ref_violations(self) -> list[str]:
         """The pool's refcount invariant walked from this session's live
@@ -691,17 +743,18 @@ class ServeSession:
         if not self.eng.serve.request_spans:
             return
         t_sub = self.submit_t[rid]
+        t_arr = self.arrival_t[rid]
         t_admit = self.admit_t[rid] if self.admit_t[rid] is not None else t_sub
         queue_wait = t_admit - t_sub
         t = self.ttft[rid]
         record = {
             "event": "serve_request",
-            "request": rid,
+            "request": self.labels[rid],
             "slot": int(slot),
-            # arrival == submit under closed-loop driving: the open-loop
-            # load generator's arrival→submit stage reads 0, as in the JAX engine
-            "t_arrival_s": round(t_sub - self.t_open, 6),
-            "queue_delay_ms": 0.0,
+            # arrival -> submit: the open-loop load's wait (0 closed loop);
+            # queue_wait_ms is submit -> admit
+            "t_arrival_s": round(t_arr - self.t_open, 6),
+            "queue_delay_ms": round((t_sub - t_arr) * 1e3, 3),
             "queue_wait_ms": round(queue_wait * 1e3, 3),
             "prefill_ms": round(self.prefill_dt[rid] * 1e3, 3),
             "ttft_ms": round(t * 1e3, 3) if t is not None else None,
@@ -711,6 +764,8 @@ class ServeSession:
             "t_done_s": round(now - self.t_open, 6),
             "finished_at_step": int(self.stats.decode_steps),
         }
+        if self.replica is not None:
+            record["replica"] = int(self.replica)
         log_json(record)
 
     def _evict_slot(self, slot: int) -> None:
@@ -772,7 +827,7 @@ class ServeSession:
         for r, (rid, slot) in enumerate(rows):
             toks = self.requests[rid][:bucket]
             ids[r, : len(toks)] = toks
-            mask[r, : len(toks)] = 1
+            self._row_mask(mask, r, rid, len(toks), bucket)
             slot_idx[r] = slot
         t0 = time.perf_counter()
         pre = eng._prefill(to_device(ids, eng.device),
@@ -793,6 +848,7 @@ class ServeSession:
         self.stats.prefill_seconds += dt
         self.stats.prefill_calls += 1
         self._win_prefill += dt
+        self.progress += 1
         now = time.perf_counter()
         for r, (rid, slot) in enumerate(rows):
             self._admit_row(rid, slot, int(lengths[r]), bucket, t0, dt, now, finished,
@@ -839,6 +895,14 @@ class ServeSession:
             self.stats.peak_cache_bytes_in_use, self._bytes_in_use()
         )
 
+    def _row_mask(self, mask: np.ndarray, r: int, rid: int, n: int, bucket: int) -> None:
+        """Row ``r`` of a prompt chunk's mask: ones over the ``n`` prompt
+        tokens, or the request's own attention mask."""
+        mask[r, :n] = 1
+        if self.attn_masks[rid] is not None:
+            m = self.attn_masks[rid][:bucket]
+            mask[r, : len(m)] = m
+
     def _map_blocks(self, slot: int, rid: int, p: int, bucket: int) -> np.ndarray:
         """The slot's block-table row over its blocks, set and returned."""
         eng = self.eng
@@ -873,10 +937,13 @@ class ServeSession:
             rid = self.pending[0]
             p = min(len(self.requests[rid]), W)
             toks = self.requests[rid][:p]
-            hashes = cache_pool.chain_hashes(toks, bs)
+            # a custom-masked prompt has no token-only identity: it neither
+            # matches nor registers
+            eligible = self.attn_masks[rid] is None
+            hashes = cache_pool.chain_hashes(toks, bs) if eligible else []
             # keep >= 1 prompt token in the tail: the first output token
             # comes from the last prompt position's logits
-            chain = eng.pool.match_chain(hashes[: (p - 1) // bs])
+            chain = eng.pool.match_chain(hashes[: (p - 1) // bs]) if eligible else []
             for i, b in enumerate(chain):
                 if b in warm_written:
                     chain = chain[:i]
@@ -896,10 +963,13 @@ class ServeSession:
             blocks = chain + fresh
             self.slot_blocks[slot] = blocks
             full_tiles = p // bs
-            if full_tiles:
+            if eligible and full_tiles:
                 eng.pool.register(blocks[:full_tiles], hashes[:full_tiles])
-            self.slot_chain[slot] = list(blocks[:full_tiles])
-            self.stats.prefix_lookups += 1
+                self.slot_chain[slot] = list(blocks[:full_tiles])
+            else:
+                self.slot_chain[slot] = []
+            if eligible:
+                self.stats.prefix_lookups += 1
             self.stats.prefill_tokens_total += p
             if k:
                 self.stats.prefix_hits += 1
@@ -960,6 +1030,7 @@ class ServeSession:
         self.stats.prefill_seconds += dt
         self.stats.warm_admit_calls += 1
         self._win_prefill += dt
+        self.progress += 1
         now = time.perf_counter()
         for r, wr in enumerate(warm):
             self._admit_row(wr["rid"], wr["slot"], wr["p"], wr["bucket"], t0, dt, now,
@@ -1055,9 +1126,10 @@ class ServeSession:
                 mask = np.zeros((C, bucket), np.int32)
                 slot_idx = np.full((C,), eng.S, np.int64)
                 for r, s in enumerate(slots[i:i + C]):
-                    toks = self.requests[int(self.slot_req[s])][:bucket]
+                    rid = int(self.slot_req[s])
+                    toks = self.requests[rid][:bucket]
                     ids[r, : len(toks)] = toks
-                    mask[r, : len(toks)] = 1
+                    self._row_mask(mask, r, rid, len(toks), bucket)
                     slot_idx[r] = s
                 eng.drafter.admit_prompt(self.draft_state, to_device(ids, eng.device),
                                          to_device(mask, eng.device), slot_idx)
@@ -1110,6 +1182,7 @@ class ServeSession:
         dt = time.perf_counter() - t0
         self.stats.decode_seconds += dt
         self.stats.decode_steps += 1
+        self.progress += 1
         self._win_decode += dt
         n_active = int(self.active.sum())
         self.stats.slot_occupancy += n_active / eng.S
@@ -1165,6 +1238,8 @@ class ServeSession:
             window["accepted_tokens_per_step"] = round(
                 self._win_spec_emitted / max(self._win_spec_steps, 1), 4)
             window["acceptance_rate"] = round(stats.spec_accepted / max(stats.spec_drafted, 1), 4)
+        if self.replica is not None:
+            window["replica"] = int(self.replica)
         log_json(window)
         self._win_tokens, self._win_t0, self._win_occ = 0, now, 0.0
         self._win_prefill, self._win_decode = 0.0, 0.0
@@ -1174,7 +1249,8 @@ class ServeSession:
     # ---------------------------------------------------------- closing
     def finalize(self) -> ServeStats:
         """Close the books: TTFT decomposition, goodput, the serve_summary
-        event; sets ``engine.last_stats``."""
+        event; sets ``engine.last_stats``.  Requests still pending (a
+        drained replica's) stay unfinished and count against goodput."""
         if self._finalized:
             return self.stats
         self._finalized = True
@@ -1198,6 +1274,9 @@ class ServeSession:
             sum(self._bpt_samples) / len(self._bpt_samples) if self._bpt_samples else 0.0
         )
         p50, p95 = stats.ttft_percentiles()
+        # arrival -> submit over every request (0 closed loop)
+        qd50, qd95, qd99 = percentiles(
+            [s - a for s, a in zip(self.submit_t, self.arrival_t)], (0.50, 0.95, 0.99))
         summary = {
             "event": "serve_summary",
             "sequences": stats.sequences,
@@ -1207,9 +1286,9 @@ class ServeSession:
             "decode_tokens_per_sec_chip": round(stats.tokens_per_sec() / self.n_chips, 1),
             "ttft_p50_ms": round(p50 * 1e3, 1),
             "ttft_p95_ms": round(p95 * 1e3, 1),
-            "queue_delay_p50_ms": 0.0,
-            "queue_delay_p95_ms": 0.0,
-            "queue_delay_p99_ms": 0.0,
+            "queue_delay_p50_ms": round(qd50 * 1e3, 3),
+            "queue_delay_p95_ms": round(qd95 * 1e3, 3),
+            "queue_delay_p99_ms": round(qd99 * 1e3, 3),
             **stats.ttft_decomposition(),
             **stats.goodput,
             "slot_occupancy": round(stats.slot_occupancy, 4),
@@ -1260,6 +1339,8 @@ class ServeSession:
             # the allocator's live peak on the card; the static account
             # above is what the CPU run reports
             summary["peak_hbm_bytes"] = torch.cuda.max_memory_allocated(eng.device)
+        if self.replica is not None:
+            summary["replica"] = int(self.replica)
         log_json(summary)
         eng.last_stats = stats
         return stats

@@ -7,8 +7,9 @@ functions; the distributed modules ``core/mesh.py`` and
 ``obs/spans.py``, ``obs/budget.py``, ``obs/heartbeat.py``,
 ``obs/report.py``, and the profiler's ``obs/profile.py``, ``obs/devprof.py``,
 ``obs/gauges.py``, ``obs/memprof.py`` and ``obs/trace.py``, which keep their
-own copies of the JAX package's JAX-free parsers), or ``chip_smoke.py`` as a
-module,
+own copies of the JAX package's JAX-free parsers; the serving tier's
+``serving/router.py`` and ``serving/loadgen.py``; ``native/``, with its own
+copy of the C++ loader's source), or ``chip_smoke.py`` as a module,
 pulls in no JAX, flax, optax, orbax, transformers or safetensors and no
 module of the JAX package (and
 importing the script runs none of it); and the port's entry points refuse
@@ -45,7 +46,8 @@ def test_port_imports_nothing_of_jax():
                  "models.t5", "evaluation.generation", "data.prefetch", "utils.remat",
                  "ops.blockwise_ce", "core.mesh", "parallel.fsdp", "obs", "obs.sink",
                  "obs.spans", "obs.budget", "obs.heartbeat", "obs.report", "obs.profile",
-                 "obs.devprof", "obs.gauges", "obs.memprof", "obs.trace"):
+                 "obs.devprof", "obs.gauges", "obs.memprof", "obs.trace", "serving.router",
+                 "serving.loadgen", "native"):
         assert f"distributed_llms_example_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -113,6 +115,11 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     prompts.write_text(json.dumps(["a prompt"]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_main(["--model-ckpt", "bart-test", "--prompts-file", str(prompts)])
+    from distributed_llms_example_tpu_torch.launch.cli import main
+
+    for sub in ("serve-router", "serve-loadgen"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([sub, "--model-ckpt", "llama-test", "--prompts-file", str(prompts)])
     from distributed_llms_example_tpu_torch.launch.cli import train
 
     records = tmp_path / "train.json"
@@ -121,3 +128,20 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
         train(["--model-ckpt", "bart-test", "--train-file", str(records), "--batch-size", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model("bart-test", train=True)
+
+
+def test_native_loader_source_is_the_ports_own():
+    """``native/`` builds from the port's copy of the C++ source (the same
+    parser as the JAX package's), never from the JAX package's file."""
+    from pathlib import Path
+
+    from distributed_llms_example_tpu_torch import native
+
+    assert native.SRC == Path(REPO, "distributed_llms_example_tpu_torch", "native",
+                              "jsonl_loader.cc")
+    port = native.SRC.read_text()
+    with open(os.path.join(REPO, "distributed_llms_example_tpu", "native",
+                           "jsonl_loader.cc")) as f:
+        jax_src = f.read()
+    body = lambda s: s[s.index("#include"):]  # noqa: E731  (the header comments differ)
+    assert body(port) == body(jax_src)

@@ -1,7 +1,8 @@
 """The port's train entry end to end on the CPU (``--device cpu`` at
 ``bart-test`` and ``t5-test`` size, a temporary JSON file): the JAX CLI's
 step lines, the done event, the returned trainer's history; flags this
-slice does not implement are refused by argparse, and ``--chaos
+slice does not implement are refused by argparse (``--param-dtype`` parses
+its fp32 default as the JAX CLI does and refuses bf16), and ``--chaos
 host_loss@K`` without a checkpoint cadence to reshard from at parse time.  Also: training from a
 local HF checkpoint directory whose config sets attention_dropout, which
 writes <output-dir>/model/ (the reload is bit-equal to the trained
@@ -101,6 +102,28 @@ def test_unimplemented_flags_are_refused(tmp_path, capsys, flag):
         assert "needs a checkpoint to reshard FROM" in capsys.readouterr().err
     if flag[0] == "--mesh":  # data and fsdp are laid out; the model-parallel axes are not
         assert "ROADMAP.md item 6" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [[], ["--param-dtype", "float32"]], ids=["default", "fp32"])
+def test_param_dtype_parses_as_the_jax_cli(argv):
+    """``--param-dtype`` parses into ``TrainConfig.param_dtype`` as the JAX
+    CLI's does, for the fp32 masters the port trains with (bf16 is refused,
+    above)."""
+    import argparse
+
+    from distributed_llms_example_tpu.core.config import (
+        add_reference_args,
+        add_tpu_args,
+        config_from_args as jax_config_from_args,
+    )
+    from distributed_llms_example_tpu_torch.core.config import config_from_args
+
+    jp = argparse.ArgumentParser()
+    add_reference_args(jp)
+    add_tpu_args(jp)
+    want = jax_config_from_args(jp.parse_args(argv)).param_dtype
+    got = config_from_args(build_train_parser().parse_args(["--train-file", "t.json", *argv]))
+    assert got.param_dtype == want == (argv[1] if argv else "float32")
 
 
 def _hf_dir(tmp_path, name, **config):
