@@ -10,14 +10,16 @@ flan-t5-xl at full width the same ways, serves llama-2-7b at full width through 
 through the flat cache, through ``serve-router`` (a replica crash, stall and
 drain) and ``serve-loadgen`` (an open-loop QPS sweep), runs the reference recipe's eval pass (beam search
 and ROUGE on a validation file) on bart-large-cnn, trains over process
-groups (FSDP; a host loss rebuilt onto a new mesh and replayed), and checks
-that each run went through its kernels.
+groups (FSDP; a host loss rebuilt onto a new mesh and replayed), serves
+and fine-tunes Mixtral at mixtral-8x7b's widths, and checks that each run
+went through its kernels.
 
     python3 chip_smoke.py    # from the repository root, on one NVIDIA GPU
     python3 chip_smoke.py --phase 13    # the build, then phase 13 alone
     python3 chip_smoke.py --phase 15    # the build, then phase 15 alone
     python3 chip_smoke.py --phase 16    # the build, then phase 16 alone
     python3 chip_smoke.py --phase 17    # the build, then phase 17 alone
+    python3 chip_smoke.py --phase 18    # the build, then phase 18 alone
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
@@ -370,7 +372,30 @@ Phases (each fatal, non-zero exit, no result line):
      Each run: kernel 1 a layer per prompt chunk and kernel 6 a layer per
      decode round of every session (a dead replica's too), every pool
      drained with exact refcounts
- 18. a {"kernels_unported": []} line (every TPU kernel has a port), the
+ 18. Mixtral at mixtral-8x7b's published widths (hidden 4096, FFN 14336,
+     32 q heads over 8 kv heads of 128, 8 experts top-2, rope theta 1e6),
+     2 of 32 layers, seed-0 weights: (e) kernels 5 and 6 at its decode
+     shape (Q = 1 and 4, bf16 and fp32) against their plain versions,
+     kernel 6 bit-equal to kernel 5 on the gathered view, bf16 times beside
+     SDPA; (c) the train CLI on a 2-layer Mixtral HF directory it writes
+     (bf16 on disk), --remat --fused-ce --moe-capacity-factor 1.25, batch 8
+     x 1024, 6 steps: finite losses, kernels 1/2/3/8 launched 4/2/2/1+1 a
+     step, the export reloaded bit-equal with a mixtral config.json, the
+     gauge FLOPs equal to the hand count at the capacity-padded shape, the
+     memory account's state equal to the reckoning; tokens/s, MFU, the peak
+     beside the 50.6 GB state, the device account's shares (the run's
+     end-of-run 38 GB training-state checkpoint left out); kernel 8 over its
+     3.16 B-element table against the plain version (2 ulps, the norm 1
+     ulp); (b) fp32: kernels 1-3 inside the model against the plain path
+     (GRAD_LIMITS), K/V groups swapped for kernels 2-3 planted; (a) fp32: a
+     prefill + 4 decode steps, paged and flat, kernel path within 1e-4 of
+     the plain path, paged and flat tokens equal, the cached logits within
+     1e-4 of an uncached no-drop pass; planted: an offset shifted by one, a
+     decode at the training capacity; (d) serve --paged-kv and flat through
+     the CLI (bf16, 16 prompts, 8 slots, 32 new tokens): exact launches of
+     kernels 1, 5 and 6, tokens equal, decode tokens/s, TTFT and the
+     cache's bytes a token
+ 19. a {"kernels_unported": []} line (every TPU kernel has a port), the
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
      kernel 8 both entries of its source; kernels 1 and 5 count phase 6c's
@@ -378,8 +403,9 @@ Phases (each fatal, non-zero exit, no result line):
      runs, kernels 1, 2, 3, 5 and 8 phase 13's train and eval, kernels 1-3,
      7 and 8 phase 14's step and phase 15's two host-loss runs, kernel 1
      phase 11's prompt prefills, kernels 1, 5 and 6 phase 16's runs,
-     kernels 1 and 6 phase 17's, and kernels 5 and 6 carry phase 16's
-     verify_q4 and int8 times),
+     kernels 1 and 6 phase 17's, kernels 1, 2, 3, 5, 6 and 8 phase 18's
+     train and serve runs, and kernels 5 and 6 carry phase 16's verify_q4
+     and int8 times),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -6723,6 +6749,631 @@ def serving_tier_phase(torch, fa, cli, lm, *, floor: float | None = None) -> dic
     return {"launches": launches}
 
 
+# phase 18: Mixtral at mixtral-8x7b's published widths (hidden 4096, FFN
+# 14336, 32 q heads over 8 kv heads of 128, 8 experts top-2, vocabulary
+# 32000, rope theta 1e6) cut to 2 of its 32 layers (46.7 B parameters, 93.4
+# GB in bf16 whole: more than the card holds), seed-0 random weights
+MIXTRAL_LAYERS = 2
+# mixtral-8x7b's published config.json (mistralai/Mixtral-8x7B-v0.1), depth
+# cut
+MIXTRAL_HF_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral", "attention_dropout": 0.0,
+    "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336, "max_position_embeddings": 32768,
+    "num_attention_heads": 32, "num_experts_per_tok": 2, "num_hidden_layers": MIXTRAL_LAYERS,
+    "num_key_value_heads": 8, "num_local_experts": 8, "output_router_logits": False,
+    "rms_norm_eps": 1e-05, "rope_theta": 1e6, "router_aux_loss_coef": 0.02,
+    "sliding_window": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "vocab_size": 32000,
+}
+# (c): phase 13's recipe without the eval, the training capacity asked for
+# (the HF directory alone loads no-drop)
+MIXTRAL_TRAIN_ARGS = [
+    "--tokenizer", "byte", "--remat", "--fused-ce", "--batch-size", "8", "--num-epochs", "1",
+    "--max-source-length", "1024", "--max-target-length", "128", "--compute-dtype", "bfloat16",
+    "--learning-rate", "1e-4", "--warmup-steps", "0", "--seed", "0", "--log-every-steps", "1",
+    "--evaluation-steps", "0", "--moe-capacity-factor", "1.25", "--save-every-steps", "0",
+]
+MIXTRAL_CAPACITY = 1.25
+# (d): phase 11's 16 prompts, 8 slots, 32 new tokens
+MIXTRAL_SERVE_ARGS = [
+    "--model-ckpt", "mixtral-8x7b", "--num-prompts", str(LLAMA_SERVE_PROMPTS), "--max-slots",
+    "8", "--max-new-tokens", "32", "--max-source-length", "1024", "--compute-dtype",
+    "bfloat16", "--seed", "0", "--log-every-steps", "64", "--lint", "off",
+]
+# (a): 8 of phase 11's prompts at a 512-token bucket, a prefill + 4 decode steps
+MIXTRAL_PARITY_BUCKET = 512
+# kernel 8's plain version over the Mixtral table, this many elements at a
+# time (an expert leaf holds 469.8 M)
+MIXTRAL_PLAIN_SLICE = 1 << 26
+
+
+def mixtral_config(torch, layers: int = MIXTRAL_LAYERS):
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.registry import LLAMA_CONFIGS
+
+    return dataclasses.replace(LLAMA_CONFIGS["mixtral-8x7b"], num_hidden_layers=layers)
+
+
+def mixtral_model(torch, *, dtype, train: bool = False):
+    """mixtral-8x7b's widths at MIXTRAL_LAYERS layers on the card, seed-0
+    weights: fp32 masters for training, the compute dtype for serving."""
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.models.registry import LoadedModel
+
+    cfg = mixtral_config(torch)
+    module = LlamaForCausalLM(cfg, dtype=dtype, param_dtype=torch.float32 if train else dtype,
+                              device="cuda").train(train)
+    lm = LoadedModel("llama", cfg, module, is_seq2seq=False)
+    lm.init_params(0)
+    return lm
+
+
+def mixtral_model_flops(cfg, rows: int, width: int) -> int:
+    """Model FLOPs of one Mixtral train step of ``rows`` x ``width`` tokens,
+    counted by hand as obs/gauges.py's FlopCounterMode count defines them:
+    every matmul of the forward (q, k, v, o, the fp32 router, the head; the
+    experts' gate, up and down at the capacity-padded shape, every expert
+    a full ``capacity`` of slots in every routing group; the two attention
+    products over the whole S x S square) and its backward (twice each),
+    no recompute."""
+    from distributed_llms_example_tpu_torch.ops.moe import GROUP_SIZE, expert_capacity
+
+    h, f, L, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers, cfg.num_experts
+    kv = cfg.head_dim * cfg.num_key_value_heads
+    n = rows * width
+    g = min(GROUP_SIZE, n)
+    G = -(-n // g)
+    cap = expert_capacity(g, E, cfg.num_experts_per_tok, cfg.moe_capacity_factor, False)
+    forward = (2 * n * (L * (2 * h * h + 2 * h * kv + h * E) + h * cfg.vocab_size)
+               + L * 3 * 2 * G * E * cap * h * f + L * 4 * rows * width * width * h)
+    return 3 * forward
+
+
+def mixtral_state_bytes(cfg) -> tuple[int, int, int]:
+    """(parameters, their fp32 bytes, AdamW's two fp32 moments plus kernel
+    8's float64 (leaves, STATS) table) of a Mixtral trained on one card,
+    from its config alone: embeddings, the head, each layer's four
+    attention matrices, router, three stacked expert matrices and two
+    norms, the final norm."""
+    from distributed_llms_example_tpu_torch.ops.fused_optim import STATS
+
+    h, f, L, E, V = (cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers,
+                     cfg.num_experts, cfg.vocab_size)
+    kv = cfg.head_dim * cfg.num_key_value_heads
+    n = 2 * V * h + L * (2 * h * h + 2 * h * kv + h * E + 3 * E * h * f + 2 * h) + h
+    return n, 4 * n, 8 * n + (3 + 10 * L) * STATS * 8
+
+
+def mixtral_hf_dir(torch) -> str:
+    """<WORK>/mixtral-8x7b-<layers>l-hf: mixtral-8x7b's published config.json
+    fields at MIXTRAL_LAYERS layers and seed-0 random weights, written by
+    the port's HF export in bf16 (half the bytes to write and read)."""
+    from distributed_llms_example_tpu_torch.models.export import save_hf_checkpoint
+
+    path = fresh_dir(f"mixtral-8x7b-{MIXTRAL_LAYERS}l-hf")
+    lm = mixtral_model(torch, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    save_hf_checkpoint(path, "llama", lm.config, lm.module.state_dict(), dtype=torch.bfloat16)
+    with open(os.path.join(path, "config.json")) as f:
+        written = json.load(f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({**written, **MIXTRAL_HF_CONFIG}, f, indent=2, sort_keys=True)
+    say({"phase": "mixtral_checkpoint", "dir": path, "layers": MIXTRAL_LAYERS,
+         "parameters": sum(p.numel() for p in lm.module.parameters()),
+         "leaves": len(list(lm.module.parameters())), "write_s": time.perf_counter() - t0,
+         "bytes": tree_bytes(path), "files": sorted(os.listdir(path))})
+    del lm
+    free_cuda()
+    return path
+
+
+@contextlib.contextmanager
+def no_final_state_save():
+    """The CLI run's end-of-run training-state checkpoint left out: at 2
+    layers Mixtral's fp32 parameters and AdamW moments are 38 GB, whose
+    write and crc32 manifest would take minutes of the run's time limit
+    (phases 5c and 13 hold the save and the restore)."""
+    from distributed_llms_example_tpu_torch.train import trainer as trainer_mod
+
+    real = trainer_mod.Trainer._save_checkpoint
+    trainer_mod.Trainer._save_checkpoint = lambda self, step, epoch, pos: False
+    try:
+        yield
+    finally:
+        trainer_mod.Trainer._save_checkpoint = real
+
+
+def mixtral_train_phase(torch, fa, fd, fo, cli) -> tuple[dict, dict]:
+    """(c) The CLI's train entry on a 2-layer Mixtral HF directory, bf16
+    compute and fp32 masters, --remat --fused-ce, --moe-capacity-factor
+    1.25, 48 records (6 steps): finite losses, exact launches of kernels
+    1/2/3/8 (kernel 1 twice a layer a step: the forward and remat's
+    recompute), the export reloaded bit-equal with a mixtral config.json;
+    the gauge FLOPs equal to the hand count at the capacity-padded shape,
+    the memory account's state equal to the reckoning; tokens/s, step
+    time, MFU, the peak against the state, the device account's shares;
+    kernel 8's Mixtral tail against its plain version.  Returns (the
+    launches, the first batch on the host for (b))."""
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+    from distributed_llms_example_tpu_torch.train.trainer import batch_tokens
+
+    ckpt = mixtral_hf_dir(torch)
+    train_path = os.path.join(WORK, "mixtral_train.json")
+    write_instruction_records(train_path, LLAMA_TRAIN_RECORDS, seed=0)
+    out_dir = fresh_dir("mixtral-8x7b-train-out")
+    zero_counters(fa, fd, fo)
+    torch.cuda.reset_peak_memory_stats()
+    with no_final_state_save():
+        t0 = time.perf_counter()
+        trainer = cli.train([*MIXTRAL_TRAIN_ARGS, "--model-ckpt", ckpt, "--train-file",
+                             train_path, "--output-dir", out_dir, *BUDGET_ARGS,
+                             *LLAMA_OBS_ARGS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    budget_account("mixtral-8x7b", out_dir)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counters(fa, fd, fo)
+    model, cfg = trainer.model, trainer.loaded.config
+    steps = len(trainer.history)
+    want = expected_train_launches(model, steps)
+    want["flash_attention_fwd"] *= 2  # the forward, and remat's recompute in the backward
+    losses = [float(m["loss"]) for m in trainer.history]
+    step_s = [b - a for a, b in zip(trainer.step_ends, trainer.step_ends[1:])]
+    plan = list(trainer.batches.epoch(0))
+    tokens = [batch_tokens(b, is_seq2seq=False) for b in plan]
+    widths = [int(b["input_ids"].shape[1]) for b in plan]
+    flops = [mixtral_model_flops(cfg, int(b["input_ids"].shape[0]), w)
+             for b, w in zip(plan, widths)]
+    lo, hi = LLAMA_PROFILE_WINDOW
+    timed = [i + 2 for i in range(len(step_s)) if not lo <= i + 2 <= hi + 1]
+    med = statistics.median(step_s[s - 2] for s in timed) if timed else float("nan")
+    mean_tokens = statistics.mean(tokens[s - 1] for s in timed) if timed else float("nan")
+    mean_flops = statistics.mean(flops[s - 1] for s in timed) if timed else float("nan")
+    n_params, p_bytes, opt_bytes = mixtral_state_bytes(cfg)
+    events = obs_events(out_dir)
+    (gauges,) = [e for e in events if e.get("event") == "obs_gauges"]
+    (mem,) = [e for e in events if e.get("event") == "memory_account"]
+    accounts = [e for e in events if e.get("event") == "device_account"]
+    mfus = [w["mfu"] for w in events if w.get("event") == "obs_window" and "mfu" in w]
+    cap = mixtral_model_flops(cfg, trainer.cfg.batch_size, trainer.cfg.max_source_length)
+    acct = accounts[0] if accounts else {}
+    # the run's wall: the HF directory's load, then the loop (its export
+    # included)
+    loop = [e["wall_seconds"] for e in events if e.get("event") == "done"]
+    export = [e["seconds"] for e in events if e.get("event") == "saved"]
+    say({"phase": "mixtral_train", "model": "mixtral-8x7b", "layers": cfg.num_hidden_layers,
+         "checkpoint": ckpt, "wall_s": wall, "loop_s": loop, "export_s": export,
+         "steps": steps, "losses": losses,
+         "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
+         "moe_capacity_factor": cfg.moe_capacity_factor, "moe_aux_weight": cfg.moe_aux_weight,
+         "step_s_after_first": step_s, "timed_steps": timed, "step_s_median": med,
+         "tokens_per_step": tokens, "batch_widths": widths,
+         "tokens_per_sec": mean_tokens / med, "model_flops_per_step": flops,
+         "mfu": mean_flops / med / PEAK_FLOPS, "window_mfu": mfus,
+         "gauge_flops_per_step": gauges["flops_per_step"],
+         "gauge_flops_source": gauges["flops_source"], "hand_count_flops_at_cap": cap,
+         "parameters": n_params, "peak_mem_bytes": peak,
+         "reckoned_state_bytes": p_bytes * 4, "peak_over_state": peak / (p_bytes * 4),
+         "memory_account": mem["buckets_bytes"], "memory_measured": mem["measured"],
+         "device_account_bucket_frac": acct.get("bucket_frac"),
+         "device_account_buckets_ms": acct.get("buckets_ms"),
+         "device_account_busy_ms": acct.get("busy_ms"), "device_account_span_ms":
+         acct.get("span_ms"), "launches": launches, "expected": want,
+         "tc_launches": fa.flash_attention.tc_launches,
+         "final_state_checkpoint": "left out (no_final_state_save)"})
+    if steps != 6 or not all(math.isfinite(x) for x in losses):
+        fail(f"mixtral train: {steps} steps, losses {losses}")
+    if launches != want or fa.flash_attention.tc_launches != want["flash_attention_fwd"]:
+        fail(f"mixtral train launches {launches}, expected {want}, every kernel-1 launch on "
+             "the tensor cores")
+    if cfg.moe_capacity_factor != MIXTRAL_CAPACITY or \
+            any(blk.mlp.capacity_factor != MIXTRAL_CAPACITY for blk in model.blocks):
+        fail(f"mixtral train: --moe-capacity-factor did not reach the model "
+             f"({cfg.moe_capacity_factor})")
+    if gauges["flops_source"] != "flop_counter" or gauges["flops_per_step"] != cap:
+        fail(f"mixtral gauges: {gauges['flops_source']} {gauges['flops_per_step']} FLOPs vs "
+             f"the hand count {cap}")
+    if mem["buckets_bytes"]["params"] != p_bytes or \
+            mem["buckets_bytes"]["optimizer_state"] != opt_bytes:
+        fail(f"mixtral memory account {mem['buckets_bytes']} vs params {p_bytes} B, optimizer "
+             f"state {opt_bytes} B")
+    if len(accounts) != 1 or not mfus or not all(math.isfinite(m) and 0 < m < 1 for m in mfus):
+        fail(f"mixtral telemetry: {len(accounts)} device accounts, window MFU {mfus}")
+    saved = os.path.join(out_dir, "model")
+    with open(os.path.join(saved, "config.json")) as f:
+        written = json.load(f)
+    t1 = time.perf_counter()
+    back = load_model(saved, dtype=model.dtype, device="cuda", train=True).module
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    trained = dict(model.named_parameters())
+    equal = [torch.equal(p, trained[n]) for n, p in back.named_parameters()]
+    say({"phase": "train_export", "model": "mixtral-8x7b", "dir": saved,
+         "files": sorted(os.listdir(saved)), "bytes": tree_bytes(saved), "reload_s": load_s,
+         "model_type": written.get("model_type"), "parameters": len(equal),
+         "bit_equal": sum(equal)})
+    if len(equal) != len(trained) or not all(equal) or written.get("model_type") != "mixtral":
+        fail(f"mixtral train: the export ({written.get('model_type')}) does not reload to the "
+             "trained weights")
+    del back
+    free_cuda()
+    mixtral_adamw_check(torch, fo, trainer)
+    batch = plan[0]
+    del trainer, model, trained
+    free_cuda()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return launches, batch
+
+
+def mixtral_adamw_check(torch, fo, trainer) -> None:
+    """Kernel 8 over the trained Mixtral's table (3.16 B elements in one
+    launch, its stacked expert leaves 469.8 M each; the last step's
+    gradients, tokens 1): one tail against the plain version's on host
+    copies of the parameters and moments taken before it (the card holds
+    the state once), each of p, mu, nu within ADAMW_RTOL and the norm
+    within one fp32 ulp; the tail's time beside its bound."""
+    from distributed_llms_example_tpu_torch.train import optim as toptim
+
+    named = trainer.named_params
+    state, spec = trainer.opt_state, trainer.spec
+    params = [p for _, p in named]
+    grads = [p.grad for p in params]
+    dev = params[0].device
+    ones = torch.ones((), device=dev)
+    # copies of each leaf's p, mu, nu before the tail: on the card while it
+    # keeps room for the plain version's temporaries (a slice of
+    # MIXTRAL_PLAIN_SLICE elements at a time), on the host past that
+    t0 = time.perf_counter()
+    room = torch.cuda.mem_get_info(dev)[0] - 16 * MIXTRAL_PLAIN_SLICE * 4 - (2 << 30)
+    copies, on_host = [], 0
+    for ts in zip(params, state.mu, state.nu):
+        size = 3 * ts[0].numel() * 4
+        where = dev if size <= room else "cpu"
+        room -= size if where == dev else 0
+        on_host += size if where == "cpu" else 0
+        copies.append(tuple(t.detach().to(where, copy=True) for t in ts))
+    copy_s = time.perf_counter() - t0
+    count = state.count
+    table = fo.leaf_table(grads, params, state.mu, state.nu)
+    fo.fused_adamw_leaf.launches = fo.fused_grad_prep.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        start.record()
+        gnorm = toptim.fused_optimizer_apply(spec, trainer.schedule, named, state, grads, ones)
+        end.record()
+        torch.cuda.synchronize()
+        tail_ms = start.elapsed_time(end)
+        launched = fo.fused_adamw_leaf.launches + fo.fused_grad_prep.launches
+        gplain = fo.grad_prep_plain(grads, ones)  # tokens 1: the gradients stay as they are
+        scal = toptim.step_scalars(spec, trainer.schedule, count, gplain)
+        worst = 0.0
+        for i, (n, p) in enumerate(named):
+            cp, cmu, cnu = (t.to(dev).view(-1) for t in copies[i])
+            copies[i] = None
+            wd = spec.weight_decay if toptim.decay_mask(n, p) else 0.0
+            flat = [t.view(-1) for t in (p, state.mu[i], state.nu[i], grads[i])]
+            # the update is elementwise: a slice at a time gives the same
+            # values in a bounded working set
+            for lo in range(0, p.numel(), MIXTRAL_PLAIN_SLICE):
+                sl = slice(lo, lo + MIXTRAL_PLAIN_SLICE)
+                want = fo.adamw_leaf_plain(cp[sl], cmu[sl], cnu[sl], flat[3][sl], scal,
+                                           b1=spec.b1, b2=spec.b2, eps=spec.eps,
+                                           max_norm=spec.max_grad_norm, wd=wd)[:3]
+                for got, w in zip(flat[:3], want):
+                    ok, err = close_enough(got[sl], w, atol=0.0, rtol=ADAMW_RTOL)
+                    if not ok:
+                        fail(f"fused_adamw mixtral table {n}: kernel differs from plain ({err})")
+                    worst = max(worst, err)
+                del want
+            del cp, cmu, cnu
+    n = sum(p.numel() for p in params)
+    ulp = float(torch.finfo(torch.float32).eps * gplain.abs())
+    norm_err = float((gnorm - gplain).abs())
+    b_ms, b_by = bound(0.0, 36.0 * n)
+    say({"phase": "kernel_check", "case": f"fused_grad_prep + fused_adamw mixtral-8x7b "
+         f"{MIXTRAL_LAYERS}-layer table vs plain", "leaves": len(params), "elements": n,
+         "largest_leaf": max(p.numel() for p in params), "launch_groups": len(table.groups),
+         "work_items": int(table.groups[-1][2][-1]), "launches": launched,
+         "max_abs_err": worst, "rtol": ADAMW_RTOL, "gnorm_abs_err": norm_err, "fp32_ulp": ulp,
+         "tail_ms": tail_ms, "bound_ms": b_ms, "bound_by": b_by, "copy_s": copy_s,
+         "copy_bytes_on_host": on_host})
+    if not norm_err <= ulp or n < 2**31 or launched != 2:
+        fail(f"fused_grad_prep mixtral table: norm {float(gnorm)} vs plain {float(gplain)}, "
+             f"{n} elements, {launched} launches")
+    del copies
+    free_cuda()
+
+
+@contextlib.contextmanager
+def swapped_kv_groups(fa, rep: int):
+    """Planted fault: the K/V that kernels 2-3 read repeated in the other
+    order (query head h over kv head h mod H_kv, not h // rep), so the
+    backward's K/V groups are not the forward's."""
+    saved = fa._bwd_dq, fa._bwd_dkv
+
+    def swapped(fn):
+        def run(q, k, v, *a, **kw):
+            h = k.shape[1]
+            perm = [(i % (h // rep)) * rep for i in range(h)]
+            return fn(q, k[:, perm].contiguous(), v[:, perm].contiguous(), *a, **kw)
+        return run
+
+    fa._bwd_dq, fa._bwd_dkv = map(swapped, saved)
+    try:
+        yield
+    finally:
+        fa._bwd_dq, fa._bwd_dkv = saved
+
+
+
+def mixtral_grad_check(torch, fa, fd, batch, lm) -> None:
+    """(b) fp32 at 2 layers, one batch of (c)'s recipe, moe_aux_weight 0.02,
+    the capacity 1.25: kernels 1-3 inside the model against the plain path
+    within GRAD_LIMITS; kernels 2-3 reading the K/V groups in the swapped
+    order must break them."""
+    from distributed_llms_example_tpu_torch.ops import fused_optim as fo
+    from distributed_llms_example_tpu_torch.train.trainer import put_batch
+
+    model = lm.module.train()
+    batch = put_batch(batch, torch.device("cuda"))
+    zero_counters(fa, fd, fo)
+    kernel = loss_and_grads(torch, model, batch, is_seq2seq=False)
+    launched = read_counters(fa, fd, fo)
+    with plain_kernels(fa, fd):
+        plain = loss_and_grads(torch, model, batch, is_seq2seq=False)
+    # one gradient is 12.7 GB: at most two are kept
+    k32 = grad_dist(kernel, plain)
+    del kernel
+    with swapped_kv_groups(fa, lm.config.num_attention_heads // lm.config.num_key_value_heads):
+        fault = loss_and_grads(torch, model, batch, is_seq2seq=False)
+    f32 = grad_dist(fault, plain)
+    model.eval()
+    say({"phase": "mixtral_grad_check", "dtype": "float32", "layers": MIXTRAL_LAYERS,
+         "batch_shape": list(batch["input_ids"].shape), "moe_aux_weight": lm.config.moe_aux_weight,
+         "moe_capacity_factor": lm.config.moe_capacity_factor, "kernel_vs_plain": k32,
+         "planted_fault": "kernels 2-3 read the K/V groups repeated in the swapped order",
+         "planted_fault_vs_plain": f32, "limits": GRAD_LIMITS, "loss": plain[0],
+         "kernel_launches": launched})
+    want = {"flash_attention_fwd": MIXTRAL_LAYERS, "flash_attention_bwd_dq": MIXTRAL_LAYERS,
+            "flash_attention_bwd_dkv": MIXTRAL_LAYERS}
+    if any(launched[k] != v for k, v in want.items()):
+        fail(f"mixtral fp32 gradient check launches {launched}, expected {want}")
+    for key, lim in GRAD_LIMITS.items():
+        if not k32[key] <= lim:
+            fail(f"mixtral fp32 gradient check: kernel path vs plain path {key} {k32[key]} > "
+                 f"{lim}")
+    if not any(f32[key] > lim for key, lim in GRAD_LIMITS.items()):
+        fail(f"mixtral fp32 gradient check: the planted fault stays within every limit: {f32}")
+    del plain, fault
+
+
+@contextlib.contextmanager
+def training_capacity_decode():
+    """Planted fault: every MoE layer routes at its training capacity in a
+    cached pass too (no_drop ignored): a decode step of 8 rows gives each
+    expert ceil(2 x 8 / 8 x 1.25) = 3 slots, and choices past them drop."""
+    from distributed_llms_example_tpu_torch.ops.moe import MoEMLP
+
+    real = MoEMLP.forward
+    MoEMLP.forward = lambda self, x, no_drop=False: real(self, x, no_drop=False)
+    try:
+        yield
+    finally:
+        MoEMLP.forward = real
+
+
+def mixtral_serve_parity(torch, fa, lm) -> None:
+    """(a) fp32 at 2 layers: 8 of phase 11's prompts at a 512 bucket, a
+    prefill + 4 greedy decode steps, paged (kernel 6) and flat (kernel 5):
+    the kernel path within LLAMA_FP32_ATOL of the plain path on each, the
+    paged and flat greedy tokens equal, and the cached logits (the prefill's
+    last and the 4 steps') within LLAMA_FP32_ATOL of an uncached forward of
+    the same tokens at capacity -1 (no-drop).  Planted: a decode offset
+    shifted by one (on each route) and a decode routed at the training
+    capacity must each break its check."""
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+    from distributed_llms_example_tpu_torch.evaluation.generation import causal_prefill
+    from distributed_llms_example_tpu_torch.ops.moe import MoEMLP
+
+    model, cfg = lm.module.eval(), lm.config
+    prompts = os.path.join(WORK, "llama_prompts.json")
+    if not os.path.exists(prompts):
+        write_llama_prompts(prompts)
+    with open(prompts) as f:
+        texts = json.load(f)[:8]
+    tok, P = ByteTokenizer(), MIXTRAL_PARITY_BUCKET
+    ids = np.zeros((8, P), np.int64)
+    mask = np.zeros((8, P), np.int32)
+    for r, t in enumerate(texts):
+        row = tok.encode_prompt(t, P)
+        ids[r, : len(row)] = row
+        mask[r, : len(row)] = 1
+    out = {}
+    with torch.inference_mode():
+        chunk, full_mask, lengths, first = causal_prefill(
+            model, torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda"), 128)
+        args = (torch, model, chunk, full_mask, lengths, first)
+        for route, counter in (("paged", fa.flash_decode_paged), ("flat", fa.flash_decode)):
+            counter.launches = 0
+            kernel = decode_logits(*args, paged=route == "paged")
+            launched = counter.launches
+            with decode_route(fa, "plain"):
+                plain = decode_logits(*args, paged=route == "paged")
+            with decode_route(fa, "fault"):
+                fault = decode_logits(*args, paged=route == "paged")
+            out[route] = dict(kernel=kernel, launched=launched,
+                              err=float((kernel - plain).abs().max()),
+                              fault_err=float((fault - plain).abs().max()))
+            del plain, fault
+        with training_capacity_decode():
+            dropped = decode_logits(*args, paged=False)
+        # the uncached reference: each row's prompt, then the four tokens the
+        # decode fed, one pass at capacity -1 (width padded to 640)
+        fed = [first.argmax(-1)] + [s.argmax(-1) for s in out["flat"]["kernel"][:3]]
+        n = lengths.long()
+        seqs = torch.zeros((8, 640), dtype=torch.long, device="cuda")
+        seqs[:, :P] = torch.as_tensor(ids, device="cuda")
+        rows = torch.arange(8, device="cuda")
+        for t, x in enumerate(fed):
+            seqs[rows, n + t] = x
+        seq_mask = (torch.arange(640, device="cuda")[None] < (n + 4)[:, None]).long()
+        layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
+        for m in layers:
+            m.capacity_factor = -1.0
+        try:
+            full = model(seqs, seq_mask).float()
+        finally:
+            for m in layers:
+                m.capacity_factor = cfg.moe_capacity_factor
+        want = torch.stack([full[rows, n - 1]] + [full[rows, n + t] for t in range(4)])
+        cached = torch.cat([first.float()[None], out["flat"]["kernel"]])
+        nodrop_err = float((cached - want).abs().max())
+        drop_err = float((dropped - want[1:]).abs().max())
+    same = bool(torch.equal(out["paged"]["kernel"].argmax(-1), out["flat"]["kernel"].argmax(-1)))
+    finite = all(bool(torch.isfinite(o["kernel"]).all()) for o in out.values())
+    say({"phase": "mixtral_logits_kernel_vs_plain", "layers": MIXTRAL_LAYERS, "steps": 4,
+         "bucket": P, "shape": list(out["flat"]["kernel"].shape), "finite": finite,
+         "fp32_atol": LLAMA_FP32_ATOL,
+         **{f"{r}_{k}": v for r, o in out.items() for k, v in o.items() if k != "kernel"},
+         "paged_flat_tokens_equal": same, "cached_vs_uncached_no_drop_err": nodrop_err,
+         "planted_training_capacity_decode_err": drop_err,
+         "max_abs_logit": float(want.abs().max())})
+    for route, o in out.items():
+        if o["launched"] != MIXTRAL_LAYERS * 4 or o["err"] > LLAMA_FP32_ATOL \
+                or not o["fault_err"] > LLAMA_FP32_ATOL:
+            fail(f"mixtral fp32 logits ({route}): {o['launched']} launches, kernel vs plain "
+                 f"{o['err']}, an offset shifted by one moves them {o['fault_err']}")
+    if not finite or not same or list(cached.shape) != [5, 8, cfg.vocab_size]:
+        fail(f"mixtral fp32 logits: finite {finite}, paged and flat tokens equal {same}")
+    if not nodrop_err <= LLAMA_FP32_ATOL or not drop_err > LLAMA_FP32_ATOL:
+        fail(f"mixtral fp32: cached vs uncached no-drop {nodrop_err}; a decode at the training "
+             f"capacity moves them {drop_err}")
+
+
+def mixtral_serve_phase(torch, fa, cli) -> dict:
+    """(d) serve --paged-kv and flat through the CLI, bf16, 2 layers, phase
+    11's 16 prompts, 8 slots, 32 new tokens: exact launches of kernels 1, 5
+    and 6 (``serve16``), the paged and flat greedy tokens equal; decode
+    tokens/s, TTFT and the cache's bytes a token beside the reckoning.
+    Returns the runs' summed launches."""
+    lm = mixtral_model(torch, dtype=torch.bfloat16)
+    prompts = os.path.join(WORK, "llama_prompts.json")
+    if not os.path.exists(prompts):
+        write_llama_prompts(prompts)
+    cfg = lm.config
+    reckoned = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim * 2
+    runs, total = {}, {}
+    for name, extra in (("paged", ["--paged-kv"]), ("flat", [])):
+        r = serve16(torch, fa, cli, lm, f"mixtral_{name}", [*MIXTRAL_SERVE_ARGS, *extra],
+                    prompts)
+        st, line = r["stats"], r["line"]
+        slots = (line["pool_blocks"] * line["kv_block_size"] if name == "paged"
+                 else 8 * (1024 + 32))
+        say({"phase": f"mixtral_serve_{name}", "decode_tokens_per_sec": line[
+             "decode_tokens_per_sec"], "ttft_p50_ms": line["ttft_p50_ms"],
+             "ttft_p95_ms": line["ttft_p95_ms"], "wall_s": line["wall_s"],
+             "cache_bytes_resident": st.cache_bytes_resident,
+             "cache_bytes_per_token": st.cache_bytes_resident / slots,
+             "reckoned_cache_bytes_per_token": reckoned, "peak_mem_bytes": line["peak_mem_bytes"],
+             "launches": r["launches"]})
+        runs[name] = r["outs"]
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    same = runs["paged"] == runs["flat"]
+    say({"phase": "mixtral_paged_vs_flat_tokens", "equal": same,
+         "tokens": sum(len(x) for x in runs["flat"])})
+    if not same:
+        fail("mixtral serve: the paged and flat greedy tokens differ")
+    del lm
+    free_cuda()
+    return total
+
+
+def mixtral_decode_kernels(torch, fa) -> None:
+    """(e) Kernels 5 and 6 at Mixtral's decode shape (32 q heads over 8 kv
+    heads of 128; Q = 1 and the verify block's Q = 4; bf16 and fp32)
+    against their plain versions, kernel 6 bit-equal to kernel 5 on the
+    gathered view (repeated 8 -> 32 as the flat path repeats it); bf16
+    times of both beside SDPA on the same view and each one's bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    tols = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2), torch.float32: dict(atol=1e-4)}
+    H, KV, D = 32, 8, 128
+    for dtype in (torch.bfloat16, torch.float32):
+        for Q in (1, 4):
+            q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=dtype, Q=Q, heads_kv=KV,
+                                                     gen=gen)
+            o6 = fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt, offsets=off)
+            po = fa.flash_decode_paged_plain(q, kp, vp, bias, block_tables=bt, offsets=off)
+            view_k, view_v = (fa.gather_blocks(x, bt).repeat_interleave(H // KV, dim=1)
+                              for x in (kp, vp))
+            o5 = fa.flash_decode(q, view_k, view_v, bias, offsets=off)
+            torch.cuda.synchronize()
+            case = f"mixtral decode Q={Q} H=32/8 d=128 {dtype}"
+            e6 = check_close(f"flash_decode_paged {case}", o6, po, **tols[dtype])
+            e5 = check_close(f"flash_decode (gathered, repeated) {case}", o5, po, **tols[dtype])
+            vs = float((o6.float() - o5.float()).abs().max())
+            line = {"phase": "mixtral_decode_kernel", "case": case, "kernel6_err": e6,
+                    "kernel5_err": e5, "kernel6_vs_kernel5": vs}
+            if vs != 0.0:
+                fail(f"{case}: kernel 6 differs from kernel 5 on the gathered view ({vs})")
+            if dtype == torch.bfloat16:
+                row = torch.arange(Q, device="cuda")[None, None, :, None]
+                k_pos = torch.arange(view_k.shape[2], device="cuda")[None, None, None, :]
+                sdpa_mask = (bias > -1) & (k_pos <= off[:, None, None, None] + row)
+                alloc = (bt < 72).repeat_interleave(128, dim=1) & (bias[:, 0, 0, :] > -1)
+                seen = alloc[:, None, :] & (k_pos[0, 0] <= off[:, None, None] + row[0, 0])
+                live = int(seen[:, -1].sum())
+                flops = 4.0 * H * D * float(seen.sum())
+                io = 2 * q.numel() * 2 + bias.numel() * 4 + 8 * 4
+                b6 = bound(flops, 2 * KV * live * D * 2 + io + bt.numel() * 4)
+                b5 = bound(flops, 2 * H * live * D * 2 + io)
+                run6 = lambda: fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt,  # noqa: E731
+                                                     offsets=off)
+                run5 = lambda: fa.flash_decode(q, view_k, view_v, bias, offsets=off)  # noqa: E731
+                line.update(
+                    kernel6_ms=time_ms(run6, per_rep=200), kernel6_bound_ms=b6[0],
+                    kernel6_bound_by=b6[1],
+                    kernel6_plain_ms=time_ms(lambda: fa.flash_decode_paged_plain(
+                        q, kp, vp, bias, block_tables=bt, offsets=off), per_rep=20),
+                    kernel5_ms=time_ms(run5, per_rep=200), kernel5_bound_ms=b5[0],
+                    kernel5_bound_by=b5[1],
+                    kernel5_plain_ms=time_ms(lambda: fa.flash_decode_plain(
+                        q, view_k, view_v, bias, offsets=off), per_rep=20),
+                    sdpa_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                        q, view_k, view_v, attn_mask=sdpa_mask), per_rep=100),
+                    live_slots=live)
+            say(line)
+    free_cuda()
+
+
+def mixtral_phase(torch, fa, fd, fo, cli) -> dict:
+    """Phase 18: (e) the decode kernels at Mixtral's shape, (c) the train
+    CLI and kernel 8's Mixtral tail, (b) the fp32 gradient check, (a) the
+    fp32 serve parity, (d) the serve CLI, paged and flat.  Returns the
+    launches of (c) and (d), the main path's runs."""
+    t0 = time.perf_counter()
+    mixtral_decode_kernels(torch, fa)
+    trained, batch = mixtral_train_phase(torch, fa, fd, fo, cli)
+    lm = mixtral_model(torch, dtype=torch.float32, train=True)
+    mixtral_grad_check(torch, fa, fd, batch, lm)
+    for p in lm.module.parameters():
+        p.grad = None
+    free_cuda()
+    mixtral_serve_parity(torch, fa, lm)
+    del lm
+    free_cuda()
+    served = mixtral_serve_phase(torch, fa, cli)
+    say({"phase": "mixtral_wall", "seconds": time.perf_counter() - t0})
+    return {k: trained.get(k, 0) + served.get(k, 0) for k in {*trained, *served}}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "distributed_llms_example_tpu_torch")):
         fail("the port's package is not beside chip_smoke.py: run it from a checkout")
@@ -6761,15 +7412,16 @@ def main() -> None:
         time limit goes."""
         say({"phase": "elapsed", "after": after, "seconds": time.perf_counter() - wall0})
     if sys.argv[1:2] == ["--phase"]:
-        # phase 13, 15, 16 or 17 alone (after the build): a quick check of
-        # the LLaMA train path and its telemetry, of the elastic path, of
-        # the serving features or of the serving tier
+        # phase 13, 15, 16, 17 or 18 alone (after the build): a quick check
+        # of the LLaMA train path and its telemetry, of the elastic path, of
+        # the serving features, of the serving tier or of Mixtral
         from distributed_llms_example_tpu_torch.launch import cli
 
         {"13": lambda: llama_train_phase(torch, fa, fd, fo, cli),
          "15": lambda: elastic_phase(torch, fa, fd, fo, cli),
          "16": lambda: serving_features_phase(torch, fa, cli, llama_7b(torch)),
-         "17": lambda: serving_tier_phase(torch, fa, cli, llama_7b(torch))}[sys.argv[2]]()
+         "17": lambda: serving_tier_phase(torch, fa, cli, llama_7b(torch)),
+         "18": lambda: mixtral_phase(torch, fa, fd, fo, cli)}[sys.argv[2]]()
         say({"phase": "wall", "seconds": time.perf_counter() - wall0})
         return
     sass_phase(cuda_build)
@@ -6913,6 +7565,13 @@ def main() -> None:
     tier = serving_tier_phase(torch, fa, cli, lm, floor=features["floor"])["launches"]
     del lm
     free_cuda()
+    lap("16-17")
+
+    # phase 18: Mixtral at mixtral-8x7b's widths, 2 layers (the decode
+    # kernels at its GQA shape, the train CLI and kernel 8 over its 3.16 B
+    # elements, the fp32 gradient and serve parity checks, the serve CLI)
+    mixtral = mixtral_phase(torch, fa, fd, fo, cli)
+    free_cuda()
 
     # the end: the TPU kernels with no port yet (none), the kernel list
     # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
@@ -6920,18 +7579,20 @@ def main() -> None:
     # reports the sum of their counts: kernel 1 the BART and T5 serve and
     # train runs, phase 5c's resumed and rewind runs, the BART eval, the
     # LLaMA serve runs' prompt prefills and the LLaMA train run and its
-    # eval; kernels 2, 3 and 8 the BART, T5 and LLaMA train runs and phase
-    # 5c's, phase 14's FSDP step and phase 15's host-loss runs (kernel 8's
-    # finish entry phase 14's step and phase 15's fsdp=2 steps), kernel 7
-    # the BART and T5 train runs and phases 5c's and 15's, kernel 4
-    # the T5 train run, kernel 5 the BART and flan-T5 serve runs, the flat
-    # LLaMA serve, the BART eval and the LLaMA eval, kernel 6 the paged
-    # LLaMA serve.
+    # eval, and the Mixtral train and serve runs; kernels 2, 3 and 8 the
+    # BART, T5, LLaMA and Mixtral train runs and phase 5c's, phase 14's
+    # FSDP step and phase 15's host-loss runs (kernel 8's finish entry
+    # phase 14's step and phase 15's fsdp=2 steps), kernel 7 the BART and
+    # T5 train runs and phases 5c's and 15's, kernel 4 the T5 train run,
+    # kernel 5 the BART and flan-T5 serve runs, the flat LLaMA and Mixtral
+    # serves, the BART eval and the LLaMA eval, kernel 6 the paged LLaMA and
+    # Mixtral serves.
     say({"kernels_unported": []})
     src = "distributed_llms_example_tpu_torch/csrc/"
     ref = "distributed_llms_example_tpu/ops/"
     both = {k: train_launches[k] + t5_train[k] + ft_launches.get(k, 0) + llama_train.get(k, 0)
-            + dist_launches.get(k, 0) + elastic_launches.get(k, 0) for k in t5_train}
+            + dist_launches.get(k, 0) + elastic_launches.get(k, 0) + mixtral.get(k, 0)
+            for k in t5_train}
     rows = [
         dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd_tc.cu",
              sources=[src + "flash_fwd_tc.cu", src + "flash_fwd.cu"],
@@ -6948,13 +7609,13 @@ def main() -> None:
              launches=(launches["flash_decode"] + llama_flat["flash_decode"]
                        + t5_serve["flash_decode"] + eval_launches["flash_decode"]
                        + llama_train["flash_decode"] + served["flash_decode"]
-                       + tier["flash_decode"]),
+                       + tier["flash_decode"] + mixtral["flash_decode"]),
              **features["kernel_times"]["flash_decode"], **measured["flash_decode"]),
         dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
              sources=[src + "flash_decode_paged.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:1155",
              launches=(llama_paged["flash_decode_paged"] + served["flash_decode_paged"]
-                       + tier["flash_decode_paged"]),
+                       + tier["flash_decode_paged"] + mixtral["flash_decode_paged"]),
              **features["kernel_times"]["flash_decode_paged"],
              **measured["flash_decode_paged"]),
         dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd_tc.cu",
@@ -7009,7 +7670,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         dist_rank_main(sys.argv[2])
     elif sys.argv[1:] in ([], ["--phase", "13"], ["--phase", "15"], ["--phase", "16"],
-                          ["--phase", "17"]):
+                          ["--phase", "17"], ["--phase", "18"]):
         main()
         # every check passed and every line is out (the rank processes
         # were joined in their phases): leave without the interpreter's
@@ -7020,4 +7681,4 @@ if __name__ == "__main__":
         sys.stderr.flush()
         os._exit(0)
     else:
-        fail(f"usage: {sys.argv[0]} [--phase 13|15|16|17]")
+        fail(f"usage: {sys.argv[0]} [--phase 13|15|16|17|18]")

@@ -127,6 +127,10 @@ class TrainConfig:
     remat: bool = False  # activation checkpointing of the transformer blocks
     remat_policy: str = "full"  # "full" | "dots" (utils/remat.py)
     fused_ce: bool = False  # vocab-chunked LM head + loss (causal families)
+    # the MoE expert capacity factor of a model with experts (None = the
+    # model's own: an HF Mixtral directory loads no-drop, exact but
+    # memory-hungry; 1.25 restores the capacity trade for training)
+    moe_capacity_factor: float | None = None
     prefetch_batches: int = 2  # host batches assembled ahead of the device; 0 = off
     device: str = "cuda"
     seed: int = 0  # random-init seed for the weights
@@ -248,6 +252,9 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--fused-ce", action="store_true",
                    help="vocab-chunked fused LM-head + cross-entropy (causal families; the "
                         "logits never materialize)")
+    p.add_argument("--moe-capacity-factor", type=float, default=d.moe_capacity_factor,
+                   help="expert capacity factor of a MoE model (Mixtral): each expert takes "
+                        "ceil(top_k x group / experts x factor) tokens a group; <= 0 = no drop")
     p.add_argument("--prefetch-batches", type=int, default=d.prefetch_batches,
                    help="host batches assembled ahead on a thread (0 = off)")
     p.add_argument("--log-every-steps", type=int, default=d.log_every_steps)

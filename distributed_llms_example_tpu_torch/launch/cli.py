@@ -44,7 +44,7 @@ prompt) and the JAX CLI's flags that the port implements
 ``eval`` line every ``--evaluation-steps`` steps and at each epoch's end)
 and writes the fine-tuned model to ``<output-dir>/model/`` as an HF
 checkpoint.  ``serve`` takes every family of the
-registry but Mixtral, and encodes a seq2seq model's prompts as sources
+registry, Mixtral among the LLaMAs, and encodes a seq2seq model's prompts as sources
 (ending in eos) and a causal model's as prompts (no eos), as the JAX CLI
 does.  The JAX CLI's startup lints read the compiled XLA program and
 have no counterpart here: ``--lint`` (train and serve) is parsed and one

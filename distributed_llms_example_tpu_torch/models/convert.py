@@ -2,14 +2,23 @@
 the JAX package's ``models/convert.py``, without its flax tree in between).
 
 HF and the port both store a linear layer's weight as (out, in), so a
-tensor keeps its layout and only its name changes; every value is widened
-to fp32, as the JAX package's converter does.  Tied duplicates are dropped:
+tensor keeps its layout and only its name changes.  Values keep the
+file's dtype on the host: ``load_state`` moves each tensor to its
+parameter's device as it is stored and casts it there (to fp32 masters
+for training, as the JAX package's converter widens every value), so a
+bf16 checkpoint crosses to the card at half the bytes and no host pass
+converts it.  Tied duplicates are dropped:
 BART's ``lm_head`` and both stacks' ``embed_tokens`` (all ``shared``), T5's
 ``embed_tokens``.  A tied T5 has no ``lm_head`` of its own (its head is
 ``shared`` scaled by d_model^-½, ``models/t5.py``), so an ``lm_head.weight``
 in a tied T5 checkpoint is the tied copy ``load_state`` drops; an untied
-one (flan-T5, LLaMA) is an ordinary
-parameter.  BART's ``final_logits_bias`` (1, V) becomes (V,).  The names
+one (flan-T5, LLaMA) is an ordinary parameter.  BART's
+``final_logits_bias`` (1, V) becomes (V,).  Mixtral's per-expert linears
+``block_sparse_moe.experts.{j}.w1/w3/w2`` (out, in) are stacked over j and
+viewed transposed as the port's (E, in, out) ``gate_proj`` / ``up_proj`` /
+``down_proj`` (the transposing copy is the device's, in ``load_state``);
+its ``block_sparse_moe.gate`` becomes the router (the JAX package's
+converter stacks them the same way).  The names
 are those ``models/from_jax.py`` gives the JAX package's tree, so a
 checkpoint loads to the same state dict through either package.
 """
@@ -22,6 +31,10 @@ from typing import Callable, Mapping
 import torch
 
 _T5_PROJ = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "o_proj"}
+# Mixtral's expert linears -> the port's stacked leaves
+_MIXTRAL_W = {"w1": "gate_proj", "w3": "up_proj", "w2": "down_proj"}
+# a converted name of one expert's linear: the stacked leaf, "#", the expert
+_EXPERT = re.compile(r"(.+)#(\d+)")
 
 
 def _t5_name(name: str) -> str | None:
@@ -107,9 +120,11 @@ def _llama_name(name: str) -> str | None:
              "post_attention_layernorm.weight": "mlp_norm.weight"}
     if rest in norms:
         return f"blocks.{i}.{norms[rest]}"
-    if rest.startswith("block_sparse_moe."):
-        raise NotImplementedError("Mixtral (routed MoE experts) is a later slice of the port "
-                                  "(ROADMAP.md)")
+    if rest == "block_sparse_moe.gate.weight":
+        return f"blocks.{i}.mlp.router.weight"
+    m = re.fullmatch(r"block_sparse_moe\.experts\.(\d+)\.(w[123])\.weight", rest)
+    if m:
+        return f"blocks.{i}.mlp.{_MIXTRAL_W[m.group(2)]}#{m.group(1)}"
     raise ValueError(f"unrecognized LLaMA layer parameter: {name}")
 
 
@@ -120,24 +135,36 @@ NAMERS: dict[str, Callable[[str], str | None]] = {
 
 def convert_state_dict(family: str, state_dict: Mapping[str, torch.Tensor]
                        ) -> dict[str, torch.Tensor]:
-    """HF ``{T5,Bart}ForConditionalGeneration`` / ``LlamaForCausalLM``
-    state dict → the port's names, fp32, tied duplicates dropped."""
+    """HF ``{T5,Bart}ForConditionalGeneration`` / ``LlamaForCausalLM`` /
+    ``MixtralForCausalLM`` state dict → the port's names, host tensors in
+    the file's dtype, tied duplicates dropped, Mixtral's experts stacked
+    (a transposed view of the stack)."""
     if family not in NAMERS:
         raise ValueError(f"no converter for model family {family!r}; have {sorted(NAMERS)}")
     out: dict[str, torch.Tensor] = {}
+    experts: dict[str, dict[int, torch.Tensor]] = {}
     for name, t in state_dict.items():
         port = NAMERS[family](name)
         if port is None:
             continue
-        t = t.detach().to("cpu", torch.float32)
+        t = t.detach().to("cpu")
+        m = _EXPERT.fullmatch(port)
+        if m:
+            experts.setdefault(m.group(1), {})[int(m.group(2))] = t
+            continue
         out[port] = t.reshape(-1) if port == "final_logits_bias" else t
+    for port, per in experts.items():
+        if sorted(per) != list(range(len(per))):
+            raise KeyError(f"{port}: experts {sorted(per)} are not 0..{len(per) - 1}")
+        out[port] = torch.stack([per[j] for j in range(len(per))]).transpose(1, 2)
     return out
 
 
 def load_state(module: torch.nn.Module, state: Mapping[str, torch.Tensor], *, source: str) -> None:
     """Copy ``state`` (port names) into ``module``, strictly: every
-    parameter covered and every tensor used, shapes equal, each tensor cast
-    to its parameter's dtype and moved to its device.  A tied T5's
+    parameter covered and every tensor used, shapes equal, each tensor
+    moved to its parameter's device as it is laid out (one copy of its
+    storage) and cast there to the parameter's dtype and layout.  A tied T5's
     checkpoint may carry ``lm_head.weight``, the tied copy of ``shared``:
     it is dropped when the module has no head of its own."""
     own = module.state_dict()
@@ -150,4 +177,8 @@ def load_state(module: torch.nn.Module, state: Mapping[str, torch.Tensor], *, so
         if tuple(t.shape) != tuple(own[name].shape):
             raise ValueError(f"{name}: {source} shape {tuple(t.shape)} != port "
                              f"{tuple(own[name].shape)}")
-    module.load_state_dict({n: t.to(own[n].dtype) for n, t in state.items()}, strict=True)
+    with torch.no_grad():
+        for name, t in state.items():
+            dst = own[name]
+            moved = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=dst.device)
+            dst.copy_(moved.copy_(t))

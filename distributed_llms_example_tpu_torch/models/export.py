@@ -5,11 +5,15 @@ The reference recipe ends with ``model.save_pretrained(output_dir)``;
 ``save_hf_checkpoint`` writes the same kind of directory: ``config.json``
 (sorted keys) and ``model.safetensors``, or shards of at most
 ``MAX_SHARD_BYTES`` plus ``model.safetensors.index.json`` above that, the
-file layout of the JAX package's export.  Tensors are fp32 under their HF
-names, each tied embedding once under its canonical name (transformers
-re-ties on load).  Files are written by ``io/safetensors.py`` (no
-``safetensors`` package).  A sharded model (``parallel/fsdp.py``) is
-gathered first, leaf by leaf, to process 0's host (``full_state_dict``).
+file layout of the JAX package's export.  Tensors are fp32 (or the dtype
+asked for) under their HF names, each tied embedding once under its
+canonical name (transformers re-ties on load); a Mixtral's stacked (E, in,
+out) expert leaves unstack into HF's per-expert
+``block_sparse_moe.experts.{j}.w1/w3/w2`` (out, in) linears, and its
+config is a ``MixtralForCausalLM``'s.  Files are written by
+``io/safetensors.py`` (no ``safetensors`` package).  A sharded model
+(``parallel/fsdp.py``) is gathered first, leaf by leaf, to process 0's
+host (``full_state_dict``).
 """
 
 from __future__ import annotations
@@ -89,7 +93,13 @@ def _bart_name(name: str) -> str:
     raise ValueError(f"unrecognized BART parameter: {name}")
 
 
+# the port's stacked expert leaves -> Mixtral's per-expert linears
+_MIXTRAL_W = {"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}
+
+
 def _llama_name(name: str) -> str:
+    """The HF name of a LLaMA parameter; of a stacked expert leaf, the
+    name of its expert 0 with ``{j}`` for the expert."""
     fixed = {"embed_tokens.weight": "model.embed_tokens.weight",
              "final_norm.weight": "model.norm.weight", "lm_head.weight": "lm_head.weight"}
     if name in fixed:
@@ -104,22 +114,39 @@ def _llama_name(name: str) -> str:
         return f"model.layers.{i}.{norms[rest]}"
     if re.fullmatch(r"(self_attn\.[qkvo]_proj|mlp\.(?:gate|up|down)_proj)\.weight", rest):
         return f"model.layers.{i}.{rest}"
+    if rest == "mlp.router.weight":
+        return f"model.layers.{i}.block_sparse_moe.gate.weight"
+    m = re.fullmatch(r"mlp\.(gate_proj|up_proj|down_proj)", rest)
+    if m:
+        return f"model.layers.{i}.block_sparse_moe.experts.{{j}}.{_MIXTRAL_W[m.group(1)]}.weight"
     raise ValueError(f"unrecognized LLaMA parameter: {name}")
 
 
 _NAMERS = {"t5": _t5_name, "bart": _bart_name, "llama": _llama_name}
 
 
-def export_state_dict(family: str, state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+def _entries(family: str, name: str, t: torch.Tensor, dtype: torch.dtype
+             ) -> dict[str, torch.Tensor]:
+    """The HF tensors of one of the port's, CPU tensors in ``dtype``:
+    BART's ``final_logits_bias`` as HF's (1, V), a stacked expert leaf as
+    one transposed linear an expert (transposed where it lives)."""
+    hf = _NAMERS[family](name)
+    t = t.detach()
+    if "{j}" in hf:
+        return {hf.format(j=j): t[j].T.contiguous().to("cpu", dtype) for j in range(t.shape[0])}
+    t = t.to("cpu", dtype)
+    return {hf: t.reshape(1, -1) if hf == "final_logits_bias" else t}
+
+
+def export_state_dict(family: str, state: Mapping[str, torch.Tensor], *,
+                      dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     """The port's state dict (a module's ``state_dict()``) of a T5, BART
-    or LLaMA model → HF names (the JAX package's
-    ``export_{t5,bart,llama}_state_dict`` in one), fp32 CPU tensors;
-    BART's ``final_logits_bias`` as HF's (1, V)."""
+    or LLaMA (Mixtral included) model → HF names (the JAX package's
+    ``export_{t5,bart,llama}_state_dict`` in one), CPU tensors in ``dtype``
+    (fp32, as the JAX package's, unless asked)."""
     out = {}
     for name, t in state.items():
-        hf = _NAMERS[family](name)
-        t = t.detach().to("cpu", torch.float32)
-        out[hf] = t.reshape(1, -1) if hf == "final_logits_bias" else t
+        out.update(_entries(family, name, t, dtype))
     return out
 
 
@@ -160,8 +187,10 @@ def hf_config_dict(family: str, cfg: Any) -> dict:
             "forced_eos_token_id": cfg.forced_eos_token_id,
         }
     if family == "llama":
-        return {
-            "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+        moe = cfg.num_experts > 0
+        out = {
+            "model_type": "mixtral" if moe else "llama",
+            "architectures": ["MixtralForCausalLM" if moe else "LlamaForCausalLM"],
             "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
             "intermediate_size": cfg.intermediate_size,
             "num_hidden_layers": cfg.num_hidden_layers,
@@ -173,6 +202,11 @@ def hf_config_dict(family: str, cfg: Any) -> dict:
             "pad_token_id": cfg.pad_token_id, "bos_token_id": cfg.bos_token_id,
             "eos_token_id": cfg.eos_token_id,
         }
+        if moe:
+            out.update(num_local_experts=cfg.num_experts,
+                       num_experts_per_tok=cfg.num_experts_per_tok,
+                       router_aux_loss_coef=cfg.moe_aux_weight)
+        return out
     raise ValueError(f"no HF config export for family {family!r}")
 
 
@@ -214,16 +248,17 @@ def full_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
 
 
 def save_hf_checkpoint(out_dir: str, family: str, cfg: Any,
-                       state: Mapping[str, torch.Tensor]) -> None:
+                       state: Mapping[str, torch.Tensor], *,
+                       dtype: torch.dtype = torch.float32) -> None:
     """Write ``config.json`` and ``model.safetensors`` (sharded, with an
-    index, above MAX_SHARD_BYTES) for the port's ``state`` to ``out_dir``.
-    Tensors are exported one at a time, so the host holds at most one
-    shard's fp32 copy beside the module."""
+    index, above MAX_SHARD_BYTES) for the port's ``state`` to ``out_dir``,
+    its tensors in ``dtype`` (fp32 unless asked).  Tensors are exported
+    one at a time, so the host holds at most one shard's copy beside the
+    module."""
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf_config_dict(family, cfg), f, indent=2, sort_keys=True)
-    names = {n: _NAMERS[family](n) for n in state}
-    sizes = {n: state[n].numel() * 4 for n in state}
+    sizes = {n: state[n].numel() * dtype.itemsize for n in state}
     total = sum(sizes.values())
     # size-based shards, in the state dict's order
     shards: list[list[str]] = [[]]
@@ -236,14 +271,14 @@ def save_hf_checkpoint(out_dir: str, family: str, cfg: Any,
         size += sizes[n]
     meta = {"format": "pt"}
     if len(shards) == 1:
-        save_file(export_state_dict(family, state), os.path.join(out_dir, "model.safetensors"),
-                  metadata=meta)
+        save_file(export_state_dict(family, state, dtype=dtype),
+                  os.path.join(out_dir, "model.safetensors"), metadata=meta)
         return
     weight_map: dict[str, str] = {}
     for k, shard in enumerate(shards, start=1):
         fname = f"model-{k:05d}-of-{len(shards):05d}.safetensors"
-        save_file(export_state_dict(family, {n: state[n] for n in shard}),
-                  os.path.join(out_dir, fname), metadata=meta)
-        weight_map.update({names[n]: fname for n in shard})
+        tensors = export_state_dict(family, {n: state[n] for n in shard}, dtype=dtype)
+        save_file(tensors, os.path.join(out_dir, fname), metadata=meta)
+        weight_map.update({hf: fname for hf in tensors})
     with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
         json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)

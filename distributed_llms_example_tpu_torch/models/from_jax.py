@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's T5, BART and LLaMA param trees → this
-port's state_dicts.
+"""Weight bridge: the JAX package's T5, BART and LLaMA (Mixtral included)
+param trees → this port's state_dicts.
 
 The tree is given as nested dicts of numpy arrays (``jax.device_get`` of
 the flax params), so this module needs neither JAX nor the JAX package.
@@ -11,7 +11,10 @@ LayerNorm/RMSNorm ``scale`` → ``weight``; a flax ``Dense`` kernel (in,
 out) becomes ``Linear.weight`` (out, in).  BART's ``final_logits_bias`` is
 carried across and its LM head needs no entry (tied to ``shared`` in both
 packages), as a tied T5's; LLaMA's and flan-T5's untied ``lm_head`` is an
-ordinary Dense.
+ordinary Dense.  A Mixtral block's ``mlp/router/kernel`` is a Dense kernel
+like any other; its stacked ``mlp/gate_proj``, ``up_proj`` and
+``down_proj`` leaves are no kernels and keep their (E, in, out) layout,
+which ``ops/moe.MoEMLP`` shares.
 """
 
 from __future__ import annotations

@@ -15,8 +15,16 @@ JAX module's two sites, after attention and after the MLP.
 ``hidden_states`` is the final norm's output without the LM head, the
 input of the vocab-chunked loss (``ops/blockwise_ce.py``);
 ``remat_policy`` checkpoints every block in training (``utils/remat.py``).
-Mixtral's routed experts (``num_experts > 0``) and the pipelined training
-adapter are later slices (ROADMAP.md).
+
+With ``num_experts > 0`` (Mixtral) each block's MLP is the routed
+``ops/moe.MoEMLP``: a cached pass (prefill, decode, verify, a warm chunk)
+routes with no capacity limit, an uncached one (training, teacher-forced
+scoring) keeps the capacity-factor trade, as in the JAX module.  Each MoE
+layer's load-balancing loss is a return value: ``forward``,
+``hidden_states`` and ``head_inputs`` hand the mean over layers to a
+caller that asks with ``return_aux=True`` (the train step), and everyone
+else never sees it, as the JAX package's generation discards its sown
+losses.  The pipelined training adapter is a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from distributed_llms_example_tpu_torch.ops.attention import mask_to_bias
 from distributed_llms_example_tpu_torch.ops.dense import Dense
 from distributed_llms_example_tpu_torch.ops.fused_dropout import Dropout
 from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
+from distributed_llms_example_tpu_torch.ops.moe import MoEMLP
 from distributed_llms_example_tpu_torch.ops.norms import RMSNorm
 from distributed_llms_example_tpu_torch.utils.remat import maybe_checkpointed
 
@@ -95,15 +104,26 @@ class LlamaBlock(nn.Module):
         )
         self.attn_dropout = Dropout(cfg.dropout_rate)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
-        self.mlp = LlamaMLP(cfg, **kw)
+        self.moe = cfg.num_experts > 0
+        if self.moe:
+            self.mlp = MoEMLP(cfg.hidden_size, cfg.intermediate_size, cfg.num_experts,
+                              top_k=cfg.num_experts_per_tok,
+                              capacity_factor=cfg.moe_capacity_factor, **kw)
+        else:
+            self.mlp = LlamaMLP(cfg, **kw)
         self.mlp_dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, hidden, bias=None, *, positions=None, cache=None, cache_positions=None):
+        """The block's output; a MoE block's as (output, its aux loss)."""
         h = self.self_attn(
             self.attn_norm(hidden), bias=bias, cache=cache, cache_positions=cache_positions,
             positions=positions,
         )
         hidden = self.attn_dropout(h, residual=hidden)
+        if self.moe:
+            # a cached pass is inference: no token drops (exact HF behavior)
+            m, aux = self.mlp(self.mlp_norm(hidden), no_drop=cache is not None)
+            return self.mlp_dropout(m, residual=hidden), aux
         return self.mlp_dropout(self.mlp(self.mlp_norm(hidden)), residual=hidden)
 
 
@@ -118,10 +138,6 @@ class LlamaForCausalLM(nn.Module):
                  param_dtype: torch.dtype = torch.float32, device=None,
                  remat_policy: str | None = None):
         super().__init__()
-        if config.num_experts > 0:
-            raise NotImplementedError(
-                f"{config.num_experts} routed experts (Mixtral MoE) are not ported yet (ROADMAP)"
-            )
         cfg = self.config = config
         self.dtype = dtype
         self.remat_policy = remat_policy
@@ -133,52 +149,78 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02) -> None:
-        """Random init from ``generator`` (N(0, std) matmul weights and
-        embeddings, unit RMSNorm scales); the generator must live on the
-        parameters' device."""
+        """Random init from ``generator`` (N(0, std) matmul weights, stacked
+        expert weights and embeddings, unit RMSNorm scales); the generator
+        must live on the parameters' device."""
         for name, p in self.named_parameters():
-            if p.dim() == 2:
+            if p.dim() >= 2:
                 p.normal_(0.0, std, generator=generator)
             else:
                 p.fill_(1.0)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None, *,
                 positions: torch.Tensor | None = None, cache=None,
-                cache_positions: torch.Tensor | None = None) -> torch.Tensor:
-        """Logits (B, S, vocab).  ``cache`` (one ``KVCache`` or
-        ``PagedKVCache`` per block) makes this a cached pass: a prompt
-        prefill (no ``cache_positions``: every row writes at the cache's
-        shared index) or a decode step (per-row ``cache_positions``).
-        ``positions`` are the RoPE positions; ``attention_mask`` covers
-        every key the pass attends (the whole cache width when cached)."""
+                cache_positions: torch.Tensor | None = None, return_aux: bool = False):
+        """Logits (B, S, vocab), and with ``return_aux`` the mean of the MoE
+        layers' aux losses beside them (0 for a dense model).  ``cache``
+        (one ``KVCache`` or ``PagedKVCache`` per block) makes this a cached
+        pass: a prompt prefill (no ``cache_positions``: every row writes at
+        the cache's shared index) or a decode step (per-row
+        ``cache_positions``).  ``positions`` are the RoPE positions;
+        ``attention_mask`` covers every key the pass attends (the whole
+        cache width when cached)."""
         if cache is not None:
             hidden = self.embed_tokens(input_ids)
             bias = mask_to_bias(attention_mask) if attention_mask is not None else None
+            auxes = []
             for blk, c in zip(self.blocks, cache):
                 hidden = blk(hidden, bias, positions=positions, cache=c,
                              cache_positions=cache_positions)
-            return self.lm_head(self.final_norm(hidden))
-        return self.lm_head(self._hidden_states(input_ids, attention_mask, positions))
+                if blk.moe:
+                    hidden, aux = hidden
+                    auxes.append(aux)
+            logits = self.lm_head(self.final_norm(hidden))
+            return (logits, _mean_aux(auxes, logits)) if return_aux else logits
+        h, aux = self._hidden_states(input_ids, attention_mask, positions)
+        logits = self.lm_head(h)
+        return (logits, aux) if return_aux else logits
 
     def hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
-                      *, positions: torch.Tensor | None = None) -> torch.Tensor:
-        """The final norm's output of an uncached pass, without the LM head.
-        Each block is checkpointed under ``remat_policy`` when autograd
-        records."""
-        return self._hidden_states(input_ids, attention_mask, positions)
+                      *, positions: torch.Tensor | None = None, return_aux: bool = False):
+        """The final norm's output of an uncached pass, without the LM head
+        (and the mean aux loss with ``return_aux``).  Each block is
+        checkpointed under ``remat_policy`` when autograd records."""
+        h, aux = self._hidden_states(input_ids, attention_mask, positions)
+        return (h, aux) if return_aux else h
 
-    def head_inputs(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    def head_inputs(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
+                    *, return_aux: bool = False) -> tuple[torch.Tensor, ...]:
         """(the final hidden states, the LM head's weight cast to their
-        dtype as the head casts it): what the vocab-chunked loss
+        dtype as the head casts it), and the mean aux loss with
+        ``return_aux``: what the vocab-chunked loss
         (``ops/blockwise_ce.py``) consumes, from one method, so a sharded
         model (``parallel/fsdp.py``) gathers the head around it."""
-        h = self._hidden_states(input_ids, attention_mask, None)
-        return h, self.lm_head.weight.to(h.dtype)
+        h, aux = self._hidden_states(input_ids, attention_mask, None)
+        w = self.lm_head.weight.to(h.dtype)
+        return (h, w, aux) if return_aux else (h, w)
 
-    def _hidden_states(self, input_ids, attention_mask, positions) -> torch.Tensor:
+    def _hidden_states(self, input_ids, attention_mask, positions):
         hidden = self.embed_tokens(input_ids)
         bias = mask_to_bias(attention_mask) if attention_mask is not None else None
+        auxes = []
         for blk in self.blocks:
             hidden = maybe_checkpointed(self.remat_policy, blk, hidden, bias, positions=positions)
-        return self.final_norm(hidden)
+            if blk.moe:
+                hidden, aux = hidden
+                auxes.append(aux)
+        h = self.final_norm(hidden)
+        return h, _mean_aux(auxes, h)
+
+
+def _mean_aux(auxes: list, like: torch.Tensor) -> torch.Tensor:
+    """The mean over the MoE layers of their aux losses (the JAX train
+    step's mean of the sown values, which keeps the coefficient comparable
+    to HF Mixtral's one all-layer loss); an fp32 0 without MoE layers."""
+    if not auxes:
+        return torch.zeros((), dtype=torch.float32, device=like.device)
+    return torch.stack(auxes).sum() / len(auxes)

@@ -1,19 +1,22 @@
 """Model registry: named configs + random init, and local HF checkpoints
 (port of the JAX package's ``models/registry.py`` for the T5, BART and
-dense LLaMA families).
+LLaMA families, Mixtral among the LLaMAs).
 
 A registry name resolves to a built-in config sized like the public
 checkpoint, built on the target device and initialized there from a seeded
 ``torch.Generator`` (no weights ship with the repository; a 7B model never
 passes through the CPU).  A local directory holding an HF ``config.json``
-(``model_type`` t5, bart or llama) and its weights (sharded
+(``model_type`` t5, bart, llama or mixtral) and its weights (sharded
 ``model.safetensors.index.json`` or ``pytorch_model.bin.index.json`` first,
 then one ``model.safetensors``, then ``pytorch_model.bin``) is read by the
 port's own safetensors reader or ``torch.load``, converted
 (``models/convert.py``) and copied into the module.  Every family serves
 and trains (LLaMA as a causal LM, with the vocab-chunked loss under
 ``fused_ce``; every family with its blocks checkpointed under ``remat``).
-Mixtral waits for a later slice (ROADMAP.md).
+Mixtral is a LLaMA whose blocks hold routed experts (``num_experts > 0``,
+``ops/moe.py``): its names load as the ``llama`` family, and an HF Mixtral
+directory routes with no capacity limit unless ``moe_capacity_factor``
+asks for the capacity trade.
 """
 
 from __future__ import annotations
@@ -78,16 +81,33 @@ LLAMA_CONFIGS: dict[str, LlamaConfig] = {
     "llama-2-13b": LlamaConfig(
         hidden_size=5120, intermediate_size=13824, num_hidden_layers=40, num_attention_heads=40
     ),
+    # Mixtral-class sparse MoE (ops/moe.py): LLaMA blocks with top-2 routed
+    # expert MLPs
+    "mixtral-test": LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128,
+        num_experts=4, num_experts_per_tok=2, moe_aux_weight=0.01,
+    ),
+    "mixtral-test-4l": LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128,
+        num_experts=4, num_experts_per_tok=2, moe_aux_weight=0.01,
+    ),
+    "mixtral-8x7b": LlamaConfig(
+        hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, vocab_size=32000,
+        max_position_embeddings=32768, rope_theta=1e6,
+        num_experts=8, num_experts_per_tok=2, moe_aux_weight=0.02,
+    ),
 }
 
-_LATER = {
-    "mixtral": "Mixtral (routed MoE experts)",
-}
 SEQ2SEQ = ("t5", "bart")
 
 
 # ------------------------------------------------------- local HF checkpoints
-# (the JAX package's registry.py:130-229, field for field)
+# (the JAX package's registry.py:130-259, field for field)
 
 
 def _t5_from_hf_config(cfg: dict) -> T5Config:
@@ -155,11 +175,27 @@ def _llama_from_hf_config(cfg: dict) -> LlamaConfig:
     )
 
 
+def _mixtral_from_hf_config(cfg: dict) -> LlamaConfig:
+    return dataclasses.replace(
+        _llama_from_hf_config(cfg),
+        num_experts=cfg.get("num_local_experts", 8),
+        num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+        # HF MixtralConfig's default
+        moe_aux_weight=cfg.get("router_aux_loss_coef", 0.001),
+        # HF routes with no capacity limit: <= 0 is no-drop on every path,
+        # so a converted checkpoint reproduces HF's logits everywhere
+        moe_capacity_factor=-1.0,
+    )
+
+
 _HF_CONFIG_PARSERS = {
     "t5": _t5_from_hf_config,
     "bart": _bart_from_hf_config,
     "llama": _llama_from_hf_config,
+    "mixtral": _mixtral_from_hf_config,
 }
+# a model_type's family: Mixtral is a LLaMA with routed experts
+_FAMILY = {"mixtral": "llama"}
 
 
 def load_local_state_dict(path: str) -> dict[str, torch.Tensor]:
@@ -195,12 +231,9 @@ def _local_config(path: str) -> tuple[str, Any]:
     with open(os.path.join(path, "config.json")) as f:
         hf_cfg = json.load(f)
     model_type = hf_cfg.get("model_type", "t5")
-    for prefix, what in _LATER.items():
-        if model_type.startswith(prefix):
-            raise NotImplementedError(f"{path}: {what} is a later slice of the port (ROADMAP.md)")
     if model_type not in _HF_CONFIG_PARSERS:
         raise ValueError(f"unsupported model_type {model_type!r} at {path}")
-    return model_type, _HF_CONFIG_PARSERS[model_type](hf_cfg)
+    return _FAMILY.get(model_type, model_type), _HF_CONFIG_PARSERS[model_type](hf_cfg)
 
 
 _CLASSES = {"t5": T5ForConditionalGeneration, "bart": BartForConditionalGeneration,
@@ -236,6 +269,7 @@ def load_model(
     remat: bool = False,
     remat_policy: str = "full",
     fused_ce: bool = False,
+    moe_capacity_factor: float | None = None,
 ) -> LoadedModel:
     """Resolve a registry name or a local HF checkpoint directory into a
     LoadedModel on ``device`` (CUDA unless ``"cpu"`` is asked for): a
@@ -245,7 +279,11 @@ def load_model(
     (dropout on); otherwise it is in eval mode.  ``remat`` checkpoints the
     blocks under ``remat_policy`` (``utils/remat.py``, any family);
     ``fused_ce`` sets a causal config's vocab-chunked loss and is refused
-    for a seq2seq family, as the JAX trainer refuses it."""
+    for a seq2seq family, as the JAX trainer refuses it.
+    ``moe_capacity_factor`` overrides the expert capacity factor of a
+    model with experts (others ignore it): an HF Mixtral directory loads
+    no-drop (<= 0, HF's logits exactly), whose expert buffers hold a whole
+    group per expert; 1.25 restores the capacity trade for fine-tuning."""
     if attention_impl not in (None, "auto", "flash", "ring", "xla"):
         raise ValueError(
             f"attention_impl={attention_impl!r}: must be 'auto', 'flash', 'ring', or 'xla'"
@@ -263,9 +301,6 @@ def load_model(
     elif short in LLAMA_CONFIGS:
         family, cfg = "llama", LLAMA_CONFIGS[short]
     else:
-        for prefix, what in _LATER.items():
-            if short.startswith(prefix):
-                raise NotImplementedError(f"{short!r}: {what} is a later slice of the port (ROADMAP.md)")
         raise ValueError(f"unknown model {name_or_path!r}: not one of "
                          f"{sorted(T5_CONFIGS) + sorted(BART_CONFIGS) + sorted(LLAMA_CONFIGS)}")
     if fused_ce:
@@ -276,6 +311,8 @@ def load_model(
         cfg = dataclasses.replace(cfg, fused_ce=True)
     if attention_impl is not None:
         cfg = dataclasses.replace(cfg, attention_impl=attention_impl)
+    if moe_capacity_factor is not None and getattr(cfg, "num_experts", 0) > 0:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=moe_capacity_factor)
     dev = resolve_device(device)
     module = _CLASSES[family](cfg, dtype=dtype, param_dtype=param_dtype(dtype, dev, train=train),
                               device=dev, remat_policy=remat_policy if remat else None)

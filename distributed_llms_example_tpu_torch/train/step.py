@@ -9,7 +9,8 @@
   against ``labels[t + 1]``; under the config's ``fused_ce`` the final
   hidden states and the LM head go through the vocab-chunked
   ``ops/blockwise_ce.py`` (no logits materialized), as the JAX package's
-  ``make_loss_fn`` does;
+  ``make_loss_fn`` does, and a MoE model's load-balancing loss joins the
+  sum when its config weighs it;
 - ``train_step``: the batch's rows split into ``grad_accum_steps``
   microbatches (row r joins microbatch r mod N, as in the JAX package),
   loss and gradient SUMS accumulated over them, then ONE optimizer apply
@@ -165,15 +166,27 @@ def causal_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
     align with ``input_ids`` (-100 over the prompt and the padding), so
     position t's logits predict ``labels[t + 1]``.  With the config's
     ``fused_ce`` the LM head's weight, cast to the compute dtype as the
-    unfused head casts it, meets the hidden states chunk by chunk."""
+    unfused head casts it, meets the hidden states chunk by chunk.  With
+    ``moe_aux_weight`` > 0 (Mixtral) the loss sum takes w · the layers'
+    mean aux loss · the microbatch's tokens, so the normalized loss is the
+    mean CE + w · aux, as in the JAX package's ``make_loss_fn``."""
     labels = batch["labels"]
-    if model.config.fused_ce:
-        h, w = model.head_inputs(batch["input_ids"], batch["attention_mask"])
+    cfg = model.config
+    weight = float(getattr(cfg, "moe_aux_weight", 0.0) or 0.0)
+    ask = {"return_aux": True} if weight > 0.0 else {}
+    if cfg.fused_ce:
+        h, w, *aux = model.head_inputs(batch["input_ids"], batch["attention_mask"], **ask)
         with scope("lm_head"):  # the head's matmuls, chunked into the loss
-            return blockwise_cross_entropy_sums(h[:, :-1].reshape(-1, h.shape[-1]), w,
-                                                labels[:, 1:].reshape(-1), label_smoothing)
-    logits = model(batch["input_ids"], batch["attention_mask"])
-    return cross_entropy_sums(logits[:, :-1], labels[:, 1:], label_smoothing)
+            lsum, tokens = blockwise_cross_entropy_sums(
+                h[:, :-1].reshape(-1, h.shape[-1]), w, labels[:, 1:].reshape(-1),
+                label_smoothing)
+    else:
+        out = model(batch["input_ids"], batch["attention_mask"], **ask)
+        logits, *aux = out if ask else (out,)
+        lsum, tokens = cross_entropy_sums(logits[:, :-1], labels[:, 1:], label_smoothing)
+    if aux:
+        lsum = lsum + weight * aux[0] * tokens
+    return lsum, tokens
 
 
 def loss_sums(model, batch: dict, label_smoothing: float = 0.0, *, is_seq2seq: bool = True):

@@ -191,6 +191,7 @@ class Trainer:
                 cfg.model_ckpt, dtype=parse_dtype(cfg.compute_dtype), device=self.device,
                 attention_impl=cfg.attention_impl or None, seed=cfg.seed, train=True,
                 remat=cfg.remat, remat_policy=cfg.remat_policy, fused_ce=cfg.fused_ce,
+                moe_capacity_factor=cfg.moe_capacity_factor,
             )
         elif loaded.module.dtype != parse_dtype(cfg.compute_dtype) \
                 or loaded.device.type != self.device.type:
@@ -198,8 +199,9 @@ class Trainer:
             raise ValueError(f"the given {loaded.family} model ({loaded.module.dtype} on "
                              f"{loaded.device}) is not a {kind} model in {cfg.compute_dtype} "
                              f"on {self.device}")
-        elif cfg.attention_impl or cfg.remat or cfg.fused_ce:
-            raise ValueError("--attention-impl, --remat and --fused-ce apply to a loaded model; "
+        elif cfg.attention_impl or cfg.remat or cfg.fused_ce or cfg.moe_capacity_factor is not None:
+            raise ValueError("--attention-impl, --remat, --fused-ce and --moe-capacity-factor "
+                             "apply to a loaded model; "
                              "a built one takes its route, remat policy and loss from its "
                              "construction")
         loaded.module.train()

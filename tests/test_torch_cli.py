@@ -50,15 +50,15 @@ def test_serve_rejects_later_slices(tmp_path):
     prompts = tmp_path / "p.json"
     prompts.write_text(json.dumps(["x"]))
     # the serving features run since their slice: what still stops is a
-    # composition the JAX engine refuses, --spec-tokens out of range at
-    # parse time, and Mixtral
+    # composition the JAX engine refuses and --spec-tokens out of range at
+    # parse time; Mixtral serves
     with pytest.raises(ValueError, match="requires paged_kv"):
         serve_main(_args(prompts, tmp_path / "o.jsonl", "--prefix-cache"))
     for k in ("8", "-1"):
         with pytest.raises(SystemExit):
             serve_main(_args(prompts, tmp_path / "o.jsonl", "--spec-tokens", k))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_main(_args(prompts, tmp_path / "o.jsonl", "--model-ckpt", "mixtral-test"))
+    serve_main(_args(prompts, tmp_path / "o.jsonl", "--tokenizer", "byte", model="mixtral-test"))
+    assert len((tmp_path / "o.jsonl").read_text().splitlines()) == 1
 
 
 def test_mesh_must_be_one_device():

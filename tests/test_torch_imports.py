@@ -8,7 +8,8 @@ functions; the distributed modules ``core/mesh.py`` and
 ``obs/report.py``, and the profiler's ``obs/profile.py``, ``obs/devprof.py``,
 ``obs/gauges.py``, ``obs/memprof.py`` and ``obs/trace.py``, which keep their
 own copies of the JAX package's JAX-free parsers; the serving tier's
-``serving/router.py`` and ``serving/loadgen.py``; ``native/``, with its own
+``serving/router.py`` and ``serving/loadgen.py``; Mixtral's routed
+experts, ``ops/moe.py``; ``native/``, with its own
 copy of the C++ loader's source), or ``chip_smoke.py`` as a module,
 pulls in no JAX, flax, optax, orbax, transformers or safetensors and no
 module of the JAX package (and
@@ -47,7 +48,7 @@ def test_port_imports_nothing_of_jax():
                  "ops.blockwise_ce", "core.mesh", "parallel.fsdp", "obs", "obs.sink",
                  "obs.spans", "obs.budget", "obs.heartbeat", "obs.report", "obs.profile",
                  "obs.devprof", "obs.gauges", "obs.memprof", "obs.trace", "serving.router",
-                 "serving.loadgen", "native"):
+                 "serving.loadgen", "native", "ops.moe"):
         assert f"distributed_llms_example_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -186,15 +186,20 @@ def test_training_a_causal_model_raises_before_building_it():
 
 
 def test_mixtral_and_training_dropout_raise():
-    """Mixtral still raises; residual dropout in training now runs the fused
-    dropout at both residual adds (eval mode: a plain residual add)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model("mixtral-test", device="cpu")
+    """Mixtral now builds and runs (routed experts in every block, the aux
+    loss handed out on request); residual dropout in training runs the
+    fused dropout at both residual adds (eval mode: a plain residual add)."""
+    lm = load_model("mixtral-test", device="cpu")
+    assert all(blk.moe for blk in lm.module.blocks)
+    assert tuple(lm.module.blocks[0].mlp.gate_proj.shape) == (4, 64, 128)
     cfg = dataclasses.replace(LlamaConfig(vocab_size=32, hidden_size=16, intermediate_size=32,
                                           num_hidden_layers=1, num_attention_heads=2),
                               dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaForCausalLM(dataclasses.replace(cfg, num_experts=4))
+    moe = LlamaForCausalLM(dataclasses.replace(cfg, num_experts=4)).eval()
+    moe.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        logits, aux = moe(torch.arange(8).reshape(1, 8) % 32, return_aux=True)
+    assert logits.shape == (1, 8, 32) and aux.shape == () and float(aux) > 0
     model = LlamaForCausalLM(cfg).eval()
     model.init_weights(torch.Generator().manual_seed(0))
     ids = torch.arange(8).reshape(1, 8) % 32

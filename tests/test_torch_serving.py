@@ -130,9 +130,22 @@ def test_serve_composition_errors(case):
 
 def test_causal_engine_raises():
     """Causal serving runs since the LLaMA slice; what still raises is the
-    paged pool on a seq2seq model (as in the JAX engine) and Mixtral."""
+    paged pool on a seq2seq model (as in the JAX engine).  Mixtral now
+    builds a paged engine (its config read on the meta device: the full
+    model is 46.7 B parameters)."""
     tlm = load_model("bart-test", device="cpu")
     with pytest.raises(ValueError, match="seq2seq"):
         ServingEngine(tlm.module, tlm.config, ServeConfig(paged_kv=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model("mixtral-8x7b", device="cpu")
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.models.registry import LLAMA_CONFIGS
+
+    cfg = LLAMA_CONFIGS["mixtral-8x7b"]
+    assert (cfg.num_experts, cfg.num_key_value_heads, cfg.rope_theta) == (8, 8, 1e6)
+    meta = LlamaForCausalLM(cfg, device="meta")
+    assert sum(p.numel() for p in meta.parameters()) == 46_702_792_704
+    small = load_model("mixtral-test", device="cpu")
+    eng = ServingEngine(small.module, small.config, ServeConfig(paged_kv=True, max_slots=2,
+                                                               max_source_length=16,
+                                                               max_new_tokens=16),
+                        is_seq2seq=False, device="cpu")
+    assert eng.pool is not None
