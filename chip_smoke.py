@@ -16,10 +16,12 @@ went through its kernels.
 
     python3 chip_smoke.py    # from the repository root, on one NVIDIA GPU
     python3 chip_smoke.py --phase 13    # the build, then phase 13 alone
+    python3 chip_smoke.py --phase 14    # the build, then phases 14 and 19, chained as in the run
     python3 chip_smoke.py --phase 15    # the build, then phase 15 alone
     python3 chip_smoke.py --phase 16    # the build, then phase 16 alone
     python3 chip_smoke.py --phase 17    # the build, then phase 17 alone
     python3 chip_smoke.py --phase 18    # the build, then phase 18 alone
+    python3 chip_smoke.py --phase 19    # the build, then phase 19 alone
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
@@ -162,7 +164,8 @@ Phases (each fatal, non-zero exit, no result line):
      that must break the limits is the probs-dropout seed off by one in
      kernels 2-4
  5c. fault tolerance, phase 5's recipe at bart-large-cnn's widths and
-     2 + 2 layers (seed-0 weights written as an HF directory; the depth
+     1 + 1 layers (2 + 2 until phase 19 joined the run; seed-0 weights
+     written as an HF directory; the depth
      cut holds the time limit): (a) from that directory with dropout,
      attention_dropout and activation_dropout 0 (weights linked), an
      uninterrupted run with --save-every-steps 3, a run with
@@ -234,7 +237,8 @@ Phases (each fatal, non-zero exit, no result line):
      attention-probs dropout 0.1, kernels 2-4's dropout instances vs their
      plain versions within the relu limits, kernel 4's fp32 dropout
      instance launched once per self-attention layer (counted from zero)
-  9. flan-t5-xl serve: phase 4's prompts and settings; kernel 1 once per
+  9. flan-t5-xl serve: phase 4's prompts and settings, 64 new tokens
+     (128 until phase 19 joined the run); kernel 1 once per
      encoder layer per prefill chunk, kernel 5 once per decoder layer per
      decode round, kernels 2, 3, 4 and 6 never; one profiled round
  10. T5 fp32 logits at flan-t5-xl widths, 2 + 2 layers: prefill + 5 decode
@@ -242,7 +246,9 @@ Phases (each fatal, non-zero exit, no result line):
      1e-4; the per-row relative bias shifted by one must break it
  11. llama-2-7b serve: the CLI's serve entry, bf16, seed 0, 16 byte-token
      prompts of 200-1024 tokens (two waves: the second admitted into the
-     slots the first freed), 8 slots, 128 new tokens, source 1024,
+     slots the first freed), 8 slots, 64 new tokens (128 until phase 19
+     joined the run),
+     source 1024,
      once with --paged-kv and once flat (the T5 model freed first);
      counters zeroed before and read after each: paged decode = attention
      modules x decode rounds and flash decode 0 on the paged run, the
@@ -296,7 +302,9 @@ Phases (each fatal, non-zero exit, no result line):
      obs.report --trace loads with host spans and device lanes
  14. data-parallel and FSDP training: a world-1 NCCL group, the
      FSDP-wrapped llama-2-7b-width step bit-equal to the unwrapped one,
-     kernel 8's split norm, the CLI on two gloo ranks of cuda:0
+     kernel 8's split norm, the CLI on two gloo ranks of cuda:0 (no
+     end-of-run checkpoint since phase 19 joined the run; its HF
+     directory is phase 19's too)
  15. elastic fine-tuning: bart-large-cnn's widths at 1 + 1 layers, seed-0
      weights written by the port's export, its residual dropout 0.1, bf16,
      48 records (6 steps), --obs jsonl --obs-budget on, a save every 2
@@ -395,7 +403,29 @@ Phases (each fatal, non-zero exit, no result line):
      the CLI (bf16, 16 prompts, 8 slots, 32 new tokens): exact launches of
      kernels 1, 5 and 6, tokens equal, decode tokens/s, TTFT and the
      cache's bytes a token
- 19. a {"kernels_unported": []} line (every TPU kernel has a port), the
+ 19. tensor and sequence parallelism, on two gloo ranks of cuda:0
+     (--dist-rank, like phase 14 (b)): (a) ring attention alone
+     (ops/ring_attention.py; each hop one all_to_all_single, which gloo
+     takes for CUDA tensors) at the llama-2-7b train shape (8, 32, 1024,
+     128), fp32, causal with a ragged padding mask, the output and the
+     q/k/v gradients within 1e-5 of the largest entry of plain attention
+     over the whole length in one process; the held block's key positions
+     one block late (planted) must break it; each hop's time and the
+     ring's and the plain path's; (b) the train CLI under --mesh tensor=2
+     and (c) under --mesh sequence=2 at llama-2-7b's widths and 1 layer,
+     fp32, no --fused-ce, no remat, the recipe's batch 8 x 1024, 2 steps
+     with no warmup (both update the weights), against the same CLI on one
+     rank within GRAD_LIMITS' loss and norm terms (the three parts in one
+     pair of rank processes); rank 0's launches exact (b: kernels 1-3 once
+     a layer a step at 16 of 32 heads, kernel 8's gradient pass twice a
+     step and its finish once; c: no kernel 1-3, ring attention); the
+     export bit-equal to the weights gathered whole, and each of its leaves
+     within 1e-3 of the one-rank run's update (the L2 norm of the
+     difference over that of the update); the end-of-run checkpoints left
+     out (the CPU tests hold the tensor blocks' save and restore); each step's time,
+     rank 0's peak memory, the collective account and rank 0's device
+     account of step 1
+ 20. a {"kernels_unported": []} line (every TPU kernel has a port), the
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
      kernel 8 both entries of its source; kernels 1 and 5 count phase 6c's
@@ -404,8 +434,8 @@ Phases (each fatal, non-zero exit, no result line):
      7 and 8 phase 14's step and phase 15's two host-loss runs, kernel 1
      phase 11's prompt prefills, kernels 1, 5 and 6 phase 16's runs,
      kernels 1 and 6 phase 17's, kernels 1, 2, 3, 5, 6 and 8 phase 18's
-     train and serve runs, and kernels 5 and 6 carry phase 16's verify_q4
-     and int8 times),
+     train and serve runs, kernels 1-3 and 8 rank 0 of phase 19's runs,
+     and kernels 5 and 6 carry phase 16's verify_q4 and int8 times),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -2681,9 +2711,9 @@ FT_PREEMPT_AT = 4
 FT_REWIND_SAVE_EVERY = 2
 FT_NAN_AT = 3
 # phase 5c's depth (bart-large-cnn's widths): its nine saves of the whole
-# training state at 12 + 12 layers held the run near its time limit, and
-# at 4 + 4 phase 16's serving runs did
-FT_LAYERS = 2
+# training state at 12 + 12 layers held the run near its time limit, at
+# 4 + 4 phase 16's serving runs did, and at 2 + 2 phase 19 did
+FT_LAYERS = 1
 # health numerics from kernel 8's float64 per-leaf sums against the same
 # numbers from its plain version's (fp32 sums per leaf): relative
 HEALTH_RTOL = 1e-6
@@ -3420,8 +3450,9 @@ def t5_grad_check_phase(torch, fa, fd, fo, batch) -> int:
     return drop_launched
 
 
+# 64 new tokens since phase 19 joined the run (128 before)
 T5_SERVE_ARGS = [
-    "--model-ckpt", "flan-t5-xl", "--max-slots", "8", "--max-new-tokens", "128",
+    "--model-ckpt", "flan-t5-xl", "--max-slots", "8", "--max-new-tokens", "64",
     "--max-source-length", "1024", "--compute-dtype", "bfloat16", "--seed", "0",
     "--log-every-steps", "64", "--lint", "off",
 ]
@@ -3825,9 +3856,10 @@ def ragged_serve(fa, cli, args) -> None:
 # two waves of the 8 slots: the second is admitted into freed slots, whose
 # stale K/V its masks must hide (the paged and the flat run's tokens equal)
 LLAMA_SERVE_PROMPTS = 16
+# 64 new tokens since phase 19 joined the run (128 before)
 LLAMA_ARGS = [
     "--model-ckpt", "llama-2-7b", "--num-prompts", str(LLAMA_SERVE_PROMPTS), "--max-slots", "8",
-    "--max-new-tokens", "128",
+    "--max-new-tokens", "64",
     "--max-source-length", "1024", "--compute-dtype", "bfloat16", "--seed", "0",
     "--log-every-steps", "64", "--lint", "off",
 ]
@@ -5088,7 +5120,10 @@ def llama_attention_time(torch, fa) -> dict:
 # --mesh fsdp=2, fp32, against the same CLI run on one rank within
 # GRAD_LIMITS' loss and norm terms.  One layer since phase 16 joined the
 # run: (b)'s fp32 gradients cross gloo through host memory every step, and
-# at 2 layers (b) took 73 s of the run's time limit
+# at 2 layers (b) took 73 s of the run's time limit.  Since phase 19 joined
+# the run, the end-of-run checkpoints of (b)'s runs are left out (phase 15
+# (b) saves and restores sharded steps on the card, phases 5c and 13 whole
+# ones), and its HF directory is phase 19's as well
 DIST_LAYERS = 1
 DIST_STEPS = 3
 DIST_RECORDS = 24
@@ -5135,11 +5170,12 @@ def trainer_hooks(torch, *, next_mesh=None, rng_state=None):
 
 
 def dist_rank_main(spec_path: str) -> None:
-    """One rank of phase 14 (b) or 15 (b) (``chip_smoke.py --dist-rank
+    """One rank of phase 14 (b), 15 (b) or 19 (``chip_smoke.py --dist-rank
     spec.json``): a gloo group on cuda:0 joined through ``core/mesh.py``
     from the spec (NCCL refuses two ranks on one card), then the train CLI
-    (with phase 15's hooks); rank 0 writes its steps' losses and grad norms
-    and its launches."""
+    (with phase 15's hooks; ``rank0_argv`` added on rank 0) or phase 19
+    (a)'s ring check; rank 0 writes its steps' losses and grad norms and
+    its launches, or the ring's numbers."""
     with open(spec_path) as f:
         spec = json.load(f)
     sys.path.insert(0, HERE)
@@ -5156,8 +5192,17 @@ def dist_rank_main(spec_path: str) -> None:
     from distributed_llms_example_tpu_torch.ops import fused_optim as fo
 
     initialize_distributed(spec["address"], spec["world"], rank, device_type="cpu")
+    if spec.get("phase19"):
+        out = model_parallel_rank_main(torch, fa, fd, fo, cli, spec, rank)
+        if rank == 0:
+            with open(spec["out"], "w") as f:
+                json.dump(out, f)
+        torch.distributed.destroy_process_group()
+        return
     zero_counters(fa, fd, fo)
-    with trainer_hooks(torch, next_mesh=spec.get("next_mesh"), rng_state=spec.get("rng_state")):
+    skip = no_final_state_save() if spec.get("no_final_save") else contextlib.nullcontext()
+    with trainer_hooks(torch, next_mesh=spec.get("next_mesh"),
+                       rng_state=spec.get("rng_state")), skip:
         trainer = cli.train(spec["argv"])
     torch.cuda.synchronize()
     out = {"losses": [float(m["loss"]) for m in trainer.history],
@@ -5282,9 +5327,26 @@ def kernel8_split_norm_check(torch, fo, grads) -> dict:
             "finish_library_ms": library_ms, "finish_bound_ms": finish_bound_ms}
 
 
-def distributed_phase(torch, fa, fd, fo, cli) -> tuple[dict, dict]:
+def one_rank_baseline(torch, cli, argv: list[str], out_dir: str) -> dict:
+    """The CLI on one rank with ``argv`` into ``out_dir`` (its end-of-run
+    checkpoint left out, its HF export kept): the losses, grad norms, step
+    times and peak memory that phases 14 (b) and 19 hold their ranks to."""
+    torch.cuda.reset_peak_memory_stats()
+    with no_final_state_save():
+        one = cli.train([*argv, "--output-dir", out_dir])
+    torch.cuda.synchronize()
+    out = {"losses": [float(m["loss"]) for m in one.history],
+           "grad_norms": [float(m["grad_norm"]) for m in one.history],
+           "step_s": [b - a for a, b in zip(one.step_ends, one.step_ends[1:])],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del one
+    free_cuda()
+    return out
+
+
+def distributed_phase(torch, fa, fd, fo, cli) -> tuple[dict, dict, str]:
     """Phase 14.  Returns (the wrapped step's launches, kernel 8's finish
-    numbers)."""
+    numbers, phase 19's HF directory)."""
     import dataclasses
 
     from distributed_llms_example_tpu_torch.core.config import MeshConfig
@@ -5398,18 +5460,12 @@ def distributed_phase(torch, fa, fd, fo, cli) -> tuple[dict, dict]:
 
     # (b) the CLI on one rank, then on two gloo ranks of cuda:0 (fsdp=2)
     ckpt = llama_hf_dir(torch, DIST_LAYERS)
-    zero_counters(fa, fd, fo)
-    one = cli.train([*DIST_ARGS, "--model-ckpt", ckpt, "--train-file", train_path,
-                     "--output-dir", fresh_dir("dist-one-out")])
-    torch.cuda.synchronize()
-    one_run = {"losses": [float(m["loss"]) for m in one.history],
-               "grad_norms": [float(m["grad_norm"]) for m in one.history]}
-    del one
-    free_cuda()
+    one_run = one_rank_baseline(torch, cli, [*DIST_ARGS, "--model-ckpt", ckpt, "--train-file",
+                                             train_path], fresh_dir("dist-one-out"))
     t0 = time.perf_counter()
     two = dist_ranks([*DIST_ARGS, "--model-ckpt", ckpt, "--train-file", train_path,
                       "--output-dir", fresh_dir("dist-fsdp-out"), "--mesh", "fsdp=2"], 2,
-                     phase="14 (b)")
+                     phase="14 (b)", no_final_save=True)
     two_s = time.perf_counter() - t0
     loss_diff = max(abs(a - b) for a, b in zip(one_run["losses"], two["losses"]))
     norm_diff = max(abs(a - b) for a, b in zip(one_run["grad_norms"], two["grad_norms"]))
@@ -5424,12 +5480,301 @@ def distributed_phase(torch, fa, fd, fo, cli) -> tuple[dict, dict]:
              f"rank's (loss {loss_diff}, norm {norm_diff})")
     if two["launches"] != two["expected"]:
         fail(f"phase 14 (b): rank 0's launches {two['launches']}, expected {two['expected']}")
-    # ~24 GB of weights, final saves and exports: the machine's disk holds
-    # what every phase ever wrote at once, so they go before phase 15
+    # the exports: the machine's disk holds what every phase ever wrote at
+    # once, so they go before phase 15 (the 1.9 GB HF directory stays for
+    # phase 19)
     for name in ("dist-one-out", "dist-fsdp-out"):
         shutil.rmtree(os.path.join(WORK, name), ignore_errors=True)
-    shutil.rmtree(ckpt, ignore_errors=True)
-    return wrapped["launches"], finish
+    return wrapped["launches"], finish, ckpt
+
+
+# phase 19: tensor and sequence parallelism.  (a) ring attention alone on
+# two gloo ranks of cuda:0 (ops/ring_attention.py: every hop one
+# all_to_all_single, which gloo takes for CUDA tensors where it refuses
+# isend/irecv) at the llama-2-7b train shape (8, 32, 1024, 128), fp32,
+# causal with a padding mask, against plain attention over the whole length
+# in one process; the held block's key positions one block late (the causal
+# mask a block off) must break the limit.  (b) the train CLI under --mesh
+# tensor=2 and (c) under --mesh sequence=2 (ring attention, kernel 8), each
+# on two gloo ranks of cuda:0 at llama-2-7b's widths and DIST_LAYERS layers
+# (phase 14's HF directory), fp32, with MP_ARGS, against the same CLI on
+# one rank.  (a), (b) and (c) run in one pair of rank processes.  The first
+# step is profiled on rank 0 and the second timed.
+MP_STEPS = 2
+MP_RECORDS = 16
+# DIST_ARGS without --remat and --fused-ce (the fused CE is refused on a
+# tensor or sequence mesh), with no warmup: both steps update the weights,
+# so the second step's loss and norm and the exported weights come from a
+# sharded AdamW update
+MP_ARGS = [a for a in DIST_ARGS if a not in ("--remat", "--fused-ce")]
+MP_ARGS[MP_ARGS.index("--warmup-steps") + 1] = "0"
+MP_PROFILE_STEP = 1
+# each leaf of a two-rank run's export against the one-rank run's: the
+# L2 norm of their difference over that of the one-rank run's update
+# (trained minus initial weights).  fp32: the two runs' weights differ by a
+# rounding (the norm scales near 1 by 1.2e-7 against an update of ~1e-4);
+# an update lost or misapplied on a shard differs by the update itself
+MP_EXPORT_REL_LIMIT = 1e-3
+RING_SHAPE = (8, 32, 1024, 128)
+# relative to the largest entry of the plain output or gradient (fp32: the
+# ring's tiles sum in another order than the plain softmax's rows)
+RING_REL_LIMIT = 1e-5
+RING_HOP_REPS = 5
+
+
+def ring_rank_main(torch, spec: dict, rank: int) -> dict:
+    """Phase 19 (a) on one rank (``chip_smoke.py --dist-rank``): the same
+    seeded inputs on every rank, this rank's sequence block through
+    ``ring_attention`` forward and backward, every block gathered; rank 0
+    also runs plain attention over the whole length, times both and one
+    hop, and with the held block's positions one block late (planted)."""
+    from distributed_llms_example_tpu_torch.ops import ring_attention as ra
+    from distributed_llms_example_tpu_torch.ops.attention import (
+        NEG_INF,
+        dot_product_attention,
+        make_causal_bias,
+    )
+    from distributed_llms_example_tpu_torch.parallel.activation import hop, merge_sequence
+
+    world = torch.distributed.get_world_size()
+    group = torch.distributed.group.WORLD
+    B, H, S, D = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=gen, device="cuda") for _ in range(4))
+    lens = torch.tensor([S - 37 * i for i in range(B)], device="cuda")
+    bias = torch.where(torch.arange(S, device="cuda")[None, :] < lens[:, None], 0.0,
+                       NEG_INF)[:, None, None, :].contiguous()
+    ring = ra.Ring(group, world, rank)
+
+    def run():
+        blocks = [t.chunk(world, dim=2)[rank].clone().requires_grad_(True) for t in (q, k, v)]
+        out = ra.ring_attention(*blocks, bias.chunk(world, dim=-1)[rank].contiguous(),
+                                ring=ring, causal=True)
+        out.backward(dout.chunk(world, dim=2)[rank])
+        got = [out.detach()] + [b.grad for b in blocks]
+        return [merge_sequence(t.contiguous(), group, world, dim=2) for t in got]
+
+    def timed(fn, *, both_ranks=True):
+        torch.cuda.synchronize()
+        if both_ranks:
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    run()  # warm
+    got, ring_ms = timed(run)
+    kv = torch.cat([k.chunk(world, dim=2)[rank].reshape(-1), v.chunk(world, dim=2)[rank]
+                    .reshape(-1)])
+    hop_ms = []
+    for _ in range(RING_HOP_REPS):
+        _, ms = timed(lambda: hop(kv, group, world, rank)[1].wait())
+        hop_ms.append(ms)
+    real = ra._block_update
+    ra._block_update = lambda m, l, acc, q_, k_, v_, b_, qp, kp, **kw: real(
+        m, l, acc, q_, k_, v_, b_, qp, kp + k_.shape[2], **kw)
+    try:
+        planted = run()
+    finally:
+        ra._block_update = real
+    out = {"ring_ms": ring_ms, "hop_ms": hop_ms, "hop_bytes": kv.numel() * kv.element_size(),
+           "world": world}
+    if rank != 0:
+        return out
+
+    def plain():
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = dot_product_attention(*leaves, bias + make_causal_bias(S, S, device="cuda"),
+                                  scale=D ** -0.5, dtype=torch.float32)
+        o.backward(dout)
+        return [o.detach()] + [t.grad for t in leaves]
+
+    plain()
+    want, plain_ms = timed(plain, both_ranks=False)  # rank 1 has left
+    names = ("out", "dq", "dk", "dv")
+
+    def rel(a, b):
+        return {n: float((x - y).abs().max() / y.abs().max()) for n, x, y in zip(names, a, b)}
+
+    out.update(plain_ms=plain_ms, rel_err=rel(got, want), planted_rel_err=rel(planted, want),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def model_parallel_launches(trainer, axis: str, steps: int) -> dict:
+    """What phase 19's run must launch on a rank: under ``tensor`` kernels
+    1-3 once a layer a step at the rank's heads, kernel 8's gradient pass
+    twice a step (the replicated leaves, the tensor shards) and its finish
+    once; under ``sequence`` no kernel 1-3 (ring attention) and the
+    gradient pass once a leaf table."""
+    want = expected_train_launches(trainer.model, steps)
+    if axis == "tensor":
+        want.update(fused_grad_prep=2 * steps, fused_grad_norm_finish=steps)
+    else:
+        want.update(flash_attention_fwd=0, flash_attention_bwd_dq=0, flash_attention_bwd_dkv=0)
+    return want
+
+
+def model_parallel_rank_extras(torch, trainer, axis: str, rank: int) -> dict:
+    """Phase 19 (b)/(c) on one rank after the run: the launches it implies,
+    the export against the weights gathered whole (every rank joins every
+    gather; rank 0 reads the export), each step's host time and the
+    collective account."""
+    from distributed_llms_example_tpu_torch.models.convert import convert_state_dict
+    from distributed_llms_example_tpu_torch.models.export import full_state_dict
+    from distributed_llms_example_tpu_torch.models.registry import load_local_state_dict
+
+    gathered = full_state_dict(trainer.model, tensor_group=trainer.groups.tensor_group,
+                               tensor=trainer.mesh_spec.tensor)
+    out = {"expected": model_parallel_launches(trainer, axis, len(trainer.history)),
+           "step_s": [b - a for a, b in zip(trainer.step_ends, trainer.step_ends[1:])],
+           "comm": trainer.obs._comm_account}
+    budget = trainer.obs.budget
+    acct = getattr(budget, "last_device_account", None) if budget is not None else None
+    if acct is not None:
+        out["device_account"] = {k: acct.get(k) for k in (
+            "window", "buckets_ms", "bucket_frac", "busy_ms", "span_ms", "events")}
+    if rank == 0:
+        exported = convert_state_dict("llama", load_local_state_dict(
+            os.path.join(trainer.cfg.output_dir, "model")))
+        out["export_leaves"] = len(gathered)
+        out["export_unequal"] = sorted(
+            n for n, t in gathered.items()
+            if n not in exported or not torch.equal(exported[n], t.detach().cpu()))
+    return out
+
+
+def model_parallel_rank_main(torch, fa, fd, fo, cli, spec: dict, rank: int) -> dict:
+    """Phase 19 on one rank (``chip_smoke.py --dist-rank``, one spawn for
+    all three parts): (a)'s ring check, then the train CLI with each of
+    ``spec["runs"]`` ((axis, argv) pairs; ``rank0_argv`` added on rank 0),
+    the launch counters zeroed just before each run and read just after."""
+    out = {"ring": ring_rank_main(torch, spec, rank)}
+    for axis, argv in spec["runs"]:
+        zero_counters(fa, fd, fo)
+        torch.cuda.reset_peak_memory_stats()
+        with no_final_state_save():
+            trainer = cli.train(argv + (spec.get("rank0_argv", []) if rank == 0 else []))
+        torch.cuda.synchronize()
+        run = {"losses": [float(m["loss"]) for m in trainer.history],
+               "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
+               "launches": read_counters(fa, fd, fo),
+               "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        run.update(model_parallel_rank_extras(torch, trainer, axis, rank))
+        out[axis] = run
+        del trainer
+        free_cuda()
+    return out
+
+
+def export_update_diffs(torch, ckpt: str, one_dir: str, two_dirs: list[str]) -> list[dict]:
+    """For each of ``two_dirs`` (a two-rank run's HF export), each leaf's
+    ``MP_EXPORT_REL_LIMIT`` measure against ``one_dir`` (the one-rank
+    run's) from the initial weights in ``ckpt``, and the largest absolute
+    difference."""
+    from distributed_llms_example_tpu_torch.models.convert import convert_state_dict
+    from distributed_llms_example_tpu_torch.models.registry import load_local_state_dict
+
+    def load(d):
+        return convert_state_dict("llama", load_local_state_dict(d))
+
+    init, one = load(ckpt), load(one_dir)
+    out = []
+    for two_dir in two_dirs:
+        two = load(two_dir)
+        rel, max_abs = {}, 0.0
+        for n, w1 in one.items():
+            w1, w2, w0 = (t.to("cuda", torch.float32) for t in (w1, two[n], init[n]))
+            rel[n] = float((w2 - w1).norm() / (w1 - w0).norm())
+            max_abs = max(max_abs, float((w2 - w1).abs().max()))
+        out.append({"rel": rel, "max_abs": max_abs, "leaves": len(rel)})
+        del two
+    del init, one
+    free_cuda()
+    return out
+
+
+def model_parallel_phase(torch, fa, fd, fo, cli, ckpt: str | None = None) -> dict:
+    """Phase 19 (``ckpt``: phase 14's HF directory; ``--phase 19`` alone
+    makes its own).  Returns rank 0's launches of (b) and (c), summed."""
+    t_phase = time.perf_counter()
+    ckpt = ckpt or llama_hf_dir(torch, DIST_LAYERS)
+    train_path = os.path.join(WORK, "mp_train.json")
+    write_instruction_records(train_path, MP_RECORDS, seed=2)
+    base = [*MP_ARGS, "--model-ckpt", ckpt, "--train-file", train_path]
+    t0 = time.perf_counter()
+    one_run = one_rank_baseline(torch, cli, base, fresh_dir("mp-one-out"))
+    one_s = time.perf_counter() - t0
+    axes = (("b", "tensor"), ("c", "sequence"))
+    runs = [(axis, [*base, "--output-dir", fresh_dir(f"mp-{axis}-out"), "--mesh", f"{axis}=2",
+                    "--obs-gauges", "on"]) for _, axis in axes]
+    t0 = time.perf_counter()
+    res = dist_ranks([], 2, phase="19", phase19=True, runs=runs,
+                     rank0_argv=["--profile-steps", f"{MP_PROFILE_STEP}:{MP_PROFILE_STEP}"])
+    ranks_s = time.perf_counter() - t0
+
+    # (a) ring attention alone
+    ring = res["ring"]
+    say({"phase": "ring_attention", "backend": "gloo", "device": "cuda:0", "ranks": 2,
+         "shape": list(RING_SHAPE), "dtype": "float32", "causal": True, "padding": True,
+         "rel_err": ring["rel_err"], "limit": RING_REL_LIMIT,
+         "planted_block_late_rel_err": ring["planted_rel_err"],
+         "ring_fwd_bwd_ms": ring["ring_ms"], "plain_fwd_bwd_ms": ring["plain_ms"],
+         "hop_ms": ring["hop_ms"], "hop_ms_median": statistics.median(ring["hop_ms"]),
+         "hop_bytes": ring["hop_bytes"], "peak_mem_bytes_rank0": ring["peak_mem_bytes"]})
+    if not all(e <= RING_REL_LIMIT for e in ring["rel_err"].values()):
+        fail(f"phase 19 (a): the ring is not within {RING_REL_LIMIT} of plain attention "
+             f"({ring['rel_err']})")
+    if not all(not (e <= RING_REL_LIMIT) for e in ring["planted_rel_err"].values()):
+        fail(f"phase 19 (a): the planted fault (key positions a block late) stayed within the "
+             f"limit ({ring['planted_rel_err']})")
+
+    # (b), (c): the CLI under tensor=2 and sequence=2 against one rank
+    launches: dict = {}
+    t0 = time.perf_counter()
+    exports = export_update_diffs(torch, ckpt, os.path.join(WORK, "mp-one-out", "model"),
+                                  [os.path.join(WORK, f"mp-{axis}-out", "model")
+                                   for _, axis in axes])
+    exports_s = time.perf_counter() - t0
+    for (part, axis), weights in zip(axes, exports):
+        two = res[axis]
+        acct = two.get("device_account") or {}
+        loss_diff = max(abs(a - b) for a, b in zip(one_run["losses"], two["losses"]))
+        norm_diff = max(abs(a - b) for a, b in zip(one_run["grad_norms"], two["grad_norms"]))
+        worst = max(weights["rel"].values())
+        say({"phase": f"model_parallel_{axis}", "backend": "gloo", "device": "cuda:0",
+             "mesh": f"{axis}=2", "compute_dtype": "float32", "layers": DIST_LAYERS,
+             "one_rank": one_run, "two_ranks": {k: two[k] for k in (
+                 "losses", "grad_norms", "step_s", "peak_mem_bytes", "launches", "expected")},
+             "loss_diff": loss_diff, "grad_norm_diff": norm_diff,
+             "export_leaves": two["export_leaves"], "export_unequal": two["export_unequal"],
+             "export_vs_one_rank": weights, "export_vs_one_rank_worst": worst,
+             "export_limit": MP_EXPORT_REL_LIMIT, "comm": two["comm"], "device_account": acct})
+        if len(two["losses"]) != MP_STEPS or len(one_run["losses"]) != MP_STEPS \
+                or loss_diff > GRAD_LIMITS["loss_diff"] \
+                or norm_diff > GRAD_LIMITS["grad_norm_diff"]:
+            fail(f"phase 19 ({part}): {axis}=2's losses and norms are not within the BART limits "
+                 f"of one rank's (loss {loss_diff}, norm {norm_diff})")
+        if two["launches"] != two["expected"]:
+            fail(f"phase 19 ({part}): rank 0's launches {two['launches']}, expected "
+                 f"{two['expected']}")
+        if two["export_unequal"] or not two["export_leaves"]:
+            fail(f"phase 19 ({part}): the export differs from the gathered weights in "
+                 f"{two['export_unequal'][:5]}")
+        if weights["leaves"] != two["export_leaves"] or not worst <= MP_EXPORT_REL_LIMIT:
+            fail(f"phase 19 ({part}): the trained weights are not within {MP_EXPORT_REL_LIMIT} "
+                 f"of one rank's update ({weights['rel']})")
+        if not acct:
+            fail(f"phase 19 ({part}): rank 0's profiled step gave no device_account")
+        for k, n in two["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        shutil.rmtree(os.path.join(WORK, f"mp-{axis}-out"), ignore_errors=True)
+    for path in (ckpt, os.path.join(WORK, "mp-one-out")):
+        shutil.rmtree(path, ignore_errors=True)
+    say({"phase": "model_parallel_wall", "seconds": time.perf_counter() - t_phase,
+         "one_rank_s": one_s, "ranks_s": ranks_s, "export_compare_s": exports_s})
+    return launches
 
 
 # phase 15: elastic fine-tuning at bart-large-cnn's published widths (d_model
@@ -6873,8 +7218,10 @@ def mixtral_hf_dir(torch) -> str:
 def no_final_state_save():
     """The CLI run's end-of-run training-state checkpoint left out: at 2
     layers Mixtral's fp32 parameters and AdamW moments are 38 GB, whose
-    write and crc32 manifest would take minutes of the run's time limit
-    (phases 5c and 13 hold the save and the restore)."""
+    write and crc32 manifest would take minutes of the run's time limit;
+    phases 14 (b) and 19 leave out theirs (5.6 GB at llama-2-7b's width
+    and 1 layer) too (phases 5c and 13 hold the save and the restore, 15
+    (b) the sharded ones)."""
     from distributed_llms_example_tpu_torch.train import trainer as trainer_mod
 
     real = trainer_mod.Trainer._save_checkpoint
@@ -7412,16 +7759,21 @@ def main() -> None:
         time limit goes."""
         say({"phase": "elapsed", "after": after, "seconds": time.perf_counter() - wall0})
     if sys.argv[1:2] == ["--phase"]:
-        # phase 13, 15, 16, 17 or 18 alone (after the build): a quick check
-        # of the LLaMA train path and its telemetry, of the elastic path, of
-        # the serving features, of the serving tier or of Mixtral
+        # phase 13, 15, 16, 17, 18 or 19 alone (after the build), or 14
+        # and 19 chained (19 on 14's HF directory): a quick check of the
+        # LLaMA train path and its telemetry, of the sharded paths, of the
+        # elastic path, of the serving features, of the serving tier, of
+        # Mixtral or of tensor and sequence parallelism
         from distributed_llms_example_tpu_torch.launch import cli
 
         {"13": lambda: llama_train_phase(torch, fa, fd, fo, cli),
+         "14": lambda: model_parallel_phase(torch, fa, fd, fo, cli,
+                                            distributed_phase(torch, fa, fd, fo, cli)[2]),
          "15": lambda: elastic_phase(torch, fa, fd, fo, cli),
          "16": lambda: serving_features_phase(torch, fa, cli, llama_7b(torch)),
          "17": lambda: serving_tier_phase(torch, fa, cli, llama_7b(torch)),
-         "18": lambda: mixtral_phase(torch, fa, fd, fo, cli)}[sys.argv[2]]()
+         "18": lambda: mixtral_phase(torch, fa, fd, fo, cli),
+         "19": lambda: model_parallel_phase(torch, fa, fd, fo, cli)}[sys.argv[2]]()
         say({"phase": "wall", "seconds": time.perf_counter() - wall0})
         return
     sass_phase(cuda_build)
@@ -7538,7 +7890,7 @@ def main() -> None:
     # phase 14: data-parallel and FSDP training (a world-1 NCCL group and
     # the FSDP-wrapped step bit-equal to the unwrapped one; kernel 8's
     # partial norm; two gloo ranks of the CLI under --mesh fsdp=2)
-    dist_launches, finish = distributed_phase(torch, fa, fd, fo, cli)
+    dist_launches, finish, dist_ckpt = distributed_phase(torch, fa, fd, fo, cli)
     free_cuda()
     lap("14")
 
@@ -7572,6 +7924,14 @@ def main() -> None:
     # elements, the fp32 gradient and serve parity checks, the serve CLI)
     mixtral = mixtral_phase(torch, fa, fd, fo, cli)
     free_cuda()
+    lap("18")
+
+    # phase 19: tensor and sequence parallelism (ring attention alone at
+    # llama-2-7b's train shape on two gloo ranks of cuda:0, with a planted
+    # fault; the CLI under --mesh tensor=2 and sequence=2 against one rank,
+    # launches exact, the export bit-equal)
+    model_parallel = model_parallel_phase(torch, fa, fd, fo, cli, dist_ckpt)
+    free_cuda()
 
     # the end: the TPU kernels with no port yet (none), the kernel list
     # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
@@ -7579,10 +7939,12 @@ def main() -> None:
     # reports the sum of their counts: kernel 1 the BART and T5 serve and
     # train runs, phase 5c's resumed and rewind runs, the BART eval, the
     # LLaMA serve runs' prompt prefills and the LLaMA train run and its
-    # eval, and the Mixtral train and serve runs; kernels 2, 3 and 8 the
-    # BART, T5, LLaMA and Mixtral train runs and phase 5c's, phase 14's
-    # FSDP step and phase 15's host-loss runs (kernel 8's finish entry
-    # phase 14's step and phase 15's fsdp=2 steps), kernel 7 the BART and
+    # eval, the Mixtral train and serve runs and rank 0 of phase 19's
+    # tensor=2 run; kernels 2, 3 and 8 the BART, T5, LLaMA and Mixtral
+    # train runs and phase 5c's, phase 14's FSDP step, phase 15's host-loss
+    # runs and rank 0 of phase 19's tensor=2 run (kernel 8 of its
+    # sequence=2 run too; its finish entry phase 14's step, phase 15's
+    # fsdp=2 steps and phase 19's tensor=2 steps), kernel 7 the BART and
     # T5 train runs and phases 5c's and 15's, kernel 4 the T5 train run,
     # kernel 5 the BART and flan-T5 serve runs, the flat LLaMA and Mixtral
     # serves, the BART eval and the LLaMA eval, kernel 6 the paged LLaMA and
@@ -7592,7 +7954,7 @@ def main() -> None:
     ref = "distributed_llms_example_tpu/ops/"
     both = {k: train_launches[k] + t5_train[k] + ft_launches.get(k, 0) + llama_train.get(k, 0)
             + dist_launches.get(k, 0) + elastic_launches.get(k, 0) + mixtral.get(k, 0)
-            for k in t5_train}
+            + model_parallel.get(k, 0) for k in t5_train}
     rows = [
         dict(name="flash_attention_fwd", route="cuda", source=src + "flash_fwd_tc.cu",
              sources=[src + "flash_fwd_tc.cu", src + "flash_fwd.cu"],
@@ -7669,8 +8031,8 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         dist_rank_main(sys.argv[2])
-    elif sys.argv[1:] in ([], ["--phase", "13"], ["--phase", "15"], ["--phase", "16"],
-                          ["--phase", "17"], ["--phase", "18"]):
+    elif sys.argv[1:] in ([], *(["--phase", n] for n in ("13", "14", "15", "16", "17", "18",
+                                                          "19"))):
         main()
         # every check passed and every line is out (the rank processes
         # were joined in their phases): leave without the interpreter's
@@ -7681,4 +8043,4 @@ if __name__ == "__main__":
         sys.stderr.flush()
         os._exit(0)
     else:
-        fail(f"usage: {sys.argv[0]} [--phase 13|15|16|17|18]")
+        fail(f"usage: {sys.argv[0]} [--phase 13|14|15|16|17|18|19]")

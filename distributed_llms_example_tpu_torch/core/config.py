@@ -4,9 +4,11 @@ defaults as there), plus ``--device`` and ``--seed``.  A flag the port does
 not implement is not accepted: argparse rejects it.  ``config_from_args``
 also checks, as the JAX package's does, what can be checked before the
 run: the rewind's prerequisites, the ``--chaos`` grammar (and the
-checkpoint cadence a ``host_loss`` reshard restores from) and the
-``--mesh`` axes (``data`` and ``fsdp`` only: the model-parallel axes are a
-later slice, ROADMAP.md item 6)."""
+checkpoint cadence a ``host_loss`` reshard restores from), the ``--mesh``
+axes (``data``, ``fsdp``, ``sequence`` and ``tensor``; ``stage`` and
+``expert`` are a later slice, ROADMAP.md item 6) and the rows of the JAX
+package's composition matrix a tensor or sequence mesh meets, with the
+port's own refusals beside them (``mesh_composition_error``)."""
 
 from __future__ import annotations
 
@@ -23,7 +25,26 @@ from distributed_llms_example_tpu_torch.utils.remat import REMAT_POLICIES
 # The mesh axis names of the JAX package, in its order (``core/config.py``).
 AXES: tuple[str, ...] = ("stage", "data", "fsdp", "expert", "sequence", "tensor")
 # the axes the port lays out over a torch.distributed process group
-PORTED_AXES = ("data", "fsdp")
+PORTED_AXES = ("data", "fsdp", "sequence", "tensor")
+# the model-parallel axes of this slice (parallel/sharding.py,
+# ops/ring_attention.py): the LLaMA dense family's fine-tuning only
+MODEL_AXES = ("sequence", "tensor")
+
+# The JAX package's composition rows (analysis/composition.py) a tensor or
+# sequence mesh meets, with its reason strings.
+FUSED_CE_MODEL_AXES = (
+    "--fused-ce does not compose with tensor/stage/sequence mesh "
+    "axes: the vocab-chunked LM head wants an unsharded vocab dim "
+    "and the standard (non-pipelined) loss path; use data/fsdp axes "
+    "or drop the flag")
+DECODE_SEQUENCE = (
+    "KV-cache decode does not compose with sequence parallelism: "
+    "a length-sharded cache would index slots with LOCAL shard "
+    "positions (the same contract ops/mha.py enforces inside "
+    "manual sequence regions); serve on data/fsdp/tensor axes — "
+    "the cache shards batch rows and heads instead")
+# the JAX trainer's startup check (train/trainer.py)
+RING_NEEDS_SEQUENCE = "--attention-impl ring requires a mesh with a sequence axis > 1"
 
 # Speculative-decode draft cap: the verify step scores spec_tokens + 1
 # positions in one decode-kernel call, and the kernel's q block holds at
@@ -44,8 +65,11 @@ def unknown_axis_error(name: str) -> ValueError:
 class MeshConfig:
     """Logical device mesh shape (the JAX package's): ``data`` replicates
     the parameters, ``fsdp`` shards them (ZeRO-3); the batch is split over
-    both.  -1 absorbs the devices the other axes leave (at most one axis).
-    The port runs ``data`` and ``fsdp``; the others stay 1."""
+    both.  ``sequence`` splits each row's positions (ring attention),
+    ``tensor`` the attention heads and the MLP's width (Megatron).  -1
+    absorbs the devices the other axes leave (at most one axis).  The port
+    runs ``data``, ``fsdp``, ``sequence`` and ``tensor``; ``stage`` and
+    ``expert`` stay 1."""
 
     data: int = -1
     fsdp: int = 1
@@ -75,10 +99,45 @@ def parse_mesh_arg(spec: str) -> MeshConfig:
         kw["data"] = 1 if -1 in kw.values() else -1
     unported = {k: v for k, v in kw.items() if k not in PORTED_AXES and v != 1}
     if unported:
-        raise ValueError(f"--mesh {spec!r}: the port lays out data and fsdp only; "
-                         f"{unported} needs tensor, sequence, pipeline or expert "
-                         "parallelism, a later slice (ROADMAP.md item 6)")
+        raise ValueError(f"--mesh {spec!r}: the port lays out data, fsdp, sequence and tensor "
+                         f"only; {unported} needs pipeline or expert parallelism, a later "
+                         "slice (ROADMAP.md item 6)")
+    model_axes = {k: v for k, v in kw.items() if k in MODEL_AXES and v != 1}
+    if kw.get("fsdp", 1) != 1 and model_axes:
+        raise ValueError(f"--mesh {spec!r}: the port does not compose fsdp with "
+                         f"{sorted(model_axes)} yet (FSDP2 over tensor-parallel shards), a "
+                         "later slice (ROADMAP.md item 6)")
     return MeshConfig(**kw)
+
+
+def mesh_composition_error(mesh: MeshConfig, *, family: str, num_experts: int = 0,
+                           fused_ce: bool = False, attention_impl: str = "",
+                           evaluates: bool = False) -> str | None:
+    """Why a run of ``family`` cannot train on ``mesh`` with these flags,
+    or None: the JAX package's composition rows with its reasons
+    (``FUSED_CE_MODEL_AXES``, ``DECODE_SEQUENCE``, ``RING_NEEDS_SEQUENCE``),
+    then the port's own refusals (each a ROADMAP.md entry): tensor and
+    sequence parallelism for BART, T5 and Mixtral, and the eval pass under
+    tensor parallelism.  A -1 axis counts as above 1."""
+    sizes = mesh.axis_sizes()
+    over = {k for k in MODEL_AXES if sizes[k] not in (0, 1)}
+    if attention_impl == "ring" and sizes["sequence"] in (0, 1):
+        return f"{RING_NEEDS_SEQUENCE} (got {sizes})"
+    if not over:
+        return None
+    if fused_ce:
+        return FUSED_CE_MODEL_AXES
+    if evaluates and "sequence" in over:
+        return DECODE_SEQUENCE
+    if family != "llama" or num_experts > 0:
+        what = "Mixtral (experts)" if family == "llama" else family.upper()
+        return (f"{what} under {sorted(over)} is not ported: the port's tensor and sequence "
+                "parallelism covers the LLaMA dense family (ROADMAP.md item 6)")
+    if evaluates:
+        return ("the eval pass under tensor parallelism is not ported (the KV-cache decode "
+                "of tensor-sharded heads, ROADMAP.md item 6): drop --val-file or train on "
+                "data/fsdp/sequence axes")
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,7 +394,9 @@ def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--health-warmup-steps", type=int, default=d.health_warmup_steps)
     p.add_argument("--mesh", type=str, default="data=-1",
                    help="comma list axis=size over the process group: data=N (replicated "
-                        "parameters), fsdp=N (sharded), or both (HSDP)")
+                        "parameters), fsdp=N (sharded), or both (HSDP); sequence=N (ring "
+                        "attention over each row's positions) and tensor=N (Megatron heads "
+                        "and MLP width) for the LLaMA dense family, beside data")
     # the multi-process rendezvous triple (else Valohai, VH_* or torchrun env)
     p.add_argument("--coordinator-address", type=str, default=d.coordinator_address)
     p.add_argument("--num-processes", type=int, default=d.num_processes)
@@ -378,4 +439,30 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         raise ValueError("--chaos host_loss@K with --on-host-loss reshard needs a checkpoint to "
                          "reshard FROM: set --save-every-steps N (a lost host's state is gone — "
                          "topology recovery is a restore, not a migration)")
+    check_mesh_composition(cfg)
     return cfg
+
+
+def check_mesh_composition(cfg: TrainConfig, family: str | None = None,
+                           model_cfg=None) -> None:
+    """``mesh_composition_error`` of the run, raised as ValueError; the
+    model's family and config are looked up from ``model_ckpt`` (a
+    registry name or an HF directory's ``config.json``, nothing built)
+    when a model axis is above 1 and the caller gives none."""
+    sizes = cfg.mesh.axis_sizes()
+    if all(sizes[k] in (0, 1) for k in MODEL_AXES) and cfg.attention_impl != "ring":
+        return
+    if family is None:
+        from distributed_llms_example_tpu_torch.models.registry import model_config
+
+        family, model_cfg = model_config(cfg.model_ckpt)
+    why = mesh_composition_error(
+        cfg.mesh, family=family, num_experts=int(getattr(model_cfg, "num_experts", 0) or 0),
+        fused_ce=cfg.fused_ce, attention_impl=cfg.attention_impl,
+        evaluates=bool(cfg.val_file) and os.path.exists(cfg.val_file))
+    if why is not None:
+        raise ValueError(why)
+    if sizes["tensor"] > 1 and family == "llama":
+        from distributed_llms_example_tpu_torch.parallel.sharding import check_tensor_plan
+
+        check_tensor_plan(model_cfg, sizes["tensor"])

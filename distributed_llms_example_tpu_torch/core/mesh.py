@@ -10,8 +10,10 @@ platform config, ``VH_MASTER_IP``/``VH_WORLD_SIZE``/``VH_RANK``, torchrun's
 ``MASTER_ADDR``/``WORLD_SIZE``/``RANK``), into a ``torch.distributed``
 process group: NCCL for CUDA, gloo when the caller asks for the CPU, and
 never one in place of the other.  The mesh is a ``DeviceMesh`` of the
-``data`` and ``fsdp`` axes, one process a GPU.  A world of one process
-creates no group.
+``data``, ``fsdp``, ``sequence`` and ``tensor`` axes, one process a GPU,
+ranks laid out row-major in the JAX package's axis order, so ``tensor``
+varies fastest; ``axis_groups`` adds the groups the model-parallel step
+reduces over.  A world of one process creates no group.
 
 Launch (one process per GPU)::
 
@@ -39,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+from typing import Any
 
 import numpy as np
 import torch
@@ -58,20 +61,26 @@ _GENERATION = 0
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """Resolved (positive) sizes of the two axes the port lays out."""
+    """Resolved (positive) sizes of the axes the port lays out."""
 
     data: int
     fsdp: int
+    sequence: int = 1
+    tensor: int = 1
 
     @property
     def size(self) -> int:
-        return self.data * self.fsdp
+        return self.data * self.fsdp * self.sequence * self.tensor
+
+    def axes(self) -> dict[str, int]:
+        return {"data": self.data, "fsdp": self.fsdp, "sequence": self.sequence,
+                "tensor": self.tensor}
 
 
 def resolve_mesh_shape(cfg: MeshConfig, n_devices: int) -> MeshSpec:
     """Resolve a -1 axis and check the product against the device count
-    (the JAX package's rules and messages).  An axis other than ``data``
-    and ``fsdp`` must resolve to 1."""
+    (the JAX package's rules and messages).  ``stage`` and ``expert`` must
+    resolve to 1."""
     sizes = cfg.axis_sizes()
     bad = {k: v for k, v in sizes.items() if v == 0 or v < -1}
     if bad:
@@ -89,9 +98,10 @@ def resolve_mesh_shape(cfg: MeshConfig, n_devices: int) -> MeshSpec:
         raise ValueError(f"mesh {sizes} has size {total}, but {n_devices} devices are available")
     unported = {k: v for k, v in sizes.items() if k not in PORTED_AXES and v != 1}
     if unported:
-        raise ValueError(f"the port lays out data and fsdp only, got {unported} "
-                         "(ROADMAP.md item 6)")
-    return MeshSpec(data=sizes["data"], fsdp=sizes["fsdp"])
+        raise ValueError(f"the port lays out data, fsdp, sequence and tensor only, got "
+                         f"{unported} (ROADMAP.md item 6)")
+    return MeshSpec(data=sizes["data"], fsdp=sizes["fsdp"], sequence=sizes["sequence"],
+                    tensor=sizes["tensor"])
 
 
 def _valohai_facts() -> tuple[str, int, int | None]:
@@ -258,18 +268,76 @@ def elastic_mesh_spec(cfg: MeshConfig, n_devices: int) -> MeshSpec:
     return resolve_mesh_shape(dataclasses.replace(cfg, data=n_devices // rest), n_devices)
 
 
+MESH_AXES = ("data", "fsdp", "sequence", "tensor")
+
+
 def build_mesh(spec: MeshSpec, device_type: str):
-    """The (data, fsdp) ``DeviceMesh`` over the process group, ranks laid
-    out row-major as the JAX package lays its devices out: rank r sits at
-    data r // fsdp, fsdp r % fsdp, and holds batch shard r."""
+    """The (data, fsdp, sequence, tensor) ``DeviceMesh`` over the process
+    group, ranks laid out row-major in the JAX package's axis order
+    (``tensor`` fastest): rank r holds what JAX device r holds, its
+    coordinates ``mesh_coords``."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(device_type, (spec.data, spec.fsdp), mesh_dim_names=("data", "fsdp"))
+    return init_device_mesh(device_type, tuple(spec.axes().values()), mesh_dim_names=MESH_AXES)
 
 
-def mesh_coords(spec: MeshSpec, rank: int) -> tuple[int, int]:
-    """(data, fsdp) position of ``rank`` on the mesh of ``spec``."""
-    return rank // spec.fsdp, rank % spec.fsdp
+def mesh_coords(spec: MeshSpec, rank: int) -> tuple[int, int, int, int]:
+    """(data, fsdp, sequence, tensor) position of ``rank`` on the mesh of
+    ``spec``."""
+    out = []
+    for size in reversed(spec.axes().values()):
+        rank, c = divmod(rank, size)
+        out.append(c)
+    return tuple(reversed(out))
+
+
+def mesh_rank(spec: MeshSpec, coords) -> int:
+    """The rank at (data, fsdp, sequence, tensor) ``coords``."""
+    rank = 0
+    for c, size in zip(coords, spec.axes().values()):
+        rank = rank * size + c
+    return rank
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroups:
+    """This rank's groups of a model-parallel mesh: ``rows``, the ranks of
+    its ``tensor`` position (data x sequence: the loss, the token count and
+    the gradients meet over them), ``data`` (the ranks of its sequence and
+    tensor position), ``sequence`` and ``tensor`` (each None at size 1),
+    and this rank's index in the last two."""
+
+    rows: Any
+    data: Any
+    sequence: Any
+    tensor: Any
+    sequence_index: int
+    tensor_index: int
+
+
+def axis_groups(spec: MeshSpec, rank: int) -> AxisGroups:
+    """The groups of ``axis_groups`` on the live process group: every rank
+    creates every group (``new_group`` is collective), in one order."""
+    new_group = torch.distributed.new_group
+    _, _, s, t = mesh_coords(spec, rank)
+    picked: dict[str, Any] = {}
+    lines = {
+        # the ranks that share a tensor position: one group a tensor index
+        "rows": [[mesh_rank(spec, (dd, 0, ss, tt)) for dd in range(spec.data)
+                  for ss in range(spec.sequence)] for tt in range(spec.tensor)],
+        "data": [[mesh_rank(spec, (dd, 0, ss, tt)) for dd in range(spec.data)]
+                 for ss in range(spec.sequence) for tt in range(spec.tensor)],
+        "sequence": [[mesh_rank(spec, (dd, 0, ss, tt)) for ss in range(spec.sequence)]
+                     for dd in range(spec.data) for tt in range(spec.tensor)],
+        "tensor": [[mesh_rank(spec, (dd, 0, ss, tt)) for tt in range(spec.tensor)]
+                   for dd in range(spec.data) for ss in range(spec.sequence)],
+    }
+    for name, groups in lines.items():
+        for ranks in groups:
+            g = new_group(ranks) if len(ranks) > 1 else None
+            if rank in ranks:
+                picked[name] = g
+    return AxisGroups(**picked, sequence_index=s, tensor_index=t)
 
 
 def process_allgather(x: np.ndarray, *, device: torch.device | None = None) -> np.ndarray:

@@ -44,6 +44,17 @@ whatever layout saved the step (a resharding restore: another world size,
 ``fsdp=2`` saved and ``data=2`` restored, one process and a group either
 way).  A saved global shape unlike the model's raises ``ReshardError``.
 One process writes the one-file format above, unchanged.
+
+On a tensor or sequence mesh the writers are the ranks of the first
+``data`` row's first ``sequence`` position (the others hold copies), one
+a tensor rank, and a leaf replicated over ``tensor`` goes into tensor
+rank 0's file alone; a tensor-sharded leaf's entry in ``files`` is ``[lo, hi,
+dim]``, its block on ``dim`` (``parallel/sharding.tensor_dim``: 0 for a
+column-parallel leaf, 1 for a row-parallel one).  A rank reads its block
+of a leaf from the files whose blocks lie on the same dimension (a dim-0
+block from any row layout); a block on another dimension raises
+``ReshardError``: a row-parallel leaf restores under a layout that cuts it
+the same way.
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ from distributed_llms_example_tpu_torch.io.safetensors import (
     save_file,
 )
 from distributed_llms_example_tpu_torch.parallel.fsdp import shard_rows
+from distributed_llms_example_tpu_torch.parallel.sharding import tensor_dim
 from distributed_llms_example_tpu_torch.utils.backoff import sleep_backoff
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
@@ -86,21 +98,27 @@ class ReshardError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class ShardLayout:
-    """This process's place on the (data, fsdp) mesh of a process group."""
+    """This process's place on the (data, fsdp, sequence, tensor) mesh of a
+    process group."""
 
     rank: int
     processes: int
     data: int
     fsdp: int
+    sequence: int = 1
+    tensor: int = 1
 
     @classmethod
     def of(cls, spec, rank: int) -> "ShardLayout":
-        return cls(rank=rank, processes=spec.data * spec.fsdp, data=spec.data, fsdp=spec.fsdp)
+        return cls(rank=rank, processes=spec.size, data=spec.data, fsdp=spec.fsdp,
+                   sequence=spec.sequence, tensor=spec.tensor)
 
     @property
     def writer(self) -> bool:
-        """The first ``data`` row writes; the other rows hold copies."""
-        return self.rank < self.fsdp
+        """The first ``data`` row's first ``sequence`` position writes; the
+        other ranks hold copies."""
+        per_data = self.fsdp * self.sequence * self.tensor
+        return self.rank < per_data and (self.rank // self.tensor) % self.sequence == 0
 
     @property
     def file(self) -> str:
@@ -109,10 +127,30 @@ class ShardLayout:
     def rows(self, shape) -> tuple[int, int]:
         """The dim-0 rows of a tensor of global ``shape`` this rank holds
         (a 0-d tensor: its one value)."""
-        return shard_rows(shape[0], self.fsdp, self.rank % self.fsdp) if len(shape) else (0, 1)
+        return shard_rows(shape[0], self.fsdp, (self.rank // (self.sequence * self.tensor))
+                          % self.fsdp) if len(shape) else (0, 1)
+
+    def owns(self, name: str) -> bool:
+        """Whether this writer's file holds tensor ``name``: a leaf
+        replicated over ``tensor`` is written by tensor rank 0 alone."""
+        return self.tensor == 1 or self.rank % self.tensor == 0 or tensor_dim(name) is not None
+
+    def block(self, name: str, shape) -> tuple[int, int, int]:
+        """(lo, hi, dim): the block of tensor ``name`` (global ``shape``)
+        this rank holds: its tensor rank's on a tensor-sharded leaf's dim,
+        else its ``rows``."""
+        dim = tensor_dim(name) if self.tensor > 1 else None
+        if dim is None:
+            return (*self.rows(shape), 0)
+        per = shape[dim] // self.tensor
+        t = self.rank % self.tensor
+        return t * per, (t + 1) * per, dim
 
     def mesh_layout(self) -> dict:
-        return {"axes": {"data": self.data, "fsdp": self.fsdp}, "processes": self.processes}
+        axes = {"data": self.data, "fsdp": self.fsdp}
+        if self.sequence > 1 or self.tensor > 1:
+            axes.update(sequence=self.sequence, tensor=self.tensor)
+        return {"axes": axes, "processes": self.processes}
 
 
 def _crc32_file(path: str, chunk: int = 1 << 24) -> tuple[int, int]:
@@ -314,7 +352,7 @@ class Checkpointer:
         if _broadcast(step in self.all_steps() if lay.rank == 0 else None):
             return False
         t0 = time.perf_counter()
-        host = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+        host = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items() if lay.owns(k)}
         copy_s = time.perf_counter() - t0
         final = self.step_dir(step)
         tmp = final + ".tmp"
@@ -358,7 +396,10 @@ class Checkpointer:
                          all_processes=True)
                 delay = sleep_backoff(delay, cap_s=8.0)
         crc, size = _crc32_file(path)
-        rows = {k: list(self.layout.rows(shapes[k])) for k in host}
+        rows = {}
+        for k in host:
+            lo, hi, dim = self.layout.block(k, shapes[k])
+            rows[k] = [lo, hi] if dim == 0 else [lo, hi, dim]
         return os.path.basename(path), {"crc32": crc, "size": size}, rows
 
     def _finish_sharded(self, step: int, tmp: str, meta: dict, shapes, entries,
@@ -505,22 +546,39 @@ class Checkpointer:
             if saved[name] != gshape:
                 raise ReshardError(f"step {step}: {name} was saved with global shape "
                                    f"{saved[name]}, the model's is {gshape}")
-            lo, hi = (self.layout.rows(gshape) if self.layout is not None
-                      else (0, gshape[0] if gshape else 1))
-            buf = torch.empty((hi - lo, *gshape[1:]) if gshape else (), dtype=t.dtype)
+            lo, hi, dim = (self.layout.block(name, gshape) if self.layout is not None
+                           else (0, gshape[0] if gshape else 1, 0))
+            local_shape = list(gshape)
+            if gshape:
+                local_shape[dim] = hi - lo
+            buf = torch.empty(local_shape, dtype=t.dtype)
             covered = 0
             for f, rows in files.items():
-                flo, fhi = rows[name] if rows is not None else (0, gshape[0] if gshape else 1)
+                if rows is not None and name not in rows:  # another rank's leaf
+                    continue
+                flo, fhi, fdim = ([*rows[name], 0][:3] if rows is not None
+                                  else (0, gshape[0] if gshape else 1, 0))
+                full_rows = fdim == 0 and (flo, fhi) == (0, gshape[0] if gshape else 1)
+                if fdim != dim and not full_rows:
+                    raise ReshardError(f"step {step}: {name} was saved in blocks on dim {fdim}; "
+                                       f"this layout reads it on dim {dim}")
+                if full_rows and dim != 0:  # a whole leaf: cut this rank's block
+                    flo, fhi = 0, gshape[dim]
                 a, b = max(lo, flo), min(hi, fhi)
                 if a >= b:
                     continue
                 header, start = headers[f]
-                part = read_rows(os.path.join(d, f), header, start, name, a - flo, b - flo)
+                if dim == 0:
+                    part = read_rows(os.path.join(d, f), header, start, name, a - flo, b - flo)
+                else:
+                    # the file's block holds every row of the leaf
+                    part = read_rows(os.path.join(d, f), header, start, name, 0,
+                                     gshape[0]).narrow(dim, a - flo, b - a)
                 if part.dtype != t.dtype:
                     raise ValueError(f"step {step}: {name} in {f} is {part.dtype}, the live "
                                      f"state's {t.dtype}")
                 if gshape:
-                    buf[a - lo:b - lo] = part
+                    buf.narrow(dim, a - lo, b - a).copy_(part)
                 else:
                     buf.copy_(part.reshape(()))
                 covered += b - a

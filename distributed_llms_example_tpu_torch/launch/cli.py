@@ -61,7 +61,13 @@ or each process started with ``VH_MASTER_IP``, ``VH_WORLD_SIZE`` and
 ``VH_RANK`` set, or with ``--coordinator-address``, ``--num-processes`` and
 ``--process-id``; on Valohai the platform's own facts), laid out by
 ``--mesh``: ``data=N`` (replicated parameters, the gradients all-reduced),
-``fsdp=N`` (sharded, FSDP2) or ``data=a,fsdp=b`` (HSDP).  The group is
+``fsdp=N`` (sharded, FSDP2) or ``data=a,fsdp=b`` (HSDP), and for the
+LLaMA dense family ``tensor=N`` (Megatron: the heads and the MLP width
+split), ``sequence=N`` (ring attention over each row's positions;
+``--attention-impl ring`` forces it and needs this axis) or both beside
+``data`` (``data=2,sequence=2,tensor=2``); fsdp with them, BART, T5,
+Mixtral and the eval pass under them are refused at parse time
+(``core/config.py mesh_composition_error``).  The group is
 NCCL on CUDA and gloo with ``--device cpu`` (``core/mesh.py``).  Without
 ``--train-file``, ``train.json`` and ``val.json`` beside the Valohai
 ``dataset`` input are read.  ``serve``'s ``--mesh`` accepts one-device
@@ -506,7 +512,10 @@ def train(argv: list[str] | None = None, *, loaded=None):
     before any device or dataset is touched."""
     import dataclasses
 
-    from distributed_llms_example_tpu_torch.core.config import config_from_args
+    from distributed_llms_example_tpu_torch.core.config import (
+        check_mesh_composition,
+        config_from_args,
+    )
     from distributed_llms_example_tpu_torch.core.mesh import initialize_distributed
     from distributed_llms_example_tpu_torch.data.dataset import load_json_records
     from distributed_llms_example_tpu_torch.train.trainer import Trainer
@@ -521,6 +530,8 @@ def train(argv: list[str] | None = None, *, loaded=None):
         print(cfg.to_json())
         return None
     train_file, val_file = resolve_dataset_files(cfg.train_file, cfg.val_file)
+    if val_file != cfg.val_file:  # a Valohai val.json: the eval rows against the mesh again
+        check_mesh_composition(dataclasses.replace(cfg, val_file=val_file))
     cfg = dataclasses.replace(cfg, train_file=train_file, val_file=val_file)
     initialize_distributed(cfg.coordinator_address, cfg.num_processes, cfg.process_id,
                            device_type=cfg.device)

@@ -228,17 +228,23 @@ def _gather_rows(t) -> torch.Tensor:
     return out[:rows]
 
 
-def full_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+def full_state_dict(model: torch.nn.Module, *, tensor_group=None,
+                    tensor: int = 1) -> dict[str, torch.Tensor]:
     """``model.state_dict()`` with every sharded (DTensor) entry gathered
     whole, one at a time (every rank joins every gather), and kept on
     process 0's host only: the other ranks get no entry for it, so no rank
-    but the writer ever holds the whole model."""
+    but the writer ever holds the whole model.  With ``tensor_group`` (a
+    tensor-parallel model over ``tensor`` ranks) each tensor-sharded leaf
+    is gathered over it the same way (``parallel/sharding.gather_leaf``)."""
     from distributed_llms_example_tpu_torch.core.mesh import process_index
+    from distributed_llms_example_tpu_torch.parallel.sharding import gather_leaf, tensor_dim
 
     out = {}
     for name, t in model.state_dict().items():
-        if hasattr(t, "device_mesh"):
-            full = _gather_rows(t.detach())
+        dim = tensor_dim(name) if tensor_group is not None else None
+        if hasattr(t, "device_mesh") or dim is not None:
+            full = (_gather_rows(t.detach()) if dim is None
+                    else gather_leaf(t, dim, tensor_group, tensor))
             if process_index() == 0:
                 out[name] = full.cpu()
             del full

@@ -14,7 +14,8 @@ packages), as a tied T5's; LLaMA's and flan-T5's untied ``lm_head`` is an
 ordinary Dense.  A Mixtral block's ``mlp/router/kernel`` is a Dense kernel
 like any other; its stacked ``mlp/gate_proj``, ``up_proj`` and
 ``down_proj`` leaves are no kernels and keep their (E, in, out) layout,
-which ``ops/moe.MoEMLP`` shares.
+which ``ops/moe.MoEMLP`` shares.  A tensor-parallel LLaMA takes its
+rank's shards of the tree (``tensor_shard_state``).
 """
 
 from __future__ import annotations
@@ -64,6 +65,15 @@ def blocks_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Ten
     """Port-named fp32 tensors for every leaf of a JAX LLaMA or T5 param
     tree (both number their layers ``block_{i}``)."""
     return _state_dict_from_jax(params, r"()block_(\d+)")
+
+
+def tensor_shard_state(sd: Mapping[str, torch.Tensor], tensor: int,
+                       index: int) -> dict[str, torch.Tensor]:
+    """Tensor rank ``index``'s shards of a whole port state dict (the plan
+    of ``parallel/sharding.py``; replicated leaves as they are)."""
+    from distributed_llms_example_tpu_torch.parallel.sharding import shard_leaf, tensor_dim
+
+    return {k: shard_leaf(v, tensor_dim(k), tensor, index) for k, v in sd.items()}
 
 
 def load_jax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> None:

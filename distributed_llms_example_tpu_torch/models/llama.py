@@ -25,6 +25,13 @@ layer's load-balancing loss is a return value: ``forward``,
 caller that asks with ``return_aux=True`` (the train step), and everyone
 else never sees it, as the JAX package's generation discards its sown
 losses.  The pipelined training adapter is a later slice (ROADMAP.md).
+
+Tensor and sequence parallelism (the dense family; ``parallel/
+sharding.py`` and ``parallel/activation.py``): the blocks take the tensor
+plan (q/k/v, gate and up column-parallel, o and down row-parallel, norms,
+the embedding and the LM head replicated), and a sequence-sharded pass
+gets its shard's global ``positions`` (RoPE; ring attention's causal mask
+derives them from the ring) and its K/V block's padding mask.
 """
 
 from __future__ import annotations
@@ -43,6 +50,10 @@ from distributed_llms_example_tpu_torch.ops.fused_dropout import Dropout
 from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
 from distributed_llms_example_tpu_torch.ops.moe import MoEMLP
 from distributed_llms_example_tpu_torch.ops.norms import RMSNorm
+from distributed_llms_example_tpu_torch.parallel.activation import (
+    copy_to_tensor,
+    reduce_from_tensor,
+)
 from distributed_llms_example_tpu_torch.utils.remat import maybe_checkpointed
 
 
@@ -79,16 +90,23 @@ class LlamaConfig:
 
 
 class LlamaMLP(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU: down(silu(gate(x)) * up(x)).  Under ``tensor``
+    (``parallel``) gate and up are column-parallel and down row-parallel:
+    the input crosses the tensor group by ``copy_to_tensor``, the partial
+    output by ``reduce_from_tensor``."""
 
     def __init__(self, cfg: LlamaConfig, **kw):
         super().__init__()
         self.gate_proj = Dense(cfg.hidden_size, cfg.intermediate_size, use_bias=False, **kw)
         self.up_proj = Dense(cfg.hidden_size, cfg.intermediate_size, use_bias=False, **kw)
         self.down_proj = Dense(cfg.intermediate_size, cfg.hidden_size, use_bias=False, **kw)
+        self.parallel = None  # parallel/activation.attach
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        group = self.parallel.tensor_group if self.parallel is not None else None
+        x = copy_to_tensor(x, group)
+        return reduce_from_tensor(self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)),
+                                  group)
 
 
 class LlamaBlock(nn.Module):

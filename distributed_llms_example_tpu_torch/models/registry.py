@@ -258,6 +258,19 @@ class LoadedModel:
         self.module.init_weights(gen)
 
 
+def model_config(name_or_path: str) -> tuple[str, Any]:
+    """(family, config) of a registry name or a local HF checkpoint
+    directory, without building the model."""
+    short = name_or_path.rsplit("/", 1)[-1]
+    if os.path.isdir(name_or_path):
+        return _local_config(name_or_path)
+    for family, table in (("t5", T5_CONFIGS), ("bart", BART_CONFIGS), ("llama", LLAMA_CONFIGS)):
+        if short in table:
+            return family, table[short]
+    raise ValueError(f"unknown model {name_or_path!r}: not one of "
+                     f"{sorted(T5_CONFIGS) + sorted(BART_CONFIGS) + sorted(LLAMA_CONFIGS)}")
+
+
 def load_model(
     name_or_path: str,
     *,
@@ -292,17 +305,7 @@ def load_model(
         raise ValueError(f"remat_policy={remat_policy!r}: must be one of {list(REMAT_POLICIES)}")
     short = name_or_path.rsplit("/", 1)[-1]
     local = os.path.isdir(name_or_path)
-    if local:
-        family, cfg = _local_config(name_or_path)
-    elif short in T5_CONFIGS:
-        family, cfg = "t5", T5_CONFIGS[short]
-    elif short in BART_CONFIGS:
-        family, cfg = "bart", BART_CONFIGS[short]
-    elif short in LLAMA_CONFIGS:
-        family, cfg = "llama", LLAMA_CONFIGS[short]
-    else:
-        raise ValueError(f"unknown model {name_or_path!r}: not one of "
-                         f"{sorted(T5_CONFIGS) + sorted(BART_CONFIGS) + sorted(LLAMA_CONFIGS)}")
+    family, cfg = model_config(name_or_path)
     if fused_ce:
         if family in SEQ2SEQ:
             raise ValueError("--fused-ce supports causal (decoder-only) families; seq2seq "

@@ -138,7 +138,8 @@ class TrainerObs:
     # -- startup ---------------------------------------------------------
 
     def startup_gauges(self, model: torch.nn.Module, *, model_name: str, data: int, fsdp: int,
-                       global_batch: int, src_len: int, tgt_len: int, is_seq2seq: bool) -> None:
+                       global_batch: int, src_len: int, tgt_len: int, is_seq2seq: bool,
+                       sequence: int = 1, tensor: int = 1) -> None:
         """The ``obs_gauges`` line (``obs/gauges.py``): FLOPs a step, the MFU
         numerator, and the collective byte account; and a memory account due
         at the next step.  Run at startup and after every elastic rebuild.  A
@@ -156,7 +157,7 @@ class TrainerObs:
                     model, model_name=model_name, data=data, fsdp=fsdp,
                     global_batch=global_batch, src_len=src_len, tgt_len=tgt_len,
                     is_seq2seq=is_seq2seq, grad_accum_steps=self.cfg.grad_accum_steps,
-                    health=self.health_on)
+                    health=self.health_on, sequence=sequence, tensor=tensor)
         except Exception as e:  # noqa: BLE001 - telemetry never fails the run
             log_json({"event": "obs_gauges_skipped", "reason": str(e)[:300]})
             return

@@ -36,9 +36,18 @@ account.
   their all-reduce over ``data`` under HSDP), each of padded dim-0 shards;
   kernel 8's float64 partial-norm all-reduce and the health sums' over the
   ``fsdp`` ranks; the loss and token all-reduce of every multi-rank step.
-  Sizes are the tensor bytes a call defines on the rank (an all-gather's
-  output, a reduce-scatter's output), as the JAX account sizes an HLO
-  instruction.  Gradient and parameter traffic is ``gradient_bytes``;
+  On a tensor or sequence mesh: the coalesced all-reduce of the rank's
+  gradient shards over its rows (data x sequence), Megatron's all-reduces
+  over ``tensor`` (``parallel/activation.py``: the row-parallel outputs of
+  o_proj and down_proj forward, the column-parallel inputs' gradients
+  backward, and the forward's again under remat, each of one microbatch's
+  (rows, positions, hidden) in the compute dtype), the ring's hops as
+  ``collective-permute`` (``ops/ring_attention.py``: n - 1 a layer forward,
+  K and V in one buffer and the padding mask in another, n - 1 backward
+  with dK and dV, the forward's again under remat), kernel 8's partial norm
+  and the health sums over ``tensor``.  Sizes are the tensor bytes a call
+  defines on the rank (an all-gather's output, a reduce-scatter's output),
+  as the JAX account sizes an HLO instruction.  Gradient and parameter traffic is ``gradient_bytes``;
   everything else (the loss, the norm and the health sums) is
   ``activation_bytes``.
 """
@@ -117,26 +126,79 @@ def _add(account: dict, op: str, nbytes: int, *, gradient: bool, count: int = 1)
     slot["gradient_bytes" if gradient else "activation_bytes"] += int(nbytes) * count
 
 
-def collective_account(model: torch.nn.Module, *, data: int, fsdp: int,
+def _grad_all_reduce(account: dict, params) -> None:
+    """``train/step.all_reduce_grads``' coalesced buckets of fp32
+    gradients."""
+    from distributed_llms_example_tpu_torch.train.step import GRAD_BUCKET_ELEMENTS
+
+    group: list[int] = []
+    for _, p in params:
+        if group and sum(group) + p.numel() > GRAD_BUCKET_ELEMENTS:
+            _add(account, "all-reduce", sum(group) * 4, gradient=True)
+            group = []
+        group.append(p.numel())
+    if group:
+        _add(account, "all-reduce", sum(group) * 4, gradient=True)
+
+
+def _model_parallel_account(account: dict, model: torch.nn.Module, *, data: int,
+                            sequence: int, tensor: int, global_batch: int, seq_len: int,
+                            grad_accum_steps: int, health: bool) -> None:
+    """The collectives of a tensor or sequence step (``model``: the rank's
+    shards; ``sequence`` the ring's size, 1 when the batch is not
+    sequence-sharded)."""
+    params = list(model.named_parameters())
+    rows = data * sequence
+    if rows > 1:
+        _grad_all_reduce(account, params)
+        _add(account, "all-reduce", 8, gradient=False)  # the loss and token sums
+    cfg = model.config
+    layers, n = cfg.num_hidden_layers, int(grad_accum_steps)
+    micro_rows = global_batch // data // n
+    t_local = seq_len // sequence
+    width = torch.empty((), dtype=model.dtype).element_size()
+    remat = model.remat_policy is not None
+    if tensor > 1:
+        # forward o_proj and down_proj, backward the two column inputs, and
+        # under remat the forward again
+        per = layers * (4 + 2 * remat)
+        _add(account, "all-reduce", micro_rows * t_local * cfg.hidden_size * width,
+             gradient=False, count=per * n)
+        _add(account, "all-reduce", 8, gradient=False)  # kernel 8's partial norm
+        if health:
+            from distributed_llms_example_tpu_torch.ops.fused_optim import STATS
+
+            _add(account, "all-reduce", len(params) * STATS * 8, gradient=False)
+    if sequence > 1:
+        heads = cfg.num_attention_heads // tensor  # K and V ride the ring repeated to them
+        kv = 2 * micro_rows * heads * t_local * cfg.head_dim * width
+        hops = (sequence - 1) * layers * n
+        forward = hops * (1 + remat)
+        _add(account, "collective-permute", kv, gradient=False, count=forward + hops)
+        _add(account, "collective-permute", micro_rows * t_local * 4, gradient=False,
+             count=forward)  # the padding mask's fp32 block
+
+
+def collective_account(model: torch.nn.Module, *, data: int, fsdp: int, sequence: int = 1,
+                       tensor: int = 1, global_batch: int = 0, seq_len: int = 0,
                        grad_accum_steps: int = 1, health: bool = False) -> dict:
     """The per-step, per-rank collective byte account of the port's train
-    step on a (``data``, ``fsdp``) mesh (``model``: its global parameter
-    shapes; fp32 master parameters and gradients)."""
+    step on a (``data``, ``fsdp``, ``sequence``, ``tensor``) mesh
+    (``model``: its parameters, the rank's tensor shards on a tensor mesh;
+    fp32 master parameters and gradients).  A tensor or sequence mesh also
+    needs the global batch and the padded length of its activations."""
     from distributed_llms_example_tpu_torch.parallel.fsdp import transformer_blocks
-    from distributed_llms_example_tpu_torch.train.step import GRAD_BUCKET_ELEMENTS
 
     world = data * fsdp
     account: dict[str, Any] = {}
     params = list(model.named_parameters())
-    if world > 1 and fsdp == 1:
-        group: list[int] = []
-        for _, p in params:  # all_reduce_grads' coalescing
-            if group and sum(group) + p.numel() > GRAD_BUCKET_ELEMENTS:
-                _add(account, "all-reduce", sum(group) * 4, gradient=True)
-                group = []
-            group.append(p.numel())
-        if group:
-            _add(account, "all-reduce", sum(group) * 4, gradient=True)
+    if sequence > 1 or tensor > 1:
+        _model_parallel_account(account, model, data=data, sequence=sequence, tensor=tensor,
+                                global_batch=global_batch, seq_len=seq_len,
+                                grad_accum_steps=grad_accum_steps, health=health)
+        world = 1  # the loss and token sums are in the rows' account
+    elif world > 1 and fsdp == 1:
+        _grad_all_reduce(account, params)
     if fsdp > 1:
         blocks = transformer_blocks(model)
         in_block = {id(p) for blk in blocks for p in blk.parameters()}
@@ -166,11 +228,16 @@ def collective_account(model: torch.nn.Module, *, data: int, fsdp: int,
 
 def train_step_static_gauges(model: torch.nn.Module, *, model_name: str, data: int, fsdp: int,
                              global_batch: int, src_len: int, tgt_len: int, is_seq2seq: bool,
-                             grad_accum_steps: int = 1, health: bool = False) -> dict:
+                             grad_accum_steps: int = 1, health: bool = False,
+                             sequence: int = 1, tensor: int = 1) -> dict:
     """The startup gauges of a run: its parameters, tokens and FLOPs a step
     (``count_step_flops``, else the 6N estimate) and the collective byte
-    account, in the JAX package's ``obs_gauges`` fields."""
-    n_params = int(sum(math.prod(p.shape) for p in model.parameters()))
+    account, in the JAX package's ``obs_gauges`` fields.  A tensor-parallel
+    model's parameters are counted whole."""
+    from distributed_llms_example_tpu_torch.parallel.sharding import tensor_dim
+
+    n_params = int(sum(math.prod(p.shape) * (tensor if tensor_dim(n) is not None else 1)
+                       for n, p in model.named_parameters()))
     tokens_per_step = global_batch * (src_len + tgt_len if is_seq2seq else src_len)
     flops_source = "flop_counter"
     try:
@@ -183,7 +250,9 @@ def train_step_static_gauges(model: torch.nn.Module, *, model_name: str, data: i
         flops_source = "6N_tokens_estimate"
     return {
         "model": model_name,
-        "mesh": {"data": int(data), "fsdp": int(fsdp)},
+        "mesh": {"data": int(data), "fsdp": int(fsdp),
+                 **({"sequence": int(sequence), "tensor": int(tensor)}
+                    if sequence > 1 or tensor > 1 else {})},
         "global_batch": int(global_batch),
         "grad_accum_steps": int(grad_accum_steps),
         "grad_compression": "off",
@@ -193,6 +262,7 @@ def train_step_static_gauges(model: torch.nn.Module, *, model_name: str, data: i
         "flops_source": flops_source,
         "flops_counted": FLOPS_COUNTED if flops_source == "flop_counter" else
         "6 x parameters x tokens a step",
-        "comm": collective_account(model, data=data, fsdp=fsdp,
+        "comm": collective_account(model, data=data, fsdp=fsdp, sequence=sequence,
+                                   tensor=tensor, global_batch=global_batch, seq_len=src_len,
                                    grad_accum_steps=grad_accum_steps, health=health),
     }

@@ -31,7 +31,12 @@ checkpointing replays the seeds of its first run (``seed_tape``).  Over a
 mesh of more than one rank every rank draws the same seed from the shared
 stream and folds its mesh position into it (``shard_seed``, the JAX
 package's ``_shard_seed``): the ranks hold different rows, and unfolded
-they would drop the same positions of each.
+they would drop the same positions of each.  A sequence-sharded
+activation folds its sequence index after the batch axes, as the JAX
+package's shards of one; the tensor index is folded into an
+attention-probs seed alone (each tensor rank holds other heads), never
+into a residual one: the residual stream is replicated over ``tensor``,
+so every tensor rank must drop the same positions of it.
 """
 
 from __future__ import annotations
@@ -320,29 +325,35 @@ def seed_tape(tape: list[int], *, replay: bool):
                            f"{len(tape)}")
 
 
-# this rank's (data, fsdp, expert) mesh position, folded into every seed;
-# None on a mesh of one device (``set_shard_coords``)
+# this rank's (data, fsdp, expert[, sequence]) mesh position, folded into
+# every seed, and its tensor index, folded into attention-probs seeds; None
+# on a mesh of one device (``set_shard_coords``)
 _SHARD_COORDS: list[tuple[int, ...] | None] = [None]
+_TENSOR_INDEX = [0]
 _FOLD = 1000003
 
 
-def set_shard_coords(coords: tuple[int, ...] | None) -> None:
+def set_shard_coords(coords: tuple[int, ...] | None, *, tensor_index: int = 0) -> None:
     """This process's (data, fsdp, expert) position on a mesh of more than
-    one device, or None (one device: seeds stay as drawn)."""
+    one device, with its sequence index after them when the batch is
+    sequence-sharded, or None (one device: seeds stay as drawn); and its
+    ``tensor`` index."""
     _SHARD_COORDS[0] = None if coords is None else tuple(int(c) for c in coords)
+    _TENSOR_INDEX[0] = int(tensor_index)
 
 
 def shard_seed(seed: int, *, heads_axis: bool = False) -> int:
     """``seed`` with this rank's mesh position folded in, in wrapping int32
     arithmetic: ``seed = seed * 1000003 + index`` for each of data, fsdp
     and expert in that order (the JAX package's ``_shard_seed`` over its
-    batch axes, size-1 axes included), and the ``tensor`` axis's 0 after
-    them for an attention-probs seed (``heads_axis``), as the JAX flash
-    path folds its head axis too.  On one device: ``seed`` itself."""
+    batch axes, size-1 axes included), then the sequence index of a
+    sequence-sharded batch, and the ``tensor`` index after them for an
+    attention-probs seed (``heads_axis``), as the JAX flash path folds its
+    head axis too.  On one device: ``seed`` itself."""
     coords = _SHARD_COORDS[0]
     if coords is None:
         return seed
-    for c in coords + ((0,) if heads_axis else ()):
+    for c in coords + ((_TENSOR_INDEX[0],) if heads_axis else ()):
         seed = (seed * _FOLD + c) & M32
         seed = seed - (1 << 32) if seed >= 1 << 31 else seed
     return seed

@@ -32,9 +32,16 @@ or under GQA K/V are repeated per beam.  Attention-probs dropout
 int32 seed a call from the host-side stream of ``fused_dropout.next_seed``
 (what ``train_step`` opens with ``dropout_seeds``), passed to the flash
 kernels' in-kernel mask or to the plain route, which draws the same mask;
-eval and cached passes never drop, as in the JAX package.  Ring attention
-(which raises on CUDA, dropout or not) and sharded execution join with
-later slices.
+eval and cached passes never drop, as in the JAX package.
+
+Over a model-parallel mesh (``parallel``, the ``ModelParallel`` of
+``parallel/activation.py`` the trainer attaches): under ``tensor`` the module holds
+its rank's heads (``parallel/sharding.py`` cuts the projections: q/k/v
+column-parallel, o row-parallel) and its input and output cross the
+tensor group through Megatron's conjugate functions; under a
+sequence-sharded batch an uncached pass selects ring attention
+(``ops/ring_attention.py``) by the JAX package's rule
+(``select_attention_impl``), with RoPE at the shard's global positions.
 """
 
 from __future__ import annotations
@@ -63,6 +70,11 @@ from distributed_llms_example_tpu_torch.ops.flash_attention import (
     dequantize_kv,
     quantize_kv,
 )
+from distributed_llms_example_tpu_torch.ops.ring_attention import ring_attention_sharded
+from distributed_llms_example_tpu_torch.parallel.activation import (
+    copy_to_tensor,
+    reduce_from_tensor,
+)
 from distributed_llms_example_tpu_torch.serving.cache_pool import gather_cache, scatter_step
 from distributed_llms_example_tpu_torch.utils.jsonlog import log_json
 
@@ -85,18 +97,51 @@ def _check_impl(attention_impl: str) -> None:
         )
 
 
-def _ring_unported(backend: str) -> None:
-    if backend == "cuda":
-        raise NotImplementedError(
-            "attention_impl='ring': ring attention is not ported yet (ROADMAP)"
-        )
+def _uneven_split_blocker(mesh: dict, *, heads: int, batch: int) -> str | None:
+    """The JAX package's: batch and heads must split evenly over the
+    (data x fsdp) shards and ``tensor``; None when they do."""
+    tensor = mesh.get("tensor", 1)
+    shards = mesh.get("data", 1) * mesh.get("fsdp", 1)
+    if heads % tensor or batch % shards:
+        return (f"uneven split: heads={heads} over tensor={tensor}, "
+                f"batch={batch} over {shards} data/fsdp shards")
+    return None
+
+
+def _ring_blocker(seq_shards: int, *, batch: int, heads: int, q_len: int, kv_len: int,
+                  causal: bool, bias_kv_only: bool | None, mesh: dict | None) -> str | None:
+    """None if ring attention can run, else why not (the JAX package's
+    ``_ring_blocker``, its reasons word for word)."""
+    if mesh is None:
+        return "no mesh context"
+    if seq_shards <= 1:
+        return "mesh has no sequence axis > 1"
+    if q_len % seq_shards or kv_len % seq_shards:
+        return f"q_len={q_len}/kv_len={kv_len} not divisible by sequence={seq_shards}"
+    if causal and q_len != kv_len:
+        return f"causal ring needs square attention, got q={q_len} kv={kv_len}"
+    if bias_kv_only is False:
+        return "bias is not K-only (ring rotates only (b,1,1,K) biases)"
+    return _uneven_split_blocker(mesh, heads=heads, batch=batch)
 
 
 def select_attention_impl(
     attention_impl: str, *, head_dim: int, q_len: int, kv_len: int,
     use_cache: bool, backend: str, causal: bool = False, has_learned_bias: bool = False,
+    mesh: dict | None = None, batch: int = 1, heads: int = 1,
+    bias_kv_only: bool | None = None,
 ) -> tuple[str, str]:
     """(impl, reason) for an uncached attention call — pure selection logic.
+
+    Ring first, by the JAX package's rule: ``mesh`` (the axis sizes of a
+    model-parallel run, None outside one) with a ``sequence`` axis above 1
+    picks ``ring`` for ``auto`` and ``ring`` when ``_ring_blocker`` finds
+    nothing, over the GLOBAL ``batch``, ``heads``, ``q_len`` and
+    ``kv_len``; a forced ``ring`` that cannot run raises ValueError on a
+    mesh and is plain attention outside one (module init, as in the JAX
+    package); ``auto`` on a sequence mesh that cannot ring raises too,
+    since the port's shards hold only their own keys (the JAX package's
+    GSPMD gathers them for plain attention).
 
     On CUDA, ``auto`` and ``flash`` pick the flash-attention kernel for
     every shape it has an instance for (any lengths; head_dim in
@@ -106,17 +151,24 @@ def select_attention_impl(
     kernel too).  For CPU tensors the JAX package's rule holds, so both
     packages run the same path: ``flash`` where the shape tiles (with the
     learned-bias path's tile caps when ``has_learned_bias``), plain
-    attention otherwise and for ``auto``.  ``ring`` has no port yet: it
-    raises on CUDA and runs plain attention on the CPU, as the JAX package
-    does without a mesh."""
+    attention otherwise and for ``auto``."""
     _check_impl(attention_impl)
     if attention_impl == "xla":
         return "xla", "forced"
     if use_cache:
         return "xla", "kv-cache decode step"
-    if attention_impl == "ring":
-        _ring_unported(backend)
-        return "xla", "ring requested but ring attention is not ported yet (ROADMAP)"
+    seq_shards = mesh.get("sequence", 1) if mesh is not None else 1
+    if attention_impl == "ring" or (attention_impl == "auto" and seq_shards > 1):
+        why = _ring_blocker(seq_shards, batch=batch, heads=heads, q_len=q_len, kv_len=kv_len,
+                            causal=causal, bias_kv_only=bias_kv_only, mesh=mesh)
+        if why is None:
+            return "ring", ("forced" if attention_impl == "ring" else "auto: sequence-parallel mesh")
+        if attention_impl == "ring" and mesh is None:
+            return "xla", f"ring requested but {why}"
+        if attention_impl == "ring":
+            raise ValueError(f"attention_impl='ring' but {why}")
+        raise ValueError(f"sequence axis present but {why}: the port's sequence shards hold "
+                         "only their own keys, so plain attention cannot stand in for the ring")
     if backend == "cuda":
         if head_dim not in KERNEL_HEAD_DIMS:
             return "xla", f"{attention_impl}: no kernel instance for head_dim={head_dim}"
@@ -145,7 +197,6 @@ def select_decode_impl(
     if attention_impl == "xla":
         return "xla", "forced"
     if attention_impl == "ring":
-        _ring_unported(backend)
         return "xla", "ring attention has no KV-cache decode path"
     if backend == "cuda":
         if head_dim not in KERNEL_HEAD_DIMS:
@@ -291,6 +342,8 @@ class MultiHeadAttention(nn.Module):
         self.use_rope, self.rope_theta = use_rope, rope_theta
         self.probs_dropout_rate = float(probs_dropout_rate)
         self.causal, self.dtype, self.attention_impl = causal, dtype, attention_impl
+        # the rank's place on a model-parallel mesh (parallel/activation.attach)
+        self.parallel = None
 
         def mk(i, o):
             return Dense(i, o, use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
@@ -305,9 +358,15 @@ class MultiHeadAttention(nn.Module):
         b, s, _ = x.shape
         return x.reshape(b, s, heads or self.num_heads, self.head_dim).transpose(1, 2)
 
+    def _tensor_group(self):
+        return self.parallel.tensor_group if self.parallel is not None else None
+
     def _merge(self, out: torch.Tensor) -> torch.Tensor:
+        """o_proj over the heads; under ``tensor`` a row-parallel partial
+        sum, all-reduced over the tensor group."""
         b, h, s, d = out.shape
-        return self.o_proj(out.transpose(1, 2).reshape(b, s, h * d))
+        return reduce_from_tensor(self.o_proj(out.transpose(1, 2).reshape(b, s, h * d)),
+                                  self._tensor_group())
 
     def _repeat_kv(self, x: torch.Tensor) -> torch.Tensor:
         """Each kv head repeated over its group of q heads (``jnp.repeat``
@@ -351,6 +410,10 @@ class MultiHeadAttention(nn.Module):
         ``learned_bias`` ((1, H, q_len, kv_len), uncached passes only) is
         added after ``bias`` and gets a gradient: the flash kernels' learned
         bias branch, or a term of the plain path's bias."""
+        tg = self._tensor_group()
+        hidden = copy_to_tensor(hidden, tg)
+        if kv_hidden is not None:
+            kv_hidden = copy_to_tensor(kv_hidden, tg)
         q = self._split(self.q_proj(hidden))
         if cross_kv is not None:
             k, v = cross_kv
@@ -376,9 +439,13 @@ class MultiHeadAttention(nn.Module):
             if learned_bias is not None:
                 raise ValueError("a cached pass takes its position bias in `bias`")
             return self._cached(q, k, v, bias, cache, cache_positions, positions)
+        mp = self.parallel
+        seq = mp.sequence if mp is not None else 1
         if self.use_rope:
             if positions is None:
-                positions = torch.arange(q.shape[2], device=q.device)[None, :]
+                # a sequence shard's queries sit at its global positions
+                start = mp.sequence_index * q.shape[2] if seq > 1 else 0
+                positions = torch.arange(start, start + q.shape[2], device=q.device)[None, :]
             q, k = self._rope(q, k, positions)
         k, v = self._repeat_kv(k), self._repeat_kv(v)
 
@@ -389,12 +456,24 @@ class MultiHeadAttention(nn.Module):
                 if rate > 0.0 else {})
         causal_here = self.causal
         impl, reason = select_attention_impl(
-            self.attention_impl, head_dim=self.head_dim, q_len=q.shape[2],
-            kv_len=k.shape[2], use_cache=False, backend=q.device.type, causal=causal_here,
+            self.attention_impl, head_dim=self.head_dim, q_len=q.shape[2] * seq,
+            kv_len=k.shape[2] * seq, use_cache=False, backend=q.device.type, causal=causal_here,
             has_learned_bias=learned_bias is not None,
+            mesh=mp.mesh if mp is not None else None,
+            batch=q.shape[0] * (mp.batch_shards if mp is not None else 1),
+            heads=self.num_heads * (mp.tensor if mp is not None else 1),
+            bias_kv_only=None if bias is None else (bias.shape[1] == 1 and bias.shape[2] == 1),
         )
         _log_impl_once(impl, reason)
-        if impl == "flash":
+        if impl == "ring":
+            if rate > 0.0:
+                raise ValueError(
+                    "probs_dropout_rate > 0 is not supported on the ring attention path (the "
+                    "rotating kv blocks would need a ring-aware mask stream); train with "
+                    "attention_impl 'flash'/'xla' or probs dropout off")
+            out = ring_attention_sharded(q, k, v, bias, parallel=mp, causal=causal_here,
+                                         scale=self.scale, dtype=self.dtype)
+        elif impl == "flash":
             out = flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), bias, learned_bias=learned_bias,
                 causal=causal_here, scale=self.scale, dtype=self.dtype, **drop,

@@ -51,7 +51,8 @@ def shard_model(model: nn.Module, mesh) -> nn.Module:
     ``fsdp`` > 1."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
-    shard_mesh = mesh if mesh["data"].size() > 1 else mesh["fsdp"]
+    # the (data, fsdp) face of the mesh: its sequence and tensor axes are 1
+    shard_mesh = mesh["data", "fsdp"] if mesh["data"].size() > 1 else mesh["fsdp"]
     blocks = transformer_blocks(model)
     for unit in [*blocks, model]:  # the blocks first: the root holds what they leave
         fully_shard(unit, mesh=shard_mesh)

@@ -135,7 +135,8 @@ def step_scalars(spec: OptimizerSpec, schedule: Schedule, count: int,
 
 
 def fused_optimizer_apply(spec: OptimizerSpec, schedule: Schedule, named_params, state: AdamWState,
-                          grads: list[torch.Tensor], tokens: torch.Tensor, *, norm_group=None):
+                          grads: list[torch.Tensor], tokens: torch.Tensor, *, norm_group=None,
+                          tensor=None):
     """One clip + AdamW step, in place on the parameters and ``state``.
     ``named_params``: (name, fp32 parameter) pairs; ``grads``: their fp32
     token-summed gradients, divided here IN PLACE by ``tokens`` (a
@@ -143,7 +144,12 @@ def fused_optimizer_apply(spec: OptimizerSpec, schedule: Schedule, named_params,
     gradients, a device tensor.  ``norm_group``: the process group whose
     ranks hold the other shards of these leaves (FSDP): the norm is the
     root of the float64 sums of squares all-reduced over it (the gradient
-    pass's partial mode, then ``grad_norm_finish``)."""
+    pass's partial mode, then ``grad_norm_finish``).  ``tensor``: (the
+    tensor group, this rank's index on it, each leaf's replicated flag)
+    of a tensor-parallel model: the gradient pass runs twice, over the
+    replicated leaves and over the tensor-sharded ones, each partial; the
+    second's sum, plus the first's on tensor rank 0 alone (a replicated
+    leaf counts once), is summed over the group and finished."""
     names, params = zip(*named_params)
     params = list(params)
     decay = [decay_mask(n, p) for n, p in zip(names, params)]
@@ -152,7 +158,16 @@ def fused_optimizer_apply(spec: OptimizerSpec, schedule: Schedule, named_params,
         if state.table is None or state.table.ptrs[:, 0].tolist() != [p.data_ptr() for p in params]:
             state.table = leaf_table(grads, params, state.mu, state.nu, decay)
         table = state.table.with_grads(grads)
-    if norm_group is None:
+    if tensor is not None:
+        group, index, replicated = tensor
+        rep = fused_grad_prep([g for g, r in zip(grads, replicated) if r], tokens, partial=True)
+        total = fused_grad_prep([g for g, r in zip(grads, replicated) if not r], tokens,
+                                partial=True)
+        if index == 0:
+            total = total + rep
+        torch.distributed.all_reduce(total, group=group)
+        gnorm = grad_norm_finish(total)
+    elif norm_group is None:
         gnorm = fused_grad_prep(grads, tokens, table=table)
     else:
         total = fused_grad_prep(grads, tokens, table=table, partial=True)

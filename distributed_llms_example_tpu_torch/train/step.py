@@ -31,6 +31,18 @@ in the backward, the earlier microbatches' sync turned off; replicated
 reference's hand-rolled all-reduce and the JAX package's psum.  Kernel 8
 then runs over the rank's shards, its norm summed over the ``fsdp`` axis.
 
+On a model-parallel mesh (``tensor`` or ``sequence`` above 1) the sums
+meet over the ranks that hold other rows or other positions of the same
+shards (``StepGroups.row_group``: data x sequence, or data alone when the
+batch is not sequence-sharded), never over ``tensor``, whose ranks hold
+the same rows: the loss and token sums and every gradient (a replicated
+leaf's and a tensor rank's shard alike).  Kernel 8's float64 partial norm
+is then summed over the tensor group, each replicated leaf counted on
+tensor rank 0 only, and so are the health sums.  A sequence-sharded batch
+carries its shard's ``positions`` and its labels already shifted across
+the shard boundaries (``parallel/activation.split_sequence``), so the
+loss compares every position with its label.
+
 Health numerics (``train_step(..., health_buckets=...)``): the global param norm,
 the non-finite gradient count and per-bucket update ratios ||Δw|| / ||w||
 (``HEALTH_BUCKETS``: embed, attn, mlp, head), assembled by
@@ -174,6 +186,11 @@ def causal_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
     cfg = model.config
     weight = float(getattr(cfg, "moe_aux_weight", 0.0) or 0.0)
     ask = {"return_aux": True} if weight > 0.0 else {}
+    if "positions" in batch:
+        # a sequence shard: its labels are already the next-token targets
+        logits = model(batch["input_ids"], batch["attention_mask"],
+                       positions=batch["positions"])
+        return cross_entropy_sums(logits, labels, label_smoothing)
     if cfg.fused_ce:
         h, w, *aux = model.head_inputs(batch["input_ids"], batch["attention_mask"], **ask)
         with scope("lm_head"):  # the head's matmuls, chunked into the loss
@@ -203,10 +220,21 @@ class StepGroups:
     shards of a leaf (the ``fsdp`` axis), over which the norm and the
     health sums add up.  With a shard group the model's parameters are
     FSDP shards (the backward reduces their gradients); without one each
-    rank holds whole leaves, replicas the step all-reduces."""
+    rank holds whole leaves, replicas the step all-reduces.
+
+    A model-parallel step (``model_parallel``) reduces the loss, the token
+    count and the gradients over ``row_group`` (None: nothing to reduce),
+    and with ``tensor_group`` sums kernel 8's norm and the health sums over
+    it, the leaves ``replicated`` over ``tensor`` (a flag a parameter, in
+    ``named_params`` order) counted on tensor rank 0 (``tensor_index``)."""
 
     world: int = 1
     shard_group: Any = None
+    model_parallel: bool = False
+    row_group: Any = None
+    tensor_group: Any = None
+    tensor_index: int = 0
+    replicated: tuple[bool, ...] = ()
 
 
 # 64 MB of fp32 gradients an all-reduce: a guess, not measured (the
@@ -215,29 +243,30 @@ GRAD_BUCKET_ELEMENTS = 1 << 24
 
 
 @torch.no_grad()
-def all_reduce_grads(grads: list[torch.Tensor]) -> None:
-    """SUM every gradient over the process group in place, in coalesced
-    buckets of at most ``GRAD_BUCKET_ELEMENTS`` (a larger tensor alone)."""
+def all_reduce_grads(grads: list[torch.Tensor], group=None) -> None:
+    """SUM every gradient over ``group`` (default: the process group) in
+    place, in coalesced buckets of at most ``GRAD_BUCKET_ELEMENTS`` (a
+    larger tensor alone)."""
     dist = torch.distributed
-    group: list[torch.Tensor] = []
+    bucket: list[torch.Tensor] = []
 
     def flush():
-        if not group:
+        if not bucket:
             return
-        flat = torch.cat([g.reshape(-1) for g in group])
-        dist.all_reduce(flat)
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=group)
         off = 0
-        for g in group:
+        for g in bucket:
             g.copy_(flat[off:off + g.numel()].view_as(g))
             off += g.numel()
-        group.clear()
+        bucket.clear()
 
     size = 0
     for g in grads:
-        if group and size + g.numel() > GRAD_BUCKET_ELEMENTS:
+        if bucket and size + g.numel() > GRAD_BUCKET_ELEMENTS:
             flush()
             size = 0
-        group.append(g)
+        bucket.append(g)
         size += g.numel()
     flush()
 
@@ -260,13 +289,20 @@ def optimizer_apply_block(spec: OptimizerSpec, schedule: Schedule, named_params,
             grads.append(local(p.grad))
         shards = [(n, local(p)) for n, p in named_params]
     lr = schedule(state.count)
+    tensor = ((groups.tensor_group, groups.tensor_index, groups.replicated)
+              if groups.tensor_group is not None else None)
     grad_norm = fused_optimizer_apply(spec, schedule, shards, state, grads, tokens,
-                                      norm_group=groups.shard_group)
+                                      norm_group=groups.shard_group, tensor=tensor)
     metrics = {"loss": lsum / tokens, "learning_rate": lr, "grad_norm": grad_norm,
                "target_tokens": tokens}
     if health_buckets is not None:
         if groups.shard_group is not None:
             torch.distributed.all_reduce(state.stats, group=groups.shard_group)
+        if groups.tensor_group is not None:
+            if groups.tensor_index:  # a replicated leaf counts once, on tensor rank 0
+                mask = torch.tensor(groups.replicated, device=state.stats.device)
+                state.stats.copy_(torch.where(mask[:, None], 0.0, state.stats))
+            torch.distributed.all_reduce(state.stats, group=groups.tensor_group)
         metrics.update(health_metrics_from_stats(state.stats, health_buckets))
     return metrics
 
@@ -302,14 +338,15 @@ def train_step(model, named_params, state: AdamWState, spec: OptimizerSpec, sche
             ls.backward()
             ls = ls.detach()
             lsum, tokens = (ls, tk) if lsum is None else (lsum + ls, tokens + tk)
-    if groups.world > 1:
+    if groups.world > 1 and not (groups.model_parallel and groups.row_group is None):
+        reduce_group = groups.row_group if groups.model_parallel else None
         if groups.shard_group is None:
             for _, p in named_params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p, dtype=torch.float32)
-            all_reduce_grads([p.grad for _, p in named_params])
+            all_reduce_grads([p.grad for _, p in named_params], group=reduce_group)
         sums = torch.stack([lsum, tokens.to(lsum.dtype)])
-        torch.distributed.all_reduce(sums)
+        torch.distributed.all_reduce(sums, group=reduce_group)
         lsum, tokens = sums[0], sums[1]
     with scope("optimizer_apply_block"), opt_timer or contextlib.nullcontext():
         return optimizer_apply_block(spec, schedule, named_params, state, lsum, tokens,

@@ -64,17 +64,24 @@ while the in-process rewind restores the generator state of the save it
 rewinds to, so the replay draws the same masks.
 
 Over a process group (``core/mesh.py``; one process a GPU) the ``--mesh``
-lays the ranks out on ``data`` x ``fsdp``: each rank trains on its rows of
-every global batch (``BatchIterator``'s host slice, the widths agreed
+lays the ranks out on ``data`` x ``fsdp`` x ``sequence`` x ``tensor``:
+each rank trains on its rows of every global batch (``BatchIterator``'s
+host slice over the ``data`` x ``fsdp`` batch shards, the widths agreed
 once an epoch), with its mesh position folded into every dropout seed;
 ``fsdp`` > 1 shards the model (``parallel/fsdp.py``; HSDP with ``data`` >
 1 too), ``data`` alone replicates it and the step all-reduces the
-gradients.  The ranks agree on every branch that runs collectives: the
-health verdict (``agree_and_emit``), the preemption flag (an all-gather
-every ``log_every_steps`` and at each epoch's end), the checkpoint to
-restore (process 0 verifies).  Process 0 alone writes the sidecars, the
-chaos corruption and the final model; every rank writes its own shards of
-a checkpoint (``io/checkpoint.py``).
+gradients.  ``tensor`` > 1 cuts the LLaMA's projections into the rank's
+shards (``parallel/sharding.py``); ``sequence`` > 1 gives each rank its
+column block of its rows (``parallel/activation.split_sequence``) and
+attention runs as ring attention, when every bucket width divides by the
+axis (the JAX package's rule: else lengths stay whole, plain attention
+runs, a ``sequence_sharding_disabled`` line says why, and the sums count
+each token once all the same).  The ranks agree on every branch that runs
+collectives: the health verdict (``agree_and_emit``), the preemption
+flag (an all-gather every ``log_every_steps`` and at each epoch's end),
+the checkpoint to restore (process 0 verifies).  Process 0 alone writes
+the sidecars, the chaos corruption and the final model; every rank
+writes its own shards of a checkpoint (``io/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -89,9 +96,10 @@ from typing import Any, Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
-from distributed_llms_example_tpu_torch.core.config import TrainConfig
+from distributed_llms_example_tpu_torch.core.config import TrainConfig, check_mesh_composition
 from distributed_llms_example_tpu_torch.core.mesh import (
     MeshSpec,
+    axis_groups,
     build_mesh,
     device_report,
     elastic_mesh_spec,
@@ -131,7 +139,13 @@ from distributed_llms_example_tpu_torch.obs.health import health_enabled
 from distributed_llms_example_tpu_torch.obs.recorder import batch_fingerprint
 from distributed_llms_example_tpu_torch.obs.sink import build_sink, flush, install_sink
 from distributed_llms_example_tpu_torch.ops.fused_dropout import set_shard_coords
+from distributed_llms_example_tpu_torch.parallel.activation import (
+    ModelParallel,
+    attach,
+    split_sequence,
+)
 from distributed_llms_example_tpu_torch.parallel.fsdp import local, shard_model
+from distributed_llms_example_tpu_torch.parallel.sharding import shard_tensor_parallel, tensor_dim
 from distributed_llms_example_tpu_torch.train.optim import (
     AdamWState,
     OptimizerSpec,
@@ -185,6 +199,11 @@ class Trainer:
         world = process_count()
         if world > 1 and self.device.type == "cuda":
             self.device = local_device("cuda")
+        # a model built by the caller: the composition rows and the tensor
+        # plan against its family before anything is laid out (the parser
+        # checked ``model_ckpt``'s)
+        if loaded is not None:
+            check_mesh_composition(cfg, loaded.family, loaded.config)
         self._set_mesh(resolve_mesh_shape(cfg.mesh, world))
         if loaded is None:
             loaded = load_model(
@@ -257,7 +276,7 @@ class Trainer:
         self._next_mesh_override: MeshSpec | None = None
         if self.groups.world > 1:
             log_json({"event": "device_report", **device_report(self.device),
-                      "mesh": {"data": self.mesh_spec.data, "fsdp": self.mesh_spec.fsdp}})
+                      "mesh": self._mesh_axes()})
         log_json({"event": "train_start", "model": cfg.model_ckpt, "device": str(self.device),
                   "params": sum(p.numel() for _, p in self.named_params),
                   "param_tensors": len(self.named_params), "total_steps": self.total_steps,
@@ -307,16 +326,64 @@ class Trainer:
     # -- the mesh and what is laid out on it ------------------------------
 
     def _set_mesh(self, spec: MeshSpec) -> None:
-        """The (data, fsdp) layout of the live group: checked against the
-        global batch, the DeviceMesh and this rank's dropout seed fold."""
-        world = process_count()
-        validate_batch_mesh(self.cfg.batch_size, {"data": spec.data, "fsdp": spec.fsdp},
-                            process_count=world, grad_accum_steps=self.cfg.grad_accum_steps)
+        """The (data, fsdp, sequence, tensor) layout of the live group:
+        checked against the global batch, the DeviceMesh, whether the batch
+        is sequence-sharded and this rank's dropout seed fold."""
+        world, cfg = process_count(), self.cfg
+        validate_batch_mesh(cfg.batch_size, {"data": spec.data, "fsdp": spec.fsdp},
+                            process_count=spec.data * spec.fsdp,
+                            grad_accum_steps=cfg.grad_accum_steps)
         self.mesh_spec = spec
         self.mesh = build_mesh(spec, self.device.type) if world > 1 else None
+        # the JAX package's rule: every bucket width (multiples of
+        # pad_to_multiple up to the caps; a causal batch's labels share its
+        # inputs' cap) must divide by the sequence axis
+        self.sequence_sharded = spec.sequence > 1 and all(
+            dim % spec.sequence == 0 for dim in (cfg.pad_to_multiple, cfg.max_source_length))
+        if spec.sequence > 1 and not self.sequence_sharded:
+            log_json({"event": "sequence_sharding_disabled",
+                      "reason": f"pad_to_multiple={cfg.pad_to_multiple}/max_source_length="
+                                f"{cfg.max_source_length}/target_cap={cfg.max_source_length} "
+                                f"not all divisible by sequence={spec.sequence}"})
         # every rank draws each dropout seed from the shared stream and folds
-        # its (data, fsdp, expert) position in, as the JAX package's shards do
-        set_shard_coords((*mesh_coords(spec, process_index()), 0) if world > 1 else None)
+        # its (data, fsdp, expert) position in, as the JAX package's shards
+        # do, then its sequence index when the batch is sequence-sharded;
+        # the tensor index enters attention-probs seeds only
+        d, f, s, t = mesh_coords(spec, process_index())
+        set_shard_coords(((d, f, 0) + ((s,) if self.sequence_sharded else ()))
+                         if world > 1 else None, tensor_index=t)
+
+    def _mesh_axes(self) -> dict:
+        """The live layout's axes: data and fsdp, and sequence and tensor
+        when either is above 1."""
+        spec = self.mesh_spec
+        if spec.sequence == spec.tensor == 1:
+            return {"data": spec.data, "fsdp": spec.fsdp}
+        return spec.axes()
+
+    def _lay_out_model_parallel(self, world: int) -> None:
+        """The tensor and sequence layout of the model and the step: the
+        model cut into this rank's tensor shards, its attention and MLP
+        modules given their ``ModelParallel``, the step's groups."""
+        spec = self.mesh_spec
+        groups = axis_groups(spec, process_index())
+        if spec.tensor > 1:
+            shard_tensor_parallel(self.model, spec.tensor, groups.tensor_index)
+        seq = self.sequence_sharded
+        mp = ModelParallel(
+            mesh={**spec.axes(), "sequence": spec.sequence if seq else 1},
+            tensor_group=groups.tensor, tensor_index=groups.tensor_index,
+            sequence_group=groups.sequence if seq else None,
+            sequence_index=groups.sequence_index if seq else 0)
+        attach(self.model, mp)
+        self.parallel = mp
+        replicated = tuple(tensor_dim(n) is None for n, _ in self.model.named_parameters())
+        self.groups = StepGroups(
+            world=world, model_parallel=True,
+            # an unsharded batch's sequence ranks hold the same rows: its sums
+            # meet over data alone
+            row_group=groups.rows if seq else groups.data, tensor_group=groups.tensor,
+            tensor_index=groups.tensor_index, replicated=replicated)
 
     def _lay_out(self) -> None:
         """Everything that depends on the mesh and the model: the sharding,
@@ -326,11 +393,16 @@ class Trainer:
         checkpointer's shard layout."""
         cfg, world = self.cfg, process_count()
         self.model = self.loaded.module
-        sharded = self.mesh_spec.fsdp > 1
-        if sharded:
-            shard_model(self.model, self.mesh)
-        self.groups = StepGroups(world=world,
-                                 shard_group=self.mesh.get_group("fsdp") if sharded else None)
+        spec = self.mesh_spec
+        sharded = spec.fsdp > 1
+        self.parallel = None
+        if spec.sequence > 1 or spec.tensor > 1:
+            self._lay_out_model_parallel(world)
+        else:
+            if sharded:
+                shard_model(self.model, self.mesh)
+            self.groups = StepGroups(world=world,
+                                     shard_group=self.mesh.get_group("fsdp") if sharded else None)
         self.evaluator = None
         if self.val_ds:
             self.evaluator = Evaluator(self.model, self.loaded.config, self.tokenizer,
@@ -341,9 +413,13 @@ class Trainer:
         # max_source_length, so their buckets agree
         tgt_cap = self._tgt_cap = (cfg.max_target_length if self.loaded.is_seq2seq
                                    else cfg.max_source_length)
+        # the rows: one block a (data, fsdp) batch shard; the sequence and
+        # tensor ranks of a shard hold the same rows
+        d, f, _, _ = mesh_coords(spec, process_index())
+        self.batch_shards = spec.data * spec.fsdp
         self.batches = BatchIterator(
-            self.train_ds, global_batch=cfg.batch_size, process_count=world,
-            process_index=process_index(), seed=cfg.shuffle_seed,
+            self.train_ds, global_batch=cfg.batch_size, process_count=self.batch_shards,
+            process_index=d * spec.fsdp + f, seed=cfg.shuffle_seed,
             bucket_multiple=cfg.pad_to_multiple, max_source_length=cfg.max_source_length,
             max_target_length=tgt_cap,
         )
@@ -364,13 +440,13 @@ class Trainer:
         self.obs.model = self.model
         self.obs.startup_gauges(
             self.model, model_name=self.cfg.model_ckpt, data=self.mesh_spec.data,
-            fsdp=self.mesh_spec.fsdp, global_batch=self.cfg.batch_size,
+            fsdp=self.mesh_spec.fsdp, sequence=self.mesh_spec.sequence if self.sequence_sharded
+            else 1, tensor=self.mesh_spec.tensor, global_batch=self.cfg.batch_size,
             src_len=self.cfg.max_source_length, tgt_len=self._tgt_cap,
             is_seq2seq=self.loaded.is_seq2seq)
 
     def _live_mesh_layout(self) -> dict:
-        return {"axes": {"data": self.mesh_spec.data, "fsdp": self.mesh_spec.fsdp},
-                "processes": self.groups.world}
+        return {"axes": self._mesh_axes(), "processes": self.groups.world}
 
     @staticmethod
     def _saved_layout(meta: dict) -> dict:
@@ -385,6 +461,14 @@ class Trainer:
         log_json({"event": "reshard_restore", "step": int(step), "old_mesh": saved["axes"],
                   "old_processes": saved["processes"], "new_mesh": live["axes"],
                   "new_processes": live["processes"], "ef_mode": "none", **extra}, local=True)
+
+    def _device_batch(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """The rank's rows on the device; a sequence-sharded run's cut to
+        its column block, its labels shifted across the blocks."""
+        out = put_batch(batch, self.device)
+        if self.sequence_sharded:
+            out = split_sequence(out, self.parallel.sequence_index, self.parallel.sequence)
+        return out
 
     def evaluate(self, epoch: int | None = None, step: int | None = None) -> dict[str, float]:
         """ROUGE of the validation set (no validation set: nothing), logged
@@ -422,11 +506,16 @@ class Trainer:
         return out
 
     def state_shapes(self) -> dict[str, tuple[int, ...]]:
-        """The global shape of each tensor of ``state_tensors``."""
+        """The global shape of each tensor of ``state_tensors`` (a tensor
+        shard's whole leaf's)."""
         out = {}
         for n, p in self.named_params:
+            shape = list(p.shape)
+            dim = tensor_dim(n) if self.mesh_spec.tensor > 1 else None
+            if dim is not None:
+                shape[dim] *= self.mesh_spec.tensor
             for k in (n, f"mu/{n}", f"nu/{n}"):
-                out[k] = tuple(p.shape)
+                out[k] = tuple(shape)
         return out
 
     @torch.no_grad()
@@ -807,7 +896,7 @@ class Trainer:
                     with obs.step_span():
                         metrics = train_step(
                             self.model, self.named_params, self.opt_state, self.spec,
-                            self.schedule, put_batch(batch, self.device),
+                            self.schedule, self._device_batch(batch),
                             grad_accum_steps=cfg.grad_accum_steps,
                             label_smoothing=cfg.label_smoothing, generator=self.generator,
                             health_buckets=self.health_buckets,
@@ -820,14 +909,13 @@ class Trainer:
                                 self.named_params,
                                 [*self.opt_state.mu, *self.opt_state.nu, self.opt_state.stats],
                                 [p.grad for _, p in self.named_params],
-                                model_name=cfg.model_ckpt,
-                                mesh={"data": self.mesh_spec.data, "fsdp": self.mesh_spec.fsdp})
+                                model_name=cfg.model_ckpt, mesh=self._mesh_axes())
                     step += 1
                     self._last_step = step
                     self.history.append(metrics)
-                    # the rank's tokens times the ranks: the global batch's, as
-                    # the JAX package counts them
-                    tokens = batch_tokens(batch, self.loaded.is_seq2seq) * self.groups.world
+                    # the rank's rows' tokens times the batch shards: the global
+                    # batch's, as the JAX package counts them
+                    tokens = batch_tokens(batch, self.loaded.is_seq2seq) * self.batch_shards
                     # at the log cadence only: the queue drain, timed before
                     # the logger reads the loss
                     obs.budget_probe(step, metrics["loss"])
@@ -953,7 +1041,8 @@ class Trainer:
         directory."""
         t0 = time.perf_counter()
         out = os.path.join(self.cfg.output_dir, "model")
-        state = full_state_dict(self.model)
+        state = full_state_dict(self.model, tensor_group=self.groups.tensor_group,
+                                tensor=self.mesh_spec.tensor)
         if process_index() != 0:
             return out
         save_hf_checkpoint(out, self.loaded.family, self.loaded.config, state)

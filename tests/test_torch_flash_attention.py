@@ -165,11 +165,23 @@ def test_cuda_selection_takes_the_kernel_at_any_length(impl):
         assert dec(q_len, kv_len, 64) == "flash_decode", (q_len, kv_len)
     assert dec(9, 128, 64) == "xla"
     assert dec(1, 128, 12) == "xla"
-    with pytest.raises(NotImplementedError, match="ring"):
+    # ring follows the JAX package's selection: outside a mesh plain
+    # attention (as at module init), on a mesh that cannot ring a
+    # ValueError, ring where the sequence axis splits the lengths, and a
+    # decode step plain attention
+    assert tmha.select_attention_impl("ring", head_dim=64, q_len=128, kv_len=128,
+                                      use_cache=False, backend="cuda") == \
+        ("xla", "ring requested but no mesh context")
+    with pytest.raises(ValueError, match="mesh has no sequence axis > 1"):
         tmha.select_attention_impl("ring", head_dim=64, q_len=128, kv_len=128,
-                                   use_cache=False, backend="cuda")
-    with pytest.raises(NotImplementedError, match="ring"):
-        tmha.select_decode_impl("ring", head_dim=64, q_len=1, kv_len=128, backend="cuda")
+                                   use_cache=False, backend="cuda",
+                                   mesh={"data": 1, "fsdp": 1, "sequence": 1, "tensor": 2})
+    assert tmha.select_attention_impl(
+        impl if impl == "auto" else "ring", head_dim=64, q_len=128, kv_len=128,
+        use_cache=False, backend="cuda", causal=True,
+        mesh={"data": 1, "fsdp": 1, "sequence": 2, "tensor": 1})[0] == "ring"
+    assert tmha.select_decode_impl("ring", head_dim=64, q_len=1, kv_len=128, backend="cuda") == \
+        ("xla", "ring attention has no KV-cache decode path")
 
 
 @pytest.mark.parametrize("causal", [False, True])

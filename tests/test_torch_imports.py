@@ -48,7 +48,8 @@ def test_port_imports_nothing_of_jax():
                  "ops.blockwise_ce", "core.mesh", "parallel.fsdp", "obs", "obs.sink",
                  "obs.spans", "obs.budget", "obs.heartbeat", "obs.report", "obs.profile",
                  "obs.devprof", "obs.gauges", "obs.memprof", "obs.trace", "serving.router",
-                 "serving.loadgen", "native", "ops.moe"):
+                 "serving.loadgen", "native", "ops.moe", "ops.ring_attention",
+                 "parallel.sharding", "parallel.activation"):
         assert f"distributed_llms_example_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -149,22 +149,42 @@ def test_backend_follows_the_device_and_never_falls_back(monkeypatch, device, ba
         tmesh.initialize_distributed("10.0.0.1", 4, 3, device_type=device)
 
 
-@pytest.mark.parametrize("spec", ["tensor=2", "sequence=2", "stage=2", "expert=2", "tensor=-1",
-                                  "data=2,tensor=2"])
-def test_model_parallel_axes_are_refused_at_parse_time(spec):
+# (spec, whether the port lays it out): tensor and sequence parse as in the
+# JAX package since the model-parallel slice; stage and expert, and fsdp
+# beside tensor or sequence, stay refused
+PARSE_CASES = [("tensor=2", True), ("sequence=2", True), ("stage=2", False),
+               ("expert=2", False), ("tensor=-1", True), ("data=2,tensor=2", True),
+               ("data=2,sequence=2,tensor=2", True), ("fsdp=2,tensor=2", False)]
+
+
+@pytest.mark.parametrize("spec,ported", PARSE_CASES)
+def test_model_parallel_axes_are_refused_at_parse_time(spec, ported):
+    """The axes the port does not lay out (stage, expert, fsdp composed
+    with tensor or sequence) raise at parse time; tensor and sequence
+    parse to the JAX package's sizes."""
     assert jconfig.parse_mesh_arg(spec)  # the JAX package lays them out
-    with pytest.raises(ValueError, match="ROADMAP.md item 6"):
-        tconfig.parse_mesh_arg(spec)
+    if ported:
+        assert tconfig.parse_mesh_arg(spec).axis_sizes() == \
+            jconfig.parse_mesh_arg(spec).axis_sizes()
+    else:
+        with pytest.raises(ValueError, match="ROADMAP.md item 6"):
+            tconfig.parse_mesh_arg(spec)
 
 
 @pytest.mark.parametrize("axis", ["tensor", "sequence", "stage", "expert"])
 def test_resolve_refuses_an_axis_the_port_does_not_lay_out(axis):
-    """A ``MeshConfig`` built past the parser: the JAX package resolves it,
-    the port refuses it rather than drop the axis."""
+    """A ``MeshConfig`` built past the parser: the JAX package resolves it;
+    the port resolves tensor and sequence to the same sizes and refuses
+    stage and expert rather than drop the axis."""
     cfg = dict(data=2, fsdp=1, **{axis: 2})
-    assert jmesh.resolve_mesh_shape(jconfig.MeshConfig(**cfg), 4).size == 4
-    with pytest.raises(ValueError, match="ROADMAP.md item 6"):
-        tmesh.resolve_mesh_shape(tconfig.MeshConfig(**cfg), 4)
+    want = jmesh.resolve_mesh_shape(jconfig.MeshConfig(**cfg), 4)
+    assert want.size == 4
+    if axis in ("tensor", "sequence"):
+        got = tmesh.resolve_mesh_shape(tconfig.MeshConfig(**cfg), 4)
+        assert got.axes() == {k: getattr(want, k) for k in got.axes()} and got.size == 4
+    else:
+        with pytest.raises(ValueError, match="ROADMAP.md item 6"):
+            tmesh.resolve_mesh_shape(tconfig.MeshConfig(**cfg), 4)
 
 
 def test_single_process_helpers():
@@ -172,7 +192,12 @@ def test_single_process_helpers():
     np.testing.assert_array_equal(tmesh.process_allgather(np.arange(3)), [[0, 1, 2]])
     report = tmesh.device_report(torch.device("cpu"))
     assert report["process_count"] == 1 and report["backend"] is None
-    assert tmesh.mesh_coords(tmesh.MeshSpec(data=2, fsdp=2), 3) == (1, 1)
+    assert tmesh.mesh_coords(tmesh.MeshSpec(data=2, fsdp=2), 3) == (1, 1, 0, 0)
+    # row-major in the JAX package's axis order: tensor fastest
+    spec = tmesh.MeshSpec(data=2, fsdp=1, sequence=2, tensor=2)
+    assert [tmesh.mesh_coords(spec, r) for r in (0, 1, 2, 5, 7)] == \
+        [(0, 0, 0, 0), (0, 0, 0, 1), (0, 0, 1, 0), (1, 0, 0, 1), (1, 0, 1, 1)]
+    assert all(tmesh.mesh_rank(spec, tmesh.mesh_coords(spec, r)) == r for r in range(8))
 
 
 @pytest.mark.parametrize("gb,pc,pi", [(8, 2, 0), (8, 2, 1), (8, 4, 3), (6, 4, 0), (12, 3, 2)])

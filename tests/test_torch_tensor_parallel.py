@@ -1,0 +1,218 @@
+"""Tensor (Megatron) parallelism of the port's LLaMA on gloo ranks of the
+CPU (``parallel/sharding.py``, ``parallel/activation.py``) against the JAX
+package:
+
+- one ``llama-test`` block cut over two tensor ranks (q/k/v, gate and up
+  column-parallel, o and down row-parallel) against the JAX ``LlamaBlock``
+  on the same params and inputs: its output, its input's gradient and
+  every parameter's gradient (the shards gathered) within 1e-5 in fp32;
+- the train CLI under ``--mesh tensor=2`` against the JAX ``Trainer`` on
+  the same mesh from the same HF directory: each step's loss and grad norm
+  and every final parameter within 1e-4 (as ``test_torch_dp_train.py``
+  holds FSDP); kernel 8's norm and health sums count a replicated leaf
+  once (step 1's param norm is the whole init's); the collective byte
+  account equal to what the collectives carry (Megatron's all-reduces
+  included); the exported model bit-equal to the gathered weights; a run
+  preempted at step 2 and resumed at the same layout bit-equal to the
+  uninterrupted one;
+- the refusals at parse time, with the JAX package's reason strings where
+  it has them (``--fused-ce`` on a tensor mesh, the eval pass under
+  sequence, ``--attention-impl ring`` without a sequence axis) and the
+  port's own beside them (BART, Mixtral, fsdp with tensor, a tensor size
+  the kv heads do not divide, the eval pass under tensor)."""
+
+import json
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from torch_dist_helpers import (
+    assert_matches,
+    cli_argv,
+    hf_dir,
+    jax_train,
+    json_lines,
+    records,
+    spawn,
+)
+
+BLOCK_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def llama(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp")
+    recs = records(24, seed=5)
+    path = tmp / "train.json"
+    path.write_text(json.dumps(recs))
+    return {"tmp": tmp, "ckpt": hf_dir(tmp / "hf", "llama-test"), "records": recs,
+            "train_file": path}
+
+
+def test_block_matches_jax(tmp_path):
+    import torch
+
+    from distributed_llms_example_tpu.models.llama import LlamaBlock as JaxBlock
+    from distributed_llms_example_tpu.models.llama import LlamaConfig as JaxConfig
+    from distributed_llms_example_tpu.ops.attention import mask_to_bias
+    from distributed_llms_example_tpu_torch.models.from_jax import _state_dict_from_jax
+    from distributed_llms_example_tpu_torch.models.registry import LLAMA_CONFIGS
+
+    fields = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+              "num_attention_heads", "num_key_value_heads", "max_position_embeddings")
+    config = {f: getattr(LLAMA_CONFIGS["llama-test"], f) for f in fields}
+    rng = np.random.RandomState(3)
+    B, S, d = 2, 16, config["hidden_size"]
+    x = rng.normal(size=(B, S, d)).astype(np.float32)
+    dout = rng.normal(size=(B, S, d)).astype(np.float32)
+    mask = (np.arange(S)[None, :] < np.array([S, 11])[:, None]).astype(np.int32)
+    bias = np.asarray(mask_to_bias(jnp.asarray(mask)))
+    blk = JaxBlock(JaxConfig(**config))
+    params = jax.device_get(blk.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"])
+
+    def f(p, x):
+        return blk.apply({"params": p}, x, jnp.asarray(bias))
+
+    out, vjp = jax.vjp(f, params, jnp.asarray(x))
+    dp, dx = vjp(jnp.asarray(dout))
+    np.savez(tmp_path / "inputs.npz", x=x, dout=dout, bias=bias)
+    with open(tmp_path / "params.pkl", "wb") as fh:
+        pickle.dump(params, fh)
+    spec = {"ops": {"kind": "block", "config": config, "inputs": str(tmp_path / "inputs.npz"),
+                    "params": str(tmp_path / "params.pkl")}}
+    _, _, got = spawn(spec, 2, tmp_path, name="block")
+    assert float(np.abs(got["out"].numpy() - np.asarray(out)).max()) <= BLOCK_TOL
+    assert float(np.abs(got["dx"].numpy() - np.asarray(dx)).max()) <= BLOCK_TOL
+    want = _state_dict_from_jax(jax.device_get(dp), r"()block_(\d+)")
+    assert set(want) == set(got["grads"])
+    for name, g in want.items():
+        err = float(torch.max(torch.abs(got["grads"][name] - g)))
+        assert err <= BLOCK_TOL, (name, err)
+
+
+# the flags of the tensor=2 run and of its preempted and resumed twins
+TP_FLAGS = ("--mesh", "tensor=2", "--save-every-steps", "2", "--health", "on",
+            "--obs-gauges", "on")
+
+
+@pytest.fixture(scope="module")
+def tp_run(llama, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp_run")
+    argv = cli_argv(llama["ckpt"], llama["train_file"], tmp / "out", *TP_FLAGS)
+    _, logs, result = spawn({"argv": argv, "count_collectives": True}, 2, tmp)
+    hist, params, _ = jax_train(llama["ckpt"], llama["records"], "tensor=2", tmp / "jax")
+    return {"out": tmp / "out", "logs": logs, "result": result, "jax": (hist, params)}
+
+
+def test_cli_matches_jax_trainer_on_the_same_mesh(tp_run):
+    assert_matches(tp_run["result"], *tp_run["jax"])
+    lines = json_lines(tp_run["logs"][0])
+    (report,) = [x for x in lines if x.get("event") == "device_report"]
+    assert report["process_count"] == 2 and report["mesh"]["tensor"] == 2
+    assert not json_lines(tp_run["logs"][1])  # only process 0 prints
+
+
+def test_replicated_leaves_count_once_in_the_norms(llama, tp_run):
+    """Step 1's param norm (kernel 8's per-leaf sums, all-reduced over the
+    tensor group with the replicated leaves counted on tensor rank 0) is
+    the whole init's: counted on both ranks the norms, the embedding and
+    the head would count twice."""
+    import torch
+
+    from distributed_llms_example_tpu_torch.models.registry import load_model
+
+    init = load_model(llama["ckpt"], device="cpu", train=True).module
+    want = float(torch.sqrt(sum(torch.sum(p.detach().double() ** 2) for p in init.parameters())))
+    hist = tp_run["result"]["history"]
+    assert abs(hist[0]["param_norm"] - want) <= 1e-6 * want, (hist[0]["param_norm"], want)
+    assert all(h["nonfinite_count"] == 0 for h in hist)
+
+
+def test_comm_account_is_what_the_collectives_carry(tp_run):
+    """Every step's collectives, counted by a wrapper around
+    torch.distributed: Megatron's activation all-reduces (4 a layer a
+    microbatch), kernel 8's partial norm and the health sums over the
+    tensor group, and no gradient all-reduce (one data row), equal to the
+    startup gauges' account."""
+    result = tp_run["result"]
+    comm = result["comm"]
+    want = {op: [slot["count"], slot["gradient_bytes"] + slot["activation_bytes"]]
+            for op, slot in comm.items() if isinstance(slot, dict)}
+    assert all(step == want for step in result["collectives"]), (result["collectives"], want)
+    assert comm["gradient_bytes"] == 0 and want["all-reduce"][0] == 2 * 4 + 2
+
+
+def test_export_is_the_gathered_weights(tp_run):
+    from distributed_llms_example_tpu_torch.io.safetensors import load_file
+    from distributed_llms_example_tpu_torch.models.convert import convert_state_dict
+
+    exported = convert_state_dict(
+        "llama", load_file(str(tp_run["out"] / "model" / "model.safetensors")))
+    params = tp_run["result"]["params"]
+    assert set(exported) == set(params)
+    assert all(bool((exported[k] == params[k]).all()) for k in params)
+
+
+def test_preempted_and_resumed_run_is_the_uninterrupted_one(llama, tp_run, tmp_path):
+    """``--chaos sigterm@2`` (every rank's own SIGTERM) stops both ranks at
+    step 2 with its checkpoint (each tensor rank writes its shards, blocks
+    on dim 0 or 1); the resumed run at the same layout restores them and
+    ends bit-equal to the uninterrupted run."""
+    import torch
+
+    argv = cli_argv(llama["ckpt"], llama["train_file"], tmp_path / "out", *TP_FLAGS,
+                    "--chaos", "sigterm@2")
+    _, _, first = spawn({"argv": argv}, 2, tmp_path, name="first")
+    assert first["result"].get("preempted") and len(first["history"]) == 2
+    meta = json.loads((tmp_path / "out" / "checkpoints" / "2" / "meta.json").read_text())
+    assert meta["mesh_layout"]["axes"]["tensor"] == 2
+    rows = meta["files"]["state-r1.safetensors"]
+    assert rows["blocks.0.self_attn.o_proj.weight"] == [32, 64, 1]
+    assert rows["blocks.0.self_attn.q_proj.weight"] == [32, 64]
+    resume = cli_argv(llama["ckpt"], llama["train_file"], tmp_path / "out", *TP_FLAGS,
+                      resume=True)
+    _, _, second = spawn({"argv": resume}, 2, tmp_path, name="second")
+    full = tp_run["result"]
+    assert [h["loss"] for h in second["history"]] == [h["loss"] for h in full["history"][2:]]
+    assert all(torch.equal(second["params"][k], full["params"][k]) for k in full["params"])
+
+
+REFUSALS = {
+    "fused_ce_on_tensor": (["--mesh", "tensor=2", "--fused-ce"], "fused-ce-model-axes"),
+    "eval_under_sequence": (["--mesh", "sequence=2", "--val-file", "VAL"], "decode-sequence"),
+    "ring_without_sequence": (["--attention-impl", "ring"],
+                              "--attention-impl ring requires a mesh with a sequence axis > 1"),
+    "bart_under_tensor": (["--mesh", "tensor=2", "--model-ckpt", "bart-test"],
+                          "BART under ['tensor'] is not ported"),
+    "mixtral_under_sequence": (["--mesh", "sequence=2", "--model-ckpt", "mixtral-test"],
+                               "Mixtral (experts) under ['sequence'] is not ported"),
+    "fsdp_with_tensor": (["--mesh", "fsdp=2,tensor=2"], "ROADMAP.md item 6"),
+    "kv_heads_ragged": (["--mesh", "tensor=4"], "tensor=4 does not divide {'kv heads': 2}"),
+    "eval_under_tensor": (["--mesh", "tensor=2", "--val-file", "VAL"],
+                          "the eval pass under tensor parallelism is not ported"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_refusals_at_parse_time(tmp_path, capsys, case):
+    """Each refused composition stops the CLI before a group or a model
+    exists, with the JAX package's reason string (a composition row's id:
+    its reason word for word) or the port's own."""
+    from distributed_llms_example_tpu.analysis.composition import KNOWN_BAD
+    from distributed_llms_example_tpu_torch.launch.cli import train
+
+    flags, want = REFUSALS[case]
+    val = tmp_path / "val.json"
+    val.write_text(json.dumps(records(4)))
+    train_file = tmp_path / "train.json"
+    train_file.write_text(json.dumps(records(8)))
+    flags = [str(val) if f == "VAL" else f for f in flags]
+    argv = ["--device", "cpu", "--model-ckpt", "llama-test", "--train-file", str(train_file),
+            "--output-dir", str(tmp_path / "out"), *flags]
+    reasons = {c.id: c.reason for c in KNOWN_BAD}
+    with pytest.raises(SystemExit):
+        train(argv)
+    assert reasons.get(want, want) in capsys.readouterr().err

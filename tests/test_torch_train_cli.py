@@ -93,14 +93,14 @@ def test_train_and_serve_share_the_model_flags(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--param-dtype", "bfloat16"], ["--optim-impl", "fused"],
-                                  ["--mesh", "tensor=2"], ["--pipeline-schedule", "1f1b"],
+                                  ["--mesh", "expert=2"], ["--pipeline-schedule", "1f1b"],
                                   ["--chaos", "host_loss@2"]])
 def test_unimplemented_flags_are_refused(tmp_path, capsys, flag):
     with pytest.raises(SystemExit):
         train(_args(_write(tmp_path, 4), *flag))
     if flag[0] == "--chaos":  # parsed, then refused: a reshard needs --save-every-steps
         assert "needs a checkpoint to reshard FROM" in capsys.readouterr().err
-    if flag[0] == "--mesh":  # data and fsdp are laid out; the model-parallel axes are not
+    if flag[0] == "--mesh":  # data, fsdp, sequence and tensor are laid out; expert is not
         assert "ROADMAP.md item 6" in capsys.readouterr().err
 
 

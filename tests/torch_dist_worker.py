@@ -36,7 +36,7 @@ def _patch_seeds(spec) -> None:
         stream = itertools.cycle(spec["seed_cycle"])
         fd._draw = lambda gen: next(stream)
     if spec.get("no_fold"):
-        fd.set_shard_coords = lambda coords: None
+        fd.set_shard_coords = lambda coords, **kw: None
 
 
 def _patch_next_mesh(spec) -> None:
@@ -58,7 +58,8 @@ def _patch_next_mesh(spec) -> None:
 # torch.distributed call -> the collective opcode of the byte account
 _COUNTED = {"all_reduce": "all-reduce", "all_gather_single": "all-gather",
             "all_gather_into_tensor": "all-gather", "reduce_scatter_single": "reduce-scatter",
-            "reduce_scatter_tensor": "reduce-scatter"}
+            "reduce_scatter_tensor": "reduce-scatter",
+            "all_to_all_single": "collective-permute"}
 
 
 def _count_collectives(spec) -> list | None:
@@ -188,10 +189,109 @@ def _ckpt(spec: dict, rank: int, out: str) -> None:
         torch.save(reports, out)
 
 
+def _ring_cases(spec: dict, rank: int, world: int) -> dict:
+    """``ring``: each case of ``spec["cases"]`` (arrays in the ``.npz``
+    ``inputs``, named ``<case>/<array>``) through ``ops/ring_attention.py``
+    over a ring of the whole group, this rank holding block ``rank`` of
+    every length; then the cases named in ``planted`` again with every hop
+    sent the wrong way round.  Returns each case's output and its q/k/v
+    gradients, the blocks merged in ring order (``cases``, ``planted``)."""
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.ops import ring_attention as ra
+    from distributed_llms_example_tpu_torch.parallel import activation as act
+
+    arrays = np.load(spec["inputs"])
+    ring = ra.Ring(None, world, rank)
+    group = None if world == 1 else torch.distributed.group.WORLD
+
+    def run(case):
+        def block(name):
+            a = torch.from_numpy(arrays[f"{case['name']}/{name}"])
+            return a.chunk(world, dim=2 if a.dim() == 4 and name != "bias" else -1)[rank]
+
+        q, k, v = (block(x).clone().requires_grad_(True) for x in ("q", "k", "v"))
+        bias = block("bias").contiguous() if case["bias"] else None
+        o = ra.ring_attention(q, k, v, bias, ring=ring, causal=case["causal"])
+        o.backward(block("dout"))
+        got = {"out": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+        return {k2: act.merge_sequence(t.contiguous(), group, world, dim=2)
+                for k2, t in got.items()}
+
+    out = {"cases": [run(case) for case in spec["cases"]], "planted": []}
+    real = act.hop
+    ra.hop = lambda x, group, n, index, *, reverse=False: real(x, group, n, index,
+                                                               reverse=not reverse)
+    try:
+        out["planted"] = [run(case) for case in spec["cases"]
+                          if case["name"] in spec.get("planted", ())]
+    finally:
+        ra.hop = real
+    return out
+
+
+def _block_case(spec: dict, rank: int, world: int) -> dict:
+    """``block``: one LLaMA block (``config``, the JAX params in the
+    pickle ``params``) cut over a tensor group of the whole world, its
+    input ``x`` and output gradient ``dout`` from the ``.npz`` ``inputs``:
+    the output, the input's gradient and every parameter's gradient, the
+    tensor shards gathered whole."""
+    import pickle
+
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.models.from_jax import tensor_shard_state
+    from distributed_llms_example_tpu_torch.models.from_jax import _state_dict_from_jax
+    from distributed_llms_example_tpu_torch.models.llama import LlamaBlock, LlamaConfig
+    from distributed_llms_example_tpu_torch.parallel.activation import ModelParallel, attach
+    from distributed_llms_example_tpu_torch.parallel.sharding import (
+        gather_leaf,
+        shard_tensor_parallel,
+        tensor_dim,
+    )
+
+    cfg = LlamaConfig(**spec["config"])
+    blk = LlamaBlock(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cpu")
+    group = torch.distributed.group.WORLD
+    shard_tensor_parallel(blk, world, rank, config=cfg)
+    with open(spec["params"], "rb") as f:
+        params = pickle.load(f)
+    sd = tensor_shard_state(_state_dict_from_jax(params, r"()block_(\d+)"), world, rank)
+    blk.load_state_dict(sd)
+    attach(blk, ModelParallel(mesh={"data": 1, "fsdp": 1, "sequence": 1, "tensor": world},
+                              tensor_group=group, tensor_index=rank))
+    arrays = np.load(spec["inputs"])
+    x = torch.from_numpy(arrays["x"]).requires_grad_(True)
+    bias = torch.from_numpy(arrays["bias"])
+    o = blk(x, bias)
+    o.backward(torch.from_numpy(arrays["dout"]))
+    grads = {n: gather_leaf(p.grad, tensor_dim(n), group, world)
+             for n, p in blk.named_parameters()}
+    return {"out": o.detach(), "dx": x.grad, "grads": grads}
+
+
+def _ops(spec: dict, rank: int, out: str) -> None:
+    """A ring-attention or tensor-parallel block scenario (``_ring_cases``,
+    ``_block_case``) over a gloo group of every rank; rank 0 saves it."""
+    from distributed_llms_example_tpu_torch.core.mesh import initialize_distributed
+
+    world = initialize_distributed(device_type="cpu")
+    torch.manual_seed(0)
+    result = (_ring_cases(spec, rank, world) if spec["kind"] == "ring"
+              else _block_case(spec, rank, world))
+    if rank == 0:
+        torch.save(result, out)
+
+
 def main(path: str) -> None:
     with open(path) as f:
         spec = json.load(f)
     rank = int(os.environ["RANK"])
+    if "ops" in spec:
+        _ops(spec["ops"], rank, spec["out"])
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        return
     if "ckpt" in spec:
         _ckpt(spec["ckpt"], rank, spec["out"])
         if torch.distributed.is_initialized():
@@ -208,7 +308,8 @@ def main(path: str) -> None:
     history = [{k: float(m[k]) for k in ("loss", "grad_norm", "target_tokens", "param_norm",
                                          "nonfinite_count") if k in m}
                for m in trainer.history]
-    params = full_state_dict(trainer.model)
+    params = full_state_dict(trainer.model, tensor_group=trainer.groups.tensor_group,
+                             tensor=trainer.mesh_spec.tensor)
     if rank == 0:
         torch.save({"history": history, "params": params, "result": trainer.result,
                     "mesh": [trainer.mesh_spec.data, trainer.mesh_spec.fsdp],
