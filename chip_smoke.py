@@ -22,6 +22,7 @@ went through its kernels.
     python3 chip_smoke.py --phase 17    # the build, then phase 17 alone
     python3 chip_smoke.py --phase 18    # the build, then phase 18 alone
     python3 chip_smoke.py --phase 19    # the build, then phase 19 alone
+    python3 chip_smoke.py --phase 20    # the build, then phases 19 and 20, chained as in the run
 
 Phases (each fatal, non-zero exit, no result line):
   1. device: a CUDA card; prints nvidia-smi's name and power limit
@@ -343,7 +344,8 @@ Phases (each fatal, non-zero exit, no result line):
      --spec-tokens 3 n-gram and with a 2-layer
      llama-2-7b-width draft directory, and a planted fault (one more draft
      accepted than matched); 16 multi-turn prompts (a 512-token system
-     prefix, 64-256-token tails, blocks of 128) with --prefix-cache
+     prefix, 64-256-token tails, 64 new tokens, blocks of 64; 128 new
+     tokens in blocks of 128 until phase 20 joined the run) with --prefix-cache
      --prefix-cache-budget-gib 2 against the same prompts cold (15 hits,
      15 x 512 tokens saved).  Each run: launches of kernels
      1, 5 and 6 equal to the counts its ledger and layer counts give, the
@@ -425,7 +427,43 @@ Phases (each fatal, non-zero exit, no result line):
      out (the CPU tests hold the tensor blocks' save and restore); each step's time,
      rank 0's peak memory, the collective account and rank 0's device
      account of step 1
- 20. a {"kernels_unported": []} line (every TPU kernel has a port), the
+ 20. serving across ranks, on two gloo ranks of cuda:0 (--dist-rank; the
+     pair of rank processes phase 19 starts, after its parts; the one-rank
+     runs, in this process, before):
+     (a) llama-2-7b's widths at 2 of 32 layers, fp32, seed 0, 8 prompts of
+     64-500 byte tokens in one prefill chunk, 32 new tokens (a prefill and
+     31 decode rounds), serve --mesh tensor=2 and then data=2 (in one pair
+     of rank processes), flat and --paged-kv (blocks of 32), each against
+     the same CLI on one rank: every rank's greedy tokens equal, every
+     decode row's logits within 1e-4 (each row compared on the rank that
+     computed it), rank 0's launches of kernels 1, 5 and 6 exact (a layer a
+     prefill chunk, a layer a round: a data rank runs its rows every chunk
+     and round), their q heads 16 under tensor=2 and 32 under data=2; the
+     planted faults, attention's o_proj output left un-reduced under
+     tensor=2 and each rank reading its neighbour's slot rows under data=2,
+     must each break the check; (b) the same model in bf16, 16 prompts, 64
+     new tokens, tensor=2 --paged-kv (blocks of 64): each request equal to
+     the one-rank run up to its first divergence, where its token lies
+     within 4x the model's route floor of the one-rank run's top logit;
+     kernels 5 and 6 at a tensor=2 rank's decode shape (8, 16, 1, 128),
+     bf16, against their plain versions, bit-equal on the gathered view,
+     timed beside SDPA and their bounds;
+     (c) phase 19 (a)'s ring case in bf16: out, dq, dk and dv each within
+     1.5x plain bf16 attention's own distance from fp32 plain attention
+     (relative to the largest entry), timed beside the fp32 ring; (d) one
+     MoEMLP at mixtral-8x7b's widths (8 experts, top-2, capacity 1.25),
+     fp32, an (8, 1024) batch whose first half leans towards expert 0
+     (two groups of 4 096, one a rank) and a (6, 1024) one (a group across
+     the ranks, a padded last group), split over the two ranks as data=2
+     splits it: the output, the input's gradient and the router's (at
+     (8, 1024) every expert's too) within 1e-5 of their largest entry, the
+     aux within 1e-6 of itself and the dropped pairs equal to the whole
+     batch's on one rank; each rank routing alone must differ in output or aux; (e)
+     phase 19 (b)'s tensor=2 run evaluates one batch of 8 records (beam 2,
+     16 new tokens) at the epoch's end: one eval, ROUGE in [0, 1], kernel 1
+     once and kernel 5 15 times (1 layer), nothing else, counted in the
+     eval's own window
+ 21. a {"kernels_unported": []} line (every TPU kernel has a port), the
      whole run's wall time, a {"kernels": [...]} line of all eight and of
      kernels 1-4's probs-dropout branch (kernels 1-4 name both sources,
      kernel 8 both entries of its source; kernels 1 and 5 count phase 6c's
@@ -434,8 +472,10 @@ Phases (each fatal, non-zero exit, no result line):
      7 and 8 phase 14's step and phase 15's two host-loss runs, kernel 1
      phase 11's prompt prefills, kernels 1, 5 and 6 phase 16's runs,
      kernels 1 and 6 phase 17's, kernels 1, 2, 3, 5, 6 and 8 phase 18's
-     train and serve runs, kernels 1-3 and 8 rank 0 of phase 19's runs,
-     and kernels 5 and 6 carry phase 16's verify_q4 and int8 times),
+     train and serve runs, kernels 1-3 and 8 rank 0 of phase 19's runs
+     (kernels 1 and 5 its tensor=2 eval), kernels 1, 5 and 6 rank 0 of
+     phase 20's serve runs, and kernels 5 and 6 carry phase 16's verify_q4
+     and int8 times),
      then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -2295,18 +2335,19 @@ def adamw_table_phase(torch, fo) -> float:
     return worst
 
 
-def paged_case(torch, fa, *, dtype, Q, heads_kv=32, gen, block_size=128):
+def paged_case(torch, fa, *, dtype, Q, heads_kv=32, gen, block_size=128, heads=32):
     """Kernel 6's inputs at the llama-2-7b decode shape: q (8, 32, Q, 128);
     a pool of 72 blocks of 128 slots in scrambled order (or as many blocks
     of ``block_size`` slots as hold the same 9216); 1152 logical slots a
     row, rows in a 1024-wide or a 512-wide bucket with 200-1024 prompt
     tokens, so the block tables hold sentinels in the prompt gap (under the
     padding bias) and, for the 512-wide rows, past the budget; staggered
-    offsets inside each row's 128-slot decode tail."""
+    offsets inside each row's 128-slot decode tail.  ``heads``: q heads (a
+    tensor rank's share)."""
     import numpy as np
 
     dev = torch.device("cuda")
-    B, H, D, BS = 8, 32, 128, block_size
+    B, H, D, BS = 8, heads, 128, block_size
     N, NT = 72 * 128 // BS, 1152 // BS
     rng = np.random.RandomState(40 + Q)
     buckets = [1024, 512, 1024, 512, 1024, 1024, 512, 1024]
@@ -5170,12 +5211,12 @@ def trainer_hooks(torch, *, next_mesh=None, rng_state=None):
 
 
 def dist_rank_main(spec_path: str) -> None:
-    """One rank of phase 14 (b), 15 (b) or 19 (``chip_smoke.py --dist-rank
-    spec.json``): a gloo group on cuda:0 joined through ``core/mesh.py``
-    from the spec (NCCL refuses two ranks on one card), then the train CLI
-    (with phase 15's hooks; ``rank0_argv`` added on rank 0) or phase 19
-    (a)'s ring check; rank 0 writes its steps' losses and grad norms and
-    its launches, or the ring's numbers."""
+    """One rank of phase 14 (b), 15 (b), 19 or 20 (``chip_smoke.py
+    --dist-rank spec.json``): a gloo group on cuda:0 joined through
+    ``core/mesh.py`` from the spec (NCCL refuses two ranks on one card),
+    then the train CLI (with phase 15's hooks; ``rank0_argv`` added on rank
+    0), phase 19's parts or phase 20's; rank 0 writes its steps' losses and
+    grad norms and its launches, or the phase's numbers."""
     with open(spec_path) as f:
         spec = json.load(f)
     sys.path.insert(0, HERE)
@@ -5194,6 +5235,11 @@ def dist_rank_main(spec_path: str) -> None:
     initialize_distributed(spec["address"], spec["world"], rank, device_type="cpu")
     if spec.get("phase19"):
         out = model_parallel_rank_main(torch, fa, fd, fo, cli, spec, rank)
+        if spec.get("phase20"):  # phase 20's rank parts in the same processes
+            free_cuda()
+            t0 = time.perf_counter()
+            out["serving"] = serve_mesh_rank_main(torch, fa, fd, fo, cli, spec, rank)
+            out["serving"]["seconds"] = time.perf_counter() - t0
         if rank == 0:
             with open(spec["out"], "w") as f:
                 json.dump(out, f)
@@ -5245,8 +5291,14 @@ def dist_ranks(argv: list[str], world: int, *, phase: str, **extra) -> dict:
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank",
                                        spec], stdout=open(log, "w"), stderr=subprocess.STDOUT,
                                       cwd=HERE))
+    deadline = time.perf_counter() + DIST_RANK_TIMEOUT_S
+    rcs: list = []
     try:
-        rcs = [p.wait(timeout=DIST_RANK_TIMEOUT_S) for p in procs]
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(deadline - time.perf_counter(), 1.0)))
+            except subprocess.TimeoutExpired:
+                rcs.append("timed out")  # a rank waits on one that died or hung
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5650,16 +5702,46 @@ def model_parallel_rank_main(torch, fa, fd, fo, cli, spec: dict, rank: int) -> d
     all three parts): (a)'s ring check, then the train CLI with each of
     ``spec["runs"]`` ((axis, argv) pairs; ``rank0_argv`` added on rank 0),
     the launch counters zeroed just before each run and read just after."""
+    from distributed_llms_example_tpu_torch.train import trainer as trainer_mod
+
     out = {"ring": ring_rank_main(torch, spec, rank)}
+    real_evaluate = trainer_mod.Trainer.evaluate
+
+    def counters():
+        return read_counters(fa, fd, fo) | {"flash_decode": fa.flash_decode.launches,
+                                            "flash_decode_paged": fa.flash_decode_paged.launches}
+
     for axis, argv in spec["runs"]:
         zero_counters(fa, fd, fo)
         torch.cuda.reset_peak_memory_stats()
-        with no_final_state_save():
-            trainer = cli.train(argv + (spec.get("rank0_argv", []) if rank == 0 else []))
+        evals: list = []
+
+        def evaluate(self, *a, **k):
+            # phase 20 (e): the eval under tensor=2, its launches in their
+            # own window
+            torch.cuda.synchronize()
+            before = counters()
+            t0 = time.perf_counter()
+            scores = real_evaluate(self, *a, **k)
+            torch.cuda.synchronize()
+            after = counters()
+            evals.append({"scores": scores, "wall_s": time.perf_counter() - t0,
+                          "launches": {n: after[n] - before[n] for n in after}})
+            return scores
+
+        trainer_mod.Trainer.evaluate = evaluate
+        try:
+            with no_final_state_save():
+                trainer = cli.train(argv + (spec.get("rank0_argv", []) if rank == 0 else []))
+        finally:
+            trainer_mod.Trainer.evaluate = real_evaluate
         torch.cuda.synchronize()
+        eval_launches = {n: sum(e["launches"][n] for e in evals) for n in counters()}
+        # the train steps' own launches: the eval's taken out
+        train_launches = {n: v - eval_launches[n] for n, v in read_counters(fa, fd, fo).items()}
         run = {"losses": [float(m["loss"]) for m in trainer.history],
                "grad_norms": [float(m["grad_norm"]) for m in trainer.history],
-               "launches": read_counters(fa, fd, fo),
+               "launches": train_launches, "evals": evals,
                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         run.update(model_parallel_rank_extras(torch, trainer, axis, rank))
         out[axis] = run
@@ -5695,24 +5777,55 @@ def export_update_diffs(torch, ckpt: str, one_dir: str, two_dirs: list[str]) -> 
     return out
 
 
-def model_parallel_phase(torch, fa, fd, fo, cli, ckpt: str | None = None) -> dict:
+def model_parallel_eval_check(evals: list[dict]) -> None:
+    """Phase 20 (e): phase 19 (b)'s eval under tensor=2 on rank 0, one
+    event of one batch: ROUGE finite in [0, 1], kernel 1 once a layer (the
+    prompt prefill at 16 of 32 heads) and kernel 5 once a layer a beam
+    step, nothing else."""
+    steps = MP_EVAL_NEW - 1
+    want = {k: 0 for k in evals[0]["launches"]} if evals else {}
+    want.update(flash_attention_fwd=DIST_LAYERS, flash_decode=DIST_LAYERS * steps)
+    say({"phase": "eval_under_tensor", "mesh": "tensor=2", "layers": DIST_LAYERS,
+         "records": MP_VAL_RECORDS, "num_beams": 2, "new_tokens": MP_EVAL_NEW,
+         "events": len(evals), "expected": want, **(evals[0] if evals else {})})
+    rouge = ("rouge1", "rouge2", "rougeL", "rougeLsum")
+    if len(evals) != 1 or evals[0]["launches"] != want \
+            or not all(0.0 <= evals[0]["scores"].get(k, -1.0) <= 1.0 for k in rouge):
+        fail(f"phase 20 (e): the eval under tensor=2 gave {evals}, launches expected {want}")
+
+
+def model_parallel_phase(torch, fa, fd, fo, cli, ckpt: str | None = None,
+                         serving: dict | None = None) -> dict:
     """Phase 19 (``ckpt``: phase 14's HF directory; ``--phase 19`` alone
-    makes its own).  Returns rank 0's launches of (b) and (c), summed."""
+    makes its own).  ``serving``: phase 20's ``serve_mesh_prepare``, whose
+    rank parts run in the same rank processes, after phase 19's (one spawn
+    for both); their results land in ``serving["result"]``.  Returns rank
+    0's launches of (b) and (c), summed."""
     t_phase = time.perf_counter()
     ckpt = ckpt or llama_hf_dir(torch, DIST_LAYERS)
-    train_path = os.path.join(WORK, "mp_train.json")
+    train_path, val_path = (os.path.join(WORK, f"mp_{x}.json") for x in ("train", "val"))
     write_instruction_records(train_path, MP_RECORDS, seed=2)
+    write_instruction_records(val_path, MP_VAL_RECORDS, seed=3)
     base = [*MP_ARGS, "--model-ckpt", ckpt, "--train-file", train_path]
     t0 = time.perf_counter()
     one_run = one_rank_baseline(torch, cli, base, fresh_dir("mp-one-out"))
     one_s = time.perf_counter() - t0
     axes = (("b", "tensor"), ("c", "sequence"))
+    # phase 20 (e): the tensor run's eval pass, one batch at the epoch's end
+    evals = {"tensor": ["--val-file", val_path, "--eval-batch-size", str(MP_VAL_RECORDS),
+                        "--num-beams", "2", "--eval-max-new-tokens", str(MP_EVAL_NEW)],
+             "sequence": []}
     runs = [(axis, [*base, "--output-dir", fresh_dir(f"mp-{axis}-out"), "--mesh", f"{axis}=2",
-                    "--obs-gauges", "on"]) for _, axis in axes]
+                    "--obs-gauges", "on", *evals[axis]]) for _, axis in axes]
     t0 = time.perf_counter()
-    res = dist_ranks([], 2, phase="19", phase19=True, runs=runs,
-                     rank0_argv=["--profile-steps", f"{MP_PROFILE_STEP}:{MP_PROFILE_STEP}"])
+    res = dist_ranks([], 2, phase="19" if serving is None else "19-20", phase19=True,
+                     runs=runs, rank0_argv=["--profile-steps",
+                                            f"{MP_PROFILE_STEP}:{MP_PROFILE_STEP}"],
+                     **(serving["spec"] if serving is not None else {}))
     ranks_s = time.perf_counter() - t0
+    if serving is not None:
+        serving["result"] = res.pop("serving")
+        ranks_s -= serving["result"]["seconds"]
 
     # (a) ring attention alone
     ring = res["ring"]
@@ -5769,6 +5882,10 @@ def model_parallel_phase(torch, fa, fd, fo, cli, ckpt: str | None = None) -> dic
             fail(f"phase 19 ({part}): rank 0's profiled step gave no device_account")
         for k, n in two["launches"].items():
             launches[k] = launches.get(k, 0) + n
+        if axis == "tensor":
+            model_parallel_eval_check(two["evals"])
+            for k, n in two["evals"][0]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
         shutil.rmtree(os.path.join(WORK, f"mp-{axis}-out"), ignore_errors=True)
     for path in (ckpt, os.path.join(WORK, "mp-one-out")):
         shutil.rmtree(path, ignore_errors=True)
@@ -6123,10 +6240,12 @@ SERVE16_ARGS = ["--model-ckpt", "llama-2-7b", "--num-prompts", "8", "--max-slots
                 "bfloat16", "--seed", "0", "--log-every-steps", "0", "--lint", "off"]
 SPEC_K = 3
 # run (d): one 512-token system prefix, 64-256-token tails, 16 requests,
-# pool blocks of 128 slots (768 + 128 = 7 blocks a row); a 256 bucket, so
-# that a warm tail is prefilled at 256 rows, not at the prompt width
-PREFIX16_ARGS = ["--model-ckpt", "llama-2-7b", "--max-slots", "8", "--max-new-tokens", "128",
-                 "--max-source-length", "768", "--kv-block-size", "128", "--compute-dtype",
+# 64 new tokens, pool blocks of 64 slots (768 + 64 = 13 blocks a row; 128
+# new tokens in blocks of 128 until phase 20 joined the run: its cut); a
+# 256 bucket, so that a warm tail is prefilled at 256 rows, not at the
+# prompt width
+PREFIX16_ARGS = ["--model-ckpt", "llama-2-7b", "--max-slots", "8", "--max-new-tokens", "64",
+                 "--max-source-length", "768", "--kv-block-size", "64", "--compute-dtype",
                  "bfloat16", "--seed", "0", "--log-every-steps", "0", "--lint", "off",
                  "--paged-kv", "--prefill-buckets", "256"]
 PREFIX16_SYS, PREFIX16_TAILS = 512, (64, 256)
@@ -6746,7 +6865,8 @@ def recovery_tick(out: dict):
 def decode_logits_by_request(model, store: dict):
     """Every decode step's fp32 logits row, by (router request id, token
     index): a forward hook on the model reads the session stepping (a
-    prefill, wider than one row, is left out).  A re-prefilled request's
+    prefill, wider than one row, is left out; a data rank's rows are its
+    own slots').  A re-prefilled request's
     rows overwrite its dead replica's, so the store holds what produced
     each request's final tokens."""
     import numpy as np
@@ -6767,9 +6887,10 @@ def decode_logits_by_request(model, store: dict):
         if out.shape[1] != 1 or not stepping:
             return
         sess = stepping[-1]
-        for s in np.nonzero(sess.active)[0]:
-            rid = int(sess.slot_req[s])
-            store[(sess.labels[rid], int(sess.emitted[s]))] = out[s, 0].float().clone()
+        lo, n = sess.eng.slot0, sess.eng.rows  # a data rank holds rows lo .. lo + n
+        for s in np.nonzero(sess.active[lo:lo + n])[0]:
+            rid = int(sess.slot_req[lo + s])
+            store[(sess.labels[rid], int(sess.emitted[lo + s]))] = out[s, 0].float().clone()
 
     handle = model.register_forward_hook(hook)
     eng.ServeSession._step_round = step_round
@@ -7022,7 +7143,7 @@ def serving_tier_phase(torch, fa, cli, lm, *, floor: float | None = None) -> dic
     # the drain through the library: the CLI's engines and requests, one tick,
     # then drain_replica(0)
     args = cli.build_router_parser().parse_args([*fp32, "--prompts-file", prompts])
-    _, _, _, _, requests = cli._serve_setup(args, lm32)
+    _, _, _, _, requests, _ = cli._serve_setup(args, lm32)
     engines = [cli._engine(args, lm32, lm32.device) for _ in range(2)]
     drain = ReplicaRouter(engines, RouterConfig(log_every_ticks=0))
     for r in requests:
@@ -7647,26 +7768,36 @@ def mixtral_decode_kernels(torch, fa) -> None:
     against their plain versions, kernel 6 bit-equal to kernel 5 on the
     gathered view (repeated 8 -> 32 as the flat path repeats it); bf16
     times of both beside SDPA on the same view and each one's bound."""
+    decode_kernels_at(torch, fa, H=32, KV=8, dtypes=(torch.bfloat16, torch.float32),
+                      qs=(1, 4), phase="mixtral_decode_kernel", what="mixtral", seed=18)
+
+
+def decode_kernels_at(torch, fa, *, H: int, KV: int, dtypes, qs, phase: str, what: str,
+                      seed: int) -> None:
+    """Kernels 5 and 6 at ``H`` q heads over ``KV`` kv heads of 128 on
+    ``paged_case``'s cache: each against its plain version, kernel 6
+    bit-equal to kernel 5 on the gathered view (repeated to ``H``), and in
+    bf16 both timed beside SDPA on the same view with their bounds."""
     import torch.nn.functional as F
 
-    gen = torch.Generator(device="cuda").manual_seed(18)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     tols = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2), torch.float32: dict(atol=1e-4)}
-    H, KV, D = 32, 8, 128
-    for dtype in (torch.bfloat16, torch.float32):
-        for Q in (1, 4):
+    D = 128
+    for dtype in dtypes:
+        for Q in qs:
             q, kp, vp, bt, off, bias, _ = paged_case(torch, fa, dtype=dtype, Q=Q, heads_kv=KV,
-                                                     gen=gen)
+                                                     gen=gen, heads=H)
             o6 = fa.flash_decode_paged(q, kp, vp, bias, block_tables=bt, offsets=off)
             po = fa.flash_decode_paged_plain(q, kp, vp, bias, block_tables=bt, offsets=off)
             view_k, view_v = (fa.gather_blocks(x, bt).repeat_interleave(H // KV, dim=1)
                               for x in (kp, vp))
             o5 = fa.flash_decode(q, view_k, view_v, bias, offsets=off)
             torch.cuda.synchronize()
-            case = f"mixtral decode Q={Q} H=32/8 d=128 {dtype}"
+            case = f"{what} decode Q={Q} H={H}/{KV} d=128 {dtype}"
             e6 = check_close(f"flash_decode_paged {case}", o6, po, **tols[dtype])
             e5 = check_close(f"flash_decode (gathered, repeated) {case}", o5, po, **tols[dtype])
             vs = float((o6.float() - o5.float()).abs().max())
-            line = {"phase": "mixtral_decode_kernel", "case": case, "kernel6_err": e6,
+            line = {"phase": phase, "case": case, "kernel6_err": e6,
                     "kernel5_err": e5, "kernel6_vs_kernel5": vs}
             if vs != 0.0:
                 fail(f"{case}: kernel 6 differs from kernel 5 on the gathered view ({vs})")
@@ -7721,6 +7852,557 @@ def mixtral_phase(torch, fa, fd, fo, cli) -> dict:
     return {k: trained.get(k, 0) + served.get(k, 0) for k in {*trained, *served}}
 
 
+# phase 20: serving across ranks at llama-2-7b's widths, 2 of 32 layers,
+# on two gloo ranks of cuda:0 (NCCL refuses two ranks on one card): (a)
+# fp32, 8 prompts (one prefill chunk of 8), a prefill and 31 decode
+# rounds, serve --mesh tensor=2 then data=2, flat and paged (blocks of 32:
+# 512 + 32 = 17 of them), each held to its own one-rank run; (b) bf16, 16
+# prompts, 64 new tokens, tensor=2 --paged-kv (blocks of 64), held to its
+# one-rank run within ROUTE_FLOOR_FACTOR x the route floor; (c) the bf16
+# ring at phase 19's shape; (d) Mixtral's routing across the two ranks
+SM_LAYERS = 2
+SM_W = 512
+SM_FP32_NEW, SM_FP32_BLOCK, SM_FP32_PROMPTS = 32, 32, 8
+SM_BF16_NEW, SM_BF16_BLOCK, SM_BF16_PROMPTS = 64, 64, 16
+# fp32 decode logits, two ranks against one: the row-parallel sums (tensor)
+# or the rows' own (data) in another order, far below what a rank reading
+# its neighbour's slot rows or skipping o_proj's all-reduce moves
+SM_LOGITS_ATOL = 1e-4
+# (c): the bf16 ring's relative distance from fp32 plain attention at most
+# this factor times plain bf16 attention's own
+RING_BF16_FACTOR = 1.5
+# (d): one MoEMLP at mixtral-8x7b's widths, fp32, batches whose first half
+# (rank 0's rows) leans towards expert 0: (8, 1024), two groups of 4 096,
+# one a rank (every weight's gradient compared); and (6, 1024), a group of
+# 4 096 across the ranks and a padded one of 2 048 (the router's)
+MOE_SHARD_CASES = (("aligned", (8, 1024), True), ("spanning", (6, 1024), False))
+MOE_SHARD_AUX_W = 0.3
+# output, input gradient and weight gradients: relative to their largest
+# entry (the ranks' groups and expert rows are laid out differently, so the
+# expert matmuls sum in other orders); the aux (~2.8) relative to itself
+# (the ranks' shares sum their tokens' probabilities in two halves)
+MOE_SHARD_REL = 1e-5
+MOE_SHARD_AUX_REL = 1e-6
+# phase 19 (b)'s eval under tensor=2: one batch of 8 records, beam 2
+MP_VAL_RECORDS = 8
+MP_EVAL_NEW = 16
+
+
+def write_serve_mesh_prompts(path: str, n: int, seed: int) -> list[list[int]]:
+    """``n`` byte-token prompts of 64-500 tokens; returns their ids."""
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.data.tokenizer import ByteTokenizer
+
+    rng = np.random.RandomState(seed)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
+    texts = ["".join(rng.choice(alphabet, rng.randint(64, 501))) for _ in range(n)]
+    with open(path, "w") as f:
+        json.dump(texts, f)
+    tok = ByteTokenizer()
+    return [tok.encode_prompt(t, SM_W) for t in texts]
+
+
+def serve_mesh_model(torch, dtype):
+    """llama-2-7b's widths at SM_LAYERS of its 32 layers, seed 0, in
+    ``dtype`` (weights too), as a ``LoadedModel`` for the CLI's
+    ``loaded=``: every rank and the one-rank run draw the same weights."""
+    import dataclasses
+
+    from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
+    from distributed_llms_example_tpu_torch.models.registry import LLAMA_CONFIGS, LoadedModel
+
+    cfg = dataclasses.replace(LLAMA_CONFIGS["llama-2-7b"], num_hidden_layers=SM_LAYERS)
+    model = LlamaForCausalLM(cfg, dtype=dtype, param_dtype=dtype, device="cuda").eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    return LoadedModel("llama", cfg, model, is_seq2seq=False)
+
+
+def serve_mesh_argv(prompts: str, out: str, *, new: int, dtype: str, extra=()) -> list[str]:
+    return ["--tokenizer", "byte", "--max-slots", "8", "--max-source-length", str(SM_W),
+            "--max-new-tokens", str(new), "--compute-dtype", dtype, "--lint", "off",
+            "--log-every-steps", "0", "--prompts-file", prompts, "--output-file", out, *extra]
+
+
+def sm_paged(block: int) -> list[str]:
+    return ["--paged-kv", "--kv-block-size", str(block)]
+
+
+@contextlib.contextmanager
+def kernel_heads(torch):
+    """The q heads each launch of kernels 1, 5 and 6 saw through
+    ``ops/mha.py`` (by kernel counter name)."""
+    from distributed_llms_example_tpu_torch.ops import mha
+
+    seen: dict = {"flash_attention_fwd": set(), "flash_decode": set(),
+                  "flash_decode_paged": set()}
+    reals = {n: getattr(mha, n) for n in ("flash_attention", "flash_decode",
+                                          "flash_decode_paged")}
+
+    def wrap(name, key):
+        def call(q, *a, **k):
+            seen[key].add(int(q.shape[1]))
+            return reals[name](q, *a, **k)
+        return call
+
+    mha.flash_attention = wrap("flash_attention", "flash_attention_fwd")
+    mha.flash_decode = wrap("flash_decode", "flash_decode")
+    mha.flash_decode_paged = wrap("flash_decode_paged", "flash_decode_paged")
+    try:
+        yield seen
+    finally:
+        for n, fn in reals.items():
+            setattr(mha, n, fn)
+
+
+def serve_mesh_one_rank(torch, cli, lm, prompts: str, argv: list[str], path: str) -> dict:
+    """The one-rank run of (a): its tokens and every decode row's fp32
+    logits, saved for the ranks (``path``)."""
+    store: dict = {}
+    with decode_logits_by_request(lm.module, store):
+        engine, outs = cli.serve(argv, loaded=lm)
+    torch.cuda.synchronize()
+    torch.save({"outs": outs, "logits": {k: v.cpu() for k, v in store.items()}}, path)
+    rows = len(store)
+    del engine, store
+    return {"outs": outs, "rows": rows}
+
+
+def serve_mesh_rank_run(torch, fa, cli, lm, argv: list[str], base: dict) -> dict:
+    """One serve run of (a) on a rank: the counters of kernels 1, 5 and 6
+    zeroed just before and read just after, the heads each launch saw, the
+    tokens (every rank holds every request's) and each decode row this
+    rank computed against the one-rank run's (``base``): the largest
+    |Δ logit| over every rank, and the rows covered by all of them."""
+    from distributed_llms_example_tpu_torch.ops.mha import MultiHeadAttention
+
+    dist = torch.distributed
+    store: dict = {}
+    fa.flash_attention.launches = fa.flash_decode.launches = 0
+    fa.flash_decode_paged.launches = 0
+    t0 = time.perf_counter()
+    with kernel_heads(torch) as heads, decode_logits_by_request(lm.module, store):
+        engine, outs = cli.serve(argv, loaded=lm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.flash_attention.launches,
+                "flash_decode": fa.flash_decode.launches,
+                "flash_decode_paged": fa.flash_decode_paged.launches}
+    st = engine.last_stats
+    layers = sum(isinstance(m, MultiHeadAttention) for m in engine.model.modules())
+    # every rank prefills its rows of every chunk and steps its slot rows
+    # every round: kernel 1 a layer a chunk, kernel 6 (paged) or 5 (flat) a
+    # layer a round
+    steps = layers * st.decode_steps
+    want = {"flash_attention_fwd": layers * st.prefill_calls,
+            "flash_decode": 0 if engine.paged else steps,
+            "flash_decode_paged": steps if engine.paged else 0}
+    err = max((float((v - base["logits"][k].to(v.device)).abs().max()) if k in base["logits"]
+               else math.inf for k, v in store.items()), default=math.inf)
+    worst = torch.tensor([err], dtype=torch.float64)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    keys = [None] * dist.get_world_size()
+    dist.all_gather_object(keys, sorted(store))
+    covered = set().union(*map(set, keys))
+    out = {"launches": launches, "expected": want, "heads": {k: sorted(v) for k, v in
+                                                               heads.items()},
+           "tokens_equal": outs == base["outs"], "logit_err": float(worst[0]),
+           "rows_covered": len(covered), "rows_all_covered": covered == set(base["logits"]),
+           "decode_steps": st.decode_steps, "prefill_calls": st.prefill_calls,
+           "wall_s": wall, "decode_tokens_per_sec": st.tokens_per_sec(),
+           "cache_bytes_resident": st.cache_bytes_resident,
+           "bytes_per_live_token": st.bytes_per_live_token,
+           "layout": {"data": engine.layout.data, "tensor": engine.layout.tensor,
+                      "rows": engine.rows}}
+    if engine.paged:
+        out["blocks_in_use_at_end"] = engine.pool.blocks_in_use
+    del engine, store
+    free_cuda()
+    return out
+
+
+@contextlib.contextmanager
+def planted_neighbour_rows():
+    """The planted fault of (a) under data: each rank reads its neighbour's
+    block of the slot arrays (offsets, live flags, block tables) in place
+    of its own."""
+    from distributed_llms_example_tpu_torch.serving import engine as eng
+
+    real = eng.ServingEngine.local
+
+    def neighbour(self, a):
+        if a is None or self.layout.data == 1:
+            return a
+        j = (self.layout.data_index + 1) % self.layout.data
+        return a[j * self.rows:(j + 1) * self.rows]
+
+    eng.ServingEngine.local = neighbour
+    try:
+        yield
+    finally:
+        eng.ServingEngine.local = real
+
+
+@contextlib.contextmanager
+def planted_unreduced_o_proj():
+    """The planted fault of (a) under tensor: attention's o_proj output
+    left un-reduced (each rank keeps its heads' partial sum; the MLP's
+    all-reduce stays, so both ranks meet in every collective)."""
+    from distributed_llms_example_tpu_torch.ops import mha
+
+    real = mha.reduce_from_tensor
+    mha.reduce_from_tensor = lambda x, group: x
+    try:
+        yield
+    finally:
+        mha.reduce_from_tensor = real
+
+
+def ring_bf16_rank_main(torch, rank: int) -> dict:
+    """(c) on one rank: phase 19 (a)'s seeded inputs and padding, the ring
+    forward and backward in fp32 and in bf16, each timed over both ranks;
+    rank 0 also plain attention over the whole length in fp32 (the
+    reference) and in bf16: each bf16 route's distance from it, relative
+    to its largest entry."""
+    from distributed_llms_example_tpu_torch.ops import ring_attention as ra
+    from distributed_llms_example_tpu_torch.ops.attention import (
+        NEG_INF,
+        dot_product_attention,
+        make_causal_bias,
+    )
+    from distributed_llms_example_tpu_torch.parallel.activation import merge_sequence
+
+    world = torch.distributed.get_world_size()
+    group = torch.distributed.group.WORLD
+    B, H, S, D = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=gen, device="cuda") for _ in range(4))
+    lens = torch.tensor([S - 37 * i for i in range(B)], device="cuda")
+    bias = torch.where(torch.arange(S, device="cuda")[None, :] < lens[:, None], 0.0,
+                       NEG_INF)[:, None, None, :].contiguous()
+    ring = ra.Ring(group, world, rank)
+
+    def run(dt):
+        blocks = [t.chunk(world, dim=2)[rank].to(dt).clone().requires_grad_(True)
+                  for t in (q, k, v)]
+        out = ra.ring_attention(*blocks, bias.chunk(world, dim=-1)[rank].contiguous(),
+                                ring=ring, causal=True)
+        out.backward(dout.chunk(world, dim=2)[rank].to(dt))
+        got = [out.detach()] + [b.grad for b in blocks]
+        return [merge_sequence(t.float().contiguous(), group, world, dim=2) for t in got]
+
+    def timed(dt):
+        run(dt)  # warm
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        res = run(dt)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    got32, ms32 = timed(torch.float32)
+    del got32
+    got16, ms16 = timed(torch.bfloat16)
+    out = {"ring_fp32_ms": ms32, "ring_bf16_ms": ms16}
+    if rank != 0:
+        return out
+
+    def plain(dt):
+        leaves = [t.to(dt).clone().requires_grad_(True) for t in (q, k, v)]
+        o = dot_product_attention(*leaves, bias + make_causal_bias(S, S, device="cuda"),
+                                  scale=D ** -0.5, dtype=dt)
+        o.backward(dout.to(dt))
+        return [o.detach().float()] + [t.grad.float() for t in leaves]
+
+    want, plain16 = plain(torch.float32), plain(torch.bfloat16)
+    names = ("out", "dq", "dk", "dv")
+
+    def rel(a):
+        return {n: float((x - y).abs().max() / y.abs().max()) for n, x, y in zip(names, a, want)}
+
+    out.update(ring_bf16_rel_err=rel(got16), plain_bf16_rel_err=rel(plain16))
+    return out
+
+
+def moe_shard_rank_main(torch, rank: int) -> dict:
+    """(d) on one rank: one MoEMLP at mixtral-8x7b's widths, fp32, seeded
+    alike on both ranks, over the ranks as ``data=2`` splits a batch whose
+    first half leans towards expert 0 (``ops/moe.attach_batch_shards``),
+    for each of ``MOE_SHARD_CASES``: the output and the input's gradient
+    gathered, the aux shares, the dropped (token, choice) pairs and the
+    router's gradient summed (with ``full``, every expert's too); each rank
+    routing alone (the layer before the exchange), its output gathered and
+    its aux averaged as the step weighed it.  Rank 0 then runs the whole
+    batch alone and reads every difference."""
+    from distributed_llms_example_tpu_torch.ops import moe
+
+    dist = torch.distributed
+    world = dist.get_world_size()
+    d, ff, E = 4096, 14336, 8
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    layer = moe.MoEMLP(d, ff, E, top_k=2, capacity_factor=1.25, device="cuda")
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, d ** -0.5, generator=gen)
+    toward = layer.router.weight.detach()[0]
+    drops: list = []
+    route = moe.MoEMLP.route
+
+    def counting(self, tokens, valid, capacity, exchange):
+        index, combine, aux = route(self, tokens, valid, capacity, exchange)
+        drops.append(((combine == 0).float() * valid[..., None]).sum())
+        return index, combine, aux
+
+    def run(xs, dy, shards, full):
+        moe.attach_batch_shards(layer, shards)
+        layer.zero_grad(set_to_none=True)
+        xs = xs.clone().requires_grad_(True)
+        drops.clear()
+        t0 = time.perf_counter()
+        o, aux = layer(xs)
+        ((o * dy).sum() + MOE_SHARD_AUX_W * aux).backward()
+        torch.cuda.synchronize()
+        return {"out": o.detach(), "aux": aux.detach().reshape(1), "dx": xs.grad,
+                "drops": drops[0].reshape(1), "ms": (time.perf_counter() - t0) * 1e3,
+                "grads": {n: p.grad for n, p in layer.named_parameters()
+                          if full or n.startswith("router")}}
+
+    def gather(t):
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    out: dict = {}
+    moe.MoEMLP.route = counting
+    try:
+        for name, (B, S), full in MOE_SHARD_CASES:
+            x = torch.randn(B, S, d, generator=gen, device="cuda")
+            x[: B // 2] += 3.0 * toward / toward.norm()
+            dout = torch.randn(B, S, d, generator=gen, device="cuda")
+            mine = run(x.chunk(world)[rank], dout.chunk(world)[rank],
+                       moe.BatchShards(None, world, rank), full)
+            with torch.no_grad():
+                moe.attach_batch_shards(layer, None)
+                o_alone, aux_alone = layer(x.chunk(world)[rank])
+            totals = torch.cat([mine["aux"], mine["drops"], aux_alone.reshape(1) / world])
+            dist.all_reduce(totals)
+            for g in mine["grads"].values():
+                dist.all_reduce(g)
+            two = {"out": gather(mine["out"]), "dx": gather(mine["dx"]), "grads": mine["grads"]}
+            alone = gather(o_alone)
+            case = {"rows": [B, S], "full_gradients": full, "two_rank_fwd_bwd_ms": mine["ms"]}
+            del mine, o_alone
+            if rank == 0:
+                one = run(x, dout, None, full)
+                case.update(
+                    out_rel=rel(two["out"], one["out"]), dx_rel=rel(two["dx"], one["dx"]),
+                    grad_rel={n: rel(two["grads"][n], g) for n, g in one["grads"].items()},
+                    aux_two=float(totals[0]), aux_one=float(one["aux"][0]),
+                    drops_two=int(totals[1]), drops_one=int(one["drops"][0]),
+                    tokens=B * S, alone_rel=rel(alone, one["out"]),
+                    aux_alone=float(totals[2]), one_rank_fwd_bwd_ms=one["ms"])
+                del one
+            out[name] = case
+            del two, alone, x, dout
+            layer.zero_grad(set_to_none=True)
+            free_cuda()
+    finally:
+        moe.MoEMLP.route = route
+    return out
+
+
+def serve_mesh_rank_main(torch, fa, fd, fo, cli, spec: dict, rank: int) -> dict:
+    """Phase 20 on one rank (``chip_smoke.py --dist-rank``): (a) serve
+    --mesh tensor=2 and data=2, flat and paged, fp32, each against the
+    one-rank run's tokens and logits; its planted faults; (b) bf16
+    tensor=2 paged; (c) the bf16 ring; (d) Mixtral's routing."""
+    out: dict = {}
+    base = {name: torch.load(path) for name, path in spec["baselines"].items()}
+    runs = [(f"{axis}_{name}", axis, name, sm_paged(SM_FP32_BLOCK) if name == "paged" else [])
+            for axis in ("tensor", "data") for name in ("flat", "paged")]
+    planted = {"planted_tensor_unreduced_o_proj": ("tensor", planted_unreduced_o_proj),
+               "planted_data_neighbour_rows": ("data", planted_neighbour_rows)}
+    runs += [(key, axis, "flat", []) for key, (axis, _) in planted.items()]
+    for key, axis, name, extra in runs:
+        lm = serve_mesh_model(torch, torch.float32)
+        argv = serve_mesh_argv(spec["fp32_prompts"], os.path.join(WORK, f"sm_{key}.jsonl"),
+                               new=SM_FP32_NEW, dtype="float32",
+                               extra=[*extra, "--mesh", f"{axis}=2"])
+        fault = planted[key][1]() if key in planted else contextlib.nullcontext()
+        with fault:
+            out[key] = serve_mesh_rank_run(torch, fa, cli, lm, argv, base[name])
+        del lm
+        free_cuda()
+    # (b)
+    lm = serve_mesh_model(torch, torch.bfloat16)
+    fa.flash_attention.launches = fa.flash_decode.launches = 0
+    fa.flash_decode_paged.launches = 0
+    t0 = time.perf_counter()
+    engine, outs = cli.serve(serve_mesh_argv(
+        spec["bf16_prompts"], os.path.join(WORK, "sm_bf16.jsonl"), new=SM_BF16_NEW,
+        dtype="bfloat16", extra=[*sm_paged(SM_BF16_BLOCK), "--mesh", "tensor=2"]), loaded=lm)
+    torch.cuda.synchronize()
+    st = engine.last_stats
+    steps = SM_LAYERS * st.decode_steps
+    out["bf16_tensor_paged"] = {
+        "outs": outs, "wall_s": time.perf_counter() - t0,
+        "launches": {"flash_attention_fwd": fa.flash_attention.launches,
+                     "flash_decode": fa.flash_decode.launches,
+                     "flash_decode_paged": fa.flash_decode_paged.launches},
+        "expected": {"flash_attention_fwd": SM_LAYERS * st.prefill_calls, "flash_decode": 0,
+                     "flash_decode_paged": steps},
+        "decode_steps": st.decode_steps, "decode_tokens_per_sec": st.tokens_per_sec(),
+        "bytes_per_live_token": st.bytes_per_live_token,
+        "blocks_in_use_at_end": engine.pool.blocks_in_use}
+    del engine, lm
+    free_cuda()
+    out["ring_bf16"] = ring_bf16_rank_main(torch, rank)
+    free_cuda()
+    out["moe"] = moe_shard_rank_main(torch, rank)
+    return out
+
+
+def serve_mesh_prepare(torch, fa, cli) -> dict:
+    """Phase 20's part in this process, before phase 19's rank processes
+    (which run phase 20's rank parts too): the prompts, the one-rank runs
+    (fp32 flat and paged, their tokens and logits saved for the ranks; bf16
+    paged), the bf16 model's route floor, and kernels 5 and 6 at a tensor=2
+    rank's decode shape.  Returns what ``serve_mesh_checks`` reads, with
+    ``spec``, the rank processes' part of it."""
+    t0 = time.perf_counter()
+    os.makedirs(WORK, exist_ok=True)
+    fp32_prompts = os.path.join(WORK, "sm_fp32_prompts.json")
+    bf16_prompts = os.path.join(WORK, "sm_bf16_prompts.json")
+    write_serve_mesh_prompts(fp32_prompts, SM_FP32_PROMPTS, seed=20)
+    bf16_ids = write_serve_mesh_prompts(bf16_prompts, SM_BF16_PROMPTS, seed=21)
+    lm = serve_mesh_model(torch, torch.float32)
+    baselines, one = {}, {}
+    for name, extra in (("flat", []), ("paged", sm_paged(SM_FP32_BLOCK))):
+        baselines[name] = os.path.join(WORK, f"sm_one_{name}.pt")
+        one[name] = serve_mesh_one_rank(
+            torch, cli, lm, fp32_prompts, serve_mesh_argv(
+                fp32_prompts, os.path.join(WORK, f"sm_one_{name}.jsonl"), new=SM_FP32_NEW,
+                dtype="float32", extra=extra), baselines[name])
+    del lm
+    free_cuda()
+    lm16 = serve_mesh_model(torch, torch.bfloat16)
+    _, plain16 = cli.serve(serve_mesh_argv(
+        bf16_prompts, os.path.join(WORK, "sm_one_bf16.jsonl"), new=SM_BF16_NEW,
+        dtype="bfloat16", extra=sm_paged(SM_BF16_BLOCK)), loaded=lm16)
+    floor = route_floor(torch, lm16.module, bf16_ids)
+    # kernels 5 and 6 at a tensor=2 rank's decode shape: 16 of llama-2-7b's
+    # 32 heads (its kv heads too), Q = 1, bf16
+    decode_kernels_at(torch, fa, H=16, KV=16, dtypes=(torch.bfloat16,), qs=(1,),
+                      phase="local_head_decode_kernel", what="tensor=2 rank", seed=20)
+    return {"spec": {"phase20": True, "baselines": baselines, "fp32_prompts": fp32_prompts,
+                     "bf16_prompts": bf16_prompts},
+            "one": one, "lm16": lm16, "plain16": plain16, "bf16_ids": bf16_ids,
+            "floor": floor, "one_rank_s": time.perf_counter() - t0}
+
+
+def serve_mesh_phase(torch, fa, fd, fo, cli, ckpt: str | None = None) -> tuple[dict, dict]:
+    """Phases 19 and 20 (``ckpt``: phase 14's HF directory, or phase 19
+    makes its own): phase 20's one-rank part, then one pair of rank
+    processes for both phases' parts, then each phase's checks.  Returns
+    rank 0's launches of phase 19 and of phase 20."""
+    prep = serve_mesh_prepare(torch, fa, cli)
+    model_parallel = model_parallel_phase(torch, fa, fd, fo, cli, ckpt, serving=prep)
+    free_cuda()
+    return model_parallel, serve_mesh_checks(torch, prep)
+
+
+def serve_mesh_checks(torch, prep: dict) -> dict:
+    """Phase 20's checks of the rank processes' results (``prep["result"]``,
+    set by phase 19's spawn).  Returns rank 0's launches of kernels 1, 5 and
+    6 in the serve runs of (a) and (b), summed."""
+    t_checks = time.perf_counter()
+    res, one, floor, lm16 = prep["result"], prep["one"], prep["floor"], prep.pop("lm16")
+    baselines = prep["spec"]["baselines"]
+
+    # (a) fp32 serving, two ranks against one
+    launches: dict = {}
+    for axis in ("tensor", "data"):
+        for name in ("flat", "paged"):
+            r = res[f"{axis}_{name}"]
+            say({"phase": f"serve_mesh_{axis}_{name}", "backend": "gloo", "device": "cuda:0",
+                 "mesh": f"{axis}=2", "compute_dtype": "float32", "layers": SM_LAYERS,
+                 "prompts": SM_FP32_PROMPTS, "new_tokens": SM_FP32_NEW,
+                 "one_rank_decode_rows": one[name]["rows"], "logit_limit": SM_LOGITS_ATOL, **r})
+            heads = 16 if axis == "tensor" else 32
+            kernel = "flash_decode_paged" if name == "paged" else "flash_decode"
+            if not r["tokens_equal"] or not r["logit_err"] <= SM_LOGITS_ATOL \
+                    or not r["rows_all_covered"]:
+                fail(f"phase 20 (a): serve --mesh {axis}=2 {name} is not the one-rank run "
+                     f"(tokens equal {r['tokens_equal']}, logits {r['logit_err']}, every row "
+                     f"compared {r['rows_all_covered']})")
+            if r["launches"] != r["expected"] or not r["decode_steps"] \
+                    or r["heads"]["flash_attention_fwd"] != [heads] \
+                    or r["heads"][kernel] != [heads]:
+                fail(f"phase 20 (a): {axis}=2 {name}: launches {r['launches']} vs "
+                     f"{r['expected']}, heads {r['heads']} (want {heads})")
+            if name == "paged" and r["blocks_in_use_at_end"]:
+                fail(f"phase 20 (a): {axis}=2 paged left {r['blocks_in_use_at_end']} blocks")
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    for key in ("planted_tensor_unreduced_o_proj", "planted_data_neighbour_rows"):
+        r = res[key]
+        broke = not r["tokens_equal"] or not r["logit_err"] <= SM_LOGITS_ATOL
+        say({"phase": f"serve_mesh_{key}", "tokens_equal": r["tokens_equal"],
+             "logit_err": r["logit_err"], "broke": broke})
+        if not broke:
+            fail(f"phase 20 (a): the planted fault {key} stayed within the check")
+
+    # (b) bf16 tensor=2 paged against one rank, within the route floor
+    b = res["bf16_tensor_paged"]
+    check = end_to_end_check(torch, lm16, "bf16_tensor2_paged", prep["bf16_ids"],
+                             prep["plain16"], b["outs"], floor["floor"])
+    say({"phase": "serve_mesh_bf16_tensor_paged", "prompts": SM_BF16_PROMPTS,
+         "new_tokens": SM_BF16_NEW, "route_floor": floor, **{k: v for k, v in b.items()
+                                                             if k != "outs"}, **check})
+    if check["unexplained"] or b["launches"] != b["expected"] or b["blocks_in_use_at_end"]:
+        fail(f"phase 20 (b): bf16 tensor=2 against one rank: unexplained {check['unexplained']}"
+             f", launches {b['launches']} vs {b['expected']}")
+    for k, n in b["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    del lm16
+    free_cuda()
+
+    # (c) the bf16 ring
+    c = res["ring_bf16"]
+    say({"phase": "ring_attention_bf16", "backend": "gloo", "ranks": 2,
+         "shape": list(RING_SHAPE), "causal": True, "padding": True, "factor": RING_BF16_FACTOR,
+         **c})
+    bad = {n: e for n, e in c["ring_bf16_rel_err"].items()
+           if not e <= RING_BF16_FACTOR * c["plain_bf16_rel_err"][n]}
+    if bad:
+        fail(f"phase 20 (c): the bf16 ring is beyond {RING_BF16_FACTOR}x plain bf16 "
+             f"attention's distance from fp32 in {bad} ({c['plain_bf16_rel_err']})")
+
+    # (d) Mixtral's routing across the ranks
+    for name, m in res["moe"].items():
+        say({"phase": f"moe_routing_two_ranks_{name}", "widths": [4096, 14336, 8], "top_k": 2,
+             "capacity_factor": 1.25, "rel_limit": MOE_SHARD_REL,
+             "aux_rel_limit": MOE_SHARD_AUX_REL, **m})
+        worst = max([m["out_rel"], m["dx_rel"], *m["grad_rel"].values()])
+        aux_limit = MOE_SHARD_AUX_REL * abs(m["aux_one"])
+        if not worst <= MOE_SHARD_REL or abs(m["aux_two"] - m["aux_one"]) > aux_limit \
+                or m["drops_two"] != m["drops_one"] or not m["drops_one"]:
+            fail(f"phase 20 (d) {name}: two ranks route unlike the whole batch (worst {worst}, "
+                 f"aux {m['aux_two']} vs {m['aux_one']}, drops {m['drops_two']} vs "
+                 f"{m['drops_one']})")
+        if m["alone_rel"] <= MOE_SHARD_REL and abs(m["aux_alone"] - m["aux_one"]) <= aux_limit:
+            fail(f"phase 20 (d) {name}: each rank routing alone matched the whole batch "
+                 f"(output {m['alone_rel']}, aux {m['aux_alone']} vs {m['aux_one']})")
+    for path in baselines.values():
+        os.remove(path)
+    say({"phase": "serve_mesh_wall", "one_rank_s": prep["one_rank_s"],
+         "ranks_s": res["seconds"], "checks_s": time.perf_counter() - t_checks})
+    return launches
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "distributed_llms_example_tpu_torch")):
         fail("the port's package is not beside chip_smoke.py: run it from a checkout")
@@ -7759,11 +8441,12 @@ def main() -> None:
         time limit goes."""
         say({"phase": "elapsed", "after": after, "seconds": time.perf_counter() - wall0})
     if sys.argv[1:2] == ["--phase"]:
-        # phase 13, 15, 16, 17, 18 or 19 alone (after the build), or 14
-        # and 19 chained (19 on 14's HF directory): a quick check of the
-        # LLaMA train path and its telemetry, of the sharded paths, of the
-        # elastic path, of the serving features, of the serving tier, of
-        # Mixtral or of tensor and sequence parallelism
+        # phase 13, 15, 16, 17, 18 or 19 alone (after the build), 14 and 19
+        # chained (19 on 14's HF directory), or 19 and 20 chained (20 (e)
+        # is 19 (b)'s eval): a quick check of the LLaMA train path and its
+        # telemetry, of the sharded paths, of the elastic path, of the
+        # serving features, of the serving tier, of Mixtral, of tensor and
+        # sequence parallelism or of serving across ranks
         from distributed_llms_example_tpu_torch.launch import cli
 
         {"13": lambda: llama_train_phase(torch, fa, fd, fo, cli),
@@ -7773,7 +8456,8 @@ def main() -> None:
          "16": lambda: serving_features_phase(torch, fa, cli, llama_7b(torch)),
          "17": lambda: serving_tier_phase(torch, fa, cli, llama_7b(torch)),
          "18": lambda: mixtral_phase(torch, fa, fd, fo, cli),
-         "19": lambda: model_parallel_phase(torch, fa, fd, fo, cli)}[sys.argv[2]]()
+         "19": lambda: model_parallel_phase(torch, fa, fd, fo, cli),
+         "20": lambda: serve_mesh_phase(torch, fa, fd, fo, cli)}[sys.argv[2]]()
         say({"phase": "wall", "seconds": time.perf_counter() - wall0})
         return
     sass_phase(cuda_build)
@@ -7930,8 +8614,14 @@ def main() -> None:
     # llama-2-7b's train shape on two gloo ranks of cuda:0, with a planted
     # fault; the CLI under --mesh tensor=2 and sequence=2 against one rank,
     # launches exact, the export bit-equal)
-    model_parallel = model_parallel_phase(torch, fa, fd, fo, cli, dist_ckpt)
+    # phase 20: serving across ranks (serve --mesh tensor=2 and data=2 at
+    # llama-2-7b's widths, 2 layers, against one rank, with planted faults;
+    # bf16 tensor=2 within the route floor; the bf16 ring; Mixtral's routing
+    # over two batch shards), its rank parts in phase 19's rank processes;
+    # 20 (e), the eval under tensor=2, is 19 (b)'s
+    model_parallel, serve_mesh = serve_mesh_phase(torch, fa, fd, fo, cli, dist_ckpt)
     free_cuda()
+    lap("19-20")
 
     # the end: the TPU kernels with no port yet (none), the kernel list
     # (kernels 1-4 name both their sources: bf16 tensor-core, fp32),
@@ -7963,7 +8653,7 @@ def main() -> None:
                        + t5_serve["flash_attention_fwd"] + eval_launches["flash_attention_fwd"]
                        + llama_paged["flash_attention_fwd"]
                        + llama_flat["flash_attention_fwd"] + served["flash_attention_fwd"]
-                       + tier["flash_attention_fwd"]),
+                       + tier["flash_attention_fwd"] + serve_mesh["flash_attention_fwd"]),
              **measured["flash_attention_fwd"]),
         dict(name="flash_decode", route="cuda", source=src + "flash_decode.cu",
              sources=[src + "flash_decode.cu", src + "flash_decode.cuh"],
@@ -7971,13 +8661,15 @@ def main() -> None:
              launches=(launches["flash_decode"] + llama_flat["flash_decode"]
                        + t5_serve["flash_decode"] + eval_launches["flash_decode"]
                        + llama_train["flash_decode"] + served["flash_decode"]
-                       + tier["flash_decode"] + mixtral["flash_decode"]),
+                       + tier["flash_decode"] + mixtral["flash_decode"]
+                       + model_parallel.get("flash_decode", 0) + serve_mesh["flash_decode"]),
              **features["kernel_times"]["flash_decode"], **measured["flash_decode"]),
         dict(name="flash_decode_paged", route="cuda", source=src + "flash_decode_paged.cu",
              sources=[src + "flash_decode_paged.cu", src + "flash_decode.cuh"],
              replaces=ref + "flash_attention.py:1155",
              launches=(llama_paged["flash_decode_paged"] + served["flash_decode_paged"]
-                       + tier["flash_decode_paged"] + mixtral["flash_decode_paged"]),
+                       + tier["flash_decode_paged"] + mixtral["flash_decode_paged"]
+                       + serve_mesh["flash_decode_paged"]),
              **features["kernel_times"]["flash_decode_paged"],
              **measured["flash_decode_paged"]),
         dict(name="flash_attention_bwd_dq", route="cuda", source=src + "flash_bwd_tc.cu",
@@ -8032,7 +8724,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-rank":
         dist_rank_main(sys.argv[2])
     elif sys.argv[1:] in ([], *(["--phase", n] for n in ("13", "14", "15", "16", "17", "18",
-                                                          "19"))):
+                                                          "19", "20"))):
         main()
         # every check passed and every line is out (the rank processes
         # were joined in their phases): leave without the interpreter's
@@ -8043,4 +8735,4 @@ if __name__ == "__main__":
         sys.stderr.flush()
         os._exit(0)
     else:
-        fail(f"usage: {sys.argv[0]} [--phase 13|14|15|16|17|18|19]")
+        fail(f"usage: {sys.argv[0]} [--phase 13|14|15|16|17|18|19|20]")

@@ -43,6 +43,12 @@ DECODE_SEQUENCE = (
     "positions (the same contract ops/mha.py enforces inside "
     "manual sequence regions); serve on data/fsdp/tensor axes — "
     "the cache shards batch rows and heads instead")
+DECODE_PIPELINED = (
+    "KV-cache decode does not run through stage>1 pipelines: the "
+    "pipeline schedules are training/teacher-forced only (no cache "
+    "path in their manual regions) — unstack the pipelined params "
+    "onto an fsdp/tensor mesh to serve (the trainer's ROUGE eval "
+    "does exactly this)")
 # the JAX trainer's startup check (train/trainer.py)
 RING_NEEDS_SEQUENCE = "--attention-impl ring requires a mesh with a sequence axis > 1"
 
@@ -83,10 +89,10 @@ class MeshConfig:
                 "expert": self.expert, "sequence": self.sequence, "tensor": self.tensor}
 
 
-def parse_mesh_arg(spec: str) -> MeshConfig:
-    """``"data=2,fsdp=4"`` -> MeshConfig (the JAX package's parser: the
-    wildcard stays on ``data`` unless another axis takes it).  An axis the
-    port does not lay out must be 1: anything else raises ValueError."""
+def _mesh_sizes(spec: str) -> dict[str, int]:
+    """``"data=2,fsdp=4"`` -> the axes it names and their sizes (the JAX
+    package's parser: an unknown axis raises ValueError; the wildcard
+    stays on ``data`` unless another axis takes it)."""
     kw: dict[str, int] = {}
     if spec.strip():
         for part in spec.split(","):
@@ -97,6 +103,13 @@ def parse_mesh_arg(spec: str) -> MeshConfig:
             kw[k] = int(v)
     if "data" not in kw:
         kw["data"] = 1 if -1 in kw.values() else -1
+    return kw
+
+
+def parse_mesh_arg(spec: str) -> MeshConfig:
+    """``"data=2,fsdp=4"`` -> MeshConfig (``_mesh_sizes``).  An axis the
+    port does not lay out must be 1: anything else raises ValueError."""
+    kw = _mesh_sizes(spec)
     unported = {k: v for k, v in kw.items() if k not in PORTED_AXES and v != 1}
     if unported:
         raise ValueError(f"--mesh {spec!r}: the port lays out data, fsdp, sequence and tensor "
@@ -117,8 +130,9 @@ def mesh_composition_error(mesh: MeshConfig, *, family: str, num_experts: int = 
     or None: the JAX package's composition rows with its reasons
     (``FUSED_CE_MODEL_AXES``, ``DECODE_SEQUENCE``, ``RING_NEEDS_SEQUENCE``),
     then the port's own refusals (each a ROADMAP.md entry): tensor and
-    sequence parallelism for BART, T5 and Mixtral, and the eval pass under
-    tensor parallelism.  A -1 axis counts as above 1."""
+    sequence parallelism for BART, T5 and Mixtral.  The eval pass runs
+    under tensor (its cached decode at the rank's heads).  A -1 axis counts
+    as above 1."""
     sizes = mesh.axis_sizes()
     over = {k for k in MODEL_AXES if sizes[k] not in (0, 1)}
     if attention_impl == "ring" and sizes["sequence"] in (0, 1):
@@ -133,11 +147,43 @@ def mesh_composition_error(mesh: MeshConfig, *, family: str, num_experts: int = 
         what = "Mixtral (experts)" if family == "llama" else family.upper()
         return (f"{what} under {sorted(over)} is not ported: the port's tensor and sequence "
                 "parallelism covers the LLaMA dense family (ROADMAP.md item 6)")
-    if evaluates:
-        return ("the eval pass under tensor parallelism is not ported (the KV-cache decode "
-                "of tensor-sharded heads, ROADMAP.md item 6): drop --val-file or train on "
-                "data/fsdp/sequence axes")
     return None
+
+
+def parse_serve_mesh(spec: str, *, family: str, model_cfg=None) -> MeshConfig:
+    """``serve --mesh``: ``data=N``, ``tensor=N`` or ``data=a,tensor=b``
+    (parsed by ``_mesh_sizes``, as ``parse_mesh_arg`` parses), else ValueError with the JAX
+    package's decode rows (``decode-pipelined`` for ``stage``,
+    ``decode-sequence`` for ``sequence``) or the port's own refusal and
+    item in ROADMAP.md's order of what is left: ``fsdp`` (item 3, fsdp x
+    tensor), ``expert`` and Mixtral under ``tensor`` (item 6), BART and T5
+    under ``tensor`` (item 4), and a tensor size the LLaMA's heads or MLP
+    width do not divide (item 5).  ``family`` and ``model_cfg`` are the served model's."""
+    kw = _mesh_sizes(spec)
+    over = {k for k, v in kw.items() if v not in (0, 1)}
+    if "stage" in over:
+        raise ValueError(DECODE_PIPELINED)
+    if "sequence" in over:
+        raise ValueError(DECODE_SEQUENCE)
+    if "fsdp" in over:
+        raise ValueError(f"serve --mesh {spec!r}: serving over fsdp is not ported; it comes with "
+                         "fsdp x tensor (ROADMAP.md order item 3): serve on data/tensor axes")
+    if "expert" in over:
+        raise ValueError(f"serve --mesh {spec!r}: expert parallelism is not ported "
+                         "(ROADMAP.md order item 6)")
+    if "tensor" in over:
+        if family != "llama":
+            raise ValueError(f"serve --mesh {spec!r}: {family.upper()} under tensor is not "
+                             "ported (its cross-attention and relative bias over tensor, "
+                             "ROADMAP.md order item 4): serve it on data")
+        if int(getattr(model_cfg, "num_experts", 0) or 0) > 0:
+            raise ValueError(f"serve --mesh {spec!r}: Mixtral (experts) under tensor is not "
+                             "ported (ROADMAP.md order item 6): serve it on data")
+        if kw["tensor"] > 1 and model_cfg is not None:
+            from distributed_llms_example_tpu_torch.parallel.sharding import check_tensor_plan
+
+            check_tensor_plan(model_cfg, kw["tensor"])
+    return MeshConfig(**kw)
 
 
 @dataclasses.dataclass(frozen=True)

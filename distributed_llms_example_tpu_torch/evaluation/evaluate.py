@@ -7,10 +7,13 @@ come in corpus order with the last one wrapped around to the start (the
 JAX package's fixed shapes), and the wrapped rows are trimmed before
 scoring.  A decoder-only model generates continuations of its
 ``CausalLMDataset`` prompts, scored against the targets
-(``_run_causal``).  Over a process group each rank generates and scores
+(``_run_causal``).  Over a process group each batch shard (``data`` x
+``fsdp``; ``batch_shards``, default every process) generates and scores
 its own rows of every batch (the batch's widths from the whole batch),
 and the ROUGE means are the mean of the ranks' means, as in the JAX
-package.  The model runs on its own device in eval mode under
+package.  The tensor ranks of a shard generate its rows together, each at
+its heads (the cached decode's row-parallel outputs all-reduced), and
+score the same text.  The model runs on its own device in eval mode under
 ``torch.no_grad()`` (its mode restored after): no dropout, and no seed
 drawn from any dropout stream.  On CUDA the encoder or the causal prompt
 prefill runs through the flash-attention kernel and every cached decoder
@@ -51,11 +54,17 @@ class Evaluator:
     max_new_tokens: int = 128
     length_penalty: float = 1.0
     is_seq2seq: bool = True
+    # (count, this rank's index) of the ranks that split an eval batch's
+    # rows; None: every process its own rows
+    batch_shards: tuple[int, int] | None = None
 
     def __post_init__(self) -> None:
         cls = Seq2SeqGenerator if self.is_seq2seq else CausalGenerator
         self.generator = cls(self.model, self.config, self.max_new_tokens,
                              num_beams=self.num_beams, length_penalty=self.length_penalty)
+
+    def _shards(self) -> tuple[int, int]:
+        return self.batch_shards or (process_count(), process_index())
 
     def _decode_batch(self, ids: np.ndarray) -> list[str]:
         """Each row's text: its tokens up to the first eos, pads dropped."""
@@ -79,7 +88,7 @@ class Evaluator:
             return self._run_causal(ds, global_batch=global_batch,
                                     bucket_multiple=bucket_multiple,
                                     max_source_length=max_source_length)
-        pc, pi = process_count(), process_index()
+        pc, pi = self._shards()
         it = BatchIterator(ds, global_batch=global_batch, process_count=pc, process_index=pi,
                            seed=0, shuffle=False, drop_last=False,
                            bucket_multiple=bucket_multiple, max_source_length=max_source_length,
@@ -119,8 +128,9 @@ class Evaluator:
         corpus start and its extra rows are trimmed."""
         device = next(self.model.parameters()).device
         pad, eos = self.config.pad_token_id, self.config.eos_token_id
-        per_host = global_batch // process_count()
-        lo = process_index() * per_host
+        pc, pi = self._shards()
+        per_host = global_batch // pc
+        lo = pi * per_host
         n = len(ds)
         preds: list[str] = []
         refs: list[str] = []

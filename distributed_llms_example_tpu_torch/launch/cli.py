@@ -145,14 +145,23 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="where an out-of-memory error mid-serve writes its "
                         "memory-postmortem-p*.json bundle ('' = off)")
     p.add_argument("--mesh", type=str, default="data=-1",
-                   help="one-device layouts only (every axis 1 or -1)")
+                   help="serve: data=N (slot rows split), tensor=N (heads split, LLaMA "
+                        "dense) or data=a,tensor=b, one process a GPU; serve-router and "
+                        "serve-loadgen: one-device layouts only")
     p.add_argument("--compute-dtype", type=str, default="bfloat16")
     p.add_argument("--lint", type=str, default="warn", choices=("off", "warn", "strict"))
+    # the multi-process rendezvous triple (else Valohai, VH_* or torchrun env)
+    p.add_argument("--coordinator-address", type=str, default="")
+    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--process-id", type=int, default=-1)
     return p
 
 
 def check_single_device_mesh(spec: str) -> None:
-    """Accept a ``--mesh`` layout only if it places everything on one device."""
+    """Accept a ``--mesh`` layout only if it places everything on one device
+    (``serve-router`` and ``serve-loadgen``: their tick-driven health
+    machine and arrival clocks would have to be agreed across ranks
+    first, ROADMAP.md order item 1's leftovers)."""
     sizes = []
     for part in filter(None, (s.strip() for s in spec.split(","))):
         name, _, val = part.partition("=")
@@ -161,8 +170,9 @@ def check_single_device_mesh(spec: str) -> None:
         sizes.append(int(val))
     if math.prod(1 if n == -1 else n for n in sizes) != 1:
         raise SystemExit(
-            f"--mesh {spec!r}: the port serves on one GPU; multi-GPU serving is a "
-            "later slice (ROADMAP.md)"
+            f"--mesh {spec!r}: serve-router and serve-loadgen serve on one GPU: their "
+            "health machine and arrival clocks are not agreed across ranks (ROADMAP.md "
+            "order item 1's leftovers); serve --mesh runs on several"
         )
 
 
@@ -231,12 +241,64 @@ def _write_serve_output(args, lm, tok, prompts, outputs, *, extra=None) -> None:
     log_json({"event": "serve_output", "path": args.output_file, "records": len(lines)})
 
 
-def _serve_setup(args, loaded):
+def _serve_mesh(args, loaded):
+    """``serve --mesh``'s layout: the refused compositions stop here, before
+    a group or a model exists (``core/config.parse_serve_mesh``); then the
+    process joins its group (``core/mesh.initialize_distributed``: torchrun,
+    Valohai, ``VH_*`` or the rendezvous flags; NCCL on CUDA, gloo with
+    ``--device cpu``) and the shape is resolved against the world (the
+    engine checks the serving features against it).  Returns the
+    ``MeshSpec``."""
+    from distributed_llms_example_tpu_torch.core.config import parse_serve_mesh
+    from distributed_llms_example_tpu_torch.core.mesh import (
+        initialize_distributed,
+        resolve_mesh_shape,
+    )
+    from distributed_llms_example_tpu_torch.models.registry import model_config
+
+    family, model_cfg = ((loaded.family, loaded.config) if loaded is not None
+                         else model_config(args.model_ckpt))
+    try:
+        mesh = parse_serve_mesh(args.mesh, family=family, model_cfg=model_cfg)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh!r}: {e}") from None
+    world = initialize_distributed(args.coordinator_address, args.num_processes,
+                                   args.process_id, device_type=args.device)
+    try:
+        return resolve_mesh_shape(mesh, world)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh!r}: {e}") from None
+
+
+def _serve_layout(spec, lm):
+    """This rank's ``ServeLayout`` on ``spec`` (None on one GPU), the model
+    cut to its tensor rank's heads first."""
+    from distributed_llms_example_tpu_torch.core.mesh import axis_groups, mesh_coords, process_index
+    from distributed_llms_example_tpu_torch.parallel.activation import ModelParallel, attach
+    from distributed_llms_example_tpu_torch.parallel.sharding import shard_tensor_parallel
+    from distributed_llms_example_tpu_torch.serving.engine import ServeLayout
+
+    if spec.size == 1:
+        return None
+    rank = process_index()
+    groups = axis_groups(spec, rank)
+    if spec.tensor > 1:
+        shard_tensor_parallel(lm.module, spec.tensor, groups.tensor_index)
+        attach(lm.module, ModelParallel(mesh=spec.axes(), tensor_group=groups.tensor,
+                                        tensor_index=groups.tensor_index))
+    return ServeLayout(data=spec.data, data_index=mesh_coords(spec, rank)[0],
+                       data_group=groups.data, tensor=spec.tensor)
+
+
+def _serve_setup(args, loaded, *, mesh: bool = False):
     """What ``serve``, ``serve-router`` and ``serve-loadgen`` share: the
     device, the prompts, the model (``loaded``, or ``--model-ckpt``'s,
     loaded once: the router's replicas share it), the tokenizer and the
-    encoded requests.  Returns ``(device, lm, tok, prompts, requests)``."""
+    encoded requests.  ``mesh``: ``serve``'s layouts over several GPUs
+    (else one device only).  Returns ``(device, lm, tok, prompts,
+    requests, layout)``."""
     from distributed_llms_example_tpu_torch.core.config import SPEC_MAX_DRAFT_TOKENS
+    from distributed_llms_example_tpu_torch.core.mesh import local_device, process_count
     from distributed_llms_example_tpu_torch.core.precision import parse_dtype, resolve_device
     from distributed_llms_example_tpu_torch.data.dataset import load_json_records
     from distributed_llms_example_tpu_torch.data.tokenizer import get_tokenizer
@@ -248,7 +310,12 @@ def _serve_setup(args, loaded):
                          f"{SPEC_MAX_DRAFT_TOKENS}] (the verify pass scores spec_tokens + 1 "
                          f"rows; the decode kernels take at most {SPEC_MAX_DRAFT_TOKENS + 1})")
     device = resolve_device(args.device)
-    check_single_device_mesh(args.mesh)
+    if mesh:
+        spec = _serve_mesh(args, loaded)
+        if process_count() > 1 and device.type == "cuda":
+            device = local_device("cuda")
+    else:
+        check_single_device_mesh(args.mesh)
     records = load_json_records(args.prompts_file)
     if args.num_prompts > 0:
         records = records[: args.num_prompts]
@@ -257,33 +324,38 @@ def _serve_setup(args, loaded):
         args.model_ckpt, dtype=parse_dtype(args.compute_dtype), device=device,
         attention_impl=args.attention_impl or None, seed=args.seed,
     )
+    layout = _serve_layout(spec, lm) if mesh else None
     if args.lint != "off":
         log_json({"event": "lint_skipped", "lint": args.lint,
                   "reason": "the serving lints read XLA cache specs; the port has none yet"})
     tok = get_tokenizer(args.tokenizer, args.model_ckpt)
     encode = tok.encode_source if lm.is_seq2seq else tok.encode_prompt
     requests = [encode(t, args.max_source_length) for t in prompts]
-    return device, lm, tok, prompts, requests
+    return device, lm, tok, prompts, requests, layout
 
 
-def _engine(args, lm, device):
+def _engine(args, lm, device, layout=None):
     from distributed_llms_example_tpu_torch.serving.engine import ServingEngine
 
     return ServingEngine(lm.module, lm.config, _serve_config_from_args(args),
-                         is_seq2seq=lm.is_seq2seq, device=device)
+                         is_seq2seq=lm.is_seq2seq, device=device, layout=layout)
 
 
 def serve(argv: list[str] | None = None, *, loaded=None):
     """The ``serve`` subcommand: load → continuous-batching decode → write
     outputs.  Returns ``(engine, outputs)``: the engine's ``last_stats``
-    hold the run, ``outputs`` the generated ids per prompt.  ``loaded``: a
-    model built by the caller (a ``LoadedModel`` on the device), served in
-    place of ``--model-ckpt``'s."""
+    hold the run, ``outputs`` the generated ids per prompt (on every rank
+    of a mesh; rank 0 alone writes them).  ``loaded``: a model built by the
+    caller (a ``LoadedModel`` on the device; cut in place to this rank's
+    heads under ``tensor``), served in place of ``--model-ckpt``'s."""
+    from distributed_llms_example_tpu_torch.core.mesh import process_index
+
     args = build_serve_parser().parse_args(argv)
-    device, lm, tok, prompts, requests = _serve_setup(args, loaded)
-    engine = _engine(args, lm, device)
+    device, lm, tok, prompts, requests, layout = _serve_setup(args, loaded, mesh=True)
+    engine = _engine(args, lm, device, layout)
     outputs = engine.generate(requests)
-    _write_serve_output(args, lm, tok, prompts, outputs)
+    if process_index() == 0:
+        _write_serve_output(args, lm, tok, prompts, outputs)
     return engine, outputs
 
 
@@ -351,7 +423,7 @@ def serve_router(argv: list[str] | None = None, *, loaded=None):
     if args.replicas < 1:
         raise SystemExit("--replicas must be >= 1")
     cfg = _router_config(args)
-    device, lm, tok, prompts, requests = _serve_setup(args, loaded)
+    device, lm, tok, prompts, requests, _ = _serve_setup(args, loaded)
     router = ReplicaRouter([_engine(args, lm, device) for _ in range(args.replicas)], cfg)
     outputs = router.serve(requests)
     extra = [{"shed": q.shed_reason} if q.shed else {}
@@ -429,7 +501,7 @@ def serve_loadgen(argv: list[str] | None = None, *, loaded=None):
         )
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    device, lm, tok, prompts, requests = _serve_setup(args, loaded)
+    device, lm, tok, prompts, requests, _ = _serve_setup(args, loaded)
     sessions = budgets = None
     if args.workload == "chatbot":
         requests, sessions, budgets = chatbot_requests(

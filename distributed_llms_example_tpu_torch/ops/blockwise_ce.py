@@ -21,7 +21,7 @@ scalars and dropped.
 Semantics are ``train/step.cross_entropy_sums``'s: (loss sum, unmasked
 token count), so token weighting and accumulation compose alike.  The
 chunk products take their operands in the compute dtype and give fp32
-results accumulated in fp32 (``_mm32``, the JAX package's
+results accumulated in fp32 (``ops/mm32``, the JAX package's
 ``preferred_element_type=float32``): a chunk's logits are not rounded to
 bf16 before the logsumexp and the target gather, as the unfused LM head's
 are, and each chunk's dh and dw leave their product in fp32.  The
@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from distributed_llms_example_tpu_torch.data.batching import LABEL_PAD
+from distributed_llms_example_tpu_torch.ops.mm32 import mm32
 
 
 def pick_block(vocab: int, target: int = 4096) -> int:
@@ -49,19 +50,8 @@ def pick_block(vocab: int, target: int = 4096) -> int:
     return vocab
 
 
-def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` as fp32, accumulated in fp32 from operands of one compute
-    dtype.  A bf16 product is exact in fp32, so on the CPU, which has no
-    mixed-dtype ``mm``, the operands are widened first."""
-    if a.dtype == torch.float32:
-        return a @ b
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
 def _chunk_logits(hidden: torch.Tensor, w_c: torch.Tensor) -> torch.Tensor:
-    return _mm32(hidden, w_c.t())
+    return mm32(hidden, w_c.t())
 
 
 def _logz(lse: torch.Tensor) -> torch.Tensor:
@@ -118,8 +108,8 @@ class _BlockwiseCE(torch.autograd.Function):
             # the one recompute, feeding both contractions
             g = torch.exp(_chunk_logits(hidden, w_c) - logz[:, None]) * scale[:, None]
             g = g.to(hidden.dtype)
-            dh += _mm32(g, w_c)
-            dw[c0:c0 + blk] = _mm32(g.t(), hidden)
+            dh += mm32(g, w_c)
+            dw[c0:c0 + blk] = mm32(g.t(), hidden)
         # the correct-class term: a gather of the target rows and a
         # scatter-add into them (the embedding backward: a fixed-order sum)
         coef = (1.0 - ls) * scale  # (N,)

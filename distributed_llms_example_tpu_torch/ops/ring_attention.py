@@ -36,6 +36,7 @@ import functools
 import torch
 
 from distributed_llms_example_tpu_torch.ops.attention import NEG_INF
+from distributed_llms_example_tpu_torch.ops.mm32 import mm32
 from distributed_llms_example_tpu_torch.parallel.activation import hop
 
 
@@ -49,15 +50,16 @@ class Ring:
     index: int
 
 
-def _block_update(m, l, acc, q, k, v, bias, q_pos, k_pos, *, scale: float, causal: bool):
+def _block_update(m, l, acc, q, k, v, bias, q_pos, k_pos, *, scale: float, causal: bool,
+                  compute_dtype: torch.dtype | None = None):
     """One (q block x held kv block) tile folded into the running state
-    (the JAX package's ``_block_update``): Q·Kᵀ in the compute dtype (q's;
-    bf16 on the tensor cores), the scores in fp32, P·V in the value dtype,
-    the state in fp32.  The JAX package keeps the fp32 accumulator of Q·Kᵀ
-    (``preferred_element_type``); PyTorch's bf16 product, which has no
-    fp32 output with a gradient, rounds it to bf16 first.  fp32 is
-    unchanged."""
-    s = torch.matmul(q, k.to(q.dtype).transpose(-1, -2)).float() * scale
+    (the JAX package's ``_block_update``): Q·Kᵀ and P·V from operands
+    rounded to the compute dtype (default q's; bf16 on the tensor cores),
+    each accumulated in fp32 and never rounded to bf16 (``ops/mm32``), the
+    scores and the state in fp32.  q/k/v may come in fp32 (the ring keeps
+    them so, for unrounded gradient sums)."""
+    cd = compute_dtype or q.dtype
+    s = mm32(q, k.transpose(-1, -2), cd) * scale
     if bias is not None:
         s = s + bias.float()
     if causal:
@@ -67,30 +69,33 @@ def _block_update(m, l, acc, q, k, v, bias, q_pos, k_pos, *, scale: float, causa
     alpha = torch.exp(m - m_next)  # m starts at -inf; every mask is finite: no NaN
     p = torch.exp(s - m_next)
     l_next = l * alpha + p.sum(dim=-1, keepdim=True)
-    pv = torch.matmul(p.to(v.dtype), v).float()
+    pv = mm32(p, v, cd)
     return m_next, l_next, acc * alpha + pv
 
 
-def _post_kv(ring: Ring, k: torch.Tensor, v: torch.Tensor):
-    """Post the hop of the held K and V, packed into one buffer, outside
-    autograd: (the receive buffer, its work).  ``_Hop`` takes the buffer
-    once the work is waited on."""
-    return hop(torch.cat([k.detach().reshape(-1), v.detach().reshape(-1)]), ring.group,
-               ring.size, ring.index)
+def _post_kv(ring: Ring, k: torch.Tensor, v: torch.Tensor, wire: torch.dtype):
+    """Post the hop of the held K and V, packed into one buffer of the
+    ``wire`` dtype (the inputs' own: their values are exact there),
+    outside autograd: (the receive buffer, its work).  ``_Hop`` takes the
+    buffer once the work is waited on."""
+    return hop(torch.cat([k.detach().to(wire).reshape(-1), v.detach().to(wire).reshape(-1)]),
+               ring.group, ring.size, ring.index)
 
 
 class _Hop(torch.autograd.Function):
     """The K and V a hop received (``received``, from ``_post_kv``, its
     work waited on) as the autograd successors of the K and V sent: the
-    forward copies them out of the buffer (the backend may have filled it
-    by an in-place copy, which autograd must not see on its outputs); the
-    backward sends their gradient the other way round and waits."""
+    forward copies them out of the buffer in the held dtype (the backend
+    may have filled it by an in-place copy, which autograd must not see on
+    its outputs); the backward sends their gradient, in that dtype, the
+    other way round and waits."""
 
     @staticmethod
     def forward(ctx, ring: Ring, k, v, received):
         ctx.ring, ctx.shapes = ring, (k.shape, v.shape)
         n = k.numel()
-        return received[:n].view(k.shape).clone(), received[n:].view(v.shape).clone()
+        return (received[:n].view(k.shape).to(k.dtype, copy=True),
+                received[n:].view(v.shape).to(v.dtype, copy=True))
 
     @staticmethod
     def backward(ctx, dk, dv):
@@ -134,15 +139,22 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal and q_blk != kv_blk:
         raise ValueError(f"causal ring attention needs equal blocks, got q={q_blk} kv={kv_blk}")
     n, idx, dev = ring.size, ring.index, q.device
+    # the products round to the inputs' dtype; q, k and v ride the tiles in
+    # fp32, so each one's gradient sums over the tiles (and comes back over
+    # the hops) unrounded, and is rounded once, at this function's inputs;
+    # the hops carry K and V in the inputs' dtype
+    compute, wire = q.dtype, k.dtype
+    q, k, v = q.float(), k.float(), v.float()
     q_pos = idx * q_blk + torch.arange(q_blk, device=dev)
     m = torch.full((b, h, q_blk, 1), -torch.inf, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h, q_blk, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, h, q_blk, d), dtype=torch.float32, device=dev)
-    update = functools.partial(_block_update, scale=scale, causal=causal)
+    update = functools.partial(_block_update, scale=scale, causal=causal,
+                               compute_dtype=compute)
     for t in range(n):
         pending: list = []
         if t < n - 1:  # the next hop first: it travels while this tile computes
-            received, work = _post_kv(ring, k, v)
+            received, work = _post_kv(ring, k, v, wire)
             pending.append(work)
             if bias is not None:
                 nb, work = hop(bias.contiguous().reshape(-1), ring.group, n, idx)
@@ -161,7 +173,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if bias is not None:
                 bias = nb.view(bias.shape)
     # l >= 1: every rank folds its diagonal tile, whose running max gives exp(0)
-    return (acc / l).to(dtype or q.dtype)
+    return (acc / l).to(dtype or compute)
 
 
 def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -19,7 +19,9 @@ heads, the kv heads and the MLP's width must divide by ``tensor``.
 ``shard_tensor_parallel`` cuts a whole model in place into its rank's
 shards and gives its attention modules their local head counts;
 ``shard_leaf`` and ``gather_leaf`` cut one whole leaf and join it back
-(the checkpoint, the export and the weight bridge use them).
+(the checkpoint, the export and the weight bridge use them).  A serving
+model takes the same cut, so its cache holds the rank's kv heads
+(``serving/engine.py``).
 """
 
 from __future__ import annotations

@@ -46,6 +46,27 @@ compose as there:
   verifies them in one target pass of k + 1 rows (``serving/spec.py``);
 - ``postmortem_dir``: an out-of-memory error escaping ``step()`` writes
   the memory postmortem bundle (``obs/memprof.py``), then re-raises.
+
+Over a serving mesh (``ServeLayout``, the JAX engine's ``mesh``; one
+process a GPU): ``tensor`` ranks hold every slot at their share of the
+kv heads (the model cut by ``parallel/sharding.shard_tensor_parallel``,
+its row-parallel outputs all-reduced in every cached pass; the replicated
+LM head gives each rank the whole logits, so the greedy choices agree
+with no exchange); ``data`` ranks each hold one block of the slot rows
+and of every prefill chunk's rows (``max_slots`` and ``prefill_batch``
+must divide, as in the JAX engine), run the forward of those rows, and
+meet once a round: the new tokens (a prefill chunk's first tokens and
+prompt lengths) all-gathered over the data group, read back once.  The
+state's layout is the JAX package's ``CACHE_RULES`` and ``POOL_RULES``:
+the slot cache's K/V and int8 scales split by slot rows over ``data``
+(``rows``) and by kv heads over ``tensor`` (the model's cut); the paged
+pool is whole on every data rank and split by heads over ``tensor``, and
+a rank reads and writes only its own slots' blocks.  The scheduler runs replicated on every rank
+from counts alone (the queue, the free slots, the allocator, the agreed
+tokens): no decision reads a clock or a rank's own memory, so every rank
+takes every collective.  A chunk's rows go to the data ranks in order, at
+most ``prefill_batch / data`` to a rank, each into a free slot of that
+rank.  The prefix cache and speculative decode stay on one GPU.
 """
 
 from __future__ import annotations
@@ -219,6 +240,38 @@ def compute_goodput(ttft_s: Sequence[float | None], tokens_out: Sequence[int], *
     return out
 
 
+def serve_features_error(sizes: dict, *, prefix_cache: bool, spec_tokens: int) -> str | None:
+    """Why a serving run's features cannot run on a mesh of these resolved
+    ``sizes``, or None: the prefix cache and speculative decode run on one
+    rank only (a warm chain written by one data rank's pool, and the
+    verify round's tokens and emit counts, would need their own exchange;
+    ROADMAP.md order item 1)."""
+    if all(int(v) == 1 for v in sizes.values()):
+        return None
+    for flag, on in (("--prefix-cache", prefix_cache), ("--spec-tokens", spec_tokens > 0)):
+        if on:
+            return (f"{flag} under --mesh {sizes} is not ported: the prefix cache and "
+                    "speculative decode serve on one GPU (ROADMAP.md order item 1's leftovers)")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    """A rank's place on a serving mesh: ``data`` ranks (this one at
+    ``data_index``, gathered over ``data_group``) split the slot rows and
+    the prefill rows; ``tensor`` ranks split the heads of a model already
+    cut to them."""
+
+    data: int = 1
+    data_index: int = 0
+    data_group: Any = None
+    tensor: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.data * self.tensor
+
+
 class ServingEngine:
     """Greedy continuous-batching decode over a fixed slot set.
 
@@ -226,11 +279,12 @@ class ServingEngine:
     ``is_seq2seq``) or a causal LM (``models/llama.py``) already on
     ``device``; ``device`` is CUDA unless ``"cpu"`` is asked for.
     ``draft``: a causal ``LoadedModel`` on ``device`` to draft with in place
-    of loading ``spec_draft_model`` (the caller's weights)."""
+    of loading ``spec_draft_model`` (the caller's weights).  ``layout``:
+    this rank's place on a serving mesh (None: one GPU)."""
 
     def __init__(self, model: Any, config: Any, serve: ServeConfig | None = None, *,
                  is_seq2seq: bool = True, device: str | torch.device | None = None,
-                 draft: Any = None):
+                 draft: Any = None, layout: ServeLayout | None = None):
         self.device = resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev.type != self.device.type:
@@ -250,6 +304,23 @@ class ServingEngine:
         self.prefill_batch = self.serve.prefill_batch or self.S
         if not 1 <= self.prefill_batch <= self.S:
             raise ValueError(f"prefill_batch {self.prefill_batch} must be in [1, max_slots={self.S}]")
+        self.layout = layout or ServeLayout()
+        shards = self.layout.data
+        for what, n in (("max_slots", self.S), ("prefill_batch", self.prefill_batch)):
+            if n % shards:
+                raise ValueError(
+                    f"{what}={n} must divide evenly over the mesh's {shards} batch shards "
+                    "(data×fsdp×expert) — uneven slot rows cannot shard")
+        # this rank's slot rows and chunk rows: block data_index of each
+        self.rows = self.S // shards
+        self.chunk_rows = self.prefill_batch // shards
+        self.slot0 = self.layout.data_index * self.rows
+        self.row0 = self.layout.data_index * self.chunk_rows
+        why = serve_features_error({"data": shards, "tensor": self.layout.tensor},
+                                   prefix_cache=bool(self.serve.prefix_cache),
+                                   spec_tokens=int(self.serve.spec_tokens or 0))
+        if why:
+            raise ValueError(why)
         self.buckets = tuple(
             sorted({int(b) for b in self.serve.prefill_buckets if 0 < int(b) < self.W})
         ) + (self.W,)
@@ -363,11 +434,25 @@ class ServingEngine:
         pads = [0, 0] * (x.dim() - 1 - axis) + [0, extra]
         return F.pad(x, pads)
 
+    def local(self, a: np.ndarray | None) -> np.ndarray | None:
+        """A host array over every slot cut to this rank's slot rows."""
+        return None if a is None else a[self.slot0:self.slot0 + self.rows]
+
+    def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every data rank's block of ``t`` joined along ``dim`` in rank
+        order (one all-gather over the data group)."""
+        if self.layout.data == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.layout.data)]
+        torch.distributed.all_gather(parts, t.contiguous(), group=self.layout.data_group)
+        return torch.cat(parts, dim=dim)
+
     @torch.inference_mode()
     def _admit(self, state: dict, enc, mask, ckv, slot_idx: np.ndarray) -> None:
         """Chunk rows land in their slots in place; rows whose slot index is
-        out of range (the chunk's padding rows) are dropped."""
-        rows = np.nonzero(slot_idx < self.S)[0]
+        out of range (the chunk's padding rows) are dropped.  Slot indices
+        are this rank's (0 .. ``rows``)."""
+        rows = np.nonzero(slot_idx < self.rows)[0]
         if rows.size == 0:
             return
         r = to_device(rows, self.device)
@@ -389,7 +474,7 @@ class ServingEngine:
         if self.paged:
             cache_pool.scatter_admit(state["pool"], [kv_leaves(c) for c in cache],
                                      admit_blocks, self.block_size)
-        rows = np.nonzero(slot_idx < self.S)[0]
+        rows = np.nonzero(slot_idx < self.rows)[0]
         if rows.size == 0:
             return
         r = to_device(rows, self.device)
@@ -429,7 +514,7 @@ class ServingEngine:
         first = first.argmax(dim=-1).to(torch.int32)
         cache_pool.scatter_admit(state["pool"], [kv_leaves(c) for c in view], admit_blocks,
                                  self.block_size)
-        keep = np.nonzero(slot_idx < self.S)[0]
+        keep = np.nonzero(slot_idx < self.rows)[0]
         r = to_device(keep, dev)
         s = to_device(slot_idx[keep].astype(np.int64), dev)
         state["mask"][s] = mask_t[r]
@@ -511,7 +596,8 @@ class ServingEngine:
 
     # ------------------------------------------------------------- state
     def _init_state(self) -> dict:
-        S, W, L = self.S, self.W, self.L
+        """The slot state of this rank's slot rows (the pool whole)."""
+        S, W, L = self.rows, self.W, self.L
         cfg, dt, dev = self.config, self.model.dtype, self.device
         kv = self.kv_dtype
         if not self.is_seq2seq:
@@ -611,7 +697,7 @@ class ServeSession:
     def __init__(self, engine: ServingEngine, *, replica: int | None = None):
         eng = self.eng = engine
         self.replica = replica
-        self.n_chips = 1
+        self.n_chips = eng.layout.size
         S = eng.S
         self.requests: list[list[int]] = []
         self.attn_masks: list[list[int] | None] = []
@@ -731,12 +817,21 @@ class ServeSession:
         return self.eng.pool.ref_invariant_violations([sb for sb in self.slot_blocks if sb])
 
     def _bytes_in_use(self) -> int:
-        if self.eng.paged:
-            return self.eng.pool.blocks_in_use * self._per_block
+        """One card's K/V bytes in use: its slot rows' cache, or the pool
+        blocks its slots hold (under ``data``, the blocks of this rank's
+        slots; at the rank's heads under ``tensor``)."""
+        eng = self.eng
+        if eng.paged and eng.layout.data > 1:
+            own = range(eng.slot0, eng.slot0 + eng.rows)
+            return sum(len(self.slot_blocks[s]) for s in own) * self._per_block
+        if eng.paged:
+            return eng.pool.blocks_in_use * self._per_block
         return self.stats.cache_bytes_resident
 
     def _live_tokens(self) -> int:
-        return int((self.lengths[self.active] + self.emitted[self.active]).sum())
+        """The live tokens of this rank's slot rows."""
+        live = self.eng.local(self.active)
+        return int((self.eng.local(self.lengths)[live] + self.eng.local(self.emitted)[live]).sum())
 
     # --------------------------------------------------------- lifecycle
     def _finish_request(self, rid: int, slot: int, now: float) -> None:
@@ -814,35 +909,42 @@ class ServeSession:
         if first is not None:
             self._emit(slot, first, now, finished)
 
-    def _prefill_chunk(self, rows: list[tuple[int, int]], bucket: int, finished: list,
+    def _prefill_chunk(self, rows: list[tuple[int, int, int]], bucket: int, finished: list,
                        admit_rows: np.ndarray | None = None) -> None:
-        """One cold admission chunk: ``rows`` (rid, slot) prefilled from
-        cache slot 0 at ``bucket`` width and admitted (paged: by
-        ``admit_rows``, the chunk's (chunk, tiles) block assignment)."""
+        """One cold admission chunk: ``rows`` (rid, slot, chunk row)
+        prefilled from cache slot 0 at ``bucket`` width and admitted
+        (paged: by ``admit_rows``, the chunk's (chunk, tiles) block
+        assignment).  Each data rank prefills its block of the chunk's
+        rows, whose slots are its own; a causal chunk's prompt lengths and
+        first tokens are gathered and read back once."""
         eng = self.eng
         C, S = eng.prefill_batch, eng.S
         ids = np.full((C, bucket), eng.pad, np.int64)
         mask = np.zeros((C, bucket), np.int32)
         slot_idx = np.full(C, S, np.int64)  # padding rows drop
-        for r, (rid, slot) in enumerate(rows):
+        for rid, slot, r in rows:
             toks = self.requests[rid][:bucket]
             ids[r, : len(toks)] = toks
             self._row_mask(mask, r, rid, len(toks), bucket)
             slot_idx[r] = slot
+        mine = slice(eng.row0, eng.row0 + eng.chunk_rows)
+        # this rank's rows into its slot rows; padding rows past them drop
+        local_idx = np.where(slot_idx[mine] < S, slot_idx[mine] - eng.slot0, eng.rows)
         t0 = time.perf_counter()
-        pre = eng._prefill(to_device(ids, eng.device),
-                           to_device(mask, eng.device))
+        pre = eng._prefill(to_device(ids[mine], eng.device),
+                           to_device(mask[mine], eng.device))
+        firsts = None
         if eng.is_seq2seq:
             enc, pmask, ckv = pre
-            eng._admit(self.state, enc, pmask, ckv, slot_idx)
+            eng._admit(self.state, enc, pmask, ckv, local_idx)
             if eng.device.type == "cuda":
                 torch.cuda.synchronize(eng.device)  # the prefill's time is its device time
-            lengths, firsts = [min(len(self.requests[rid]), eng.W) for rid, _ in rows], None
         else:
             cache, full_mask, plens, first = pre
-            eng._admit_causal(self.state, cache, full_mask, first, slot_idx,
-                              None if admit_rows is None else admit_rows.reshape(-1))
-            lengths, firsts = plens.cpu().tolist(), first.cpu().tolist()
+            eng._admit_causal(self.state, cache, full_mask, first, local_idx,
+                              None if admit_rows is None else admit_rows[mine].reshape(-1))
+            both = eng.gather(torch.stack([plens.long(), first.long()]), dim=1)
+            lengths, firsts = both.cpu().tolist()
             del cache, pre
         dt = time.perf_counter() - t0
         self.stats.prefill_seconds += dt
@@ -850,9 +952,23 @@ class ServeSession:
         self._win_prefill += dt
         self.progress += 1
         now = time.perf_counter()
-        for r, (rid, slot) in enumerate(rows):
-            self._admit_row(rid, slot, int(lengths[r]), bucket, t0, dt, now, finished,
+        for rid, slot, r in rows:
+            length = (min(len(self.requests[rid]), eng.W) if firsts is None
+                      else int(lengths[r]))
+            self._admit_row(rid, slot, length, bucket, t0, dt, now, finished,
                             None if firsts is None else int(firsts[r]))
+
+    def _chunk_places(self, free: list[int]) -> list[tuple[int, int]]:
+        """The (slot, chunk row) places an admission chunk fills, in the
+        order pending requests take them: each data rank's free slots, in
+        order, into its block of chunk rows, taken in turn across the ranks
+        (row j of every rank before row j + 1 of any; on one rank, the free
+        slots in order)."""
+        eng = self.eng
+        per_rank = [[s for s in free if d * eng.rows <= s < (d + 1) * eng.rows][:eng.chunk_rows]
+                    for d in range(eng.layout.data)]
+        return [(slots[j], d * eng.chunk_rows + j) for j in range(eng.chunk_rows)
+                for d, slots in enumerate(per_rank) if j < len(slots)]
 
     def _admit_now(self, finished: list) -> None:
         eng = self.eng
@@ -860,8 +976,8 @@ class ServeSession:
             self._admit_now_prefix(finished)
             return
         S, W, C = eng.S, eng.W, eng.prefill_batch
-        free = [i for i in range(S) if not self.active[i]]
-        n = min(len(free), C, len(self.pending))
+        places = self._chunk_places([i for i in range(S) if not self.active[i]])
+        n = min(len(places), len(self.pending))
         if n == 0:
             return
         plen = lambda rid: min(len(self.requests[rid]), W)  # noqa: E731
@@ -885,12 +1001,13 @@ class ServeSession:
             # that must not copy (padding rows, the prompt gap)
             ntc = (bucket + eng.L) // eng.block_size
             admit_rows = np.full((C, ntc), eng.pool.num_blocks, np.int32)
-            for r, rid in enumerate(reqs):
+            for rid, (slot, r) in zip(reqs, places):
                 blocks = eng.pool.alloc(
                     cache_pool.blocks_needed(plen(rid), self.budgets[rid], eng.block_size))
-                self.slot_blocks[free[r]] = blocks
-                admit_rows[r, :] = self._map_blocks(free[r], rid, plen(rid), bucket)[:ntc]
-        self._prefill_chunk(list(zip(reqs, free)), bucket, finished, admit_rows)
+                self.slot_blocks[slot] = blocks
+                admit_rows[r, :] = self._map_blocks(slot, rid, plen(rid), bucket)[:ntc]
+        self._prefill_chunk([(rid, slot, r) for rid, (slot, r) in zip(reqs, places)], bucket,
+                            finished, admit_rows)
         self.stats.peak_cache_bytes_in_use = max(
             self.stats.peak_cache_bytes_in_use, self._bytes_in_use()
         )
@@ -989,8 +1106,8 @@ class ServeSession:
             admit_rows = np.full((C, ntc), N, np.int32)
             for r, (rid, slot, p) in enumerate(cold):
                 admit_rows[r, :] = self._map_blocks(slot, rid, p, bucket)[:ntc]
-            self._prefill_chunk([(rid, slot) for rid, slot, _ in cold], bucket, finished,
-                                admit_rows)
+            self._prefill_chunk([(rid, slot, r) for r, (rid, slot, _) in enumerate(cold)],
+                                bucket, finished, admit_rows)
         if warm:
             self._warm_chunk(warm, finished)
         self.stats.peak_cache_bytes_in_use = max(
@@ -1172,13 +1289,16 @@ class ServeSession:
         t0 = time.perf_counter()
         if eng.spec:
             spec_toks, spec_emit = self._spec_dispatch(self.base + self.emitted - 1)
-        elif eng.is_seq2seq:
-            toks = eng._step(self.state, self.emitted.astype(np.int32),
-                             self.active.copy()).cpu().numpy()
         else:
-            toks = eng._step_causal(self.state, self.base + self.emitted - 1,
-                                    self.lengths + self.emitted - 1, self.active.copy(),
-                                    self.slot_bt).cpu().numpy()
+            loc = eng.local  # this rank's slot rows; their tokens gathered, read once
+            if eng.is_seq2seq:
+                toks = eng._step(self.state, loc(self.emitted).astype(np.int32),
+                                 loc(self.active).copy())
+            else:
+                toks = eng._step_causal(self.state, loc(self.base + self.emitted - 1),
+                                        loc(self.lengths + self.emitted - 1),
+                                        loc(self.active).copy(), loc(self.slot_bt))
+            toks = eng.gather(toks).cpu().numpy()
         dt = time.perf_counter() - t0
         self.stats.decode_seconds += dt
         self.stats.decode_steps += 1

@@ -72,6 +72,7 @@ from distributed_llms_example_tpu_torch.ops.fused_optim import (
     STAT_P_SUMSQ,
     STAT_U_SUMSQ,
 )
+from distributed_llms_example_tpu_torch.ops.moe import batch_shards_of
 from distributed_llms_example_tpu_torch.parallel.fsdp import local
 from distributed_llms_example_tpu_torch.train.optim import (
     AdamWState,
@@ -181,7 +182,9 @@ def causal_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
     unfused head casts it, meets the hidden states chunk by chunk.  With
     ``moe_aux_weight`` > 0 (Mixtral) the loss sum takes w · the layers'
     mean aux loss · the microbatch's tokens, so the normalized loss is the
-    mean CE + w · aux, as in the JAX package's ``make_loss_fn``."""
+    mean CE + w · aux, as in the JAX package's ``make_loss_fn``; over batch
+    shards the aux is the rank's share and the tokens the global count
+    (``_global_tokens``)."""
     labels = batch["labels"]
     cfg = model.config
     weight = float(getattr(cfg, "moe_aux_weight", 0.0) or 0.0)
@@ -202,8 +205,22 @@ def causal_loss_sums(model, batch: dict, label_smoothing: float = 0.0):
         logits, *aux = out if ask else (out,)
         lsum, tokens = cross_entropy_sums(logits[:, :-1], labels[:, 1:], label_smoothing)
     if aux:
-        lsum = lsum + weight * aux[0] * tokens
+        lsum = lsum + weight * aux[0] * _global_tokens(model, tokens)
     return lsum, tokens
+
+
+def _global_tokens(model, tokens: torch.Tensor) -> torch.Tensor:
+    """The microbatch's target tokens over the ranks its MoE layers route
+    across (``ops/moe.batch_shards_of``; a constant): each rank's aux term
+    is its share of the global batch's aux, so weighted by the global count
+    the ranks' loss sums add up to the JAX package's
+    ``ce_sum + weight · aux · tokens``, and so do their gradients."""
+    shards = batch_shards_of(model)
+    if shards is None or shards.size == 1:
+        return tokens
+    total = tokens.detach().clone()
+    torch.distributed.all_reduce(total, group=shards.group)
+    return total
 
 
 def loss_sums(model, batch: dict, label_smoothing: float = 0.0, *, is_seq2seq: bool = True):

@@ -139,6 +139,7 @@ from distributed_llms_example_tpu_torch.obs.health import health_enabled
 from distributed_llms_example_tpu_torch.obs.recorder import batch_fingerprint
 from distributed_llms_example_tpu_torch.obs.sink import build_sink, flush, install_sink
 from distributed_llms_example_tpu_torch.ops.fused_dropout import set_shard_coords
+from distributed_llms_example_tpu_torch.ops.moe import BatchShards, attach_batch_shards
 from distributed_llms_example_tpu_torch.parallel.activation import (
     ModelParallel,
     attach,
@@ -403,19 +404,26 @@ class Trainer:
                 shard_model(self.model, self.mesh)
             self.groups = StepGroups(world=world,
                                      shard_group=self.mesh.get_group("fsdp") if sharded else None)
+            # MoE layers route the global batch: every rank holds rows of it
+            # (rank r = data x fsdp position r, the batch plan's row block r)
+            attach_batch_shards(self.model, BatchShards(None, world, process_index())
+                                if world > 1 else None)
         self.evaluator = None
+        d, f, _, _ = mesh_coords(spec, process_index())
         if self.val_ds:
+            # the eval batch's rows split over the batch shards; a shard's
+            # tensor ranks generate its rows together
             self.evaluator = Evaluator(self.model, self.loaded.config, self.tokenizer,
                                        num_beams=cfg.num_beams,
                                        max_new_tokens=cfg.eval_max_new_tokens,
-                                       is_seq2seq=self.loaded.is_seq2seq)
+                                       is_seq2seq=self.loaded.is_seq2seq,
+                                       batch_shards=(spec.data * spec.fsdp, d * spec.fsdp + f))
         # a causal batch's inputs and labels share one width: both capped at
         # max_source_length, so their buckets agree
         tgt_cap = self._tgt_cap = (cfg.max_target_length if self.loaded.is_seq2seq
                                    else cfg.max_source_length)
         # the rows: one block a (data, fsdp) batch shard; the sequence and
         # tensor ranks of a shard hold the same rows
-        d, f, _, _ = mesh_coords(spec, process_index())
         self.batch_shards = spec.data * spec.fsdp
         self.batches = BatchIterator(
             self.train_ds, global_batch=cfg.batch_size, process_count=self.batch_shards,
@@ -479,9 +487,9 @@ class Trainer:
         if self.val_ds is None:
             return {}
         cfg = self.cfg
-        # at most the set's size, a multiple of the ranks: each generates
-        # its rows of every eval batch
-        pc = self.groups.world
+        # at most the set's size, a multiple of the batch shards: each
+        # generates its rows of every eval batch
+        pc = self.batch_shards
         eval_batch = min(cfg.eval_batch_size or cfg.batch_size, max(pc, len(self.val_ds)))
         eval_batch = max(pc, eval_batch - eval_batch % pc)
         scores = self.evaluator.run(self.val_ds, global_batch=eval_batch,

@@ -1,6 +1,8 @@
 """``serve --device cpu`` end to end through the port's CLI on a temporary
 prompts file (``bart-test`` and ``t5-test``): one output record per
-prompt, the serve_summary event, and the one-device ``--mesh`` rule; and
+prompt, the serve_summary event, and the ``--mesh`` rules (``serve``
+parses ``data=2`` and refuses ``fsdp=2``; the router and the load
+generator stay on one device); and
 ``llama-test --paged-kv`` against the JAX CLI on the same file and
 weights: causal prompts carry no trailing eos, and the output records are
 equal; the same for ``llama-test`` served from a local HF checkpoint
@@ -62,6 +64,15 @@ def test_serve_rejects_later_slices(tmp_path):
 
 
 def test_mesh_must_be_one_device():
+    """``serve --mesh data=2`` parses (the two-rank runs are
+    ``test_torch_serve_mesh.py``); ``fsdp=2`` is refused at parse time, and
+    ``serve-router`` and ``serve-loadgen`` keep the one-device rule."""
+    from distributed_llms_example_tpu_torch.core.config import parse_serve_mesh
+
+    llama = registry.model_config("llama-test")[1]
+    assert parse_serve_mesh("data=2", family="llama", model_cfg=llama).data == 2
+    with pytest.raises(ValueError, match="ROADMAP.md order item 3"):
+        parse_serve_mesh("fsdp=2", family="llama", model_cfg=llama)
     check_single_device_mesh("data=-1")
     check_single_device_mesh("data=1,tensor=1")
     with pytest.raises(SystemExit, match="one GPU"):

@@ -21,7 +21,13 @@ weight 0.01), the same weights carried across by ``models/from_jax.py``:
   reaches the loaded config, 2 steps' losses are within 1e-4 of the JAX
   ``Trainer``'s with the same flag, and the causal eval runs;
 - ``serve-router`` and ``serve-loadgen`` serve ``mixtral-test`` with
-  ``serve``'s tokens.
+  ``serve``'s tokens;
+- the train CLI under ``--mesh data=2`` and ``fsdp=2`` (two gloo ranks,
+  capacity 1.25, each rank's MoE layers routing the global batch) within
+  1e-5 relative of the JAX ``Trainer`` on one device (the set-up of JAX
+  ``test_moe_sharded_step_equals_single_device``, which holds a sharded
+  step to one device) in each step's loss and grad norm, and every final
+  parameter within 1e-5 of its leaf's largest entry.
 """
 
 import dataclasses
@@ -343,3 +349,37 @@ def test_serving_tier_serves_mixtral(tmp_path):
     _, swept = cli.serve_loadgen([*base, "--qps-grid", "2000", "--loadgen-seed", "5",
                                   "--output-file", str(tmp_path / "s.json")])
     assert routed == closed and swept == [closed]
+
+
+@pytest.fixture(scope="module")
+def mixtral_one_device(tmp_path_factory):
+    """The JAX ``Trainer`` on one device from a ``mixtral-test`` HF
+    directory, capacity 1.25, 2 steps of 8 rows."""
+    from torch_dist_helpers import hf_dir, jax_train, records
+
+    tmp = tmp_path_factory.mktemp("mixtral_mesh")
+    recs = records(16, seed=3)
+    path = tmp / "train.json"
+    path.write_text(json.dumps(recs))
+    ckpt = hf_dir(tmp / "hf", NAME)
+    hist, params, _ = jax_train(ckpt, recs, "data=1", tmp / "jax", moe_capacity_factor=1.25)
+    return {"tmp": tmp, "ckpt": ckpt, "train_file": path, "jax": (hist, params)}
+
+
+@pytest.mark.parametrize("layout", ["data=2", "fsdp=2"])
+def test_batch_sharded_steps_equal_the_one_device_step(mixtral_one_device, layout):
+    from torch_dist_helpers import cli_argv, spawn
+
+    run = mixtral_one_device
+    tmp = run["tmp"] / layout.replace("=", "")
+    tmp.mkdir()
+    argv = cli_argv(run["ckpt"], run["train_file"], tmp / "out", "--mesh", layout,
+                    moe_capacity_factor=1.25)
+    _, _, got = spawn({"argv": argv}, 2, tmp, name=layout.replace("=", ""))
+    hist, params = run["jax"]
+    steps = [(h["loss"], h["grad_norm"]) for h in got["history"]]
+    assert len(steps) == len(hist) == 2
+    np.testing.assert_allclose(np.asarray(steps), np.asarray(hist), rtol=1e-5, atol=0)
+    for name, want in params.items():
+        err = float(np.abs(got["params"][name].numpy() - want).max())
+        assert err <= 1e-5 * max(1.0, float(np.abs(want).max())), (name, err)

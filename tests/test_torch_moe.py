@@ -9,7 +9,18 @@ output plus the aux loss, with respect to the tokens and to every weight,
 within 1e-5 of ``jax.grad``'s.  A planted fault, the k-th choices queued
 from slot 0 instead of behind every (k-1)-th choice, must break the drops
 case.  The capacity rule equals JAX's, and the layer runs on the meta
-device (the FLOP gauge's pass)."""
+device (the FLOP gauge's pass).
+
+Across batch shards (``attach_batch_shards``, two gloo ranks, each holding
+half the rows as ``data=2`` splits them): d 64, 8 experts of width 128,
+top-2, capacity 1.25, a (4, 512) batch, random and with rank 0's rows
+pushed towards expert 0, in one global group of 2 048 and in groups of 768
+(one spanning the ranks, the last padded).  The output and the input's
+gradient within 1e-5, the aux (the ranks' shares summed) within 1e-6 and
+every weight's gradient (summed over the ranks) within 1e-5 of its largest
+entry (sums of 2 048 tokens in two orders) of the whole batch's on one rank, the dropped (token, choice) pairs equal; each rank
+routing its rows alone (the layer before the exchange) must change the
+skewed case's output."""
 
 import functools
 import math
@@ -80,14 +91,9 @@ def _port(case, params, cls=MoEMLP):
 
 def _dropped(m, x, nd):
     """Choices that found no slot (the port's routing)."""
-    b, s, d = x.shape
-    n = b * s
-    g = min(m.group_size, n)
-    G = -(-n // g)
-    tokens = torch.nn.functional.pad(torch.from_numpy(x).reshape(n, d), (0, 0, 0, G * g - n))
-    valid = (torch.arange(G * g) < n).float().reshape(G, g)
-    cap = expert_capacity(g, m.num_experts, m.top_k, m.capacity_factor, nd)
-    index, _, _ = m.route(tokens.reshape(G, g, d), valid, cap)
+    tokens, valid, cap, exchange, _ = m.place(torch.from_numpy(x), nd)
+    index, _, _ = m.route(tokens, valid, cap, exchange)
+    G, g = valid.shape
     live = valid[..., None].expand(G, g, m.top_k).reshape(G, -1) > 0
     return int(((index == m.num_experts * cap) & live).sum())
 
@@ -127,9 +133,10 @@ def test_gradients_match_jax(case):
 class _QueueFromZero(MoEMLP):
     """Planted fault: every k-th choice is queued from slot 0 of its expert,
     not behind the (k-1)-th choices of its group (two tokens then share a
-    slot, and choices that should drop keep one)."""
+    slot, and choices that should drop keep one).  One rank: the exchange
+    of the counts is not needed."""
 
-    def route(self, tokens, valid, capacity):
+    def route(self, tokens, valid, capacity, exchange):
         E, K = self.num_experts, self.top_k
         probs = torch.softmax(self.router(tokens.float()), dim=-1)
         gate_vals, expert_idx = torch.topk(probs, K, dim=-1)
@@ -186,3 +193,78 @@ def test_runs_on_meta_with_static_shapes():
     forward = 2 * (G * 40) * D * E + 3 * 2 * G * E * cap * D * FF  # router + experts
     assert out.shape == (3, 24, D) and counter.get_total_flops() == 3 * forward
     assert n < G * 40
+
+
+SHARD_D, SHARD_FF, SHARD_E = 64, 128, 8
+SHARD_AUX_W = 0.3
+# name, skewed toward expert 0 on rank 0's rows, group size
+SHARD_CASES = [("random", False, 4096), ("skewed", True, 4096), ("skewed_g768", True, 768)]
+
+
+@pytest.fixture(scope="module")
+def shard_runs(tmp_path_factory):
+    """The layer, the cases' inputs, the two-rank runs and the whole batch
+    on one rank (with its dropped pairs)."""
+    from torch_dist_helpers import spawn
+
+    tmp = tmp_path_factory.mktemp("moe_shards")
+    torch.manual_seed(3)
+    config = dict(hidden_size=SHARD_D, intermediate_size=SHARD_FF, num_experts=SHARD_E,
+                  top_k=2, capacity_factor=1.25)
+    layer = MoEMLP(**config)
+    for p in layer.parameters():
+        torch.nn.init.normal_(p, std=SHARD_D ** -0.5)
+    torch.save({"config": config, "state": layer.state_dict()}, tmp / "state.pt")
+    rng = np.random.RandomState(11)
+    arrays = {}
+    toward = layer.router.weight.detach()[0].numpy()
+    for name, skew, _ in SHARD_CASES:
+        x = rng.randn(4, 512, SHARD_D).astype(np.float32)
+        if skew:
+            x[:2] += 3.0 * toward / np.linalg.norm(toward)
+        arrays[f"{name}/x"] = x
+        arrays[f"{name}/dout"] = rng.randn(4, 512, SHARD_D).astype(np.float32)
+    np.savez(tmp / "inputs.npz", **arrays)
+    cases = [{"name": n, "group_size": g} for n, _, g in SHARD_CASES]
+    spec = {"ops": {"kind": "moe", "state": str(tmp / "state.pt"),
+                    "inputs": str(tmp / "inputs.npz"), "cases": cases,
+                    "aux_weight": SHARD_AUX_W}}
+    _, _, got = spawn(spec, 2, tmp, name="moe")
+    whole = []
+    for (name, _, g) in SHARD_CASES:
+        m = MoEMLP(**config, group_size=g)
+        m.load_state_dict(layer.state_dict())
+        x = torch.from_numpy(arrays[f"{name}/x"]).requires_grad_(True)
+        seen = []
+        route = m.route
+
+        def counting(*a, **kw):
+            out = route(*a, **kw)
+            seen.append(int(((out[1] == 0).float() * a[1][..., None]).sum()))
+            return out
+
+        m.route = counting
+        out, aux = m(x)
+        ((out * torch.from_numpy(arrays[f"{name}/dout"])).sum() + SHARD_AUX_W * aux).backward()
+        whole.append({"out": out.detach(), "dx": x.grad, "aux": float(aux.detach()),
+                      "drops": seen[0],
+                      "grads": {n: p.grad for n, p in m.named_parameters()}})
+    return got, whole
+
+
+@pytest.mark.parametrize("case", range(len(SHARD_CASES)), ids=[c[0] for c in SHARD_CASES])
+def test_two_batch_shards_route_as_the_whole_batch(shard_runs, case):
+    got, whole = shard_runs
+    two, one = got["cases"][case], whole[case]
+    assert two["drops"] == one["drops"], (two["drops"], one["drops"])
+    assert float((two["out"] - one["out"]).abs().max()) <= OUT_ATOL
+    assert float((two["dx"] - one["dx"]).abs().max()) <= GRAD_ATOL
+    assert abs(two["aux"] - one["aux"]) <= AUX_ATOL, (two["aux"], one["aux"])
+    for name, g in one["grads"].items():
+        err = float((two["grads"][name] - g).abs().max())
+        assert err <= GRAD_ATOL * max(1.0, float(g.abs().max())), (name, err)
+    if SHARD_CASES[case][1]:
+        assert one["drops"] > 0
+        # each rank alone: its own groups and capacity, so other drops
+        alone = got["unsharded"][case]
+        assert float((alone - one["out"]).abs().max()) > 100 * OUT_ATOL

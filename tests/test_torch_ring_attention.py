@@ -7,7 +7,15 @@ queries): the output and the q, k and v gradients, the ring's blocks
 merged in order, within 1e-5 in fp32.  Every hop sent the wrong way round
 a ring of 4 (the planted fault) must miss it by orders of magnitude.  And
 the cross-shard label shift (``parallel/activation.seq_shift_labels``)
-equal to the JAX package's ``_seq_shift_labels`` in a ``shard_map``."""
+equal to the JAX package's ``_seq_shift_labels`` in a ``shard_map``.
+
+In bf16 (the default compute dtype), at 1x and 2x unit-normal inputs: one
+causal (2, 4, 256, 128) tile through the port's ``_block_update`` and a
+ring of 2 through ``ring_attention`` must each lie within 1.5x the JAX
+package's bf16 result's own distance from fp32 (max |out - fp32 out|):
+Q·Kᵀ and P·V are fp32 accumulations of bf16 operands, as JAX's products
+on the MXU; the pre-repair rounding (bf16 products widened afterwards)
+must miss that bound at 2x."""
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +34,18 @@ CASES = [("causal_bias", 16, 16, True, True), ("causal", 16, 16, True, False),
          ("full_bias", 16, 16, False, True), ("cross_bias", 16, 32, False, True),
          ("cross", 16, 32, False, False)]
 RINGS = [2, 4]
+# bf16 ring cases: (name, input scale), causal, no bias, on the ring of 2
+BF16_CASES = [("bf16_x1", 1.0), ("bf16_x2", 2.0)]
+BF16_SHAPE = (2, 2, 64, 64)
+BF16_FACTOR = 1.5  # the port's bf16 distance from fp32 over JAX's bf16 distance
+
+
+def _bf16_values(x):
+    """``x`` rounded to bf16 and back: the fp32 reference and both bf16
+    runs see the same inputs."""
+    import torch
+
+    return torch.from_numpy(x).bfloat16().float().numpy()
 
 
 def _arrays():
@@ -37,6 +57,10 @@ def _arrays():
         # row 1 pads its last quarter of keys
         keep = np.arange(sk)[None, :] < np.array([sk, 3 * sk // 4])[:, None]
         out[f"{name}/bias"] = np.where(keep, 0.0, NEG_INF).astype(np.float32)[:, None, None, :]
+    for name, scale in BF16_CASES:
+        for a in ("q", "k", "v", "dout"):
+            out[f"{name}/{a}"] = _bf16_values(
+                (rng.normal(size=BF16_SHAPE) * scale).astype(np.float32))
     return out
 
 
@@ -73,8 +97,11 @@ def port_runs(inputs, tmp_path_factory):
     path, _ = inputs
     cases = [{"name": c[0], "causal": c[3], "bias": c[4]} for c in CASES]
     out = {}
+    bf16 = [{"name": name, "causal": True, "bias": False, "dtype": "bfloat16"}
+            for name, _ in BF16_CASES]
     for n in RINGS:
-        spec = {"ops": {"kind": "ring", "inputs": path, "cases": cases,
+        spec = {"ops": {"kind": "ring", "inputs": path,
+                        "cases": cases + (bf16 if n == 2 else []),
                         "planted": [PLANTED] if n == 4 else []}}
         out[n] = spawn(spec, n, tmp_path_factory.mktemp(f"ring{n}"), name=f"ring{n}")[2]
     return out
@@ -120,3 +147,73 @@ def test_seq_shift_labels_matches_jax(n):
                             check_vma=False)(jnp.asarray(labels))
     got = torch.cat([seq_shift_labels(torch.from_numpy(labels), i, n) for i in range(n)], dim=1)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _jax_bf16_ring(arrays, name):
+    """JAX's ``ring_attention_sharded`` on a sequence=2 mesh with bf16
+    q/k/v (the output as fp32)."""
+    mesh, _ = jax_mesh("sequence=2")
+    q, k, v = (jnp.asarray(arrays[f"{name}/{a}"], jnp.bfloat16) for a in ("q", "k", "v"))
+    out = jax.jit(lambda q, k, v: ring_attention_sharded(q, k, v, None, mesh=mesh,
+                                                         causal=True))(q, k, v)
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("case", range(len(BF16_CASES)), ids=[c[0] for c in BF16_CASES])
+def test_bf16_ring_within_jax_bf16_distance_from_fp32(inputs, port_runs, case):
+    """The bf16 ring of 2 (its scores fp32 accumulations) within 1.5x the
+    JAX package's bf16 ring's own distance from the fp32 ring."""
+    name, _ = BF16_CASES[case]
+    arrays = inputs[1]
+    ref = np.asarray(_jax(arrays, name, True, False, 2)["out"])
+    jax_err = float(np.abs(_jax_bf16_ring(arrays, name) - ref).max())
+    got = port_runs[2]["cases"][len(CASES) + case]["out"].numpy()
+    err = float(np.abs(got - ref).max())
+    assert 0.0 < jax_err and err <= BF16_FACTOR * jax_err, (name, err, jax_err)
+
+
+def _tile_out(update, q, k, v, causal=True):
+    """One tile folded into the initial state and normalized: acc / l."""
+    import torch
+
+    b, h, s, d = q.shape
+    m = torch.full((b, h, s, 1), -torch.inf)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    pos = torch.arange(s)
+    _, l, acc = update(m, l, acc, q, k, v, None, pos, pos, scale=d ** -0.5, causal=causal)
+    return (acc / l).numpy()
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0], ids=["x1", "x2"])
+def test_bf16_block_update_within_jax_bf16_distance_from_fp32(scale, monkeypatch):
+    """One causal (2, 4, 256, 128) tile, seed 0: the port's bf16
+    ``_block_update`` within 1.5x JAX's bf16 ``_block_update``'s distance
+    from the fp32 tile; at 2x scale the pre-repair scores (the bf16
+    product rounded, then widened) miss that bound."""
+    import torch
+
+    from distributed_llms_example_tpu.ops.ring_attention import _block_update as jax_update
+    from distributed_llms_example_tpu_torch.ops import ring_attention as ra
+
+    rng = np.random.RandomState(0)
+    q, k, v = (_bf16_values((rng.normal(size=(2, 4, 256, 128)) * scale).astype(np.float32))
+               for _ in range(3))
+    t32 = [torch.from_numpy(x) for x in (q, k, v)]
+    ref = _tile_out(ra._block_update, *t32)
+    port = _tile_out(ra._block_update, *(x.bfloat16() for x in t32))
+    pos = jnp.arange(256)
+    carry = (jnp.full((2, 4, 256, 1), -jnp.inf), jnp.zeros((2, 4, 256, 1)),
+             jnp.zeros((2, 4, 256, 128)))
+    _, jl, jacc = jax_update(carry, *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), None,
+                             pos, pos, scale=128 ** -0.5, causal=True)
+    jax_err = float(np.abs(np.asarray(jacc / jl) - ref).max())
+    err = float(np.abs(port - ref).max())
+    assert err <= BF16_FACTOR * jax_err, (scale, err, jax_err)
+    # the pre-repair products: bf16 results, widened afterwards
+    monkeypatch.setattr(ra, "mm32", lambda a, b, dtype: torch.matmul(
+        a.to(dtype), b.to(dtype)).float())
+    rounded = float(np.abs(_tile_out(ra._block_update, *(x.bfloat16() for x in t32))
+                           - ref).max())
+    if scale == 2.0:
+        assert rounded > BF16_FACTOR * jax_err, (rounded, jax_err)

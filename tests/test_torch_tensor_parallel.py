@@ -19,7 +19,9 @@ package:
   it has them (``--fused-ce`` on a tensor mesh, the eval pass under
   sequence, ``--attention-impl ring`` without a sequence axis) and the
   port's own beside them (BART, Mixtral, fsdp with tensor, a tensor size
-  the kv heads do not divide, the eval pass under tensor)."""
+  the kv heads do not divide); the eval pass under tensor parses, and in
+  the CLI run above its generated ids and ROUGE scores equal the JAX
+  ``Trainer``'s eval on the same mesh."""
 
 import json
 import pickle
@@ -100,11 +102,39 @@ TP_FLAGS = ("--mesh", "tensor=2", "--save-every-steps", "2", "--health", "on",
 
 @pytest.fixture(scope="module")
 def tp_run(llama, tmp_path_factory):
+    """The CLI under tensor=2 and the JAX ``Trainer`` on the same mesh,
+    each with the eval pass at the epoch's end over 4 validation records
+    (the JAX evaluator's generated ids and scores recorded)."""
+    from distributed_llms_example_tpu.evaluation import evaluate as jeval
+
     tmp = tmp_path_factory.mktemp("tp_run")
-    argv = cli_argv(llama["ckpt"], llama["train_file"], tmp / "out", *TP_FLAGS)
-    _, logs, result = spawn({"argv": argv, "count_collectives": True}, 2, tmp)
-    hist, params, _ = jax_train(llama["ckpt"], llama["records"], "tensor=2", tmp / "jax")
-    return {"out": tmp / "out", "logs": logs, "result": result, "jax": (hist, params)}
+    val_records = records(4, seed=9)
+    val = tmp / "val.json"
+    val.write_text(json.dumps(val_records))
+    argv = cli_argv(llama["ckpt"], llama["train_file"], tmp / "out", *TP_FLAGS,
+                    "--val-file", str(val))
+    _, logs, result = spawn({"argv": argv, "count_collectives": True, "record_eval": True},
+                            2, tmp)
+    seen: dict = {"ids": [], "scores": []}
+    decode, run = jeval.Evaluator._decode_batch, jeval.Evaluator.run
+
+    def recording_decode(self, ids):
+        seen["ids"].append(np.asarray(ids).copy())
+        return decode(self, ids)
+
+    def recording_run(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        seen["scores"].append(dict(out))
+        return out
+
+    jeval.Evaluator._decode_batch, jeval.Evaluator.run = recording_decode, recording_run
+    try:
+        hist, params, _ = jax_train(llama["ckpt"], llama["records"], "tensor=2", tmp / "jax",
+                                    val_records=val_records)
+    finally:
+        jeval.Evaluator._decode_batch, jeval.Evaluator.run = decode, run
+    return {"out": tmp / "out", "logs": logs, "result": result, "jax": (hist, params),
+            "jax_eval": seen}
 
 
 def test_cli_matches_jax_trainer_on_the_same_mesh(tp_run):
@@ -113,6 +143,22 @@ def test_cli_matches_jax_trainer_on_the_same_mesh(tp_run):
     (report,) = [x for x in lines if x.get("event") == "device_report"]
     assert report["process_count"] == 2 and report["mesh"]["tensor"] == 2
     assert not json_lines(tp_run["logs"][1])  # only process 0 prints
+
+
+def test_eval_under_tensor_matches_jax_trainer(tp_run):
+    """The eval pass under tensor=2 (each rank's cached decode at its 2 of
+    4 heads, the row-parallel outputs all-reduced): the generated ids and
+    the ROUGE scores equal the JAX ``Trainer``'s eval on the same mesh, and
+    only process 0 writes the one ``eval`` line."""
+    port, jax_eval = tp_run["result"]["evals"], tp_run["jax_eval"]
+    assert len(port["ids"]) == len(jax_eval["ids"]) >= 1
+    for got, want in zip(port["ids"], jax_eval["ids"]):
+        np.testing.assert_array_equal(got, want)
+    assert len(port["scores"]) == len(jax_eval["scores"]) == 1
+    for k, v in jax_eval["scores"][0].items():
+        assert port["scores"][0][k] == pytest.approx(v, abs=1e-9), k
+    evals = [x for x in json_lines(tp_run["logs"][0]) if x.get("event") == "eval"]
+    assert len(evals) == 1 and not json_lines(tp_run["logs"][1])
 
 
 def test_replicated_leaves_count_once_in_the_norms(llama, tp_run):
@@ -191,8 +237,9 @@ REFUSALS = {
                                "Mixtral (experts) under ['sequence'] is not ported"),
     "fsdp_with_tensor": (["--mesh", "fsdp=2,tensor=2"], "ROADMAP.md item 6"),
     "kv_heads_ragged": (["--mesh", "tensor=4"], "tensor=4 does not divide {'kv heads': 2}"),
-    "eval_under_tensor": (["--mesh", "tensor=2", "--val-file", "VAL"],
-                          "the eval pass under tensor parallelism is not ported"),
+    # lifted: the eval pass runs under tensor (parses; the run is
+    # test_eval_under_tensor_matches_jax_trainer)
+    "eval_under_tensor": (["--mesh", "tensor=2", "--val-file", "VAL"], None),
 }
 
 
@@ -213,6 +260,10 @@ def test_refusals_at_parse_time(tmp_path, capsys, case):
     argv = ["--device", "cpu", "--model-ckpt", "llama-test", "--train-file", str(train_file),
             "--output-dir", str(tmp_path / "out"), *flags]
     reasons = {c.id: c.reason for c in KNOWN_BAD}
+    if want is None:  # a lifted refusal: the config resolves
+        assert train([*argv, "--dry-run"]) is None
+        assert json.loads(capsys.readouterr().out)["mesh"]["tensor"] == 2
+        return
     with pytest.raises(SystemExit):
         train(argv)
     assert reasons.get(want, want) in capsys.readouterr().err

@@ -13,7 +13,9 @@ unfolded seeds), ``next_mesh`` ([data, fsdp]: the layout a host loss
 rebuilds onto, the trainer's ``_next_mesh_override``), ``count_collectives``
 (each train step's collectives counted by op, with the bytes of the tensor
 each call defines: an all-reduce's, an all-gather's or reduce-scatter's
-output); or ``ckpt``, a checkpoint scenario (``_ckpt``) in place of a run.
+output), ``record_eval`` (each eval's generated ids and scores); or
+``ckpt``, a checkpoint scenario (``_ckpt``) in place of a run; or ``serve``,
+the serve CLI over the group (``_serve``).
 The result: each step's loss and grad norm (and health numerics, when on),
 the final parameters by port name (gathered whole), what
 ``Trainer.train`` returned and the (data, fsdp) layout it ended on."""
@@ -107,6 +109,29 @@ def _count_collectives(spec) -> list | None:
     return steps
 
 
+def _record_eval(spec) -> dict | None:
+    """With ``record_eval``: the ids each eval generated (as this rank
+    decodes them, in order) and what each ``Evaluator.run`` returned."""
+    if not spec.get("record_eval"):
+        return None
+    from distributed_llms_example_tpu_torch.evaluation.evaluate import Evaluator
+
+    seen: dict = {"ids": [], "scores": []}
+    decode, run = Evaluator._decode_batch, Evaluator.run
+
+    def recording_decode(self, ids):
+        seen["ids"].append(ids.copy())
+        return decode(self, ids)
+
+    def recording_run(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        seen["scores"].append(dict(out))
+        return out
+
+    Evaluator._decode_batch, Evaluator.run = recording_decode, recording_run
+    return seen
+
+
 def _loaded(spec):
     from distributed_llms_example_tpu_torch.models.llama import LlamaForCausalLM
     from distributed_llms_example_tpu_torch.models.registry import LoadedModel, load_model
@@ -193,8 +218,9 @@ def _ring_cases(spec: dict, rank: int, world: int) -> dict:
     """``ring``: each case of ``spec["cases"]`` (arrays in the ``.npz``
     ``inputs``, named ``<case>/<array>``) through ``ops/ring_attention.py``
     over a ring of the whole group, this rank holding block ``rank`` of
-    every length; then the cases named in ``planted`` again with every hop
-    sent the wrong way round.  Returns each case's output and its q/k/v
+    every length (a case's ``dtype``, default float32, is q/k/v's); then
+    the cases named in ``planted`` again with every hop sent the wrong way
+    round.  Returns each case's output and its q/k/v
     gradients, the blocks merged in ring order (``cases``, ``planted``)."""
     import numpy as np
 
@@ -210,12 +236,13 @@ def _ring_cases(spec: dict, rank: int, world: int) -> dict:
             a = torch.from_numpy(arrays[f"{case['name']}/{name}"])
             return a.chunk(world, dim=2 if a.dim() == 4 and name != "bias" else -1)[rank]
 
-        q, k, v = (block(x).clone().requires_grad_(True) for x in ("q", "k", "v"))
+        dt = getattr(torch, case.get("dtype", "float32"))
+        q, k, v = (block(x).to(dt).clone().requires_grad_(True) for x in ("q", "k", "v"))
         bias = block("bias").contiguous() if case["bias"] else None
         o = ra.ring_attention(q, k, v, bias, ring=ring, causal=case["causal"])
-        o.backward(block("dout"))
+        o.backward(block("dout").to(dt))
         got = {"out": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
-        return {k2: act.merge_sequence(t.contiguous(), group, world, dim=2)
+        return {k2: act.merge_sequence(t.float().contiguous(), group, world, dim=2)
                 for k2, t in got.items()}
 
     out = {"cases": [run(case) for case in spec["cases"]], "planted": []}
@@ -270,23 +297,131 @@ def _block_case(spec: dict, rank: int, world: int) -> dict:
     return {"out": o.detach(), "dx": x.grad, "grads": grads}
 
 
+def _moe_cases(spec: dict, rank: int, world: int) -> dict:
+    """``moe``: one ``MoEMLP`` (its config and state in the ``torch.save``
+    file ``state``) over batch shards of the whole group, this rank holding
+    row block ``rank`` of each case's ``x`` (the ``.npz`` ``inputs``,
+    ``<case>/x`` and ``<case>/dout``): the output and the input's gradient
+    gathered in row order, the aux summed over the ranks, every weight's
+    gradient summed (the step's all-reduce) of ``(out * dout).sum() +
+    aux_weight * aux``, and the dropped (token, choice) pairs counted; then
+    ``unsharded``, each rank routing its rows alone (the layer before the
+    exchange): its gathered output."""
+    import numpy as np
+
+    from distributed_llms_example_tpu_torch.ops import moe
+
+    saved = torch.load(spec["state"], weights_only=False)
+    arrays = np.load(spec["inputs"])
+    dist = torch.distributed
+    drops: list[torch.Tensor] = []
+    route = moe.MoEMLP.route
+
+    def counting(self, tokens, valid, capacity, exchange):
+        index, combine, aux = route(self, tokens, valid, capacity, exchange)
+        drops.append(((combine == 0).float() * valid[..., None]).sum())
+        return index, combine, aux
+
+    moe.MoEMLP.route = counting
+
+    def gather(t):
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts)
+
+    def run(case, shards):
+        layer = moe.MoEMLP(**saved["config"], group_size=case["group_size"])
+        layer.load_state_dict(saved["state"])
+        moe.attach_batch_shards(layer, shards)
+        x = torch.from_numpy(arrays[f"{case['name']}/x"]).chunk(world)[rank]
+        x = x.clone().requires_grad_(True)
+        drops.clear()
+        out, aux = layer(x)
+        dout = torch.from_numpy(arrays[f"{case['name']}/dout"]).chunk(world)[rank]
+        ((out * dout).sum() + spec["aux_weight"] * aux).backward()
+        totals = torch.stack([aux.detach(), drops[0]])
+        dist.all_reduce(totals)
+        grads = {}
+        for name, p in layer.named_parameters():
+            dist.all_reduce(p.grad)
+            grads[name] = p.grad
+        return {"out": gather(out.detach()), "dx": gather(x.grad), "aux": float(totals[0]),
+                "drops": int(totals[1]), "grads": grads}
+
+    shards = moe.BatchShards(None, world, rank)
+    return {"cases": [run(case, shards) for case in spec["cases"]],
+            "unsharded": [run(case, None)["out"] for case in spec["cases"]]}
+
+
 def _ops(spec: dict, rank: int, out: str) -> None:
-    """A ring-attention or tensor-parallel block scenario (``_ring_cases``,
-    ``_block_case``) over a gloo group of every rank; rank 0 saves it."""
+    """A ring-attention, tensor-parallel block or MoE scenario
+    (``_ring_cases``, ``_block_case``, ``_moe_cases``) over a gloo group of
+    every rank; rank 0 saves it."""
     from distributed_llms_example_tpu_torch.core.mesh import initialize_distributed
 
     world = initialize_distributed(device_type="cpu")
     torch.manual_seed(0)
-    result = (_ring_cases(spec, rank, world) if spec["kind"] == "ring"
-              else _block_case(spec, rank, world))
+    kinds = {"ring": _ring_cases, "block": _block_case, "moe": _moe_cases}
+    result = kinds[spec["kind"]](spec, rank, world)
     if rank == 0:
         torch.save(result, out)
+
+
+# ops that read a value back to the host (a device sync on a card)
+SYNCING_OPS = ("aten::_local_scalar_dense", "aten::item", "aten::nonzero", "aten::is_nonzero",
+               "aten::masked_select")
+
+
+def _serve(spec: dict, rank: int, out: str) -> None:
+    """``serve``: each run's argv through the serve CLI in turn, every rank
+    in one group (gloo, ``--device cpu``).  Rank 0 saves each run's
+    outputs on every rank (all-gathered), the serve summary's fields, the
+    shapes of a fresh slot state of rank 0's engine, and the ops of
+    ``SYNCING_OPS`` that two steady rounds of a fresh session on that
+    engine ran (on a card each would be a sync beside the round's one read
+    of its gathered tokens)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_llms_example_tpu_torch.launch import cli
+    from distributed_llms_example_tpu_torch.ops.mha import kv_leaves
+    from distributed_llms_example_tpu_torch.serving import cache_pool
+
+    runs = []
+    for argv in spec["runs"]:
+        engine, outputs = cli.serve(argv)
+        sess = engine.open()
+        for req in ([5, 6, 7, 8], [9, 10, 11]):
+            sess.submit(req)
+        for _ in range(2):  # the admission and a round, outside the window
+            sess.step()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(2):
+                sess.step()
+        ops = {e.key: e.count for e in prof.key_averages() if e.key in SYNCING_OPS}
+        every = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(every, outputs)
+        state = engine._init_state()
+        trees = state["pool"] if engine.paged else [kv_leaves(c) for c in state["cache"]]
+        stats = engine.last_stats
+        runs.append({"outputs": every, "kv_shapes": [[tuple(x.shape) for x in leaves]
+                                                      for leaves in trees],
+                     "syncing_ops": ops, "steady_rounds": sess.stats.decode_steps,
+                     "bytes_per_live_token": stats.bytes_per_live_token,
+                     "resident": stats.cache_bytes_resident,
+                     "pool_bytes": cache_pool.tree_bytes(state["pool"]) if engine.paged else 0})
+    if rank == 0:
+        torch.save({"runs": runs}, out)
 
 
 def main(path: str) -> None:
     with open(path) as f:
         spec = json.load(f)
     rank = int(os.environ["RANK"])
+    if "serve" in spec:
+        _serve(spec["serve"], rank, spec["out"])
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        return
     if "ops" in spec:
         _ops(spec["ops"], rank, spec["out"])
         if torch.distributed.is_initialized():
@@ -304,6 +439,7 @@ def main(path: str) -> None:
 
     argv = spec["argv"] + spec.get("rank_argv", {}).get(str(rank), [])
     collectives = _count_collectives(spec)
+    evals = _record_eval(spec)
     trainer = train(argv, loaded=_loaded(spec))
     history = [{k: float(m[k]) for k in ("loss", "grad_norm", "target_tokens", "param_norm",
                                          "nonfinite_count") if k in m}
@@ -313,7 +449,7 @@ def main(path: str) -> None:
     if rank == 0:
         torch.save({"history": history, "params": params, "result": trainer.result,
                     "mesh": [trainer.mesh_spec.data, trainer.mesh_spec.fsdp],
-                    "collectives": collectives,
+                    "collectives": collectives, "evals": evals,
                     "comm": trainer.obs._comm_account}, spec["out"])
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
